@@ -1,0 +1,179 @@
+"""E(n)-equivariant graph convolutional layer (EGCL), the port of
+``enflow_tpu/nn/egcl.py``.
+
+Per flow step it returns ``Q [B,N,1]`` (log velocity scale), ``F [B,N,3]``
+(equivariant force) and ``G [B,N,nf]`` (node feature update), zeroed on
+padded atoms.
+
+Two paths compute the same all-pairs function:
+
+- ``apply_egcl``: the plain broadcast path over ``[B, N, N, ·]`` edge
+  tensors. It serves CPU tensors only (the float64 parity tests, and the
+  attention/norm_diff/tanh variants).
+- ``apply_egcl_fused_allpairs``: the edge pipeline through
+  ``ops/egcl_allpairs.py`` — the CUDA kernel on the card, its plain version
+  on the CPU. On a CUDA tensor every all-pairs EGCL goes this way, whatever
+  ``use_pallas`` says: ``False``, ``True``, ``"v1"``, ``"v2"`` and ``"v3"``
+  all name this same function in ``all_pairs`` mode.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .. import resolve_device
+from .mlp import init_linear, apply_linear, init_mlp, apply_mlp, silu
+
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                   "float64": torch.float64}
+
+
+@dataclasses.dataclass(frozen=True)
+class EGCLConfig:
+    node_nf: int
+    hidden_nf: int
+    coords_weight: float = 1.0
+    attention: bool = False
+    norm_diff: bool = False
+    tanh: bool = False
+    # reduced-precision compute for the message-passing internals
+    # (e.g. 'bfloat16'); outputs are cast back to the input dtype
+    compute_dtype: str | None = None
+    # the JAX package's kernel selector; every value names the same
+    # all-pairs function here (see the module docstring)
+    use_pallas: bool | str = False
+
+    @property
+    def edge_in(self) -> int:
+        return 2 * self.node_nf + 1  # [h_i, h_j, |dx|^2]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def init_egcl(gen: torch.Generator, cfg: EGCLConfig, dtype=torch.float32,
+              device=None):
+    """One EGCL's parameters as a nested dict (the JAX pytree layout), on
+    ``device`` (``cuda`` unless the caller asks for another)."""
+    device = resolve_device(device)
+    H, nf = cfg.hidden_nf, cfg.node_nf
+    params = {
+        "edge_nn": init_mlp(gen, [cfg.edge_in, H, H], dtype, device),
+        "node_nn": init_mlp(gen, [H + nf, H, nf], dtype, device),
+        "coord_nn": [
+            init_linear(gen, H, H, dtype, device),
+            init_linear(gen, H, 1, dtype, device, bias=False,
+                        init="xavier_uniform", gain=0.001),
+        ],
+        "vel_scaling_nn": init_mlp(gen, [nf, H, 1], dtype, device),
+    }
+    if cfg.attention:
+        params["att_nn"] = init_linear(gen, H, 1, dtype, device)
+    if cfg.tanh:
+        params["coords_range"] = 3.0 * torch.ones((1,), dtype=dtype,
+                                                  device=device)
+    return params
+
+
+def edge_messages(params, cfg: EGCLConfig, h_i, h_j, coord_diff, valid):
+    """Masked per-edge message ``m [..., I, J, H]`` and clipped gated
+    displacement ``trans [..., I, J, 3]`` (``egcl.py:92-128``)."""
+    radial = (coord_diff * coord_diff).sum(-1, keepdim=True)
+    if cfg.norm_diff:
+        coord_diff = coord_diff / (torch.sqrt(radial) + 1.0)
+    full = h_j.expand(radial.shape[:-1] + (h_j.shape[-1],))
+    h_i = h_i[..., :, None, :].expand(full.shape)
+    edge_in = torch.cat([h_i, full, radial], dim=-1)
+    m = apply_mlp(params["edge_nn"], edge_in, final_act=silu)
+    if cfg.attention:
+        m = m * torch.sigmoid(apply_linear(params["att_nn"], m))
+    zero = torch.zeros((), dtype=m.dtype, device=m.device)
+    m = torch.where(valid[..., None], m, zero)
+    gate = apply_linear(params["coord_nn"][1],
+                        silu(apply_linear(params["coord_nn"][0], m)))
+    if cfg.tanh:
+        gate = torch.tanh(gate) * params["coords_range"]
+    trans = torch.clamp(coord_diff * gate, -100.0, 100.0)
+    trans = torch.where(valid[..., None], trans, zero)
+    return m, trans
+
+
+def node_outputs(params, cfg: EGCLConfig, h, agg, f_sum, count, atom_mask):
+    """Per-node heads from aggregated edge quantities; ``(Q, F, G)``."""
+    am = atom_mask[..., None]
+    zero = torch.zeros((), dtype=h.dtype, device=h.device)
+    G = apply_mlp(params["node_nn"], torch.cat([h, agg], dim=-1))
+    G = torch.where(am, G, zero)
+    F = f_sum / torch.clamp(count, min=1).to(f_sum.dtype)
+    F = torch.where(am, F * cfg.coords_weight, zero)
+    Q = apply_mlp(params["vel_scaling_nn"], h)
+    Q = torch.where(am, Q, zero)
+    return Q, F, G
+
+
+def _cast_compute(params, cfg: EGCLConfig, h):
+    if cfg.compute_dtype is None:
+        return params, h
+    cdt = _COMPUTE_DTYPES[str(cfg.compute_dtype)]
+    return _tree_map(lambda x: x.to(cdt), params), h.to(cdt)
+
+
+def _check_kernel_flags(cfg: EGCLConfig, what: str):
+    if cfg.attention or cfg.norm_diff or cfg.tanh:
+        raise ValueError(
+            f"{what} supports only the default EGCL path; attention/"
+            "norm_diff/tanh must be off")
+
+
+def apply_egcl(params, cfg: EGCLConfig, h, coord_diff, nbr_idx, nbr_mask,
+               atom_mask, all_pairs: bool = False):
+    """Plain EGCL on the all-pairs broadcast path (CPU tensors only).
+
+    ``coord_diff [B,N,N,3]`` min-image displacements ``pos_i - pos_j``,
+    ``nbr_mask [B,N,N]``, ``atom_mask [B,N]``. Returns ``(Q, F, G)``.
+    """
+    if h.is_cuda:
+        raise RuntimeError(
+            "apply_egcl is the plain path and serves CPU tensors only; on "
+            "the card the all-pairs EGCL runs apply_egcl_fused_allpairs")
+    if not all_pairs:
+        raise NotImplementedError(
+            "gathered neighbor lists are not ported yet (ROADMAP queue A "
+            "item 2); use nbr_mode 'all_pairs'")
+    if cfg.use_pallas:
+        _check_kernel_flags(cfg, "use_pallas")
+    in_dtype = h.dtype
+    params, h = _cast_compute(params, cfg, h)
+    coord_diff = coord_diff.to(h.dtype)
+    m, trans = edge_messages(params, cfg, h, h[:, None, :, :], coord_diff,
+                             nbr_mask)
+    count = nbr_mask.sum(dim=2, keepdim=True)
+    Q, F, G = node_outputs(params, cfg, h, m.sum(dim=2), trans.sum(dim=2),
+                           count, atom_mask)
+    return Q.to(in_dtype), F.to(in_dtype), G.to(in_dtype)
+
+
+def apply_egcl_fused_allpairs(params, cfg: EGCLConfig, h, pos, box,
+                              atom_mask):
+    """EGCL through the fused all-pairs edge pipeline
+    (``ops/egcl_allpairs.py``) from raw per-atom state; the same
+    ``(Q, F, G)`` contract as :func:`apply_egcl`."""
+    from ..ops.egcl_allpairs import fused_allpairs_edges
+
+    _check_kernel_flags(cfg, "apply_egcl_fused_allpairs")
+    in_dtype = h.dtype
+    params, h = _cast_compute(params, cfg, h)
+    if h.dtype == torch.float64:
+        raise ValueError(
+            "apply_egcl_fused_allpairs computes in <= f32; for float64 use "
+            "apply_egcl (on the CPU) or set compute_dtype")
+    agg, f_sum, count = fused_allpairs_edges(params, h, pos, box, atom_mask)
+    Q, F, G = node_outputs(params, cfg, h, agg, f_sum, count, atom_mask)
+    return Q.to(in_dtype), F.to(in_dtype), G.to(in_dtype)

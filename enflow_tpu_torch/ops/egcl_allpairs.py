@@ -1,0 +1,313 @@
+"""Fused all-pairs EGCL edge pipeline: the port of
+``enflow_tpu/ops/egcl_fused_v3.py`` (and of the v2 kernel in
+``ops/egcl_fused.py``, which computes the same function).
+
+Contract (``fused_allpairs_edges``): EGCL params, ``h [B,N,nf]`` in the
+compute dtype, ``pos [B,N,3]``, ``box [B,3]``, ``atom_mask [B,N]`` ->
+``(agg [B,N,H], f_sum [B,N,3], count [B,N,1])``, matching
+``edge_messages`` + masked neighbor sums in ``all_pairs`` mode with
+attention/norm_diff/tanh off.
+
+- On a CUDA tensor the forward launches the hand-written kernel
+  ``csrc/egcl_allpairs.cu`` and the backward launches its input-gradient
+  kernel (``dh``, ``dpos``), which recomputes the forward from the inputs —
+  the only residuals the autograd Function saves. There is no fallback: a
+  kernel that does not build or launch raises.
+- On a CPU tensor both directions run the plain PyTorch version below,
+  which repeats the kernel's arithmetic (including where it rounds to the
+  compute dtype) and is what the CPU tests hold against the Pallas kernel.
+
+Parameter gradients are not computed: they come with the training slice
+(ROADMAP queue B item 1), and asking for them raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class LaunchCounts:
+    """Kernel launches (on the card) and plain-version calls (on the CPU)
+    since the last ``reset``."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.fwd_launches = 0
+        self.bwd_launches = 0
+        self.plain_fwd_calls = 0
+        self.plain_bwd_calls = 0
+
+
+counts = LaunchCounts()
+
+
+def split_params(W1, b1, nf: int):
+    """Slice the concat-form first layer ``[2nf+1, H]`` into its h_i / h_j /
+    r^2 rows (``egcl_fused_v3.py:341-344``)."""
+    return W1[:nf], W1[nf:2 * nf], W1[2 * nf:2 * nf + 1], b1[None, :]
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version of the kernel contract
+# ---------------------------------------------------------------------------
+
+def _dot(a, b, out_dtype):
+    """Product with f32 accumulation, rounded to ``out_dtype``."""
+    return (a.float() @ b.float()).to(out_dtype)
+
+
+def _silu(x):
+    xf = x.float()
+    return (xf * torch.sigmoid(xf)).to(x.dtype)
+
+
+def _dsilu(x):
+    xf = x.float()
+    s = torch.sigmoid(xf)
+    return (s * (1.0 + xf * (1.0 - s))).to(x.dtype)
+
+
+def _block(h, pos, box, mask_f, weights):
+    """Forward evaluation over all ``[B, N, N]`` edges (``_fwd_block``)."""
+    W1a, W1b, w1r, b1, W2, b2, W3, b3, w4 = weights
+    cdt = h.dtype
+    N = h.shape[1]
+    cd = pos[:, :, None, :] - pos[:, None, :, :]
+    bx = box[:, None, None, :]
+    cd = cd - torch.round(cd / bx) * bx                       # f32
+    r2 = (cd * cd).sum(-1, keepdim=True)                      # [B,N,N,1]
+    mf = mask_f.float()
+    not_self = 1.0 - torch.eye(N, dtype=torch.float32, device=h.device)
+    valid = (mf[:, :, None] * mf[:, None, :] * not_self)[..., None]
+    validc = valid.to(cdt)
+    zi = _dot(h, W1a, cdt)[:, :, None, :]
+    zj = _dot(h, W1b, cdt)[:, None, :, :]
+    z1 = zi + zj + b1 + r2.to(cdt) * w1r                      # [B,N,N,H]
+    m1 = _silu(z1)
+    z2 = _dot(m1, W2, cdt) + b2
+    m2 = _silu(z2) * validc
+    z3 = _dot(m2, W3, cdt) + b3
+    g1 = _silu(z3)
+    gate = _dot(g1, w4, torch.float32)                        # [B,N,N,1]
+    return cd, valid, validc, z1, z2, m2, z3, gate
+
+
+def allpairs_edges_plain(h, pos, box, mask_f, weights):
+    """Plain forward: ``(agg [B,N,H], f_sum [B,N,3])`` in the compute dtype."""
+    cdt = h.dtype
+    cd, valid, _, _, _, m2, _, gate = _block(h, pos, box, mask_f, weights)
+    trans = torch.clamp(cd * gate, -100.0, 100.0) * valid
+    agg = m2.float().sum(2).to(cdt)
+    fsum = trans.to(cdt).float().sum(2).to(cdt)
+    return agg, fsum
+
+
+def allpairs_edges_plain_bwd(h, pos, box, mask_f, weights, dagg, dfsum):
+    """Plain input-gradient backward (``_bwd_kernel``): ``(dh, dpos)``."""
+    W1a, W1b, w1r, b1, W2, b2, W3, b3, w4 = weights
+    cdt, f32 = h.dtype, torch.float32
+    cd, valid, validc, z1, z2, _, z3, gate = _block(h, pos, box, mask_f,
+                                                    weights)
+    d_m2_agg = dagg.to(cdt)[:, :, None, :]
+    d_trans = dfsum.to(cdt).float()[:, :, None, :]
+    trans_raw = cd * gate
+    inside = ((trans_raw >= -100.0) & (trans_raw <= 100.0)).float()
+    d_trans = d_trans * inside * valid
+    d_gate = (cd * d_trans).sum(-1, keepdim=True)             # f32
+    d_cd = gate * d_trans
+    d_g1 = _dot(d_gate.to(cdt), w4.T, cdt)
+    dz3 = d_g1 * _dsilu(z3)
+    d_m2 = (_dot(dz3, W3.T, cdt) + d_m2_agg) * validc
+    dz2 = d_m2 * _dsilu(z2)
+    dz1 = _dot(dz2, W2.T, cdt) * _dsilu(z1)
+    d_r2 = (dz1.float() * w1r.float()).sum(-1, keepdim=True)
+    d_cd = d_cd + 2.0 * cd * d_r2
+    dz1_i = dz1.float().sum(2)                                # over j
+    dz1_j = dz1.float().sum(1)                                # over i
+    dh = (_dot(dz1_i.to(cdt), W1a.T, f32)
+          + _dot(dz1_j.to(cdt), W1b.T, f32)).to(cdt)
+    d_cd_c = d_cd.to(cdt).float()
+    dpos = d_cd_c.sum(2) - d_cd_c.sum(1)
+    return dh, dpos
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+
+def _library():
+    from .build import load
+    lib = load("egcl_allpairs")
+    if not getattr(lib, "_enflow_bound", False):
+        n_in = 13
+        # dtype, B, N, nf, H, inputs, outputs, stream
+        lib.egcl_allpairs_fwd.argtypes = [_I] * 5 + [_P] * (n_in + 3)
+        lib.egcl_allpairs_fwd.restype = _I
+        lib.egcl_allpairs_bwd.argtypes = [_I] * 5 + [_P] * (n_in + 5)
+        lib.egcl_allpairs_bwd.restype = _I
+        lib.egcl_allpairs_smem_bytes.argtypes = [_I] * 5
+        lib.egcl_allpairs_smem_bytes.restype = _LL
+        lib.egcl_allpairs_smem_limit.argtypes = []
+        lib.egcl_allpairs_smem_limit.restype = _LL
+        lib.egcl_allpairs_error_string.argtypes = [_I]
+        lib.egcl_allpairs_error_string.restype = ctypes.c_char_p
+        lib._enflow_bound = True
+    return lib
+
+
+def _check_inputs(h, pos, box, mask_f, weights):
+    dev = h.device
+    cdt = h.dtype
+    if cdt not in _DTYPE_CODE:
+        raise ValueError(f"the EGCL kernel computes in float32 or bfloat16, "
+                         f"got {cdt}")
+    for name, t in (("pos", pos), ("box", box)):
+        if t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"{name} must be float32 on {dev}")
+    for t in (mask_f, *weights):
+        if t.dtype != cdt or t.device != dev:
+            raise ValueError("mask and weights must be in the compute dtype "
+                             f"{cdt} on {dev}")
+
+
+def _check_fits(lib, code: int, dims, direction: str):
+    """Raise unless one molecule's block (the weights, one chunk of edge
+    rows and the per-atom arrays) fits in the card's shared memory."""
+    B, N, nf, H = dims
+    need = lib.egcl_allpairs_smem_bytes(code, N, nf, H,
+                                        int(direction == "bwd"))
+    if need < 0:
+        raise ValueError(f"egcl_allpairs takes H % 16 == 0 in bfloat16 and "
+                         f"H % 4 == 0 in float32, got B, N, nf, H = {dims}")
+    limit = lib.egcl_allpairs_smem_limit()
+    if need > limit:
+        raise ValueError(
+            f"egcl_allpairs {direction}: a molecule of N={N} atoms at nf={nf},"
+            f" H={H} needs {need} bytes of shared memory, more than the "
+            f"{limit} a block may use; molecules this large are not ported "
+            f"yet (ROADMAP queue B item 1, large N)")
+
+
+def _raise_on(lib, err: int, what: str, dims):
+    if err != 0:
+        msg = lib.egcl_allpairs_error_string(err).decode()
+        raise RuntimeError(f"egcl_allpairs {what} kernel launch failed: "
+                           f"{msg} (error {err}; B, N, nf, H = {dims})")
+
+
+def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
+            dfsum=None):
+    _check_inputs(h, pos, box, mask_f, weights)
+    lib = _library()
+    B, N, nf = h.shape
+    H = weights[4].shape[1]
+    cdt = h.dtype
+    code = _DTYPE_CODE[cdt]
+    dims = (B, N, nf, H)
+    _check_fits(lib, code, dims, direction)
+    # the kernel reads the weights 8 or 16 bytes at a time
+    ins = [t if t.data_ptr() % 16 == 0 else t.clone()
+           for t in (h, pos, box, mask_f, *weights)]
+    stream = _P(torch.cuda.current_stream(h.device).cuda_stream)
+    if direction == "fwd":
+        agg = torch.empty((B, N, H), dtype=cdt, device=h.device)
+        fsum = torch.empty((B, N, 3), dtype=cdt, device=h.device)
+        if B:
+            err = lib.egcl_allpairs_fwd(
+                code, *dims, *[t.data_ptr() for t in ins],
+                agg.data_ptr(), fsum.data_ptr(), stream)
+            _raise_on(lib, err, "forward", dims)
+            counts.fwd_launches += 1
+        return agg, fsum
+    dagg = dagg.to(cdt).contiguous()
+    dfsum = dfsum.to(cdt).contiguous()
+    dh = torch.empty((B, N, nf), dtype=cdt, device=h.device)
+    dpos = torch.empty((B, N, 3), dtype=torch.float32, device=h.device)
+    if B:
+        err = lib.egcl_allpairs_bwd(
+            code, *dims, *[t.data_ptr() for t in ins],
+            dagg.data_ptr(), dfsum.data_ptr(), dh.data_ptr(),
+            dpos.data_ptr(), stream)
+        _raise_on(lib, err, "backward", dims)
+        counts.bwd_launches += 1
+    return dh, dpos
+
+
+def allpairs_edges_fwd(h, pos, box, mask_f, weights):
+    """Forward of the contract: the kernel on the card, the plain version
+    on the CPU."""
+    if h.is_cuda:
+        return _launch("fwd", h, pos, box, mask_f, weights)
+    counts.plain_fwd_calls += 1
+    return allpairs_edges_plain(h, pos, box, mask_f, weights)
+
+
+def allpairs_edges_bwd(h, pos, box, mask_f, weights, dagg, dfsum):
+    """Input-gradient backward: ``(dh [B,N,nf], dpos [B,N,3] f32)``."""
+    if h.is_cuda:
+        return _launch("bwd", h, pos, box, mask_f, weights, dagg, dfsum)
+    counts.plain_bwd_calls += 1
+    return allpairs_edges_plain_bwd(h, pos, box, mask_f, weights, dagg,
+                                    dfsum)
+
+
+class _AllPairsEdges(torch.autograd.Function):
+    """Saves only its inputs; the backward recomputes the forward inside the
+    backward kernel (as the TPU kernel does)."""
+
+    @staticmethod
+    def forward(ctx, h, pos, box, mask_f, *weights):
+        ctx.save_for_backward(h, pos, box, mask_f, *weights)
+        return allpairs_edges_fwd(h, pos, box, mask_f, weights)
+
+    @staticmethod
+    def backward(ctx, dagg, dfsum):
+        h, pos, box, mask_f, *weights = ctx.saved_tensors
+        if dagg is None:
+            dagg = torch.zeros(h.shape[:2] + (weights[4].shape[1],),
+                               dtype=h.dtype, device=h.device)
+        if dfsum is None:
+            dfsum = torch.zeros(pos.shape, dtype=h.dtype, device=h.device)
+        dh, dpos = allpairs_edges_bwd(h, pos, box, mask_f, weights, dagg,
+                                      dfsum)
+        return (dh if ctx.needs_input_grad[0] else None,
+                dpos if ctx.needs_input_grad[1] else None,
+                None, None) + (None,) * len(weights)
+
+
+def fused_allpairs_edges(params, h, pos, box, atom_mask):
+    """Aggregated messages and force sums of one all-pairs EGCL
+    (``fused_allpairs_edges_v3``): ``(agg, f_sum, count)``. ``h`` and the
+    params are in the compute dtype (float32 or bfloat16)."""
+    B, N, nf = h.shape
+    W1, b1 = params["edge_nn"][0]["w"], params["edge_nn"][0]["b"]
+    W2, b2 = params["edge_nn"][1]["w"], params["edge_nn"][1]["b"]
+    W3, b3 = params["coord_nn"][0]["w"], params["coord_nn"][0]["b"]
+    w4 = params["coord_nn"][1]["w"]
+    W1a, W1b, w1r, b1r = split_params(W1, b1, nf)
+    weights = tuple(w.contiguous() for w in
+                    (W1a, W1b, w1r, b1r, W2, b2[None, :], W3, b3[None, :],
+                     w4))
+    if torch.is_grad_enabled() and any(w.requires_grad for w in weights):
+        raise NotImplementedError(
+            "the fused all-pairs EGCL computes input gradients only; its "
+            "parameter gradients come with the training slice (ROADMAP "
+            "queue B item 1)")
+    mask_f = atom_mask.to(h.dtype)
+    agg, fsum = _AllPairsEdges.apply(
+        h.contiguous(), pos.to(torch.float32).contiguous(),
+        box.to(torch.float32).contiguous(), mask_f.contiguous(), *weights)
+    n_real = atom_mask.sum(dim=1, keepdim=True)
+    count = torch.where(atom_mask, n_real - 1, 0)[..., None]
+    return agg, fsum, count

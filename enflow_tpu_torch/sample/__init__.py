@@ -1,0 +1,9 @@
+"""Port of ``enflow_tpu/sample``: flow-proposal SMC/AIS with tempered HMC."""
+
+from . import targets
+from .mcmc import batched_value_and_grad, tempered_hmc_kernel_batched
+from .smc import SMCResult, ais, ess_from_log_weights, smc, systematic_resample
+
+__all__ = ["targets", "batched_value_and_grad", "tempered_hmc_kernel_batched",
+           "SMCResult", "ais", "ess_from_log_weights", "smc",
+           "systematic_resample"]

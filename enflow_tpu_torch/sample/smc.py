@@ -1,0 +1,274 @@
+"""Sequential Monte Carlo and annealed importance sampling, the port of
+``enflow_tpu/sample/smc.py`` (``smc`` and ``ais``; the chunked
+``smc_segments`` is ROADMAP queue A item 8).
+
+Always batched: ``log_q0``/``log_p`` map the whole ``[P, ...]`` particle
+state to ``[P]`` in one call, so the fused EGCL kernel sees every particle
+at once. The component caches of the JAX package are kept, so a run costs
+exactly ``1 + n_temps * mcmc_steps * n_leapfrog`` value-and-grads of each
+density (plus the caller's proposal). Everything outside those
+value-and-grads runs under ``torch.no_grad()`` on detached particles, so no
+autograd graph grows across temperatures. A Python loop takes the place of
+``lax.scan``; ``torch.Generator``s take the place of PRNG keys.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+from .mcmc import (batched_value_and_grad, tempered_hmc_kernel_batched,
+                   tree_map)
+
+
+def ess_from_log_weights(log_w: torch.Tensor) -> torch.Tensor:
+    """Kish effective sample size of normalized importance weights."""
+    log_w = log_w - torch.logsumexp(log_w, dim=0)
+    return torch.exp(-torch.logsumexp(2.0 * log_w, dim=0))
+
+
+def systematic_resample(log_w: torch.Tensor, n: int | None = None, *,
+                        uniform=None, generator: torch.Generator | None = None):
+    """Systematic resampling: ``[n]`` particle indices.
+
+    ``uniform`` is the comb's single ``U(0, 1)`` draw (drawn from
+    ``generator`` when not given); the teeth sit at ``(uniform + k) / n``."""
+    p = log_w.shape[0]
+    n = n or p
+    log_w = log_w - torch.logsumexp(log_w, dim=0)
+    cdf = torch.cumsum(torch.exp(log_w), dim=0)
+    if uniform is None:
+        uniform = torch.rand((), generator=generator, dtype=log_w.dtype,
+                             device=log_w.device)
+    u0 = torch.as_tensor(uniform, dtype=log_w.dtype, device=log_w.device) / n
+    u = u0 + torch.arange(n, dtype=log_w.dtype, device=log_w.device) / n
+    return torch.searchsorted(cdf, u).clamp(0, p - 1)
+
+
+class SMCResult(NamedTuple):
+    particles: object
+    log_weights: torch.Tensor
+    log_Z: torch.Tensor
+    ess_history: torch.Tensor
+    accept_history: torch.Tensor
+    beta_history: torch.Tensor | None = None
+    step_history: torch.Tensor | None = None
+    stage_metric_history: torch.Tensor | None = None
+
+
+def _adaptive_delta(log_w, d, beta_prev, target_ess, n_bisect: int = 26):
+    """Largest temperature increment whose incremental ESS is at least
+    ``target_ess`` (bisection on ``[0, 1 - beta_prev]``)."""
+    hi0 = 1.0 - beta_prev
+
+    def ess_at(delta):
+        return ess_from_log_weights(log_w + delta * d)
+
+    lo, hi = torch.zeros_like(hi0), hi0
+    for _ in range(n_bisect):
+        mid = 0.5 * (lo + hi)
+        ok = ess_at(mid) >= target_ess
+        lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
+    return torch.where(ess_at(hi0) >= target_ess, hi0, lo)
+
+
+def _init_component_caches(log_q0, log_p, x0, mcmc_steps):
+    """Values (and, when HMC will run, gradients) of both density
+    components at the initial particles."""
+    if mcmc_steps > 0:
+        lq0, glq0 = batched_value_and_grad(log_q0)(x0)
+        lp, glp = batched_value_and_grad(log_p)(x0)
+        return lq0, lp, glq0, glp
+    return log_q0(x0), log_p(x0), None, None
+
+
+def _ensemble_mass(x):
+    """Per-coordinate momentum scales from the ensemble: the std across
+    particles, floored at 5% of the leaf RMS."""
+    def leaf_mass(a):
+        s = a.std(dim=0, unbiased=False)
+        rms = torch.sqrt((a * a).mean())
+        return torch.maximum(s, 0.05 * rms + 1e-6)
+    return tree_map(leaf_mass, x)
+
+
+def _rejuvenate(gen, x, beta, vals, grads, *, log_q0, log_p, mcmc_steps,
+                step_size, n_leapfrog, mass=None):
+    """``mcmc_steps`` tempered-HMC sweeps threading the component caches.
+    Returns ``(x, mean_accept, vals, grads)``."""
+    if mcmc_steps <= 0:
+        return x, 0.0, vals, grads
+    vgq = batched_value_and_grad(log_q0)
+    vgp = batched_value_and_grad(log_p)
+    acc = 0.0
+    for _ in range(mcmc_steps):
+        x, accepted, vals, grads = tempered_hmc_kernel_batched(
+            gen, x, vgq, vgp, beta, step_size, n_leapfrog, vals, grads,
+            mass=mass)
+        acc = acc + accepted.to(vals[0].dtype).mean()
+    return x, acc / mcmc_steps, vals, grads
+
+
+def _adapted_step(step_size, accept, target_accept, gain: float = 1.0):
+    return step_size * torch.exp(gain * (accept - target_accept))
+
+
+def _take(tree, idx):
+    return None if tree is None else tree_map(lambda a: a[idx], tree)
+
+
+def _make_anneal_step(log_q0, log_p, *, P, adaptive, target_ess_frac,
+                      mcmc_steps, n_leapfrog, resample_threshold, adapt_step,
+                      target_accept, precondition):
+    """The per-temperature SMC transition ``(carry, (beta, beta_prev, gen))
+    -> (carry, (ess, accept, beta, eps))``."""
+
+    def anneal_step(carry, inputs):
+        (x, log_w, log_z, beta_carry, eps,
+         lq0_x, lp_x, glq0_x, glp_x) = carry
+        beta_sched, beta_prev_sched, gen = inputs
+        d = lp_x - lq0_x
+        if adaptive:
+            beta_prev = beta_carry
+            delta = _adaptive_delta(log_w, d, beta_prev, target_ess_frac * P)
+            beta = beta_prev + delta
+        else:
+            beta, beta_prev = beta_sched, beta_prev_sched
+            delta = beta - beta_prev
+        log_w = log_w + delta * d
+        lse = torch.logsumexp(log_w, dim=0)
+        log_z = log_z + lse
+        log_w = log_w - lse
+        ess = ess_from_log_weights(log_w)
+
+        # adaptive systematic resampling, caches gathered alongside; the
+        # comb is drawn every stage (as the JAX key split is) and applied
+        # as the identity gather when no resampling is due
+        resample_now = ess < resample_threshold * P
+        if adaptive:
+            resample_now = resample_now | (beta < 1.0 - 1e-9)
+        idx = systematic_resample(log_w, generator=gen)
+        idx = torch.where(resample_now, idx,
+                          torch.arange(P, device=idx.device))
+        x, lq0_x, lp_x = _take(x, idx), lq0_x[idx], lp_x[idx]
+        glq0_x, glp_x = _take(glq0_x, idx), _take(glp_x, idx)
+        log_w = torch.where(resample_now,
+                            torch.full_like(log_w, -math.log(P)), log_w)
+
+        x, acc, (lq0_x, lp_x), (glq0_x, glp_x) = _rejuvenate(
+            gen, x, beta, (lq0_x, lp_x), (glq0_x, glp_x),
+            log_q0=log_q0, log_p=log_p, mcmc_steps=mcmc_steps,
+            step_size=eps, n_leapfrog=n_leapfrog,
+            mass=_ensemble_mass(x) if precondition else None)
+        acc = torch.as_tensor(acc, dtype=log_w.dtype, device=log_w.device)
+        eps_next = (_adapted_step(eps, acc, target_accept)
+                    if (adapt_step and mcmc_steps > 0) else eps)
+        return ((x, log_w, log_z, beta, eps_next,
+                 lq0_x, lp_x, glq0_x, glp_x), (ess, acc, beta, eps))
+
+    return anneal_step
+
+
+def _schedule(n_temps, betas, dtype, device):
+    if betas is None:
+        betas = torch.linspace(1.0 / n_temps, 1.0, n_temps, dtype=dtype,
+                               device=device)
+    else:
+        betas = torch.as_tensor(betas, dtype=dtype, device=device)
+    betas_prev = torch.cat([torch.zeros((1,), dtype=dtype, device=device),
+                            betas[:-1]])
+    return betas, betas_prev
+
+
+def _stage_generators(gen: torch.Generator, n: int, device):
+    """One generator per stage, seeded from ``gen`` (the JAX key split)."""
+    seeds = torch.randint(0, 2 ** 62, (n,), generator=gen,
+                          device=gen.device).tolist()
+    out = []
+    for s in seeds:
+        g = torch.Generator(device=device)
+        g.manual_seed(int(s))
+        out.append(g)
+    return out
+
+
+def _state_meta(x0):
+    leaf = x0[sorted(x0)[0]] if isinstance(x0, dict) else x0
+    return leaf.shape[0], leaf.dtype, leaf.device
+
+
+@torch.no_grad()
+def smc(gen: torch.Generator, x0, *, log_q0: Callable, log_p: Callable,
+        n_temps: int = 10, betas=None, adaptive: bool = False,
+        target_ess_frac: float = 0.6, mcmc_steps: int = 2, step_size=0.05,
+        n_leapfrog: int = 5, resample_threshold: float = 0.5,
+        adapt_step: bool = False, target_accept: float = 0.65,
+        precondition: bool = False) -> SMCResult:
+    """Tempered SMC from proposal samples ``x0 [P, ...]`` to the target
+    ``log_p``, over ``log pi_beta = (1-beta) log_q0 + beta log_p``; the
+    arguments are those of the JAX package's ``smc`` (always batched).
+    ``log_Z`` estimates ``log(Z_p / Z_q0)``."""
+    P, dtype, device = _state_meta(x0)
+    if betas is not None:
+        n_temps = len(betas)
+    betas, betas_prev = _schedule(n_temps, betas, dtype, device)
+    caches = _init_component_caches(log_q0, log_p, x0, mcmc_steps)
+    step = _make_anneal_step(
+        log_q0, log_p, P=P, adaptive=adaptive,
+        target_ess_frac=target_ess_frac, mcmc_steps=mcmc_steps,
+        n_leapfrog=n_leapfrog, resample_threshold=resample_threshold,
+        adapt_step=adapt_step, target_accept=target_accept,
+        precondition=precondition)
+    zero = torch.zeros((), dtype=dtype, device=device)
+    carry = (x0, torch.full((P,), -math.log(P), dtype=dtype, device=device),
+             zero, zero, torch.as_tensor(step_size, dtype=dtype,
+                                         device=device)) + caches
+    hist = []
+    gens = _stage_generators(gen, n_temps, device)
+    for k in range(n_temps):
+        carry, h = step(carry, (betas[k], betas_prev[k], gens[k]))
+        hist.append(h)
+    ess_h, acc_h, beta_h, step_h = (torch.stack(c) for c in zip(*hist))
+    return SMCResult(particles=carry[0], log_weights=carry[1],
+                     log_Z=carry[2], ess_history=ess_h, accept_history=acc_h,
+                     beta_history=beta_h, step_history=step_h)
+
+
+@torch.no_grad()
+def ais(gen: torch.Generator, x0, *, log_q0: Callable, log_p: Callable,
+        n_temps: int = 10, betas=None, mcmc_steps: int = 2, step_size=0.05,
+        n_leapfrog: int = 5, adapt_step: bool = False,
+        target_accept: float = 0.65,
+        precondition: bool = False) -> SMCResult:
+    """Annealed importance sampling: the SMC machinery without resampling;
+    ``log_Z`` is ``logmeanexp(log_w)``."""
+    P, dtype, device = _state_meta(x0)
+    if betas is not None:
+        n_temps = len(betas)
+    betas, betas_prev = _schedule(n_temps, betas, dtype, device)
+    lq0_x, lp_x, glq0_x, glp_x = _init_component_caches(log_q0, log_p, x0,
+                                                        mcmc_steps)
+    x = x0
+    log_w = torch.zeros((P,), dtype=dtype, device=device)
+    eps = torch.as_tensor(step_size, dtype=dtype, device=device)
+    ess_h, acc_h, step_h = [], [], []
+    for k, g in enumerate(_stage_generators(gen, n_temps, device)):
+        log_w = log_w + (betas[k] - betas_prev[k]) * (lp_x - lq0_x)
+        x, acc, (lq0_x, lp_x), (glq0_x, glp_x) = _rejuvenate(
+            g, x, betas[k], (lq0_x, lp_x), (glq0_x, glp_x),
+            log_q0=log_q0, log_p=log_p, mcmc_steps=mcmc_steps,
+            step_size=eps, n_leapfrog=n_leapfrog,
+            mass=_ensemble_mass(x) if precondition else None)
+        acc = torch.as_tensor(acc, dtype=dtype, device=device)
+        step_h.append(eps)
+        if adapt_step and mcmc_steps > 0:
+            eps = _adapted_step(eps, acc, target_accept)
+        ess_h.append(ess_from_log_weights(log_w))
+        acc_h.append(acc)
+    log_z = torch.logsumexp(log_w, dim=0) - math.log(P)
+    return SMCResult(particles=x, log_weights=log_w, log_Z=log_z,
+                     ess_history=torch.stack(ess_h),
+                     accept_history=torch.stack(acc_h),
+                     step_history=torch.stack(step_h))

@@ -1,0 +1,63 @@
+"""Boltzmann targets, the port of ``enflow_tpu/sample/targets.py``.
+
+Batched over particles: ``log_prob(x [P, N, 3]) -> [P]``. Ported:
+``Target``, ``regularize_energy`` and ``lj_cluster``; the fluid, double-well,
+Gaussian and force-field targets are ROADMAP queue A item 4.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from ..sim.potentials import lj_energy
+
+
+@dataclasses.dataclass(frozen=True)
+class Target:
+    """A Boltzmann target: batched ``log_prob(x [P, ...]) -> [P]``."""
+
+    log_prob: Callable
+    dim: tuple
+    name: str = "target"
+
+
+def regularize_energy(u: torch.Tensor, e_high: float) -> torch.Tensor:
+    """Log-cap high energies: linear below ``e_high``, logarithmic above
+    (the untaken branch is clamped so its gradient stays finite)."""
+    return torch.where(u > e_high,
+                       e_high + torch.log1p(torch.clamp(u - e_high, min=0.0)),
+                       u)
+
+
+def lj_cluster(n: int, kBT: float = 1.0, epsilon: float = 1.0,
+               sigma: float = 1.0, c_osc: float = 0.5,
+               softening: float = 0.0, e_cap: float | None = None) -> Target:
+    """LJ_n cluster: ``U = LJ + c_osc * sum |x - com|^2`` over ``[P, n, 3]``.
+
+    ``softening`` uses the soft-core ``r^2 + s`` form; ``e_cap`` caps the
+    PAIR energy only (the harmonic confinement stays exact; see the JAX
+    package's ``lj_cluster`` for why)."""
+
+    def log_prob(x: torch.Tensor) -> torch.Tensor:
+        com = x.mean(dim=-2, keepdim=True)
+        if softening == 0.0:
+            u = lj_energy(x, epsilon=epsilon, sigma=sigma)
+        else:
+            diff = x[..., :, None, :] - x[..., None, :, :]
+            d2 = (diff * diff).sum(-1)
+            valid = torch.triu(torch.ones((n, n), dtype=torch.bool,
+                                          device=x.device), diagonal=1)
+            one = torch.ones((), dtype=x.dtype, device=x.device)
+            r_sq = torch.where(valid, d2, one) + softening
+            r6 = r_sq * r_sq * r_sq
+            e = 4.0 * epsilon * (1.0 / (r6 * r6) - 1.0 / r6)
+            u = torch.where(valid, e, torch.zeros_like(e)).sum(dim=(-1, -2))
+        if e_cap is not None:
+            u = regularize_energy(u, e_cap)
+        u = u + c_osc * ((x - com) ** 2).sum(dim=(-1, -2))
+        return -u / kBT
+
+    return Target(log_prob=log_prob, dim=(n, 3), name=f"lj{n}")

@@ -1,0 +1,104 @@
+"""The port's driver end to end on the CPU, its device rule, and import
+hygiene (the port and ``chip_smoke.py`` import neither JAX nor the JAX
+package)."""
+
+import pathlib
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from enflow_tpu_torch import resolve_device
+from enflow_tpu_torch.__main__ import main as cli_main
+from enflow_tpu_torch.train.driver import Main
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+YAML = """\
+mode: sample
+units: {{time: pico, dist: ang}}
+precision: float32
+seed: 3
+dynamics:
+  n_iter: 2
+  dt: 0.1
+  integrator: LF
+  nbr_mode: all_pairs
+  compute_dtype: {cdt}
+  network: {{hidden_nf: 8, node_nf: 3, use_pallas: {kernel}}}
+sampling:
+  algo: {algo}
+  n_particles: 32
+  n_temps: 3
+  mcmc_steps: 1
+  step_size: 0.02
+  n_leapfrog: 2
+  output: {out}
+  target: {{type: lj_cluster, n_atoms: 4, kBT: 2.0, c_osc: 0.5}}
+"""
+
+# the keys the JAX driver writes for an lj_cluster SMC/AIS run
+SMC_KEYS = {"pos", "vel", "h", "g", "log_weights", "log_Z", "ess_history",
+            "beta_history"}
+
+
+@pytest.mark.parametrize("algo,cdt,kernel", [("smc", "null", "v3"),
+                                             ("ais", "bfloat16", "false")])
+def test_driver_sample_cpu(tmp_path, capsys, algo, cdt, kernel):
+    out = tmp_path / "samples.npz"
+    cfg = tmp_path / "sample.yaml"
+    cfg.write_text(YAML.format(algo=algo, cdt=cdt, kernel=kernel, out=out))
+    res = Main(device="cpu")(str(cfg))
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith(f"sampled 32 particles -> {out}  log_Z=")
+    with np.load(out) as z:
+        keys = set(z.files)
+        assert keys == (SMC_KEYS if algo == "smc"
+                        else SMC_KEYS - {"beta_history"})
+        assert z["pos"].shape == (32, 4, 3) and z["h"].shape == (32, 4, 3)
+        assert np.isfinite(z["log_Z"]) and np.isfinite(z["pos"]).all()
+        if algo == "smc":
+            assert z["beta_history"][-1] == pytest.approx(1.0)
+    assert res.particles["pos"].device.type == "cpu"
+
+
+def test_driver_rejects_unported_modes(tmp_path):
+    cfg = tmp_path / "train.yaml"
+    cfg.write_text("mode: train\n")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Main(device="cpu")(str(cfg))
+    cfg.write_text(YAML.format(algo="remc", cdt="null", kernel="false",
+                               out=tmp_path / "x.npz"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Main(device="cpu")(str(cfg))
+
+
+def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):
+    assert resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card rule is moot")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Main()
+    cfg = tmp_path / "sample.yaml"
+    cfg.write_text(YAML.format(algo="smc", cdt="null", kernel="v3",
+                               out=tmp_path / "x.npz"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_main([str(cfg)])
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+enflow_tpu\.|"
+    r"from\s+enflow_tpu\.|from\s+enflow_tpu\s+import|import\s+enflow_tpu\s*$)",
+    re.M)
+
+
+def test_port_imports_no_jax():
+    files = sorted((ROOT / "enflow_tpu_torch").rglob("*.py"))
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_mutants.py"]
+    assert len(files) > 20
+    for f in files:
+        hits = _FORBIDDEN.findall(f.read_text())
+        assert not hits, f"{f.relative_to(ROOT)} imports {hits}"

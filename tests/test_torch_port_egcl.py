@@ -1,0 +1,166 @@
+"""Port parity: the EGCL and the fused all-pairs edge contract.
+
+- The port's plain EGCL against ``enflow_tpu.nn.egcl.apply_egcl`` in
+  ``all_pairs`` mode at float64 (tolerance: float64 round-off).
+- The plain PyTorch version of the CUDA kernel's contract
+  (``enflow_tpu_torch.ops.egcl_allpairs``, which is what a CPU tensor runs)
+  against the Pallas kernels K1/K2 of ``enflow_tpu/ops/egcl_fused_v3.py`` in
+  interpret mode, forward and input-gradient VJP, at the tolerances of
+  ``tests/test_egcl_fused.py`` (f32) and its bf16 tolerance.
+
+Inputs are made with numpy from a seed and fed to both packages.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from enflow_tpu.data.neighbors import neighbors_with_diffs as j_nbrs
+from enflow_tpu.nn.egcl import EGCLConfig as JEGCLConfig
+from enflow_tpu.nn.egcl import apply_egcl as j_apply_egcl
+from enflow_tpu.nn.egcl import init_egcl as j_init_egcl
+from enflow_tpu.ops.egcl_fused_v3 import fused_allpairs_edges_v3
+
+from enflow_tpu_torch.data.neighbors import neighbors_with_diffs
+from enflow_tpu_torch.nn.egcl import (EGCLConfig, apply_egcl,
+                                      apply_egcl_fused_allpairs)
+from enflow_tpu_torch.ops import egcl_allpairs as ops
+from enflow_tpu_torch.utils.jax_params import from_jax_params
+
+N, NF, H = 5, 4, 16
+
+
+def _inputs(B, pbc, seed=0, dtype=np.float64):
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(B, N, NF))
+    if pbc:
+        box = np.full((B, 3), 2.5)
+        pos = rng.uniform(-3.0, 3.0, size=(B, N, 3))
+    else:
+        box = np.full((B, 3), 1e3)
+        pos = rng.normal(size=(B, N, 3))
+    mask = np.ones((B, N), bool)
+    mask[0, -1] = False
+    if B > 3:
+        mask[3, -2:] = False
+    h[~mask] = 0.0
+    pos[~mask] = 0.0
+    return h.astype(dtype), pos.astype(dtype), box.astype(dtype), mask
+
+
+def _t(a, dtype=None):
+    t = torch.from_numpy(np.array(a))
+    return t if dtype is None else t.to(dtype)
+
+
+@pytest.mark.parametrize("pbc", [False, True])
+def test_plain_egcl_matches_jax_f64(pbc):
+    B = 4
+    h, pos, box, mask = _inputs(B, pbc)
+    jp = j_init_egcl(jax.random.PRNGKey(3), JEGCLConfig(NF, H), jnp.float64)
+    r_cut = np.full((B,), 1e2)
+    nb, cd = j_nbrs(jnp.asarray(pos), jnp.asarray(box), jnp.asarray(mask),
+                    jnp.asarray(r_cut), mode="all_pairs")
+    want = j_apply_egcl(jp, JEGCLConfig(NF, H), jnp.asarray(h), cd, nb.idx,
+                        nb.mask, jnp.asarray(mask), all_pairs=True)
+
+    tnb, tcd = neighbors_with_diffs(_t(pos), _t(box), _t(mask))
+    got = apply_egcl(from_jax_params(jp, device="cpu"), EGCLConfig(NF, H),
+                     _t(h), tcd, tnb.idx, tnb.mask, _t(mask), all_pairs=True)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-10,
+                                   atol=1e-12)
+
+
+def _contract_case(B, pbc, cdt_j, cdt_t, mol_tile):
+    h, pos, box, mask = _inputs(B, pbc, seed=1, dtype=np.float32)
+    jp = j_init_egcl(jax.random.PRNGKey(5), JEGCLConfig(NF, H), jnp.float32)
+    jp = jax.tree_util.tree_map(lambda x: x.astype(cdt_j), jp)
+    rng = np.random.default_rng(2)
+    c_agg = rng.normal(size=(B, N, H)).astype(np.float32)
+    c_fs = rng.normal(size=(B, N, 3)).astype(np.float32)
+    jh = jnp.asarray(h).astype(cdt_j)
+    jpos, jbox, jmask = jnp.asarray(pos), jnp.asarray(box), jnp.asarray(mask)
+
+    def jloss(hh, pp):
+        a, f, _ = fused_allpairs_edges_v3(jp, hh, pp, jbox, jmask,
+                                          mol_tile=mol_tile)
+        return ((a.astype(jnp.float32) * c_agg).sum()
+                + (f.astype(jnp.float32) * c_fs).sum())
+
+    ja, jf, jc = fused_allpairs_edges_v3(jp, jh, jpos, jbox, jmask,
+                                         mol_tile=mol_tile)
+    jgh, jgp = jax.grad(jloss, argnums=(0, 1))(jh, jpos)
+
+    tp = from_jax_params(jax.tree_util.tree_map(
+        lambda x: np.asarray(x.astype(jnp.float32)), jp), dtype=cdt_t,
+        device="cpu")
+    th = _t(np.asarray(jh.astype(jnp.float32)), cdt_t).requires_grad_(True)
+    tpos = _t(pos).requires_grad_(True)
+    ta, tf, tc = ops.fused_allpairs_edges(tp, th, tpos, _t(box), _t(mask))
+    loss = ((ta.float() * _t(c_agg)).sum() + (tf.float() * _t(c_fs)).sum())
+    tgh, tgp = torch.autograd.grad(loss, (th, tpos))
+
+    f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))
+    return ((f32(ja), ta), (f32(jf), tf), (f32(jgh), tgh), (f32(jgp), tgp),
+            np.asarray(jc), tc)
+
+
+@pytest.mark.parametrize("B,mol_tile", [(6, 16), (7, 4)])
+@pytest.mark.parametrize("pbc", [False, True])
+def test_contract_matches_pallas_f32(B, mol_tile, pbc):
+    fwd_a, fwd_f, g_h, g_pos, jc, tc = _contract_case(
+        B, pbc, jnp.float32, torch.float32, mol_tile)
+    for want, got in (fwd_a, fwd_f):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=2e-5,
+                                   atol=2e-6)
+    np.testing.assert_array_equal(tc.numpy(), jc)
+    for want, got in (g_h, g_pos):
+        np.testing.assert_allclose(got.numpy(), want, rtol=5e-5, atol=5e-6)
+
+
+def test_contract_matches_pallas_bf16():
+    fwd_a, fwd_f, g_h, g_pos, _, _ = _contract_case(
+        7, True, jnp.bfloat16, torch.bfloat16, 4)
+    assert fwd_a[1].dtype == torch.bfloat16 and g_h[1].dtype == torch.bfloat16
+    assert g_pos[1].dtype == torch.float32
+    for want, got in (fwd_a, fwd_f, g_h, g_pos):
+        np.testing.assert_allclose(got.detach().float().numpy(), want,
+                                   rtol=0.15, atol=0.05)
+
+
+def test_plain_path_counts_and_padded_atoms():
+    h, pos, box, mask = _inputs(5, False, dtype=np.float32)
+    jp = j_init_egcl(jax.random.PRNGKey(5), JEGCLConfig(NF, H), jnp.float32)
+    tp = from_jax_params(jp, device="cpu")
+    ops.counts.reset()
+    th = _t(h).requires_grad_(True)
+    tpos = _t(pos).requires_grad_(True)
+    agg, fsum, _ = ops.fused_allpairs_edges(tp, th, tpos, _t(box), _t(mask))
+    (agg.sum() + fsum.sum()).backward()
+    assert (ops.counts.plain_fwd_calls, ops.counts.plain_bwd_calls) == (1, 1)
+    assert (ops.counts.fwd_launches, ops.counts.bwd_launches) == (0, 0)
+    pad = ~_t(mask)
+    for t in (agg, fsum, th.grad, tpos.grad):
+        assert float(t.detach()[pad].abs().max()) == 0.0
+
+
+def test_contract_rejects_weight_grads_and_f64():
+    h, pos, box, mask = _inputs(3, False, dtype=np.float32)
+    jp = j_init_egcl(jax.random.PRNGKey(5), JEGCLConfig(NF, H), jnp.float32)
+    tp = from_jax_params(jp, device="cpu")
+    tp["edge_nn"][1]["w"].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        ops.fused_allpairs_edges(tp, _t(h), _t(pos), _t(box), _t(mask))
+    tp64 = from_jax_params(jp, dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="float64"):
+        apply_egcl_fused_allpairs(tp64, EGCLConfig(NF, H),
+                                  _t(h, torch.float64), _t(pos, torch.float64),
+                                  _t(box, torch.float64), _t(mask))
+    with pytest.raises(ValueError, match="attention"):
+        apply_egcl_fused_allpairs(tp, EGCLConfig(NF, H, attention=True),
+                                  _t(h), _t(pos), _t(box), _t(mask))
