@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Mutation check of ``chip_smoke.py``'s kernel-vs-plain tolerance, on one
-CUDA card: ``python3 chip_mutants.py`` from the repository root.
+"""Mutation check of ``chip_smoke.py``'s kernel-vs-plain tolerances, on one
+CUDA card: ``python3 chip_mutants.py [GROUP ...]`` from the repository root
+(groups: ``egcl_allpairs``, ``edge_pipeline``, ``pair_energy``; all by
+default).
 
 For each mutant below, the package and ``chip_smoke.py`` are copied into a
-temporary directory, one deliberate fault is written into the copy's
-``csrc/egcl_allpairs.cu``, and a fresh process builds that copy and prints
-max |kernel - plain| / max |plain| per output at ``chip_smoke.py``'s main
-and ragged shapes, bf16 and f32 -- the reading ``chip_smoke.py`` holds
-against ``TOL``. The unmutated source runs first as the control. The
-checkout itself is never modified.
+temporary directory, one deliberate fault is written into the copy's CUDA
+source, and a fresh process builds that copy and prints max |kernel -
+plain| / max |plain| per output at ``chip_smoke.py``'s shapes -- the
+reading ``chip_smoke.py`` holds against its tolerances (a non-finite
+output reads as infinite). Each group's unmutated source runs first as the
+control. The checkout itself is never modified.
 """
 
 import shutil
@@ -18,46 +20,94 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-SRC = "enflow_tpu_torch/csrc/egcl_allpairs.cu"
 
-# name -> (text in the source, its replacement)
+# group -> {name: None (control) or (text in the source, its replacement)}
 MUTANTS = {
-    "control": None,
-    "j-side sums drop each chunk's last row": (
-        "for (int r = q; r < nrows; r += N)",
-        "for (int r = q; r < nrows - 1; r += N)"),
-    "i-side sums drop each chunk's last row": (
-        "for (int r = lo; r < hi; ++r)",
-        "for (int r = lo; r < hi - (hi == nrows); ++r)"),
-    "valid ignores mask_j (padded neighbours count)": (
-        "s.valid[r] = s.mask[i] * s.mask[j] *",
-        "s.valid[r] = s.mask[i] *"),
-    "r2 not rounded to the compute dtype before w1r": (
-        "rnd<T>(rnd<T>(s.r2[r]) * s.w1r[c])",
-        "rnd<T>(s.r2[r] * s.w1r[c])"),
+    "egcl_allpairs": {
+        "control": None,
+        "j-side sums drop each chunk's last row": (
+            "for (int r = q; r < nrows; r += N)",
+            "for (int r = q; r < nrows - 1; r += N)"),
+        "i-side sums drop each chunk's last row": (
+            "for (int r = lo; r < hi; ++r)",
+            "for (int r = lo; r < hi - (hi == nrows); ++r)"),
+        "valid ignores mask_j (padded neighbours count)": (
+            "s.valid[r] = s.mask[i] * s.mask[j] *",
+            "s.valid[r] = s.mask[i] *"),
+        "r2 not rounded to the compute dtype before w1r": (
+            "rnd<T>(rnd<T>(s.r2[r]) * s.w1r[c])",
+            "rnd<T>(s.r2[r] * s.w1r[c])"),
+    },
+    "edge_pipeline": {
+        "control": None,
+        "K5: the K-sums drop each chunk's last row": (
+            "for (int r = 0; r < nrows; ++r)",
+            "for (int r = 0; r < nrows - 1; ++r)"),
+        "K6: the clip mask made inclusive": (
+            "(pre > -100.f && pre < 100.f)",
+            "(pre >= -100.f && pre <= 100.f)"),
+        "m1 not rounded to the compute dtype": (
+            "X[idx] = rnd<T>(silu_f(z));",
+            "X[idx] = silu_f(z);"),
+        "dgate not rounded to the compute dtype": (
+            "s.dgr[r] = rnd<T>(dgate);",
+            "s.dgr[r] = dgate;"),
+    },
+    "pair_energy": {
+        "control": None,
+        "min-image with roundf (half away from zero)": (
+            "rintf(dk / bx[k])", "roundf(dk / bx[k])"),
+        "d2 = 0 pairs counted": (
+            "mi * cmask[q] > 0.f && d2 > 0.f", "mi * cmask[q] > 0.f"),
+    },
 }
 
-READ = """
+HEAD = """
 import sys, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
+def report(label, errs, tol):
+    worst = max(r for _, r in errs.values())
+    print(f"  {label}: " + "  ".join(f"{n} {r:.2e}" for n, (_, r) in
+          errs.items()) + f"  | max {worst:.2e} vs tol {tol:g} -> "
+          + ("caught" if worst > tol else "passes"), flush=True)
+"""
+
+READ = {
+    "egcl_allpairs": HEAD + """
 from enflow_tpu_torch.ops import egcl_allpairs as ops
 for sname, shape in (("main", cs.MAIN), ("ragged", cs.RAGGED)):
     for dname, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        h, pos, box, mf, W, dagg, dfsum, _ = cs.edge_inputs(shape, dt, seed=11)
+        h, pos, box, mf, W, dagg, dfs, _ = cs.edge_inputs(shape, dt, seed=11)
         k = (ops.allpairs_edges_fwd(h, pos, box, mf, W)
-             + ops.allpairs_edges_bwd(h, pos, box, mf, W, dagg, dfsum))
+             + ops.allpairs_edges_bwd(h, pos, box, mf, W, dagg, dfs))
         p = (ops.allpairs_edges_plain(h, pos, box, mf, W)
-             + ops.allpairs_edges_plain_bwd(h, pos, box, mf, W, dagg, dfsum))
-        rel = {n: float((a.float() - b.float()).abs().max())
-               / max(float(b.float().abs().max()), 1e-6)
-               for n, a, b in zip(("agg", "f_sum", "dh", "dpos"), k, p)}
-        worst = max(rel.values())
-        print(f"  {sname} {dname}: " + "  ".join(
-            f"{n} {r:.2e}" for n, r in rel.items())
-            + f"  | max {worst:.2e} vs tol {cs.TOL[dname]:g} -> "
-            + ("caught" if worst > cs.TOL[dname] else "passes"), flush=True)
-"""
+             + ops.allpairs_edges_plain_bwd(h, pos, box, mf, W, dagg, dfs))
+        report(f"{sname} {dname}", cs.rel_errs(("agg", "f_sum", "dh", "dpos"),
+               k, p), cs.TOL[dname])
+""",
+    "edge_pipeline": HEAD + """
+from enflow_tpu_torch.ops import edge_pipeline as ep
+for sname, shape in cs.EDGE_SHAPES.items():
+    for dname, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        e, cd, em, W, dagg, dfs, _ = cs.gathered_inputs(shape, dt, seed=13)
+        k = (ep.edge_pipeline_fwd(e, cd, em, W)
+             + ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs))
+        p = (ep.edge_pipeline_plain(e, cd, em, *W)
+             + ep.edge_pipeline_plain_bwd(e, cd, em, *W, dagg, dfs))
+        report(f"{sname} {dname}", cs.rel_errs(cs.EDGE_OUT, k, p),
+               cs.TOL_EDGE[dname])
+""",
+    "pair_energy": HEAD + """
+from enflow_tpu_torch.ops import pair_energy as pe
+for sname, shape in cs.PAIR_SHAPES.items():
+    pos, mask, box = cs.pair_inputs(shape, seed=17)
+    args = (pos, mask, box, shape["form"], shape["softening"],
+            shape.get("cutoff"))
+    report(sname, cs.rel_errs(("E", "dE/dpos"), pe.pair_energy_and_grad(
+        *args), pe.pair_energy_plain(*args)), cs.TOL_PAIR)
+""",
+}
 
 
 def main():
@@ -65,22 +115,26 @@ def main():
     if not torch.cuda.is_available():
         print("chip_mutants: no CUDA device", file=sys.stderr)
         return 1
-    for name, edit in MUTANTS.items():
-        with tempfile.TemporaryDirectory() as tmp:
-            shutil.copytree(ROOT / "enflow_tpu_torch",
-                            Path(tmp) / "enflow_tpu_torch",
-                            ignore=shutil.ignore_patterns("_build",
-                                                          "__pycache__"))
-            shutil.copy(ROOT / "chip_smoke.py", tmp)
-            src = Path(tmp) / SRC
-            text = src.read_text()
-            if edit is not None:
-                if text.count(edit[0]) != 1:
-                    raise RuntimeError(f"mutant '{name}': its text is not "
-                                       f"in {SRC} exactly once")
-                src.write_text(text.replace(*edit))
-            print(f"[mutant] {name}", flush=True)
-            subprocess.run([sys.executable, "-c", READ], cwd=tmp, check=True)
+    groups = sys.argv[1:] or list(MUTANTS)
+    for group in groups:
+        src_rel = f"enflow_tpu_torch/csrc/{group}.cu"
+        for name, edit in MUTANTS[group].items():
+            with tempfile.TemporaryDirectory() as tmp:
+                shutil.copytree(ROOT / "enflow_tpu_torch",
+                                Path(tmp) / "enflow_tpu_torch",
+                                ignore=shutil.ignore_patterns("_build",
+                                                              "__pycache__"))
+                shutil.copy(ROOT / "chip_smoke.py", tmp)
+                src = Path(tmp) / src_rel
+                text = src.read_text()
+                if edit is not None:
+                    if text.count(edit[0]) != 1:
+                        raise RuntimeError(f"mutant '{name}': its text is "
+                                           f"not in {src_rel} exactly once")
+                    src.write_text(text.replace(*edit))
+                print(f"[mutant] {group}: {name}", flush=True)
+                subprocess.run([sys.executable, "-c", READ[group]], cwd=tmp,
+                               check=True)
     return 0
 
 

@@ -6,8 +6,8 @@ Phases (each prints its own line; any failure exits non-zero):
 
 1. device — a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit.
-2. build  — compiles ``enflow_tpu_torch/csrc/egcl_allpairs.cu`` with nvcc
-   (a fresh build from the checkout's sources).
+2. build  — compiles every ``enflow_tpu_torch/csrc/*.cu`` with nvcc, one
+   process per source, all at once (fresh builds from the checkout).
 3. kernel — the fused all-pairs EGCL kernels (forward K1, input-gradient
    backward K2) against their plain PyTorch version on the same inputs, at
    the main-path shape (B=1024, N=13, nf=5, H=128) and a ragged shape
@@ -15,18 +15,32 @@ Phases (each prints its own line; any failure exits non-zero):
    kernel and the plain version timed with CUDA events over back-to-back
    calls, so the wrapper's host work overlaps the device work before it.
    A molecule too large for the kernel's shared memory must be refused.
-4. flow   — ``reverse_core(forward_core(x)) == x`` through the kernel, f32.
-5. smc    — the main path: the port's driver runs ``mode: sample, algo:
-   smc`` on LJ13 (1024 particles, 8 temperatures, 1 HMC sweep of 5
+4. pair   — the pair-energy kernel K7 (energy and gradient) against its
+   plain version: form r2 at B=30, N=13; form r at B=1, N=13 (atoms on the
+   half-box rounding boundary) and at B=2, N=1500 (3 padded, box 12).
+5. flow   — ``reverse_core(forward_core(x)) == x`` through the kernel, f32.
+6. smc    — the sampling path: the port's driver runs ``mode: sample,
+   algo: smc`` on LJ13 (1024 particles, 8 temperatures, 1 HMC sweep of 5
    leapfrog steps, 5 flow steps at H=128, bf16 compute); 1 warm-up and 3
    timed runs, each checked for the launch counts the code implies.
+7. train  — the training path: ``example/train.yaml`` (3 epochs) through
+   the port's driver in a temporary directory: the LJ MD dataset on the
+   card, then NLL steps, each checked for the launch counts the code
+   implies; then a 1-epoch rerun that resumes from the checkpoint.
+8. edge   — the gathered-edge EGCL kernels (forward K5, backward K6 with
+   all seven parameter gradients) against their plain version at the
+   training shape (A=390 atoms, K = the auto capacity phase 7 observed,
+   C=3, H=128), a ragged one (A=1000, K=40, C=11, masked slots and atoms)
+   in bf16 and f32, and a shape whose gate hits the clip bounds exactly;
+   timed as in phase 3.
 
 ``python3 chip_smoke.py --profile [FILE]`` runs phases 1-2 and then, in
-place of the rest, one warm-up and one SMC run of phase 5 under
+place of the rest, one warm-up and one SMC run of phase 6 under
 ``torch.profiler`` tracing device activity only: device time by kernel,
 and the device's busy time and idle share of that traced run's wall time
 (which includes the tracing's own cost); the full table goes to FILE when
-one is given.
+one is given. ``--profile-train [FILE]`` does the same for one epoch of
+phase 7 after a warm-up epoch.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
@@ -59,6 +73,13 @@ RAGGED = dict(B=37, N=11, nf=5, H=128, n_pad=2, box=3.0)
 # are dropped or mis-masked, and 6.45e-3 for one misplaced bf16 rounding;
 # the bf16 limit sits between the sound reading and that weakest fault.
 TOL = {"float32": 1e-4, "bfloat16": 4e-3}
+# The same reading for K5/K6 and K7, set from chip_mutants.py. K5/K6: the
+# sound kernel reads <= 2.3e-3 in bf16 and <= 2.0e-6 in f32; a dropped
+# K-sum row reads >= 1.1e-1, the inclusive clip mask 1.0 (clip shape), a
+# skipped bf16 rounding of dgate 6.5e-3 (ragged) and of m1 >= 1.2e-2. K7:
+# sound <= 8.1e-7; roundf for rintf 7.5e-2, counted d2 = 0 pairs >= 64.
+TOL_EDGE = {"float32": 1e-4, "bfloat16": 4e-3}
+TOL_PAIR = 1e-4
 
 
 def require(cond, msg):
@@ -240,6 +261,256 @@ def kernel_phase():
     return record
 
 
+def rel_errs(names, got, want):
+    """{name: (max |kernel - plain|, that / max |plain|)}; a non-finite
+    kernel output reads as an infinite error."""
+    import torch
+    errs = {}
+    for name, k, p in zip(names, got, want):
+        require(k.shape == p.shape and k.dtype == p.dtype,
+                f"{name}: kernel {tuple(k.shape)}/{k.dtype} vs plain "
+                f"{tuple(p.shape)}/{p.dtype}")
+        if not bool(torch.isfinite(k).all()):
+            errs[name] = (math.inf, math.inf)
+            continue
+        d = float((k.float() - p.float()).abs().max()) if k.numel() else 0.0
+        scale = float(p.float().abs().max()) if p.numel() else 0.0
+        errs[name] = (d, d / max(scale, 1e-6))
+    return errs
+
+
+def bound(flop, nbytes, peak):
+    """(ms, what bounds it): the larger of operations over the peak rate
+    and bytes over the memory rate."""
+    t_ops, t_bytes = flop / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+# K5/K6 shapes: the training path's (A = 30 molecules x 13 atoms, K = the
+# auto capacity of train.yaml's first frame, which the train phase reports
+# and which replaces the 32 here, C = 2 nf + 1 = 3), a ragged one
+# (15% of slots and some whole atoms masked, C = 11), and a small one whose
+# gate is exactly 20 so that cd * gate hits the clip bounds +-100 exactly
+# (the strict clip mask of the backward, edge_kernel.py:137).
+EDGE_SHAPES = {
+    "main": dict(A=390, K=32, C=3, H=128, masked=0.2),
+    "ragged": dict(A=1000, K=40, C=11, H=128, masked=0.15, dead=37),
+    "clip": dict(A=64, K=8, C=3, H=128, masked=0.1, clip=True),
+}
+EDGE_OUT = ("agg", "F_sum", "de", "dcd", "dW1", "db1", "dW2", "db2", "dW3",
+            "db3", "dw4")
+# K7 shapes: the NLL term of a training batch, the MD potential of the
+# dataset's molecule (box 17 A = 5 sigma), and a large periodic box
+PAIR_SHAPES = {
+    "r2": dict(form="r2", B=30, N=13, softening=0.1),
+    "r": dict(form="r", B=1, N=13, softening=0.1, box=5.0, cutoff=3.0),
+    "r_large": dict(form="r", B=2, N=1500, n_pad=3, softening=0.1,
+                    box=12.0, cutoff=3.0),
+}
+
+
+def gathered_inputs(shape, dtype, seed):
+    """Gathered edge rows, masks, EGCL edge/coord weights (init_egcl) and
+    cotangents on the card for the K5/K6 contract."""
+    import torch
+    from enflow_tpu_torch.nn.egcl import EGCLConfig, init_egcl
+
+    A, K, C, H = shape["A"], shape["K"], shape["C"], shape["H"]
+    nf = (C - 1) // 2
+    gen = torch.Generator().manual_seed(seed)
+    p = init_egcl(gen, EGCLConfig(nf, H), torch.float32, "cpu")
+    W = [p["edge_nn"][0]["w"], p["edge_nn"][0]["b"], p["edge_nn"][1]["w"],
+         p["edge_nn"][1]["b"], p["coord_nn"][0]["w"], p["coord_nn"][0]["b"],
+         p["coord_nn"][1]["w"]]
+    em = torch.rand((A, K), generator=gen) >= shape["masked"]
+    if "dead" in shape:
+        em[torch.randperm(A, generator=gen)[:shape["dead"]]] = False
+    cd = torch.randn((A, K, 3), generator=gen) * 1.5
+    if shape.get("clip"):
+        # W3 = 0, b3[0] = 20, w4 = e_0: pre3[:, 0] = 20, whose silu is 20
+        # exactly in float32, so gate = 20 and cd = +-5 gives +-100
+        W[4] = torch.zeros_like(W[4])
+        W[5] = torch.zeros_like(W[5])
+        W[5][0] = 20.0
+        W[6] = torch.zeros_like(W[6])
+        W[6][0, 0] = 1.0
+        pick = torch.tensor([5.0, -5.0, 10.0, -10.0, 2.0, 0.5])
+        cd = pick[torch.randint(0, 6, (A, K, 3), generator=gen)]
+    cd = cd * em[..., None]
+    h = torch.randn((A, nf), generator=gen)
+    nbr = torch.randint(0, A, (A, K), generator=gen)
+    e = torch.cat([h[:, None].expand(A, K, nf), h[nbr],
+                   (cd * cd).sum(-1, keepdim=True)], dim=-1)
+    dagg = torch.randn((A, H), generator=gen)
+    dfs = torch.randn((A, 3), generator=gen)
+    c = lambda t: t.to(device="cuda", dtype=dtype).contiguous()
+    return (c(e), c(cd), c(em), tuple(c(w) for w in W), c(dagg), c(dfs),
+            em.cuda())
+
+
+def edge_work(shape, dtype_name):
+    """(fwd FLOP, bwd FLOP, fwd bytes, bwd bytes) of K5/K6 on these rows.
+    FLOP per row: the products at 2 per multiply-add (forward e W1, m1 W2,
+    m W3 and the gate 2CH + 4H^2 + 2H; backward that recompute plus dW1,
+    de, dW2, dm1, dW3, dm_gate and dw4/dg1, 4CH + 8H^2 + 4H), and about 4
+    operations per SiLU and 8 per SiLU derivative; the K-sums at one add
+    per element. Bytes: each input read once, each output written once."""
+    A, K, C, H = shape["A"], shape["K"], shape["C"], shape["H"]
+    rows = A * K
+    fwd_row = 2 * C * H + 4 * H * H + 2 * H + 3 * 4 * H
+    bwd_row = fwd_row + 4 * C * H + 8 * H * H + 4 * H + 3 * (8 * H + 2 * H)
+    s = 2 if dtype_name == "bfloat16" else 4
+    w = s * (C * H + 2 * H * H + 4 * H)
+    ins = s * rows * (C + 3 + 1) + w
+    fwd_b = ins + s * A * (H + 3)
+    bwd_b = ins + s * A * (H + 3) + s * rows * (C + 3) + w
+    return (rows * fwd_row + rows * (H + 3), rows * bwd_row, fwd_b, bwd_b)
+
+
+def edge_kernel_phase(main_K=None):
+    """K5/K6 against their plain version at EDGE_SHAPES, bf16 and f32;
+    ``main_K`` sets the main shape's slot count."""
+    import torch
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+
+    record = {}
+    for sname, shape in EDGE_SHAPES.items():
+        if sname == "main" and main_K:
+            shape = dict(shape, K=main_K)
+        dtypes = (("float32", torch.float32),) if sname == "clip" else (
+            ("bfloat16", torch.bfloat16), ("float32", torch.float32))
+        for dname, dtype in dtypes:
+            e, cd, em, W, dagg, dfs, _ = gathered_inputs(shape, dtype,
+                                                          seed=13)
+            k = (ep.edge_pipeline_fwd(e, cd, em, W)
+                 + ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs))
+            p = (ep.edge_pipeline_plain(e, cd, em, *W)
+                 + ep.edge_pipeline_plain_bwd(e, cd, em, *W, dagg, dfs))
+            torch.cuda.synchronize()
+            errs = rel_errs(EDGE_OUT, k, p)
+            tol = TOL_EDGE[dname]
+            ok = all(rel <= tol for _, rel in errs.values())
+            phase("edge", f"{sname} {dname} A={shape['A']} K={shape['K']} "
+                  f"C={shape['C']} max_abs/rel err: " + "  ".join(
+                      f"{n} {a:.2e}/{r:.1e}" for n, (a, r) in errs.items())
+                  + f"  tol {tol:g} -> {'ok' if ok else 'FAIL'}")
+            require(ok, f"edge kernel disagrees with plain ({sname}, "
+                    f"{dname})")
+            if sname == "clip":
+                continue
+            t_kf = cuda_time_ms(lambda: ep.edge_pipeline_fwd(e, cd, em, W))
+            t_kb = cuda_time_ms(lambda: ep.edge_pipeline_bwd(
+                e, cd, em, W, dagg, dfs))
+            t_pf = cuda_time_ms(lambda: ep.edge_pipeline_plain(
+                e, cd, em, *W), reps=20, calls=5)
+            t_pb = cuda_time_ms(lambda: ep.edge_pipeline_plain_bwd(
+                e, cd, em, *W, dagg, dfs), reps=20, calls=5)
+            fl_f, fl_b, by_f, by_b = edge_work(shape, dname)
+            b_f = bound(fl_f, by_f, PEAK_FLOPS[dname])
+            b_b = bound(fl_b, by_b, PEAK_FLOPS[dname])
+            phase("edge", f"{sname} {dname} time ms: fwd kernel {t_kf:.4f} "
+                  f"plain {t_pf:.4f} bound {b_f[0]:.4f} ({b_f[1]}, "
+                  f"{fl_f / 1e9:.3f} GFLOP) | bwd kernel {t_kb:.4f} plain "
+                  f"{t_pb:.4f} bound {b_b[0]:.4f} ({b_b[1]}, "
+                  f"{fl_b / 1e9:.3f} GFLOP)")
+            record[(sname, dname)] = dict(
+                err_fwd=max(errs[n][0] for n in EDGE_OUT[:2]),
+                err_bwd=max(errs[n][0] for n in EDGE_OUT[2:]),
+                ms_fwd=t_kf, ms_bwd=t_kb, plain_fwd=t_pf, plain_bwd=t_pb,
+                bound_fwd=b_f, bound_bwd=b_b)
+    return record
+
+
+def pair_inputs(shape, seed):
+    """Positions, mask and box on the card for the K7 contract. Form r at
+    N=13 puts 8 atoms on a 2x2x2 lattice of spacing box/2, so that their
+    displacements sit exactly on the half-box rounding boundary (round
+    half to even), and the rest near the cell centres; form r2 has a
+    coincident pair (excluded, d2 = 0) and padded atoms; the large box is
+    a jittered cubic lattice."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    B, N = shape["B"], shape["N"]
+    mask = torch.ones((B, N), dtype=torch.bool)
+    box = torch.full((B, 3), shape.get("box", 1.0))
+    if shape["form"] == "r2":
+        pos = torch.randn((B, N, 3), generator=gen) * 1.2
+        pos[0, 1] = pos[0, 0]
+        mask[1, N - 2:] = False
+    elif N == 13:
+        half = shape["box"] / 2
+        grid = torch.tensor([[a, b, c] for a in (0, 1) for b in (0, 1)
+                             for c in (0, 1)], dtype=torch.float32) * half
+        faces = torch.tensor([[.5, .5, 0], [.5, .5, 1], [.5, 0, .5],
+                              [.5, 1, .5], [0, .5, .5]]) * half
+        rest = faces + 0.02 * torch.randn((B, N - 8, 3), generator=gen)
+        pos = torch.cat([grid.expand(B, 8, 3), rest], dim=1)
+    else:
+        n_side = math.ceil(N ** (1 / 3))
+        g = torch.arange(n_side, dtype=torch.float32)
+        sites = torch.stack(torch.meshgrid(g, g, g, indexing="ij"),
+                            -1).reshape(-1, 3)[:N]
+        spacing = shape["box"] / n_side
+        pos = (sites * spacing + 0.05 * torch.randn((B, N, 3), generator=gen)
+               - shape["box"] / 2)
+        mask[:, N - shape["n_pad"]:] = False
+    pos = pos * mask[..., None]
+    c = lambda t: t.to(device="cuda", dtype=torch.float32).contiguous()
+    return c(pos), c(mask), c(box)
+
+
+def pair_work(form, pos, mask, box, cutoff):
+    """(FLOP, bytes) of K7 on these inputs: per valid ordered pair (both
+    real, d2 > 0, inside the cutoff) 30 operations for r2 and 47 for r
+    (displacement 3, min-image 12, d2 5, pair terms 12 / 17, sums 10;
+    a division, square root or rint counts as one); bytes: positions,
+    mask and box read once, the gradient and the energies written once."""
+    import torch
+    d = pos[:, :, None, :] - pos[:, None, :, :]
+    if form == "r":
+        d = d - torch.round(d / box[:, None, None, :]) * box[:, None, None, :]
+    d2 = (d * d).sum(-1)
+    valid = (mask[:, :, None] * mask[:, None, :] > 0) & (d2 > 0)
+    if form == "r":
+        valid = valid & (d2 < cutoff * cutoff)
+    pairs = float(valid.sum())
+    B, N = mask.shape
+    return pairs * (30 if form == "r2" else 47), 4 * (B * N * 7 + B * 4)
+
+
+def pair_kernel_phase():
+    """K7 against its plain version at PAIR_SHAPES (float32)."""
+    import torch
+    from enflow_tpu_torch.ops import pair_energy as pe
+
+    record = {}
+    for sname, shape in PAIR_SHAPES.items():
+        pos, mask, box = pair_inputs(shape, seed=17)
+        form, soft = shape["form"], shape["softening"]
+        cut = shape.get("cutoff")
+        k = pe.pair_energy_and_grad(pos, mask, box, form, soft, cut)
+        p = pe.pair_energy_plain(pos, mask, box, form, soft, cut)
+        torch.cuda.synchronize()
+        errs = rel_errs(("E", "dE/dpos"), k, p)
+        ok = all(rel <= TOL_PAIR for _, rel in errs.values())
+        phase("pair", f"{sname} B={shape['B']} N={shape['N']} max_abs/rel "
+              "err: " + "  ".join(f"{n} {a:.2e}/{r:.1e}"
+                                  for n, (a, r) in errs.items())
+              + f"  tol {TOL_PAIR:g} -> {'ok' if ok else 'FAIL'}")
+        require(ok, f"pair kernel disagrees with plain ({sname})")
+        t_k = cuda_time_ms(lambda: pe.pair_energy_and_grad(
+            pos, mask, box, form, soft, cut))
+        t_p = cuda_time_ms(lambda: pe.pair_energy_plain(
+            pos, mask, box, form, soft, cut), reps=20, calls=5)
+        flop, nbytes = pair_work(form, pos, mask, box, cut)
+        b = bound(flop, nbytes, PEAK_FLOPS["float32"])
+        phase("pair", f"{sname} time ms: kernel {t_k:.4f} plain {t_p:.4f} "
+              f"bound {b[0]:.6f} ({b[1]}, {flop / 1e6:.3f} MFLOP)")
+        record[sname] = dict(err=max(a for a, _ in errs.values()), ms=t_k,
+                             plain=t_p, bound=b)
+    return record
+
+
 def flow_phase():
     import torch
     from enflow_tpu_torch.data.system import System
@@ -363,24 +634,23 @@ def smc_phase(card):
     return launches
 
 
-def profile_phase(card, out_file=None, top=12):
-    """One SMC run of the main path under ``torch.profiler``, tracing the
-    device only (the lightest trace that sees the kernels): device time by
-    kernel, and the device's busy time and idle share of this traced run's
-    wall time. The full table goes to ``out_file`` when one is given."""
+def profile_run(label, warm_up, run, card, out_file=None, top=12):
+    """``run()`` once under ``torch.profiler`` after ``warm_up()``,
+    tracing the device only (the lightest trace that sees the kernels):
+    device time by kernel, and the device's busy time and idle share of
+    the traced run's wall time. The full table goes to ``out_file`` when
+    one is given."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with tempfile.TemporaryDirectory() as tmp:
-        main = smc_driver(tmp)
-        main.sample()                                   # warm-up
+    warm_up()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            main.sample()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     spans, by_name = [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -396,14 +666,16 @@ def profile_phase(card, out_file=None, top=12):
             end = e
     busy_s = busy * 1e-6
     total_s = sum(t for _, t in by_name.values()) * 1e-6
-    egcl = {k: v for k, v in by_name.items() if "egcl_" in k}
-    egcl_s = sum(t for _, t in egcl.values()) * 1e-6
-    phase("profile", f"LJ13 flow-SMC under torch.profiler on {card}: wall "
+    ours = {k: v for k, v in by_name.items()
+            if any(w in k for w in ("egcl_", "edge_", "pair_energy"))}
+    ours_s = sum(t for _, t in ours.values()) * 1e-6
+    phase("profile", f"{label} under torch.profiler on {card}: wall "
           f"{wall:.4f} s, device busy {busy_s:.4f} s (idle share "
           f"{1 - busy_s / wall:.3f}); device time {total_s:.4f} s in "
-          f"{len(spans)} device events, of which the EGCL kernels "
-          f"{egcl_s:.4f} s ({sum(n for n, _ in egcl.values())} launches) and "
-          f"the other {len(by_name) - len(egcl)} kinds {total_s - egcl_s:.4f} s")
+          f"{len(spans)} device events, of which the port's kernels "
+          f"{ours_s:.4f} s ({sum(n for n, _ in ours.values())} launches) and "
+          f"the other {len(by_name) - len(ours)} kinds "
+          f"{total_s - ours_s:.4f} s")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     for name, (n, t) in ranked[:top]:
         phase("profile", f"{t * 1e-3:9.3f} ms {n:6d}x  {name[:110]}")
@@ -412,16 +684,202 @@ def profile_phase(card, out_file=None, top=12):
     out_file = Path(out_file)
     out_file.parent.mkdir(parents=True, exist_ok=True)
     out_file.write_text(
-        f"{card}\nwall {wall} s, device busy {busy_s} s\n\n"
+        f"{card}\n{label}: wall {wall} s, device busy {busy_s} s\n\n"
         + "\n".join(f"{t:.1f} us {n}x {name}" for name, (n, t) in ranked)
         + "\n")
 
 
+def profile_smc(card, out_file=None):
+    """One SMC run of the sampling path (after a warm-up run)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        main = smc_driver(tmp)
+        profile_run("LJ13 flow-SMC", main.sample, main.sample, card,
+                    out_file)
+
+
+def profile_train(card, out_file=None):
+    """One train epoch of train.yaml (after a warm-up epoch)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        main = train_driver(tmp, 1)
+
+        def epoch():
+            main.train()
+            main.start_epoch += 1
+        profile_run("train.yaml epoch (4 steps)", epoch, epoch, card,
+                    out_file)
+
+
+TRAIN_STEPS_PER_EPOCH = 4          # 91 frames in batches of 30
+
+
+def train_driver(tmp, num_epochs):
+    """The port's driver set up from ``example/train.yaml`` with
+    ``num_epochs`` changed, run from the working directory ``tmp`` (where
+    the processed dataset and the checkpoint go)."""
+    import os
+    import yaml
+    from enflow_tpu_torch.train.driver import Main
+
+    cfg = yaml.safe_load((ROOT / "example" / "train.yaml").read_text())
+    cfg["training"]["num_epochs"] = num_epochs
+    path = Path(tmp) / "train.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    os.chdir(tmp)
+    main = Main(device="cuda")
+    main.setup(str(path))
+    return main
+
+
+def reset_counts():
+    from enflow_tpu_torch.ops import edge_pipeline, egcl_allpairs, pair_energy
+    for mod in (egcl_allpairs, edge_pipeline, pair_energy):
+        mod.counts.reset()
+
+
+def train_phase(card):
+    """The training path: ``example/train.yaml`` through the port's driver
+    for 3 epochs (the LJ MD dataset simulated on the card, then NLL steps),
+    then a rerun of 1 epoch that resumes from the checkpoint."""
+    import os
+    import torch
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    from enflow_tpu_torch.ops import egcl_allpairs as ea
+    from enflow_tpu_torch.ops import pair_energy as pe
+
+    from enflow_tpu_torch.data.simulated import SimulatedDataset
+
+    cwd = os.getcwd()
+    md_s = []
+    process = SimulatedDataset.process
+
+    def timed_process(self, *a, **k):
+        t = time.perf_counter()
+        process(self, *a, **k)
+        torch.cuda.synchronize()
+        md_s.append(time.perf_counter() - t)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            SimulatedDataset.process = timed_process
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            main = train_driver(tmp, 3)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            SimulatedDataset.process = process
+            md = (pe.counts.r_launches, pe.counts.r2_launches,
+                  pe.counts.plain_calls)
+            n_frames, cap = len(main.dataset), main.flow_cfg.nbr_capacity
+            # the MD: 200 FIRE steps + 4000 Langevin steps, one form-r
+            # launch each (energy and gradient from one pass), and one per
+            # captured frame's energy (4000 / 40 = 100 frames)
+            require(md == (200 + 4000 + 100, 0, 0),
+                    f"dataset pair-energy launches (r, r2, plain) {md} != "
+                    f"(4300, 0, 0)")
+            require(n_frames == 91, f"{n_frames} frames, expected 91")
+
+            step_s, losses = [], []
+            inner = main.train_step
+
+            def timed(batch, gen):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                loss, ovf = inner(batch, gen)
+                losses.append(float(loss))          # synchronizes
+                step_s.append(time.perf_counter() - t)
+                return loss, ovf
+            main.train_step = timed
+            reset_counts()
+            main.train()
+            torch.cuda.synchronize()
+            n_steps = len(step_s)
+            launches = dict(k5=ep.counts.fwd_launches,
+                            k6=ep.counts.bwd_launches,
+                            k7_r2=pe.counts.r2_launches,
+                            k7_r=pe.counts.r_launches)
+            plain = (ep.counts.plain_fwd_calls + ep.counts.plain_bwd_calls
+                     + pe.counts.plain_calls + ea.counts.plain_fwd_calls
+                     + ea.counts.plain_bwd_calls)
+            # per train step: one gathered-edge forward (K5) and backward
+            # (K6) per flow step (5), and one NLL pair term (K7 r2; its
+            # backward is ct * g, no launch)
+            want = dict(k5=5 * n_steps, k6=5 * n_steps, k7_r2=n_steps,
+                        k7_r=0)
+            require(n_steps == 3 * TRAIN_STEPS_PER_EPOCH,
+                    f"{n_steps} train steps, expected 12")
+            require(launches == want, f"train launches {launches} != {want}")
+            require(plain == 0, "a plain version ran on the training path")
+            require(all(math.isfinite(x) for x in losses),
+                    f"non-finite losses {losses}")
+            require(Path("model.cpt").exists(), "no checkpoint written")
+            require(Path("data/lj13/processed.torch.npz").exists(),
+                    "no processed dataset written")
+
+            reset_counts()
+            again = train_driver(tmp, 1)
+            require(again.start_epoch == 3 and pe.counts.r_launches == 0,
+                    f"rerun did not resume at epoch 3 from the stored "
+                    f"dataset (start {again.start_epoch}, "
+                    f"{pe.counts.r_launches} MD launches)")
+            again.train()
+            torch.cuda.synchronize()
+            require(ep.counts.fwd_launches == 5 * TRAIN_STEPS_PER_EPOCH,
+                    "the resumed epoch did not run through the kernel")
+        finally:
+            SimulatedDataset.process = process
+            os.chdir(cwd)
+    later = step_s[TRAIN_STEPS_PER_EPOCH:]
+    per_epoch = [sum(later[i:i + TRAIN_STEPS_PER_EPOCH])
+                 for i in range(0, len(later), TRAIN_STEPS_PER_EPOCH)]
+    s_step = statistics.median(later)
+    mol_s = n_frames / statistics.median(per_epoch)
+    phase("train", f"train.yaml on {card}: {n_frames} frames, auto "
+          f"capacity {cap}, MD {md_s[0]:.4f} s ({md[0]} form-r launches; "
+          f"setup {setup_s:.4f} s in all); {n_steps} steps, "
+          f"{s_step:.5f} s/step (median of epochs 1-2; first step {step_s[0]:.4f} s), {mol_s:.1f} "
+          f"molecules/s, losses {losses[0]:.2f} -> {losses[-1]:.2f}; "
+          f"launches per run K5 {launches['k5']} K6 {launches['k6']} K7 r2 "
+          f"{launches['k7_r2']}, plain calls 0; rerun resumed at epoch 3")
+    return dict(md_launches=md[0], md_s=md_s[0], s_step=s_step,
+                mol_s=mol_s, capacity=cap, **launches)
+
+
+def build_phase():
+    """Fresh builds of every kernel source, one nvcc each, in parallel."""
+    from enflow_tpu_torch.ops import build
+    names = ("egcl_allpairs", "edge_pipeline", "pair_energy")
+    for name in names:
+        build.library_path(name).unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    built = build.build_all(names)
+    for name, (lib, secs, log) in built.items():
+        regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
+                if "registers" in ln]
+        spills = sum(" 0 bytes spill stores" not in ln
+                     for ln in log.splitlines() if "spill stores" in ln)
+        phase("build", f"{name}.cu -> {lib.name} in {secs:.1f} s; ptxas: "
+              f"{'; '.join(regs)}; kernels with spills: {spills}")
+    phase("build", f"all sources in {time.perf_counter() - t0:.1f} s")
+
+
+def kernel_record(name, src, replaces, launches, err, ms, plain, bnd):
+    return {"name": name, "route": "cuda",
+            "source": f"enflow_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": None}
+
+
 def main():
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="?", const="", default=None,
                     metavar="FILE", help="profile one SMC run instead of "
-                    "phases 3-5; write the full table to FILE")
+                    "the phases after the build; the full table to FILE")
+    ap.add_argument("--profile-train", nargs="?", const="", default=None,
+                    metavar="FILE", help="profile one train.yaml epoch "
+                    "instead of the phases after the build")
     args = ap.parse_args()
     try:
         import torch
@@ -444,39 +902,49 @@ def main():
     kind = torch.cuda.get_device_name(0)
     phase("device", f"{card} | torch {torch.__version__} CUDA "
           f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
-
-    from enflow_tpu_torch.ops import build
-    lib = build.library_path("egcl_allpairs")
-    lib.unlink(missing_ok=True)         # always a fresh build
-    _, secs, log = build.build("egcl_allpairs")
-    regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
-            if "registers" in ln]
-    spills = sum(" 0 bytes spill stores" not in ln
-                 for ln in log.splitlines() if "spill stores" in ln)
-    phase("build", f"egcl_allpairs.cu -> {lib.name} in {secs:.1f} s; "
-          f"ptxas: {'; '.join(regs)}; kernels with spills: {spills}")
+    build_phase()
 
     if args.profile is not None:
-        profile_phase(card, args.profile or None)
+        profile_smc(card, args.profile or None)
+        return 0
+    if args.profile_train is not None:
+        profile_train(card, args.profile_train or None)
         return 0
     rec = kernel_phase()
+    prec = pair_kernel_phase()
     flow_phase()
     n_fwd, n_bwd = smc_phase(card)
+    tr = train_phase(card)
+    # K5/K6 at the training path's shape: its slot count is the auto
+    # capacity that the train phase's dataset gave
+    erec = edge_kernel_phase(main_K=tr["capacity"])
 
     m = rec[("main", "bfloat16")]
-    src = "enflow_tpu_torch/csrc/egcl_allpairs.cu"
+    e = erec[("main", "float32")]
+    v3 = "enflow_tpu/ops/egcl_fused_v3.py"
     kernels = [
-        {"name": "egcl_allpairs_fwd", "route": "cuda", "source": src,
-         "replaces": "enflow_tpu/ops/egcl_fused_v3.py:365",
-         "launches": n_fwd, "max_abs_err": m["err_fwd"], "ms": m["ms_fwd"],
-         "plain_ms": m["plain_fwd"], "bound_ms": m["bound_fwd"][0],
-         "bound_by": m["bound_fwd"][1], "library_ms": None},
-        {"name": "egcl_allpairs_bwd", "route": "cuda", "source": src,
-         "replaces": "enflow_tpu/ops/egcl_fused_v3.py:414",
-         "launches": n_bwd, "max_abs_err": m["err_bwd"], "ms": m["ms_bwd"],
-         "plain_ms": m["plain_bwd"], "bound_ms": m["bound_bwd"][0],
-         "bound_by": m["bound_bwd"][1], "library_ms": None},
+        kernel_record("egcl_allpairs_fwd", "egcl_allpairs.cu", f"{v3}:365",
+                      n_fwd, m["err_fwd"], m["ms_fwd"], m["plain_fwd"],
+                      m["bound_fwd"]),
+        kernel_record("egcl_allpairs_bwd", "egcl_allpairs.cu", f"{v3}:414",
+                      n_bwd, m["err_bwd"], m["ms_bwd"], m["plain_bwd"],
+                      m["bound_bwd"]),
+        kernel_record("edge_pipeline_fwd", "edge_pipeline.cu",
+                      "enflow_tpu/ops/edge_kernel.py:219", tr["k5"],
+                      e["err_fwd"], e["ms_fwd"], e["plain_fwd"],
+                      e["bound_fwd"]),
+        kernel_record("edge_pipeline_bwd", "edge_pipeline.cu",
+                      "enflow_tpu/ops/edge_kernel.py:246", tr["k6"],
+                      e["err_bwd"], e["ms_bwd"], e["plain_bwd"],
+                      e["bound_bwd"]),
     ]
+    for name, key, n in (("pair_energy_r2", "r2", tr["k7_r2"]),
+                         ("pair_energy_r", "r", tr["md_launches"])):
+        p = prec[key]
+        kernels.append(kernel_record(
+            name, "pair_energy.cu", "enflow_tpu/ops/pairwise_kernel.py:119",
+            n, p["err"], p["ms"], p["plain"], p["bound"]))
+    phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

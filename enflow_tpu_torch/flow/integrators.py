@@ -13,10 +13,12 @@ LF forward step::
 
 and its exact inverse. Ported: ``FlowConfig``, ``init_flow``, ``_egcl_at``,
 the LF ``forward_core``/``reverse_core`` with ``position_update='shift'``,
-parity and exact ldj, in ``all_pairs`` neighbor mode. The VV integrator,
-the learned drifts, the dequantizing ``forward``/``reverse``, overflow
-tracking, atom sharding and the other neighbor modes raise
-``NotImplementedError`` naming their ROADMAP item.
+parity and exact ldj, the ArgMax-dequantizing ``forward``/``reverse``, in
+the ``all_pairs`` and ``images`` neighbor modes, with ``track_overflow``
+(the slots an ``images`` build dropped, summed over steps). The VV
+integrator, the learned drifts, the Floor dequantizer, atom sharding and
+the other neighbor modes raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -50,10 +52,11 @@ class FlowConfig:
     cell_capacity: Optional[int] = None
     exact_ldj: bool = False
     dequant_scale: float = 1.0
-    # Accepted and without effect on the kernel path: the fused EGCL's
-    # autograd Function saves only its inputs and recomputes the edge
-    # tensors inside its backward kernel, which is what remat buys in JAX.
-    # The plain CPU path keeps autograd's default residuals.
+    # Accepted and without effect: both EGCL kernels' autograd Functions
+    # (all-pairs and gathered-edge) save only their inputs and recompute
+    # the [.., K, H] edge tensors inside their backward kernels, which is
+    # what remat buys in JAX. The plain CPU path keeps autograd's default
+    # residuals.
     remat: bool = True
     remat_policy: Optional[str] = None
     scan_unroll: int = 1
@@ -80,17 +83,17 @@ def _check_supported(cfg: FlowConfig):
         raise NotImplementedError(
             f"position_update={cfg.position_update!r} is not ported yet "
             "(ROADMAP queue A item 3, drift and coupled modes)")
-    if cfg.track_overflow:
-        raise NotImplementedError(
-            "track_overflow is not ported yet (ROADMAP queue A item 2: it "
-            "counts truncation of the capacity-bounded neighbor modes)")
     if cfg.axis_name:
         raise NotImplementedError(
             "atom-sharded flows are not ported yet (ROADMAP queue A item 9)")
-    if cfg.nbr_mode != "all_pairs":
+    if cfg.nbr_mode not in ("all_pairs", "images"):
         raise NotImplementedError(
             f"nbr_mode={cfg.nbr_mode!r} is not ported yet (ROADMAP queue A "
-            "items 2 and 5); the port runs nbr_mode 'all_pairs'")
+            "items 2 and 7); the port runs nbr_mode 'all_pairs' and "
+            "'images'")
+    if cfg.egcl.use_pallas in ("v2", "v3") and cfg.nbr_mode != "all_pairs":
+        raise ValueError(f"use_pallas={cfg.egcl.use_pallas!r} requires "
+                         "nbr_mode='all_pairs'")
 
 
 def _stack(trees):
@@ -134,17 +137,30 @@ def init_flow(gen: torch.Generator, cfg: FlowConfig, dtype=torch.float32,
 
 
 def _egcl_at(params, cfg: FlowConfig, net_params, sys: System):
-    """One all-pairs EGCL on the current state. On the card it always goes
-    through the fused kernel; on the CPU ``use_pallas: v2|v3`` selects the
-    kernel's plain version and every other value the plain EGCL (the same
-    function, as in the JAX package)."""
-    if sys.pos.is_cuda or cfg.egcl.use_pallas in ("v2", "v3"):
-        return apply_egcl_fused_allpairs(net_params, cfg.egcl, sys.h,
-                                         sys.pos, sys.box, sys.mask)
-    nbrs, cd = neighbors_with_diffs(sys.pos, sys.box, sys.mask, sys.r_cut,
-                                    cfg.nbr_capacity, cfg.nbr_mode)
+    """One EGCL on the current state; returns ``((Q, F, G), overflow)``.
+
+    ``all_pairs``: on the card always the fused all-pairs kernel; on the CPU
+    ``use_pallas: v2|v3`` selects the kernel's plain version and every other
+    value the plain EGCL (the same function, as in the JAX package).
+    ``images``: the multi-image neighbor list is rebuilt from the current
+    positions and the EGCL runs on the gathered rows (the gathered-edge
+    kernel on the card); ``overflow`` counts the slots the build dropped
+    (a device scalar, 0 in ``all_pairs`` mode)."""
+    if cfg.nbr_mode == "all_pairs":
+        zero = torch.zeros((), dtype=torch.int32, device=sys.pos.device)
+        if sys.pos.is_cuda or cfg.egcl.use_pallas in ("v2", "v3"):
+            return apply_egcl_fused_allpairs(net_params, cfg.egcl, sys.h,
+                                             sys.pos, sys.box, sys.mask), zero
+        nbrs, cd = neighbors_with_diffs(sys.pos, sys.box, sys.mask,
+                                        sys.r_cut, cfg.nbr_capacity,
+                                        cfg.nbr_mode)
+        return apply_egcl(net_params, cfg.egcl, sys.h, cd, nbrs.idx,
+                          nbrs.mask, sys.mask, all_pairs=True), zero
+    nbrs, cd, ovf = neighbors_with_diffs(sys.pos, sys.box, sys.mask,
+                                         sys.r_cut, cfg.nbr_capacity,
+                                         cfg.nbr_mode, with_overflow=True)
     return apply_egcl(net_params, cfg.egcl, sys.h, cd, nbrs.idx, nbrs.mask,
-                      sys.mask, all_pairs=True)
+                      sys.mask), ovf
 
 
 def _ldj_sum(cfg: FlowConfig, Q):
@@ -153,37 +169,75 @@ def _ldj_sum(cfg: FlowConfig, Q):
 
 def _lf_forward(params, cfg: FlowConfig, sys: System):
     dt = cfg.dt
-    ldj_steps = []
+    ldj_steps, ovf = [], 0
     for k in range(cfg.n_iter):
-        Q, F, G = _egcl_at(params, cfg, _index(params["networks"], k), sys)
+        (Q, F, G), o = _egcl_at(params, cfg, _index(params["networks"], k),
+                                sys)
         vel = torch.exp(Q) * sys.vel + F * dt
         g = sys.g + G * dt
         ldj_steps.append(_ldj_sum(cfg, Q))
         sys = sys.replace(vel=vel, g=g, pos=sys.pos + vel * dt).pbc()
         sys = sys.replace(h=sys.h + sys.g * dt)
-    return sys, torch.stack(ldj_steps).sum(dim=0)
+        ovf = ovf + o
+    return sys, torch.stack(ldj_steps).sum(dim=0), ovf
 
 
 def _lf_reverse(params, cfg: FlowConfig, sys: System):
     dt = cfg.dt
-    ldj_steps = []
+    ldj_steps, ovf = [], 0
     for k in reversed(range(cfg.n_iter)):
         sys = sys.replace(h=sys.h - sys.g * dt)
         sys = sys.replace(pos=sys.pos - sys.vel * dt).pbc()
-        Q, F, G = _egcl_at(params, cfg, _index(params["networks"], k), sys)
+        (Q, F, G), o = _egcl_at(params, cfg, _index(params["networks"], k),
+                                sys)
         sys = sys.replace(g=sys.g - G * dt,
                           vel=(sys.vel - F * dt) / torch.exp(Q))
         ldj_steps.append(-_ldj_sum(cfg, Q))
+        ovf = ovf + o
     # the JAX scan emits per-step values in network order: sum in that order
     ldj_steps.reverse()
-    return sys, torch.stack(ldj_steps).sum(dim=0)
+    return sys, torch.stack(ldj_steps).sum(dim=0), ovf
+
+
+def _check_dequantizer(cfg: FlowConfig):
+    if cfg.dequantizer != "argmax":
+        raise NotImplementedError(
+            f"dequantizer={cfg.dequantizer!r} is not ported yet (ROADMAP "
+            "queue A item 3); the port dequantizes with 'argmax'")
+
+
+def forward(params, cfg: FlowConfig, sys: System, gen=None, eps=None):
+    """Dequantize (ArgMax) and integrate forward: ``(sys, ldj + log_q)``,
+    plus the summed overflow when ``cfg.track_overflow`` is set
+    (``integrators.py:484-515``). The dequantization noise is ``eps`` when
+    given, else a standard normal draw from ``gen``."""
+    _check_supported(cfg)
+    _check_dequantizer(cfg)
+    h, log_q = argmax_deq.forward(params["dequant"], sys.h, sys.mask,
+                                  gen=gen, eps=eps)
+    sys, ldj, ovf = _lf_forward(params, cfg, sys.replace(h=h))
+    if cfg.track_overflow:
+        return sys, ldj + log_q, ovf
+    return sys, ldj + log_q
+
+
+def reverse(params, cfg: FlowConfig, sys: System):
+    """Integrate backward and re-quantize to one-hot features: the exact
+    inverse of :func:`forward` up to its noise. Returns ``sys`` (and the
+    summed overflow when ``cfg.track_overflow`` is set)."""
+    _check_supported(cfg)
+    _check_dequantizer(cfg)
+    out, _, ovf = _lf_reverse(params, cfg, sys)
+    out = out.replace(h=argmax_deq.reverse(out.h, out.mask))
+    return (out, ovf) if cfg.track_overflow else out
 
 
 def forward_core(params, cfg: FlowConfig, sys: System):
     """Deterministic integrator transform (no dequantization): an exactly
     invertible map over ``(h, g, pos, vel)``; returns ``(sys, ldj [B])``."""
     _check_supported(cfg)
-    return _lf_forward(params, cfg, sys)
+    out = _lf_forward(params, cfg, sys)
+    return out if cfg.track_overflow else out[:2]
 
 
 def reverse_core(params, cfg: FlowConfig, sys: System):
@@ -191,4 +245,5 @@ def reverse_core(params, cfg: FlowConfig, sys: System):
     with ldj the log-det of the reverse map. For a latent ``z`` with base
     density ``log p(z)``, ``log q(reverse_core(z)) = log p(z) - ldj``."""
     _check_supported(cfg)
-    return _lf_reverse(params, cfg, sys)
+    out = _lf_reverse(params, cfg, sys)
+    return out if cfg.track_overflow else out[:2]

@@ -5,16 +5,21 @@ Per flow step it returns ``Q [B,N,1]`` (log velocity scale), ``F [B,N,3]``
 (equivariant force) and ``G [B,N,nf]`` (node feature update), zeroed on
 padded atoms.
 
-Two paths compute the same all-pairs function:
+In ``all_pairs`` mode two paths compute the same function:
 
-- ``apply_egcl``: the plain broadcast path over ``[B, N, N, ·]`` edge
-  tensors. It serves CPU tensors only (the float64 parity tests, and the
-  attention/norm_diff/tanh variants).
+- ``apply_egcl(all_pairs=True)``: the plain broadcast path over
+  ``[B, N, N, ·]`` edge tensors. It serves CPU tensors only (the float64
+  parity tests, and the attention/norm_diff/tanh variants).
 - ``apply_egcl_fused_allpairs``: the edge pipeline through
   ``ops/egcl_allpairs.py`` — the CUDA kernel on the card, its plain version
   on the CPU. On a CUDA tensor every all-pairs EGCL goes this way, whatever
   ``use_pallas`` says: ``False``, ``True``, ``"v1"``, ``"v2"`` and ``"v3"``
   all name this same function in ``all_pairs`` mode.
+
+On a gathered neighbor list (``images`` mode) ``apply_egcl`` runs the
+gathered-edge kernel of ``ops/edge_pipeline.py`` on every CUDA tensor,
+whatever ``use_pallas`` says (``False``, ``True`` and ``"v1"`` name the same
+function there).
 """
 
 from __future__ import annotations
@@ -41,8 +46,8 @@ class EGCLConfig:
     # reduced-precision compute for the message-passing internals
     # (e.g. 'bfloat16'); outputs are cast back to the input dtype
     compute_dtype: str | None = None
-    # the JAX package's kernel selector; every value names the same
-    # all-pairs function here (see the module docstring)
+    # the JAX package's kernel selector; on the card it selects nothing
+    # (see the module docstring)
     use_pallas: bool | str = False
 
     @property
@@ -134,30 +139,70 @@ def _check_kernel_flags(cfg: EGCLConfig, what: str):
 
 def apply_egcl(params, cfg: EGCLConfig, h, coord_diff, nbr_idx, nbr_mask,
                atom_mask, all_pairs: bool = False):
-    """Plain EGCL on the all-pairs broadcast path (CPU tensors only).
+    """One EGCL on a neighbor structure (``egcl.py:148-204``).
 
-    ``coord_diff [B,N,N,3]`` min-image displacements ``pos_i - pos_j``,
-    ``nbr_mask [B,N,N]``, ``atom_mask [B,N]``. Returns ``(Q, F, G)``.
+    ``coord_diff [B,N,K,3]`` displacements ``pos_i - pos_j`` (zeroed on
+    invalid slots), ``nbr_idx``/``nbr_mask [B,N,K]``, ``atom_mask [B,N]``.
+    Returns ``(Q, F, G)``.
+
+    - ``all_pairs``: the plain broadcast path over ``[B,N,N,·]`` edges, for
+      CPU tensors only (on the card the all-pairs EGCL runs
+      :func:`apply_egcl_fused_allpairs`).
+    - gathered (``all_pairs=False``): ``h_j = h[b, nbr_idx]`` and
+      ``edge_in = [h_i, h_j, |cd|^2]`` in the compute dtype go through the
+      gathered-edge kernel (``ops/edge_pipeline.py``) — always on the card,
+      and on the CPU when ``use_pallas`` names it (``True``/``"v1"``);
+      otherwise ``edge_messages`` with sums over K.
     """
-    if h.is_cuda:
-        raise RuntimeError(
-            "apply_egcl is the plain path and serves CPU tensors only; on "
-            "the card the all-pairs EGCL runs apply_egcl_fused_allpairs")
-    if not all_pairs:
-        raise NotImplementedError(
-            "gathered neighbor lists are not ported yet (ROADMAP queue A "
-            "item 2); use nbr_mode 'all_pairs'")
-    if cfg.use_pallas:
-        _check_kernel_flags(cfg, "use_pallas")
+    if all_pairs:
+        if h.is_cuda:
+            raise RuntimeError(
+                "the all-pairs apply_egcl is the plain path and serves CPU "
+                "tensors only; on the card the all-pairs EGCL runs "
+                "apply_egcl_fused_allpairs")
+        if cfg.use_pallas:
+            _check_kernel_flags(cfg, "use_pallas")
     in_dtype = h.dtype
     params, h = _cast_compute(params, cfg, h)
     coord_diff = coord_diff.to(h.dtype)
-    m, trans = edge_messages(params, cfg, h, h[:, None, :, :], coord_diff,
-                             nbr_mask)
-    count = nbr_mask.sum(dim=2, keepdim=True)
-    Q, F, G = node_outputs(params, cfg, h, m.sum(dim=2), trans.sum(dim=2),
-                           count, atom_mask)
+    if all_pairs:
+        h_j = h[:, None, :, :]
+    else:
+        b = torch.arange(h.shape[0], device=h.device)[:, None, None]
+        h_j = h[b, nbr_idx.long()]                                # [B,N,K,nf]
+    if not all_pairs and (h.is_cuda or cfg.use_pallas):
+        _check_kernel_flags(cfg, "the gathered-edge kernel")
+        Q, F, G = _apply_egcl_gathered(params, cfg, h, h_j, coord_diff,
+                                       nbr_mask, atom_mask)
+    else:
+        m, trans = edge_messages(params, cfg, h, h_j, coord_diff, nbr_mask)
+        count = nbr_mask.sum(dim=2, keepdim=True)
+        Q, F, G = node_outputs(params, cfg, h, m.sum(dim=2),
+                               trans.sum(dim=2), count, atom_mask)
     return Q.to(in_dtype), F.to(in_dtype), G.to(in_dtype)
+
+
+def _apply_egcl_gathered(params, cfg: EGCLConfig, h, h_j, coord_diff,
+                         nbr_mask, atom_mask):
+    """The EGCL tail through the gathered-edge kernel
+    (``egcl.py:249-280``)."""
+    from ..ops.edge_pipeline import fused_edge_pipeline
+
+    B, N, K, nf = h_j.shape
+    radial = (coord_diff * coord_diff).sum(-1, keepdim=True)
+    edge_in = torch.cat([h[:, :, None, :].expand(B, N, K, nf), h_j, radial],
+                        dim=-1)
+    A = B * N
+    agg, f_sum = fused_edge_pipeline(
+        edge_in.reshape(A, K, -1), coord_diff.reshape(A, K, 3),
+        nbr_mask.reshape(A, K),
+        params["edge_nn"][0]["w"], params["edge_nn"][0]["b"],
+        params["edge_nn"][1]["w"], params["edge_nn"][1]["b"],
+        params["coord_nn"][0]["w"], params["coord_nn"][0]["b"],
+        params["coord_nn"][1]["w"])
+    count = nbr_mask.sum(dim=2, keepdim=True)
+    return node_outputs(params, cfg, h, agg.reshape(B, N, -1),
+                        f_sum.reshape(B, N, 3), count, atom_mask)
 
 
 def apply_egcl_fused_allpairs(params, cfg: EGCLConfig, h, pos, box,

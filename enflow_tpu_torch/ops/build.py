@@ -27,6 +27,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
+class LaunchCounts:
+    """Kernel launches (on the card) and plain-version calls (on the CPU)
+    of one kernel module since the last ``reset``: one integer attribute
+    per name."""
+
+    def __init__(self, *names: str):
+        self._names = names
+        self.reset()
+
+    def reset(self):
+        for name in self._names:
+            setattr(self, name, 0)
+
+
 def nvcc() -> str:
     """Path of ``nvcc``: ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``, PATH."""
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
@@ -45,24 +59,43 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
+def build_all(names) -> dict[str, tuple[Path, float, str]]:
+    """Compile ``csrc/<name>.cu`` for each name whose library does not
+    exist yet, one ``nvcc`` process per source, all started together.
+    Returns ``{name: (library path, build seconds, nvcc's messages)}``
+    (seconds 0 for a library that was already built); raises with the
+    compiler's output when a build fails."""
+    out, procs = {}, {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            out[name] = (lib, 0.0, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (lib, tmp, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (lib, tmp, t0, proc) in procs.items():
+        log, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building "
+                          f"{name}:\n{log}")
+            continue
+        os.replace(tmp, lib)
+        out[name] = (lib, secs, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
 def build(name: str) -> tuple[Path, float, str]:
-    """Compile ``csrc/<name>.cu`` unless its library exists. Returns
-    ``(library path, build seconds, nvcc's messages)``; raises with the
-    compiler's output when the build fails."""
-    out = library_path(name)
-    if out.exists():
-        return out, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{name}:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, secs, proc.stdout + proc.stderr
+    """Compile ``csrc/<name>.cu`` unless its library exists (see
+    :func:`build_all`)."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

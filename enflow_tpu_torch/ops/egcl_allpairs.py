@@ -27,24 +27,13 @@ import ctypes
 
 import torch
 
+from .build import LaunchCounts
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-class LaunchCounts:
-    """Kernel launches (on the card) and plain-version calls (on the CPU)
-    since the last ``reset``."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.fwd_launches = 0
-        self.bwd_launches = 0
-        self.plain_fwd_calls = 0
-        self.plain_bwd_calls = 0
-
-
-counts = LaunchCounts()
+counts = LaunchCounts("fwd_launches", "bwd_launches", "plain_fwd_calls",
+                      "plain_bwd_calls")
 
 
 def split_params(W1, b1, nf: int):

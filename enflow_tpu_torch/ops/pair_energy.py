@@ -1,0 +1,159 @@
+"""Blockwise LJ pair energy with its analytic gradient: the port of
+``enflow_tpu/ops/pairwise_kernel.py`` (K7).
+
+Contract (``pair_energy_and_grad``): ``pos [B,N,3]``, ``mask_f [B,N]``
+(0/1), ``box [B,3]`` -> ``(E [B], dE/dpos [B,N,3])`` over ordered pairs,
+halved, in one pass:
+
+- form ``"r2"`` (the NLL term): ``4((d2+s)^-6 - (d2+s)^-3)`` on raw
+  displacements, no cutoff;
+- form ``"r"`` (the MD potential): ``4((s+r)^-12 - (s+r)^-6)`` on min-image
+  displacements with ``d2 < cutoff^2``.
+
+Both exclude ``d2 == 0`` pairs (self and coincident atoms) and padded
+atoms. On a CUDA tensor it launches ``csrc/pair_energy.cu`` (float32 only;
+other dtypes raise); on a CPU tensor it runs the plain version below, in
+the tensor's own dtype. ``pair_energy`` wraps it in an autograd Function
+that saves the gradient and whose backward is ``ct * g``, with no launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import LaunchCounts
+
+FORMS = {"r2": 0, "r": 1}
+
+counts = LaunchCounts("r2_launches", "r_launches", "plain_calls")
+
+
+def _pair_terms(d2, softening, form):
+    """Pair energy ``e(d2)`` and ``de/dd2`` (``pairwise_kernel.py:49-67``)."""
+    if form == "r2":
+        a = 1.0 / (d2 + softening)
+        a3 = a * a * a
+        a6 = a3 * a3
+        return 4.0 * (a6 - a3), 4.0 * (-6.0 * a6 * a + 3.0 * a3 * a)
+    r = torch.sqrt(d2)
+    inv = 1.0 / (softening + r)
+    inv3 = inv * inv * inv
+    inv6 = inv3 * inv3
+    inv12 = inv6 * inv6
+    de_dr = 4.0 * (-12.0 * inv12 * inv + 6.0 * inv6 * inv)
+    return 4.0 * (inv12 - inv6), de_dr / (2.0 * r)
+
+
+def pair_energy_plain(pos, mask_f, box, form: str, softening: float,
+                      cutoff: float | None = None):
+    """Plain version over the dense ``[B, N, N]`` ordered pairs."""
+    d = pos[:, :, None, :] - pos[:, None, :, :]
+    if form == "r":
+        bx = box[:, None, None, :]
+        d = d - torch.round(d / bx) * bx
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    valid = (mask_f[:, :, None] * mask_f[:, None, :] > 0) & (d2 > 0)
+    if form == "r":
+        valid = valid & (d2 < cutoff * cutoff)
+    one = torch.ones((), dtype=d2.dtype, device=d2.device)
+    zero = torch.zeros((), dtype=d2.dtype, device=d2.device)
+    e, de = _pair_terms(torch.where(valid, d2, one), softening, form)
+    e = torch.where(valid, e, zero)
+    de = torch.where(valid, de, zero)
+    return 0.5 * e.sum(dim=(1, 2)), (de[..., None] * 2.0 * d).sum(dim=2)
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def _library():
+    from .build import load
+    lib = load("pair_energy")
+    if not getattr(lib, "_enflow_bound", False):
+        # form, B, N, pos, mask, box, softening, cutoff2, e_part, grad, stream
+        lib.pair_energy.argtypes = [_I, _I, _I, _P, _P, _P, _F, _F, _P, _P,
+                                    _P]
+        lib.pair_energy.restype = _I
+        lib.pair_energy_row_tiles.argtypes = [_I]
+        lib.pair_energy_row_tiles.restype = _I
+        lib.pair_energy_error_string.argtypes = [_I]
+        lib.pair_energy_error_string.restype = ctypes.c_char_p
+        lib._enflow_bound = True
+    return lib
+
+
+def _launch(pos, mask_f, box, form, softening, cutoff):
+    dev = pos.device
+    for name, t in (("pos", pos), ("mask", mask_f), ("box", box)):
+        if t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"the pair-energy kernel takes float32 tensors "
+                             f"on one device; {name} is {t.dtype} on "
+                             f"{t.device}")
+    B, N, _ = pos.shape
+    lib = _library()
+    tiles = lib.pair_energy_row_tiles(N)
+    e_part = torch.empty((B, tiles), dtype=torch.float32, device=dev)
+    grad = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
+    if B and N:
+        args = [t.contiguous() for t in (pos, mask_f, box)]
+        cutoff2 = float(cutoff) ** 2 if form == "r" else 0.0
+        err = lib.pair_energy(
+            FORMS[form], B, N, *[t.data_ptr() for t in args],
+            float(softening), cutoff2, e_part.data_ptr(), grad.data_ptr(),
+            _P(torch.cuda.current_stream(dev).cuda_stream))
+        if err != 0:
+            msg = lib.pair_energy_error_string(err).decode()
+            raise RuntimeError(f"pair_energy kernel launch failed: {msg} "
+                               f"(error {err}; form {form}, B={B}, N={N})")
+        setattr(counts, f"{form}_launches",
+                getattr(counts, f"{form}_launches") + 1)
+    else:
+        e_part.zero_()
+        grad.zero_()
+    return (e_part[:, 0] if tiles == 1 else e_part.sum(dim=1)), grad
+
+
+def pair_energy_and_grad(pos, mask_f, box, form: str, softening: float,
+                         cutoff: float | None = None):
+    """``(E [B], dE/dpos [B,N,3])``: the kernel on the card, the plain
+    version on the CPU."""
+    if form not in FORMS:
+        raise ValueError(f"form must be 'r2' or 'r', got {form!r}")
+    if form == "r" and cutoff is None:
+        raise ValueError("form 'r' needs a cutoff")
+    if pos.is_cuda:
+        return _launch(pos, mask_f, box, form, softening, cutoff)
+    counts.plain_calls += 1
+    return pair_energy_plain(pos, mask_f, box, form, softening, cutoff)
+
+
+class _PairEnergy(torch.autograd.Function):
+    """Saves the gradient of the one pass; the backward is ``ct * g``
+    (``pairwise_kernel.py:156-157``), with ``None`` for mask and box."""
+
+    @staticmethod
+    def forward(ctx, pos, mask_f, box, form, softening, cutoff):
+        e, g = pair_energy_and_grad(pos, mask_f, box, form, softening,
+                                    cutoff)
+        ctx.save_for_backward(g)
+        return e
+
+    @staticmethod
+    def backward(ctx, ct):
+        (g,) = ctx.saved_tensors
+        return ct[:, None, None] * g, None, None, None, None, None
+
+
+def pair_energy(pos, mask, box, form: str, softening: float,
+                cutoff: float | None = None):
+    """Differentiable ``E [B]`` of ``pos [B,N,3]``; ``mask`` is bool or 0/1
+    and ``box`` may be ``None`` (form ``r2`` reads no box)."""
+    if box is None:
+        box = torch.ones((pos.shape[0], 3), dtype=pos.dtype,
+                         device=pos.device)
+    return _PairEnergy.apply(pos, mask.to(pos.dtype), box.to(pos.dtype),
+                             form, float(softening), cutoff)

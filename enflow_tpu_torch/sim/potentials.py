@@ -1,9 +1,10 @@
-"""Pairwise potentials, the port of ``lj_energy`` from
-``enflow_tpu/sim/potentials.py`` (the MD potentials come with generate,
-ROADMAP queue A item 7).
-"""
+"""Pairwise potentials, the port of ``enflow_tpu/sim/potentials.py``:
+``lj_energy`` (the sampler targets) and ``softened_lj_energy`` (the MD
+potential of the simulated datasets)."""
 
 import torch
+
+from ..ops.pair_energy import pair_energy, pair_energy_and_grad
 
 
 def lj_energy(pos: torch.Tensor, mask=None, epsilon: float = 1.0,
@@ -24,3 +25,32 @@ def lj_energy(pos: torch.Tensor, mask=None, epsilon: float = 1.0,
     inv6 = inv2 * inv2 * inv2
     e = 4.0 * epsilon * (inv6 * inv6 - inv6)
     return torch.where(valid, e, zero).sum(dim=(-1, -2))
+
+
+def _batch(pos, box, mask):
+    n = pos.shape[0]
+    if mask is None:
+        mask = torch.ones((n,), dtype=torch.bool, device=pos.device)
+    box = torch.as_tensor(box, dtype=pos.dtype, device=pos.device)
+    return pos[None], mask[None].to(pos.dtype), box.reshape(1, 3)
+
+
+def softened_lj_energy(pos, box, softening, cutoff, mask=None):
+    """Softened LJ energy ``4((s+r)^-12 - (s+r)^-6)`` of one molecule
+    ``pos [N,3]`` with min-image PBC in ``box [3]`` and a radial cutoff
+    (reduced units), differentiable in ``pos``. It is the pair-energy
+    kernel's form ``r`` (``ops/pair_energy.py``): on the card it launches
+    that kernel, on the CPU it runs its plain version. Like the kernel it
+    leaves out pairs at distance 0, which the JAX package's dense form
+    counts: the two differ only for coincident atoms."""
+    p, m, b = _batch(pos, box, mask)
+    return pair_energy(p, m, b, "r", softening, float(cutoff))[0]
+
+
+def softened_lj_energy_grad(pos, box, softening, cutoff, mask=None):
+    """``(E, dE/dpos [N,3])`` of :func:`softened_lj_energy` from the
+    kernel's one pass (no autograd): the MD force field."""
+    p, m, b = _batch(pos, box, mask)
+    e, g = pair_energy_and_grad(p, m, b, "r", float(softening),
+                                float(cutoff))
+    return e[0], g[0]

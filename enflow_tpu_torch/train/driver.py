@@ -1,11 +1,21 @@
 """YAML-driven driver, the port of ``enflow_tpu/train/driver.py``.
 
-Ported: ``mode: sample`` with ``sampling.algo: smc | ais`` (flow-proposal
-SMC/AIS over an ``lj_cluster`` target), from a checkpoint's hparams or
-from a fresh ``init_flow`` when the YAML gives ``dynamics.n_iter``, ``dt``,
-``integrator`` and ``network``. The config schema, the npz output keys and
-the one-line summary are the JAX driver's. Every other mode, algo, target
-and option raises ``NotImplementedError`` naming its ROADMAP item.
+Ported:
+
+- ``mode: train`` with ``objective: nll`` on a ``type: lj`` dataset (the
+  LJ MD simulated on the card): ``nbr_capacity: auto``, the capacity check
+  of the ``images`` mode, Adam (with optional ``grad_clip`` as optax's
+  ``clip_by_global_norm`` and the staircase ``scheduler``), the per-epoch
+  line in the JAX format, checkpoints every ``checkpoint_interval`` epochs
+  and at the last, and resume from a checkpoint of either package.
+- ``mode: sample`` with ``sampling.algo: smc | ais`` (flow-proposal
+  SMC/AIS over an ``lj_cluster`` target), from a checkpoint's hparams or
+  from a fresh ``init_flow`` when the YAML gives ``dynamics.n_iter``,
+  ``dt``, ``integrator`` and ``network``.
+
+The config schema, checkpoints, npz outputs and printed lines are the JAX
+driver's. Every other mode, objective, dataset type, algo, target and
+option raises ``NotImplementedError`` naming its ROADMAP item.
 
 The SMC runs batched: the densities see all particles at once, so on the
 card each EGCL is one launch of the fused kernel over the particle batch.
@@ -16,18 +26,26 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
+import time
 
 import numpy as np
 import torch
 import yaml
 
 from .. import resolve_device
+from ..data import transforms
+from ..data.datasets import DataLoader, get_dataset_class
+from ..data.neighbors import image_edge_max
 from ..data.system import System
-from ..flow.integrators import (FlowConfig, init_flow, forward_core,
-                                reverse_core)
+from ..flow.integrators import (FlowConfig, init_flow, forward,
+                                forward_core, reverse_core)
+from ..flow.loss import alchemical_nll
 from ..nn.egcl import EGCLConfig
 from ..utils import conversion as cv
-from .checkpoint import load_checkpoint, load_hparams
+from ..utils.jax_params import tree_flatten
+from .checkpoint import (has_tree, load_checkpoint, load_hparams,
+                         save_checkpoint)
+from .optim import NLLOptimizer
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16}
@@ -91,13 +109,14 @@ class Main:
         with open(input_path) as f:
             args = yaml.safe_load(f)
         self.args = args
+        self.start_epoch = 0
 
         mode = args.get("mode", "train")
-        if mode != "sample":
+        if mode not in ("train", "sample"):
             raise NotImplementedError(
-                f"mode {mode!r} is not ported yet (ROADMAP queue A: train is "
-                "items 5-6, generate item 7, dataset item 5); the port runs "
-                "mode 'sample'")
+                f"mode {mode!r} is not ported yet (ROADMAP queue A: generate "
+                "is item 7, dataset item 5); the port runs mode 'train' and "
+                "'sample'")
         self.mode = mode
         if int(args.get("parallel", {}).get("atom_axis", 1)) > 1:
             raise NotImplementedError(
@@ -105,10 +124,13 @@ class Main:
                 "item 9)")
         self.dtype = _DTYPES[args.get("precision", "float32")]
         self.seed = int(args.get("seed", 0))
+        if mode == "train":
+            self._check_train_options(args)
 
         dyn = args.get("dynamics", {})
         self.checkpoint_path = dyn.get("checkpoint_path", "")
         hp = None
+        node_nf = None
         if self.checkpoint_path and os.path.exists(self.checkpoint_path):
             print("Loading from saved state", flush=True)
             hp = load_hparams(self.checkpoint_path)
@@ -119,21 +141,47 @@ class Main:
             self.integrator = hp["integrator"]
             self.dequantizer = hp.get("dequantizer", "argmax")
             self.dequant_scale = float(hp.get("dequant_scale", 1.0))
+            if mode == "train":
+                self.lj_kBT = hp["lj_kBT"]
+                self.softening = hp["softening"]
         else:
-            node_nf = int(dyn["network"]["node_nf"])
+            if mode == "sample":
+                node_nf = int(dyn["network"]["node_nf"])
             self.hidden_nf = int(dyn["network"]["hidden_nf"])
             self.n_iter = int(dyn["n_iter"])
             dt = cv.time_to_lj(float(dyn["dt"]), unit=args["units"]["time"])
             self.integrator = str(dyn["integrator"]).lower()
             self.dequantizer = str(dyn.get("dequantizer", "argmax")).lower()
             self.dequant_scale = float(dyn.get("dequant_scale", 1.0))
+            if mode == "train":
+                loss_sec = args.get("training", {}).get("loss", {})
+                self.lj_kBT = cv.kelvin_to_lj(float(loss_sec.get("temp",
+                                                                 300.0)))
+                self.softening = float(loss_sec.get("softening", 0.0))
+
+        if dyn.get("compiler_options") is not None:
+            raise NotImplementedError(
+                "dynamics.compiler_options is not ported (TPU-only XLA "
+                "flags)")
+        nbr_capacity = dyn.get("nbr_capacity")
+        if mode == "train":
+            self.dataset = self._setup_dataset("dataset", args)
+            if node_nf is None:
+                node_nf = self.dataset.node_nf
+            tr = args["training"]
+            batch_size = int(tr.get("batch_size", args.get(
+                "dataset", {}).get("batch_size", 1)))
+            self.train_loader = DataLoader(
+                self.dataset, batch_size=batch_size, shuffle=True,
+                seed=self.seed, dtype=self.dtype, device=self.device,
+                prefetch=int(tr.get("prefetch", 2)))
+            nbr_capacity = self._auto_capacity(dyn, nbr_capacity)
+        elif nbr_capacity is not None:
+            raise NotImplementedError(
+                "dynamics.nbr_capacity is not ported for sampling (ROADMAP "
+                "queue A items 2 and 7)")
         self.node_nf = node_nf
 
-        for key, item in (("nbr_capacity", "items 2 and 5"),
-                          ("compiler_options", "(TPU-only XLA flags)")):
-            if dyn.get(key) is not None:
-                raise NotImplementedError(
-                    f"dynamics.{key} is not ported (ROADMAP queue A {item})")
         net_sec = dyn.get("network", {})
         self.flow_cfg = FlowConfig(
             n_iter=self.n_iter, dt=float(dt),
@@ -147,6 +195,7 @@ class Main:
                             use_pallas=net_sec.get("use_pallas", False)),
             integrator=self.integrator,
             dequantizer=self.dequantizer,
+            nbr_capacity=nbr_capacity,
             nbr_mode=dyn.get("nbr_mode", "dense"),
             exact_ldj=bool(dyn.get("exact_ldj", False)),
             remat=bool(dyn.get("remat", True)),
@@ -157,11 +206,263 @@ class Main:
         )
         gen = torch.Generator().manual_seed(self.seed)
         self.params = init_flow(gen, self.flow_cfg, self.dtype, self.device)
+        if mode == "sample":
+            if hp is not None:
+                tree, _ = load_checkpoint(self.checkpoint_path,
+                                          {"params": self.params})
+                self.params = tree["params"]
+            eprint("In sample mode", flush=True)
+            return
+
+        if dyn.get("validate_capacity", True):
+            self._validate_capacities()
+        self._setup_optimizer(args["training"])
         if hp is not None:
-            tree, _ = load_checkpoint(self.checkpoint_path,
-                                      {"params": self.params})
-            self.params = tree["params"]
-        eprint("In sample mode", flush=True)
+            self._restore(hp)
+        eprint("In training mode", flush=True)
+
+    # ------------------------------------------------------------------
+    # train
+    # ------------------------------------------------------------------
+
+    def _check_train_options(self, args):
+        tr = args.get("training", {})
+        objective = tr.get("objective", "nll")
+        if objective != "nll":
+            raise NotImplementedError(
+                f"training.objective={objective!r} is not ported yet "
+                "(ROADMAP queue A item 6, flow-VI); the port trains 'nll'")
+        for key in ("metrics_csv", "profile_dir"):
+            if tr.get(key):
+                raise NotImplementedError(
+                    f"training.{key} is not ported yet (ROADMAP queue A "
+                    "item 8, utils/observe.py)")
+        if args.get("debug", {}).get("nan_checks"):
+            raise NotImplementedError(
+                "debug.nan_checks is not ported yet (ROADMAP queue A item 8, "
+                "utils/observe.py)")
+        mode = args.get("dynamics", {}).get("nbr_mode", "dense")
+        if mode not in ("all_pairs", "images"):
+            raise NotImplementedError(
+                f"nbr_mode={mode!r} is not ported yet (ROADMAP queue A items "
+                "2 and 7); the port trains with 'all_pairs' and 'images'")
+        if args.get("dataset", {}).get("type") == "compose":
+            raise NotImplementedError(
+                "dataset type 'compose' is not ported yet (ROADMAP queue A "
+                "item 5)")
+
+    def _setup_dataset(self, dataset_label, args):
+        """Resolve the dataset class and build the standard transforms
+        (``driver.py:100-127``); a simulated dataset runs on the driver's
+        device."""
+        section = dict(args[dataset_label])
+        cls = get_dataset_class(section.pop("type"))
+        section.pop("batch_size", None)
+        section["dist_unit"] = args["units"]["dist"]
+        section["time_unit"] = args["units"]["time"]
+        if "r_cut" not in section and "r_cut" in args.get("dynamics", {}):
+            section["r_cut"] = args["dynamics"]["r_cut"]
+        section.setdefault("seed", int(args.get("seed", 0)))
+        T = [transforms.ConvertPositionsFrom(args["units"]["dist"]),
+             transforms.Center()]
+        if section.pop("randomize_vel", False):
+            T.append(transforms.RandomizeVelocity(
+                cv.kelvin_to_lj(float(section.pop("temp"))),
+                seed=section["seed"] + 1))
+        else:
+            T.append(transforms.ConvertVelocitiesFrom(
+                args["units"]["dist"], args["units"]["time"]))
+        return cls(**section, transform=transforms.Compose(T),
+                   device=self.device)
+
+    def _auto_capacity(self, dyn, nbr_capacity):
+        """``nbr_capacity: auto`` in ``images`` mode: the first frame's
+        largest (neighbor, image) slot count x 1.25, rounded up to a
+        multiple of 8 (``driver.py:284-301``)."""
+        if nbr_capacity != "auto":
+            return None if nbr_capacity is None else int(nbr_capacity)
+        if not len(self.dataset):
+            raise ValueError("nbr_capacity: auto requires a dataset")
+        if dyn.get("nbr_mode") != "images":
+            raise NotImplementedError(
+                "nbr_capacity: auto is ported for nbr_mode 'images' only "
+                "(ROADMAP queue A items 2 and 7)")
+        s0 = self.dataset[0]
+        mx = image_edge_max(np.asarray(s0.pos, np.float64),
+                            np.asarray(s0.box, np.float64), float(s0.r_cut))
+        cap = int(np.ceil(mx * 1.25))
+        cap = max(8, ((cap + 7) // 8) * 8)
+        eprint(f"nbr_capacity: auto -> {cap}", flush=True)
+        return cap
+
+    def _validate_capacities(self):
+        """One host-side capacity check per dataset for ``images`` mode
+        (``driver.py:502-655``): up to ``validate_max_frames`` frames,
+        raising with the needed value when a frame has more in-cutoff
+        (neighbor, image) slots than ``nbr_capacity``."""
+        cfg = self.flow_cfg
+        if cfg.nbr_mode != "images" or not len(self.dataset):
+            return
+        dyn = self.args.get("dynamics", {})
+        n_total = len(self.dataset)
+        max_frames = int(dyn.get("validate_max_frames", 64))
+        if max_frames > 0 and n_total > max_frames:
+            idxs = np.unique(np.linspace(0, n_total - 1, max_frames,
+                                         dtype=int))
+            eprint(f"capacity check: sampling {len(idxs)} of {n_total} "
+                   f"frames (dynamics.validate_max_frames={max_frames}; "
+                   f"set 0 to scan every frame)", flush=True)
+        else:
+            idxs = np.arange(n_total)
+        max_nbr = 0
+        for i in idxs:
+            s = self.dataset[int(i)]
+            max_nbr = max(max_nbr, image_edge_max(
+                np.asarray(s.pos, np.float64), np.asarray(s.box, np.float64),
+                float(s.r_cut)))
+        factor = float(dyn.get("capacity_headroom", 1.25))
+        rec_nbr = int(np.ceil(max_nbr * factor))
+        if max_nbr > (cfg.nbr_capacity or 10 ** 9):
+            raise ValueError(
+                f"nbr_capacity={cfg.nbr_capacity} is too small: an atom in "
+                f"this dataset has {max_nbr} in-cutoff (neighbor, image) "
+                f"slots — edges would be silently dropped. Recommended "
+                f"dynamics.nbr_capacity >= {rec_nbr} ({max_nbr} observed x "
+                f"{factor:g} capacity_headroom for mid-flow motion) (or set "
+                f"dynamics.validate_capacity: false)")
+        eprint(f"capacity check: max neighbors {max_nbr} — within capacity",
+               flush=True)
+        if cfg.nbr_capacity is not None and cfg.nbr_capacity < rec_nbr:
+            eprint(f"WARNING: capacity below the mid-flow headroom "
+                   f"recommendation (nbr_capacity {cfg.nbr_capacity} < "
+                   f"recommended {rec_nbr} ({max_nbr} observed x "
+                   f"{factor:g})) — the runtime overflow counter will "
+                   f"report any truncation", flush=True)
+
+    def _setup_optimizer(self, tr):
+        """Adam with optional ``grad_clip`` and staircase ``scheduler``
+        (``train/optim.py``) over the flattened parameters."""
+        sched = tr.get("scheduler")
+        if isinstance(sched, str) and sched.lower() in ("no", "false",
+                                                        "none", "off"):
+            sched = False
+        clip = tr.get("grad_clip")
+        self._leaves, _ = tree_flatten(self.params)
+        for t in self._leaves:
+            t.requires_grad_(True)
+        self.optimizer = NLLOptimizer(
+            self._leaves, float(tr["lr"]),
+            schedule=((int(float(tr["scheduler_step"])), float(tr["gamma"]))
+                      if sched else None),
+            grad_clip=float(clip) if clip else None)
+        self.num_epochs = int(tr["num_epochs"])
+        self.log_interval = int(tr["log_interval"])
+        self.checkpoint_interval = int(tr.get("checkpoint_interval", 1))
+        eprint(f"Loss function parameters: softening={self.softening}, "
+               f"kBT={self.lj_kBT}", flush=True)
+
+    def _restore(self, hp):
+        """Resume params and optimizer from the checkpoint (either
+        package's), continuing at ``epoch + 1``."""
+        template = {"params": self.params}
+        if has_tree(self.checkpoint_path, "opt_state"):
+            template["opt_state"] = self.optimizer.state_leaves()
+        else:
+            eprint("checkpoint has no optimizer state (imported?); starting "
+                   "with a fresh optimizer", flush=True)
+        try:
+            tree, _ = load_checkpoint(self.checkpoint_path, template)
+        except ValueError as e:
+            if "opt_state" not in str(e):
+                raise
+            eprint(f"optimizer state incompatible ({e}); starting with a "
+                   "fresh optimizer", flush=True)
+            template.pop("opt_state")
+            tree, _ = load_checkpoint(self.checkpoint_path, template)
+        loaded, _ = tree_flatten(tree["params"])
+        with torch.no_grad():
+            for p, v in zip(self._leaves, loaded):
+                p.copy_(v)
+        if "opt_state" in tree:
+            self.optimizer.load_state_leaves(tree["opt_state"])
+        self.start_epoch = int(hp["epoch"]) + 1
+
+    def _save(self, epoch):
+        hparams = {
+            "epoch": int(epoch),
+            "node_nf": int(self.node_nf),
+            "hidden_nf": int(self.hidden_nf),
+            "softening": float(self.softening),
+            "lj_kBT": float(self.lj_kBT),
+            "integrator": self.integrator,
+            "dequantizer": self.dequantizer,
+            "dequant_scale": float(self.flow_cfg.dequant_scale),
+            "n_iter": int(self.n_iter),
+            "dt": float(self.flow_cfg.dt),
+        }
+        save_checkpoint(self.checkpoint_path,
+                        {"params": self.params,
+                         "opt_state": self.optimizer.state_leaves()},
+                        hparams)
+
+    def train_step(self, batch, gen):
+        """One NLL step: forward with the dequantizer noise from ``gen``,
+        the NLL, its gradient, clipping, Adam. Returns the loss and the
+        overflow count (device tensors; no host sync)."""
+        cfg = self.flow_cfg
+        if cfg.nbr_mode == "images":
+            cfg = dataclasses.replace(cfg, track_overflow=True)
+            out, ldj, ovf = forward(self.params, cfg, batch, gen=gen)
+        else:
+            out, ldj = forward(self.params, cfg, batch, gen=gen)
+            ovf = torch.zeros((), dtype=torch.int32, device=self.device)
+        n_lg = 3 if cfg.dequantizer == "argmax" else 2
+        loss = alchemical_nll(out, ldj, self.lj_kBT, self.softening,
+                              num_log_gaussian_calls=n_lg)
+        self.optimizer.zero_grad()
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach(), ovf
+
+    def _noise_seed(self, epoch: int) -> int:
+        """The dequantizer noise's seed of one epoch: a resumed run draws
+        what an uninterrupted one draws."""
+        return ((self.seed + 17) * 1_000_003 + epoch) % (2 ** 63)
+
+    def train(self):
+        print('Epoch \tTraining Loss \t   Time (s)', flush=True)
+        for epoch in range(self.start_epoch,
+                           self.start_epoch + self.num_epochs):
+            self.train_loader.set_epoch(epoch)
+            eprint(f"###### Starting epoch {epoch} ######", flush=True)
+            start_time = time.time()
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self._noise_seed(epoch))
+            losses, ovfs = [], []
+            for batch in self.train_loader:
+                loss, ovf = self.train_step(batch, gen)
+                losses.append(loss)
+                ovfs.append(ovf)
+            epoch_loss = float(torch.stack(losses).mean())
+            epoch_ovf = int(torch.stack(ovfs).sum())
+            if epoch_ovf:
+                eprint(f"WARNING: epoch {epoch} truncated {epoch_ovf} "
+                       f"neighbor slots mid-flow (nbr_capacity/"
+                       f"cell_capacity too small for in-flow motion) — "
+                       f"raise the capacity or dynamics.capacity_headroom",
+                       flush=True)
+            last = epoch == self.start_epoch + self.num_epochs - 1
+            if self.checkpoint_path and (
+                    epoch % self.checkpoint_interval == 0 or last):
+                self._save(epoch)
+                eprint("State saved", flush=True)
+            end_time = time.time()
+            if epoch % self.log_interval == 0:
+                lr = self.optimizer.lr_at(self.optimizer.steps_taken)
+                print('%.5i \t    %.2f \t    %.2f \t    %.2e'
+                      % (epoch, epoch_loss, end_time - start_time, lr),
+                      flush=True)
+            eprint(f"###### Ending epoch {epoch} ###### ", flush=True)
 
     def _build_pos_target(self, section):
         from ..sample import targets as T
@@ -270,4 +571,4 @@ class Main:
 
     def __call__(self, input_path):
         self.setup(input_path)
-        return self.sample()
+        return self.train() if self.mode == "train" else self.sample()

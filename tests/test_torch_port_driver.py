@@ -64,8 +64,8 @@ def test_driver_sample_cpu(tmp_path, capsys, algo, cdt, kernel):
 
 
 def test_driver_rejects_unported_modes(tmp_path):
-    cfg = tmp_path / "train.yaml"
-    cfg.write_text("mode: train\n")
+    cfg = tmp_path / "generate.yaml"
+    cfg.write_text("mode: generate\n")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Main(device="cpu")(str(cfg))
     cfg.write_text(YAML.format(algo="remc", cdt="null", kernel="false",

@@ -6,7 +6,10 @@
   (``enflow_tpu_torch.ops.egcl_allpairs``, which is what a CPU tensor runs)
   against the Pallas kernels K1/K2 of ``enflow_tpu/ops/egcl_fused_v3.py`` in
   interpret mode, forward and input-gradient VJP, at the tolerances of
-  ``tests/test_egcl_fused.py`` (f32) and its bf16 tolerance.
+  ``tests/test_egcl_fused.py`` (f32) and its bf16 tolerance; and against
+  K3/K4, the v2 kernels of ``enflow_tpu/ops/egcl_fused.py``, which compute
+  the same function (the port's counterpart of both is the one CUDA
+  kernel), at the same f32 tolerances.
 
 Inputs are made with numpy from a seed and fed to both packages.
 """
@@ -21,6 +24,7 @@ from enflow_tpu.data.neighbors import neighbors_with_diffs as j_nbrs
 from enflow_tpu.nn.egcl import EGCLConfig as JEGCLConfig
 from enflow_tpu.nn.egcl import apply_egcl as j_apply_egcl
 from enflow_tpu.nn.egcl import init_egcl as j_init_egcl
+from enflow_tpu.ops.egcl_fused import fused_allpairs_edges as fused_v2
 from enflow_tpu.ops.egcl_fused_v3 import fused_allpairs_edges_v3
 
 from enflow_tpu_torch.data.neighbors import neighbors_with_diffs
@@ -75,7 +79,8 @@ def test_plain_egcl_matches_jax_f64(pbc):
                                    atol=1e-12)
 
 
-def _contract_case(B, pbc, cdt_j, cdt_t, mol_tile):
+def _contract_case(B, pbc, cdt_j, cdt_t, mol_tile,
+                   kernel=fused_allpairs_edges_v3):
     h, pos, box, mask = _inputs(B, pbc, seed=1, dtype=np.float32)
     jp = j_init_egcl(jax.random.PRNGKey(5), JEGCLConfig(NF, H), jnp.float32)
     jp = jax.tree_util.tree_map(lambda x: x.astype(cdt_j), jp)
@@ -86,13 +91,11 @@ def _contract_case(B, pbc, cdt_j, cdt_t, mol_tile):
     jpos, jbox, jmask = jnp.asarray(pos), jnp.asarray(box), jnp.asarray(mask)
 
     def jloss(hh, pp):
-        a, f, _ = fused_allpairs_edges_v3(jp, hh, pp, jbox, jmask,
-                                          mol_tile=mol_tile)
+        a, f, _ = kernel(jp, hh, pp, jbox, jmask, mol_tile=mol_tile)
         return ((a.astype(jnp.float32) * c_agg).sum()
                 + (f.astype(jnp.float32) * c_fs).sum())
 
-    ja, jf, jc = fused_allpairs_edges_v3(jp, jh, jpos, jbox, jmask,
-                                         mol_tile=mol_tile)
+    ja, jf, jc = kernel(jp, jh, jpos, jbox, jmask, mol_tile=mol_tile)
     jgh, jgp = jax.grad(jloss, argnums=(0, 1))(jh, jpos)
 
     tp = from_jax_params(jax.tree_util.tree_map(
@@ -109,11 +112,7 @@ def _contract_case(B, pbc, cdt_j, cdt_t, mol_tile):
             np.asarray(jc), tc)
 
 
-@pytest.mark.parametrize("B,mol_tile", [(6, 16), (7, 4)])
-@pytest.mark.parametrize("pbc", [False, True])
-def test_contract_matches_pallas_f32(B, mol_tile, pbc):
-    fwd_a, fwd_f, g_h, g_pos, jc, tc = _contract_case(
-        B, pbc, jnp.float32, torch.float32, mol_tile)
+def _check_f32(fwd_a, fwd_f, g_h, g_pos, jc, tc):
     for want, got in (fwd_a, fwd_f):
         assert got.dtype == torch.float32
         np.testing.assert_allclose(got.detach().numpy(), want, rtol=2e-5,
@@ -121,6 +120,19 @@ def test_contract_matches_pallas_f32(B, mol_tile, pbc):
     np.testing.assert_array_equal(tc.numpy(), jc)
     for want, got in (g_h, g_pos):
         np.testing.assert_allclose(got.numpy(), want, rtol=5e-5, atol=5e-6)
+
+
+@pytest.mark.parametrize("B,mol_tile", [(6, 16), (7, 4)])
+@pytest.mark.parametrize("pbc", [False, True])
+def test_contract_matches_pallas_f32(B, mol_tile, pbc):
+    _check_f32(*_contract_case(B, pbc, jnp.float32, torch.float32, mol_tile))
+
+
+@pytest.mark.parametrize("pbc", [False, True])
+def test_contract_matches_v2_pallas_f32(pbc):
+    """K3/K4 (``ops/egcl_fused.py``) against the same plain contract."""
+    _check_f32(*_contract_case(7, pbc, jnp.float32, torch.float32, 4,
+                               fused_v2))
 
 
 def test_contract_matches_pallas_bf16():

@@ -113,7 +113,7 @@ def test_unported_options_raise():
     _, tsys = _state()
     import dataclasses
     for kw in (dict(integrator="vv"), dict(nbr_mode="dense"),
-               dict(track_overflow=True)):
+               dict(axis_name="atom")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             forward_core(tp, dataclasses.replace(tcfg, **kw), tsys)
 
