@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Mutation check of ``chip_smoke.py``'s kernel-vs-plain tolerances, on one
 CUDA card: ``python3 chip_mutants.py [GROUP ...]`` from the repository root
-(groups: ``egcl_allpairs``, ``edge_pipeline``, ``pair_energy``; all by
-default).
+(groups: ``egcl_allpairs``, ``egcl_params``, ``edge_pipeline``,
+``pair_energy``; all by default; ``egcl_params`` is K2's parameter-gradient
+variant, in ``egcl_allpairs.cu`` too).
 
 For each mutant below, the package and ``chip_smoke.py`` are copied into a
 temporary directory, one deliberate fault is written into the copy's CUDA
@@ -37,6 +38,18 @@ MUTANTS = {
         "r2 not rounded to the compute dtype before w1r": (
             "rnd<T>(rnd<T>(s.r2[r]) * s.w1r[c])",
             "rnd<T>(s.r2[r] * s.w1r[c])"),
+    },
+    "egcl_params": {
+        "control": None,
+        "dW2 drops each molecule's last chunk": (
+            "outer_add<T>(s, part + L.dW2, Z3, H);",
+            "if (e0 + kRows<T> < E) outer_add<T>(s, part + L.dW2, Z3, H);"),
+        "dw4 takes the rounded dgate": (
+            "if constexpr (PARAMS) s.aux2[r] = dgate;",
+            "if constexpr (PARAMS) s.aux2[r] = rnd<T>(dgate);"),
+        "dw1r takes the rounded r2": (
+            "return s.r2[r] * Z1[r * H + c];",
+            "return rnd<T>(s.r2[r]) * Z1[r * H + c];"),
     },
     "edge_pipeline": {
         "control": None,
@@ -86,6 +99,19 @@ for sname, shape in (("main", cs.MAIN), ("ragged", cs.RAGGED)):
         report(f"{sname} {dname}", cs.rel_errs(("agg", "f_sum", "dh", "dpos"),
                k, p), cs.TOL[dname])
 """,
+    "egcl_params": HEAD + """
+from enflow_tpu_torch.ops import egcl_allpairs as ops
+for sname, shape in (("vi", cs.VI), ("ico", cs.ICO), ("ragged", cs.RAGGED)):
+    for dname, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        h, pos, box, mf, W, dagg, dfs, _ = cs.edge_inputs(shape, dt, seed=19)
+        args = (h, pos, box, mf, W, dagg, dfs)
+        errs = cs.rel_errs(cs.PARAM_OUT, ops.allpairs_edges_bwd(
+            *args, params=True), ops.allpairs_edges_plain_bwd(
+            *args, params=True))
+        report(f"{sname} {dname}", {n: e for n, e in errs.items()
+                                    if n not in ("dh", "dpos")},
+               cs.TOL_PARAM[dname])
+""",
     "edge_pipeline": HEAD + """
 from enflow_tpu_torch.ops import edge_pipeline as ep
 for sname, shape in cs.EDGE_SHAPES.items():
@@ -117,7 +143,8 @@ def main():
         return 1
     groups = sys.argv[1:] or list(MUTANTS)
     for group in groups:
-        src_rel = f"enflow_tpu_torch/csrc/{group}.cu"
+        source = "egcl_allpairs" if group == "egcl_params" else group
+        src_rel = f"enflow_tpu_torch/csrc/{source}.cu"
         for name, edit in MUTANTS[group].items():
             with tempfile.TemporaryDirectory() as tmp:
                 shutil.copytree(ROOT / "enflow_tpu_torch",

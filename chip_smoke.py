@@ -15,32 +15,41 @@ Phases (each prints its own line; any failure exits non-zero):
    kernel and the plain version timed with CUDA events over back-to-back
    calls, so the wrapper's host work overlaps the device work before it.
    A molecule too large for the kernel's shared memory must be refused.
-4. pair   — the pair-energy kernel K7 (energy and gradient) against its
+4. params — K2's variant with the nine parameter gradients against its
+   plain version at the VI shape (B=512, N=13, nf=5, H=128) and the ragged
+   shape, bf16 and f32, timed as in phase 3 beside the input-gradient
+   variant on the same inputs.
+5. pair   — the pair-energy kernel K7 (energy and gradient) against its
    plain version: form r2 at B=30, N=13; form r at B=1, N=13 (atoms on the
    half-box rounding boundary) and at B=2, N=1500 (3 padded, box 12).
-5. flow   — ``reverse_core(forward_core(x)) == x`` through the kernel, f32.
-6. smc    — the sampling path: the port's driver runs ``mode: sample,
+6. flow   — ``reverse_core(forward_core(x)) == x`` through the kernel, f32.
+7. smc    — the sampling path: the port's driver runs ``mode: sample,
    algo: smc`` on LJ13 (1024 particles, 8 temperatures, 1 HMC sweep of 5
    leapfrog steps, 5 flow steps at H=128, bf16 compute); 1 warm-up and 3
    timed runs, each checked for the launch counts the code implies.
-7. train  — the training path: ``example/train.yaml`` (3 epochs) through
+8. vi     — the flow-VI path: ``example/vi_lj13.yaml`` at full width with
+   its epochs and steps cut to VI_EPOCHS x VI_STEPS, in a temporary
+   directory; a 1-epoch resume; one ``stl: true`` epoch; then
+   ``example/sample_lj13.yaml`` as committed from the checkpoint they
+   wrote. Each run is checked for the launch counts the code implies.
+9. train  — the training path: ``example/train.yaml`` (3 epochs) through
    the port's driver in a temporary directory: the LJ MD dataset on the
    card, then NLL steps, each checked for the launch counts the code
    implies; then a 1-epoch rerun that resumes from the checkpoint.
-8. edge   — the gathered-edge EGCL kernels (forward K5, backward K6 with
+10. edge  — the gathered-edge EGCL kernels (forward K5, backward K6 with
    all seven parameter gradients) against their plain version at the
-   training shape (A=390 atoms, K = the auto capacity phase 7 observed,
+   training shape (A=390 atoms, K = the auto capacity phase 9 observed,
    C=3, H=128), a ragged one (A=1000, K=40, C=11, masked slots and atoms)
    in bf16 and f32, and a shape whose gate hits the clip bounds exactly;
    timed as in phase 3.
 
 ``python3 chip_smoke.py --profile [FILE]`` runs phases 1-2 and then, in
-place of the rest, one warm-up and one SMC run of phase 6 under
+place of the rest, one warm-up and one SMC run of phase 7 under
 ``torch.profiler`` tracing device activity only: device time by kernel,
 and the device's busy time and idle share of that traced run's wall time
 (which includes the tracing's own cost); the full table goes to FILE when
-one is given. ``--profile-train [FILE]`` does the same for one epoch of
-phase 7 after a warm-up epoch.
+one is given. ``--profile-vi [FILE]`` and ``--profile-train [FILE]`` do
+the same for one epoch of phase 8 or 9 after a warm-up epoch.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
@@ -65,6 +74,12 @@ PEAK_BYTES = 3.35e12
 
 MAIN = dict(B=1024, N=13, nf=5, H=128)
 RAGGED = dict(B=37, N=11, nf=5, H=128, n_pad=2, box=3.0)
+# example/vi_lj13.yaml: 512 particles of LJ13 per step
+VI = dict(B=512, N=13, nf=5, H=128)
+# the same as icosahedra (LJ13's minimum) of a size at which bf16 rounds
+# the r2 of each of its four pair distances up by ~2.2e-3 of itself: there
+# a rounded r2 shifts every term of dw1r the same way
+ICO = dict(VI, ico=1.2455)
 # kernel vs plain, max |kernel - plain| / max |plain| per output. The plain
 # version rounds where the kernel rounds, so they differ by summation order
 # only: the sound kernel reads <= 4.4e-7 in f32 and <= 2.44e-3 in bf16 (a
@@ -80,6 +95,14 @@ TOL = {"float32": 1e-4, "bfloat16": 4e-3}
 # sound <= 8.1e-7; roundf for rintf 7.5e-2, counted d2 = 0 pairs >= 64.
 TOL_EDGE = {"float32": 1e-4, "bfloat16": 4e-3}
 TOL_PAIR = 1e-4
+# K2's parameter gradients, compared as the float32 sums before the autograd
+# Function rounds them (chip_mutants.py egcl_params): the sound kernel reads
+# <= 3.4e-4 in bf16 and <= 5.1e-6 in f32; a chunk dropped from dW2 reads
+# 1.5e-1 (vi, ico), dw4 from the rounded dgate 3.4e-3 (vi; 6.9e-4 ragged),
+# dw1r from the rounded r2 2.2e-3 (ico; 1.0e-3 ragged; 4.9e-4 at the vi
+# shape, which this limit does not see). The bf16 limit sits between the
+# sound reading and the weakest fault it must catch, 6.9e-4.
+TOL_PARAM = {"float32": 1e-4, "bfloat16": 6e-4}
 
 
 def require(cond, msg):
@@ -119,6 +142,19 @@ def cuda_time_ms(fn, reps=25, calls=10, warmup=3):
     return statistics.median(times)
 
 
+def icosahedra(B, scale, gen):
+    """``[B, 13, 3]``: LJ13's icosahedron (a centre and 12 vertices at
+    ``scale`` from it), randomly rotated per molecule."""
+    import torch
+    phi = (1.0 + 5.0 ** 0.5) / 2.0
+    v = [(0.0, a, b * phi) for a in (-1, 1) for b in (-1, 1)]
+    v += [(a, b * phi, 0.0) for a in (-1, 1) for b in (-1, 1)]
+    v += [(b * phi, 0.0, a) for a in (-1, 1) for b in (-1, 1)]
+    ico = torch.tensor([(0.0, 0.0, 0.0)] + v) * (scale / math.hypot(1, phi))
+    rot, _ = torch.linalg.qr(torch.randn((B, 3, 3), generator=gen))
+    return ico[None] @ rot
+
+
 def edge_inputs(shape, dtype, seed):
     """EGCL params (init_egcl) and molecule state on the card."""
     import torch
@@ -142,6 +178,9 @@ def edge_inputs(shape, dtype, seed):
     if "box" in shape:
         pos = torch.rand((B, N, 3), generator=gen, dtype=f32) * 6.0 - 3.0
         box = torch.full((B, 3), shape["box"], dtype=f32)
+    elif "ico" in shape:
+        pos = icosahedra(B, shape["ico"], gen)
+        box = torch.full((B, 3), 1e3, dtype=f32)
     else:
         pos = torch.randn((B, N, 3), generator=gen, dtype=f32) * 1.2
         box = torch.full((B, 3), 1e3, dtype=f32)
@@ -177,6 +216,21 @@ def work(shape, dtype_name, mask):
     return fwd, bwd, fwd_b, bwd_b
 
 
+def work_params(shape, dtype_name, mask):
+    """(FLOP, bytes) of the backward with parameter gradients: the
+    input-gradient backward's work (``work``) plus, per valid pair, the
+    outer products m1^T dz2 and m2^T dz3 (2 H^2 each), h_i^T dz1 and
+    h_j^T dz1 (2 nf H each), r2 dz1 and g1 dgate (2 H each) and the three
+    bias sums (H each); bytes plus the nine float32 gradients written
+    once."""
+    nf, H = shape["nf"], shape["H"]
+    n_real = mask.sum(dim=1).double()
+    pairs = float((n_real * (n_real - 1)).sum())
+    _, bwd, _, bwd_b = work(shape, dtype_name, mask)
+    flop = bwd + pairs * (4 * H * H + 4 * nf * H + 7 * H)
+    return flop, bwd_b + 4 * (2 * H * H + 2 * nf * H + 5 * H)
+
+
 def kernel_phase():
     import torch
     from enflow_tpu_torch.ops import egcl_allpairs as ops
@@ -184,11 +238,11 @@ def kernel_phase():
     # the largest molecule that fits in shared memory, and a larger one
     # refused
     lib = ops._library()
-    limit = lib.egcl_allpairs_smem_limit()
-    largest = {f"{dname} {'bwd' if bwd else 'fwd'}": max(
-        n for n in range(1, 257)
-        if lib.egcl_allpairs_smem_bytes(code, n, 5, 128, bwd) <= limit)
-        for code, dname in ((1, "bf16"), (0, "f32")) for bwd in (0, 1)}
+    largest = {f"{dname} {kind}": ops.largest_molecule(lib, code, 5, 128,
+                                                       kind)
+               for code, dname in ((1, "bf16"), (0, "f32"))
+               for kind in ("fwd", "bwd", "bwd_params")}
+    require(min(largest.values()) >= 13, f"LJ13 does not fit: {largest}")
     phase("kernel", "largest N at nf=5, H=128: " + ", ".join(
         f"{k} {v}" for k, v in largest.items()))
     h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(
@@ -258,6 +312,62 @@ def kernel_phase():
                 err_bwd=max(errs["dh"][0], errs["dpos"][0]),
                 ms_fwd=t_k_f, ms_bwd=t_k_b, plain_fwd=t_p_f, plain_bwd=t_p_b,
                 bound_fwd=bounds["fwd"], bound_bwd=bounds["bwd"])
+    return record
+
+
+PARAM_OUT = ("dh", "dpos", "dW1a", "dW1b", "dw1r", "db1", "dW2", "db2", "dW3",
+             "db3", "dw4")
+
+
+def param_kernel_phase():
+    """K2 with parameter gradients against its plain version at the VI
+    shape (random and icosahedral positions) and the ragged PBC shape,
+    bf16 and f32. The parameter gradients
+    are compared as the float32 sums both return (before the autograd
+    Function rounds them to the weights' dtype). Times as in
+    ``kernel_phase``; the input-gradient variant is timed beside it on the
+    same inputs."""
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+
+    record, bad = {}, []
+    for sname, shape in (("vi", VI), ("ico", ICO), ("ragged", RAGGED)):
+        for dname, dtype in (("bfloat16", torch.bfloat16),
+                             ("float32", torch.float32)):
+            h, pos, box, mask_f, W, dagg, dfsum, mask = edge_inputs(
+                shape, dtype, seed=19)
+            args = (h, pos, box, mask_f, W, dagg, dfsum)
+            k = ops.allpairs_edges_bwd(*args, params=True)
+            p = ops.allpairs_edges_plain_bwd(*args, params=True)
+            k_in = ops.allpairs_edges_bwd(*args)
+            torch.cuda.synchronize()
+            errs = rel_errs(PARAM_OUT, k, p)
+            same = all(bool(torch.equal(a, b)) for a, b in zip(k_in, k[:2]))
+            tol = {n: (TOL if n in ("dh", "dpos") else TOL_PARAM)[dname]
+                   for n in PARAM_OUT}
+            ok = all(rel <= tol[n] for n, (_, rel) in errs.items()) and same
+            phase("params", f"{sname} {dname} B={shape['B']} N={shape['N']} "
+                  "max_abs/rel err: " + "  ".join(
+                      f"{n} {a:.2e}/{r:.1e}" for n, (a, r) in errs.items())
+                  + f"  tol dh/dpos {TOL[dname]:g}, parameters "
+                  f"{TOL_PARAM[dname]:g}; dh/dpos equal to the input-gradient"
+                  f" variant's: {same} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append((sname, dname))
+            t_k = cuda_time_ms(lambda: ops.allpairs_edges_bwd(*args,
+                                                              params=True))
+            t_in = cuda_time_ms(lambda: ops.allpairs_edges_bwd(*args))
+            t_p = cuda_time_ms(lambda: ops.allpairs_edges_plain_bwd(
+                *args, params=True), reps=20, calls=5)
+            flop, nbytes = work_params(shape, dname, mask)
+            b = bound(flop, nbytes, PEAK_FLOPS[dname])
+            phase("params", f"{sname} {dname} time ms: kernel {t_k:.4f} "
+                  f"(input-gradient variant {t_in:.4f}) plain {t_p:.4f} "
+                  f"bound {b[0]:.4f} ({b[1]}, {flop / 1e9:.2f} GFLOP)")
+            record[(sname, dname)] = dict(
+                err=max(a for a, _ in errs.values()), ms=t_k, ms_input=t_in,
+                plain=t_p, bound=b)
+    require(not bad, f"parameter-gradient kernel disagrees with plain {bad}")
     return record
 
 
@@ -697,6 +807,18 @@ def profile_smc(card, out_file=None):
                     out_file)
 
 
+def profile_vi(card, out_file=None):
+    """One epoch of vi_lj13.yaml (VI_STEPS steps, after a warm-up epoch)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        main = vi_driver(tmp, 1)
+
+        def epoch():
+            main.train()
+            main.start_epoch += 1
+        profile_run(f"vi_lj13.yaml epoch ({VI_STEPS} steps)", epoch, epoch,
+                    card, out_file)
+
+
 def profile_train(card, out_file=None):
     """One train epoch of train.yaml (after a warm-up epoch)."""
     with tempfile.TemporaryDirectory() as tmp:
@@ -845,6 +967,154 @@ def train_phase(card):
                 mol_s=mol_s, capacity=cap, **launches)
 
 
+# The VI phase's cuts of example/vi_lj13.yaml (100 epochs x 100 steps):
+# epochs and steps per epoch only, every width and option as committed
+VI_EPOCHS, VI_STEPS = 3, 10
+
+
+def vi_driver(tmp, num_epochs, stl=False):
+    """The port's driver set up from ``example/vi_lj13.yaml`` with
+    ``num_epochs`` and ``steps_per_epoch`` cut (and ``stl`` switched on
+    when asked), run from the working directory ``tmp`` (where the
+    checkpoint and the metrics CSV go)."""
+    import os
+    import yaml
+    from enflow_tpu_torch.train.driver import Main
+
+    cfg = yaml.safe_load((ROOT / "example" / "vi_lj13.yaml").read_text())
+    cfg["training"].update(num_epochs=num_epochs, steps_per_epoch=VI_STEPS)
+    if stl:
+        cfg["training"]["stl"] = True
+    path = Path(tmp) / "vi_lj13.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    os.chdir(tmp)
+    main = Main(device="cuda")
+    main.setup(str(path))
+    return main
+
+
+def vi_launches():
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    from enflow_tpu_torch.ops import egcl_allpairs as ea
+    from enflow_tpu_torch.ops import pair_energy as pe
+    c = ea.counts
+    plain = (c.plain_fwd_calls + c.plain_bwd_calls + c.plain_bwd_param_calls
+             + ep.counts.plain_fwd_calls + ep.counts.plain_bwd_calls
+             + pe.counts.plain_calls)
+    return dict(k1=c.fwd_launches, k2=c.bwd_launches,
+                k2_params=c.bwd_param_launches, plain=plain)
+
+
+def vi_phase(card):
+    """The flow-VI path: ``example/vi_lj13.yaml`` through the port's driver
+    (VI_EPOCHS x VI_STEPS), a 1-epoch resume, one ``stl: true`` epoch, then
+    ``example/sample_lj13.yaml`` from the checkpoint they wrote."""
+    import os
+    import torch
+    from enflow_tpu_torch.train.driver import Main
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            main = vi_driver(tmp, VI_EPOCHS)
+            n_iter, P = main.n_iter, main.vi_particles
+            step_s, losses = [], []
+            inner = main.vi_step
+
+            def timed(gen, target):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                loss, bad = inner(gen, target)
+                losses.append(float(loss))          # synchronizes
+                step_s.append(time.perf_counter() - t)
+                return loss, bad
+            main.vi_step = timed
+            reset_counts()
+            main.train()
+            torch.cuda.synchronize()
+            n_steps = VI_EPOCHS * VI_STEPS
+            got = vi_launches()
+            # per step: the reverse flow's n_iter EGCLs forward (K1) and
+            # backward with parameter gradients (K2); nothing else
+            want = dict(k1=n_iter * n_steps, k2=0, k2_params=n_iter * n_steps,
+                        plain=0)
+            require(len(step_s) == n_steps, f"{len(step_s)} VI steps")
+            require(got == want, f"VI launches {got} != {want}")
+            require(all(math.isfinite(x) for x in losses),
+                    f"non-finite VI losses {losses}")
+            require(Path("lj13_vi.cpt").exists(), "no VI checkpoint written")
+
+            again = vi_driver(tmp, 1)
+            require(again.start_epoch == VI_EPOCHS,
+                    f"the VI rerun resumed at epoch {again.start_epoch}")
+            reset_counts()
+            again.train()
+            torch.cuda.synchronize()
+            want1 = dict(k1=n_iter * VI_STEPS, k2=0,
+                         k2_params=n_iter * VI_STEPS, plain=0)
+            require(vi_launches() == want1,
+                    f"resumed VI epoch launches {vi_launches()} != {want1}")
+
+            stl = vi_driver(tmp, 1, stl=True)
+            require(stl.start_epoch == VI_EPOCHS + 1,
+                    f"the STL run resumed at epoch {stl.start_epoch}")
+            reset_counts()
+            stl.train()
+            torch.cuda.synchronize()
+            # STL re-encodes through the forward flow with detached
+            # parameters: n_iter more K1 and n_iter input-gradient K2
+            want_stl = dict(k1=2 * n_iter * VI_STEPS, k2=n_iter * VI_STEPS,
+                            k2_params=n_iter * VI_STEPS, plain=0)
+            require(vi_launches() == want_stl,
+                    f"STL epoch launches {vi_launches()} != {want_stl}")
+            with open("lj13_vi_metrics.csv") as f:
+                rows = [r.split(",") for r in f.read().strip().splitlines()]
+            require(rows[0][:3] == ["time", "epoch", "loss"]
+                    and [int(r[1]) for r in rows[1:]]
+                    == list(range(VI_EPOCHS + 2))
+                    and all(math.isfinite(float(r[2])) for r in rows[1:]),
+                    f"metrics CSV rows {rows}")
+
+            # sampling from the VI checkpoint, as committed
+            sample_cfg = Path(tmp) / "sample_lj13.yaml"
+            sample_cfg.write_text(
+                (ROOT / "example" / "sample_lj13.yaml").read_text())
+            sampler = Main(device="cuda")
+            sampler.setup(str(sample_cfg))
+            reset_counts()
+            res = sampler.sample()
+            torch.cuda.synchronize()
+            # n_temps 10, 1 sweep of 5 leapfrog steps: 51 value-and-grads
+            n_vg = 1 + 10 * 1 * 5
+            want_smc = dict(k1=n_iter + n_vg * n_iter, k2=n_vg * n_iter,
+                            k2_params=0, plain=0)
+            require(vi_launches() == want_smc,
+                    f"sample_lj13 launches {vi_launches()} != {want_smc}")
+            require(float(res.beta_history[-1]) > 1.0 - 1e-5,
+                    "sample_lj13 did not reach beta = 1")
+            require(math.isfinite(float(res.log_Z)), "log_Z not finite")
+            require(Path("lj13_samples.npz").exists(), "no samples written")
+        finally:
+            os.chdir(cwd)
+    later = step_s[VI_STEPS:]
+    s_step = statistics.median(later)
+    curve = [statistics.fmean(losses[i:i + VI_STEPS])
+             for i in range(0, len(losses), VI_STEPS)]
+    phase("vi", f"vi_lj13.yaml on {card}: {VI_EPOCHS} epochs x {VI_STEPS} "
+          f"steps of {P} particles (cut from 100 x 100), {s_step:.5f} s/step "
+          f"(median of epochs 1-{VI_EPOCHS - 1}; first step "
+          f"{step_s[0]:.4f} s), {P / s_step:.1f} particles/s; epoch losses "
+          + ", ".join(f"{x:.2f}" for x in curve)
+          + f"; launches per run K1 {got['k1']} K2 with parameter gradients "
+          f"{got['k2_params']}, plain calls {got['plain']}; resumed at epoch {VI_EPOCHS}, "
+          f"an STL epoch with {want_stl['k1']} K1 + {want_stl['k2']} "
+          f"input-gradient K2 + {want_stl['k2_params']} parameter-gradient "
+          f"K2; sample_lj13.yaml from the checkpoint: "
+          f"{res.particles['pos'].shape[0]} particles, log_Z "
+          f"{float(res.log_Z):.4f}, beta 1")
+    return dict(s_step=s_step, k2_params=got["k2_params"], curve=curve)
+
+
 def build_phase():
     """Fresh builds of every kernel source, one nvcc each, in parallel."""
     from enflow_tpu_torch.ops import build
@@ -856,10 +1126,16 @@ def build_phase():
     for name, (lib, secs, log) in built.items():
         regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
                 if "registers" in ln]
-        spills = sum(" 0 bytes spill stores" not in ln
-                     for ln in log.splitlines() if "spill stores" in ln)
+        # ptxas names each function before its stack and spill line
+        spilled, func = [], "?"
+        for ln in log.splitlines():
+            if "Function properties for" in ln:
+                func = ln.rsplit(" ", 1)[-1]
+            elif "spill stores" in ln and " 0 bytes spill stores" not in ln:
+                spilled.append(f"{func} ({ln.strip()})")
         phase("build", f"{name}.cu -> {lib.name} in {secs:.1f} s; ptxas: "
-              f"{'; '.join(regs)}; kernels with spills: {spills}")
+              f"{'; '.join(regs)}; functions with spills: {len(spilled)}"
+              + "".join(f"\n  {f}" for f in spilled))
     phase("build", f"all sources in {time.perf_counter() - t0:.1f} s")
 
 
@@ -879,6 +1155,9 @@ def main():
                     "the phases after the build; the full table to FILE")
     ap.add_argument("--profile-train", nargs="?", const="", default=None,
                     metavar="FILE", help="profile one train.yaml epoch "
+                    "instead of the phases after the build")
+    ap.add_argument("--profile-vi", nargs="?", const="", default=None,
+                    metavar="FILE", help="profile one vi_lj13.yaml epoch "
                     "instead of the phases after the build")
     args = ap.parse_args()
     try:
@@ -904,22 +1183,30 @@ def main():
           f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
     build_phase()
 
+    # the drivers run from temporary directories: resolve FILE first
+    table = lambda f: Path(f).resolve() if f else None
     if args.profile is not None:
-        profile_smc(card, args.profile or None)
+        profile_smc(card, table(args.profile))
         return 0
     if args.profile_train is not None:
-        profile_train(card, args.profile_train or None)
+        profile_train(card, table(args.profile_train))
+        return 0
+    if args.profile_vi is not None:
+        profile_vi(card, table(args.profile_vi))
         return 0
     rec = kernel_phase()
+    qrec = param_kernel_phase()
     prec = pair_kernel_phase()
     flow_phase()
     n_fwd, n_bwd = smc_phase(card)
+    vi = vi_phase(card)
     tr = train_phase(card)
     # K5/K6 at the training path's shape: its slot count is the auto
     # capacity that the train phase's dataset gave
     erec = edge_kernel_phase(main_K=tr["capacity"])
 
     m = rec[("main", "bfloat16")]
+    q = qrec[("vi", "bfloat16")]
     e = erec[("main", "float32")]
     v3 = "enflow_tpu/ops/egcl_fused_v3.py"
     kernels = [
@@ -929,6 +1216,9 @@ def main():
         kernel_record("egcl_allpairs_bwd", "egcl_allpairs.cu", f"{v3}:414",
                       n_bwd, m["err_bwd"], m["ms_bwd"], m["plain_bwd"],
                       m["bound_bwd"]),
+        kernel_record("egcl_allpairs_bwd_params", "egcl_allpairs.cu",
+                      f"{v3}:414", vi["k2_params"], q["err"], q["ms"],
+                      q["plain"], q["bound"]),
         kernel_record("edge_pipeline_fwd", "edge_pipeline.cu",
                       "enflow_tpu/ops/edge_kernel.py:219", tr["k5"],
                       e["err_fwd"], e["ms_fwd"], e["plain_fwd"],

@@ -1,10 +1,12 @@
-// Fused all-pairs EGCL edge pipeline for Hopper (sm_90a): forward and the
-// input-gradient backward.
+// Fused all-pairs EGCL edge pipeline for Hopper (sm_90a): forward, the
+// input-gradient backward, and the backward with parameter gradients.
 //
 // Replaces the Pallas TPU kernels of enflow_tpu/ops/egcl_fused_v3.py:
 //   forward  -> _fused_fwd / _fwd_kernel (via _fwd_block)
-//   backward -> _fused_bwd / _bwd_kernel (dh and dpos only; the parameter
-//               gradients come with the training slice)
+//   backward -> _fused_bwd / _bwd_kernel, in two variants: dh and dpos
+//               only (what sampling asks for), or dh, dpos and the nine
+//               parameter gradients dW1a ... dw4 of _bwd_kernel:256-273
+//               (what training asks for)
 // and computes the same contract. For all pairs i != j of real atoms of
 // one molecule:
 //   cd   = minimg(pos_i - pos_j)                          (f32, round half to even)
@@ -41,6 +43,24 @@
 // f32 backward); a larger molecule is refused at launch
 // (egcl_allpairs_smem_bytes says what a launch needs). wgmma, TMA
 // pipelines, several molecules per block and large N are later work.
+//
+// Parameter gradients (egcl_bwd_kernel<T, true>): the TPU kernel carries
+// them across its sequential grid; here blocks run in parallel, so about
+// one block per SM walks the molecules (grid stride) and adds each chunk's
+// outer products and column sums into its own slice of a [blocks, P] f32
+// partial buffer in global memory (read-modify-write, L2-resident: ~18 MB
+// at 132 blocks, H=128); the wrapper sums the slices. No atomics: every
+// partial element has one owner thread or warp, so the result is
+// deterministic. The chunk loop reuses its activation buffers (m1 -> m2 ->
+// dz3, z3 -> dz3 W3^T -> dz2, z1 -> dz1), so each outer product is taken
+// while its operands exist: m2 is staged before dz3 overwrites it, m1 is
+// recomputed from z1 for dW2 (z1 lives until dz1), and dw4 reads g1 from
+// z3 before dz3 W3^T overwrites it. bf16 products run on wmma tiles (both
+// operands are bf16 values, staged as bf16); f32 ones as FMA loops. As in
+// _bwd_kernel, dw1r takes the unrounded f32 r2 and dw4 the unrounded f32
+// dgate, while the forward rounds r2 and d_g1 takes the rounded dgate.
+// The staging buffers lower the largest N (egcl_allpairs_smem_bytes with
+// kind 2; at H=128 about 27 for bf16 and 19 for f32).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -145,6 +165,27 @@ struct Args {
   void* fsum;         // [B, N, 3]  T   (forward)
   void* dh;           // [B, N, nf] T   (backward)
   float* dpos;        // [B, N, 3]      (backward)
+  float* part;        // [gridDim.x, P] parameter-gradient partials
+};
+
+// Offsets of the parameter gradients in one block's slice of `part`:
+// dW2, dW3 [H, H] first (wmma reads and writes their tiles in place, which
+// needs 32-byte alignment), then dW1a, dW1b [nf, H], dw1r, db1, db2, db3,
+// dw4 [H]; P is rounded up to 8 floats so that every slice is aligned too.
+struct PartLayout {
+  int dW2, dW3, dW1a, dW1b, dw1r, db1, db2, db3, dw4, P;
+  __host__ __device__ PartLayout(int nf, int H) {
+    dW2 = 0;
+    dW3 = H * H;
+    dW1a = 2 * H * H;
+    dW1b = dW1a + nf * H;
+    dw1r = dW1b + nf * H;
+    db1 = dw1r + H;
+    db2 = db1 + H;
+    db3 = db2 + H;
+    dw4 = db3 + H;
+    P = (dw4 + H + 7) / 8 * 8;
+  }
 };
 
 // Row stride of W2/W3 in shared memory. f32 (FMA products): odd in 32-bit
@@ -169,10 +210,13 @@ struct Bump {
 template <typename T> struct Smem {
   T *W2, *W3;
   __nv_bfloat16* xb;                  // [kRows, H+8] bf16 product input
+  __nv_bfloat16* xb2;                 // the same, outer products' right side
+  float* S;                           // [kRows, H] f32 outer products' left
   float *W1a, *W1b, *w1r, *b1, *b2, *b3, *w4, *box;
   float* buf[4];                      // [kRows, H] activations
   float *cd, *r2, *valid, *gate;      // per edge row of the chunk
-  float *aux1, *aux3;                 // [kRows], [kRows, 3]
+  float *aux1, *aux2, *aux3;          // [kRows], [kRows], [kRows, 3]
+  float* colred;                      // column-sum partials
   int *ri, *rj;
   float *h, *pos, *mask;              // the molecule's atoms
   float *hA, *hB;                     // [N, H] per-atom h W1a, h W1b
@@ -184,17 +228,25 @@ template <typename T> struct Smem {
 // it. The fixed-size buffers (weights, one chunk's rows) come first, then
 // the per-atom arrays. Forward: 2 activation buffers, accH = {agg},
 // acc3 = {fsum}. Backward: 4 activation buffers, accH = {dz1_i, dz1_j,
-// dagg}, acc3 = {dpos_i, dpos_j, dfsum}.
+// dagg}, acc3 = {dpos_i, dpos_j, dfsum}; with parameter gradients also the
+// outer products' staging (xb2 for bf16, S for f32), the unrounded dgate
+// (aux2) and the column-sum partials.
 template <typename T>
 __host__ __device__ void carve(Bump& m, Smem<T>& s, int N, int nf, int H,
-                               bool bwd) {
+                               bool bwd, bool params) {
   const size_t WS = weight_stride<T>(H);
+  const bool bf16 = sizeof(T) == 2;
+  const size_t xbytes = sizeof(__nv_bfloat16) * kRows<T> * (H + 8);
   s.W2 = (T*)m.take(sizeof(T) * H * WS);
   s.W3 = (T*)m.take(sizeof(T) * H * WS);
-  s.xb = sizeof(T) == 2
-             ? (__nv_bfloat16*)m.take(sizeof(__nv_bfloat16) * kRows<T> * (H + 8))
-             : nullptr;
+  s.xb = bf16 ? (__nv_bfloat16*)m.take(xbytes) : nullptr;
+  s.xb2 = bf16 && params ? (__nv_bfloat16*)m.take(xbytes) : nullptr;
   const size_t fH = sizeof(float) * H;
+  s.S = !bf16 && params ? (float*)m.take(fH * kRows<T>) : nullptr;
+  s.aux2 = params ? (float*)m.take(sizeof(float) * kRows<T>) : nullptr;
+  s.colred = params ? (float*)m.take(sizeof(float) *
+                                     (H > kThreads ? H : kThreads))
+                    : nullptr;
   s.W1a = (float*)m.take(fH * nf);
   s.W1b = (float*)m.take(fH * nf);
   s.w1r = (float*)m.take(fH);
@@ -245,10 +297,10 @@ __device__ void load_f(float* dst, const void* src, int n) {
   for (int k = threadIdx.x; k < n; k += kThreads) dst[k] = Cvt<T>::to_f(p[k]);
 }
 
-// Weights and the molecule's atom state into shared memory; zero the sums.
+// The weights into shared memory.
 template <typename T>
-__device__ void load_common(const Args& a, Smem<T>& s, int b, bool bwd) {
-  const int N = a.N, nf = a.nf, H = a.H, WS = weight_stride<T>(H);
+__device__ void load_weights(const Args& a, Smem<T>& s) {
+  const int nf = a.nf, H = a.H, WS = weight_stride<T>(H);
   const T* W2 = (const T*)a.W2;
   const T* W3 = (const T*)a.W3;
   const int H4 = H / 4;               // H % 4 == 0, rows 16-byte aligned
@@ -264,6 +316,12 @@ __device__ void load_common(const Args& a, Smem<T>& s, int b, bool bwd) {
   load_f<T>(s.b2, a.b2, H);
   load_f<T>(s.b3, a.b3, H);
   load_f<T>(s.w4, a.w4, H);
+}
+
+// Molecule b's atom state into shared memory; zero the sums.
+template <typename T>
+__device__ void load_molecule(const Args& a, Smem<T>& s, int b, bool bwd) {
+  const int N = a.N, nf = a.nf, H = a.H;
   load_f<T>(s.h, (const T*)a.h + (size_t)b * N * nf, N * nf);
   load_f<T>(s.mask, (const T*)a.mask + (size_t)b * N, N);
   for (int k = threadIdx.x; k < N * 3; k += kThreads)
@@ -451,17 +509,133 @@ __device__ void gate_rows(Smem<T>& s, const float* z3buf, int H) {
   }
 }
 
+// ---- parameter gradients: per-chunk sums into the block's partial slice
+
+// dst[c] += sum over the chunk's rows r of f(r, c), for c < H. Each column's
+// rows are split into G groups (G = kThreads / H, 1 when H >= kThreads)
+// summed in registers, then the G partials in group order; the same thread
+// adds to the same column every time, so the sums are deterministic.
+// Synchronizes the block twice.
+template <typename T, typename F>
+__device__ void col_sum(float* __restrict__ dst, float* red, int H, F f) {
+  constexpr int R = kRows<T>;
+  const int G = H >= kThreads ? 1 : kThreads / H;
+  const int per = (R + G - 1) / G;
+  for (int w = threadIdx.x; w < G * H; w += kThreads) {
+    const int g = w / H, c = w - g * H;
+    float acc = 0.f;
+    for (int r = g * per; r < min(R, (g + 1) * per); ++r) acc += f(r, c);
+    red[w] = acc;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < H; c += kThreads) {
+    float acc = 0.f;
+    for (int g = 0; g < G; ++g) acc += red[g * H + c];
+    dst[c] += acc;
+  }
+  __syncthreads();
+}
+
+// The left operand of the next outer product, f(idx) for each (row, column)
+// idx of the chunk (a value already in the compute dtype): into xb as bf16,
+// or into S for f32.
+template <typename T, typename F>
+__device__ void stage_left(Smem<T>& s, int H, F f) {
+  #pragma unroll 4
+  for (int idx = threadIdx.x; idx < kRows<T> * H; idx += kThreads) {
+    if constexpr (sizeof(T) == 2) {
+      const int r = row_of(idx, H), c = idx - r * H;
+      s.xb[r * (H + 8) + c] = __float2bfloat16_rn(f(idx));
+    } else {
+      s.S[idx] = f(idx);
+    }
+  }
+}
+
+// The right operand (bf16 only; f32 reads its f32 buffer directly).
+template <typename T>
+__device__ void stage_right(Smem<T>& s, const float* src, int H) {
+  if constexpr (sizeof(T) == 2) {
+    #pragma unroll 4
+    for (int idx = threadIdx.x; idx < kRows<T> * H; idx += kThreads) {
+      const int r = row_of(idx, H), c = idx - r * H;
+      s.xb2[r * (H + 8) + c] = __float2bfloat16_rn(src[idx]);
+    }
+  }
+}
+
+// dst[k, n] += sum_r left[r, k] right[r, n] over the chunk's rows, for
+// k, n < H, in the block's slice of the partials (global memory, read-
+// modify-write). bf16: wmma 16x16x16 tiles, left^T read from xb as a
+// column-major A operand, right from xb2, f32 accumulation in fragments
+// loaded from and stored back to dst. f32: FMA loops on S and `right`, a
+// 4x4 (k, n) tile per work item. Each tile has one owner.
+template <typename T>
+__device__ void outer_add(const Smem<T>& s, float* __restrict__ dst,
+                          const float* __restrict__ right, int H) {
+  if constexpr (sizeof(T) == 2) {
+    using namespace nvcuda;
+    const int XS = H + 8, ncol = H / 16;
+    for (int t = threadIdx.x >> 5; t < ncol * ncol; t += kThreads / 32) {
+      const int tm = t / ncol, tn = t - tm * ncol;
+      float* d = dst + tm * 16 * H + tn * 16;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::load_matrix_sync(acc, d, H, wmma::mem_row_major);
+      for (int k = 0; k < kRows<T>; k += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::col_major> fa;
+        wmma::load_matrix_sync(fa, s.xb + k * XS + tm * 16, XS);
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> fb;
+        wmma::load_matrix_sync(fb, s.xb2 + k * XS + tn * 16, XS);
+        wmma::mma_sync(acc, fa, fb, acc);
+      }
+      wmma::store_matrix_sync(d, acc, H, wmma::mem_row_major);
+    }
+  } else {
+    const int H4 = H / 4;
+    for (int w = threadIdx.x; w < H4 * H4; w += kThreads) {
+      const int kt = w / H4, nt = w - kt * H4;
+      float acc[4][4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
+      for (int r = 0; r < kRows<T>; ++r) {
+        const float4 x = *reinterpret_cast<const float4*>(s.S + r * H + 4 * kt);
+        const float4 g = *reinterpret_cast<const float4*>(right + r * H + 4 * nt);
+        const float xa[4] = {x.x, x.y, x.z, x.w}, ga[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(xa[u], ga[v], acc[u][v]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float4* p = reinterpret_cast<float4*>(dst + (4 * kt + u) * H + 4 * nt);
+        float4 v = *p;
+        v.x += acc[u][0];
+        v.y += acc[u][1];
+        v.z += acc[u][2];
+        v.w += acc[u][3];
+        *p = v;
+      }
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) egcl_fwd_kernel(Args a) {
   extern __shared__ __align__(128) char smem_raw[];
   const int b = blockIdx.x, tid = threadIdx.x;
   Smem<T> s;
   Bump m{smem_raw, 0};
-  carve<T>(m, s, a.N, a.nf, a.H, false);
+  carve<T>(m, s, a.N, a.nf, a.H, false, false);
   const int N = a.N, H = a.H, E = N * N;
   float* agg = s.accH[0];
   float* fsum = s.acc3[0];
-  load_common<T>(a, s, b, false);
+  load_weights<T>(a, s);
+  load_molecule<T>(a, s, b, false);
   __syncthreads();
   atom_projections<T>(s, N, a.nf, H);
 
@@ -502,18 +676,19 @@ __global__ void __launch_bounds__(kThreads) egcl_fwd_kernel(Args a) {
   for (int k = tid; k < N * 3; k += kThreads) fsum_out[k] = Cvt<T>::from_f(fsum[k]);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) egcl_bwd_kernel(Args a) {
-  extern __shared__ __align__(128) char smem_raw[];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  Smem<T> s;
-  Bump m{smem_raw, 0};
-  carve<T>(m, s, a.N, a.nf, a.H, true);
+// The backward of molecule b, recomputing the forward per chunk; with
+// PARAMS it also adds the parameter gradients into `part`, the block's
+// slice of the partials.
+template <typename T, bool PARAMS>
+__device__ void bwd_molecule(const Args& a, Smem<T>& s, int b,
+                             float* part) {
+  const int tid = threadIdx.x;
   const int N = a.N, nf = a.nf, H = a.H, E = N * N;
   float *dz1i = s.accH[0], *dz1j = s.accH[1], *dagg = s.accH[2];
   float *dposi = s.acc3[0], *dposj = s.acc3[1], *dfsum = s.acc3[2];
   float *A = s.buf[0], *Z1 = s.buf[1], *Z2 = s.buf[2], *Z3 = s.buf[3];
-  load_common<T>(a, s, b, true);
+  const PartLayout L(nf, H);
+  load_molecule<T>(a, s, b, true);
   __syncthreads();
   atom_projections<T>(s, N, nf, H);
 
@@ -559,8 +734,19 @@ __global__ void __launch_bounds__(kThreads) egcl_bwd_kernel(Args a) {
         s.aux3[r * 3 + d] = gate * dt;                            // d_cd
       }
       s.aux1[r] = rnd<T>(dgate);
+      if constexpr (PARAMS) s.aux2[r] = dgate;
     }
     __syncthreads();
+
+    if constexpr (PARAMS) {
+      // dw4 += g1^T dgate with the unrounded dgate, g1 from z3 (Z3) before
+      // dz3 W3^T overwrites it; m2 (A) staged before dz3 overwrites it
+      col_sum<T>(part + L.dw4, s.colred, H, [&](int r, int c) {
+        return rnd<T>(silu_f(Z3[r * H + c])) * s.aux2[r];
+      });
+      stage_left<T>(s, H, [&](int idx) { return A[idx]; });      // m2
+      __syncthreads();
+    }
 
     // -- the hidden-wide chain backwards
     #pragma unroll 4
@@ -570,6 +756,13 @@ __global__ void __launch_bounds__(kThreads) egcl_bwd_kernel(Args a) {
       A[idx] = rnd<T>(dg1 * rnd<T>(dsilu_f(Z3[idx])));            // dz3
     }
     __syncthreads();
+    if constexpr (PARAMS) {
+      stage_right<T>(s, A, H);
+      col_sum<T>(part + L.db3, s.colred, H,
+                 [&](int r, int c) { return A[r * H + c]; });
+      outer_add<T>(s, part + L.dW3, A, H);                           // m2^T dz3
+      __syncthreads();
+    }
     row_gemm<T, true>(s, A, s.W3, Z3, H);                            // dz3 W3^T
     __syncthreads();
     #pragma unroll 4
@@ -580,6 +773,15 @@ __global__ void __launch_bounds__(kThreads) egcl_bwd_kernel(Args a) {
       Z3[idx] = rnd<T>(dm2 * rnd<T>(dsilu_f(Z2[idx])));           // dz2
     }
     __syncthreads();
+    if constexpr (PARAMS) {
+      // m1 recomputed from z1 (Z1 holds z1 until dz1 overwrites it)
+      stage_left<T>(s, H, [&](int idx) { return rnd<T>(silu_f(Z1[idx])); });
+      stage_right<T>(s, Z3, H);
+      col_sum<T>(part + L.db2, s.colred, H,
+                 [&](int r, int c) { return Z3[r * H + c]; });
+      outer_add<T>(s, part + L.dW2, Z3, H);                          // m1^T dz2
+      __syncthreads();
+    }
     row_gemm<T, true>(s, Z3, s.W2, A, H);                            // dz2 W2^T
     __syncthreads();
     #pragma unroll 4
@@ -600,6 +802,23 @@ __global__ void __launch_bounds__(kThreads) egcl_bwd_kernel(Args a) {
       }
     }
     __syncthreads();
+    if constexpr (PARAMS) {
+      // db1, dw1r (with the unrounded f32 r2), dW1a = h_i^T dz1 and
+      // dW1b = h_j^T dz1 (dW1b follows dW1a in the slice)
+      col_sum<T>(part + L.db1, s.colred, H,
+                 [&](int r, int c) { return Z1[r * H + c]; });
+      col_sum<T>(part + L.dw1r, s.colred, H,
+                 [&](int r, int c) { return s.r2[r] * Z1[r * H + c]; });
+      for (int w = tid; w < 2 * nf * H; w += kThreads) {
+        const int side = w / (nf * H), kc = w - side * nf * H;
+        const int k = kc / H, c = kc - k * H;
+        const int* atom = side ? s.rj : s.ri;
+        float acc = 0.f;
+        for (int r = 0; r < kRows<T>; ++r)
+          acc = fmaf(s.h[atom[r] * nf + k], Z1[r * H + c], acc);
+        part[L.dW1a + w] += acc;
+      }
+    }
 
     // -- node sums, i side and j side, in a fixed order
     const int nrows = min(kRows<T>, E - e0);
@@ -624,12 +843,38 @@ __global__ void __launch_bounds__(kThreads) egcl_bwd_kernel(Args a) {
   for (int k = tid; k < N * 3; k += kThreads) dpos_out[k] = dposi[k] - dposj[k];
 }
 
-// Dynamic shared memory of one block (one molecule).
+// Input gradients: one block per molecule (the grid is B). PARAMS: about
+// one block per SM strides over the molecules, zeroing its own slice of
+// a.part and adding the parameter gradients into it.
+template <typename T, bool PARAMS>
+__global__ void __launch_bounds__(kThreads) egcl_bwd_kernel(Args a) {
+  extern __shared__ __align__(128) char smem_raw[];
+  Smem<T> s;
+  Bump m{smem_raw, 0};
+  carve<T>(m, s, a.N, a.nf, a.H, true, PARAMS);
+  float* part = nullptr;
+  if constexpr (PARAMS) {
+    const int P = PartLayout(a.nf, a.H).P;
+    part = a.part + (size_t)blockIdx.x * P;
+    for (int k = threadIdx.x; k < P; k += kThreads) part[k] = 0.f;
+  }
+  load_weights<T>(a, s);
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
+    __syncthreads();                  // the previous molecule is written out
+    bwd_molecule<T, PARAMS>(a, s, b, part);
+  }
+}
+
+// What a launch runs: the forward, the input-gradient backward, or the
+// backward with parameter gradients.
+enum Kind { kFwd = 0, kBwd = 1, kBwdParams = 2 };
+
+// Dynamic shared memory of one block.
 template <typename T>
-size_t smem_bytes(int N, int nf, int H, bool bwd) {
+size_t smem_bytes(int N, int nf, int H, int kind) {
   Smem<T> s;
   Bump m{nullptr, 0};
-  carve<T>(m, s, N, nf, H, bwd);
+  carve<T>(m, s, N, nf, H, kind != kFwd, kind == kBwdParams);
   return m.off;
 }
 
@@ -639,24 +884,30 @@ bool valid_dims(int B, int N, int nf, int H, int h_mult) {
 
 template <typename T> constexpr int kHMult = sizeof(T) == 2 ? 16 : 4;
 
+// The grid: B blocks, or min(B, blocks) for the parameter gradients (the
+// rows of a.part).
 template <typename T>
-int launch(const Args& a, bool bwd, cudaStream_t stream) {
+int launch(const Args& a, int kind, int blocks, cudaStream_t stream) {
   if (!valid_dims(a.B, a.N, a.nf, a.H, kHMult<T>))   // wmma tiles / float4 rows
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<T>(a.N, a.nf, a.H, bwd);
+  if (kind == kBwdParams && blocks < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<T>(a.N, a.nf, a.H, kind);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  void (*kernel)(Args) = bwd ? egcl_bwd_kernel<T> : egcl_fwd_kernel<T>;
+  void (*kernel)(Args) = kind == kFwd   ? egcl_fwd_kernel<T>
+                         : kind == kBwd ? egcl_bwd_kernel<T, false>
+                                        : egcl_bwd_kernel<T, true>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<a.B, kThreads, smem, stream>>>(a);
+  const int grid = kind == kBwdParams ? min(a.B, blocks) : a.B;
+  kernel<<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-int dispatch(int dtype, const Args& a, bool bwd, void* stream) {
+int dispatch(int dtype, const Args& a, int kind, int blocks, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(a, bwd, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, bwd, st);
+  if (dtype == 0) return launch<float>(a, kind, blocks, st);
+  if (dtype == 1) return launch<__nv_bfloat16>(a, kind, blocks, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -665,17 +916,23 @@ int dispatch(int dtype, const Args& a, bool bwd, void* stream) {
 extern "C" {
 
 // Dynamic shared memory that one block of a launch with these sizes needs,
-// or -1 for sizes the kernel does not take (dtype, H multiple). A launch
-// needs at most egcl_allpairs_smem_limit() bytes.
-long long egcl_allpairs_smem_bytes(int dtype, int N, int nf, int H, int bwd) {
+// or -1 for sizes the kernel does not take (dtype, H multiple). kind: 0 the
+// forward, 1 the input-gradient backward, 2 the backward with parameter
+// gradients. A launch needs at most egcl_allpairs_smem_limit() bytes.
+long long egcl_allpairs_smem_bytes(int dtype, int N, int nf, int H,
+                                   int kind) {
+  if (kind < kFwd || kind > kBwdParams) return -1;
   if (dtype == 0 && valid_dims(1, N, nf, H, kHMult<float>))
-    return (long long)smem_bytes<float>(N, nf, H, bwd != 0);
+    return (long long)smem_bytes<float>(N, nf, H, kind);
   if (dtype == 1 && valid_dims(1, N, nf, H, kHMult<__nv_bfloat16>))
-    return (long long)smem_bytes<__nv_bfloat16>(N, nf, H, bwd != 0);
+    return (long long)smem_bytes<__nv_bfloat16>(N, nf, H, kind);
   return -1;
 }
 
 long long egcl_allpairs_smem_limit() { return (long long)kMaxSmem; }
+
+// Floats in one block's slice of the parameter-gradient partials.
+int egcl_allpairs_part_size(int nf, int H) { return PartLayout(nf, H).P; }
 
 // dtype: 0 = float32, 1 = bfloat16 (the compute dtype of h, mask, weights,
 // agg/fsum/dagg/dfsum/dh). pos, box and dpos are float32. Returns the
@@ -688,8 +945,8 @@ int egcl_allpairs_fwd(int dtype, int B, int N, int nf, int H, const void* h,
                       void* agg, void* fsum, void* stream) {
   Args a{B, N, nf, H, h, (const float*)pos, (const float*)box, mask,
          W1a, W1b, w1r, b1, W2, b2, W3, b3, w4,
-         nullptr, nullptr, agg, fsum, nullptr, nullptr};
-  return dispatch(dtype, a, false, stream);
+         nullptr, nullptr, agg, fsum, nullptr, nullptr, nullptr};
+  return dispatch(dtype, a, kFwd, 0, stream);
 }
 
 int egcl_allpairs_bwd(int dtype, int B, int N, int nf, int H, const void* h,
@@ -701,8 +958,27 @@ int egcl_allpairs_bwd(int dtype, int B, int N, int nf, int H, const void* h,
                       void* dpos, void* stream) {
   Args a{B, N, nf, H, h, (const float*)pos, (const float*)box, mask,
          W1a, W1b, w1r, b1, W2, b2, W3, b3, w4,
-         dagg, dfsum, nullptr, nullptr, dh, (float*)dpos};
-  return dispatch(dtype, a, true, stream);
+         dagg, dfsum, nullptr, nullptr, dh, (float*)dpos, nullptr};
+  return dispatch(dtype, a, kBwd, 0, stream);
+}
+
+// The backward with parameter gradients: part is a [min(B, blocks), P]
+// float32 buffer (P = egcl_allpairs_part_size); each of the min(B, blocks)
+// blocks zeroes its row and adds its molecules' parameter gradients into
+// it, and the caller sums the rows.
+int egcl_allpairs_bwd_params(int dtype, int B, int N, int nf, int H,
+                             int blocks, const void* h, const void* pos,
+                             const void* box, const void* mask,
+                             const void* W1a, const void* W1b,
+                             const void* w1r, const void* b1, const void* W2,
+                             const void* b2, const void* W3, const void* b3,
+                             const void* w4, const void* dagg,
+                             const void* dfsum, void* dh, void* dpos,
+                             void* part, void* stream) {
+  Args a{B, N, nf, H, h, (const float*)pos, (const float*)box, mask,
+         W1a, W1b, w1r, b1, W2, b2, W3, b3, w4,
+         dagg, dfsum, nullptr, nullptr, dh, (float*)dpos, (float*)part};
+  return dispatch(dtype, a, kBwdParams, blocks, stream);
 }
 
 const char* egcl_allpairs_error_string(int err) {

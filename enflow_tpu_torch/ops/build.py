@@ -41,6 +41,19 @@ class LaunchCounts:
             setattr(self, name, 0)
 
 
+_n_sm: dict[int, int] = {}
+
+
+def multiprocessors(device) -> int:
+    """The number of streaming multiprocessors of a CUDA ``device``."""
+    import torch
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _n_sm:
+        _n_sm[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _n_sm[idx]
+
+
 def nvcc() -> str:
     """Path of ``nvcc``: ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``, PATH."""
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):

@@ -124,7 +124,6 @@ def edge_pipeline_plain_bwd(e, cd, em, W1, b1, W2, b2, W3, b3, w4, dagg,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-_n_sm: dict[int, int] = {}
 
 
 def _library():
@@ -152,11 +151,8 @@ def _grid(A: int, device) -> tuple[int, int]:
     """``(atoms per tile, blocks)``: about one tile per multiprocessor,
     tiles of at most ``MAX_ATOM_TILE`` atoms, blocks striding over
     tiles."""
-    idx = torch.device(device).index or 0
-    if idx not in _n_sm:
-        props = torch.cuda.get_device_properties(idx)
-        _n_sm[idx] = props.multi_processor_count
-    n_sm = _n_sm[idx]
+    from .build import multiprocessors
+    n_sm = multiprocessors(device)
     ta = max(1, min(MAX_ATOM_TILE, math.ceil(A / n_sm)))
     return ta, min(math.ceil(A / ta), n_sm)
 

@@ -9,16 +9,19 @@ compute dtype, ``pos [B,N,3]``, ``box [B,3]``, ``atom_mask [B,N]`` ->
 attention/norm_diff/tanh off.
 
 - On a CUDA tensor the forward launches the hand-written kernel
-  ``csrc/egcl_allpairs.cu`` and the backward launches its input-gradient
-  kernel (``dh``, ``dpos``), which recomputes the forward from the inputs —
-  the only residuals the autograd Function saves. There is no fallback: a
-  kernel that does not build or launch raises.
+  ``csrc/egcl_allpairs.cu``. The backward recomputes the forward from the
+  inputs (the only residuals the autograd Function saves) in one of two
+  kernel variants: input gradients only (``dh``, ``dpos``) when no weight
+  needs a gradient, as in sampling, or with the nine parameter gradients
+  of ``_bwd_kernel:265-273`` as well, as in training. There is no
+  fallback: a kernel that does not build or launch raises.
 - On a CPU tensor both directions run the plain PyTorch version below,
   which repeats the kernel's arithmetic (including where it rounds to the
   compute dtype) and is what the CPU tests hold against the Pallas kernel.
 
-Parameter gradients are not computed: they come with the training slice
-(ROADMAP queue B item 1), and asking for them raises.
+The parameter gradients are float32 sums; the autograd Function rounds
+each to its weight's dtype, as ``_fused_bwd`` does on return
+(``egcl_fused_v3.py:455-460``).
 """
 
 from __future__ import annotations
@@ -27,13 +30,16 @@ import ctypes
 
 import torch
 
-from .build import LaunchCounts
+from .build import LaunchCounts, multiprocessors
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-counts = LaunchCounts("fwd_launches", "bwd_launches", "plain_fwd_calls",
-                      "plain_bwd_calls")
+counts = LaunchCounts("fwd_launches", "bwd_launches", "bwd_param_launches",
+                      "plain_fwd_calls", "plain_bwd_calls",
+                      "plain_bwd_param_calls")
+# the launch kinds of egcl_allpairs_smem_bytes
+_KIND = {"fwd": 0, "bwd": 1, "bwd_params": 2}
 
 
 def split_params(W1, b1, nf: int):
@@ -70,7 +76,7 @@ def _block(h, pos, box, mask_f, weights):
     cd = pos[:, :, None, :] - pos[:, None, :, :]
     bx = box[:, None, None, :]
     cd = cd - torch.round(cd / bx) * bx                       # f32
-    r2 = (cd * cd).sum(-1, keepdim=True)                      # [B,N,N,1]
+    r2 = (cd * cd).sum(-1, keepdim=True)                      # [B,N,N,1] f32
     mf = mask_f.float()
     not_self = 1.0 - torch.eye(N, dtype=torch.float32, device=h.device)
     valid = (mf[:, :, None] * mf[:, None, :] * not_self)[..., None]
@@ -84,25 +90,31 @@ def _block(h, pos, box, mask_f, weights):
     z3 = _dot(m2, W3, cdt) + b3
     g1 = _silu(z3)
     gate = _dot(g1, w4, torch.float32)                        # [B,N,N,1]
-    return cd, valid, validc, z1, z2, m2, z3, gate
+    return cd, r2, valid, validc, z1, z2, m2, z3, gate
 
 
 def allpairs_edges_plain(h, pos, box, mask_f, weights):
     """Plain forward: ``(agg [B,N,H], f_sum [B,N,3])`` in the compute dtype."""
     cdt = h.dtype
-    cd, valid, _, _, _, m2, _, gate = _block(h, pos, box, mask_f, weights)
+    cd, _, valid, _, _, _, m2, _, gate = _block(h, pos, box, mask_f,
+                                                weights)
     trans = torch.clamp(cd * gate, -100.0, 100.0) * valid
     agg = m2.float().sum(2).to(cdt)
     fsum = trans.to(cdt).float().sum(2).to(cdt)
     return agg, fsum
 
 
-def allpairs_edges_plain_bwd(h, pos, box, mask_f, weights, dagg, dfsum):
-    """Plain input-gradient backward (``_bwd_kernel``): ``(dh, dpos)``."""
+def allpairs_edges_plain_bwd(h, pos, box, mask_f, weights, dagg, dfsum,
+                             params=False):
+    """Plain backward (``_bwd_kernel``): ``(dh, dpos)``, and with ``params``
+    the parameter gradients after them, ``dW1a, dW1b, dw1r, db1, dW2, db2,
+    dW3, db3, dw4`` in the weights' shapes as float32 sums of the
+    compute-dtype operands (``_bwd_kernel:265-273``: dw1r takes the
+    unrounded r2, dw4 the unrounded dgate)."""
     W1a, W1b, w1r, b1, W2, b2, W3, b3, w4 = weights
     cdt, f32 = h.dtype, torch.float32
-    cd, valid, validc, z1, z2, _, z3, gate = _block(h, pos, box, mask_f,
-                                                    weights)
+    cd, r2, valid, validc, z1, z2, m2, z3, gate = _block(h, pos, box, mask_f,
+                                                         weights)
     d_m2_agg = dagg.to(cdt)[:, :, None, :]
     d_trans = dfsum.to(cdt).float()[:, :, None, :]
     trans_raw = cd * gate
@@ -123,7 +135,19 @@ def allpairs_edges_plain_bwd(h, pos, box, mask_f, weights, dagg, dfsum):
           + _dot(dz1_j.to(cdt), W1b.T, f32)).to(cdt)
     d_cd_c = d_cd.to(cdt).float()
     dpos = d_cd_c.sum(2) - d_cd_c.sum(1)
-    return dh, dpos
+    if not params:
+        return dh, dpos
+    B, N, nf = h.shape
+    flat = lambda t: t.reshape(-1, t.shape[-1]).float()
+    col = lambda t: flat(t).sum(0)[None]
+    h_i = h[:, :, None, :].expand(B, N, N, nf)
+    h_j = h[:, None, :, :].expand(B, N, N, nf)
+    return (dh, dpos,
+            flat(h_i).T @ flat(dz1), flat(h_j).T @ flat(dz1),
+            col(r2 * dz1.float()), col(dz1),
+            flat(_silu(z1)).T @ flat(dz2), col(dz2),
+            flat(m2).T @ flat(dz3), col(dz3),
+            flat(_silu(z3)).T @ flat(d_gate))
 
 
 # ---------------------------------------------------------------------------
@@ -140,15 +164,19 @@ def _library():
     lib = load("egcl_allpairs")
     if not getattr(lib, "_enflow_bound", False):
         n_in = 13
-        # dtype, B, N, nf, H, inputs, outputs, stream
+        # dtype, B, N, nf, H, [blocks,] inputs, outputs, stream
         lib.egcl_allpairs_fwd.argtypes = [_I] * 5 + [_P] * (n_in + 3)
         lib.egcl_allpairs_fwd.restype = _I
         lib.egcl_allpairs_bwd.argtypes = [_I] * 5 + [_P] * (n_in + 5)
         lib.egcl_allpairs_bwd.restype = _I
+        lib.egcl_allpairs_bwd_params.argtypes = [_I] * 6 + [_P] * (n_in + 6)
+        lib.egcl_allpairs_bwd_params.restype = _I
         lib.egcl_allpairs_smem_bytes.argtypes = [_I] * 5
         lib.egcl_allpairs_smem_bytes.restype = _LL
         lib.egcl_allpairs_smem_limit.argtypes = []
         lib.egcl_allpairs_smem_limit.restype = _LL
+        lib.egcl_allpairs_part_size.argtypes = [_I, _I]
+        lib.egcl_allpairs_part_size.restype = _I
         lib.egcl_allpairs_error_string.argtypes = [_I]
         lib.egcl_allpairs_error_string.restype = ctypes.c_char_p
         lib._enflow_bound = True
@@ -170,12 +198,22 @@ def _check_inputs(h, pos, box, mask_f, weights):
                              f"{cdt} on {dev}")
 
 
+def largest_molecule(lib, code: int, nf: int, H: int, direction: str):
+    """The largest N whose block fits in the card's shared memory for one
+    launch kind (``"fwd"``, ``"bwd"``, ``"bwd_params"``); 0 for sizes the
+    kernel does not take."""
+    limit, n = lib.egcl_allpairs_smem_limit(), 0
+    while 0 <= lib.egcl_allpairs_smem_bytes(code, n + 1, nf, H,
+                                            _KIND[direction]) <= limit:
+        n += 1
+    return n
+
+
 def _check_fits(lib, code: int, dims, direction: str):
     """Raise unless one molecule's block (the weights, one chunk of edge
     rows and the per-atom arrays) fits in the card's shared memory."""
     B, N, nf, H = dims
-    need = lib.egcl_allpairs_smem_bytes(code, N, nf, H,
-                                        int(direction == "bwd"))
+    need = lib.egcl_allpairs_smem_bytes(code, N, nf, H, _KIND[direction])
     if need < 0:
         raise ValueError(f"egcl_allpairs takes H % 16 == 0 in bfloat16 and "
                          f"H % 4 == 0 in float32, got B, N, nf, H = {dims}")
@@ -184,8 +222,21 @@ def _check_fits(lib, code: int, dims, direction: str):
         raise ValueError(
             f"egcl_allpairs {direction}: a molecule of N={N} atoms at nf={nf},"
             f" H={H} needs {need} bytes of shared memory, more than the "
-            f"{limit} a block may use; molecules this large are not ported "
-            f"yet (ROADMAP queue B item 1, large N)")
+            f"{limit} a block may use (this variant takes N <= "
+            f"{largest_molecule(lib, code, nf, H, direction)}); molecules "
+            f"this large are not ported yet (ROADMAP queue B, large N)")
+
+
+def _split_part(tot, nf: int, H: int):
+    """The summed partials (``PartLayout``: dW2, dW3, dW1a, dW1b, dw1r,
+    db1, db2, db3, dw4, then padding) as the nine gradients in the weights'
+    order and shapes."""
+    HH, nH = H * H, nf * H
+    dW2, dW3, dW1a, dW1b, dw1r, db1, db2, db3, dw4 = torch.split(
+        tot[:2 * HH + 2 * nH + 5 * H], (HH, HH, nH, nH, H, H, H, H, H))
+    return (dW1a.view(nf, H), dW1b.view(nf, H), dw1r.view(1, H),
+            db1.view(1, H), dW2.view(H, H), db2.view(1, H), dW3.view(H, H),
+            db3.view(1, H), dw4.view(H, 1))
 
 
 def _raise_on(lib, err: int, what: str, dims):
@@ -209,13 +260,13 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
     ins = [t if t.data_ptr() % 16 == 0 else t.clone()
            for t in (h, pos, box, mask_f, *weights)]
     stream = _P(torch.cuda.current_stream(h.device).cuda_stream)
+    ptrs = [t.data_ptr() for t in ins]
     if direction == "fwd":
         agg = torch.empty((B, N, H), dtype=cdt, device=h.device)
         fsum = torch.empty((B, N, 3), dtype=cdt, device=h.device)
         if B:
-            err = lib.egcl_allpairs_fwd(
-                code, *dims, *[t.data_ptr() for t in ins],
-                agg.data_ptr(), fsum.data_ptr(), stream)
+            err = lib.egcl_allpairs_fwd(code, *dims, *ptrs, agg.data_ptr(),
+                                        fsum.data_ptr(), stream)
             _raise_on(lib, err, "forward", dims)
             counts.fwd_launches += 1
         return agg, fsum
@@ -223,14 +274,24 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
     dfsum = dfsum.to(cdt).contiguous()
     dh = torch.empty((B, N, nf), dtype=cdt, device=h.device)
     dpos = torch.empty((B, N, 3), dtype=torch.float32, device=h.device)
+    outs = [dagg.data_ptr(), dfsum.data_ptr(), dh.data_ptr(), dpos.data_ptr()]
+    if direction == "bwd":
+        if B:
+            err = lib.egcl_allpairs_bwd(code, *dims, *ptrs, *outs, stream)
+            _raise_on(lib, err, "backward", dims)
+            counts.bwd_launches += 1
+        return dh, dpos
+    # one row of partials per block, about one block per multiprocessor;
+    # each block zeroes its own row
+    blocks = multiprocessors(h.device)
+    part = torch.empty((min(B, blocks), lib.egcl_allpairs_part_size(nf, H)),
+                       dtype=torch.float32, device=h.device)
     if B:
-        err = lib.egcl_allpairs_bwd(
-            code, *dims, *[t.data_ptr() for t in ins],
-            dagg.data_ptr(), dfsum.data_ptr(), dh.data_ptr(),
-            dpos.data_ptr(), stream)
-        _raise_on(lib, err, "backward", dims)
-        counts.bwd_launches += 1
-    return dh, dpos
+        err = lib.egcl_allpairs_bwd_params(code, *dims, blocks, *ptrs, *outs,
+                                           part.data_ptr(), stream)
+        _raise_on(lib, err, "backward (parameter gradients)", dims)
+        counts.bwd_param_launches += 1
+    return (dh, dpos) + _split_part(part.sum(dim=0), nf, H)
 
 
 def allpairs_edges_fwd(h, pos, box, mask_f, weights):
@@ -242,13 +303,20 @@ def allpairs_edges_fwd(h, pos, box, mask_f, weights):
     return allpairs_edges_plain(h, pos, box, mask_f, weights)
 
 
-def allpairs_edges_bwd(h, pos, box, mask_f, weights, dagg, dfsum):
-    """Input-gradient backward: ``(dh [B,N,nf], dpos [B,N,3] f32)``."""
+def allpairs_edges_bwd(h, pos, box, mask_f, weights, dagg, dfsum,
+                       params=False):
+    """Backward: ``(dh [B,N,nf], dpos [B,N,3] f32)``, followed with
+    ``params`` by the nine parameter gradients as float32 sums (see
+    :func:`allpairs_edges_plain_bwd`)."""
     if h.is_cuda:
-        return _launch("bwd", h, pos, box, mask_f, weights, dagg, dfsum)
-    counts.plain_bwd_calls += 1
+        return _launch("bwd_params" if params else "bwd", h, pos, box,
+                       mask_f, weights, dagg, dfsum)
+    if params:
+        counts.plain_bwd_param_calls += 1
+    else:
+        counts.plain_bwd_calls += 1
     return allpairs_edges_plain_bwd(h, pos, box, mask_f, weights, dagg,
-                                    dfsum)
+                                    dfsum, params)
 
 
 class _AllPairsEdges(torch.autograd.Function):
@@ -268,11 +336,19 @@ class _AllPairsEdges(torch.autograd.Function):
                                dtype=h.dtype, device=h.device)
         if dfsum is None:
             dfsum = torch.zeros(pos.shape, dtype=h.dtype, device=h.device)
-        dh, dpos = allpairs_edges_bwd(h, pos, box, mask_f, weights, dagg,
-                                      dfsum)
-        return (dh if ctx.needs_input_grad[0] else None,
-                dpos if ctx.needs_input_grad[1] else None,
-                None, None) + (None,) * len(weights)
+        need = ctx.needs_input_grad
+        params = any(need[4:])
+        dh, dpos, *pgrads = allpairs_edges_bwd(h, pos, box, mask_f, weights,
+                                               dagg, dfsum, params)
+        if params:
+            # each float32 sum rounded to its weight's dtype, as
+            # _fused_bwd:455-460 does
+            pgrads = [g.to(w.dtype) if n else None
+                      for g, w, n in zip(pgrads, weights, need[4:])]
+        else:
+            pgrads = [None] * len(weights)
+        return (dh if need[0] else None, dpos if need[1] else None,
+                None, None, *pgrads)
 
 
 def fused_allpairs_edges(params, h, pos, box, atom_mask):
@@ -288,11 +364,6 @@ def fused_allpairs_edges(params, h, pos, box, atom_mask):
     weights = tuple(w.contiguous() for w in
                     (W1a, W1b, w1r, b1r, W2, b2[None, :], W3, b3[None, :],
                      w4))
-    if torch.is_grad_enabled() and any(w.requires_grad for w in weights):
-        raise NotImplementedError(
-            "the fused all-pairs EGCL computes input gradients only; its "
-            "parameter gradients come with the training slice (ROADMAP "
-            "queue B item 1)")
     mask_f = atom_mask.to(h.dtype)
     agg, fsum = _AllPairsEdges.apply(
         h.contiguous(), pos.to(torch.float32).contiguous(),

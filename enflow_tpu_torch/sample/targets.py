@@ -39,24 +39,37 @@ def lj_cluster(n: int, kBT: float = 1.0, epsilon: float = 1.0,
 
     ``softening`` uses the soft-core ``r^2 + s`` form; ``e_cap`` caps the
     PAIR energy only (the harmonic confinement stays exact; see the JAX
-    package's ``lj_cluster`` for why)."""
+    package's ``lj_cluster`` for why).
 
-    def log_prob(x: torch.Tensor) -> torch.Tensor:
+    ``log_prob(x, softening=..., e_cap=...)`` takes overrides for an
+    annealing schedule, as the JAX package's traced scalars: under an
+    override the softened branch always runs, also at softening 0. That
+    branch drops bitwise-coincident pairs when the softening is 0, where
+    ``r_sq = 0`` would give ``inf - inf``. Without overrides a softening of
+    0 takes the plain ``lj_energy``."""
+    default_soft, default_cap = softening, e_cap
+
+    def log_prob(x: torch.Tensor, softening=None,
+                 e_cap=None) -> torch.Tensor:
+        override = softening is not None or e_cap is not None
+        soft = default_soft if softening is None else float(softening)
+        cap = default_cap if e_cap is None else float(e_cap)
         com = x.mean(dim=-2, keepdim=True)
-        if softening == 0.0:
+        if not override and soft == 0.0:
             u = lj_energy(x, epsilon=epsilon, sigma=sigma)
         else:
             diff = x[..., :, None, :] - x[..., None, :, :]
             d2 = (diff * diff).sum(-1)
             valid = torch.triu(torch.ones((n, n), dtype=torch.bool,
                                           device=x.device), diagonal=1)
+            valid = valid & ((d2 > 0.0) | (soft > 0.0))
             one = torch.ones((), dtype=x.dtype, device=x.device)
-            r_sq = torch.where(valid, d2, one) + softening
+            r_sq = torch.where(valid, d2, one) + soft
             r6 = r_sq * r_sq * r_sq
             e = 4.0 * epsilon * (1.0 / (r6 * r6) - 1.0 / r6)
             u = torch.where(valid, e, torch.zeros_like(e)).sum(dim=(-1, -2))
-        if e_cap is not None:
-            u = regularize_energy(u, e_cap)
+        if cap is not None:
+            u = regularize_energy(u, cap)
         u = u + c_osc * ((x - com) ** 2).sum(dim=(-1, -2))
         return -u / kBT
 

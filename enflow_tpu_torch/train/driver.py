@@ -8,6 +8,13 @@ Ported:
   ``clip_by_global_norm`` and the staircase ``scheduler``), the per-epoch
   line in the JAX format, checkpoints every ``checkpoint_interval`` epochs
   and at the last, and resume from a checkpoint of either package.
+- ``mode: train`` with ``objective: flow_vi`` against an ``lj_cluster``
+  target (data-free): the base draws, the reverse-KL loss with optional
+  STL gradients, the softening / energy-cap / beta anneal, the optimizer
+  chain that zeroes non-finite gradients before the clip (default 10),
+  a checkpoint every epoch, resume from either package's checkpoint.
+  ``fused_epoch`` is accepted and runs the same per-step loop.
+- ``training.metrics_csv`` for both objectives (``utils/observe.py``).
 - ``mode: sample`` with ``sampling.algo: smc | ais`` (flow-proposal
   SMC/AIS over an ``lj_cluster`` target), from a checkpoint's hparams or
   from a fresh ``init_flow`` when the YAML gives ``dynamics.n_iter``,
@@ -24,6 +31,7 @@ card each EGCL is one launch of the fused kernel over the particle batch.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import sys
 import time
@@ -43,6 +51,7 @@ from ..flow.loss import alchemical_nll
 from ..nn.egcl import EGCLConfig
 from ..utils import conversion as cv
 from ..utils.jax_params import tree_flatten
+from ..utils.observe import MetricsLogger
 from .checkpoint import (has_tree, load_checkpoint, load_hparams,
                          save_checkpoint)
 from .optim import NLLOptimizer
@@ -53,6 +62,46 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64,
 
 def eprint(*args, **kwargs):
     print(*args, file=sys.stderr, **kwargs)
+
+
+def vi_anneal(tgt_sec: dict):
+    """The flow-VI anneal of ``training.target.anneal``
+    (``enflow_tpu/train/driver.py:854-894``) as ``epoch -> (softening,
+    e_cap, beta)``, or None without an anneal: the softening and beta go
+    linearly from their start values to the target's final ones over
+    ``epochs``, the cap harmonically (``1/cap`` linear, the final cap
+    infinite when the target has none), capped at float32's largest
+    value."""
+    anneal = tgt_sec.get("anneal")
+    if not anneal:
+        return None
+    if tgt_sec.get("type", "lj_cluster") != "lj_cluster":
+        raise ValueError("training.target.anneal is supported for lj_cluster "
+                         "targets (lj_fluid is not ported yet: ROADMAP "
+                         "queue A item 6)")
+    s_final = float(tgt_sec.get("softening", 0.0))
+    s_start = float(anneal.get("softening_start", s_final))
+    cap_final = tgt_sec.get("e_cap")
+    cap_final = math.inf if cap_final is None else float(cap_final)
+    cap_start = float(anneal.get("e_cap_start", cap_final))
+    anneal_epochs = max(1, int(anneal.get("epochs", 1)))
+    beta_start = float(anneal.get("beta_start", 1.0))
+    if not 0.0 < beta_start <= 1.0:
+        raise ValueError(
+            f"training.target.anneal.beta_start must be in (0, 1] (got "
+            f"{beta_start}): beta=0 is an improper flat target, beta<0 "
+            f"inverts it")
+    f32_max = float(np.finfo(np.float32).max)
+
+    def schedule(epoch: int):
+        frac = max(0.0, 1.0 - epoch / anneal_epochs)
+        inv = frac / cap_start + (0.0 if math.isinf(cap_final)
+                                  else (1.0 - frac) / cap_final)
+        cap = math.inf if inv == 0.0 else 1.0 / inv
+        return (s_final + (s_start - s_final) * frac, min(cap, f32_max),
+                1.0 + (beta_start - 1.0) * frac)
+
+    return schedule
 
 
 def _gauss_aux(sys_b: System) -> torch.Tensor:
@@ -124,8 +173,10 @@ class Main:
                 "item 9)")
         self.dtype = _DTYPES[args.get("precision", "float32")]
         self.seed = int(args.get("seed", 0))
+        self.objective = None
         if mode == "train":
             self._check_train_options(args)
+            self.objective = args.get("training", {}).get("objective", "nll")
 
         dyn = args.get("dynamics", {})
         self.checkpoint_path = dyn.get("checkpoint_path", "")
@@ -164,7 +215,16 @@ class Main:
                 "dynamics.compiler_options is not ported (TPU-only XLA "
                 "flags)")
         nbr_capacity = dyn.get("nbr_capacity")
-        if mode == "train":
+        self.dataset = None
+        if self.objective == "flow_vi":
+            # data-free (driver.py:204-221): node_nf from the network
+            if node_nf is None:
+                node_nf = int(dyn["network"]["node_nf"])
+            if nbr_capacity == "auto":
+                raise ValueError("nbr_capacity: auto requires a dataset")
+            if nbr_capacity is not None:
+                nbr_capacity = int(nbr_capacity)
+        elif mode == "train":
             self.dataset = self._setup_dataset("dataset", args)
             if node_nf is None:
                 node_nf = self.dataset.node_nf
@@ -217,6 +277,8 @@ class Main:
         if dyn.get("validate_capacity", True):
             self._validate_capacities()
         self._setup_optimizer(args["training"])
+        if self.objective == "flow_vi":
+            self._setup_vi(args["training"])
         if hp is not None:
             self._restore(hp)
         eprint("In training mode", flush=True)
@@ -228,15 +290,12 @@ class Main:
     def _check_train_options(self, args):
         tr = args.get("training", {})
         objective = tr.get("objective", "nll")
-        if objective != "nll":
+        if objective not in ("nll", "flow_vi"):
+            raise ValueError(f"unknown training.objective {objective!r}")
+        if tr.get("profile_dir"):
             raise NotImplementedError(
-                f"training.objective={objective!r} is not ported yet "
-                "(ROADMAP queue A item 6, flow-VI); the port trains 'nll'")
-        for key in ("metrics_csv", "profile_dir"):
-            if tr.get(key):
-                raise NotImplementedError(
-                    f"training.{key} is not ported yet (ROADMAP queue A "
-                    "item 8, utils/observe.py)")
+                "training.profile_dir is not ported yet (ROADMAP queue A "
+                "item 8, utils/observe.py)")
         if args.get("debug", {}).get("nan_checks"):
             raise NotImplementedError(
                 "debug.nan_checks is not ported yet (ROADMAP queue A item 8, "
@@ -246,7 +305,8 @@ class Main:
             raise NotImplementedError(
                 f"nbr_mode={mode!r} is not ported yet (ROADMAP queue A items "
                 "2 and 7); the port trains with 'all_pairs' and 'images'")
-        if args.get("dataset", {}).get("type") == "compose":
+        if (objective == "nll"
+                and args.get("dataset", {}).get("type") == "compose"):
             raise NotImplementedError(
                 "dataset type 'compose' is not ported yet (ROADMAP queue A "
                 "item 5)")
@@ -301,7 +361,8 @@ class Main:
         raising with the needed value when a frame has more in-cutoff
         (neighbor, image) slots than ``nbr_capacity``."""
         cfg = self.flow_cfg
-        if cfg.nbr_mode != "images" or not len(self.dataset):
+        if (cfg.nbr_mode != "images" or self.dataset is None
+                or not len(self.dataset)):
             return
         dyn = self.args.get("dynamics", {})
         n_total = len(self.dataset)
@@ -341,12 +402,15 @@ class Main:
 
     def _setup_optimizer(self, tr):
         """Adam with optional ``grad_clip`` and staircase ``scheduler``
-        (``train/optim.py``) over the flattened parameters."""
+        (``train/optim.py``) over the flattened parameters; for flow-VI the
+        clip defaults to 10 and non-finite gradients are zeroed first
+        (``driver.py:385-411``)."""
         sched = tr.get("scheduler")
         if isinstance(sched, str) and sched.lower() in ("no", "false",
                                                         "none", "off"):
             sched = False
-        clip = tr.get("grad_clip")
+        vi = self.objective == "flow_vi"
+        clip = tr.get("grad_clip", 10.0 if vi else None)
         self._leaves, _ = tree_flatten(self.params)
         for t in self._leaves:
             t.requires_grad_(True)
@@ -354,10 +418,11 @@ class Main:
             self._leaves, float(tr["lr"]),
             schedule=((int(float(tr["scheduler_step"])), float(tr["gamma"]))
                       if sched else None),
-            grad_clip=float(clip) if clip else None)
+            grad_clip=float(clip) if clip else None, zero_nonfinite=vi)
         self.num_epochs = int(tr["num_epochs"])
         self.log_interval = int(tr["log_interval"])
         self.checkpoint_interval = int(tr.get("checkpoint_interval", 1))
+        self.metrics = MetricsLogger(tr.get("metrics_csv"))
         eprint(f"Loss function parameters: softening={self.softening}, "
                f"kBT={self.lj_kBT}", flush=True)
 
@@ -430,6 +495,12 @@ class Main:
         return ((self.seed + 17) * 1_000_003 + epoch) % (2 ** 63)
 
     def train(self):
+        if self.objective == "flow_vi":
+            self._train_vi()
+        else:
+            self._train_nll()
+
+    def _train_nll(self):
         print('Epoch \tTraining Loss \t   Time (s)', flush=True)
         for epoch in range(self.start_epoch,
                            self.start_epoch + self.num_epochs):
@@ -457,12 +528,119 @@ class Main:
                 self._save(epoch)
                 eprint("State saved", flush=True)
             end_time = time.time()
+            lr = self.optimizer.lr_at(self.optimizer.steps_taken)
             if epoch % self.log_interval == 0:
-                lr = self.optimizer.lr_at(self.optimizer.steps_taken)
                 print('%.5i \t    %.2f \t    %.2f \t    %.2e'
                       % (epoch, epoch_loss, end_time - start_time, lr),
                       flush=True)
+            self.metrics.log(epoch=epoch, loss=epoch_loss,
+                             epoch_seconds=end_time - start_time, lr=lr,
+                             batches=len(self.train_loader),
+                             nbr_overflow=epoch_ovf)
             eprint(f"###### Ending epoch {epoch} ###### ", flush=True)
+        self.metrics.close()
+
+    # ------------------------------------------------------------------
+    # flow-VI
+    # ------------------------------------------------------------------
+
+    def _setup_vi(self, tr):
+        """The flow-VI target, base and anneal (``driver.py:833-906``)."""
+        from ..sample.vi import make_base_log_prob
+
+        tgt_sec = tr["target"]
+        self.vi_target, self.vi_n_atoms = self._build_pos_target(tgt_sec)
+        self.vi_kBT_aux = float(tgt_sec.get("kBT_aux", 1.0))
+        self.vi_particles = int(tr.get("n_particles", 256))
+        self.vi_steps_per_epoch = int(tr.get("steps_per_epoch", 100))
+        base = tr.get("base", {})
+        self.vi_stds = {k: float(base.get(k, 1.0))
+                        for k in ("pos_std", "vel_std", "feat_std")}
+        self.vi_box = float(tgt_sec.get("box", 1e3))
+        self.vi_r_cut = float(tgt_sec.get("r_cut", 1e2))
+        self.vi_stl = bool(tr.get("stl", False))
+        self.vi_base_lp = make_base_log_prob(**self.vi_stds)
+        self.vi_schedule = vi_anneal(tgt_sec)
+
+    def _vi_system_target(self, epoch: int):
+        """The System target of one epoch: the position target at that
+        epoch's anneal values (softening, cap, beta), else as configured."""
+        from ..sample.vi import make_system_target
+
+        if self.vi_schedule is None:
+            return make_system_target(self.vi_target.log_prob,
+                                      kBT_aux=self.vi_kBT_aux)
+        soft, cap, beta = self.vi_schedule(epoch)
+        log_prob = self.vi_target.log_prob
+        return make_system_target(
+            lambda x: beta * log_prob(x, softening=soft, e_cap=cap),
+            kBT_aux=self.vi_kBT_aux)
+
+    def _vi_seed(self, epoch: int, step: int) -> int:
+        """The base draws' seed of one step: a resumed run draws what an
+        uninterrupted one draws."""
+        return (((self.seed + 23) * 1_000_003 + epoch) * 1_000_033
+                + step) % (2 ** 63)
+
+    def vi_step(self, gen, target):
+        """One flow-VI step: the base batch from ``gen``, the loss and its
+        gradients, the optimizer chain. Returns the loss and 1.0 when a
+        gradient was non-finite (device tensors; no host sync)."""
+        from ..sample.vi import flow_vi_loss, sample_base
+
+        batch = sample_base(gen, self.vi_particles, self.vi_n_atoms,
+                            self.node_nf, box=self.vi_box,
+                            r_cut=self.vi_r_cut, dtype=self.dtype,
+                            device=self.device, **self.vi_stds)
+        loss, _ = flow_vi_loss(self.params, self.flow_cfg, batch, target,
+                               stl=self.vi_stl,
+                               base_log_prob=self.vi_base_lp)
+        self.optimizer.zero_grad()
+        loss.backward()
+        finite = torch.stack([torch.isfinite(p.grad).all()
+                              for p in self._leaves if p.grad is not None])
+        bad = 1.0 - finite.all().to(loss.dtype)
+        self.optimizer.step()
+        return loss.detach(), bad
+
+    def _train_vi(self):
+        """Data-free flow-VI training (``driver.py:827-1038``): one
+        checkpoint, epoch line and metrics row per epoch."""
+        print('Epoch \tVI Loss \t   Time (s)', flush=True)
+        n_steps = self.vi_steps_per_epoch
+        for epoch in range(self.start_epoch,
+                           self.start_epoch + self.num_epochs):
+            start_time = time.time()
+            target = self._vi_system_target(epoch)
+            losses, bads = [], []
+            for i in range(n_steps):
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(self._vi_seed(epoch, i))
+                loss, bad = self.vi_step(gen, target)
+                losses.append(loss)
+                bads.append(bad)
+            losses = torch.stack(losses).float().cpu().numpy()
+            nan_steps = int(torch.stack(bads).sum())
+            if nan_steps:
+                eprint(f"epoch {epoch}: {nan_steps}/{n_steps} steps had "
+                       f"nonfinite gradients (skipped by the optimizer "
+                       f"guard)", flush=True)
+            if self.checkpoint_path:
+                self._save(epoch)
+            end_time = time.time()
+            # the mean over the finite losses (a guarded step's NaN loss
+            # does not mask the others)
+            finite = losses[np.isfinite(losses)]
+            epoch_loss = float(finite.mean()) if finite.size else math.nan
+            lr = self.optimizer.lr_at(self.optimizer.steps_taken)
+            if epoch % self.log_interval == 0:
+                print('%.5i \t    %.2f \t    %.2f \t    %.2e'
+                      % (epoch, epoch_loss, end_time - start_time, lr),
+                      flush=True)
+            self.metrics.log(epoch=epoch, loss=epoch_loss,
+                             epoch_seconds=end_time - start_time, lr=lr,
+                             batches=n_steps)
+        self.metrics.close()
 
     def _build_pos_target(self, section):
         from ..sample import targets as T
@@ -476,7 +654,7 @@ class Main:
         if ttype != "lj_cluster":
             raise NotImplementedError(
                 f"target type {ttype!r} is not ported yet (ROADMAP queue A "
-                "item 4); the port samples 'lj_cluster'")
+                "item 4); the port samples and trains against 'lj_cluster'")
         e_cap = section.get("e_cap")
         t = T.lj_cluster(n_atoms, kBT=kBT,
                          c_osc=float(section.get("c_osc", 0.5)),

@@ -1,6 +1,9 @@
-"""The NLL optimizer: optax's ``adam`` (optionally after
+"""The training optimizer: optax's ``adam`` (optionally after
 ``clip_by_global_norm``, with a staircase exponential schedule) on
-``torch.optim.Adam``, with its state in optax's checkpoint layout.
+``torch.optim.Adam``, with its state in optax's checkpoint layout. For
+flow-VI a stateless first step zeroes non-finite gradients (NaN and
++-inf), as ``enflow_tpu/train/driver.py:390-406`` chains
+``optax.stateless`` before the clip.
 
 ``torch.optim.Adam`` computes optax ``adam``'s update
 (``lr * mu_hat / (sqrt(nu_hat) + eps)``, ``eps_root = 0``), in another
@@ -11,7 +14,9 @@ rounding order. Clipping follows optax: when the global norm is not below
 Checkpoint layout (``opt_state`` leaves): ``count, *mu, *nu`` in the
 parameters' flatten order, and the schedule's ``count`` after them when a
 schedule is on -- the leaves of ``optax.adam(lr)``, of
-``chain(clip_by_global_norm, adam)`` and of ``adam(schedule)``.
+``chain(clip_by_global_norm, adam)``, of ``chain(stateless,
+clip_by_global_norm, adam)`` and of ``adam(schedule)`` (the stateless and
+clip steps hold no leaves).
 """
 
 from __future__ import annotations
@@ -20,13 +25,17 @@ import torch
 
 
 class NLLOptimizer:
-    """Adam over ``leaves`` (tensors that require grad)."""
+    """Adam over ``leaves`` (tensors that require grad); with
+    ``zero_nonfinite`` (flow-VI) non-finite gradients become 0 first. A
+    leaf without a gradient counts as a zero gradient, as in optax."""
 
-    def __init__(self, leaves, lr: float, schedule=None, grad_clip=None):
+    def __init__(self, leaves, lr: float, schedule=None, grad_clip=None,
+                 zero_nonfinite: bool = False):
         self.leaves = list(leaves)
         self.lr = float(lr)
         self.schedule = schedule            # (transition steps, decay rate)
         self.grad_clip = None if grad_clip is None else float(grad_clip)
+        self.zero_nonfinite = zero_nonfinite
         self.adam = torch.optim.Adam(self.leaves, lr=self.lr,
                                      betas=(0.9, 0.999), eps=1e-8)
         self.steps_taken = 0
@@ -43,9 +52,13 @@ class NLLOptimizer:
         self.adam.zero_grad(set_to_none=True)
 
     def step(self):
-        """Clip (when asked), then one Adam update at this step's rate."""
+        """Zero non-finite gradients and clip (when asked), then one Adam
+        update at this step's rate."""
+        grads = [p.grad for p in self.leaves if p.grad is not None]
+        if self.zero_nonfinite:
+            for g in grads:
+                torch.nan_to_num_(g, nan=0.0, posinf=0.0, neginf=0.0)
         if self.grad_clip is not None:
-            grads = [p.grad for p in self.leaves]
             norm = torch.sqrt(sum((g * g).sum() for g in grads))
             with torch.no_grad():
                 for g in grads:

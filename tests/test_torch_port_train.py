@@ -11,7 +11,8 @@
   ``clip_by_global_norm``: parameters within 1e-10 and the state in optax's
   leaf order; and with a staircase schedule (2e-9: optax evaluates the
   schedule in float32).
-- Checkpoints both ways, and the driver end to end on the CPU with resume.
+- Checkpoints both ways, the driver end to end on the CPU with resume, and
+  its metrics CSV.
 """
 
 import json
@@ -210,6 +211,23 @@ def test_driver_trains_and_resumes_cpu(tmp_path, capsys):
     assert line.startswith("00003 \t")
 
 
+def test_driver_writes_nll_metrics_csv(tmp_path):
+    """``training.metrics_csv`` for the NLL objective: one row per epoch
+    with the JAX driver's columns."""
+    cfg = tmp_path / "m.yaml"
+    cfg.write_text(open(_yaml(tmp_path, 2)).read().replace(
+        "log_interval: 1", f"log_interval: 1\n  metrics_csv: "
+        f"{tmp_path / 'm.csv'}"))
+    Main(device="cpu")(str(cfg))
+    with open(tmp_path / "m.csv") as f:
+        lines = f.read().strip().splitlines()
+    assert lines[0] == "time,epoch,loss,epoch_seconds,lr,batches,nbr_overflow"
+    rows = [ln.split(",") for ln in lines[1:]]
+    assert [r[1] for r in rows] == ["0", "1"]
+    assert all(np.isfinite(float(r[2])) and r[5] == "2"
+               and int(r[6]) >= 0 for r in rows)
+
+
 def test_checkpoints_cross_packages(tmp_path):
     """A port checkpoint loads in the JAX package, and the port resumes a
     checkpoint the JAX package wrote (params and Adam state)."""
@@ -267,12 +285,20 @@ def test_driver_rejects_unported_train_options(tmp_path):
     cfg = tmp_path / "t.yaml"
     base = _yaml(tmp_path, 1)
     text = open(base).read()
+    vi = text.replace("nbr_mode: images\n  nbr_capacity: auto",
+                      "nbr_mode: all_pairs").replace("hidden_nf: 16,",
+                                                     "hidden_nf: 16, node_nf: 2,")
     for old, new in (("type: lj", "type: md"),
                      ("nbr_mode: images", "nbr_mode: dense"),
-                     ("log_interval: 1", "log_interval: 1\n  objective: "
-                      "flow_vi"),
-                     ("log_interval: 1", "log_interval: 1\n  metrics_csv: "
-                      "m.csv")):
+                     ("log_interval: 1", "log_interval: 1\n  profile_dir: "
+                      "prof"),
+                     ("seed: 2", "seed: 2\ndebug: {nan_checks: true}")):
         cfg.write_text(text.replace(old, new))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Main(device="cpu").setup(str(cfg))
+    # a flow-VI target the port does not have yet
+    cfg.write_text(vi.replace("log_interval: 1", "log_interval: 1\n  "
+                              "objective: flow_vi\n  target: {type: "
+                              "double_well, n_atoms: 4}"))
+    with pytest.raises(NotImplementedError, match="double_well.*ROADMAP"):
+        Main(device="cpu").setup(str(cfg))
