@@ -2,8 +2,10 @@
 """Mutation check of ``chip_smoke.py``'s kernel-vs-plain tolerances, on one
 CUDA card: ``python3 chip_mutants.py [GROUP ...]`` from the repository root
 (groups: ``egcl_allpairs``, ``egcl_params``, ``edge_pipeline``,
-``pair_energy``; all by default; ``egcl_params`` is K2's parameter-gradient
-variant, in ``egcl_allpairs.cu`` too).
+``pair_energy``; all by default; ``egcl_allpairs`` is the bf16 Hopper K1 and
+K2 of ``egcl_allpairs_sm90.cu``, read at chip_smoke.py's main, ragged and
+large shapes; ``egcl_params`` is K2's parameter-gradient variant, in
+``egcl_allpairs.cu``).
 
 For each mutant below, the package and ``chip_smoke.py`` are copied into a
 temporary directory, one deliberate fault is written into the copy's CUDA
@@ -26,18 +28,22 @@ ROOT = Path(__file__).resolve().parent
 MUTANTS = {
     "egcl_allpairs": {
         "control": None,
-        "j-side sums drop each chunk's last row": (
-            "for (int r = q; r < nrows; r += N)",
-            "for (int r = q; r < nrows - 1; r += N)"),
-        "i-side sums drop each chunk's last row": (
-            "for (int r = lo; r < hi; ++r)",
-            "for (int r = lo; r < hi - (hi == nrows); ++r)"),
+        "i-side sums drop each tile's last row": (
+            "w.segi[r] = r < nr ? L.rw[k].i : -1;",
+            "w.segi[r] = r < nr - 1 ? L.rw[k].i : -1;"),
+        "j-side sums drop each tile's last row": (
+            "w.segj[r] = r < nr ? L.rw[k].j : -1;",
+            "w.segj[r] = r < nr - 1 ? L.rw[k].j : -1;"),
         "valid ignores mask_j (padded neighbours count)": (
-            "s.valid[r] = s.mask[i] * s.mask[j] *",
-            "s.valid[r] = s.mask[i] *"),
+            "r.valid = w.mask[i] * w.mask[j];",
+            "r.valid = w.mask[i];"),
         "r2 not rounded to the compute dtype before w1r": (
-            "rnd<T>(rnd<T>(s.r2[r]) * s.w1r[c])",
-            "rnd<T>(s.r2[r] * s.w1r[c])"),
+            "return add2(z, mul2(bcast(r.r2), wr));",
+            "return add2(z, to_bf2(r.r2 * __low2float(wr), "
+            "r.r2 * __high2float(wr)));"),
+        "a molecule's last partial tile dropped (floor for ceil)": (
+            "return (E + kTile - 1) / kTile;",
+            "return E / kTile;"),
     },
     "egcl_params": {
         "control": None,
@@ -89,15 +95,12 @@ def report(label, errs, tol):
 READ = {
     "egcl_allpairs": HEAD + """
 from enflow_tpu_torch.ops import egcl_allpairs as ops
-for sname, shape in (("main", cs.MAIN), ("ragged", cs.RAGGED)):
-    for dname, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        h, pos, box, mf, W, dagg, dfs, _ = cs.edge_inputs(shape, dt, seed=11)
-        k = (ops.allpairs_edges_fwd(h, pos, box, mf, W)
-             + ops.allpairs_edges_bwd(h, pos, box, mf, W, dagg, dfs))
-        p = (ops.allpairs_edges_plain(h, pos, box, mf, W)
-             + ops.allpairs_edges_plain_bwd(h, pos, box, mf, W, dagg, dfs))
-        report(f"{sname} {dname}", cs.rel_errs(("agg", "f_sum", "dh", "dpos"),
-               k, p), cs.TOL[dname])
+large = dict(B=64, N=ops.largest_molecule(1, 5, 128, "bwd"), nf=5, H=128)
+for sname, shape in (("main", cs.MAIN), ("ragged", cs.RAGGED),
+                     ("large", large)):
+    args = cs.edge_inputs(shape, torch.bfloat16, seed=11)[:7]
+    _, errs = cs.kernel_errs(ops, *args)
+    report(f"{sname} bfloat16", errs, cs.TOL["bfloat16"])
 """,
     "egcl_params": HEAD + """
 from enflow_tpu_torch.ops import egcl_allpairs as ops
@@ -143,7 +146,8 @@ def main():
         return 1
     groups = sys.argv[1:] or list(MUTANTS)
     for group in groups:
-        source = "egcl_allpairs" if group == "egcl_params" else group
+        source = {"egcl_allpairs": "egcl_allpairs_sm90",
+                  "egcl_params": "egcl_allpairs"}.get(group, group)
         src_rel = f"enflow_tpu_torch/csrc/{source}.cu"
         for name, edit in MUTANTS[group].items():
             with tempfile.TemporaryDirectory() as tmp:

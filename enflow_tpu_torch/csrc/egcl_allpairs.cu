@@ -1,5 +1,8 @@
 // Fused all-pairs EGCL edge pipeline for Hopper (sm_90a): forward, the
 // input-gradient backward, and the backward with parameter gradients.
+// In bf16 at H = 64 or 128 the forward and the input-gradient backward run
+// in egcl_allpairs_sm90.cu (wgmma, persistent warpgroups); these chunked
+// kernels serve float32, the other widths and the parameter gradients.
 //
 // Replaces the Pallas TPU kernels of enflow_tpu/ops/egcl_fused_v3.py:
 //   forward  -> _fused_fwd / _fwd_kernel (via _fwd_block)
@@ -41,8 +44,7 @@
 // arrays (h, h W1a, h W1b, the node sums) sit in shared memory beside the
 // weights, which bounds N (at H=128: 30 for the bf16 backward, 22 for the
 // f32 backward); a larger molecule is refused at launch
-// (egcl_allpairs_smem_bytes says what a launch needs). wgmma, TMA
-// pipelines, several molecules per block and large N are later work.
+// (egcl_allpairs_smem_bytes says what a launch needs).
 //
 // Parameter gradients (egcl_bwd_kernel<T, true>): the TPU kernel carries
 // them across its sequential grid; here blocks run in parallel, so about

@@ -1,0 +1,1038 @@
+// Fused all-pairs EGCL edge pipeline in bf16, designed for Hopper
+// (sm_90a): the forward and the input-gradient backward.
+//
+// Replaces the Pallas TPU kernels of enflow_tpu/ops/egcl_fused_v3.py:
+//   forward  -> the pallas_call of _fused_fwd (:365), _fwd_kernel
+//   backward -> the pallas_call of _fused_bwd (:414), _bwd_kernel, in its
+//               input-gradient form (dh and dpos; what sampling asks for)
+// for the bf16 compute dtype at H = 64 or 128, and computes the contract of
+// egcl_allpairs.cu:10-19 with bf16 rounding at the points where
+// _fwd_block / _bwd_kernel (egcl_fused_v3.py:167-254) round. The float32
+// kernels, other hidden widths and the backward with parameter gradients
+// stay in egcl_allpairs.cu.
+//
+// What bounds it on this card. At the main-path shape (B=1024 molecules,
+// N=13, nf=5, H=128) the tensor-core work is ~11 us (forward) and ~21 us
+// (backward) at the bf16 peak. Every element of the H-wide activations
+// also passes SiLU's sigmoid, an ex2 and a rcp on the MUFU: 6 operations
+// per element forward, 8 backward (each SiLU derivative shares the
+// recomputed forward's sigmoid, z1's is recomputed), at 16 per clock per
+// SM ~29 and ~39 us over the 156 valid pairs of a molecule; and around
+// them the adds, products and roundings of the TPU kernel's rounding
+// points, ~22 and ~53 operations per element (~13 and ~32 us on the FP32
+// lanes). chip_smoke.py prints these floors beside each kernel's time. With
+// two or three warpgroups per SM the elementwise chains are latency-bound:
+// the kernels run at several times these floors.
+//
+// Design:
+// - Persistent blocks of up to 3 (forward) or 2 (backward) warpgroups,
+//   fewer when a large molecule's per-atom arrays need the room, one block
+//   per SM. A block stores W2 and W3 once, in bf16, in the 128-byte-
+//   swizzled layout that wgmma reads (rows of 64-column halves, 128 bytes a
+//   row). The forward reads that copy as an MN-major B operand (X W), the
+//   backward as a K-major one (X W^T). No second copy.
+// - Each warpgroup owns whole molecules: no state is shared between
+//   warpgroups after the weights. A molecule's N(N-1) pairs i != j, in
+//   i-major order (row q: i = q / (N-1), the q % (N-1)-th j != i), are
+//   walked in 64-row tiles (wgmma's M); self-pairs are never visited (they
+//   contribute exactly zero). A molecule fills whole tiles (N=13: 156 rows
+//   in 3 tiles, 81%); a warp whose 16 rows all lie past the molecule's
+//   last row skips its elementwise work. The warpgroups on an SM overlap
+//   one's elementwise work with another's products.
+// - Activations are bf16 [64, H] tiles in shared memory, in the same
+//   swizzled layout, read by wgmma as its A operand (z1 is built from the
+//   per-atom projections hA = h W1a, hB = h W1b, bf16). A product runs in
+//   32-column chunks (m64n32k16, f32 accumulators in registers), two at a
+//   time: one chunk's epilogue (rounding, bias, SiLU, valid mask, bf16
+//   store into the next activation tile) runs while the tensor cores
+//   compute the other. The chunk loop is not unrolled, which keeps the code
+//   small for the instruction cache and the registers few enough for three
+//   warpgroups. The bf16 adds and products run as bf16x2 instructions
+//   (add.rn / mul.rn: one rounding each, the same value as an f32
+//   operation rounded to bf16, as the exact sum or product of two bf16
+//   values rounds once either way); SiLU and its derivative run in f32
+//   with __expf and __fdividef (a few f32 ulps) before the bf16 rounding.
+//   The backward stores rnd(dsilu(z2)) and rnd(dsilu(z3)) as the forward
+//   recompute makes them, so the chain backwards needs no transcendental
+//   but z1's. The gate's and dr2's row dots are in-thread f32 sums plus two
+//   quad shuffles.
+// - Node sums as products: agg_i (and in the backward dz1 on the i side
+//   and on the j side) are S T, where T is the tile of bf16 rows (m2 or
+//   dz1) already in shared memory and S the 0/1 matrix of which rows
+//   belong to which atom (wgmma with S in registers); the per-row
+//   3-vectors (trans, dcd) go through the same product. Each element of a
+//   node sum has one owner thread and a fixed order: two launches give
+//   identical bits.
+// The per-atom arrays bound N (egcl_sm90_smem_bytes; at nf=5, H=128 one
+// warpgroup takes N <= 111 forward and N <= 55 backward); a larger molecule
+// is refused at launch.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+#include <stddef.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using bf2 = __nv_bfloat162;
+
+constexpr int kTile = 64;                 // edge rows per tile (wgmma M)
+constexpr int kWG = 128;                  // threads per warpgroup
+constexpr int kChunk = 32;                // output columns per product chunk
+constexpr int kMaxWGFwd = 3, kMaxWGBwd = 2;
+constexpr size_t kMaxSmem = 232448;
+
+struct Args {
+  int B, N, nf, H;
+  const bf16* h;          // [B, N, nf]
+  const float* pos;       // [B, N, 3]
+  const float* box;       // [B, 3]
+  const bf16* mask;       // [B, N] (0/1)
+  const bf16* W1a;        // [nf, H]
+  const bf16* W1b;        // [nf, H]
+  const bf16* w1r;        // [H]
+  const bf16* b1;         // [H]
+  const bf16* W2;         // [H, H]
+  const bf16* b2;         // [H]
+  const bf16* W3;         // [H, H]
+  const bf16* b3;         // [H]
+  const bf16* w4;         // [H]
+  const bf16* dagg;       // [B, N, H]   (backward)
+  const bf16* dfsum;      // [B, N, 3]   (backward)
+  bf16* agg;              // [B, N, H]   (forward)
+  bf16* fsum;             // [B, N, 3]   (forward)
+  bf16* dh;               // [B, N, nf]  (backward)
+  float* dpos;            // [B, N, 3]   (backward)
+};
+
+// ---- arithmetic
+
+__device__ __forceinline__ float rnd1(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ bf2 to_bf2(float a, float b) {
+  return __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ bf2 bcast(float v) { return to_bf2(v, v); }
+// bf16x2 add and product, each rounded once to nearest even; the explicit
+// .rn keeps the compiler from contracting a product and a sum into one fma
+// (which would skip the product's rounding)
+union Bf2 {
+  bf2 v;
+  uint32_t u;
+};
+__device__ __forceinline__ bf2 add2(bf2 a, bf2 b) {
+  Bf2 x{a}, y{b}, d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d.u) : "r"(x.u), "r"(y.u));
+  return d.v;
+}
+__device__ __forceinline__ bf2 mul2(bf2 a, bf2 b) {
+  Bf2 x{a}, y{b}, d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d.u) : "r"(x.u), "r"(y.u));
+  return d.v;
+}
+__device__ __forceinline__ float2 load_f2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float sigm(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
+}
+__device__ __forceinline__ float silu(float x) { return x * sigm(x); }
+__device__ __forceinline__ float dsilu(float x) {
+  const float s = sigm(x);
+  return s * (1.0f + x * (1.0f - s));
+}
+// SiLU and its derivative of a bf16 pair, rounded to bf16
+__device__ __forceinline__ bf2 silu2(bf2 z) {
+  const float2 f = __bfloat1622float2(z);
+  return to_bf2(silu(f.x), silu(f.y));
+}
+__device__ __forceinline__ bf2 dsilu2(bf2 z) {
+  const float2 f = __bfloat1622float2(z);
+  return to_bf2(dsilu(f.x), dsilu(f.y));
+}
+// Both from one sigmoid: silu into m, its derivative into ds
+__device__ __forceinline__ void silu_dsilu2(bf2 z, bf2& m, bf2& ds) {
+  const float2 f = __bfloat1622float2(z);
+  const float sx = sigm(f.x), sy = sigm(f.y);
+  m = to_bf2(f.x * sx, f.y * sy);
+  ds = to_bf2(sx * (1.0f + f.x * (1.0f - sx)), sy * (1.0f + f.y * (1.0f - sy)));
+}
+// f32 dot of a bf16 pair with an f32 pair, added to acc
+__device__ __forceinline__ float dot2(bf2 v, float2 w, float acc) {
+  const float2 f = __bfloat1622float2(v);
+  return fmaf(f.y, w.y, fmaf(f.x, w.x, acc));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+// One warpgroup's barrier (ids 1.. per warpgroup; 0 is __syncthreads).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(wg + 1), "n"(kWG) : "memory");
+}
+// Generic-proxy shared-memory writes made visible to wgmma (the async
+// proxy), then the warpgroup's barrier.
+__device__ __forceinline__ void wg_publish(int wg) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  wg_sync(wg);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// ---- swizzled bf16 tiles
+//
+// A matrix of R rows and H columns is stored as H/64 halves of R rows of
+// 128 bytes, each 8-row group a 1024-byte atom whose 16-byte chunks are
+// XOR-swizzled by the row (128-byte swizzle): element (r, c) at byte
+// (c / 64) 128 R + 128 r + 16 ((c % 64 / 8) ^ (r % 8)) + 2 (c % 8).
+// Weights (R = H), activation tiles (R = 64) and the node-sum operands
+// share it.
+__device__ __forceinline__ int swz(int r, int c, int R) {
+  return (c / 64) * (128 * R) + 128 * r + 16 * (((c % 64) / 8) ^ (r % 8)) +
+         2 * (c % 8);
+}
+__device__ __forceinline__ bf2* tile_at(bf16* t, int r, int c) {
+  return reinterpret_cast<bf2*>((char*)t + swz(r, c, kTile));
+}
+
+// ---- wgmma
+
+// Shared-memory matrix descriptor, 128-byte swizzle (atoms 1024-byte
+// aligned, base offset 0).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// D[64, 32] (+)= A[64, 16] B[16, 32], A and B in shared memory (A K-major)
+template <int TB>
+__device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// D[64, 64] (+)= A[64, 16] B[16, 64], A in registers, B MN-major
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+// D[64, 8] (+)= A[64, 16] B[16, 8], A in registers, B K-major
+__device__ __forceinline__ void wgmma_rs8(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) asm volatile("" : "+f"(d[k])::"memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d = X[:, :H] B[:H, n0 : n0+32] for the activation tile X (shared address
+// x) and the weight W (shared address w, [H, H] swizzled), issued and
+// committed: TB = 1 reads W MN-major (B = W: a k-step is 16 rows, 2048
+// bytes on; the chunk starts 2 n0 bytes into W's rows, inside a half), TB
+// = 0 reads W K-major (B = W^T: B's column n is W's row n; a k-step is 32
+// bytes into a row, the next half 128H bytes on). A (X) is K-major:
+// k-steps 32 bytes on, the next half 8192 bytes on; 8-row groups 1024
+// bytes apart in every operand.
+template <int H, int TB>
+__device__ __forceinline__ void issue_chunk(float (&d)[16], uint32_t x,
+                                            uint32_t w, int n0) {
+  fence_regs(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  const uint32_t wb = TB ? w + (n0 / 64) * (128 * H) + 2 * (n0 % 64)
+                         : w + 128 * n0;
+#pragma unroll
+  for (int kk = 0; kk < H / 16; ++kk) {
+    const uint64_t da =
+        smem_desc(x + (kk / 4) * (128 * kTile) + (kk % 4) * 32, 16, 1024);
+    const uint64_t db =
+        TB ? smem_desc(wb + kk * 2048, 128 * H, 1024)
+           : smem_desc(wb + (kk / 4) * (128 * H) + (kk % 4) * 32, 16, 1024);
+    wgmma_ss32<TB>(d, da, db, kk > 0);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait_for() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The product X W (TB = 1) or X W^T (TB = 0) in 32-column chunks, two at
+// a time: the second chunk's product runs on the tensor cores while the
+// first chunk's accumulators go to epi(d, n0).
+template <int H, int TB, typename Epi>
+__device__ __forceinline__ void chunks(uint32_t x, uint32_t w, Epi&& epi) {
+#pragma unroll 1
+  for (int n0 = 0; n0 < H; n0 += 2 * kChunk) {
+    float dA[16], dB[16];
+    issue_chunk<H, TB>(dA, x, w, n0);
+    issue_chunk<H, TB>(dB, x, w, n0 + kChunk);
+    wgmma_wait_for<1>();
+    fence_regs(dA);
+    epi(dA, n0);
+    wgmma_wait_for<0>();
+    fence_regs(dB);
+    epi(dB, n0 + kChunk);
+  }
+}
+
+// ---- shared memory
+
+struct Bump {
+  char* base;
+  size_t off;
+  __host__ __device__ char* take(size_t bytes, size_t align = 16) {
+    off = (off + align - 1) / align * align;
+    char* p = base ? base + off : nullptr;
+    off += bytes;
+    return p;
+  }
+};
+
+// The block's weights: W2, W3 swizzled; the vectors in bf16 (bf16x2
+// operands) and w1r, w4 also in f32 (the row dots); W1a, W1b in f32.
+struct Blk {
+  bf16 *W2, *W3, *b1, *b2, *b3, *w1r, *w4;
+  float *W1a, *W1b, *w1rf, *w4f;
+};
+
+// One warpgroup's molecule: activation tiles X0, X1 (and D2, the
+// backward's rnd(dsilu(z2))), bf16 [64, H] swizzled; the per-row
+// 3-vectors stored transposed [8, 64] swizzled (rows 3..7 zero); each
+// row's atoms for the node sums (-1 past the tile's last row); the
+// per-atom projections (rows padded to HP = H + 8); the node sums [N, C =
+// H + 4] f32 (columns H .. H+2 the 3-vector sums).
+struct Wg {
+  bf16 *X0, *X1, *D2, *vec, *hA, *hB, *dagg;
+  short *segi, *segj;
+  float *acci, *accj, *h, *pos, *mask, *box, *dfs;
+};
+
+__host__ __device__ inline void carve_blk(Bump& m, Blk& s, int nf, int H) {
+  const size_t WB = sizeof(bf16) * H * H;
+  s.W2 = (bf16*)m.take(WB, 1024);
+  s.W3 = (bf16*)m.take(WB, 1024);
+  s.b1 = (bf16*)m.take(sizeof(bf16) * H);
+  s.b2 = (bf16*)m.take(sizeof(bf16) * H);
+  s.b3 = (bf16*)m.take(sizeof(bf16) * H);
+  s.w1r = (bf16*)m.take(sizeof(bf16) * H);
+  s.w4 = (bf16*)m.take(sizeof(bf16) * H);
+  s.W1a = (float*)m.take(sizeof(float) * nf * H);
+  s.W1b = (float*)m.take(sizeof(float) * nf * H);
+  s.w1rf = (float*)m.take(sizeof(float) * H);
+  s.w4f = (float*)m.take(sizeof(float) * H);
+}
+
+__host__ __device__ inline void carve_wg(Bump& m, Wg& w, int N, int nf, int H,
+                                         bool bwd) {
+  const size_t T = sizeof(bf16) * kTile * H, HP = H + 8, C = H + 4;
+  w.X0 = (bf16*)m.take(T, 1024);
+  w.X1 = (bf16*)m.take(T, 1024);
+  w.D2 = bwd ? (bf16*)m.take(T, 1024) : nullptr;
+  w.vec = (bf16*)m.take(sizeof(bf16) * 8 * kTile, 1024);
+  w.hA = (bf16*)m.take(sizeof(bf16) * N * HP);
+  w.hB = (bf16*)m.take(sizeof(bf16) * N * HP);
+  w.dagg = bwd ? (bf16*)m.take(sizeof(bf16) * N * HP) : nullptr;
+  w.segi = (short*)m.take(sizeof(short) * kTile);
+  w.segj = (short*)m.take(sizeof(short) * kTile);
+  w.acci = (float*)m.take(sizeof(float) * N * C);
+  w.accj = bwd ? (float*)m.take(sizeof(float) * N * C) : nullptr;
+  w.h = (float*)m.take(sizeof(float) * N * nf);
+  w.pos = (float*)m.take(sizeof(float) * N * 3);
+  w.mask = (float*)m.take(sizeof(float) * N);
+  w.box = (float*)m.take(sizeof(float) * 4);
+  w.dfs = bwd ? (float*)m.take(sizeof(float) * N * 3) : nullptr;
+}
+
+// Bytes of dynamic shared memory of a block of nwg warpgroups (with 1024
+// bytes to align the base).
+size_t smem_bytes(int N, int nf, int H, bool bwd, int nwg) {
+  Bump m{nullptr, 0};
+  Blk s;
+  carve_blk(m, s, nf, H);
+  for (int k = 0; k < nwg; ++k) {
+    Wg w;
+    carve_wg(m, w, N, nf, H, bwd);
+  }
+  return m.off + 1024;
+}
+
+// The block's weights into shared memory (all threads) and the
+// warpgroup's tiles zeroed (every row of a node-sum operand must be
+// finite); then the fence that makes them visible to wgmma and a block
+// barrier.
+template <int H>
+__device__ void load_weights(const Args& a, const Blk& s, const Wg& w,
+                             int t, bool bwd) {
+  const int nf = a.nf;
+  for (int idx = threadIdx.x; idx < H * H / 8; idx += blockDim.x) {
+    const int k = idx / (H / 8), c = 8 * (idx % (H / 8));
+    const uint4 v2 = *reinterpret_cast<const uint4*>(a.W2 + k * H + c);
+    const uint4 v3 = *reinterpret_cast<const uint4*>(a.W3 + k * H + c);
+    *reinterpret_cast<uint4*>((char*)s.W2 + swz(k, c, H)) = v2;
+    *reinterpret_cast<uint4*>((char*)s.W3 + swz(k, c, H)) = v3;
+  }
+  for (int k = threadIdx.x; k < nf * H; k += blockDim.x) {
+    s.W1a[k] = __bfloat162float(a.W1a[k]);
+    s.W1b[k] = __bfloat162float(a.W1b[k]);
+  }
+  for (int k = threadIdx.x; k < H; k += blockDim.x) {
+    s.b1[k] = a.b1[k];
+    s.b2[k] = a.b2[k];
+    s.b3[k] = a.b3[k];
+    s.w1r[k] = a.w1r[k];
+    s.w4[k] = a.w4[k];
+    s.w1rf[k] = __bfloat162float(a.w1r[k]);
+    s.w4f[k] = __bfloat162float(a.w4[k]);
+  }
+  const int words = kTile * H / 2;
+  uint32_t* tiles[] = {(uint32_t*)w.X0, (uint32_t*)w.X1, (uint32_t*)w.D2};
+  for (int u = 0; u < (bwd ? 3 : 2); ++u)
+    for (int k = t; k < words; k += kWG) tiles[u][k] = 0u;
+  for (int k = t; k < 4 * kTile; k += kWG) ((uint32_t*)w.vec)[k] = 0u;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Molecule b's atoms into the warpgroup's arrays (thread t of 128): h,
+// pos, mask, box, the projections hA = h W1a, hB = h W1b rounded to bf16
+// (as the TPU kernel rounds its dots), zeroed node sums; for the backward
+// also dagg (bf16) and dfsum. Ends with the warpgroup's barrier.
+template <int H>
+__device__ void load_molecule(const Args& a, const Blk& s, const Wg& w,
+                              int b, int t, int wg, bool bwd) {
+  const int N = a.N, nf = a.nf, HP = H + 8, C = H + 4;
+  const size_t nb = (size_t)b * N;
+  // the small inputs in one pass (one load each, issued together)
+  const int nh = N * nf, np = nh + 3 * N, nm = np + N;
+  for (int k = t; k < nm + 3; k += kWG) {
+    if (k < nh)
+      w.h[k] = __bfloat162float(a.h[nb * nf + k]);
+    else if (k < np)
+      w.pos[k - nh] = a.pos[nb * 3 + k - nh];
+    else if (k < nm)
+      w.mask[k - np] = __bfloat162float(a.mask[nb + k - np]);
+    else
+      w.box[k - nm] = a.box[(size_t)b * 3 + k - nm];
+  }
+  for (int k = t; k < N * C; k += kWG) w.acci[k] = 0.f;
+  if (bwd) {
+    for (int k = t; k < N * C; k += kWG) w.accj[k] = 0.f;
+    for (int k = t; k < N * H / 8; k += kWG) {
+      const int i = k / (H / 8), c = 8 * (k % (H / 8));
+      *reinterpret_cast<uint4*>(w.dagg + i * HP + c) =
+          *reinterpret_cast<const uint4*>(a.dagg + (nb + i) * H + c);
+    }
+    for (int k = t; k < N * 3; k += kWG)
+      w.dfs[k] = __bfloat162float(a.dfsum[nb * 3 + k]);
+  }
+  wg_sync(wg);
+  for (int idx = t; idx < N * H; idx += kWG) {
+    const int i = idx / H, c = idx % H;
+    float pa = 0.f, pb = 0.f;
+    for (int k = 0; k < nf; ++k) {
+      pa = fmaf(w.h[i * nf + k], s.W1a[k * H + c], pa);
+      pb = fmaf(w.h[i * nf + k], s.W1b[k * H + c], pb);
+    }
+    w.hA[i * HP + c] = __float2bfloat16_rn(pa);
+    w.hB[i * HP + c] = __float2bfloat16_rn(pb);
+  }
+  wg_sync(wg);
+}
+
+// ---- one tile of edge rows
+
+// Edge row q of a molecule: q < E = N(N-1) is the pair (i, j), i = q /
+// (N-1), j the (q % (N-1))-th atom other than i; rows past E are padding
+// (valid 0, atoms 0).
+struct Row {
+  int i, j;
+  float cd[3], r2, valid;
+};
+
+__device__ __forceinline__ void row_of(Row& r, const Wg& w, int N, int q,
+                                       int E) {
+  if (q < E) {
+    const int i = q / (N - 1), jj = q - i * (N - 1), j = jj + (jj >= i);
+    r.i = i;
+    r.j = j;
+    float r2 = 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      float c = w.pos[i * 3 + d] - w.pos[j * 3 + d];
+      const float bx = w.box[d];
+      c = c - rintf(c / bx) * bx;     // round half to even, as jnp.round
+      r.cd[d] = c;
+      r2 += c * c;
+    }
+    r.r2 = r2;
+    r.valid = w.mask[i] * w.mask[j];
+  } else {
+    r.i = r.j = 0;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) r.cd[d] = 0.f;
+    r.r2 = r.valid = 0.f;
+  }
+}
+
+// A thread's place in the accumulator layout of a 64-row product: warp w's
+// lane l holds rows r0 = 16w + l / 4 and r0 + 8, columns 8j + 2 (l % 4)
+// and the next; value pair p is row p & 1, 8-column block p / 2.
+struct Lane {
+  int q, r0;
+  bool live;       // the warp has a row of the molecule (else it skips the
+                   // elementwise work and stores zeros)
+  Row rw[2];
+  bf2 valid2[2];
+};
+
+__device__ __forceinline__ void lane_of(Lane& L, const Wg& w, int N, int E,
+                                        int row0, int t) {
+  const int warp = t >> 5, lane = t & 31;
+  L.q = lane & 3;
+  L.r0 = 16 * warp + (lane >> 2);
+  L.live = row0 + 16 * warp < E;
+  row_of(L.rw[0], w, N, row0 + L.r0, E);
+  row_of(L.rw[1], w, N, row0 + L.r0 + 8, E);
+  L.valid2[0] = bcast(L.rw[0].valid);
+  L.valid2[1] = bcast(L.rw[1].valid);
+}
+
+// z1 = hA_i + hB_j + b1 + r2 w1r at columns c, c+1 of a row, rounded where
+// _fwd_block rounds (bf16x2: one rounding per operation).
+template <int H>
+__device__ __forceinline__ bf2 z1_pair(const Blk& s, const Wg& w,
+                                       const Row& r, int c) {
+  const int HP = H + 8;
+  const bf2 ha = *reinterpret_cast<const bf2*>(w.hA + r.i * HP + c);
+  const bf2 hb = *reinterpret_cast<const bf2*>(w.hB + r.j * HP + c);
+  const bf2 b1 = *reinterpret_cast<const bf2*>(s.b1 + c);
+  const bf2 wr = *reinterpret_cast<const bf2*>(s.w1r + c);
+  const bf2 z = add2(add2(ha, hb), b1);
+  return add2(z, mul2(bcast(r.r2), wr));
+}
+
+__device__ __forceinline__ bf2 vec_at(const bf16* v, int c) {
+  return *reinterpret_cast<const bf2*>(v + c);
+}
+
+// Zeros into the thread's places of X, columns n0 .. n1-1 (a warp past
+// the molecule's rows: every row of a node-sum operand must be finite).
+template <int H>
+__device__ __forceinline__ void zero_rows(bf16* X, const Lane& L, int n0,
+                                          int n1) {
+  for (int c = n0 + 2 * L.q; c < n1; c += 8) {
+    *tile_at(X, L.r0, c) = bcast(0.f);
+    *tile_at(X, L.r0 + 8, c) = bcast(0.f);
+  }
+}
+
+// m1 = silu(z1) for the thread's rows into X (all H columns).
+template <int H>
+__device__ void first_layer(const Blk& s, const Wg& w, const Lane& L,
+                            bf16* X) {
+  if (L.live) {
+#pragma unroll 8
+    for (int p = 0; p < H / 4; ++p) {
+      const int r = L.r0 + 8 * (p & 1), c = 8 * (p >> 1) + 2 * L.q;
+      *tile_at(X, r, c) = silu2(z1_pair<H>(s, w, L.rw[p & 1], c));
+    }
+  } else {
+    zero_rows<H>(X, L, 0, H);
+  }
+}
+
+// The chunk's accumulator pair p as bf16 (the rounding of a product).
+__device__ __forceinline__ bf2 acc2(const float (&d)[16], int p) {
+  return to_bf2(d[2 * p], d[2 * p + 1]);
+}
+
+// ---- node sums
+
+// The A fragments of the 0/1 matrix S [64 atoms, 64 rows], S[s][r] = 1
+// where seg[r] == base + s.
+__device__ __forceinline__ void seg_frags(uint32_t (&af)[4][4],
+                                          const short* seg, int base,
+                                          const Lane& L) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int s = base + L.r0 + 8 * (u & 1);
+      const int r = 16 * kk + 2 * L.q + 8 * (u >> 1);
+      const short2 g = *reinterpret_cast<const short2*>(seg + r);
+      af[kk][u] = (g.x == s ? 0x3F80u : 0u) | (g.y == s ? 0x3F800000u : 0u);
+    }
+}
+
+// acc[base + s] += (S T)[s] for the thread's rows s < ns of S: T the tile
+// of bf16 rows (64-column chunks, MN-major) and the transposed 3-vectors.
+template <int H>
+__device__ void seg_sum(const Wg& w, const bf16* T, float* acc,
+                        const short* seg, int base, int ns, const Lane& L) {
+  const int C = H + 4;
+  uint32_t af[4][4];
+  seg_frags(af, seg, base, L);
+  float v[4];
+  fence_regs(v);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs8(v, af[kk], smem_desc(smem_addr(w.vec) + 32 * kk, 16, 1024),
+              kk > 0);
+  wgmma_wait();
+  fence_regs(v);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int s = L.r0 + 8 * k;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (s < ns && 2 * L.q + e < 3)
+        acc[(base + s) * C + H + 2 * L.q + e] += v[2 * k + e];
+  }
+#pragma unroll 1
+  for (int n0 = 0; n0 < H; n0 += 64) {
+    float d[32];
+    fence_regs(d);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs64(d, af[kk],
+                 smem_desc(smem_addr(T) + (n0 / 64) * (128 * kTile) +
+                               2048 * kk, 128 * kTile, 1024),
+                 kk > 0);
+    wgmma_wait();
+    fence_regs(d);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int s = L.r0 + 8 * k;
+      if (s >= ns) continue;
+      float* dst = acc + (base + s) * C + n0 + 2 * L.q;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float2* o = reinterpret_cast<float2*>(dst + 8 * j);
+        const float2 old = *o;
+        *o = make_float2(old.x + d[4 * j + 2 * k],
+                         old.y + d[4 * j + 2 * k + 1]);
+      }
+    }
+  }
+}
+
+// The quad leader's rows: their 3-vectors (bf16 values) into the
+// transposed tile, and their atoms for the node sums (row r < nr, a row of
+// the molecule, sums into atom segi on the i side and segj on the j
+// side; -1 sums nowhere).
+__device__ __forceinline__ void store_rows(const Wg& w, const Lane& L,
+                                           const float (&v)[2][3], int nr) {
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int r = L.r0 + 8 * k;
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+      w.vec[(128 * d + 16 * ((r / 8) ^ d) + 2 * (r % 8)) / 2] =
+          __float2bfloat16_rn(v[k][d]);
+    w.segi[r] = r < nr ? L.rw[k].i : -1;
+    w.segj[r] = r < nr ? L.rw[k].j : -1;
+  }
+}
+
+// The tile's node sums once T (its bf16 rows), the 3-vectors and the
+// segments are stored: the i side (the tile's rows hold atoms i0 .. i0 +
+// ns - 1) and, for the backward, the j side (every atom, 64 at a time).
+template <int H, bool BWD>
+__device__ void node_sums(const Wg& w, const bf16* T, int N, int row0,
+                          int nr, const Lane& L, int wg) {
+  wg_publish(wg);
+  const int i0 = row0 / (N - 1);
+  seg_sum<H>(w, T, w.acci, w.segi, i0, (row0 + nr - 1) / (N - 1) - i0 + 1,
+             L);
+  if constexpr (BWD)
+    for (int jb = 0; jb < N; jb += kTile)
+      seg_sum<H>(w, T, w.accj, w.segj, jb, min(kTile, N - jb), L);
+  wg_sync(wg);
+}
+
+// Tiles of a molecule's E edge rows.
+__device__ __forceinline__ int tiles_of(int E) {
+  return (E + kTile - 1) / kTile;
+}
+
+template <int H>
+__device__ void fwd_tile(const Blk& s, const Wg& w, int N, int E, int row0,
+                         int t, int wg) {
+  const int nr = min(kTile, E - row0);
+  Lane L;
+  lane_of(L, w, N, E, row0, t);
+  const uint32_t W2 = smem_addr(s.W2), W3 = smem_addr(s.W3);
+  const uint32_t X0 = smem_addr(w.X0), X1 = smem_addr(w.X1);
+
+  first_layer<H>(s, w, L, w.X0);                // m1
+  wg_publish(wg);
+  // m2 = silu(z2) * valid
+  chunks<H, 1>(X0, W2, [&](const float (&d)[16], int n0) {
+    if (L.live) {
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        const int r = L.r0 + 8 * (p & 1), c = n0 + 8 * (p >> 1) + 2 * L.q;
+        const bf2 z = add2(acc2(d, p), vec_at(s.b2, c));
+        *tile_at(w.X1, r, c) = mul2(silu2(z), L.valid2[p & 1]);
+      }
+    } else {
+      zero_rows<H>(w.X1, L, n0, n0 + kChunk);
+    }
+  });
+  wg_publish(wg);
+  float gate[2] = {0.f, 0.f};                   // silu(z3) . w4
+  chunks<H, 1>(X1, W3, [&](const float (&d)[16], int n0) {
+    if (L.live) {
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        const int c = n0 + 8 * (p >> 1) + 2 * L.q;
+        const bf2 z = add2(acc2(d, p), vec_at(s.b3, c));
+        gate[p & 1] = dot2(silu2(z), load_f2(s.w4f + c), gate[p & 1]);
+      }
+    }
+  });
+  gate[0] = quad_sum(gate[0]);
+  gate[1] = quad_sum(gate[1]);
+  if (L.q == 0) {
+    float tr[2][3];
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        tr[k][d] = rnd1(fminf(fmaxf(L.rw[k].cd[d] * gate[k], -100.f), 100.f) *
+                        L.rw[k].valid);
+    store_rows(w, L, tr, nr);
+  }
+  node_sums<H, false>(w, w.X1, N, row0, nr, L, wg);
+}
+
+template <int H>
+__device__ void bwd_tile(const Blk& s, const Wg& w, int N, int E, int row0,
+                         int t, int wg) {
+  const int HP = H + 8;
+  const int nr = min(kTile, E - row0);
+  Lane L;
+  lane_of(L, w, N, E, row0, t);
+  const uint32_t W2 = smem_addr(s.W2), W3 = smem_addr(s.W3);
+  const uint32_t X0 = smem_addr(w.X0), X1 = smem_addr(w.X1);
+
+  // -- the forward, recomputed: m1 -> X0; m2 -> X1 and dsilu(z2) -> D2;
+  // dsilu(z3) -> X0 (each SiLU derivative from the SiLU's sigmoid)
+  first_layer<H>(s, w, L, w.X0);
+  wg_publish(wg);
+  chunks<H, 1>(X0, W2, [&](const float (&d)[16], int n0) {
+    if (L.live) {
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        const int r = L.r0 + 8 * (p & 1), c = n0 + 8 * (p >> 1) + 2 * L.q;
+        const bf2 z = add2(acc2(d, p), vec_at(s.b2, c));
+        bf2 m, ds;
+        silu_dsilu2(z, m, ds);
+        *tile_at(w.D2, r, c) = ds;
+        *tile_at(w.X1, r, c) = mul2(m, L.valid2[p & 1]);
+      }
+    } else {
+      zero_rows<H>(w.X1, L, n0, n0 + kChunk);
+    }
+  });
+  wg_publish(wg);
+  float gate[2] = {0.f, 0.f};
+  chunks<H, 1>(X1, W3, [&](const float (&d)[16], int n0) {
+    if (L.live) {
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        const int r = L.r0 + 8 * (p & 1), c = n0 + 8 * (p >> 1) + 2 * L.q;
+        const bf2 z = add2(acc2(d, p), vec_at(s.b3, c));
+        bf2 g, ds;
+        silu_dsilu2(z, g, ds);
+        *tile_at(w.X0, r, c) = ds;
+        gate[p & 1] = dot2(g, load_f2(s.w4f + c), gate[p & 1]);
+      }
+    }
+  });
+  // -- the geometry-side cotangents per row (f32)
+  float dcd[2][3], dgr[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    gate[k] = quad_sum(gate[k]);
+    const Row& r = L.rw[k];
+    float dgate = 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float raw = r.cd[d] * gate[k];
+      const float inside = (raw >= -100.f && raw <= 100.f) ? 1.f : 0.f;
+      const float dt = w.dfs[r.i * 3 + d] * inside * r.valid;
+      dgate = fmaf(r.cd[d], dt, dgate);
+      dcd[k][d] = gate[k] * dt;
+    }
+    dgr[k] = dgate;
+  }
+  const bf2 dg2[2] = {bcast(dgr[0]), bcast(dgr[1])};
+  wg_sync(wg);                                  // X1 (m2) read by all
+
+  // -- the hidden-wide chain backwards: dz3 -> X1, dz2 -> X0, dz1 -> X1
+  if (L.live) {
+#pragma unroll 8
+    for (int p = 0; p < H / 4; ++p) {
+      const int r = L.r0 + 8 * (p & 1), c = 8 * (p >> 1) + 2 * L.q;
+      const bf2 dg1 = mul2(dg2[p & 1], vec_at(s.w4, c));
+      *tile_at(w.X1, r, c) = mul2(dg1, *tile_at(w.X0, r, c));
+    }
+  } else {
+    zero_rows<H>(w.X1, L, 0, H);
+  }
+  wg_publish(wg);
+  chunks<H, 0>(X1, W3, [&](const float (&d)[16], int n0) {  // dz3 W3^T -> dz2
+    if (L.live) {
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        const int r = L.r0 + 8 * (p & 1), c = n0 + 8 * (p >> 1) + 2 * L.q;
+        const Row& rw = L.rw[p & 1];
+        const bf2 da = *reinterpret_cast<const bf2*>(w.dagg + rw.i * HP + c);
+        const bf2 dm = mul2(add2(acc2(d, p), da), L.valid2[p & 1]);
+        *tile_at(w.X0, r, c) = mul2(dm, *tile_at(w.D2, r, c));
+      }
+    } else {
+      zero_rows<H>(w.X0, L, n0, n0 + kChunk);
+    }
+  });
+  wg_publish(wg);
+  float dr2[2] = {0.f, 0.f};
+  chunks<H, 0>(X0, W2, [&](const float (&d)[16], int n0) {  // dz2 W2^T -> dz1
+    if (L.live) {
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        const int r = L.r0 + 8 * (p & 1), c = n0 + 8 * (p >> 1) + 2 * L.q;
+        const bf2 ds = dsilu2(z1_pair<H>(s, w, L.rw[p & 1], c));
+        const bf2 m = mul2(acc2(d, p), ds);
+        *tile_at(w.X1, r, c) = m;
+        dr2[p & 1] = dot2(m, load_f2(s.w1rf + c), dr2[p & 1]);
+      }
+    } else {
+      zero_rows<H>(w.X1, L, n0, n0 + kChunk);
+    }
+  });
+  dr2[0] = quad_sum(dr2[0]);
+  dr2[1] = quad_sum(dr2[1]);
+  if (L.q == 0) {
+    float v[2][3];
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        v[k][d] = rnd1(dcd[k][d] + 2.f * L.rw[k].cd[d] * dr2[k]);
+    store_rows(w, L, v, nr);
+  }
+  node_sums<H, true>(w, w.X1, N, row0, nr, L, wg);
+}
+
+// ---- the kernels: persistent blocks, one molecule per warpgroup at a time
+
+template <int H>
+__global__ void __launch_bounds__(kMaxWGFwd * kWG, 1)
+    egcl_sm90_fwd_kernel(Args a) {
+  extern __shared__ char smem_raw[];
+  const int nwg = blockDim.x / kWG, wg = threadIdx.x / kWG,
+            t = threadIdx.x % kWG;
+  Bump m{(char*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023), 0};
+  Blk s;
+  carve_blk(m, s, a.nf, H);
+  Wg w;
+  for (int k = 0; k <= wg; ++k) carve_wg(m, w, a.N, a.nf, H, false);
+  load_weights<H>(a, s, w, t, false);
+  const int N = a.N, C = H + 4, E = N * (N - 1);
+  for (int b = blockIdx.x * nwg + wg; b < a.B; b += gridDim.x * nwg) {
+    load_molecule<H>(a, s, w, b, t, wg, false);
+    for (int k = 0; k < tiles_of(E); ++k)
+      fwd_tile<H>(s, w, N, E, k * kTile, t, wg);
+    const size_t nb = (size_t)b * N;
+    for (int idx = t; idx < N * H; idx += kWG)
+      a.agg[nb * H + idx] =
+          __float2bfloat16_rn(w.acci[(idx / H) * C + idx % H]);
+    for (int idx = t; idx < N * 3; idx += kWG)
+      a.fsum[nb * 3 + idx] =
+          __float2bfloat16_rn(w.acci[(idx / 3) * C + H + idx % 3]);
+    wg_sync(wg);
+  }
+}
+
+template <int H>
+__global__ void __launch_bounds__(kMaxWGBwd * kWG, 1)
+    egcl_sm90_bwd_kernel(Args a) {
+  extern __shared__ char smem_raw[];
+  const int nwg = blockDim.x / kWG, wg = threadIdx.x / kWG,
+            t = threadIdx.x % kWG;
+  Bump m{(char*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023), 0};
+  Blk s;
+  carve_blk(m, s, a.nf, H);
+  Wg w;
+  for (int k = 0; k <= wg; ++k) carve_wg(m, w, a.N, a.nf, H, true);
+  load_weights<H>(a, s, w, t, true);
+  const int N = a.N, nf = a.nf, C = H + 4, E = N * (N - 1);
+  for (int b = blockIdx.x * nwg + wg; b < a.B; b += gridDim.x * nwg) {
+    load_molecule<H>(a, s, w, b, t, wg, true);
+    for (int k = 0; k < tiles_of(E); ++k)
+      bwd_tile<H>(s, w, N, E, k * kTile, t, wg);
+    // dh = rnd(dz1_i) W1a^T + rnd(dz1_j) W1b^T: one thread per (i, k),
+    // four partial sums over the columns in a fixed order
+    const size_t nb = (size_t)b * N;
+    for (int item = t; item < N * nf; item += kWG) {
+      const int i = item / nf, k = item % nf;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int c = 0; c < H; c += 4)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int cu = c + u;
+          acc[u] = fmaf(rnd1(w.acci[i * C + cu]), s.W1a[k * H + cu], acc[u]);
+          acc[u] = fmaf(rnd1(w.accj[i * C + cu]), s.W1b[k * H + cu], acc[u]);
+        }
+      a.dh[nb * nf + item] =
+          __float2bfloat16_rn((acc[0] + acc[1]) + (acc[2] + acc[3]));
+    }
+    for (int idx = t; idx < N * 3; idx += kWG) {
+      const int i = idx / 3, d = idx % 3;
+      a.dpos[nb * 3 + idx] = w.acci[i * C + H + d] - w.accj[i * C + H + d];
+    }
+    wg_sync(wg);
+  }
+}
+
+bool takes(int N, int nf, int H) {
+  return N >= 1 && nf >= 1 && (H == 64 || H == 128);
+}
+
+// The most warpgroups whose block fits, or 0.
+int warpgroups(int N, int nf, int H, bool bwd) {
+  for (int nwg = bwd ? kMaxWGBwd : kMaxWGFwd; nwg >= 1; --nwg)
+    if (smem_bytes(N, nf, H, bwd, nwg) <= kMaxSmem) return nwg;
+  return 0;
+}
+
+template <int H>
+int launch_h(const Args& a, bool bwd, int blocks, cudaStream_t stream) {
+  const int nwg = warpgroups(a.N, a.nf, H, bwd);
+  if (nwg == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(a.N, a.nf, H, bwd, nwg);
+  void (*kernel)(Args) =
+      bwd ? egcl_sm90_bwd_kernel<H> : egcl_sm90_fwd_kernel<H>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = min(blocks, (a.B + nwg - 1) / nwg);
+  kernel<<<grid, nwg * kWG, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int launch(const Args& a, bool bwd, int blocks, void* stream) {
+  if (a.B < 1 || blocks < 1 || !takes(a.N, a.nf, a.H))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return a.H == 128 ? launch_h<128>(a, bwd, blocks, st)
+                    : launch_h<64>(a, bwd, blocks, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory of a block with one warpgroup (the least a launch
+// needs) for these sizes, or -1 for sizes the kernels do not take (H other
+// than 64 or 128). kind: 0 the forward, 1 the input-gradient backward. A
+// launch needs at most egcl_sm90_smem_limit() bytes.
+long long egcl_sm90_smem_bytes(int N, int nf, int H, int kind) {
+  if ((kind != 0 && kind != 1) || !takes(N, nf, H)) return -1;
+  return (long long)smem_bytes(N, nf, H, kind == 1, 1);
+}
+
+long long egcl_sm90_smem_limit() { return (long long)kMaxSmem; }
+
+// The forward (agg, fsum) and the input-gradient backward (dh; dpos in
+// float32) for bf16 h, mask and weights; pos and box are float32. blocks:
+// the grid's largest size (one block per SM). Returns the cudaError_t of
+// the launch (0 on success).
+int egcl_sm90_fwd(int B, int N, int nf, int H, int blocks, const void* h,
+                  const void* pos, const void* box, const void* mask,
+                  const void* W1a, const void* W1b, const void* w1r,
+                  const void* b1, const void* W2, const void* b2,
+                  const void* W3, const void* b3, const void* w4, void* agg,
+                  void* fsum, void* stream) {
+  using cb = const bf16*;
+  Args a{B, N, nf, H, (cb)h, (const float*)pos, (const float*)box, (cb)mask,
+         (cb)W1a, (cb)W1b, (cb)w1r, (cb)b1, (cb)W2, (cb)b2, (cb)W3, (cb)b3,
+         (cb)w4, nullptr, nullptr, (bf16*)agg, (bf16*)fsum, nullptr,
+         nullptr};
+  return launch(a, false, blocks, stream);
+}
+
+int egcl_sm90_bwd(int B, int N, int nf, int H, int blocks, const void* h,
+                  const void* pos, const void* box, const void* mask,
+                  const void* W1a, const void* W1b, const void* w1r,
+                  const void* b1, const void* W2, const void* b2,
+                  const void* W3, const void* b3, const void* w4,
+                  const void* dagg, const void* dfsum, void* dh, void* dpos,
+                  void* stream) {
+  using cb = const bf16*;
+  Args a{B, N, nf, H, (cb)h, (const float*)pos, (const float*)box, (cb)mask,
+         (cb)W1a, (cb)W1b, (cb)w1r, (cb)b1, (cb)W2, (cb)b2, (cb)W3, (cb)b3,
+         (cb)w4, (cb)dagg, (cb)dfsum, nullptr, nullptr, (bf16*)dh,
+         (float*)dpos};
+  return launch(a, true, blocks, stream);
+}
+
+const char* egcl_sm90_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

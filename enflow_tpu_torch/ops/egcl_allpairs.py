@@ -8,13 +8,19 @@ compute dtype, ``pos [B,N,3]``, ``box [B,3]``, ``atom_mask [B,N]`` ->
 ``edge_messages`` + masked neighbor sums in ``all_pairs`` mode with
 attention/norm_diff/tanh off.
 
-- On a CUDA tensor the forward launches the hand-written kernel
-  ``csrc/egcl_allpairs.cu``. The backward recomputes the forward from the
-  inputs (the only residuals the autograd Function saves) in one of two
-  kernel variants: input gradients only (``dh``, ``dpos``) when no weight
-  needs a gradient, as in sampling, or with the nine parameter gradients
-  of ``_bwd_kernel:265-273`` as well, as in training. There is no
-  fallback: a kernel that does not build or launch raises.
+- On a CUDA tensor the forward launches a hand-written kernel. The
+  backward recomputes the forward from the inputs (the only residuals the
+  autograd Function saves) in one of two kernel variants: input gradients
+  only (``dh``, ``dpos``) when no weight needs a gradient, as in sampling,
+  or with the nine parameter gradients of ``_bwd_kernel:265-273`` as well,
+  as in training. In bf16 at H = 64 or 128 the forward and the
+  input-gradient backward are the Hopper kernels of
+  ``csrc/egcl_allpairs_sm90.cu`` (wgmma, persistent warpgroups); float32,
+  the parameter-gradient backward, and — by an explicit size rule with
+  its own launch counters (``fwd_h_rule_launches``,
+  ``bwd_h_rule_launches``) — bf16 at any other hidden width run the
+  chunked kernels of ``csrc/egcl_allpairs.cu``. There is no fallback: a
+  kernel that does not build or launch raises.
 - On a CPU tensor both directions run the plain PyTorch version below,
   which repeats the kernel's arithmetic (including where it rounds to the
   compute dtype) and is what the CPU tests hold against the Pallas kernel.
@@ -35,11 +41,19 @@ from .build import LaunchCounts, multiprocessors
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# fwd_launches / bwd_launches: K1 and the input-gradient K2 (the Hopper
+# kernels in bf16, the chunked kernels in float32); *_h_rule_launches: bf16
+# at a hidden width the Hopper kernels do not take, sent to the chunked ones
 counts = LaunchCounts("fwd_launches", "bwd_launches", "bwd_param_launches",
+                      "fwd_h_rule_launches", "bwd_h_rule_launches",
                       "plain_fwd_calls", "plain_bwd_calls",
                       "plain_bwd_param_calls")
-# the launch kinds of egcl_allpairs_smem_bytes
+# the launch kinds of egcl_allpairs_smem_bytes (and egcl_sm90_smem_bytes:
+# 0 and 1)
 _KIND = {"fwd": 0, "bwd": 1, "bwd_params": 2}
+# the hidden widths of the Hopper kernels (bf16 forward and input-gradient
+# backward)
+SM90_H = (64, 128)
 
 
 def split_params(W1, b1, nf: int):
@@ -52,18 +66,27 @@ def split_params(W1, b1, nf: int):
 # plain PyTorch version of the kernel contract
 # ---------------------------------------------------------------------------
 
+def _acc(dtype):
+    """The accumulation dtype: float32 for the kernels' compute dtypes
+    (float32, bfloat16), float64 for float64 (the tile-schedule test's
+    exact reference)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def _dot(a, b, out_dtype):
-    """Product with f32 accumulation, rounded to ``out_dtype``."""
-    return (a.float() @ b.float()).to(out_dtype)
+    """Product with f32 accumulation (f64 for f64), rounded to
+    ``out_dtype``."""
+    acc = _acc(a.dtype)
+    return (a.to(acc) @ b.to(acc)).to(out_dtype)
 
 
 def _silu(x):
-    xf = x.float()
+    xf = x.to(_acc(x.dtype))
     return (xf * torch.sigmoid(xf)).to(x.dtype)
 
 
 def _dsilu(x):
-    xf = x.float()
+    xf = x.to(_acc(x.dtype))
     s = torch.sigmoid(xf)
     return (s * (1.0 + xf * (1.0 - s))).to(x.dtype)
 
@@ -71,14 +94,14 @@ def _dsilu(x):
 def _block(h, pos, box, mask_f, weights):
     """Forward evaluation over all ``[B, N, N]`` edges (``_fwd_block``)."""
     W1a, W1b, w1r, b1, W2, b2, W3, b3, w4 = weights
-    cdt = h.dtype
+    cdt, acc = h.dtype, _acc(h.dtype)
     N = h.shape[1]
     cd = pos[:, :, None, :] - pos[:, None, :, :]
     bx = box[:, None, None, :]
     cd = cd - torch.round(cd / bx) * bx                       # f32
     r2 = (cd * cd).sum(-1, keepdim=True)                      # [B,N,N,1] f32
-    mf = mask_f.float()
-    not_self = 1.0 - torch.eye(N, dtype=torch.float32, device=h.device)
+    mf = mask_f.to(acc)
+    not_self = 1.0 - torch.eye(N, dtype=acc, device=h.device)
     valid = (mf[:, :, None] * mf[:, None, :] * not_self)[..., None]
     validc = valid.to(cdt)
     zi = _dot(h, W1a, cdt)[:, :, None, :]
@@ -89,18 +112,18 @@ def _block(h, pos, box, mask_f, weights):
     m2 = _silu(z2) * validc
     z3 = _dot(m2, W3, cdt) + b3
     g1 = _silu(z3)
-    gate = _dot(g1, w4, torch.float32)                        # [B,N,N,1]
+    gate = _dot(g1, w4, acc)                                  # [B,N,N,1]
     return cd, r2, valid, validc, z1, z2, m2, z3, gate
 
 
 def allpairs_edges_plain(h, pos, box, mask_f, weights):
     """Plain forward: ``(agg [B,N,H], f_sum [B,N,3])`` in the compute dtype."""
-    cdt = h.dtype
+    cdt, acc = h.dtype, _acc(h.dtype)
     cd, _, valid, _, _, _, m2, _, gate = _block(h, pos, box, mask_f,
                                                 weights)
     trans = torch.clamp(cd * gate, -100.0, 100.0) * valid
-    agg = m2.float().sum(2).to(cdt)
-    fsum = trans.to(cdt).float().sum(2).to(cdt)
+    agg = m2.to(acc).sum(2).to(cdt)
+    fsum = trans.to(cdt).to(acc).sum(2).to(cdt)
     return agg, fsum
 
 
@@ -112,13 +135,13 @@ def allpairs_edges_plain_bwd(h, pos, box, mask_f, weights, dagg, dfsum,
     compute-dtype operands (``_bwd_kernel:265-273``: dw1r takes the
     unrounded r2, dw4 the unrounded dgate)."""
     W1a, W1b, w1r, b1, W2, b2, W3, b3, w4 = weights
-    cdt, f32 = h.dtype, torch.float32
+    cdt, acc = h.dtype, _acc(h.dtype)
     cd, r2, valid, validc, z1, z2, m2, z3, gate = _block(h, pos, box, mask_f,
                                                          weights)
     d_m2_agg = dagg.to(cdt)[:, :, None, :]
-    d_trans = dfsum.to(cdt).float()[:, :, None, :]
+    d_trans = dfsum.to(cdt).to(acc)[:, :, None, :]
     trans_raw = cd * gate
-    inside = ((trans_raw >= -100.0) & (trans_raw <= 100.0)).float()
+    inside = ((trans_raw >= -100.0) & (trans_raw <= 100.0)).to(acc)
     d_trans = d_trans * inside * valid
     d_gate = (cd * d_trans).sum(-1, keepdim=True)             # f32
     d_cd = gate * d_trans
@@ -127,24 +150,24 @@ def allpairs_edges_plain_bwd(h, pos, box, mask_f, weights, dagg, dfsum,
     d_m2 = (_dot(dz3, W3.T, cdt) + d_m2_agg) * validc
     dz2 = d_m2 * _dsilu(z2)
     dz1 = _dot(dz2, W2.T, cdt) * _dsilu(z1)
-    d_r2 = (dz1.float() * w1r.float()).sum(-1, keepdim=True)
+    d_r2 = (dz1.to(acc) * w1r.to(acc)).sum(-1, keepdim=True)
     d_cd = d_cd + 2.0 * cd * d_r2
-    dz1_i = dz1.float().sum(2)                                # over j
-    dz1_j = dz1.float().sum(1)                                # over i
-    dh = (_dot(dz1_i.to(cdt), W1a.T, f32)
-          + _dot(dz1_j.to(cdt), W1b.T, f32)).to(cdt)
-    d_cd_c = d_cd.to(cdt).float()
+    dz1_i = dz1.to(acc).sum(2)                                # over j
+    dz1_j = dz1.to(acc).sum(1)                                # over i
+    dh = (_dot(dz1_i.to(cdt), W1a.T, acc)
+          + _dot(dz1_j.to(cdt), W1b.T, acc)).to(cdt)
+    d_cd_c = d_cd.to(cdt).to(acc)
     dpos = d_cd_c.sum(2) - d_cd_c.sum(1)
     if not params:
         return dh, dpos
     B, N, nf = h.shape
-    flat = lambda t: t.reshape(-1, t.shape[-1]).float()
+    flat = lambda t: t.reshape(-1, t.shape[-1]).to(acc)
     col = lambda t: flat(t).sum(0)[None]
     h_i = h[:, :, None, :].expand(B, N, N, nf)
     h_j = h[:, None, :, :].expand(B, N, N, nf)
     return (dh, dpos,
             flat(h_i).T @ flat(dz1), flat(h_j).T @ flat(dz1),
-            col(r2 * dz1.float()), col(dz1),
+            col(r2 * dz1.to(acc)), col(dz1),
             flat(_silu(z1)).T @ flat(dz2), col(dz2),
             flat(m2).T @ flat(dz3), col(dz3),
             flat(_silu(z3)).T @ flat(d_gate))
@@ -157,6 +180,26 @@ def allpairs_edges_plain_bwd(h, pos, box, mask_f, weights, dagg, dfsum,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+
+
+def _sm90_library():
+    from .build import load
+    lib = load("egcl_allpairs_sm90")
+    if not getattr(lib, "_enflow_bound", False):
+        n_in = 13
+        # B, N, nf, H, blocks, inputs, outputs, stream
+        lib.egcl_sm90_fwd.argtypes = [_I] * 5 + [_P] * (n_in + 3)
+        lib.egcl_sm90_fwd.restype = _I
+        lib.egcl_sm90_bwd.argtypes = [_I] * 5 + [_P] * (n_in + 5)
+        lib.egcl_sm90_bwd.restype = _I
+        lib.egcl_sm90_smem_bytes.argtypes = [_I] * 4
+        lib.egcl_sm90_smem_bytes.restype = _LL
+        lib.egcl_sm90_smem_limit.argtypes = []
+        lib.egcl_sm90_smem_limit.restype = _LL
+        lib.egcl_sm90_error_string.argtypes = [_I]
+        lib.egcl_sm90_error_string.restype = ctypes.c_char_p
+        lib._enflow_bound = True
+    return lib
 
 
 def _library():
@@ -198,32 +241,51 @@ def _check_inputs(h, pos, box, mask_f, weights):
                              f"{cdt} on {dev}")
 
 
-def largest_molecule(lib, code: int, nf: int, H: int, direction: str):
+def uses_sm90(code: int, H: int, direction: str) -> bool:
+    """Whether a launch goes to the Hopper kernels (bf16 forward or
+    input-gradient backward at H in ``SM90_H``) rather than the chunked
+    kernels of ``egcl_allpairs.cu``."""
+    return code == 1 and H in SM90_H and direction != "bwd_params"
+
+
+def _smem(code: int, N: int, nf: int, H: int, direction: str):
+    """(bytes a launch of this kind needs, at most, or -1 for sizes its
+    kernel does not take; the card's limit)."""
+    if uses_sm90(code, H, direction):
+        lib = _sm90_library()
+        return (lib.egcl_sm90_smem_bytes(N, nf, H, _KIND[direction]),
+                lib.egcl_sm90_smem_limit())
+    lib = _library()
+    return (lib.egcl_allpairs_smem_bytes(code, N, nf, H, _KIND[direction]),
+            lib.egcl_allpairs_smem_limit())
+
+
+def largest_molecule(code: int, nf: int, H: int, direction: str):
     """The largest N whose block fits in the card's shared memory for one
     launch kind (``"fwd"``, ``"bwd"``, ``"bwd_params"``); 0 for sizes the
     kernel does not take."""
-    limit, n = lib.egcl_allpairs_smem_limit(), 0
-    while 0 <= lib.egcl_allpairs_smem_bytes(code, n + 1, nf, H,
-                                            _KIND[direction]) <= limit:
+    n = 0
+    while True:
+        need, limit = _smem(code, n + 1, nf, H, direction)
+        if not 0 <= need <= limit:
+            return n
         n += 1
-    return n
 
 
-def _check_fits(lib, code: int, dims, direction: str):
-    """Raise unless one molecule's block (the weights, one chunk of edge
-    rows and the per-atom arrays) fits in the card's shared memory."""
+def _check_fits(code: int, dims, direction: str):
+    """Raise unless one molecule's block (the weights and the per-atom
+    arrays) fits in the card's shared memory."""
     B, N, nf, H = dims
-    need = lib.egcl_allpairs_smem_bytes(code, N, nf, H, _KIND[direction])
+    need, limit = _smem(code, N, nf, H, direction)
     if need < 0:
         raise ValueError(f"egcl_allpairs takes H % 16 == 0 in bfloat16 and "
                          f"H % 4 == 0 in float32, got B, N, nf, H = {dims}")
-    limit = lib.egcl_allpairs_smem_limit()
     if need > limit:
         raise ValueError(
             f"egcl_allpairs {direction}: a molecule of N={N} atoms at nf={nf},"
             f" H={H} needs {need} bytes of shared memory, more than the "
             f"{limit} a block may use (this variant takes N <= "
-            f"{largest_molecule(lib, code, nf, H, direction)}); molecules "
+            f"{largest_molecule(code, nf, H, direction)}); molecules "
             f"this large are not ported yet (ROADMAP queue B, large N)")
 
 
@@ -239,36 +301,48 @@ def _split_part(tot, nf: int, H: int):
             db3.view(1, H), dw4.view(H, 1))
 
 
-def _raise_on(lib, err: int, what: str, dims):
+def _raise_on(lib, err: int, what: str, dims, sm90=False):
     if err != 0:
-        msg = lib.egcl_allpairs_error_string(err).decode()
+        text = (lib.egcl_sm90_error_string if sm90
+                else lib.egcl_allpairs_error_string)
         raise RuntimeError(f"egcl_allpairs {what} kernel launch failed: "
-                           f"{msg} (error {err}; B, N, nf, H = {dims})")
+                           f"{text(err).decode()} (error {err}; B, N, nf, H "
+                           f"= {dims})")
 
 
 def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
             dfsum=None):
     _check_inputs(h, pos, box, mask_f, weights)
-    lib = _library()
     B, N, nf = h.shape
     H = weights[4].shape[1]
     cdt = h.dtype
     code = _DTYPE_CODE[cdt]
     dims = (B, N, nf, H)
-    _check_fits(lib, code, dims, direction)
-    # the kernel reads the weights 8 or 16 bytes at a time
+    _check_fits(code, dims, direction)
+    sm90 = uses_sm90(code, H, direction)
+    lib = _sm90_library() if sm90 else _library()
+    # the kernels read the weights 8 or 16 bytes at a time
     ins = [t if t.data_ptr() % 16 == 0 else t.clone()
            for t in (h, pos, box, mask_f, *weights)]
     stream = _P(torch.cuda.current_stream(h.device).cuda_stream)
     ptrs = [t.data_ptr() for t in ins]
+    # the Hopper kernels' grid: at most one persistent block per
+    # multiprocessor
+    blocks = multiprocessors(h.device)
     if direction == "fwd":
         agg = torch.empty((B, N, H), dtype=cdt, device=h.device)
         fsum = torch.empty((B, N, 3), dtype=cdt, device=h.device)
         if B:
-            err = lib.egcl_allpairs_fwd(code, *dims, *ptrs, agg.data_ptr(),
-                                        fsum.data_ptr(), stream)
-            _raise_on(lib, err, "forward", dims)
-            counts.fwd_launches += 1
+            outs = (agg.data_ptr(), fsum.data_ptr(), stream)
+            if sm90:
+                err = lib.egcl_sm90_fwd(*dims, blocks, *ptrs, *outs)
+            else:
+                err = lib.egcl_allpairs_fwd(code, *dims, *ptrs, *outs)
+            _raise_on(lib, err, "forward", dims, sm90)
+            if sm90 or code == 0:
+                counts.fwd_launches += 1
+            else:
+                counts.fwd_h_rule_launches += 1
         return agg, fsum
     dagg = dagg.to(cdt).contiguous()
     dfsum = dfsum.to(cdt).contiguous()
@@ -277,13 +351,18 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
     outs = [dagg.data_ptr(), dfsum.data_ptr(), dh.data_ptr(), dpos.data_ptr()]
     if direction == "bwd":
         if B:
-            err = lib.egcl_allpairs_bwd(code, *dims, *ptrs, *outs, stream)
-            _raise_on(lib, err, "backward", dims)
-            counts.bwd_launches += 1
+            if sm90:
+                err = lib.egcl_sm90_bwd(*dims, blocks, *ptrs, *outs, stream)
+            else:
+                err = lib.egcl_allpairs_bwd(code, *dims, *ptrs, *outs, stream)
+            _raise_on(lib, err, "backward", dims, sm90)
+            if sm90 or code == 0:
+                counts.bwd_launches += 1
+            else:
+                counts.bwd_h_rule_launches += 1
         return dh, dpos
     # one row of partials per block, about one block per multiprocessor;
     # each block zeroes its own row
-    blocks = multiprocessors(h.device)
     part = torch.empty((min(B, blocks), lib.egcl_allpairs_part_size(nf, H)),
                        dtype=torch.float32, device=h.device)
     if B:
