@@ -4,8 +4,8 @@ CUDA card: ``python3 chip_mutants.py [GROUP ...]`` from the repository root
 (groups: ``egcl_allpairs``, ``egcl_params``, ``edge_pipeline``,
 ``pair_energy``; all by default; ``egcl_allpairs`` is the bf16 Hopper K1 and
 K2 of ``egcl_allpairs_sm90.cu``, read at chip_smoke.py's main, ragged and
-large shapes; ``egcl_params`` is K2's parameter-gradient variant, in
-``egcl_allpairs.cu``).
+large shapes; ``egcl_params`` is its bf16 parameter-gradient variant in
+the same file, read at the vi, ico, ragged and large shapes).
 
 For each mutant below, the package and ``chip_smoke.py`` are copied into a
 temporary directory, one deliberate fault is written into the copy's CUDA
@@ -47,15 +47,27 @@ MUTANTS = {
     },
     "egcl_params": {
         "control": None,
-        "dW2 drops each molecule's last chunk": (
-            "outer_add<T>(s, part + L.dW2, Z3, H);",
-            "if (e0 + kRows<T> < E) outer_add<T>(s, part + L.dW2, Z3, H);"),
+        "dW2's K drops each tile's last row (m1 zeroed there)": (
+            "*tile_at(w.D2, r, c) = m1;",
+            "*tile_at(w.D2, r, c) = r == kTile - 1 ? bcast(0.f) : m1;"),
+        "dz2 unmasked past the molecule's last row (m1 never is)": (
+            "const bf2 dm = mul2(add2(acc2(d, p), da), L.valid2[p & 1]);",
+            "const bf2 dm = mul2(add2(acc2(d, p), da), row0 + r < E ? "
+            "L.valid2[p & 1] : bcast(1.f));"),
         "dw4 takes the rounded dgate": (
-            "if constexpr (PARAMS) s.aux2[r] = dgate;",
-            "if constexpr (PARAMS) s.aux2[r] = rnd<T>(dgate);"),
+            "w.wrow[kTile + r] = dgr[k];",
+            "w.wrow[kTile + r] = rnd1(dgr[k]);"),
         "dw1r takes the rounded r2": (
-            "return s.r2[r] * Z1[r * H + c];",
-            "return rnd<T>(s.r2[r]) * Z1[r * H + c];"),
+            "w.wrow[r] = L.rw[k].r2;",
+            "w.wrow[r] = rnd1(L.rw[k].r2);"),
+        "one slice of partials dropped (zeroed at the end)": (
+            "                         v[(kVdw4 + 2) * H + c];\n    }",
+            "                         v[(kVdw4 + 2) * H + c];\n    }\n"
+            "    wg_sync(wg);\n    if (blockIdx.x == 0 && wg == 0)\n"
+            "      for (int k = t; k < PL.P; k += kWG) part[k] = 0.f;"),
+        "a molecule's last partial tile dropped (floor for ceil)": (
+            "return (E + kTile - 1) / kTile;",
+            "return E / kTile;"),
     },
     "edge_pipeline": {
         "control": None,
@@ -104,16 +116,18 @@ for sname, shape in (("main", cs.MAIN), ("ragged", cs.RAGGED),
 """,
     "egcl_params": HEAD + """
 from enflow_tpu_torch.ops import egcl_allpairs as ops
-for sname, shape in (("vi", cs.VI), ("ico", cs.ICO), ("ragged", cs.RAGGED)):
-    for dname, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        h, pos, box, mf, W, dagg, dfs, _ = cs.edge_inputs(shape, dt, seed=19)
-        args = (h, pos, box, mf, W, dagg, dfs)
-        errs = cs.rel_errs(cs.PARAM_OUT, ops.allpairs_edges_bwd(
-            *args, params=True), ops.allpairs_edges_plain_bwd(
-            *args, params=True))
-        report(f"{sname} {dname}", {n: e for n, e in errs.items()
-                                    if n not in ("dh", "dpos")},
-               cs.TOL_PARAM[dname])
+large = dict(B=64, N=ops.largest_molecule(1, 5, 128, "bwd_params"), nf=5,
+             H=128)
+for sname, shape in (("vi", cs.VI), ("ico", cs.ICO), ("ragged", cs.RAGGED),
+                     ("large", large)):
+    h, pos, box, mf, W, dagg, dfs, _ = cs.edge_inputs(shape, torch.bfloat16,
+                                                      seed=19)
+    args = (h, pos, box, mf, W, dagg, dfs)
+    errs = cs.rel_errs(cs.PARAM_OUT, ops.allpairs_edges_bwd(
+        *args, params=True), ops.allpairs_edges_plain_bwd(*args, params=True))
+    report(f"{sname} bfloat16", {n: e for n, e in errs.items()
+                                 if n not in ("dh", "dpos")},
+           cs.TOL_PARAM["bfloat16"])
 """,
     "edge_pipeline": HEAD + """
 from enflow_tpu_torch.ops import edge_pipeline as ep
@@ -147,7 +161,7 @@ def main():
     groups = sys.argv[1:] or list(MUTANTS)
     for group in groups:
         source = {"egcl_allpairs": "egcl_allpairs_sm90",
-                  "egcl_params": "egcl_allpairs"}.get(group, group)
+                  "egcl_params": "egcl_allpairs_sm90"}.get(group, group)
         src_rel = f"enflow_tpu_torch/csrc/{source}.cu"
         for name, edit in MUTANTS[group].items():
             with tempfile.TemporaryDirectory() as tmp:

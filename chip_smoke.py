@@ -19,12 +19,19 @@ Phases (each prints its own line; any failure exits non-zero):
    the wrapper's size rule (its own launch counters). Each kernel and the
    plain version timed at the first two shapes with CUDA events over
    back-to-back calls, so the wrapper's host work overlaps the device work
-   before it. A molecule one atom beyond the bf16 backward's limit must be
-   refused.
-4. params — K2's variant with the nine parameter gradients against its
-   plain version at the VI shape (B=512, N=13, nf=5, H=128) and the ragged
-   shape, bf16 and f32, timed as in phase 3 beside the input-gradient
-   variant on the same inputs.
+   before it. The bf16 parameter-gradient backward must take N >= 55
+   (vi_lj55.yaml), and a molecule one atom beyond the bf16 backward's
+   limit, with and without parameter gradients, must be refused.
+4. params — K2 with the nine parameter gradients (bf16: the Hopper
+   kernel; f32: the chunked one) against its plain version at the VI
+   shape (B=512, N=13, nf=5, H=128), the same as LJ13 icosahedra, and the
+   ragged shape, in bf16 and f32, and in bf16 at a large shape (B=64, N =
+   its largest), at H=64 and at H=96 (the size rule's chunked kernel); one
+   launch each on its counter, a second bf16
+   launch must give the same bits, dh/dpos also against the
+   input-gradient kernel's. Timed as in phase 3 at the first three shapes
+   beside the input-gradient variant, with the MUFU and elementwise
+   floors in bf16.
 5. pair   — the pair-energy kernel K7 (energy and gradient) against its
    plain version: form r2 at B=30, N=13; form r at B=1, N=13 (atoms on the
    half-box rounding boundary) and at B=2, N=1500 (3 padded, box 12).
@@ -38,22 +45,31 @@ Phases (each prints its own line; any failure exits non-zero):
    directory; a 1-epoch resume; one ``stl: true`` epoch; then
    ``example/sample_lj13.yaml`` as committed from the checkpoint they
    wrote. Each run is checked for the launch counts the code implies.
-9. train  — the training path: ``example/train.yaml`` (3 epochs) through
+9. vi55   — ``example/vi_lj55.yaml`` (LJ55, 256 particles, H=128, bf16)
+   cut to 1 epoch x VI55_STEPS steps in a temporary directory: 5 K1 + 5
+   parameter-gradient K2 launches per step at N=55, no plain call, finite
+   losses, a checkpoint and a metrics CSV; then K1 and K2 p against their
+   plain version at its shape (B=256, N=55), and timed beside it, their
+   bounds and floors.
+10. train — the training path: ``example/train.yaml`` (3 epochs) through
    the port's driver in a temporary directory: the LJ MD dataset on the
    card, then NLL steps, each checked for the launch counts the code
    implies; then a 1-epoch rerun that resumes from the checkpoint.
-10. edge  — the gathered-edge EGCL kernels (forward K5, backward K6 with
+11. edge  — the gathered-edge EGCL kernels (forward K5, backward K6 with
    all seven parameter gradients) against their plain version at the
    training shape (A=390 atoms, K = the auto capacity phase 9 observed,
    C=3, H=128), a ragged one (A=1000, K=40, C=11, masked slots and atoms)
    in bf16 and f32, and a shape whose gate hits the clip bounds exactly;
    timed as in phase 3.
 
-``python3 chip_smoke.py --ab OLD.cu`` runs phases 1-2 and then times K1/K2
-built from OLD.cu (an earlier egcl_allpairs.cu, e.g. ``git show
-HEAD:enflow_tpu_torch/csrc/egcl_allpairs.cu``) against the Hopper kernels
-at the main-path shape, and the SMC run of phase 7 with each, alternating
-old, new, new, old.
+``python3 chip_smoke.py --ab OLD.cu`` runs phases 1-2 and then times the
+bf16 kernels built from OLD.cu against the current ones, alternating old,
+new, new, old, old, new in one process: K1/K2 at the main-path shape with
+CUDA events and device time and the SMC run of phase 7; for an earlier
+egcl_allpairs.cu (the chunked kernels, e.g. ``git show
+HEAD:enflow_tpu_torch/csrc/egcl_allpairs.cu``) also K2 with parameter
+gradients at the VI shape and a VI epoch of phase 8. OLD.cu may also be
+an earlier egcl_allpairs_sm90.cu with the same K1/K2 entry points.
 
 ``python3 chip_smoke.py --profile [FILE]`` runs phases 1-2 and then, in
 place of the rest, one warm-up and one SMC run of phase 7 under
@@ -61,7 +77,7 @@ place of the rest, one warm-up and one SMC run of phase 7 under
 and the device's busy time and idle share of that traced run's wall time
 (which includes the tracing's own cost); the full table goes to FILE when
 one is given. ``--profile-vi [FILE]`` and ``--profile-train [FILE]`` do
-the same for one epoch of phase 8 or 9 after a warm-up epoch.
+the same for one epoch of phase 8 or 10 after a warm-up epoch.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
@@ -114,12 +130,15 @@ TOL = {"float32": 1e-4, "bfloat16": 4e-3}
 TOL_EDGE = {"float32": 1e-4, "bfloat16": 4e-3}
 TOL_PAIR = 1e-4
 # K2's parameter gradients, compared as the float32 sums before the autograd
-# Function rounds them (chip_mutants.py egcl_params): the sound kernel reads
-# <= 3.4e-4 in bf16 and <= 5.1e-6 in f32; a chunk dropped from dW2 reads
-# 1.5e-1 (vi, ico), dw4 from the rounded dgate 3.4e-3 (vi; 6.9e-4 ragged),
-# dw1r from the rounded r2 2.2e-3 (ico; 1.0e-3 ragged; 4.9e-4 at the vi
-# shape, which this limit does not see). The bf16 limit sits between the
-# sound reading and the weakest fault it must catch, 6.9e-4.
+# Function rounds them (chip_mutants.py egcl_params, faults in the bf16
+# Hopper kernel): the sound kernel reads <= 3.4e-4 in bf16 (<= 5.1e-6 in
+# f32); a row dropped from dW2's K reads >= 1.7e-2, dz2 unmasked past the
+# last row >= 7.6e-3, one slice of partials dropped >= 9.2e-2, the last
+# partial tile dropped >= 6.5e-2, dw4 from the rounded dgate 3.4e-3 (vi;
+# 6.9e-4 ragged), dw1r from the rounded r2 2.2e-3 (ico; 1.0e-3 ragged;
+# 4.9e-4 at the vi shape, which this limit does not see). The bf16 limit
+# sits between the sound reading and the weakest fault it must catch,
+# 6.9e-4.
 TOL_PARAM = {"float32": 1e-4, "bfloat16": 6e-4}
 
 
@@ -266,27 +285,32 @@ def kernel_phase():
     from enflow_tpu_torch.ops import egcl_allpairs as ops
 
     # the largest molecule each variant takes at nf=5, H=128, and one atom
-    # more refused by the bf16 backward (the Hopper kernel)
+    # more refused by the bf16 backward, with and without parameter
+    # gradients (the Hopper kernels)
     largest = {f"{dname} {kind}": ops.largest_molecule(code, 5, 128, kind)
                for code, dname in ((1, "bf16"), (0, "f32"))
                for kind in ("fwd", "bwd", "bwd_params")}
     require(min(largest.values()) >= 13, f"LJ13 does not fit: {largest}")
-    require(largest["bf16 fwd"] >= 70 and largest["bf16 bwd"] >= 30,
-            f"bf16 limits below the chunked kernels' 70 / 30: {largest}")
+    require(largest["bf16 fwd"] >= 70 and largest["bf16 bwd"] >= 55
+            and largest["bf16 bwd_params"] >= 55,
+            f"bf16 limits below 70 / 55 / 55 (vi_lj55.yaml): {largest}")
     phase("kernel", "largest N at nf=5, H=128: " + ", ".join(
         f"{k} {v}" for k, v in largest.items()))
-    n_big = largest["bf16 bwd"] + 1
-    h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(
-        dict(B=1, N=n_big, nf=5, H=128), torch.bfloat16, seed=11)
-    try:
-        ops.allpairs_edges_bwd(h, pos, box, mask_f, W, dagg, dfsum)
-    except ValueError as e:
-        require("shared memory" in str(e)
-                and f"N <= {largest['bf16 bwd']}" in str(e),
-                f"unclear refusal: {e}")
-        phase("kernel", f"N={n_big} bf16 backward refused: {e}")
-    else:
-        raise RuntimeError("a molecule beyond shared memory was launched")
+    for kind, params in (("bwd", False), ("bwd_params", True)):
+        n_big = largest[f"bf16 {kind}"] + 1
+        h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(
+            dict(B=1, N=n_big, nf=5, H=128), torch.bfloat16, seed=11)
+        try:
+            ops.allpairs_edges_bwd(h, pos, box, mask_f, W, dagg, dfsum,
+                                   params=params)
+        except ValueError as e:
+            require("shared memory" in str(e)
+                    and f"N <= {largest[f'bf16 {kind}']}" in str(e),
+                    f"unclear refusal: {e}")
+            phase("kernel", f"N={n_big} bf16 {kind} refused: {e}")
+        else:
+            raise RuntimeError(f"a molecule beyond shared memory was "
+                               f"launched ({kind})")
 
     large = dict(B=64, N=largest["bf16 bwd"], nf=5, H=128)
     record = {}
@@ -341,7 +365,8 @@ def kernel_phase():
                            fl, by)
         extra, floors = "", None
         if dname == "bfloat16":
-            floors = sfu_alu_floor(shape, mask)
+            floors = {d: v for d, v in sfu_alu_floor(shape, mask).items()
+                      if d != "bwd_params"}
             extra = "; MUFU / elementwise floors " + ", ".join(
                 f"{d} {a:.4f} / {b:.4f}" for d, (a, b) in floors.items())
         phase("kernel", f"{sname} {dname} time ms: fwd kernel "
@@ -356,7 +381,7 @@ def kernel_phase():
             ms_fwd=t_k_f, ms_bwd=t_k_b, plain_fwd=t_p_f, plain_bwd=t_p_b,
             bound_fwd=bounds["fwd"], bound_bwd=bounds["bwd"],
             floors=floors)
-    return record
+    return record, largest
 
 
 # Per-SM rates of an H100 SXM (CUDA C Programming Guide, arithmetic
@@ -370,11 +395,15 @@ PEAK_ALU = 128 * 132 * 1.98e9
 # forward z1 4, m1 4, z2 2, m2 5, z3 2, g1 4 and the gate 1; backward the
 # recompute with the SiLU derivatives from the same sigmoids (z1 4, m1 4,
 # z2 2, m2 and dsilu(z2) 10, z3 2, g1 and dsilu(z3) 9, gate 1), then dz3 2,
-# dz2 4, dz1 14 (z1 and its derivative recomputed) and dr2 1
-ALU_PER_ELEM = {"fwd": 22, "bwd": 53}
+# dz2 4, dz1 14 (z1 and its derivative recomputed) and dr2 1; with
+# parameter gradients 6 more: m1 from dsilu(z1)'s sigmoid (a product and a
+# rounding) and the outer products' partial adds, 2 H^2 per 64-row tile
+# (4 per element at H=128)
+ALU_PER_ELEM = {"fwd": 22, "bwd": 53, "bwd_params": 59}
 # sigmoids (an ex2 and a rcp each) per element: forward 3; backward 4 (m1,
-# m2 with dsilu(z2), g1 with dsilu(z3), dsilu(z1))
-SIGMOIDS = {"fwd": 3, "bwd": 4}
+# m2 with dsilu(z2), g1 with dsilu(z3), dsilu(z1); with parameter
+# gradients m1's recompute shares dsilu(z1)'s)
+SIGMOIDS = {"fwd": 3, "bwd": 4, "bwd_params": 4}
 
 
 def sfu_alu_floor(shape, mask):
@@ -387,68 +416,104 @@ def sfu_alu_floor(shape, mask):
     elems = float((n_real * (n_real - 1)).sum()) * H
     return {d: (elems * 2 * SIGMOIDS[d] / PEAK_MUFU * 1e3,
                 elems * ALU_PER_ELEM[d] / PEAK_ALU * 1e3)
-            for d in ("fwd", "bwd")}
+            for d in SIGMOIDS}
 
 
 PARAM_OUT = ("dh", "dpos", "dW1a", "dW1b", "dw1r", "db1", "dW2", "db2", "dW3",
              "db3", "dw4")
 
 
-def param_kernel_phase():
-    """K2 with parameter gradients against its plain version at the VI
-    shape (random and icosahedral positions) and the ragged PBC shape,
-    bf16 and f32. The parameter gradients
-    are compared as the float32 sums both return (before the autograd
-    Function rounds them to the weights' dtype). Times as in
-    ``kernel_phase``; the input-gradient variant is timed beside it on the
-    same inputs."""
+def param_kernel_phase(large_n):
+    """K2 with parameter gradients against its plain version: bf16 (the
+    Hopper kernel) at the VI shape (random and icosahedral positions), the
+    ragged PBC shape, a large shape (B=64, N = ``large_n``, the bf16
+    variant's largest) and H=64, with a second launch that must give the
+    same bits; float32 (the chunked kernel) at the first three; bf16 at
+    H=96, which the wrapper's size rule sends to the chunked kernel. The
+    parameter gradients are compared as the float32 sums both return
+    (before the autograd Function rounds them to the weights' dtype);
+    dh/dpos also against the input-gradient kernel's on the same inputs.
+    Times as in ``kernel_phase`` at the first three shapes, the
+    input-gradient variant beside it, and the bf16 MUFU / elementwise
+    floors."""
     import torch
     from enflow_tpu_torch.ops import egcl_allpairs as ops
 
+    large = dict(B=64, N=large_n, nf=5, H=128)
+    cases = [(sname, shape, dname) for sname, shape in
+             (("vi", VI), ("ico", ICO), ("ragged", RAGGED))
+             for dname in ("bfloat16", "float32")]
+    cases += [("large", large, "bfloat16"), ("h64", H64, "bfloat16"),
+              ("h96", H96, "bfloat16")]
     record, bad = {}, []
-    for sname, shape in (("vi", VI), ("ico", ICO), ("ragged", RAGGED)):
-        for dname, dtype in (("bfloat16", torch.bfloat16),
-                             ("float32", torch.float32)):
-            h, pos, box, mask_f, W, dagg, dfsum, mask = edge_inputs(
-                shape, dtype, seed=19)
-            args = (h, pos, box, mask_f, W, dagg, dfsum)
-            k = ops.allpairs_edges_bwd(*args, params=True)
-            p = ops.allpairs_edges_plain_bwd(*args, params=True)
+    for sname, shape, dname in cases:
+        dtype = getattr(torch, dname)
+        h, pos, box, mask_f, W, dagg, dfsum, mask = edge_inputs(
+            shape, dtype, seed=19)
+        args = (h, pos, box, mask_f, W, dagg, dfsum)
+        ops.counts.reset()
+        k = ops.allpairs_edges_bwd(*args, params=True)
+        c = ops.counts
+        launches = (c.bwd_param_launches, c.bwd_param_h_rule_launches)
+        p = ops.allpairs_edges_plain_bwd(*args, params=True)
+        errs = rel_errs(PARAM_OUT, k, p)
+        # dh/dpos of the parameter-gradient variant against the
+        # input-gradient kernel's (where it takes the molecule): the same
+        # schedule in bf16, two kernels in f32; they agree to TOL (bitwise
+        # where the compiler made the same instructions of both)
+        vs_in, bitwise, same = {}, None, True
+        if shape["N"] <= ops.largest_molecule(1 if dname == "bfloat16"
+                                              else 0, 5, shape["H"], "bwd"):
             k_in = ops.allpairs_edges_bwd(*args)
-            torch.cuda.synchronize()
-            errs = rel_errs(PARAM_OUT, k, p)
-            # dh/dpos of the parameter-gradient variant (the chunked kernel)
-            # against the input-gradient kernel's: in bf16 those are two
-            # implementations (the Hopper kernel sums in another order and
-            # takes SiLU from __expf), so they agree to TOL, not bit for bit
             vs_in = rel_errs(("dh", "dpos"), k[:2], k_in)
+            bitwise = all(bool(torch.equal(a, b))
+                          for a, b in zip(k[:2], k_in))
             same = all(rel <= TOL[dname] for _, rel in vs_in.values())
-            tol = {n: (TOL if n in ("dh", "dpos") else TOL_PARAM)[dname]
-                   for n in PARAM_OUT}
-            ok = all(rel <= tol[n] for n, (_, rel) in errs.items()) and same
-            phase("params", f"{sname} {dname} B={shape['B']} N={shape['N']} "
-                  "max_abs/rel err: " + "  ".join(
-                      f"{n} {a:.2e}/{r:.1e}" for n, (a, r) in errs.items())
-                  + f"  tol dh/dpos {TOL[dname]:g}, parameters "
-                  f"{TOL_PARAM[dname]:g}; dh/dpos vs the input-gradient "
-                  f"kernel's " + " ".join(f"{n} {r:.1e}" for n, (_, r) in
-                                           vs_in.items())
-                  + f" (tol {TOL[dname]:g}) -> {'ok' if ok else 'FAIL'}")
-            if not ok:
-                bad.append((sname, dname))
-            t_k = cuda_time_ms(lambda: ops.allpairs_edges_bwd(*args,
-                                                              params=True))
-            t_in = cuda_time_ms(lambda: ops.allpairs_edges_bwd(*args))
-            t_p = cuda_time_ms(lambda: ops.allpairs_edges_plain_bwd(
-                *args, params=True), reps=20, calls=5)
-            flop, nbytes = work_params(shape, dname, mask)
-            b = bound(flop, nbytes, PEAK_FLOPS[dname])
-            phase("params", f"{sname} {dname} time ms: kernel {t_k:.4f} "
-                  f"(input-gradient variant {t_in:.4f}) plain {t_p:.4f} "
-                  f"bound {b[0]:.4f} ({b[1]}, {flop / 1e9:.2f} GFLOP)")
-            record[(sname, dname)] = dict(
-                err=max(a for a, _ in errs.values()), ms=t_k, ms_input=t_in,
-                plain=t_p, bound=b)
+        torch.cuda.synchronize()
+        tol = {n: (TOL if n in ("dh", "dpos") else TOL_PARAM)[dname]
+               for n in PARAM_OUT}
+        ok = (all(rel <= tol[n] for n, (_, rel) in errs.items()) and same
+              and launches == ((0, 1) if sname == "h96" else (1, 0)))
+        note = ""
+        if dname == "bfloat16":
+            again = ops.allpairs_edges_bwd(*args, params=True)
+            torch.cuda.synchronize()
+            repeat = all(bool(torch.equal(a, b)) for a, b in zip(k, again))
+            ok = ok and repeat
+            note = f"; a second launch gives the same bits: {repeat}"
+        phase("params", f"{sname} {dname} B={shape['B']} N={shape['N']} "
+              f"H={shape['H']} launches {launches[0]} (+{launches[1]} by the "
+              "size rule) max_abs/rel err: " + "  ".join(
+                  f"{n} {a:.2e}/{r:.1e}" for n, (a, r) in errs.items())
+              + f"  tol dh/dpos {TOL[dname]:g}, parameters "
+              f"{TOL_PARAM[dname]:g}; dh/dpos vs the input-gradient "
+              "kernel's " + (" ".join(f"{n} {r:.1e}" for n, (_, r) in
+                                      vs_in.items())
+                             + f" (bitwise {bitwise}; tol {TOL[dname]:g})"
+                             if vs_in else "not compared (N beyond its "
+                             "limit)") + f"{note} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append((sname, dname))
+        if sname in ("large", "h64", "h96"):
+            continue
+        t_k = cuda_time_ms(lambda: ops.allpairs_edges_bwd(*args,
+                                                          params=True))
+        t_in = cuda_time_ms(lambda: ops.allpairs_edges_bwd(*args))
+        t_p = cuda_time_ms(lambda: ops.allpairs_edges_plain_bwd(
+            *args, params=True), reps=20, calls=5)
+        flop, nbytes = work_params(shape, dname, mask)
+        b = bound(flop, nbytes, PEAK_FLOPS[dname])
+        extra, floors = "", None
+        if dname == "bfloat16":
+            floors = sfu_alu_floor(shape, mask)["bwd_params"]
+            extra = (f"; MUFU / elementwise floors {floors[0]:.4f} / "
+                     f"{floors[1]:.4f}")
+        phase("params", f"{sname} {dname} time ms: kernel {t_k:.4f} "
+              f"(input-gradient variant {t_in:.4f}) plain {t_p:.4f} "
+              f"bound {b[0]:.4f} ({b[1]}, {flop / 1e9:.2f} GFLOP){extra}")
+        record[(sname, dname)] = dict(
+            err=max(a for a, _ in errs.values()), ms=t_k, ms_input=t_in,
+            plain=t_p, bound=b, floors=floors)
     require(not bad, f"parameter-gradient kernel disagrees with plain {bad}")
     return record
 
@@ -849,52 +914,88 @@ def device_ms(fn, key, calls=20):
 
 
 def ab_phase(card, old_src):
-    """K1 and the input-gradient K2 built from ``old_src`` (an earlier
-    egcl_allpairs.cu, with the same C interface) against the Hopper kernels
-    at the main-path shape in bf16, and SMC runs of phase 7 with each; in
-    turns old, new, new, old, old, new within this process, three timed SMC
-    runs a turn after a warm-up (the run is host-bound and its time drifts
-    between turns by more than the kernels move it)."""
+    """An earlier kernel source against the current one, in bf16, in turns
+    old, new, new, old, old, new within this process. ``old_src`` is
+    either an earlier egcl_allpairs.cu (the chunked kernels; every bf16
+    launch goes to it in an old turn) or an earlier egcl_allpairs_sm90.cu
+    (its Hopper K1 and input-gradient K2 with the same C interface; K2 p
+    and the VI path stay on the current source, so only K1, K2 and the
+    SMC runs are compared). A turn times K1 and the input-gradient K2 at
+    the main-path shape and, for a chunked old source, K2 with parameter
+    gradients at the VI shape, with CUDA events and device time; then
+    three SMC runs of phase 7 after a warm-up and, for a chunked old
+    source, one VI epoch of VI_STEPS steps (both paths are host-bound and
+    their times drift between turns by more than the kernels move them)."""
     import ctypes
+    import os
     import torch
     from enflow_tpu_torch.ops import build
     from enflow_tpu_torch.ops import egcl_allpairs as ops
 
+    hopper = "egcl_sm90_fwd" in Path(old_src).read_text()
     with tempfile.TemporaryDirectory() as tmp:
-        lib_path = Path(tmp) / "libegcl_allpairs_old.so"
+        lib_path = Path(tmp) / "libegcl_old.so"
         t0 = time.perf_counter()
-        out = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o",
-                              str(lib_path), str(old_src)],
-                             capture_output=True, text=True)
+        out = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I",
+                              str(build.CSRC), "-o", str(lib_path),
+                              str(old_src)], capture_output=True, text=True)
         require(out.returncode == 0, f"nvcc failed on {old_src}:\n"
                 f"{out.stdout}{out.stderr}")
         old_lib = ctypes.CDLL(str(lib_path))
-    phase("ab", f"built {old_src} in {time.perf_counter() - t0:.1f} s")
-    new_lib, sm90 = ops._library(), ops.uses_sm90
+    phase("ab", f"built {old_src} ({'Hopper' if hopper else 'chunked'} "
+          f"kernels) in {time.perf_counter() - t0:.1f} s")
+    sm90 = ops.uses_sm90
+    if hopper:
+        key, new_lib = "egcl_allpairs_sm90", ops._sm90_library()
+        for fn in ("egcl_sm90_fwd", "egcl_sm90_bwd", "egcl_sm90_smem_bytes",
+                   "egcl_sm90_smem_limit", "egcl_sm90_error_string"):
+            f, g = getattr(old_lib, fn), getattr(new_lib, fn)
+            f.argtypes, f.restype = g.argtypes, g.restype
+        old_lib._enflow_bound = True
+    else:
+        key, new_lib = "egcl_allpairs", ops._library()
+        if not hasattr(old_lib, "egcl_part_size"):
+            # a source from before csrc/egcl_part_layout.cuh
+            old_lib.egcl_part_size = old_lib.egcl_allpairs_part_size
 
     def use(which):
-        # "old": every bf16 launch to old_src's kernels
-        build._loaded["egcl_allpairs"] = old_lib if which == "old" else new_lib
-        ops.uses_sm90 = (lambda *_: False) if which == "old" else sm90
+        build._loaded[key] = old_lib if which == "old" else new_lib
+        if not hopper:       # "old": every bf16 launch to the chunked kernels
+            ops.uses_sm90 = (lambda *_: False) if which == "old" else sm90
 
     h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(MAIN, torch.bfloat16,
                                                          seed=11)
     fwd = lambda: ops.allpairs_edges_fwd(h, pos, box, mask_f, W)
     bwd = lambda: ops.allpairs_edges_bwd(h, pos, box, mask_f, W, dagg, dfsum)
-    rows = []
+    vi_args = edge_inputs(VI, torch.bfloat16, seed=19)[:7]
+    pbwd = lambda: ops.allpairs_edges_bwd(*vi_args, params=True)
+    cwd, rows = os.getcwd(), []
     try:
-        with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as tmp, \
+                tempfile.TemporaryDirectory() as vtmp:
             main = smc_driver(tmp)
+            if not hopper:
+                vmain = vi_driver(vtmp, 1)
+                vmain.train()                               # warm-up
+                vmain.start_epoch += 1
             for which in ("old", "new", "new", "old", "old", "new"):
                 use(which)
                 ops._library()
                 _, errs = kernel_errs(ops, h, pos, box, mask_f, W, dagg,
                                       dfsum)
-                require(all(r <= TOL["bfloat16"] for _, r in errs.values()),
+                if not hopper:
+                    errs.update(rel_errs(PARAM_OUT[2:], pbwd()[2:],
+                                         ops.allpairs_edges_plain_bwd(
+                                             *vi_args, params=True)[2:]))
+                require(all(r <= max(TOL["bfloat16"], TOL_PARAM["bfloat16"])
+                            for _, r in errs.values()),
                         f"{which} kernels disagree with plain: {errs}")
                 t = dict(fwd=cuda_time_ms(fwd), bwd=cuda_time_ms(bwd),
                          fwd_dev=device_ms(fwd, "fwd_kernel"),
                          bwd_dev=device_ms(bwd, "bwd_kernel"))
+                if not hopper:
+                    t.update(bwd_p=cuda_time_ms(pbwd),
+                             bwd_p_dev=device_ms(pbwd, "bwd_kernel"))
                 main.sample()                               # warm-up
                 secs = []
                 for _ in range(3):
@@ -906,20 +1007,34 @@ def ab_phase(card, old_src):
                 require(float(res.beta_history[-1]) > 1.0 - 1e-5,
                         "anneal did not reach beta = 1")
                 t["smc"] = secs
+                vi = ""
+                if not hopper:
+                    os.chdir(vtmp)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    vmain.train()
+                    torch.cuda.synchronize()
+                    t["vi"] = [(time.perf_counter() - t0) / VI_STEPS]
+                    vmain.start_epoch += 1
+                    os.chdir(cwd)
+                    vi = (f", K2 p {t['bwd_p']:.4f} ms (device "
+                          f"{t['bwd_p_dev']:.4f}); VI {t['vi'][0]:.5f} "
+                          f"s/step (one epoch of {VI_STEPS})")
                 rows.append((which, t))
                 phase("ab", f"{which} on {card}: K1 {t['fwd']:.4f} ms "
                       f"(device {t['fwd_dev']:.4f}), K2 {t['bwd']:.4f} ms "
                       f"(device {t['bwd_dev']:.4f}); SMC runs "
-                      + ", ".join(f"{x:.4f}" for x in secs) + " s")
+                      + ", ".join(f"{x:.4f}" for x in secs) + f" s{vi}")
     finally:
         use("new")
-    for key in ("fwd", "bwd", "fwd_dev", "bwd_dev", "smc"):
+        os.chdir(cwd)
+    for key in rows[0][1]:
         pick = lambda which: statistics.median(
             x for w, t in rows if w == which
-            for x in (t[key] if key == "smc" else [t[key]]))
+            for x in (t[key] if key in ("smc", "vi") else [t[key]]))
         old, new = pick("old"), pick("new")
-        unit = "s/run" if key == "smc" else "ms"
-        phase("ab", f"{key} (median): old {old:.4f} new {new:.4f} {unit} -> "
+        unit = {"smc": "s/run", "vi": "s/step"}.get(key, "ms")
+        phase("ab", f"{key} (median): old {old:.5f} new {new:.5f} {unit} -> "
               f"{old / new:.2f}x" + (f"; {1024 / old:.1f} -> {1024 / new:.1f}"
                                      " samples/s" if key == "smc" else ""))
 
@@ -1152,8 +1267,9 @@ def train_phase(card):
 VI_EPOCHS, VI_STEPS = 3, 10
 
 
-def vi_driver(tmp, num_epochs, stl=False):
-    """The port's driver set up from ``example/vi_lj13.yaml`` with
+def vi_driver(tmp, num_epochs, stl=False, config="vi_lj13.yaml",
+              steps=VI_STEPS):
+    """The port's driver set up from ``example/<config>`` with
     ``num_epochs`` and ``steps_per_epoch`` cut (and ``stl`` switched on
     when asked), run from the working directory ``tmp`` (where the
     checkpoint and the metrics CSV go)."""
@@ -1161,16 +1277,35 @@ def vi_driver(tmp, num_epochs, stl=False):
     import yaml
     from enflow_tpu_torch.train.driver import Main
 
-    cfg = yaml.safe_load((ROOT / "example" / "vi_lj13.yaml").read_text())
-    cfg["training"].update(num_epochs=num_epochs, steps_per_epoch=VI_STEPS)
+    cfg = yaml.safe_load((ROOT / "example" / config).read_text())
+    cfg["training"].update(num_epochs=num_epochs, steps_per_epoch=steps)
     if stl:
         cfg["training"]["stl"] = True
-    path = Path(tmp) / "vi_lj13.yaml"
+    path = Path(tmp) / config
     path.write_text(yaml.safe_dump(cfg))
     os.chdir(tmp)
     main = Main(device="cuda")
     main.setup(str(path))
     return main
+
+
+def time_vi_steps(main):
+    """Wrap ``main.vi_step`` so that each step appends its host-clock
+    seconds (the card synchronized before, the loss read after) and its
+    loss to the two lists returned."""
+    import torch
+    step_s, losses = [], []
+    inner = main.vi_step
+
+    def timed(gen, target):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, bad = inner(gen, target)
+        losses.append(float(loss))          # synchronizes
+        step_s.append(time.perf_counter() - t)
+        return loss, bad
+    main.vi_step = timed
+    return step_s, losses
 
 
 def vi_launches():
@@ -1198,17 +1333,7 @@ def vi_phase(card):
         try:
             main = vi_driver(tmp, VI_EPOCHS)
             n_iter, P = main.n_iter, main.vi_particles
-            step_s, losses = [], []
-            inner = main.vi_step
-
-            def timed(gen, target):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                loss, bad = inner(gen, target)
-                losses.append(float(loss))          # synchronizes
-                step_s.append(time.perf_counter() - t)
-                return loss, bad
-            main.vi_step = timed
+            step_s, losses = time_vi_steps(main)
             reset_counts()
             main.train()
             torch.cuda.synchronize()
@@ -1295,6 +1420,96 @@ def vi_phase(card):
     return dict(s_step=s_step, k2_params=got["k2_params"], curve=curve)
 
 
+# The vi55 phase's cut of example/vi_lj55.yaml (40 epochs x 100 steps):
+# one epoch of VI55_STEPS steps, every width and option as committed
+VI55_STEPS = 5
+
+
+def vi55_phase(card):
+    """``example/vi_lj55.yaml`` (LJ55, 256 particles, H=128, bf16)
+    through the port's driver for one epoch of VI55_STEPS steps in a
+    temporary directory: 5 K1 + 5 parameter-gradient K2 launches per step
+    at N=55, no plain call, finite losses, a checkpoint and a metrics
+    CSV; then K1 and K2 p at that shape (B=256, N=55) against the plain
+    version and timed."""
+    import os
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            main = vi_driver(tmp, 1, config="vi_lj55.yaml", steps=VI55_STEPS)
+            n_iter, P = main.n_iter, main.vi_particles
+            step_s, losses = time_vi_steps(main)
+            reset_counts()
+            main.train()
+            torch.cuda.synchronize()
+            got = vi_launches()
+            want = dict(k1=n_iter * VI55_STEPS, k2=0,
+                        k2_params=n_iter * VI55_STEPS, plain=0)
+            require(len(step_s) == VI55_STEPS, f"{len(step_s)} VI55 steps")
+            require(got == want, f"vi_lj55 launches {got} != {want}")
+            require(all(math.isfinite(x) for x in losses),
+                    f"non-finite vi_lj55 losses {losses}")
+            require(Path("lj55_vi.cpt").exists(), "no LJ55 checkpoint")
+            with open("lj55_vi_metrics.csv") as f:
+                rows = [r.split(",") for r in f.read().strip().splitlines()]
+            require(rows[0][:3] == ["time", "epoch", "loss"]
+                    and len(rows) == 2 and math.isfinite(float(rows[1][2])),
+                    f"vi_lj55 metrics CSV rows {rows}")
+        finally:
+            os.chdir(cwd)
+    s_step = statistics.median(step_s[1:])
+    # K1 and K2 p at this path's shape: 47 tiles a molecule (the last one
+    # partial), one warpgroup per SM walking about two molecules, whose
+    # tiles add into the same slice of partials
+    shape = dict(B=P, N=55, nf=5, H=128)
+    h, pos, box, mask_f, W, dagg, dfsum, mask = edge_inputs(
+        shape, torch.bfloat16, seed=23)
+    args = (h, pos, box, mask_f, W, dagg, dfsum)
+    fwd = lambda: ops.allpairs_edges_fwd(h, pos, box, mask_f, W)
+    pbwd = lambda: ops.allpairs_edges_bwd(*args, params=True)
+    names = ("agg", "f_sum") + PARAM_OUT
+    errs = rel_errs(names, fwd() + pbwd(), ops.allpairs_edges_plain(
+        h, pos, box, mask_f, W) + ops.allpairs_edges_plain_bwd(*args,
+                                                               params=True))
+    tol = {n: (TOL_PARAM if n in PARAM_OUT[2:] else TOL)["bfloat16"]
+           for n in names}
+    ok = all(rel <= tol[n] for n, (_, rel) in errs.items())
+    phase("vi55", f"B={P} N=55 H=128 bf16 K1 and K2 p vs plain max_abs/rel "
+          "err: " + "  ".join(f"{n} {a:.2e}/{r:.1e}"
+                              for n, (a, r) in errs.items())
+          + f"  tol agg/f_sum/dh/dpos {TOL['bfloat16']:g}, parameters "
+          f"{TOL_PARAM['bfloat16']:g} -> {'ok' if ok else 'FAIL'}")
+    require(ok, "K1 or K2 p disagrees with plain at vi_lj55.yaml's shape")
+    t_f, t_p = cuda_time_ms(fwd), cuda_time_ms(pbwd)
+    t_pl_f = cuda_time_ms(lambda: ops.allpairs_edges_plain(
+        h, pos, box, mask_f, W), reps=10, calls=2)
+    t_pl_p = cuda_time_ms(lambda: ops.allpairs_edges_plain_bwd(
+        *args, params=True), reps=10, calls=2)
+    fl_f, _, by_f, _ = work(shape, "bfloat16", mask)
+    fl_p, by_p = work_params(shape, "bfloat16", mask)
+    b_f = bound(fl_f, by_f, PEAK_FLOPS["bfloat16"])
+    b_p = bound(fl_p, by_p, PEAK_FLOPS["bfloat16"])
+    floors = sfu_alu_floor(shape, mask)
+    phase("vi55", f"B={P} N=55 H=128 bf16 time ms: K1 {t_f:.4f} (plain "
+          f"{t_pl_f:.4f}, bound {b_f[0]:.4f}, {b_f[1]}; MUFU / elementwise "
+          f"floors {floors['fwd'][0]:.4f} / {floors['fwd'][1]:.4f}) | K2 p "
+          f"{t_p:.4f} (plain {t_pl_p:.4f}, bound {b_p[0]:.4f}, {b_p[1]}; "
+          f"floors {floors['bwd_params'][0]:.4f} / "
+          f"{floors['bwd_params'][1]:.4f})")
+    phase("vi55", f"vi_lj55.yaml on {card}: 1 epoch x {VI55_STEPS} steps of "
+          f"{P} particles at N=55 (cut from 40 x 100), {s_step:.5f} s/step "
+          f"(median of steps 2-{VI55_STEPS}; first {step_s[0]:.4f} s), "
+          f"{P / s_step:.1f} particles/s; losses "
+          + ", ".join(f"{x:.2f}" for x in losses)
+          + f"; launches K1 {got['k1']} K2 with parameter gradients "
+          f"{got['k2_params']}, plain calls 0; checkpoint and metrics CSV "
+          "written")
+    return s_step
+
+
 def build_phase():
     """Fresh builds of every kernel source, one nvcc each, in parallel."""
     from enflow_tpu_torch.ops import build
@@ -1307,6 +1522,9 @@ def build_phase():
     for name, (lib, secs, log) in built.items():
         regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
                 if "registers" in ln]
+        # ptxas's performance warnings (e.g. serialized wgmma pipelines)
+        warn = sorted({ln.strip() for ln in log.splitlines()
+                       if "warning" in ln.lower()})
         # ptxas names each function before its stack and spill line
         spilled, func = [], "?"
         for ln in log.splitlines():
@@ -1316,7 +1534,8 @@ def build_phase():
                 spilled.append(f"{func} ({ln.strip()})")
         phase("build", f"{name}.cu -> {lib.name} in {secs:.1f} s; ptxas: "
               f"{'; '.join(regs)}; functions with spills: {len(spilled)}"
-              + "".join(f"\n  {f}" for f in spilled))
+              + "".join(f"\n  {f}" for f in spilled)
+              + "".join(f"\n  {w}" for w in warn))
     phase("build", f"all sources in {time.perf_counter() - t0:.1f} s")
 
 
@@ -1332,9 +1551,10 @@ def main():
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", default=None, metavar="OLD_CU",
-                    help="time K1/K2 built from an earlier egcl_allpairs.cu "
-                    "against the Hopper kernels, and an SMC run with each, "
-                    "instead of the phases after the build")
+                    help="time the kernels built from an earlier "
+                    "egcl_allpairs.cu or egcl_allpairs_sm90.cu against the "
+                    "current ones, and SMC runs with each, instead of the "
+                    "phases after the build")
     ap.add_argument("--profile", nargs="?", const="", default=None,
                     metavar="FILE", help="profile one SMC run instead of "
                     "the phases after the build; the full table to FILE")
@@ -1382,12 +1602,13 @@ def main():
     if args.profile_vi is not None:
         profile_vi(card, table(args.profile_vi))
         return 0
-    rec = kernel_phase()
-    qrec = param_kernel_phase()
+    rec, largest = kernel_phase()
+    qrec = param_kernel_phase(largest["bf16 bwd_params"])
     prec = pair_kernel_phase()
     flow_phase()
     n_fwd, n_bwd = smc_phase(card)
     vi = vi_phase(card)
+    vi55_phase(card)
     tr = train_phase(card)
     # K5/K6 at the training path's shape: its slot count is the auto
     # capacity that the train phase's dataset gave
@@ -1404,7 +1625,7 @@ def main():
         kernel_record("egcl_allpairs_bwd", "egcl_allpairs_sm90.cu",
                       f"{v3}:414", n_bwd, m["err_bwd"], m["ms_bwd"],
                       m["plain_bwd"], m["bound_bwd"]),
-        kernel_record("egcl_allpairs_bwd_params", "egcl_allpairs.cu",
+        kernel_record("egcl_allpairs_bwd_params", "egcl_allpairs_sm90.cu",
                       f"{v3}:414", vi["k2_params"], q["err"], q["ms"],
                       q["plain"], q["bound"]),
         kernel_record("edge_pipeline_fwd", "edge_pipeline.cu",

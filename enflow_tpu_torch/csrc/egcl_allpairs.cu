@@ -70,6 +70,8 @@
 
 #include <stddef.h>
 
+#include "egcl_part_layout.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -168,26 +170,6 @@ struct Args {
   void* dh;           // [B, N, nf] T   (backward)
   float* dpos;        // [B, N, 3]      (backward)
   float* part;        // [gridDim.x, P] parameter-gradient partials
-};
-
-// Offsets of the parameter gradients in one block's slice of `part`:
-// dW2, dW3 [H, H] first (wmma reads and writes their tiles in place, which
-// needs 32-byte alignment), then dW1a, dW1b [nf, H], dw1r, db1, db2, db3,
-// dw4 [H]; P is rounded up to 8 floats so that every slice is aligned too.
-struct PartLayout {
-  int dW2, dW3, dW1a, dW1b, dw1r, db1, db2, db3, dw4, P;
-  __host__ __device__ PartLayout(int nf, int H) {
-    dW2 = 0;
-    dW3 = H * H;
-    dW1a = 2 * H * H;
-    dW1b = dW1a + nf * H;
-    dw1r = dW1b + nf * H;
-    db1 = dw1r + H;
-    db2 = db1 + H;
-    db3 = db2 + H;
-    dw4 = db3 + H;
-    P = (dw4 + H + 7) / 8 * 8;
-  }
 };
 
 // Row stride of W2/W3 in shared memory. f32 (FMA products): odd in 32-bit
@@ -933,9 +915,6 @@ long long egcl_allpairs_smem_bytes(int dtype, int N, int nf, int H,
 
 long long egcl_allpairs_smem_limit() { return (long long)kMaxSmem; }
 
-// Floats in one block's slice of the parameter-gradient partials.
-int egcl_allpairs_part_size(int nf, int H) { return PartLayout(nf, H).P; }
-
 // dtype: 0 = float32, 1 = bfloat16 (the compute dtype of h, mask, weights,
 // agg/fsum/dagg/dfsum/dh). pos, box and dpos are float32. Returns the
 // cudaError_t of the launch (0 on success).
@@ -965,7 +944,7 @@ int egcl_allpairs_bwd(int dtype, int B, int N, int nf, int H, const void* h,
 }
 
 // The backward with parameter gradients: part is a [min(B, blocks), P]
-// float32 buffer (P = egcl_allpairs_part_size); each of the min(B, blocks)
+// float32 buffer (P = egcl_part_size); each of the min(B, blocks)
 // blocks zeroes its row and adds its molecules' parameter gradients into
 // it, and the caller sums the rows.
 int egcl_allpairs_bwd_params(int dtype, int B, int N, int nf, int H,

@@ -1,15 +1,17 @@
 // Fused all-pairs EGCL edge pipeline in bf16, designed for Hopper
-// (sm_90a): the forward and the input-gradient backward.
+// (sm_90a): the forward, the input-gradient backward, and the backward
+// with the nine parameter gradients.
 //
 // Replaces the Pallas TPU kernels of enflow_tpu/ops/egcl_fused_v3.py:
 //   forward  -> the pallas_call of _fused_fwd (:365), _fwd_kernel
 //   backward -> the pallas_call of _fused_bwd (:414), _bwd_kernel, in its
 //               input-gradient form (dh and dpos; what sampling asks for)
+//               and with the parameter gradients dW1a ... dw4 of
+//               _bwd_kernel:256-273 (what training asks for)
 // for the bf16 compute dtype at H = 64 or 128, and computes the contract of
 // egcl_allpairs.cu:10-19 with bf16 rounding at the points where
 // _fwd_block / _bwd_kernel (egcl_fused_v3.py:167-254) round. The float32
-// kernels, other hidden widths and the backward with parameter gradients
-// stay in egcl_allpairs.cu.
+// kernels and other hidden widths stay in egcl_allpairs.cu.
 //
 // What bounds it on this card. At the main-path shape (B=1024 molecules,
 // N=13, nf=5, H=128) the tensor-core work is ~11 us (forward) and ~21 us
@@ -63,15 +65,59 @@
 //   3-vectors (trans, dcd) go through the same product. Each element of a
 //   node sum has one owner thread and a fixed order: two launches give
 //   identical bits.
+//
+// Parameter gradients: a compile-time variant of the backward
+// (egcl_sm90_bwd_kernel<H, true>, bwd_tile's PARAMS) on the same schedule,
+// tiles and rounding points; the nine gradients are f32 sums of the same
+// bf16 products as _bwd_kernel's, reordered. At the VI shape (B=512, N=13,
+// nf=5, H=128) they add ~5.5 GFLOP (the two H x H outer products over
+// 79,872 valid pairs, ~5.6 us at the bf16 peak) to the input-gradient
+// backward's ~10.6; the MUFU work is unchanged (4
+// sigmoids per element) and the elementwise work grows from ~53 to ~59
+// operations per element (m1's recompute, the partials' adds).
+// - dW2 = m1^T dz2 and dW3 = m2^T dz3 on wgmma with the tile's 64 edge rows
+//   as K: both operands are the activation tiles read MN-major (no
+//   transposed copy). Rows past the molecule's last row hold zeros in dz2
+//   and dz3 (and m2), and finite values in m1. The H x H results (2H^2 =
+//   32,768 f32, more than a warpgroup's registers) go per m64n64 chunk
+//   into the warpgroup's own slice of a [slices, P] f32 buffer in global
+//   memory: stored on its first tile, read-modify-written after, every
+//   element by one thread in a fixed order; the wrapper sums the slices.
+//   That is ~256 KB of L2 traffic per tile (~400 MB over the VI shape's
+//   1,536 tiles), with the old values loaded while the tensor cores run.
+//   No atomics: two launches give identical bits.
+// - Liveness, in three tiles: dz3 is written over dsilu(z3) in place, so
+//   m2 lives in X1 until m2^T dz3; g1, which the recompute makes beside
+//   dsilu(z3), goes to a scratch tile at the end of the warpgroup's slice
+//   (16 KB, L2) and comes back into D2 once dz2 has consumed dsilu(z2);
+//   the dz1 pass recomputes m1 into D2 from the sigmoid that its dsilu(z1)
+//   takes anyway (no MUFU operation more), after dw4 has read g1.
+// - Column sums as products: db2, db3 (rows of ones), dw1r (r2) and dw4
+//   (dgate) are S T with T the dz2, dz3, dz1 or g1 tile and S in
+//   registers. _bwd_kernel takes r2 and dgate unrounded (f32): each f32
+//   weight becomes three rows of bf16 pieces whose sum is the weight
+//   exactly, so the products are exact and only the f32 sums round.
+//   dW1a = sum_i h_i (x) (sum_j dz1_ij) and dW1b likewise are h times the
+//   node sums of dz1, per molecule (O(N nf H), not per pair); db1 is a
+//   row of ones beside dw1r.
+// - Shared memory: the variant reads dagg from global memory instead of
+//   staging it, and adds 5 KB per warpgroup (row weights, vector sums),
+//   so it takes two warpgroups at N=13 and one up to N=61 at nf=5, H=128.
+//   The input-gradient backward keeps dagg staged: read from global
+//   memory in the dz2 epilogue, it made that kernel ~5% slower at the
+//   main-path shape (chip_smoke.py --ab against the staged source, one
+//   process; PERF.md).
 // The per-atom arrays bound N (egcl_sm90_smem_bytes; at nf=5, H=128 one
-// warpgroup takes N <= 111 forward and N <= 55 backward); a larger molecule
-// is refused at launch.
+// warpgroup takes N <= 111 forward, N <= 55 backward and N <= 61 with
+// parameter gradients); a larger molecule is refused at launch.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include <stddef.h>
 #include <stdint.h>
+
+#include "egcl_part_layout.cuh"
 
 namespace {
 
@@ -105,7 +151,22 @@ struct Args {
   bf16* fsum;             // [B, N, 3]   (forward)
   bf16* dh;               // [B, N, nf]  (backward)
   float* dpos;            // [B, N, 3]   (backward)
+  float* part;            // [slices, slice_floats] (parameter gradients)
 };
+
+// A warpgroup's slice of the partials: the nine gradients (PartLayout),
+// then the warpgroup's scratch tile of g1 (bf16 [64, H], swizzled).
+__host__ __device__ inline int slice_floats(int nf, int H) {
+  return PartLayout(nf, H).P + kTile * H / 2;
+}
+
+// The parameter-gradient variant's vector sums per warpgroup, [9, H] in
+// shared memory: dw1r's three pieces, db1, db2, db3, dw4's three pieces.
+enum { kVdw1r = 0, kVdb1 = 3, kVdb2 = 4, kVdb3 = 5, kVdw4 = 6 };
+
+// What a launch runs: the forward, the input-gradient backward, or the
+// backward with the parameter gradients.
+enum Kind { kFwd = 0, kBwd = 1, kBwdParams = 2 };
 
 // ---- arithmetic
 
@@ -264,6 +325,22 @@ __device__ __forceinline__ void wgmma_rs8(float (&d)[4],
         "r"(scale_d));
 }
 
+// D[64, 32] (+)= A[64, 16] B[16, 32], both in shared memory MN-major (A
+// read as the transpose of a tile whose rows are K)
+__device__ __forceinline__ void wgmma_tt32(float (&d)[16], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
@@ -350,11 +427,17 @@ struct Blk {
 // 3-vectors stored transposed [8, 64] swizzled (rows 3..7 zero); each
 // row's atoms for the node sums (-1 past the tile's last row); the
 // per-atom projections (rows padded to HP = H + 8); the node sums [N, C =
-// H + 4] f32 (columns H .. H+2 the 3-vector sums).
+// H + 4] f32 (columns H .. H+2 the 3-vector sums). dagg is staged in
+// shared memory (row stride HP) by the input-gradient backward and read
+// from global memory (row stride H) by the parameter-gradient one. The
+// latter also keeps each tile's per-row f32 weights (r2, then dgate; 64
+// each) and its vector sums [9, H] (kVdw1r ...).
 struct Wg {
-  bf16 *X0, *X1, *D2, *vec, *hA, *hB, *dagg;
+  bf16 *X0, *X1, *D2, *vec, *hA, *hB;
+  const bf16* dagg;
+  int dstride;
   short *segi, *segj;
-  float *acci, *accj, *h, *pos, *mask, *box, *dfs;
+  float *acci, *accj, *h, *pos, *mask, *box, *dfs, *wrow, *vacc;
 };
 
 __host__ __device__ inline void carve_blk(Bump& m, Blk& s, int nf, int H) {
@@ -373,7 +456,8 @@ __host__ __device__ inline void carve_blk(Bump& m, Blk& s, int nf, int H) {
 }
 
 __host__ __device__ inline void carve_wg(Bump& m, Wg& w, int N, int nf, int H,
-                                         bool bwd) {
+                                         int kind) {
+  const bool bwd = kind != kFwd, params = kind == kBwdParams;
   const size_t T = sizeof(bf16) * kTile * H, HP = H + 8, C = H + 4;
   w.X0 = (bf16*)m.take(T, 1024);
   w.X1 = (bf16*)m.take(T, 1024);
@@ -381,7 +465,10 @@ __host__ __device__ inline void carve_wg(Bump& m, Wg& w, int N, int nf, int H,
   w.vec = (bf16*)m.take(sizeof(bf16) * 8 * kTile, 1024);
   w.hA = (bf16*)m.take(sizeof(bf16) * N * HP);
   w.hB = (bf16*)m.take(sizeof(bf16) * N * HP);
-  w.dagg = bwd ? (bf16*)m.take(sizeof(bf16) * N * HP) : nullptr;
+  w.dagg = kind == kBwd ? (bf16*)m.take(sizeof(bf16) * N * HP) : nullptr;
+  w.dstride = kind == kBwd ? (int)HP : H;
+  w.wrow = params ? (float*)m.take(sizeof(float) * 2 * kTile) : nullptr;
+  w.vacc = params ? (float*)m.take(sizeof(float) * 9 * H) : nullptr;
   w.segi = (short*)m.take(sizeof(short) * kTile);
   w.segj = (short*)m.take(sizeof(short) * kTile);
   w.acci = (float*)m.take(sizeof(float) * N * C);
@@ -395,24 +482,27 @@ __host__ __device__ inline void carve_wg(Bump& m, Wg& w, int N, int nf, int H,
 
 // Bytes of dynamic shared memory of a block of nwg warpgroups (with 1024
 // bytes to align the base).
-size_t smem_bytes(int N, int nf, int H, bool bwd, int nwg) {
+size_t smem_bytes(int N, int nf, int H, int kind, int nwg) {
   Bump m{nullptr, 0};
   Blk s;
   carve_blk(m, s, nf, H);
   for (int k = 0; k < nwg; ++k) {
     Wg w;
-    carve_wg(m, w, N, nf, H, bwd);
+    carve_wg(m, w, N, nf, H, kind);
   }
   return m.off + 1024;
 }
 
 // The block's weights into shared memory (all threads) and the
-// warpgroup's tiles zeroed (every row of a node-sum operand must be
-// finite); then the fence that makes them visible to wgmma and a block
-// barrier.
+// warpgroup's tiles (and vector sums) zeroed (every row of a wgmma operand
+// must be finite); then the fence that makes them visible to wgmma and a
+// block barrier.
 template <int H>
 __device__ void load_weights(const Args& a, const Blk& s, const Wg& w,
-                             int t, bool bwd) {
+                             int t, int kind) {
+  const bool bwd = kind != kFwd;
+  if (kind == kBwdParams)
+    for (int k = t; k < 9 * H; k += kWG) w.vacc[k] = 0.f;
   const int nf = a.nf;
   for (int idx = threadIdx.x; idx < H * H / 8; idx += blockDim.x) {
     const int k = idx / (H / 8), c = 8 * (idx % (H / 8));
@@ -446,10 +536,12 @@ __device__ void load_weights(const Args& a, const Blk& s, const Wg& w,
 // Molecule b's atoms into the warpgroup's arrays (thread t of 128): h,
 // pos, mask, box, the projections hA = h W1a, hB = h W1b rounded to bf16
 // (as the TPU kernel rounds its dots), zeroed node sums; for the backward
-// also dagg (bf16) and dfsum. Ends with the warpgroup's barrier.
+// also dfsum, and dagg (bf16) where it is staged. Ends with the
+// warpgroup's barrier.
 template <int H>
 __device__ void load_molecule(const Args& a, const Blk& s, const Wg& w,
-                              int b, int t, int wg, bool bwd) {
+                              int b, int t, int wg, int kind) {
+  const bool bwd = kind != kFwd;
   const int N = a.N, nf = a.nf, HP = H + 8, C = H + 4;
   const size_t nb = (size_t)b * N;
   // the small inputs in one pass (one load each, issued together)
@@ -467,11 +559,12 @@ __device__ void load_molecule(const Args& a, const Blk& s, const Wg& w,
   for (int k = t; k < N * C; k += kWG) w.acci[k] = 0.f;
   if (bwd) {
     for (int k = t; k < N * C; k += kWG) w.accj[k] = 0.f;
-    for (int k = t; k < N * H / 8; k += kWG) {
-      const int i = k / (H / 8), c = 8 * (k % (H / 8));
-      *reinterpret_cast<uint4*>(w.dagg + i * HP + c) =
-          *reinterpret_cast<const uint4*>(a.dagg + (nb + i) * H + c);
-    }
+    if (kind == kBwd)
+      for (int k = t; k < N * H / 8; k += kWG) {
+        const int i = k / (H / 8), c = 8 * (k % (H / 8));
+        *reinterpret_cast<uint4*>((bf16*)w.dagg + i * HP + c) =
+            *reinterpret_cast<const uint4*>(a.dagg + (nb + i) * H + c);
+      }
     for (int k = t; k < N * 3; k += kWG)
       w.dfs[k] = __bfloat162float(a.dfsum[nb * 3 + k]);
   }
@@ -702,6 +795,156 @@ __device__ void node_sums(const Wg& w, const bf16* T, int N, int row0,
   wg_sync(wg);
 }
 
+// ---- parameter gradients
+//
+// The chunk [m0, m0+64) x [n0, n0+32) of A^T B for the bf16 [64, H] tiles
+// A and B (shared addresses) of one tile's edge rows, issued and
+// committed: wgmma with the 64 rows as K and both operands read MN-major
+// (A^T needs no transposed copy; a k-step is 16 rows, 2048 bytes on).
+template <int H>
+__device__ __forceinline__ void issue_outer(float (&d)[16], uint32_t A,
+                                            uint32_t B, int m0, int n0) {
+  fence_regs(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_tt32(d,
+               smem_desc(A + (m0 / 64) * (128 * kTile) + 2048 * kk,
+                         128 * kTile, 1024),
+               smem_desc(B + (n0 / 64) * (128 * kTile) + 2 * (n0 % 64) +
+                             2048 * kk, 128 * kTile, 1024),
+               kk > 0);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// The old values of a chunk's accumulators in dst (zeros when fresh).
+template <int H>
+__device__ __forceinline__ void load_old(float2 (&o)[8], const float* dst,
+                                         const Lane& L, int m0, int n0,
+                                         bool fresh) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      o[2 * j + k] = fresh ? make_float2(0.f, 0.f)
+                           : load_f2(dst + (m0 + L.r0 + 8 * k) * H + n0 +
+                                     8 * j + 2 * L.q);
+}
+
+template <int H>
+__device__ __forceinline__ void store_sum(float* dst, const float2 (&o)[8],
+                                          const float (&d)[16], const Lane& L,
+                                          int m0, int n0) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      *reinterpret_cast<float2*>(dst + (m0 + L.r0 + 8 * k) * H + n0 + 8 * j +
+                                 2 * L.q) =
+          make_float2(o[2 * j + k].x + d[4 * j + 2 * k],
+                      o[2 * j + k].y + d[4 * j + 2 * k + 1]);
+}
+
+// dst [H, H] (+)= A^T B over one tile's rows, in m64n32 chunks issued two
+// at a time. The H x H result (2H^2 f32 with dW2 and dW3, more than a
+// warpgroup's registers) is added chunk by chunk into dst, f32 row-major
+// in the warpgroup's slice in global memory (L2-resident), by the thread
+// that holds each element; the old values load while the tensor cores
+// run, and the first chunk's sum is stored while the second's product
+// finishes. On the warpgroup's first tile (fresh) the sums are stored.
+template <int H>
+__device__ void outer_acc(uint32_t A, uint32_t B, float* dst, const Lane& L,
+                          bool fresh) {
+#pragma unroll 1
+  for (int ch = 0; ch < (H / 64) * (H / 64); ++ch) {
+    const int m0 = 64 * (ch / (H / 64)), n0 = 64 * (ch % (H / 64));
+    float dA[16], dB[16];
+    float2 oA[8], oB[8];
+    issue_outer<H>(dA, A, B, m0, n0);
+    issue_outer<H>(dB, A, B, m0, n0 + kChunk);
+    load_old<H>(oA, dst, L, m0, n0, fresh);
+    load_old<H>(oB, dst, L, m0, n0 + kChunk, fresh);
+    wgmma_wait_for<1>();
+    fence_regs(dA);
+    store_sum<H>(dst, oA, dA, L, m0, n0);
+    wgmma_wait_for<0>();
+    fence_regs(dB);
+    store_sum<H>(dst, oB, dB, L, m0, n0 + kChunk);
+  }
+}
+
+// Row 16 w of the weight matrix S [64, 64 edge rows] of a row-weighted
+// column sum, one row for each warp w of the warpgroup (the other rows are
+// zero): kOnes row 0 all ones; kSplit rows 0, 16, 32 the three bf16
+// pieces of an f32 weight per edge row (their sum is the weight exactly:
+// the first piece takes 8 of its 24 significant bits, the second 8 of the
+// at most 16 left, the third the at most 8 left); kOnesSplit ones in row
+// 0, the pieces in rows 16, 32, 48. Every product of a piece and a bf16
+// value is exact in f32, so S T sums the unrounded f32 weights' products.
+enum { kOnes, kSplit, kOnesSplit };
+
+template <int MODE>
+__device__ __forceinline__ bool has_row(int warp) {
+  return MODE == kOnes ? warp == 0 : MODE == kSplit ? warp < 3 : true;
+}
+
+template <int MODE>
+__device__ __forceinline__ float weight_row(int warp, const float* wv,
+                                            int r) {
+  if (MODE != kSplit && warp == 0) return 1.f;
+  const int k = MODE == kSplit ? warp : warp - 1;
+  const float v = wv[r], p0 = rnd1(v), v1 = v - p0, p1 = rnd1(v1);
+  return k == 0 ? p0 : k == 1 ? p1 : v1 - p1;
+}
+
+// The warps' rows of S T for the bf16 tile T [64, H] (MN-major) and the
+// f32 row weights wv [64], added into [H] vectors of the warpgroup's
+// vector sums by lanes 0..3 of each warp (one owner per element, a fixed
+// order: deterministic): row 16 w into dst + w H (kOnes, kSplit); for
+// kOnesSplit row 0 into ones and row 16 w into dst + (w - 1) H. The
+// pieces' vectors are summed when the sums are written out.
+template <int H, int MODE>
+__device__ void col_sums(const bf16* T, const float* wv, float* dst,
+                         float* ones, const Lane& L, int t) {
+  const int warp = t >> 5, lane = t & 31;
+  const bool mine = has_row<MODE>(warp) && lane < 4;
+  float* out = MODE == kOnesSplit ? (warp == 0 ? ones : dst + (warp - 1) * H)
+                                  : dst + warp * H;
+  uint32_t af[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      uint32_t v = 0u;
+      if (mine && (u & 1) == 0) {           // row 16 w: lanes 0..3
+        const int r = 16 * kk + 2 * L.q + 8 * (u >> 1);
+        const bf2 p = to_bf2(weight_row<MODE>(warp, wv, r),
+                             weight_row<MODE>(warp, wv, r + 1));
+        v = Bf2{p}.u;
+      }
+      af[kk][u] = v;
+    }
+#pragma unroll 1
+  for (int n0 = 0; n0 < H; n0 += 64) {
+    float d[32];
+    fence_regs(d);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs64(d, af[kk],
+                 smem_desc(smem_addr(T) + (n0 / 64) * (128 * kTile) +
+                               2048 * kk, 128 * kTile, 1024),
+                 kk > 0);
+    wgmma_wait();
+    fence_regs(d);
+    if (mine)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) out[n0 + 8 * j + 2 * lane + e] += d[4 * j + e];
+  }
+}
+
 // Tiles of a molecule's E edge rows.
 __device__ __forceinline__ int tiles_of(int E) {
   return (E + kTile - 1) / kTile;
@@ -758,15 +1001,24 @@ __device__ void fwd_tile(const Blk& s, const Wg& w, int N, int E, int row0,
   node_sums<H, false>(w, w.X1, N, row0, nr, L, wg);
 }
 
-template <int H>
+// The backward of one tile. Tiles: X0 m1 -> dsilu(z3) -> dz3 (in place)
+// -> dz1; X1 m2 -> dz2; D2 dsilu(z2) (and with PARAMS g1, then m1). With
+// PARAMS the tile adds its parameter gradients into the warpgroup's slice
+// `part` (and its vector sums into w.vacc): dW3 = m2^T dz3 while m2 is in
+// X1, db3 from dz3; g1 goes to the slice's scratch tile when the
+// recompute makes it and comes back into D2 once dsilu(z2) is consumed,
+// for dw4 = g1^T dgate (unrounded dgate) and db2 from dz2; the dz1 pass
+// recomputes m1 into D2 from the sigmoid that its dsilu(z1) takes, for
+// dW2 = m1^T dz2; dw1r (unrounded r2) and db1 from dz1.
+template <int H, bool PARAMS>
 __device__ void bwd_tile(const Blk& s, const Wg& w, int N, int E, int row0,
-                         int t, int wg) {
-  const int HP = H + 8;
+                         int t, int wg, float* part, bf16* g1t, bool fresh) {
   const int nr = min(kTile, E - row0);
   Lane L;
   lane_of(L, w, N, E, row0, t);
   const uint32_t W2 = smem_addr(s.W2), W3 = smem_addr(s.W3);
-  const uint32_t X0 = smem_addr(w.X0), X1 = smem_addr(w.X1);
+  const uint32_t X0 = smem_addr(w.X0), X1 = smem_addr(w.X1),
+                 D2 = smem_addr(w.D2);
 
   // -- the forward, recomputed: m1 -> X0; m2 -> X1 and dsilu(z2) -> D2;
   // dsilu(z3) -> X0 (each SiLU derivative from the SiLU's sigmoid)
@@ -798,8 +1050,11 @@ __device__ void bwd_tile(const Blk& s, const Wg& w, int N, int E, int row0,
         bf2 g, ds;
         silu_dsilu2(z, g, ds);
         *tile_at(w.X0, r, c) = ds;
+        if constexpr (PARAMS) *tile_at(g1t, r, c) = g;
         gate[p & 1] = dot2(g, load_f2(s.w4f + c), gate[p & 1]);
       }
+    } else if constexpr (PARAMS) {
+      zero_rows<H>(g1t, L, n0, n0 + kChunk);
     }
   });
   // -- the geometry-side cotangents per row (f32)
@@ -819,49 +1074,83 @@ __device__ void bwd_tile(const Blk& s, const Wg& w, int N, int E, int row0,
     }
     dgr[k] = dgate;
   }
+  if constexpr (PARAMS)
+    if (L.q == 0)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int r = L.r0 + 8 * k;
+        w.wrow[r] = L.rw[k].r2;                 // dw1r's weight: r2 in f32
+        w.wrow[kTile + r] = dgr[k];             // dw4's: dgate in f32
+      }
   const bf2 dg2[2] = {bcast(dgr[0]), bcast(dgr[1])};
-  wg_sync(wg);                                  // X1 (m2) read by all
 
-  // -- the hidden-wide chain backwards: dz3 -> X1, dz2 -> X0, dz1 -> X1
+  // -- the hidden-wide chain backwards: dz3 -> X0 (in place), dz2 -> X1,
+  // dz1 -> X0
   if (L.live) {
 #pragma unroll 8
     for (int p = 0; p < H / 4; ++p) {
       const int r = L.r0 + 8 * (p & 1), c = 8 * (p >> 1) + 2 * L.q;
       const bf2 dg1 = mul2(dg2[p & 1], vec_at(s.w4, c));
-      *tile_at(w.X1, r, c) = mul2(dg1, *tile_at(w.X0, r, c));
+      *tile_at(w.X0, r, c) = mul2(dg1, *tile_at(w.X0, r, c));
     }
   } else {
-    zero_rows<H>(w.X1, L, 0, H);
+    zero_rows<H>(w.X0, L, 0, H);
   }
   wg_publish(wg);
-  chunks<H, 0>(X1, W3, [&](const float (&d)[16], int n0) {  // dz3 W3^T -> dz2
+  if constexpr (PARAMS) {
+    outer_acc<H>(X1, X0, part + H * H, L, fresh);  // m2^T dz3
+    col_sums<H, kOnes>(w.X0, nullptr, w.vacc + kVdb3 * H, nullptr, L, t);
+    wg_sync(wg);                                // m2 read by all
+  }
+  chunks<H, 0>(X0, W3, [&](const float (&d)[16], int n0) {  // dz3 W3^T -> dz2
     if (L.live) {
 #pragma unroll
       for (int p = 0; p < 8; ++p) {
         const int r = L.r0 + 8 * (p & 1), c = n0 + 8 * (p >> 1) + 2 * L.q;
         const Row& rw = L.rw[p & 1];
-        const bf2 da = *reinterpret_cast<const bf2*>(w.dagg + rw.i * HP + c);
+        const bf2 da =
+            *reinterpret_cast<const bf2*>(w.dagg + rw.i * w.dstride + c);
         const bf2 dm = mul2(add2(acc2(d, p), da), L.valid2[p & 1]);
-        *tile_at(w.X0, r, c) = mul2(dm, *tile_at(w.D2, r, c));
+        *tile_at(w.X1, r, c) = mul2(dm, *tile_at(w.D2, r, c));
       }
     } else {
-      zero_rows<H>(w.X0, L, n0, n0 + kChunk);
+      zero_rows<H>(w.X1, L, n0, n0 + kChunk);
     }
   });
   wg_publish(wg);
+  if constexpr (PARAMS) {
+    // g1 back from the scratch tile into D2 (dsilu(z2) is consumed)
+    for (int k = t; k < kTile * H / 8; k += kWG)
+      reinterpret_cast<uint4*>(w.D2)[k] =
+          reinterpret_cast<const uint4*>(g1t)[k];
+    wg_publish(wg);
+    col_sums<H, kSplit>(w.D2, w.wrow + kTile, w.vacc + kVdw4 * H, nullptr,
+                        L, t);                  // dw4 = g1^T dgate
+    col_sums<H, kOnes>(w.X1, nullptr, w.vacc + kVdb2 * H, nullptr, L, t);
+    wg_sync(wg);                                // g1 read by all
+  }
   float dr2[2] = {0.f, 0.f};
-  chunks<H, 0>(X0, W2, [&](const float (&d)[16], int n0) {  // dz2 W2^T -> dz1
+  chunks<H, 0>(X1, W2, [&](const float (&d)[16], int n0) {  // dz2 W2^T -> dz1
     if (L.live) {
 #pragma unroll
       for (int p = 0; p < 8; ++p) {
         const int r = L.r0 + 8 * (p & 1), c = n0 + 8 * (p >> 1) + 2 * L.q;
-        const bf2 ds = dsilu2(z1_pair<H>(s, w, L.rw[p & 1], c));
+        const bf2 z = z1_pair<H>(s, w, L.rw[p & 1], c);
+        bf2 ds;
+        if constexpr (PARAMS) {
+          bf2 m1;
+          silu_dsilu2(z, m1, ds);
+          *tile_at(w.D2, r, c) = m1;
+        } else {
+          ds = dsilu2(z);
+        }
         const bf2 m = mul2(acc2(d, p), ds);
-        *tile_at(w.X1, r, c) = m;
+        *tile_at(w.X0, r, c) = m;
         dr2[p & 1] = dot2(m, load_f2(s.w1rf + c), dr2[p & 1]);
       }
     } else {
-      zero_rows<H>(w.X1, L, n0, n0 + kChunk);
+      zero_rows<H>(w.X0, L, n0, n0 + kChunk);
+      if constexpr (PARAMS) zero_rows<H>(w.D2, L, n0, n0 + kChunk);
     }
   });
   dr2[0] = quad_sum(dr2[0]);
@@ -875,7 +1164,14 @@ __device__ void bwd_tile(const Blk& s, const Wg& w, int N, int E, int row0,
         v[k][d] = rnd1(dcd[k][d] + 2.f * L.rw[k].cd[d] * dr2[k]);
     store_rows(w, L, v, nr);
   }
-  node_sums<H, true>(w, w.X1, N, row0, nr, L, wg);
+  node_sums<H, true>(w, w.X0, N, row0, nr, L, wg);
+  if constexpr (PARAMS) {
+    outer_acc<H>(D2, X1, part, L, fresh);                      // m1^T dz2
+    col_sums<H, kOnesSplit>(w.X0, w.wrow, w.vacc + kVdw1r * H,
+                            w.vacc + kVdb1 * H, L,
+                            t);                 // db1, dw1r = dz1^T r2
+    wg_sync(wg);                                // the tiles read by all
+  }
 }
 
 // ---- the kernels: persistent blocks, one molecule per warpgroup at a time
@@ -890,11 +1186,11 @@ __global__ void __launch_bounds__(kMaxWGFwd * kWG, 1)
   Blk s;
   carve_blk(m, s, a.nf, H);
   Wg w;
-  for (int k = 0; k <= wg; ++k) carve_wg(m, w, a.N, a.nf, H, false);
-  load_weights<H>(a, s, w, t, false);
+  for (int k = 0; k <= wg; ++k) carve_wg(m, w, a.N, a.nf, H, kFwd);
+  load_weights<H>(a, s, w, t, kFwd);
   const int N = a.N, C = H + 4, E = N * (N - 1);
   for (int b = blockIdx.x * nwg + wg; b < a.B; b += gridDim.x * nwg) {
-    load_molecule<H>(a, s, w, b, t, wg, false);
+    load_molecule<H>(a, s, w, b, t, wg, kFwd);
     for (int k = 0; k < tiles_of(E); ++k)
       fwd_tile<H>(s, w, N, E, k * kTile, t, wg);
     const size_t nb = (size_t)b * N;
@@ -908,26 +1204,42 @@ __global__ void __launch_bounds__(kMaxWGFwd * kWG, 1)
   }
 }
 
-template <int H>
+// The backward; with PARAMS each warpgroup owns slice blockIdx.x * nwg +
+// wg of a.part: it zeroes dW1a .. dw4, stores dW2 and dW3 on its first
+// tile and adds into them after, adds dW1a and dW1b per molecule (h times
+// the node sums of dz1), and stores its vector sums at the end.
+template <int H, bool PARAMS>
 __global__ void __launch_bounds__(kMaxWGBwd * kWG, 1)
     egcl_sm90_bwd_kernel(Args a) {
   extern __shared__ char smem_raw[];
   const int nwg = blockDim.x / kWG, wg = threadIdx.x / kWG,
             t = threadIdx.x % kWG;
+  const int kind = PARAMS ? kBwdParams : kBwd;
   Bump m{(char*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023), 0};
   Blk s;
   carve_blk(m, s, a.nf, H);
   Wg w;
-  for (int k = 0; k <= wg; ++k) carve_wg(m, w, a.N, a.nf, H, true);
-  load_weights<H>(a, s, w, t, true);
+  for (int k = 0; k <= wg; ++k) carve_wg(m, w, a.N, a.nf, H, kind);
+  load_weights<H>(a, s, w, t, kind);
   const int N = a.N, nf = a.nf, C = H + 4, E = N * (N - 1);
+  const PartLayout PL(nf, H);
+  float* const part =
+      PARAMS ? a.part + (size_t)(blockIdx.x * nwg + wg) * slice_floats(nf, H)
+             : nullptr;
+  bf16* const g1t = PARAMS ? (bf16*)(part + PL.P) : nullptr;
+  if constexpr (PARAMS)
+    for (int k = PL.dW1a + t; k < PL.P; k += kWG) part[k] = 0.f;
+  bool fresh = true;
   for (int b = blockIdx.x * nwg + wg; b < a.B; b += gridDim.x * nwg) {
-    load_molecule<H>(a, s, w, b, t, wg, true);
-    for (int k = 0; k < tiles_of(E); ++k)
-      bwd_tile<H>(s, w, N, E, k * kTile, t, wg);
+    const size_t nb = (size_t)b * N;
+    if constexpr (PARAMS) w.dagg = a.dagg + nb * H;
+    load_molecule<H>(a, s, w, b, t, wg, kind);
+    for (int k = 0; k < tiles_of(E); ++k) {
+      bwd_tile<H, PARAMS>(s, w, N, E, k * kTile, t, wg, part, g1t, fresh);
+      fresh = false;
+    }
     // dh = rnd(dz1_i) W1a^T + rnd(dz1_j) W1b^T: one thread per (i, k),
     // four partial sums over the columns in a fixed order
-    const size_t nb = (size_t)b * N;
     for (int item = t; item < N * nf; item += kWG) {
       const int i = item / nf, k = item % nf;
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -945,7 +1257,31 @@ __global__ void __launch_bounds__(kMaxWGBwd * kWG, 1)
       const int i = idx / 3, d = idx % 3;
       a.dpos[nb * 3 + idx] = w.acci[i * C + H + d] - w.accj[i * C + H + d];
     }
+    if constexpr (PARAMS)
+      // dW1a = sum_i h_i (x) dz1_i and dW1b = sum_j h_j (x) dz1_j, the
+      // node sums of dz1 (f32) in atom order; dW1b follows dW1a
+      for (int item = t; item < 2 * nf * H; item += kWG) {
+        const int side = item / (nf * H), kc = item - side * nf * H;
+        const int k = kc / H, c = kc - k * H;
+        const float* acc = side ? w.accj : w.acci;
+        float v = 0.f;
+        for (int i = 0; i < N; ++i) v = fmaf(w.h[i * nf + k], acc[i * C + c], v);
+        part[PL.dW1a + item] += v;
+      }
     wg_sync(wg);
+  }
+  if constexpr (PARAMS) {
+    if (fresh)                                  // no tile: dW2, dW3 zero
+      for (int k = t; k < PL.dW1a; k += kWG) part[k] = 0.f;
+    const float* v = w.vacc;
+    for (int c = t; c < H; c += kWG) {
+      part[PL.dw1r + c] = (v[c] + v[H + c]) + v[2 * H + c];
+      part[PL.db1 + c] = v[kVdb1 * H + c];
+      part[PL.db2 + c] = v[kVdb2 * H + c];
+      part[PL.db3 + c] = v[kVdb3 * H + c];
+      part[PL.dw4 + c] = (v[kVdw4 * H + c] + v[(kVdw4 + 1) * H + c]) +
+                         v[(kVdw4 + 2) * H + c];
+    }
   }
 }
 
@@ -954,33 +1290,38 @@ bool takes(int N, int nf, int H) {
 }
 
 // The most warpgroups whose block fits, or 0.
-int warpgroups(int N, int nf, int H, bool bwd) {
-  for (int nwg = bwd ? kMaxWGBwd : kMaxWGFwd; nwg >= 1; --nwg)
-    if (smem_bytes(N, nf, H, bwd, nwg) <= kMaxSmem) return nwg;
+int warpgroups(int N, int nf, int H, int kind) {
+  for (int nwg = kind == kFwd ? kMaxWGFwd : kMaxWGBwd; nwg >= 1; --nwg)
+    if (smem_bytes(N, nf, H, kind, nwg) <= kMaxSmem) return nwg;
   return 0;
 }
 
+// The grid of a launch: at most `blocks`, no more than the molecules need.
+int grid_of(int B, int nwg, int blocks) {
+  return min(blocks, (B + nwg - 1) / nwg);
+}
+
 template <int H>
-int launch_h(const Args& a, bool bwd, int blocks, cudaStream_t stream) {
-  const int nwg = warpgroups(a.N, a.nf, H, bwd);
+int launch_h(const Args& a, int kind, int blocks, cudaStream_t stream) {
+  const int nwg = warpgroups(a.N, a.nf, H, kind);
   if (nwg == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(a.N, a.nf, H, bwd, nwg);
-  void (*kernel)(Args) =
-      bwd ? egcl_sm90_bwd_kernel<H> : egcl_sm90_fwd_kernel<H>;
+  const size_t smem = smem_bytes(a.N, a.nf, H, kind, nwg);
+  void (*kernel)(Args) = kind == kFwd   ? egcl_sm90_fwd_kernel<H>
+                         : kind == kBwd ? egcl_sm90_bwd_kernel<H, false>
+                                        : egcl_sm90_bwd_kernel<H, true>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = min(blocks, (a.B + nwg - 1) / nwg);
-  kernel<<<grid, nwg * kWG, smem, stream>>>(a);
+  kernel<<<grid_of(a.B, nwg, blocks), nwg * kWG, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-int launch(const Args& a, bool bwd, int blocks, void* stream) {
+int launch(const Args& a, int kind, int blocks, void* stream) {
   if (a.B < 1 || blocks < 1 || !takes(a.N, a.nf, a.H))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return a.H == 128 ? launch_h<128>(a, bwd, blocks, st)
-                    : launch_h<64>(a, bwd, blocks, st);
+  return a.H == 128 ? launch_h<128>(a, kind, blocks, st)
+                    : launch_h<64>(a, kind, blocks, st);
 }
 
 }  // namespace
@@ -989,14 +1330,27 @@ extern "C" {
 
 // Dynamic shared memory of a block with one warpgroup (the least a launch
 // needs) for these sizes, or -1 for sizes the kernels do not take (H other
-// than 64 or 128). kind: 0 the forward, 1 the input-gradient backward. A
-// launch needs at most egcl_sm90_smem_limit() bytes.
+// than 64 or 128). kind: 0 the forward, 1 the input-gradient backward, 2
+// the backward with parameter gradients. A launch needs at most
+// egcl_sm90_smem_limit() bytes.
 long long egcl_sm90_smem_bytes(int N, int nf, int H, int kind) {
-  if ((kind != 0 && kind != 1) || !takes(N, nf, H)) return -1;
-  return (long long)smem_bytes(N, nf, H, kind == 1, 1);
+  if (kind < kFwd || kind > kBwdParams || !takes(N, nf, H)) return -1;
+  return (long long)smem_bytes(N, nf, H, kind, 1);
 }
 
 long long egcl_sm90_smem_limit() { return (long long)kMaxSmem; }
+
+// The parameter-gradient partials: floats in one warpgroup's slice (the P
+// of the nine gradients, egcl_part_size, then its scratch tile), and the
+// slices a launch with these sizes writes (one per warpgroup of its grid;
+// -1 for sizes it does not take). The caller sums the slices' first P
+// floats.
+int egcl_sm90_slice_floats(int nf, int H) { return slice_floats(nf, H); }
+int egcl_sm90_param_slices(int B, int N, int nf, int H, int blocks) {
+  if (B < 1 || blocks < 1 || !takes(N, nf, H)) return -1;
+  const int nwg = warpgroups(N, nf, H, kBwdParams);
+  return nwg ? grid_of(B, nwg, blocks) * nwg : -1;
+}
 
 // The forward (agg, fsum) and the input-gradient backward (dh; dpos in
 // float32) for bf16 h, mask and weights; pos and box are float32. blocks:
@@ -1012,8 +1366,8 @@ int egcl_sm90_fwd(int B, int N, int nf, int H, int blocks, const void* h,
   Args a{B, N, nf, H, (cb)h, (const float*)pos, (const float*)box, (cb)mask,
          (cb)W1a, (cb)W1b, (cb)w1r, (cb)b1, (cb)W2, (cb)b2, (cb)W3, (cb)b3,
          (cb)w4, nullptr, nullptr, (bf16*)agg, (bf16*)fsum, nullptr,
-         nullptr};
-  return launch(a, false, blocks, stream);
+         nullptr, nullptr};
+  return launch(a, kFwd, blocks, stream);
 }
 
 int egcl_sm90_bwd(int B, int N, int nf, int H, int blocks, const void* h,
@@ -1027,8 +1381,26 @@ int egcl_sm90_bwd(int B, int N, int nf, int H, int blocks, const void* h,
   Args a{B, N, nf, H, (cb)h, (const float*)pos, (const float*)box, (cb)mask,
          (cb)W1a, (cb)W1b, (cb)w1r, (cb)b1, (cb)W2, (cb)b2, (cb)W3, (cb)b3,
          (cb)w4, (cb)dagg, (cb)dfsum, nullptr, nullptr, (bf16*)dh,
-         (float*)dpos};
-  return launch(a, true, blocks, stream);
+         (float*)dpos, nullptr};
+  return launch(a, kBwd, blocks, stream);
+}
+
+// The backward with the nine parameter gradients: part is a float32
+// buffer of egcl_sm90_param_slices(...) rows of egcl_sm90_slice_floats
+// floats; every warpgroup fills its row (the caller need not zero it).
+int egcl_sm90_bwd_params(int B, int N, int nf, int H, int blocks,
+                         const void* h, const void* pos, const void* box,
+                         const void* mask, const void* W1a, const void* W1b,
+                         const void* w1r, const void* b1, const void* W2,
+                         const void* b2, const void* W3, const void* b3,
+                         const void* w4, const void* dagg, const void* dfsum,
+                         void* dh, void* dpos, void* part, void* stream) {
+  using cb = const bf16*;
+  Args a{B, N, nf, H, (cb)h, (const float*)pos, (const float*)box, (cb)mask,
+         (cb)W1a, (cb)W1b, (cb)w1r, (cb)b1, (cb)W2, (cb)b2, (cb)W3, (cb)b3,
+         (cb)w4, (cb)dagg, (cb)dfsum, nullptr, nullptr, (bf16*)dh,
+         (float*)dpos, (float*)part};
+  return launch(a, kBwdParams, blocks, stream);
 }
 
 const char* egcl_sm90_error_string(int err) {

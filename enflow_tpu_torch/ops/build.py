@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds) and
 loaded with ``ctypes``. Builds happen at first use, from the sources in the
 checkout, into ``enflow_tpu_torch/_build/`` (listed in ``.gitignore``); the
-library name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.
+library name carries a hash of the source, the headers in ``csrc/`` and
+the flags, so an edited source is rebuilt and a stale library is never
+loaded.
 """
 
 from __future__ import annotations
@@ -67,7 +68,9 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source and every header beside it (a header edit rebuilds)
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                             *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -13,12 +13,11 @@ attention/norm_diff/tanh off.
   autograd Function saves) in one of two kernel variants: input gradients
   only (``dh``, ``dpos``) when no weight needs a gradient, as in sampling,
   or with the nine parameter gradients of ``_bwd_kernel:265-273`` as well,
-  as in training. In bf16 at H = 64 or 128 the forward and the
-  input-gradient backward are the Hopper kernels of
-  ``csrc/egcl_allpairs_sm90.cu`` (wgmma, persistent warpgroups); float32,
-  the parameter-gradient backward, and — by an explicit size rule with
-  its own launch counters (``fwd_h_rule_launches``,
-  ``bwd_h_rule_launches``) — bf16 at any other hidden width run the
+  as in training. In bf16 at H = 64 or 128 all three are the Hopper
+  kernels of ``csrc/egcl_allpairs_sm90.cu`` (wgmma, persistent
+  warpgroups); float32 and — by an explicit size rule with its own launch
+  counters (``fwd_h_rule_launches``, ``bwd_h_rule_launches``,
+  ``bwd_param_h_rule_launches``) — bf16 at any other hidden width run the
   chunked kernels of ``csrc/egcl_allpairs.cu``. There is no fallback: a
   kernel that does not build or launch raises.
 - On a CPU tensor both directions run the plain PyTorch version below,
@@ -41,18 +40,17 @@ from .build import LaunchCounts, multiprocessors
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-# fwd_launches / bwd_launches: K1 and the input-gradient K2 (the Hopper
-# kernels in bf16, the chunked kernels in float32); *_h_rule_launches: bf16
-# at a hidden width the Hopper kernels do not take, sent to the chunked ones
+# fwd_launches / bwd_launches / bwd_param_launches: K1, the input-gradient
+# K2 and K2 with parameter gradients (the Hopper kernels in bf16, the
+# chunked kernels in float32); *_h_rule_launches: bf16 at a hidden width
+# the Hopper kernels do not take, sent to the chunked ones
 counts = LaunchCounts("fwd_launches", "bwd_launches", "bwd_param_launches",
                       "fwd_h_rule_launches", "bwd_h_rule_launches",
-                      "plain_fwd_calls", "plain_bwd_calls",
-                      "plain_bwd_param_calls")
-# the launch kinds of egcl_allpairs_smem_bytes (and egcl_sm90_smem_bytes:
-# 0 and 1)
+                      "bwd_param_h_rule_launches", "plain_fwd_calls",
+                      "plain_bwd_calls", "plain_bwd_param_calls")
+# the launch kinds of egcl_allpairs_smem_bytes and egcl_sm90_smem_bytes
 _KIND = {"fwd": 0, "bwd": 1, "bwd_params": 2}
-# the hidden widths of the Hopper kernels (bf16 forward and input-gradient
-# backward)
+# the hidden widths of the Hopper kernels
 SM90_H = (64, 128)
 
 
@@ -182,6 +180,14 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 
 
+def _bind_part_size(lib):
+    """``egcl_part_size(nf, H)``: the floats of the nine gradients at the
+    start of a slice of the partials, defined once in
+    ``csrc/egcl_part_layout.cuh`` and compiled into both libraries."""
+    lib.egcl_part_size.argtypes = [_I, _I]
+    lib.egcl_part_size.restype = _I
+
+
 def _sm90_library():
     from .build import load
     lib = load("egcl_allpairs_sm90")
@@ -192,6 +198,13 @@ def _sm90_library():
         lib.egcl_sm90_fwd.restype = _I
         lib.egcl_sm90_bwd.argtypes = [_I] * 5 + [_P] * (n_in + 5)
         lib.egcl_sm90_bwd.restype = _I
+        lib.egcl_sm90_bwd_params.argtypes = [_I] * 5 + [_P] * (n_in + 6)
+        lib.egcl_sm90_bwd_params.restype = _I
+        lib.egcl_sm90_param_slices.argtypes = [_I] * 5
+        lib.egcl_sm90_param_slices.restype = _I
+        lib.egcl_sm90_slice_floats.argtypes = [_I, _I]
+        lib.egcl_sm90_slice_floats.restype = _I
+        _bind_part_size(lib)
         lib.egcl_sm90_smem_bytes.argtypes = [_I] * 4
         lib.egcl_sm90_smem_bytes.restype = _LL
         lib.egcl_sm90_smem_limit.argtypes = []
@@ -218,8 +231,7 @@ def _library():
         lib.egcl_allpairs_smem_bytes.restype = _LL
         lib.egcl_allpairs_smem_limit.argtypes = []
         lib.egcl_allpairs_smem_limit.restype = _LL
-        lib.egcl_allpairs_part_size.argtypes = [_I, _I]
-        lib.egcl_allpairs_part_size.restype = _I
+        _bind_part_size(lib)
         lib.egcl_allpairs_error_string.argtypes = [_I]
         lib.egcl_allpairs_error_string.restype = ctypes.c_char_p
         lib._enflow_bound = True
@@ -241,17 +253,17 @@ def _check_inputs(h, pos, box, mask_f, weights):
                              f"{cdt} on {dev}")
 
 
-def uses_sm90(code: int, H: int, direction: str) -> bool:
-    """Whether a launch goes to the Hopper kernels (bf16 forward or
-    input-gradient backward at H in ``SM90_H``) rather than the chunked
-    kernels of ``egcl_allpairs.cu``."""
-    return code == 1 and H in SM90_H and direction != "bwd_params"
+def uses_sm90(code: int, H: int) -> bool:
+    """Whether a launch goes to the Hopper kernels (bf16 at H in
+    ``SM90_H``, every direction) rather than the chunked kernels of
+    ``egcl_allpairs.cu``."""
+    return code == 1 and H in SM90_H
 
 
 def _smem(code: int, N: int, nf: int, H: int, direction: str):
     """(bytes a launch of this kind needs, at most, or -1 for sizes its
     kernel does not take; the card's limit)."""
-    if uses_sm90(code, H, direction):
+    if uses_sm90(code, H):
         lib = _sm90_library()
         return (lib.egcl_sm90_smem_bytes(N, nf, H, _KIND[direction]),
                 lib.egcl_sm90_smem_limit())
@@ -290,9 +302,9 @@ def _check_fits(code: int, dims, direction: str):
 
 
 def _split_part(tot, nf: int, H: int):
-    """The summed partials (``PartLayout``: dW2, dW3, dW1a, dW1b, dw1r,
-    db1, db2, db3, dw4, then padding) as the nine gradients in the weights'
-    order and shapes."""
+    """The summed partials (``PartLayout`` of ``csrc/egcl_part_layout.cuh``:
+    dW2, dW3, dW1a, dW1b, dw1r, db1, db2, db3, dw4, then padding) as the
+    nine gradients in the weights' order and shapes."""
     HH, nH = H * H, nf * H
     dW2, dW3, dW1a, dW1b, dw1r, db1, db2, db3, dw4 = torch.split(
         tot[:2 * HH + 2 * nH + 5 * H], (HH, HH, nH, nH, H, H, H, H, H))
@@ -319,7 +331,7 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
     code = _DTYPE_CODE[cdt]
     dims = (B, N, nf, H)
     _check_fits(code, dims, direction)
-    sm90 = uses_sm90(code, H, direction)
+    sm90 = uses_sm90(code, H)
     lib = _sm90_library() if sm90 else _library()
     # the kernels read the weights 8 or 16 bytes at a time
     ins = [t if t.data_ptr() % 16 == 0 else t.clone()
@@ -361,16 +373,29 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
             else:
                 counts.bwd_h_rule_launches += 1
         return dh, dpos
-    # one row of partials per block, about one block per multiprocessor;
-    # each block zeroes its own row
-    part = torch.empty((min(B, blocks), lib.egcl_allpairs_part_size(nf, H)),
-                       dtype=torch.float32, device=h.device)
+    # rows of partials that the kernel fills itself: one per warpgroup (the
+    # Hopper kernel; each row ends with its scratch tile) or per block
+    P = lib.egcl_part_size(nf, H)
+    if sm90:
+        part = torch.empty((lib.egcl_sm90_param_slices(*dims, blocks)
+                            if B else 0, lib.egcl_sm90_slice_floats(nf, H)),
+                           dtype=torch.float32, device=h.device)
+    else:
+        part = torch.empty((min(B, blocks), P), dtype=torch.float32,
+                           device=h.device)
     if B:
-        err = lib.egcl_allpairs_bwd_params(code, *dims, blocks, *ptrs, *outs,
+        if sm90:
+            err = lib.egcl_sm90_bwd_params(*dims, blocks, *ptrs, *outs,
                                            part.data_ptr(), stream)
-        _raise_on(lib, err, "backward (parameter gradients)", dims)
-        counts.bwd_param_launches += 1
-    return (dh, dpos) + _split_part(part.sum(dim=0), nf, H)
+        else:
+            err = lib.egcl_allpairs_bwd_params(code, *dims, blocks, *ptrs,
+                                               *outs, part.data_ptr(), stream)
+        _raise_on(lib, err, "backward (parameter gradients)", dims, sm90)
+        if sm90 or code == 0:
+            counts.bwd_param_launches += 1
+        else:
+            counts.bwd_param_h_rule_launches += 1
+    return (dh, dpos) + _split_part(part[:, :P].sum(dim=0), nf, H)
 
 
 def allpairs_edges_fwd(h, pos, box, mask_f, weights):

@@ -9,11 +9,13 @@ and fed to both packages; parameters are carried across with
   1e-12 relative, a coincident pair at softening 0 included.
 - ``flow_vi_loss`` and every parameter gradient against
   ``jax.value_and_grad`` on the same base batch, float64 at 1e-9 (of each
-  array's max) with ``stl`` off and on; and at float32 through the
-  all-pairs kernel's plain version against the Pallas kernel in interpret
+  array's max) with ``stl`` off and on, at N=4 and at LJ55's N=55; and
+  at float32 through the all-pairs kernel's plain version against the
+  Pallas kernel in interpret
   mode (``use_pallas: v3``), 2e-4 of each array's max (float32 round-off
   through two flow steps, the LJ target and the sums over the edges).
-- The anneal schedule of ``example/vi_lj13.yaml`` at epochs 0, 25, 50, 60.
+- The anneal schedules of ``example/vi_lj13.yaml`` at epochs 0, 25, 50, 60
+  and of ``example/vi_lj55.yaml`` (constant cap) at epochs 0 to 39.
 - The optimizer chain against ``optax.chain(stateless nan_to_num,
   clip_by_global_norm, adam)`` over 3 steps with NaN and inf gradients
   (1e-10, as the NLL optimizer's test).
@@ -102,33 +104,34 @@ def test_lj_cluster_static_call_keeps_the_plain_branch():
                                over[[0, 2, 3, 4]].numpy(), rtol=1e-12)
 
 
-def _vi_case(dtype, use_pallas, stl):
-    """Loss and parameter gradients of both packages on one base batch."""
+def _vi_case(dtype, use_pallas, stl, n_atoms=N, P=6):
+    """Loss and parameter gradients of both packages on one base batch of
+    ``P`` particles of ``n_atoms`` atoms."""
     kw = dict(n_iter=2, dt=0.05, nbr_mode="all_pairs")
     jcfg = JFlowConfig(egcl=JEGCLConfig(NF, H, use_pallas=use_pallas), **kw)
     tcfg = FlowConfig(egcl=EGCLConfig(NF, H, use_pallas=use_pallas), **kw)
     jdt = jnp.float64 if dtype == np.float64 else jnp.float32
     jp = j_init_flow(jax.random.PRNGKey(0), jcfg, jdt)
     stds = dict(pos_std=0.8, vel_std=1.1, feat_std=0.9)
-    P, rng = 6, np.random.default_rng(1)
-    draws = {"h": rng.normal(size=(P, N, NF)) * stds["feat_std"],
-             "g": rng.normal(size=(P, N, NF)) * stds["feat_std"],
-             "pos": rng.normal(size=(P, N, 3)) * stds["pos_std"],
-             "vel": rng.normal(size=(P, N, 3)) * stds["vel_std"]}
+    n, rng = n_atoms, np.random.default_rng(1)
+    draws = {"h": rng.normal(size=(P, n, NF)) * stds["feat_std"],
+             "g": rng.normal(size=(P, n, NF)) * stds["feat_std"],
+             "pos": rng.normal(size=(P, n, 3)) * stds["pos_std"],
+             "vel": rng.normal(size=(P, n, 3)) * stds["vel_std"]}
     draws = {k: v.astype(dtype) for k, v in draws.items()}
-    rest = dict(mask=np.ones((P, N), bool), box=np.full((P, 3), 1e3, dtype),
+    rest = dict(mask=np.ones((P, n), bool), box=np.full((P, 3), 1e3, dtype),
                 r_cut=np.full((P,), 1e2, dtype))
     jbatch = JSystem(**{k: jnp.asarray(v) for k, v in {**draws,
                                                        **rest}.items()})
     tbatch = System(**{k: torch.from_numpy(v.copy())
                        for k, v in {**draws, **rest}.items()})
     soft, cap, beta = 0.1, 150.0, 0.8
-    jt = j_targets.lj_cluster(N, kBT=2.0, c_osc=0.5, e_cap=500.0)
+    jt = j_targets.lj_cluster(n, kBT=2.0, c_osc=0.5, e_cap=500.0)
     jtgt = j_system_target(
         lambda x: jnp.asarray(beta, jdt) * jt.log_prob(
             x, softening=jnp.asarray(soft, jdt), e_cap=jnp.asarray(cap, jdt)),
         kBT_aux=1.3)
-    tt = targets.lj_cluster(N, kBT=2.0, c_osc=0.5, e_cap=500.0)
+    tt = targets.lj_cluster(n, kBT=2.0, c_osc=0.5, e_cap=500.0)
     ttgt = make_system_target(
         lambda x: beta * tt.log_prob(x, softening=soft, e_cap=cap),
         kBT_aux=1.3)
@@ -154,9 +157,11 @@ def _vi_case(dtype, use_pallas, stl):
     return float(jl), float(tl.detach()), want, grads
 
 
+@pytest.mark.parametrize("n_atoms,P", [(N, 6), (55, 2)])
 @pytest.mark.parametrize("stl", [False, True])
-def test_flow_vi_loss_matches_jax_f64(stl):
-    jl, tl, want, grads = _vi_case(np.float64, False, stl)
+def test_flow_vi_loss_matches_jax_f64(stl, n_atoms, P):
+    """N=55 is vi_lj55.yaml's cluster (at a narrow width, 2 particles)."""
+    jl, tl, want, grads = _vi_case(np.float64, False, stl, n_atoms, P)
     assert tl == pytest.approx(jl, rel=1e-9)
     for w, g in zip(want, grads):
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-9,
@@ -215,6 +220,21 @@ def test_vi_anneal_schedule_of_vi_lj13():
     assert uncapped(2)[1] == float(np.finfo(np.float32).max)
     with pytest.raises(ValueError, match="beta_start"):
         vi_anneal({"anneal": {"beta_start": 0.0}})
+
+
+def test_vi_anneal_schedule_of_vi_lj55():
+    """vi_lj55.yaml keeps its energy cap at 2000 throughout (no
+    e_cap_start) and anneals the softening 0.2 -> 0 over 25 epochs
+    (enflow_tpu/train/driver.py:854-894)."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    with open(root / "example" / "vi_lj55.yaml") as f:
+        tgt = yaml.safe_load(f)["training"]["target"]
+    sched = vi_anneal(tgt)
+    for epoch, s in {0: 0.2, 5: 0.16, 12: 0.104, 25: 0.0, 39: 0.0}.items():
+        soft, cap, beta = sched(epoch)
+        assert soft == pytest.approx(s, abs=1e-15)
+        assert cap == pytest.approx(2000.0, rel=1e-12)
+        assert beta == 1.0
 
 
 def test_vi_optimizer_chain_matches_optax():
