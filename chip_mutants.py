@@ -24,7 +24,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# group -> {name: None (control) or (text in the source, its replacement)}
+# group -> {name: None (control), or an edit (text in the source, its
+# replacement[, how often the text occurs: 1 unless given]), or a list of
+# such edits}
 MUTANTS = {
     "egcl_allpairs": {
         "control": None,
@@ -69,20 +71,41 @@ MUTANTS = {
             "return (E + kTile - 1) / kTile;",
             "return E / kTile;"),
     },
+    # the tiled kernels (H = 64, 128), which every shape but h96 runs
     "edge_pipeline": {
         "control": None,
-        "K5: the K-sums drop each chunk's last row": (
-            "for (int r = 0; r < nrows; ++r)",
-            "for (int r = 0; r < nrows - 1; ++r)"),
+        "K5: the K-sums drop each atom's last row of a tile": (
+            "for (int r = rs; r < re; ++r) acc += src[r * ld + c];",
+            "for (int r = rs; r < re - 1; ++r) acc += src[r * ld + c];"),
         "K6: the clip mask made inclusive": (
-            "(pre > -100.f && pre < 100.f)",
-            "(pre >= -100.f && pre <= 100.f)"),
+            "inside = (pre > -100.f && pre < 100.f) ? 1.f : 0.f;\n"
+            "        const float dtr =",
+            "inside = (pre >= -100.f && pre <= 100.f) ? 1.f : 0.f;\n"
+            "        const float dtr ="),
         "m1 not rounded to the compute dtype": (
-            "X[idx] = rnd<T>(silu_f(z));",
-            "X[idx] = silu_f(z);"),
+            "rnd<T>(silu_t<T>(z[0])), rnd<T>(silu_t<T>(z[1])),\n"
+            "        rnd<T>(silu_t<T>(z[2])), rnd<T>(silu_t<T>(z[3])));",
+            "silu_t<T>(z[0]), silu_t<T>(z[1]),\n"
+            "        silu_t<T>(z[2]), silu_t<T>(z[3]));"),
         "dgate not rounded to the compute dtype": (
-            "s.dgr[r] = rnd<T>(dgate);",
-            "s.dgr[r] = dgate;"),
+            "const float dgr = rnd<T>(dgate);",
+            "const float dgr = dgate;"),
+        "a padded row counted (unmasked, in the outer products)": [
+            ("return r < nr ? at(em, r) : 0.f;", "return at(em, r);"),
+            ("outer<H>(X1, X0, nr, ky, nx, dW3);",
+             "outer<H>(X1, X0, 8 * q, ky, nx, dW3);"),
+            ("outer<H>(X1, X2, nr, ky, nx, dW2);",
+             "outer<H>(X1, X2, 8 * q, ky, nx, dW2);")],
+        "a block's slice left unwritten (block 0's dW3)": (
+            "*reinterpret_cast<float4*>(part + L.dW3 + k * H + n) =",
+            "if (blockIdx.x != 0)\n"
+            "        *reinterpret_cast<float4*>(part + L.dW3 + k * H + n) ="),
+        "a prefetched tile from the wrong rows (the current ones again)": (
+            "prefetch_rows<T, H>(a, s, st ^ 1, nxt);",
+            "prefetch_rows<T, H>(a, s, st ^ 1, cur);", 2),
+        "the weights' swizzle off by one row on load": (
+            "const int dst = r * H + ((kc ^ ((r >> 2) & 7)) << 2);",
+            "const int dst = r * H + ((kc ^ (((r + 1) >> 2) & 7)) << 2);"),
     },
     "pair_energy": {
         "control": None,
@@ -172,11 +195,15 @@ def main():
                 shutil.copy(ROOT / "chip_smoke.py", tmp)
                 src = Path(tmp) / src_rel
                 text = src.read_text()
-                if edit is not None:
-                    if text.count(edit[0]) != 1:
+                for old, new, *times in ([] if edit is None else
+                                         [edit] if isinstance(edit, tuple)
+                                         else edit):
+                    if text.count(old) != (times[0] if times else 1):
                         raise RuntimeError(f"mutant '{name}': its text is "
-                                           f"not in {src_rel} exactly once")
-                    src.write_text(text.replace(*edit))
+                                           f"not in {src_rel} as often as "
+                                           f"expected")
+                    text = text.replace(old, new)
+                src.write_text(text)
                 print(f"[mutant] {group}: {name}", flush=True)
                 subprocess.run([sys.executable, "-c", READ[group]], cwd=tmp,
                                check=True)

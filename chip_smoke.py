@@ -36,6 +36,9 @@ Phases (each prints its own line; any failure exits non-zero):
    plain version: form r2 at B=30, N=13; form r at B=1, N=13 (atoms on the
    half-box rounding boundary) and at B=2, N=1500 (3 padded, box 12).
 6. flow   — ``reverse_core(forward_core(x)) == x`` through the kernel, f32.
+6b. flags — a flagged EGCL (attention, norm_diff, tanh; use_pallas off)
+   in all_pairs and images mode on the card: the plain route (its own
+   counter, no kernel launch), against float64 on the CPU.
 7. smc    — the sampling path: the port's driver runs ``mode: sample,
    algo: smc`` on LJ13 (1024 particles, 8 temperatures, 1 HMC sweep of 5
    leapfrog steps, 5 flow steps at H=128, bf16 compute); 1 warm-up and 3
@@ -57,10 +60,13 @@ Phases (each prints its own line; any failure exits non-zero):
    implies; then a 1-epoch rerun that resumes from the checkpoint.
 11. edge  — the gathered-edge EGCL kernels (forward K5, backward K6 with
    all seven parameter gradients) against their plain version at the
-   training shape (A=390 atoms, K = the auto capacity phase 9 observed,
-   C=3, H=128), a ragged one (A=1000, K=40, C=11, masked slots and atoms)
-   in bf16 and f32, and a shape whose gate hits the clip bounds exactly;
-   timed as in phase 3.
+   training shape (A=390 atoms, K = the auto capacity phase 10 observed,
+   C=3, H=128), a ragged one (A=1000, K=40, C=11, masked slots and atoms),
+   one whose gate hits the clip bounds exactly, one whose row tiles end in
+   padding (K=13), and at H=64 (the tiled kernels) and H=96 (the chunked
+   kernels, by the wrapper's size rule), each in bf16 and f32; a second K6
+   launch must give the same bits. Timed as in phase 3 at the first two
+   shapes, and as device time per launch.
 
 ``python3 chip_smoke.py --ab OLD.cu`` runs phases 1-2 and then times the
 bf16 kernels built from OLD.cu against the current ones, alternating old,
@@ -69,7 +75,11 @@ CUDA events and device time and the SMC run of phase 7; for an earlier
 egcl_allpairs.cu (the chunked kernels, e.g. ``git show
 HEAD:enflow_tpu_torch/csrc/egcl_allpairs.cu``) also K2 with parameter
 gradients at the VI shape and a VI epoch of phase 8. OLD.cu may also be
-an earlier egcl_allpairs_sm90.cu with the same K1/K2 entry points.
+an earlier egcl_allpairs_sm90.cu with the same K1/K2 entry points, or an
+earlier edge_pipeline.cu (e.g. ``git show
+6a2a2b7:enflow_tpu_torch/csrc/edge_pipeline.cu``): then a turn times K5/K6
+in f32 at the training shape (CUDA events and device time) and one
+train.yaml epoch.
 
 ``python3 chip_smoke.py --profile [FILE]`` runs phases 1-2 and then, in
 place of the rest, one warm-up and one SMC run of phase 7 under
@@ -122,13 +132,18 @@ ICO = dict(VI, ico=1.2455)
 # bf16 rounding; the bf16 limit sits between the sound reading and that
 # weakest fault.
 TOL = {"float32": 1e-4, "bfloat16": 4e-3}
-# The same reading for K5/K6 and K7, set from chip_mutants.py. K5/K6: the
-# sound kernel reads <= 2.3e-3 in bf16 and <= 2.0e-6 in f32; a dropped
-# K-sum row reads >= 1.1e-1, the inclusive clip mask 1.0 (clip shape), a
-# skipped bf16 rounding of dgate 6.5e-3 (ragged) and of m1 >= 1.2e-2. K7:
-# sound <= 8.1e-7; roundf for rintf 7.5e-2, counted d2 = 0 pairs >= 64.
+# The same reading for K5/K6 and K7, set from chip_mutants.py. K5/K6 (the
+# tiled kernels): the sound kernel reads <= 1.6e-3 in bf16 and <= 1.1e-6
+# in f32; a dropped K-sum row reads >= 2.2e-1, the inclusive clip mask 1.7
+# (clip shape), a skipped bf16 rounding of dgate >= 6.5e-3 (ragged) and of
+# m1 >= 8.5e-3, a padded row counted 1.4e-2 (odd, f32), a block's slice
+# unwritten, a prefetch of the wrong rows or a swizzle off by one >= 5.7e-2.
+# K7: sound <= 8.1e-7; roundf for rintf 7.5e-2, counted d2 = 0 pairs >= 64.
 TOL_EDGE = {"float32": 1e-4, "bfloat16": 4e-3}
 TOL_PAIR = 1e-4
+# The flagged plain EGCL on the card (f32) against the same function at
+# float64 on the CPU: f32 round-off of a few H = 128 products (~1e-6).
+TOL_FLAGS = 1e-4
 # K2's parameter gradients, compared as the float32 sums before the autograd
 # Function rounds them (chip_mutants.py egcl_params, faults in the bf16
 # Hopper kernel): the sound kernel reads <= 3.4e-4 in bf16 (<= 5.1e-6 in
@@ -544,16 +559,23 @@ def bound(flop, nbytes, peak):
 
 
 # K5/K6 shapes: the training path's (A = 30 molecules x 13 atoms, K = the
-# auto capacity of train.yaml's first frame, which the train phase reports
-# and which replaces the 32 here, C = 2 nf + 1 = 3), a ragged one
-# (15% of slots and some whole atoms masked, C = 11), and a small one whose
-# gate is exactly 20 so that cd * gate hits the clip bounds +-100 exactly
-# (the strict clip mask of the backward, edge_kernel.py:137).
+# auto capacity of train.yaml's first frame, 24, which the train phase
+# reports and passes in, C = 2 nf + 1 = 3), a ragged one (15% of slots and
+# some whole atoms masked, C = 11), a small one whose gate is exactly 20 so
+# that cd * gate hits the clip bounds +-100 exactly (the strict clip mask
+# of the backward, edge_kernel.py:137), one whose row tiles end in padded
+# rows (K = 13: 6 atoms a tile, 78 rows), and the tiled kernels at H = 64
+# and, by the wrapper's size rule, the chunked ones at H = 96. The last
+# four are checked, not timed.
 EDGE_SHAPES = {
-    "main": dict(A=390, K=32, C=3, H=128, masked=0.2),
+    "main": dict(A=390, K=24, C=3, H=128, masked=0.2),
     "ragged": dict(A=1000, K=40, C=11, H=128, masked=0.15, dead=37),
     "clip": dict(A=64, K=8, C=3, H=128, masked=0.1, clip=True),
+    "odd": dict(A=777, K=13, C=5, H=128, masked=0.2),
+    "h64": dict(A=500, K=24, C=3, H=64, masked=0.2),
+    "h96": dict(A=200, K=16, C=3, H=96, masked=0.2),
 }
+EDGE_TIMED = ("main", "ragged")
 EDGE_OUT = ("agg", "F_sum", "de", "dcd", "dW1", "db1", "dW2", "db2", "dW3",
             "db3", "dw4")
 # K7 shapes: the NLL term of a training batch, the MD potential of the
@@ -626,7 +648,9 @@ def edge_work(shape, dtype_name):
 
 def edge_kernel_phase(main_K=None):
     """K5/K6 against their plain version at EDGE_SHAPES, bf16 and f32;
-    ``main_K`` sets the main shape's slot count."""
+    ``main_K`` sets the main shape's slot count. A
+    second K6 launch must give the same bits; K5/K6 at EDGE_TIMED timed with
+    CUDA events and as device time per launch."""
     import torch
     from enflow_tpu_torch.ops import edge_pipeline as ep
 
@@ -634,30 +658,39 @@ def edge_kernel_phase(main_K=None):
     for sname, shape in EDGE_SHAPES.items():
         if sname == "main" and main_K:
             shape = dict(shape, K=main_K)
-        dtypes = (("float32", torch.float32),) if sname == "clip" else (
-            ("bfloat16", torch.bfloat16), ("float32", torch.float32))
-        for dname, dtype in dtypes:
+        for dname, dtype in (("bfloat16", torch.bfloat16),
+                             ("float32", torch.float32)):
             e, cd, em, W, dagg, dfs, _ = gathered_inputs(shape, dtype,
                                                           seed=13)
-            k = (ep.edge_pipeline_fwd(e, cd, em, W)
-                 + ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs))
+            kind = ep.kernel_for(dtype, shape["H"])
+            before = ep.counts.bwd_launches
+            fwd = lambda: ep.edge_pipeline_fwd(e, cd, em, W)
+            bwd = lambda: ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs)
+            k = fwd() + bwd()
+            again = bwd()
             p = (ep.edge_pipeline_plain(e, cd, em, *W)
                  + ep.edge_pipeline_plain_bwd(e, cd, em, *W, dagg, dfs))
             torch.cuda.synchronize()
+            require(ep.counts.bwd_launches == before + 2, "K6 did not launch")
             errs = rel_errs(EDGE_OUT, k, p)
             tol = TOL_EDGE[dname]
             ok = all(rel <= tol for _, rel in errs.values())
+            same = all(torch.equal(x, y) for x, y in zip(k[2:], again))
             phase("edge", f"{sname} {dname} A={shape['A']} K={shape['K']} "
-                  f"C={shape['C']} max_abs/rel err: " + "  ".join(
-                      f"{n} {a:.2e}/{r:.1e}" for n, (a, r) in errs.items())
-                  + f"  tol {tol:g} -> {'ok' if ok else 'FAIL'}")
+                  f"C={shape['C']} H={shape['H']} ({kind}) max_abs/rel err: "
+                  + "  ".join(f"{n} {a:.2e}/{r:.1e}"
+                              for n, (a, r) in errs.items())
+                  + f"  tol {tol:g} -> {'ok' if ok else 'FAIL'}; second K6 "
+                  f"launch {'bitwise equal' if same else 'DIFFERS'}")
             require(ok, f"edge kernel disagrees with plain ({sname}, "
                     f"{dname})")
-            if sname == "clip":
+            require(same, f"a second K6 launch gave other bits ({sname}, "
+                    f"{dname})")
+            if sname not in EDGE_TIMED:
                 continue
-            t_kf = cuda_time_ms(lambda: ep.edge_pipeline_fwd(e, cd, em, W))
-            t_kb = cuda_time_ms(lambda: ep.edge_pipeline_bwd(
-                e, cd, em, W, dagg, dfs))
+            t_kf, t_kb = cuda_time_ms(fwd), cuda_time_ms(bwd)
+            d_kf = device_ms(fwd, "fwd_kernel")
+            d_kb = device_ms(bwd, "bwd_kernel")
             t_pf = cuda_time_ms(lambda: ep.edge_pipeline_plain(
                 e, cd, em, *W), reps=20, calls=5)
             t_pb = cuda_time_ms(lambda: ep.edge_pipeline_plain_bwd(
@@ -666,15 +699,15 @@ def edge_kernel_phase(main_K=None):
             b_f = bound(fl_f, by_f, PEAK_FLOPS[dname])
             b_b = bound(fl_b, by_b, PEAK_FLOPS[dname])
             phase("edge", f"{sname} {dname} time ms: fwd kernel {t_kf:.4f} "
-                  f"plain {t_pf:.4f} bound {b_f[0]:.4f} ({b_f[1]}, "
-                  f"{fl_f / 1e9:.3f} GFLOP) | bwd kernel {t_kb:.4f} plain "
-                  f"{t_pb:.4f} bound {b_b[0]:.4f} ({b_b[1]}, "
-                  f"{fl_b / 1e9:.3f} GFLOP)")
+                  f"(device {d_kf:.4f}) plain {t_pf:.4f} bound {b_f[0]:.4f} "
+                  f"({b_f[1]}, {fl_f / 1e9:.3f} GFLOP) | bwd kernel "
+                  f"{t_kb:.4f} (device {d_kb:.4f}) plain {t_pb:.4f} bound "
+                  f"{b_b[0]:.4f} ({b_b[1]}, {fl_b / 1e9:.3f} GFLOP)")
             record[(sname, dname)] = dict(
                 err_fwd=max(errs[n][0] for n in EDGE_OUT[:2]),
                 err_bwd=max(errs[n][0] for n in EDGE_OUT[2:]),
-                ms_fwd=t_kf, ms_bwd=t_kb, plain_fwd=t_pf, plain_bwd=t_pb,
-                bound_fwd=b_f, bound_bwd=b_b)
+                ms_fwd=t_kf, ms_bwd=t_kb, dev_fwd=d_kf, dev_bwd=d_kb,
+                plain_fwd=t_pf, plain_bwd=t_pb, bound_fwd=b_f, bound_bwd=b_b)
     return record
 
 
@@ -757,14 +790,17 @@ def pair_kernel_phase():
         require(ok, f"pair kernel disagrees with plain ({sname})")
         t_k = cuda_time_ms(lambda: pe.pair_energy_and_grad(
             pos, mask, box, form, soft, cut))
+        t_d = device_ms(lambda: pe.pair_energy_and_grad(
+            pos, mask, box, form, soft, cut), "pair_energy_kernel")
         t_p = cuda_time_ms(lambda: pe.pair_energy_plain(
             pos, mask, box, form, soft, cut), reps=20, calls=5)
         flop, nbytes = pair_work(form, pos, mask, box, cut)
         b = bound(flop, nbytes, PEAK_FLOPS["float32"])
-        phase("pair", f"{sname} time ms: kernel {t_k:.4f} plain {t_p:.4f} "
-              f"bound {b[0]:.6f} ({b[1]}, {flop / 1e6:.3f} MFLOP)")
+        phase("pair", f"{sname} time ms: kernel {t_k:.4f} (device "
+              f"{t_d:.4f}) plain {t_p:.4f} bound {b[0]:.6f} ({b[1]}, "
+              f"{flop / 1e6:.3f} MFLOP)")
         record[sname] = dict(err=max(a for a, _ in errs.values()), ms=t_k,
-                             plain=t_p, bound=b)
+                             device=t_d, plain=t_p, bound=b)
     return record
 
 
@@ -806,6 +842,66 @@ def flow_phase():
             "kernel is not the identity")
     require(c.fwd_launches == 10 and c.plain_fwd_calls == 0,
             "flow did not run through the kernel")
+
+
+def flags_phase():
+    """A flagged EGCL (attention, norm_diff and tanh on, use_pallas off)
+    on the card in all_pairs and images mode, through the flow's
+    ``_egcl_at``: it must take the plain route (its counter moves, no
+    kernel launches) and agree with the same EGCL at float64 on the CPU
+    within TOL_FLAGS."""
+    import torch
+    from enflow_tpu_torch.data.system import System
+    from enflow_tpu_torch.flow.integrators import FlowConfig, _egcl_at
+    from enflow_tpu_torch.nn import egcl as egcl_mod
+    from enflow_tpu_torch.nn.egcl import EGCLConfig, init_egcl
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    from enflow_tpu_torch.ops import egcl_allpairs as ea
+
+    B, N, nf, H = 16, 13, 5, 128
+    gen = torch.Generator().manual_seed(23)
+    ecfg = EGCLConfig(nf, H, attention=True, norm_diff=True, tanh=True)
+    params = init_egcl(gen, ecfg, torch.float64, "cpu")
+    for mode, box_len, r_cut, cap in (("all_pairs", 1e3, 1e2, None),
+                                      ("images", 4.0, 2.5, 64)):
+        pos = torch.rand((B, N, 3), generator=gen, dtype=torch.float64)
+        pos = (pos - 0.5) * min(box_len, 3.0)
+        sys64 = System(h=torch.randn((B, N, nf), generator=gen,
+                                     dtype=torch.float64),
+                       g=torch.zeros((B, N, nf), dtype=torch.float64),
+                       pos=pos, vel=torch.zeros_like(pos),
+                       mask=torch.ones((B, N), dtype=torch.bool),
+                       box=torch.full((B, 3), box_len, dtype=torch.float64),
+                       r_cut=torch.full((B,), r_cut, dtype=torch.float64))
+        cfg = FlowConfig(n_iter=1, dt=0.1, egcl=ecfg, nbr_mode=mode,
+                         nbr_capacity=cap)
+        want, _ = _egcl_at(None, cfg, params, sys64)
+        to_card = lambda t: t.to(device="cuda", dtype=torch.float32
+                                 if t.is_floating_point() else t.dtype)
+        card_sys = System(**{f: to_card(getattr(sys64, f)) for f in (
+            "h", "g", "pos", "vel", "mask", "box", "r_cut")})
+        tree = lambda t: ({k: tree(v) for k, v in t.items()}
+                          if isinstance(t, dict) else [tree(v) for v in t]
+                          if isinstance(t, list) else to_card(t))
+        card_params = tree(params)
+        reset_counts()
+        got, ovf = _egcl_at(None, cfg, card_params, card_sys)
+        torch.cuda.synchronize()
+        launches = (ea.counts.fwd_launches + ea.counts.bwd_launches
+                    + ep.counts.fwd_launches + ep.counts.bwd_launches)
+        errs = rel_errs(("Q", "F", "G"), got, [to_card(w) for w in want])
+        ok = all(r <= TOL_FLAGS for _, r in errs.values())
+        phase("flags", f"{mode} f32 B={B} N={N} attention+norm_diff+tanh: "
+              f"plain-route calls {egcl_mod.counts.plain_calls}, kernel "
+              f"launches {launches}, overflow {int(ovf)}; vs CPU float64 "
+              "max_abs/rel err: " + "  ".join(
+                  f"{n} {a:.2e}/{r:.1e}" for n, (a, r) in errs.items())
+              + f"  tol {TOL_FLAGS:g} -> {'ok' if ok else 'FAIL'}")
+        require(egcl_mod.counts.plain_calls == 1 and launches == 0,
+                "the flagged EGCL did not take the plain route")
+        require(int(ovf) == 0, "the images neighbor list overflowed")
+        require(ok, f"the flagged EGCL on the card disagrees with float64 "
+                f"({mode})")
 
 
 SMC_YAML = """\
@@ -932,7 +1028,9 @@ def ab_phase(card, old_src):
     from enflow_tpu_torch.ops import build
     from enflow_tpu_torch.ops import egcl_allpairs as ops
 
-    hopper = "egcl_sm90_fwd" in Path(old_src).read_text()
+    text = Path(old_src).read_text()
+    edge = "edge_pipeline_fwd" in text
+    hopper = "egcl_sm90_fwd" in text
     with tempfile.TemporaryDirectory() as tmp:
         lib_path = Path(tmp) / "libegcl_old.so"
         t0 = time.perf_counter()
@@ -942,8 +1040,12 @@ def ab_phase(card, old_src):
         require(out.returncode == 0, f"nvcc failed on {old_src}:\n"
                 f"{out.stdout}{out.stderr}")
         old_lib = ctypes.CDLL(str(lib_path))
-    phase("ab", f"built {old_src} ({'Hopper' if hopper else 'chunked'} "
-          f"kernels) in {time.perf_counter() - t0:.1f} s")
+    kind = "edge-pipeline" if edge else "Hopper" if hopper else "chunked"
+    phase("ab", f"built {old_src} ({kind} kernels) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if edge:
+        edge_ab_phase(card, old_lib)
+        return
     sm90 = ops.uses_sm90
     if hopper:
         key, new_lib = "egcl_allpairs_sm90", ops._sm90_library()
@@ -1037,6 +1139,82 @@ def ab_phase(card, old_src):
         phase("ab", f"{key} (median): old {old:.5f} new {new:.5f} {unit} -> "
               f"{old / new:.2f}x" + (f"; {1024 / old:.1f} -> {1024 / new:.1f}"
                                      " samples/s" if key == "smc" else ""))
+
+
+def edge_ab_phase(card, old_lib):
+    """An earlier edge_pipeline.cu (``old_lib``, built) against the current
+    one, f32, in turns old, new, new, old, old, new within this process:
+    every launch of an old turn goes to the old source's kernels. A turn
+    times K5 and K6 at EDGE_TIMED (the training shape and the ragged one)
+    with CUDA events and device time, then one train.yaml epoch (after a
+    warm-up epoch before the first turn)."""
+    import os
+    import torch
+    from enflow_tpu_torch.ops import build
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+
+    new_lib = ep._library()
+    ep.bind_library(old_lib)
+    tiled = ep.uses_tiled
+
+    def use(which):
+        build._loaded["edge_pipeline"] = old_lib if which == "old" else new_lib
+        ep.uses_tiled = (lambda H: False) if which == "old" else tiled
+
+    cases = {}
+    for sname in EDGE_TIMED:
+        e, cd, em, W, dagg, dfs, _ = gathered_inputs(EDGE_SHAPES[sname],
+                                                      torch.float32, 13)
+        cases[sname] = (
+            lambda e=e, cd=cd, em=em, W=W: ep.edge_pipeline_fwd(e, cd, em, W),
+            lambda e=e, cd=cd, em=em, W=W, dagg=dagg, dfs=dfs:
+                ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs),
+            ep.edge_pipeline_plain(e, cd, em, *W)
+            + ep.edge_pipeline_plain_bwd(e, cd, em, *W, dagg, dfs))
+    cwd, rows = os.getcwd(), []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            main = train_driver(tmp, 1)
+            main.train()                                    # warm-up
+            main.start_epoch += 1
+            for which in ("old", "new", "new", "old", "old", "new"):
+                use(which)
+                t, line = {}, []
+                for sname, (fwd, bwd, want) in cases.items():
+                    errs = rel_errs(EDGE_OUT, fwd() + bwd(), want)
+                    require(all(r <= TOL_EDGE["float32"] for _, r in
+                                errs.values()), f"{which} K5/K6 disagree "
+                            f"with plain at {sname}: {errs}")
+                    t.update({
+                        f"{sname} fwd": cuda_time_ms(fwd),
+                        f"{sname} bwd": cuda_time_ms(bwd),
+                        f"{sname} fwd_dev": device_ms(fwd, "fwd_kernel"),
+                        f"{sname} bwd_dev": device_ms(bwd, "bwd_kernel")})
+                    line.append(
+                        f"{sname}: K5 {t[sname + ' fwd']:.4f} ms (device "
+                        f"{t[sname + ' fwd_dev']:.4f}), K6 "
+                        f"{t[sname + ' bwd']:.4f} ms (device "
+                        f"{t[sname + ' bwd_dev']:.4f})")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                main.train()
+                torch.cuda.synchronize()
+                t["train"] = (time.perf_counter() - t0) / TRAIN_STEPS_PER_EPOCH
+                main.start_epoch += 1
+                rows.append((which, t))
+                phase("ab", f"{which} on {card}: " + "; ".join(line)
+                      + f"; train.yaml {t['train']:.5f} s/step (one epoch "
+                      f"of {TRAIN_STEPS_PER_EPOCH})")
+    finally:
+        use("new")
+        os.chdir(cwd)
+    for key in rows[0][1]:
+        pick = lambda which: statistics.median(
+            t[key] for w, t in rows if w == which)
+        old, new = pick("old"), pick("new")
+        unit = "s/step" if key == "train" else "ms"
+        phase("ab", f"{key} (median): old {old:.5f} new {new:.5f} {unit} -> "
+              f"{old / new:.2f}x")
 
 
 def profile_run(label, warm_up, run, card, out_file=None, top=12):
@@ -1148,8 +1326,9 @@ def train_driver(tmp, num_epochs):
 
 
 def reset_counts():
+    from enflow_tpu_torch.nn import egcl
     from enflow_tpu_torch.ops import edge_pipeline, egcl_allpairs, pair_energy
-    for mod in (egcl_allpairs, edge_pipeline, pair_energy):
+    for mod in (egcl, egcl_allpairs, edge_pipeline, pair_energy):
         mod.counts.reset()
 
 
@@ -1159,6 +1338,7 @@ def train_phase(card):
     then a rerun of 1 epoch that resumes from the checkpoint."""
     import os
     import torch
+    from enflow_tpu_torch.nn import egcl
     from enflow_tpu_torch.ops import edge_pipeline as ep
     from enflow_tpu_torch.ops import egcl_allpairs as ea
     from enflow_tpu_torch.ops import pair_energy as pe
@@ -1217,7 +1397,7 @@ def train_phase(card):
                             k7_r=pe.counts.r_launches)
             plain = (ep.counts.plain_fwd_calls + ep.counts.plain_bwd_calls
                      + pe.counts.plain_calls + ea.counts.plain_fwd_calls
-                     + ea.counts.plain_bwd_calls)
+                     + ea.counts.plain_bwd_calls + egcl.counts.plain_calls)
             # per train step: one gathered-edge forward (K5) and backward
             # (K6) per flow step (5), and one NLL pair term (K7 r2; its
             # backward is ct * g, no launch)
@@ -1552,9 +1732,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", default=None, metavar="OLD_CU",
                     help="time the kernels built from an earlier "
-                    "egcl_allpairs.cu or egcl_allpairs_sm90.cu against the "
-                    "current ones, and SMC runs with each, instead of the "
-                    "phases after the build")
+                    "egcl_allpairs.cu, egcl_allpairs_sm90.cu or "
+                    "edge_pipeline.cu against the current ones, and SMC runs "
+                    "(train.yaml epochs for edge_pipeline.cu) with each, "
+                    "instead of the phases after the build")
     ap.add_argument("--profile", nargs="?", const="", default=None,
                     metavar="FILE", help="profile one SMC run instead of "
                     "the phases after the build; the full table to FILE")
@@ -1606,6 +1787,7 @@ def main():
     qrec = param_kernel_phase(largest["bf16 bwd_params"])
     prec = pair_kernel_phase()
     flow_phase()
+    flags_phase()
     n_fwd, n_bwd = smc_phase(card)
     vi = vi_phase(card)
     vi55_phase(card)

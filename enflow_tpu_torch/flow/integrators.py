@@ -33,7 +33,7 @@ from ..data.neighbors import neighbors_with_diffs
 from ..data.system import System
 from ..nn import argmax as argmax_deq
 from ..nn.egcl import (EGCLConfig, init_egcl, apply_egcl,
-                       apply_egcl_fused_allpairs)
+                       apply_egcl_fused_allpairs, plain_route)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,7 +139,8 @@ def init_flow(gen: torch.Generator, cfg: FlowConfig, dtype=torch.float32,
 def _egcl_at(params, cfg: FlowConfig, net_params, sys: System):
     """One EGCL on the current state; returns ``((Q, F, G), overflow)``.
 
-    ``all_pairs``: on the card always the fused all-pairs kernel; on the CPU
+    ``all_pairs``: on the card the fused all-pairs kernel, except for the
+    EGCLs that ``plain_route`` sends to the plain EGCL; on the CPU
     ``use_pallas: v2|v3`` selects the kernel's plain version and every other
     value the plain EGCL (the same function, as in the JAX package).
     ``images``: the multi-image neighbor list is rebuilt from the current
@@ -148,7 +149,8 @@ def _egcl_at(params, cfg: FlowConfig, net_params, sys: System):
     (a device scalar, 0 in ``all_pairs`` mode)."""
     if cfg.nbr_mode == "all_pairs":
         zero = torch.zeros((), dtype=torch.int32, device=sys.pos.device)
-        if sys.pos.is_cuda or cfg.egcl.use_pallas in ("v2", "v3"):
+        if (sys.pos.is_cuda and not plain_route(cfg.egcl)) or \
+                cfg.egcl.use_pallas in ("v2", "v3"):
             return apply_egcl_fused_allpairs(net_params, cfg.egcl, sys.h,
                                              sys.pos, sys.box, sys.mask), zero
         nbrs, cd = neighbors_with_diffs(sys.pos, sys.box, sys.mask,

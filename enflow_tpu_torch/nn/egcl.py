@@ -5,21 +5,29 @@ Per flow step it returns ``Q [B,N,1]`` (log velocity scale), ``F [B,N,3]``
 (equivariant force) and ``G [B,N,nf]`` (node feature update), zeroed on
 padded atoms.
 
+The kernels implement the default EGCL only. :func:`plain_route` decides,
+from the config alone, which EGCLs run the plain PyTorch path
+(``edge_messages`` + ``node_outputs``) instead, on the card as on the CPU:
+those with ``attention``, ``norm_diff`` or ``tanh`` on and ``use_pallas``
+off, as the JAX package computes them on XLA. With ``use_pallas`` set and
+a flag on, the kernel paths raise, as the JAX package does. ``counts``
+counts the plain path's calls.
+
 In ``all_pairs`` mode two paths compute the same function:
 
 - ``apply_egcl(all_pairs=True)``: the plain broadcast path over
-  ``[B, N, N, ·]`` edge tensors. It serves CPU tensors only (the float64
-  parity tests, and the attention/norm_diff/tanh variants).
+  ``[B, N, N, ·]`` edge tensors. It serves CPU tensors (the float64
+  parity tests) and, on the card, the EGCLs of :func:`plain_route`.
 - ``apply_egcl_fused_allpairs``: the edge pipeline through
   ``ops/egcl_allpairs.py`` — the CUDA kernel on the card, its plain version
-  on the CPU. On a CUDA tensor every all-pairs EGCL goes this way, whatever
-  ``use_pallas`` says: ``False``, ``True``, ``"v1"``, ``"v2"`` and ``"v3"``
-  all name this same function in ``all_pairs`` mode.
+  on the CPU. On a CUDA tensor every other all-pairs EGCL goes this way,
+  whatever ``use_pallas`` says: ``False``, ``True``, ``"v1"``, ``"v2"`` and
+  ``"v3"`` all name this same function in ``all_pairs`` mode.
 
 On a gathered neighbor list (``images`` mode) ``apply_egcl`` runs the
-gathered-edge kernel of ``ops/edge_pipeline.py`` on every CUDA tensor,
-whatever ``use_pallas`` says (``False``, ``True`` and ``"v1"`` name the same
-function there).
+gathered-edge kernel of ``ops/edge_pipeline.py`` on every CUDA tensor but
+those of :func:`plain_route`, whatever ``use_pallas`` says (``False``,
+``True`` and ``"v1"`` name the same function there).
 """
 
 from __future__ import annotations
@@ -29,10 +37,13 @@ import dataclasses
 import torch
 
 from .. import resolve_device
+from ..ops.build import LaunchCounts
 from .mlp import init_linear, apply_linear, init_mlp, apply_mlp, silu
 
 _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                    "float64": torch.float64}
+
+counts = LaunchCounts("plain_calls")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +141,14 @@ def _cast_compute(params, cfg: EGCLConfig, h):
     return _tree_map(lambda x: x.to(cdt), params), h.to(cdt)
 
 
+def plain_route(cfg: EGCLConfig) -> bool:
+    """Whether this EGCL runs the plain path on every device: a variant
+    flag (``attention``, ``norm_diff``, ``tanh``) on and ``use_pallas``
+    off. The kernels take the default EGCL only."""
+    return bool(cfg.attention or cfg.norm_diff or cfg.tanh) and \
+        not cfg.use_pallas
+
+
 def _check_kernel_flags(cfg: EGCLConfig, what: str):
     if cfg.attention or cfg.norm_diff or cfg.tanh:
         raise ValueError(
@@ -146,20 +165,22 @@ def apply_egcl(params, cfg: EGCLConfig, h, coord_diff, nbr_idx, nbr_mask,
     Returns ``(Q, F, G)``.
 
     - ``all_pairs``: the plain broadcast path over ``[B,N,N,·]`` edges, for
-      CPU tensors only (on the card the all-pairs EGCL runs
-      :func:`apply_egcl_fused_allpairs`).
+      CPU tensors and the EGCLs of :func:`plain_route` (on the card every
+      other all-pairs EGCL runs :func:`apply_egcl_fused_allpairs`).
     - gathered (``all_pairs=False``): ``h_j = h[b, nbr_idx]`` and
       ``edge_in = [h_i, h_j, |cd|^2]`` in the compute dtype go through the
-      gathered-edge kernel (``ops/edge_pipeline.py``) — always on the card,
-      and on the CPU when ``use_pallas`` names it (``True``/``"v1"``);
-      otherwise ``edge_messages`` with sums over K.
+      gathered-edge kernel (``ops/edge_pipeline.py``) — on the card unless
+      :func:`plain_route` says otherwise, and on the CPU when
+      ``use_pallas`` names it (``True``/``"v1"``); otherwise
+      ``edge_messages`` with sums over K.
     """
+    plain = plain_route(cfg)
     if all_pairs:
-        if h.is_cuda:
+        if h.is_cuda and not plain:
             raise RuntimeError(
-                "the all-pairs apply_egcl is the plain path and serves CPU "
-                "tensors only; on the card the all-pairs EGCL runs "
-                "apply_egcl_fused_allpairs")
+                "the all-pairs apply_egcl is the plain path; on the card it "
+                "serves only the attention/norm_diff/tanh variants, and the "
+                "all-pairs EGCL runs apply_egcl_fused_allpairs")
         if cfg.use_pallas:
             _check_kernel_flags(cfg, "use_pallas")
     in_dtype = h.dtype
@@ -170,11 +191,12 @@ def apply_egcl(params, cfg: EGCLConfig, h, coord_diff, nbr_idx, nbr_mask,
     else:
         b = torch.arange(h.shape[0], device=h.device)[:, None, None]
         h_j = h[b, nbr_idx.long()]                                # [B,N,K,nf]
-    if not all_pairs and (h.is_cuda or cfg.use_pallas):
+    if not all_pairs and not plain and (h.is_cuda or cfg.use_pallas):
         _check_kernel_flags(cfg, "the gathered-edge kernel")
         Q, F, G = _apply_egcl_gathered(params, cfg, h, h_j, coord_diff,
                                        nbr_mask, atom_mask)
     else:
+        counts.plain_calls += 1
         m, trans = edge_messages(params, cfg, h, h_j, coord_diff, nbr_mask)
         count = nbr_mask.sum(dim=2, keepdim=True)
         Q, F, G = node_outputs(params, cfg, h, m.sum(dim=2),

@@ -14,7 +14,9 @@ Contract (``fused_edge_pipeline``): pre-gathered edge rows
   backward launches its backward kernel, which recomputes the forward from
   the inputs (the only residuals the autograd Function saves) and returns
   ``de``, ``dcd`` and all seven parameter gradients. float32 and bfloat16
-  only; other dtypes raise. There is no fallback.
+  only; other dtypes raise. ``kernel_for`` is the size rule: the tiled
+  kernels at H = 64 and 128, the chunked kernels at the other widths
+  the dtype takes; it raises for the rest. There is no fallback.
 - On a CPU tensor both directions run the plain PyTorch version below,
   which rounds to the compute dtype where ``_fwd_kernel``/``_bwd_kernel``
   round (float64 is accepted there and accumulates in float64).
@@ -125,65 +127,174 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 
+# Widths of the tiled kernels of edge_pipeline.cu (float32 and bfloat16);
+# every other width a dtype takes goes to its chunked kernels (the size
+# rule of ``kernel_for``).
+TILED_H = (64, 128)
+# rows a tile of the tiled kernels at most (kQmaxFwd / kQmaxBwd x 8)
+ROWS_MAX = {"fwd": 72, "bwd": 40}
+_H_MULT = {torch.float32: 4, torch.bfloat16: 16}
+
 
 def _library():
     from .build import load
     lib = load("edge_pipeline")
     if not getattr(lib, "_enflow_bound", False):
-        # dtype, A, K, C, H, TA, blocks, 10 inputs, outputs, stream
-        lib.edge_pipeline_fwd.argtypes = [_I] * 7 + [_P] * 13
-        lib.edge_pipeline_fwd.restype = _I
-        lib.edge_pipeline_bwd.argtypes = [_I] * 7 + [_P] * 16
-        lib.edge_pipeline_bwd.restype = _I
-        lib.edge_pipeline_smem_bytes.argtypes = [_I] * 5
-        lib.edge_pipeline_smem_bytes.restype = _LL
-        lib.edge_pipeline_smem_limit.argtypes = []
-        lib.edge_pipeline_smem_limit.restype = _LL
-        lib.edge_pipeline_part_size.argtypes = [_I, _I]
-        lib.edge_pipeline_part_size.restype = _I
-        lib.edge_pipeline_error_string.argtypes = [_I]
-        lib.edge_pipeline_error_string.restype = ctypes.c_char_p
-        lib._enflow_bound = True
+        bind_library(lib)
     return lib
 
 
-def _grid(A: int, device) -> tuple[int, int]:
+def bind_library(lib):
+    """Set the ctypes signatures of an ``edge_pipeline.cu`` library (an
+    earlier source may lack the tiled entry points)."""
+    # dtype, A, K, C, H, TA, [R,] blocks, 10 inputs, outputs, stream
+    lib.edge_pipeline_fwd.argtypes = [_I] * 7 + [_P] * 13
+    lib.edge_pipeline_fwd.restype = _I
+    lib.edge_pipeline_bwd.argtypes = [_I] * 7 + [_P] * 16
+    lib.edge_pipeline_bwd.restype = _I
+    lib.edge_pipeline_smem_bytes.argtypes = [_I] * 5
+    lib.edge_pipeline_smem_bytes.restype = _LL
+    lib.edge_pipeline_smem_limit.argtypes = []
+    lib.edge_pipeline_smem_limit.restype = _LL
+    lib.edge_pipeline_error_string.argtypes = [_I]
+    lib.edge_pipeline_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "edge_tiled_fwd"):
+        lib.edge_tiled_fwd.argtypes = [_I] * 8 + [_P] * 13
+        lib.edge_tiled_fwd.restype = _I
+        lib.edge_tiled_bwd.argtypes = [_I] * 8 + [_P] * 16
+        lib.edge_tiled_bwd.restype = _I
+        lib.edge_tiled_smem_bytes.argtypes = [_I] * 6
+        lib.edge_tiled_smem_bytes.restype = _LL
+    lib._enflow_bound = True
+
+
+def uses_tiled(H: int) -> bool:
+    """Whether a launch at hidden width ``H`` goes to the tiled kernels."""
+    return H in TILED_H
+
+
+def kernel_for(dtype, H: int) -> str:
+    """The size rule: ``"tiled"`` (H = 64, 128) or ``"chunked"`` (every
+    other H that is a multiple of 4 in float32 and of 16 in bfloat16);
+    raises for what neither takes."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"the edge-pipeline kernel computes in float32 or "
+                         f"bfloat16, got {dtype}")
+    if uses_tiled(H):
+        return "tiled"
+    mult = _H_MULT[dtype]
+    if H >= mult and H % mult == 0:
+        return "chunked"
+    raise ValueError(f"edge_pipeline takes H % 16 == 0 in bfloat16 and "
+                     f"H % 4 == 0 in float32 (H = 64 and 128 in its tiled "
+                     f"kernels), got H={H} in {dtype}")
+
+
+def grid(A: int, n_sm: int) -> tuple[int, int]:
     """``(atoms per tile, blocks)``: about one tile per multiprocessor,
-    tiles of at most ``MAX_ATOM_TILE`` atoms, blocks striding over
+    tiles of at most ``MAX_ATOM_TILE`` whole atoms, blocks striding over
     tiles."""
-    from .build import multiprocessors
-    n_sm = multiprocessors(device)
     ta = max(1, min(MAX_ATOM_TILE, math.ceil(A / n_sm)))
     return ta, min(math.ceil(A / ta), n_sm)
 
 
+def row_tiles(A: int, K: int, ta: int, blocks: int, rows: int):
+    """The row tiles of each block in the order the tiled kernels walk
+    them: atom tiles ``b, b + blocks, ...`` of ``ta`` atoms, each cut into
+    tiles of ``rows`` rows and one of the rest. One list per block of
+    ``(first atom, atoms, first row, rows, rows computed)``; the rows
+    computed are the rows rounded up to a multiple of 8 (the padding is
+    masked)."""
+    out = []
+    for b in range(blocks):
+        tiles = []
+        for t in range(b, math.ceil(A / ta), blocks):
+            a0 = t * ta
+            a1 = min(a0 + ta, A)
+            for g in range(a0 * K, a1 * K, rows):
+                nr = min(rows, a1 * K - g)
+                tiles.append((a0, a1 - a0, g, nr, 8 * math.ceil(nr / 8)))
+        out.append(tiles)
+    return out
+
+
+def tile_rows(fit: int, ta: int, K: int) -> int:
+    """Rows a tile of the tiled kernels: an atom tile's ``ta K`` rows cut
+    into as few tiles of at most ``fit`` rows as they need, of equal size
+    rounded up to a multiple of 8 (72 rows: one tile forward, 40 + 32
+    backward)."""
+    n = ta * K
+    per = math.ceil(n / math.ceil(n / fit))
+    return min(fit, 8 * math.ceil(per / 8))
+
+
+_plans: dict = {}
+
+
+def _plan(lib, code, C, H, K, ta, direction):
+    """``(kernel, rows a tile)`` of one launch kind, checked against the
+    card's shared memory once per library, dtype, C, H, K, tile and
+    direction."""
+    tiled = uses_tiled(H)
+    key = (id(lib), tiled, code, C, H, K, ta, direction)
+    if key in _plans:
+        return _plans[key]
+    bwd = int(direction == "bwd")
+    limit = lib.edge_pipeline_smem_limit()
+    if tiled:
+        # the most rows a tile whose block fits
+        for rows in range(ROWS_MAX[direction], 7, -8):
+            need = lib.edge_tiled_smem_bytes(code, C, H, ta, rows, bwd)
+            if 0 <= need <= limit:
+                break
+        else:
+            raise ValueError(
+                f"edge_pipeline {direction}: C={C}, H={H}, {ta} atoms a tile "
+                f"need more than the {limit} bytes of shared memory a block "
+                f"may use, even at 8 rows a tile")
+        plan = ("tiled", tile_rows(rows, ta, K))
+    else:
+        need = lib.edge_pipeline_smem_bytes(code, C, H, ta, bwd)
+        if need > limit:
+            raise ValueError(
+                f"edge_pipeline {direction}: C={C}, H={H} needs {need} bytes "
+                f"of shared memory, more than the {limit} a block may use")
+        plan = ("chunked", 0)
+    _plans[key] = plan
+    return plan
+
+
+def _aligned(t):
+    """``t`` contiguous at a 16-byte aligned address (the kernels copy the
+    weights and dagg 16 bytes at a time)."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.contiguous().clone()
+
+
 def _launch(direction, e, cd, em, weights, dagg=None, dfs=None):
+    from .build import multiprocessors
     cdt, dev = e.dtype, e.device
-    if cdt not in _DTYPE_CODE:
-        raise ValueError(f"the edge-pipeline kernel computes in float32 or "
-                         f"bfloat16, got {cdt}")
-    for t in (cd, em, *weights):
-        if t.dtype != cdt or t.device != dev:
-            raise ValueError("cd, emask and the weights must be in the "
-                             f"compute dtype {cdt} on {dev}")
     A, K, C = e.shape
     H = weights[0].shape[1]
+    kernel_for(cdt, H)
+    idx = e.get_device()
+    for t in (cd, em, *weights):
+        if t.dtype is not cdt or t.get_device() != idx:
+            raise ValueError("cd, emask and the weights must be in the "
+                             f"compute dtype {cdt} on {dev}")
     code = _DTYPE_CODE[cdt]
     lib = _library()
-    ta, blocks = _grid(A, dev)
-    need = lib.edge_pipeline_smem_bytes(code, C, H, ta,
-                                        int(direction == "bwd"))
-    if need < 0:
-        raise ValueError(f"edge_pipeline takes H % 16 == 0 in bfloat16 and "
-                         f"H % 4 == 0 in float32, got C={C}, H={H}")
-    if need > lib.edge_pipeline_smem_limit():
-        raise ValueError(
-            f"edge_pipeline {direction}: C={C}, H={H} needs {need} bytes of "
-            f"shared memory, more than the {lib.edge_pipeline_smem_limit()} "
-            f"a block may use")
-    ins = [t.contiguous() for t in (e, cd, em, *weights)]
+    ta, blocks = grid(A, multiprocessors(dev))
+    route, rows = _plan(lib, code, C, H, K, ta, direction)
+    ins = [_aligned(t) for t in (e, cd, em, *weights)]
     stream = _P(torch.cuda.current_stream(dev).cuda_stream)
-    dims = (code, A, K, C, H, ta, blocks)
+    if route == "tiled":
+        dims = (code, A, K, C, H, ta, rows, blocks)
+        fwd, bwd = lib.edge_tiled_fwd, lib.edge_tiled_bwd
+    else:
+        dims = (code, A, K, C, H, ta, blocks)
+        fwd, bwd = lib.edge_pipeline_fwd, lib.edge_pipeline_bwd
 
     def check(err):
         if err != 0:
@@ -198,25 +309,26 @@ def _launch(direction, e, cd, em, weights, dagg=None, dfs=None):
         agg = new((A, H), dtype=cdt, device=dev)
         fs = new((A, 3), dtype=cdt, device=dev)
         if A and K:
-            check(lib.edge_pipeline_fwd(*dims, *[t.data_ptr() for t in ins],
-                                        agg.data_ptr(), fs.data_ptr(),
-                                        stream))
+            check(fwd(*dims, *[t.data_ptr() for t in ins], agg.data_ptr(),
+                      fs.data_ptr(), stream))
             counts.fwd_launches += 1
         return agg, fs
-    dagg = dagg.to(cdt).contiguous()
+    dagg = _aligned(dagg.to(cdt))
     dfs = dfs.to(cdt).contiguous()
     de = new(ins[0].shape, dtype=cdt, device=dev)
     dcd = new(ins[1].shape, dtype=cdt, device=dev)
-    part = torch.zeros((blocks, lib.edge_pipeline_part_size(C, H)),
-                       dtype=torch.float32, device=dev)
-    if A and K:
-        check(lib.edge_pipeline_bwd(*dims, *[t.data_ptr() for t in ins],
-                                    dagg.data_ptr(), dfs.data_ptr(),
-                                    de.data_ptr(), dcd.data_ptr(),
-                                    part.data_ptr(), stream))
-        counts.bwd_launches += 1
-    tot = part.sum(dim=0)
+    # one slice of the parameter gradients a block: the tiled kernel
+    # writes each once, the chunked one adds into zeros
     sizes = (C * H, H * H, H * H, H, H, H, H)
+    part = (new if route == "tiled" else torch.zeros)(
+        (blocks, sum(sizes)), dtype=torch.float32, device=dev)
+    if A and K:
+        check(bwd(*dims, *[t.data_ptr() for t in ins], dagg.data_ptr(),
+                  dfs.data_ptr(), de.data_ptr(), dcd.data_ptr(),
+                  part.data_ptr(), stream))
+        counts.bwd_launches += 1
+    # the slices summed in a fixed order: a second launch gives the same bits
+    tot = part.sum(dim=0)
     dW1, dW2, dW3, dw4, db1, db2, db3 = torch.split(tot, sizes)
     W1, b1, W2, b2, W3, b3, w4 = weights
     grads = (dW1.view(C, H), db1, dW2.view(H, H), db2, dW3.view(H, H), db3,

@@ -210,10 +210,8 @@ class Main:
                                                                  300.0)))
                 self.softening = float(loss_sec.get("softening", 0.0))
 
-        if dyn.get("compiler_options") is not None:
-            raise NotImplementedError(
-                "dynamics.compiler_options is not ported (TPU-only XLA "
-                "flags)")
+        # dynamics.compiler_options holds XLA flags for a TPU; the JAX
+        # driver drops them on cpu/gpu (driver.py:305-313), so does the port
         nbr_capacity = dyn.get("nbr_capacity")
         self.dataset = None
         if self.objective == "flow_vi":

@@ -74,6 +74,29 @@ def test_driver_rejects_unported_modes(tmp_path):
         Main(device="cpu")(str(cfg))
 
 
+def test_driver_ignores_compiler_options(tmp_path, capsys):
+    """``dynamics.compiler_options`` (XLA flags for a TPU, as
+    ``example/sample_lj55.yaml`` sets them) is accepted and ignored, as the
+    JAX driver does off a TPU."""
+    out = tmp_path / "samples.npz"
+    cfg = tmp_path / "sample.yaml"
+    text = YAML.format(algo="smc", cdt="null", kernel="false", out=out)
+    cfg.write_text(text.replace(
+        "  nbr_mode: all_pairs\n",
+        "  nbr_mode: all_pairs\n  compiler_options: "
+        "{xla_tpu_scoped_vmem_limit_kib: \"49152\"}\n"))
+    assert "compiler_options" in cfg.read_text()
+    Main(device="cpu")(str(cfg))
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith(
+        f"sampled 32 particles -> {out}")
+    # the committed LJ55 config now gets past set-up and stops at the next
+    # refusal, chunked SMC
+    main = Main(device="cpu")
+    main.setup(str(ROOT / "example" / "sample_lj55.yaml"))
+    with pytest.raises(NotImplementedError, match="chunk_temps"):
+        main.sample()
+
+
 def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):
     assert resolve_device("cpu").type == "cpu"
     if torch.cuda.is_available():

@@ -200,3 +200,58 @@ def test_gathered_kernel_path_rejects_flags():
         apply_egcl(from_jax_params(jp, device="cpu"),
                    EGCLConfig(NF, H, attention=True, use_pallas=True), t(h),
                    cd, nb.idx, nb.mask, t(mask))
+
+
+# --- the wrapper's launch plan (tiling and size rule) ----------------------
+
+@pytest.mark.parametrize("A,K,n_sm", [(390, 24, 132), (1000, 40, 132),
+                                      (777, 13, 132), (2944, 24, 132),
+                                      (37, 5, 4), (1, 3, 132)])
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_row_tiles_cover_whole_atoms(A, K, n_sm, direction):
+    ta, blocks = ops.grid(A, n_sm)
+    rows = ops.tile_rows(ops.ROWS_MAX[direction], ta, K)
+    assert rows % 8 == 0 and rows <= ops.ROWS_MAX[direction]
+    tiles = ops.row_tiles(A, K, ta, blocks, rows)
+    assert len(tiles) == blocks <= n_sm            # one part slice a block
+    assert all(tiles)                              # every block has work
+    owner = {}
+    rows = []
+    for b, block in enumerate(tiles):
+        for a0, na, g0, nr, computed in block:
+            assert 1 <= na <= ops.MAX_ATOM_TILE
+            assert 1 <= nr <= ops.ROWS_MAX[direction]
+            assert computed % 8 == 0 and nr <= computed < nr + 8
+            # a tile's rows lie inside its atoms, whose rows all stay in
+            # this block
+            assert a0 * K <= g0 and g0 + nr <= (a0 + na) * K
+            for a in range(a0, a0 + na):
+                assert owner.setdefault(a, b) == b
+            rows += range(g0, g0 + nr)
+    assert sorted(owner) == list(range(A))
+    assert sorted(rows) == list(range(A * K))      # each row once
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_padding_at_the_training_shape(direction):
+    """train.yaml: 30 molecules of 13 atoms, auto capacity 24 slots. The
+    tiled kernels compute under 10% padded rows (the chunked kernels' 32-row
+    chunks: 25%)."""
+    ta, blocks = ops.grid(390, 132)
+    rows = ops.tile_rows(ops.ROWS_MAX[direction], ta, 24)
+    tiles = ops.row_tiles(390, 24, ta, blocks, rows)
+    real = sum(t[3] for block in tiles for t in block)
+    computed = sum(t[4] for block in tiles for t in block)
+    assert real == 390 * 24
+    assert (computed - real) / computed < 0.10
+
+
+def test_size_rule():
+    for dt in (torch.float32, torch.bfloat16):
+        assert ops.kernel_for(dt, 64) == ops.kernel_for(dt, 128) == "tiled"
+        assert ops.kernel_for(dt, 96) == "chunked"
+    assert ops.kernel_for(torch.float32, 20) == "chunked"
+    for dt, H in ((torch.bfloat16, 24), (torch.float32, 6),
+                  (torch.float32, 0), (torch.float64, 128)):
+        with pytest.raises(ValueError, match="float32|H % 16"):
+            ops.kernel_for(dt, H)
