@@ -169,7 +169,7 @@ from enflow_tpu_torch.ops import pair_energy as pe
 for sname, shape in cs.PAIR_SHAPES.items():
     pos, mask, box = cs.pair_inputs(shape, seed=17)
     args = (pos, mask, box, shape["form"], shape["softening"],
-            shape.get("cutoff"))
+            shape.get("cutoff"), shape.get("coincident", False))
     report(sname, cs.rel_errs(("E", "dE/dpos"), pe.pair_energy_and_grad(
         *args), pe.pair_energy_plain(*args)), cs.TOL_PAIR)
 """,

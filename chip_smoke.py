@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port (``enflow_tpu_torch``) on one NVIDIA
 card: ``python3 chip_smoke.py`` from the repository root.
 
-Phases (each prints its own line; any failure exits non-zero):
+Phases (each prints its own lines and its seconds; any failure exits
+non-zero):
 
 1. device — a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit.
@@ -34,7 +35,9 @@ Phases (each prints its own line; any failure exits non-zero):
    floors in bf16.
 5. pair   — the pair-energy kernel K7 (energy and gradient) against its
    plain version: form r2 at B=30, N=13; form r at B=1, N=13 (atoms on the
-   half-box rounding boundary) and at B=2, N=1500 (3 padded, box 12).
+   half-box rounding boundary) and at B=2, N=1500 (3 padded, box 12); form
+   r with the MD potential's coincident flag at B=1, N=13 with two
+   coincident atoms (the flag adds 4(s^-12 - s^-6) and no force).
 6. flow   — ``reverse_core(forward_core(x)) == x`` through the kernel, f32.
 6b. flags — a flagged EGCL (attention, norm_diff, tanh; use_pallas off)
    in all_pairs and images mode on the card: the plain route (its own
@@ -58,6 +61,23 @@ Phases (each prints its own line; any failure exits non-zero):
    the port's driver in a temporary directory: the LJ MD dataset on the
    card, then NLL steps, each checked for the launch counts the code
    implies; then a 1-epoch rerun that resumes from the checkpoint.
+10b. lj55 — the LJ55 pipeline: (a) ``example/sample_lj55.yaml`` as
+   committed (1024 particles, 16 temperatures in segments of 8 with a
+   stage checkpoint every 8, a fresh shift flow, bf16: K1 and the
+   input-gradient K2 at B=1024, N=55, the latter at its limit); (b)
+   ``example/vi_lj55_coupled.yaml`` cut to 1 epoch x LJ55C_STEPS steps (a
+   kick and a drift EGCL a flow step: 10 K1 + 10 K2 p a step); (c) from
+   (b)'s checkpoint, ``sample_lj55.yaml`` with ``position_update:
+   coupled`` at 4 temperatures, chunked and monolithic, which must agree
+   bit for bit; each run checked for the launch counts the code implies;
+   then K1 and K2 at B=1024, N=55 timed beside their plain version.
+10c. fluid — ``example/vi_fluid.yaml`` (periodic LJ fluid, N=32, box 6.5,
+   H=64, bf16, the learned drift) cut to 1 epoch x FLUID_STEPS steps; then
+   K1 and K2 p against their plain version at B=256, N=32, H=64 with
+   pairs on both sides of the half box and one on it, timed.
+10d. dw4  — ``example/vi_dw4.yaml`` (N=4, nf=2, H=64, float32: the
+   chunked kernels) cut to 1 epoch x DW4_STEPS steps; then the f32 K1 and
+   K2 p against their plain version at B=512, N=4, timed.
 11. edge  — the gathered-edge EGCL kernels (forward K5, backward K6 with
    all seven parameter gradients) against their plain version at the
    training shape (A=390 atoms, K = the auto capacity phase 10 observed,
@@ -230,6 +250,11 @@ def edge_inputs(shape, dtype, seed):
     if "box" in shape:
         pos = torch.rand((B, N, 3), generator=gen, dtype=f32) * 6.0 - 3.0
         box = torch.full((B, 3), shape["box"], dtype=f32)
+        if shape.get("half"):
+            # atoms 0 and 1 exactly half a box apart on every axis: the
+            # min-image rounding (half to even) sits on its boundary
+            q = shape["box"] / 4
+            pos[:, 0], pos[:, 1] = -q, q
     elif "ico" in shape:
         pos = icosahedra(B, shape["ico"], gen)
         box = torch.full((B, 3), 1e3, dtype=f32)
@@ -585,6 +610,9 @@ PAIR_SHAPES = {
     "r": dict(form="r", B=1, N=13, softening=0.1, box=5.0, cutoff=3.0),
     "r_large": dict(form="r", B=2, N=1500, n_pad=3, softening=0.1,
                     box=12.0, cutoff=3.0),
+    # the MD potential's flag: two coincident atoms count at s > 0
+    "r_coincident": dict(form="r", B=1, N=13, softening=0.1, box=5.0,
+                         cutoff=3.0, coincident=True),
 }
 
 
@@ -735,6 +763,8 @@ def pair_inputs(shape, seed):
                               [.5, 1, .5], [0, .5, .5]]) * half
         rest = faces + 0.02 * torch.randn((B, N - 8, 3), generator=gen)
         pos = torch.cat([grid.expand(B, 8, 3), rest], dim=1)
+        if shape.get("coincident"):
+            pos[:, 1] = pos[:, 0]
     else:
         n_side = math.ceil(N ** (1 / 3))
         g = torch.arange(n_side, dtype=torch.float32)
@@ -749,9 +779,10 @@ def pair_inputs(shape, seed):
     return c(pos), c(mask), c(box)
 
 
-def pair_work(form, pos, mask, box, cutoff):
+def pair_work(form, pos, mask, box, cutoff, coincident=False):
     """(FLOP, bytes) of K7 on these inputs: per valid ordered pair (both
-    real, d2 > 0, inside the cutoff) 30 operations for r2 and 47 for r
+    real, d2 > 0 or, with the flag, distinct and coincident, inside the
+    cutoff) 30 operations for r2 and 47 for r
     (displacement 3, min-image 12, d2 5, pair terms 12 / 17, sums 10;
     a division, square root or rint counts as one); bytes: positions,
     mask and box read once, the gradient and the energies written once."""
@@ -760,7 +791,11 @@ def pair_work(form, pos, mask, box, cutoff):
     if form == "r":
         d = d - torch.round(d / box[:, None, None, :]) * box[:, None, None, :]
     d2 = (d * d).sum(-1)
-    valid = (mask[:, :, None] * mask[:, None, :] > 0) & (d2 > 0)
+    real = mask[:, :, None] * mask[:, None, :] > 0
+    valid = real & (d2 > 0)
+    if coincident:
+        other = ~torch.eye(d2.shape[1], dtype=torch.bool, device=d2.device)
+        valid = valid | (real & other & (d2 == 0))
     if form == "r":
         valid = valid & (d2 < cutoff * cutoff)
     pairs = float(valid.sum())
@@ -777,24 +812,35 @@ def pair_kernel_phase():
     for sname, shape in PAIR_SHAPES.items():
         pos, mask, box = pair_inputs(shape, seed=17)
         form, soft = shape["form"], shape["softening"]
-        cut = shape.get("cutoff")
-        k = pe.pair_energy_and_grad(pos, mask, box, form, soft, cut)
-        p = pe.pair_energy_plain(pos, mask, box, form, soft, cut)
+        cut, coinc = shape.get("cutoff"), shape.get("coincident", False)
+        k = pe.pair_energy_and_grad(pos, mask, box, form, soft, cut, coinc)
+        p = pe.pair_energy_plain(pos, mask, box, form, soft, cut, coinc)
         torch.cuda.synchronize()
         errs = rel_errs(("E", "dE/dpos"), k, p)
         ok = all(rel <= TOL_PAIR for _, rel in errs.values())
+        note = ""
+        if coinc:
+            # the flag adds the coincident pair's 4(s^-12 - s^-6) and no
+            # force; without it the kernel leaves the pair out
+            off = pe.pair_energy_and_grad(pos, mask, box, form, soft, cut)
+            added = float(k[0][0] - off[0][0])
+            want = 4.0 * (soft ** -12 - soft ** -6)
+            same_f = bool(torch.equal(k[1], off[1]))
+            ok = ok and abs(added / want - 1.0) < TOL_PAIR and same_f
+            note = (f"; the flag adds {added:.6e} (4(s^-12 - s^-6) = "
+                    f"{want:.6e}), forces unchanged: {same_f}")
         phase("pair", f"{sname} B={shape['B']} N={shape['N']} max_abs/rel "
               "err: " + "  ".join(f"{n} {a:.2e}/{r:.1e}"
                                   for n, (a, r) in errs.items())
-              + f"  tol {TOL_PAIR:g} -> {'ok' if ok else 'FAIL'}")
+              + f"  tol {TOL_PAIR:g}{note} -> {'ok' if ok else 'FAIL'}")
         require(ok, f"pair kernel disagrees with plain ({sname})")
         t_k = cuda_time_ms(lambda: pe.pair_energy_and_grad(
-            pos, mask, box, form, soft, cut))
+            pos, mask, box, form, soft, cut, coinc))
         t_d = device_ms(lambda: pe.pair_energy_and_grad(
-            pos, mask, box, form, soft, cut), "pair_energy_kernel")
+            pos, mask, box, form, soft, cut, coinc), "pair_energy_kernel")
         t_p = cuda_time_ms(lambda: pe.pair_energy_plain(
-            pos, mask, box, form, soft, cut), reps=20, calls=5)
-        flop, nbytes = pair_work(form, pos, mask, box, cut)
+            pos, mask, box, form, soft, cut, coinc), reps=20, calls=5)
+        flop, nbytes = pair_work(form, pos, mask, box, cut, coinc)
         b = bound(flop, nbytes, PEAK_FLOPS["float32"])
         phase("pair", f"{sname} time ms: kernel {t_k:.4f} (device "
               f"{t_d:.4f}) plain {t_p:.4f} bound {b[0]:.6f} ({b[1]}, "
@@ -1489,13 +1535,14 @@ def time_vi_steps(main):
 
 
 def vi_launches():
+    from enflow_tpu_torch.nn import egcl
     from enflow_tpu_torch.ops import edge_pipeline as ep
     from enflow_tpu_torch.ops import egcl_allpairs as ea
     from enflow_tpu_torch.ops import pair_energy as pe
     c = ea.counts
     plain = (c.plain_fwd_calls + c.plain_bwd_calls + c.plain_bwd_param_calls
              + ep.counts.plain_fwd_calls + ep.counts.plain_bwd_calls
-             + pe.counts.plain_calls)
+             + pe.counts.plain_calls + egcl.counts.plain_calls)
     return dict(k1=c.fwd_launches, k2=c.bwd_launches,
                 k2_params=c.bwd_param_launches, plain=plain)
 
@@ -1690,6 +1737,294 @@ def vi55_phase(card):
     return s_step
 
 
+def config_driver(tmp, config, over=None, dynamics=None):
+    """The port's driver set up from ``example/<config>`` with the keys of
+    ``over`` changed in its ``sampling`` (or ``training``) section and those
+    of ``dynamics`` in its ``dynamics`` section, run from the working
+    directory ``tmp`` (where its outputs go)."""
+    import os
+    import yaml
+    from enflow_tpu_torch.train.driver import Main
+
+    cfg = yaml.safe_load((ROOT / "example" / config).read_text())
+    cfg["sampling" if "sampling" in cfg else "training"].update(over or {})
+    cfg["dynamics"].update(dynamics or {})
+    path = Path(tmp) / config
+    path.write_text(yaml.safe_dump(cfg))
+    os.chdir(tmp)
+    main = Main(device="cuda")
+    main.setup(str(path))
+    return main
+
+
+def timed_sample(main):
+    """(result, seconds) of one ``main.sample()`` between synchronizes."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = main.sample()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t
+
+
+def check_smc(res, label, P, N):
+    import torch
+    require(float(res.beta_history[-1]) > 1.0 - 1e-5,
+            f"{label}: the anneal did not reach beta = 1")
+    require(math.isfinite(float(res.log_Z)), f"{label}: log_Z not finite")
+    pos = res.particles["pos"]
+    require(tuple(pos.shape) == (P, N, 3) and bool(torch.isfinite(pos).all()),
+            f"{label}: particles not finite or of the wrong shape")
+
+
+def vi_epoch(main, label, n_steps, want):
+    """One VI epoch of ``main`` with its launches held to ``want``; returns
+    (seconds per step, losses)."""
+    import torch
+    step_s, losses = time_vi_steps(main)
+    reset_counts()
+    main.train()
+    torch.cuda.synchronize()
+    got = vi_launches()
+    require(len(step_s) == n_steps, f"{label}: {len(step_s)} VI steps")
+    require(got == want, f"{label} launches {got} != {want}")
+    require(all(math.isfinite(x) for x in losses),
+            f"{label}: non-finite VI losses {losses}")
+    return step_s, losses
+
+
+def allpairs_vs_plain(name, label, shape, dname, seed, kinds, time_it=True,
+                      plain_reps=(20, 5)):
+    """K1 (``"fwd"``), the input-gradient K2 (``"bwd"``) and K2 p
+    (``"bwd_params"``), as ``kinds`` asks, against their plain version at
+    ``shape``; with ``time_it``, each timed beside its plain version with
+    its bound. Returns {kind: (max abs err, ms, plain ms, bound)}."""
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+
+    dtype = getattr(torch, dname)
+    h, pos, box, mask_f, W, dagg, dfsum, mask = edge_inputs(shape, dtype,
+                                                            seed)
+    args = (h, pos, box, mask_f, W, dagg, dfsum)
+    calls = {"fwd": (lambda: ops.allpairs_edges_fwd(h, pos, box, mask_f, W),
+                     lambda: ops.allpairs_edges_plain(h, pos, box, mask_f,
+                                                      W), ("agg", "f_sum")),
+             "bwd": (lambda: ops.allpairs_edges_bwd(*args),
+                     lambda: ops.allpairs_edges_plain_bwd(*args),
+                     ("dh", "dpos")),
+             "bwd_params": (lambda: ops.allpairs_edges_bwd(*args,
+                                                           params=True),
+                            lambda: ops.allpairs_edges_plain_bwd(
+                                *args, params=True), PARAM_OUT)}
+    fl_f, fl_b, by_f, by_b = work(shape, dname, mask)
+    work_of = {"fwd": (fl_f, by_f), "bwd": (fl_b, by_b),
+               "bwd_params": work_params(shape, dname, mask)}
+    out, bad = {}, []
+    for kind in kinds:
+        kern, plain, names = calls[kind]
+        ops.counts.reset()
+        got = kern()
+        c = ops.counts
+        launched = {"fwd": c.fwd_launches, "bwd": c.bwd_launches,
+                    "bwd_params": c.bwd_param_launches}[kind]
+        errs = rel_errs(names, got, plain())
+        torch.cuda.synchronize()
+        tol = {n: (TOL_PARAM if n in PARAM_OUT[2:] else TOL)[dname]
+               for n in names}
+        ok = launched == 1 and all(r <= tol[n] for n, (_, r) in errs.items())
+        t = ""
+        ms = plain_ms = b = None
+        if time_it:
+            ms = cuda_time_ms(kern)
+            plain_ms = cuda_time_ms(plain, reps=plain_reps[0],
+                                    calls=plain_reps[1])
+            b = bound(*work_of[kind], PEAK_FLOPS[dname])
+            t = (f"; time ms {ms:.4f} (plain {plain_ms:.4f}, bound "
+                 f"{b[0]:.4f}, {b[1]})")
+        phase(name, f"{label} {kind} {dname} B={shape['B']} N={shape['N']} "
+              f"nf={shape['nf']} H={shape['H']}: launches {launched}; "
+              "max_abs/rel err " + "  ".join(
+                  f"{n} {a:.2e}/{r:.1e}" for n, (a, r) in errs.items())
+              + f"{t} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(kind)
+        out[kind] = (max(a for a, _ in errs.values()), ms, plain_ms, b)
+    require(not bad, f"{name}: {bad} disagree with plain at {label}")
+    return out
+
+
+def lj55_phase(card):
+    """The LJ55 pipeline. (a) ``example/sample_lj55.yaml`` as committed
+    (1024 particles, 16 temperatures in segments of 8, a stage checkpoint
+    every 8, a fresh shift flow, bf16): K1 and the input-gradient K2 at
+    B=1024, N=55. (b) ``example/vi_lj55_coupled.yaml`` cut to 1 epoch x
+    LJ55C_STEPS steps: a kick and a drift EGCL per flow step. (c) From
+    (b)'s checkpoint, ``sample_lj55.yaml`` with ``position_update:
+    coupled`` at 4 temperatures, chunked (2 a segment, a stage checkpoint
+    every 2) and monolithic: the two must agree bit for bit. Then K1 and
+    K2 at B=1024, N=55 timed beside their plain version (K2 at B=64, N=55
+    is held against it in phase kernel, shape large)."""
+    import os
+    import torch
+    from enflow_tpu_torch.sample.smc import ess_from_log_weights
+
+    cwd = os.getcwd()
+    n_iter = 5
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            main = config_driver(tmp, "sample_lj55.yaml")
+            sec = main.args["sampling"]
+            P, n_temps = sec["n_particles"], sec["n_temps"]
+            reset_counts()
+            res_a, secs_a = timed_sample(main)
+            got_a = vi_launches()
+            # value-and-grads: 1 for the caches + n_temps x sweeps x LF
+            n_vg = 1 + n_temps * sec["mcmc_steps"] * sec["n_leapfrog"]
+            want_a = dict(k1=n_iter + n_vg * n_iter, k2=n_vg * n_iter,
+                          k2_params=0, plain=0)
+            require(got_a == want_a, f"sample_lj55 launches {got_a} != "
+                    f"{want_a}")
+            check_smc(res_a, "sample_lj55", P, 55)
+            require(Path("lj55_samples.npz").exists()
+                    and not Path("lj55_samples.npz.state.npz").exists(),
+                    "sample_lj55: no samples, or a stage state left over")
+            ess_a = float(ess_from_log_weights(res_a.log_weights))
+            phase("lj55", f"(a) sample_lj55.yaml on {card}: {P} particles x "
+                  f"{n_temps} temps in segments of {sec['chunk_temps']}, a "
+                  f"stage checkpoint every {sec['checkpoint_every']}: "
+                  f"{secs_a:.3f} s, {P / secs_a:.1f} samples/s, log_Z "
+                  f"{float(res_a.log_Z):.4f}, final ESS {ess_a:.1f}; "
+                  f"launches K1 {got_a['k1']} K2 {got_a['k2']} "
+                  f"({n_vg} value-and-grads), plain calls 0")
+
+            vi = config_driver(tmp, "vi_lj55_coupled.yaml", over=dict(
+                num_epochs=1, steps_per_epoch=LJ55C_STEPS))
+            Pv = vi.vi_particles
+            # per step: the reverse flow's kick and drift EGCLs, forward
+            # (K1) and backward with parameter gradients (K2 p)
+            want_b = dict(k1=2 * n_iter * LJ55C_STEPS, k2=0,
+                          k2_params=2 * n_iter * LJ55C_STEPS, plain=0)
+            step_s, losses = vi_epoch(vi, "vi_lj55_coupled", LJ55C_STEPS,
+                                      want_b)
+            require(Path("lj55_vi_coupled.cpt").exists(),
+                    "no coupled checkpoint written")
+            s_step = statistics.median(step_s[1:])
+            phase("lj55", f"(b) vi_lj55_coupled.yaml on {card}: 1 epoch x "
+                  f"{LJ55C_STEPS} steps of {Pv} particles (cut from 80 x "
+                  f"100), {s_step:.5f} s/step (median of steps "
+                  f"2-{LJ55C_STEPS}; first {step_s[0]:.4f} s); losses "
+                  + ", ".join(f"{x:.2f}" for x in losses)
+                  + f"; per step K1 {want_b['k1'] // LJ55C_STEPS} + K2 p "
+                  f"{want_b['k2_params'] // LJ55C_STEPS} (kick + drift), "
+                  "plain calls 0")
+
+            runs = {}
+            for label, chunk in (("chunked", 2), ("monolithic", 0)):
+                m = config_driver(tmp, "sample_lj55.yaml", over=dict(
+                    n_temps=4, chunk_temps=chunk, checkpoint_every=chunk,
+                    output=f"coupled_{label}.npz"), dynamics=dict(
+                    checkpoint_path="lj55_vi_coupled.cpt",
+                    position_update="coupled"))
+                reset_counts()
+                res, secs = timed_sample(m)
+                got = vi_launches()
+                n_vg = 1 + 4 * 2 * 5
+                want = dict(k1=2 * (n_iter + n_vg * n_iter),
+                            k2=2 * n_vg * n_iter, k2_params=0, plain=0)
+                require(got == want, f"coupled {label} launches {got} != "
+                        f"{want}")
+                check_smc(res, f"coupled {label}", P, 55)
+                runs[label] = (res, secs, got)
+            a, b = runs["chunked"][0], runs["monolithic"][0]
+            fields = {f"particles[{k}]": (a.particles[k], b.particles[k])
+                      for k in sorted(a.particles)}
+            fields.update({f: (getattr(a, f), getattr(b, f)) for f in (
+                "log_weights", "log_Z", "ess_history", "accept_history",
+                "beta_history", "step_history")})
+            diff = {f: float((x.double() - y.double()).abs().max())
+                    for f, (x, y) in fields.items()
+                    if not torch.equal(x, y)}
+            phase("lj55", f"(c) sample_lj55.yaml, position_update coupled, "
+                  f"from (b)'s checkpoint, 4 temps: chunked "
+                  f"{runs['chunked'][1]:.3f} s, monolithic "
+                  f"{runs['monolithic'][1]:.3f} s, log_Z "
+                  f"{float(a.log_Z):.4f}; launches K1 "
+                  f"{runs['chunked'][2]['k1']} K2 {runs['chunked'][2]['k2']}"
+                  " each; chunked == monolithic bit for bit: "
+                  + ("yes" if not diff else f"NO, max |diff| {diff}"))
+            require(not diff, f"chunked and monolithic SMC differ: {diff}")
+        finally:
+            os.chdir(cwd)
+    rec = allpairs_vs_plain("lj55", "sample_lj55 shape",
+                            dict(B=P, N=55, nf=5, H=128), "bfloat16", 29,
+                            ("fwd", "bwd"), plain_reps=(3, 1))
+    torch.cuda.empty_cache()
+    return dict(secs=secs_a, k1=got_a["k1"], k2=got_a["k2"],
+                k1_coupled=want_b["k1"], rec=rec)
+
+
+# 1 epoch of LJ55C_STEPS (vi_lj55_coupled.yaml), FLUID_STEPS
+# (vi_fluid.yaml) and DW4_STEPS (vi_dw4.yaml) steps, every width as committed
+LJ55C_STEPS, FLUID_STEPS, DW4_STEPS = 5, 5, 10
+
+
+def vi_config_phase(card, name, config, steps, per_step, shape, dname,
+                    check=None):
+    """``example/<config>`` cut to 1 epoch x ``steps`` steps: ``per_step``
+    K1 and K2 p launches a step, finite losses, a checkpoint; then K1 and
+    K2 p at ``shape`` against their plain version, timed."""
+    import os
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            main = config_driver(tmp, config, over=dict(
+                num_epochs=1, steps_per_epoch=steps))
+            if check:
+                check(main)
+            want = dict(k1=per_step * steps, k2=0,
+                        k2_params=per_step * steps, plain=0)
+            step_s, losses = vi_epoch(main, config, steps, want)
+            ckpt = main.checkpoint_path
+            require(Path(ckpt).exists(), f"{config}: no checkpoint")
+        finally:
+            os.chdir(cwd)
+    s_step = statistics.median(step_s[1:])
+    P = main.vi_particles
+    phase(name, f"{config} on {card}: 1 epoch x {steps} steps of {P} "
+          f"particles, {s_step:.5f} s/step (median of steps 2-{steps}; "
+          f"first {step_s[0]:.4f} s), {P / s_step:.1f} particles/s; losses "
+          + ", ".join(f"{x:.2f}" for x in losses)
+          + f"; per step K1 {per_step} + K2 p {per_step}, plain calls 0")
+    rec = allpairs_vs_plain(name, f"{config} shape", shape, dname, 31,
+                            ("fwd", "bwd_params"))
+    return dict(s_step=s_step, launches=want, rec=rec)
+
+
+def fluid_phase(card):
+    """``example/vi_fluid.yaml``: the periodic LJ fluid (N=32, box 6.5,
+    H=64, bf16) with the learned drift, a kick and a drift EGCL a flow
+    step; then K1 and K2 p at B=256, N=32, H=64 with pairs on both sides
+    of the half box and one pair exactly on it."""
+    def check(main):
+        soft, cap, beta = main.vi_schedule(0)
+        require(main.vi_box == 6.5 and abs(soft - 0.2) < 1e-12
+                and main.flow_cfg.position_update == "drift",
+                f"vi_fluid: box {main.vi_box}, epoch-0 softening {soft}, "
+                f"position_update {main.flow_cfg.position_update}")
+    return vi_config_phase(card, "fluid", "vi_fluid.yaml", FLUID_STEPS,
+                           2 * 5, dict(B=256, N=32, nf=5, H=64, box=6.5,
+                                       half=True), "bfloat16", check)
+
+
+def dw4_phase(card):
+    """``example/vi_dw4.yaml``: DW4 (N=4, nf=2, H=64) in float32, the
+    chunked kernels of egcl_allpairs.cu; then the f32 K1 and K2 p at
+    B=512, N=4, nf=2, H=64."""
+    return vi_config_phase(card, "dw4", "vi_dw4.yaml", DW4_STEPS, 4,
+                           dict(B=512, N=4, nf=2, H=64), "float32")
+
+
 def build_phase():
     """Fresh builds of every kernel source, one nvcc each, in parallel."""
     from enflow_tpu_torch.ops import build
@@ -1783,18 +2118,27 @@ def main():
     if args.profile_vi is not None:
         profile_vi(card, table(args.profile_vi))
         return 0
-    rec, largest = kernel_phase()
-    qrec = param_kernel_phase(largest["bf16 bwd_params"])
-    prec = pair_kernel_phase()
-    flow_phase()
-    flags_phase()
-    n_fwd, n_bwd = smc_phase(card)
-    vi = vi_phase(card)
-    vi55_phase(card)
-    tr = train_phase(card)
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phase(name, f"phase seconds {time.perf_counter() - t:.1f}")
+        return out
+
+    rec, largest = timed("kernel", kernel_phase)
+    qrec = timed("params", param_kernel_phase, largest["bf16 bwd_params"])
+    prec = timed("pair", pair_kernel_phase)
+    timed("flow", flow_phase)
+    timed("flags", flags_phase)
+    n_fwd, n_bwd = timed("smc", smc_phase, card)
+    vi = timed("vi", vi_phase, card)
+    timed("vi55", vi55_phase, card)
+    timed("lj55", lj55_phase, card)
+    timed("fluid", fluid_phase, card)
+    timed("dw4", dw4_phase, card)
+    tr = timed("train", train_phase, card)
     # K5/K6 at the training path's shape: its slot count is the auto
     # capacity that the train phase's dataset gave
-    erec = edge_kernel_phase(main_K=tr["capacity"])
+    erec = timed("edge", edge_kernel_phase, tr["capacity"])
 
     m = rec[("main", "bfloat16")]
     q = qrec[("vi", "bfloat16")]

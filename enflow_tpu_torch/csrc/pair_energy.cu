@@ -10,7 +10,12 @@
 // Form r  (the MD potential): e = 4((s+r)^-12 - (s+r)^-6), min-image
 //   displacements (round half to even, as jnp.round), d2 < cutoff^2.
 // valid = mask_i * mask_j * (d2 > 0) [* (d2 < cutoff^2)]; an invalid pair is
-// evaluated at d2 := 1 and dropped, as the TPU kernel guards it.
+// evaluated at d2 := 1 and dropped, as the TPU kernel guards it. Form r
+// takes a flag, `coincident`: with it and softening > 0, a pair of distinct
+// real atoms at d2 = 0 inside the cutoff is counted too, at its finite
+// energy 4(s^-12 - s^-6) and with a zero gradient, as the JAX package's
+// dense MD potential counts it (enflow_tpu/sim/potentials.py). Without it
+// (the TPU kernel's contract) such pairs are left out.
 //
 // What bounds it on this card: per valid ordered pair ~25 (r2) to ~40 (r)
 // f32 operations on 16 bytes of positions and mask that are read once per
@@ -66,7 +71,7 @@ __global__ void __launch_bounds__(kTile)
     pair_energy_kernel(const float* __restrict__ pos,
                        const float* __restrict__ mask,
                        const float* __restrict__ box, int N, int n_tiles,
-                       float softening, float cutoff2,
+                       float softening, float cutoff2, bool coincident,
                        float* __restrict__ e_part, float* __restrict__ grad) {
   __shared__ float cpos[kTile * 3];
   __shared__ float cmask[kTile];
@@ -98,12 +103,19 @@ __global__ void __launch_bounds__(kTile)
       }
       const float d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
       bool valid = mi * cmask[q] > 0.f && d2 > 0.f;
-      if (FORM == kFormR) valid = valid && d2 < cutoff2;
+      if (FORM == kFormR) {
+        // a coincident pair of distinct real atoms (the flag, s > 0)
+        if (coincident && d2 == 0.f && c0 + q != i && mi * cmask[q] > 0.f)
+          valid = true;
+        valid = valid && d2 < cutoff2;
+      }
       float e, de;
       pair_terms<FORM>(valid ? d2 : 1.0f, softening, e, de);
       if (valid) {
         acc_e += e;
-        for (int k = 0; k < 3; ++k) g[k] += de * 2.0f * d[k];
+        // at d2 = 0 the force is 0 (de/dd2 is infinite there, d is 0)
+        if (d2 > 0.f)
+          for (int k = 0; k < 3; ++k) g[k] += de * 2.0f * d[k];
       }
     }
   }
@@ -128,12 +140,13 @@ int pair_energy_row_tiles(int N) { return (N + kTile - 1) / kTile; }
 
 // form: 0 = r2, 1 = r (the cutoff applies to form r only). pos [B,N,3],
 // mask [B,N] (0/1), box [B,3], all float32 on the card; cutoff2 is the
-// squared cutoff, rounded to float32 once by the caller. Writes
+// squared cutoff, rounded to float32 once by the caller; coincident != 0
+// counts form r's coincident pairs when softening > 0 (see the top). Writes
 // e_part [B, row tiles] and grad [B,N,3]. Returns the cudaError_t of the
 // launch (0 on success).
 int pair_energy(int form, int B, int N, const void* pos, const void* mask,
                 const void* box, float softening, float cutoff2,
-                void* e_part, void* grad, void* stream) {
+                int coincident, void* e_part, void* grad, void* stream) {
   if (B < 1 || N < 1 || (form != kFormR2 && form != kFormR))
     return (int)cudaErrorInvalidValue;
   const int tiles = pair_energy_row_tiles(N);
@@ -143,12 +156,15 @@ int pair_energy(int form, int B, int N, const void* pos, const void* mask,
   auto* p = (const float*)pos;
   auto* m = (const float*)mask;
   auto* bx = (const float*)box;
+  const bool coinc = coincident != 0 && form == kFormR && softening > 0.f;
   if (form == kFormR2)
     pair_energy_kernel<kFormR2><<<(unsigned)blocks, kTile, 0, st>>>(
-        p, m, bx, N, tiles, softening, cutoff2, (float*)e_part, (float*)grad);
+        p, m, bx, N, tiles, softening, cutoff2, false, (float*)e_part,
+        (float*)grad);
   else
     pair_energy_kernel<kFormR><<<(unsigned)blocks, kTile, 0, st>>>(
-        p, m, bx, N, tiles, softening, cutoff2, (float*)e_part, (float*)grad);
+        p, m, bx, N, tiles, softening, cutoff2, coinc, (float*)e_part,
+        (float*)grad);
   return (int)cudaGetLastError();
 }
 

@@ -280,6 +280,6 @@ def get_dataset_class(name):
     if name in DATASET_REGISTRY:
         return DATASET_REGISTRY[name]
     raise NotImplementedError(
-        f"dataset type {name!r} is not ported yet (ROADMAP queue A item 5: "
+        f"dataset type {name!r} is not ported yet (ROADMAP A6: "
         f"the md/trr/xyz readers and compose); the port reads "
         f"{sorted(DATASET_REGISTRY)}")

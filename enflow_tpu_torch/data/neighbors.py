@@ -13,7 +13,7 @@ Two modes are ported:
   ``lax.top_k``; the EGCL sums over slots, so the result does not depend
   on that order.
 
-The other modes (dense, topk, cell) are ROADMAP queue A items 2 and 7.
+The other modes (dense, topk, cell) are ROADMAP A4.
 """
 
 from __future__ import annotations
@@ -100,8 +100,8 @@ def neighbors_with_diffs(pos, box, mask, r_cut=None, capacity=None,
         return (nbrs, diff, excess) if with_overflow else (nbrs, diff)
     if mode != "all_pairs":
         raise NotImplementedError(
-            f"nbr_mode={mode!r} is not ported yet (ROADMAP queue A items 2 "
-            "and 7); the port supports nbr_mode 'all_pairs' and 'images'")
+            f"nbr_mode={mode!r} is not ported yet (ROADMAP A4); "
+            "the port supports nbr_mode 'all_pairs' and 'images'")
     nbrs = all_pairs(mask)
     diff = pos[:, :, None, :] - pos[:, None, :, :]
     diff = min_image(diff, box[:, None, None, :])

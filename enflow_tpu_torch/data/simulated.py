@@ -48,7 +48,7 @@ class SimulatedDataset(InMemoryDataset):
         if log or traj:
             raise NotImplementedError(
                 "the dataset's log and traj outputs are not ported yet "
-                "(ROADMAP queue A item 7, generate)")
+                "(ROADMAP A4, generate)")
         if self.box is None:
             raise ValueError(
                 "SimulatedDataset requires a box (lab units) in the dataset "

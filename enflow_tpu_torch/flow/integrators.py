@@ -1,4 +1,5 @@
-"""Invertible leapfrog flow, the port of ``enflow_tpu/flow/integrators.py``.
+"""Invertible leapfrog and velocity-Verlet flows, the port of
+``enflow_tpu/flow/integrators.py``.
 
 A Python loop over the per-step EGCL parameters (stacked on a leading
 ``[n_iter]`` axis, as in the JAX package) takes the place of ``lax.scan``.
@@ -11,14 +12,23 @@ LF forward step::
     h    = h + g * dt
     ldj += ldj_factor * Q.sum()
 
-and its exact inverse. Ported: ``FlowConfig``, ``init_flow``, ``_egcl_at``,
-the LF ``forward_core``/``reverse_core`` with ``position_update='shift'``,
-parity and exact ldj, the ArgMax-dequantizing ``forward``/``reverse``, in
-the ``all_pairs`` and ``images`` neighbor modes, with ``track_overflow``
-(the slots an ``images`` build dropped, summed over steps). The VV
-integrator, the learned drifts, the Floor dequantizer, atom sharding and
-the other neighbor modes raise ``NotImplementedError`` naming their
-ROADMAP item.
+and its exact inverse. ``position_update`` 'coupled' and 'drift' add a
+second per-step EGCL (``pos_networks``) evaluated on velocity geometry
+(``pos := vel``) after the kick, giving a log-scale ``S`` (bounded as
+``m tanh(S / m)``, ``m = pos_scale_max / n_iter``) and a shift ``Fp``::
+
+    coupled:  pos = exp(S) * pos + (vel + Fp) * dt ;  ldj += 3 * S.sum()
+    drift:    pos = pos + (vel + Fp) * dt           (volume-preserving)
+
+The VV integrator is the JAX package's kick-drift-kick splitting with
+``n_iter + 1`` networks and half-kick scale ``exp(Q / 2)``. Ported:
+``FlowConfig``, ``init_flow``, ``_egcl_at``, LF (shift, coupled, drift)
+and VV ``forward_core``/``reverse_core`` with parity and exact ldj, the
+ArgMax and Floor dequantizing ``forward``/``reverse``, in the
+``all_pairs`` and ``images`` neighbor modes, with ``track_overflow`` (the
+slots an ``images`` build dropped, summed over steps). Atom sharding
+(ROADMAP A7) and the other neighbor modes (A4) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from .. import resolve_device
 from ..data.neighbors import neighbors_with_diffs
 from ..data.system import System
 from ..nn import argmax as argmax_deq
+from ..nn import floor as floor_deq
 from ..nn.egcl import (EGCLConfig, init_egcl, apply_egcl,
                        apply_egcl_fused_allpairs, plain_route)
 
@@ -75,22 +86,17 @@ class FlowConfig:
 
 
 def _check_supported(cfg: FlowConfig):
-    if cfg.integrator != "lf":
-        raise NotImplementedError(
-            f"integrator={cfg.integrator!r} is not ported yet (ROADMAP queue "
-            "A item 3, VV integrator); the port runs integrator 'lf'")
-    if cfg.position_update != "shift":
-        raise NotImplementedError(
-            f"position_update={cfg.position_update!r} is not ported yet "
-            "(ROADMAP queue A item 3, drift and coupled modes)")
+    if cfg.integrator not in ("lf", "vv"):
+        raise ValueError(cfg.integrator)
+    if cfg.position_update not in ("shift", "coupled", "drift"):
+        raise ValueError(cfg.position_update)
     if cfg.axis_name:
         raise NotImplementedError(
-            "atom-sharded flows are not ported yet (ROADMAP queue A item 9)")
+            "atom-sharded flows are not ported yet (ROADMAP A7)")
     if cfg.nbr_mode not in ("all_pairs", "images"):
         raise NotImplementedError(
-            f"nbr_mode={cfg.nbr_mode!r} is not ported yet (ROADMAP queue A "
-            "items 2 and 7); the port runs nbr_mode 'all_pairs' and "
-            "'images'")
+            f"nbr_mode={cfg.nbr_mode!r} is not ported yet (ROADMAP A4); "
+            "the port runs nbr_mode 'all_pairs' and 'images'")
     if cfg.egcl.use_pallas in ("v2", "v3") and cfg.nbr_mode != "all_pairs":
         raise ValueError(f"use_pallas={cfg.egcl.use_pallas!r} requires "
                          "nbr_mode='all_pairs'")
@@ -113,27 +119,65 @@ def _index(tree, k: int):
     return tree[k]
 
 
+def _check_learned_drift(cfg: FlowConfig):
+    """The JAX package's guards on a learned position update
+    (``integrators.py:429-458``): LF only; 'coupled' raises under a real
+    periodic box ('images', 'cell') and warns under 'dense'/'topk'."""
+    if cfg.integrator != "lf":
+        raise ValueError(
+            f"position_update={cfg.position_update!r} is implemented for "
+            "the leapfrog integrator only")
+    if cfg.position_update != "coupled":
+        return
+    if cfg.nbr_mode in ("images", "cell"):
+        raise ValueError(
+            "position_update='coupled' breaks invertibility under a periodic "
+            "box (exp(S) does not commute with PBC wrapping); "
+            f"nbr_mode={cfg.nbr_mode!r} implies a real periodic box — use "
+            "position_update='drift' (the PBC-compatible learned "
+            "translation), the shift flow, or an open-boundary nbr_mode")
+    if cfg.nbr_mode in ("dense", "topk"):
+        import warnings
+        warnings.warn(
+            "position_update='coupled' is only exact for open boundaries: "
+            "ensure box >> |pos| so .pbc() is the identity (nbr_mode "
+            "'all_pairs' is the committed cluster recipe; 'drift' is the "
+            "PBC-safe variant)", stacklevel=3)
+
+
 def init_flow(gen: torch.Generator, cfg: FlowConfig, dtype=torch.float32,
               device=None):
     """Flow params: stacked per-step EGCLs + dequantizer parameters, on
-    ``device`` (``cuda`` unless the caller asks for another)."""
+    ``device`` (``cuda`` unless the caller asks for another). A learned
+    position update ('coupled', 'drift') adds ``pos_networks``, one EGCL per
+    LF step whose ``vel_scaling_nn`` and ``coord_nn`` output layers are
+    zero, so that the fresh flow is exactly the shift flow."""
     device = resolve_device(device)
     if cfg.integrator not in ("lf", "vv"):
         raise ValueError(cfg.integrator)
-    if cfg.position_update != "shift":
-        raise NotImplementedError(
-            f"position_update={cfg.position_update!r} is not ported yet "
-            "(ROADMAP queue A item 3, drift and coupled modes)")
     networks = _stack([init_egcl(gen, cfg.egcl, dtype, device)
                        for _ in range(cfg.num_networks)])
     if cfg.dequantizer == "argmax":
         dequant = argmax_deq.init_argmax(gen, cfg.egcl.node_nf,
                                          cfg.egcl.hidden_nf, dtype, device)
     elif cfg.dequantizer == "floor":
-        dequant = {}
+        dequant = floor_deq.init_floor()
     else:
         raise ValueError(cfg.dequantizer)
-    return {"networks": networks, "dequant": dequant}
+    params = {"networks": networks, "dequant": dequant}
+    if cfg.position_update in ("coupled", "drift"):
+        _check_learned_drift(cfg)
+        pos_nets = []
+        for _ in range(cfg.n_iter):
+            p = init_egcl(gen, cfg.egcl, dtype, device)
+            for head in ("vel_scaling_nn", "coord_nn"):
+                p[head][-1] = {k: torch.zeros_like(v)
+                               for k, v in p[head][-1].items()}
+            pos_nets.append(p)
+        params["pos_networks"] = _stack(pos_nets)
+    elif cfg.position_update != "shift":
+        raise ValueError(cfg.position_update)
+    return params
 
 
 def _egcl_at(params, cfg: FlowConfig, net_params, sys: System):
@@ -169,16 +213,55 @@ def _ldj_sum(cfg: FlowConfig, Q):
     return cfg.ldj_factor * Q.sum(dim=(1, 2))
 
 
+def _ldj_sum_drift(S):
+    """The drift's log-scale term: always the exact factor 3, also in NLL
+    parity mode (the parity quirk reproduces a reference without a drift
+    network), in forward and reverse alike."""
+    return 3.0 * S.sum(dim=(1, 2))
+
+
+def _lf_xs(params, cfg: FlowConfig, k: int):
+    """Step ``k``'s kick EGCL, and its drift EGCL when a learned position
+    update is on (else None)."""
+    pnet = (_index(params["pos_networks"], k)
+            if cfg.position_update in ("coupled", "drift") else None)
+    return _index(params["networks"], k), pnet
+
+
+def _drift_egcl(params, cfg: FlowConfig, pnet, sys: System):
+    """The drift EGCL on velocity geometry (``pos := vel``): its input
+    ``(vel, h)`` is what the drift leaves unchanged, so forward and reverse
+    see the same ``(S, Fp)``. Returns ``(m tanh(S / m), Fp, overflow)``
+    with ``m = pos_scale_max / n_iter``. In ``all_pairs`` mode on the card
+    it is one more fused-kernel EGCL; the min-image wrap of the kernel
+    applies to the velocity differences against the same box."""
+    (S, Fp, _), ovf = _egcl_at(params, cfg, pnet, sys.replace(pos=sys.vel))
+    m = cfg.pos_scale_max / cfg.n_iter
+    return m * torch.tanh(S / m), Fp, ovf
+
+
 def _lf_forward(params, cfg: FlowConfig, sys: System):
     dt = cfg.dt
+    coupled = cfg.position_update == "coupled"
     ldj_steps, ovf = [], 0
     for k in range(cfg.n_iter):
-        (Q, F, G), o = _egcl_at(params, cfg, _index(params["networks"], k),
-                                sys)
+        net, pnet = _lf_xs(params, cfg, k)
+        (Q, F, G), o = _egcl_at(params, cfg, net, sys)
         vel = torch.exp(Q) * sys.vel + F * dt
         g = sys.g + G * dt
-        ldj_steps.append(_ldj_sum(cfg, Q))
-        sys = sys.replace(vel=vel, g=g, pos=sys.pos + vel * dt).pbc()
+        ldj = _ldj_sum(cfg, Q)
+        if pnet is not None:
+            S, Fp, o2 = _drift_egcl(params, cfg, pnet, sys.replace(vel=vel))
+            if coupled:
+                pos = torch.exp(S) * sys.pos + (vel + Fp) * dt
+                ldj = ldj + _ldj_sum_drift(S)
+            else:       # 'drift': a translation, volume-preserving
+                pos = sys.pos + (vel + Fp) * dt
+            o = o + o2
+        else:
+            pos = sys.pos + vel * dt
+        ldj_steps.append(ldj)
+        sys = sys.replace(vel=vel, g=g, pos=pos).pbc()
         sys = sys.replace(h=sys.h + sys.g * dt)
         ovf = ovf + o
     return sys, torch.stack(ldj_steps).sum(dim=0), ovf
@@ -186,59 +269,117 @@ def _lf_forward(params, cfg: FlowConfig, sys: System):
 
 def _lf_reverse(params, cfg: FlowConfig, sys: System):
     dt = cfg.dt
+    coupled = cfg.position_update == "coupled"
     ldj_steps, ovf = [], 0
     for k in reversed(range(cfg.n_iter)):
+        net, pnet = _lf_xs(params, cfg, k)
         sys = sys.replace(h=sys.h - sys.g * dt)
-        sys = sys.replace(pos=sys.pos - sys.vel * dt).pbc()
-        (Q, F, G), o = _egcl_at(params, cfg, _index(params["networks"], k),
-                                sys)
+        ldj2 = 0.0
+        if pnet is not None:
+            S, Fp, o2 = _drift_egcl(params, cfg, pnet, sys)
+            if coupled:
+                pos = (sys.pos - (sys.vel + Fp) * dt) * torch.exp(-S)
+                ldj2 = -_ldj_sum_drift(S)
+            else:
+                pos = sys.pos - (sys.vel + Fp) * dt
+            ovf = ovf + o2
+        else:
+            pos = sys.pos - sys.vel * dt
+        sys = sys.replace(pos=pos).pbc()
+        (Q, F, G), o = _egcl_at(params, cfg, net, sys)
         sys = sys.replace(g=sys.g - G * dt,
                           vel=(sys.vel - F * dt) / torch.exp(Q))
-        ldj_steps.append(-_ldj_sum(cfg, Q))
+        ldj_steps.append(-_ldj_sum(cfg, Q) + ldj2)
         ovf = ovf + o
     # the JAX scan emits per-step values in network order: sum in that order
     ldj_steps.reverse()
     return sys, torch.stack(ldj_steps).sum(dim=0), ovf
 
 
-def _check_dequantizer(cfg: FlowConfig):
-    if cfg.dequantizer != "argmax":
-        raise NotImplementedError(
-            f"dequantizer={cfg.dequantizer!r} is not ported yet (ROADMAP "
-            "queue A item 3); the port dequantizes with 'argmax'")
+def _vv_forward(params, cfg: FlowConfig, sys: System):
+    """Kick-drift-kick with ``n_iter + 1`` networks; each step's second
+    half-kick evaluation is carried into the next step's first."""
+    dt, dt_2 = cfg.dt, cfg.dt / 2
+    nets = params["networks"]
+    (Q, F, G), ovf = _egcl_at(params, cfg, _index(nets, 0), sys)
+    ldj_steps = []
+    for k in range(1, cfg.n_iter + 1):
+        vel = torch.exp(Q / 2) * sys.vel + F * dt_2
+        g = sys.g + G * dt_2
+        ldj = 0.5 * _ldj_sum(cfg, Q)
+        sys = sys.replace(vel=vel, g=g, pos=sys.pos + vel * dt).pbc()
+        sys = sys.replace(h=sys.h + sys.g * dt)
+        (Q, F, G), o = _egcl_at(params, cfg, _index(nets, k), sys)
+        sys = sys.replace(vel=torch.exp(Q / 2) * sys.vel + F * dt_2,
+                          g=sys.g + G * dt_2)
+        ldj_steps.append(ldj + 0.5 * _ldj_sum(cfg, Q))
+        ovf = ovf + o
+    return sys, torch.stack(ldj_steps).sum(dim=0), ovf
+
+
+def _vv_reverse(params, cfg: FlowConfig, sys: System):
+    """The exact mirror of :func:`_vv_forward`: half-kicks leave ``(h,
+    pos)`` unchanged, so network k's evaluation after undoing step k serves
+    both that step's first half-kick and step k-1's second."""
+    dt, dt_2 = cfg.dt, cfg.dt / 2
+    nets = params["networks"]
+    (Q, F, G), ovf = _egcl_at(params, cfg, _index(nets, cfg.n_iter), sys)
+    ldj_steps = []
+    for k in reversed(range(cfg.n_iter)):
+        sys = sys.replace(g=sys.g - G * dt_2,
+                          vel=(sys.vel - F * dt_2) / torch.exp(Q / 2))
+        ldj = -0.5 * _ldj_sum(cfg, Q)
+        sys = sys.replace(h=sys.h - sys.g * dt)
+        sys = sys.replace(pos=sys.pos - sys.vel * dt).pbc()
+        (Q, F, G), o = _egcl_at(params, cfg, _index(nets, k), sys)
+        sys = sys.replace(g=sys.g - G * dt_2,
+                          vel=(sys.vel - F * dt_2) / torch.exp(Q / 2))
+        ldj_steps.append(ldj - 0.5 * _ldj_sum(cfg, Q))
+        ovf = ovf + o
+    ldj_steps.reverse()
+    return sys, torch.stack(ldj_steps).sum(dim=0), ovf
+
+
+def _core(cfg: FlowConfig, reverse: bool):
+    _check_supported(cfg)
+    if cfg.integrator == "vv":
+        return _vv_reverse if reverse else _vv_forward
+    return _lf_reverse if reverse else _lf_forward
 
 
 def forward(params, cfg: FlowConfig, sys: System, gen=None, eps=None):
-    """Dequantize (ArgMax) and integrate forward: ``(sys, ldj + log_q)``,
-    plus the summed overflow when ``cfg.track_overflow`` is set
-    (``integrators.py:484-515``). The dequantization noise is ``eps`` when
-    given, else a standard normal draw from ``gen``."""
-    _check_supported(cfg)
-    _check_dequantizer(cfg)
-    h, log_q = argmax_deq.forward(params["dequant"], sys.h, sys.mask,
-                                  gen=gen, eps=eps)
-    sys, ldj, ovf = _lf_forward(params, cfg, sys.replace(h=h))
+    """Dequantize and integrate forward: ``(sys, ldj + log_q)``, plus the
+    summed overflow when ``cfg.track_overflow`` is set
+    (``integrators.py:735-766``). The dequantization noise is ``eps`` when
+    given (standard normal for ArgMax, ``U[0, 1)`` for Floor), else a draw
+    from ``gen``."""
+    integrate = _core(cfg, reverse=False)
+    if cfg.dequantizer == "argmax":
+        h, log_q = argmax_deq.forward(params["dequant"], sys.h, sys.mask,
+                                      gen=gen, eps=eps)
+    else:
+        h, log_q = floor_deq.forward(cfg.dequant_scale, sys.h, sys.mask,
+                                     gen=gen, noise=eps)
+    sys, ldj, ovf = integrate(params, cfg, sys.replace(h=h))
     if cfg.track_overflow:
         return sys, ldj + log_q, ovf
     return sys, ldj + log_q
 
 
 def reverse(params, cfg: FlowConfig, sys: System):
-    """Integrate backward and re-quantize to one-hot features: the exact
-    inverse of :func:`forward` up to its noise. Returns ``sys`` (and the
-    summed overflow when ``cfg.track_overflow`` is set)."""
-    _check_supported(cfg)
-    _check_dequantizer(cfg)
-    out, _, ovf = _lf_reverse(params, cfg, sys)
-    out = out.replace(h=argmax_deq.reverse(out.h, out.mask))
+    """Integrate backward and re-quantize (one-hot argmax, or floor): the
+    exact inverse of :func:`forward` up to its noise. Returns ``sys`` (and
+    the summed overflow when ``cfg.track_overflow`` is set)."""
+    out, _, ovf = _core(cfg, reverse=True)(params, cfg, sys)
+    deq = argmax_deq if cfg.dequantizer == "argmax" else floor_deq
+    out = out.replace(h=deq.reverse(out.h, out.mask))
     return (out, ovf) if cfg.track_overflow else out
 
 
 def forward_core(params, cfg: FlowConfig, sys: System):
     """Deterministic integrator transform (no dequantization): an exactly
     invertible map over ``(h, g, pos, vel)``; returns ``(sys, ldj [B])``."""
-    _check_supported(cfg)
-    out = _lf_forward(params, cfg, sys)
+    out = _core(cfg, reverse=False)(params, cfg, sys)
     return out if cfg.track_overflow else out[:2]
 
 
@@ -246,6 +387,5 @@ def reverse_core(params, cfg: FlowConfig, sys: System):
     """Exact inverse of :func:`forward_core`; returns ``(sys, ldj [B])``
     with ldj the log-det of the reverse map. For a latent ``z`` with base
     density ``log p(z)``, ``log q(reverse_core(z)) = log p(z) - ldj``."""
-    _check_supported(cfg)
-    out = _lf_reverse(params, cfg, sys)
+    out = _core(cfg, reverse=True)(params, cfg, sys)
     return out if cfg.track_overflow else out[:2]

@@ -11,7 +11,12 @@ halved, in one pass:
   displacements with ``d2 < cutoff^2``.
 
 Both exclude ``d2 == 0`` pairs (self and coincident atoms) and padded
-atoms. On a CUDA tensor it launches ``csrc/pair_energy.cu`` (float32 only;
+atoms, as the TPU kernel does (``pairwise_kernel.py:90``). Form ``r``
+takes a flag, ``coincident``: with it and a softening > 0, a pair of
+distinct real atoms at ``d2 == 0`` inside the cutoff counts at its finite
+energy ``4(s^-12 - s^-6)`` with a zero gradient, as the JAX package's
+dense MD potential (``enflow_tpu/sim/potentials.py``) counts it. On a CUDA
+tensor it launches ``csrc/pair_energy.cu`` (float32 only;
 other dtypes raise); on a CPU tensor it runs the plain version below, in
 the tensor's own dtype. ``pair_energy`` wraps it in an autograd Function
 that saves the gradient and whose backward is ``ct * g``, with no launch.
@@ -47,21 +52,26 @@ def _pair_terms(d2, softening, form):
 
 
 def pair_energy_plain(pos, mask_f, box, form: str, softening: float,
-                      cutoff: float | None = None):
+                      cutoff: float | None = None, coincident: bool = False):
     """Plain version over the dense ``[B, N, N]`` ordered pairs."""
     d = pos[:, :, None, :] - pos[:, None, :, :]
     if form == "r":
         bx = box[:, None, None, :]
         d = d - torch.round(d / bx) * bx
     d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
-    valid = (mask_f[:, :, None] * mask_f[:, None, :] > 0) & (d2 > 0)
+    real = mask_f[:, :, None] * mask_f[:, None, :] > 0
+    valid = real & (d2 > 0)
     if form == "r":
+        if coincident and softening > 0:
+            N = pos.shape[1]
+            other = ~torch.eye(N, dtype=torch.bool, device=pos.device)
+            valid = valid | (real & other & (d2 == 0))
         valid = valid & (d2 < cutoff * cutoff)
     one = torch.ones((), dtype=d2.dtype, device=d2.device)
     zero = torch.zeros((), dtype=d2.dtype, device=d2.device)
     e, de = _pair_terms(torch.where(valid, d2, one), softening, form)
     e = torch.where(valid, e, zero)
-    de = torch.where(valid, de, zero)
+    de = torch.where(valid & (d2 > 0), de, zero)      # no force at d2 = 0
     return 0.5 * e.sum(dim=(1, 2)), (de[..., None] * 2.0 * d).sum(dim=2)
 
 
@@ -74,9 +84,10 @@ def _library():
     from .build import load
     lib = load("pair_energy")
     if not getattr(lib, "_enflow_bound", False):
-        # form, B, N, pos, mask, box, softening, cutoff2, e_part, grad, stream
-        lib.pair_energy.argtypes = [_I, _I, _I, _P, _P, _P, _F, _F, _P, _P,
-                                    _P]
+        # form, B, N, pos, mask, box, softening, cutoff2, coincident,
+        # e_part, grad, stream
+        lib.pair_energy.argtypes = [_I, _I, _I, _P, _P, _P, _F, _F, _I, _P,
+                                    _P, _P]
         lib.pair_energy.restype = _I
         lib.pair_energy_row_tiles.argtypes = [_I]
         lib.pair_energy_row_tiles.restype = _I
@@ -86,7 +97,7 @@ def _library():
     return lib
 
 
-def _launch(pos, mask_f, box, form, softening, cutoff):
+def _launch(pos, mask_f, box, form, softening, cutoff, coincident):
     dev = pos.device
     for name, t in (("pos", pos), ("mask", mask_f), ("box", box)):
         if t.dtype != torch.float32 or t.device != dev:
@@ -103,7 +114,8 @@ def _launch(pos, mask_f, box, form, softening, cutoff):
         cutoff2 = float(cutoff) ** 2 if form == "r" else 0.0
         err = lib.pair_energy(
             FORMS[form], B, N, *[t.data_ptr() for t in args],
-            float(softening), cutoff2, e_part.data_ptr(), grad.data_ptr(),
+            float(softening), cutoff2, int(bool(coincident)),
+            e_part.data_ptr(), grad.data_ptr(),
             _P(torch.cuda.current_stream(dev).cuda_stream))
         if err != 0:
             msg = lib.pair_energy_error_string(err).decode()
@@ -118,17 +130,20 @@ def _launch(pos, mask_f, box, form, softening, cutoff):
 
 
 def pair_energy_and_grad(pos, mask_f, box, form: str, softening: float,
-                         cutoff: float | None = None):
+                         cutoff: float | None = None,
+                         coincident: bool = False):
     """``(E [B], dE/dpos [B,N,3])``: the kernel on the card, the plain
-    version on the CPU."""
+    version on the CPU. ``coincident`` (form ``r``) counts coincident
+    pairs when ``softening > 0`` (see the module docstring)."""
     if form not in FORMS:
         raise ValueError(f"form must be 'r2' or 'r', got {form!r}")
     if form == "r" and cutoff is None:
         raise ValueError("form 'r' needs a cutoff")
     if pos.is_cuda:
-        return _launch(pos, mask_f, box, form, softening, cutoff)
+        return _launch(pos, mask_f, box, form, softening, cutoff, coincident)
     counts.plain_calls += 1
-    return pair_energy_plain(pos, mask_f, box, form, softening, cutoff)
+    return pair_energy_plain(pos, mask_f, box, form, softening, cutoff,
+                             coincident)
 
 
 class _PairEnergy(torch.autograd.Function):
@@ -136,24 +151,24 @@ class _PairEnergy(torch.autograd.Function):
     (``pairwise_kernel.py:156-157``), with ``None`` for mask and box."""
 
     @staticmethod
-    def forward(ctx, pos, mask_f, box, form, softening, cutoff):
+    def forward(ctx, pos, mask_f, box, form, softening, cutoff, coincident):
         e, g = pair_energy_and_grad(pos, mask_f, box, form, softening,
-                                    cutoff)
+                                    cutoff, coincident)
         ctx.save_for_backward(g)
         return e
 
     @staticmethod
     def backward(ctx, ct):
         (g,) = ctx.saved_tensors
-        return ct[:, None, None] * g, None, None, None, None, None
+        return ct[:, None, None] * g, None, None, None, None, None, None
 
 
 def pair_energy(pos, mask, box, form: str, softening: float,
-                cutoff: float | None = None):
+                cutoff: float | None = None, coincident: bool = False):
     """Differentiable ``E [B]`` of ``pos [B,N,3]``; ``mask`` is bool or 0/1
     and ``box`` may be ``None`` (form ``r2`` reads no box)."""
     if box is None:
         box = torch.ones((pos.shape[0], 3), dtype=pos.dtype,
                          device=pos.device)
     return _PairEnergy.apply(pos, mask.to(pos.dtype), box.to(pos.dtype),
-                             form, float(softening), cutoff)
+                             form, float(softening), cutoff, coincident)

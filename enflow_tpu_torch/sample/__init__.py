@@ -2,8 +2,9 @@
 
 from . import targets
 from .mcmc import batched_value_and_grad, tempered_hmc_kernel_batched
-from .smc import SMCResult, ais, ess_from_log_weights, smc, systematic_resample
+from .smc import (SMCResult, ais, ess_from_log_weights, smc, smc_segments,
+                  systematic_resample)
 
 __all__ = ["targets", "batched_value_and_grad", "tempered_hmc_kernel_batched",
-           "SMCResult", "ais", "ess_from_log_weights", "smc",
+           "SMCResult", "ais", "ess_from_log_weights", "smc", "smc_segments",
            "systematic_resample"]

@@ -5,7 +5,7 @@ JAX package's pytrees; dict leaves are visited in sorted key order, as JAX
 flattens them). ``torch.Generator``s take the place of PRNG keys. Ported:
 ``batched_value_and_grad`` and the batched tempered-HMC kernel with its
 optional diagonal ``mass``; the per-chain kernels, MALA and the HMC/NUTS
-drivers are ROADMAP queue A item 8.
+drivers are ROADMAP A5.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Sequential Monte Carlo and annealed importance sampling, the port of
-``enflow_tpu/sample/smc.py`` (``smc`` and ``ais``; the chunked
-``smc_segments`` is ROADMAP queue A item 8).
+``enflow_tpu/sample/smc.py``: ``smc``, its chunked and resumable form
+``smc_segments``, and ``ais``.
 
 Always batched: ``log_q0``/``log_p`` map the whole ``[P, ...]`` particle
 state to ``[P]`` in one call, so the fused EGCL kernel sees every particle
@@ -182,16 +182,16 @@ def _schedule(n_temps, betas, dtype, device):
     return betas, betas_prev
 
 
-def _stage_generators(gen: torch.Generator, n: int, device):
-    """One generator per stage, seeded from ``gen`` (the JAX key split)."""
-    seeds = torch.randint(0, 2 ** 62, (n,), generator=gen,
-                          device=gen.device).tolist()
-    out = []
-    for s in seeds:
-        g = torch.Generator(device=device)
-        g.manual_seed(int(s))
-        out.append(g)
-    return out
+def _stage_seeds(gen: torch.Generator, n: int):
+    """One seed per stage, drawn from ``gen`` (the JAX key split)."""
+    return torch.randint(0, 2 ** 62, (n,), generator=gen,
+                         device=gen.device).tolist()
+
+
+def _generator(seed: int, device):
+    g = torch.Generator(device=device)
+    g.manual_seed(int(seed))
+    return g
 
 
 def _state_meta(x0):
@@ -199,7 +199,6 @@ def _state_meta(x0):
     return leaf.shape[0], leaf.dtype, leaf.device
 
 
-@torch.no_grad()
 def smc(gen: torch.Generator, x0, *, log_q0: Callable, log_p: Callable,
         n_temps: int = 10, betas=None, adaptive: bool = False,
         target_ess_frac: float = 0.6, mcmc_steps: int = 2, step_size=0.05,
@@ -209,30 +208,97 @@ def smc(gen: torch.Generator, x0, *, log_q0: Callable, log_p: Callable,
     """Tempered SMC from proposal samples ``x0 [P, ...]`` to the target
     ``log_p``, over ``log pi_beta = (1-beta) log_q0 + beta log_p``; the
     arguments are those of the JAX package's ``smc`` (always batched).
-    ``log_Z`` estimates ``log(Z_p / Z_q0)``."""
-    P, dtype, device = _state_meta(x0)
+    ``log_Z`` estimates ``log(Z_p / Z_q0)``. It is :func:`smc_segments`
+    with one segment."""
+    return smc_segments(
+        gen, x0, log_q0=log_q0, log_p=log_p, n_temps=n_temps, betas=betas,
+        adaptive=adaptive, target_ess_frac=target_ess_frac,
+        mcmc_steps=mcmc_steps, step_size=step_size, n_leapfrog=n_leapfrog,
+        resample_threshold=resample_threshold, adapt_step=adapt_step,
+        target_accept=target_accept, precondition=precondition,
+        chunk_temps=0)
+
+
+@torch.no_grad()
+def smc_segments(gen: torch.Generator, x0, *, log_q0: Callable,
+                 log_p: Callable, n_temps: int = 10, betas=None,
+                 adaptive: bool = False, target_ess_frac: float = 0.6,
+                 mcmc_steps: int = 2, step_size=0.05, n_leapfrog: int = 5,
+                 resample_threshold: float = 0.5, adapt_step: bool = False,
+                 target_accept: float = 0.65, precondition: bool = False,
+                 chunk_temps: int = 4, run_segment=None, on_segment=None,
+                 start_stage: int = 0, init_state=None,
+                 init_hists=None) -> SMCResult:
+    """:func:`smc` run as segments of at most ``chunk_temps`` temperatures
+    (``<= 0``: one segment), the state held between them, so that a caller
+    can retry a failed segment or persist the state and resume a killed run
+    (``enflow_tpu/sample/smc.py:352-459``).
+
+    Every stage applies the same transition with a generator made from its
+    own seed (all seeds drawn from ``gen`` up front, as the JAX key split),
+    so the result equals :func:`smc`'s bit for bit, a resumed run equals an
+    uninterrupted one, and a retried segment draws what its first attempt
+    drew. The transition does not write into the carry it is given.
+
+    - ``run_segment``: executor ``f(fn, *args) -> fn(*args)`` around the
+      initialization and every segment (the driver's retry hook).
+    - ``on_segment(next_stage, state, hists)``: called after each segment
+      with the carry ``(x, log_w, log_z, beta, eps, lq0, lp, glq0, glp)``
+      and the per-segment histories ``[(ess, accept, beta, eps), ...]``.
+    - ``start_stage`` / ``init_state`` / ``init_hists``: resume from what
+      ``on_segment`` saw; ``x0`` may be None then.
+    """
+    if init_state is not None:
+        x_meta = init_state[0]
+    else:
+        x_meta = x0
+    P, dtype, device = _state_meta(x_meta)
     if betas is not None:
         n_temps = len(betas)
     betas, betas_prev = _schedule(n_temps, betas, dtype, device)
-    caches = _init_component_caches(log_q0, log_p, x0, mcmc_steps)
+    seeds = _stage_seeds(gen, n_temps)
+    if chunk_temps <= 0:
+        chunk_temps = n_temps
+    run = run_segment or (lambda f, *a: f(*a))
     step = _make_anneal_step(
         log_q0, log_p, P=P, adaptive=adaptive,
         target_ess_frac=target_ess_frac, mcmc_steps=mcmc_steps,
         n_leapfrog=n_leapfrog, resample_threshold=resample_threshold,
         adapt_step=adapt_step, target_accept=target_accept,
         precondition=precondition)
-    zero = torch.zeros((), dtype=dtype, device=device)
-    carry = (x0, torch.full((P,), -math.log(P), dtype=dtype, device=device),
-             zero, zero, torch.as_tensor(step_size, dtype=dtype,
-                                         device=device)) + caches
-    hist = []
-    gens = _stage_generators(gen, n_temps, device)
-    for k in range(n_temps):
-        carry, h = step(carry, (betas[k], betas_prev[k], gens[k]))
-        hist.append(h)
-    ess_h, acc_h, beta_h, step_h = (torch.stack(c) for c in zip(*hist))
-    return SMCResult(particles=carry[0], log_weights=carry[1],
-                     log_Z=carry[2], ess_history=ess_h, accept_history=acc_h,
+
+    def init_fn(x0):
+        zero = torch.zeros((), dtype=dtype, device=device)
+        return (x0, torch.full((P,), -math.log(P), dtype=dtype,
+                               device=device),
+                zero, zero, torch.as_tensor(step_size, dtype=dtype,
+                                            device=device)) + \
+            _init_component_caches(log_q0, log_p, x0, mcmc_steps)
+
+    def seg_fn(carry, i, j):
+        # each stage's generator is made here from its seed, so a retried
+        # segment draws what its first attempt drew
+        hist = []
+        for k in range(i, j):
+            carry, h = step(carry, (betas[k], betas_prev[k],
+                                    _generator(seeds[k], device)))
+            hist.append(h)
+        return carry, tuple(torch.stack(c) for c in zip(*hist))
+
+    state = run(init_fn, x0) if init_state is None else init_state
+    hists = list(init_hists) if init_hists else []
+    i = int(start_stage)
+    while i < n_temps:
+        j = min(i + chunk_temps, n_temps)
+        state, hist = run(seg_fn, state, i, j)
+        hists.append(hist)
+        if on_segment is not None:
+            on_segment(j, state, hists)
+        i = j
+    ess_h, acc_h, beta_h, step_h = (torch.cat([h[c] for h in hists])
+                                    for c in range(4))
+    return SMCResult(particles=state[0], log_weights=state[1],
+                     log_Z=state[2], ess_history=ess_h, accept_history=acc_h,
                      beta_history=beta_h, step_history=step_h)
 
 
@@ -254,7 +320,8 @@ def ais(gen: torch.Generator, x0, *, log_q0: Callable, log_p: Callable,
     log_w = torch.zeros((P,), dtype=dtype, device=device)
     eps = torch.as_tensor(step_size, dtype=dtype, device=device)
     ess_h, acc_h, step_h = [], [], []
-    for k, g in enumerate(_stage_generators(gen, n_temps, device)):
+    for k, seed in enumerate(_stage_seeds(gen, n_temps)):
+        g = _generator(seed, device)
         log_w = log_w + (betas[k] - betas_prev[k]) * (lp_x - lq0_x)
         x, acc, (lq0_x, lp_x), (glq0_x, glp_x) = _rejuvenate(
             g, x, betas[k], (lq0_x, lp_x), (glq0_x, glp_x),

@@ -39,12 +39,16 @@ def softened_lj_energy(pos, box, softening, cutoff, mask=None):
     """Softened LJ energy ``4((s+r)^-12 - (s+r)^-6)`` of one molecule
     ``pos [N,3]`` with min-image PBC in ``box [3]`` and a radial cutoff
     (reduced units), differentiable in ``pos``. It is the pair-energy
-    kernel's form ``r`` (``ops/pair_energy.py``): on the card it launches
-    that kernel, on the CPU it runs its plain version. Like the kernel it
-    leaves out pairs at distance 0, which the JAX package's dense form
-    counts: the two differ only for coincident atoms."""
+    kernel's form ``r`` (``ops/pair_energy.py``) with its ``coincident``
+    flag: on the card it launches that kernel, on the CPU it runs its
+    plain version. At softening > 0 a pair of coincident atoms counts at
+    ``4(s^-12 - s^-6)``, as in the JAX package's dense form; its force is
+    0, where ``jax.grad`` of the dense form gives NaN (through
+    ``sqrt(0)``). At softening 0 such a pair is left out (the dense form
+    gives ``inf - inf = NaN`` there)."""
     p, m, b = _batch(pos, box, mask)
-    return pair_energy(p, m, b, "r", softening, float(cutoff))[0]
+    return pair_energy(p, m, b, "r", softening, float(cutoff),
+                       coincident=True)[0]
 
 
 def softened_lj_energy_grad(pos, box, softening, cutoff, mask=None):
@@ -52,5 +56,5 @@ def softened_lj_energy_grad(pos, box, softening, cutoff, mask=None):
     kernel's one pass (no autograd): the MD force field."""
     p, m, b = _batch(pos, box, mask)
     e, g = pair_energy_and_grad(p, m, b, "r", float(softening),
-                                float(cutoff))
+                                float(cutoff), coincident=True)
     return e[0], g[0]

@@ -8,17 +8,20 @@ Ported:
   ``clip_by_global_norm`` and the staircase ``scheduler``), the per-epoch
   line in the JAX format, checkpoints every ``checkpoint_interval`` epochs
   and at the last, and resume from a checkpoint of either package.
-- ``mode: train`` with ``objective: flow_vi`` against an ``lj_cluster``
-  target (data-free): the base draws, the reverse-KL loss with optional
+- ``mode: train`` with ``objective: flow_vi`` against an ``lj_cluster``,
+  ``lj_fluid``, ``double_well`` or ``gaussian`` target (data-free), with
+  any ``position_update``: the base draws, the reverse-KL loss with optional
   STL gradients, the softening / energy-cap / beta anneal, the optimizer
   chain that zeroes non-finite gradients before the clip (default 10),
   a checkpoint every epoch, resume from either package's checkpoint.
   ``fused_epoch`` is accepted and runs the same per-step loop.
 - ``training.metrics_csv`` for both objectives (``utils/observe.py``).
 - ``mode: sample`` with ``sampling.algo: smc | ais`` (flow-proposal
-  SMC/AIS over an ``lj_cluster`` target), from a checkpoint's hparams or
-  from a fresh ``init_flow`` when the YAML gives ``dynamics.n_iter``,
-  ``dt``, ``integrator`` and ``network``.
+  SMC/AIS over the same targets), from a checkpoint's hparams or from a
+  fresh ``init_flow`` when the YAML gives ``dynamics.n_iter``, ``dt``,
+  ``integrator`` and ``network``; for SMC ``chunk_temps`` segments with
+  one retry on ``UNAVAILABLE``, ``checkpoint_every`` stage state files a
+  killed run resumes from, and ``sampling.metrics_csv``.
 
 The config schema, checkpoints, npz outputs and printed lines are the JAX
 driver's. Every other mode, objective, dataset type, algo, target and
@@ -75,10 +78,9 @@ def vi_anneal(tgt_sec: dict):
     anneal = tgt_sec.get("anneal")
     if not anneal:
         return None
-    if tgt_sec.get("type", "lj_cluster") != "lj_cluster":
+    if tgt_sec.get("type", "lj_cluster") not in ("lj_cluster", "lj_fluid"):
         raise ValueError("training.target.anneal is supported for lj_cluster "
-                         "targets (lj_fluid is not ported yet: ROADMAP "
-                         "queue A item 6)")
+                         "and lj_fluid targets")
     s_final = float(tgt_sec.get("softening", 0.0))
     s_start = float(anneal.get("softening_start", s_final))
     cap_final = tgt_sec.get("e_cap")
@@ -102,6 +104,12 @@ def vi_anneal(tgt_sec: dict):
                 1.0 + (beta_start - 1.0) * frac)
 
     return schedule
+
+
+def _host(t) -> np.ndarray:
+    """A tensor as a numpy array on the host (bfloat16 as float32)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def _gauss_aux(sys_b: System) -> torch.Tensor:
@@ -163,14 +171,13 @@ class Main:
         mode = args.get("mode", "train")
         if mode not in ("train", "sample"):
             raise NotImplementedError(
-                f"mode {mode!r} is not ported yet (ROADMAP queue A: generate "
-                "is item 7, dataset item 5); the port runs mode 'train' and "
-                "'sample'")
+                f"mode {mode!r} is not ported yet (ROADMAP A4: generate and "
+                "dataset); the port runs mode 'train' and 'sample'")
         self.mode = mode
         if int(args.get("parallel", {}).get("atom_axis", 1)) > 1:
             raise NotImplementedError(
-                "parallel.atom_axis > 1 is not ported yet (ROADMAP queue A "
-                "item 9)")
+                "parallel.atom_axis > 1 is not ported yet (ROADMAP A7, "
+                "multi-device)")
         self.dtype = _DTYPES[args.get("precision", "float32")]
         self.seed = int(args.get("seed", 0))
         self.objective = None
@@ -237,7 +244,7 @@ class Main:
         elif nbr_capacity is not None:
             raise NotImplementedError(
                 "dynamics.nbr_capacity is not ported for sampling (ROADMAP "
-                "queue A items 2 and 7)")
+                "A4, the capacity-bound neighbor modes)")
         self.node_nf = node_nf
 
         net_sec = dyn.get("network", {})
@@ -292,22 +299,21 @@ class Main:
             raise ValueError(f"unknown training.objective {objective!r}")
         if tr.get("profile_dir"):
             raise NotImplementedError(
-                "training.profile_dir is not ported yet (ROADMAP queue A "
-                "item 8, utils/observe.py)")
+                "training.profile_dir is not ported yet (ROADMAP A5, "
+                "utils/observe.py)")
         if args.get("debug", {}).get("nan_checks"):
             raise NotImplementedError(
-                "debug.nan_checks is not ported yet (ROADMAP queue A item 8, "
+                "debug.nan_checks is not ported yet (ROADMAP A5, "
                 "utils/observe.py)")
         mode = args.get("dynamics", {}).get("nbr_mode", "dense")
         if mode not in ("all_pairs", "images"):
             raise NotImplementedError(
-                f"nbr_mode={mode!r} is not ported yet (ROADMAP queue A items "
-                "2 and 7); the port trains with 'all_pairs' and 'images'")
+                f"nbr_mode={mode!r} is not ported yet (ROADMAP A4); the port "
+                "trains with 'all_pairs' and 'images'")
         if (objective == "nll"
                 and args.get("dataset", {}).get("type") == "compose"):
             raise NotImplementedError(
-                "dataset type 'compose' is not ported yet (ROADMAP queue A "
-                "item 5)")
+                "dataset type 'compose' is not ported yet (ROADMAP A6)")
 
     def _setup_dataset(self, dataset_label, args):
         """Resolve the dataset class and build the standard transforms
@@ -344,7 +350,7 @@ class Main:
         if dyn.get("nbr_mode") != "images":
             raise NotImplementedError(
                 "nbr_capacity: auto is ported for nbr_mode 'images' only "
-                "(ROADMAP queue A items 2 and 7)")
+                "(ROADMAP A4)")
         s0 = self.dataset[0]
         mx = image_edge_max(np.asarray(s0.pos, np.float64),
                             np.asarray(s0.box, np.float64), float(s0.r_cut))
@@ -641,6 +647,8 @@ class Main:
         self.metrics.close()
 
     def _build_pos_target(self, section):
+        """The position target of a ``training.target`` or
+        ``sampling.target`` section (``driver.py:763-827``)."""
         from ..sample import targets as T
 
         ttype = section.get("type", "lj_cluster")
@@ -649,15 +657,34 @@ class Main:
             kBT = float(section["kBT"])
         else:
             kBT = cv.kelvin_to_lj(float(section.get("temp", 300.0)))
-        if ttype != "lj_cluster":
-            raise NotImplementedError(
-                f"target type {ttype!r} is not ported yet (ROADMAP queue A "
-                "item 4); the port samples and trains against 'lj_cluster'")
         e_cap = section.get("e_cap")
-        t = T.lj_cluster(n_atoms, kBT=kBT,
-                         c_osc=float(section.get("c_osc", 0.5)),
-                         softening=float(section.get("softening", 0.0)),
-                         e_cap=None if e_cap is None else float(e_cap))
+        e_cap = None if e_cap is None else float(e_cap)
+        if ttype == "lj_cluster":
+            t = T.lj_cluster(n_atoms, kBT=kBT,
+                             c_osc=float(section.get("c_osc", 0.5)),
+                             softening=float(section.get("softening", 0.0)),
+                             e_cap=e_cap)
+        elif ttype == "lj_fluid":
+            # `box` doubles as the System box of the VI base draws and the
+            # sampler's flow (both read the same key)
+            if "box" not in section:
+                raise ValueError("target type 'lj_fluid' requires 'box' "
+                                 "(reduced units, same as positions)")
+            cut = section.get("cutoff")
+            t = T.lj_fluid(n_atoms, box=float(section["box"]), kBT=kBT,
+                           softening=float(section.get("softening", 0.0)),
+                           cutoff=None if cut is None else float(cut),
+                           e_cap=e_cap)
+        elif ttype == "double_well":
+            t = T.double_well(n_atoms, dim=3, kBT=kBT)
+        elif ttype == "gaussian":
+            t = T.gaussian((n_atoms, 3), std=float(section.get("std", 1.0)))
+        elif ttype == "forcefield":
+            raise NotImplementedError(
+                "target type 'forcefield' is not ported yet (ROADMAP A5, "
+                "sample/forcefield.py)")
+        else:
+            raise ValueError(f"unknown target type {ttype!r}")
         return t, n_atoms
 
     def sample(self):
@@ -668,12 +695,7 @@ class Main:
         if algo_name not in ("smc", "ais"):
             raise NotImplementedError(
                 f"sampling.algo={algo_name!r} is not ported yet (ROADMAP "
-                "queue A item 8); the port runs smc | ais")
-        for key in ("chunk_temps", "checkpoint_every", "metrics_csv"):
-            if sec.get(key):
-                raise NotImplementedError(
-                    f"sampling.{key} is not ported yet (ROADMAP queue A "
-                    "item 8)")
+                "A5); the port runs smc | ais")
         target, n_atoms = self._build_pos_target(sec["target"])
         P = int(sec.get("n_particles", 1024))
         box = float(sec["target"].get("box", 1e3))
@@ -715,9 +737,22 @@ class Main:
                      **extra)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed + 31)
-        x0 = propose_z(self._latents(gen, P, n_atoms))
-        algo = smc_fn if algo_name == "smc" else ais_fn
-        res = algo(gen, x0, **knobs)
+        n_retries = 0
+        chunk = int(sec.get("chunk_temps", 0))
+        ckpt_every = int(sec.get("checkpoint_every", 0))
+        if chunk > 0 or ckpt_every > 0:
+            if algo_name != "smc":
+                raise NotImplementedError(
+                    "sampling.chunk_temps / checkpoint_every support "
+                    "algo: smc (ais carries per-particle weights across "
+                    "every stage — chunk the SMC variant instead)")
+            res, n_retries = self._run_smc_chunked(
+                sec, gen, propose_z, P, n_atoms, knobs, chunk or ckpt_every,
+                ckpt_every)
+        else:
+            x0 = propose_z(self._latents(gen, P, n_atoms))
+            algo = smc_fn if algo_name == "smc" else ais_fn
+            res = algo(gen, x0, **knobs)
 
         if res.beta_history is not None:
             beta_last = float(res.beta_history[-1])
@@ -729,21 +764,154 @@ class Main:
                     f"lower target_ess_frac)")
         ess = float(ess_from_log_weights(res.log_weights))
         out_path = sec.get("output", "samples.npz")
-
-        def host(t):
-            t = t.detach().cpu()
-            return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-        parts = {k: host(v) for k, v in res.particles.items()}
+        parts = {k: _host(v) for k, v in res.particles.items()}
         np.savez(out_path, pos=parts["pos"], vel=parts["vel"], h=parts["h"],
-                 g=parts["g"], log_weights=host(res.log_weights),
-                 log_Z=host(res.log_Z), ess_history=host(res.ess_history),
-                 **({"beta_history": host(res.beta_history)}
+                 g=parts["g"], log_weights=_host(res.log_weights),
+                 log_Z=_host(res.log_Z), ess_history=_host(res.ess_history),
+                 **({"beta_history": _host(res.beta_history)}
                     if res.beta_history is not None else {}))
         print(f"sampled {P} particles -> {out_path}  "
               f"log_Z={float(res.log_Z):.3f}  final_ESS={ess:.1f}  "
-              f"accept={float(res.accept_history[-1]):.2f}", flush=True)
+              f"accept={float(res.accept_history[-1]):.2f}"
+              + (f"  retries={n_retries}" if n_retries else ""), flush=True)
+        self._log_sample_stages(sec, res, n_retries)
         return res
+
+    # -- chunked, resumable SMC (driver.py:1431-1586) ----------------------
+
+    def _run_smc_chunked(self, sec, gen, propose_z, P, n_atoms, knobs, chunk,
+                         ckpt_every):
+        """The SMC anneal as segments of at most ``chunk`` temperatures
+        (``sample/smc.py: smc_segments``), each run through the retrying
+        runner; with ``sampling.checkpoint_every`` the state goes to
+        ``sampling.state_file`` (default ``<output>.state.npz``) every that
+        many stages, a killed run resumes from it (``sampling.resume``,
+        default true) and a completed run removes it. Equal bit for bit to
+        the monolithic run of the same seed: the latents are drawn from
+        ``gen`` also on a resume, so the stage generators are the same.
+        Returns ``(result, retries)``."""
+        from ..sample.smc import smc_segments
+
+        n_temps = knobs["n_temps"]
+        run_segment, retries = self._retrying_runner()
+        state_file = sec.get("state_file") or (
+            str(sec.get("output", "samples.npz")) + ".state.npz")
+        start_stage, init_state, init_hists = 0, None, None
+        if ckpt_every and sec.get("resume", True) and \
+                os.path.exists(state_file):
+            start_stage, init_state, init_hists = \
+                self._load_sample_state(state_file)
+            eprint(f"resuming sampling at stage {start_stage} from "
+                   f"{state_file}", flush=True)
+        saved = {"last": start_stage}
+
+        def on_segment(j, state, hists):
+            if not ckpt_every or j == n_temps:
+                return
+            if j // ckpt_every > saved["last"] // ckpt_every:
+                self._save_sample_state(state_file, j, state, hists)
+                saved["last"] = j
+
+        z = self._latents(gen, P, n_atoms)
+        x0 = None if init_state is not None else run_segment(propose_z, z)
+        res = smc_segments(gen, x0, chunk_temps=chunk,
+                           run_segment=run_segment, on_segment=on_segment,
+                           start_stage=start_stage, init_state=init_state,
+                           init_hists=init_hists, **knobs)
+        if ckpt_every and os.path.exists(state_file):
+            os.remove(state_file)       # completed runs must not resume
+        if retries["n"]:
+            eprint(f"sampling survived {retries['n']} device retr"
+                   f"{'y' if retries['n'] == 1 else 'ies'}", flush=True)
+        return res, retries["n"]
+
+    def _retrying_runner(self):
+        """``(run, counter)``: an executor that retries a call ONCE, after
+        5 s, when it fails with an error whose text holds ``UNAVAILABLE``
+        (the JAX package's transient device fault), counting the retries.
+        On the card it synchronizes before returning, so that a fault of
+        the call surfaces inside the ``try``. It retries nothing else: a
+        CUDA launch or illegal-address error is sticky for the process, so
+        a retry could not clear it."""
+        counter = {"n": 0}
+
+        def run(f, *a):
+            for attempt in (0, 1):
+                try:
+                    out = f(*a)
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    return out
+                except Exception as e:
+                    if "UNAVAILABLE" not in str(e) or attempt:
+                        raise
+                    counter["n"] += 1
+                    eprint(f"device UNAVAILABLE mid-segment ({e}); "
+                           "retrying in 5 s", flush=True)
+                    time.sleep(5.0)
+
+        return run, counter
+
+    def _save_sample_state(self, path, stage, state, hists):
+        """The SMC carry and histories, in the JAX driver's npz keys,
+        written atomically."""
+        (x, log_w, log_z, beta, eps, lq0, lp, glq0, glp) = state
+        out = {"stage": np.asarray(stage), "log_w": _host(log_w),
+               "log_z": _host(log_z), "beta": _host(beta),
+               "eps": _host(eps), "lq0": _host(lq0), "lp": _host(lp)}
+        for k, v in x.items():
+            out[f"x_{k}"] = _host(v)
+        if glq0 is not None:
+            for k, v in glq0.items():
+                out[f"gq_{k}"] = _host(v)
+            for k, v in glp.items():
+                out[f"gp_{k}"] = _host(v)
+        for i, name in enumerate(("ess", "acc", "betah", "steph")):
+            out[f"hist_{name}"] = np.concatenate([_host(h[i]) for h in hists])
+        tmp = path + ".tmp.npz"     # .npz suffix: savez must not append one
+        np.savez(tmp, **out)
+        os.replace(tmp, path)
+
+    def _load_sample_state(self, path):
+        """``(stage, state, hists)`` of a state file of either package, on
+        the driver's device in its dtype."""
+        t = lambda a: torch.from_numpy(np.array(a)).to(self.device,
+                                                        self.dtype)
+        with np.load(path) as z:
+            x = {k[2:]: t(z[k]) for k in z.files if k.startswith("x_")}
+            glq0 = {k[3:]: t(z[k]) for k in z.files
+                    if k.startswith("gq_")} or None
+            glp = {k[3:]: t(z[k]) for k in z.files
+                   if k.startswith("gp_")} or None
+            state = (x, t(z["log_w"]), t(z["log_z"]), t(z["beta"]),
+                     t(z["eps"]), t(z["lq0"]), t(z["lp"]), glq0, glp)
+            hists = [tuple(t(z[f"hist_{n}"])
+                           for n in ("ess", "acc", "betah", "steph"))]
+            return int(z["stage"]), state, hists
+
+    def _log_sample_stages(self, sec, res, n_retries=0):
+        """One ``sampling.metrics_csv`` row per temperature (stage, beta,
+        ESS, accept; ``log_Z`` and the retries on the last row), in the JAX
+        driver's columns; ``nbr_overflow`` stays empty, as for the exact
+        neighbor formats the port runs."""
+        path = sec.get("metrics_csv")
+        if not path:
+            return
+        logger = MetricsLogger(path)
+        ess_h = _host(res.ess_history)
+        acc_h = _host(res.accept_history)
+        beta_h = (_host(res.beta_history)
+                  if res.beta_history is not None else None)
+        for i in range(len(ess_h)):
+            last = i == len(ess_h) - 1
+            logger.log(stage=i,
+                       beta=(float(beta_h[i]) if beta_h is not None else ""),
+                       ess=float(ess_h[i]),
+                       accept=float(acc_h[i]) if i < len(acc_h) else "",
+                       log_Z=float(res.log_Z) if last else "",
+                       retries=n_retries if last else "",
+                       nbr_overflow="")
+        logger.close()
 
     def __call__(self, input_path):
         self.setup(input_path)

@@ -1,7 +1,7 @@
 """Metrics logging, the port of ``MetricsLogger`` in
 ``enflow_tpu/utils/observe.py`` (the port keeps its own copy). The JAX
-module's profiler hook and NaN guard are not ported (ROADMAP queue A item
-8): the driver raises on ``training.profile_dir`` and
+module's profiler hook and NaN guard are not ported (ROADMAP A5): the
+driver raises on ``training.profile_dir`` and
 ``debug.nan_checks``."""
 
 from __future__ import annotations

@@ -89,12 +89,21 @@ def test_driver_ignores_compiler_options(tmp_path, capsys):
     Main(device="cpu")(str(cfg))
     assert capsys.readouterr().out.strip().splitlines()[-1].startswith(
         f"sampled 32 particles -> {out}")
-    # the committed LJ55 config now gets past set-up and stops at the next
-    # refusal, chunked SMC
+    # the committed LJ55 config sets up, and its chunked knobs reach the
+    # sampler (the run itself is for the card: 1024 particles of LJ55)
     main = Main(device="cpu")
     main.setup(str(ROOT / "example" / "sample_lj55.yaml"))
-    with pytest.raises(NotImplementedError, match="chunk_temps"):
+    seen = {}
+
+    def chunked(sec, gen, propose_z, P, n_atoms, knobs, chunk, ckpt_every):
+        seen.update(P=P, n_atoms=n_atoms, chunk=chunk, every=ckpt_every,
+                    n_temps=knobs["n_temps"], sweeps=knobs["mcmc_steps"])
+        raise StopIteration
+    main._run_smc_chunked = chunked
+    with pytest.raises(StopIteration):
         main.sample()
+    assert seen == dict(P=1024, n_atoms=55, chunk=8, every=8, n_temps=16,
+                        sweeps=2)
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):

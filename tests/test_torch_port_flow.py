@@ -112,7 +112,7 @@ def test_unported_options_raise():
                    "cpu")
     _, tsys = _state()
     import dataclasses
-    for kw in (dict(integrator="vv"), dict(nbr_mode="dense"),
+    for kw in (dict(nbr_mode="cell"), dict(nbr_mode="dense"),
                dict(axis_name="atom")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             forward_core(tp, dataclasses.replace(tcfg, **kw), tsys)

@@ -8,7 +8,10 @@ and the LJ dataset's host-side draws.
   energy and gradient at f32 (rtol 1e-5: summation order only), with
   padded atoms, a coincident pair, several column tiles (``TILE`` shrunk
   with ``monkeypatch``) and PBC.
-- ``softened_lj_energy`` against the JAX package's dense form at float64.
+- ``softened_lj_energy`` against the JAX package's dense form at float64,
+  also with two coincident atoms (counted at softening > 0, left out at
+  0; their force is 0 where ``jax.grad`` gives NaN), and the kernel's
+  plain version with its ``coincident`` flag off (the Pallas contract).
 - MD at float64: 50 FIRE steps (1e-9) and one Langevin-middle step with
   the JAX package's noise fed in (1e-12); a short port ``simulate`` holds
   the mean instantaneous temperature within 10% of the target.
@@ -102,6 +105,60 @@ def test_softened_matches_dense_jax_f64():
                                      torch.from_numpy(box), 0.1, 2.5)
     assert float(te) == pytest.approx(je, rel=1e-12)
     np.testing.assert_allclose(tg.numpy(), jg, rtol=1e-10, atol=1e-12)
+
+
+def _coincident_trio():
+    """Two coincident atoms and a third, in a 5-sigma box."""
+    return np.array([[0.3, -0.2, 0.1], [0.3, -0.2, 0.1], [1.4, 0.6, -0.7]])
+
+
+def test_softened_counts_coincident_pairs_as_jax_f64():
+    box = np.array([5.0, 5.0, 5.0])
+    pos = _coincident_trio()
+    jb, tb = jnp.asarray(box), torch.from_numpy(box)
+    je = float(j_softened(jnp.asarray(pos), jb, 0.1, 3.0))
+    te = softened_lj_energy(torch.from_numpy(pos), tb, 0.1, 3.0)
+    te2, tg = softened_lj_energy_grad(torch.from_numpy(pos), tb, 0.1, 3.0)
+    assert float(te) == pytest.approx(je, rel=1e-12)
+    assert float(te2) == pytest.approx(je, rel=1e-12)
+    # the coincident pair holds 4(s^-12 - s^-6) of it
+    far = float(j_softened(jnp.asarray(pos[1:]), jb, 0.1, 3.0))
+    assert je - 2 * far == pytest.approx(4.0 * (0.1 ** -12 - 0.1 ** -6),
+                                         rel=1e-12)
+    # jax.grad through sqrt(0) gives NaN at the coincident pair; the port
+    # gives that pair no force, so each atom feels the third one only
+    jg = np.asarray(jax.grad(lambda p: j_softened(p, jb, 0.1, 3.0))(
+        jnp.asarray(pos)))
+    assert np.isnan(jg[:2]).all()
+    _, g_far = softened_lj_energy_grad(torch.from_numpy(pos[1:]), tb, 0.1,
+                                       3.0)
+    np.testing.assert_allclose(tg[:2].numpy(), g_far[:1].expand(2, 3),
+                               rtol=1e-12)
+    np.testing.assert_allclose(tg[2].numpy(), 2 * g_far[1].numpy(),
+                               rtol=1e-12)
+    # at softening 0 the pair is left out, as before
+    t0 = softened_lj_energy(torch.from_numpy(pos), tb, 0.0, 3.0)
+    f0 = softened_lj_energy(torch.from_numpy(pos[1:]), tb, 0.0, 3.0)
+    assert float(t0) == pytest.approx(2 * float(f0), rel=1e-12)
+    # (where the dense form gives inf - inf = NaN)
+    assert np.isnan(float(j_softened(jnp.asarray(pos), jb, 0.0, 3.0)))
+
+
+def test_plain_without_flag_keeps_the_pallas_contract():
+    """Flag off, the plain version drops the coincident pair, as
+    ``pallas_softened_lj_energy`` does (``pairwise_kernel.py:90``)."""
+    box = np.array([5.0, 5.0, 5.0], np.float32)
+    pos = _coincident_trio().astype(np.float32)
+    je = float(pk.pallas_softened_lj_energy(jnp.asarray(pos),
+                                            jnp.asarray(box), 0.1, 3.0))
+    args = (torch.from_numpy(pos)[None], torch.ones((1, 3)),
+            torch.from_numpy(box)[None], "r", 0.1, 3.0)
+    e_off, _ = ops.pair_energy_and_grad(*args)
+    e_on, g_on = ops.pair_energy_and_grad(*args, coincident=True)
+    assert float(e_off[0]) == pytest.approx(je, rel=1e-5)
+    assert float(e_on[0] - e_off[0]) == pytest.approx(
+        4.0 * (0.1 ** -12 - 0.1 ** -6), rel=1e-5)
+    assert torch.isfinite(g_on).all()
 
 
 # --- MD -------------------------------------------------------------------

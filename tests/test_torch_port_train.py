@@ -299,6 +299,6 @@ def test_driver_rejects_unported_train_options(tmp_path):
     # a flow-VI target the port does not have yet
     cfg.write_text(vi.replace("log_interval: 1", "log_interval: 1\n  "
                               "objective: flow_vi\n  target: {type: "
-                              "double_well, n_atoms: 4}"))
-    with pytest.raises(NotImplementedError, match="double_well.*ROADMAP"):
+                              "forcefield, n_atoms: 4}"))
+    with pytest.raises(NotImplementedError, match="forcefield.*ROADMAP"):
         Main(device="cpu").setup(str(cfg))
