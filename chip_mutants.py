@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Mutation check of ``chip_smoke.py``'s kernel-vs-plain tolerances, on one
 CUDA card: ``python3 chip_mutants.py [GROUP ...]`` from the repository root
-(groups: ``egcl_allpairs``, ``egcl_params``, ``edge_pipeline``,
-``pair_energy``; all by default; ``egcl_allpairs`` is the bf16 Hopper K1 and
-K2 of ``egcl_allpairs_sm90.cu``, read at chip_smoke.py's main, ragged and
-large shapes; ``egcl_params`` is its bf16 parameter-gradient variant in
-the same file, read at the vi, ico, ragged and large shapes).
+(groups: ``egcl_allpairs``, ``egcl_params``, ``egcl_f32``,
+``edge_pipeline``, ``pair_energy``; all by default; ``egcl_allpairs`` is the
+bf16 Hopper K1 and K2 of ``egcl_allpairs_sm90.cu``, read at chip_smoke.py's
+main, ragged and large shapes; ``egcl_params`` is its bf16
+parameter-gradient variant in the same file, read at the vi, ico, ragged
+and large shapes; ``egcl_f32`` is the tiled f32 K1 and K2 p of
+``egcl_allpairs_f32.cu``, read at the dw4, ala2 and ragged shapes).
 
 For each mutant below, the package and ``chip_smoke.py`` are copied into a
 temporary directory, one deliberate fault is written into the copy's CUDA
@@ -70,6 +72,37 @@ MUTANTS = {
         "a molecule's last partial tile dropped (floor for ceil)": (
             "return (E + kTile - 1) / kTile;",
             "return E / kTile;"),
+    },
+    # the tiled f32 K1 and K2 p. In f32 the compute-dtype rounding is the
+    # identity, so "the rounded dgate" is written as dgate cut to bf16's 8
+    # mantissa bits (truncated), the rounding the bf16 path takes there.
+    "egcl_f32": {
+        "control": None,
+        "i-side sums drop each tile's last row": (
+            "const int re = min((l + 1) * K - g0, nr);",
+            "const int re = min((l + 1) * K - g0, nr - 1);"),
+        "j-side sums drop each tile's last row": (
+            "const int lo = max(g0, e0), hi = min(g0 + nr, e0 + E);",
+            "const int lo = max(g0, e0), hi = min(g0 + nr - 1, e0 + E);"),
+        "valid ignores mask_j (padded neighbours count)": (
+            "s.valid[r] = mask[ai] * mask[aj];",
+            "s.valid[r] = mask[ai];"),
+        "a molecule straddling a row tile loses its rows in the second": (
+            "s.valid[r] = mask[ai] * mask[aj];",
+            "s.valid[r] = m * E < g0 ? 0.f : mask[ai] * mask[aj];"),
+        "dW2's depth drops each tile's last row": (
+            "outer<H>(X1, X2, nr, ky, nx, dW2);",
+            "outer<H>(X1, X2, nr - 1, ky, nx, dW2);"),
+        "dw4 takes the rounded dgate": (
+            "pw4[u] = fmaf(g1[u], dgate, pw4[u]);",
+            "pw4[u] = fmaf(g1[u], __uint_as_float(__float_as_uint(dgate) "
+            "& 0xffff0000u), pw4[u]);"),
+        "the next molecule tile prefetched from the current one": (
+            "if (new_atoms) prefetch_atoms<H, true>(a, s, ab ^ 1, nxt.tile);",
+            "if (new_atoms) prefetch_atoms<H, true>(a, s, ab ^ 1, cur.tile);"),
+        "the weights' swizzle off by one row on load": (
+            "const int dst = r * H + ((kc ^ ((r >> 2) & 7)) << 2);",
+            "const int dst = r * H + ((kc ^ (((r + 1) >> 2) & 7)) << 2);"),
     },
     # the tiled kernels (H = 64, 128), which every shape but h96 runs
     "edge_pipeline": {
@@ -152,6 +185,20 @@ for sname, shape in (("vi", cs.VI), ("ico", cs.ICO), ("ragged", cs.RAGGED),
                                  if n not in ("dh", "dpos")},
            cs.TOL_PARAM["bfloat16"])
 """,
+    "egcl_f32": HEAD + """
+from enflow_tpu_torch.ops import egcl_allpairs as ops
+for sname, shape in (("dw4", cs.DW4), ("ala2", cs.ALA2),
+                     ("ragged", cs.RAGGED)):
+    h, pos, box, mf, W, dagg, dfs, _ = cs.edge_inputs(shape, torch.float32,
+                                                      seed=23)
+    args = (h, pos, box, mf, W, dagg, dfs)
+    k = (ops.allpairs_edges_fwd(h, pos, box, mf, W)
+         + ops.allpairs_edges_bwd(*args, params=True))
+    p = (ops.allpairs_edges_plain(h, pos, box, mf, W)
+         + ops.allpairs_edges_plain_bwd(*args, params=True))
+    errs = cs.rel_errs(("agg", "f_sum") + cs.PARAM_OUT, k, p)
+    report(f"{sname} float32", errs, cs.TOL["float32"])
+""",
     "edge_pipeline": HEAD + """
 from enflow_tpu_torch.ops import edge_pipeline as ep
 for sname, shape in cs.EDGE_SHAPES.items():
@@ -184,7 +231,8 @@ def main():
     groups = sys.argv[1:] or list(MUTANTS)
     for group in groups:
         source = {"egcl_allpairs": "egcl_allpairs_sm90",
-                  "egcl_params": "egcl_allpairs_sm90"}.get(group, group)
+                  "egcl_params": "egcl_allpairs_sm90",
+                  "egcl_f32": "egcl_allpairs_f32"}.get(group, group)
         src_rel = f"enflow_tpu_torch/csrc/{source}.cu"
         for name, edit in MUTANTS[group].items():
             with tempfile.TemporaryDirectory() as tmp:

@@ -10,29 +10,29 @@ non-zero):
 2. build  — compiles every ``enflow_tpu_torch/csrc/*.cu`` with nvcc, one
    process per source, all at once (fresh builds from the checkout).
 3. kernel — the fused all-pairs EGCL kernels (forward K1, input-gradient
-   backward K2: the Hopper kernels of egcl_allpairs_sm90.cu in bf16, the
-   chunked ones of egcl_allpairs.cu in f32) against their plain PyTorch
-   version on the same inputs, at the main-path shape (B=1024, N=13, nf=5,
-   H=128) and a ragged shape (B=37, N=11, two padded atoms, periodic box
-   3.0), in bf16 and f32, and in bf16 at a large shape (B=64, N = the
-   backward's largest) and at H=64; a second launch of each bf16 kernel
-   must give the same bits. bf16 at H=96 goes to the chunked kernels by
-   the wrapper's size rule (its own launch counters). Each kernel and the
-   plain version timed at the first two shapes with CUDA events over
-   back-to-back calls, so the wrapper's host work overlaps the device work
-   before it. The bf16 parameter-gradient backward must take N >= 55
-   (vi_lj55.yaml), and a molecule one atom beyond the bf16 backward's
-   limit, with and without parameter gradients, must be refused.
+   backward K2: the Hopper kernels of egcl_allpairs_sm90.cu in bf16; in
+   f32 the tiled K1 of egcl_allpairs_f32.cu and the chunked K2 of
+   egcl_allpairs.cu) against their plain PyTorch version on the same
+   inputs, at the main-path shape (B=1024, N=13, nf=5, H=128) and a ragged
+   shape (B=37, N=11, two padded atoms, periodic box 3.0), in bf16 and
+   f32, and in bf16 at a large shape (B=64, N = the backward's largest)
+   and at H=64; a second launch of each must give the same bits. Both
+   dtypes at H=96 go to the chunked kernels by the wrapper's size rule
+   (its own launch counters). Each kernel and the plain version timed at
+   the first two shapes with CUDA events over back-to-back calls, so the
+   wrapper's host work overlaps the device work before it. The bf16
+   parameter-gradient backward must take N >= 55 (vi_lj55.yaml), and a
+   molecule one atom beyond the bf16 backward's limit, with and without
+   parameter gradients, must be refused.
 4. params — K2 with the nine parameter gradients (bf16: the Hopper
-   kernel; f32: the chunked one) against its plain version at the VI
+   kernel; f32: the tiled f32 kernel) against its plain version at the VI
    shape (B=512, N=13, nf=5, H=128), the same as LJ13 icosahedra, and the
    ragged shape, in bf16 and f32, and in bf16 at a large shape (B=64, N =
-   its largest), at H=64 and at H=96 (the size rule's chunked kernel); one
-   launch each on its counter, a second bf16
-   launch must give the same bits, dh/dpos also against the
-   input-gradient kernel's. Timed as in phase 3 at the first three shapes
-   beside the input-gradient variant, with the MUFU and elementwise
-   floors in bf16.
+   its largest) and at H=64, and in both dtypes at H=96 (the size rule's
+   chunked kernel); one launch each on its counter, a second launch must
+   give the same bits, dh/dpos also against the input-gradient kernel's.
+   Timed as in phase 3 at the first three shapes beside the
+   input-gradient variant, with the MUFU and elementwise floors in bf16.
 5. pair   — the pair-energy kernel K7 (energy and gradient) against its
    plain version: form r2 at B=30, N=13; form r at B=1, N=13 (atoms on the
    half-box rounding boundary) and at B=2, N=1500 (3 padded, box 12); form
@@ -75,9 +75,19 @@ non-zero):
    H=64, bf16, the learned drift) cut to 1 epoch x FLUID_STEPS steps; then
    K1 and K2 p against their plain version at B=256, N=32, H=64 with
    pairs on both sides of the half box and one on it, timed.
-10d. dw4  — ``example/vi_dw4.yaml`` (N=4, nf=2, H=64, float32: the
-   chunked kernels) cut to 1 epoch x DW4_STEPS steps; then the f32 K1 and
-   K2 p against their plain version at B=512, N=4, timed.
+10d. dw4  — ``example/vi_dw4.yaml`` (N=4, nf=2, H=64, float32: the tiled
+   f32 K1 and K2 p) cut to 1 epoch x DW4_STEPS steps (4 K1 + 4 K2 p a
+   step, no plain call); then the f32 K1 and K2 p against their plain
+   version at B=512, N=4, a second launch bitwise equal, timed (events
+   and device time).
+10e. ala2 — the f32 kernels at alanine dipeptide's size, kernels only
+   (vi_ala2.yaml's force-field target is not ported yet): the tiled f32
+   K2 p must take N >= 22 at nf=4, H=128 and refuse one atom past its
+   largest, and the tiled kernels must take every N the chunked ones take
+   at nf=5, H=128 and H=64; then the tiled f32 K1 and K2 p and the chunked
+   f32 K2 against their plain version at B=256, N=22, nf=4, H=128, the K2
+   also at B=2048 (sample_ala2.yaml's 2048 particles), a second launch
+   bitwise equal, each timed (events and device time) with its bound.
 11. edge  — the gathered-edge EGCL kernels (forward K5, backward K6 with
    all seven parameter gradients) against their plain version at the
    training shape (A=390 atoms, K = the auto capacity phase 10 observed,
@@ -89,17 +99,17 @@ non-zero):
    shapes, and as device time per launch.
 
 ``python3 chip_smoke.py --ab OLD.cu`` runs phases 1-2 and then times the
-bf16 kernels built from OLD.cu against the current ones, alternating old,
-new, new, old, old, new in one process: K1/K2 at the main-path shape with
-CUDA events and device time and the SMC run of phase 7; for an earlier
-egcl_allpairs.cu (the chunked kernels, e.g. ``git show
-HEAD:enflow_tpu_torch/csrc/egcl_allpairs.cu``) also K2 with parameter
-gradients at the VI shape and a VI epoch of phase 8. OLD.cu may also be
-an earlier egcl_allpairs_sm90.cu with the same K1/K2 entry points, or an
-earlier edge_pipeline.cu (e.g. ``git show
-6a2a2b7:enflow_tpu_torch/csrc/edge_pipeline.cu``): then a turn times K5/K6
-in f32 at the training shape (CUDA events and device time) and one
-train.yaml epoch.
+kernels built from OLD.cu against the current ones, alternating old,
+new, new, old, old, new in one process. For an earlier egcl_allpairs.cu
+(the chunked kernels, e.g. ``git show
+HEAD:enflow_tpu_torch/csrc/egcl_allpairs.cu``) every f32 launch of an old
+turn goes to its chunked kernels: a turn times the f32 K1 and K2 p at
+vi_dw4.yaml's shape (CUDA events and device time) and one vi_dw4.yaml
+epoch. For an earlier egcl_allpairs_sm90.cu with the same bf16 K1/K2
+entry points: K1/K2 at the main-path shape and the SMC run of phase 7.
+For an earlier edge_pipeline.cu (e.g. ``git show
+6a2a2b7:enflow_tpu_torch/csrc/edge_pipeline.cu``): K5/K6 in f32 at the
+training shape (CUDA events and device time) and one train.yaml epoch.
 
 ``python3 chip_smoke.py --profile [FILE]`` runs phases 1-2 and then, in
 place of the rest, one warm-up and one SMC run of phase 7 under
@@ -132,8 +142,9 @@ PEAK_BYTES = 3.35e12
 
 MAIN = dict(B=1024, N=13, nf=5, H=128)
 RAGGED = dict(B=37, N=11, nf=5, H=128, n_pad=2, box=3.0)
-# bf16 only: the Hopper kernels at H=64 (vi_fluid.yaml's width and N), and
-# bf16 at a width they do not take (the wrapper's size rule)
+# the Hopper kernels at H=64 (bf16; vi_fluid.yaml's width and N), and both
+# dtypes at a width the Hopper and tiled f32 kernels do not take (the
+# wrapper's size rule)
 H64 = dict(B=96, N=32, nf=5, H=64, n_pad=3)
 H96 = dict(B=16, N=13, nf=5, H=96, n_pad=1)
 # example/vi_lj13.yaml: 512 particles of LJ13 per step
@@ -357,7 +368,7 @@ def kernel_phase():
     cases = [("main", MAIN, "bfloat16"), ("main", MAIN, "float32"),
              ("ragged", RAGGED, "bfloat16"), ("ragged", RAGGED, "float32"),
              ("large", large, "bfloat16"), ("h64", H64, "bfloat16"),
-             ("h96", H96, "bfloat16")]
+             ("h96", H96, "bfloat16"), ("h96", H96, "float32")]
     for sname, shape, dname in cases:
         dtype = getattr(torch, dname)
         h, pos, box, mask_f, W, dagg, dfsum, mask = edge_inputs(
@@ -371,12 +382,10 @@ def kernel_phase():
                 and rule == ((1, 1) if sname == "h96" else (0, 0)),
                 f"{sname} {dname}: launches {vars(c)}")
         ok = all(rel <= TOL[dname] for _, rel in errs.values())
-        note = ""
-        if dname == "bfloat16":
-            again, _ = kernel_errs(ops, h, pos, box, mask_f, W, dagg, dfsum)
-            same = all(bool(torch.equal(a, b)) for a, b in zip(k_out, again))
-            ok = ok and same
-            note = f"; a second launch gives the same bits: {same}"
+        again, _ = kernel_errs(ops, h, pos, box, mask_f, W, dagg, dfsum)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(k_out, again))
+        ok = ok and same
+        note = f"; a second launch gives the same bits: {same}"
         if sname == "h96":
             note += "; the size rule's chunked kernels ran (1 + 1 launches)"
         phase("kernel", f"{sname} {dname} B={shape['B']} N={shape['N']} "
@@ -467,9 +476,10 @@ def param_kernel_phase(large_n):
     """K2 with parameter gradients against its plain version: bf16 (the
     Hopper kernel) at the VI shape (random and icosahedral positions), the
     ragged PBC shape, a large shape (B=64, N = ``large_n``, the bf16
-    variant's largest) and H=64, with a second launch that must give the
-    same bits; float32 (the chunked kernel) at the first three; bf16 at
-    H=96, which the wrapper's size rule sends to the chunked kernel. The
+    variant's largest) and H=64; float32 (the tiled f32 kernel) at the
+    first three; both dtypes at H=96, which the wrapper's size rule sends
+    to the chunked kernel; a second launch of each must give the same
+    bits. The
     parameter gradients are compared as the float32 sums both return
     (before the autograd Function rounds them to the weights' dtype);
     dh/dpos also against the input-gradient kernel's on the same inputs.
@@ -484,7 +494,7 @@ def param_kernel_phase(large_n):
              (("vi", VI), ("ico", ICO), ("ragged", RAGGED))
              for dname in ("bfloat16", "float32")]
     cases += [("large", large, "bfloat16"), ("h64", H64, "bfloat16"),
-              ("h96", H96, "bfloat16")]
+              ("h96", H96, "bfloat16"), ("h96", H96, "float32")]
     record, bad = {}, []
     for sname, shape, dname in cases:
         dtype = getattr(torch, dname)
@@ -514,13 +524,11 @@ def param_kernel_phase(large_n):
                for n in PARAM_OUT}
         ok = (all(rel <= tol[n] for n, (_, rel) in errs.items()) and same
               and launches == ((0, 1) if sname == "h96" else (1, 0)))
-        note = ""
-        if dname == "bfloat16":
-            again = ops.allpairs_edges_bwd(*args, params=True)
-            torch.cuda.synchronize()
-            repeat = all(bool(torch.equal(a, b)) for a, b in zip(k, again))
-            ok = ok and repeat
-            note = f"; a second launch gives the same bits: {repeat}"
+        again = ops.allpairs_edges_bwd(*args, params=True)
+        torch.cuda.synchronize()
+        repeat = all(bool(torch.equal(a, b)) for a, b in zip(k, again))
+        ok = ok and repeat
+        note = f"; a second launch gives the same bits: {repeat}"
         phase("params", f"{sname} {dname} B={shape['B']} N={shape['N']} "
               f"H={shape['H']} launches {launches[0]} (+{launches[1]} by the "
               "size rule) max_abs/rel err: " + "  ".join(
@@ -1056,18 +1064,16 @@ def device_ms(fn, key, calls=20):
 
 
 def ab_phase(card, old_src):
-    """An earlier kernel source against the current one, in bf16, in turns
-    old, new, new, old, old, new within this process. ``old_src`` is
-    either an earlier egcl_allpairs.cu (the chunked kernels; every bf16
-    launch goes to it in an old turn) or an earlier egcl_allpairs_sm90.cu
-    (its Hopper K1 and input-gradient K2 with the same C interface; K2 p
-    and the VI path stay on the current source, so only K1, K2 and the
-    SMC runs are compared). A turn times K1 and the input-gradient K2 at
-    the main-path shape and, for a chunked old source, K2 with parameter
-    gradients at the VI shape, with CUDA events and device time; then
-    three SMC runs of phase 7 after a warm-up and, for a chunked old
-    source, one VI epoch of VI_STEPS steps (both paths are host-bound and
-    their times drift between turns by more than the kernels move them)."""
+    """An earlier kernel source against the current one, in turns old,
+    new, new, old, old, new within this process. ``old_src`` is an
+    earlier egcl_allpairs.cu (the chunked kernels: ``f32_ab_phase``), an
+    earlier edge_pipeline.cu (``edge_ab_phase``), or an earlier
+    egcl_allpairs_sm90.cu with the same bf16 K1/K2 entry points (K2 p and
+    the VI path stay on the current source). For the last a turn times
+    K1 and the input-gradient K2 at the main-path shape with CUDA events
+    and device time, then three SMC runs of phase 7 after a warm-up (the
+    path is host-bound and its times drift between turns by more than the
+    kernels move them)."""
     import ctypes
     import os
     import torch
@@ -1092,58 +1098,37 @@ def ab_phase(card, old_src):
     if edge:
         edge_ab_phase(card, old_lib)
         return
-    sm90 = ops.uses_sm90
-    if hopper:
-        key, new_lib = "egcl_allpairs_sm90", ops._sm90_library()
-        for fn in ("egcl_sm90_fwd", "egcl_sm90_bwd", "egcl_sm90_smem_bytes",
-                   "egcl_sm90_smem_limit", "egcl_sm90_error_string"):
-            f, g = getattr(old_lib, fn), getattr(new_lib, fn)
-            f.argtypes, f.restype = g.argtypes, g.restype
-        old_lib._enflow_bound = True
-    else:
-        key, new_lib = "egcl_allpairs", ops._library()
-        if not hasattr(old_lib, "egcl_part_size"):
-            # a source from before csrc/egcl_part_layout.cuh
-            old_lib.egcl_part_size = old_lib.egcl_allpairs_part_size
+    if not hopper:
+        f32_ab_phase(card, old_lib)
+        return
+    new_lib = ops._sm90_library()
+    for fn in ("egcl_sm90_fwd", "egcl_sm90_bwd", "egcl_sm90_smem_bytes",
+               "egcl_sm90_smem_limit", "egcl_sm90_error_string"):
+        f, g = getattr(old_lib, fn), getattr(new_lib, fn)
+        f.argtypes, f.restype = g.argtypes, g.restype
+    old_lib._enflow_bound = True
 
     def use(which):
-        build._loaded[key] = old_lib if which == "old" else new_lib
-        if not hopper:       # "old": every bf16 launch to the chunked kernels
-            ops.uses_sm90 = (lambda *_: False) if which == "old" else sm90
+        build._loaded["egcl_allpairs_sm90"] = (old_lib if which == "old"
+                                               else new_lib)
 
     h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(MAIN, torch.bfloat16,
                                                          seed=11)
     fwd = lambda: ops.allpairs_edges_fwd(h, pos, box, mask_f, W)
     bwd = lambda: ops.allpairs_edges_bwd(h, pos, box, mask_f, W, dagg, dfsum)
-    vi_args = edge_inputs(VI, torch.bfloat16, seed=19)[:7]
-    pbwd = lambda: ops.allpairs_edges_bwd(*vi_args, params=True)
     cwd, rows = os.getcwd(), []
     try:
-        with tempfile.TemporaryDirectory() as tmp, \
-                tempfile.TemporaryDirectory() as vtmp:
+        with tempfile.TemporaryDirectory() as tmp:
             main = smc_driver(tmp)
-            if not hopper:
-                vmain = vi_driver(vtmp, 1)
-                vmain.train()                               # warm-up
-                vmain.start_epoch += 1
             for which in ("old", "new", "new", "old", "old", "new"):
                 use(which)
-                ops._library()
                 _, errs = kernel_errs(ops, h, pos, box, mask_f, W, dagg,
                                       dfsum)
-                if not hopper:
-                    errs.update(rel_errs(PARAM_OUT[2:], pbwd()[2:],
-                                         ops.allpairs_edges_plain_bwd(
-                                             *vi_args, params=True)[2:]))
-                require(all(r <= max(TOL["bfloat16"], TOL_PARAM["bfloat16"])
-                            for _, r in errs.values()),
+                require(all(r <= TOL["bfloat16"] for _, r in errs.values()),
                         f"{which} kernels disagree with plain: {errs}")
                 t = dict(fwd=cuda_time_ms(fwd), bwd=cuda_time_ms(bwd),
                          fwd_dev=device_ms(fwd, "fwd_kernel"),
                          bwd_dev=device_ms(bwd, "bwd_kernel"))
-                if not hopper:
-                    t.update(bwd_p=cuda_time_ms(pbwd),
-                             bwd_p_dev=device_ms(pbwd, "bwd_kernel"))
                 main.sample()                               # warm-up
                 secs = []
                 for _ in range(3):
@@ -1155,36 +1140,95 @@ def ab_phase(card, old_src):
                 require(float(res.beta_history[-1]) > 1.0 - 1e-5,
                         "anneal did not reach beta = 1")
                 t["smc"] = secs
-                vi = ""
-                if not hopper:
-                    os.chdir(vtmp)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    vmain.train()
-                    torch.cuda.synchronize()
-                    t["vi"] = [(time.perf_counter() - t0) / VI_STEPS]
-                    vmain.start_epoch += 1
-                    os.chdir(cwd)
-                    vi = (f", K2 p {t['bwd_p']:.4f} ms (device "
-                          f"{t['bwd_p_dev']:.4f}); VI {t['vi'][0]:.5f} "
-                          f"s/step (one epoch of {VI_STEPS})")
                 rows.append((which, t))
                 phase("ab", f"{which} on {card}: K1 {t['fwd']:.4f} ms "
                       f"(device {t['fwd_dev']:.4f}), K2 {t['bwd']:.4f} ms "
                       f"(device {t['bwd_dev']:.4f}); SMC runs "
-                      + ", ".join(f"{x:.4f}" for x in secs) + f" s{vi}")
+                      + ", ".join(f"{x:.4f}" for x in secs) + " s")
     finally:
         use("new")
         os.chdir(cwd)
     for key in rows[0][1]:
         pick = lambda which: statistics.median(
             x for w, t in rows if w == which
-            for x in (t[key] if key in ("smc", "vi") else [t[key]]))
+            for x in (t[key] if key == "smc" else [t[key]]))
         old, new = pick("old"), pick("new")
-        unit = {"smc": "s/run", "vi": "s/step"}.get(key, "ms")
+        unit = "s/run" if key == "smc" else "ms"
         phase("ab", f"{key} (median): old {old:.5f} new {new:.5f} {unit} -> "
               f"{old / new:.2f}x" + (f"; {1024 / old:.1f} -> {1024 / new:.1f}"
                                      " samples/s" if key == "smc" else ""))
+
+
+def f32_ab_phase(card, old_lib):
+    """An earlier egcl_allpairs.cu (``old_lib``, built) against the current
+    f32 kernels, in turns old, new, new, old, old, new within this
+    process: in an old turn every f32 launch goes to the old source's
+    chunked kernels, in a new turn K1 and K2 p to the tiled f32 kernels of
+    egcl_allpairs_f32.cu. A turn times f32 K1 and K2 p at vi_dw4.yaml's
+    shape (CUDA events and device time), then one vi_dw4.yaml epoch of
+    DW4_STEPS steps (after a warm-up epoch before the first turn), read as
+    the median of its steps after the first."""
+    import os
+    import torch
+    from enflow_tpu_torch.ops import build
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+
+    new_lib = ops._library()
+    if not hasattr(old_lib, "egcl_part_size"):
+        # a source from before csrc/egcl_part_layout.cuh
+        old_lib.egcl_part_size = old_lib.egcl_allpairs_part_size
+    rule = ops.kernel_for
+
+    def use(which):
+        build._loaded["egcl_allpairs"] = old_lib if which == "old" else new_lib
+        ops.kernel_for = rule if which == "new" else (
+            lambda code, H, d: "chunked" if code == 0 else rule(code, H, d))
+
+    h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(DW4, torch.float32,
+                                                         seed=31)
+    args = (h, pos, box, mask_f, W, dagg, dfsum)
+    fwd = lambda: ops.allpairs_edges_fwd(h, pos, box, mask_f, W)
+    pbwd = lambda: ops.allpairs_edges_bwd(*args, params=True)
+    want = (ops.allpairs_edges_plain(h, pos, box, mask_f, W)
+            + ops.allpairs_edges_plain_bwd(*args, params=True))
+    cwd, rows = os.getcwd(), []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            main = vi_driver(tmp, 1, config="vi_dw4.yaml", steps=DW4_STEPS)
+            main.train()                                    # warm-up
+            main.start_epoch += 1
+            for which in ("old", "new", "new", "old", "old", "new"):
+                use(which)
+                ops._library()
+                errs = rel_errs(("agg", "f_sum") + PARAM_OUT,
+                                fwd() + pbwd(), want)
+                require(all(r <= TOL["float32"] for _, r in errs.values()),
+                        f"{which} f32 kernels disagree with plain: {errs}")
+                t = dict(fwd=cuda_time_ms(fwd), bwd_p=cuda_time_ms(pbwd),
+                         fwd_dev=device_ms(fwd, "fwd_kernel"),
+                         bwd_p_dev=device_ms(pbwd, "bwd_"))
+                os.chdir(tmp)
+                step_s, _ = time_vi_steps(main)
+                main.train()
+                del main.vi_step                    # the timing wrapper
+                t["vi"] = statistics.median(step_s[1:])
+                main.start_epoch += 1
+                rows.append((which, t))
+                phase("ab", f"{which} on {card}: f32 K1 {t['fwd']:.4f} ms "
+                      f"(device {t['fwd_dev']:.4f}), K2 p {t['bwd_p']:.4f} "
+                      f"ms (device {t['bwd_p_dev']:.4f}) at B=512, N=4, "
+                      f"nf=2, H=64; vi_dw4.yaml {t['vi']:.5f} s/step "
+                      f"(median of steps 2-{DW4_STEPS} of one epoch)")
+    finally:
+        use("new")
+        os.chdir(cwd)
+    for key in rows[0][1]:
+        pick = lambda which: statistics.median(
+            t[key] for w, t in rows if w == which)
+        old, new = pick("old"), pick("new")
+        unit = "s/step" if key == "vi" else "ms"
+        phase("ab", f"{key} (median): old {old:.5f} new {new:.5f} {unit} -> "
+              f"{old / new:.2f}x")
 
 
 def edge_ab_phase(card, old_lib):
@@ -1793,12 +1837,26 @@ def vi_epoch(main, label, n_steps, want):
     return step_s, losses
 
 
+def kernel_key(dname, H, kind):
+    """A substring of the name of the kernel that a launch of ``kind`` at
+    this dtype and width runs (the wrapper's size rule), for
+    ``device_ms``."""
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+    route = ops.kernel_for(1 if dname == "bfloat16" else 0, H, kind)
+    direction = "fwd" if kind == "fwd" else "bwd"
+    if route == "f32":
+        return "egcl_f32_fwd" if kind == "fwd" else "egcl_f32_bwd_params"
+    return f"egcl_{'sm90_' if route == 'sm90' else ''}{direction}_kernel"
+
+
 def allpairs_vs_plain(name, label, shape, dname, seed, kinds, time_it=True,
-                      plain_reps=(20, 5)):
+                      plain_reps=(20, 5), repeat=False, device=False):
     """K1 (``"fwd"``), the input-gradient K2 (``"bwd"``) and K2 p
     (``"bwd_params"``), as ``kinds`` asks, against their plain version at
-    ``shape``; with ``time_it``, each timed beside its plain version with
-    its bound. Returns {kind: (max abs err, ms, plain ms, bound)}."""
+    ``shape``; with ``repeat``, a second launch must give the same bits;
+    with ``time_it``, each timed beside its plain version with its bound,
+    and with ``device`` also as device time per launch. Returns {kind:
+    (max abs err, ms, plain ms, bound, device ms)}."""
     import torch
     from enflow_tpu_torch.ops import egcl_allpairs as ops
 
@@ -1833,14 +1891,22 @@ def allpairs_vs_plain(name, label, shape, dname, seed, kinds, time_it=True,
                for n in names}
         ok = launched == 1 and all(r <= tol[n] for n, (_, r) in errs.items())
         t = ""
-        ms = plain_ms = b = None
+        if repeat:
+            same = all(bool(torch.equal(a, b)) for a, b in zip(got, kern()))
+            ok = ok and same
+            t = f"; a second launch gives the same bits: {same}"
+        ms = plain_ms = b = dev = None
         if time_it:
             ms = cuda_time_ms(kern)
             plain_ms = cuda_time_ms(plain, reps=plain_reps[0],
                                     calls=plain_reps[1])
             b = bound(*work_of[kind], PEAK_FLOPS[dname])
-            t = (f"; time ms {ms:.4f} (plain {plain_ms:.4f}, bound "
-                 f"{b[0]:.4f}, {b[1]})")
+            if device:
+                dev = device_ms(kern, kernel_key(dname, shape["H"], kind))
+            t += (f"; time ms {ms:.4f}"
+                  + (f" (device {dev:.4f})" if device else "")
+                  + f" plain {plain_ms:.4f}, bound {b[0]:.4f} ({b[1]}, "
+                  f"{work_of[kind][0] / 1e9:.2f} GFLOP)")
         phase(name, f"{label} {kind} {dname} B={shape['B']} N={shape['N']} "
               f"nf={shape['nf']} H={shape['H']}: launches {launched}; "
               "max_abs/rel err " + "  ".join(
@@ -1848,7 +1914,7 @@ def allpairs_vs_plain(name, label, shape, dname, seed, kinds, time_it=True,
               + f"{t} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             bad.append(kind)
-        out[kind] = (max(a for a, _ in errs.values()), ms, plain_ms, b)
+        out[kind] = (max(a for a, _ in errs.values()), ms, plain_ms, b, dev)
     require(not bad, f"{name}: {bad} disagree with plain at {label}")
     return out
 
@@ -1966,13 +2032,18 @@ def lj55_phase(card):
 # 1 epoch of LJ55C_STEPS (vi_lj55_coupled.yaml), FLUID_STEPS
 # (vi_fluid.yaml) and DW4_STEPS (vi_dw4.yaml) steps, every width as committed
 LJ55C_STEPS, FLUID_STEPS, DW4_STEPS = 5, 5, 10
+# the f32 all-pairs shapes: vi_dw4.yaml's 512 particles of DW4, and
+# vi_ala2.yaml's 256 of alanine dipeptide (22 atoms, nf=4, H=128)
+DW4 = dict(B=512, N=4, nf=2, H=64)
+ALA2 = dict(B=256, N=22, nf=4, H=128)
 
 
 def vi_config_phase(card, name, config, steps, per_step, shape, dname,
-                    check=None):
+                    check=None, **vs):
     """``example/<config>`` cut to 1 epoch x ``steps`` steps: ``per_step``
     K1 and K2 p launches a step, finite losses, a checkpoint; then K1 and
-    K2 p at ``shape`` against their plain version, timed."""
+    K2 p at ``shape`` against their plain version, timed
+    (``allpairs_vs_plain`` with the options ``vs``)."""
     import os
 
     cwd = os.getcwd()
@@ -1997,7 +2068,7 @@ def vi_config_phase(card, name, config, steps, per_step, shape, dname,
           + ", ".join(f"{x:.2f}" for x in losses)
           + f"; per step K1 {per_step} + K2 p {per_step}, plain calls 0")
     rec = allpairs_vs_plain(name, f"{config} shape", shape, dname, 31,
-                            ("fwd", "bwd_params"))
+                            ("fwd", "bwd_params"), **vs)
     return dict(s_step=s_step, launches=want, rec=rec)
 
 
@@ -2018,18 +2089,74 @@ def fluid_phase(card):
 
 
 def dw4_phase(card):
-    """``example/vi_dw4.yaml``: DW4 (N=4, nf=2, H=64) in float32, the
-    chunked kernels of egcl_allpairs.cu; then the f32 K1 and K2 p at
-    B=512, N=4, nf=2, H=64."""
+    """``example/vi_dw4.yaml``: DW4 (N=4, nf=2, H=64) in float32, the tiled
+    f32 K1 and K2 p of egcl_allpairs_f32.cu; then those kernels against
+    their plain version at B=512, N=4, nf=2, a second launch bitwise
+    equal, timed (events and device time)."""
     return vi_config_phase(card, "dw4", "vi_dw4.yaml", DW4_STEPS, 4,
-                           dict(B=512, N=4, nf=2, H=64), "float32")
+                           DW4, "float32", repeat=True, device=True)
+
+
+def ala2_phase():
+    """The f32 kernels at alanine dipeptide's size (kernels only: the
+    force-field target of vi_ala2.yaml is not ported yet). The tiled f32
+    K2 p must take N >= 22 at nf=4, H=128 and refuse one atom past its
+    largest; the tiled kernels must take every N that the chunked ones
+    take at nf=5 (H=128 and H=64). Then the tiled f32 K1 and K2 p and the
+    chunked f32 K2 against their plain version at vi_ala2.yaml's shape
+    (B=256, N=22, nf=4, H=128), the K2 also at sample_ala2.yaml's B=2048;
+    a second launch bitwise equal; each timed with its bound."""
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+
+    chunked = ops._library()
+
+    def chunked_largest(nf, H, kind):
+        n = 0
+        while 0 <= chunked.egcl_allpairs_smem_bytes(
+                0, n + 1, nf, H, ops._KIND[kind]) \
+                <= chunked.egcl_allpairs_smem_limit():
+            n += 1
+        return n
+
+    lim = {}
+    for nf, H in ((5, 128), (5, 64), (4, 128)):
+        for kind in ("fwd", "bwd_params"):
+            lim[(nf, H, kind)] = (ops.largest_molecule(0, nf, H, kind),
+                                  chunked_largest(nf, H, kind))
+    phase("ala2", "largest N, f32 tiled (chunked): " + ", ".join(
+        f"nf={nf} H={H} {kind} {a} ({b})" for (nf, H, kind), (a, b)
+        in lim.items()))
+    require(all(a >= b for a, b in lim.values()),
+            f"a tiled f32 kernel takes less than the chunked one: {lim}")
+    n_max = lim[(4, 128, "bwd_params")][0]
+    require(n_max >= 22, f"f32 K2 p takes N <= {n_max} at nf=4, H=128")
+    h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(
+        dict(B=1, N=n_max + 1, nf=4, H=128), torch.float32, seed=11)
+    try:
+        ops.allpairs_edges_bwd(h, pos, box, mask_f, W, dagg, dfsum,
+                               params=True)
+    except ValueError as e:
+        require("shared memory" in str(e) and f"N <= {n_max}" in str(e),
+                f"unclear refusal: {e}")
+        phase("ala2", f"N={n_max + 1} f32 bwd_params refused: {e}")
+    else:
+        raise RuntimeError("an f32 K2 p beyond shared memory was launched")
+    rec = allpairs_vs_plain("ala2", "vi_ala2 shape", ALA2, "float32", 37,
+                            ("fwd", "bwd_params", "bwd"), repeat=True,
+                            device=True, plain_reps=(5, 2))
+    rec["bwd_2048"] = allpairs_vs_plain(
+        "ala2", "sample_ala2 shape", dict(ALA2, B=2048), "float32", 41,
+        ("bwd",), repeat=True, device=True, plain_reps=(3, 1))["bwd"]
+    torch.cuda.empty_cache()
+    return rec
 
 
 def build_phase():
     """Fresh builds of every kernel source, one nvcc each, in parallel."""
     from enflow_tpu_torch.ops import build
-    names = ("egcl_allpairs_sm90", "egcl_allpairs", "edge_pipeline",
-             "pair_energy")
+    names = ("egcl_allpairs_sm90", "egcl_allpairs_f32", "egcl_allpairs",
+             "edge_pipeline", "pair_energy")
     for name in names:
         build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
@@ -2068,9 +2195,9 @@ def main():
     ap.add_argument("--ab", default=None, metavar="OLD_CU",
                     help="time the kernels built from an earlier "
                     "egcl_allpairs.cu, egcl_allpairs_sm90.cu or "
-                    "edge_pipeline.cu against the current ones, and SMC runs "
-                    "(train.yaml epochs for edge_pipeline.cu) with each, "
-                    "instead of the phases after the build")
+                    "edge_pipeline.cu against the current ones, and "
+                    "vi_dw4.yaml epochs, SMC runs or train.yaml epochs with "
+                    "each, instead of the phases after the build")
     ap.add_argument("--profile", nargs="?", const="", default=None,
                     metavar="FILE", help="profile one SMC run instead of "
                     "the phases after the build; the full table to FILE")
@@ -2134,7 +2261,8 @@ def main():
     timed("vi55", vi55_phase, card)
     timed("lj55", lj55_phase, card)
     timed("fluid", fluid_phase, card)
-    timed("dw4", dw4_phase, card)
+    dw4 = timed("dw4", dw4_phase, card)
+    timed("ala2", ala2_phase)
     tr = timed("train", train_phase, card)
     # K5/K6 at the training path's shape: its slot count is the auto
     # capacity that the train phase's dataset gave
@@ -2163,6 +2291,14 @@ def main():
                       e["err_bwd"], e["ms_bwd"], e["plain_bwd"],
                       e["bound_bwd"]),
     ]
+    # the tiled f32 kernels at vi_dw4.yaml's shape, with that run's launches
+    for name, direction, line, n in (
+            ("egcl_allpairs_f32_fwd", "fwd", 365, dw4["launches"]["k1"]),
+            ("egcl_allpairs_f32_bwd_params", "bwd_params", 414,
+             dw4["launches"]["k2_params"])):
+        err, ms, plain, bnd, _ = dw4["rec"][direction]
+        kernels.append(kernel_record(name, "egcl_allpairs_f32.cu",
+                                     f"{v3}:{line}", n, err, ms, plain, bnd))
     for name, key, n in (("pair_energy_r2", "r2", tr["k7_r2"]),
                          ("pair_energy_r", "r", tr["md_launches"])):
         p = prec[key]

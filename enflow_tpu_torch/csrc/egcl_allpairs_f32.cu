@@ -1,0 +1,994 @@
+// Fused all-pairs EGCL edge pipeline in float32, designed for Hopper
+// (sm_90a): the forward (K1) and the backward with the nine parameter
+// gradients (K2 p), at H = 64 or 128.
+//
+// Replaces the Pallas TPU kernels of enflow_tpu/ops/egcl_fused_v3.py:
+//   forward  -> the pallas_call of _fused_fwd (:365), _fwd_kernel
+//   backward -> the pallas_call of _fused_bwd (:414), _bwd_kernel with the
+//               parameter gradients dW1a ... dw4 (:256-273; what training
+//               asks for)
+// for the float32 compute dtype, and computes the contract of
+// egcl_allpairs.cu:13-22. In f32 every rounding point of that contract is
+// the identity, so this file has none; dw1r takes the f32 r2 and dw4 the
+// f32 dgate, as _bwd_kernel does, and the backward's clip mask is
+// _bwd_kernel's (-100 <= cd gate <= 100). bf16 runs in
+// egcl_allpairs_sm90.cu; every other width, and the f32 input-gradient
+// backward, in egcl_allpairs.cu (the wrapper's size rule,
+// ops/egcl_allpairs.py kernel_for).
+//
+// What bounds it on this card: per valid pair the forward does two H x H
+// products and the backward six (two recomputed, two transposed, two outer
+// products for dW2 and dW3), 4 H^2 and 12 H^2 FLOP; the inputs are a few
+// floats per atom. At vi_ala2.yaml's shape (B=256, N=22, nf=4, H=128,
+// 118,272 pairs) that is ~7.9 and ~23.5 GFLOP: 0.12 and 0.35 ms at the 67
+// TFLOP/s f32 rate. At vi_dw4.yaml's (B=512, N=4, nf=2, H=64, 6,144 pairs)
+// it is 0.1 and 0.3 GFLOP, a few microseconds: there one wave of blocks,
+// the weights' load and the barriers set the time. The products stay on
+// the FMA units: TF32 tensor cores would round every input to 10 mantissa
+// bits, where the f32 reference keeps 23.
+//
+// Design (after the tiled kernels of edge_pipeline.cu):
+// - 2H threads a block, one block an SM, persistent: molecule tiles of MT
+//   whole molecules, strided over the blocks, so every node sum stays in
+//   its block (no atomics) and runs in a fixed order. W2 and W3 are copied
+//   once a block with cp.async, as f32 with each 16-byte chunk kc of row r
+//   at kc ^ ((r / 4) % 8), so W (X W) and W^T (X W^T) read without bank
+//   conflicts; they land while the first tile's first layer computes.
+// - Only the rows i != j: a molecule's N(N-1) pairs in i-major order (row
+//   q: i = q / (N-1), j the (q % (N-1))-th atom other than i); a molecule
+//   tile's nm N(N-1) rows are cut into row tiles of R rows (a multiple of
+//   8, at most 72 forward and 40 backward; the wrapper's tile_rows), the
+//   last holding the rest, with the padding masked. Where N(N-1) is small
+//   the wrapper packs several molecules into a tile (N=4: 12 rows a
+//   molecule, 4 molecules a block at B=512), so a row tile may span
+//   molecules and a molecule may straddle two row tiles; the sums are kept
+//   per molecule tile across its row tiles.
+// - z1 = h_i W1a + h_j W1b + b1 + r2 w1r is computed per row from the
+//   staged h (nf FMAs a side) instead of staging h W1a and h W1b per atom,
+//   and the backward reads dagg rows straight from global memory (L2; each
+//   read N-1 times): the per-atom arrays are then only the node sums, so
+//   at N=22, nf=4, H=128 the backward keeps three 40-row activation tiles
+//   beside the weights: W2 + W3 131,072 bytes, the tiles 63,360, the node
+//   sums 23,056 and the rest ~11 KB, of the 232,448 a block may use.
+// - Register-tiled products as in edge_pipeline.cu: in X W and X W^T a
+//   thread owns 4 columns of every 8th row of the tile (a warp: 4 rows x 8
+//   column lanes), reading 4 float4 of W and q broadcast float4 of X for
+//   16 q FMAs a 4-deep k step. In the outer products m2^T dz3 and m1^T dz2
+//   (the tile's rows as depth) a thread owns an 8 x 4 (H / 64) tile of dW3
+//   and dW2, held in registers across all of the block's rows; the column
+//   sums (db2, db3, dw1r, dw4) stay per thread in registers too, reduced
+//   over the 8 row lanes once at the end. Each block stores its slice of
+//   the [blocks, P] partials (egcl_part_layout.cuh) once; dW1a = sum_i h_i
+//   (x) dz1_i, dW1b likewise and db1 = sum_i dz1_i come from the node sums
+//   once a molecule tile (as in egcl_allpairs_sm90.cu), added into the
+//   slice by their owner threads. The wrapper sums the slices in a fixed
+//   order: a second launch gives the same bits.
+// - Node sums: the i side of a row tile (agg, dz1_i, dpos_i) as runs of
+//   N-1 rows, one (atom, column) a thread in row order; the j side (dz1_j,
+//   dpos_j) one (atom, column) a thread over the tile's rows of that j.
+// - The next molecule tile's h, pos, mask, box (and dfsum) are copied with
+//   cp.async into the other half of a double buffer while the current one
+//   computes.
+// - SiLU uses the fast ex2 and reciprocal (a few ulp, far inside the f32
+//   tolerance), as the tiled edge kernels do.
+
+#include <cuda_runtime.h>
+
+#include <stddef.h>
+#include <stdint.h>
+
+#include "egcl_part_layout.cuh"
+
+namespace {
+
+constexpr int kQmaxFwd = 9;   // at most 72 rows a tile (forward)
+constexpr int kQmaxBwd = 5;   // at most 40 rows a tile (backward)
+constexpr size_t kMaxSmem = 232448;
+enum Kind { kFwd = 0, kBwdParams = 2 };
+
+struct Args {
+  int B, N, nf, H;
+  int MT;             // molecules a tile
+  int R;              // rows a row tile (a multiple of 8)
+  int n_tiles;        // molecule tiles, ceil(B / MT)
+  const float* h;     // [B, N, nf]
+  const float* pos;   // [B, N, 3]
+  const float* box;   // [B, 3]
+  const float* mask;  // [B, N] (0/1)
+  const float* W1a;   // [nf, H]
+  const float* W1b;   // [nf, H]
+  const float* w1r;   // [H]
+  const float* b1;    // [H]
+  const float* W2;    // [H, H]
+  const float* b2;    // [H]
+  const float* W3;    // [H, H]
+  const float* b3;    // [H]
+  const float* w4;    // [H]
+  const float* dagg;  // [B, N, H]   (backward)
+  const float* dfsum; // [B, N, 3]   (backward)
+  float* agg;         // [B, N, H]   (forward)
+  float* fsum;        // [B, N, 3]   (forward)
+  float* dh;          // [B, N, nf]  (backward)
+  float* dpos;        // [B, N, 3]   (backward)
+  float* part;        // [blocks, P] (backward)
+};
+
+struct Bump {
+  char* base;
+  size_t off;
+  __host__ __device__ char* take(size_t bytes) {
+    off = (off + 15) & ~size_t(15);
+    char* p = base ? base + off : nullptr;
+    off += bytes;
+    return p;
+  }
+};
+
+struct Smem {
+  float *W2, *W3, *W1a, *W1b, *w1r, *b1, *b2, *b3, *w4;
+  float* X[3];          // activation tiles [R, H + 4] (forward: 2)
+  float* gpart;         // a row's partial sums over H / 32 warps [R, H/32]
+  int *ri, *rj;         // the rows' atoms in the molecule tile (m N + i)
+  float *cd, *r2, *valid;
+  float* rd;            // forward: tr [R, 3]; backward: dcd [R, 3]
+  // forward: agg [MT N, H], fsum [MT N, 3]; backward: dz1_i then dz1_j
+  // [2, MT N, H], dpos_i then dpos_j [2, MT N, 3]
+  float *accH, *acc3;
+  // two stages of a molecule tile's h [MT N, nf], pos [MT N, 3], mask
+  // [MT N], box [MT, 3] and (backward) dfsum [MT N, 3], at float offsets
+  // held as ints so that the struct stays in registers
+  float* atoms;
+  int at_floats, at_pos, at_mask, at_box, at_dfs;
+  __device__ float* stage(int ab) const { return atoms + ab * at_floats; }
+};
+
+__host__ __device__ inline void carve(Bump& m, Smem& s, int N, int nf, int H,
+                                      int MT, int R, bool bwd) {
+  const size_t fH = sizeof(float) * H;
+  s.W2 = (float*)m.take(fH * H);
+  s.W3 = (float*)m.take(fH * H);
+  s.W1a = (float*)m.take(fH * nf);
+  s.W1b = (float*)m.take(fH * nf);
+  s.w1r = (float*)m.take(fH);
+  s.b1 = (float*)m.take(fH);
+  s.b2 = (float*)m.take(fH);
+  s.b3 = (float*)m.take(fH);
+  s.w4 = (float*)m.take(fH);
+  for (int k = 0; k < 3; ++k)
+    s.X[k] = k < (bwd ? 3 : 2)
+                 ? (float*)m.take(sizeof(float) * R * (H + 4)) : nullptr;
+  s.gpart = (float*)m.take(sizeof(float) * R * (H / 32));
+  s.ri = (int*)m.take(sizeof(int) * R);
+  s.rj = (int*)m.take(sizeof(int) * R);
+  s.cd = (float*)m.take(sizeof(float) * R * 3);
+  s.r2 = (float*)m.take(sizeof(float) * R);
+  s.valid = (float*)m.take(sizeof(float) * R);
+  s.rd = (float*)m.take(sizeof(float) * R * 3);
+  const int na = MT * N, sides = bwd ? 2 : 1;
+  s.accH = (float*)m.take(fH * na * sides);
+  s.acc3 = (float*)m.take(sizeof(float) * na * 3 * sides);
+  s.at_pos = na * nf;
+  s.at_mask = s.at_pos + na * 3;
+  s.at_box = s.at_mask + na;
+  s.at_dfs = s.at_box + MT * 3;
+  s.at_floats = (s.at_dfs + (bwd ? na * 3 : 0) + 3) & ~3;
+  s.atoms = (float*)m.take(sizeof(float) * 2 * s.at_floats);
+}
+
+// cp.async: 4-byte and 16-byte copies, global -> shared.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// Waits until at most n of this thread's cp.async groups are in flight.
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  if (n >= 2) cp_async_wait<2>();
+  else if (n == 1) cp_async_wait<1>();
+  else cp_async_wait<0>();
+}
+
+__device__ __forceinline__ float sig(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
+}
+__device__ __forceinline__ float silu(float x) { return x * sig(x); }
+__device__ __forceinline__ float dsilu(float x) {
+  const float s = sig(x);
+  return s * (1.0f + x * (1.0f - s));
+}
+
+template <int W> __device__ __forceinline__ float lane_sum(float v) {
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// W2, W3 [H, H] in shared memory, 16-byte chunk kc of row r stored at chunk
+// kc ^ ((r / 4) % 8): the row products read W[k][4cx..] (one row, 8
+// consecutive chunks a quarter warp) and W[4cx+u][kc..] (8 rows four apart,
+// one chunk) without bank conflicts.
+template <int H>
+__device__ __forceinline__ const float* wchunk(const float* W, int r, int kc) {
+  return W + r * H + ((kc ^ ((r >> 2) & 7)) << 2);
+}
+
+// W2, W3 (swizzled), W1a, W1b and the bias rows by 16-byte cp.async (the
+// caller commits).
+template <int H>
+__device__ void load_weights(const Args& a, const Smem& s) {
+  constexpr int NT = 2 * H, CH = H / 4;
+  for (int k = threadIdx.x; k < H * CH; k += NT) {
+    const int r = k / CH, kc = k % CH;
+    const int dst = r * H + ((kc ^ ((r >> 2) & 7)) << 2);
+    cp_async16(s.W2 + dst, a.W2 + 4 * k);
+    cp_async16(s.W3 + dst, a.W3 + 4 * k);
+  }
+}
+template <int H>
+__device__ void load_small(const Args& a, const Smem& s) {
+  constexpr int NT = 2 * H;
+  const auto load = [&](float* dst, const float* src, int n) {
+    for (int k = threadIdx.x; k < n / 4; k += NT)
+      cp_async16(dst + 4 * k, src + 4 * k);
+  };
+  load(s.W1a, a.W1a, a.nf * H);
+  load(s.W1b, a.W1b, a.nf * H);
+  load(s.w1r, a.w1r, H);
+  load(s.b1, a.b1, H);
+  load(s.b2, a.b2, H);
+  load(s.b3, a.b3, H);
+  load(s.w4, a.w4, H);
+}
+
+// Molecule tile `tile`'s atoms into stage ab, 4-byte cp.async (the caller
+// commits).
+template <int H, bool BWD>
+__device__ void prefetch_atoms(const Args& a, const Smem& s, int ab,
+                               int tile) {
+  constexpr int NT = 2 * H;
+  const int b0 = tile * a.MT, nm = min(a.MT, a.B - b0), na = nm * a.N;
+  float* d = s.stage(ab);
+  const auto copy = [&](float* dst, const float* src, int n) {
+    for (int k = threadIdx.x; k < n; k += NT) cp_async4(dst + k, src + k);
+  };
+  copy(d, a.h + (size_t)b0 * a.N * a.nf, na * a.nf);
+  copy(d + s.at_pos, a.pos + (size_t)b0 * a.N * 3, na * 3);
+  copy(d + s.at_mask, a.mask + (size_t)b0 * a.N, na);
+  copy(d + s.at_box, a.box + (size_t)b0 * 3, nm * 3);
+  if (BWD) copy(d + s.at_dfs, a.dfsum + (size_t)b0 * a.N * 3, na * 3);
+}
+
+// A block's work: molecule tiles blockIdx.x, + gridDim.x, ... of MT
+// molecules; a tile's nm N(N-1) rows in row tiles of R rows, the last one
+// holding the rest (a tile without rows, N = 1, is one empty row tile).
+struct Cursor {
+  int tile, g0;
+};
+__device__ __forceinline__ int rows_of(const Args& a, int tile) {
+  return min(a.MT, a.B - tile * a.MT) * a.N * (a.N - 1);
+}
+__device__ __forceinline__ Cursor advance(const Args& a, Cursor c) {
+  if (c.g0 + a.R < rows_of(a, c.tile)) return Cursor{c.tile, c.g0 + a.R};
+  return Cursor{c.tile + (int)gridDim.x, 0};
+}
+
+// Per row r < R of the tile: its atoms (m N + i, m N + j), the min-image cd
+// (round half to even, as jnp.round), r2 and valid = mask_i mask_j; rows
+// past nr are padding (atoms 0, geometry and valid 0).
+__device__ void row_geometry(const Args& a, const Smem& s, const float* at,
+                             int g0, int nr) {
+  const int r = threadIdx.x;
+  if (r >= a.R) return;
+  const int N = a.N, E = N * (N - 1);
+  if (r < nr) {
+    const float* pos = at + s.at_pos;
+    const float* mask = at + s.at_mask;
+    const int g = g0 + r, m = g / E, q = g - m * E;
+    const int i = q / (N - 1), jj = q - i * (N - 1), j = jj + (jj >= i);
+    const int ai = m * N + i, aj = m * N + j;
+    float r2 = 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      float c = pos[ai * 3 + d] - pos[aj * 3 + d];
+      const float bx = at[s.at_box + m * 3 + d];
+      c = c - rintf(c / bx) * bx;
+      s.cd[r * 3 + d] = c;
+      r2 += c * c;
+    }
+    s.r2[r] = r2;
+    s.valid[r] = mask[ai] * mask[aj];
+    s.ri[r] = ai;
+    s.rj[r] = aj;
+  } else {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) s.cd[r * 3 + d] = 0.f;
+    s.r2[r] = 0.f;
+    s.valid[r] = 0.f;
+    s.ri[r] = 0;
+    s.rj[r] = 0;
+  }
+}
+
+// z1 = h_i W1a + h_j W1b + b1 + r2 w1r of row r, columns c0 .. c0 + 3.
+template <int H>
+__device__ __forceinline__ void z1_row(int nf, const Smem& s,
+                                       const float* hs, int r, int c0,
+                                       float (&z)[4]) {
+  const float* hi = hs + s.ri[r] * nf;
+  const float* hj = hs + s.rj[r] * nf;
+  float pa[4] = {0.f, 0.f, 0.f, 0.f}, pb[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < nf; ++k) {
+    const float xi = hi[k], xj = hj[k];
+    const float4 wa = *reinterpret_cast<const float4*>(s.W1a + k * H + c0);
+    const float4 wb = *reinterpret_cast<const float4*>(s.W1b + k * H + c0);
+    pa[0] = fmaf(xi, wa.x, pa[0]);
+    pa[1] = fmaf(xi, wa.y, pa[1]);
+    pa[2] = fmaf(xi, wa.z, pa[2]);
+    pa[3] = fmaf(xi, wa.w, pa[3]);
+    pb[0] = fmaf(xj, wb.x, pb[0]);
+    pb[1] = fmaf(xj, wb.y, pb[1]);
+    pb[2] = fmaf(xj, wb.z, pb[2]);
+    pb[3] = fmaf(xj, wb.w, pb[3]);
+  }
+  const float4 b = *reinterpret_cast<const float4*>(s.b1 + c0);
+  const float4 w = *reinterpret_cast<const float4*>(s.w1r + c0);
+  const float r2 = s.r2[r];
+  z[0] = ((pa[0] + pb[0]) + b.x) + r2 * w.x;
+  z[1] = ((pa[1] + pb[1]) + b.y) + r2 * w.y;
+  z[2] = ((pa[2] + pb[2]) + b.z) + r2 * w.z;
+  z[3] = ((pa[3] + pb[3]) + b.w) + r2 * w.w;
+}
+
+// X = silu(z1) over the thread's rows of the tile (padding included), in
+// the row products' layout.
+template <int H, int QM>
+__device__ __forceinline__ void first_layer(int nf, const Smem& s,
+                                            const float* hs, int q, int ry,
+                                            int c0, float* X) {
+  constexpr int LD = H + 4;
+#pragma unroll
+  for (int i = 0; i < QM; ++i) {
+    if (i >= q) break;
+    const int r = ry + 8 * i;
+    float z[4];
+    z1_row<H>(nf, s, hs, r, c0, z);
+    *reinterpret_cast<float4*>(X + r * LD + c0) =
+        make_float4(silu(z[0]), silu(z[1]), silu(z[2]), silu(z[3]));
+  }
+}
+
+// acc[i][u] = sum_k X[ry + 8i, k] W[k, 4cx + u] (TRANS: W[4cx + u, k]) for
+// the thread's Q rows and 4 columns, f32 FMAs in k order. Per 4-deep k
+// step: 4 float4 loads of W and Q broadcast float4 loads of X for 16 Q
+// FMAs.
+template <int H, int Q, bool TRANS, int QM>
+__device__ __forceinline__ void product(const float* __restrict__ X,
+                                        const float* __restrict__ W, int ry,
+                                        int cx, float (&acc)[QM][4]) {
+  constexpr int LD = H + 4;
+#pragma unroll
+  for (int i = 0; i < Q; ++i)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
+  const float* x0 = X + ry * LD;
+#pragma unroll 1
+  for (int kc = 0; kc < H / 4; ++kc) {
+    float4 w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = *reinterpret_cast<const float4*>(
+          TRANS ? wchunk<H>(W, 4 * cx + j, kc) : wchunk<H>(W, 4 * kc + j, cx));
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(x0 + i * 8 * LD + 4 * kc);
+      if constexpr (TRANS) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float t = acc[i][u];
+          t = fmaf(x.x, w[u].x, t);
+          t = fmaf(x.y, w[u].y, t);
+          t = fmaf(x.z, w[u].z, t);
+          acc[i][u] = fmaf(x.w, w[u].w, t);
+        }
+      } else {
+        acc[i][0] = fmaf(x.w, w[3].x, fmaf(x.z, w[2].x,
+                    fmaf(x.y, w[1].x, fmaf(x.x, w[0].x, acc[i][0]))));
+        acc[i][1] = fmaf(x.w, w[3].y, fmaf(x.z, w[2].y,
+                    fmaf(x.y, w[1].y, fmaf(x.x, w[0].y, acc[i][1]))));
+        acc[i][2] = fmaf(x.w, w[3].z, fmaf(x.z, w[2].z,
+                    fmaf(x.y, w[1].z, fmaf(x.x, w[0].z, acc[i][2]))));
+        acc[i][3] = fmaf(x.w, w[3].w, fmaf(x.z, w[2].w,
+                    fmaf(x.y, w[1].w, fmaf(x.x, w[0].w, acc[i][3]))));
+      }
+    }
+  }
+}
+
+// product<Q> for the tile's runtime row count q = 1 .. QM (one unrolled
+// copy each, so the accumulators stay in registers).
+template <int H, bool TRANS, int QM, int Q = 1>
+__device__ __forceinline__ void product_q(int q, const float* X,
+                                          const float* W, int ry, int cx,
+                                          float (&acc)[QM][4]) {
+  if (q == Q) {
+    product<H, Q, TRANS, QM>(X, W, ry, cx, acc);
+  } else if constexpr (Q < QM) {
+    product_q<H, TRANS, QM, Q + 1>(q, X, W, ry, cx, acc);
+  }
+}
+
+// acc[p][b] += sum_{r < nr} L[r, k_p] G[r, n_b]: the thread's 8 k
+// (4ky + p%4 + (p/4) H/2) by 4 NG n (4nx + b%4 + (b/4) 64), two float4 of
+// L and NG of G a row for 32 NG FMAs.
+template <int H>
+__device__ __forceinline__ void outer(const float* __restrict__ L,
+                                      const float* __restrict__ G, int nr,
+                                      int ky, int nx,
+                                      float (&acc)[8][4 * (H / 64)]) {
+  constexpr int LD = H + 4, NG = H / 64;
+#pragma unroll 2
+  for (int r = 0; r < nr; ++r) {
+    const float* l = L + r * LD;
+    const float* g = G + r * LD;
+    const float4 la = *reinterpret_cast<const float4*>(l + 4 * ky);
+    const float4 lb = *reinterpret_cast<const float4*>(l + H / 2 + 4 * ky);
+    const float lv[8] = {la.x, la.y, la.z, la.w, lb.x, lb.y, lb.z, lb.w};
+    float gv[4 * NG];
+#pragma unroll
+    for (int b = 0; b < NG; ++b) {
+      const float4 t = *reinterpret_cast<const float4*>(g + 64 * b + 4 * nx);
+      gv[4 * b] = t.x;
+      gv[4 * b + 1] = t.y;
+      gv[4 * b + 2] = t.z;
+      gv[4 * b + 3] = t.w;
+    }
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+#pragma unroll
+      for (int b = 0; b < 4 * NG; ++b)
+        acc[p][b] = fmaf(lv[p], gv[b], acc[p][b]);
+  }
+}
+
+// i-side node sums of the tile's rows [g0, g0 + nr): the rows of atom l
+// (m N + i) of the molecule tile are the run [l (N-1), (l+1) (N-1)); one
+// (atom, column) a thread, in row order: dst[l][c] += sum src[r][c].
+__device__ __forceinline__ void isum_rows(float* dst, int ncols,
+                                          const float* src, int ld, int g0,
+                                          int nr, int N, int NT) {
+  if (nr <= 0) return;
+  const int K = N - 1, l0 = g0 / K, l1 = (g0 + nr - 1) / K;
+  for (int w = threadIdx.x; w < (l1 - l0 + 1) * ncols; w += NT) {
+    const int l = l0 + w / ncols, c = w % ncols;
+    const int rs = max(l * K - g0, 0);
+    const int re = min((l + 1) * K - g0, nr);
+    float acc = 0.f;
+#pragma unroll 4
+    for (int r = rs; r < re; ++r) acc += src[r * ld + c];
+    dst[l * ncols + c] += acc;
+  }
+}
+
+// j-side node sums of the tile's rows: for atom m N + j of each molecule m
+// the tile touches, its rows (i, j) of the tile in row (i) order, one
+// (atom, column) a thread: dst[m N + j][c] += sum src[r][c].
+__device__ __forceinline__ void jsum_rows(float* dst, int ncols,
+                                          const float* src, int ld, int g0,
+                                          int nr, int N, int NT) {
+  if (nr <= 0) return;
+  const int K = N - 1, E = N * K;
+  const int m0 = g0 / E, m1 = (g0 + nr - 1) / E;
+  for (int w = threadIdx.x; w < (m1 - m0 + 1) * N * ncols; w += NT) {
+    const int l = m0 * N + w / ncols, c = w % ncols;
+    const int m = l / N, j = l - m * N, e0 = m * E;
+    const int lo = max(g0, e0), hi = min(g0 + nr, e0 + E);
+    float acc = 0.f;
+    for (int i = (lo - e0) / K; i <= (hi - 1 - e0) / K; ++i) {
+      if (i == j) continue;
+      const int g = e0 + i * K + j - (j > i);
+      if (g >= lo && g < hi) acc += src[(g - g0) * ld + c];
+    }
+    dst[l * ncols + c] += acc;
+  }
+}
+
+template <int H>
+__global__ void __launch_bounds__(2 * H, 1) egcl_f32_fwd_kernel(Args a) {
+  constexpr int NT = 2 * H, CW = H / 32, LD = H + 4, QM = kQmaxFwd;
+  extern __shared__ __align__(128) char smem_raw[];
+  const int tid = threadIdx.x, N = a.N, nf = a.nf;
+  Smem s;
+  Bump m{smem_raw, 0};
+  carve(m, s, N, nf, H, a.MT, a.R, false);
+  // a warp: 4 rows x 8 column lanes (32 columns); CW warps span a row
+  const int lane = tid & 31, wp = tid >> 5;
+  const int cx = 8 * (wp % CW) + (lane & 7), ry = 4 * (wp / CW) + (lane >> 3);
+  const int c0 = 4 * cx;
+  // the first tile's atoms and the small weights, then W2 and W3 (waited
+  // for after the first layer, which needs neither)
+  Cursor cur{(int)blockIdx.x, 0};
+  int ab = 0;
+  if (cur.tile < a.n_tiles) prefetch_atoms<H, false>(a, s, ab, cur.tile);
+  load_small<H>(a, s);
+  cp_async_commit();
+  load_weights<H>(a, s);
+  cp_async_commit();
+  bool first = true;
+  float acc[QM][4];
+  while (cur.tile < a.n_tiles) {
+    const int b0 = cur.tile * a.MT, na = min(a.MT, a.B - b0) * N;
+    const int rows = rows_of(a, cur.tile);
+    const int g0 = cur.g0, nr = min(a.R, rows - g0), q = (nr + 7) >> 3;
+    const Cursor nxt = advance(a, cur);
+    const int more = nxt.tile < a.n_tiles;
+    const bool new_atoms = more && nxt.tile != cur.tile;
+    if (more) {
+      if (new_atoms) prefetch_atoms<H, false>(a, s, ab ^ 1, nxt.tile);
+      cp_async_commit();
+    }
+    cp_async_wait_n(first + more);
+    __syncthreads();
+    const float* at = s.stage(ab);
+    if (g0 == 0) {
+      for (int k = tid; k < na * H; k += NT) s.accH[k] = 0.f;
+      for (int k = tid; k < na * 3; k += NT) s.acc3[k] = 0.f;
+    }
+    row_geometry(a, s, at, g0, nr);
+    __syncthreads();
+    first_layer<H, QM>(nf, s, at, q, ry, c0, s.X[0]);              // m1
+    if (first) cp_async_wait_n(more);                         // W2, W3
+    first = false;
+    __syncthreads();
+    product_q<H, false, QM>(q, s.X[0], s.W2, ry, cx, acc);         // z2
+#pragma unroll
+    for (int i = 0; i < QM; ++i) {
+      if (i >= q) break;
+      const int r = ry + 8 * i;
+      const float v = s.valid[r];
+      float o[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) o[u] = silu(acc[i][u] + s.b2[c0 + u]) * v;
+      *reinterpret_cast<float4*>(s.X[1] + r * LD + c0) =
+          make_float4(o[0], o[1], o[2], o[3]);                     // m2
+    }
+    __syncthreads();
+    isum_rows(s.accH, H, s.X[1], LD, g0, nr, N, NT);               // agg
+    product_q<H, false, QM>(q, s.X[1], s.W3, ry, cx, acc);         // z3
+#pragma unroll
+    for (int i = 0; i < QM; ++i) {
+      if (i >= q) break;
+      float p = 0.f;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        p = fmaf(silu(acc[i][u] + s.b3[c0 + u]), s.w4[c0 + u], p);
+      p = lane_sum<8>(p);
+      if ((lane & 7) == 0) s.gpart[(ry + 8 * i) * CW + wp % CW] = p;
+    }
+    __syncthreads();
+    for (int r = tid; r < nr; r += NT) {
+      float gate = 0.f;
+      for (int w = 0; w < CW; ++w) gate += s.gpart[r * CW + w];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const float t = fminf(fmaxf(s.cd[r * 3 + d] * gate, -100.f), 100.f);
+        s.rd[r * 3 + d] = t * s.valid[r];                           // tr
+      }
+    }
+    __syncthreads();
+    isum_rows(s.acc3, 3, s.rd, 3, g0, nr, N, NT);                   // fsum
+    if (g0 + nr == rows) {
+      __syncthreads();
+      float* agg = a.agg + (size_t)b0 * N * H;
+      float* fs = a.fsum + (size_t)b0 * N * 3;
+      for (int k = tid; k < na * H; k += NT) agg[k] = s.accH[k];
+      for (int k = tid; k < na * 3; k += NT) fs[k] = s.acc3[k];
+    }
+    __syncthreads();
+    if (new_atoms) ab ^= 1;
+    cur = nxt;
+  }
+}
+
+template <int H>
+__global__ void __launch_bounds__(2 * H, 1)
+    egcl_f32_bwd_params_kernel(Args a) {
+  constexpr int NT = 2 * H, CW = H / 32, LD = H + 4, QM = kQmaxBwd;
+  constexpr int NG = H / 64;
+  extern __shared__ __align__(128) char smem_raw[];
+  const int tid = threadIdx.x, N = a.N, nf = a.nf, MT = a.MT;
+  Smem s;
+  Bump m{smem_raw, 0};
+  carve(m, s, N, nf, H, MT, a.R, true);
+  const int lane = tid & 31, wp = tid >> 5;
+  const int cx = 8 * (wp % CW) + (lane & 7), ry = 4 * (wp / CW) + (lane >> 3);
+  const int c0 = 4 * cx;
+  const int nx = tid % 16, ky = tid / 16;
+  const PartLayout L(nf, H);
+  float* const part = a.part + (size_t)blockIdx.x * L.P;
+  // dW1a, dW1b and db1 are added into once a molecule tile, by the thread
+  // that zeroes them here (item w: dW1a | dW1b for w < 2 nf H, then db1)
+  const int n_w1 = 2 * nf * H;
+  for (int w = tid; w < n_w1 + H; w += NT)
+    part[w < n_w1 ? L.dW1a + w : L.db1 + w - n_w1] = 0.f;
+  Cursor cur{(int)blockIdx.x, 0};
+  int ab = 0;
+  if (cur.tile < a.n_tiles) prefetch_atoms<H, true>(a, s, ab, cur.tile);
+  load_small<H>(a, s);
+  cp_async_commit();
+  load_weights<H>(a, s);
+  cp_async_commit();
+  bool first = true;
+
+  // the block's parameter-gradient sums: dW2, dW3 in registers (the
+  // outer-product tile), the column sums per thread (its 4 columns, its
+  // rows)
+  float dW2[8][4 * NG], dW3[8][4 * NG];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int b = 0; b < 4 * NG; ++b) dW2[p][b] = dW3[p][b] = 0.f;
+  float pw4[4] = {0.f, 0.f, 0.f, 0.f}, pb3[4] = {0.f, 0.f, 0.f, 0.f};
+  float pb2[4] = {0.f, 0.f, 0.f, 0.f}, pw1r[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc[QM][4];
+  float* const dz1i = s.accH;
+  float* const dz1j = s.accH + MT * N * H;
+  float* const dpi = s.acc3;
+  float* const dpj = s.acc3 + MT * N * 3;
+
+  while (cur.tile < a.n_tiles) {
+    const int b0 = cur.tile * MT, na = min(MT, a.B - b0) * N;
+    const int rows = rows_of(a, cur.tile);
+    const int g0 = cur.g0, nr = min(a.R, rows - g0), q = (nr + 7) >> 3;
+    const Cursor nxt = advance(a, cur);
+    const int more = nxt.tile < a.n_tiles;
+    const bool new_atoms = more && nxt.tile != cur.tile;
+    if (more) {
+      if (new_atoms) prefetch_atoms<H, true>(a, s, ab ^ 1, nxt.tile);
+      cp_async_commit();
+    }
+    cp_async_wait_n(first + more);
+    __syncthreads();
+    const float* at = s.stage(ab);
+    const float* dfs = at + s.at_dfs;
+    const float* dagg = a.dagg + (size_t)b0 * N * H;
+    float* X0 = s.X[0];
+    float* X1 = s.X[1];
+    float* X2 = s.X[2];
+    if (g0 == 0) {
+      for (int k = tid; k < MT * N * H; k += NT) dz1i[k] = dz1j[k] = 0.f;
+      for (int k = tid; k < MT * N * 3; k += NT) dpi[k] = dpj[k] = 0.f;
+    }
+    row_geometry(a, s, at, g0, nr);
+    __syncthreads();
+
+    // -- recompute the forward: m1 -> X0; z2 -> X2, m2 -> X1
+    first_layer<H, QM>(nf, s, at, q, ry, c0, X0);
+    if (first) cp_async_wait_n(more);                         // W2, W3
+    first = false;
+    __syncthreads();
+    product_q<H, false, QM>(q, X0, s.W2, ry, cx, acc);
+#pragma unroll
+    for (int i = 0; i < QM; ++i) {
+      if (i >= q) break;
+      const int r = ry + 8 * i;
+      const float v = s.valid[r];
+      float z2[4], m2[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        z2[u] = acc[i][u] + s.b2[c0 + u];
+        m2[u] = silu(z2[u]) * v;
+      }
+      *reinterpret_cast<float4*>(X2 + r * LD + c0) =
+          make_float4(z2[0], z2[1], z2[2], z2[3]);
+      *reinterpret_cast<float4*>(X1 + r * LD + c0) =
+          make_float4(m2[0], m2[1], m2[2], m2[3]);
+    }
+    __syncthreads();
+
+    // -- z3 (in acc), g1 -> X0 and the gate's partial sums; then per row
+    //    the force branch (clip mask -100 <= cd gate <= 100), dgate, the
+    //    gate part of dcd, dw4, db3 and dz3 -> X0
+    product_q<H, false, QM>(q, X1, s.W3, ry, cx, acc);
+#pragma unroll
+    for (int i = 0; i < QM; ++i) {
+      if (i >= q) break;
+      const int r = ry + 8 * i;
+      float g1[4], p = 0.f;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        acc[i][u] += s.b3[c0 + u];
+        g1[u] = silu(acc[i][u]);
+        p = fmaf(g1[u], s.w4[c0 + u], p);
+      }
+      *reinterpret_cast<float4*>(X0 + r * LD + c0) =
+          make_float4(g1[0], g1[1], g1[2], g1[3]);
+      p = lane_sum<8>(p);
+      if ((lane & 7) == 0) s.gpart[r * CW + wp % CW] = p;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < QM; ++i) {
+      if (i >= q) break;
+      const int r = ry + 8 * i;
+      const float v = s.valid[r];
+      const int ai = s.ri[r];
+      float gate = 0.f;
+      for (int w = 0; w < CW; ++w) gate += s.gpart[r * CW + w];
+      float dgate = 0.f, dcd = 0.f;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const float c = s.cd[r * 3 + d];
+        const float raw = c * gate;
+        const float inside = (raw >= -100.f && raw <= 100.f) ? 1.f : 0.f;
+        const float dtr = dfs[ai * 3 + d] * inside * v;
+        dgate = fmaf(c, dtr, dgate);
+        if (cx == d) dcd = gate * dtr;
+      }
+      if (cx < 3) s.rd[r * 3 + cx] = dcd;
+      float4* x = reinterpret_cast<float4*>(X0 + r * LD + c0);
+      const float4 gv = *x;
+      const float g1[4] = {gv.x, gv.y, gv.z, gv.w};
+      float o[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        pw4[u] = fmaf(g1[u], dgate, pw4[u]);
+        const float d = (dgate * s.w4[c0 + u]) * dsilu(acc[i][u]);
+        pb3[u] += d;
+        o[u] = d;
+      }
+      *x = make_float4(o[0], o[1], o[2], o[3]);                    // dz3
+    }
+    __syncthreads();
+
+    // -- dW3 += m2^T dz3; dm2 = (dz3 W3^T + dagg_i) valid; dz2 -> X2, db2
+    outer<H>(X1, X0, nr, ky, nx, dW3);
+    product_q<H, true, QM>(q, X0, s.W3, ry, cx, acc);
+#pragma unroll
+    for (int i = 0; i < QM; ++i) {
+      if (i >= q) break;
+      const int r = ry + 8 * i;
+      const float v = s.valid[r];
+      const float4 da = __ldg(reinterpret_cast<const float4*>(
+          dagg + (size_t)s.ri[r] * H + c0));
+      const float dav[4] = {da.x, da.y, da.z, da.w};
+      float4* p2 = reinterpret_cast<float4*>(X2 + r * LD + c0);
+      const float4 zv = *p2;
+      const float z2[4] = {zv.x, zv.y, zv.z, zv.w};
+      float o[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float d = ((acc[i][u] + dav[u]) * v) * dsilu(z2[u]);
+        pb2[u] += d;
+        o[u] = d;
+      }
+      *p2 = make_float4(o[0], o[1], o[2], o[3]);                   // dz2
+    }
+    __syncthreads();
+    first_layer<H, QM>(nf, s, at, q, ry, c0, X1);                  // m1
+    __syncthreads();
+
+    // -- dW2 += m1^T dz2; dz1 = (dz2 W2^T) dsilu(z1) -> X0, dw1r and the
+    //    row partial sums of dr2 = dz1 . w1r
+    outer<H>(X1, X2, nr, ky, nx, dW2);
+    product_q<H, true, QM>(q, X2, s.W2, ry, cx, acc);
+#pragma unroll
+    for (int i = 0; i < QM; ++i) {
+      if (i >= q) break;
+      const int r = ry + 8 * i;
+      const float r2 = s.r2[r];
+      float z[4], o[4], p = 0.f;
+      z1_row<H>(nf, s, at, r, c0, z);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float d = acc[i][u] * dsilu(z[u]);
+        pw1r[u] = fmaf(r2, d, pw1r[u]);
+        p = fmaf(d, s.w1r[c0 + u], p);
+        o[u] = d;
+      }
+      *reinterpret_cast<float4*>(X0 + r * LD + c0) =
+          make_float4(o[0], o[1], o[2], o[3]);                     // dz1
+      p = lane_sum<8>(p);
+      if ((lane & 7) == 0) s.gpart[r * CW + wp % CW] = p;
+    }
+    __syncthreads();
+    for (int r = tid; r < nr; r += NT) {
+      float dr2 = 0.f;
+      for (int w = 0; w < CW; ++w) dr2 += s.gpart[r * CW + w];
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        s.rd[r * 3 + d] += 2.f * s.cd[r * 3 + d] * dr2;             // dcd
+    }
+    __syncthreads();
+
+    // -- node sums, i side and j side, in a fixed order
+    isum_rows(dz1i, H, X0, LD, g0, nr, N, NT);
+    jsum_rows(dz1j, H, X0, LD, g0, nr, N, NT);
+    isum_rows(dpi, 3, s.rd, 3, g0, nr, N, NT);
+    jsum_rows(dpj, 3, s.rd, 3, g0, nr, N, NT);
+
+    if (g0 + nr == rows) {
+      // -- the molecule tile is done: dh = dz1_i W1a^T + dz1_j W1b^T and
+      //    dpos; dW1a += h^T dz1_i, dW1b += h^T dz1_j, db1 += sum dz1_i
+      __syncthreads();
+      float* dh = a.dh + (size_t)b0 * N * nf;
+      for (int it = tid; it < na * nf; it += NT) {
+        const int l = it / nf, k = it - l * nf;
+        float si = 0.f, sj = 0.f;
+        for (int c = 0; c < H; ++c) {
+          si = fmaf(dz1i[l * H + c], s.W1a[k * H + c], si);
+          sj = fmaf(dz1j[l * H + c], s.W1b[k * H + c], sj);
+        }
+        dh[it] = si + sj;
+      }
+      float* dpos = a.dpos + (size_t)b0 * N * 3;
+      for (int k = tid; k < na * 3; k += NT) dpos[k] = dpi[k] - dpj[k];
+      for (int w = tid; w < n_w1 + H; w += NT) {
+        float v = 0.f;
+        if (w < n_w1) {
+          const int side = w / (nf * H), kc = w - side * nf * H;
+          const int k = kc / H, c = kc - k * H;
+          const float* src = side ? dz1j : dz1i;
+          for (int l = 0; l < na; ++l) v = fmaf(at[l * nf + k], src[l * H + c], v);
+          part[L.dW1a + w] += v;
+        } else {
+          for (int l = 0; l < na; ++l) v += dz1i[l * H + w - n_w1];
+          part[L.db1 + w - n_w1] += v;
+        }
+      }
+    }
+    __syncthreads();
+    if (new_atoms) ab ^= 1;
+    cur = nxt;
+  }
+
+  // -- the block's slice of the partials: dW2, dW3 and the column sums
+  //    written once with plain stores
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int k = 4 * ky + (p & 3) + (p >> 2) * (H / 2);
+#pragma unroll
+    for (int b = 0; b < NG; ++b) {
+      const int n = 64 * b + 4 * nx;
+      *reinterpret_cast<float4*>(part + L.dW2 + k * H + n) = make_float4(
+          dW2[p][4 * b], dW2[p][4 * b + 1], dW2[p][4 * b + 2],
+          dW2[p][4 * b + 3]);
+      *reinterpret_cast<float4*>(part + L.dW3 + k * H + n) = make_float4(
+          dW3[p][4 * b], dW3[p][4 * b + 1], dW3[p][4 * b + 2],
+          dW3[p][4 * b + 3]);
+    }
+  }
+  // column sums: the 8 row lanes of each column, added in row-lane order
+  float* red = s.X[0];
+  const auto column_sums = [&](const float (&p)[4], int off) {
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < 4; ++u) red[ry * H + c0 + u] = p[u];
+    __syncthreads();
+    for (int c = tid; c < H; c += NT) {
+      float t = 0.f;
+      for (int y = 0; y < 8; ++y) t += red[y * H + c];
+      part[off + c] = t;
+    }
+  };
+  column_sums(pw4, L.dw4);
+  column_sums(pb3, L.db3);
+  column_sums(pb2, L.db2);
+  column_sums(pw1r, L.dw1r);
+}
+
+bool takes(int N, int nf, int H, int MT, int R, int kind) {
+  const int qmax = kind == kFwd ? kQmaxFwd : kQmaxBwd;
+  return (kind == kFwd || kind == kBwdParams) && (H == 64 || H == 128) &&
+         N >= 1 && nf >= 1 && MT >= 1 && R >= 8 && R % 8 == 0 &&
+         R <= 8 * qmax;
+}
+
+size_t smem_bytes(int N, int nf, int H, int MT, int R, int kind) {
+  Smem s;
+  Bump m{nullptr, 0};
+  carve(m, s, N, nf, H, MT, R, kind == kBwdParams);
+  return m.off;
+}
+
+template <int H>
+int launch(const Args& a, int kind, int blocks, cudaStream_t stream) {
+  // the attribute once per kernel: every launch stays under kMaxSmem
+  static bool ready[2] = {false, false};
+  const bool bwd = kind == kBwdParams;
+  void (*kernel)(Args) =
+      bwd ? egcl_f32_bwd_params_kernel<H> : egcl_f32_fwd_kernel<H>;
+  if (!ready[bwd]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    ready[bwd] = true;
+  }
+  const size_t smem = smem_bytes(a.N, a.nf, H, a.MT, a.R, kind);
+  kernel<<<blocks, 2 * H, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int dispatch(Args& a, int kind, int blocks, void* stream) {
+  if (!takes(a.N, a.nf, a.H, a.MT, a.R, kind) || a.B < 1 || blocks < 1 ||
+      smem_bytes(a.N, a.nf, a.H, a.MT, a.R, kind) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  a.n_tiles = (a.B + a.MT - 1) / a.MT;
+  blocks = min(blocks, a.n_tiles);
+  cudaStream_t st = (cudaStream_t)stream;
+  return a.H == 64 ? launch<64>(a, kind, blocks, st)
+                   : launch<128>(a, kind, blocks, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory of one block at MT molecules a tile and R rows a
+// row tile, or -1 for sizes the kernels do not take. kind: 0 the forward,
+// 2 the backward with parameter gradients (the input-gradient backward is
+// egcl_allpairs.cu's). A launch needs at most egcl_f32_smem_limit() bytes.
+long long egcl_f32_smem_bytes(int N, int nf, int H, int MT, int R,
+                              int kind) {
+  if (!takes(N, nf, H, MT, R, kind)) return -1;
+  return (long long)smem_bytes(N, nf, H, MT, R, kind);
+}
+
+long long egcl_f32_smem_limit() { return (long long)kMaxSmem; }
+
+// Every tensor float32. Molecules are taken in tiles of MT, tiles spread
+// over min(blocks, ceil(B / MT)) blocks, each tile's rows in row tiles of
+// R. Returns the cudaError_t of the launch (0 on success).
+int egcl_f32_fwd(int B, int N, int nf, int H, int MT, int R, int blocks,
+                 const void* h, const void* pos, const void* box,
+                 const void* mask, const void* W1a, const void* W1b,
+                 const void* w1r, const void* b1, const void* W2,
+                 const void* b2, const void* W3, const void* b3,
+                 const void* w4, void* agg, void* fsum, void* stream) {
+  Args a{B, N, nf, H, MT, R, 0, (const float*)h, (const float*)pos,
+         (const float*)box, (const float*)mask, (const float*)W1a,
+         (const float*)W1b, (const float*)w1r, (const float*)b1,
+         (const float*)W2, (const float*)b2, (const float*)W3,
+         (const float*)b3, (const float*)w4, nullptr, nullptr,
+         (float*)agg, (float*)fsum, nullptr, nullptr, nullptr};
+  return dispatch(a, kFwd, blocks, stream);
+}
+
+// The backward with parameter gradients: part is a [min(blocks,
+// ceil(B / MT)), P] float32 buffer (P = egcl_part_size); each block writes
+// every element of its row's nine gradients (no zeroing needed), and the
+// caller sums the rows.
+int egcl_f32_bwd_params(int B, int N, int nf, int H, int MT, int R,
+                        int blocks, const void* h, const void* pos,
+                        const void* box, const void* mask, const void* W1a,
+                        const void* W1b, const void* w1r, const void* b1,
+                        const void* W2, const void* b2, const void* W3,
+                        const void* b3, const void* w4, const void* dagg,
+                        const void* dfsum, void* dh, void* dpos, void* part,
+                        void* stream) {
+  Args a{B, N, nf, H, MT, R, 0, (const float*)h, (const float*)pos,
+         (const float*)box, (const float*)mask, (const float*)W1a,
+         (const float*)W1b, (const float*)w1r, (const float*)b1,
+         (const float*)W2, (const float*)b2, (const float*)W3,
+         (const float*)b3, (const float*)w4, (const float*)dagg,
+         (const float*)dfsum, nullptr, nullptr, (float*)dh, (float*)dpos,
+         (float*)part};
+  return dispatch(a, kBwdParams, blocks, stream);
+}
+
+const char* egcl_f32_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -13,13 +13,16 @@ attention/norm_diff/tanh off.
   autograd Function saves) in one of two kernel variants: input gradients
   only (``dh``, ``dpos``) when no weight needs a gradient, as in sampling,
   or with the nine parameter gradients of ``_bwd_kernel:265-273`` as well,
-  as in training. In bf16 at H = 64 or 128 all three are the Hopper
-  kernels of ``csrc/egcl_allpairs_sm90.cu`` (wgmma, persistent
-  warpgroups); float32 and — by an explicit size rule with its own launch
-  counters (``fwd_h_rule_launches``, ``bwd_h_rule_launches``,
-  ``bwd_param_h_rule_launches``) — bf16 at any other hidden width run the
-  chunked kernels of ``csrc/egcl_allpairs.cu``. There is no fallback: a
-  kernel that does not build or launch raises.
+  as in training. :func:`kernel_for` is the size rule. At H = 64 or 128
+  bf16 runs the Hopper kernels of ``csrc/egcl_allpairs_sm90.cu`` (wgmma,
+  persistent warpgroups) in every direction, and float32 the tiled f32
+  kernels of ``csrc/egcl_allpairs_f32.cu`` (persistent blocks, register
+  tiles) for the forward and the parameter-gradient backward, and the
+  chunked kernel of ``csrc/egcl_allpairs.cu`` for the input-gradient
+  backward. Every other hidden width runs the chunked kernels, in either
+  dtype, counted on their own launch counters (``fwd_h_rule_launches``,
+  ``bwd_h_rule_launches``, ``bwd_param_h_rule_launches``). There is no
+  fallback: a kernel that does not build or launch raises.
 - On a CPU tensor both directions run the plain PyTorch version below,
   which repeats the kernel's arithmetic (including where it rounds to the
   compute dtype) and is what the CPU tests hold against the Pallas kernel.
@@ -32,6 +35,7 @@ each to its weight's dtype, as ``_fused_bwd`` does on return
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -41,17 +45,23 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # fwd_launches / bwd_launches / bwd_param_launches: K1, the input-gradient
-# K2 and K2 with parameter gradients (the Hopper kernels in bf16, the
-# chunked kernels in float32); *_h_rule_launches: bf16 at a hidden width
-# the Hopper kernels do not take, sent to the chunked ones
+# K2 and K2 with parameter gradients at H = 64 or 128 (bf16: the Hopper
+# kernels; float32: the tiled f32 K1 and K2 p, the chunked K2);
+# *_h_rule_launches: either dtype at another hidden width, sent to the
+# chunked kernels by the size rule
 counts = LaunchCounts("fwd_launches", "bwd_launches", "bwd_param_launches",
                       "fwd_h_rule_launches", "bwd_h_rule_launches",
                       "bwd_param_h_rule_launches", "plain_fwd_calls",
                       "plain_bwd_calls", "plain_bwd_param_calls")
-# the launch kinds of egcl_allpairs_smem_bytes and egcl_sm90_smem_bytes
+# the launch kinds of egcl_allpairs_smem_bytes, egcl_sm90_smem_bytes and
+# egcl_f32_smem_bytes
 _KIND = {"fwd": 0, "bwd": 1, "bwd_params": 2}
-# the hidden widths of the Hopper kernels
+# the hidden widths of the Hopper kernels (bf16) and the tiled f32 kernels
 SM90_H = (64, 128)
+# the tiled f32 kernels: rows a row tile at most (kQmaxFwd / kQmaxBwd x 8)
+# and molecules a tile at most
+F32_ROWS_MAX = {"fwd": 72, "bwd_params": 40}
+MAX_MOL_TILE = 16
 
 
 def split_params(W1, b1, nf: int):
@@ -238,6 +248,27 @@ def _library():
     return lib
 
 
+def _f32_library():
+    from .build import load
+    lib = load("egcl_allpairs_f32")
+    if not getattr(lib, "_enflow_bound", False):
+        n_in = 13
+        # B, N, nf, H, MT, R, blocks, inputs, outputs, stream
+        lib.egcl_f32_fwd.argtypes = [_I] * 7 + [_P] * (n_in + 3)
+        lib.egcl_f32_fwd.restype = _I
+        lib.egcl_f32_bwd_params.argtypes = [_I] * 7 + [_P] * (n_in + 6)
+        lib.egcl_f32_bwd_params.restype = _I
+        lib.egcl_f32_smem_bytes.argtypes = [_I] * 6
+        lib.egcl_f32_smem_bytes.restype = _LL
+        lib.egcl_f32_smem_limit.argtypes = []
+        lib.egcl_f32_smem_limit.restype = _LL
+        _bind_part_size(lib)
+        lib.egcl_f32_error_string.argtypes = [_I]
+        lib.egcl_f32_error_string.restype = ctypes.c_char_p
+        lib._enflow_bound = True
+    return lib
+
+
 def _check_inputs(h, pos, box, mask_f, weights):
     dev = h.device
     cdt = h.dtype
@@ -253,20 +284,33 @@ def _check_inputs(h, pos, box, mask_f, weights):
                              f"{cdt} on {dev}")
 
 
-def uses_sm90(code: int, H: int) -> bool:
-    """Whether a launch goes to the Hopper kernels (bf16 at H in
-    ``SM90_H``, every direction) rather than the chunked kernels of
-    ``egcl_allpairs.cu``."""
-    return code == 1 and H in SM90_H
+def kernel_for(code: int, H: int, direction: str) -> str:
+    """The size rule: which kernels a launch goes to. ``"sm90"`` (bf16 at H
+    in ``SM90_H``, every direction), ``"f32"`` (float32 at H in ``SM90_H``,
+    the forward and the parameter-gradient backward) or ``"chunked"``
+    (``egcl_allpairs.cu``: the float32 input-gradient backward, and every
+    other hidden width in either dtype)."""
+    if H in SM90_H:
+        if code == 1:
+            return "sm90"
+        if direction != "bwd":
+            return "f32"
+    return "chunked"
 
 
 def _smem(code: int, N: int, nf: int, H: int, direction: str):
-    """(bytes a launch of this kind needs, at most, or -1 for sizes its
-    kernel does not take; the card's limit)."""
-    if uses_sm90(code, H):
+    """(bytes a launch of this kind needs, or -1 for sizes its kernel does
+    not take; the card's limit). The tiled f32 kernels are asked at their
+    smallest tile, one molecule and 8 rows."""
+    route = kernel_for(code, H, direction)
+    if route == "sm90":
         lib = _sm90_library()
         return (lib.egcl_sm90_smem_bytes(N, nf, H, _KIND[direction]),
                 lib.egcl_sm90_smem_limit())
+    if route == "f32":
+        lib = _f32_library()
+        return (lib.egcl_f32_smem_bytes(N, nf, H, 1, 8, _KIND[direction]),
+                lib.egcl_f32_smem_limit())
     lib = _library()
     return (lib.egcl_allpairs_smem_bytes(code, N, nf, H, _KIND[direction]),
             lib.egcl_allpairs_smem_limit())
@@ -301,6 +345,75 @@ def _check_fits(code: int, dims, direction: str):
             f"this large are not ported yet (ROADMAP queue B, large N)")
 
 
+def f32_grid(B: int, N: int, n_sm: int, direction: str):
+    """``(molecules a tile, blocks)`` of the tiled f32 kernels: about one
+    tile a multiprocessor, several molecules a tile only where a molecule
+    has fewer than twice a row tile's rows (at most ``MAX_MOL_TILE``),
+    blocks striding over the tiles."""
+    E = N * (N - 1)
+    cap = max(1, 2 * F32_ROWS_MAX[direction] // E) if E else MAX_MOL_TILE
+    mt = max(1, min(math.ceil(B / n_sm), cap, MAX_MOL_TILE))
+    return mt, min(math.ceil(B / mt), n_sm)
+
+
+def tile_rows(fit: int, n: int) -> int:
+    """Rows a row tile: a molecule tile's ``n`` rows cut into as few tiles
+    of at most ``fit`` rows as they need, of equal size rounded up to a
+    multiple of 8 (N=22: 462 rows in 11 tiles of 40 and one of 22)."""
+    if n == 0:
+        return 8
+    per = math.ceil(n / math.ceil(n / fit))
+    return min(fit, 8 * math.ceil(per / 8))
+
+
+def row_tiles(B: int, N: int, mt: int, blocks: int, rows: int):
+    """The row tiles of each block in the order the tiled f32 kernels walk
+    them: molecule tiles ``b, b + blocks, ...`` of ``mt`` molecules, each
+    one's ``nm N (N-1)`` rows cut into tiles of ``rows`` rows and one of the
+    rest (a tile without rows, N = 1, is one empty row tile). One list per
+    block of ``(first molecule, molecules, first row, rows)``."""
+    E = N * (N - 1)
+    out = []
+    for b in range(blocks):
+        tiles = []
+        for t in range(b, math.ceil(B / mt), blocks):
+            b0 = t * mt
+            nm = min(mt, B - b0)
+            tiles += [(b0, nm, g, min(rows, nm * E - g))
+                      for g in range(0, max(nm * E, 1), rows)]
+        out.append(tiles)
+    return out
+
+
+_plans: dict = {}
+
+
+def _f32_plan(lib, dims, direction, n_sm):
+    """``(molecules a tile, rows a row tile, blocks)`` of a tiled f32
+    launch: ``f32_grid``'s tile, halved until the block fits with at
+    least 8 rows, and the most rows (at most ``F32_ROWS_MAX``) that fit,
+    cut by ``tile_rows``; checked against the card's shared memory once
+    per library, shape and direction."""
+    B, N, nf, H = dims
+    key = (id(lib), dims, direction, n_sm)
+    if key not in _plans:
+        kind, limit = _KIND[direction], lib.egcl_f32_smem_limit()
+        mt, _ = f32_grid(B, N, n_sm, direction)
+        while True:
+            fits = [r for r in range(F32_ROWS_MAX[direction], 7, -8)
+                    if 0 <= lib.egcl_f32_smem_bytes(N, nf, H, mt, r, kind)
+                    <= limit]
+            if fits or mt == 1:
+                break
+            mt = max(1, mt // 2)
+        if not fits:            # _check_fits has refused this size already
+            raise ValueError(f"egcl_allpairs {direction}: no f32 tile fits "
+                             f"B, N, nf, H = {dims}")
+        rows = tile_rows(fits[0], mt * N * (N - 1))
+        _plans[key] = (mt, rows, min(math.ceil(B / mt), n_sm))
+    return _plans[key]
+
+
 def _split_part(tot, nf: int, H: int):
     """The summed partials (``PartLayout`` of ``csrc/egcl_part_layout.cuh``:
     dW2, dW3, dW1a, dW1b, dw1r, db1, db2, db3, dw4, then padding) as the
@@ -313,13 +426,22 @@ def _split_part(tot, nf: int, H: int):
             db3.view(1, H), dw4.view(H, 1))
 
 
-def _raise_on(lib, err: int, what: str, dims, sm90=False):
+def _raise_on(lib, err: int, what: str, dims, route):
     if err != 0:
-        text = (lib.egcl_sm90_error_string if sm90
-                else lib.egcl_allpairs_error_string)
+        text = {"sm90": lib.egcl_sm90_error_string,
+                "f32": lib.egcl_f32_error_string,
+                "chunked": lib.egcl_allpairs_error_string}[route]
         raise RuntimeError(f"egcl_allpairs {what} kernel launch failed: "
                            f"{text(err).decode()} (error {err}; B, N, nf, H "
                            f"= {dims})")
+
+
+def _count(direction: str, H: int):
+    """One launch on its counter: the size rule's own for a hidden width
+    outside ``SM90_H``."""
+    name = {"fwd": "fwd", "bwd": "bwd", "bwd_params": "bwd_param"}[direction]
+    name += "_launches" if H in SM90_H else "_h_rule_launches"
+    setattr(counts, name, getattr(counts, name) + 1)
 
 
 def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
@@ -331,52 +453,50 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
     code = _DTYPE_CODE[cdt]
     dims = (B, N, nf, H)
     _check_fits(code, dims, direction)
-    sm90 = uses_sm90(code, H)
-    lib = _sm90_library() if sm90 else _library()
-    # the kernels read the weights 8 or 16 bytes at a time
-    ins = [t if t.data_ptr() % 16 == 0 else t.clone()
-           for t in (h, pos, box, mask_f, *weights)]
+    route = kernel_for(code, H, direction)
+    lib = {"sm90": _sm90_library, "f32": _f32_library,
+           "chunked": _library}[route]()
+    # the kernels read the weights (and dagg) 8 or 16 bytes at a time
+    aligned = lambda t: t if t.data_ptr() % 16 == 0 else t.clone()
+    ins = [aligned(t) for t in (h, pos, box, mask_f, *weights)]
     stream = _P(torch.cuda.current_stream(h.device).cuda_stream)
     ptrs = [t.data_ptr() for t in ins]
-    # the Hopper kernels' grid: at most one persistent block per
-    # multiprocessor
+    # the persistent kernels' grid: at most one block per multiprocessor
     blocks = multiprocessors(h.device)
+    if route == "f32" and B:
+        mt, rows, blocks = _f32_plan(lib, dims, direction, blocks)
     if direction == "fwd":
         agg = torch.empty((B, N, H), dtype=cdt, device=h.device)
         fsum = torch.empty((B, N, 3), dtype=cdt, device=h.device)
         if B:
             outs = (agg.data_ptr(), fsum.data_ptr(), stream)
-            if sm90:
+            if route == "sm90":
                 err = lib.egcl_sm90_fwd(*dims, blocks, *ptrs, *outs)
+            elif route == "f32":
+                err = lib.egcl_f32_fwd(*dims, mt, rows, blocks, *ptrs, *outs)
             else:
                 err = lib.egcl_allpairs_fwd(code, *dims, *ptrs, *outs)
-            _raise_on(lib, err, "forward", dims, sm90)
-            if sm90 or code == 0:
-                counts.fwd_launches += 1
-            else:
-                counts.fwd_h_rule_launches += 1
+            _raise_on(lib, err, "forward", dims, route)
+            _count(direction, H)
         return agg, fsum
-    dagg = dagg.to(cdt).contiguous()
+    dagg = aligned(dagg.to(cdt).contiguous())
     dfsum = dfsum.to(cdt).contiguous()
     dh = torch.empty((B, N, nf), dtype=cdt, device=h.device)
     dpos = torch.empty((B, N, 3), dtype=torch.float32, device=h.device)
     outs = [dagg.data_ptr(), dfsum.data_ptr(), dh.data_ptr(), dpos.data_ptr()]
     if direction == "bwd":
         if B:
-            if sm90:
+            if route == "sm90":
                 err = lib.egcl_sm90_bwd(*dims, blocks, *ptrs, *outs, stream)
             else:
                 err = lib.egcl_allpairs_bwd(code, *dims, *ptrs, *outs, stream)
-            _raise_on(lib, err, "backward", dims, sm90)
-            if sm90 or code == 0:
-                counts.bwd_launches += 1
-            else:
-                counts.bwd_h_rule_launches += 1
+            _raise_on(lib, err, "backward", dims, route)
+            _count(direction, H)
         return dh, dpos
     # rows of partials that the kernel fills itself: one per warpgroup (the
     # Hopper kernel; each row ends with its scratch tile) or per block
     P = lib.egcl_part_size(nf, H)
-    if sm90:
+    if route == "sm90":
         part = torch.empty((lib.egcl_sm90_param_slices(*dims, blocks)
                             if B else 0, lib.egcl_sm90_slice_floats(nf, H)),
                            dtype=torch.float32, device=h.device)
@@ -384,17 +504,18 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
         part = torch.empty((min(B, blocks), P), dtype=torch.float32,
                            device=h.device)
     if B:
-        if sm90:
+        if route == "sm90":
             err = lib.egcl_sm90_bwd_params(*dims, blocks, *ptrs, *outs,
                                            part.data_ptr(), stream)
+        elif route == "f32":
+            err = lib.egcl_f32_bwd_params(*dims, mt, rows, blocks, *ptrs,
+                                          *outs, part.data_ptr(), stream)
         else:
             err = lib.egcl_allpairs_bwd_params(code, *dims, blocks, *ptrs,
                                                *outs, part.data_ptr(), stream)
-        _raise_on(lib, err, "backward (parameter gradients)", dims, sm90)
-        if sm90 or code == 0:
-            counts.bwd_param_launches += 1
-        else:
-            counts.bwd_param_h_rule_launches += 1
+        _raise_on(lib, err, "backward (parameter gradients)", dims, route)
+        _count(direction, H)
+    # the slices summed in a fixed order: a second launch gives the same bits
     return (dh, dpos) + _split_part(part[:, :P].sum(dim=0), nf, H)
 
 
