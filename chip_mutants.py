@@ -6,8 +6,9 @@ CUDA card: ``python3 chip_mutants.py [GROUP ...]`` from the repository root
 bf16 Hopper K1 and K2 of ``egcl_allpairs_sm90.cu``, read at chip_smoke.py's
 main, ragged and large shapes; ``egcl_params`` is its bf16
 parameter-gradient variant in the same file, read at the vi, ico, ragged
-and large shapes; ``egcl_f32`` is the tiled f32 K1 and K2 p of
-``egcl_allpairs_f32.cu``, read at the dw4, ala2 and ragged shapes).
+and large shapes; ``egcl_f32`` is the tiled f32 K1, K2 and K2 p of
+``egcl_allpairs_f32.cu``, read at the dw4, ala2 and ragged shapes;
+``pair_energy`` is K7, read at every shape of phase pair).
 
 For each mutant below, the package and ``chip_smoke.py`` are copied into a
 temporary directory, one deliberate fault is written into the copy's CUDA
@@ -97,12 +98,27 @@ MUTANTS = {
             "pw4[u] = fmaf(g1[u], dgate, pw4[u]);",
             "pw4[u] = fmaf(g1[u], __uint_as_float(__float_as_uint(dgate) "
             "& 0xffff0000u), pw4[u]);"),
+        # (K2 p and K2 share the line)
         "the next molecule tile prefetched from the current one": (
             "if (new_atoms) prefetch_atoms<H, true>(a, s, ab ^ 1, nxt.tile);",
-            "if (new_atoms) prefetch_atoms<H, true>(a, s, ab ^ 1, cur.tile);"),
+            "if (new_atoms) prefetch_atoms<H, true>(a, s, ab ^ 1, cur.tile);",
+            2),
         "the weights' swizzle off by one row on load": (
             "const int dst = r * H + ((kc ^ ((r >> 2) & 7)) << 2);",
             "const int dst = r * H + ((kc ^ (((r + 1) >> 2) & 7)) << 2);"),
+        # the input-gradient K2 (egcl_f32_bwd_kernel) alone
+        "K2: a row tile's last row dropped from the i-side sums": (
+            "isum_rows(si, A, s.rd, V, g0, nr, N, NT);",
+            "isum_rows(si, A, s.rd, V, g0, nr - 1, N, NT);"),
+        "K2: a row tile's last row dropped from the j-side sums": (
+            "jsum_rows(sj, A, s.rd + nf, V, g0, nr, N, NT);",
+            "jsum_rows(sj, A, s.rd + nf, V, g0, nr - 1, N, NT);"),
+        "K2: a packed molecule's dh reads its neighbour's j-side sums": (
+            "dh[it] = si[l * A + k] + sj[l * A + 3 + k];",
+            "dh[it] = si[l * A + k] + sj[((l + N) % na) * A + 3 + k];"),
+        "K2: dz1 W1b^T taken with W1a": (
+            "(k < nf ? s.W1a + k * H : s.W1b + (k - nf) * H) + c0);",
+            "(k < nf ? s.W1a + k * H : s.W1a + (k - nf) * H) + c0);"),
     },
     # the tiled kernels (H = 64, 128), which every shape but h96 runs
     "edge_pipeline": {
@@ -142,10 +158,22 @@ MUTANTS = {
     },
     "pair_energy": {
         "control": None,
-        "min-image with roundf (half away from zero)": (
-            "rintf(dk / bx[k])", "roundf(dk / bx[k])"),
+        "min-image wraps at exactly half a box (roundf's choice)": (
+            "n[k] = a <= hb[k] ? 0.f : copysignf(1.f, d[k]);",
+            "n[k] = a < hb[k] ? 0.f : copysignf(1.f, d[k]);"),
+        "the min-image divide replaced by an unchecked reciprocal": [
+            ("n[k] = a <= hb[k] ? 0.f : copysignf(1.f, d[k]);",
+             "n[k] = rintf(d[k] * (1.0f / bx[k]));"),
+            ("  if (exact) {", "  if (false) {")],
         "d2 = 0 pairs counted": (
-            "mi * cmask[q] > 0.f && d2 > 0.f", "mi * cmask[q] > 0.f"),
+            "bool valid = real && d2 > 0.f;", "bool valid = real;"),
+        "the last column split dropped": (
+            "const int count = a.splits == 1 ? nm * N : min(a.cols, N - c_first);",
+            "const int count = a.splits == 1 ? nm * N\n"
+            "      : s == a.splits - 1 ? 0 : min(a.cols, N - c_first);"),
+        "a packed molecule's lanes cross into the next molecule": (
+            "const int n = a.splits == 1 ? N : count;",
+            "const int n = a.splits == 1 ? N + 1 : count;"),
     },
 }
 
@@ -193,10 +221,13 @@ for sname, shape in (("dw4", cs.DW4), ("ala2", cs.ALA2),
                                                       seed=23)
     args = (h, pos, box, mf, W, dagg, dfs)
     k = (ops.allpairs_edges_fwd(h, pos, box, mf, W)
-         + ops.allpairs_edges_bwd(*args, params=True))
+         + ops.allpairs_edges_bwd(*args, params=True)
+         + ops.allpairs_edges_bwd(*args))
     p = (ops.allpairs_edges_plain(h, pos, box, mf, W)
-         + ops.allpairs_edges_plain_bwd(*args, params=True))
-    errs = cs.rel_errs(("agg", "f_sum") + cs.PARAM_OUT, k, p)
+         + ops.allpairs_edges_plain_bwd(*args, params=True)
+         + ops.allpairs_edges_plain_bwd(*args))
+    errs = cs.rel_errs(("agg", "f_sum") + cs.PARAM_OUT + ("dh K2", "dpos K2"),
+                       k, p)
     report(f"{sname} float32", errs, cs.TOL["float32"])
 """,
     "edge_pipeline": HEAD + """

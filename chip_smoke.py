@@ -11,19 +11,19 @@ non-zero):
    process per source, all at once (fresh builds from the checkout).
 3. kernel — the fused all-pairs EGCL kernels (forward K1, input-gradient
    backward K2: the Hopper kernels of egcl_allpairs_sm90.cu in bf16; in
-   f32 the tiled K1 of egcl_allpairs_f32.cu and the chunked K2 of
-   egcl_allpairs.cu) against their plain PyTorch version on the same
+   f32 the tiled K1 and K2 of egcl_allpairs_f32.cu, the K2 on its own
+   launch counter) against their plain PyTorch version on the same
    inputs, at the main-path shape (B=1024, N=13, nf=5, H=128) and a ragged
    shape (B=37, N=11, two padded atoms, periodic box 3.0), in bf16 and
    f32, and in bf16 at a large shape (B=64, N = the backward's largest)
    and at H=64; a second launch of each must give the same bits. Both
    dtypes at H=96 go to the chunked kernels by the wrapper's size rule
    (its own launch counters). Each kernel and the plain version timed at
-   the first two shapes with CUDA events over back-to-back calls, so the
-   wrapper's host work overlaps the device work before it. The bf16
-   parameter-gradient backward must take N >= 55 (vi_lj55.yaml), and a
-   molecule one atom beyond the bf16 backward's limit, with and without
-   parameter gradients, must be refused.
+   the main, ragged and H=96 shapes with CUDA events over back-to-back
+   calls, so the wrapper's host work overlaps the device work before it.
+   The bf16 parameter-gradient backward must take N >= 55 (vi_lj55.yaml),
+   and a molecule one atom beyond the bf16 backward's limit, with and
+   without parameter gradients, must be refused.
 4. params — K2 with the nine parameter gradients (bf16: the Hopper
    kernel; f32: the tiled f32 kernel) against its plain version at the VI
    shape (B=512, N=13, nf=5, H=128), the same as LJ13 icosahedra, and the
@@ -31,13 +31,19 @@ non-zero):
    its largest) and at H=64, and in both dtypes at H=96 (the size rule's
    chunked kernel); one launch each on its counter, a second launch must
    give the same bits, dh/dpos also against the input-gradient kernel's.
-   Timed as in phase 3 at the first three shapes beside the
+   Timed as in phase 3 at the first three shapes and at H=96 beside the
    input-gradient variant, with the MUFU and elementwise floors in bf16.
 5. pair   — the pair-energy kernel K7 (energy and gradient) against its
-   plain version: form r2 at B=30, N=13; form r at B=1, N=13 (atoms on the
-   half-box rounding boundary) and at B=2, N=1500 (3 padded, box 12); form
-   r with the MD potential's coincident flag at B=1, N=13 with two
-   coincident atoms (the flag adds 4(s^-12 - s^-6) and no force).
+   plain version: form r2 at B=30, N=13 and at B=30, N=4 (eight
+   molecules a block); form r at B=1, N=13 (atoms on the half-box
+   rounding boundary), at B=2, N=1500 (3 padded, box 12; column splits),
+   at B=1, N=2 one ulp past half a box (where a reciprocal of the box
+   would round the min-image integer the other way) and at
+   generate.yaml's 2,944 atoms (100 A box, cutoff 3, the grid start
+   jittered); form r with the MD potential's coincident flag at B=1, N=13
+   with two coincident atoms (the flag adds 4(s^-12 - s^-6) and no
+   force). A second launch must give the same bits; each timed with CUDA
+   events and as device time beside its bound.
 6. flow   — ``reverse_core(forward_core(x)) == x`` through the kernel, f32.
 6b. flags — a flagged EGCL (attention, norm_diff, tanh; use_pallas off)
    in all_pairs and images mode on the card: the plain route (its own
@@ -77,17 +83,21 @@ non-zero):
    pairs on both sides of the half box and one on it, timed.
 10d. dw4  — ``example/vi_dw4.yaml`` (N=4, nf=2, H=64, float32: the tiled
    f32 K1 and K2 p) cut to 1 epoch x DW4_STEPS steps (4 K1 + 4 K2 p a
-   step, no plain call); then the f32 K1 and K2 p against their plain
+   step, no plain call); then flow-SMC from its checkpoint (512
+   particles, 8 temperatures, float32: 168 K1 + 164 tiled f32 K2, the
+   f32 sampler path); then the f32 K1, K2 and K2 p against their plain
    version at B=512, N=4, a second launch bitwise equal, timed (events
    and device time).
 10e. ala2 — the f32 kernels at alanine dipeptide's size, kernels only
    (vi_ala2.yaml's force-field target is not ported yet): the tiled f32
-   K2 p must take N >= 22 at nf=4, H=128 and refuse one atom past its
-   largest, and the tiled kernels must take every N the chunked ones take
-   at nf=5, H=128 and H=64; then the tiled f32 K1 and K2 p and the chunked
-   f32 K2 against their plain version at B=256, N=22, nf=4, H=128, the K2
-   also at B=2048 (sample_ala2.yaml's 2048 particles), a second launch
-   bitwise equal, each timed (events and device time) with its bound.
+   K2 p must take N >= 22 at nf=4, H=128 and the tiled f32 K2 N >= 70 at
+   nf=5, H=128 (held against plain at N=70), each refusing one atom past
+   its largest, and the tiled kernels must take every N the chunked ones
+   take at nf=5, H=128 and H=64; then the tiled f32 K1, K2 p and K2
+   against their plain version at B=256, N=22, nf=4, H=128 (the K2's
+   dh/dpos also against K2 p's), the K2 also at B=2048 (sample_ala2.yaml's
+   2048 particles), a second launch bitwise equal, each timed (events and
+   device time) with its bound.
 11. edge  — the gathered-edge EGCL kernels (forward K5, backward K6 with
    all seven parameter gradients) against their plain version at the
    training shape (A=390 atoms, K = the auto capacity phase 10 observed,
@@ -104,12 +114,17 @@ new, new, old, old, new in one process. For an earlier egcl_allpairs.cu
 (the chunked kernels, e.g. ``git show
 HEAD:enflow_tpu_torch/csrc/egcl_allpairs.cu``) every f32 launch of an old
 turn goes to its chunked kernels: a turn times the f32 K1 and K2 p at
-vi_dw4.yaml's shape (CUDA events and device time) and one vi_dw4.yaml
-epoch. For an earlier egcl_allpairs_sm90.cu with the same bf16 K1/K2
-entry points: K1/K2 at the main-path shape and the SMC run of phase 7.
-For an earlier edge_pipeline.cu (e.g. ``git show
+vi_dw4.yaml's shape and the f32 K2 at sample_ala2.yaml's B=2048 (CUDA
+events and device time) and one vi_dw4.yaml epoch. For an earlier
+egcl_allpairs_sm90.cu with the same bf16 K1/K2 entry points: K1/K2 at the
+main-path shape and the SMC run of phase 7. For an earlier
+edge_pipeline.cu (e.g. ``git show
 6a2a2b7:enflow_tpu_torch/csrc/edge_pipeline.cu``): K5/K6 in f32 at the
 training shape (CUDA events and device time) and one train.yaml epoch.
+For an earlier pair_energy.cu whose entry point takes no plan (e.g.
+``git show 0d49c21:enflow_tpu_torch/csrc/pair_energy.cu``): K7 r at B=1,
+N=13, r2 at B=30, N=13 and r at 2,944 atoms (events and device time) and
+the MD of one train.yaml dataset.
 
 ``python3 chip_smoke.py --profile [FILE]`` runs phases 1-2 and then, in
 place of the rest, one warm-up and one SMC run of phase 7 under
@@ -377,8 +392,12 @@ def kernel_phase():
         k_out, errs = kernel_errs(ops, h, pos, box, mask_f, W, dagg, dfsum)
         c = ops.counts
         rule = (c.fwd_h_rule_launches, c.bwd_h_rule_launches)
-        require((c.fwd_launches, c.bwd_launches) == ((0, 0) if sname == "h96"
-                                                     else (1, 1))
+        # f32 at H = 64 / 128: the tiled K2 on its own counter
+        tiled = dname == "float32" and sname != "h96"
+        k2, other = ((c.bwd_f32_launches, c.bwd_launches) if tiled
+                     else (c.bwd_launches, c.bwd_f32_launches))
+        require((c.fwd_launches, k2) == ((0, 0) if sname == "h96"
+                                         else (1, 1)) and other == 0
                 and rule == ((1, 1) if sname == "h96" else (0, 0)),
                 f"{sname} {dname}: launches {vars(c)}")
         ok = all(rel <= TOL[dname] for _, rel in errs.values())
@@ -388,12 +407,14 @@ def kernel_phase():
         note = f"; a second launch gives the same bits: {same}"
         if sname == "h96":
             note += "; the size rule's chunked kernels ran (1 + 1 launches)"
+        elif tiled:
+            note += "; K2 on the tiled f32 kernel"
         phase("kernel", f"{sname} {dname} B={shape['B']} N={shape['N']} "
               f"H={shape['H']} max_abs/rel err: " + "  ".join(
                   f"{n} {a:.3e}/{r:.2e}" for n, (a, r) in errs.items())
               + f"  tol {TOL[dname]:g}{note} -> {'ok' if ok else 'FAIL'}")
         require(ok, f"kernel disagrees with plain ({sname}, {dname})")
-        if sname not in ("main", "ragged"):
+        if sname not in ("main", "ragged", "h96"):
             continue
 
         t_k_f = cuda_time_ms(lambda: ops.allpairs_edges_fwd(
@@ -413,7 +434,7 @@ def kernel_phase():
                            "operations" if t_ops >= t_bytes else "bytes",
                            fl, by)
         extra, floors = "", None
-        if dname == "bfloat16":
+        if dname == "bfloat16" and sname != "h96":
             floors = {d: v for d, v in sfu_alu_floor(shape, mask).items()
                       if d != "bwd_params"}
             extra = "; MUFU / elementwise floors " + ", ".join(
@@ -542,7 +563,7 @@ def param_kernel_phase(large_n):
                              "limit)") + f"{note} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             bad.append((sname, dname))
-        if sname in ("large", "h64", "h96"):
+        if sname in ("large", "h64"):
             continue
         t_k = cuda_time_ms(lambda: ops.allpairs_edges_bwd(*args,
                                                           params=True))
@@ -552,7 +573,7 @@ def param_kernel_phase(large_n):
         flop, nbytes = work_params(shape, dname, mask)
         b = bound(flop, nbytes, PEAK_FLOPS[dname])
         extra, floors = "", None
-        if dname == "bfloat16":
+        if dname == "bfloat16" and sname != "h96":
             floors = sfu_alu_floor(shape, mask)["bwd_params"]
             extra = (f"; MUFU / elementwise floors {floors[0]:.4f} / "
                      f"{floors[1]:.4f}")
@@ -612,16 +633,29 @@ EDGE_TIMED = ("main", "ragged")
 EDGE_OUT = ("agg", "F_sum", "de", "dcd", "dW1", "db1", "dW2", "db2", "dW3",
             "db3", "dw4")
 # K7 shapes: the NLL term of a training batch, the MD potential of the
-# dataset's molecule (box 17 A = 5 sigma), and a large periodic box
+# dataset's molecule (box 17 A = 5 sigma), a large periodic box, and
+# generate.yaml's MD (2,944 atoms in a 100 A box, in sigma, cutoff 3, no
+# softening, the MD potential's coincident flag). "r_tie" holds two atoms
+# one ulp past half a box of 3.501 apart: the IEEE quotient rounds to
+# 0.5 + 2^-24 (the min-image integer 1), a product with the rounded
+# reciprocal of the box to 0.5 (integer 0), which flips the pair's force.
 PAIR_SHAPES = {
     "r2": dict(form="r2", B=30, N=13, softening=0.1),
+    # eight molecules a block (the plan packs molecules of 4 atoms)
+    "r2_packed": dict(form="r2", B=30, N=4, softening=0.1),
     "r": dict(form="r", B=1, N=13, softening=0.1, box=5.0, cutoff=3.0),
     "r_large": dict(form="r", B=2, N=1500, n_pad=3, softening=0.1,
                     box=12.0, cutoff=3.0),
     # the MD potential's flag: two coincident atoms count at s > 0
     "r_coincident": dict(form="r", B=1, N=13, softening=0.1, box=5.0,
                          cutoff=3.0, coincident=True),
+    "r_tie": dict(form="r", B=1, N=2, softening=0.1, box=3.501, cutoff=3.0,
+                  tie=True),
+    "r_generate": dict(form="r", B=1, N=2944, softening=0.0, box_ang=100.0,
+                       cutoff=3.0, coincident=True, generate=True),
 }
+# the shapes timed against an earlier pair_energy.cu (--ab)
+PAIR_AB = ("r", "r2", "r_generate")
 
 
 def gathered_inputs(shape, dtype, seed):
@@ -753,7 +787,11 @@ def pair_inputs(shape, seed):
     displacements sit exactly on the half-box rounding boundary (round
     half to even), and the rest near the cell centres; form r2 has a
     coincident pair (excluded, d2 = 0) and padded atoms; the large box is
-    a jittered cubic lattice."""
+    a jittered cubic lattice; "r_tie" two atoms one ulp past half a box
+    apart; "r_generate" generate.yaml's grid start (the port's
+    ``arrange_points_on_grid`` with the dataset's 1 A gap) jittered by a
+    seeded numpy draw."""
+    import numpy as np
     import torch
     gen = torch.Generator().manual_seed(seed)
     B, N = shape["B"], shape["N"]
@@ -763,6 +801,21 @@ def pair_inputs(shape, seed):
         pos = torch.randn((B, N, 3), generator=gen) * 1.2
         pos[0, 1] = pos[0, 0]
         mask[1, N - 2:] = False
+    elif shape.get("tie"):
+        bx = np.float32(shape["box"])
+        pos = torch.zeros((B, N, 3))
+        pos[:, 1, 0] = float(np.nextafter(np.float32(0.5) * bx,
+                                          np.float32(np.inf)))
+    elif shape.get("generate"):
+        from enflow_tpu_torch.data.lj import arrange_points_on_grid
+        from enflow_tpu_torch.utils import conversion as cv
+        side = cv.dist_to_lj(shape["box_ang"], "ang")
+        grid = arrange_points_on_grid(N, [side] * 3, cv.dist_to_lj(1.0,
+                                                                   "ang"))
+        rng = np.random.default_rng(seed)
+        pos = torch.from_numpy(grid + 0.05 * rng.normal(size=grid.shape))[
+            None].float().expand(B, N, 3)
+        box = torch.full((B, 3), side)
     elif N == 13:
         half = shape["box"] / 2
         grid = torch.tensor([[a, b, c] for a in (0, 1) for b in (0, 1)
@@ -788,32 +841,46 @@ def pair_inputs(shape, seed):
 
 
 def pair_work(form, pos, mask, box, cutoff, coincident=False):
-    """(FLOP, bytes) of K7 on these inputs: per valid ordered pair (both
-    real, d2 > 0 or, with the flag, distinct and coincident, inside the
-    cutoff) 30 operations for r2 and 47 for r
-    (displacement 3, min-image 12, d2 5, pair terms 12 / 17, sums 10;
-    a division, square root or rint counts as one); bytes: positions,
-    mask and box read once, the gradient and the energies written once."""
+    """(FLOP, bytes) of K7 on these inputs. Every ordered pair of distinct
+    real atoms needs its distance test: 8 operations in form r2
+    (displacement 3, d2 5) and 20 in form r (the min-image 12 more: a
+    division, rint, product and difference an axis), and each valid pair
+    (both real, d2 > 0 or, with the flag, distinct and coincident, inside
+    the cutoff) 22 (r2) or 27 (r) more: the pair terms 12 / 17 and the
+    sums 10 (a division, square root or rint counts as one). Bytes:
+    positions, mask and box read once, the gradient and the energies
+    written once."""
     import torch
     d = pos[:, :, None, :] - pos[:, None, :, :]
     if form == "r":
         d = d - torch.round(d / box[:, None, None, :]) * box[:, None, None, :]
     d2 = (d * d).sum(-1)
     real = mask[:, :, None] * mask[:, None, :] > 0
+    other = ~torch.eye(d2.shape[1], dtype=torch.bool, device=d2.device)
     valid = real & (d2 > 0)
     if coincident:
-        other = ~torch.eye(d2.shape[1], dtype=torch.bool, device=d2.device)
         valid = valid | (real & other & (d2 == 0))
     if form == "r":
         valid = valid & (d2 < cutoff * cutoff)
-    pairs = float(valid.sum())
+    tested, pairs = float((real & other).sum()), float(valid.sum())
     B, N = mask.shape
-    return pairs * (30 if form == "r2" else 47), 4 * (B * N * 7 + B * 4)
+    flop = (tested * (8 if form == "r2" else 20)
+            + pairs * (22 if form == "r2" else 27))
+    return flop, 4 * (B * N * 7 + B * 4)
+
+
+def pair_device_ms(fn, plan):
+    """Device time of one K7 call: (the pair kernel, the partials' sum
+    where the plan has one, else 0)."""
+    return (device_ms(fn, "pair_energy_kernel"),
+            device_ms(fn, "pair_reduce_kernel") if plan.units > 1 else 0.0)
 
 
 def pair_kernel_phase():
-    """K7 against its plain version at PAIR_SHAPES (float32)."""
+    """K7 against its plain version at PAIR_SHAPES (float32): a second
+    launch bitwise equal, CUDA events and device time, the bound."""
     import torch
+    from enflow_tpu_torch.ops import build
     from enflow_tpu_torch.ops import pair_energy as pe
 
     record = {}
@@ -821,13 +888,17 @@ def pair_kernel_phase():
         pos, mask, box = pair_inputs(shape, seed=17)
         form, soft = shape["form"], shape["softening"]
         cut, coinc = shape.get("cutoff"), shape.get("coincident", False)
-        k = pe.pair_energy_and_grad(pos, mask, box, form, soft, cut, coinc)
+        call = lambda: pe.pair_energy_and_grad(pos, mask, box, form, soft,
+                                               cut, coinc)
+        k = call()
+        again = call()
         p = pe.pair_energy_plain(pos, mask, box, form, soft, cut, coinc)
         torch.cuda.synchronize()
         errs = rel_errs(("E", "dE/dpos"), k, p)
-        ok = all(rel <= TOL_PAIR for _, rel in errs.values())
+        same = all(bool(torch.equal(a, b)) for a, b in zip(k, again))
+        ok = same and all(rel <= TOL_PAIR for _, rel in errs.values())
         note = ""
-        if coinc:
+        if coinc and soft > 0:
             # the flag adds the coincident pair's 4(s^-12 - s^-6) and no
             # force; without it the kernel leaves the pair out
             off = pe.pair_energy_and_grad(pos, mask, box, form, soft, cut)
@@ -837,24 +908,29 @@ def pair_kernel_phase():
             ok = ok and abs(added / want - 1.0) < TOL_PAIR and same_f
             note = (f"; the flag adds {added:.6e} (4(s^-12 - s^-6) = "
                     f"{want:.6e}), forces unchanged: {same_f}")
-        phase("pair", f"{sname} B={shape['B']} N={shape['N']} max_abs/rel "
-              "err: " + "  ".join(f"{n} {a:.2e}/{r:.1e}"
-                                  for n, (a, r) in errs.items())
-              + f"  tol {TOL_PAIR:g}{note} -> {'ok' if ok else 'FAIL'}")
+        plan = pe.pair_plan(shape["B"], shape["N"],
+                            build.multiprocessors(pos.device))
+        phase("pair", f"{sname} B={shape['B']} N={shape['N']} ({plan}) "
+              "max_abs/rel err: " + "  ".join(
+                  f"{n} {a:.2e}/{r:.1e}" for n, (a, r) in errs.items())
+              + f"  tol {TOL_PAIR:g}; a second launch gives the same bits: "
+              f"{same}{note} -> {'ok' if ok else 'FAIL'}")
         require(ok, f"pair kernel disagrees with plain ({sname})")
-        t_k = cuda_time_ms(lambda: pe.pair_energy_and_grad(
-            pos, mask, box, form, soft, cut, coinc))
-        t_d = device_ms(lambda: pe.pair_energy_and_grad(
-            pos, mask, box, form, soft, cut, coinc), "pair_energy_kernel")
+        t_k = cuda_time_ms(call)
+        t_main, t_red = pair_device_ms(call, plan)
+        t_d = t_main + t_red
         t_p = cuda_time_ms(lambda: pe.pair_energy_plain(
             pos, mask, box, form, soft, cut, coinc), reps=20, calls=5)
         flop, nbytes = pair_work(form, pos, mask, box, cut, coinc)
         b = bound(flop, nbytes, PEAK_FLOPS["float32"])
         phase("pair", f"{sname} time ms: kernel {t_k:.4f} (device "
-              f"{t_d:.4f}) plain {t_p:.4f} bound {b[0]:.6f} ({b[1]}, "
-              f"{flop / 1e6:.3f} MFLOP)")
+              f"{t_d:.4f}" + (f" = pairs {t_main:.4f} + partials' sum "
+                              f"{t_red:.4f}" if t_red else "")
+              + f"; host {host_ms(call):.4f} a call) plain {t_p:.4f} bound "
+              f"{b[0]:.6f} ({b[1]}, {flop / 1e6:.3f} MFLOP)")
         record[sname] = dict(err=max(a for a, _ in errs.values()), ms=t_k,
                              device=t_d, plain=t_p, bound=b)
+        torch.cuda.empty_cache()
     return record
 
 
@@ -1041,26 +1117,48 @@ def smc_phase(card):
     return launches
 
 
-def device_ms(fn, key, calls=20):
+def device_ms(fn, key, calls=20, tries=3):
     """Median device time of one kernel launch whose name holds ``key``,
     over ``calls`` calls of ``fn`` traced by ``torch.profiler`` (after 3
-    warm-up calls; the trace may drop an event, so at least half of the
-    launches must be in it)."""
+    warm-up calls). The trace may drop events: at least half of the
+    launches must be in it, else the calls are traced again, up to
+    ``tries`` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    ts = sorted(e.time_range.end - e.time_range.start for e in prof.events()
-                if e.device_type == DeviceType.CUDA and key in e.name)
-    require(calls // 2 <= len(ts) <= calls, f"{len(ts)} '{key}' launches "
-            f"traced of {calls}")
-    return ts[len(ts) // 2] * 1e-3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ts = sorted(e.time_range.end - e.time_range.start
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and key in e.name)
+        require(len(ts) <= calls, f"{len(ts)} '{key}' launches traced of "
+                f"{calls} calls")
+        if len(ts) >= calls // 2:
+            return ts[len(ts) // 2] * 1e-3
+    raise RuntimeError(f"{len(ts)} '{key}' launches traced of {calls}, "
+                       f"{tries} times")
+
+
+def host_ms(fn, calls=200):
+    """Host time of one call of ``fn``: ``calls`` calls back to back with
+    no synchronize between them (the wrapper's own work, where the device
+    work of a call is shorter)."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e3
 
 
 def ab_phase(card, old_src):
@@ -1083,6 +1181,7 @@ def ab_phase(card, old_src):
     text = Path(old_src).read_text()
     edge = "edge_pipeline_fwd" in text
     hopper = "egcl_sm90_fwd" in text
+    pair = "pair_energy_kernel" in text
     with tempfile.TemporaryDirectory() as tmp:
         lib_path = Path(tmp) / "libegcl_old.so"
         t0 = time.perf_counter()
@@ -1092,11 +1191,15 @@ def ab_phase(card, old_src):
         require(out.returncode == 0, f"nvcc failed on {old_src}:\n"
                 f"{out.stdout}{out.stderr}")
         old_lib = ctypes.CDLL(str(lib_path))
-    kind = "edge-pipeline" if edge else "Hopper" if hopper else "chunked"
+    kind = ("edge-pipeline" if edge else "Hopper" if hopper
+            else "pair-energy" if pair else "chunked")
     phase("ab", f"built {old_src} ({kind} kernels) in "
           f"{time.perf_counter() - t0:.1f} s")
     if edge:
         edge_ab_phase(card, old_lib)
+        return
+    if pair:
+        pair_ab_phase(card, old_lib)
         return
     if not hopper:
         f32_ab_phase(card, old_lib)
@@ -1163,11 +1266,12 @@ def f32_ab_phase(card, old_lib):
     """An earlier egcl_allpairs.cu (``old_lib``, built) against the current
     f32 kernels, in turns old, new, new, old, old, new within this
     process: in an old turn every f32 launch goes to the old source's
-    chunked kernels, in a new turn K1 and K2 p to the tiled f32 kernels of
-    egcl_allpairs_f32.cu. A turn times f32 K1 and K2 p at vi_dw4.yaml's
-    shape (CUDA events and device time), then one vi_dw4.yaml epoch of
-    DW4_STEPS steps (after a warm-up epoch before the first turn), read as
-    the median of its steps after the first."""
+    chunked kernels, in a new turn K1, K2 and K2 p to the tiled f32
+    kernels of egcl_allpairs_f32.cu. A turn times f32 K1 and K2 p at
+    vi_dw4.yaml's shape and the f32 K2 at sample_ala2.yaml's (B=2048,
+    N=22, nf=4, H=128), CUDA events and device time, then one vi_dw4.yaml
+    epoch of DW4_STEPS steps (after a warm-up epoch before the first
+    turn), read as the median of its steps after the first."""
     import os
     import torch
     from enflow_tpu_torch.ops import build
@@ -1191,6 +1295,10 @@ def f32_ab_phase(card, old_lib):
     pbwd = lambda: ops.allpairs_edges_bwd(*args, params=True)
     want = (ops.allpairs_edges_plain(h, pos, box, mask_f, W)
             + ops.allpairs_edges_plain_bwd(*args, params=True))
+    args2 = edge_inputs(dict(ALA2, B=2048), torch.float32, seed=41)[:7]
+    bwd2 = lambda: ops.allpairs_edges_bwd(*args2)
+    want2 = ops.allpairs_edges_plain_bwd(*args2)
+    torch.cuda.empty_cache()
     cwd, rows = os.getcwd(), []
     try:
         with tempfile.TemporaryDirectory() as tmp:
@@ -1202,11 +1310,18 @@ def f32_ab_phase(card, old_lib):
                 ops._library()
                 errs = rel_errs(("agg", "f_sum") + PARAM_OUT,
                                 fwd() + pbwd(), want)
+                errs.update(rel_errs(("dh 2048", "dpos 2048"), bwd2(),
+                                     want2))
                 require(all(r <= TOL["float32"] for _, r in errs.values()),
                         f"{which} f32 kernels disagree with plain: {errs}")
                 t = dict(fwd=cuda_time_ms(fwd), bwd_p=cuda_time_ms(pbwd),
                          fwd_dev=device_ms(fwd, "fwd_kernel"),
-                         bwd_p_dev=device_ms(pbwd, "bwd_"))
+                         bwd_p_dev=device_ms(pbwd, "bwd_"),
+                         bwd_2048=cuda_time_ms(bwd2, reps=10, calls=3),
+                         bwd_2048_dev=device_ms(bwd2, "egcl_bwd_kernel"
+                                                if which == "old" else
+                                                "egcl_f32_bwd_kernel",
+                                                calls=6))
                 os.chdir(tmp)
                 step_s, _ = time_vi_steps(main)
                 main.train()
@@ -1217,7 +1332,9 @@ def f32_ab_phase(card, old_lib):
                 phase("ab", f"{which} on {card}: f32 K1 {t['fwd']:.4f} ms "
                       f"(device {t['fwd_dev']:.4f}), K2 p {t['bwd_p']:.4f} "
                       f"ms (device {t['bwd_p_dev']:.4f}) at B=512, N=4, "
-                      f"nf=2, H=64; vi_dw4.yaml {t['vi']:.5f} s/step "
+                      f"nf=2, H=64; K2 {t['bwd_2048']:.4f} ms (device "
+                      f"{t['bwd_2048_dev']:.4f}) at B=2048, N=22, nf=4, "
+                      f"H=128; vi_dw4.yaml {t['vi']:.5f} s/step "
                       f"(median of steps 2-{DW4_STEPS} of one epoch)")
     finally:
         use("new")
@@ -1303,6 +1420,110 @@ def edge_ab_phase(card, old_lib):
             t[key] for w, t in rows if w == which)
         old, new = pick("old"), pick("new")
         unit = "s/step" if key == "train" else "ms"
+        phase("ab", f"{key} (median): old {old:.5f} new {new:.5f} {unit} -> "
+              f"{old / new:.2f}x")
+
+
+def pair_ab_phase(card, old_lib):
+    """An earlier pair_energy.cu (``old_lib``, built; its entry point
+    takes no plan and leaves E per row tile for the wrapper to sum)
+    against the current one, in turns old, new, new, old, old,
+    new within this process: in an old turn every K7 call goes to the old
+    source. A turn times K7 at PAIR_AB (form r at B=1, N=13; r2 at B=30,
+    N=13; r at generate.yaml's 2,944 atoms), CUDA events and device time,
+    then the MD of one train.yaml dataset (4,300 form-r calls) from a fresh
+    working directory."""
+    import ctypes
+    import os
+    import torch
+    from enflow_tpu_torch.data.simulated import SimulatedDataset
+    from enflow_tpu_torch.ops import build
+    from enflow_tpu_torch.ops import pair_energy as pe
+
+    _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    old_lib.pair_energy.argtypes = [_I, _I, _I, _P, _P, _P, _F, _F, _I, _P,
+                                    _P, _P]
+    old_lib.pair_energy.restype = _I
+    old_lib.pair_energy_row_tiles.argtypes = [_I]
+    old_lib.pair_energy_row_tiles.restype = _I
+
+    def old_launch(pos, mask_f, box, form, softening, cutoff, coincident):
+        B, N, _ = pos.shape
+        tiles = old_lib.pair_energy_row_tiles(N)
+        e_part = torch.empty((B, tiles), dtype=torch.float32,
+                             device=pos.device)
+        grad = torch.empty((B, N, 3), dtype=torch.float32, device=pos.device)
+        args = [t.contiguous() for t in (pos, mask_f, box)]
+        err = old_lib.pair_energy(
+            pe.FORMS[form], B, N, *[t.data_ptr() for t in args],
+            float(softening), float(cutoff) ** 2 if form == "r" else 0.0,
+            int(bool(coincident)), e_part.data_ptr(), grad.data_ptr(),
+            torch.cuda.current_stream(pos.device).cuda_stream)
+        require(err == 0, f"the old pair_energy kernel failed ({err})")
+        setattr(pe.counts, f"{form}_launches",
+                getattr(pe.counts, f"{form}_launches") + 1)
+        return (e_part[:, 0] if tiles == 1 else e_part.sum(dim=1)), grad
+
+    new_launch = pe._launch
+
+    def use(which):
+        pe._launch = old_launch if which == "old" else new_launch
+
+    cases = {}
+    for sname in PAIR_AB:
+        shape = PAIR_SHAPES[sname]
+        pos, mask, box = pair_inputs(shape, seed=17)
+        a = (pos, mask, box, shape["form"], shape["softening"],
+             shape.get("cutoff"), shape.get("coincident", False))
+        cases[sname] = (lambda a=a: pe.pair_energy_and_grad(*a),
+                        pe.pair_energy_plain(*a), pe.pair_plan(
+                            shape["B"], shape["N"],
+                            build.multiprocessors(pos.device)))
+    process = SimulatedDataset.process
+    cwd, rows = os.getcwd(), []
+    try:
+        for which in ("old", "new", "new", "old", "old", "new"):
+            use(which)
+            t, line = {}, []
+            for sname, (call, want, plan) in cases.items():
+                errs = rel_errs(("E", "dE/dpos"), call(), want)
+                require(all(r <= TOL_PAIR for _, r in errs.values()),
+                        f"{which} K7 disagrees with plain at {sname}: "
+                        f"{errs}")
+                t[sname] = cuda_time_ms(call)
+                t[sname + " dev"] = (device_ms(call, "pair_energy_kernel")
+                                     if which == "old" else
+                                     sum(pair_device_ms(call, plan)))
+                line.append(f"{sname} {t[sname]:.4f} ms (device "
+                            f"{t[sname + ' dev']:.4f})")
+            md = []
+
+            def timed_process(self, *a, **k):
+                t0 = time.perf_counter()
+                process(self, *a, **k)
+                torch.cuda.synchronize()
+                md.append(time.perf_counter() - t0)
+            with tempfile.TemporaryDirectory() as tmp:
+                SimulatedDataset.process = timed_process
+                pe.counts.reset()
+                train_driver(tmp, 1)
+                SimulatedDataset.process = process
+                os.chdir(cwd)
+            require(pe.counts.r_launches == 4300 and len(md) == 1,
+                    f"{which}: MD launches {pe.counts.r_launches}")
+            t["md"] = md[0]
+            rows.append((which, t))
+            phase("ab", f"{which} on {card}: K7 " + "; ".join(line)
+                  + f"; train.yaml MD {t['md']:.4f} s (4,300 form-r calls)")
+    finally:
+        use("new")
+        SimulatedDataset.process = process
+        os.chdir(cwd)
+    for key in rows[0][1]:
+        pick = lambda which: statistics.median(
+            t[key] for w, t in rows if w == which)
+        old, new = pick("old"), pick("new")
+        unit = "s" if key == "md" else "ms"
         phase("ab", f"{key} (median): old {old:.5f} new {new:.5f} {unit} -> "
               f"{old / new:.2f}x")
 
@@ -1587,7 +1808,7 @@ def vi_launches():
     plain = (c.plain_fwd_calls + c.plain_bwd_calls + c.plain_bwd_param_calls
              + ep.counts.plain_fwd_calls + ep.counts.plain_bwd_calls
              + pe.counts.plain_calls + egcl.counts.plain_calls)
-    return dict(k1=c.fwd_launches, k2=c.bwd_launches,
+    return dict(k1=c.fwd_launches, k2=c.bwd_launches + c.bwd_f32_launches,
                 k2_params=c.bwd_param_launches, plain=plain)
 
 
@@ -1845,7 +2066,8 @@ def kernel_key(dname, H, kind):
     route = ops.kernel_for(1 if dname == "bfloat16" else 0, H, kind)
     direction = "fwd" if kind == "fwd" else "bwd"
     if route == "f32":
-        return "egcl_f32_fwd" if kind == "fwd" else "egcl_f32_bwd_params"
+        return {"fwd": "egcl_f32_fwd", "bwd": "egcl_f32_bwd_kernel",
+                "bwd_params": "egcl_f32_bwd_params"}[kind]
     return f"egcl_{'sm90_' if route == 'sm90' else ''}{direction}_kernel"
 
 
@@ -1883,7 +2105,9 @@ def allpairs_vs_plain(name, label, shape, dname, seed, kinds, time_it=True,
         ops.counts.reset()
         got = kern()
         c = ops.counts
-        launched = {"fwd": c.fwd_launches, "bwd": c.bwd_launches,
+        launched = {"fwd": c.fwd_launches, "bwd": (
+            c.bwd_f32_launches if kernel_key(dname, shape["H"], kind)
+            == "egcl_f32_bwd_kernel" else c.bwd_launches),
                     "bwd_params": c.bwd_param_launches}[kind]
         errs = rel_errs(names, got, plain())
         torch.cuda.synchronize()
@@ -2039,14 +2263,17 @@ ALA2 = dict(B=256, N=22, nf=4, H=128)
 
 
 def vi_config_phase(card, name, config, steps, per_step, shape, dname,
-                    check=None, **vs):
+                    check=None, after=None, kinds=("fwd", "bwd_params"),
+                    **vs):
     """``example/<config>`` cut to 1 epoch x ``steps`` steps: ``per_step``
-    K1 and K2 p launches a step, finite losses, a checkpoint; then K1 and
-    K2 p at ``shape`` against their plain version, timed
+    K1 and K2 p launches a step, finite losses, a checkpoint; ``after``
+    (given the driver) runs next in the same working directory. Then the
+    ``kinds`` at ``shape`` against their plain version, timed
     (``allpairs_vs_plain`` with the options ``vs``)."""
     import os
 
     cwd = os.getcwd()
+    extra = None
     with tempfile.TemporaryDirectory() as tmp:
         try:
             main = config_driver(tmp, config, over=dict(
@@ -2058,6 +2285,8 @@ def vi_config_phase(card, name, config, steps, per_step, shape, dname,
             step_s, losses = vi_epoch(main, config, steps, want)
             ckpt = main.checkpoint_path
             require(Path(ckpt).exists(), f"{config}: no checkpoint")
+            if after:
+                extra = after(main)
         finally:
             os.chdir(cwd)
     s_step = statistics.median(step_s[1:])
@@ -2067,9 +2296,9 @@ def vi_config_phase(card, name, config, steps, per_step, shape, dname,
           f"first {step_s[0]:.4f} s), {P / s_step:.1f} particles/s; losses "
           + ", ".join(f"{x:.2f}" for x in losses)
           + f"; per step K1 {per_step} + K2 p {per_step}, plain calls 0")
-    rec = allpairs_vs_plain(name, f"{config} shape", shape, dname, 31,
-                            ("fwd", "bwd_params"), **vs)
-    return dict(s_step=s_step, launches=want, rec=rec)
+    rec = allpairs_vs_plain(name, f"{config} shape", shape, dname, 31, kinds,
+                            **vs)
+    return dict(s_step=s_step, launches=want, rec=rec, after=extra)
 
 
 def fluid_phase(card):
@@ -2088,24 +2317,70 @@ def fluid_phase(card):
                                        half=True), "bfloat16", check)
 
 
+# flow-SMC on DW4 from vi_dw4.yaml's checkpoint, float32: the f32 sampler
+# path, whose HMC gradients run the tiled f32 input-gradient K2
+DW4_SMC = dict(algo="smc", n_particles=512, n_temps=8, mcmc_steps=1,
+               step_size=0.02, n_leapfrog=5, output="dw4_samples.npz",
+               target=dict(type="double_well", n_atoms=4, kBT=1.0))
+
+
+def dw4_smc(card, vi):
+    """``mode: sample`` (DW4_SMC) from the checkpoint ``vi`` wrote, in its
+    working directory: float32 K1 and the tiled f32 input-gradient K2 at
+    B=512, N=4, nf=2, H=64, with the launches the code implies and no
+    plain call."""
+    import yaml
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+    from enflow_tpu_torch.train.driver import Main
+
+    cfg = dict(mode="sample", units=dict(time="pico", dist="ang"),
+               precision="float32", seed=0,
+               dynamics=dict(checkpoint_path=vi.checkpoint_path,
+                             nbr_mode="all_pairs"), sampling=DW4_SMC)
+    Path("sample_dw4.yaml").write_text(yaml.safe_dump(cfg))
+    main = Main(device="cuda")
+    main.setup("sample_dw4.yaml")
+    reset_counts()
+    res, secs = timed_sample(main)
+    n_iter, P = main.n_iter, DW4_SMC["n_particles"]
+    n_vg = 1 + DW4_SMC["n_temps"] * DW4_SMC["mcmc_steps"] \
+        * DW4_SMC["n_leapfrog"]
+    want = dict(k1=n_iter + n_vg * n_iter, k2=n_vg * n_iter, k2_params=0,
+                plain=0)
+    got, k2_f32 = vi_launches(), ops.counts.bwd_f32_launches
+    require(got == want and k2_f32 == want["k2"],
+            f"dw4 SMC launches {got} (tiled f32 K2 {k2_f32}) != {want}")
+    check_smc(res, "dw4 SMC", P, 4)
+    phase("dw4", f"flow-SMC from the vi_dw4 checkpoint on {card}: {P} "
+          f"particles x {DW4_SMC['n_temps']} temps, float32, {secs:.3f} s, "
+          f"log_Z {float(res.log_Z):.4f}; launches K1 {got['k1']}, tiled "
+          f"f32 K2 {k2_f32} ({n_vg} value-and-grads), plain calls 0")
+    return dict(k1=got["k1"], k2=k2_f32, secs=secs)
+
+
 def dw4_phase(card):
     """``example/vi_dw4.yaml``: DW4 (N=4, nf=2, H=64) in float32, the tiled
-    f32 K1 and K2 p of egcl_allpairs_f32.cu; then those kernels against
-    their plain version at B=512, N=4, nf=2, a second launch bitwise
-    equal, timed (events and device time)."""
+    f32 K1 and K2 p of egcl_allpairs_f32.cu; then flow-SMC from its
+    checkpoint (``dw4_smc``: the tiled f32 K2); then those three kernels
+    against their plain version at B=512, N=4, nf=2, a second launch
+    bitwise equal, timed (events and device time)."""
     return vi_config_phase(card, "dw4", "vi_dw4.yaml", DW4_STEPS, 4,
-                           DW4, "float32", repeat=True, device=True)
+                           DW4, "float32", after=lambda vi: dw4_smc(card, vi),
+                           kinds=("fwd", "bwd_params", "bwd"), repeat=True,
+                           device=True)
 
 
 def ala2_phase():
     """The f32 kernels at alanine dipeptide's size (kernels only: the
     force-field target of vi_ala2.yaml is not ported yet). The tiled f32
-    K2 p must take N >= 22 at nf=4, H=128 and refuse one atom past its
-    largest; the tiled kernels must take every N that the chunked ones
-    take at nf=5 (H=128 and H=64). Then the tiled f32 K1 and K2 p and the
-    chunked f32 K2 against their plain version at vi_ala2.yaml's shape
-    (B=256, N=22, nf=4, H=128), the K2 also at sample_ala2.yaml's B=2048;
-    a second launch bitwise equal; each timed with its bound."""
+    K2 p must take N >= 22 at nf=4, H=128 and the tiled f32 K2 N >= 70 at
+    nf=5, H=128, each refusing one atom past its largest (the K2 also held
+    against plain at N=70); the tiled kernels must take every N that the
+    chunked ones take at nf=5 (H=128 and H=64). Then the tiled f32 K1, K2
+    p and K2 against their plain version at vi_ala2.yaml's shape (B=256,
+    N=22, nf=4, H=128), the K2 also at sample_ala2.yaml's B=2048 and its
+    dh/dpos against K2 p's; a second launch bitwise equal; each timed
+    (events and device time) with its bound."""
     import torch
     from enflow_tpu_torch.ops import egcl_allpairs as ops
 
@@ -2121,7 +2396,7 @@ def ala2_phase():
 
     lim = {}
     for nf, H in ((5, 128), (5, 64), (4, 128)):
-        for kind in ("fwd", "bwd_params"):
+        for kind in ("fwd", "bwd", "bwd_params"):
             lim[(nf, H, kind)] = (ops.largest_molecule(0, nf, H, kind),
                                   chunked_largest(nf, H, kind))
     phase("ala2", "largest N, f32 tiled (chunked): " + ", ".join(
@@ -2129,22 +2404,39 @@ def ala2_phase():
         in lim.items()))
     require(all(a >= b for a, b in lim.values()),
             f"a tiled f32 kernel takes less than the chunked one: {lim}")
-    n_max = lim[(4, 128, "bwd_params")][0]
-    require(n_max >= 22, f"f32 K2 p takes N <= {n_max} at nf=4, H=128")
-    h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(
-        dict(B=1, N=n_max + 1, nf=4, H=128), torch.float32, seed=11)
-    try:
-        ops.allpairs_edges_bwd(h, pos, box, mask_f, W, dagg, dfsum,
-                               params=True)
-    except ValueError as e:
-        require("shared memory" in str(e) and f"N <= {n_max}" in str(e),
-                f"unclear refusal: {e}")
-        phase("ala2", f"N={n_max + 1} f32 bwd_params refused: {e}")
-    else:
-        raise RuntimeError("an f32 K2 p beyond shared memory was launched")
+    for nf, kind, least in ((4, "bwd_params", 22), (5, "bwd", 70)):
+        n_max = lim[(nf, 128, kind)][0]
+        require(n_max >= least, f"f32 {kind} takes N <= {n_max} at "
+                f"nf={nf}, H=128 (needs {least})")
+        h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(
+            dict(B=1, N=n_max + 1, nf=nf, H=128), torch.float32, seed=11)
+        try:
+            ops.allpairs_edges_bwd(h, pos, box, mask_f, W, dagg, dfsum,
+                                   params=kind == "bwd_params")
+        except ValueError as e:
+            require("shared memory" in str(e) and f"N <= {n_max}" in str(e),
+                    f"unclear refusal: {e}")
+            phase("ala2", f"N={n_max + 1} f32 {kind} refused: {e}")
+        else:
+            raise RuntimeError(f"an f32 {kind} beyond shared memory was "
+                               "launched")
+    allpairs_vs_plain("ala2", "N=70", dict(B=4, N=70, nf=5, H=128),
+                      "float32", 43, ("bwd",), time_it=False, repeat=True)
     rec = allpairs_vs_plain("ala2", "vi_ala2 shape", ALA2, "float32", 37,
                             ("fwd", "bwd_params", "bwd"), repeat=True,
                             device=True, plain_reps=(5, 2))
+    # dh/dpos of the input-gradient K2 against K2 p's on the same inputs
+    # (two kernels, two orders of dh's sums: equal to TOL, not bitwise)
+    h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(ALA2, torch.float32,
+                                                         37)
+    args = (h, pos, box, mask_f, W, dagg, dfsum)
+    vs = rel_errs(("dh", "dpos"), ops.allpairs_edges_bwd(*args),
+                  ops.allpairs_edges_bwd(*args, params=True)[:2])
+    phase("ala2", "vi_ala2 shape: K2 dh/dpos vs K2 p's " + "  ".join(
+        f"{n} {r:.1e}" for n, (_, r) in vs.items())
+          + f" (tol {TOL['float32']:g})")
+    require(all(r <= TOL["float32"] for _, r in vs.values()),
+            f"the f32 K2 and K2 p disagree on dh/dpos: {vs}")
     rec["bwd_2048"] = allpairs_vs_plain(
         "ala2", "sample_ala2 shape", dict(ALA2, B=2048), "float32", 41,
         ("bwd",), repeat=True, device=True, plain_reps=(3, 1))["bwd"]
@@ -2194,10 +2486,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", default=None, metavar="OLD_CU",
                     help="time the kernels built from an earlier "
-                    "egcl_allpairs.cu, egcl_allpairs_sm90.cu or "
-                    "edge_pipeline.cu against the current ones, and "
-                    "vi_dw4.yaml epochs, SMC runs or train.yaml epochs with "
-                    "each, instead of the phases after the build")
+                    "egcl_allpairs.cu, egcl_allpairs_sm90.cu, "
+                    "edge_pipeline.cu or pair_energy.cu against the current "
+                    "ones, and vi_dw4.yaml epochs, SMC runs, train.yaml "
+                    "epochs or train.yaml MD datasets with each, instead of "
+                    "the phases after the build")
     ap.add_argument("--profile", nargs="?", const="", default=None,
                     metavar="FILE", help="profile one SMC run instead of "
                     "the phases after the build; the full table to FILE")
@@ -2299,6 +2592,12 @@ def main():
         err, ms, plain, bnd, _ = dw4["rec"][direction]
         kernels.append(kernel_record(name, "egcl_allpairs_f32.cu",
                                      f"{v3}:{line}", n, err, ms, plain, bnd))
+    # the tiled f32 input-gradient K2 at the same shape, with the launches
+    # of the f32 flow-SMC run from vi_dw4.yaml's checkpoint
+    err, ms, plain, bnd, _ = dw4["rec"]["bwd"]
+    kernels.append(kernel_record("egcl_allpairs_f32_bwd",
+                                 "egcl_allpairs_f32.cu", f"{v3}:414",
+                                 dw4["after"]["k2"], err, ms, plain, bnd))
     for name, key, n in (("pair_energy_r2", "r2", tr["k7_r2"]),
                          ("pair_energy_r", "r", tr["md_launches"])):
         p = prec[key]

@@ -1,9 +1,9 @@
 // Fused all-pairs EGCL edge pipeline for Hopper (sm_90a): forward, the
 // input-gradient backward, and the backward with parameter gradients.
 // At H = 64 or 128 bf16 runs in egcl_allpairs_sm90.cu (wgmma, persistent
-// warpgroups) and the f32 forward and parameter-gradient backward in
-// egcl_allpairs_f32.cu (register-tiled, persistent blocks); these chunked
-// kernels serve the f32 input-gradient backward and every other width.
+// warpgroups) and f32 in egcl_allpairs_f32.cu (register-tiled, persistent
+// blocks), each in every direction; these chunked kernels serve every
+// other width.
 //
 // Replaces the Pallas TPU kernels of enflow_tpu/ops/egcl_fused_v3.py:
 //   forward  -> _fused_fwd / _fwd_kernel (via _fwd_block)

@@ -1,31 +1,31 @@
 // Fused all-pairs EGCL edge pipeline in float32, designed for Hopper
-// (sm_90a): the forward (K1) and the backward with the nine parameter
-// gradients (K2 p), at H = 64 or 128.
+// (sm_90a): the forward (K1), the input-gradient backward (K2) and the
+// backward with the nine parameter gradients (K2 p), at H = 64 or 128.
 //
 // Replaces the Pallas TPU kernels of enflow_tpu/ops/egcl_fused_v3.py:
 //   forward  -> the pallas_call of _fused_fwd (:365), _fwd_kernel
-//   backward -> the pallas_call of _fused_bwd (:414), _bwd_kernel with the
-//               parameter gradients dW1a ... dw4 (:256-273; what training
-//               asks for)
+//   backward -> the pallas_call of _fused_bwd (:414), _bwd_kernel: dh and
+//               dpos only (what sampling asks for), or with the parameter
+//               gradients dW1a ... dw4 (:256-273; what training asks for)
 // for the float32 compute dtype, and computes the contract of
 // egcl_allpairs.cu:13-22. In f32 every rounding point of that contract is
 // the identity, so this file has none; dw1r takes the f32 r2 and dw4 the
 // f32 dgate, as _bwd_kernel does, and the backward's clip mask is
 // _bwd_kernel's (-100 <= cd gate <= 100). bf16 runs in
-// egcl_allpairs_sm90.cu; every other width, and the f32 input-gradient
-// backward, in egcl_allpairs.cu (the wrapper's size rule,
-// ops/egcl_allpairs.py kernel_for).
+// egcl_allpairs_sm90.cu; every other width in egcl_allpairs.cu (the
+// wrapper's size rule, ops/egcl_allpairs.py kernel_for).
 //
 // What bounds it on this card: per valid pair the forward does two H x H
-// products and the backward six (two recomputed, two transposed, two outer
-// products for dW2 and dW3), 4 H^2 and 12 H^2 FLOP; the inputs are a few
-// floats per atom. At vi_ala2.yaml's shape (B=256, N=22, nf=4, H=128,
-// 118,272 pairs) that is ~7.9 and ~23.5 GFLOP: 0.12 and 0.35 ms at the 67
-// TFLOP/s f32 rate. At vi_dw4.yaml's (B=512, N=4, nf=2, H=64, 6,144 pairs)
-// it is 0.1 and 0.3 GFLOP, a few microseconds: there one wave of blocks,
-// the weights' load and the barriers set the time. The products stay on
-// the FMA units: TF32 tensor cores would round every input to 10 mantissa
-// bits, where the f32 reference keeps 23.
+// products, the input-gradient backward four (two recomputed, two
+// transposed) and the parameter-gradient backward six (two outer products
+// for dW2 and dW3 more), 4, 8 and 12 H^2 FLOP; the inputs are a few floats
+// per atom. At vi_ala2.yaml's shape (B=256, N=22, nf=4, H=128, 118,272
+// pairs) that is ~7.9, ~15.6 and ~23.5 GFLOP: 0.12, 0.23 and 0.35 ms at
+// the 67 TFLOP/s f32 rate. At vi_dw4.yaml's (B=512, N=4, nf=2, H=64, 6,144
+// pairs) it is 0.1 to 0.3 GFLOP, a few microseconds: there one wave of
+// blocks, the weights' load and the barriers set the time. The products
+// stay on the FMA units: TF32 tensor cores would round every input to 10
+// mantissa bits, where the f32 reference keeps 23.
 //
 // Design (after the tiled kernels of edge_pipeline.cu):
 // - 2H threads a block, one block an SM, persistent: molecule tiles of MT
@@ -37,19 +37,30 @@
 // - Only the rows i != j: a molecule's N(N-1) pairs in i-major order (row
 //   q: i = q / (N-1), j the (q % (N-1))-th atom other than i); a molecule
 //   tile's nm N(N-1) rows are cut into row tiles of R rows (a multiple of
-//   8, at most 72 forward and 40 backward; the wrapper's tile_rows), the
-//   last holding the rest, with the padding masked. Where N(N-1) is small
-//   the wrapper packs several molecules into a tile (N=4: 12 rows a
-//   molecule, 4 molecules a block at B=512), so a row tile may span
-//   molecules and a molecule may straddle two row tiles; the sums are kept
-//   per molecule tile across its row tiles.
+//   8, at most 72 forward and input-gradient backward, 40 with parameter
+//   gradients; the wrapper's tile_rows), the last holding the rest, with
+//   the padding masked. Where N(N-1) is small the wrapper packs several
+//   molecules into a tile (N=4: 12 rows a molecule, 4 molecules a block at
+//   B=512), so a row tile may span molecules and a molecule may straddle
+//   two row tiles; the sums are kept per molecule tile across its row
+//   tiles.
 // - z1 = h_i W1a + h_j W1b + b1 + r2 w1r is computed per row from the
 //   staged h (nf FMAs a side) instead of staging h W1a and h W1b per atom,
 //   and the backward reads dagg rows straight from global memory (L2; each
 //   read N-1 times): the per-atom arrays are then only the node sums, so
-//   at N=22, nf=4, H=128 the backward keeps three 40-row activation tiles
-//   beside the weights: W2 + W3 131,072 bytes, the tiles 63,360, the node
-//   sums 23,056 and the rest ~11 KB, of the 232,448 a block may use.
+//   at N=22, nf=4, H=128 the parameter-gradient backward keeps three
+//   40-row activation tiles beside the weights: W2 + W3 131,072 bytes, the
+//   tiles 63,360, the node sums 23,056 and the rest ~11 KB, of the 232,448
+//   a block may use.
+// - The input-gradient backward (egcl_f32_bwd_kernel) goes further: it
+//   takes dh's node sums after the first layer's transposes, per row
+//   (dz1_ij W1a^T on the i side, dz1_ij W1b^T on the j side, nf floats
+//   each, from the thread's 4 columns and shuffles, about 4 nf H FMAs a
+//   row beside its 8 H^2), so an atom keeps 2 (nf + 3) floats of sums
+//   instead of 2 (H + 3), and it needs two activation tiles, not three
+//   (no outer products): 64-row tiles at N=22, and N up to several
+//   hundred at nf=5, H=128. dh = sum_j dz1_ij W1a^T + sum_i dz1_ij W1b^T
+//   is the reference's (sum_j dz1_ij) W1a^T + ... in another order.
 // - Register-tiled products as in edge_pipeline.cu: in X W and X W^T a
 //   thread owns 4 columns of every 8th row of the tile (a warp: 4 rows x 8
 //   column lanes), reading 4 float4 of W and q broadcast float4 of X for
@@ -82,9 +93,10 @@
 namespace {
 
 constexpr int kQmaxFwd = 9;   // at most 72 rows a tile (forward)
-constexpr int kQmaxBwd = 5;   // at most 40 rows a tile (backward)
+constexpr int kQmaxBwdIn = 9; // at most 72 rows a tile (input gradients)
+constexpr int kQmaxBwd = 5;   // at most 40 rows a tile (parameter gradients)
 constexpr size_t kMaxSmem = 232448;
-enum Kind { kFwd = 0, kBwdParams = 2 };
+enum Kind { kFwd = 0, kBwd = 1, kBwdParams = 2 };
 
 struct Args {
   int B, N, nf, H;
@@ -126,13 +138,21 @@ struct Bump {
 
 struct Smem {
   float *W2, *W3, *W1a, *W1b, *w1r, *b1, *b2, *b3, *w4;
-  float* X[3];          // activation tiles [R, H + 4] (forward: 2)
-  float* gpart;         // a row's partial sums over H / 32 warps [R, H/32]
+  float* X[3];          // activation tiles [R, H + 4] (forward and input-
+                        // gradient backward: 2)
+  // a row's partial sums over the H / 32 column warps [R, H/32]; the
+  // input-gradient backward's [R, 2 nf + 1, H/32] (dr2, dz1 W1a^T,
+  // dz1 W1b^T)
+  float* gpart;
   int *ri, *rj;         // the rows' atoms in the molecule tile (m N + i)
   float *cd, *r2, *valid;
-  float* rd;            // forward: tr [R, 3]; backward: dcd [R, 3]
-  // forward: agg [MT N, H], fsum [MT N, 3]; backward: dz1_i then dz1_j
-  // [2, MT N, H], dpos_i then dpos_j [2, MT N, 3]
+  // forward: tr [R, 3]; parameter-gradient backward: dcd [R, 3];
+  // input-gradient backward: [R, 2 nf + 3], dz1 W1a^T, dcd, dz1 W1b^T
+  float* rd;
+  // forward: agg [MT N, H], fsum [MT N, 3]; parameter-gradient backward:
+  // dz1_i then dz1_j [2, MT N, H], dpos_i then dpos_j [2, MT N, 3];
+  // input-gradient backward: the i side (dh_i, dpos_i) then the j side
+  // (dpos_j, dh_j) [2, MT N, nf + 3] in accH
   float *accH, *acc3;
   // two stages of a molecule tile's h [MT N, nf], pos [MT N, 3], mask
   // [MT N], box [MT, 3] and (backward) dfsum [MT N, 3], at float offsets
@@ -143,8 +163,9 @@ struct Smem {
 };
 
 __host__ __device__ inline void carve(Bump& m, Smem& s, int N, int nf, int H,
-                                      int MT, int R, bool bwd) {
+                                      int MT, int R, int kind) {
   const size_t fH = sizeof(float) * H;
+  const bool bwd = kind != kFwd, in = kind == kBwd;
   s.W2 = (float*)m.take(fH * H);
   s.W3 = (float*)m.take(fH * H);
   s.W1a = (float*)m.take(fH * nf);
@@ -155,18 +176,19 @@ __host__ __device__ inline void carve(Bump& m, Smem& s, int N, int nf, int H,
   s.b3 = (float*)m.take(fH);
   s.w4 = (float*)m.take(fH);
   for (int k = 0; k < 3; ++k)
-    s.X[k] = k < (bwd ? 3 : 2)
+    s.X[k] = k < (kind == kBwdParams ? 3 : 2)
                  ? (float*)m.take(sizeof(float) * R * (H + 4)) : nullptr;
-  s.gpart = (float*)m.take(sizeof(float) * R * (H / 32));
+  s.gpart = (float*)m.take(sizeof(float) * R * (H / 32) *
+                           (in ? 2 * nf + 1 : 1));
   s.ri = (int*)m.take(sizeof(int) * R);
   s.rj = (int*)m.take(sizeof(int) * R);
   s.cd = (float*)m.take(sizeof(float) * R * 3);
   s.r2 = (float*)m.take(sizeof(float) * R);
   s.valid = (float*)m.take(sizeof(float) * R);
-  s.rd = (float*)m.take(sizeof(float) * R * 3);
+  s.rd = (float*)m.take(sizeof(float) * R * (in ? 2 * nf + 3 : 3));
   const int na = MT * N, sides = bwd ? 2 : 1;
-  s.accH = (float*)m.take(fH * na * sides);
-  s.acc3 = (float*)m.take(sizeof(float) * na * 3 * sides);
+  s.accH = (float*)m.take(sizeof(float) * na * sides * (in ? nf + 3 : H));
+  s.acc3 = in ? nullptr : (float*)m.take(sizeof(float) * na * 3 * sides);
   s.at_pos = na * nf;
   s.at_mask = s.at_pos + na * 3;
   s.at_box = s.at_mask + na;
@@ -511,7 +533,7 @@ __global__ void __launch_bounds__(2 * H, 1) egcl_f32_fwd_kernel(Args a) {
   const int tid = threadIdx.x, N = a.N, nf = a.nf;
   Smem s;
   Bump m{smem_raw, 0};
-  carve(m, s, N, nf, H, a.MT, a.R, false);
+  carve(m, s, N, nf, H, a.MT, a.R, kFwd);
   // a warp: 4 rows x 8 column lanes (32 columns); CW warps span a row
   const int lane = tid & 31, wp = tid >> 5;
   const int cx = 8 * (wp % CW) + (lane & 7), ry = 4 * (wp / CW) + (lane >> 3);
@@ -610,7 +632,7 @@ __global__ void __launch_bounds__(2 * H, 1)
   const int tid = threadIdx.x, N = a.N, nf = a.nf, MT = a.MT;
   Smem s;
   Bump m{smem_raw, 0};
-  carve(m, s, N, nf, H, MT, a.R, true);
+  carve(m, s, N, nf, H, MT, a.R, kBwdParams);
   const int lane = tid & 31, wp = tid >> 5;
   const int cx = 8 * (wp % CW) + (lane & 7), ry = 4 * (wp / CW) + (lane >> 3);
   const int c0 = 4 * cx;
@@ -888,9 +910,232 @@ __global__ void __launch_bounds__(2 * H, 1)
   column_sums(pw1r, L.dw1r);
 }
 
+// The input-gradient backward: dh and dpos only. The parameter-gradient
+// kernel's rows, recompute and clip mask, without the outer products and
+// the slice, on two activation tiles (X0: m1, then m2, then dz3; X1:
+// dsilu(z2), then dz2), and with dh's node sums taken per row after the
+// first layer's transposes (see the top). SiLU and its derivative at z2 and
+// z3 share one sigmoid.
+template <int H>
+__global__ void __launch_bounds__(2 * H, 1) egcl_f32_bwd_kernel(Args a) {
+  constexpr int NT = 2 * H, CW = H / 32, LD = H + 4, QM = kQmaxBwdIn;
+  extern __shared__ __align__(128) char smem_raw[];
+  const int tid = threadIdx.x, N = a.N, nf = a.nf, MT = a.MT;
+  Smem s;
+  Bump m{smem_raw, 0};
+  carve(m, s, N, nf, H, MT, a.R, kBwd);
+  const int lane = tid & 31, wp = tid >> 5, wc = wp % CW;
+  const int cx = 8 * wc + (lane & 7), ry = 4 * (wp / CW) + (lane >> 3);
+  const int c0 = 4 * cx;
+  // a row's vector: [dz1 W1a^T (nf), dcd (3), dz1 W1b^T (nf)]; the i side
+  // sums its first nf + 3 columns, the j side its last nf + 3
+  const int V = 2 * nf + 3, A = nf + 3, K1 = 2 * nf + 1;
+  float* const si = s.accH;
+  float* const sj = s.accH + MT * N * A;
+  Cursor cur{(int)blockIdx.x, 0};
+  int ab = 0;
+  if (cur.tile < a.n_tiles) prefetch_atoms<H, true>(a, s, ab, cur.tile);
+  load_small<H>(a, s);
+  cp_async_commit();
+  load_weights<H>(a, s);
+  cp_async_commit();
+  bool first = true;
+  float acc[QM][4];
+
+  while (cur.tile < a.n_tiles) {
+    const int b0 = cur.tile * MT, na = min(MT, a.B - b0) * N;
+    const int rows = rows_of(a, cur.tile);
+    const int g0 = cur.g0, nr = min(a.R, rows - g0), q = (nr + 7) >> 3;
+    const Cursor nxt = advance(a, cur);
+    const int more = nxt.tile < a.n_tiles;
+    const bool new_atoms = more && nxt.tile != cur.tile;
+    if (more) {
+      if (new_atoms) prefetch_atoms<H, true>(a, s, ab ^ 1, nxt.tile);
+      cp_async_commit();
+    }
+    cp_async_wait_n(first + more);
+    __syncthreads();
+    const float* at = s.stage(ab);
+    const float* dfs = at + s.at_dfs;
+    const float* dagg = a.dagg + (size_t)b0 * N * H;
+    float* X0 = s.X[0];
+    float* X1 = s.X[1];
+    if (g0 == 0)
+      for (int k = tid; k < 2 * MT * N * A; k += NT) si[k] = 0.f;
+    row_geometry(a, s, at, g0, nr);
+    __syncthreads();
+
+    // -- recompute the forward: m1 -> X0; z2 (acc), then dsilu(z2) -> X1
+    //    and m2 -> X0 from one sigmoid
+    first_layer<H, QM>(nf, s, at, q, ry, c0, X0);
+    if (first) cp_async_wait_n(more);                         // W2, W3
+    first = false;
+    __syncthreads();
+    product_q<H, false, QM>(q, X0, s.W2, ry, cx, acc);
+    __syncthreads();                                // every read of m1 done
+#pragma unroll
+    for (int i = 0; i < QM; ++i) {
+      if (i >= q) break;
+      const int r = ry + 8 * i;
+      const float v = s.valid[r];
+      float d2[4], m2[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float z2 = acc[i][u] + s.b2[c0 + u], g = sig(z2);
+        m2[u] = (z2 * g) * v;
+        d2[u] = g * (1.0f + z2 * (1.0f - g));
+      }
+      *reinterpret_cast<float4*>(X1 + r * LD + c0) =
+          make_float4(d2[0], d2[1], d2[2], d2[3]);
+      *reinterpret_cast<float4*>(X0 + r * LD + c0) =
+          make_float4(m2[0], m2[1], m2[2], m2[3]);
+    }
+    __syncthreads();
+
+    // -- z3 and the gate's partial sums, dsilu(z3) (in acc) from the same
+    //    sigmoid; then per row the force branch (clip mask -100 <= cd gate
+    //    <= 100), dgate, the gate part of dcd and dz3 -> X0 (every read of
+    //    m2 is done at the barrier)
+    product_q<H, false, QM>(q, X0, s.W3, ry, cx, acc);
+#pragma unroll
+    for (int i = 0; i < QM; ++i) {
+      if (i >= q) break;
+      const int r = ry + 8 * i;
+      float p = 0.f;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float z3 = acc[i][u] + s.b3[c0 + u], g = sig(z3);
+        p = fmaf(z3 * g, s.w4[c0 + u], p);
+        acc[i][u] = g * (1.0f + z3 * (1.0f - g));
+      }
+      p = lane_sum<8>(p);
+      if ((lane & 7) == 0) s.gpart[r * CW + wc] = p;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < QM; ++i) {
+      if (i >= q) break;
+      const int r = ry + 8 * i;
+      const float v = s.valid[r];
+      const int ai = s.ri[r];
+      float gate = 0.f;
+      for (int w = 0; w < CW; ++w) gate += s.gpart[r * CW + w];
+      float dgate = 0.f, dcd = 0.f;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const float c = s.cd[r * 3 + d];
+        const float raw = c * gate;
+        const float inside = (raw >= -100.f && raw <= 100.f) ? 1.f : 0.f;
+        const float dtr = dfs[ai * 3 + d] * inside * v;
+        dgate = fmaf(c, dtr, dgate);
+        if (cx == d) dcd = gate * dtr;
+      }
+      if (cx < 3) s.rd[r * V + nf + cx] = dcd;
+      float o[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        o[u] = (dgate * s.w4[c0 + u]) * acc[i][u];
+      *reinterpret_cast<float4*>(X0 + r * LD + c0) =
+          make_float4(o[0], o[1], o[2], o[3]);                     // dz3
+    }
+    __syncthreads();
+
+    // -- dm2 = (dz3 W3^T + dagg_i) valid; dz2 = dm2 dsilu(z2) -> X1
+    //    (over the dsilu(z2) it holds)
+    product_q<H, true, QM>(q, X0, s.W3, ry, cx, acc);
+#pragma unroll
+    for (int i = 0; i < QM; ++i) {
+      if (i >= q) break;
+      const int r = ry + 8 * i;
+      const float v = s.valid[r];
+      const float4 da = __ldg(reinterpret_cast<const float4*>(
+          dagg + (size_t)s.ri[r] * H + c0));
+      const float dav[4] = {da.x, da.y, da.z, da.w};
+      float4* p2 = reinterpret_cast<float4*>(X1 + r * LD + c0);
+      const float4 gv = *p2;
+      const float ds2[4] = {gv.x, gv.y, gv.z, gv.w};
+      float o[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        o[u] = ((acc[i][u] + dav[u]) * v) * ds2[u];
+      *p2 = make_float4(o[0], o[1], o[2], o[3]);                   // dz2
+    }
+    __syncthreads();
+
+    // -- dz1 = (dz2 W2^T) dsilu(z1), kept in registers: per row its dot
+    //    with w1r (dr2) and the transposes dz1 W1a^T, dz1 W1b^T, each the
+    //    thread's 4 columns summed over the 8 column lanes, one partial a
+    //    column warp
+    product_q<H, true, QM>(q, X1, s.W2, ry, cx, acc);
+#pragma unroll
+    for (int i = 0; i < QM; ++i) {
+      if (i >= q) break;
+      const int r = ry + 8 * i;
+      float z[4], d[4], p = 0.f;
+      z1_row<H>(nf, s, at, r, c0, z);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        d[u] = acc[i][u] * dsilu(z[u]);
+        p = fmaf(d[u], s.w1r[c0 + u], p);
+      }
+      float* gp = s.gpart + r * K1 * CW + wc;
+      p = lane_sum<8>(p);
+      if ((lane & 7) == 0) gp[0] = p;
+      for (int k = 0; k < 2 * nf; ++k) {
+        const float4 w = *reinterpret_cast<const float4*>(
+            (k < nf ? s.W1a + k * H : s.W1b + (k - nf) * H) + c0);
+        float t = fmaf(d[3], w.w, fmaf(d[2], w.z, fmaf(d[1], w.y,
+                       d[0] * w.x)));
+        t = lane_sum<8>(t);
+        if ((lane & 7) == 0) gp[(1 + k) * CW] = t;
+      }
+    }
+    __syncthreads();
+    for (int w = tid; w < nr * K1; w += NT) {
+      const int r = w / K1, k = w - r * K1;
+      const float* gp = s.gpart + w * CW;
+      float t = 0.f;
+      for (int c = 0; c < CW; ++c) t += gp[c];
+      float* rv = s.rd + r * V;
+      if (k == 0) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          rv[nf + d] += 2.f * s.cd[r * 3 + d] * t;                  // dcd
+      } else {
+        rv[k <= nf ? k - 1 : k + 2] = t;
+      }
+    }
+    __syncthreads();
+
+    // -- node sums, i side and j side, in a fixed order
+    isum_rows(si, A, s.rd, V, g0, nr, N, NT);
+    jsum_rows(sj, A, s.rd + nf, V, g0, nr, N, NT);
+
+    if (g0 + nr == rows) {
+      // -- the molecule tile is done: dh = sum_j dz1_ij W1a^T + sum_i
+      //    dz1_ij W1b^T, dpos = dcd_i - dcd_j
+      __syncthreads();
+      float* dh = a.dh + (size_t)b0 * N * nf;
+      for (int it = tid; it < na * nf; it += NT) {
+        const int l = it / nf, k = it - l * nf;
+        dh[it] = si[l * A + k] + sj[l * A + 3 + k];
+      }
+      float* dpos = a.dpos + (size_t)b0 * N * 3;
+      for (int it = tid; it < na * 3; it += NT) {
+        const int l = it / 3, d = it - l * 3;
+        dpos[it] = si[l * A + nf + d] - sj[l * A + d];
+      }
+    }
+    __syncthreads();
+    if (new_atoms) ab ^= 1;
+    cur = nxt;
+  }
+}
+
 bool takes(int N, int nf, int H, int MT, int R, int kind) {
-  const int qmax = kind == kFwd ? kQmaxFwd : kQmaxBwd;
-  return (kind == kFwd || kind == kBwdParams) && (H == 64 || H == 128) &&
+  const int qmax = kind == kFwd ? kQmaxFwd
+                   : kind == kBwd ? kQmaxBwdIn : kQmaxBwd;
+  return kind >= kFwd && kind <= kBwdParams && (H == 64 || H == 128) &&
          N >= 1 && nf >= 1 && MT >= 1 && R >= 8 && R % 8 == 0 &&
          R <= 8 * qmax;
 }
@@ -898,22 +1143,22 @@ bool takes(int N, int nf, int H, int MT, int R, int kind) {
 size_t smem_bytes(int N, int nf, int H, int MT, int R, int kind) {
   Smem s;
   Bump m{nullptr, 0};
-  carve(m, s, N, nf, H, MT, R, kind == kBwdParams);
+  carve(m, s, N, nf, H, MT, R, kind);
   return m.off;
 }
 
 template <int H>
 int launch(const Args& a, int kind, int blocks, cudaStream_t stream) {
   // the attribute once per kernel: every launch stays under kMaxSmem
-  static bool ready[2] = {false, false};
-  const bool bwd = kind == kBwdParams;
-  void (*kernel)(Args) =
-      bwd ? egcl_f32_bwd_params_kernel<H> : egcl_f32_fwd_kernel<H>;
-  if (!ready[bwd]) {
+  static bool ready[3] = {false, false, false};
+  void (*kernel)(Args) = kind == kFwd   ? egcl_f32_fwd_kernel<H>
+                         : kind == kBwd ? egcl_f32_bwd_kernel<H>
+                                        : egcl_f32_bwd_params_kernel<H>;
+  if (!ready[kind]) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
     if (err != cudaSuccess) return (int)err;
-    ready[bwd] = true;
+    ready[kind] = true;
   }
   const size_t smem = smem_bytes(a.N, a.nf, H, a.MT, a.R, kind);
   kernel<<<blocks, 2 * H, smem, stream>>>(a);
@@ -937,8 +1182,8 @@ extern "C" {
 
 // Dynamic shared memory of one block at MT molecules a tile and R rows a
 // row tile, or -1 for sizes the kernels do not take. kind: 0 the forward,
-// 2 the backward with parameter gradients (the input-gradient backward is
-// egcl_allpairs.cu's). A launch needs at most egcl_f32_smem_limit() bytes.
+// 1 the input-gradient backward, 2 the backward with parameter gradients.
+// A launch needs at most egcl_f32_smem_limit() bytes.
 long long egcl_f32_smem_bytes(int N, int nf, int H, int MT, int R,
                               int kind) {
   if (!takes(N, nf, H, MT, R, kind)) return -1;
@@ -963,6 +1208,24 @@ int egcl_f32_fwd(int B, int N, int nf, int H, int MT, int R, int blocks,
          (const float*)b3, (const float*)w4, nullptr, nullptr,
          (float*)agg, (float*)fsum, nullptr, nullptr, nullptr};
   return dispatch(a, kFwd, blocks, stream);
+}
+
+// The input-gradient backward: dh [B, N, nf] and dpos [B, N, 3].
+int egcl_f32_bwd(int B, int N, int nf, int H, int MT, int R, int blocks,
+                 const void* h, const void* pos, const void* box,
+                 const void* mask, const void* W1a, const void* W1b,
+                 const void* w1r, const void* b1, const void* W2,
+                 const void* b2, const void* W3, const void* b3,
+                 const void* w4, const void* dagg, const void* dfsum,
+                 void* dh, void* dpos, void* stream) {
+  Args a{B, N, nf, H, MT, R, 0, (const float*)h, (const float*)pos,
+         (const float*)box, (const float*)mask, (const float*)W1a,
+         (const float*)W1b, (const float*)w1r, (const float*)b1,
+         (const float*)W2, (const float*)b2, (const float*)W3,
+         (const float*)b3, (const float*)w4, (const float*)dagg,
+         (const float*)dfsum, nullptr, nullptr, (float*)dh, (float*)dpos,
+         nullptr};
+  return dispatch(a, kBwd, blocks, stream);
 }
 
 // The backward with parameter gradients: part is a [min(blocks,

@@ -47,8 +47,11 @@ class LJDataset(SimulatedDataset):
 
         pos0 = arrange_points_on_grid(int(n_atoms), box_red, gap_red)
         box_t = torch.as_tensor(box_red, dtype=MD_DTYPE, device=self.device)
+        # every atom real, made once: the MD asks for the force every step
+        mask = torch.ones(int(n_atoms), dtype=MD_DTYPE, device=self.device)
 
         def energy_grad(p):
-            return softened_lj_energy_grad(p, box_t, softening, cutoff_red)
+            return softened_lj_energy_grad(p, box_t, softening, cutoff_red,
+                                           mask=mask)
 
         return energy_grad, pos0, ["Ar"] * int(n_atoms), "LJ"

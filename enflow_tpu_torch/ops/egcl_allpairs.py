@@ -17,10 +17,9 @@ attention/norm_diff/tanh off.
   bf16 runs the Hopper kernels of ``csrc/egcl_allpairs_sm90.cu`` (wgmma,
   persistent warpgroups) in every direction, and float32 the tiled f32
   kernels of ``csrc/egcl_allpairs_f32.cu`` (persistent blocks, register
-  tiles) for the forward and the parameter-gradient backward, and the
-  chunked kernel of ``csrc/egcl_allpairs.cu`` for the input-gradient
-  backward. Every other hidden width runs the chunked kernels, in either
-  dtype, counted on their own launch counters (``fwd_h_rule_launches``,
+  tiles), also in every direction. Every other hidden width runs the
+  chunked kernels of ``csrc/egcl_allpairs.cu``, in either dtype, counted
+  on their own launch counters (``fwd_h_rule_launches``,
   ``bwd_h_rule_launches``, ``bwd_param_h_rule_launches``). There is no
   fallback: a kernel that does not build or launch raises.
 - On a CPU tensor both directions run the plain PyTorch version below,
@@ -46,21 +45,22 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # fwd_launches / bwd_launches / bwd_param_launches: K1, the input-gradient
 # K2 and K2 with parameter gradients at H = 64 or 128 (bf16: the Hopper
-# kernels; float32: the tiled f32 K1 and K2 p, the chunked K2);
-# *_h_rule_launches: either dtype at another hidden width, sent to the
-# chunked kernels by the size rule
-counts = LaunchCounts("fwd_launches", "bwd_launches", "bwd_param_launches",
-                      "fwd_h_rule_launches", "bwd_h_rule_launches",
-                      "bwd_param_h_rule_launches", "plain_fwd_calls",
-                      "plain_bwd_calls", "plain_bwd_param_calls")
+# kernels; float32: the tiled f32 K1 and K2 p); bwd_f32_launches: the tiled
+# f32 input-gradient K2 there; *_h_rule_launches: either dtype at another
+# hidden width, sent to the chunked kernels by the size rule
+counts = LaunchCounts("fwd_launches", "bwd_launches", "bwd_f32_launches",
+                      "bwd_param_launches", "fwd_h_rule_launches",
+                      "bwd_h_rule_launches", "bwd_param_h_rule_launches",
+                      "plain_fwd_calls", "plain_bwd_calls",
+                      "plain_bwd_param_calls")
 # the launch kinds of egcl_allpairs_smem_bytes, egcl_sm90_smem_bytes and
 # egcl_f32_smem_bytes
 _KIND = {"fwd": 0, "bwd": 1, "bwd_params": 2}
 # the hidden widths of the Hopper kernels (bf16) and the tiled f32 kernels
 SM90_H = (64, 128)
-# the tiled f32 kernels: rows a row tile at most (kQmaxFwd / kQmaxBwd x 8)
-# and molecules a tile at most
-F32_ROWS_MAX = {"fwd": 72, "bwd_params": 40}
+# the tiled f32 kernels: rows a row tile at most (kQmaxFwd / kQmaxBwdIn /
+# kQmaxBwd x 8) and molecules a tile at most
+F32_ROWS_MAX = {"fwd": 72, "bwd": 72, "bwd_params": 40}
 MAX_MOL_TILE = 16
 
 
@@ -256,6 +256,8 @@ def _f32_library():
         # B, N, nf, H, MT, R, blocks, inputs, outputs, stream
         lib.egcl_f32_fwd.argtypes = [_I] * 7 + [_P] * (n_in + 3)
         lib.egcl_f32_fwd.restype = _I
+        lib.egcl_f32_bwd.argtypes = [_I] * 7 + [_P] * (n_in + 5)
+        lib.egcl_f32_bwd.restype = _I
         lib.egcl_f32_bwd_params.argtypes = [_I] * 7 + [_P] * (n_in + 6)
         lib.egcl_f32_bwd_params.restype = _I
         lib.egcl_f32_smem_bytes.argtypes = [_I] * 6
@@ -286,15 +288,11 @@ def _check_inputs(h, pos, box, mask_f, weights):
 
 def kernel_for(code: int, H: int, direction: str) -> str:
     """The size rule: which kernels a launch goes to. ``"sm90"`` (bf16 at H
-    in ``SM90_H``, every direction), ``"f32"`` (float32 at H in ``SM90_H``,
-    the forward and the parameter-gradient backward) or ``"chunked"``
-    (``egcl_allpairs.cu``: the float32 input-gradient backward, and every
-    other hidden width in either dtype)."""
+    in ``SM90_H``), ``"f32"`` (float32 at H in ``SM90_H``), each in every
+    direction, or ``"chunked"`` (``egcl_allpairs.cu``: every other hidden
+    width in either dtype)."""
     if H in SM90_H:
-        if code == 1:
-            return "sm90"
-        if direction != "bwd":
-            return "f32"
+        return "sm90" if code == 1 else "f32"
     return "chunked"
 
 
@@ -436,10 +434,12 @@ def _raise_on(lib, err: int, what: str, dims, route):
                            f"= {dims})")
 
 
-def _count(direction: str, H: int):
+def _count(direction: str, H: int, route: str):
     """One launch on its counter: the size rule's own for a hidden width
-    outside ``SM90_H``."""
+    outside ``SM90_H``, the tiled f32 input-gradient K2's own."""
     name = {"fwd": "fwd", "bwd": "bwd", "bwd_params": "bwd_param"}[direction]
+    if route == "f32" and direction == "bwd":
+        name = "bwd_f32"
     name += "_launches" if H in SM90_H else "_h_rule_launches"
     setattr(counts, name, getattr(counts, name) + 1)
 
@@ -477,7 +477,7 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
             else:
                 err = lib.egcl_allpairs_fwd(code, *dims, *ptrs, *outs)
             _raise_on(lib, err, "forward", dims, route)
-            _count(direction, H)
+            _count(direction, H, route)
         return agg, fsum
     dagg = aligned(dagg.to(cdt).contiguous())
     dfsum = dfsum.to(cdt).contiguous()
@@ -488,10 +488,13 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
         if B:
             if route == "sm90":
                 err = lib.egcl_sm90_bwd(*dims, blocks, *ptrs, *outs, stream)
+            elif route == "f32":
+                err = lib.egcl_f32_bwd(*dims, mt, rows, blocks, *ptrs, *outs,
+                                       stream)
             else:
                 err = lib.egcl_allpairs_bwd(code, *dims, *ptrs, *outs, stream)
             _raise_on(lib, err, "backward", dims, route)
-            _count(direction, H)
+            _count(direction, H, route)
         return dh, dpos
     # rows of partials that the kernel fills itself: one per warpgroup (the
     # Hopper kernel; each row ends with its scratch tile) or per block
@@ -514,7 +517,7 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
             err = lib.egcl_allpairs_bwd_params(code, *dims, blocks, *ptrs,
                                                *outs, part.data_ptr(), stream)
         _raise_on(lib, err, "backward (parameter gradients)", dims, route)
-        _count(direction, H)
+        _count(direction, H, route)
     # the slices summed in a fixed order: a second launch gives the same bits
     return (dh, dpos) + _split_part(part[:, :P].sum(dim=0), nf, H)
 

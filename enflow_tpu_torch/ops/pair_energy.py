@@ -16,23 +16,96 @@ takes a flag, ``coincident``: with it and a softening > 0, a pair of
 distinct real atoms at ``d2 == 0`` inside the cutoff counts at its finite
 energy ``4(s^-12 - s^-6)`` with a zero gradient, as the JAX package's
 dense MD potential (``enflow_tpu/sim/potentials.py``) counts it. On a CUDA
-tensor it launches ``csrc/pair_energy.cu`` (float32 only;
-other dtypes raise); on a CPU tensor it runs the plain version below, in
-the tensor's own dtype. ``pair_energy`` wraps it in an autograd Function
-that saves the gradient and whose backward is ``ct * g``, with no launch.
+tensor it launches ``csrc/pair_energy.cu`` (float32 only; other dtypes
+raise) on the plan of :func:`pair_plan`; on a CPU tensor it runs the plain
+version below, in the tensor's own dtype. ``pair_energy`` wraps it in an
+autograd Function that saves the gradient and whose backward is
+``ct * g``, with no launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
-from .build import LaunchCounts
+from .build import LaunchCounts, multiprocessors
 
 FORMS = {"r2": 0, "r": 1}
 
 counts = LaunchCounts("r2_launches", "r_launches", "plain_calls")
+
+# the kernel's block (rows x column lanes) and its column stage
+THREADS = 128
+STAGE_COLS = 1024
+# molecules up to SMALL_N atoms: whole molecules a block; above, row tiles
+# of THREADS / LARGE_LANES atoms and column splits of at least
+# MIN_SPLIT_COLS columns, as many as bring the grid to BLOCKS_PER_SM blocks
+# an SM; one molecule a block until that would take more than WAVE_PER_SM
+# blocks an SM
+SMALL_N, LARGE_LANES, MIN_SPLIT_COLS = 32, 4, 128
+BLOCKS_PER_SM, WAVE_PER_SM = 8, 16
+
+
+class PairPlan(NamedTuple):
+    """A launch of ``csrc/pair_energy.cu``: ``lanes`` column lanes a row
+    (a power of two), ``mols`` molecules a block of ``tile`` rows (atoms)
+    each, ``row_tiles`` row tiles a molecule, ``splits`` column splits of
+    ``cols`` columns, ``groups`` groups of ``mols`` molecules; the grid is
+    ``groups x row_tiles x splits`` blocks, block ``(groups, row tile,
+    split)`` in row-major order. Partials: E per block ``[B, row_tiles *
+    splits]`` when that is more than 1, the gradient per split ``[B,
+    splits, N, 3]`` when ``splits > 1``; a second kernel sums them in
+    order."""
+    lanes: int
+    mols: int
+    tile: int
+    row_tiles: int
+    splits: int
+    cols: int
+    groups: int
+
+    @property
+    def blocks(self) -> int:
+        return self.groups * self.row_tiles * self.splits
+
+    @property
+    def units(self) -> int:
+        """Blocks a molecule's energy is spread over."""
+        return self.row_tiles * self.splits
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(1, x).bit_length() - 1)
+
+
+def pair_plan(B: int, N: int, n_sm: int) -> PairPlan:
+    """The kernel's plan for ``B`` molecules of ``N`` atoms on ``n_sm``
+    multiprocessors. Up to ``SMALL_N`` atoms a block holds whole molecules:
+    the most column lanes a row (at most 32, at most N rounded up to a
+    power of two) that leave a row for every atom, then as many molecules
+    as the rows take; halving the lanes (doubling the molecules a block)
+    while one molecule a block would exceed ``WAVE_PER_SM`` blocks an SM.
+    Above, row tiles of ``THREADS / LARGE_LANES`` atoms, and the columns cut
+    into as many splits as bring the grid to ``BLOCKS_PER_SM`` blocks an
+    SM, each of at least ``MIN_SPLIT_COLS`` columns."""
+    if N <= SMALL_N:
+        lanes = min(_pow2_floor(THREADS // N), 1 << (N - 1).bit_length(),
+                    32)
+        mols = lambda ln: (THREADS // ln) // N
+        while lanes > 1 and math.ceil(B / mols(lanes)) > WAVE_PER_SM * n_sm:
+            lanes //= 2
+        return PairPlan(lanes, mols(lanes), N, 1, 1, N,
+                        math.ceil(B / mols(lanes)))
+    tile = THREADS // LARGE_LANES
+    row_tiles = math.ceil(N / tile)
+    splits = max(1, min(math.ceil(BLOCKS_PER_SM * n_sm / (B * row_tiles)),
+                        N // MIN_SPLIT_COLS))
+    cols = math.ceil(N / splits)
+    return PairPlan(LARGE_LANES, 1, tile, row_tiles, math.ceil(N / cols),
+                    cols, B)
 
 
 def _pair_terms(d2, softening, form):
@@ -84,17 +157,19 @@ def _library():
     from .build import load
     lib = load("pair_energy")
     if not getattr(lib, "_enflow_bound", False):
-        # form, B, N, pos, mask, box, softening, cutoff2, coincident,
-        # e_part, grad, stream
-        lib.pair_energy.argtypes = [_I, _I, _I, _P, _P, _P, _F, _F, _I, _P,
-                                    _P, _P]
+        # form, B, N, lg lanes, mols, tile, row_tiles, splits, cols, pos,
+        # mask, box, softening, cutoff2, coincident, energy, grad, part_e,
+        # part_g, stream
+        lib.pair_energy.argtypes = ([_I] * 9 + [_P] * 3 + [_F, _F, _I]
+                                    + [_P] * 5)
         lib.pair_energy.restype = _I
-        lib.pair_energy_row_tiles.argtypes = [_I]
-        lib.pair_energy_row_tiles.restype = _I
         lib.pair_energy_error_string.argtypes = [_I]
         lib.pair_energy_error_string.restype = ctypes.c_char_p
         lib._enflow_bound = True
     return lib
+
+
+_plans: dict = {}
 
 
 def _launch(pos, mask_f, box, form, softening, cutoff, coincident):
@@ -105,28 +180,40 @@ def _launch(pos, mask_f, box, form, softening, cutoff, coincident):
                              f"on one device; {name} is {t.dtype} on "
                              f"{t.device}")
     B, N, _ = pos.shape
-    lib = _library()
-    tiles = lib.pair_energy_row_tiles(N)
-    e_part = torch.empty((B, tiles), dtype=torch.float32, device=dev)
+    energy = torch.empty(B, dtype=torch.float32, device=dev)
     grad = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
-    if B and N:
-        args = [t.contiguous() for t in (pos, mask_f, box)]
-        cutoff2 = float(cutoff) ** 2 if form == "r" else 0.0
-        err = lib.pair_energy(
-            FORMS[form], B, N, *[t.data_ptr() for t in args],
-            float(softening), cutoff2, int(bool(coincident)),
-            e_part.data_ptr(), grad.data_ptr(),
-            _P(torch.cuda.current_stream(dev).cuda_stream))
-        if err != 0:
-            msg = lib.pair_energy_error_string(err).decode()
-            raise RuntimeError(f"pair_energy kernel launch failed: {msg} "
-                               f"(error {err}; form {form}, B={B}, N={N})")
-        setattr(counts, f"{form}_launches",
-                getattr(counts, f"{form}_launches") + 1)
+    if not (B and N):
+        return energy.zero_(), grad.zero_()
+    key = (B, N, dev.index)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = pair_plan(B, N, multiprocessors(dev))
+    part_e = part_g = None
+    if plan.units > 1:
+        part_e = torch.empty(B * plan.units, dtype=torch.float32, device=dev)
+    if plan.splits > 1:
+        part_g = torch.empty(B * plan.splits * N * 3, dtype=torch.float32,
+                             device=dev)
+    pos, mask_f, box = (t.contiguous() for t in (pos, mask_f, box))
+    err = _library().pair_energy(
+        FORMS[form], B, N, plan.lanes.bit_length() - 1, plan.mols,
+        plan.tile, plan.row_tiles, plan.splits, plan.cols, pos.data_ptr(),
+        mask_f.data_ptr(), box.data_ptr(), softening,
+        float(cutoff) ** 2 if form == "r" else 0.0, int(bool(coincident)),
+        energy.data_ptr(), grad.data_ptr(),
+        None if part_e is None else part_e.data_ptr(),
+        None if part_g is None else part_g.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = _library().pair_energy_error_string(err).decode()
+        raise RuntimeError(f"pair_energy kernel launch failed: {msg} "
+                           f"(error {err}; form {form}, B={B}, N={N}, "
+                           f"{plan})")
+    if form == "r":
+        counts.r_launches += 1
     else:
-        e_part.zero_()
-        grad.zero_()
-    return (e_part[:, 0] if tiles == 1 else e_part.sum(dim=1)), grad
+        counts.r2_launches += 1
+    return energy, grad
 
 
 def pair_energy_and_grad(pos, mask_f, box, form: str, softening: float,

@@ -308,13 +308,13 @@ def test_plan_at_the_committed_shapes():
 
 
 def test_size_rule():
-    """float32 at H = 64 / 128: the tiled kernels for K1 and K2 p, the
-    chunked kernel for the input-gradient K2; bf16 there the Hopper
-    kernels; every other width the chunked kernels."""
+    """float32 at H = 64 / 128: the tiled kernels for K1, K2 and K2 p;
+    bf16 there the Hopper kernels; every other width the chunked
+    kernels."""
     for H_ in (64, 128):
         assert [ops.kernel_for(0, H_, d) for d in ("fwd", "bwd",
                                                     "bwd_params")] == [
-            "f32", "chunked", "f32"]
+            "f32", "f32", "f32"]
         assert {ops.kernel_for(1, H_, d) for d in ("fwd", "bwd",
                                                     "bwd_params")} == {"sm90"}
     assert {ops.kernel_for(c, 96, d) for c in (0, 1)
