@@ -67,6 +67,23 @@ non-zero):
    the port's driver in a temporary directory: the LJ MD dataset on the
    card, then NLL steps, each checked for the launch counts the code
    implies; then a 1-epoch rerun that resumes from the checkpoint.
+10f. generate (after train) — ``example/generate.yaml`` as committed
+   (2,944 atoms in a 100 A box, 200 FIRE + 10,000 Langevin steps, a frame
+   every 100, ``nbr_capacity: auto`` in the default dense mode, i.e. the
+   top-k format; f32, H=128 from the checkpoint) through the port's
+   driver in train's directory, from the checkpoint train wrote: the auto
+   capacity, MD and flow seconds, 10,300 K7 r and 15 K5 launches
+   (reverse, forward, reverse), no plain call, the round-trip lines True
+   True, ``h.out`` one-hot of [2944, node_nf], ``test_out.xyz``, 100 log
+   rows and 100 trajectory models. A capacity check that refuses a later
+   frame is answered by one rerun with the recommended capacity, said on
+   the phase's line. Then the first frame reversed again in ``cell`` mode
+   (auto cells): the neighbour sets equal the top-k build's, the
+   positions within the f32 ``TOL_EDGE``.
+10g. dataset — ``mode: dataset`` on generate.yaml's dataset section with
+   n_iter cut to 1,000 (node_nf, temp and softening as generate injects
+   them): the processed cache, the log and the trajectory written; a
+   second run reads the cache back.
 10b. lj55 — the LJ55 pipeline: (a) ``example/sample_lj55.yaml`` as
    committed (1024 particles, 16 temperatures in segments of 8 with a
    stage checkpoint every 8, a fresh shift flow, bf16: K1 and the
@@ -104,9 +121,11 @@ non-zero):
    C=3, H=128), a ragged one (A=1000, K=40, C=11, masked slots and atoms),
    one whose gate hits the clip bounds exactly, one whose row tiles end in
    padding (K=13), and at H=64 (the tiled kernels) and H=96 (the chunked
-   kernels, by the wrapper's size rule), each in bf16 and f32; a second K6
-   launch must give the same bits. Timed as in phase 3 at the first two
-   shapes, and as device time per launch.
+   kernels, by the wrapper's size rule), each in bf16 and f32, and in f32
+   at generate.yaml's shape (A=2,944, K = phase generate's auto capacity,
+   C=3, H=128, the share of valid slots it saw); a second K5 and K6 launch
+   must give the same bits. Timed as in phase 3 at main, ragged and
+   generate, and as device time per launch.
 
 ``python3 chip_smoke.py --ab OLD.cu`` runs phases 1-2 and then times the
 kernels built from OLD.cu against the current ones, alternating old,
@@ -132,7 +151,9 @@ place of the rest, one warm-up and one SMC run of phase 7 under
 and the device's busy time and idle share of that traced run's wall time
 (which includes the tracing's own cost); the full table goes to FILE when
 one is given. ``--profile-vi [FILE]`` and ``--profile-train [FILE]`` do
-the same for one epoch of phase 8 or 10 after a warm-up epoch.
+the same for one epoch of phase 8 or 10 after a warm-up epoch, and
+``--profile-generate [FILE]`` for generate.yaml's flow (reverse, forward,
+reverse) and its MD cut to 1,000 steps.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
@@ -629,7 +650,7 @@ EDGE_SHAPES = {
     "h64": dict(A=500, K=24, C=3, H=64, masked=0.2),
     "h96": dict(A=200, K=16, C=3, H=96, masked=0.2),
 }
-EDGE_TIMED = ("main", "ragged")
+EDGE_TIMED = ("main", "ragged", "generate")
 EDGE_OUT = ("agg", "F_sum", "de", "dcd", "dW1", "db1", "dW2", "db2", "dW3",
             "db3", "dw4")
 # K7 shapes: the NLL term of a training batch, the MD potential of the
@@ -697,13 +718,16 @@ def gathered_inputs(shape, dtype, seed):
             em.cuda())
 
 
-def edge_work(shape, dtype_name):
+def edge_work(shape, dtype_name, valid):
     """(fwd FLOP, bwd FLOP, fwd bytes, bwd bytes) of K5/K6 on these rows.
-    FLOP per row: the products at 2 per multiply-add (forward e W1, m1 W2,
-    m W3 and the gate 2CH + 4H^2 + 2H; backward that recompute plus dW1,
-    de, dW2, dm1, dW3, dm_gate and dw4/dg1, 4CH + 8H^2 + 4H), and about 4
-    operations per SiLU and 8 per SiLU derivative; the K-sums at one add
-    per element. Bytes: each input read once, each output written once."""
+    FLOP per valid row (``valid`` of the A*K slots; a masked slot adds
+    nothing to either output, so the function needs none of its work):
+    the products at 2 per multiply-add (forward e W1, m1 W2, m W3 and the
+    gate 2CH + 4H^2 + 2H; backward that recompute plus dW1, de, dW2, dm1,
+    dW3, dm_gate and dw4/dg1, 4CH + 8H^2 + 4H), and about 4 operations
+    per SiLU and 8 per SiLU derivative; the K-sums at one add per element.
+    Bytes: each input read once (every slot and its mask), each output
+    written once."""
     A, K, C, H = shape["A"], shape["K"], shape["C"], shape["H"]
     rows = A * K
     fwd_row = 2 * C * H + 4 * H * H + 2 * H + 3 * 4 * H
@@ -713,31 +737,41 @@ def edge_work(shape, dtype_name):
     ins = s * rows * (C + 3 + 1) + w
     fwd_b = ins + s * A * (H + 3)
     bwd_b = ins + s * A * (H + 3) + s * rows * (C + 3) + w
-    return (rows * fwd_row + rows * (H + 3), rows * bwd_row, fwd_b, bwd_b)
+    return (valid * (fwd_row + H + 3), valid * bwd_row, fwd_b, bwd_b)
 
 
-def edge_kernel_phase(main_K=None):
+def edge_kernel_phase(main_K=None, generate=None):
     """K5/K6 against their plain version at EDGE_SHAPES, bf16 and f32;
-    ``main_K`` sets the main shape's slot count. A
-    second K6 launch must give the same bits; K5/K6 at EDGE_TIMED timed with
-    CUDA events and as device time per launch."""
+    ``main_K`` sets the main shape's slot count, and ``generate`` (A, K,
+    C, H and the share of valid slots that phase generate saw) adds
+    generate.yaml's shape in f32. A second K5 and K6 launch must give the
+    same bits; K5/K6 at EDGE_TIMED timed with CUDA events and as device
+    time per launch."""
     import torch
     from enflow_tpu_torch.ops import edge_pipeline as ep
 
+    shapes = dict(EDGE_SHAPES)
+    if generate:
+        shapes["generate"] = dict(
+            A=generate["A"], K=generate["capacity"], C=generate["C"],
+            H=generate["H"], masked=1.0 - generate["valid"],
+            dtypes=("float32",))
     record = {}
-    for sname, shape in EDGE_SHAPES.items():
+    for sname, shape in shapes.items():
         if sname == "main" and main_K:
             shape = dict(shape, K=main_K)
         for dname, dtype in (("bfloat16", torch.bfloat16),
                              ("float32", torch.float32)):
-            e, cd, em, W, dagg, dfs, _ = gathered_inputs(shape, dtype,
-                                                          seed=13)
+            if dname not in shape.get("dtypes", (dname,)):
+                continue
+            e, cd, em, W, dagg, dfs, valid = gathered_inputs(shape, dtype,
+                                                              seed=13)
             kind = ep.kernel_for(dtype, shape["H"])
             before = ep.counts.bwd_launches
             fwd = lambda: ep.edge_pipeline_fwd(e, cd, em, W)
             bwd = lambda: ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs)
             k = fwd() + bwd()
-            again = bwd()
+            again = fwd() + bwd()
             p = (ep.edge_pipeline_plain(e, cd, em, *W)
                  + ep.edge_pipeline_plain_bwd(e, cd, em, *W, dagg, dfs))
             torch.cuda.synchronize()
@@ -745,16 +779,16 @@ def edge_kernel_phase(main_K=None):
             errs = rel_errs(EDGE_OUT, k, p)
             tol = TOL_EDGE[dname]
             ok = all(rel <= tol for _, rel in errs.values())
-            same = all(torch.equal(x, y) for x, y in zip(k[2:], again))
+            same = all(torch.equal(x, y) for x, y in zip(k, again))
             phase("edge", f"{sname} {dname} A={shape['A']} K={shape['K']} "
                   f"C={shape['C']} H={shape['H']} ({kind}) max_abs/rel err: "
                   + "  ".join(f"{n} {a:.2e}/{r:.1e}"
                               for n, (a, r) in errs.items())
-                  + f"  tol {tol:g} -> {'ok' if ok else 'FAIL'}; second K6 "
-                  f"launch {'bitwise equal' if same else 'DIFFERS'}")
+                  + f"  tol {tol:g} -> {'ok' if ok else 'FAIL'}; second K5 "
+                  f"and K6 launch {'bitwise equal' if same else 'DIFFER'}")
             require(ok, f"edge kernel disagrees with plain ({sname}, "
                     f"{dname})")
-            require(same, f"a second K6 launch gave other bits ({sname}, "
+            require(same, f"a second K5/K6 launch gave other bits ({sname}, "
                     f"{dname})")
             if sname not in EDGE_TIMED:
                 continue
@@ -765,7 +799,8 @@ def edge_kernel_phase(main_K=None):
                 e, cd, em, *W), reps=20, calls=5)
             t_pb = cuda_time_ms(lambda: ep.edge_pipeline_plain_bwd(
                 e, cd, em, *W, dagg, dfs), reps=20, calls=5)
-            fl_f, fl_b, by_f, by_b = edge_work(shape, dname)
+            fl_f, fl_b, by_f, by_b = edge_work(shape, dname,
+                                               int(valid.sum()))
             b_f = bound(fl_f, by_f, PEAK_FLOPS[dname])
             b_b = bound(fl_b, by_b, PEAK_FLOPS[dname])
             phase("edge", f"{sname} {dname} time ms: fwd kernel {t_kf:.4f} "
@@ -1436,7 +1471,6 @@ def pair_ab_phase(card, old_lib):
     import ctypes
     import os
     import torch
-    from enflow_tpu_torch.data.simulated import SimulatedDataset
     from enflow_tpu_torch.ops import build
     from enflow_tpu_torch.ops import pair_energy as pe
 
@@ -1479,7 +1513,6 @@ def pair_ab_phase(card, old_lib):
                         pe.pair_energy_plain(*a), pe.pair_plan(
                             shape["B"], shape["N"],
                             build.multiprocessors(pos.device)))
-    process = SimulatedDataset.process
     cwd, rows = os.getcwd(), []
     try:
         for which in ("old", "new", "new", "old", "old", "new"):
@@ -1496,28 +1529,18 @@ def pair_ab_phase(card, old_lib):
                                      sum(pair_device_ms(call, plan)))
                 line.append(f"{sname} {t[sname]:.4f} ms (device "
                             f"{t[sname + ' dev']:.4f})")
-            md = []
-
-            def timed_process(self, *a, **k):
-                t0 = time.perf_counter()
-                process(self, *a, **k)
-                torch.cuda.synchronize()
-                md.append(time.perf_counter() - t0)
-            with tempfile.TemporaryDirectory() as tmp:
-                SimulatedDataset.process = timed_process
+            with tempfile.TemporaryDirectory() as tmp, timed_md() as md:
                 pe.counts.reset()
                 train_driver(tmp, 1)
-                SimulatedDataset.process = process
                 os.chdir(cwd)
-            require(pe.counts.r_launches == 4300 and len(md) == 1,
+            require(pe.counts.r_launches == 4300 and len(md.seconds) == 1,
                     f"{which}: MD launches {pe.counts.r_launches}")
-            t["md"] = md[0]
+            t["md"] = md.seconds[0]
             rows.append((which, t))
             phase("ab", f"{which} on {card}: K7 " + "; ".join(line)
                   + f"; train.yaml MD {t['md']:.4f} s (4,300 form-r calls)")
     finally:
         use("new")
-        SimulatedDataset.process = process
         os.chdir(cwd)
     for key in rows[0][1]:
         pick = lambda which: statistics.median(
@@ -1615,6 +1638,49 @@ def profile_train(card, out_file=None):
                     out_file)
 
 
+def profile_generate(card, out_file=None):
+    """generate.yaml's flow (``Main.generate``: reverse, forward, reverse)
+    after a warm-up one, from the checkpoint of a 1-epoch train.yaml run;
+    then its MD cut to DATASET_STEPS steps (``mode: dataset``, no outputs)
+    after a warm-up run. The MD's table goes to ``FILE.md``."""
+    import contextlib
+    import io
+    import os
+    import yaml
+    from enflow_tpu_torch.train.driver import Main
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            train_driver(tmp, 1).train()
+            src = ROOT / "example" / "generate.yaml"
+            main, _ = generate_setup(src)
+
+            def flow():
+                with contextlib.redirect_stdout(io.StringIO()):
+                    main.generate()
+            profile_run("generate.yaml flow (reverse, forward, reverse; "
+                        f"K = {main.flow_cfg.nbr_capacity})", flow, flow,
+                        card, out_file)
+            cfg = yaml.safe_load(src.read_text())
+            cfg["mode"] = "dataset"
+            for k in ("log", "traj"):
+                cfg["dataset"].pop(k)
+            cfg["dataset"].update(
+                n_iter=DATASET_STEPS, node_nf=main.node_nf,
+                temp=main.args["dataset"]["temp"], softening=main.softening)
+            Path("md.yaml").write_text(yaml.safe_dump(cfg))
+
+            def md():
+                with contextlib.redirect_stdout(io.StringIO()):
+                    Main(device="cuda")("md.yaml")
+            profile_run(f"generate.yaml's MD cut to {DATASET_STEPS} steps "
+                        "(+ 200 FIRE steps)", md, md, card,
+                        f"{out_file}.md" if out_file else None)
+        finally:
+            os.chdir(cwd)
+
+
 TRAIN_STEPS_PER_EPOCH = 4          # 91 frames in batches of 30
 
 
@@ -1643,100 +1709,84 @@ def reset_counts():
         mod.counts.reset()
 
 
-def train_phase(card):
+def train_phase(card, tmp):
     """The training path: ``example/train.yaml`` through the port's driver
-    for 3 epochs (the LJ MD dataset simulated on the card, then NLL steps),
-    then a rerun of 1 epoch that resumes from the checkpoint."""
+    for 3 epochs in the working directory ``tmp`` (the LJ MD dataset
+    simulated on the card, then NLL steps), then a rerun of 1 epoch that
+    resumes from the checkpoint, which phase generate then reads."""
     import os
     import torch
-    from enflow_tpu_torch.nn import egcl
     from enflow_tpu_torch.ops import edge_pipeline as ep
-    from enflow_tpu_torch.ops import egcl_allpairs as ea
     from enflow_tpu_torch.ops import pair_energy as pe
 
-    from enflow_tpu_torch.data.simulated import SimulatedDataset
-
     cwd = os.getcwd()
-    md_s = []
-    process = SimulatedDataset.process
-
-    def timed_process(self, *a, **k):
-        t = time.perf_counter()
-        process(self, *a, **k)
+    try:
+        reset_counts()
         torch.cuda.synchronize()
-        md_s.append(time.perf_counter() - t)
-
-    with tempfile.TemporaryDirectory() as tmp:
-        try:
-            SimulatedDataset.process = timed_process
-            reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+        t0 = time.perf_counter()
+        with timed_md() as timed_run:
             main = train_driver(tmp, 3)
-            torch.cuda.synchronize()
-            setup_s = time.perf_counter() - t0
-            SimulatedDataset.process = process
-            md = (pe.counts.r_launches, pe.counts.r2_launches,
-                  pe.counts.plain_calls)
-            n_frames, cap = len(main.dataset), main.flow_cfg.nbr_capacity
-            # the MD: 200 FIRE steps + 4000 Langevin steps, one form-r
-            # launch each (energy and gradient from one pass), and one per
-            # captured frame's energy (4000 / 40 = 100 frames)
-            require(md == (200 + 4000 + 100, 0, 0),
-                    f"dataset pair-energy launches (r, r2, plain) {md} != "
-                    f"(4300, 0, 0)")
-            require(n_frames == 91, f"{n_frames} frames, expected 91")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        md_s = timed_run.seconds
+        md = (pe.counts.r_launches, pe.counts.r2_launches,
+              pe.counts.plain_calls)
+        n_frames, cap = len(main.dataset), main.flow_cfg.nbr_capacity
+        # the MD: 200 FIRE steps + 4000 Langevin steps, one form-r
+        # launch each (energy and gradient from one pass), and one per
+        # captured frame's energy (4000 / 40 = 100 frames)
+        require(md == (200 + 4000 + 100, 0, 0),
+                f"dataset pair-energy launches (r, r2, plain) {md} != "
+                f"(4300, 0, 0)")
+        require(n_frames == 91, f"{n_frames} frames, expected 91")
 
-            step_s, losses = [], []
-            inner = main.train_step
+        step_s, losses = [], []
+        inner = main.train_step
 
-            def timed(batch, gen):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                loss, ovf = inner(batch, gen)
-                losses.append(float(loss))          # synchronizes
-                step_s.append(time.perf_counter() - t)
-                return loss, ovf
-            main.train_step = timed
-            reset_counts()
-            main.train()
+        def timed(batch, gen):
             torch.cuda.synchronize()
-            n_steps = len(step_s)
-            launches = dict(k5=ep.counts.fwd_launches,
-                            k6=ep.counts.bwd_launches,
-                            k7_r2=pe.counts.r2_launches,
-                            k7_r=pe.counts.r_launches)
-            plain = (ep.counts.plain_fwd_calls + ep.counts.plain_bwd_calls
-                     + pe.counts.plain_calls + ea.counts.plain_fwd_calls
-                     + ea.counts.plain_bwd_calls + egcl.counts.plain_calls)
-            # per train step: one gathered-edge forward (K5) and backward
-            # (K6) per flow step (5), and one NLL pair term (K7 r2; its
-            # backward is ct * g, no launch)
-            want = dict(k5=5 * n_steps, k6=5 * n_steps, k7_r2=n_steps,
-                        k7_r=0)
-            require(n_steps == 3 * TRAIN_STEPS_PER_EPOCH,
-                    f"{n_steps} train steps, expected 12")
-            require(launches == want, f"train launches {launches} != {want}")
-            require(plain == 0, "a plain version ran on the training path")
-            require(all(math.isfinite(x) for x in losses),
-                    f"non-finite losses {losses}")
-            require(Path("model.cpt").exists(), "no checkpoint written")
-            require(Path("data/lj13/processed.torch.npz").exists(),
-                    "no processed dataset written")
+            t = time.perf_counter()
+            loss, ovf = inner(batch, gen)
+            losses.append(float(loss))          # synchronizes
+            step_s.append(time.perf_counter() - t)
+            return loss, ovf
+        main.train_step = timed
+        reset_counts()
+        main.train()
+        torch.cuda.synchronize()
+        n_steps = len(step_s)
+        launches = dict(k5=ep.counts.fwd_launches,
+                        k6=ep.counts.bwd_launches,
+                        k7_r2=pe.counts.r2_launches,
+                        k7_r=pe.counts.r_launches)
+        plain = plain_calls()
+        # per train step: one gathered-edge forward (K5) and backward
+        # (K6) per flow step (5), and one NLL pair term (K7 r2; its
+        # backward is ct * g, no launch)
+        want = dict(k5=5 * n_steps, k6=5 * n_steps, k7_r2=n_steps,
+                    k7_r=0)
+        require(n_steps == 3 * TRAIN_STEPS_PER_EPOCH,
+                f"{n_steps} train steps, expected 12")
+        require(launches == want, f"train launches {launches} != {want}")
+        require(plain == 0, "a plain version ran on the training path")
+        require(all(math.isfinite(x) for x in losses),
+                f"non-finite losses {losses}")
+        require(Path("model.cpt").exists(), "no checkpoint written")
+        require(Path("data/lj13/processed.torch.npz").exists(),
+                "no processed dataset written")
 
-            reset_counts()
-            again = train_driver(tmp, 1)
-            require(again.start_epoch == 3 and pe.counts.r_launches == 0,
-                    f"rerun did not resume at epoch 3 from the stored "
-                    f"dataset (start {again.start_epoch}, "
-                    f"{pe.counts.r_launches} MD launches)")
-            again.train()
-            torch.cuda.synchronize()
-            require(ep.counts.fwd_launches == 5 * TRAIN_STEPS_PER_EPOCH,
-                    "the resumed epoch did not run through the kernel")
-        finally:
-            SimulatedDataset.process = process
-            os.chdir(cwd)
+        reset_counts()
+        again = train_driver(tmp, 1)
+        require(again.start_epoch == 3 and pe.counts.r_launches == 0,
+                f"rerun did not resume at epoch 3 from the stored "
+                f"dataset (start {again.start_epoch}, "
+                f"{pe.counts.r_launches} MD launches)")
+        again.train()
+        torch.cuda.synchronize()
+        require(ep.counts.fwd_launches == 5 * TRAIN_STEPS_PER_EPOCH,
+                "the resumed epoch did not run through the kernel")
+    finally:
+        os.chdir(cwd)
     later = step_s[TRAIN_STEPS_PER_EPOCH:]
     per_epoch = [sum(later[i:i + TRAIN_STEPS_PER_EPOCH])
                  for i in range(0, len(later), TRAIN_STEPS_PER_EPOCH)]
@@ -1751,6 +1801,301 @@ def train_phase(card):
           f"{launches['k7_r2']}, plain calls 0; rerun resumed at epoch 3")
     return dict(md_launches=md[0], md_s=md_s[0], s_step=s_step,
                 mol_s=mol_s, capacity=cap, **launches)
+
+
+# generate.yaml's MD: 200 FIRE steps and 10,000 Langevin steps, one K7 r
+# launch each, and one per captured frame's energy (10,000 / 100 frames)
+GEN_FRAMES = 10000 // 100
+GEN_MD_LAUNCHES = 200 + 10000 + GEN_FRAMES
+# mode dataset: generate.yaml's dataset section with n_iter cut to 1,000
+DATASET_STEPS = 1000
+
+
+class timed_md:
+    """Within the block, each simulated dataset's MD (FIRE, thermalization
+    and the Langevin loop, host clock after a synchronize) is timed into
+    the list ``seconds``, and its whole ``process`` (the MD plus the
+    frames' copy to the host, the log and the trajectory) into
+    ``process_seconds``."""
+
+    def __enter__(self):
+        import torch
+        from enflow_tpu_torch.data.simulated import SimulatedDataset
+        from enflow_tpu_torch.sim import integrate
+        self.seconds, self.process_seconds = [], []
+        self.saved = [(SimulatedDataset, "process",
+                       SimulatedDataset.process)] + [
+            (integrate, n, getattr(integrate, n))
+            for n in ("minimize_fire", "thermalize", "simulate")]
+
+        def clocked(fn, first, into):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+                if first:
+                    into.append(0.0)
+                into[-1] += dt
+                return out
+            return run
+
+        for (mod, name, fn), first in zip(self.saved[1:],
+                                          (True, False, False)):
+            setattr(mod, name, clocked(fn, first, self.seconds))
+        SimulatedDataset.process = clocked(self.saved[0][2], True,
+                                           self.process_seconds)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def plain_calls():
+    """Calls of any plain version since the counts were reset."""
+    from enflow_tpu_torch.nn import egcl
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    from enflow_tpu_torch.ops import egcl_allpairs as ea
+    from enflow_tpu_torch.ops import pair_energy as pe
+    return (ep.counts.plain_fwd_calls + ep.counts.plain_bwd_calls
+            + pe.counts.plain_calls + ea.counts.plain_fwd_calls
+            + ea.counts.plain_bwd_calls + ea.counts.plain_bwd_param_calls
+            + egcl.counts.plain_calls)
+
+
+def generate_setup(path):
+    """``Main.setup`` of the port's driver on ``path`` (its MD lines kept
+    off the smoke test's output). A capacity check that refuses a later
+    frame (``nbr_capacity: auto`` sizes from frame 0 only) is answered by
+    one rerun with the capacity its error recommends: ``(main, note)``."""
+    import contextlib
+    import io
+    import re
+    import yaml
+    from enflow_tpu_torch.train.driver import Main
+
+    main = Main(device="cuda")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            main.setup(str(path))
+        return main, ""
+    except ValueError as e:
+        rec = re.search(r"Recommended dynamics\.nbr_capacity >= (\d+)",
+                        str(e))
+        if rec is None:
+            raise
+        cfg = yaml.safe_load(Path(path).read_text())
+        cfg["dynamics"]["nbr_capacity"] = int(rec.group(1))
+        again = Path("generate_recommended.yaml")
+        again.write_text(yaml.safe_dump(cfg))
+        reset_counts()
+        main = Main(device="cuda")
+        with contextlib.redirect_stdout(io.StringIO()):
+            main.setup(str(again))
+        return main, (f" (the capacity check refused auto: {e}; rerun with "
+                      f"the recommended nbr_capacity {rec.group(1)})")
+
+
+def neighbor_sets(cfg, sys):
+    """Each atom's valid neighbor indices in ``cfg``'s neighbor mode,
+    sorted (``N`` for an empty slot), and the share of valid slots."""
+    import torch
+    from enflow_tpu_torch.data.neighbors import neighbors_with_diffs
+    nbrs, _ = neighbors_with_diffs(sys.pos, sys.box, sys.mask, sys.r_cut,
+                                   cfg.nbr_capacity, cfg.nbr_mode,
+                                   cfg.cells_per_dim, cfg.cell_capacity)
+    n = sys.pos.shape[1]
+    idx = torch.where(nbrs.mask, nbrs.idx.long(), n)
+    return idx.sort(dim=-1).values, float(nbrs.mask.float().mean())
+
+
+def generate_phase(card, tmp):
+    """``example/generate.yaml`` as committed through the port's driver in
+    the working directory ``tmp``, from the checkpoint phase train wrote
+    there: the MD of 2,944 atoms (K7 r), ``nbr_capacity: auto``, the
+    capacity check, the flow's reverse, forward and reverse (K5 at A =
+    2,944), ``h.out``, ``test_out.xyz``, the log and the trajectory; then
+    the first frame reversed again in ``cell`` mode (auto cells)."""
+    import contextlib
+    import dataclasses
+    import io
+    import os
+    import numpy as np
+    import torch
+    import yaml
+    from enflow_tpu_torch.flow import reverse
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    from enflow_tpu_torch.ops import pair_energy as pe
+
+    src = ROOT / "example" / "generate.yaml"
+    sec = yaml.safe_load(src.read_text())["dataset"]
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        reset_counts()
+        with timed_md() as md:
+            main, note = generate_setup(src)
+        md_launches = (pe.counts.r_launches, pe.counts.r2_launches,
+                       plain_calls())
+        require(md_launches == (GEN_MD_LAUNCHES, 0, 0),
+                f"generate MD launches (K7 r, r2, plain) {md_launches} != "
+                f"({GEN_MD_LAUNCHES}, 0, 0)")
+        cfg, n_iter = main.flow_cfg, main.flow_cfg.n_iter
+        A, nf = int(sec["n_atoms"]), main.node_nf
+        require(len(main.dataset) == GEN_FRAMES,
+                f"{len(main.dataset)} frames, expected {GEN_FRAMES}")
+        require(cfg.nbr_mode == "dense" and cfg.nbr_capacity < A,
+                f"generate runs {cfg.nbr_mode} with capacity "
+                f"{cfg.nbr_capacity}, not the top-k format")
+
+        reset_counts()
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            out = main.generate()
+        torch.cuda.synchronize()
+        flow_s = time.perf_counter() - t0
+        k5, k6 = ep.counts.fwd_launches, ep.counts.bwd_launches
+        lines = printed.getvalue().split()
+        require(lines == ["True", "True"],
+                f"round trip reverse(forward(out)) == out printed {lines}")
+        require((k5, k6) == (3 * n_iter, 0),
+                f"generate K5/K6 launches {(k5, k6)} != ({3 * n_iter}, 0)")
+        require(plain_calls() == 0, "a plain version ran in generate")
+        h = np.loadtxt("h.out", ndmin=2)
+        require(h.shape == (A, nf) and set(np.unique(h)) <= {0.0, 1.0}
+                and (h.sum(1) == 1).all(),
+                f"h.out of shape {h.shape}, not one-hot [{A}, {nf}]")
+        xyz = Path("test_out.xyz").read_text().splitlines()
+        require(int(xyz[0]) == A and len(xyz) == A + 2,
+                f"test_out.xyz holds {len(xyz) - 2} atoms, expected {A}")
+        log = Path(sec["log"]).read_text().splitlines()
+        traj = Path(sec["traj"]).read_text()
+        require(len(log) == GEN_FRAMES + 1,
+                f"{len(log) - 1} log rows, expected {GEN_FRAMES}")
+        # the thermostat's mean temperature over the log's second half
+        # against the dataset's (the checkpoint's) within 20%
+        temps = [float(row.split(",")[2]) for row in log[1:]]
+        t_mean = statistics.mean(temps[GEN_FRAMES // 2:])
+        t_want = float(main.args["dataset"]["temp"])
+        require(abs(t_mean / t_want - 1.0) < 0.2,
+                f"MD mean temperature {t_mean:.2f} K, the thermostat's "
+                f"{t_want:.2f} K")
+        require(traj.count("MODEL ") == GEN_FRAMES
+                and traj.count("\nATOM  ") == GEN_FRAMES * A,
+                f"{traj.count('MODEL ')} trajectory models, expected "
+                f"{GEN_FRAMES}")
+
+        # cell mode on the first frame: the neighbour sets of the top-k
+        # build, and the reverse within the edge kernels' f32 tolerance
+        batch = next(iter(main.train_loader))
+        cell_cfg = dataclasses.replace(
+            cfg, nbr_mode="cell", **main._cell_params({"nbr_mode": "cell"}))
+        topk_sets, valid = neighbor_sets(cfg, batch)
+        cell_sets, _ = neighbor_sets(cell_cfg, batch)
+        same_sets = torch.equal(topk_sets, cell_sets)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            cell_out = reverse(main.params, cell_cfg, batch)
+        torch.cuda.synchronize()
+        cell_s = time.perf_counter() - t0
+        k5_cell = ep.counts.fwd_launches
+        dpos = float((cell_out.pos - out.pos).abs().max())
+        same_h = torch.equal(cell_out.h, out.h)
+        tol = TOL_EDGE["float32"]
+        require(same_sets, "cell-mode neighbour sets differ from top-k's")
+        require(k5_cell == n_iter and plain_calls() == 0,
+                f"the cell-mode reverse made {k5_cell} K5 launches")
+        require(dpos <= tol and same_h,
+                f"cell-mode reverse differs from top-k's: max |dpos| "
+                f"{dpos:.3e} (tol {tol:g}), h equal {same_h}")
+    finally:
+        os.chdir(cwd)
+    phase("generate", f"generate.yaml on {card}: {A} atoms, auto capacity "
+          f"{cfg.nbr_capacity}{note}; MD {md.seconds[0]:.4f} s "
+          f"({md_launches[0]} K7 r launches, {GEN_FRAMES} frames; with "
+          f"the frames' copy, the log and the traj "
+          f"{md.process_seconds[0]:.4f} s); flow "
+          f"{flow_s:.4f} s (reverse, forward, reverse: {k5} K5 launches, "
+          f"0 plain calls); round trip True True; h.out {list(h.shape)} "
+          f"one-hot; test_out.xyz {A} atoms; log {len(log) - 1} rows "
+          f"(mean temperature of the second half {t_mean:.2f} K, the "
+          f"thermostat's {t_want:.2f} K), traj {GEN_FRAMES} models; "
+          f"{valid:.3f} of the slots valid")
+    phase("generate", f"cell mode (cells_per_dim {cell_cfg.cells_per_dim}, "
+          f"cell_capacity {cell_cfg.cell_capacity}) on the first frame: "
+          f"neighbour sets equal top-k's: {same_sets}; reverse {cell_s:.4f}"
+          f" s ({k5_cell} K5 launches), max |pos - top-k pos| {dpos:.3e} "
+          f"(tol {tol:g}), h equal: {same_h}")
+    return dict(capacity=cfg.nbr_capacity, C=2 * nf + 1,
+                H=main.hidden_nf, A=A, valid=valid, k5=k5,
+                k7_r=md_launches[0], md_s=md.seconds[0],
+                process_s=md.process_seconds[0], flow_s=flow_s,
+                nf=nf, temp=main.args["dataset"]["temp"],
+                softening=main.softening)
+
+
+def dataset_phase(card, tmp, gen):
+    """``mode: dataset`` on generate.yaml's dataset section with n_iter
+    cut to DATASET_STEPS and the facts generate injects from the checkpoint
+    (node_nf, temp, softening) written in, plus a processed_file, a log and
+    a traj: the MD on the card writes all three; a second run reads the
+    cache back and simulates nothing."""
+    import contextlib
+    import io
+    import os
+    import numpy as np
+    import yaml
+    from enflow_tpu_torch.ops import pair_energy as pe
+    from enflow_tpu_torch.train.driver import Main
+
+    cfg = yaml.safe_load((ROOT / "example" / "generate.yaml").read_text())
+    cfg["mode"] = "dataset"
+    sec = cfg["dataset"]
+    sec.update(n_iter=DATASET_STEPS, node_nf=gen["nf"], temp=gen["temp"],
+               softening=gen["softening"],
+               processed_file="data/lj_dataset/processed.pkl",
+               log="data/lj_dataset/log.txt", traj="data/lj_dataset/traj.pdb")
+    frames = DATASET_STEPS // int(sec["interval"])
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        Path("dataset.yaml").write_text(yaml.safe_dump(cfg))
+        reset_counts()
+        with timed_md() as md, contextlib.redirect_stdout(io.StringIO()):
+            ds = Main(device="cuda")("dataset.yaml")
+        launches = pe.counts.r_launches
+        want = 200 + DATASET_STEPS + frames
+        require(launches == want and plain_calls() == 0,
+                f"dataset MD launches {launches} != {want}")
+        log = Path(sec["log"]).read_text().splitlines()
+        traj = Path(sec["traj"]).read_text()
+        cache = Path("data/lj_dataset/processed.torch.npz")
+        require(len(ds) == frames and len(log) == frames + 1
+                and traj.count("MODEL ") == frames and cache.exists(),
+                f"dataset: {len(ds)} frames, {len(log) - 1} log rows, "
+                f"{traj.count('MODEL ')} models, cache {cache.exists()}")
+        reset_counts()
+        again = Main(device="cuda")("dataset.yaml")
+        same = all(np.array_equal(a.pos, b.pos) and np.array_equal(a.h, b.h)
+                   for a, b in zip(again.samples, ds.samples))
+        require(pe.counts.r_launches == 0 and same and len(again) == frames,
+                "the second dataset run did not read the cache back")
+    finally:
+        os.chdir(cwd)
+    phase("dataset", f"mode dataset on {card} (generate.yaml's dataset, "
+          f"n_iter {DATASET_STEPS}, node_nf/temp/softening of the "
+          f"checkpoint): MD {md.seconds[0]:.4f} s ({launches} K7 r "
+          f"launches; with the frames' copy, the log and the traj "
+          f"{md.process_seconds[0]:.4f} s), {frames} frames; "
+          f"processed_file, log ({frames} rows)"
+          f" and traj ({frames} models) written; a second run read the "
+          f"cache (0 launches, the same samples)")
 
 
 # The VI phase's cuts of example/vi_lj13.yaml (100 epochs x 100 steps):
@@ -1800,16 +2145,10 @@ def time_vi_steps(main):
 
 
 def vi_launches():
-    from enflow_tpu_torch.nn import egcl
-    from enflow_tpu_torch.ops import edge_pipeline as ep
     from enflow_tpu_torch.ops import egcl_allpairs as ea
-    from enflow_tpu_torch.ops import pair_energy as pe
     c = ea.counts
-    plain = (c.plain_fwd_calls + c.plain_bwd_calls + c.plain_bwd_param_calls
-             + ep.counts.plain_fwd_calls + ep.counts.plain_bwd_calls
-             + pe.counts.plain_calls + egcl.counts.plain_calls)
     return dict(k1=c.fwd_launches, k2=c.bwd_launches + c.bwd_f32_launches,
-                k2_params=c.bwd_param_launches, plain=plain)
+                k2_params=c.bwd_param_launches, plain=plain_calls())
 
 
 def vi_phase(card):
@@ -2497,6 +2836,10 @@ def main():
     ap.add_argument("--profile-train", nargs="?", const="", default=None,
                     metavar="FILE", help="profile one train.yaml epoch "
                     "instead of the phases after the build")
+    ap.add_argument("--profile-generate", nargs="?", const="", default=None,
+                    metavar="FILE", help="profile generate.yaml's flow and "
+                    "its MD cut to 1,000 steps instead of the phases after "
+                    "the build")
     ap.add_argument("--profile-vi", nargs="?", const="", default=None,
                     metavar="FILE", help="profile one vi_lj13.yaml epoch "
                     "instead of the phases after the build")
@@ -2538,6 +2881,9 @@ def main():
     if args.profile_vi is not None:
         profile_vi(card, table(args.profile_vi))
         return 0
+    if args.profile_generate is not None:
+        profile_generate(card, table(args.profile_generate))
+        return 0
     def timed(name, fn, *a):
         t = time.perf_counter()
         out = fn(*a)
@@ -2556,10 +2902,14 @@ def main():
     timed("fluid", fluid_phase, card)
     dw4 = timed("dw4", dw4_phase, card)
     timed("ala2", ala2_phase)
-    tr = timed("train", train_phase, card)
-    # K5/K6 at the training path's shape: its slot count is the auto
-    # capacity that the train phase's dataset gave
-    erec = timed("edge", edge_kernel_phase, tr["capacity"])
+    # generate reads the checkpoint that train writes, in the same cwd
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = timed("train", train_phase, card, tmp)
+        gen = timed("generate", generate_phase, card, tmp)
+        timed("dataset", dataset_phase, card, tmp, gen)
+    # K5/K6 at the training path's shape (its slot count the auto capacity
+    # that the train phase's dataset gave) and K5 at generate's
+    erec = timed("edge", edge_kernel_phase, tr["capacity"], gen)
 
     m = rec[("main", "bfloat16")]
     q = qrec[("vi", "bfloat16")]
@@ -2599,11 +2949,19 @@ def main():
                                  "egcl_allpairs_f32.cu", f"{v3}:414",
                                  dw4["after"]["k2"], err, ms, plain, bnd))
     for name, key, n in (("pair_energy_r2", "r2", tr["k7_r2"]),
-                         ("pair_energy_r", "r", tr["md_launches"])):
+                         ("pair_energy_r", "r", tr["md_launches"]),
+                         ("pair_energy_r_generate", "r_generate",
+                          gen["k7_r"])):
         p = prec[key]
         kernels.append(kernel_record(
             name, "pair_energy.cu", "enflow_tpu/ops/pairwise_kernel.py:119",
             n, p["err"], p["ms"], p["plain"], p["bound"]))
+    # K5 at generate.yaml's shape, with that run's launches
+    g = erec[("generate", "float32")]
+    kernels.append(kernel_record(
+        "edge_pipeline_fwd_generate", "edge_pipeline.cu",
+        "enflow_tpu/ops/edge_kernel.py:219", gen["k5"], g["err_fwd"],
+        g["ms_fwd"], g["plain_fwd"], g["bound_fwd"]))
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,7 +1,10 @@
 """Simulated datasets, the port of ``enflow_tpu/data/simulated.py``: the
 frames come from MD run on the dataset's device (FIRE minimization,
 Maxwell-Boltzmann thermalization, Langevin-middle dynamics, a frame every
-``interval`` steps after ``discard``).
+``interval`` steps after ``discard``), with the JAX package's outputs: a
+``StateDataReporter``-style CSV ``log`` of every captured frame (step,
+potential energy in kJ/mol, temperature in K) and a multi-MODEL PDB
+``traj`` of the kept frames, in the same text.
 
 Host draws stay on the dataset's numpy generator, in the JAX package's
 order, so one seed gives the same MD seed integer, the same ``g`` (and
@@ -18,15 +21,51 @@ name.
 
 from __future__ import annotations
 
+import os
 from abc import abstractmethod
 
 import numpy as np
 import torch
 
 from ..utils import conversion as cv
+from ..utils.constants import eps
 from .datasets import InMemoryDataset
 
 MD_DTYPE = torch.float32
+
+
+def _ensure_parent(path):
+    """Create a declared output file's parent directory (the example
+    configs point log/traj into data/<name>/, which need not exist)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+
+def write_pdb_frames(path, z, frames_ang, box_ang):
+    """Minimal multi-MODEL PDB trajectory writer (coordinates in
+    Angstrom), the JAX package's text."""
+    with open(path, "w") as f:
+        f.write(
+            "CRYST1{:9.3f}{:9.3f}{:9.3f}  90.00  90.00  90.00 P 1           1\n"
+            .format(*[float(b) for b in box_ang]))
+        for m, pos in enumerate(frames_ang, start=1):
+            f.write(f"MODEL     {m:4d}\n")
+            for i, (sym, (x, y, c)) in enumerate(zip(z, pos), start=1):
+                el = sym[:2].rjust(2)
+                f.write(
+                    f"ATOM  {i:5d} {sym:<4.4s} MOL A   1    "
+                    f"{x:8.3f}{y:8.3f}{c:8.3f}  1.00  0.00          {el}\n")
+            f.write("ENDMDL\n")
+        f.write("END\n")
+
+
+def log_lines(steps, pe, kBT_inst):
+    """The CSV log's lines: a header, then step, potential energy (kJ/mol)
+    and instantaneous temperature (K) of each captured frame, from float64
+    numpy arrays of reduced-unit energies and kBT."""
+    lines = ['#"Step","Potential Energy (kJ/mole)","Temperature (K)"']
+    for s, e, t in zip(steps, pe, kBT_inst):
+        lines.append(f"{int(s)},{e * eps / 1000.0},{cv.lj_to_kelvin(t)}")
+    return lines
 
 
 class SimulatedDataset(InMemoryDataset):
@@ -45,10 +84,6 @@ class SimulatedDataset(InMemoryDataset):
                 traj=None, minimize_steps=200, **setup_params):
         from ..sim.integrate import minimize_fire, simulate, thermalize
 
-        if log or traj:
-            raise NotImplementedError(
-                "the dataset's log and traj outputs are not ported yet "
-                "(ROADMAP A4, generate)")
         if self.box is None:
             raise ValueError(
                 "SimulatedDataset requires a box (lab units) in the dataset "
@@ -79,10 +114,23 @@ class SimulatedDataset(InMemoryDataset):
         steps = frames["step"].numpy()
         pos_frames, vel_frames = host("pos"), host("vel")
 
+        if log:
+            lines = log_lines(steps, host("pe"), host("kBT_inst"))
+            _ensure_parent(log)
+            with open(log, "w") as f:
+                f.write("\n".join(lines) + "\n")
+            print("\n".join(lines), flush=True)
+
         report_from = int(discard)
         if report_from == -1:
             report_from = int(interval)
         keep = steps >= report_from
+
+        if traj:
+            _ensure_parent(traj)
+            write_pdb_frames(
+                traj, z, [cv.lj_to_dist(p, "ang") for p in pos_frames[keep]],
+                cv.lj_to_dist(box_red, "ang"))
 
         latent = self.latent_features and node_nf is not None
         for s, pos_r, vel_r in zip(steps[keep], pos_frames[keep],

@@ -24,10 +24,10 @@ The VV integrator is the JAX package's kick-drift-kick splitting with
 ``n_iter + 1`` networks and half-kick scale ``exp(Q / 2)``. Ported:
 ``FlowConfig``, ``init_flow``, ``_egcl_at``, LF (shift, coupled, drift)
 and VV ``forward_core``/``reverse_core`` with parity and exact ldj, the
-ArgMax and Floor dequantizing ``forward``/``reverse``, in the
-``all_pairs`` and ``images`` neighbor modes, with ``track_overflow`` (the
-slots an ``images`` build dropped, summed over steps). Atom sharding
-(ROADMAP A7) and the other neighbor modes (A4) raise
+ArgMax and Floor dequantizing ``forward``/``reverse``, in every neighbor
+mode of the JAX package (``all_pairs``, ``dense``/``topk``, ``cell`` and
+``images``), with ``track_overflow`` (the slots a truncating build dropped,
+summed over steps). Atom sharding (ROADMAP A7) raises
 ``NotImplementedError``.
 """
 
@@ -93,10 +93,8 @@ def _check_supported(cfg: FlowConfig):
     if cfg.axis_name:
         raise NotImplementedError(
             "atom-sharded flows are not ported yet (ROADMAP A7)")
-    if cfg.nbr_mode not in ("all_pairs", "images"):
-        raise NotImplementedError(
-            f"nbr_mode={cfg.nbr_mode!r} is not ported yet (ROADMAP A4); "
-            "the port runs nbr_mode 'all_pairs' and 'images'")
+    if cfg.nbr_mode not in ("all_pairs", "dense", "topk", "cell", "images"):
+        raise ValueError(f"unknown nbr_mode {cfg.nbr_mode!r}")
     if cfg.egcl.use_pallas in ("v2", "v3") and cfg.nbr_mode != "all_pairs":
         raise ValueError(f"use_pallas={cfg.egcl.use_pallas!r} requires "
                          "nbr_mode='all_pairs'")
@@ -187,10 +185,12 @@ def _egcl_at(params, cfg: FlowConfig, net_params, sys: System):
     EGCLs that ``plain_route`` sends to the plain EGCL; on the CPU
     ``use_pallas: v2|v3`` selects the kernel's plain version and every other
     value the plain EGCL (the same function, as in the JAX package).
-    ``images``: the multi-image neighbor list is rebuilt from the current
-    positions and the EGCL runs on the gathered rows (the gathered-edge
-    kernel on the card); ``overflow`` counts the slots the build dropped
-    (a device scalar, 0 in ``all_pairs`` mode)."""
+    ``dense``/``topk``, ``cell`` and ``images``: the neighbor list is
+    rebuilt from the current positions (with ``capacity``,
+    ``cells_per_dim`` and ``cell_capacity``) and the EGCL runs on the
+    gathered rows (the gathered-edge kernel on the card); ``overflow``
+    counts the slots the build dropped (a device scalar, 0 for the exact
+    formats)."""
     if cfg.nbr_mode == "all_pairs":
         zero = torch.zeros((), dtype=torch.int32, device=sys.pos.device)
         if (sys.pos.is_cuda and not plain_route(cfg.egcl)) or \
@@ -204,7 +204,9 @@ def _egcl_at(params, cfg: FlowConfig, net_params, sys: System):
                           nbrs.mask, sys.mask, all_pairs=True), zero
     nbrs, cd, ovf = neighbors_with_diffs(sys.pos, sys.box, sys.mask,
                                          sys.r_cut, cfg.nbr_capacity,
-                                         cfg.nbr_mode, with_overflow=True)
+                                         cfg.nbr_mode, cfg.cells_per_dim,
+                                         cfg.cell_capacity,
+                                         with_overflow=True)
     return apply_egcl(net_params, cfg.egcl, sys.h, cd, nbrs.idx, nbrs.mask,
                       sys.mask), ovf
 

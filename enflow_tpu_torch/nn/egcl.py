@@ -24,10 +24,11 @@ In ``all_pairs`` mode two paths compute the same function:
   whatever ``use_pallas`` says: ``False``, ``True``, ``"v1"``, ``"v2"`` and
   ``"v3"`` all name this same function in ``all_pairs`` mode.
 
-On a gathered neighbor list (``images`` mode) ``apply_egcl`` runs the
-gathered-edge kernel of ``ops/edge_pipeline.py`` on every CUDA tensor but
-those of :func:`plain_route`, whatever ``use_pallas`` says (``False``,
-``True`` and ``"v1"`` name the same function there).
+On a gathered neighbor list (the ``dense``/``topk``, ``cell`` and
+``images`` modes) ``apply_egcl`` runs the gathered-edge kernel of
+``ops/edge_pipeline.py`` on every CUDA tensor but those of
+:func:`plain_route`, whatever ``use_pallas`` says (``False``, ``True`` and
+``"v1"`` name the same function there).
 """
 
 from __future__ import annotations

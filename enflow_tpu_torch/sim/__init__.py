@@ -1,1 +1,2 @@
 """Port of ``enflow_tpu/sim``."""
+from .analysis import radial_distribution  # noqa: F401

@@ -3,11 +3,17 @@
 Ported:
 
 - ``mode: train`` with ``objective: nll`` on a ``type: lj`` dataset (the
-  LJ MD simulated on the card): ``nbr_capacity: auto``, the capacity check
-  of the ``images`` mode, Adam (with optional ``grad_clip`` as optax's
-  ``clip_by_global_norm`` and the staircase ``scheduler``), the per-epoch
-  line in the JAX format, checkpoints every ``checkpoint_interval`` epochs
-  and at the last, and resume from a checkpoint of either package.
+  LJ MD simulated on the card) in every neighbor mode but the atom-sharded
+  ring: ``nbr_capacity: auto`` (the multi-image count in ``images`` mode,
+  the port's own cell-list scan, ``native.py``, in the others),
+  ``cells_per_dim``/``cell_capacity`` ints or ``auto`` for ``cell``, the
+  one capacity check per dataset (neighbor count, cell occupancy, the
+  ``box < 2 r_cut`` warning of the min-image modes), the per-epoch
+  overflow of the truncating formats, Adam (with optional ``grad_clip``
+  as optax's ``clip_by_global_norm`` and the staircase ``scheduler``), the
+  per-epoch line in the JAX format, checkpoints every
+  ``checkpoint_interval`` epochs and at the last, and resume from a
+  checkpoint of either package.
 - ``mode: train`` with ``objective: flow_vi`` against an ``lj_cluster``,
   ``lj_fluid``, ``double_well`` or ``gaussian`` target (data-free), with
   any ``position_update``: the base draws, the reverse-KL loss with optional
@@ -16,6 +22,12 @@ Ported:
   a checkpoint every epoch, resume from either package's checkpoint.
   ``fused_epoch`` is accepted and runs the same per-step loop.
 - ``training.metrics_csv`` for both objectives (``utils/observe.py``).
+- ``mode: generate``: the model from a checkpoint of either package, the
+  LJ latent sampler's first frame reversed through the flow, ``h.out``,
+  ``test_out.xyz`` and the round-trip check ``reverse(forward(out)) ==
+  out`` for positions and features.
+- ``mode: dataset``: the dataset alone, with its ``processed_file``
+  cache and the simulated dataset's ``log`` and ``traj``.
 - ``mode: sample`` with ``sampling.algo: smc | ais`` (flow-proposal
   SMC/AIS over the same targets), from a checkpoint's hparams or from a
   fresh ``init_flow`` when the YAML gives ``dynamics.n_iter``, ``dt``,
@@ -25,7 +37,9 @@ Ported:
 
 The config schema, checkpoints, npz outputs and printed lines are the JAX
 driver's. Every other mode, objective, dataset type, algo, target and
-option raises ``NotImplementedError`` naming its ROADMAP item.
+option raises ``NotImplementedError`` naming its ROADMAP item, among them
+``mode: sample`` with ``dynamics.nbr_capacity`` (the SMC overflow probe,
+ROADMAP A5).
 
 The SMC runs batched: the densities see all particles at once, so on the
 card each EGCL is one launch of the fused kernel over the particle batch.
@@ -49,10 +63,11 @@ from ..data.datasets import DataLoader, get_dataset_class
 from ..data.neighbors import image_edge_max
 from ..data.system import System
 from ..flow.integrators import (FlowConfig, init_flow, forward,
-                                forward_core, reverse_core)
+                                forward_core, reverse, reverse_core)
 from ..flow.loss import alchemical_nll
 from ..nn.egcl import EGCLConfig
 from ..utils import conversion as cv
+from ..utils.constants import sigma
 from ..utils.jax_params import tree_flatten
 from ..utils.observe import MetricsLogger
 from .checkpoint import (has_tree, load_checkpoint, load_hparams,
@@ -65,6 +80,17 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64,
 
 def eprint(*args, **kwargs):
     print(*args, file=sys.stderr, **kwargs)
+
+
+def write_xyz(path, pos_reduced, symbol="Ar"):
+    """Reduced-unit positions as an Angstrom XYZ file (``x * sigma *
+    1e10``), in the JAX package's text (``driver.py:56-61`` and
+    ``data/formats.py:write_xyz``)."""
+    pos_ang = np.asarray(pos_reduced) * sigma * 1e10
+    with open(path, "w") as f:
+        f.write(f"{pos_ang.shape[0]}\n \n")
+        for x in pos_ang:
+            f.write("%s %.18g %.18g %.18g\n" % (symbol, x[0], x[1], x[2]))
 
 
 def vi_anneal(tgt_sec: dict):
@@ -110,6 +136,27 @@ def _host(t) -> np.ndarray:
     """A tensor as a numpy array on the host (bfloat16 as float32)."""
     t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _max_occupancy(pos, box, m: int) -> int:
+    """The most atoms one of the ``m^3`` cells holds in a frame ``pos
+    [N,3]`` (``celllist.max_cell_occupancy`` on the host)."""
+    from ..data.celllist import max_cell_occupancy
+    pos = torch.as_tensor(np.asarray(pos, np.float64))[None]
+    box = torch.as_tensor(np.asarray(box, np.float64))[None]
+    mask = torch.ones(pos.shape[:2], dtype=torch.bool)
+    return int(max_cell_occupancy(pos, box, mask, m))
+
+
+def _topk_truncates(main) -> bool:
+    """True when ``main``'s min-image mode keeps a top-K capacity below
+    the batch's atoms."""
+    cfg = main.flow_cfg
+    loader = getattr(main, "train_loader", None)
+    n_max = loader.n_max if loader is not None else None
+    return (cfg.nbr_mode in ("dense", "topk", "cell")
+            and cfg.nbr_capacity is not None
+            and (n_max is None or cfg.nbr_capacity < n_max))
 
 
 def _gauss_aux(sys_b: System) -> torch.Tensor:
@@ -169,10 +216,8 @@ class Main:
         self.start_epoch = 0
 
         mode = args.get("mode", "train")
-        if mode not in ("train", "sample"):
-            raise NotImplementedError(
-                f"mode {mode!r} is not ported yet (ROADMAP A4: generate and "
-                "dataset); the port runs mode 'train' and 'sample'")
+        if mode not in ("train", "sample", "generate", "dataset"):
+            raise ValueError(f"unknown mode {mode!r}")
         self.mode = mode
         if int(args.get("parallel", {}).get("atom_axis", 1)) > 1:
             raise NotImplementedError(
@@ -199,10 +244,15 @@ class Main:
             self.integrator = hp["integrator"]
             self.dequantizer = hp.get("dequantizer", "argmax")
             self.dequant_scale = float(hp.get("dequant_scale", 1.0))
-            if mode == "train":
+            if mode in ("train", "generate"):
                 self.lj_kBT = hp["lj_kBT"]
                 self.softening = hp["softening"]
-        else:
+        elif mode == "generate":
+            raise ValueError(
+                f"generate mode requires an existing checkpoint at "
+                f"{self.checkpoint_path!r}: the model architecture comes "
+                f"from it")
+        elif mode != "dataset":
             if mode == "sample":
                 node_nf = int(dyn["network"]["node_nf"])
             self.hidden_nf = int(dyn["network"]["hidden_nf"])
@@ -221,7 +271,22 @@ class Main:
         # driver drops them on cpu/gpu (driver.py:305-313), so does the port
         nbr_capacity = dyn.get("nbr_capacity")
         self.dataset = None
-        if self.objective == "flow_vi":
+        if mode == "dataset":
+            # the dataset alone: its cache, log and traj (driver.py:213-214)
+            self.dataset = self._setup_dataset("dataset", args)
+            return
+        if mode == "generate":
+            # the model's facts go to the latent sampler
+            # (driver.py:175-183)
+            args["dataset"]["node_nf"] = node_nf
+            args["dataset"]["softening"] = self.softening
+            args["dataset"]["temp"] = cv.lj_to_kelvin(self.lj_kBT)
+            self.dataset = self._setup_dataset("dataset", args)
+            self.train_loader = DataLoader(
+                self.dataset, batch_size=1, shuffle=False, seed=self.seed,
+                dtype=self.dtype, device=self.device)
+            nbr_capacity = self._auto_capacity(dyn, nbr_capacity)
+        elif self.objective == "flow_vi":
             # data-free (driver.py:204-221): node_nf from the network
             if node_nf is None:
                 node_nf = int(dyn["network"]["node_nf"])
@@ -244,7 +309,8 @@ class Main:
         elif nbr_capacity is not None:
             raise NotImplementedError(
                 "dynamics.nbr_capacity is not ported for sampling (ROADMAP "
-                "A4, the capacity-bound neighbor modes)")
+                "A5: the SMC stage_fn overflow probe of the truncating "
+                "neighbor formats)")
         self.node_nf = node_nf
 
         net_sec = dyn.get("network", {})
@@ -262,6 +328,7 @@ class Main:
             dequantizer=self.dequantizer,
             nbr_capacity=nbr_capacity,
             nbr_mode=dyn.get("nbr_mode", "dense"),
+            **self._cell_params(dyn),
             exact_ldj=bool(dyn.get("exact_ldj", False)),
             remat=bool(dyn.get("remat", True)),
             remat_policy=dyn.get("remat_policy"),
@@ -271,16 +338,21 @@ class Main:
         )
         gen = torch.Generator().manual_seed(self.seed)
         self.params = init_flow(gen, self.flow_cfg, self.dtype, self.device)
+        if mode in ("sample", "generate") and hp is not None:
+            tree, _ = load_checkpoint(self.checkpoint_path,
+                                      {"params": self.params})
+            self.params = tree["params"]
         if mode == "sample":
-            if hp is not None:
-                tree, _ = load_checkpoint(self.checkpoint_path,
-                                          {"params": self.params})
-                self.params = tree["params"]
             eprint("In sample mode", flush=True)
             return
 
+        # one loud capacity check per dataset: 'auto' sizes from the first
+        # frame only (opt out with dynamics.validate_capacity: false)
         if dyn.get("validate_capacity", True):
             self._validate_capacities()
+        if mode == "generate":
+            eprint("In generate mode", flush=True)
+            return
         self._setup_optimizer(args["training"])
         if self.objective == "flow_vi":
             self._setup_vi(args["training"])
@@ -305,11 +377,6 @@ class Main:
             raise NotImplementedError(
                 "debug.nan_checks is not ported yet (ROADMAP A5, "
                 "utils/observe.py)")
-        mode = args.get("dynamics", {}).get("nbr_mode", "dense")
-        if mode not in ("all_pairs", "images"):
-            raise NotImplementedError(
-                f"nbr_mode={mode!r} is not ported yet (ROADMAP A4); the port "
-                "trains with 'all_pairs' and 'images'")
         if (objective == "nll"
                 and args.get("dataset", {}).get("type") == "compose"):
             raise NotImplementedError(
@@ -340,33 +407,65 @@ class Main:
                    device=self.device)
 
     def _auto_capacity(self, dyn, nbr_capacity):
-        """``nbr_capacity: auto`` in ``images`` mode: the first frame's
-        largest (neighbor, image) slot count x 1.25, rounded up to a
-        multiple of 8 (``driver.py:284-301``)."""
+        """``nbr_capacity: auto`` (``driver.py:284-301``) from the first
+        frame: in ``images`` mode its largest (neighbor, image) slot count,
+        otherwise its largest min-image neighbor count by the cell-list
+        scan (``native.suggest_capacity``), each x 1.25 rounded up to a
+        multiple of 8, at least 8."""
         if nbr_capacity != "auto":
             return None if nbr_capacity is None else int(nbr_capacity)
-        if not len(self.dataset):
+        if self.dataset is None or not len(self.dataset):
             raise ValueError("nbr_capacity: auto requires a dataset")
-        if dyn.get("nbr_mode") != "images":
-            raise NotImplementedError(
-                "nbr_capacity: auto is ported for nbr_mode 'images' only "
-                "(ROADMAP A4)")
         s0 = self.dataset[0]
-        mx = image_edge_max(np.asarray(s0.pos, np.float64),
-                            np.asarray(s0.box, np.float64), float(s0.r_cut))
-        cap = int(np.ceil(mx * 1.25))
-        cap = max(8, ((cap + 7) // 8) * 8)
+        pos = np.asarray(s0.pos, np.float64)
+        box = np.asarray(s0.box, np.float64)
+        if dyn.get("nbr_mode") == "images":
+            mx = image_edge_max(pos, box, float(s0.r_cut))
+            cap = int(np.ceil(mx * 1.25))
+            cap = max(8, ((cap + 7) // 8) * 8)
+        else:
+            from .. import native
+            cap = native.suggest_capacity(pos, box, float(s0.r_cut))
         eprint(f"nbr_capacity: auto -> {cap}", flush=True)
         return cap
 
+    def _cell_params(self, dyn):
+        """``cells_per_dim`` and ``cell_capacity`` for ``nbr_mode: cell``
+        (``driver.py:472-500``): ints, or from the first frame when
+        ``auto`` or omitted (the densest cell's occupancy x 1.5, at least
+        4)."""
+        if dyn.get("nbr_mode") != "cell":
+            return {}
+        from ..data.celllist import suggest_cells_per_dim
+        m = dyn.get("cells_per_dim", "auto")
+        cap = dyn.get("cell_capacity", "auto")
+        if m == "auto" or cap == "auto":
+            if self.dataset is None or not len(self.dataset):
+                raise ValueError(
+                    "nbr_mode: cell with auto parameters requires a dataset")
+            s0 = self.dataset[0]
+            if m == "auto":
+                m = suggest_cells_per_dim(s0.box, s0.r_cut)
+            if cap == "auto":
+                occ = _max_occupancy(np.asarray(s0.pos), s0.box, int(m))
+                cap = max(4, int(np.ceil(occ * 1.5)))
+            eprint(f"cell list: cells_per_dim={m}, cell_capacity={cap}",
+                   flush=True)
+        return {"cells_per_dim": int(m), "cell_capacity": int(cap)}
+
     def _validate_capacities(self):
-        """One host-side capacity check per dataset for ``images`` mode
-        (``driver.py:502-655``): up to ``validate_max_frames`` frames,
-        raising with the needed value when a frame has more in-cutoff
-        (neighbor, image) slots than ``nbr_capacity``."""
+        """One host-side capacity check per dataset (``driver.py:502-655``)
+        over up to ``dynamics.validate_max_frames`` frames (default 64,
+        spread evenly, announced when it subsamples; 0 scans every frame):
+        the neighbor count (``native.neighbor_counts``; (neighbor, image)
+        slots in ``images`` mode) against ``nbr_capacity`` and, in ``cell``
+        mode, the densest cell against ``cell_capacity``. Raises with the
+        recommended values (the observed maximum x
+        ``dynamics.capacity_headroom``, default 1.25) when a frame would
+        drop edges, warns when a capacity is below its recommendation, and
+        warns loudly when the min-image modes see ``box < 2 r_cut``."""
         cfg = self.flow_cfg
-        if (cfg.nbr_mode != "images" or self.dataset is None
-                or not len(self.dataset)):
+        if self.dataset is None or not len(self.dataset):
             return
         dyn = self.args.get("dynamics", {})
         n_total = len(self.dataset)
@@ -379,30 +478,94 @@ class Main:
                    f"set 0 to scan every frame)", flush=True)
         else:
             idxs = np.arange(n_total)
-        max_nbr = 0
+        check_nbr = _topk_truncates(self)
+        check_images = cfg.nbr_mode == "images"
+        check_cell = cfg.nbr_mode == "cell"
+        check_box = cfg.nbr_mode in ("dense", "topk", "cell")
+        if not (check_nbr or check_cell or check_images or check_box):
+            return
+
+        from .. import native
+        max_nbr, max_occ = 0, 0
+        min_box, max_rc = np.inf, 0.0
         for i in idxs:
             s = self.dataset[int(i)]
-            max_nbr = max(max_nbr, image_edge_max(
-                np.asarray(s.pos, np.float64), np.asarray(s.box, np.float64),
-                float(s.r_cut)))
+            pos = np.asarray(s.pos, np.float64)
+            box = np.asarray(s.box, np.float64)
+            min_box = min(min_box, float(box.min()))
+            max_rc = max(max_rc, float(s.r_cut))
+            if check_nbr:
+                _, mx = native.neighbor_counts(pos, box, float(s.r_cut))
+                max_nbr = max(max_nbr, mx)
+            if check_images:
+                max_nbr = max(max_nbr, image_edge_max(pos, box,
+                                                      float(s.r_cut)))
+            if check_cell:
+                max_occ = max(max_occ, _max_occupancy(
+                    pos, box, int(cfg.cells_per_dim)))
+
+        # the min-image modes keep one edge a pair; with box < 2 r_cut a
+        # pair interacts through several images ('images' mode)
+        if check_box and min_box < 2.0 * max_rc:
+            import warnings
+            msg = (f"box < 2*r_cut (min box {min_box:.3g} < "
+                   f"{2 * max_rc:.3g}): the min-image neighbor mode "
+                   f"'{cfg.nbr_mode}' keeps one edge per pair, but in "
+                   "this regime pairs interact through multiple "
+                   "periodic images (one edge per in-cutoff image). "
+                   "Set dynamics.nbr_mode: images for the full "
+                   "multi-image edge set.")
+            warnings.warn(msg)
+            eprint("WARNING: " + msg, flush=True)
+        if not (check_nbr or check_cell or check_images):
+            return
         factor = float(dyn.get("capacity_headroom", 1.25))
         rec_nbr = int(np.ceil(max_nbr * factor))
-        if max_nbr > (cfg.nbr_capacity or 10 ** 9):
-            raise ValueError(
+        rec_occ = int(np.ceil(max_occ * factor))
+        errs = []
+        if (check_nbr or check_images) and max_nbr > (cfg.nbr_capacity
+                                                      or 10 ** 9):
+            kind = ("in-cutoff (neighbor, image) slots" if check_images
+                    else "in-cutoff neighbors")
+            errs.append(
                 f"nbr_capacity={cfg.nbr_capacity} is too small: an atom in "
-                f"this dataset has {max_nbr} in-cutoff (neighbor, image) "
-                f"slots — edges would be silently dropped. Recommended "
+                f"this dataset has {max_nbr} {kind} — edges "
+                f"would be silently dropped. Recommended "
                 f"dynamics.nbr_capacity >= {rec_nbr} ({max_nbr} observed x "
-                f"{factor:g} capacity_headroom for mid-flow motion) (or set "
-                f"dynamics.validate_capacity: false)")
-        eprint(f"capacity check: max neighbors {max_nbr} — within capacity",
-               flush=True)
-        if cfg.nbr_capacity is not None and cfg.nbr_capacity < rec_nbr:
-            eprint(f"WARNING: capacity below the mid-flow headroom "
-                   f"recommendation (nbr_capacity {cfg.nbr_capacity} < "
-                   f"recommended {rec_nbr} ({max_nbr} observed x "
-                   f"{factor:g})) — the runtime overflow counter will "
-                   f"report any truncation", flush=True)
+                f"{factor:g} capacity_headroom for mid-flow motion)")
+        if check_cell and max_occ > cfg.cell_capacity:
+            errs.append(
+                f"cell_capacity={cfg.cell_capacity} is too small: a cell in "
+                f"this dataset holds {max_occ} atoms — candidates would be "
+                f"silently dropped. Recommended dynamics.cell_capacity >= "
+                f"{rec_occ} ({max_occ} observed x {factor:g} "
+                f"capacity_headroom for mid-flow motion)")
+        if errs:
+            raise ValueError("; ".join(errs) +
+                             " (or set dynamics.validate_capacity: false)")
+        low = []
+        if (check_nbr or check_images) and cfg.nbr_capacity is not None \
+                and cfg.nbr_capacity < rec_nbr:
+            low.append(f"nbr_capacity {cfg.nbr_capacity} < recommended "
+                       f"{rec_nbr} ({max_nbr} observed x {factor:g})")
+        if check_cell and cfg.cell_capacity < rec_occ:
+            low.append(f"cell_capacity {cfg.cell_capacity} < recommended "
+                       f"{rec_occ} ({max_occ} observed x {factor:g})")
+        eprint(f"capacity check: max neighbors {max_nbr}"
+               + (f", max cell occupancy {max_occ}" if check_cell else "")
+               + " — within capacity", flush=True)
+        if low:
+            eprint("WARNING: capacity below the mid-flow headroom "
+                   "recommendation (" + "; ".join(low) + ") — the "
+                   "runtime overflow counter (metrics CSV "
+                   "`nbr_overflow`) will report any truncation",
+                   flush=True)
+
+    def _capacity_can_truncate(self) -> bool:
+        """True when the neighbor format can drop edges: a top-K capacity
+        below the batch's atoms, cell binning, or image slots."""
+        return (self.flow_cfg.nbr_mode in ("cell", "images")
+                or _topk_truncates(self))
 
     def _setup_optimizer(self, tr):
         """Adam with optional ``grad_clip`` and staircase ``scheduler``
@@ -479,7 +642,7 @@ class Main:
         the NLL, its gradient, clipping, Adam. Returns the loss and the
         overflow count (device tensors; no host sync)."""
         cfg = self.flow_cfg
-        if cfg.nbr_mode == "images":
+        if self._capacity_can_truncate():
             cfg = dataclasses.replace(cfg, track_overflow=True)
             out, ldj, ovf = forward(self.params, cfg, batch, gen=gen)
         else:
@@ -913,6 +1076,40 @@ class Main:
                        nbr_overflow="")
         logger.close()
 
+    # ------------------------------------------------------------------
+    # generate
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def generate(self, out_dir="."):
+        """Reverse the flow on the first latent frame (``driver.py:1110-
+        1151``): write ``h.out`` and ``test_out.xyz`` of the real atoms,
+        then print whether ``reverse(forward(out)) == out`` holds for the
+        positions and the features (atol 1e-8 in float64, 1e-4 otherwise;
+        ``forward``'s dequantization noise from a generator seeded 99)."""
+        cfg = self.flow_cfg
+        batch = next(iter(self.train_loader))
+        out = reverse(self.params, cfg, batch)
+        mask = out.mask[0].cpu().numpy()
+        np.savetxt(os.path.join(out_dir, "h.out"), _host(out.h[0])[mask],
+                   delimiter=" ")
+        write_xyz(os.path.join(out_dir, "test_out.xyz"),
+                  _host(out.pos[0])[mask])
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(99)
+        data_, _ = forward(self.params, cfg, out, gen=gen)
+        back = reverse(self.params, cfg, data_)
+        atol = 1e-8 if self.dtype == torch.float64 else 1e-4
+        print(bool(torch.allclose(back.pos, out.pos, atol=atol)), flush=True)
+        print(bool(torch.allclose(back.h, out.h, atol=atol)), flush=True)
+        return out
+
     def __call__(self, input_path):
         self.setup(input_path)
-        return self.train() if self.mode == "train" else self.sample()
+        if self.mode == "train":
+            return self.train()
+        if self.mode == "generate":
+            return self.generate()
+        if self.mode == "sample":
+            return self.sample()
+        return self.dataset

@@ -64,9 +64,12 @@ def test_driver_sample_cpu(tmp_path, capsys, algo, cdt, kernel):
 
 
 def test_driver_rejects_unported_modes(tmp_path):
-    cfg = tmp_path / "generate.yaml"
-    cfg.write_text("mode: generate\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # sampling with a neighbor capacity waits on the SMC overflow probe
+    cfg = tmp_path / "sample_capacity.yaml"
+    cfg.write_text(YAML.format(algo="smc", cdt="null", kernel="false",
+                               out=tmp_path / "x.npz").replace(
+        "  nbr_mode: all_pairs\n", "  nbr_mode: dense\n  nbr_capacity: 8\n"))
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         Main(device="cpu")(str(cfg))
     cfg.write_text(YAML.format(algo="remc", cdt="null", kernel="false",
                                out=tmp_path / "x.npz"))

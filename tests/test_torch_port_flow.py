@@ -112,9 +112,13 @@ def test_unported_options_raise():
                    "cpu")
     _, tsys = _state()
     import dataclasses
-    for kw in (dict(nbr_mode="cell"), dict(nbr_mode="dense"),
-               dict(axis_name="atom")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # atom sharding is ROADMAP A7; every neighbor mode is ported, a cell
+    # flow without its capacities and an unknown mode are errors
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        forward_core(tp, dataclasses.replace(tcfg, axis_name="atom"), tsys)
+    for kw, msg in ((dict(nbr_mode="cell"), "cell_capacity"),
+                    (dict(nbr_mode="ring"), "unknown nbr_mode")):
+        with pytest.raises(ValueError, match=msg):
             forward_core(tp, dataclasses.replace(tcfg, **kw), tsys)
 
 

@@ -289,7 +289,7 @@ def test_driver_rejects_unported_train_options(tmp_path):
                       "nbr_mode: all_pairs").replace("hidden_nf: 16,",
                                                      "hidden_nf: 16, node_nf: 2,")
     for old, new in (("type: lj", "type: md"),
-                     ("nbr_mode: images", "nbr_mode: dense"),
+                     ("seed: 2", "seed: 2\nparallel: {atom_axis: 4}"),
                      ("log_interval: 1", "log_interval: 1\n  profile_dir: "
                       "prof"),
                      ("seed: 2", "seed: 2\ndebug: {nan_checks: true}")):
