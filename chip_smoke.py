@@ -56,7 +56,20 @@ non-zero):
    its epochs and steps cut to VI_EPOCHS x VI_STEPS, in a temporary
    directory; a 1-epoch resume; one ``stl: true`` epoch; then
    ``example/sample_lj13.yaml`` as committed from the checkpoint they
-   wrote. Each run is checked for the launch counts the code implies.
+   wrote. Each run is checked for the launch counts the code implies. The
+   checkpoint goes on to phases 8b-8d.
+8b. mcmc  — ``example/sample_lj13_mcmc.yaml`` from that checkpoint with
+   ``algo: hmc`` (as committed: 64 chains, dual averaging, 200 sweeps of
+   5 steps), ``mala`` (the same sweeps) and ``nuts`` (NUTS_CUT sweeps):
+   one flow reverse (5 bf16 K1), the chains on the LJ energy alone.
+8c. remc  — ``example/remc_lj13.yaml`` as committed (6 slots x 512
+   chains, 200 rounds; bf16 K1/K2 over the flattened B=3,072) with MBAR,
+   monolithic and in segments of REMC_CHUNK rounds, bitwise equal; then
+   K1/K2 at B=3,072 against their plain version, timed.
+8d. ti    — ``example/ti_lj13.yaml`` (25 nodes x 256 chains) with its
+   sweeps cut to TI_CUT, monolithic and in segments of TI_CHUNK sweeps,
+   bitwise equal; the seconds a sweep and their extrapolation to the
+   committed 400.
 9. vi55   — ``example/vi_lj55.yaml`` (LJ55, 256 particles, H=128, bf16)
    cut to 1 epoch x VI55_STEPS steps in a temporary directory: 5 K1 + 5
    parameter-gradient K2 launches per step at N=55, no plain call, finite
@@ -105,15 +118,21 @@ non-zero):
    f32 sampler path); then the f32 K1, K2 and K2 p against their plain
    version at B=512, N=4, a second launch bitwise equal, timed (events
    and device time).
-10e. ala2 — the f32 kernels at alanine dipeptide's size, kernels only
-   (vi_ala2.yaml's force-field target is not ported yet): the tiled f32
-   K2 p must take N >= 22 at nf=4, H=128 and the tiled f32 K2 N >= 70 at
-   nf=5, H=128 (held against plain at N=70), each refusing one atom past
-   its largest, and the tiled kernels must take every N the chunked ones
-   take at nf=5, H=128 and H=64; then the tiled f32 K1, K2 p and K2
-   against their plain version at B=256, N=22, nf=4, H=128 (the K2's
-   dh/dpos also against K2 p's), the K2 also at B=2048 (sample_ala2.yaml's
-   2048 particles), a second launch bitwise equal, each timed (events and
+10e. ala2 — alanine dipeptide: ``example/vi_ala2.yaml`` at full width
+   (B=256, N=22, nf=4, H=128, float32, the force field on the card) cut to
+   1 epoch x FF_STEPS steps (5 f32 K1 + 5 K2 p a step), then
+   ``example/sample_ala2.yaml`` as committed from its checkpoint (2048
+   particles, 10 temps: 260 f32 K1 + 255 tiled f32 K2, beta 1, the npz's
+   dihedrals [2048, 23] and phi/psi profiles with a finite minimum of 0);
+   ``example/vi_molecule_ff.yaml`` (N=4, nf=3, H=64) cut the same way (4
+   + 4 a step) and its f32 K1 / K2 p against their plain version; then
+   the kernel checks: the tiled f32 K2 p must take N >= 22 at nf=4, H=128
+   and the tiled f32 K2 N >= 70 at nf=5, H=128 (held against plain at
+   N=70), each refusing one atom past its largest, and the tiled kernels
+   must take every N the chunked ones take at nf=5, H=128 and H=64; then
+   the tiled f32 K1, K2 p and K2 against their plain version at B=256,
+   N=22, nf=4, H=128 (the K2's dh/dpos also against K2 p's), the K2 also
+   at B=2048, a second launch bitwise equal, each timed (events and
    device time) with its bound.
 11. edge  — the gathered-edge EGCL kernels (forward K5, backward K6 with
    all seven parameter gradients) against their plain version at the
@@ -153,7 +172,9 @@ and the device's busy time and idle share of that traced run's wall time
 one is given. ``--profile-vi [FILE]`` and ``--profile-train [FILE]`` do
 the same for one epoch of phase 8 or 10 after a warm-up epoch, and
 ``--profile-generate [FILE]`` for generate.yaml's flow (reverse, forward,
-reverse) and its MD cut to 1,000 steps.
+reverse) and its MD cut to 1,000 steps, and ``--profile-samplers [FILE]``
+for REMC, TI and HMC runs cut to a few rounds or sweeps (PROFILE_SAMPLERS)
+and ``sample_ala2.yaml`` as committed.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
@@ -1638,6 +1659,45 @@ def profile_train(card, out_file=None):
                     out_file)
 
 
+# the sampler runs that --profile-samplers traces: cuts of the committed
+# configs' rounds, sweeps or steps, every width as committed
+PROFILE_SAMPLERS = (("remc_lj13.yaml", dict(n_rounds=20, discard_rounds=10)),
+                    ("ti_lj13.yaml", dict(n_samples=2, n_warmup=1)),
+                    ("sample_lj13_mcmc.yaml", dict(n_samples=20,
+                                                   n_warmup=10)))
+
+
+def profile_samplers(card, out_file=None):
+    """The samplers of phases mcmc, remc and ti (PROFILE_SAMPLERS) from a
+    vi_lj13.yaml checkpoint of one epoch, then sample_ala2.yaml as
+    committed from a vi_ala2.yaml checkpoint of one epoch of FF_STEPS
+    steps, each traced after a warm-up run; each table to
+    ``<FILE>.<config>``."""
+    import os
+
+    def table(config):
+        return None if out_file is None else Path(
+            f"{out_file}.{config.split('.')[0]}")
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            vi_driver(tmp, 1).train()
+            for config, over in PROFILE_SAMPLERS:
+                main = config_driver(tmp, config, over=over)
+                label = config + " (" + ", ".join(
+                    f"{k} {v}" for k, v in over.items()) + ")"
+                profile_run(label, main.sample, main.sample, card,
+                            table(config))
+            config_driver(tmp, "vi_ala2.yaml", over=dict(
+                num_epochs=1, steps_per_epoch=FF_STEPS)).train()
+            main = config_driver(tmp, "sample_ala2.yaml")
+            profile_run("sample_ala2.yaml as committed", main.sample,
+                        main.sample, card, table("sample_ala2.yaml"))
+        finally:
+            os.chdir(cwd)
+
+
 def profile_generate(card, out_file=None):
     """generate.yaml's flow (``Main.generate``: reverse, forward, reverse)
     after a warm-up one, from the checkpoint of a 1-epoch train.yaml run;
@@ -2151,11 +2211,14 @@ def vi_launches():
                 k2_params=c.bwd_param_launches, plain=plain_calls())
 
 
-def vi_phase(card):
+def vi_phase(card, keep_dir):
     """The flow-VI path: ``example/vi_lj13.yaml`` through the port's driver
     (VI_EPOCHS x VI_STEPS), a 1-epoch resume, one ``stl: true`` epoch, then
-    ``example/sample_lj13.yaml`` from the checkpoint they wrote."""
+    ``example/sample_lj13.yaml`` from the checkpoint they wrote; the
+    checkpoint is copied to ``keep_dir`` for the mcmc, remc and ti
+    phases."""
     import os
+    import shutil
     import torch
     from enflow_tpu_torch.train.driver import Main
 
@@ -2230,6 +2293,7 @@ def vi_phase(card):
                     "sample_lj13 did not reach beta = 1")
             require(math.isfinite(float(res.log_Z)), "log_Z not finite")
             require(Path("lj13_samples.npz").exists(), "no samples written")
+            shutil.copy("lj13_vi.cpt", keep_dir)
         finally:
             os.chdir(cwd)
     later = step_s[VI_STEPS:]
@@ -2355,6 +2419,10 @@ def config_driver(tmp, config, over=None, dynamics=None):
     cfg["dynamics"].update(dynamics or {})
     path = Path(tmp) / config
     path.write_text(yaml.safe_dump(cfg))
+    # a config's paths are relative to the repository's root
+    # (vi_ala2.yaml's params_file: example/ala2_ff.yaml)
+    if not (Path(tmp) / "example").exists():
+        (Path(tmp) / "example").symlink_to(ROOT / "example")
     os.chdir(tmp)
     main = Main(device="cuda")
     main.setup(str(path))
@@ -2709,9 +2777,8 @@ def dw4_phase(card):
                            device=True)
 
 
-def ala2_phase():
-    """The f32 kernels at alanine dipeptide's size (kernels only: the
-    force-field target of vi_ala2.yaml is not ported yet). The tiled f32
+def ala2_kernels():
+    """The f32 kernels at alanine dipeptide's size. The tiled f32
     K2 p must take N >= 22 at nf=4, H=128 and the tiled f32 K2 N >= 70 at
     nf=5, H=128, each refusing one atom past its largest (the K2 also held
     against plain at N=70); the tiled kernels must take every N that the
@@ -2783,6 +2850,319 @@ def ala2_phase():
     return rec
 
 
+# vi_ala2.yaml and vi_molecule_ff.yaml (100 x 100 and 50 x 100 steps) cut
+# to one epoch of FF_STEPS steps, every width and option as committed
+FF_STEPS = 10
+MOLECULE_FF = dict(B=256, N=4, nf=3, H=64)
+
+
+def ala2_sample(card, vi):
+    """``example/sample_ala2.yaml`` as committed (2048 particles, 10 temps,
+    float32) from the checkpoint that ``vi`` (vi_ala2.yaml) wrote, in its
+    working directory: 260 f32 K1 and 255 tiled f32 K2, beta 1, the npz's
+    dihedrals and phi/psi profiles."""
+    import numpy as np
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+
+    main = config_driver(Path.cwd(), "sample_ala2.yaml")
+    sec = main.args["sampling"]
+    P, n_iter = sec["n_particles"], main.n_iter
+    reset_counts()
+    res, secs = timed_sample(main)
+    n_vg = 1 + sec["n_temps"] * sec["mcmc_steps"] * sec["n_leapfrog"]
+    want = dict(k1=n_iter + n_vg * n_iter, k2=n_vg * n_iter, k2_params=0,
+                plain=0)
+    got, k2_f32 = vi_launches(), ops.counts.bwd_f32_launches
+    require(got == want and k2_f32 == want["k2"],
+            f"sample_ala2 launches {got} (tiled f32 K2 {k2_f32}) != {want}")
+    check_smc(res, "sample_ala2", P, 22)
+    require(res.particles["pos"].is_cuda and res.log_weights.is_cuda
+            and res.particles["pos"].dtype == torch.float32,
+            "sample_ala2: particles not float32 on the card")
+    bins = sec["fe_bins"]
+    with np.load(sec["output"]) as z:
+        shapes = {k: z[k].shape for k in ("dihedrals", "phi_free_energy",
+                                          "psi_free_energy")}
+        require(shapes == {"dihedrals": (P, 23), "phi_free_energy": (bins,),
+                           "psi_free_energy": (bins,)},
+                f"sample_ala2 npz shapes {shapes}")
+        fe = {k: z[k] for k in ("phi_free_energy", "psi_free_energy")}
+    for k, F in fe.items():
+        fin = F[np.isfinite(F)]
+        require(fin.size and fin.min() == 0.0,
+                f"sample_ala2 {k}: no finite minimum of 0 ({F})")
+    phase("ala2", f"sample_ala2.yaml as committed from the vi_ala2 "
+          f"checkpoint on {card}: {P} particles x {sec['n_temps']} temps, "
+          f"float32, {secs:.3f} s, log_Z {float(res.log_Z):.4f}; launches "
+          f"f32 K1 {got['k1']}, tiled f32 K2 {k2_f32} ({n_vg} "
+          f"value-and-grads), plain calls 0; dihedrals {shapes['dihedrals']}"
+          ", phi/psi profiles of " + "/".join(
+              str(int(np.isfinite(F).sum())) for F in fe.values())
+          + f" finite bins of {bins}")
+    return dict(k1=got["k1"], k2=k2_f32, secs=secs)
+
+
+def ala2_phase(card):
+    """Alanine dipeptide and the molecular force field. (a)
+    ``example/vi_ala2.yaml`` at full width (B=256, N=22, nf=4, H=128,
+    float32; the force field in float32 on the card) cut to 1 epoch x
+    FF_STEPS steps: 5 f32 K1 + 5 f32 K2 p a step, finite losses, a
+    checkpoint and ``ala2_vi_metrics.csv``; then ``sample_ala2.yaml`` as
+    committed from that checkpoint (``ala2_sample``). (b)
+    ``example/vi_molecule_ff.yaml`` (N=4, nf=3, H=64, float32) cut the same
+    way: 4 K1 + 4 K2 p a step; then the f32 K1 and K2 p against their plain
+    version at its shape (B=256, N=4, nf=3, H=64), a second launch bitwise
+    equal. (c) ``ala2_kernels``."""
+    import torch
+
+    def check(main):
+        require(main.vi_n_atoms == 22 and main._ff.sigma.dtype
+                == torch.float32 and main._ff.sigma.is_cuda,
+                f"vi_ala2: {main.vi_n_atoms} atoms, force field "
+                f"{main._ff.sigma.dtype} on {main._ff.sigma.device}")
+
+    def after(vi):
+        with open("ala2_vi_metrics.csv") as f:
+            rows = [r.split(",") for r in f.read().strip().splitlines()]
+        require(rows[0][:3] == ["time", "epoch", "loss"] and len(rows) == 2
+                and math.isfinite(float(rows[1][2])),
+                f"ala2_vi_metrics.csv rows {rows}")
+        return ala2_sample(card, vi)
+
+    vi = vi_config_phase(card, "ala2", "vi_ala2.yaml", FF_STEPS, 5, ALA2,
+                         "float32", check=check, after=after, kinds=())
+    mol = vi_config_phase(card, "ala2", "vi_molecule_ff.yaml", FF_STEPS, 4,
+                          MOLECULE_FF, "float32", repeat=True)
+    rec = ala2_kernels()
+    return dict(vi=vi, molecule=mol, rec=rec)
+
+
+def lj13_launches(n_iter, n_vg, extra_fwd=0):
+    """The launches of a run that draws its starts with one flow reverse
+    and then takes ``n_vg`` flow value-and-grads (and ``extra_fwd`` flow
+    forwards without a gradient)."""
+    return dict(k1=n_iter * (1 + n_vg + extra_fwd), k2=n_iter * n_vg,
+                k2_params=0, plain=0)
+
+
+def on_card(tree):
+    import torch
+    leaves = tree.values() if isinstance(tree, dict) else [tree]
+    return all(isinstance(t, torch.Tensor) and t.is_cuda
+               and bool(torch.isfinite(t).all()) for t in leaves)
+
+
+# sample_lj13_mcmc.yaml's nuts run cut to NUTS_CUT sweeps (kept, warmup)
+NUTS_CUT = dict(n_samples=10, n_warmup=5)
+
+
+def mcmc_phase(card, lj13_dir):
+    """``example/sample_lj13_mcmc.yaml`` from the LJ13 VI checkpoint in
+    ``lj13_dir`` for ``algo: hmc`` (as committed: 64 chains, dual
+    averaging over 100 steps, 200 kept sweeps of 5 steps of 5 leapfrog
+    steps), ``mala`` (the same sweeps) and ``nuts`` (NUTS_CUT, max depth
+    8): one flow reverse of the 64 starts (5 bf16 K1), then the chains on
+    the LJ energy and the auxiliary Gaussians alone (no flow launch)."""
+    import os
+    import numpy as np
+    import torch
+
+    cwd = os.getcwd()
+    out = {}
+    try:
+        for algo in ("hmc", "mala", "nuts"):
+            over = dict(algo=algo, output=f"lj13_mcmc_{algo}.npz")
+            if algo == "nuts":
+                over.update(NUTS_CUT)
+            main = config_driver(lj13_dir, "sample_lj13_mcmc.yaml", over=over)
+            sec = main.args["sampling"]
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            samples = main.sample()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            got = vi_launches()
+            want = lj13_launches(main.n_iter, 0)
+            require(got == want, f"mcmc {algo} launches {got} != {want}")
+            C, S = sec["n_particles"], sec["n_samples"]
+            require(on_card(samples) and tuple(samples["pos"].shape)
+                    == (S, C, 13, 3), f"mcmc {algo}: draws not finite on "
+                    "the card or of the wrong shape")
+            with np.load(sec["output"]) as z:
+                stats = {k: float(z[k]) for k in ("accept_rate",
+                                                  "step_size", "mean_depth",
+                                                  "divergence_rate")
+                         if k in z.files}
+                require(z["pos"].shape == (S * C, 13, 3),
+                        f"mcmc {algo}: npz pos {z['pos'].shape}")
+            # kernel steps: hmc's warmup is n_warmup dual-averaging steps,
+            # mala's n_warmup sweeps of thin steps; a nuts sweep is one
+            # transition
+            W, thin = sec["n_warmup"], sec["thin"]
+            steps = {"hmc": W + S * thin, "mala": (W + S) * thin,
+                     "nuts": W + S}[algo]
+            phase("mcmc", f"sample_lj13_mcmc.yaml algo {algo} on {card}: "
+                  f"{C} chains, {S} kept sweeps"
+                  + (f" of {thin} steps" if algo != "nuts" else "")
+                  + f" after {W} warmup "
+                  + ("adaptation steps" if algo == "hmc" else "sweeps")
+                  + f": {secs:.3f} s, {secs / S:.4f} s a kept sweep "
+                  f"(warmup included), {steps} kernel steps at "
+                  f"{secs / steps * 1e3:.3f} ms; "
+                  + ", ".join(f"{k} {v:.4g}" for k, v in stats.items())
+                  + f"; launches K1 {got['k1']} (one reverse), K2 0, "
+                  "plain calls 0")
+            out[algo] = dict(secs=secs, stats=stats, k1=got["k1"])
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+# remc_lj13.yaml as committed (6 slots x 512 chains, 200 rounds), with MBAR,
+# once monolithic and once in segments of REMC_CHUNK rounds
+REMC_CHUNK = 50
+REMC = dict(B=3072, N=13, nf=5, H=128)
+
+
+def remc_phase(card, lj13_dir):
+    """``example/remc_lj13.yaml`` at full width from the LJ13 VI checkpoint
+    in ``lj13_dir``, with ``mbar: true``, once monolithic and once with
+    ``chunk_rounds`` REMC_CHUNK: bitwise equal, MBAR's log_Z finite and its
+    last change small; launches: one K*M reverse, one cache fill and
+    mcmc_steps x n_leapfrog value-and-grads a round over the flattened
+    ladder (bf16 K1/K2 at B=3,072), and two flow forwards for MBAR. Then
+    K1 and K2 at B=3,072 against their plain version, timed."""
+    import os
+    import numpy as np
+    import torch
+
+    cwd = os.getcwd()
+    runs = {}
+    try:
+        for label, chunk in (("monolithic", 0), ("chunked", REMC_CHUNK)):
+            main = config_driver(lj13_dir, "remc_lj13.yaml", over=dict(
+                mbar=True, chunk_rounds=chunk,
+                output=f"lj13_remc_{label}.npz"))
+            sec = main.args["sampling"]
+            reset_counts()
+            res, secs = timed_sample(main)
+            R = sec["n_rounds"]
+            n_vg = 1 + R * sec["mcmc_steps"] * sec["n_leapfrog"]
+            want = lj13_launches(main.n_iter, n_vg, extra_fwd=2)
+            got = vi_launches()
+            require(got == want, f"remc {label} launches {got} != {want}")
+            K, M = int(res.betas.shape[0]), sec["n_particles"]
+            require(on_card(res.samples) and on_card(res.x_final)
+                    and tuple(res.x_final["pos"].shape) == (K, M, 13, 3)
+                    and res.swap_accept.is_cuda and res.accept.is_cuda,
+                    f"remc {label}: outputs not finite on the card")
+            with np.load(sec["output"]) as z:
+                arrays = {k: z[k] for k in z.files}
+            require(np.isfinite(arrays["mbar_log_Z"])
+                    and float(arrays["mbar_converged"]) < 1e-2,
+                    f"remc {label}: mbar_log_Z {arrays['mbar_log_Z']}, "
+                    f"last change {arrays['mbar_converged']}")
+            runs[label] = (res, secs, got, arrays)
+    finally:
+        os.chdir(cwd)
+    (a, secs_a, got, za), (b, secs_b, _, zb) = runs["monolithic"], \
+        runs["chunked"]
+    diff = [k for k in za if not np.array_equal(za[k], zb[k])]
+    diff += [f"samples[{k}]" for k in a.samples
+             if not torch.equal(a.samples[k], b.samples[k])]
+    R = a.samples["pos"].shape[0]
+    phase("remc", f"remc_lj13.yaml as committed from the LJ13 VI checkpoint "
+          f"on {card}: {K} temps x {M} chains x {R} rounds, mbar: "
+          f"monolithic {secs_a:.3f} s ({secs_a / R * 1e3:.2f} ms a round), "
+          f"chunked by {REMC_CHUNK} {secs_b:.3f} s; swap accept "
+          + ", ".join(f"{x:.3f}" for x in za["swap_accept"])
+          + ", HMC accept " + ", ".join(f"{x:.3f}" for x in za["accept"])
+          + f"; mbar_log_Z {float(za['mbar_log_Z']):.4f} +- "
+          f"{float(za['mbar_log_Z_se']):.4f}, last change "
+          f"{float(za['mbar_converged']):.2e}; launches K1 {got['k1']} K2 "
+          f"{got['k2']} each, plain calls 0; chunked == monolithic bit for "
+          "bit: " + ("yes" if not diff else f"NO {diff}"))
+    require(not diff, f"chunked and monolithic REMC differ in {diff}")
+    rec = allpairs_vs_plain("remc", "remc_lj13 shape", REMC, "bfloat16", 47,
+                            ("fwd", "bwd"), plain_reps=(5, 2), device=True)
+    torch.cuda.empty_cache()
+    return dict(secs=secs_a, k1=got["k1"], k2=got["k2"], rec=rec,
+                s_round=secs_a / R)
+
+
+# ti_lj13.yaml (25 nodes x 256 chains, 400 sweeps with 150 warmup) cut to
+# TI_CUT sweeps a node, once monolithic and once in segments of TI_CHUNK
+TI_CUT = dict(n_samples=8, n_warmup=2)
+TI_CHUNK = 3
+
+
+def ti_phase(card, lj13_dir):
+    """``example/ti_lj13.yaml`` from the LJ13 VI checkpoint in ``lj13_dir``
+    at its 256 chains and 25 nodes with the sweeps cut to TI_CUT, once
+    monolithic and once with ``chunk_steps`` TI_CHUNK: bitwise equal;
+    launches: one reverse, then a cache fill and n_leapfrog value-and-grads
+    a sweep at every node (bf16 K1/K2 at B=256). Prints the seconds a sweep
+    and their extrapolation to the committed 400 sweeps a node."""
+    import os
+    import warnings
+    import torch
+
+    cwd = os.getcwd()
+    runs = {}
+    try:
+        for label, chunk in (("monolithic", None), ("chunked", TI_CHUNK)):
+            over = dict(TI_CUT, output=f"lj13_ti_{label}.npz",
+                        metrics_csv=f"lj13_ti_nodes_{label}.csv")
+            if chunk:
+                over["chunk_steps"] = chunk
+            main = config_driver(lj13_dir, "ti_lj13.yaml", over=over)
+            sec = main.args["sampling"]
+            reset_counts()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res, secs = timed_sample(main)
+            K, S = sec["ti_nodes"], sec["n_samples"]
+            n_vg = K * (1 + S * sec["n_leapfrog"])
+            want = lj13_launches(main.n_iter, n_vg)
+            got = vi_launches()
+            require(got == want, f"ti {label} launches {got} != {want}")
+            require(on_card(res.x) and res.node_mean.is_cuda
+                    and math.isfinite(float(res.log_Z)),
+                    f"ti {label}: outputs not finite on the card")
+            with open(sec["metrics_csv"]) as f:
+                rows = f.read().strip().splitlines()
+            require(len(rows) == K + 1, f"ti {label}: {len(rows)} CSV rows")
+            runs[label] = (res, secs, got, [str(w.message)[:60]
+                                            for w in caught])
+    finally:
+        os.chdir(cwd)
+    (a, secs_a, got, warned), (b, secs_b, _, _) = runs["monolithic"], \
+        runs["chunked"]
+    diff = [f for f in ("log_Z", "se", "quad_err", "node_mean", "node_se",
+                        "accept", "step_size")
+            if not torch.equal(getattr(a, f), getattr(b, f))]
+    diff += [f"x[{k}]" for k in a.x if not torch.equal(a.x[k], b.x[k])]
+    sweeps = K * S
+    s_sweep = secs_a / sweeps
+    phase("ti", f"ti_lj13.yaml from the LJ13 VI checkpoint on {card}: "
+          f"{K} nodes x {a.x['pos'].shape[0]} chains, n_samples {S} / "
+          f"n_warmup {TI_CUT['n_warmup']} (cut from 400 / 150): monolithic "
+          f"{secs_a:.3f} s, chunked by {TI_CHUNK} {secs_b:.3f} s; "
+          f"{s_sweep * 1e3:.2f} ms a sweep, so ~{s_sweep * K * 400:.0f} s "
+          f"for the committed {K} x 400 sweeps; log_Z "
+          f"{float(a.log_Z):.4f} +- {float(a.se):.4f} (quad_err "
+          f"{float(a.quad_err):.4f}), accept at beta 0 / 1 "
+          f"{float(a.accept[0]):.3f} / {float(a.accept[-1]):.3f}"
+          + (f", warned: {warned}" if warned else "")
+          + f"; launches K1 {got['k1']} K2 {got['k2']} each, plain calls 0;"
+          " chunked == monolithic bit for bit: "
+          + ("yes" if not diff else f"NO {diff}"))
+    require(not diff, f"chunked and monolithic TI differ in {diff}")
+    return dict(secs=secs_a, k1=got["k1"], k2=got["k2"], s_sweep=s_sweep)
+
+
 def build_phase():
     """Fresh builds of every kernel source, one nvcc each, in parallel."""
     from enflow_tpu_torch.ops import build
@@ -2843,6 +3223,10 @@ def main():
     ap.add_argument("--profile-vi", nargs="?", const="", default=None,
                     metavar="FILE", help="profile one vi_lj13.yaml epoch "
                     "instead of the phases after the build")
+    ap.add_argument("--profile-samplers", nargs="?", const="", default=None,
+                    metavar="FILE", help="profile REMC, TI and HMC runs "
+                    "(cut) and sample_ala2.yaml instead of the phases after "
+                    "the build; the tables to FILE.<config>")
     args = ap.parse_args()
     try:
         import torch
@@ -2884,6 +3268,9 @@ def main():
     if args.profile_generate is not None:
         profile_generate(card, table(args.profile_generate))
         return 0
+    if args.profile_samplers is not None:
+        profile_samplers(card, table(args.profile_samplers))
+        return 0
     def timed(name, fn, *a):
         t = time.perf_counter()
         out = fn(*a)
@@ -2896,12 +3283,18 @@ def main():
     timed("flow", flow_phase)
     timed("flags", flags_phase)
     n_fwd, n_bwd = timed("smc", smc_phase, card)
-    vi = timed("vi", vi_phase, card)
+    # the samplers of mcmc, remc and ti start from the VI phase's LJ13
+    # checkpoint
+    with tempfile.TemporaryDirectory() as lj13_dir:
+        vi = timed("vi", vi_phase, card, lj13_dir)
+        timed("mcmc", mcmc_phase, card, lj13_dir)
+        rm = timed("remc", remc_phase, card, lj13_dir)
+        timed("ti", ti_phase, card, lj13_dir)
     timed("vi55", vi55_phase, card)
     timed("lj55", lj55_phase, card)
     timed("fluid", fluid_phase, card)
     dw4 = timed("dw4", dw4_phase, card)
-    timed("ala2", ala2_phase)
+    ala2 = timed("ala2", ala2_phase, card)
     # generate reads the checkpoint that train writes, in the same cwd
     with tempfile.TemporaryDirectory() as tmp:
         tr = timed("train", train_phase, card, tmp)
@@ -2948,6 +3341,27 @@ def main():
     kernels.append(kernel_record("egcl_allpairs_f32_bwd",
                                  "egcl_allpairs_f32.cu", f"{v3}:414",
                                  dw4["after"]["k2"], err, ms, plain, bnd))
+    # the tiled f32 K1 / K2 p at vi_ala2.yaml's shape with that run's
+    # launches, and the f32 K2 at sample_ala2.yaml's B=2048 with its
+    ala2_vi, ala2_rec = ala2["vi"], ala2["rec"]
+    for name, direction, line, n in (
+            ("egcl_allpairs_f32_fwd_ala2", "fwd", 365,
+             ala2_vi["launches"]["k1"]),
+            ("egcl_allpairs_f32_bwd_params_ala2", "bwd_params", 414,
+             ala2_vi["launches"]["k2_params"]),
+            ("egcl_allpairs_f32_bwd_ala2", "bwd_2048", 414,
+             ala2_vi["after"]["k2"])):
+        err, ms, plain, bnd, _ = ala2_rec[direction]
+        kernels.append(kernel_record(name, "egcl_allpairs_f32.cu",
+                                     f"{v3}:{line}", n, err, ms, plain, bnd))
+    # bf16 K1 / K2 at remc_lj13.yaml's flattened ladder (B=3,072), with the
+    # launches of its monolithic run
+    for name, direction, line, n in (
+            ("egcl_allpairs_fwd_remc", "fwd", 365, rm["k1"]),
+            ("egcl_allpairs_bwd_remc", "bwd", 414, rm["k2"])):
+        err, ms, plain, bnd, _ = rm["rec"][direction]
+        kernels.append(kernel_record(name, "egcl_allpairs_sm90.cu",
+                                     f"{v3}:{line}", n, err, ms, plain, bnd))
     for name, key, n in (("pair_energy_r2", "r2", tr["k7_r2"]),
                          ("pair_energy_r", "r", tr["md_launches"]),
                          ("pair_energy_r_generate", "r_generate",

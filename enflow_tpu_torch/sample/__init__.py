@@ -1,4 +1,5 @@
-"""Port of ``enflow_tpu/sample``: flow-proposal SMC/AIS with tempered HMC."""
+"""Port of ``enflow_tpu/sample``: flow-proposal SMC/AIS, per-chain
+HMC/MALA/NUTS, REMC + MBAR, TI, and the force-field targets."""
 
 from . import targets
 from .mcmc import batched_value_and_grad, tempered_hmc_kernel_batched

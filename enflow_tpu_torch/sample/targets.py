@@ -2,8 +2,9 @@
 
 Batched over particles: ``log_prob(x [P, N, 3]) -> [P]``. Ported:
 ``Target``, ``regularize_energy``, ``lj_cluster``, ``lj_fluid``,
-``double_well`` and ``gaussian``; the force-field target is ROADMAP A5 and
-the atom-sharded ``log_prob_sharded`` members A7.
+``double_well`` and ``gaussian`` (the force-field target is
+``sample/forcefield.py``); the atom-sharded ``log_prob_sharded`` members
+are ROADMAP A7.
 """
 
 from __future__ import annotations

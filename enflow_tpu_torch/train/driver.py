@@ -15,12 +15,13 @@ Ported:
   ``checkpoint_interval`` epochs and at the last, and resume from a
   checkpoint of either package.
 - ``mode: train`` with ``objective: flow_vi`` against an ``lj_cluster``,
-  ``lj_fluid``, ``double_well`` or ``gaussian`` target (data-free), with
-  any ``position_update``: the base draws, the reverse-KL loss with optional
-  STL gradients, the softening / energy-cap / beta anneal, the optimizer
-  chain that zeroes non-finite gradients before the clip (default 10),
-  a checkpoint every epoch, resume from either package's checkpoint.
-  ``fused_epoch`` is accepted and runs the same per-step loop.
+  ``lj_fluid``, ``double_well``, ``gaussian`` or ``forcefield`` target
+  (data-free), with any ``position_update``: the base draws, the
+  reverse-KL loss with optional STL gradients, the softening / energy-cap /
+  beta anneal, the optimizer chain that zeroes non-finite gradients before
+  the clip (default 10), a checkpoint every epoch, resume from either
+  package's checkpoint. ``fused_epoch`` is accepted and runs the same
+  per-step loop.
 - ``training.metrics_csv`` for both objectives (``utils/observe.py``).
 - ``mode: generate``: the model from a checkpoint of either package, the
   LJ latent sampler's first frame reversed through the flow, ``h.out``,
@@ -28,18 +29,24 @@ Ported:
   out`` for positions and features.
 - ``mode: dataset``: the dataset alone, with its ``processed_file``
   cache and the simulated dataset's ``log`` and ``traj``.
-- ``mode: sample`` with ``sampling.algo: smc | ais`` (flow-proposal
-  SMC/AIS over the same targets), from a checkpoint's hparams or from a
-  fresh ``init_flow`` when the YAML gives ``dynamics.n_iter``, ``dt``,
-  ``integrator`` and ``network``; for SMC ``chunk_temps`` segments with
-  one retry on ``UNAVAILABLE``, ``checkpoint_every`` stage state files a
-  killed run resumes from, and ``sampling.metrics_csv``.
+- ``mode: sample`` with every ``sampling.algo``, over the same targets,
+  from a checkpoint's hparams or from a fresh ``init_flow`` when the YAML
+  gives ``dynamics.n_iter``, ``dt``, ``integrator`` and ``network``:
+  ``smc | ais`` (flow-proposal SMC/AIS; for SMC ``chunk_temps`` segments
+  with one retry on ``UNAVAILABLE``, ``checkpoint_every`` stage state
+  files a killed run resumes from), ``hmc | mala | nuts`` (chains from
+  flow draws on the target density), ``remc`` (flow-bridged parallel
+  tempering with ``chunk_rounds`` and optional MBAR) and ``ti``
+  (thermodynamic integration with ``chunk_steps``); ``sampling.
+  metrics_csv``; a force-field target adds its dihedrals and phi/psi
+  free-energy profiles to the npz.
 
 The config schema, checkpoints, npz outputs and printed lines are the JAX
-driver's. Every other mode, objective, dataset type, algo, target and
-option raises ``NotImplementedError`` naming its ROADMAP item, among them
-``mode: sample`` with ``dynamics.nbr_capacity`` (the SMC overflow probe,
-ROADMAP A5).
+driver's. Every other mode, objective, dataset type and option raises
+``NotImplementedError`` naming its ROADMAP item: ``mode: sample`` with
+``dynamics.nbr_capacity`` (the sampling overflow probe, A5.5),
+``training.profile_dir`` and ``debug.nan_checks`` (A5.6), dataset type
+``compose`` (A6) and ``parallel.atom_axis > 1`` (A7).
 
 The SMC runs batched: the densities see all particles at once, so on the
 card each EGCL is one launch of the fused kernel over the particle batch.
@@ -309,8 +316,8 @@ class Main:
         elif nbr_capacity is not None:
             raise NotImplementedError(
                 "dynamics.nbr_capacity is not ported for sampling (ROADMAP "
-                "A5: the SMC stage_fn overflow probe of the truncating "
-                "neighbor formats)")
+                "A5.5: the per-stage / per-round overflow probe of the "
+                "truncating neighbor formats)")
         self.node_nf = node_nf
 
         net_sec = dyn.get("network", {})
@@ -371,11 +378,11 @@ class Main:
             raise ValueError(f"unknown training.objective {objective!r}")
         if tr.get("profile_dir"):
             raise NotImplementedError(
-                "training.profile_dir is not ported yet (ROADMAP A5, "
+                "training.profile_dir is not ported yet (ROADMAP A5.6, "
                 "utils/observe.py)")
         if args.get("debug", {}).get("nan_checks"):
             raise NotImplementedError(
-                "debug.nan_checks is not ported yet (ROADMAP A5, "
+                "debug.nan_checks is not ported yet (ROADMAP A5.6, "
                 "utils/observe.py)")
         if (objective == "nll"
                 and args.get("dataset", {}).get("type") == "compose"):
@@ -843,22 +850,35 @@ class Main:
         elif ttype == "gaussian":
             t = T.gaussian((n_atoms, 3), std=float(section.get("std", 1.0)))
         elif ttype == "forcefield":
-            raise NotImplementedError(
-                "target type 'forcefield' is not ported yet (ROADMAP A5, "
-                "sample/forcefield.py)")
+            # molecular force field, parameters inline under 'params' or in
+            # 'params_file'; the Coulomb constant from the target section,
+            # else the params file, else 1.0 (driver.py:798-817)
+            from ..sample.forcefield import ForceField, forcefield_target
+            if "params_file" in section:
+                with open(section["params_file"]) as f:
+                    pd = yaml.safe_load(f)
+            else:
+                pd = section["params"]
+            ke = section.get("coulomb_const", pd.get("coulomb_const", 1.0))
+            # the run's dtype, f32 below f64 (the JAX package's float64
+            # default is float32 on a device without x64)
+            ff_dtype = (torch.float64 if self.dtype == torch.float64
+                        else torch.float32)
+            ff = ForceField.from_dict(pd, dtype=ff_dtype, device=self.device,
+                                      ke=float(ke))
+            t = forcefield_target(ff, kBT=kBT, e_cap=e_cap)
+            n_atoms = ff.n_atoms
+            # the dihedral observables of the sample modes (_ff_extras)
+            self._ff, self._ff_params, self._ff_kBT = ff, pd, kBT
         else:
             raise ValueError(f"unknown target type {ttype!r}")
         return t, n_atoms
 
     def sample(self):
-        """Flow-proposal SMC/AIS: writes an npz with particles and weights
-        and prints a one-line summary."""
+        """``mode: sample``: writes the algo's npz and prints its one-line
+        summary (``driver.py:1150-1282``)."""
         sec = self.args["sampling"]
         algo_name = str(sec.get("algo", "smc")).lower()
-        if algo_name not in ("smc", "ais"):
-            raise NotImplementedError(
-                f"sampling.algo={algo_name!r} is not ported yet (ROADMAP "
-                "A5); the port runs smc | ais")
         target, n_atoms = self._build_pos_target(sec["target"])
         P = int(sec.get("n_particles", 1024))
         box = float(sec["target"].get("box", 1e3))
@@ -867,6 +887,18 @@ class Main:
         cfg = dataclasses.replace(self.flow_cfg, exact_ldj=True)
         propose_z, log_q0, log_p = flow_densities(self.params, cfg, target,
                                                   n_atoms, box, r_cut)
+        if algo_name == "remc":
+            return self._sample_remc(sec, propose_z, log_q0, log_p, P,
+                                     n_atoms)
+        if algo_name in ("hmc", "nuts", "mala"):
+            return self._sample_mcmc(algo_name, sec, propose_z, log_p, P,
+                                     n_atoms)
+        if algo_name == "ti":
+            return self._sample_ti(sec, propose_z, log_q0, log_p, P, n_atoms)
+        if algo_name not in ("smc", "ais"):
+            raise ValueError(
+                f"sampling.algo={algo_name!r}; expected one of "
+                "smc | ais | remc | hmc | nuts | mala | ti")
         return self._run_smc_ais(sec, algo_name, propose_z, log_q0, log_p, P,
                                  n_atoms)
 
@@ -928,11 +960,17 @@ class Main:
         ess = float(ess_from_log_weights(res.log_weights))
         out_path = sec.get("output", "samples.npz")
         parts = {k: _host(v) for k, v in res.particles.items()}
+        # force-field targets: dihedrals and importance-weighted phi/psi
+        # profiles
+        lw = _host(res.log_weights)
+        w = np.exp(lw - lw.max())
+        extra_out = self._ff_extras(res.particles["pos"], w / w.sum(), sec)
         np.savez(out_path, pos=parts["pos"], vel=parts["vel"], h=parts["h"],
                  g=parts["g"], log_weights=_host(res.log_weights),
                  log_Z=_host(res.log_Z), ess_history=_host(res.ess_history),
                  **({"beta_history": _host(res.beta_history)}
-                    if res.beta_history is not None else {}))
+                    if res.beta_history is not None else {}),
+                 **extra_out)
         print(f"sampled {P} particles -> {out_path}  "
               f"log_Z={float(res.log_Z):.3f}  final_ESS={ess:.1f}  "
               f"accept={float(res.accept_history[-1]):.2f}"
@@ -1075,6 +1113,325 @@ class Main:
                        retries=n_retries if last else "",
                        nbr_overflow="")
         logger.close()
+
+    def _ff_extras(self, pos, weights, sec):
+        """Dihedral observables and phi/psi free-energy profiles of a
+        force-field target (``driver.py:1619-1638``): ``pos [n, N, 3]`` (a
+        tensor, the dihedrals computed on its device), ``weights [n]`` or
+        None. Empty for other targets."""
+        ff = getattr(self, "_ff", None)
+        if ff is None:
+            return {}
+        from ..sample.forcefield import dihedral_angles, free_energy_profile
+
+        ang = _host(dihedral_angles(ff, torch.as_tensor(pos,
+                                                        device=ff.sigma.device)))
+        extra_out = {"dihedrals": ang}
+        for name in ("phi", "psi"):
+            i = self._ff_params.get(f"{name}_torsion_index")
+            if i is not None:
+                c, F = free_energy_profile(
+                    ang[:, int(i)], self._ff_kBT,
+                    bins=int(sec.get("fe_bins", 36)), weights=weights)
+                extra_out[f"{name}_centers"] = c
+                extra_out[f"{name}_free_energy"] = F
+        return extra_out
+
+    def _sample_mcmc(self, algo, sec, propose_z, log_p, C, n_atoms):
+        """``sampling.algo: hmc | nuts | mala`` (``driver.py:1640-1727``):
+        plain MCMC on the target density (``log_p``: the target plus the
+        auxiliary Gaussians; the flow only draws the chain starts, one
+        reverse). Keys ``n_particles`` (chains), ``n_samples`` (kept
+        sweeps), ``n_warmup``, ``thin``, ``step_size``; HMC ``n_leapfrog``
+        and ``adapt_step`` / ``target_accept`` (dual averaging over
+        ``n_warmup`` steps in place of the warmup sweeps); NUTS
+        ``max_depth`` (its state one flat vector a chain, the leaves in
+        sorted key order). The npz holds ``[n_samples * C]`` unweighted
+        draws."""
+        from ..sample import mcmc as mcmc_lib
+
+        n_samples = int(sec.get("n_samples", 100))
+        n_warmup = int(sec.get("n_warmup", 50))
+        thin = int(sec.get("thin", 1))
+        step_size = float(sec.get("step_size", 0.02))
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.seed + 31)
+        x0 = propose_z(self._latents(gen, C, n_atoms))
+        if algo == "hmc":
+            n_leapfrog = int(sec.get("n_leapfrog", 5))
+            if bool(sec.get("adapt_step", False)):
+                eps, x0 = mcmc_lib.dual_averaging_warmup(
+                    gen, x0, log_p, n_adapt=max(n_warmup, 1),
+                    n_leapfrog=n_leapfrog,
+                    target_accept=float(sec.get("target_accept", 0.65)),
+                    init_step_size=step_size)
+                step_size = float(eps)
+                n_warmup = 0
+            res = mcmc_lib.run_hmc(gen, x0, log_p, n_samples=n_samples,
+                                   n_warmup=n_warmup, step_size=step_size,
+                                   n_leapfrog=n_leapfrog, thin=thin)
+            samples = res.samples
+            extra_info = {"accept_rate": _host(res.accept_rate),
+                          "step_size": step_size}
+        elif algo == "mala":
+            res = mcmc_lib.run_mala(gen, x0, log_p, n_samples=n_samples,
+                                    n_warmup=n_warmup, step_size=step_size,
+                                    thin=thin)
+            samples = res.samples
+            extra_info = {"accept_rate": _host(res.accept_rate),
+                          "step_size": step_size}
+        else:
+            from ..sample.nuts import run_nuts
+            keys = sorted(x0)
+            sizes = [x0[k][0].numel() for k in keys]
+            shapes = [tuple(x0[k].shape[1:]) for k in keys]
+
+            def unravel(v):
+                parts = torch.split(v, sizes, dim=-1)
+                return {k: p.reshape(v.shape[:-1] + s)
+                        for k, p, s in zip(keys, parts, shapes)}
+
+            flat0 = torch.cat([x0[k].reshape(C, -1) for k in keys], dim=1)
+            res = run_nuts(gen, flat0, lambda v: log_p(unravel(v)),
+                           n_samples=n_samples, n_warmup=n_warmup,
+                           step_size=step_size,
+                           max_depth=int(sec.get("max_depth", 8)))
+            samples = unravel(res.samples)
+            extra_info = {"mean_depth": float(res.mean_depth),
+                          "divergence_rate": float(res.divergence_rate)}
+        flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in samples.items()}
+        out_path = sec.get("output", "samples.npz")
+        extra_out = self._ff_extras(flat["pos"], None, sec)
+        np.savez(out_path, algo=algo, **{k: _host(v) for k, v in flat.items()},
+                 **extra_info, **extra_out)
+        stats = "  ".join(f"{k}={float(np.asarray(v)):.3g}"
+                          for k, v in extra_info.items())
+        print(f"sampled {flat['pos'].shape[0]} draws "
+              f"({n_samples} sweeps x {C} chains, {algo}) -> {out_path}"
+              f"  {stats}", flush=True)
+        csv_path = sec.get("metrics_csv")
+        if csv_path:
+            logger = MetricsLogger(csv_path)
+            logger.log(algo=algo, n_chains=C, n_samples=n_samples,
+                       **{k: float(np.asarray(v))
+                          for k, v in extra_info.items()})
+            logger.close()
+        return samples
+
+    def _sample_ti(self, sec, propose_z, log_q0, log_p, C, n_atoms):
+        """``sampling.algo: ti`` (``driver.py:1729-1810``), thermodynamic
+        integration along the flow bridge from one flow draw of ``C``
+        chains, every dispatch through the retrying runner. Keys
+        ``ti_nodes`` (25), ``beta_min``, ``n_samples`` (sweeps a node,
+        400), ``n_warmup`` (150), ``step_size`` (0.08), ``step_size_final``,
+        ``n_leapfrog``, ``adapt_step`` / ``target_accept``,
+        ``precondition``, ``chunk_steps``. The npz holds the final beta=1
+        chains and the node table; ``metrics_csv`` one row a node."""
+        from ..sample.ti import thermodynamic_integration
+
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.seed + 37)
+        x0 = propose_z(self._latents(gen, C, n_atoms))
+        run, retries = self._retrying_runner()
+        res = thermodynamic_integration(
+            gen, x0, log_q0=log_q0, log_p=log_p,
+            n_nodes=int(sec.get("ti_nodes", 25)),
+            beta_min=float(sec.get("beta_min", 0.01)),
+            n_steps=int(sec.get("n_samples", 400)),
+            n_warmup=int(sec.get("n_warmup", 150)),
+            step_size=float(sec.get("step_size", 0.08)),
+            step_size_final=(None if sec.get("step_size_final") is None
+                             else float(sec["step_size_final"])),
+            n_leapfrog=int(sec.get("n_leapfrog", 5)),
+            adapt_step=bool(sec.get("adapt_step", False)),
+            target_accept=float(sec.get("target_accept", 0.65)),
+            precondition=bool(sec.get("precondition", False)),
+            chunk_steps=(None if sec.get("chunk_steps") is None
+                         else int(sec["chunk_steps"])),
+            run_node=run)
+        flat = {k: _host(v) for k, v in res.x.items()}
+        out_path = sec.get("output", "samples.npz")
+        extra_out = self._ff_extras(res.x["pos"], None, sec)
+        bet, mean, se_n, acc = (_host(t) for t in (
+            res.betas, res.node_mean, res.node_se, res.accept))
+        np.savez(out_path, algo="ti", log_Z=float(res.log_Z),
+                 log_Z_se=float(res.se), quad_err=float(res.quad_err),
+                 betas=bet, node_mean=mean, node_se=se_n, node_accept=acc,
+                 **flat, **extra_out)
+        print(f"TI over {len(bet)} nodes x {C} chains"
+              f" -> {out_path}  log_Z={float(res.log_Z):.3f}"
+              f" +- {float(res.se):.3f} (quad_err {float(res.quad_err):.3f},"
+              f" mean accept {float(acc.mean()):.2f},"
+              f" retries {retries['n']})", flush=True)
+        csv_path = sec.get("metrics_csv")
+        if csv_path:
+            logger = MetricsLogger(csv_path)
+            for i in range(len(bet)):
+                logger.log(algo="ti", node=i, beta=float(bet[i]),
+                           integrand=float(mean[i]),
+                           integrand_se=float(se_n[i]),
+                           accept=float(acc[i]))
+            logger.close()
+        return res
+
+    def _remc_ladder(self, sec):
+        """``sampling.betas``, else ``[0] + geomspace(beta_hot, 1,
+        n_temps - 1)`` (``beta_min <= 0``, the default) or
+        ``geomspace(beta_min, 1, n_temps)``, the last slot pinned to 1
+        (``driver.py:1841-1866``)."""
+        betas = sec.get("betas")
+        if betas is not None:
+            return np.asarray([float(b) for b in betas])
+        beta_min = float(sec.get("beta_min", 0.0))
+        n_temps = int(sec.get("n_temps", 6))
+        if n_temps < 2:
+            raise ValueError("sampling.n_temps must be >= 2 for remc "
+                             "(a ladder needs a base and a target slot)")
+        if beta_min <= 0.0:
+            betas = np.concatenate([
+                np.zeros((1,)),
+                np.geomspace(float(sec.get("beta_hot", 0.05)), 1.0,
+                             n_temps - 1)])
+        else:
+            betas = np.geomspace(beta_min, 1.0, n_temps)
+        betas[-1] = 1.0
+        return betas
+
+    def _sample_remc(self, sec, propose_z, log_q0, log_p, M, n_atoms):
+        """``sampling.algo: remc`` (``driver.py:1812-2077``): flow-bridged
+        parallel tempering over ``_remc_ladder``'s slots x ``M`` chains,
+        independent flow draws for every slot from ONE ``K*M`` reverse, a
+        per-slot ``step_size`` list or one step, ``n_rounds`` and
+        ``discard_rounds`` (default half), ``chunk_rounds`` segments
+        through the retrying runner; with ``mbar: true`` MBAR over the
+        final ladder and ``mbar_pool_rounds`` thinned kept beta=1 rounds
+        (``mbar_iters``, ``mbar_blocks`` column-block replicates). The npz
+        holds the kept beta=1 rounds ``[R - discard, M, ...]``, the swap
+        and HMC acceptances, the ladder and the MBAR results;
+        ``metrics_csv`` one row a slot."""
+        from ..sample.mcmc import tree_map
+        from ..sample.remc import remc, remc_segments
+
+        betas = self._remc_ladder(sec)
+        K = len(betas)
+        step_size = sec.get("step_size", 0.02)
+        if isinstance(step_size, (list, tuple)):
+            step_size = [float(s) for s in step_size]
+        else:
+            step_size = float(step_size)
+        n_rounds = int(sec.get("n_rounds", 100))
+        discard = int(sec.get("discard_rounds", n_rounds // 2))
+        knobs = dict(log_p=log_p, log_q0=log_q0, betas=betas,
+                     n_rounds=n_rounds,
+                     mcmc_steps=int(sec.get("mcmc_steps", 1)),
+                     step_size=step_size,
+                     n_leapfrog=int(sec.get("n_leapfrog", 5)))
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.seed + 31)
+        # INDEPENDENT flow draws per slot, one K*M reverse reshaped: swaps
+        # act within a chain column, so a tiled bad draw would wedge its
+        # column's beta=1 slot
+        z = self._latents(gen, K * M, n_atoms)
+
+        def draw(z):
+            return tree_map(lambda a: a.reshape((K, M) + a.shape[1:]),
+                            propose_z(z))
+
+        n_retries = 0
+        chunk = int(sec.get("chunk_rounds", 0))
+        if chunk > 0:
+            run_segment, retries = self._retrying_runner()
+            x0 = run_segment(draw, z)
+            res = remc_segments(gen, x0, chunk_rounds=chunk,
+                                run_segment=run_segment, **knobs)
+            n_retries = retries["n"]
+        else:
+            res = remc(gen, draw(z), **knobs)
+        mbar_out = self._remc_mbar(sec, res, log_p, log_q0, M, discard)
+
+        out_path = sec.get("output", "samples.npz")
+        keep = {k: v[discard:] for k, v in res.samples.items()}
+        extra_out = self._ff_extras(
+            keep["pos"].reshape((-1,) + keep["pos"].shape[2:]), None, sec)
+        sa, acc, bet = (_host(t) for t in (res.swap_accept, res.accept,
+                                            res.betas))
+        np.savez(out_path, **{k: _host(v) for k, v in keep.items()},
+                 swap_accept=sa, accept=acc, betas=bet, **mbar_out,
+                 **extra_out)
+        mb = (f"  mbar_log_Z={mbar_out['mbar_log_Z']:.3f}"
+              if mbar_out else "")
+        if "mbar_log_Z_se" in mbar_out:
+            mb += f"+-{mbar_out['mbar_log_Z_se']:.3f}"
+        retr = f"  retries={n_retries}" if n_retries else ""
+        print(f"remc: {n_rounds} rounds x {M} chains x {K} temps -> "
+              f"{out_path}  kept {keep['pos'].shape[0]} rounds  "
+              f"swap_accept=[{sa.min():.2f},{sa.max():.2f}]  "
+              f"hmc_accept={float(acc[-1]):.2f}{mb}{retr}", flush=True)
+        csv_path = sec.get("metrics_csv")
+        if csv_path:
+            # one row per slot: beta, HMC accept, the swap accept with the
+            # next slot; MBAR and the retries on the last
+            logger = MetricsLogger(csv_path)
+            for k in range(K):
+                logger.log(slot=k, beta=float(bet[k]),
+                           hmc_accept=float(acc[k]),
+                           swap_accept=(float(sa[k]) if k < K - 1 else ""),
+                           mbar_log_Z=(mbar_out.get("mbar_log_Z", "")
+                                       if k == K - 1 else ""),
+                           retries=(n_retries if k == K - 1 else ""),
+                           nbr_overflow="")
+            logger.close()
+        return res
+
+    @torch.no_grad()
+    def _remc_mbar(self, sec, res, log_p, log_q0, M, discard):
+        """The MBAR block of ``_sample_remc`` (``driver.py:1929-2018``):
+        the final ladder's ``K*M`` states, then ``mbar_pool_rounds``
+        (default 5) kept beta=1 rounds from ``[discard, R-2]`` (round R-1's
+        beta=1 slot is ``x_final``'s), evaluated under the bridged family;
+        ``mbar_iters`` (1000) iterations; ``mbar_blocks`` (4) column-block
+        replicates for the error bar. Empty without ``mbar: true``."""
+        if not sec.get("mbar"):
+            return {}
+        from ..sample.mbar import (bridge_potentials, mbar, mbar_block_log_z,
+                                   mbar_from_remc)
+        from ..sample.mcmc import tree_map
+
+        u_kn, counts = mbar_from_remc(res, log_p, log_q0)
+        K = int(res.betas.shape[0])
+        # provenance of every pooled sample: x_final flattens [K, M] row
+        # major, so sample n is state n // M, chain column n % M
+        states = np.repeat(np.arange(K), M)
+        columns = np.tile(np.arange(M), K)
+        n_pool = int(sec.get("mbar_pool_rounds", 5))
+        R = int(res.samples["pos"].shape[0])
+        if n_pool > 0 and R - 1 > discard:
+            idx = np.unique(np.linspace(discard, R - 2, n_pool, dtype=int))
+            sel = torch.as_tensor(idx, device=res.betas.device)
+            pooled = tree_map(lambda a: a[sel].reshape((-1,) + a.shape[2:]),
+                              res.samples)
+            lp2, lq2 = log_p(pooled), log_q0(pooled)
+            u_kn = torch.cat([u_kn, bridge_potentials(res.betas, lq2, lp2)],
+                             dim=1)
+            counts = counts.clone()
+            counts[-1] += lp2.shape[0]
+            states = np.concatenate([states,
+                                     np.full(int(lp2.shape[0]), K - 1)])
+            columns = np.concatenate(
+                [columns, np.tile(np.arange(M), int(lp2.shape[0]) // M)])
+        n_it = int(sec.get("mbar_iters", 1000))
+        mres = mbar(u_kn, counts, n_iter=n_it)
+        out = {"mbar_f": _host(mres.f),
+               "mbar_log_Z": -float(mres.f[-1] - mres.f[0]),
+               "mbar_converged": float(mres.converged)}
+        n_blocks = int(sec.get("mbar_blocks", 4))
+        if n_blocks > 1 and M >= n_blocks:
+            blocks = mbar_block_log_z(u_kn, states, columns, K,
+                                      n_blocks=n_blocks, n_iter=n_it)
+            out["mbar_log_Z_blocks"] = blocks
+            out["mbar_log_Z_se"] = float(blocks.std(ddof=1)
+                                         / np.sqrt(len(blocks)))
+        return out
 
     # ------------------------------------------------------------------
     # generate

@@ -1,6 +1,6 @@
 """Metrics logging, the port of ``MetricsLogger`` in
 ``enflow_tpu/utils/observe.py`` (the port keeps its own copy). The JAX
-module's profiler hook and NaN guard are not ported (ROADMAP A5): the
+module's profiler hook and NaN guard are not ported (ROADMAP A5.6): the
 driver raises on ``training.profile_dir`` and
 ``debug.nan_checks``."""
 

@@ -8,9 +8,11 @@ import re
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from enflow_tpu_torch import resolve_device
 from enflow_tpu_torch.__main__ import main as cli_main
+from enflow_tpu_torch.sample.forcefield import ForceField
 from enflow_tpu_torch.train.driver import Main
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -64,16 +66,24 @@ def test_driver_sample_cpu(tmp_path, capsys, algo, cdt, kernel):
 
 
 def test_driver_rejects_unported_modes(tmp_path):
-    # sampling with a neighbor capacity waits on the SMC overflow probe
+    # sampling with a neighbor capacity waits on the overflow probe
     cfg = tmp_path / "sample_capacity.yaml"
     cfg.write_text(YAML.format(algo="smc", cdt="null", kernel="false",
                                out=tmp_path / "x.npz").replace(
         "  nbr_mode: all_pairs\n", "  nbr_mode: dense\n  nbr_capacity: 8\n"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A5.5"):
         Main(device="cpu")(str(cfg))
-    cfg.write_text(YAML.format(algo="remc", cdt="null", kernel="false",
+    # the profiler hook and the NaN guard of the NLL trainer
+    train = {"mode": "train", "units": {"time": "pico", "dist": "ang"}}
+    for over in ({"training": {"profile_dir": str(tmp_path / "prof")}},
+                 {"debug": {"nan_checks": True}}):
+        cfg.write_text(yaml.safe_dump({**train, **over}))
+        with pytest.raises(NotImplementedError, match="ROADMAP A5.6"):
+            Main(device="cpu")(str(cfg))
+    # an unknown algo is the JAX driver's ValueError
+    cfg.write_text(YAML.format(algo="gibbs", cdt="null", kernel="false",
                                out=tmp_path / "x.npz"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="smc | ais | remc"):
         Main(device="cpu")(str(cfg))
 
 
@@ -117,11 +127,15 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         Main()
-    cfg = tmp_path / "sample.yaml"
-    cfg.write_text(YAML.format(algo="smc", cdt="null", kernel="v3",
-                               out=tmp_path / "x.npz"))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        cli_main([str(cfg)])
+    # every sampling algo and the force-field target's parameters
+    for algo in ("smc", "ais", "hmc", "mala", "nuts", "remc", "ti"):
+        cfg = tmp_path / f"{algo}.yaml"
+        cfg.write_text(YAML.format(algo=algo, cdt="null", kernel="v3",
+                                   out=tmp_path / "x.npz"))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli_main([str(cfg)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ForceField.from_dict({"atoms": [[1.0, 0.1, 0.0]] * 2})
 
 
 _FORBIDDEN = re.compile(
@@ -134,6 +148,9 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "enflow_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "chip_mutants.py"]
     assert len(files) > 20
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {f"enflow_tpu_torch/sample/{m}.py" for m in (
+        "forcefield", "mcmc", "nuts", "remc", "mbar", "ti")} <= names
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"

@@ -173,9 +173,19 @@ def test_driver_target_refusals(tmp_path):
     with pytest.raises(ValueError, match="lj_fluid.*requires 'box'"):
         Main(device="cpu").setup(_vi_yaml(
             tmp_path, {"type": "lj_fluid", "n_atoms": 5}))
-    with pytest.raises(NotImplementedError, match="forcefield.*ROADMAP A5"):
+    # the force-field target is ported: its atoms come from its parameters,
+    # not the section's n_atoms, and it takes no anneal
+    chain = {"atoms": [[1.0, 0.2, 0.0]] * 4,
+             "bonds": [[0, 1, 100.0, 1.5], [1, 2, 100.0, 1.5],
+                       [2, 3, 100.0, 1.5]]}
+    main = Main(device="cpu")
+    main.setup(_vi_yaml(tmp_path, {"type": "forcefield", "n_atoms": 5,
+                                   "kBT": 0.5, "params": chain}))
+    assert main.vi_target.name == "forcefield" and main.vi_n_atoms == 4
+    with pytest.raises(ValueError, match="lj_cluster and lj_fluid"):
         Main(device="cpu").setup(_vi_yaml(
-            tmp_path, {"type": "forcefield", "n_atoms": 5}))
+            tmp_path, {"type": "forcefield", "params": chain,
+                       "anneal": {"epochs": 2}}))
     with pytest.raises(ValueError, match="unknown target"):
         Main(device="cpu").setup(_vi_yaml(
             tmp_path, {"type": "lj_glass", "n_atoms": 5}))
