@@ -134,6 +134,39 @@ non-zero):
    N=22, nf=4, H=128 (the K2's dh/dpos also against K2 p's), the K2 also
    at B=2048, a second launch bitwise equal, each timed (events and
    device time) with its bound.
+8e. probe — the sampling overflow probe (ROADMAP A5.5):
+   ``example/sample_lj13.yaml`` as committed (2048 particles, 10 temps, 1
+   x 5 HMC, bf16, H=128) from the LJ13 VI checkpoint with ``nbr_mode:
+   topk``: at ``nbr_capacity`` PROBE_CAP monolithic and with
+   ``chunk_temps`` PROBE_CHUNK (bitwise equal, the per-stage
+   ``nbr_overflow`` column included, one integer a stage summing above 0,
+   the truncation warning printed), at PROBE_FULL (= N - 1) a column of
+   zeros; every run 5 x (1 + 51 + 10) bf16 K5 and 5 x 51 K6, no plain
+   call, every output on the card. Then ``remc_lj13.yaml`` with the same
+   override cut to PROBE_REMC rounds, monolithic and in segments of
+   PROBE_REMC_CHUNK (bitwise equal, one probe entry a round, the total on
+   the CSV's last row), and the probe alone timed (CUDA events and the
+   host clock) beside the run's seconds.
+10h. data — the readers, ``compose`` and the trainer's observability
+   (A6, A5.6): ``example/train.yaml`` at full width with ``dataset: {type:
+   compose, number: 2}``: ``dataset1`` the committed ``lj`` dataset,
+   ``dataset2`` an ``md`` dataset of a ``.gro`` and a ``.trr`` (nm, with
+   box and velocities) that ``formats.write_trr`` wrote from
+   ``dataset1``'s frames. 2 epochs with ``profile_dir`` and
+   ``nan_checks`` (a trace of the second epoch that names the edge
+   kernel), then 1 epoch with both off: 2 x 91 samples of one node_nf,
+   finite losses, 5 K5 + 5 K6 + 1 K7 r2 a step, s/step with the guard on
+   and off. A NaN put into one parameter: the guarded epoch raises
+   ``FloatingPointError``, the unguarded one runs. The ``.trr`` and an
+   ``.xyz`` of the same frames read through ``largemd``: its length,
+   ``max_atoms`` and first sample equal ``md``'s.
+10i. import — a reference-layout ``model.cpt`` at train.yaml's width
+   (node_nf 1, H=128, 5 networks, ArgMax) from a seeded generator,
+   converted by ``python -m enflow_tpu_torch.utils.torch_import``,
+   trained 1 epoch of train.yaml on the card (launches as in data), and
+   the untrained import exported back by ``python -m
+   enflow_tpu_torch.utils.torch_export``: bit for bit the input state
+   dict.
 11. edge  — the gathered-edge EGCL kernels (forward K5, backward K6 with
    all seven parameter gradients) against their plain version at the
    training shape (A=390 atoms, K = the auto capacity phase 10 observed,
@@ -142,9 +175,10 @@ non-zero):
    padding (K=13), and at H=64 (the tiled kernels) and H=96 (the chunked
    kernels, by the wrapper's size rule), each in bf16 and f32, and in f32
    at generate.yaml's shape (A=2,944, K = phase generate's auto capacity,
-   C=3, H=128, the share of valid slots it saw); a second K5 and K6 launch
-   must give the same bits. Timed as in phase 3 at main, ragged and
-   generate, and as device time per launch.
+   C=3, H=128, the share of valid slots it saw), and in bf16 at the top-k
+   sampler's shape of phase probe (A = 2048 x 13, K=8, C=11, H=128); a
+   second K5 and K6 launch must give the same bits. Timed as in phase 3
+   at main, ragged, generate and sampler, and as device time per launch.
 
 ``python3 chip_smoke.py --ab OLD.cu`` runs phases 1-2 and then times the
 kernels built from OLD.cu against the current ones, alternating old,
@@ -656,7 +690,8 @@ def bound(flop, nbytes, peak):
 
 # K5/K6 shapes: the training path's (A = 30 molecules x 13 atoms, K = the
 # auto capacity of train.yaml's first frame, 24, which the train phase
-# reports and passes in, C = 2 nf + 1 = 3), a ragged one (15% of slots and
+# reports and passes in, C = 2 nf + 1 = 3), the top-k sampler's, a ragged
+# one (15% of slots and
 # some whole atoms masked, C = 11), a small one whose gate is exactly 20 so
 # that cd * gate hits the clip bounds +-100 exactly (the strict clip mask
 # of the backward, edge_kernel.py:137), one whose row tiles end in padded
@@ -665,13 +700,19 @@ def bound(flop, nbytes, peak):
 # four are checked, not timed.
 EDGE_SHAPES = {
     "main": dict(A=390, K=24, C=3, H=128, masked=0.2),
+    # phase probe's top-k SMC: 2048 particles x 13 atoms, K = 8 of 12
+    # neighbours, every slot valid (r_cut 100), nf = 5
+    "sampler": dict(A=2048 * 13, K=8, C=11, H=128, masked=0.0,
+                    dtypes=("bfloat16",)),
     "ragged": dict(A=1000, K=40, C=11, H=128, masked=0.15, dead=37),
     "clip": dict(A=64, K=8, C=3, H=128, masked=0.1, clip=True),
     "odd": dict(A=777, K=13, C=5, H=128, masked=0.2),
     "h64": dict(A=500, K=24, C=3, H=64, masked=0.2),
     "h96": dict(A=200, K=16, C=3, H=96, masked=0.2),
 }
-EDGE_TIMED = ("main", "ragged", "generate")
+EDGE_TIMED = ("main", "ragged", "generate", "sampler")
+# the f32 shapes timed against an earlier edge_pipeline.cu (--ab)
+EDGE_AB = ("main", "ragged")
 EDGE_OUT = ("agg", "F_sum", "de", "dcd", "dW1", "db1", "dW2", "db2", "dW3",
             "db3", "dw4")
 # K7 shapes: the NLL term of a training batch, the MD potential of the
@@ -1408,7 +1449,7 @@ def edge_ab_phase(card, old_lib):
     """An earlier edge_pipeline.cu (``old_lib``, built) against the current
     one, f32, in turns old, new, new, old, old, new within this process:
     every launch of an old turn goes to the old source's kernels. A turn
-    times K5 and K6 at EDGE_TIMED (the training shape and the ragged one)
+    times K5 and K6 at EDGE_AB (the training shape and the ragged one)
     with CUDA events and device time, then one train.yaml epoch (after a
     warm-up epoch before the first turn)."""
     import os
@@ -1425,7 +1466,7 @@ def edge_ab_phase(card, old_lib):
         ep.uses_tiled = (lambda H: False) if which == "old" else tiled
 
     cases = {}
-    for sname in EDGE_TIMED:
+    for sname in EDGE_AB:
         e, cd, em, W, dagg, dfs, _ = gathered_inputs(EDGE_SHAPES[sname],
                                                       torch.float32, 13)
         cases[sname] = (
@@ -3163,6 +3204,522 @@ def ti_phase(card, lj13_dir):
     return dict(secs=secs_a, k1=got["k1"], k2=got["k2"], s_sweep=s_sweep)
 
 
+# phase probe: sample_lj13.yaml in the top-k format at a truncating
+# capacity (8 of 12 neighbours) and at N - 1, and remc_lj13.yaml cut to
+# PROBE_REMC's rounds
+PROBE_CAP, PROBE_FULL, PROBE_CHUNK = 8, 12, 3
+PROBE_REMC = dict(n_rounds=20, discard_rounds=10)
+PROBE_REMC_CHUNK = 5
+
+
+def run_captured(fn):
+    """``(fn(), stderr text)``: the standard error captured (and written
+    out when ``fn`` raises)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(buf):
+            out = fn()
+    except BaseException:
+        sys.stderr.write(buf.getvalue())
+        raise
+    return out, buf.getvalue()
+
+
+def edge_launches():
+    """K5/K6 launches, all-pairs launches and plain calls since the counts
+    were reset."""
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    from enflow_tpu_torch.ops import egcl_allpairs as ea
+    c = ea.counts
+    return dict(k5=ep.counts.fwd_launches, k6=ep.counts.bwd_launches,
+                allpairs=(c.fwd_launches + c.bwd_launches
+                          + c.bwd_f32_launches + c.bwd_param_launches),
+                plain=plain_calls())
+
+
+def read_csv(path):
+    import csv
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def npz_arrays(path):
+    import numpy as np
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def probe_phase(card, lj13_dir):
+    """The sampling overflow probe on the card (see the module docstring,
+    phase 8e). Returns the monolithic top-k run's launches and seconds and
+    the probe's time."""
+    import os
+    import numpy as np
+    import torch
+
+    topk = lambda cap: dict(nbr_mode="topk", nbr_capacity=cap)  # noqa: E731
+    cwd = os.getcwd()
+    runs = {}
+    try:
+        for label, cap, chunk in (("monolithic", PROBE_CAP, 0),
+                                  ("chunked", PROBE_CAP, PROBE_CHUNK),
+                                  ("exact", PROBE_FULL, 0)):
+            main = config_driver(lj13_dir, "sample_lj13.yaml", over=dict(
+                chunk_temps=chunk, output=f"probe_{label}.npz",
+                metrics_csv=f"probe_{label}.csv"), dynamics=topk(cap))
+            sec = main.args["sampling"]
+            reset_counts()
+            (res, secs), err = run_captured(lambda: timed_sample(main))
+            got = edge_launches()
+            T = sec["n_temps"]
+            n_vg = 1 + T * sec["mcmc_steps"] * sec["n_leapfrog"]
+            # a reverse for the starts, the value-and-grads, a probe a stage
+            want = dict(k5=main.n_iter * (1 + n_vg + T),
+                        k6=main.n_iter * n_vg, allpairs=0, plain=0)
+            require(got == want, f"probe {label} launches {got} != {want}")
+            P = sec["n_particles"]
+            check_smc(res, f"probe {label}", P, 13)
+            hist = res.stage_metric_history
+            require(on_card(res.particles) and hist is not None
+                    and hist.is_cuda and res.log_weights.is_cuda
+                    and tuple(hist.shape) == (T,),
+                    f"probe {label}: outputs not on the card")
+            col = [r["nbr_overflow"] for r in read_csv(sec["metrics_csv"])]
+            require(len(col) == T and all(c.isdigit() for c in col),
+                    f"probe {label}: nbr_overflow column {col}")
+            ovf = [int(c) for c in col]
+            require(ovf == hist.tolist(),
+                    f"probe {label}: CSV {ovf} != history {hist.tolist()}")
+            runs[label] = dict(res=res, secs=secs, got=got, ovf=ovf,
+                               warned="neighbor slots truncated across the "
+                               "anneal stages" in err,
+                               arrays=npz_arrays(sec["output"]), main=main,
+                               sec=sec)
+        mono, chunked, exact = (runs[k] for k in ("monolithic", "chunked",
+                                                  "exact"))
+        require(sum(mono["ovf"]) > 0 and mono["warned"]
+                and chunked["warned"],
+                f"no truncation reported at capacity {PROBE_CAP}: "
+                f"{mono['ovf']}")
+        require(sum(exact["ovf"]) == 0 and not exact["warned"],
+                f"capacity {PROBE_FULL} reported truncation {exact['ovf']}")
+        diff = [k for k in mono["arrays"]
+                if not np.array_equal(mono["arrays"][k],
+                                      chunked["arrays"][k])]
+        if mono["ovf"] != chunked["ovf"]:
+            diff.append("nbr_overflow")
+        require(not diff, f"chunked and monolithic probe runs differ in "
+                f"{diff}")
+
+        # the probe alone, on the monolithic run's final particles
+        main, sec = mono["main"], mono["sec"]
+        fn = main._overflow_stage_fn(sec)
+        x = mono["res"].particles
+        probe_ms = cuda_time_ms(lambda: fn(x), reps=10, calls=3)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(10):
+            int(fn(x))
+        probe_host_ms = (time.perf_counter() - t) / 10 * 1e3
+        T = sec["n_temps"]
+        share = T * probe_ms / (mono["secs"] * 1e3)
+
+        # REMC: the probe once a round over the flattened ladder
+        remc_runs = {}
+        for label, chunk in (("monolithic", 0),
+                             ("chunked", PROBE_REMC_CHUNK)):
+            rm = config_driver(lj13_dir, "remc_lj13.yaml", over=dict(
+                PROBE_REMC, chunk_rounds=chunk,
+                output=f"probe_remc_{label}.npz",
+                metrics_csv=f"probe_remc_{label}.csv"),
+                dynamics=topk(PROBE_CAP))
+            rsec = rm.args["sampling"]
+            reset_counts()
+            (rres, rsecs), err = run_captured(lambda: timed_sample(rm))
+            got = edge_launches()
+            R = rsec["n_rounds"]
+            n_vg = 1 + R * rsec["mcmc_steps"] * rsec["n_leapfrog"]
+            want = dict(k5=rm.n_iter * (1 + n_vg + R), k6=rm.n_iter * n_vg,
+                        allpairs=0, plain=0)
+            require(got == want, f"probe remc {label} launches {got} != "
+                    f"{want}")
+            h = rres.round_metric_history
+            require(h is not None and h.is_cuda and tuple(h.shape) == (R,)
+                    and on_card(rres.samples),
+                    f"probe remc {label}: round_metric_history {h}")
+            rows = read_csv(rsec["metrics_csv"])
+            total = int(h.sum())
+            require([r["nbr_overflow"] for r in rows]
+                     == [""] * (len(rows) - 1) + [str(total)] and total > 0
+                     and "truncated across the REMC rounds" in err,
+                     f"probe remc {label}: CSV column "
+                     f"{[r['nbr_overflow'] for r in rows]}, total {total}")
+            remc_runs[label] = (rres, rsecs, got, npz_arrays(rsec["output"]))
+        (ra, rsa, rgot, za), (rb, rsb, _, zb) = (remc_runs["monolithic"],
+                                                 remc_runs["chunked"])
+        rdiff = [k for k in za if not np.array_equal(za[k], zb[k])]
+        if not torch.equal(ra.round_metric_history,
+                           rb.round_metric_history):
+            rdiff.append("round_metric_history")
+        require(not rdiff, f"chunked and monolithic REMC differ in {rdiff}")
+    finally:
+        os.chdir(cwd)
+    g = mono["got"]
+    phase("probe", f"sample_lj13.yaml (topk, nbr_capacity {PROBE_CAP}) on "
+          f"{card}: {mono['secs']:.3f} s monolithic, {chunked['secs']:.3f} s "
+          f"chunked by {PROBE_CHUNK}, bitwise equal with the column; "
+          f"nbr_overflow a stage " + " ".join(map(str, mono["ovf"]))
+          + f" (sum {sum(mono['ovf'])}), warning printed; launches K5 "
+          f"{g['k5']} K6 {g['k6']} all-pairs 0, plain calls 0; at capacity "
+          f"{PROBE_FULL}: {exact['secs']:.3f} s, column all 0, no warning; "
+          f"log_Z {float(mono['res'].log_Z):.4f} (cap {PROBE_CAP}) / "
+          f"{float(exact['res'].log_Z):.4f} (cap {PROBE_FULL})")
+    n_probe = min(256, x["pos"].shape[0])
+    phase("probe", f"the probe alone ({n_probe} of {x['pos'].shape[0]} "
+          f"particles, 5 K5 at A = {n_probe * 13}): {probe_ms:.4f} ms "
+          f"(events), {probe_host_ms:.4f} ms (host clock, synchronized "
+          f"by the count's read); x {T} stages = {share:.4f} of the "
+          f"monolithic run")
+    phase("probe", f"remc_lj13.yaml (topk, nbr_capacity {PROBE_CAP}, "
+          f"{PROBE_REMC['n_rounds']} rounds) on {card}: {rsa:.3f} s "
+          f"monolithic, {rsb:.3f} s in segments of {PROBE_REMC_CHUNK}, "
+          f"bitwise equal; a probe a round: "
+          + " ".join(str(int(v)) for v in ra.round_metric_history)
+          + f" (CSV total {int(ra.round_metric_history.sum())}); launches "
+          f"K5 {rgot['k5']} K6 {rgot['k6']}, plain calls 0")
+    torch.cuda.empty_cache()
+    return dict(k5=g["k5"], k6=g["k6"], secs=mono["secs"],
+                probe_ms=probe_ms, share=share)
+
+
+# phase data: train.yaml with a compose of its lj dataset and an md dataset
+# of the same frames; epochs with the guard and profiler, then without
+DATA_EPOCHS_GUARDED = 2
+DATA_SAMPLES = 2 * 91
+DATA_STEPS = -(-DATA_SAMPLES // 30)
+
+
+def write_md_files(samples, gro, trr, xyz):
+    """A ``.gro`` topology and a ``.trr`` trajectory (nm, nm/ps, box and
+    velocities) of reduced-unit samples, and an ``.xyz`` (Angstrom) of the
+    positions that the ``.trr`` gives back."""
+    import numpy as np
+    from enflow_tpu_torch.data import formats, readers
+    from enflow_tpu_torch.utils import conversion as cv
+    from enflow_tpu_torch.utils.constants import sigma
+
+    to_nm = sigma * 1e9
+    frames = [{"step": i, "time": 0.0, "box": np.diag(s.box * to_nm),
+               "pos": s.pos * to_nm,
+               "vel": cv.lj_to_vel(s.vel, "nm", "pico")}
+              for i, s in enumerate(samples)]
+    formats.write_trr(trr, frames)
+    first = frames[0]
+    with open(gro, "w") as f:
+        f.write(f"lj\n{len(first['pos']):5d}\n")
+        for i, p in enumerate(first["pos"], start=1):
+            f.write("%5d%-5s%5s%5d%8.3f%8.3f%8.3f\n" % (1, "LJ", "Ar", i,
+                                                         *p))
+        f.write("%10.5f%10.5f%10.5f\n" % tuple(np.diag(first["box"])))
+    scale = readers._dist_scale("nm", "ang")
+    with open(xyz, "w") as f:
+        for fr in formats.read_trr(trr):
+            pos = fr["pos"] * scale
+            f.write(f"{len(pos)}\n \n")
+            for x in pos:
+                f.write("Ar %.18g %.18g %.18g\n" % tuple(x))
+
+
+def data_yaml(tmp, name, epochs, checkpoint, guarded=False, compose=True):
+    """example/train.yaml with ``epochs`` and ``checkpoint``, its dataset
+    replaced by phase data's compose unless ``compose`` is false, and the
+    profiler and NaN guard when ``guarded``."""
+    import yaml
+    cfg = yaml.safe_load((ROOT / "example" / "train.yaml").read_text())
+    lj = cfg["dataset"]
+    if compose:
+        cfg["dataset"] = {"type": "compose", "number": 2}
+        cfg["dataset1"] = lj
+        cfg["dataset2"] = {"type": "md", "top_file": "lj.gro",
+                           "traj_file": "lj.trr", "r_cut": lj["r_cut"],
+                           "box": lj["box"], "atom_types": ["Ar"]}
+    cfg["training"]["num_epochs"] = epochs
+    cfg["dynamics"]["checkpoint_path"] = checkpoint
+    if guarded:
+        cfg["training"]["profile_dir"] = "prof"
+        cfg["debug"] = {"nan_checks": True}
+    path = Path(tmp) / name
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+def timed_train(main):
+    """Run ``main.train()``; returns (seconds of each step, losses)."""
+    import torch
+    step_s, losses = [], []
+    inner = main.train_step
+
+    def timed(batch, gen):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, ovf = inner(batch, gen)
+        losses.append(float(loss))          # synchronizes
+        step_s.append(time.perf_counter() - t)
+        return loss, ovf
+    main.train_step = timed
+    main.train()
+    torch.cuda.synchronize()
+    return step_s, losses
+
+
+def train_launches():
+    from enflow_tpu_torch.ops import pair_energy as pe
+    got = edge_launches()
+    got.update(k7_r2=pe.counts.r2_launches, k7_r=pe.counts.r_launches)
+    return got
+
+
+def want_train(n_steps):
+    return dict(k5=5 * n_steps, k6=5 * n_steps, allpairs=0, plain=0,
+                k7_r2=n_steps, k7_r=0)
+
+
+def data_phase(card, tmp):
+    """Phase data (the module docstring's 10h) in the working directory
+    ``tmp``, which phase import then shares (its cached lj dataset)."""
+    import os
+    import yaml
+    import numpy as np
+    import torch
+    from enflow_tpu_torch.data import readers
+    from enflow_tpu_torch.train.driver import Main
+
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        cfg = yaml.safe_load((ROOT / "example" / "train.yaml").read_text())
+        lj_sec = cfg["dataset"]
+        cfg["mode"] = "dataset"
+        Path("lj.yaml").write_text(yaml.safe_dump(cfg))
+        t0 = time.perf_counter()
+        lj = Main(device="cuda")("lj.yaml")
+        md_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_md_files(lj.samples, "lj.gro", "lj.trr", "lj.xyz")
+        write_s = time.perf_counter() - t0
+
+        main = Main(device="cuda")
+        t0 = time.perf_counter()
+        main.setup(data_yaml(tmp, "data.yaml", DATA_EPOCHS_GUARDED,
+                             "data.cpt", guarded=True))
+        setup_s = time.perf_counter() - t0
+        ds = main.dataset
+        require(len(ds) == DATA_SAMPLES and main.node_nf == 1
+                and len({s.node_nf for s in ds.samples}) == 1,
+                f"compose: {len(ds)} samples, node_nf {main.node_nf}")
+        n = len(lj)
+        for a, b in zip(ds.samples[:n], ds.samples[n:]):
+            require(np.abs(a.pos - b.pos).max() < 1e-5,
+                    "the md part's frames are not the lj part's")
+        reset_counts()
+        on_s, on_losses = timed_train(main)
+        got = train_launches()
+        n_on = DATA_EPOCHS_GUARDED * DATA_STEPS
+        require(len(on_s) == n_on and got == want_train(n_on),
+                f"guarded epochs: {len(on_s)} steps, launches {got} != "
+                f"{want_train(n_on)}")
+        require(all(math.isfinite(x) for x in on_losses),
+                f"non-finite losses {on_losses}")
+        require(not torch.is_anomaly_enabled(), "anomaly mode left on")
+        traces = sorted(Path("prof").glob("*.json"))
+        require(len(traces) == 1, f"profile_dir holds {traces}")
+        trace_text = traces[0].read_text()
+        require("edge_tiled_fwd_kernel" in trace_text
+                and "edge_tiled_bwd_kernel" in trace_text,
+                "the trace does not name the edge kernels")
+        trace_mb = traces[0].stat().st_size / 2 ** 20
+
+        off = Main(device="cuda")
+        off.setup(data_yaml(tmp, "data_off.yaml", 1, "data.cpt"))
+        require(off.start_epoch == DATA_EPOCHS_GUARDED and not off.nan_checks
+                and not off.profile_dir, "the unguarded run did not resume")
+        reset_counts()
+        off_s, off_losses = timed_train(off)
+        require(train_launches() == want_train(DATA_STEPS)
+                and all(math.isfinite(x) for x in off_losses),
+                f"unguarded epoch: launches {train_launches()}, losses "
+                f"{off_losses}")
+
+        # one NaN parameter: the guard raises at the first step's loss
+        raised = {}
+        for guarded in (True, False):
+            nan = Main(device="cuda")
+            nan.setup(data_yaml(tmp, f"nan_{guarded}.yaml", 1,
+                                f"nan_{guarded}.cpt"))
+            nan.nan_checks = guarded
+            with torch.no_grad():
+                nan.params["networks"]["edge_nn"][0]["w"][0, 0, 0] = \
+                    float("nan")
+            try:
+                run_captured(nan.train)
+                raised[guarded] = None
+            except FloatingPointError as e:
+                raised[guarded] = str(e)
+        require(raised[True] and "loss" in raised[True]
+                and raised[False] is None,
+                f"NaN parameter: guarded {raised[True]!r}, unguarded "
+                f"{raised[False]!r}")
+        require(not torch.is_anomaly_enabled(), "anomaly mode left on")
+
+        # largemd streams the .trr / .xyz that md reads in memory
+        kw = dict(top_file="lj.gro", r_cut=lj_sec["r_cut"], box=lj_sec["box"],
+                  atom_types=["Ar"], seed=5, device="cuda")
+        md = readers.MDDataset(traj_file="lj.trr", **kw)
+        big = {ext: readers.LargeMDDataset(traj_file=f"lj.{ext}", **kw)
+               for ext in ("trr", "xyz")}
+        for ext, lg in big.items():
+            a, b = md[0], lg[0]
+            fields = ("h", "g", "pos", "vel", "box") if ext == "trr" \
+                else ("h", "g", "pos", "box")
+            require(len(lg) == len(md) == n and lg.max_atoms == md.max_atoms
+                    and a.z == b.z and all(np.array_equal(getattr(a, f),
+                                                          getattr(b, f))
+                                           for f in fields),
+                    f"largemd .{ext} differs from md")
+    finally:
+        os.chdir(cwd)
+    s_on = statistics.median(on_s[1:DATA_STEPS])
+    s_off = statistics.median(off_s)
+    s_prof = statistics.median(on_s[DATA_STEPS:])
+    phase("data", f"train.yaml with compose (lj + md of its frames) on "
+          f"{card}: lj dataset {md_s:.3f} s (MD on the card), .gro/.trr/"
+          f".xyz written in {write_s:.4f} s, compose set-up "
+          f"{setup_s:.3f} s; {len(ds)} samples, node_nf 1, {DATA_STEPS} "
+          f"steps an epoch; launches per step K5 5 K6 5 K7 r2 1, plain "
+          f"calls 0; s/step with the NaN guard {s_on:.5f} (epoch 0, steps "
+          f"2-{DATA_STEPS}), guard + profiler {s_prof:.5f} (epoch 1), "
+          f"neither {s_off:.5f} (epoch 2): guard x{s_on / s_off:.2f}; "
+          f"trace {traces[0].name} {trace_mb:.2f} MiB names "
+          f"edge_tiled_fwd/bwd_kernel; losses {on_losses[0]:.3f} -> "
+          f"{off_losses[-1]:.3f}")
+    phase("data", f"a NaN parameter: guarded epoch raised "
+          f"FloatingPointError ({raised[True]}), unguarded ran; largemd "
+          f".trr and .xyz: {n} frames, max_atoms 13, first sample = md's")
+    return dict(s_on=s_on, s_off=s_off, s_prof=s_prof)
+
+
+IMPORT_SEED = 12
+
+
+def reference_state_dict(node_nf, hidden, n_networks, seed):
+    """A state dict in the reference's layout (torch Linear ``[out, in]``,
+    float64, torch's default uniform(-1/sqrt(in), 1/sqrt(in)) init) from a
+    seeded generator."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def lin(out_d, in_d, prefix, bias=True):
+        b = 1.0 / math.sqrt(in_d)
+        u = lambda *shape: (torch.rand(shape, generator=g,  # noqa: E731
+                                       dtype=torch.float64) * 2 - 1) * b
+        sd[prefix + ".weight"] = u(out_d, in_d)
+        if bias:
+            sd[prefix + ".bias"] = u(out_d)
+
+    nf, H = node_nf, hidden
+    for k in range(n_networks):
+        p = f"networks.{k}."
+        lin(H, 2 * nf + 1, p + "edge_nn.0")
+        lin(H, H, p + "edge_nn.2")
+        lin(H, H + nf, p + "node_nn.0")
+        lin(nf, H, p + "node_nn.2")
+        lin(H, H, p + "coord_nn.0")
+        lin(1, H, p + "coord_nn.2", bias=False)
+        lin(H, nf, p + "vel_scaling_nn.0")
+        lin(1, H, p + "vel_scaling_nn.2")
+    lin(H, nf, "dequantize.network.0")
+    lin(2 * nf, H, "dequantize.network.2")
+    return sd
+
+
+def cli(module, *args):
+    """``python -m module args`` from the working directory, on the card;
+    (seconds, stdout)."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module, *args], env=env,
+                         capture_output=True, text=True)
+    secs = time.perf_counter() - t
+    require(out.returncode == 0, f"{module} failed: {out.stderr[-2000:]}")
+    return secs, out.stdout.strip()
+
+
+def import_phase(card, tmp):
+    """Phase import (the module docstring's 10i) in phase data's working
+    directory ``tmp`` (its cached lj dataset: no MD)."""
+    import os
+    import shutil
+    import torch
+    from enflow_tpu_torch.train.driver import Main
+    from enflow_tpu_torch.utils import conversion as cv
+
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        n_iter, H = 5, 128
+        sd = reference_state_dict(1, H, n_iter, IMPORT_SEED)
+        ref = {"epoch": 0, "model_state_dict": sd,
+               "optimizer_state_dict": {}, "node_nf": 1, "hidden_nf": H,
+               "softening": 0.1, "lj_kBT": cv.kelvin_to_lj(120.0),
+               "integrator": "lf", "n_iter": n_iter,
+               "dt": cv.time_to_lj(1.0, unit="pico")}
+        torch.save(ref, "reference.cpt")
+        imp_s, imp_line = cli("enflow_tpu_torch.utils.torch_import",
+                              "reference.cpt", "imported.npz")
+        shutil.copy("imported.npz", "import_model.cpt")
+        main = Main(device="cuda")
+        (_, err) = run_captured(lambda: main.setup(data_yaml(
+            tmp, "import.yaml", 1, "import_model.cpt", compose=False)))
+        require(main.start_epoch == 1 and "fresh optimizer" in err
+                and main.node_nf == 1 and main.hidden_nf == H,
+                f"import: start epoch {main.start_epoch}, node_nf "
+                f"{main.node_nf}")
+        reset_counts()
+        step_s, losses = timed_train(main)
+        n_steps = TRAIN_STEPS_PER_EPOCH
+        got = train_launches()
+        require(len(step_s) == n_steps and got == want_train(n_steps)
+                and all(math.isfinite(x) for x in losses),
+                f"import training: launches {got}, losses {losses}")
+        exp_s, exp_line = cli("enflow_tpu_torch.utils.torch_export",
+                              "imported.npz", "exported.cpt")
+        back = torch.load("exported.cpt", weights_only=False)
+        bsd = back["model_state_dict"]
+        same = (list(bsd) == list(sd) and all(
+            bsd[k].dtype == sd[k].dtype and torch.equal(bsd[k], sd[k])
+            for k in sd) and all(back[k] == ref[k] for k in (
+                "epoch", "node_nf", "hidden_nf", "softening", "lj_kBT",
+                "integrator", "n_iter", "dt")))
+        require(same, "the export differs from the reference state dict")
+    finally:
+        os.chdir(cwd)
+    phase("import", f"reference model.cpt (node_nf 1, H={H}, {n_iter} "
+          f"networks, {len(sd)} tensors) -> torch_import CLI on {card} in "
+          f"{imp_s:.3f} s ({imp_line.split('(')[0].strip()}); 1 epoch of "
+          f"train.yaml from it: {n_steps} steps, "
+          f"{statistics.median(step_s):.5f} s/step, losses "
+          + ", ".join(f"{x:.3f}" for x in losses)
+          + f", launches K5 {got['k5']} K6 {got['k6']} K7 r2 "
+          f"{got['k7_r2']}, plain calls 0; torch_export CLI in "
+          f"{exp_s:.3f} s: the state dict back bit for bit")
+    return dict(import_s=imp_s, export_s=exp_s)
+
+
 def build_phase():
     """Fresh builds of every kernel source, one nvcc each, in parallel."""
     from enflow_tpu_torch.ops import build
@@ -3290,6 +3847,7 @@ def main():
         timed("mcmc", mcmc_phase, card, lj13_dir)
         rm = timed("remc", remc_phase, card, lj13_dir)
         timed("ti", ti_phase, card, lj13_dir)
+        pr = timed("probe", probe_phase, card, lj13_dir)
     timed("vi55", vi55_phase, card)
     timed("lj55", lj55_phase, card)
     timed("fluid", fluid_phase, card)
@@ -3300,6 +3858,11 @@ def main():
         tr = timed("train", train_phase, card, tmp)
         gen = timed("generate", generate_phase, card, tmp)
         timed("dataset", dataset_phase, card, tmp, gen)
+    # compose, the readers, the profiler and NaN guard; then the reference
+    # checkpoint's import, training and export on data's cached dataset
+    with tempfile.TemporaryDirectory() as tmp:
+        timed("data", data_phase, card, tmp)
+        timed("import", import_phase, card, tmp)
     # K5/K6 at the training path's shape (its slot count the auto capacity
     # that the train phase's dataset gave) and K5 at generate's
     erec = timed("edge", edge_kernel_phase, tr["capacity"], gen)
@@ -3376,6 +3939,14 @@ def main():
         "edge_pipeline_fwd_generate", "edge_pipeline.cu",
         "enflow_tpu/ops/edge_kernel.py:219", gen["k5"], g["err_fwd"],
         g["ms_fwd"], g["plain_fwd"], g["bound_fwd"]))
+    # bf16 K5/K6 at the top-k sampler's shape, with phase probe's launches
+    sp = erec[("sampler", "bfloat16")]
+    for name, d, line in (("fwd", "fwd", 219), ("bwd", "bwd", 246)):
+        kernels.append(kernel_record(
+            f"edge_pipeline_{name}_sampler", "edge_pipeline.cu",
+            f"enflow_tpu/ops/edge_kernel.py:{line}",
+            pr["k5" if d == "fwd" else "k6"], sp[f"err_{d}"], sp[f"ms_{d}"],
+            sp[f"plain_{d}"], sp[f"bound_{d}"]))
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

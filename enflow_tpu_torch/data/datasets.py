@@ -5,6 +5,10 @@
 - ``BaseDataset`` / ``InMemoryDataset``: transform plumbing, one-hot
   features, ``g ~ N(0,1)`` from the dataset's numpy generator (the same
   draws as the JAX package for the same seed), processed-file caching.
+- ``ComposeDatasets``: the concatenation of in-memory datasets.
+- ``get_dataset_class``: the dataset types by name (``lj``, ``lig`` and
+  the readers of ``readers.py``: ``sdf``, ``hdf5``, ``md``, ``largemd``,
+  ``trr``, ``xyz``).
 - ``pad_samples`` / ``DataLoader``: fixed-shape padded ``System`` batches on
   the driver's device; the final partial batch is padded with all-masked
   dummy molecules, and the shuffle order is the JAX package's
@@ -196,6 +200,39 @@ class InMemoryDataset(BaseDataset, ABC):
         return self.samples[0].node_nf if self.samples else len(
             self.atom_types)
 
+    @property
+    def max_atoms(self) -> int:
+        return max(s.num_atoms for s in self.samples)
+
+
+class ComposeDatasets(InMemoryDataset):
+    """The concatenation of in-memory datasets (``datasets.py:170-187``):
+    every part must have the first part's ``node_nf``. A lazy dataset
+    (``trr``, ``largemd``) holds no sample list and is refused, as the JAX
+    class fails on its missing ``samples``."""
+
+    def __init__(self, datasets):
+        self.samples = []
+        self.transform = NoneTransform()
+        for d in datasets:
+            if not hasattr(d, "samples"):
+                kind = next((k for k, c in DATASET_REGISTRY.items()
+                             if c is type(d)), type(d).__name__)
+                raise ValueError(
+                    f"cannot compose the lazy dataset type '{kind}': "
+                    f"compose concatenates in-memory sample lists; read "
+                    f"the frames with type 'md' (or 'xyz') instead")
+            if self.samples and d.node_nf != self.node_nf:
+                raise ValueError(
+                    f"node_nf mismatch composing datasets: {d.node_nf} != "
+                    f"{self.node_nf}")
+            self.samples += list(d.samples)
+        self.atom_types = (datasets[0].atom_types if datasets
+                           else dict(DEFAULT_ATOM_TYPES))
+
+    def process(self, **params):
+        raise NotImplementedError
+
 
 def pad_samples(samples, n_max, node_nf, dtype=torch.float32, n_mols=None,
                 device=None) -> System:
@@ -276,10 +313,12 @@ def register_dataset(name):
 
 
 def get_dataset_class(name):
-    from . import lj  # noqa: F401  (registers 'lj')
-    if name in DATASET_REGISTRY:
+    # the registry fills itself on first use (the dataset modules import
+    # this one, so they cannot be imported at its top)
+    from . import lig, lj, readers  # noqa: F401
+    try:
         return DATASET_REGISTRY[name]
-    raise NotImplementedError(
-        f"dataset type {name!r} is not ported yet (ROADMAP A6: "
-        f"the md/trr/xyz readers and compose); the port reads "
-        f"{sorted(DATASET_REGISTRY)}")
+    except KeyError:
+        raise ValueError(
+            f"unknown dataset type '{name}'; available: "
+            f"{sorted(DATASET_REGISTRY)}") from None

@@ -17,8 +17,9 @@ It gives the C++ scan's counts exactly, because it repeats its arithmetic:
 - the min-image integer rounds half away from zero (``std::round``, not
   numpy's half-to-even ``np.round``), and ``d2`` sums the axes in order.
 
-A 2,944-atom frame scans in milliseconds. (The TRR readers of the JAX
-module belong to the dataset readers, ROADMAP A6.)
+A 2,944-atom frame scans in milliseconds. The JAX module's C++ TRR
+index and frame reader have no counterpart here: the port reads TRR
+frames with ``data/formats.py`` only (the same bytes, in numpy).
 """
 
 from __future__ import annotations

@@ -39,6 +39,7 @@ class REMCResult(NamedTuple):
     swap_accept: Any      # [K-1] mean swap acceptance per adjacent pair
     accept: Any           # [K] mean HMC acceptance per temperature slot
     betas: Any            # [K] the ladder, as used
+    # [n_rounds] the caller's stage_fn a round (None without one)
     round_metric_history: Any = None
 
 
@@ -105,10 +106,12 @@ def swap_phase(parity: int, uniform, state, betas):
 
 
 def _make_one_round(log_q0, log_p, betas, step_size, mcmc_steps,
-                    n_leapfrog):
+                    n_leapfrog, stage_fn=None):
     """One round ``(state, r, gen) -> (state, (target_slot, acc, rate,
-    pair_on))``: ``mcmc_steps`` tempered-HMC sweeps of the whole ladder in
-    one flattened call each, then the swap phase of parity ``r % 2``."""
+    pair_on[, metric]))``: ``mcmc_steps`` tempered-HMC sweeps of the whole
+    ladder in one flattened call each, then the swap phase of parity ``r %
+    2``; with ``stage_fn``, its value on the flattened ``[K*M]`` replicas
+    after the swaps (a device tensor)."""
     K = betas.shape[0]
     vgq = batched_value_and_grad(log_q0)
     vgp = batched_value_and_grad(log_p)
@@ -134,17 +137,21 @@ def _make_one_round(log_q0, log_p, betas, step_size, mcmc_steps,
         state, rate, pair_on = swap_phase(r % 2, u, (x, lq0, lp, glq0, glp),
                                           betas)
         target_slot = tree_map(lambda a: a[-1], state[0])
-        return state, (target_slot, acc / mcmc_steps, rate, pair_on)
+        out = (target_slot, acc / mcmc_steps, rate, pair_on)
+        if stage_fn is not None:
+            out = out + (stage_fn(_flatten_km(state[0], K, M)),)
+        return state, out
 
     return one_round
 
 
 def _aggregate(x, outs, betas) -> REMCResult:
-    samples, accs, rates, pair_ons = outs
+    samples, accs, rates, pair_ons, *metrics = outs
     n_on = torch.clamp(pair_ons.to(torch.int64).sum(dim=0), min=1)
     return REMCResult(samples=samples, x_final=x,
                       swap_accept=rates.sum(dim=0) / n_on,
-                      accept=accs.mean(dim=0), betas=betas)
+                      accept=accs.mean(dim=0), betas=betas,
+                      round_metric_history=metrics[0] if metrics else None)
 
 
 def _ladder(betas, step_size, like):
@@ -156,25 +163,28 @@ def _ladder(betas, step_size, like):
 def remc(gen: torch.Generator, x0, *, log_p: Callable,
          log_q0: Callable | None = None, betas, n_rounds: int,
          mcmc_steps: int = 1, step_size=0.05,
-         n_leapfrog: int = 5) -> REMCResult:
+         n_leapfrog: int = 5, stage_fn=None) -> REMCResult:
     """Parallel tempering from ``betas[0]`` (hottest) to ``betas[-1] ==
     1`` over batched densities (``[n, ...] -> [n]``).
 
     ``x0 [K, M, ...]``: prefer independent draws per slot over
     :func:`tile_replicas` (swaps act within a chain column). ``step_size``
     is a scalar or a ``[K]`` per-slot step. ``samples`` stacks the
-    ``beta = 1`` slot after every round (``[n_rounds, M, ...]``). It is
+    ``beta = 1`` slot after every round (``[n_rounds, M, ...]``).
+    ``stage_fn`` (optional): ``flattened [K*M, ...] replicas -> scalar``
+    once a round, stacked into ``round_metric_history``. It is
     :func:`remc_segments` with one segment."""
     return remc_segments(gen, x0, log_p=log_p, log_q0=log_q0, betas=betas,
                          n_rounds=n_rounds, mcmc_steps=mcmc_steps,
                          step_size=step_size, n_leapfrog=n_leapfrog,
-                         chunk_rounds=0)
+                         stage_fn=stage_fn, chunk_rounds=0)
 
 
 @torch.no_grad()
 def remc_segments(gen: torch.Generator, x0, *, log_p: Callable,
                   log_q0: Callable | None = None, betas, n_rounds: int,
                   mcmc_steps: int = 1, step_size=0.05, n_leapfrog: int = 5,
+                  stage_fn=None,
                   chunk_rounds: int = 8, run_segment=None, on_segment=None,
                   start_round: int = 0, init_state=None,
                   init_outs=None) -> REMCResult:
@@ -196,7 +206,7 @@ def remc_segments(gen: torch.Generator, x0, *, log_p: Callable,
         chunk_rounds = n_rounds
     run = run_segment or (lambda f, *a: f(*a))
     one_round = _make_one_round(log_q0, log_p, betas, step_size,
-                                mcmc_steps, n_leapfrog)
+                                mcmc_steps, n_leapfrog, stage_fn)
     device = like.device
 
     def seg_fn(state, r0, r1):
@@ -219,5 +229,5 @@ def remc_segments(gen: torch.Generator, x0, *, log_p: Callable,
             on_segment(r2, state, outs)
         r = r2
     cat = tuple(tree_map(lambda *a: torch.cat(a), *(o[k] for o in outs))
-                for k in range(4))
+                for k in range(5 if stage_fn is not None else 4))
     return _aggregate(state[0], cat, betas)

@@ -121,9 +121,12 @@ def _take(tree, idx):
 
 def _make_anneal_step(log_q0, log_p, *, P, adaptive, target_ess_frac,
                       mcmc_steps, n_leapfrog, resample_threshold, adapt_step,
-                      target_accept, precondition):
+                      target_accept, precondition, stage_fn=None):
     """The per-temperature SMC transition ``(carry, (beta, beta_prev, gen))
-    -> (carry, (ess, accept, beta, eps))``."""
+    -> (carry, (ess, accept, beta, eps[, metric]))``. ``stage_fn``
+    (optional): ``particles -> scalar tensor`` on the post-rejuvenation
+    particles of every stage, its value the history's fifth entry (kept on
+    the device; no host read)."""
 
     def anneal_step(carry, inputs):
         (x, log_w, log_z, beta_carry, eps,
@@ -165,8 +168,11 @@ def _make_anneal_step(log_q0, log_p, *, P, adaptive, target_ess_frac,
         acc = torch.as_tensor(acc, dtype=log_w.dtype, device=log_w.device)
         eps_next = (_adapted_step(eps, acc, target_accept)
                     if (adapt_step and mcmc_steps > 0) else eps)
+        hist = (ess, acc, beta, eps)
+        if stage_fn is not None:
+            hist = hist + (stage_fn(x),)
         return ((x, log_w, log_z, beta, eps_next,
-                 lq0_x, lp_x, glq0_x, glp_x), (ess, acc, beta, eps))
+                 lq0_x, lp_x, glq0_x, glp_x), hist)
 
     return anneal_step
 
@@ -204,19 +210,21 @@ def smc(gen: torch.Generator, x0, *, log_q0: Callable, log_p: Callable,
         target_ess_frac: float = 0.6, mcmc_steps: int = 2, step_size=0.05,
         n_leapfrog: int = 5, resample_threshold: float = 0.5,
         adapt_step: bool = False, target_accept: float = 0.65,
-        precondition: bool = False) -> SMCResult:
+        precondition: bool = False, stage_fn=None) -> SMCResult:
     """Tempered SMC from proposal samples ``x0 [P, ...]`` to the target
     ``log_p``, over ``log pi_beta = (1-beta) log_q0 + beta log_p``; the
     arguments are those of the JAX package's ``smc`` (always batched).
-    ``log_Z`` estimates ``log(Z_p / Z_q0)``. It is :func:`smc_segments`
-    with one segment."""
+    ``log_Z`` estimates ``log(Z_p / Z_q0)``. ``stage_fn`` (optional):
+    ``particles -> scalar`` on every stage's particles after the
+    rejuvenation, stacked into ``stage_metric_history``. It is
+    :func:`smc_segments` with one segment."""
     return smc_segments(
         gen, x0, log_q0=log_q0, log_p=log_p, n_temps=n_temps, betas=betas,
         adaptive=adaptive, target_ess_frac=target_ess_frac,
         mcmc_steps=mcmc_steps, step_size=step_size, n_leapfrog=n_leapfrog,
         resample_threshold=resample_threshold, adapt_step=adapt_step,
         target_accept=target_accept, precondition=precondition,
-        chunk_temps=0)
+        stage_fn=stage_fn, chunk_temps=0)
 
 
 @torch.no_grad()
@@ -226,6 +234,7 @@ def smc_segments(gen: torch.Generator, x0, *, log_q0: Callable,
                  mcmc_steps: int = 2, step_size=0.05, n_leapfrog: int = 5,
                  resample_threshold: float = 0.5, adapt_step: bool = False,
                  target_accept: float = 0.65, precondition: bool = False,
+                 stage_fn=None,
                  chunk_temps: int = 4, run_segment=None, on_segment=None,
                  start_stage: int = 0, init_state=None,
                  init_hists=None) -> SMCResult:
@@ -244,9 +253,11 @@ def smc_segments(gen: torch.Generator, x0, *, log_q0: Callable,
       initialization and every segment (the driver's retry hook).
     - ``on_segment(next_stage, state, hists)``: called after each segment
       with the carry ``(x, log_w, log_z, beta, eps, lq0, lp, glq0, glp)``
-      and the per-segment histories ``[(ess, accept, beta, eps), ...]``.
+      and the per-segment histories ``[(ess, accept, beta, eps[, metric]),
+      ...]`` (the metric with a ``stage_fn``).
     - ``start_stage`` / ``init_state`` / ``init_hists``: resume from what
-      ``on_segment`` saw; ``x0`` may be None then.
+      ``on_segment`` saw; ``x0`` may be None then. Histories without a
+      metric (a state file written without ``stage_fn``) count 0 for it.
     """
     if init_state is not None:
         x_meta = init_state[0]
@@ -265,7 +276,7 @@ def smc_segments(gen: torch.Generator, x0, *, log_q0: Callable,
         target_ess_frac=target_ess_frac, mcmc_steps=mcmc_steps,
         n_leapfrog=n_leapfrog, resample_threshold=resample_threshold,
         adapt_step=adapt_step, target_accept=target_accept,
-        precondition=precondition)
+        precondition=precondition, stage_fn=stage_fn)
 
     def init_fn(x0):
         zero = torch.zeros((), dtype=dtype, device=device)
@@ -295,11 +306,17 @@ def smc_segments(gen: torch.Generator, x0, *, log_q0: Callable,
         if on_segment is not None:
             on_segment(j, state, hists)
         i = j
-    ess_h, acc_h, beta_h, step_h = (torch.cat([h[c] for h in hists])
-                                    for c in range(4))
+    if stage_fn is not None:
+        hists = [h if len(h) > 4 else h + (torch.zeros(
+            h[0].shape, dtype=torch.int32, device=h[0].device),)
+            for h in hists]
+    ess_h, acc_h, beta_h, step_h, *metric_h = (
+        torch.cat([h[c] for h in hists])
+        for c in range(5 if stage_fn is not None else 4))
     return SMCResult(particles=state[0], log_weights=state[1],
                      log_Z=state[2], ess_history=ess_h, accept_history=acc_h,
-                     beta_history=beta_h, step_history=step_h)
+                     beta_history=beta_h, step_history=step_h,
+                     stage_metric_history=metric_h[0] if metric_h else None)
 
 
 @torch.no_grad()
@@ -307,9 +324,9 @@ def ais(gen: torch.Generator, x0, *, log_q0: Callable, log_p: Callable,
         n_temps: int = 10, betas=None, mcmc_steps: int = 2, step_size=0.05,
         n_leapfrog: int = 5, adapt_step: bool = False,
         target_accept: float = 0.65,
-        precondition: bool = False) -> SMCResult:
+        precondition: bool = False, stage_fn=None) -> SMCResult:
     """Annealed importance sampling: the SMC machinery without resampling;
-    ``log_Z`` is ``logmeanexp(log_w)``."""
+    ``log_Z`` is ``logmeanexp(log_w)``; ``stage_fn`` as in :func:`smc`."""
     P, dtype, device = _state_meta(x0)
     if betas is not None:
         n_temps = len(betas)
@@ -319,7 +336,7 @@ def ais(gen: torch.Generator, x0, *, log_q0: Callable, log_p: Callable,
     x = x0
     log_w = torch.zeros((P,), dtype=dtype, device=device)
     eps = torch.as_tensor(step_size, dtype=dtype, device=device)
-    ess_h, acc_h, step_h = [], [], []
+    ess_h, acc_h, step_h, metric_h = [], [], [], []
     for k, seed in enumerate(_stage_seeds(gen, n_temps)):
         g = _generator(seed, device)
         log_w = log_w + (betas[k] - betas_prev[k]) * (lp_x - lq0_x)
@@ -334,8 +351,12 @@ def ais(gen: torch.Generator, x0, *, log_q0: Callable, log_p: Callable,
             eps = _adapted_step(eps, acc, target_accept)
         ess_h.append(ess_from_log_weights(log_w))
         acc_h.append(acc)
+        if stage_fn is not None:
+            metric_h.append(stage_fn(x))
     log_z = torch.logsumexp(log_w, dim=0) - math.log(P)
     return SMCResult(particles=x, log_weights=log_w, log_Z=log_z,
                      ess_history=torch.stack(ess_h),
                      accept_history=torch.stack(acc_h),
-                     step_history=torch.stack(step_h))
+                     step_history=torch.stack(step_h),
+                     stage_metric_history=(torch.stack(metric_h)
+                                           if metric_h else None))

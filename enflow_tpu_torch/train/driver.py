@@ -2,10 +2,13 @@
 
 Ported:
 
-- ``mode: train`` with ``objective: nll`` on a ``type: lj`` dataset (the
-  LJ MD simulated on the card) in every neighbor mode but the atom-sharded
-  ring: ``nbr_capacity: auto`` (the multi-image count in ``images`` mode,
-  the port's own cell-list scan, ``native.py``, in the others),
+- ``mode: train`` with ``objective: nll`` on any dataset type of the JAX
+  package (``lj``, the LJ MD simulated on the card; the readers ``md``,
+  ``largemd``, ``trr``, ``xyz``, ``sdf``, ``hdf5``; ``lig``; ``compose``
+  of ``dataset1`` ... ``dataset<number>``) in every neighbor mode but the
+  atom-sharded ring: ``nbr_capacity: auto`` (the multi-image count in
+  ``images`` mode, the port's own cell-list scan, ``native.py``, in the
+  others),
   ``cells_per_dim``/``cell_capacity`` ints or ``auto`` for ``cell``, the
   one capacity check per dataset (neighbor count, cell occupancy, the
   ``box < 2 r_cut`` warning of the min-image modes), the per-epoch
@@ -13,7 +16,10 @@ Ported:
   as optax's ``clip_by_global_norm`` and the staircase ``scheduler``), the
   per-epoch line in the JAX format, checkpoints every
   ``checkpoint_interval`` epochs and at the last, and resume from a
-  checkpoint of either package.
+  checkpoint of either package (or a reference ``model.cpt`` imported by
+  ``utils/torch_import.py``); ``training.profile_dir`` (a
+  ``torch.profiler`` trace of the run's second epoch) and
+  ``debug.nan_checks`` (``utils/observe.py``'s ``nan_guard``).
 - ``mode: train`` with ``objective: flow_vi`` against an ``lj_cluster``,
   ``lj_fluid``, ``double_well``, ``gaussian`` or ``forcefield`` target
   (data-free), with any ``position_update``: the base draws, the
@@ -39,14 +45,15 @@ Ported:
   tempering with ``chunk_rounds`` and optional MBAR) and ``ti``
   (thermodynamic integration with ``chunk_steps``); ``sampling.
   metrics_csv``; a force-field target adds its dihedrals and phi/psi
-  free-energy profiles to the npz.
+  free-energy profiles to the npz. With a truncating neighbor format
+  (``dynamics.nbr_capacity`` in ``dense``/``topk``, or ``cell``/
+  ``images``) SMC/AIS probe the overflow at every stage and REMC once a
+  round (``_overflow_stage_fn``): a warning with the total, the per-stage
+  ``nbr_overflow`` column, REMC's total on its last row.
 
 The config schema, checkpoints, npz outputs and printed lines are the JAX
-driver's. Every other mode, objective, dataset type and option raises
-``NotImplementedError`` naming its ROADMAP item: ``mode: sample`` with
-``dynamics.nbr_capacity`` (the sampling overflow probe, A5.5),
-``training.profile_dir`` and ``debug.nan_checks`` (A5.6), dataset type
-``compose`` (A6) and ``parallel.atom_axis > 1`` (A7).
+driver's. ``parallel.atom_axis > 1`` (atom sharding over several devices,
+ROADMAP A7) raises ``NotImplementedError``.
 
 The SMC runs batched: the densities see all particles at once, so on the
 card each EGCL is one launch of the fused kernel over the particle batch.
@@ -65,7 +72,7 @@ import torch
 import yaml
 
 from .. import resolve_device
-from ..data import transforms
+from ..data import formats, transforms
 from ..data.datasets import DataLoader, get_dataset_class
 from ..data.neighbors import image_edge_max
 from ..data.system import System
@@ -76,7 +83,8 @@ from ..nn.egcl import EGCLConfig
 from ..utils import conversion as cv
 from ..utils.constants import sigma
 from ..utils.jax_params import tree_flatten
-from ..utils.observe import MetricsLogger
+from ..utils.observe import (MetricsLogger, assert_all_finite, nan_guard,
+                             profile_trace)
 from .checkpoint import (has_tree, load_checkpoint, load_hparams,
                          save_checkpoint)
 from .optim import NLLOptimizer
@@ -91,13 +99,9 @@ def eprint(*args, **kwargs):
 
 def write_xyz(path, pos_reduced, symbol="Ar"):
     """Reduced-unit positions as an Angstrom XYZ file (``x * sigma *
-    1e10``), in the JAX package's text (``driver.py:56-61`` and
-    ``data/formats.py:write_xyz``)."""
+    1e10``, ``driver.py:54-58``)."""
     pos_ang = np.asarray(pos_reduced) * sigma * 1e10
-    with open(path, "w") as f:
-        f.write(f"{pos_ang.shape[0]}\n \n")
-        for x in pos_ang:
-            f.write("%s %.18g %.18g %.18g\n" % (symbol, x[0], x[1], x[2]))
+    formats.write_xyz(path, [symbol] * pos_ang.shape[0], pos_ang)
 
 
 def vi_anneal(tgt_sec: dict):
@@ -280,7 +284,7 @@ class Main:
         self.dataset = None
         if mode == "dataset":
             # the dataset alone: its cache, log and traj (driver.py:213-214)
-            self.dataset = self._setup_dataset("dataset", args)
+            self.dataset = self._build_dataset(args)
             return
         if mode == "generate":
             # the model's facts go to the latent sampler
@@ -288,7 +292,7 @@ class Main:
             args["dataset"]["node_nf"] = node_nf
             args["dataset"]["softening"] = self.softening
             args["dataset"]["temp"] = cv.lj_to_kelvin(self.lj_kBT)
-            self.dataset = self._setup_dataset("dataset", args)
+            self.dataset = self._build_dataset(args)
             self.train_loader = DataLoader(
                 self.dataset, batch_size=1, shuffle=False, seed=self.seed,
                 dtype=self.dtype, device=self.device)
@@ -302,7 +306,7 @@ class Main:
             if nbr_capacity is not None:
                 nbr_capacity = int(nbr_capacity)
         elif mode == "train":
-            self.dataset = self._setup_dataset("dataset", args)
+            self.dataset = self._build_dataset(args)
             if node_nf is None:
                 node_nf = self.dataset.node_nf
             tr = args["training"]
@@ -314,10 +318,11 @@ class Main:
                 prefetch=int(tr.get("prefetch", 2)))
             nbr_capacity = self._auto_capacity(dyn, nbr_capacity)
         elif nbr_capacity is not None:
-            raise NotImplementedError(
-                "dynamics.nbr_capacity is not ported for sampling (ROADMAP "
-                "A5.5: the per-stage / per-round overflow probe of the "
-                "truncating neighbor formats)")
+            # sampling is data-free: a fixed capacity, watched by the
+            # per-stage / per-round overflow probe (_overflow_stage_fn)
+            if nbr_capacity == "auto":
+                raise ValueError("nbr_capacity: auto requires a dataset")
+            nbr_capacity = int(nbr_capacity)
         self.node_nf = node_nf
 
         net_sec = dyn.get("network", {})
@@ -376,18 +381,22 @@ class Main:
         objective = tr.get("objective", "nll")
         if objective not in ("nll", "flow_vi"):
             raise ValueError(f"unknown training.objective {objective!r}")
-        if tr.get("profile_dir"):
-            raise NotImplementedError(
-                "training.profile_dir is not ported yet (ROADMAP A5.6, "
-                "utils/observe.py)")
-        if args.get("debug", {}).get("nan_checks"):
-            raise NotImplementedError(
-                "debug.nan_checks is not ported yet (ROADMAP A5.6, "
-                "utils/observe.py)")
-        if (objective == "nll"
-                and args.get("dataset", {}).get("type") == "compose"):
-            raise NotImplementedError(
-                "dataset type 'compose' is not ported yet (ROADMAP A6)")
+        # the NLL trainer's observability (driver.py:424-425): a profiler
+        # trace of the run's second epoch, and the NaN guard
+        self.profile_dir = tr.get("profile_dir")
+        self.nan_checks = bool(args.get("debug", {}).get("nan_checks"))
+
+    def _build_dataset(self, args):
+        """The ``dataset`` section's dataset; ``type: compose``
+        concatenates ``dataset1`` ... ``dataset<number>``
+        (``driver.py:202-209``)."""
+        if args["dataset"]["type"] == "compose":
+            from ..data.datasets import ComposeDatasets
+            n = int(args["dataset"]["number"])
+            return ComposeDatasets([self._setup_dataset(f"dataset{i + 1}",
+                                                        args)
+                                    for i in range(n)])
+        return self._setup_dataset("dataset", args)
 
     def _setup_dataset(self, dataset_label, args):
         """Resolve the dataset class and build the standard transforms
@@ -647,7 +656,8 @@ class Main:
     def train_step(self, batch, gen):
         """One NLL step: forward with the dequantizer noise from ``gen``,
         the NLL, its gradient, clipping, Adam. Returns the loss and the
-        overflow count (device tensors; no host sync)."""
+        overflow count (device tensors; no host sync unless the NaN guard
+        is on, which reads the loss before the backward)."""
         cfg = self.flow_cfg
         if self._capacity_can_truncate():
             cfg = dataclasses.replace(cfg, track_overflow=True)
@@ -658,6 +668,7 @@ class Main:
         n_lg = 3 if cfg.dequantizer == "argmax" else 2
         loss = alchemical_nll(out, ldj, self.lj_kBT, self.softening,
                               num_log_gaussian_calls=n_lg)
+        self._nan_check(loss, "loss")
         self.optimizer.zero_grad()
         loss.backward()
         self.optimizer.step()
@@ -674,6 +685,9 @@ class Main:
         else:
             self._train_nll()
 
+    def _nan_check(self, tree, name):
+        """The NaN guard's forward check while it is on, else nothing."""
+
     def _train_nll(self):
         print('Epoch \tTraining Loss \t   Time (s)', flush=True)
         for epoch in range(self.start_epoch,
@@ -683,13 +697,25 @@ class Main:
             start_time = time.time()
             gen = torch.Generator(device=self.device)
             gen.manual_seed(self._noise_seed(epoch))
-            losses, ovfs = [], []
-            for batch in self.train_loader:
-                loss, ovf = self.train_step(batch, gen)
-                losses.append(loss)
-                ovfs.append(ovf)
-            epoch_loss = float(torch.stack(losses).mean())
-            epoch_ovf = int(torch.stack(ovfs).sum())
+            # profile the second epoch of this run (the first one warms up)
+            do_profile = (self.profile_dir
+                          and epoch == self.start_epoch + 1)
+            with profile_trace(self.profile_dir if do_profile else None), \
+                    nan_guard(self.nan_checks) as check:
+                self._nan_check = check
+                try:
+                    losses, ovfs = [], []
+                    for batch in self.train_loader:
+                        loss, ovf = self.train_step(batch, gen)
+                        losses.append(loss)
+                        ovfs.append(ovf)
+                    losses = torch.stack(losses)
+                    epoch_ovf = int(torch.stack(ovfs).sum())
+                finally:
+                    del self._nan_check
+            if self.nan_checks:
+                assert_all_finite(losses, "epoch losses")
+            epoch_loss = float(losses.mean())
             if epoch_ovf:
                 eprint(f"WARNING: epoch {epoch} truncated {epoch_ovf} "
                        f"neighbor slots mid-flow (nbr_capacity/"
@@ -930,6 +956,12 @@ class Main:
                      target_accept=float(sec.get("target_accept", 0.65)),
                      precondition=bool(sec.get("precondition", False)),
                      **extra)
+        # truncating neighbor formats: a tracked flow forward on (at most
+        # 256 of) the particles at every anneal stage
+        # (driver.py:1300-1307); the exact formats skip it
+        track = self._capacity_can_truncate()
+        if track:
+            knobs["stage_fn"] = self._overflow_stage_fn(sec)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed + 31)
         n_retries = 0
@@ -960,6 +992,14 @@ class Main:
         ess = float(ess_from_log_weights(res.log_weights))
         out_path = sec.get("output", "samples.npz")
         parts = {k: _host(v) for k, v in res.particles.items()}
+        # the per-stage truncation counts, read once (driver.py:1355-1366)
+        if track and res.stage_metric_history is not None:
+            nbr_overflow = int(res.stage_metric_history.sum())
+            if nbr_overflow:
+                eprint(f"WARNING: {nbr_overflow} neighbor slots truncated "
+                       f"across the anneal stages (see the nbr_overflow "
+                       f"column in sampling.metrics_csv) — raise "
+                       f"dynamics.nbr_capacity/cell_capacity", flush=True)
         # force-field targets: dihedrals and importance-weighted phi/psi
         # profiles
         lw = _host(res.log_weights)
@@ -977,6 +1017,34 @@ class Main:
               + (f"  retries={n_retries}" if n_retries else ""), flush=True)
         self._log_sample_stages(sec, res, n_retries)
         return res
+
+    def _overflow_stage_fn(self, sec, max_check=256):
+        """The SMC/AIS ``stage_fn`` and REMC's per-round probe
+        (``driver.py:1397-1427``): ``particles -> truncated-slot count``, a
+        tracked flow forward without a graph on the first ``min(max_check,
+        P)`` particles in the run's dtype, in the sampling target's ``box``
+        (default 1e3) and ``r_cut`` (default 1e2). The count stays on the
+        device (an int tensor); nothing is read on the host."""
+        cfg_t = dataclasses.replace(self.flow_cfg, track_overflow=True)
+        box = float(sec["target"].get("box", 1e3))
+        r_cut = float(sec["target"].get("r_cut", 1e2))
+        params, dtype = self.params, self.dtype
+
+        @torch.no_grad()
+        def stage_fn(x):
+            n = min(max_check, x["pos"].shape[0])
+            n_atoms = x["pos"].shape[1]
+            dev = x["pos"].device
+            sysb = System(
+                h=x["h"][:n].to(dtype), g=x["g"][:n].to(dtype),
+                pos=x["pos"][:n].to(dtype), vel=x["vel"][:n].to(dtype),
+                mask=torch.ones((n, n_atoms), dtype=torch.bool, device=dev),
+                box=torch.full((n, 3), box, dtype=dtype, device=dev),
+                r_cut=torch.full((n,), r_cut, dtype=dtype, device=dev))
+            _, _, ovf = forward_core(params, cfg_t, sysb)
+            return ovf
+
+        return stage_fn
 
     # -- chunked, resumable SMC (driver.py:1431-1586) ----------------------
 
@@ -1067,7 +1135,9 @@ class Main:
                 out[f"gq_{k}"] = _host(v)
             for k, v in glp.items():
                 out[f"gp_{k}"] = _host(v)
-        for i, name in enumerate(("ess", "acc", "betah", "steph")):
+        # four histories, and a fifth (the stage metric) with a stage_fn
+        names = ("ess", "acc", "betah", "steph", "metric")[:len(hists[0])]
+        for i, name in enumerate(names):
             out[f"hist_{name}"] = np.concatenate([_host(h[i]) for h in hists])
         tmp = path + ".tmp.npz"     # .npz suffix: savez must not append one
         np.savez(tmp, **out)
@@ -1087,14 +1157,16 @@ class Main:
             state = (x, t(z["log_w"]), t(z["log_z"]), t(z["beta"]),
                      t(z["eps"]), t(z["lq0"]), t(z["lp"]), glq0, glp)
             hists = [tuple(t(z[f"hist_{n}"])
-                           for n in ("ess", "acc", "betah", "steph"))]
+                           for n in ("ess", "acc", "betah", "steph"))
+                     + ((torch.from_numpy(z["hist_metric"]).to(self.device),)
+                        if "hist_metric" in z.files else ())]
             return int(z["stage"]), state, hists
 
     def _log_sample_stages(self, sec, res, n_retries=0):
         """One ``sampling.metrics_csv`` row per temperature (stage, beta,
         ESS, accept; ``log_Z`` and the retries on the last row), in the JAX
-        driver's columns; ``nbr_overflow`` stays empty, as for the exact
-        neighbor formats the port runs."""
+        driver's columns; ``nbr_overflow`` is each stage's own truncation
+        count with a truncating neighbor format, else empty."""
         path = sec.get("metrics_csv")
         if not path:
             return
@@ -1103,6 +1175,8 @@ class Main:
         acc_h = _host(res.accept_history)
         beta_h = (_host(res.beta_history)
                   if res.beta_history is not None else None)
+        ovf_h = (_host(res.stage_metric_history)
+                 if res.stage_metric_history is not None else None)
         for i in range(len(ess_h)):
             last = i == len(ess_h) - 1
             logger.log(stage=i,
@@ -1111,7 +1185,8 @@ class Main:
                        accept=float(acc_h[i]) if i < len(acc_h) else "",
                        log_Z=float(res.log_Z) if last else "",
                        retries=n_retries if last else "",
-                       nbr_overflow="")
+                       nbr_overflow=(int(ovf_h[i]) if ovf_h is not None
+                                     else ""))
         logger.close()
 
     def _ff_extras(self, pos, weights, sec):
@@ -1312,6 +1387,9 @@ class Main:
         from ..sample.mcmc import tree_map
         from ..sample.remc import remc, remc_segments
 
+        # truncating neighbor formats: the overflow probe once a round over
+        # the flattened replicas (driver.py:1832-1834)
+        track = self._capacity_can_truncate()
         betas = self._remc_ladder(sec)
         K = len(betas)
         step_size = sec.get("step_size", 0.02)
@@ -1325,7 +1403,8 @@ class Main:
                      n_rounds=n_rounds,
                      mcmc_steps=int(sec.get("mcmc_steps", 1)),
                      step_size=step_size,
-                     n_leapfrog=int(sec.get("n_leapfrog", 5)))
+                     n_leapfrog=int(sec.get("n_leapfrog", 5)),
+                     stage_fn=self._overflow_stage_fn(sec) if track else None)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed + 31)
         # INDEPENDENT flow draws per slot, one K*M reverse reshaped: swaps
@@ -1348,6 +1427,13 @@ class Main:
         else:
             res = remc(gen, draw(z), **knobs)
         mbar_out = self._remc_mbar(sec, res, log_p, log_q0, M, discard)
+        nbr_overflow = ""
+        if track and res.round_metric_history is not None:
+            nbr_overflow = int(res.round_metric_history.sum())
+            if nbr_overflow:
+                eprint(f"WARNING: {nbr_overflow} neighbor slots truncated "
+                       f"across the REMC rounds — raise "
+                       f"dynamics.nbr_capacity/cell_capacity", flush=True)
 
         out_path = sec.get("output", "samples.npz")
         keep = {k: v[discard:] for k, v in res.samples.items()}
@@ -1379,7 +1465,8 @@ class Main:
                            mbar_log_Z=(mbar_out.get("mbar_log_Z", "")
                                        if k == K - 1 else ""),
                            retries=(n_retries if k == K - 1 else ""),
-                           nbr_overflow="")
+                           nbr_overflow=(nbr_overflow if k == K - 1
+                                         else ""))
             logger.close()
         return res
 

@@ -65,21 +65,21 @@ def test_driver_sample_cpu(tmp_path, capsys, algo, cdt, kernel):
     assert res.particles["pos"].device.type == "cpu"
 
 
-def test_driver_rejects_unported_modes(tmp_path):
-    # sampling with a neighbor capacity waits on the overflow probe
+def test_driver_rejects_unported_modes(tmp_path, capsys):
+    # sampling with a neighbor capacity runs, its overflow probed per stage
     cfg = tmp_path / "sample_capacity.yaml"
     cfg.write_text(YAML.format(algo="smc", cdt="null", kernel="false",
                                out=tmp_path / "x.npz").replace(
-        "  nbr_mode: all_pairs\n", "  nbr_mode: dense\n  nbr_capacity: 8\n"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5.5"):
+        "  nbr_mode: all_pairs\n", "  nbr_mode: dense\n  nbr_capacity: 2\n"))
+    res = Main(device="cpu")(str(cfg))
+    assert res.stage_metric_history.shape == (3,)
+    assert "neighbor slots truncated" in capsys.readouterr().err
+    # only atom sharding over several devices is refused (ROADMAP A7)
+    cfg.write_text(YAML.format(algo="smc", cdt="null", kernel="false",
+                               out=tmp_path / "x.npz")
+                   + "parallel: {atom_axis: 2}\n")
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         Main(device="cpu")(str(cfg))
-    # the profiler hook and the NaN guard of the NLL trainer
-    train = {"mode": "train", "units": {"time": "pico", "dist": "ang"}}
-    for over in ({"training": {"profile_dir": str(tmp_path / "prof")}},
-                 {"debug": {"nan_checks": True}}):
-        cfg.write_text(yaml.safe_dump({**train, **over}))
-        with pytest.raises(NotImplementedError, match="ROADMAP A5.6"):
-            Main(device="cpu")(str(cfg))
     # an unknown algo is the JAX driver's ValueError
     cfg.write_text(YAML.format(algo="gibbs", cdt="null", kernel="false",
                                out=tmp_path / "x.npz"))
@@ -136,6 +136,30 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):
             cli_main([str(cfg)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ForceField.from_dict({"atoms": [[1.0, 0.1, 0.0]] * 2})
+    # sampling with a capacity (the overflow probe), and the import and
+    # export of a reference checkpoint
+    cfg = tmp_path / "probe.yaml"
+    cfg.write_text(YAML.format(algo="remc", cdt="null", kernel="false",
+                               out=tmp_path / "x.npz").replace(
+        "  nbr_mode: all_pairs\n", "  nbr_mode: topk\n  nbr_capacity: 2\n"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_main([str(cfg)])
+    # training on a compose dataset with the profiler and the NaN guard
+    train = {"mode": "train", "units": {"time": "pico", "dist": "ang"},
+             "dataset": {"type": "compose", "number": 1,
+                         "dataset1": {"type": "xyz", "raw_file": "x.xyz"}},
+             "training": {"profile_dir": str(tmp_path / "prof")},
+             "debug": {"nan_checks": True}}
+    cfg.write_text(yaml.safe_dump(train))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_main([str(cfg)])
+    from enflow_tpu_torch.utils import torch_export, torch_import
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        torch_import.import_reference_checkpoint(
+            str(tmp_path / "missing.cpt"), str(tmp_path / "x.npz"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        torch_export.export_reference_checkpoint(
+            str(tmp_path / "missing.npz"), str(tmp_path / "x.cpt"))
 
 
 _FORBIDDEN = re.compile(
@@ -151,6 +175,9 @@ def test_port_imports_no_jax():
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {f"enflow_tpu_torch/sample/{m}.py" for m in (
         "forcefield", "mcmc", "nuts", "remc", "mbar", "ti")} <= names
+    assert {f"enflow_tpu_torch/{m}.py" for m in (
+        "data/formats", "data/readers", "data/lig", "utils/observe",
+        "utils/torch_import", "utils/torch_export")} <= names
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"

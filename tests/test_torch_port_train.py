@@ -282,22 +282,32 @@ def test_checkpoints_cross_packages(tmp_path):
 
 
 def test_driver_rejects_unported_train_options(tmp_path):
+    """Only atom sharding (ROADMAP A7) is refused; the options that waited
+    on A5.6 and A6 now set up: the profiler directory, the NaN guard and a
+    ``compose`` dataset; a reader without its files fails as in JAX."""
     cfg = tmp_path / "t.yaml"
     base = _yaml(tmp_path, 1)
     text = open(base).read()
-    vi = text.replace("nbr_mode: images\n  nbr_capacity: auto",
-                      "nbr_mode: all_pairs").replace("hidden_nf: 16,",
-                                                     "hidden_nf: 16, node_nf: 2,")
-    for old, new in (("type: lj", "type: md"),
-                     ("seed: 2", "seed: 2\nparallel: {atom_axis: 4}"),
-                     ("log_interval: 1", "log_interval: 1\n  profile_dir: "
-                      "prof"),
-                     ("seed: 2", "seed: 2\ndebug: {nan_checks: true}")):
-        cfg.write_text(text.replace(old, new))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Main(device="cpu").setup(str(cfg))
-    # the compose dataset the port does not have yet (the force-field
-    # target it refused here until A5.1 is ported)
-    cfg.write_text(vi.replace("type: lj", "type: compose"))
-    with pytest.raises(NotImplementedError, match="compose.*ROADMAP A6"):
+    cfg.write_text(text.replace("seed: 2",
+                                "seed: 2\nparallel: {atom_axis: 4}"))
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         Main(device="cpu").setup(str(cfg))
+    # a reader type without its required files (JAX: the same TypeError)
+    cfg.write_text(text.replace("type: lj", "type: md"))
+    with pytest.raises(TypeError, match="top_file"):
+        Main(device="cpu").setup(str(cfg))
+    cfg.write_text(text.replace(
+        "log_interval: 1", "log_interval: 1\n  profile_dir: prof").replace(
+        "seed: 2", "seed: 2\ndebug: {nan_checks: true}"))
+    main = Main(device="cpu")
+    main.setup(str(cfg))
+    assert main.profile_dir == "prof" and main.nan_checks
+    # compose of one part: the lj section under dataset1
+    lj = text[text.index("dataset:\n"):text.index("dynamics:")]
+    composed = text.replace(lj, "dataset: {type: compose, number: 1}\n"
+                            + lj.replace("dataset:", "dataset1:"))
+    cfg.write_text(composed)
+    main = Main(device="cpu")
+    main.setup(str(cfg))
+    assert type(main.dataset).__name__ == "ComposeDatasets"
+    assert len(main.dataset) == 7 and main.node_nf == 1
