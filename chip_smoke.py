@@ -76,6 +76,27 @@ non-zero):
    losses, a checkpoint and a metrics CSV; then K1 and K2 p against their
    plain version at its shape (B=256, N=55), and timed beside it, their
    bounds and floors.
+9b. sharded (after vi55, from its LJ55 checkpoint) — the atom-sharded
+   paths (ROADMAP A7) on the in-process mesh of 4 virtual devices, the
+   ring EGCL and ring pair terms as plain PyTorch on the card (one
+   ``ring_calls`` count an EGCL; every kernel counter 0 on these paths):
+   (a) ``example/sample_sharded.yaml`` as committed (LJ55 padded to 56
+   atoms, 1024 particles, 16 temperatures, bf16, H=128), after
+   ``propose``, ``log_q0``, ``log_p`` and their gradients held against the
+   dense padded oracle (``mesh=None``, ``n_pad`` 56, the all-pairs f32
+   kernels) on SHARDED_CHECK_P particles in f32 (TOL_SHARDED, relative to
+   each output's largest magnitude): beta 1, finite ``log_Z``, the npz
+   trimmed to 55 atoms, the ring calls the code implies, the peak memory;
+   (b) ``example/train_sharded.yaml``: its LJ-128 dataset (the MD's K7 r
+   on the card) and 2 of its 10 epochs, the first step's loss and
+   parameter gradient held against the dense port (K5/K6, K7 r2) on the
+   same batch and noise, s/step, then a 1-epoch resume; (c)
+   ``example/sample_fluid.yaml`` (2,944 atoms, a fresh drift flow) as far
+   as memory allows: the densities without a gradient at 2,944 atoms, a
+   value-and-grad on one particle and a short fixed-schedule SMC (2
+   temps, 1 x 2 HMC) on as many particles as fit; the same at FLUID_N
+   atoms with the box scaled to keep rho*; each with its peak bytes; (d)
+   ``parallel.dryrun.dryrun_multichip(4)``.
 10. train — the training path: ``example/train.yaml`` (3 epochs) through
    the port's driver in a temporary directory: the LJ MD dataset on the
    card, then NLL steps, each checked for the launch counts the code
@@ -2359,43 +2380,51 @@ def vi_phase(card, keep_dir):
 # The vi55 phase's cut of example/vi_lj55.yaml (40 epochs x 100 steps):
 # one epoch of VI55_STEPS steps, every width and option as committed
 VI55_STEPS = 5
+# phase sharded: the density check on SHARDED_CHECK_P particles, f32,
+# within TOL_SHARDED of each output's largest magnitude (ring blocks
+# against the all-pairs kernels' tiles: f32 sums in another order through
+# 5 flow steps); sample_fluid.yaml's scaled run at FLUID_N atoms
+SHARDED_CHECK_P = 64
+TOL_SHARDED = 1e-3
+SHARDED_EPOCHS = 2
+FLUID_N = 1024
 
 
-def vi55_phase(card):
+def vi55_phase(card, keep_dir):
     """``example/vi_lj55.yaml`` (LJ55, 256 particles, H=128, bf16)
-    through the port's driver for one epoch of VI55_STEPS steps in a
-    temporary directory: 5 K1 + 5 parameter-gradient K2 launches per step
-    at N=55, no plain call, finite losses, a checkpoint and a metrics
-    CSV; then K1 and K2 p at that shape (B=256, N=55) against the plain
-    version and timed."""
+    through the port's driver for one epoch of VI55_STEPS steps in the
+    directory ``keep_dir`` (whose checkpoint phase sharded reads): 5 K1 +
+    5 parameter-gradient K2 launches per step at N=55, no plain call,
+    finite losses, a checkpoint and a metrics CSV; then K1 and K2 p at
+    that shape (B=256, N=55) against the plain version and timed."""
     import os
     import torch
     from enflow_tpu_torch.ops import egcl_allpairs as ops
 
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as tmp:
-        try:
-            main = vi_driver(tmp, 1, config="vi_lj55.yaml", steps=VI55_STEPS)
-            n_iter, P = main.n_iter, main.vi_particles
-            step_s, losses = time_vi_steps(main)
-            reset_counts()
-            main.train()
-            torch.cuda.synchronize()
-            got = vi_launches()
-            want = dict(k1=n_iter * VI55_STEPS, k2=0,
-                        k2_params=n_iter * VI55_STEPS, plain=0)
-            require(len(step_s) == VI55_STEPS, f"{len(step_s)} VI55 steps")
-            require(got == want, f"vi_lj55 launches {got} != {want}")
-            require(all(math.isfinite(x) for x in losses),
-                    f"non-finite vi_lj55 losses {losses}")
-            require(Path("lj55_vi.cpt").exists(), "no LJ55 checkpoint")
-            with open("lj55_vi_metrics.csv") as f:
-                rows = [r.split(",") for r in f.read().strip().splitlines()]
-            require(rows[0][:3] == ["time", "epoch", "loss"]
-                    and len(rows) == 2 and math.isfinite(float(rows[1][2])),
-                    f"vi_lj55 metrics CSV rows {rows}")
-        finally:
-            os.chdir(cwd)
+    try:
+        main = vi_driver(keep_dir, 1, config="vi_lj55.yaml",
+                         steps=VI55_STEPS)
+        n_iter, P = main.n_iter, main.vi_particles
+        step_s, losses = time_vi_steps(main)
+        reset_counts()
+        main.train()
+        torch.cuda.synchronize()
+        got = vi_launches()
+        want = dict(k1=n_iter * VI55_STEPS, k2=0,
+                    k2_params=n_iter * VI55_STEPS, plain=0)
+        require(len(step_s) == VI55_STEPS, f"{len(step_s)} VI55 steps")
+        require(got == want, f"vi_lj55 launches {got} != {want}")
+        require(all(math.isfinite(x) for x in losses),
+                f"non-finite vi_lj55 losses {losses}")
+        require(Path("lj55_vi.cpt").exists(), "no LJ55 checkpoint")
+        with open("lj55_vi_metrics.csv") as f:
+            rows = [r.split(",") for r in f.read().strip().splitlines()]
+        require(rows[0][:3] == ["time", "epoch", "loss"]
+                and len(rows) == 2 and math.isfinite(float(rows[1][2])),
+                f"vi_lj55 metrics CSV rows {rows}")
+    finally:
+        os.chdir(cwd)
     s_step = statistics.median(step_s[1:])
     # K1 and K2 p at this path's shape: 47 tiles a molecule (the last one
     # partial), one warpgroup per SM walking about two molecules, whose
@@ -2446,11 +2475,325 @@ def vi55_phase(card):
     return s_step
 
 
-def config_driver(tmp, config, over=None, dynamics=None):
+def kernel_launches():
+    """Every kernel launch (all-pairs, gathered-edge, pair energy, of any
+    size rule) since the counts were reset."""
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    from enflow_tpu_torch.ops import egcl_allpairs as ea
+    from enflow_tpu_torch.ops import pair_energy as pe
+    return sum(v for m in (ea, ep, pe) for k, v in vars(m.counts).items()
+               if k.endswith("launches"))
+
+
+def ring_calls():
+    from enflow_tpu_torch.parallel import ring
+    return ring.counts.ring_calls
+
+
+def reset_ring():
+    from enflow_tpu_torch.parallel import ring
+    reset_counts()
+    ring.counts.reset()
+
+
+def max_rel(got, want):
+    """``max |got - want| / max |want|`` over tensors or dicts of them."""
+    if isinstance(want, dict):
+        return max(max_rel(got[k], want[k]) for k in want)
+    want = want.detach().float()
+    return float((got.detach().float() - want).abs().max()
+                 / want.abs().max().clamp(min=1e-30))
+
+
+def peak_gb():
+    import torch
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def sharded_sample(card, lj55_dir):
+    """Phase sharded (a): ``sample_sharded.yaml`` from the LJ55 VI
+    checkpoint, its densities first held against the dense padded
+    oracle."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from enflow_tpu_torch.sample.mcmc import batched_value_and_grad
+    from enflow_tpu_torch.sample.sharded import make_sample_fns
+
+    main = config_driver(lj55_dir, "sample_sharded.yaml", virtual_devices=4)
+    require(main.mesh.shape == {"data": 1, "atom": 4},
+            f"mesh {main.mesh.shape}")
+    sec = main.args["sampling"]
+    target, n_atoms = main._build_pos_target(sec["target"])
+    box = float(sec["target"].get("box", 1e3))
+    r_cut = float(sec["target"].get("r_cut", 1e2))
+    # f32 message passing on both sides: the ring in plain f32, the oracle
+    # on the f32 all-pairs kernels
+    cfg32 = dataclasses.replace(main.flow_cfg, egcl=dataclasses.replace(
+        main.flow_cfg.egcl, compute_dtype=None))
+    fns = make_sample_fns(main.params, cfg32, target, n_atoms, box, r_cut,
+                          mesh=main.mesh)
+    n_pad = fns[3]
+    dense = make_sample_fns(main.params, cfg32, target, n_atoms, box, r_cut,
+                            n_pad=n_pad)
+    require(n_pad == 56, f"LJ55 padded to {n_pad}")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    z = main._latents(gen, SHARDED_CHECK_P, n_pad)
+    x = fns[0](z)
+    errs = {"propose": max_rel(x, dense[0](z))}
+    for name, i in (("log_q0", 1), ("log_p", 2)):
+        v, g = batched_value_and_grad(fns[i])(x)
+        dv, dg = batched_value_and_grad(dense[i])(x)
+        errs[name], errs[f"d{name}"] = max_rel(v, dv), max_rel(g, dg)
+    require(max(errs.values()) <= TOL_SHARDED and all(
+        math.isfinite(e) for e in errs.values()),
+        f"sharded densities against the dense oracle: {errs}")
+
+    P, n_temps = int(sec["n_particles"]), int(sec["n_temps"])
+    mcmc, n_lf = int(sec["mcmc_steps"]), int(sec["n_leapfrog"])
+    n_vg = 1 + n_temps * mcmc * n_lf
+    want_ring = main.n_iter * (1 + n_vg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_ring()
+    res, secs = timed_sample(main)
+    rings, kern, plain = ring_calls(), kernel_launches(), plain_calls()
+    peak = peak_gb()
+    check_smc(res, "sample_sharded", P, n_pad)
+    require(all(t.is_cuda for t in res.particles.values()),
+            "sample_sharded particles off the card")
+    with np.load(sec["output"]) as npz:
+        shape = npz["pos"].shape
+    require(shape == (P, n_atoms, 3), f"npz pos {shape}")
+    require(rings == want_ring and kern == 0 and plain == 0,
+            f"sample_sharded: ring calls {rings} (want {want_ring}), kernel "
+            f"launches {kern}, plain calls {plain}")
+    phase("sharded", f"sample_sharded.yaml densities vs the dense padded "
+          f"oracle on {card} (P={SHARDED_CHECK_P}, N 55 -> {n_pad}, f32) "
+          f"max rel err: "
+          + "  ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"  (tol {TOL_SHARDED:g})")
+    phase("sharded", f"sample_sharded.yaml as committed on {card}, 4 "
+          f"virtual devices, {n_temps} temps: {P} particles x {n_atoms} "
+          f"atoms (padded {n_pad}), {secs:.3f} s, {P / secs:.1f} samples/s, "
+          f"log_Z {float(res.log_Z):.4f}, beta {float(res.beta_history[-1])}"
+          f", ring calls {rings}, kernel launches 0, plain calls 0, peak "
+          f"{peak:.2f} GB; npz pos {shape}")
+    return dict(secs=secs, peak=peak, rings=rings)
+
+
+def sharded_train(card, tmp):
+    """Phase sharded (b): ``train_sharded.yaml``, 2 of its epochs and a
+    resume, its first step held against the dense port."""
+    import os
+    import yaml
+    import torch
+    from enflow_tpu_torch.flow.integrators import forward
+    from enflow_tpu_torch.flow.loss import alchemical_nll
+    from enflow_tpu_torch.flow.sharded import make_sharded_nll
+    from enflow_tpu_torch.ops import pair_energy as pe
+    from enflow_tpu_torch.train.driver import Main
+
+    cfg = yaml.safe_load((ROOT / "example" / "train_sharded.yaml").read_text())
+    cfg["training"]["num_epochs"] = SHARDED_EPOCHS
+    path = Path(tmp) / "train_sharded.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    os.chdir(tmp)
+    reset_ring()
+    t0 = time.perf_counter()
+    main = Main(device="cuda", virtual_devices=4)
+    main.setup(str(path))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    md_launches = pe.counts.r_launches
+    require(md_launches > 0 and main.train_loader.n_max == 128,
+            f"LJ-128 dataset: {md_launches} K7 r launches, n_max "
+            f"{main.train_loader.n_max}")
+
+    # the first step's loss and gradient against the dense port
+    mc = main.flow_cfg
+    n_lg = 3 if mc.dequantizer == "argmax" else 2
+    main.train_loader.set_epoch(main.start_epoch)
+    batch = next(iter(main.train_loader))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(main._noise_seed(main.start_epoch))
+    eps = main._noise(gen, batch.h)
+    loss_s = make_sharded_nll(main.mesh, mc, main.lj_kBT, main.softening,
+                              num_log_gaussian_calls=n_lg, data_axis="data")(
+        main.params, batch, eps=eps)
+    g_s = torch.autograd.grad(loss_s, main._leaves, allow_unused=True)
+    out, ldj = forward(main.params, mc, batch, eps=eps)
+    loss_d = alchemical_nll(out, ldj, main.lj_kBT, main.softening,
+                            num_log_gaussian_calls=n_lg)
+    g_d = torch.autograd.grad(loss_d, main._leaves, allow_unused=True)
+    require([a is None for a in g_s] == [b is None for b in g_d],
+            "train_sharded: the sharded and dense NLL use other parameters")
+    loss_s, loss_d = loss_s.item(), loss_d.item()
+    err_l = abs(loss_s - loss_d) / abs(loss_d)
+    err_g = max(max_rel(a, b) for a, b in zip(g_s, g_d) if b is not None)
+    require(err_l <= TOL_SHARDED and err_g <= TOL_SHARDED,
+            f"train_sharded first step vs dense: loss {err_l:.2e}, "
+            f"gradient {err_g:.2e}")
+
+    n_steps = SHARDED_EPOCHS * len(main.train_loader)
+    reset_ring()
+    step_s, losses = timed_train(main)
+    rings, kern, plain = ring_calls(), kernel_launches(), plain_calls()
+    want_ring = n_steps * main.n_iter
+    require(len(step_s) == n_steps and rings == want_ring and kern == 0
+            and plain == 0 and all(math.isfinite(x) for x in losses),
+            f"train_sharded: {len(step_s)} steps, ring calls {rings} (want "
+            f"{want_ring}), kernel launches {kern}, plain {plain}, losses "
+            f"{losses}")
+    cfg["training"]["num_epochs"] = 1
+    path.write_text(yaml.safe_dump(cfg))
+    again = Main(device="cuda", virtual_devices=4)
+    again.setup(str(path))
+    require(again.start_epoch == SHARDED_EPOCHS,
+            f"resume at epoch {again.start_epoch}")
+    r_s, r_losses = timed_train(again)
+    require(all(math.isfinite(x) for x in r_losses), "resume losses")
+    s_step = statistics.median(step_s[1:])
+    phase("sharded", f"train_sharded.yaml first step vs the dense port on "
+          f"{card} (K5/K6, K7 r2; same batch and noise, f32): loss "
+          f"{loss_s:.4f} vs "
+          f"{loss_d:.4f}, rel err {err_l:.2e}, gradient max rel "
+          f"err {err_g:.2e} (tol {TOL_SHARDED:g})")
+    phase("sharded", f"train_sharded.yaml on {card}, 4 virtual devices: "
+          f"set-up {setup_s:.3f} s (LJ-128 MD, {md_launches} K7 r "
+          f"launches, {len(main.dataset)} frames); {SHARDED_EPOCHS} of 10 "
+          f"epochs, {n_steps} steps, {s_step:.5f} s/step (median of steps "
+          f"2-{n_steps}), losses " + ", ".join(f"{x:.3f}" for x in losses)
+          + f"; ring calls {rings}, kernel launches 0, plain calls 0; resume "
+          f"at epoch {SHARDED_EPOCHS}: {len(r_s)} steps, "
+          f"{statistics.median(r_s):.5f} s/step")
+    return dict(s_step=s_step, setup_s=setup_s)
+
+
+def sharded_fluid(card, tmp):
+    """Phase sharded (c): ``sample_fluid.yaml`` as far as memory allows."""
+    import os
+    import yaml
+    import torch
+    from enflow_tpu_torch.sample import smc
+    from enflow_tpu_torch.sample.mcmc import batched_value_and_grad
+    from enflow_tpu_torch.sample.sharded import make_sample_fns
+    from enflow_tpu_torch.train.driver import Main
+
+    cfg = yaml.safe_load((ROOT / "example" / "sample_fluid.yaml").read_text())
+    path = Path(tmp) / "sample_fluid.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    os.chdir(tmp)
+    main = Main(device="cuda", virtual_devices=4)
+    main.setup(str(path))
+    tsec = dict(main.args["sampling"]["target"])
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def fns(n_atoms):
+        sec = dict(tsec, n_atoms=n_atoms,
+                   box=float(tsec["box"]) * (n_atoms / tsec["n_atoms"])
+                   ** (1 / 3))
+        target, _ = main._build_pos_target(sec)
+        return make_sample_fns(main.params, main.flow_cfg, target, n_atoms,
+                               sec["box"], float(sec.get("r_cut", 1e2)),
+                               mesh=main.mesh), sec["box"]
+
+    def value_and_grad(f, x):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 1e9
+        v, _ = batched_value_and_grad(f)(x)
+        torch.cuda.synchronize()
+        return v, peak_gb() - base
+
+    def anneal(q0, lp, prop, n_pad, label):
+        """A value-and-grad on one particle, then the short SMC on as many
+        particles as fit; returns the phase line's text."""
+        x = prop(main._latents(gen, 1, n_pad))
+        _, one_gb = value_and_grad(q0, x)
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0] / 1e9
+        P = max(1, min(8, int(0.8 * free / one_gb)))
+        x = prop(main._latents(gen, P, n_pad))
+        reset_ring()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = smc(gen, x, log_q0=q0, log_p=lp, n_temps=2, mcmc_steps=1,
+                  step_size=0.01, n_leapfrog=2)
+        torch.cuda.synchronize()
+        smc_s, smc_gb = time.perf_counter() - t0, peak_gb()
+        require(math.isfinite(float(res.log_Z)) and kernel_launches() == 0,
+                f"{label} SMC: log_Z {float(res.log_Z)}, kernel launches "
+                f"{kernel_launches()}")
+        del x, res
+        torch.cuda.empty_cache()
+        return (f"a value-and-grad of log_q0 {one_gb:.2f} GB a particle; "
+                f"SMC (2 fixed temps, 1 x 2 HMC) on {P} particles "
+                f"{smc_s:.3f} s, peak {smc_gb:.2f} GB, ring calls "
+                f"{ring_calls()}"), one_gb
+
+    n_full = int(tsec["n_atoms"])
+    (prop, q0, lp, n_pad), _ = fns(n_full)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        x = prop(main._latents(gen, 2, n_pad))
+        vq, vp = q0(x), lp(x)
+    torch.cuda.synchronize()
+    nograd_s, nograd_gb = time.perf_counter() - t0, peak_gb()
+    require(bool(torch.isfinite(vq).all() and torch.isfinite(vp).all()),
+            "sample_fluid densities not finite")
+    del x
+    full, full_gb = anneal(q0, lp, prop, n_pad, "sample_fluid")
+    (prop, q0, lp, n_pad), box = fns(FLUID_N)
+    scaled, one_gb = anneal(q0, lp, prop, n_pad, "scaled sample_fluid")
+    phase("sharded", f"sample_fluid.yaml on {card}, 4 virtual devices "
+          f"(2,944 atoms, 736-atom blocks, H=64, bf16, drift, a fresh "
+          f"flow): propose + log_q0 + log_p without a gradient on 2 "
+          f"particles {nograd_s:.3f} s, peak {nograd_gb:.2f} GB; {full}")
+    phase("sharded", f"sample_fluid.yaml on {card} scaled to {FLUID_N} "
+          f"atoms (box {box:.3f}, rho* kept): {scaled}")
+    return dict(full_gb=full_gb, one_gb=one_gb, nograd_gb=nograd_gb)
+
+
+def sharded_phase(card, lj55_dir):
+    """Phase sharded (the module docstring's 9b)."""
+    import contextlib
+    import io
+    import os
+    import torch
+    from enflow_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    cwd = os.getcwd()
+    try:
+        smp = sharded_sample(card, lj55_dir)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            trn = sharded_train(card, tmp)
+            os.chdir(cwd)
+            torch.cuda.empty_cache()
+            fl = sharded_fluid(card, tmp)
+    finally:
+        os.chdir(cwd)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip(4)
+    torch.cuda.synchronize()
+    lines = [ln[9:] for ln in buf.getvalue().splitlines()
+             if ln.startswith("[dryrun] ")]
+    require(len(lines) == 10, f"dryrun printed {lines}")
+    phase("sharded", f"dryrun_multichip(4) on {card} in "
+          f"{time.perf_counter() - t0:.2f} s: " + " | ".join(lines))
+    return dict(sample=smp, train=trn, fluid=fl)
+
+
+def config_driver(tmp, config, over=None, dynamics=None, virtual_devices=1):
     """The port's driver set up from ``example/<config>`` with the keys of
     ``over`` changed in its ``sampling`` (or ``training``) section and those
     of ``dynamics`` in its ``dynamics`` section, run from the working
-    directory ``tmp`` (where its outputs go)."""
+    directory ``tmp`` (where its outputs go) on ``virtual_devices``."""
     import os
     import yaml
     from enflow_tpu_torch.train.driver import Main
@@ -2465,7 +2808,7 @@ def config_driver(tmp, config, over=None, dynamics=None):
     if not (Path(tmp) / "example").exists():
         (Path(tmp) / "example").symlink_to(ROOT / "example")
     os.chdir(tmp)
-    main = Main(device="cuda")
+    main = Main(device="cuda", virtual_devices=virtual_devices)
     main.setup(str(path))
     return main
 
@@ -3848,7 +4191,10 @@ def main():
         rm = timed("remc", remc_phase, card, lj13_dir)
         timed("ti", ti_phase, card, lj13_dir)
         pr = timed("probe", probe_phase, card, lj13_dir)
-    timed("vi55", vi55_phase, card)
+    # phase sharded samples from the LJ55 checkpoint that vi55 writes
+    with tempfile.TemporaryDirectory() as lj55_dir:
+        timed("vi55", vi55_phase, card, lj55_dir)
+        timed("sharded", sharded_phase, card, lj55_dir)
     timed("lj55", lj55_phase, card)
     timed("fluid", fluid_phase, card)
     dw4 = timed("dw4", dw4_phase, card)

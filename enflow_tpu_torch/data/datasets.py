@@ -78,7 +78,7 @@ def save_samples(path: str, samples) -> None:
         r_cut=np.array([s.r_cut for s in samples], np.float64),
         label=np.array([s.label for s in samples], dtype=str))
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
+    tmp = f"{path}.{os.getpid()}.tmp"   # ranks of one run write at once
     with open(tmp, "wb") as f:
         np.savez(f, **payload)
     os.replace(tmp, path)
@@ -265,10 +265,17 @@ def pad_samples(samples, n_max, node_nf, dtype=torch.float32, n_mols=None,
 class DataLoader:
     """Shuffling, padding batcher: every batch is ``[batch_size, n_max]``.
     ``prefetch`` is accepted for the config schema and has no effect (the
-    port assembles batches on the calling thread)."""
+    port assembles batches on the calling thread).
+
+    ``shard = (num_shards, shard_index)`` takes every ``num_shards``-th
+    sample of the epoch's order from ``shard_index`` on, for data-parallel
+    loading over processes (``batch_size`` is then per shard). The order is
+    padded by modular wrap-around to a multiple of ``num_shards``, so every
+    shard has as many samples, hence batches, as the others
+    (``datasets.py:227-272``)."""
 
     def __init__(self, dataset, batch_size=1, shuffle=False, seed=0,
-                 dtype=torch.float32, device=None, prefetch=0):
+                 dtype=torch.float32, device=None, prefetch=0, shard=None):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
@@ -276,6 +283,7 @@ class DataLoader:
         self.epoch = 0
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.num_shards, self.shard_index = shard or (1, 0)
         self.n_max = dataset.max_atoms
         self.node_nf = dataset.node_nf
 
@@ -283,13 +291,18 @@ class DataLoader:
         self.epoch = int(epoch)
 
     def _indices(self):
-        idx = np.arange(len(self.dataset))
+        n = len(self.dataset)
+        idx = np.arange(n)
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
-        return idx
+        if self.num_shards > 1 and n % self.num_shards:
+            idx = idx[np.arange(-(-n // self.num_shards) * self.num_shards)
+                      % n]
+        return idx[self.shard_index::self.num_shards]
 
     def __len__(self):
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        n = len(self._indices())
+        return (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self):
         idx = self._indices()

@@ -1,6 +1,7 @@
 """Neighbor structures, the port of ``enflow_tpu/data/neighbors.py``.
 
-Every mode of the JAX package but the atom-sharded ring (ROADMAP A7):
+Every mode of the JAX package (the atom-sharded ring builds its edges
+blockwise, ``parallel/ring.py``):
 
 - ``all_pairs`` (the cluster workloads): every real atom neighbors every
   other. It feeds the plain all-pairs EGCL; the all-pairs CUDA kernel

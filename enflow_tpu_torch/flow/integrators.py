@@ -27,8 +27,14 @@ and VV ``forward_core``/``reverse_core`` with parity and exact ldj, the
 ArgMax and Floor dequantizing ``forward``/``reverse``, in every neighbor
 mode of the JAX package (``all_pairs``, ``dense``/``topk``, ``cell`` and
 ``images``), with ``track_overflow`` (the slots a truncating build dropped,
-summed over steps). Atom sharding (ROADMAP A7) raises
-``NotImplementedError``.
+summed over steps).
+
+Atom sharding: ``axis_name`` holds the collective axis object
+(``parallel/collectives.py``) of the atoms, the port's counterpart of the
+JAX package's named mesh axis. The system is then this shard's block of
+every molecule's atoms (``flow/sharded.py`` builds it): each EGCL is the
+ring EGCL (``parallel/ring.py``), taken before any kernel route as in the
+JAX package, and the per-molecule log-det sums are ``psum``s.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from ..nn import argmax as argmax_deq
 from ..nn import floor as floor_deq
 from ..nn.egcl import (EGCLConfig, init_egcl, apply_egcl,
                        apply_egcl_fused_allpairs, plain_route)
+from ..utils.helpers import LOG_2PI
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +78,9 @@ class FlowConfig:
     remat: bool = True
     remat_policy: Optional[str] = None
     scan_unroll: int = 1
-    axis_name: Optional[str] = None
+    # the atoms' collective axis object (parallel/collectives.py) when
+    # sharded; set by flow/sharded.py
+    axis_name: Optional[object] = None
     position_update: str = "shift"
     pos_scale_max: float = 3.0
     track_overflow: bool = False
@@ -90,12 +99,10 @@ def _check_supported(cfg: FlowConfig):
         raise ValueError(cfg.integrator)
     if cfg.position_update not in ("shift", "coupled", "drift"):
         raise ValueError(cfg.position_update)
-    if cfg.axis_name:
-        raise NotImplementedError(
-            "atom-sharded flows are not ported yet (ROADMAP A7)")
     if cfg.nbr_mode not in ("all_pairs", "dense", "topk", "cell", "images"):
         raise ValueError(f"unknown nbr_mode {cfg.nbr_mode!r}")
-    if cfg.egcl.use_pallas in ("v2", "v3") and cfg.nbr_mode != "all_pairs":
+    if cfg.egcl.use_pallas in ("v2", "v3") and cfg.nbr_mode != "all_pairs" \
+            and cfg.axis_name is None:
         raise ValueError(f"use_pallas={cfg.egcl.use_pallas!r} requires "
                          "nbr_mode='all_pairs'")
 
@@ -190,7 +197,13 @@ def _egcl_at(params, cfg: FlowConfig, net_params, sys: System):
     ``cells_per_dim`` and ``cell_capacity``) and the EGCL runs on the
     gathered rows (the gathered-edge kernel on the card); ``overflow``
     counts the slots the build dropped (a device scalar, 0 for the exact
-    formats)."""
+    formats). With ``cfg.axis_name`` the ring EGCL, whatever the route."""
+    if cfg.axis_name is not None:
+        from ..parallel.ring import ring_egcl
+        zero = torch.zeros((), dtype=torch.int32, device=sys.pos.device)
+        return ring_egcl(net_params, cfg.egcl, sys.h, sys.pos, sys.mask,
+                         sys.box, sys.r_cut, cfg.axis_name,
+                         nbr_mode=cfg.nbr_mode), zero
     if cfg.nbr_mode == "all_pairs":
         zero = torch.zeros((), dtype=torch.int32, device=sys.pos.device)
         if (sys.pos.is_cuda and not plain_route(cfg.egcl)) or \
@@ -211,15 +224,21 @@ def _egcl_at(params, cfg: FlowConfig, net_params, sys: System):
                       sys.mask), ovf
 
 
+def _atom_sum(cfg: FlowConfig, x):
+    """Per-molecule sum over the atoms (``psum``med when sharded)."""
+    s = x.sum(dim=(1, 2))
+    return s if cfg.axis_name is None else cfg.axis_name.psum(s)
+
+
 def _ldj_sum(cfg: FlowConfig, Q):
-    return cfg.ldj_factor * Q.sum(dim=(1, 2))
+    return cfg.ldj_factor * _atom_sum(cfg, Q)
 
 
-def _ldj_sum_drift(S):
+def _ldj_sum_drift(cfg: FlowConfig, S):
     """The drift's log-scale term: always the exact factor 3, also in NLL
     parity mode (the parity quirk reproduces a reference without a drift
     network), in forward and reverse alike."""
-    return 3.0 * S.sum(dim=(1, 2))
+    return 3.0 * _atom_sum(cfg, S)
 
 
 def _lf_xs(params, cfg: FlowConfig, k: int):
@@ -256,7 +275,7 @@ def _lf_forward(params, cfg: FlowConfig, sys: System):
             S, Fp, o2 = _drift_egcl(params, cfg, pnet, sys.replace(vel=vel))
             if coupled:
                 pos = torch.exp(S) * sys.pos + (vel + Fp) * dt
-                ldj = ldj + _ldj_sum_drift(S)
+                ldj = ldj + _ldj_sum_drift(cfg, S)
             else:       # 'drift': a translation, volume-preserving
                 pos = sys.pos + (vel + Fp) * dt
             o = o + o2
@@ -281,7 +300,7 @@ def _lf_reverse(params, cfg: FlowConfig, sys: System):
             S, Fp, o2 = _drift_egcl(params, cfg, pnet, sys)
             if coupled:
                 pos = (sys.pos - (sys.vel + Fp) * dt) * torch.exp(-S)
-                ldj2 = -_ldj_sum_drift(S)
+                ldj2 = -_ldj_sum_drift(cfg, S)
             else:
                 pos = sys.pos - (sys.vel + Fp) * dt
             ovf = ovf + o2
@@ -354,14 +373,28 @@ def forward(params, cfg: FlowConfig, sys: System, gen=None, eps=None):
     summed overflow when ``cfg.track_overflow`` is set
     (``integrators.py:735-766``). The dequantization noise is ``eps`` when
     given (standard normal for ArgMax, ``U[0, 1)`` for Floor), else a draw
-    from ``gen``."""
+    from ``gen``.
+
+    Atom-sharded (``cfg.axis_name``), ``eps`` is this shard's block of the
+    noise (``flow/sharded.py`` draws the whole molecules' and splits it), so
+    each shard dequantizes its own atoms with its own draws; ``log_q``'s
+    partial sums are ``psum``med, the ArgMax ``log(2 pi)`` charged once a
+    molecule and not once a shard."""
     integrate = _core(cfg, reverse=False)
+    ax = cfg.axis_name
+    if ax is not None and eps is None:
+        raise ValueError("an atom-sharded forward takes its shard's noise "
+                         "as eps (flow/sharded.py draws it)")
     if cfg.dequantizer == "argmax":
         h, log_q = argmax_deq.forward(params["dequant"], sys.h, sys.mask,
                                       gen=gen, eps=eps)
     else:
         h, log_q = floor_deq.forward(cfg.dequant_scale, sys.h, sys.mask,
                                      gen=gen, noise=eps)
+    if ax is not None:
+        log_q = ax.psum(log_q)
+        if cfg.dequantizer == "argmax":
+            log_q = log_q + 0.5 * LOG_2PI * (ax.size - 1)
     sys, ldj, ovf = integrate(params, cfg, sys.replace(h=h))
     if cfg.track_overflow:
         return sys, ldj + log_q, ovf

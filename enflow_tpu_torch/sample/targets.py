@@ -3,14 +3,18 @@
 Batched over particles: ``log_prob(x [P, N, 3]) -> [P]``. Ported:
 ``Target``, ``regularize_energy``, ``lj_cluster``, ``lj_fluid``,
 ``double_well`` and ``gaussian`` (the force-field target is
-``sample/forcefield.py``); the atom-sharded ``log_prob_sharded`` members
-are ROADMAP A7.
+``sample/forcefield.py``), each with its atom-sharded
+``log_prob_sharded(pos_blk [B, n_blk, 3], mask_blk [B, n_blk], axis) ->
+[B]``: a per-shard body on the ring pair reduction
+(``parallel/pairwise.py:ring_pair_terms``), its per-molecule sums over atoms
+``psum``med over ``axis`` (a collective axis object,
+``parallel/collectives.py``), equal to the dense ``log_prob`` to round-off.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -20,11 +24,14 @@ from ..utils.helpers import min_image
 
 @dataclasses.dataclass(frozen=True)
 class Target:
-    """A Boltzmann target: batched ``log_prob(x [P, ...]) -> [P]``."""
+    """A Boltzmann target: batched ``log_prob(x [P, ...]) -> [P]``, and
+    ``log_prob_sharded`` for the atom-sharded samplers (None when the target
+    has none)."""
 
     log_prob: Callable
     dim: tuple
     name: str = "target"
+    log_prob_sharded: Optional[Callable] = None
 
 
 def regularize_energy(u: torch.Tensor, e_high: float) -> torch.Tensor:
@@ -76,7 +83,42 @@ def lj_cluster(n: int, kBT: float = 1.0, epsilon: float = 1.0,
         u = u + c_osc * ((x - com) ** 2).sum(dim=(-1, -2))
         return -u / kBT
 
-    return Target(log_prob=log_prob, dim=(n, 3), name=f"lj{n}")
+    def log_prob_sharded(pos_blk, mask_blk, axis):
+        """The branches of ``log_prob`` without overrides, atoms sharded:
+        the centre of mass and the oscillator ``psum``med, the cap on the
+        pair energy alone."""
+        from ..parallel.pairwise import ring_pair_terms
+
+        m = mask_blk[..., None]
+        zero = torch.zeros((), dtype=pos_blk.dtype, device=pos_blk.device)
+        n_real = axis.psum(mask_blk.sum(dim=1)).to(pos_blk.dtype)
+        # every shard's oscillator term depends on the centre of mass
+        com = axis.pvary(axis.psum(torch.where(m, pos_blk, zero).sum(dim=1))
+                         / n_real[:, None])
+        one = torch.ones((), dtype=pos_blk.dtype, device=pos_blk.device)
+        if default_soft == 0.0:
+            def term(d2, valid):
+                # lj_energy's semantics: a coincident real pair is inf
+                inv2 = torch.where(valid, (sigma * sigma)
+                                   / torch.where(valid, d2, one), zero)
+                inv6 = inv2 * inv2 * inv2
+                e = 4.0 * epsilon * (inv6 * inv6 - inv6)
+                return torch.where(valid, e, zero).sum(dim=(1, 2))
+        else:
+            def term(d2, valid):
+                r_sq = torch.where(valid, d2, one) + default_soft
+                r6 = r_sq * r_sq * r_sq
+                e = 4.0 * epsilon * (1.0 / (r6 * r6) - 1.0 / r6)
+                return torch.where(valid, e, zero).sum(dim=(1, 2))
+        u = ring_pair_terms(pos_blk, mask_blk, axis, term)
+        if default_cap is not None:
+            u = regularize_energy(u, default_cap)
+        osc = torch.where(m, pos_blk - com[:, None, :], zero)
+        u = u + c_osc * axis.psum((osc * osc).sum(dim=(1, 2)))
+        return -u / kBT
+
+    return Target(log_prob=log_prob, dim=(n, 3), name=f"lj{n}",
+                  log_prob_sharded=log_prob_sharded)
 
 
 def _upper(n: int, device):
@@ -99,26 +141,39 @@ def lj_fluid(n: int, box: float, kBT: float = 1.0, epsilon: float = 1.0,
     s2 = sigma * sigma
     default_soft, default_cap = softening, e_cap
 
+    def pair_energy(d2, valid, soft):
+        valid = valid & ((d2 > 0.0) | (soft > 0.0))
+        if cutoff is not None:
+            valid = valid & (d2 < cutoff * cutoff)
+        one = torch.ones((), dtype=d2.dtype, device=d2.device)
+        r_sq = (torch.where(valid, d2, one) + soft) / s2
+        r6 = r_sq * r_sq * r_sq
+        e = 4.0 * epsilon * (1.0 / (r6 * r6) - 1.0 / r6)
+        return torch.where(valid, e, torch.zeros_like(e)).sum(dim=(-1, -2))
+
     def log_prob(x: torch.Tensor, softening=None,
                  e_cap=None) -> torch.Tensor:
         soft = default_soft if softening is None else float(softening)
         cap = default_cap if e_cap is None else float(e_cap)
         diff = min_image(x[..., :, None, :] - x[..., None, :, :],
                          torch.as_tensor(box, dtype=x.dtype, device=x.device))
-        d2 = (diff * diff).sum(-1)
-        valid = _upper(n, x.device) & ((d2 > 0.0) | (soft > 0.0))
-        if cutoff is not None:
-            valid = valid & (d2 < cutoff * cutoff)
-        one = torch.ones((), dtype=x.dtype, device=x.device)
-        r_sq = (torch.where(valid, d2, one) + soft) / s2
-        r6 = r_sq * r_sq * r_sq
-        e = 4.0 * epsilon * (1.0 / (r6 * r6) - 1.0 / r6)
-        u = torch.where(valid, e, torch.zeros_like(e)).sum(dim=(-1, -2))
+        u = pair_energy((diff * diff).sum(-1), _upper(n, x.device), soft)
         if cap is not None:
             u = regularize_energy(u, cap)
         return -u / kBT
 
-    return Target(log_prob=log_prob, dim=(n, 3), name=f"ljfluid{n}")
+    def log_prob_sharded(pos_blk, mask_blk, axis):
+        from ..parallel.pairwise import ring_pair_terms
+
+        u = ring_pair_terms(pos_blk, mask_blk, axis,
+                            lambda d2, v: pair_energy(d2, v, default_soft),
+                            box=box)
+        if default_cap is not None:
+            u = regularize_energy(u, default_cap)
+        return -u / kBT
+
+    return Target(log_prob=log_prob, dim=(n, 3), name=f"ljfluid{n}",
+                  log_prob_sharded=log_prob_sharded)
 
 
 def double_well(n: int = 4, dim: int = 2, kBT: float = 1.0, a: float = 0.0,
@@ -128,15 +183,23 @@ def double_well(n: int = 4, dim: int = 2, kBT: float = 1.0, a: float = 0.0,
     a (d - d0) + b (d - d0)^2 + c (d - d0)^4`` with ``d = sqrt(|dx|^2 +
     1e-12)``."""
 
+    def pair_energy(d2, valid):
+        dd = torch.sqrt(d2 + 1e-12) - d0
+        u = a * dd + b * dd ** 2 + c * dd ** 4
+        return torch.where(valid, u, torch.zeros_like(u)).sum(dim=(-1, -2))
+
     def log_prob(x: torch.Tensor) -> torch.Tensor:
         diff = x[..., :, None, :] - x[..., None, :, :]
-        d = torch.sqrt((diff * diff).sum(-1) + 1e-12)
-        dd = d - d0
-        u = a * dd + b * dd ** 2 + c * dd ** 4
-        u = torch.where(_upper(n, x.device), u, torch.zeros_like(u))
-        return -u.sum(dim=(-1, -2)) / (tau * kBT)
+        return -pair_energy((diff * diff).sum(-1),
+                            _upper(n, x.device)) / (tau * kBT)
 
-    return Target(log_prob=log_prob, dim=(n, dim), name=f"dw{n}")
+    def log_prob_sharded(pos_blk, mask_blk, axis):
+        from ..parallel.pairwise import ring_pair_terms
+        return -ring_pair_terms(pos_blk, mask_blk, axis,
+                                pair_energy) / (tau * kBT)
+
+    return Target(log_prob=log_prob, dim=(n, dim), name=f"dw{n}",
+                  log_prob_sharded=log_prob_sharded)
 
 
 def gaussian(shape, std: float = 1.0) -> Target:
@@ -146,4 +209,11 @@ def gaussian(shape, std: float = 1.0) -> Target:
     def log_prob(x: torch.Tensor) -> torch.Tensor:
         return -0.5 * ((x / std) ** 2).sum(dim=dims)
 
-    return Target(log_prob=log_prob, dim=tuple(shape), name="gaussian")
+    def log_prob_sharded(pos_blk, mask_blk, axis):
+        s = torch.where(mask_blk[..., None], pos_blk / std,
+                        torch.zeros((), dtype=pos_blk.dtype,
+                                    device=pos_blk.device)) ** 2
+        return -0.5 * axis.psum(s.sum(dim=(1, 2)))
+
+    return Target(log_prob=log_prob, dim=tuple(shape), name="gaussian",
+                  log_prob_sharded=log_prob_sharded)

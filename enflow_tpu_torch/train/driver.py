@@ -50,10 +50,27 @@ Ported:
   ``images``) SMC/AIS probe the overflow at every stage and REMC once a
   round (``_overflow_stage_fn``): a warning with the total, the per-stage
   ``nbr_overflow`` column, REMC's total on its last row.
+- ``parallel.atom_axis: K``: each molecule's atoms split over a mesh
+  ``("data" = devices / K, "atom" = K)`` (``parallel/mesh.py``) — the NLL
+  training through the ring flow and ring NLL (``flow/sharded.py``), the
+  loader's ``n_max`` rounded up to a multiple of K; ``mode: generate``
+  through the sharded flow; ``mode: sample`` with ``smc | ais | remc | ti``
+  over the sharded densities (``sample/sharded.py``), atoms padded to a
+  multiple of K and trimmed from the outputs. The devices are the
+  process group's ranks, or, in one process, ``Main(virtual_devices=K)``
+  (``--virtual-devices``), the in-process form on one device; K must
+  divide their count, as in the JAX driver.
+- Several processes (``parallel/mesh.py:maybe_initialize_distributed``,
+  torchrun's or SLURM's environment; NCCL on cards): NLL training data
+  parallel (the loader's ``shard``, ``batch_size`` per process, the
+  parameter gradients summed over the ranks) and atom-sharded; flow-VI
+  with the particles split over the data axis; sampling with the
+  densities' particles split over the chain axis (``split_rows``: the
+  sampler runs whole on every rank from the same generators); only rank
+  0 prints and writes.
 
 The config schema, checkpoints, npz outputs and printed lines are the JAX
-driver's. ``parallel.atom_axis > 1`` (atom sharding over several devices,
-ROADMAP A7) raises ``NotImplementedError``.
+driver's.
 
 The SMC runs batched: the densities see all particles at once, so on the
 card each EGCL is one launch of the fused kernel over the particle batch.
@@ -79,7 +96,9 @@ from ..data.system import System
 from ..flow.integrators import (FlowConfig, init_flow, forward,
                                 forward_core, reverse, reverse_core)
 from ..flow.loss import alchemical_nll
+from ..flow.sharded import draw_noise
 from ..nn.egcl import EGCLConfig
+from ..parallel import mesh as mesh_lib
 from ..utils import conversion as cv
 from ..utils.constants import sigma
 from ..utils.jax_params import tree_flatten
@@ -215,10 +234,17 @@ def flow_densities(params, cfg: FlowConfig, target, n_atoms: int,
 
 class Main:
     """Mode dispatcher. ``device`` is where the run happens: CUDA unless the
-    caller passes ``"cpu"``; without a card it raises."""
+    caller passes ``"cpu"``; without a card it raises. ``virtual_devices``
+    is the device count of the in-process mesh (``parallel/mesh.py``); with
+    several processes the ranks are the devices."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, virtual_devices: int = 1):
         self.device = resolve_device(device)
+        mesh_lib.maybe_initialize_distributed(self.device)
+        self.process_index = mesh_lib.process_index()
+        self.num_processes = mesh_lib.process_count()
+        self.is_main = self.process_index == 0
+        self.virtual_devices = int(virtual_devices)
 
     def setup(self, input_path):
         with open(input_path) as f:
@@ -230,16 +256,13 @@ class Main:
         if mode not in ("train", "sample", "generate", "dataset"):
             raise ValueError(f"unknown mode {mode!r}")
         self.mode = mode
-        if int(args.get("parallel", {}).get("atom_axis", 1)) > 1:
-            raise NotImplementedError(
-                "parallel.atom_axis > 1 is not ported yet (ROADMAP A7, "
-                "multi-device)")
         self.dtype = _DTYPES[args.get("precision", "float32")]
         self.seed = int(args.get("seed", 0))
         self.objective = None
         if mode == "train":
             self._check_train_options(args)
             self.objective = args.get("training", {}).get("objective", "nll")
+        self._setup_mesh(args)
 
         dyn = args.get("dynamics", {})
         self.checkpoint_path = dyn.get("checkpoint_path", "")
@@ -293,9 +316,7 @@ class Main:
             args["dataset"]["softening"] = self.softening
             args["dataset"]["temp"] = cv.lj_to_kelvin(self.lj_kBT)
             self.dataset = self._build_dataset(args)
-            self.train_loader = DataLoader(
-                self.dataset, batch_size=1, shuffle=False, seed=self.seed,
-                dtype=self.dtype, device=self.device)
+            self.train_loader = self._loader(1, shuffle=False)
             nbr_capacity = self._auto_capacity(dyn, nbr_capacity)
         elif self.objective == "flow_vi":
             # data-free (driver.py:204-221): node_nf from the network
@@ -312,10 +333,14 @@ class Main:
             tr = args["training"]
             batch_size = int(tr.get("batch_size", args.get(
                 "dataset", {}).get("batch_size", 1)))
-            self.train_loader = DataLoader(
-                self.dataset, batch_size=batch_size, shuffle=True,
-                seed=self.seed, dtype=self.dtype, device=self.device,
-                prefetch=int(tr.get("prefetch", 2)))
+            n_data = self.mesh.shape["data"]
+            if self.atom_axis > 1 and batch_size % n_data:
+                raise ValueError(
+                    f"batch_size={batch_size} must be divisible by the data "
+                    f"axis ({n_data} = devices / atom_axis "
+                    f"{self.atom_axis})")
+            self.train_loader = self._loader(
+                batch_size, shuffle=True, prefetch=int(tr.get("prefetch", 2)))
             nbr_capacity = self._auto_capacity(dyn, nbr_capacity)
         elif nbr_capacity is not None:
             # sampling is data-free: a fixed capacity, watched by the
@@ -370,7 +395,41 @@ class Main:
             self._setup_vi(args["training"])
         if hp is not None:
             self._restore(hp)
+        mesh_lib.replicate(self.params, self.mesh)
         eprint("In training mode", flush=True)
+
+    def _setup_mesh(self, args):
+        """The mesh of ``parallel.atom_axis`` and its refusals
+        (``driver.py:223-264``): K > 1 needs K to divide the device count
+        and gives ``("data", "atom")``; otherwise ``("data",)`` over every
+        device."""
+        self.atom_axis = int(args.get("parallel", {}).get("atom_axis", 1))
+        n_dev = (self.num_processes if self.num_processes > 1
+                 else self.virtual_devices)
+        if self.atom_axis > 1:
+            if n_dev % self.atom_axis:
+                raise ValueError(
+                    f"parallel.atom_axis={self.atom_axis} must divide the "
+                    f"device count ({n_dev})")
+            self.mesh = mesh_lib.get_mesh(
+                ("data", "atom"), (n_dev // self.atom_axis, self.atom_axis),
+                virtual_devices=self.virtual_devices)
+        else:
+            self.mesh = mesh_lib.get_mesh(
+                ("data",), virtual_devices=self.virtual_devices)
+
+    def _loader(self, batch_size, shuffle, prefetch=0):
+        """The dataset's loader: this data shard's samples (``shard``),
+        ``n_max`` rounded up to a multiple of the atom axis
+        (``driver.py:266-278``)."""
+        dx = self.mesh["data"]
+        loader = DataLoader(self.dataset, batch_size=batch_size,
+                            shuffle=shuffle, seed=self.seed, dtype=self.dtype,
+                            device=self.device, prefetch=prefetch,
+                            shard=(dx.size, dx.index))
+        k = self.atom_axis
+        loader.n_max = -(-loader.n_max // k) * k
+        return loader
 
     # ------------------------------------------------------------------
     # train
@@ -605,7 +664,7 @@ class Main:
         self.num_epochs = int(tr["num_epochs"])
         self.log_interval = int(tr["log_interval"])
         self.checkpoint_interval = int(tr.get("checkpoint_interval", 1))
-        self.metrics = MetricsLogger(tr.get("metrics_csv"))
+        self.metrics = self._logger(tr.get("metrics_csv"))
         eprint(f"Loss function parameters: softening={self.softening}, "
                f"kBT={self.lj_kBT}", flush=True)
 
@@ -636,6 +695,8 @@ class Main:
         self.start_epoch = int(hp["epoch"]) + 1
 
     def _save(self, epoch):
+        if not self.is_main:
+            return
         hparams = {
             "epoch": int(epoch),
             "node_nf": int(self.node_nf),
@@ -653,26 +714,56 @@ class Main:
                          "opt_state": self.optimizer.state_leaves()},
                         hparams)
 
+    def _savez(self, path, **arrays):
+        """``np.savez`` by rank 0 (every rank holds the same results)."""
+        if self.is_main:
+            np.savez(path, **arrays)
+
+    def _logger(self, path):
+        """A metrics CSV written by rank 0."""
+        return MetricsLogger(path if self.is_main else None)
+
     def train_step(self, batch, gen):
         """One NLL step: forward with the dequantizer noise from ``gen``,
-        the NLL, its gradient, clipping, Adam. Returns the loss and the
+        the NLL, its gradient (summed over the ranks), clipping, Adam.
+        Atom-sharded (``parallel.atom_axis``) the forward and the NLL are
+        the ring ones (``flow/sharded.py``). Returns the loss and the
         overflow count (device tensors; no host sync unless the NaN guard
         is on, which reads the loss before the backward)."""
         cfg = self.flow_cfg
-        if self._capacity_can_truncate():
-            cfg = dataclasses.replace(cfg, track_overflow=True)
-            out, ldj, ovf = forward(self.params, cfg, batch, gen=gen)
-        else:
-            out, ldj = forward(self.params, cfg, batch, gen=gen)
-            ovf = torch.zeros((), dtype=torch.int32, device=self.device)
+        eps = self._noise(gen, batch.h)
         n_lg = 3 if cfg.dequantizer == "argmax" else 2
-        loss = alchemical_nll(out, ldj, self.lj_kBT, self.softening,
-                              num_log_gaussian_calls=n_lg)
+        ovf = torch.zeros((), dtype=torch.int32, device=self.device)
+        if self.atom_axis > 1:
+            from ..flow.sharded import make_sharded_nll
+            loss = make_sharded_nll(
+                self.mesh, cfg, self.lj_kBT, self.softening,
+                num_log_gaussian_calls=n_lg, data_axis="data")(
+                    self.params, batch, eps=eps)
+        else:
+            if self._capacity_can_truncate():
+                cfg = dataclasses.replace(cfg, track_overflow=True)
+                out, ldj, ovf = forward(self.params, cfg, batch, eps=eps)
+            else:
+                out, ldj = forward(self.params, cfg, batch, eps=eps)
+            loss = alchemical_nll(out, ldj, self.lj_kBT, self.softening,
+                                  num_log_gaussian_calls=n_lg,
+                                  data_axis=self.mesh["data"])
         self._nan_check(loss, "loss")
         self.optimizer.zero_grad()
         loss.backward()
+        mesh_lib.sum_grads(self._leaves)
         self.optimizer.step()
         return loss.detach(), ovf
+
+    def _noise(self, gen, h):
+        """The dequantizer noise of a batch ``h``: the draw of the global
+        batch (every data shard's rows) and this shard's rows of it, ``r::R``
+        as the loader's ``shard`` takes samples, so that R ranks draw what
+        one process draws for their global batch."""
+        dx = self.mesh["data"]
+        return draw_noise(self.flow_cfg, gen, h,
+                          h.shape[0] * dx.size)[dx.index::dx.size]
 
     def _noise_seed(self, epoch: int) -> int:
         """The dequantizer noise's seed of one epoch: a resumed run draws
@@ -698,7 +789,7 @@ class Main:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(self._noise_seed(epoch))
             # profile the second epoch of this run (the first one warms up)
-            do_profile = (self.profile_dir
+            do_profile = (self.profile_dir and self.is_main
                           and epoch == self.start_epoch + 1)
             with profile_trace(self.profile_dir if do_profile else None), \
                     nan_guard(self.nan_checks) as check:
@@ -761,6 +852,12 @@ class Main:
         self.vi_stl = bool(tr.get("stl", False))
         self.vi_base_lp = make_base_log_prob(**self.vi_stds)
         self.vi_schedule = vi_anneal(tgt_sec)
+        # the particles split over the data axis (driver.py:910-932)
+        n_data = self.mesh["data"].size
+        self.vi_shard = self.vi_particles % n_data == 0
+        if not self.vi_shard:
+            eprint(f"flow_vi: n_particles={self.vi_particles} not divisible "
+                   f"by {n_data} devices; running unsharded", flush=True)
 
     def _vi_system_target(self, epoch: int):
         """The System target of one epoch: the position target at that
@@ -792,11 +889,18 @@ class Main:
                             self.node_nf, box=self.vi_box,
                             r_cut=self.vi_r_cut, dtype=self.dtype,
                             device=self.device, **self.vi_stds)
+        dx = self.mesh["data"]
+        if self.vi_shard:       # this rank's particles of the whole draw
+            batch = mesh_lib.shard_batch(batch, self.mesh)
         loss, _ = flow_vi_loss(self.params, self.flow_cfg, batch, target,
                                stl=self.vi_stl,
                                base_log_prob=self.vi_base_lp)
+        if self.vi_shard:       # the mean over every rank's particles
+            loss = dx.psum(loss) / dx.size
         self.optimizer.zero_grad()
         loss.backward()
+        if self.vi_shard:
+            mesh_lib.sum_grads(self._leaves, dx)
         finite = torch.stack([torch.isfinite(p.grad).all()
                               for p in self._leaves if p.grad is not None])
         bad = 1.0 - finite.all().to(loss.dtype)
@@ -909,24 +1013,50 @@ class Main:
         P = int(sec.get("n_particles", 1024))
         box = float(sec["target"].get("box", 1e3))
         r_cut = float(sec["target"].get("r_cut", 1e2))
-        # the pushforward density needs the TRUE log-det (see the JAX driver)
-        cfg = dataclasses.replace(self.flow_cfg, exact_ldj=True)
-        propose_z, log_q0, log_p = flow_densities(self.params, cfg, target,
-                                                  n_atoms, box, r_cut)
+        n_pad = n_atoms
+        if self.atom_axis > 1:
+            # atom-sharded sampling (driver.py:1174-1202): the chain axis
+            # holds every particle, the densities split the atoms
+            if algo_name not in ("smc", "ais", "remc", "ti"):
+                raise NotImplementedError(
+                    f"sampling.algo={algo_name!r} with parallel.atom_axis > 1"
+                    " — atom-sharded sampling supports smc | ais | remc | ti")
+            from ..sample.sharded import make_sample_fns
+            n_chain = self.mesh.shape["data"]
+            if P % n_chain:
+                raise ValueError(
+                    f"sampling.n_particles={P} must be divisible by the "
+                    f"chain axis ({n_chain} = devices / atom_axis "
+                    f"{self.atom_axis})")
+            propose_z, log_q0, log_p, n_pad = make_sample_fns(
+                self.params, self.flow_cfg, target, n_atoms, box, r_cut,
+                mesh=self.mesh)
+        else:
+            # the pushforward density needs the TRUE log-det (see the JAX
+            # driver)
+            cfg = dataclasses.replace(self.flow_cfg, exact_ldj=True)
+            propose_z, log_q0, log_p = flow_densities(
+                self.params, cfg, target, n_atoms, box, r_cut)
+        # over several processes the particles split over the chain axis
+        # for the densities' flow work (driver.py:1229-1243); the sampler
+        # runs whole on every rank, from the same generators
+        propose_z, log_q0, log_p = (mesh_lib.split_rows(f, self.mesh)
+                                    for f in (propose_z, log_q0, log_p))
         if algo_name == "remc":
             return self._sample_remc(sec, propose_z, log_q0, log_p, P,
-                                     n_atoms)
+                                     n_atoms, n_pad)
         if algo_name in ("hmc", "nuts", "mala"):
             return self._sample_mcmc(algo_name, sec, propose_z, log_p, P,
                                      n_atoms)
         if algo_name == "ti":
-            return self._sample_ti(sec, propose_z, log_q0, log_p, P, n_atoms)
+            return self._sample_ti(sec, propose_z, log_q0, log_p, P, n_atoms,
+                                   n_pad)
         if algo_name not in ("smc", "ais"):
             raise ValueError(
                 f"sampling.algo={algo_name!r}; expected one of "
                 "smc | ais | remc | hmc | nuts | mala | ti")
         return self._run_smc_ais(sec, algo_name, propose_z, log_q0, log_p, P,
-                                 n_atoms)
+                                 n_atoms, n_pad)
 
     def _latents(self, gen, P, n_atoms):
         kw = dict(generator=gen, dtype=self.dtype, device=self.device)
@@ -937,7 +1067,9 @@ class Main:
                 "vel": torch.randn((P, n_atoms, 3), **kw)}
 
     def _run_smc_ais(self, sec, algo_name, propose_z, log_q0, log_p, P,
-                     n_atoms):
+                     n_atoms, n_pad):
+        """The SMC/AIS anneal and its outputs; the particles carry ``n_pad``
+        atoms, the outputs are trimmed to ``n_atoms``."""
         from ..sample import ais as ais_fn
         from ..sample import smc as smc_fn
         from ..sample.smc import ess_from_log_weights
@@ -974,10 +1106,10 @@ class Main:
                     "algo: smc (ais carries per-particle weights across "
                     "every stage — chunk the SMC variant instead)")
             res, n_retries = self._run_smc_chunked(
-                sec, gen, propose_z, P, n_atoms, knobs, chunk or ckpt_every,
+                sec, gen, propose_z, P, n_pad, knobs, chunk or ckpt_every,
                 ckpt_every)
         else:
-            x0 = propose_z(self._latents(gen, P, n_atoms))
+            x0 = propose_z(self._latents(gen, P, n_pad))
             algo = smc_fn if algo_name == "smc" else ais_fn
             res = algo(gen, x0, **knobs)
 
@@ -991,7 +1123,8 @@ class Main:
                     f"lower target_ess_frac)")
         ess = float(ess_from_log_weights(res.log_weights))
         out_path = sec.get("output", "samples.npz")
-        parts = {k: _host(v) for k, v in res.particles.items()}
+        # trim the atom padding (driver.py:1351): masked noise, not samples
+        parts = {k: _host(v[:, :n_atoms]) for k, v in res.particles.items()}
         # the per-stage truncation counts, read once (driver.py:1355-1366)
         if track and res.stage_metric_history is not None:
             nbr_overflow = int(res.stage_metric_history.sum())
@@ -1005,7 +1138,7 @@ class Main:
         lw = _host(res.log_weights)
         w = np.exp(lw - lw.max())
         extra_out = self._ff_extras(res.particles["pos"], w / w.sum(), sec)
-        np.savez(out_path, pos=parts["pos"], vel=parts["vel"], h=parts["h"],
+        self._savez(out_path, pos=parts["pos"], vel=parts["vel"], h=parts["h"],
                  g=parts["g"], log_weights=_host(res.log_weights),
                  log_Z=_host(res.log_Z), ess_history=_host(res.ess_history),
                  **({"beta_history": _host(res.beta_history)}
@@ -1087,7 +1220,7 @@ class Main:
                            run_segment=run_segment, on_segment=on_segment,
                            start_stage=start_stage, init_state=init_state,
                            init_hists=init_hists, **knobs)
-        if ckpt_every and os.path.exists(state_file):
+        if ckpt_every and self.is_main and os.path.exists(state_file):
             os.remove(state_file)       # completed runs must not resume
         if retries["n"]:
             eprint(f"sampling survived {retries['n']} device retr"
@@ -1123,7 +1256,9 @@ class Main:
 
     def _save_sample_state(self, path, stage, state, hists):
         """The SMC carry and histories, in the JAX driver's npz keys,
-        written atomically."""
+        written atomically (by rank 0)."""
+        if not self.is_main:
+            return
         (x, log_w, log_z, beta, eps, lq0, lp, glq0, glp) = state
         out = {"stage": np.asarray(stage), "log_w": _host(log_w),
                "log_z": _host(log_z), "beta": _host(beta),
@@ -1170,7 +1305,7 @@ class Main:
         path = sec.get("metrics_csv")
         if not path:
             return
-        logger = MetricsLogger(path)
+        logger = self._logger(path)
         ess_h = _host(res.ess_history)
         acc_h = _host(res.accept_history)
         beta_h = (_host(res.beta_history)
@@ -1277,7 +1412,8 @@ class Main:
         flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in samples.items()}
         out_path = sec.get("output", "samples.npz")
         extra_out = self._ff_extras(flat["pos"], None, sec)
-        np.savez(out_path, algo=algo, **{k: _host(v) for k, v in flat.items()},
+        self._savez(out_path, algo=algo,
+                    **{k: _host(v) for k, v in flat.items()},
                  **extra_info, **extra_out)
         stats = "  ".join(f"{k}={float(np.asarray(v)):.3g}"
                           for k, v in extra_info.items())
@@ -1286,14 +1422,14 @@ class Main:
               f"  {stats}", flush=True)
         csv_path = sec.get("metrics_csv")
         if csv_path:
-            logger = MetricsLogger(csv_path)
+            logger = self._logger(csv_path)
             logger.log(algo=algo, n_chains=C, n_samples=n_samples,
                        **{k: float(np.asarray(v))
                           for k, v in extra_info.items()})
             logger.close()
         return samples
 
-    def _sample_ti(self, sec, propose_z, log_q0, log_p, C, n_atoms):
+    def _sample_ti(self, sec, propose_z, log_q0, log_p, C, n_atoms, n_pad):
         """``sampling.algo: ti`` (``driver.py:1729-1810``), thermodynamic
         integration along the flow bridge from one flow draw of ``C``
         chains, every dispatch through the retrying runner. Keys
@@ -1306,7 +1442,7 @@ class Main:
 
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed + 37)
-        x0 = propose_z(self._latents(gen, C, n_atoms))
+        x0 = propose_z(self._latents(gen, C, n_pad))
         run, retries = self._retrying_runner()
         res = thermodynamic_integration(
             gen, x0, log_q0=log_q0, log_p=log_p,
@@ -1324,12 +1460,12 @@ class Main:
             chunk_steps=(None if sec.get("chunk_steps") is None
                          else int(sec["chunk_steps"])),
             run_node=run)
-        flat = {k: _host(v) for k, v in res.x.items()}
+        flat = {k: _host(v[:, :n_atoms]) for k, v in res.x.items()}
         out_path = sec.get("output", "samples.npz")
         extra_out = self._ff_extras(res.x["pos"], None, sec)
         bet, mean, se_n, acc = (_host(t) for t in (
             res.betas, res.node_mean, res.node_se, res.accept))
-        np.savez(out_path, algo="ti", log_Z=float(res.log_Z),
+        self._savez(out_path, algo="ti", log_Z=float(res.log_Z),
                  log_Z_se=float(res.se), quad_err=float(res.quad_err),
                  betas=bet, node_mean=mean, node_se=se_n, node_accept=acc,
                  **flat, **extra_out)
@@ -1340,7 +1476,7 @@ class Main:
               f" retries {retries['n']})", flush=True)
         csv_path = sec.get("metrics_csv")
         if csv_path:
-            logger = MetricsLogger(csv_path)
+            logger = self._logger(csv_path)
             for i in range(len(bet)):
                 logger.log(algo="ti", node=i, beta=float(bet[i]),
                            integrand=float(mean[i]),
@@ -1372,7 +1508,7 @@ class Main:
         betas[-1] = 1.0
         return betas
 
-    def _sample_remc(self, sec, propose_z, log_q0, log_p, M, n_atoms):
+    def _sample_remc(self, sec, propose_z, log_q0, log_p, M, n_atoms, n_pad):
         """``sampling.algo: remc`` (``driver.py:1812-2077``): flow-bridged
         parallel tempering over ``_remc_ladder``'s slots x ``M`` chains,
         independent flow draws for every slot from ONE ``K*M`` reverse, a
@@ -1410,7 +1546,7 @@ class Main:
         # INDEPENDENT flow draws per slot, one K*M reverse reshaped: swaps
         # act within a chain column, so a tiled bad draw would wedge its
         # column's beta=1 slot
-        z = self._latents(gen, K * M, n_atoms)
+        z = self._latents(gen, K * M, n_pad)
 
         def draw(z):
             return tree_map(lambda a: a.reshape((K, M) + a.shape[1:]),
@@ -1436,12 +1572,13 @@ class Main:
                        f"dynamics.nbr_capacity/cell_capacity", flush=True)
 
         out_path = sec.get("output", "samples.npz")
-        keep = {k: v[discard:] for k, v in res.samples.items()}
+        # kept rounds, the atom padding trimmed (driver.py:2032)
+        keep = {k: v[discard:, :, :n_atoms] for k, v in res.samples.items()}
         extra_out = self._ff_extras(
             keep["pos"].reshape((-1,) + keep["pos"].shape[2:]), None, sec)
         sa, acc, bet = (_host(t) for t in (res.swap_accept, res.accept,
                                             res.betas))
-        np.savez(out_path, **{k: _host(v) for k, v in keep.items()},
+        self._savez(out_path, **{k: _host(v) for k, v in keep.items()},
                  swap_accept=sa, accept=acc, betas=bet, **mbar_out,
                  **extra_out)
         mb = (f"  mbar_log_Z={mbar_out['mbar_log_Z']:.3f}"
@@ -1457,7 +1594,7 @@ class Main:
         if csv_path:
             # one row per slot: beta, HMC accept, the swap accept with the
             # next slot; MBAR and the retries on the last
-            logger = MetricsLogger(csv_path)
+            logger = self._logger(csv_path)
             for k in range(K):
                 logger.log(slot=k, beta=float(bet[k]),
                            hmc_accept=float(acc[k]),
@@ -1533,22 +1670,42 @@ class Main:
         ``forward``'s dequantization noise from a generator seeded 99)."""
         cfg = self.flow_cfg
         batch = next(iter(self.train_loader))
-        out = reverse(self.params, cfg, batch)
+        if self.atom_axis > 1:
+            # the sharded flow (driver.py:1114-1120)
+            from ..flow.sharded import sharded_forward, sharded_reverse
+            rev = lambda sys: sharded_reverse(self.mesh, self.params, cfg,
+                                              sys)
+            fwd = lambda sys, gen: sharded_forward(self.mesh, self.params,
+                                                   cfg, sys, gen=gen)
+        else:
+            rev = lambda sys: reverse(self.params, cfg, sys)
+            fwd = lambda sys, gen: forward(self.params, cfg, sys, gen=gen)
+        out = rev(batch)
         mask = out.mask[0].cpu().numpy()
-        np.savetxt(os.path.join(out_dir, "h.out"), _host(out.h[0])[mask],
-                   delimiter=" ")
-        write_xyz(os.path.join(out_dir, "test_out.xyz"),
-                  _host(out.pos[0])[mask])
+        if self.is_main:
+            np.savetxt(os.path.join(out_dir, "h.out"),
+                       _host(out.h[0])[mask], delimiter=" ")
+            write_xyz(os.path.join(out_dir, "test_out.xyz"),
+                      _host(out.pos[0])[mask])
         gen = torch.Generator(device=self.device)
         gen.manual_seed(99)
-        data_, _ = forward(self.params, cfg, out, gen=gen)
-        back = reverse(self.params, cfg, data_)
+        data_, _ = fwd(out, gen)
+        back = rev(data_)
         atol = 1e-8 if self.dtype == torch.float64 else 1e-4
         print(bool(torch.allclose(back.pos, out.pos, atol=atol)), flush=True)
         print(bool(torch.allclose(back.h, out.h, atol=atol)), flush=True)
         return out
 
     def __call__(self, input_path):
+        if self.is_main:
+            return self._run(input_path)
+        # only rank 0 prints (driver.py's is_main)
+        import contextlib
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null), \
+                contextlib.redirect_stderr(null):
+            return self._run(input_path)
+
+    def _run(self, input_path):
         self.setup(input_path)
         if self.mode == "train":
             return self.train()

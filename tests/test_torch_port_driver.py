@@ -74,11 +74,12 @@ def test_driver_rejects_unported_modes(tmp_path, capsys):
     res = Main(device="cpu")(str(cfg))
     assert res.stage_metric_history.shape == (3,)
     assert "neighbor slots truncated" in capsys.readouterr().err
-    # only atom sharding over several devices is refused (ROADMAP A7)
+    # atom sharding over more devices than there are is refused, as in the
+    # JAX driver
     cfg.write_text(YAML.format(algo="smc", cdt="null", kernel="false",
                                out=tmp_path / "x.npz")
                    + "parallel: {atom_axis: 2}\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(ValueError, match="must divide the device count"):
         Main(device="cpu")(str(cfg))
     # an unknown algo is the JAX driver's ValueError
     cfg.write_text(YAML.format(algo="gibbs", cdt="null", kernel="false",
@@ -153,6 +154,16 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):
     cfg.write_text(yaml.safe_dump(train))
     with pytest.raises(RuntimeError, match="CUDA"):
         cli_main([str(cfg)])
+    # the atom-sharded configs with virtual devices, and the dry run
+    for name in ("train_sharded", "sample_sharded", "sample_fluid"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli_main([str(ROOT / "example" / f"{name}.yaml"),
+                      "--virtual-devices", "4"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Main(virtual_devices=4)
+    from enflow_tpu_torch.parallel.dryrun import dryrun_multichip
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip(4)
     from enflow_tpu_torch.utils import torch_export, torch_import
     with pytest.raises(RuntimeError, match="device='cpu'"):
         torch_import.import_reference_checkpoint(
@@ -178,6 +189,11 @@ def test_port_imports_no_jax():
     assert {f"enflow_tpu_torch/{m}.py" for m in (
         "data/formats", "data/readers", "data/lig", "utils/observe",
         "utils/torch_import", "utils/torch_export")} <= names
+    # multi-device (ROADMAP A7)
+    assert {f"enflow_tpu_torch/{m}.py" for m in (
+        "parallel/collectives", "parallel/mesh", "parallel/pairwise",
+        "parallel/ring", "parallel/dryrun", "flow/sharded",
+        "sample/sharded")} <= names
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"

@@ -112,10 +112,14 @@ def test_unported_options_raise():
                    "cpu")
     _, tsys = _state()
     import dataclasses
-    # atom sharding is ROADMAP A7; every neighbor mode is ported, a cell
-    # flow without its capacities and an unknown mode are errors
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward_core(tp, dataclasses.replace(tcfg, axis_name="atom"), tsys)
+    # atom sharding refuses the top-k formats (a global op over the atoms);
+    # every neighbor mode is ported, a cell flow without its capacities and
+    # an unknown mode are errors
+    from enflow_tpu_torch.flow.sharded import _sharded_cfg
+    from enflow_tpu_torch.parallel.collectives import VirtualAxis
+    for kw in (dict(nbr_mode="topk"), dict(nbr_capacity=4)):
+        with pytest.raises(ValueError, match="atom-sharded"):
+            _sharded_cfg(dataclasses.replace(tcfg, **kw), VirtualAxis(2))
     for kw, msg in ((dict(nbr_mode="cell"), "cell_capacity"),
                     (dict(nbr_mode="ring"), "unknown nbr_mode")):
         with pytest.raises(ValueError, match=msg):

@@ -282,15 +282,16 @@ def test_checkpoints_cross_packages(tmp_path):
 
 
 def test_driver_rejects_unported_train_options(tmp_path):
-    """Only atom sharding (ROADMAP A7) is refused; the options that waited
-    on A5.6 and A6 now set up: the profiler directory, the NaN guard and a
-    ``compose`` dataset; a reader without its files fails as in JAX."""
+    """Atom sharding over more devices than there are is refused as in
+    JAX (ROADMAP A7 is ported); the options that waited on A5.6 and A6 now
+    set up: the profiler directory, the NaN guard and a ``compose``
+    dataset; a reader without its files fails as in JAX."""
     cfg = tmp_path / "t.yaml"
     base = _yaml(tmp_path, 1)
     text = open(base).read()
     cfg.write_text(text.replace("seed: 2",
                                 "seed: 2\nparallel: {atom_axis: 4}"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(ValueError, match="must divide the device count"):
         Main(device="cpu").setup(str(cfg))
     # a reader type without its required files (JAX: the same TypeError)
     cfg.write_text(text.replace("type: lj", "type: md"))
