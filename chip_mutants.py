@@ -2,7 +2,12 @@
 """Mutation check of ``chip_smoke.py``'s kernel-vs-plain tolerances, on one
 CUDA card: ``python3 chip_mutants.py [GROUP ...]`` from the repository root
 (groups: ``egcl_allpairs``, ``egcl_params``, ``egcl_f32``,
-``edge_pipeline``, ``pair_energy``; all by default; ``egcl_allpairs`` is the
+``edge_pipeline``, ``edge_pipeline_sm90``, ``pair_energy``; all by
+default; ``edge_pipeline`` is the tiled f32 K5/K6 and the chunked
+kernels, read at the shapes of chip_smoke.py's phase edge that run them;
+``edge_pipeline_sm90`` is the bf16 Hopper K5/K6, read at its bf16 shapes,
+the outputs against TOL_EDGE and the parameter gradients' f32 sums
+against TOL_PARAM; ``egcl_allpairs`` is the
 bf16 Hopper K1 and K2 of ``egcl_allpairs_sm90.cu``, read at chip_smoke.py's
 main, ragged and large shapes; ``egcl_params`` is its bf16
 parameter-gradient variant in the same file, read at the vi, ico, ragged
@@ -120,7 +125,8 @@ MUTANTS = {
             "(k < nf ? s.W1a + k * H : s.W1b + (k - nf) * H) + c0);",
             "(k < nf ? s.W1a + k * H : s.W1a + (k - nf) * H) + c0);"),
     },
-    # the tiled kernels (H = 64, 128), which every shape but h96 runs
+    # the tiled kernels (H = 64, 128, f32), which every f32 shape but h96
+    # runs
     "edge_pipeline": {
         "control": None,
         "K5: the K-sums drop each atom's last row of a tile": (
@@ -131,14 +137,6 @@ MUTANTS = {
             "        const float dtr =",
             "inside = (pre >= -100.f && pre <= 100.f) ? 1.f : 0.f;\n"
             "        const float dtr ="),
-        "m1 not rounded to the compute dtype": (
-            "rnd<T>(silu_t<T>(z[0])), rnd<T>(silu_t<T>(z[1])),\n"
-            "        rnd<T>(silu_t<T>(z[2])), rnd<T>(silu_t<T>(z[3])));",
-            "silu_t<T>(z[0]), silu_t<T>(z[1]),\n"
-            "        silu_t<T>(z[2]), silu_t<T>(z[3]));"),
-        "dgate not rounded to the compute dtype": (
-            "const float dgr = rnd<T>(dgate);",
-            "const float dgr = dgate;"),
         "a padded row counted (unmasked, in the outer products)": [
             ("return r < nr ? at(em, r) : 0.f;", "return at(em, r);"),
             ("outer<H>(X1, X0, nr, ky, nx, dW3);",
@@ -155,6 +153,42 @@ MUTANTS = {
         "the weights' swizzle off by one row on load": (
             "const int dst = r * H + ((kc ^ ((r >> 2) & 7)) << 2);",
             "const int dst = r * H + ((kc ^ (((r + 1) >> 2) & 7)) << 2);"),
+    },
+    # the bf16 Hopper kernels (H = 64, 128)
+    "edge_pipeline_sm90": {
+        "control": None,
+        "K5: agg's K-sums drop each atom's last row": (
+            "        for (int k = 0; k < K; ++k) {",
+            "        for (int k = 0; k < K - 1; ++k) {"),
+        "K6: the clip mask made inclusive": (
+            "(raw > -100.f && raw < 100.f)",
+            "(raw >= -100.f && raw <= 100.f)"),
+        "m1 rounded toward zero, not to nearest": (
+            "to_bf2(silu_t(d[2 * p] + b.x), silu_t(d[2 * p + 1] + b.y));",
+            "__halves2bfloat162(__float2bfloat16_rz(silu_t(d[2 * p] + b.x)),"
+            " __float2bfloat16_rz(silu_t(d[2 * p + 1] + b.y)));"),
+        "dgate not rounded to bf16": (
+            "dgr[k] = rnd1((pr[0] + pr[1]) + pr[2]);",
+            "dgr[k] = (pr[0] + pr[1]) + pr[2];"),
+        "a padded row's em read from the stage, not zero": (
+            "L.em[k] = L.in[k] ? bf_bits(sem[r]) : 0.f;",
+            "L.em[k] = bf_bits(sem[r]);"),
+        "b2 left out of pre2's recompute in the backward": (
+            "          const float2 b = load_f2(s.b2 + c);\n"
+            "          const float2 da",
+            "          const float2 b = make_float2(0.f, 0.f);\n"
+            "          const float2 da"),
+        "a warpgroup's first tile added into its unwritten slice": (
+            "part, i == 0, dw1);", "part, false, dw1);"),
+        "a prefetched tile from the wrong rows (the current ones again)": (
+            "walk(a, g, S, i + 1),", "walk(a, g, S, i),"),
+        "W2's rows swapped in pairs on load": (
+            "(char*)s.W2 + swz(k, c, H)) = v2;",
+            "(char*)s.W2 + swz(k ^ 1, c, H)) = v2;"),
+        "the K-sum carry not reset at an atom's first tile (K > 64)": (
+            "      if (!T.first) {", "      if (true) {"),
+        "a column sum's lane adds into its neighbour's column": (
+            "2 * L.q + (g & 1)] += s;", "2 * L.q + ((g & 1) ^ 1)] += s;"),
     },
     "pair_energy": {
         "control": None,
@@ -186,6 +220,28 @@ def report(label, errs, tol):
     print(f"  {label}: " + "  ".join(f"{n} {r:.2e}" for n, (_, r) in
           errs.items()) + f"  | max {worst:.2e} vs tol {tol:g} -> "
           + ("caught" if worst > tol else "passes"), flush=True)
+"""
+
+# K5/K6 at the shapes of chip_smoke.py's phase edge that run the Hopper
+# kernels (HOPPER True) or the others
+EDGE_READ = HEAD + """
+from enflow_tpu_torch.ops import edge_pipeline as ep
+for sname, shape in cs.EDGE_SHAPES.items():
+    for dname, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        if (dname not in shape.get("dtypes", (dname,))
+                or (ep.kernel_for(dt, shape["H"]) == "sm90") != HOPPER):
+            continue
+        e, cd, em, W, dagg, dfs, _ = cs.gathered_inputs(shape, dt, seed=13)
+        k = (ep.edge_pipeline_fwd(e, cd, em, W)
+             + ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs))
+        p = (ep.edge_pipeline_plain(e, cd, em, *W)
+             + ep.edge_pipeline_plain_bwd(e, cd, em, *W, dagg, dfs))
+        errs = cs.rel_errs(cs.EDGE_OUT, k, p)
+        report(f"{sname} {dname} agg, F_sum, de, dcd",
+               {n: errs[n] for n in cs.EDGE_OUT[:4]}, cs.TOL_EDGE[dname])
+        report(f"{sname} {dname} parameter gradients (f32 sums)",
+               {n: errs[n] for n in cs.EDGE_OUT[4:]}, cs.TOL_PARAM[dname])
 """
 
 READ = {
@@ -230,18 +286,8 @@ for sname, shape in (("dw4", cs.DW4), ("ala2", cs.ALA2),
                        k, p)
     report(f"{sname} float32", errs, cs.TOL["float32"])
 """,
-    "edge_pipeline": HEAD + """
-from enflow_tpu_torch.ops import edge_pipeline as ep
-for sname, shape in cs.EDGE_SHAPES.items():
-    for dname, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        e, cd, em, W, dagg, dfs, _ = cs.gathered_inputs(shape, dt, seed=13)
-        k = (ep.edge_pipeline_fwd(e, cd, em, W)
-             + ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs))
-        p = (ep.edge_pipeline_plain(e, cd, em, *W)
-             + ep.edge_pipeline_plain_bwd(e, cd, em, *W, dagg, dfs))
-        report(f"{sname} {dname}", cs.rel_errs(cs.EDGE_OUT, k, p),
-               cs.TOL_EDGE[dname])
-""",
+    "edge_pipeline": EDGE_READ.replace("HOPPER", "False"),
+    "edge_pipeline_sm90": EDGE_READ.replace("HOPPER", "True"),
     "pair_energy": HEAD + """
 from enflow_tpu_torch.ops import pair_energy as pe
 for sname, shape in cs.PAIR_SHAPES.items():

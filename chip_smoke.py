@@ -162,11 +162,13 @@ non-zero):
    ``chunk_temps`` PROBE_CHUNK (bitwise equal, the per-stage
    ``nbr_overflow`` column included, one integer a stage summing above 0,
    the truncation warning printed), at PROBE_FULL (= N - 1) a column of
-   zeros; every run 5 x (1 + 51 + 10) bf16 K5 and 5 x 51 K6, no plain
-   call, every output on the card. Then ``remc_lj13.yaml`` with the same
-   override cut to PROBE_REMC rounds, monolithic and in segments of
-   PROBE_REMC_CHUNK (bitwise equal, one probe entry a round, the total on
-   the CSV's last row), and the probe alone timed (CUDA events and the
+   zeros; every run 5 x (1 + 51 + 10) bf16 K5 and 5 x 51 K6, every one
+   on the Hopper kernels (edge_pipeline_sm90.cu's counters; none on the
+   tiled or chunked kernels), no plain call, every output on the card.
+   Then ``remc_lj13.yaml`` with the same override cut to PROBE_REMC
+   rounds, monolithic and in segments of PROBE_REMC_CHUNK (bitwise equal,
+   one probe entry a round, the total on the CSV's last row; every K5/K6
+   on the Hopper kernels), and the probe alone timed (CUDA events and the
    host clock) beside the run's seconds.
 10h. data — the readers, ``compose`` and the trainer's observability
    (A6, A5.6): ``example/train.yaml`` at full width with ``dataset: {type:
@@ -189,17 +191,23 @@ non-zero):
    enflow_tpu_torch.utils.torch_export``: bit for bit the input state
    dict.
 11. edge  — the gathered-edge EGCL kernels (forward K5, backward K6 with
-   all seven parameter gradients) against their plain version at the
-   training shape (A=390 atoms, K = the auto capacity phase 10 observed,
-   C=3, H=128), a ragged one (A=1000, K=40, C=11, masked slots and atoms),
-   one whose gate hits the clip bounds exactly, one whose row tiles end in
-   padding (K=13), and at H=64 (the tiled kernels) and H=96 (the chunked
-   kernels, by the wrapper's size rule), each in bf16 and f32, and in f32
-   at generate.yaml's shape (A=2,944, K = phase generate's auto capacity,
-   C=3, H=128, the share of valid slots it saw), and in bf16 at the top-k
-   sampler's shape of phase probe (A = 2048 x 13, K=8, C=11, H=128); a
-   second K5 and K6 launch must give the same bits. Timed as in phase 3
-   at main, ragged, generate and sampler, and as device time per launch.
+   all seven parameter gradients; bf16 at H = 64/128 the Hopper kernels
+   of edge_pipeline_sm90.cu, f32 the tiled kernels of edge_pipeline.cu)
+   against their plain version at the training shape (A=390 atoms, K =
+   the auto capacity phase 10 observed, C=3, H=128), a ragged one
+   (A=1000, K=40, C=11, masked slots and atoms), one whose gate hits the
+   clip bounds exactly, one whose row tiles end in padding (K=13), and at
+   H=64 and H=96 (the chunked kernels, by the wrapper's size rule), each
+   in bf16 and f32, in bf16 at K=12 (5 atoms a Hopper tile) and K=80
+   (atoms spanning two tiles), in f32 at generate.yaml's shape (A=2,944,
+   K = phase generate's auto capacity, C=3, H=128, the share of valid
+   slots it saw), and in bf16 at the top-k sampler's shape of phase probe
+   (A = 2048 x 13, K=8, C=11, H=128); agg, F_sum, de and dcd within
+   TOL_EDGE, the parameter gradients' f32 sums within TOL_PARAM, each
+   launch on the kernel the size rule names (its counter), a second K5
+   and K6 launch bitwise equal. Timed as in phase 3 at main, ragged,
+   generate and sampler, and as device time per launch, the bf16 Hopper
+   kernels beside their MUFU and elementwise floors.
 
 ``python3 chip_smoke.py --ab OLD.cu`` runs phases 1-2 and then times the
 kernels built from OLD.cu against the current ones, alternating old,
@@ -213,7 +221,14 @@ egcl_allpairs_sm90.cu with the same bf16 K1/K2 entry points: K1/K2 at the
 main-path shape and the SMC run of phase 7. For an earlier
 edge_pipeline.cu (e.g. ``git show
 6a2a2b7:enflow_tpu_torch/csrc/edge_pipeline.cu``): K5/K6 in f32 at the
-training shape (CUDA events and device time) and one train.yaml epoch.
+training and ragged shapes and in bf16 at the top-k sampler's shape
+(CUDA events and device time; an old turn's bf16 on that source's tiled
+kernels, a new turn's on the Hopper kernels), one train.yaml epoch and
+one top-k sample_lj13.yaml run.
+
+``python3 chip_smoke.py --edge-seeds FIRST LAST`` runs phases 1-2 and then
+holds the bf16 Hopper K5/K6 against their plain version at EDGE_SHAPES
+for input seeds FIRST..LAST and prints every reading.
 For an earlier pair_energy.cu whose entry point takes no plan (e.g.
 ``git show 0d49c21:enflow_tpu_torch/csrc/pair_energy.cu``): K7 r at B=1,
 N=13, r2 at B=30, N=13 and r at 2,944 atoms (events and device time) and
@@ -281,6 +296,19 @@ TOL = {"float32": 1e-4, "bfloat16": 4e-3}
 # (clip shape), a skipped bf16 rounding of dgate >= 6.5e-3 (ragged) and of
 # m1 >= 8.5e-3, a padded row counted 1.4e-2 (odd, f32), a block's slice
 # unwritten, a prefetch of the wrong rows or a swizzle off by one >= 5.7e-2.
+# K5/K6's outputs agg, F_sum, de and dcd are held to TOL_EDGE; their seven
+# parameter gradients, compared as the float32 sums before the autograd
+# Function rounds them, to TOL_PARAM (chip_mutants.py edge_pipeline_sm90):
+# the bf16 Hopper K5/K6 read <= 3.3e-3 on the outputs and <= 2.4e-4 on the
+# sums at EDGE_SHAPES' inputs; dgate left unrounded reads 3.7e-3 on the
+# outputs (which TOL_EDGE alone would pass) and >= 2.2e-3 on the sums, m1
+# rounded toward zero >= 5.3e-3, the bias dropped from pre2's recompute
+# >= 8.9e-3, a dropped K-sum row, a stale prefetch, a slice added into
+# unwritten memory, an uncleared carry or a column sum in the wrong lane
+# >= 0.1. (Over input seeds 13-16, --edge-seeds, 2 of 32 sound readings
+# exceed these limits: a bf16 ulp at an output's largest element, when
+# one intermediate bf16 rounding on a dominant row goes the other way
+# because the tensor cores' f32 sums differ from cuBLAS's; PERF.md.)
 # K7: sound <= 8.1e-7; roundf for rintf 7.5e-2, counted d2 = 0 pairs >= 64.
 TOL_EDGE = {"float32": 1e-4, "bfloat16": 4e-3}
 TOL_PAIR = 1e-4
@@ -296,7 +324,7 @@ TOL_FLAGS = 1e-4
 # 6.9e-4 ragged), dw1r from the rounded r2 2.2e-3 (ico; 1.0e-3 ragged;
 # 4.9e-4 at the vi shape, which this limit does not see). The bf16 limit
 # sits between the sound reading and the weakest fault it must catch,
-# 6.9e-4.
+# 6.9e-4. K5/K6's parameter gradients are held to it the same way.
 TOL_PARAM = {"float32": 1e-4, "bfloat16": 6e-4}
 
 
@@ -586,6 +614,29 @@ def sfu_alu_floor(shape, mask):
             for d in SIGMOIDS}
 
 
+# The same floors for the bf16 Hopper K5/K6 (edge_pipeline_sm90.cu), per
+# element of the H-wide activations of a valid slot: sigmoids (an ex2 and
+# a rcp each) forward 3, backward 6 (the recompute's 3, then pre3, pre2 and
+# pre1 again for the derivatives); elementwise operations at the plain
+# version's rounding points, forward 37 (a bias add, torch.sigmoid's expf
+# and reciprocal ~9, SiLU's product, the mask and the rounding per layer,
+# the gate's fma, the K-sum's add), backward 100 (the recompute, the
+# derivative's 4, the chain's products, the column sums' adds and
+# shuffles, and the outer products' partial adds, 2 H^2 a 64-row tile)
+EDGE_SIGMOIDS = {"fwd": 3, "bwd": 6}
+EDGE_ALU_PER_ELEM = {"fwd": 37, "bwd": 100}
+
+
+def edge_sfu_alu_floor(shape, valid):
+    """{direction: (MUFU ms, elementwise ms)} of the bf16 Hopper K5/K6
+    over ``valid`` slots at the card's peak rates: the floors beside the
+    tensor-core bound."""
+    elems = valid * shape["H"]
+    return {d: (elems * 2 * EDGE_SIGMOIDS[d] / PEAK_MUFU * 1e3,
+                elems * EDGE_ALU_PER_ELEM[d] / PEAK_ALU * 1e3)
+            for d in EDGE_SIGMOIDS}
+
+
 PARAM_OUT = ("dh", "dpos", "dW1a", "dW1b", "dw1r", "db1", "dW2", "db2", "dW3",
              "db3", "dw4")
 
@@ -716,9 +767,11 @@ def bound(flop, nbytes, peak):
 # some whole atoms masked, C = 11), a small one whose gate is exactly 20 so
 # that cd * gate hits the clip bounds +-100 exactly (the strict clip mask
 # of the backward, edge_kernel.py:137), one whose row tiles end in padded
-# rows (K = 13: 6 atoms a tile, 78 rows), and the tiled kernels at H = 64
-# and, by the wrapper's size rule, the chunked ones at H = 96. The last
-# four are checked, not timed.
+# rows (K = 13: 6 atoms a tile, 78 rows; 4 atoms, 52 of 64 rows, on the
+# bf16 Hopper kernels), K = 12 and K = 80 (bf16: the Hopper kernels' tiles
+# of 5 whole atoms and atoms spanning tiles), and the tiled (f32) and
+# Hopper (bf16) kernels at H = 64 and, by the wrapper's size rule, the
+# chunked ones at H = 96. These are checked, not timed.
 EDGE_SHAPES = {
     "main": dict(A=390, K=24, C=3, H=128, masked=0.2),
     # phase probe's top-k SMC: 2048 particles x 13 atoms, K = 8 of 12
@@ -728,6 +781,12 @@ EDGE_SHAPES = {
     "ragged": dict(A=1000, K=40, C=11, H=128, masked=0.15, dead=37),
     "clip": dict(A=64, K=8, C=3, H=128, masked=0.1, clip=True),
     "odd": dict(A=777, K=13, C=5, H=128, masked=0.2),
+    # the Hopper kernels' tile plan: 5 atoms a tile at K = 12 (60 of 64
+    # rows), and atoms that span two tiles (K = 80), K-sums carried
+    "k12": dict(A=1000, K=12, C=11, H=128, masked=0.2, dead=20,
+                dtypes=("bfloat16",)),
+    "k80": dict(A=300, K=80, C=11, H=128, masked=0.2, dead=7,
+                dtypes=("bfloat16",)),
     "h64": dict(A=500, K=24, C=3, H=64, masked=0.2),
     "h96": dict(A=200, K=16, C=3, H=96, masked=0.2),
 }
@@ -833,6 +892,13 @@ def edge_kernel_phase(main_K=None, generate=None):
     import torch
     from enflow_tpu_torch.ops import edge_pipeline as ep
 
+    # the Hopper kernels' reciprocal rounds as torch.sigmoid's division
+    t0 = time.perf_counter()
+    bad = ep.sm90_recip_mismatches()
+    phase("edge", f"the Hopper kernels' sigmoid reciprocal against the "
+          f"correctly rounded one at all {126 << 23:,} floats in [1, 2^126): "
+          f"{bad} differ ({time.perf_counter() - t0:.2f} s)")
+    require(bad == 0, f"{bad} reciprocals round otherwise than __frcp_rn")
     shapes = dict(EDGE_SHAPES)
     if generate:
         shapes["generate"] = dict(
@@ -850,7 +916,8 @@ def edge_kernel_phase(main_K=None, generate=None):
             e, cd, em, W, dagg, dfs, valid = gathered_inputs(shape, dtype,
                                                               seed=13)
             kind = ep.kernel_for(dtype, shape["H"])
-            before = ep.counts.bwd_launches
+            counter = f"{kind}_bwd_launches"
+            before = getattr(ep.counts, counter)
             fwd = lambda: ep.edge_pipeline_fwd(e, cd, em, W)
             bwd = lambda: ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs)
             k = fwd() + bwd()
@@ -858,17 +925,21 @@ def edge_kernel_phase(main_K=None, generate=None):
             p = (ep.edge_pipeline_plain(e, cd, em, *W)
                  + ep.edge_pipeline_plain_bwd(e, cd, em, *W, dagg, dfs))
             torch.cuda.synchronize()
-            require(ep.counts.bwd_launches == before + 2, "K6 did not launch")
+            require(getattr(ep.counts, counter) == before + 2,
+                    f"K6 did not launch on the {kind} kernels")
             errs = rel_errs(EDGE_OUT, k, p)
-            tol = TOL_EDGE[dname]
-            ok = all(rel <= tol for _, rel in errs.values())
+            tol = {n: (TOL_EDGE if n in EDGE_OUT[:4] else TOL_PARAM)[dname]
+                   for n in EDGE_OUT}
+            ok = all(errs[n][1] <= tol[n] for n in EDGE_OUT)
             same = all(torch.equal(x, y) for x, y in zip(k, again))
             phase("edge", f"{sname} {dname} A={shape['A']} K={shape['K']} "
                   f"C={shape['C']} H={shape['H']} ({kind}) max_abs/rel err: "
                   + "  ".join(f"{n} {a:.2e}/{r:.1e}"
                               for n, (a, r) in errs.items())
-                  + f"  tol {tol:g} -> {'ok' if ok else 'FAIL'}; second K5 "
-                  f"and K6 launch {'bitwise equal' if same else 'DIFFER'}")
+                  + f"  tol {TOL_EDGE[dname]:g} (agg, F_sum, de, dcd), "
+                  f"{TOL_PARAM[dname]:g} (parameter gradients, f32 sums) -> "
+                  f"{'ok' if ok else 'FAIL'}; second K5 and K6 launch "
+                  f"{'bitwise equal' if same else 'DIFFER'}")
             require(ok, f"edge kernel disagrees with plain ({sname}, "
                     f"{dname})")
             require(same, f"a second K5/K6 launch gave other bits ({sname}, "
@@ -886,17 +957,66 @@ def edge_kernel_phase(main_K=None, generate=None):
                                                int(valid.sum()))
             b_f = bound(fl_f, by_f, PEAK_FLOPS[dname])
             b_b = bound(fl_b, by_b, PEAK_FLOPS[dname])
-            phase("edge", f"{sname} {dname} time ms: fwd kernel {t_kf:.4f} "
-                  f"(device {d_kf:.4f}) plain {t_pf:.4f} bound {b_f[0]:.4f} "
-                  f"({b_f[1]}, {fl_f / 1e9:.3f} GFLOP) | bwd kernel "
-                  f"{t_kb:.4f} (device {d_kb:.4f}) plain {t_pb:.4f} bound "
-                  f"{b_b[0]:.4f} ({b_b[1]}, {fl_b / 1e9:.3f} GFLOP)")
+            floors, extra = None, ""
+            if kind == "sm90":
+                floors = edge_sfu_alu_floor(shape, int(valid.sum()))
+                extra = (f"; MUFU / elementwise floors fwd "
+                         f"{floors['fwd'][0]:.4f} / {floors['fwd'][1]:.4f}, "
+                         f"bwd {floors['bwd'][0]:.4f} / "
+                         f"{floors['bwd'][1]:.4f}")
+            phase("edge", f"{sname} {dname} ({kind}) time ms: fwd kernel "
+                  f"{t_kf:.4f} (device {d_kf:.4f}) plain {t_pf:.4f} bound "
+                  f"{b_f[0]:.4f} ({b_f[1]}, {fl_f / 1e9:.3f} GFLOP) | bwd "
+                  f"kernel {t_kb:.4f} (device {d_kb:.4f}) plain {t_pb:.4f} "
+                  f"bound {b_b[0]:.4f} ({b_b[1]}, {fl_b / 1e9:.3f} GFLOP)"
+                  + extra)
             record[(sname, dname)] = dict(
                 err_fwd=max(errs[n][0] for n in EDGE_OUT[:2]),
                 err_bwd=max(errs[n][0] for n in EDGE_OUT[2:]),
                 ms_fwd=t_kf, ms_bwd=t_kb, dev_fwd=d_kf, dev_bwd=d_kb,
-                plain_fwd=t_pf, plain_bwd=t_pb, bound_fwd=b_f, bound_bwd=b_b)
+                plain_fwd=t_pf, plain_bwd=t_pb, bound_fwd=b_f, bound_bwd=b_b,
+                floors=floors)
     return record
+
+
+def edge_seed_sweep(first, last):
+    """The bf16 Hopper K5/K6 against their plain version at every bf16
+    shape of EDGE_SHAPES for the input seeds first..last: each reading
+    (the largest relative error of agg, F_sum, de, dcd and of the
+    parameter gradients' f32 sums) beside TOL_EDGE and TOL_PARAM, and how
+    many exceed them. A measurement of how the tensor cores' sums move
+    bf16 roundings, not a check: it fails only on a kernel that does not
+    run."""
+    import torch
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+
+    over = {}
+    names = [n for n, sh in EDGE_SHAPES.items()
+             if "bfloat16" in sh.get("dtypes", ("bfloat16",))
+             and ep.kernel_for(torch.bfloat16, sh["H"]) == "sm90"]
+    for seed in range(first, last + 1):
+        for sname in names:
+            e, cd, em, W, dagg, dfs, _ = gathered_inputs(
+                EDGE_SHAPES[sname], torch.bfloat16, seed)
+            k = (ep.edge_pipeline_fwd(e, cd, em, W)
+                 + ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs))
+            p = (ep.edge_pipeline_plain(e, cd, em, *W)
+                 + ep.edge_pipeline_plain_bwd(e, cd, em, *W, dagg, dfs))
+            errs = rel_errs(EDGE_OUT, k, p)
+            out = max(EDGE_OUT[:4], key=lambda n: errs[n][1])
+            par = max(EDGE_OUT[4:], key=lambda n: errs[n][1])
+            bad = (errs[out][1] > TOL_EDGE["bfloat16"]
+                   or errs[par][1] > TOL_PARAM["bfloat16"])
+            if bad:
+                over[(sname, seed)] = (out, errs[out][1], par, errs[par][1])
+            phase("edge-seeds", f"{sname} seed {seed}: outputs "
+                  f"{errs[out][1]:.2e} ({out}), parameter gradients "
+                  f"{errs[par][1]:.2e} ({par})" + (" over" if bad else ""))
+    n = (last - first + 1) * len(names)
+    phase("edge-seeds", f"{len(over)} of {n} readings over TOL_EDGE "
+          f"{TOL_EDGE['bfloat16']:g} / TOL_PARAM {TOL_PARAM['bfloat16']:g}"
+          + "".join(f"; {k[0]} seed {k[1]}: {v[0]} {v[1]:.2e}, {v[2]} "
+                    f"{v[3]:.2e}" for k, v in over.items()))
 
 
 def pair_inputs(shape, seed):
@@ -1468,11 +1588,16 @@ def f32_ab_phase(card, old_lib):
 
 def edge_ab_phase(card, old_lib):
     """An earlier edge_pipeline.cu (``old_lib``, built) against the current
-    one, f32, in turns old, new, new, old, old, new within this process:
-    every launch of an old turn goes to the old source's kernels. A turn
-    times K5 and K6 at EDGE_AB (the training shape and the ragged one)
-    with CUDA events and device time, then one train.yaml epoch (after a
-    warm-up epoch before the first turn)."""
+    kernels in turns old, new, new, old, old, new within this process:
+    every launch of an old turn goes to the old source's kernels, bf16 at H
+    = 64/128 to its tiled kernels (its chunked ones where it has no tiled
+    kernels), a new turn's bf16 to the Hopper kernels of
+    edge_pipeline_sm90.cu. A turn times K5 and K6 in f32 at EDGE_AB (the
+    training shape and the ragged one) and in bf16 at the top-k sampler's
+    shape with CUDA events and device time, then one train.yaml epoch
+    (after a warm-up epoch before the first turn) and one top-k
+    sample_lj13.yaml run (nbr_capacity PROBE_CAP, from a 1-epoch
+    vi_lj13.yaml checkpoint, after a warm-up run)."""
     import os
     import torch
     from enflow_tpu_torch.ops import build
@@ -1480,17 +1605,27 @@ def edge_ab_phase(card, old_lib):
 
     new_lib = ep._library()
     ep.bind_library(old_lib)
-    tiled = ep.uses_tiled
+    tiled, rule = ep.uses_tiled, ep.kernel_for
+    has_tiled = hasattr(old_lib, "edge_tiled_fwd")
+
+    def old_rule(dtype, H):
+        rule(dtype, H)                                 # raises as before
+        return "tiled" if ep.uses_tiled(H) else "chunked"
 
     def use(which):
-        build._loaded["edge_pipeline"] = old_lib if which == "old" else new_lib
-        ep.uses_tiled = (lambda H: False) if which == "old" else tiled
+        old = which == "old"
+        build._loaded["edge_pipeline"] = old_lib if old else new_lib
+        ep.uses_tiled = tiled if has_tiled or not old else (lambda H: False)
+        ep.kernel_for = old_rule if old else rule
 
     cases = {}
-    for sname in EDGE_AB:
+    for sname, dname in [(n, "float32") for n in EDGE_AB] + [("sampler",
+                                                            "bfloat16")]:
+        dtype = getattr(torch, dname)
         e, cd, em, W, dagg, dfs, _ = gathered_inputs(EDGE_SHAPES[sname],
-                                                      torch.float32, 13)
-        cases[sname] = (
+                                                      dtype, 13)
+        cases[f"{sname} {dname}"] = (
+            dname,
             lambda e=e, cd=cd, em=em, W=W: ep.edge_pipeline_fwd(e, cd, em, W),
             lambda e=e, cd=cd, em=em, W=W, dagg=dagg, dfs=dfs:
                 ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs),
@@ -1498,38 +1633,58 @@ def edge_ab_phase(card, old_lib):
             + ep.edge_pipeline_plain_bwd(e, cd, em, *W, dagg, dfs))
     cwd, rows = os.getcwd(), []
     try:
-        with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as tmp, \
+                tempfile.TemporaryDirectory() as smc_dir:
             main = train_driver(tmp, 1)
             main.train()                                    # warm-up
             main.start_epoch += 1
+            vi_driver(smc_dir, 1).train()       # a checkpoint to sample
+            smc = config_driver(smc_dir, "sample_lj13.yaml", dynamics=dict(
+                nbr_mode="topk", nbr_capacity=PROBE_CAP))
+            smc.sample()                                    # warm-up
             for which in ("old", "new", "new", "old", "old", "new"):
                 use(which)
                 t, line = {}, []
-                for sname, (fwd, bwd, want) in cases.items():
+                for key, (dname, fwd, bwd, want) in cases.items():
                     errs = rel_errs(EDGE_OUT, fwd() + bwd(), want)
-                    require(all(r <= TOL_EDGE["float32"] for _, r in
-                                errs.values()), f"{which} K5/K6 disagree "
-                            f"with plain at {sname}: {errs}")
+                    tol = {n: (TOL_EDGE if n in EDGE_OUT[:4]
+                               else TOL_PARAM)[dname] for n in EDGE_OUT}
+                    require(all(errs[n][1] <= tol[n] for n in EDGE_OUT),
+                            f"{which} K5/K6 disagree with plain at {key}: "
+                            f"{errs}")
                     t.update({
-                        f"{sname} fwd": cuda_time_ms(fwd),
-                        f"{sname} bwd": cuda_time_ms(bwd),
-                        f"{sname} fwd_dev": device_ms(fwd, "fwd_kernel"),
-                        f"{sname} bwd_dev": device_ms(bwd, "bwd_kernel")})
+                        f"{key} fwd": cuda_time_ms(fwd),
+                        f"{key} bwd": cuda_time_ms(bwd),
+                        f"{key} fwd_dev": device_ms(fwd, "fwd_kernel"),
+                        f"{key} bwd_dev": device_ms(bwd, "bwd_kernel")})
                     line.append(
-                        f"{sname}: K5 {t[sname + ' fwd']:.4f} ms (device "
-                        f"{t[sname + ' fwd_dev']:.4f}), K6 "
-                        f"{t[sname + ' bwd']:.4f} ms (device "
-                        f"{t[sname + ' bwd_dev']:.4f})")
+                        f"{key}: K5 {t[key + ' fwd']:.4f} ms (device "
+                        f"{t[key + ' fwd_dev']:.4f}), K6 "
+                        f"{t[key + ' bwd']:.4f} ms (device "
+                        f"{t[key + ' bwd_dev']:.4f})")
+                os.chdir(tmp)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 main.train()
                 torch.cuda.synchronize()
                 t["train"] = (time.perf_counter() - t0) / TRAIN_STEPS_PER_EPOCH
                 main.start_epoch += 1
+                os.chdir(smc_dir)
+                reset_counts()
+                res, t["smc"] = timed_sample(smc)
+                check_smc(res, f"{which} top-k sample_lj13", 2048, 13)
+                routes = edge_routes()
+                route = "tiled" if which == "old" and has_tiled else (
+                    "chunked" if which == "old" else "sm90")
+                require(routes[route][1] > 0 and sum(
+                    sum(v) for r, v in routes.items() if r != route) == 0,
+                    f"{which} turn: K5/K6 launches by kernel {routes}")
                 rows.append((which, t))
                 phase("ab", f"{which} on {card}: " + "; ".join(line)
                       + f"; train.yaml {t['train']:.5f} s/step (one epoch "
-                      f"of {TRAIN_STEPS_PER_EPOCH})")
+                      f"of {TRAIN_STEPS_PER_EPOCH}); top-k sample_lj13 "
+                      f"{t['smc']:.4f} s (bf16 K5/K6 on the {route} "
+                      f"kernels: {routes[route][0]} + {routes[route][1]})")
     finally:
         use("new")
         os.chdir(cwd)
@@ -1537,7 +1692,8 @@ def edge_ab_phase(card, old_lib):
         pick = lambda which: statistics.median(
             t[key] for w, t in rows if w == which)
         old, new = pick("old"), pick("new")
-        unit = "s/step" if key == "train" else "ms"
+        unit = ("s/step" if key == "train" else "s/run" if key == "smc"
+                else "ms")
         phase("ab", f"{key} (median): old {old:.5f} new {new:.5f} {unit} -> "
               f"{old / new:.2f}x")
 
@@ -3582,6 +3738,16 @@ def edge_launches():
                 plain=plain_calls())
 
 
+def edge_routes():
+    """K5/K6 launches by kernel since the counts were reset: ``{route:
+    (K5, K6)}`` for the Hopper (bf16), tiled and chunked kernels."""
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    c = ep.counts
+    return {r: (getattr(c, f"{r}_fwd_launches"),
+                getattr(c, f"{r}_bwd_launches"))
+            for r in ("sm90", "tiled", "chunked")}
+
+
 def read_csv(path):
     import csv
     with open(path) as f:
@@ -3622,6 +3788,11 @@ def probe_phase(card, lj13_dir):
             want = dict(k5=main.n_iter * (1 + n_vg + T),
                         k6=main.n_iter * n_vg, allpairs=0, plain=0)
             require(got == want, f"probe {label} launches {got} != {want}")
+            # every bf16 K5/K6 launch on the Hopper kernels
+            routes = edge_routes()
+            require(routes == dict(sm90=(want["k5"], want["k6"]),
+                                   tiled=(0, 0), chunked=(0, 0)),
+                    f"probe {label}: K5/K6 launches by kernel {routes}")
             P = sec["n_particles"]
             check_smc(res, f"probe {label}", P, 13)
             hist = res.stage_metric_history
@@ -3688,6 +3859,10 @@ def probe_phase(card, lj13_dir):
                         allpairs=0, plain=0)
             require(got == want, f"probe remc {label} launches {got} != "
                     f"{want}")
+            routes = edge_routes()
+            require(routes == dict(sm90=(want["k5"], want["k6"]),
+                                   tiled=(0, 0), chunked=(0, 0)),
+                    f"probe remc {label}: K5/K6 launches by kernel {routes}")
             h = rres.round_metric_history
             require(h is not None and h.is_cuda and tuple(h.shape) == (R,)
                     and on_card(rres.samples),
@@ -3715,7 +3890,9 @@ def probe_phase(card, lj13_dir):
           f"chunked by {PROBE_CHUNK}, bitwise equal with the column; "
           f"nbr_overflow a stage " + " ".join(map(str, mono["ovf"]))
           + f" (sum {sum(mono['ovf'])}), warning printed; launches K5 "
-          f"{g['k5']} K6 {g['k6']} all-pairs 0, plain calls 0; at capacity "
+          f"{g['k5']} K6 {g['k6']}, every one on the Hopper kernels "
+          f"(edge_pipeline_sm90.cu; tiled and chunked 0), all-pairs 0, plain "
+          f"calls 0; at capacity "
           f"{PROBE_FULL}: {exact['secs']:.3f} s, column all 0, no warning; "
           f"log_Z {float(mono['res'].log_Z):.4f} (cap {PROBE_CAP}) / "
           f"{float(exact['res'].log_Z):.4f} (cap {PROBE_FULL})")
@@ -3731,7 +3908,8 @@ def probe_phase(card, lj13_dir):
           f"bitwise equal; a probe a round: "
           + " ".join(str(int(v)) for v in ra.round_metric_history)
           + f" (CSV total {int(ra.round_metric_history.sum())}); launches "
-          f"K5 {rgot['k5']} K6 {rgot['k6']}, plain calls 0")
+          f"K5 {rgot['k5']} K6 {rgot['k6']}, every one on the Hopper "
+          f"kernels, plain calls 0")
     torch.cuda.empty_cache()
     return dict(k5=g["k5"], k6=g["k6"], secs=mono["secs"],
                 probe_ms=probe_ms, share=share)
@@ -4067,7 +4245,7 @@ def build_phase():
     """Fresh builds of every kernel source, one nvcc each, in parallel."""
     from enflow_tpu_torch.ops import build
     names = ("egcl_allpairs_sm90", "egcl_allpairs_f32", "egcl_allpairs",
-             "edge_pipeline", "pair_energy")
+             "edge_pipeline", "edge_pipeline_sm90", "pair_energy")
     for name in names:
         build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
@@ -4110,6 +4288,11 @@ def main():
                     "ones, and vi_dw4.yaml epochs, SMC runs, train.yaml "
                     "epochs or train.yaml MD datasets with each, instead of "
                     "the phases after the build")
+    ap.add_argument("--edge-seeds", nargs=2, type=int, default=None,
+                    metavar=("FIRST", "LAST"), help="hold the bf16 Hopper "
+                    "K5/K6 against their plain version at EDGE_SHAPES for "
+                    "input seeds FIRST..LAST instead of the phases after the "
+                    "build, and print the readings")
     ap.add_argument("--profile", nargs="?", const="", default=None,
                     metavar="FILE", help="profile one SMC run instead of "
                     "the phases after the build; the full table to FILE")
@@ -4155,6 +4338,9 @@ def main():
     table = lambda f: Path(f).resolve() if f else None
     if args.ab is not None:
         ab_phase(card, Path(args.ab).resolve())
+        return 0
+    if args.edge_seeds is not None:
+        edge_seed_sweep(*args.edge_seeds)
         return 0
     if args.profile is not None:
         profile_smc(card, table(args.profile))
@@ -4285,11 +4471,12 @@ def main():
         "edge_pipeline_fwd_generate", "edge_pipeline.cu",
         "enflow_tpu/ops/edge_kernel.py:219", gen["k5"], g["err_fwd"],
         g["ms_fwd"], g["plain_fwd"], g["bound_fwd"]))
-    # bf16 K5/K6 at the top-k sampler's shape, with phase probe's launches
+    # bf16 K5/K6 at the top-k sampler's shape (the Hopper kernels), with
+    # phase probe's launches
     sp = erec[("sampler", "bfloat16")]
     for name, d, line in (("fwd", "fwd", 219), ("bwd", "bwd", 246)):
         kernels.append(kernel_record(
-            f"edge_pipeline_{name}_sampler", "edge_pipeline.cu",
+            f"edge_pipeline_{name}_sampler", "edge_pipeline_sm90.cu",
             f"enflow_tpu/ops/edge_kernel.py:{line}",
             pr["k5" if d == "fwd" else "k6"], sp[f"err_{d}"], sp[f"ms_{d}"],
             sp[f"plain_{d}"], sp[f"bound_{d}"]))

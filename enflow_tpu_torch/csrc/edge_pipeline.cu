@@ -27,10 +27,11 @@
 // mantissa bits, where the f32 reference keeps 23.
 //
 // Two designs share the C interface's shape; the wrapper's size rule
-// (ops/edge_pipeline.py kernel_for) picks one per hidden width.
+// (ops/edge_pipeline.py kernel_for) picks one per hidden width. bf16 at
+// H = 64 and 128 runs the Hopper kernels of edge_pipeline_sm90.cu.
 //
-// The tiled kernels (edge_tiled_*, H = 64 and 128, f32 and bf16; bf16
-// converts on load and computes as f32 between its rounding points):
+// The tiled kernels (edge_tiled_*, H = 64 and 128, f32; the type
+// parameter T is float):
 // - 2H threads a block, one block an SM, atom tiles of TA whole atoms
 //   strided over the blocks, so the per-atom K-sums need no atomics and
 //   run in a fixed order. An atom tile's rows are cut into equal row tiles
@@ -63,8 +64,7 @@
 //   once at the end. Each block writes its slice of the [blocks, P]
 //   partials once with plain stores; the wrapper sums the slices in a
 //   fixed order (a second launch gives the same bits).
-// - SiLU in f32 uses the fast ex2 and reciprocal (a few ulp); bf16 keeps
-//   the chunked kernels' expf, so its rounding points see the same values.
+// - SiLU in f32 uses the fast ex2 and reciprocal (a few ulp).
 // - Shared memory at f32, H = 128, of the 227 KB (232,448 bytes) a block
 //   may use: W2 + W3 128 KB; forward 2 activation tiles (72 rows: 74 KB),
 //   backward 3 (40 rows: 62 KB); W1, biases, the staging buffers, the
@@ -604,7 +604,7 @@ int dispatch(int dtype, const Args& a, bool bwd, int blocks, void* stream) {
 
 
 // ===========================================================================
-// The tiled kernels (H = 64 and 128, f32 and bf16): see the header note.
+// The tiled kernels (H = 64 and 128, f32): see the header note.
 // ===========================================================================
 
 constexpr int kQmaxFwd = 9;   // at most 72 rows a tile (forward)
@@ -645,11 +645,9 @@ __device__ __forceinline__ int byte_off(const void* src, size_t at) {
 }
 
 // SiLU and its derivative in the tiled kernels: f32 with the fast ex2 and
-// reciprocal (a few ulp, far inside the f32 tolerance); bf16 as the
-// chunked kernels, so its rounding points see the same f32 values.
+// reciprocal (a few ulp, far inside the f32 tolerance).
 template <typename T> __device__ __forceinline__ float sig_t(float x) {
-  if constexpr (sizeof(T) == 4) return __fdividef(1.0f, 1.0f + __expf(-x));
-  return sigmoid_f(x);
+  return __fdividef(1.0f, 1.0f + __expf(-x));
 }
 template <typename T> __device__ __forceinline__ float silu_t(float x) {
   return x * sig_t<T>(x);
@@ -724,19 +722,13 @@ __host__ __device__ inline void tcarve(Bump& m, TSmem& s, int C, int H,
   s.atoms = bwd ? (char*)m.take(2 * (size_t)s.at_bytes) : nullptr;
 }
 
-// W1, b1, b2, b3, w4 as f32 (f32: 16-byte cp.async, committed by the
-// caller; bf16 converted on load).
+// W1, b1, b2, b3, w4 by 16-byte cp.async (committed by the caller).
 template <typename T, int H>
 __device__ void load_small(const Args& a, const TSmem& s) {
   constexpr int NT = 2 * H;
   const auto load = [&](float* dst, const void* src, int n) {
-    if constexpr (sizeof(T) == 4) {
-      for (int k = threadIdx.x; k < n / 4; k += NT)
-        cp_async16(dst + 4 * k, (const float*)src + 4 * k);
-    } else {
-      for (int k = threadIdx.x; k < n; k += NT)
-        dst[k] = Cvt<T>::to_f(((const T*)src)[k]);
-    }
+    for (int k = threadIdx.x; k < n / 4; k += NT)
+      cp_async16(dst + 4 * k, (const float*)src + 4 * k);
   };
   load(s.W1, a.W1, a.C * H);
   load(s.b1, a.b1, H);
@@ -745,27 +737,15 @@ __device__ void load_small(const Args& a, const TSmem& s) {
   load(s.w4, a.w4, H);
 }
 
-// W2, W3 (swizzled) as f32: f32 by 16-byte cp.async (committed by the
-// caller), bf16 converted on load.
+// W2, W3 (swizzled) by 16-byte cp.async (committed by the caller).
 template <typename T, int H>
 __device__ void load_tiled_weights(const Args& a, const TSmem& s) {
   constexpr int NT = 2 * H, CH = H / 4;
   for (int k = threadIdx.x; k < H * CH; k += NT) {
     const int r = k / CH, kc = k % CH;
     const int dst = r * H + ((kc ^ ((r >> 2) & 7)) << 2);
-    if constexpr (sizeof(T) == 4) {
-      cp_async16(s.W2 + dst, (const float*)a.W2 + 4 * k);
-      cp_async16(s.W3 + dst, (const float*)a.W3 + 4 * k);
-    } else {
-      const T* w2 = (const T*)a.W2 + 4 * k;
-      const T* w3 = (const T*)a.W3 + 4 * k;
-      *reinterpret_cast<float4*>(s.W2 + dst) = make_float4(
-          Cvt<T>::to_f(w2[0]), Cvt<T>::to_f(w2[1]), Cvt<T>::to_f(w2[2]),
-          Cvt<T>::to_f(w2[3]));
-      *reinterpret_cast<float4*>(s.W3 + dst) = make_float4(
-          Cvt<T>::to_f(w3[0]), Cvt<T>::to_f(w3[1]), Cvt<T>::to_f(w3[2]),
-          Cvt<T>::to_f(w3[3]));
-    }
+    cp_async16(s.W2 + dst, (const float*)a.W2 + 4 * k);
+    cp_async16(s.W3 + dst, (const float*)a.W3 + 4 * k);
   }
 }
 
@@ -1366,13 +1346,9 @@ bool tiled_dims(int H, int C, int TA, int R, bool bwd) {
 }
 
 long long tiled_smem(int dtype, int C, int H, int TA, int R, bool bwd) {
-  if (!tiled_dims(H, C, TA, R, bwd) || (dtype != 0 && dtype != 1)) return -1;
-  const bool f = dtype == 0;
-  if (H == 64)
-    return (long long)(f ? tiled_smem_bytes<float, 64>(C, TA, R, bwd)
-                         : tiled_smem_bytes<__nv_bfloat16, 64>(C, TA, R, bwd));
-  return (long long)(f ? tiled_smem_bytes<float, 128>(C, TA, R, bwd)
-                       : tiled_smem_bytes<__nv_bfloat16, 128>(C, TA, R, bwd));
+  if (!tiled_dims(H, C, TA, R, bwd) || dtype != 0) return -1;
+  return (long long)(H == 64 ? tiled_smem_bytes<float, 64>(C, TA, R, bwd)
+                             : tiled_smem_bytes<float, 128>(C, TA, R, bwd));
 }
 
 template <typename T, int H>
@@ -1399,11 +1375,8 @@ int tiled_dispatch(int dtype, const Args& a, bool bwd, int blocks,
       blocks < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return a.H == 64 ? tiled_launch<float, 64>(a, bwd, blocks, st)
-                     : tiled_launch<float, 128>(a, bwd, blocks, st);
-  return a.H == 64 ? tiled_launch<__nv_bfloat16, 64>(a, bwd, blocks, st)
-                   : tiled_launch<__nv_bfloat16, 128>(a, bwd, blocks, st);
+  return a.H == 64 ? tiled_launch<float, 64>(a, bwd, blocks, st)
+                   : tiled_launch<float, 128>(a, bwd, blocks, st);
 }
 
 }  // namespace
@@ -1453,7 +1426,7 @@ int edge_pipeline_bwd(int dtype, int A, int K, int C, int H, int TA,
   return dispatch(dtype, a, true, blocks, stream);
 }
 
-// The tiled kernels (H = 64 or 128, float32 or bfloat16; see the header):
+// The tiled kernels (H = 64 or 128, float32: dtype 0; see the header):
 // dynamic shared memory of one block at R rows a tile (R % 8 == 0, at most
 // 72 forward and 40 backward), or -1 for sizes they do not take.
 long long edge_tiled_smem_bytes(int dtype, int C, int H, int TA, int R,

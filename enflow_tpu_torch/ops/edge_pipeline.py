@@ -10,16 +10,24 @@ Contract (``fused_edge_pipeline``): pre-gathered edge rows
     m1 = silu(e W1 + b1)   m = silu(m1 W2 + b2) * em   agg = sum_K m
     gate = silu(m W3 + b3) w4   F_sum = sum_K clip(cd * gate, +-100) * em
 
-- On a CUDA tensor the forward launches ``csrc/edge_pipeline.cu`` and the
-  backward launches its backward kernel, which recomputes the forward from
-  the inputs (the only residuals the autograd Function saves) and returns
-  ``de``, ``dcd`` and all seven parameter gradients. float32 and bfloat16
-  only; other dtypes raise. ``kernel_for`` is the size rule: the tiled
-  kernels at H = 64 and 128, the chunked kernels at the other widths
-  the dtype takes; it raises for the rest. There is no fallback.
+- On a CUDA tensor the forward launches a forward kernel and the backward
+  its backward kernel, which recomputes the forward from the inputs (the
+  only residuals the autograd Function saves) and returns ``de``, ``dcd``
+  and all seven parameter gradients. float32 and bfloat16 only; other
+  dtypes raise. ``kernel_for`` is the size rule: at H = 64 and 128 bf16
+  goes to the Hopper kernels of ``csrc/edge_pipeline_sm90.cu`` (wgmma,
+  ``"sm90"``, C <= 16; the tile plan is :func:`sm90_plan` /
+  :func:`sm90_tiles`) and float32 to the tiled kernels of
+  ``csrc/edge_pipeline.cu``; the other widths the dtype takes go to that
+  file's chunked kernels; it raises for the rest. There is no fallback: a
+  shape a route does not take raises.
 - On a CPU tensor both directions run the plain PyTorch version below,
   which rounds to the compute dtype where ``_fwd_kernel``/``_bwd_kernel``
   round (float64 is accepted there and accumulates in float64).
+
+The parameter gradients are float32 sums (float64 for float64 inputs);
+the autograd Function rounds each to its weight's dtype, as
+``_edge_bwd_impl`` does on return (``edge_kernel.py:269-273``).
 """
 
 from __future__ import annotations
@@ -34,7 +42,12 @@ from .build import LaunchCounts
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ATOM_TILE = 16     # atoms per block tile (bounds the per-atom sums)
 
-counts = LaunchCounts("fwd_launches", "bwd_launches", "plain_fwd_calls",
+# fwd_launches / bwd_launches count every launch; the per-route counters
+# say which kernel took it
+counts = LaunchCounts("fwd_launches", "bwd_launches", "sm90_fwd_launches",
+                      "sm90_bwd_launches", "tiled_fwd_launches",
+                      "tiled_bwd_launches", "chunked_fwd_launches",
+                      "chunked_bwd_launches", "plain_fwd_calls",
                       "plain_bwd_calls")
 
 
@@ -82,7 +95,8 @@ def edge_pipeline_plain(e, cd, em, W1, b1, W2, b2, W3, b3, w4):
 def edge_pipeline_plain_bwd(e, cd, em, W1, b1, W2, b2, W3, b3, w4, dagg,
                             dfs):
     """Plain backward (``_bwd_kernel``): ``(de, dcd, dW1, db1, dW2, db2,
-    dW3, db3, dw4)``; the parameter gradients in each parameter's dtype."""
+    dW3, db3, dw4)``; the parameter gradients as float32 sums (float64 for
+    float64 inputs) in the weights' shapes."""
     dt, acc = e.dtype, _acc(e.dtype)
     f = lambda t: t.to(acc)
     emf, pre1, m1, pre2, m, pre3, g1, gate = _recompute(
@@ -114,9 +128,7 @@ def edge_pipeline_plain_bwd(e, cd, em, W1, b1, W2, b2, W3, b3, w4, dagg,
     de = (dpre1_r @ f(W1).T).to(dt)
     dW1 = flat(f(e)).T @ flat(dpre1_r)
     db1 = flat(dpre1).sum(0)
-    grads = (dW1, db1, dW2, db2, dW3, db3, dw4)
-    params = (W1, b1, W2, b2, W3, b3, w4)
-    return (de, dcd) + tuple(g.to(p.dtype) for g, p in zip(grads, params))
+    return de, dcd, dW1, db1, dW2, db2, dW3, db3, dw4
 
 
 # ---------------------------------------------------------------------------
@@ -127,10 +139,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 
-# Widths of the tiled kernels of edge_pipeline.cu (float32 and bfloat16);
-# every other width a dtype takes goes to its chunked kernels (the size
-# rule of ``kernel_for``).
+# Widths of the bf16 Hopper kernels (edge_pipeline_sm90.cu) and of the
+# float32 tiled kernels of edge_pipeline.cu; every other width a dtype
+# takes goes to the chunked kernels (the size rule of ``kernel_for``).
 TILED_H = (64, 128)
+# rows a tile of the Hopper kernels (wgmma's M) and the most columns of e
+# (one k16 step)
+SM90_ROWS = 64
+SM90_C_MAX = 16
 # rows a tile of the tiled kernels at most (kQmaxFwd / kQmaxBwd x 8)
 ROWS_MAX = {"fwd": 72, "bwd": 40}
 _H_MULT = {torch.float32: 4, torch.bfloat16: 16}
@@ -142,6 +158,40 @@ def _library():
     if not getattr(lib, "_enflow_bound", False):
         bind_library(lib)
     return lib
+
+
+def _sm90_library():
+    from .build import load
+    lib = load("edge_pipeline_sm90")
+    if not getattr(lib, "_enflow_bound", False):
+        # A, K, C, H, apt, tpa, units, blocks, nwg, inputs, outputs, stream
+        lib.edge_sm90_fwd.argtypes = [_I] * 9 + [_P] * 13
+        lib.edge_sm90_fwd.restype = _I
+        lib.edge_sm90_bwd.argtypes = [_I] * 9 + [_P] * 16
+        lib.edge_sm90_bwd.restype = _I
+        lib.edge_sm90_warpgroups.argtypes = [_I] * 2
+        lib.edge_sm90_warpgroups.restype = _I
+        lib.edge_sm90_error_string.argtypes = [_I]
+        lib.edge_sm90_error_string.restype = ctypes.c_char_p
+        lib.edge_sm90_recip_check.argtypes = [_P, _P]
+        lib.edge_sm90_recip_check.restype = _I
+        lib._enflow_bound = True
+    return lib
+
+
+def sm90_recip_mismatches(device="cuda") -> int:
+    """How many of the floats in [1, 2^126) the Hopper kernels' sigmoid
+    reciprocal (rcp.approx and one Newton step) rounds otherwise than the
+    correctly rounded reciprocal that torch.sigmoid's division gives: 0
+    on a sound build (the kernels round as the plain version then)."""
+    lib = _sm90_library()
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    stream = _P(torch.cuda.current_stream(bad.device).cuda_stream)
+    err = lib.edge_sm90_recip_check(bad.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"edge_sm90_recip_check failed: "
+                           f"{lib.edge_sm90_error_string(err).decode()}")
+    return int(bad.item())
 
 
 def bind_library(lib):
@@ -174,20 +224,59 @@ def uses_tiled(H: int) -> bool:
 
 
 def kernel_for(dtype, H: int) -> str:
-    """The size rule: ``"tiled"`` (H = 64, 128) or ``"chunked"`` (every
-    other H that is a multiple of 4 in float32 and of 16 in bfloat16);
-    raises for what neither takes."""
+    """The size rule: at H = 64 and 128 ``"sm90"`` (bfloat16) or
+    ``"tiled"`` (float32); ``"chunked"`` for every other H that is a
+    multiple of 4 in float32 and of 16 in bfloat16; raises for what none
+    takes."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"the edge-pipeline kernel computes in float32 or "
                          f"bfloat16, got {dtype}")
     if uses_tiled(H):
-        return "tiled"
+        return "sm90" if dtype == torch.bfloat16 else "tiled"
     mult = _H_MULT[dtype]
     if H >= mult and H % mult == 0:
         return "chunked"
     raise ValueError(f"edge_pipeline takes H % 16 == 0 in bfloat16 and "
                      f"H % 4 == 0 in float32 (H = 64 and 128 in its tiled "
                      f"kernels), got H={H} in {dtype}")
+
+
+def sm90_plan(A: int, K: int, nwg: int, n_sm: int):
+    """``(apt, tpa, units, blocks)`` of a Hopper-kernel launch: rows in
+    tiles of SM90_ROWS; where K <= SM90_ROWS a tile holds ``apt`` whole
+    atoms (8 at K = 8: 64 rows; 5 at K = 12: 60 rows and 4 zero rows) and
+    a unit is a tile, else an atom spans ``tpa`` tiles (the last one
+    partly filled) and a unit is an atom. Units are dealt to the
+    ``blocks x nwg`` warpgroups in turn (``sm90_tiles``), at most one block
+    a multiprocessor and no block without a unit."""
+    if K <= SM90_ROWS:
+        apt, tpa = SM90_ROWS // K, 1
+        units = math.ceil(A / apt)
+    else:
+        apt, tpa, units = 0, math.ceil(K / SM90_ROWS), A
+    return apt, tpa, units, min(n_sm, math.ceil(units / nwg))
+
+
+def sm90_tiles(A: int, K: int, apt: int, tpa: int, units: int, slots: int):
+    """The tiles of each warpgroup in the order the Hopper kernels walk
+    them: warpgroup ``g`` of ``slots`` takes units ``g, g + slots, ...``
+    and each unit's tiles in order, so an atom's K-sum (carried from tile
+    to tile where it spans several) has one owner. One list per warpgroup
+    of ``(first atom, atoms, first row, rows)``."""
+    out = []
+    for g in range(slots):
+        tiles = []
+        for u in range(g, units, slots):
+            if apt:
+                a0 = u * apt
+                na = min(apt, A - a0)
+                tiles.append((a0, na, a0 * K, na * K))
+            else:
+                for t in range(tpa):
+                    g0 = t * SM90_ROWS
+                    tiles.append((u, 1, u * K + g0, min(SM90_ROWS, K - g0)))
+        out.append(tiles)
+    return out
 
 
 def grid(A: int, n_sm: int) -> tuple[int, int]:
@@ -272,69 +361,97 @@ def _aligned(t):
     return t.contiguous().clone()
 
 
+def _check(error_string, direction, err, A, K, C, H):
+    """Raise with the CUDA error ``err`` of a launch (0: none)."""
+    if err != 0:
+        msg = error_string(err).decode()
+        raise RuntimeError(f"edge_pipeline {direction} kernel launch failed: "
+                           f"{msg} (error {err}; A={A}, K={K}, C={C}, "
+                           f"H={H})")
+
+
+def _split_part(part, C, H):
+    """The parameter gradients ``(dW1, db1, dW2, db2, dW3, db3, dw4)`` as
+    float32 sums of the slices of ``part``, summed in a fixed order (a
+    second launch gives the same bits)."""
+    sizes = (C * H, H * H, H * H, H, H, H, H)
+    dW1, dW2, dW3, dw4, db1, db2, db3 = torch.split(part.sum(dim=0), sizes)
+    return (dW1.view(C, H), db1, dW2.view(H, H), db2, dW3.view(H, H), db3,
+            dw4.view(H, 1))
+
+
 def _launch(direction, e, cd, em, weights, dagg=None, dfs=None):
     from .build import multiprocessors
     cdt, dev = e.dtype, e.device
     A, K, C = e.shape
     H = weights[0].shape[1]
-    kernel_for(cdt, H)
+    route = kernel_for(cdt, H)
     idx = e.get_device()
     for t in (cd, em, *weights):
         if t.dtype is not cdt or t.get_device() != idx:
             raise ValueError("cd, emask and the weights must be in the "
                              f"compute dtype {cdt} on {dev}")
-    code = _DTYPE_CODE[cdt]
-    lib = _library()
-    ta, blocks = grid(A, multiprocessors(dev))
-    route, rows = _plan(lib, code, C, H, K, ta, direction)
-    ins = [_aligned(t) for t in (e, cd, em, *weights)]
-    stream = _P(torch.cuda.current_stream(dev).cuda_stream)
-    if route == "tiled":
-        dims = (code, A, K, C, H, ta, rows, blocks)
-        fwd, bwd = lib.edge_tiled_fwd, lib.edge_tiled_bwd
+    if route == "sm90" and C > SM90_C_MAX:
+        raise ValueError(f"edge_pipeline (bfloat16, H={H}): the Hopper "
+                         f"kernels take C = 2 nf + 1 <= {SM90_C_MAX} edge "
+                         f"features, got C={C}")
+    bwd = direction == "bwd"
+    P = C * H + 2 * H * H + 4 * H
+    if not (A and K):
+        # nothing to launch: the sums over no slot are zeros
+        z = lambda *shape: torch.zeros(shape, dtype=cdt, device=dev)
+        if not bwd:
+            return z(A, H), z(A, 3)
+        part = torch.zeros((1, P), dtype=torch.float32, device=dev)
+        return (z(A, K, C), z(A, K, 3)) + _split_part(part, C, H)
+    n_sm = multiprocessors(dev)
+    if route == "sm90":
+        lib = _sm90_library()
+        nwg = lib.edge_sm90_warpgroups(H, int(bwd))
+        apt, tpa, units, blocks = sm90_plan(A, K, nwg, n_sm)
+        dims = (A, K, C, H, apt, tpa, units, blocks, nwg)
+        slices = blocks * nwg            # one slice of `part` a warpgroup
+        kernels = (lib.edge_sm90_fwd, lib.edge_sm90_bwd)
+        error_string = lib.edge_sm90_error_string
     else:
-        dims = (code, A, K, C, H, ta, blocks)
-        fwd, bwd = lib.edge_pipeline_fwd, lib.edge_pipeline_bwd
-
-    def check(err):
-        if err != 0:
-            msg = lib.edge_pipeline_error_string(err).decode()
-            raise RuntimeError(f"edge_pipeline {direction} kernel launch "
-                               f"failed: {msg} (error {err}; A={A}, K={K}, "
-                               f"C={C}, H={H})")
-
-    # the kernel writes every output element; K = 0 leaves the zeros
-    new = torch.empty if A and K else torch.zeros
-    if direction == "fwd":
-        agg = new((A, H), dtype=cdt, device=dev)
-        fs = new((A, 3), dtype=cdt, device=dev)
-        if A and K:
-            check(fwd(*dims, *[t.data_ptr() for t in ins], agg.data_ptr(),
-                      fs.data_ptr(), stream))
-            counts.fwd_launches += 1
+        lib = _library()
+        code = _DTYPE_CODE[cdt]
+        ta, blocks = grid(A, n_sm)
+        route, rows = _plan(lib, code, C, H, K, ta, direction)
+        slices = blocks                  # one slice a block
+        if route == "tiled":
+            dims = (code, A, K, C, H, ta, rows, blocks)
+            kernels = (lib.edge_tiled_fwd, lib.edge_tiled_bwd)
+        else:
+            dims = (code, A, K, C, H, ta, blocks)
+            kernels = (lib.edge_pipeline_fwd, lib.edge_pipeline_bwd)
+        error_string = lib.edge_pipeline_error_string
+    # held until the launch is queued (a copy's memory is not reused before)
+    ins = [_aligned(t) for t in (e, cd, em, *weights)]
+    ptrs = [t.data_ptr() for t in ins]
+    stream = _P(torch.cuda.current_stream(dev).cuda_stream)
+    counter = f"{route}_{direction}_launches"
+    if not bwd:
+        agg = torch.empty((A, H), dtype=cdt, device=dev)
+        fs = torch.empty((A, 3), dtype=cdt, device=dev)
+        _check(error_string, direction, kernels[0](
+            *dims, *ptrs, agg.data_ptr(), fs.data_ptr(), stream), A, K, C, H)
+        counts.fwd_launches += 1
+        setattr(counts, counter, getattr(counts, counter) + 1)
         return agg, fs
     dagg = _aligned(dagg.to(cdt))
     dfs = dfs.to(cdt).contiguous()
-    de = new(ins[0].shape, dtype=cdt, device=dev)
-    dcd = new(ins[1].shape, dtype=cdt, device=dev)
-    # one slice of the parameter gradients a block: the tiled kernel
-    # writes each once, the chunked one adds into zeros
-    sizes = (C * H, H * H, H * H, H, H, H, H)
-    part = (new if route == "tiled" else torch.zeros)(
-        (blocks, sum(sizes)), dtype=torch.float32, device=dev)
-    if A and K:
-        check(bwd(*dims, *[t.data_ptr() for t in ins], dagg.data_ptr(),
-                  dfs.data_ptr(), de.data_ptr(), dcd.data_ptr(),
-                  part.data_ptr(), stream))
-        counts.bwd_launches += 1
-    # the slices summed in a fixed order: a second launch gives the same bits
-    tot = part.sum(dim=0)
-    dW1, dW2, dW3, dw4, db1, db2, db3 = torch.split(tot, sizes)
-    W1, b1, W2, b2, W3, b3, w4 = weights
-    grads = (dW1.view(C, H), db1, dW2.view(H, H), db2, dW3.view(H, H), db3,
-             dw4.view(H, 1))
-    return (de, dcd) + tuple(g.to(p.dtype) for g, p in
-                             zip(grads, (W1, b1, W2, b2, W3, b3, w4)))
+    de = torch.empty((A, K, C), dtype=cdt, device=dev)
+    dcd = torch.empty((A, K, 3), dtype=cdt, device=dev)
+    # the chunked kernels add into zeros; the others write each element once
+    part = (torch.zeros if route == "chunked" else torch.empty)(
+        (slices, P), dtype=torch.float32, device=dev)
+    _check(error_string, direction, kernels[1](
+        *dims, *ptrs, dagg.data_ptr(), dfs.data_ptr(), de.data_ptr(),
+        dcd.data_ptr(), part.data_ptr(), stream), A, K, C, H)
+    counts.bwd_launches += 1
+    setattr(counts, counter, getattr(counts, counter) + 1)
+    return (de, dcd) + _split_part(part, C, H)
 
 
 def edge_pipeline_fwd(e, cd, em, weights):
@@ -347,7 +464,8 @@ def edge_pipeline_fwd(e, cd, em, weights):
 
 
 def edge_pipeline_bwd(e, cd, em, weights, dagg, dfs):
-    """Backward: ``(de, dcd, dW1, db1, dW2, db2, dW3, db3, dw4)``."""
+    """Backward: ``(de, dcd, dW1, db1, dW2, db2, dW3, db3, dw4)``, the
+    parameter gradients as float32 sums."""
     if e.is_cuda:
         return _launch("bwd", e, cd, em, weights, dagg, dfs)
     counts.plain_bwd_calls += 1
@@ -373,9 +491,10 @@ class _EdgePipeline(torch.autograd.Function):
             dfs = torch.zeros((A, 3), dtype=e.dtype, device=e.device)
         de, dcd, *pgrads = edge_pipeline_bwd(e, cd, em, weights, dagg, dfs)
         need = ctx.needs_input_grad
+        # each sum rounded to its weight's dtype
         return ((de if need[0] else None, dcd if need[1] else None, None)
-                + tuple(g if need[3 + k] else None
-                        for k, g in enumerate(pgrads)))
+                + tuple(g.to(w.dtype) if need[3 + k] else None
+                        for k, (g, w) in enumerate(zip(pgrads, weights))))
 
 
 def fused_edge_pipeline(edge_in, cd, emask, W1, b1, W2, b2, W3, b3, w4):

@@ -247,8 +247,12 @@ def test_padding_at_the_training_shape(direction):
 
 
 def test_size_rule():
+    assert ops.kernel_for(torch.float32, 64) == "tiled"
+    assert ops.kernel_for(torch.float32, 128) == "tiled"
+    # bf16 at the tiled widths: the Hopper kernels (edge_pipeline_sm90.cu)
+    assert ops.kernel_for(torch.bfloat16, 64) == "sm90"
+    assert ops.kernel_for(torch.bfloat16, 128) == "sm90"
     for dt in (torch.float32, torch.bfloat16):
-        assert ops.kernel_for(dt, 64) == ops.kernel_for(dt, 128) == "tiled"
         assert ops.kernel_for(dt, 96) == "chunked"
     assert ops.kernel_for(torch.float32, 20) == "chunked"
     for dt, H in ((torch.bfloat16, 24), (torch.float32, 6),
