@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Mutation check of ``chip_smoke.py``'s kernel-vs-plain tolerances, on one
 CUDA card: ``python3 chip_mutants.py [GROUP ...]`` from the repository root
-(groups: ``egcl_allpairs``, ``egcl_params``, ``egcl_f32``,
+(groups: ``egcl_allpairs``, ``egcl_params``, ``egcl_blocks``, ``egcl_f32``,
 ``edge_pipeline``, ``edge_pipeline_sm90``, ``pair_energy``; all by
 default; ``edge_pipeline`` is the tiled f32 K5/K6 and the chunked
 kernels, read at the shapes of chip_smoke.py's phase edge that run them;
@@ -11,9 +11,12 @@ against TOL_PARAM; ``egcl_allpairs`` is the
 bf16 Hopper K1 and K2 of ``egcl_allpairs_sm90.cu``, read at chip_smoke.py's
 main, ragged and large shapes; ``egcl_params`` is its bf16
 parameter-gradient variant in the same file, read at the vi, ico, ragged
-and large shapes; ``egcl_f32`` is the tiled f32 K1, K2 and K2 p of
-``egcl_allpairs_f32.cu``, read at the dw4, ala2 and ragged shapes;
-``pair_energy`` is K7, read at every shape of phase pair).
+and large shapes; ``egcl_blocks`` is the bf16 block-pair K1, K2 and K2 p
+in the same file (molecules past one warpgroup's shared memory), read at
+chip_smoke.py's BLOCKS_SHAPES, the outputs against TOL and the parameter
+gradients' f32 sums against TOL_PARAM; ``egcl_f32`` is the tiled f32 K1,
+K2 and K2 p of ``egcl_allpairs_f32.cu``, read at the dw4, ala2 and
+ragged shapes; ``pair_energy`` is K7, read at every shape of phase pair).
 
 For each mutant below, the package and ``chip_smoke.py`` are copied into a
 temporary directory, one deliberate fault is written into the copy's CUDA
@@ -45,7 +48,7 @@ MUTANTS = {
             "w.segj[r] = r < nr ? L.rw[k].j : -1;",
             "w.segj[r] = r < nr - 1 ? L.rw[k].j : -1;"),
         "valid ignores mask_j (padded neighbours count)": (
-            "r.valid = w.mask[i] * w.mask[j];",
+            "r.valid = w.mask[i] * w.maskj[j];",
             "r.valid = w.mask[i];"),
         "r2 not rounded to the compute dtype before w1r": (
             "return add2(z, mul2(bcast(r.r2), wr));",
@@ -62,7 +65,7 @@ MUTANTS = {
             "*tile_at(w.D2, r, c) = r == kTile - 1 ? bcast(0.f) : m1;"),
         "dz2 unmasked past the molecule's last row (m1 never is)": (
             "const bf2 dm = mul2(add2(acc2(d, p), da), L.valid2[p & 1]);",
-            "const bf2 dm = mul2(add2(acc2(d, p), da), row0 + r < E ? "
+            "const bf2 dm = mul2(add2(acc2(d, p), da), row0 + r < P.E ? "
             "L.valid2[p & 1] : bcast(1.f));"),
         "dw4 takes the rounded dgate": (
             "w.wrow[kTile + r] = dgr[k];",
@@ -71,13 +74,37 @@ MUTANTS = {
             "w.wrow[r] = L.rw[k].r2;",
             "w.wrow[r] = rnd1(L.rw[k].r2);"),
         "one slice of partials dropped (zeroed at the end)": (
-            "                         v[(kVdw4 + 2) * H + c];\n    }",
-            "                         v[(kVdw4 + 2) * H + c];\n    }\n"
-            "    wg_sync(wg);\n    if (blockIdx.x == 0 && wg == 0)\n"
-            "      for (int k = t; k < PL.P; k += kWG) part[k] = 0.f;"),
+            "                       v[(kVdw4 + 2) * H + c];\n  }",
+            "                       v[(kVdw4 + 2) * H + c];\n  }\n"
+            "  wg_sync(wg);\n  if (blockIdx.x == 0 && wg == 0)\n"
+            "    for (int k = t; k < PL.P; k += kWG) part[k] = 0.f;"),
         "a molecule's last partial tile dropped (floor for ceil)": (
             "return (E + kTile - 1) / kTile;",
             "return E / kTile;"),
+    },
+    # the bf16 block-pair K1, K2 and K2 p (molecules past one warpgroup's
+    # shared memory)
+    "egcl_blocks": {
+        "control": None,
+        "the last j-block's partials left unwritten": (
+            "      copy_rows(a.pj + (((size_t)b * nI + ib) * N + jb * A) * C,",
+            "      if (jb + 1 < nI)\n"
+            "      copy_rows(a.pj + (((size_t)b * nI + ib) * N + jb * A) * C,"),
+        "the second kernel drops the first i-block's partials": (
+            "for (int ib = 0; ib < nI; ++ib) v += pj[(size_t)ib * N * C + c];",
+            "for (int ib = 1; ib < nI; ++ib) v += pj[(size_t)ib * N * C + c];"),
+        "self-pairs skipped off the diagonal block pair too": (
+            "j = jj + (P.diag && jj >= i);",
+            "j = jj + (jj >= i);"),
+        "dW1b from the i-block's atoms": (
+            "add_h_outer<H>(part + PL.dW1b, w.hj, w.accj, nj, nf, t);",
+            "add_h_outer<H>(part + PL.dW1b, w.h, w.accj, nj, nf, t);"),
+        "a j-block's hB from W1a": (
+            "pb = fmaf(w.hj[i * nf + k], s.W1b[k * H + c], pb);",
+            "pb = fmaf(w.hj[i * nf + k], s.W1a[k * H + c], pb);"),
+        "work items skipped (the grid stride one too long)": (
+            "it += (long long)gridDim.x * nwg) {",
+            "it += (long long)gridDim.x * nwg + 1) {", 2),
     },
     # the tiled f32 K1 and K2 p. In f32 the compute-dtype rounding is the
     # identity, so "the rounded dgate" is written as dgate cut to bf16's 8
@@ -269,6 +296,37 @@ for sname, shape in (("vi", cs.VI), ("ico", cs.ICO), ("ragged", cs.RAGGED),
                                  if n not in ("dh", "dpos")},
            cs.TOL_PARAM["bfloat16"])
 """,
+    "egcl_blocks": HEAD + """
+from enflow_tpu_torch.ops import egcl_allpairs as ops
+largest = {k: ops.largest_molecule(1, 5, 128, k)
+           for k in ("fwd", "bwd", "bwd_params")}
+names = {"fwd": ("agg", "f_sum"), "bwd": ("dh", "dpos"),
+         "bwd_params": cs.PARAM_OUT}
+for sname, base in cs.BLOCKS_SHAPES:
+    for kind in ("fwd", "bwd", "bwd_params"):
+        shape = dict(base)
+        shape.setdefault("N", largest[kind] + 1)
+        h, pos, box, mf, W, dagg, dfs, _ = cs.edge_inputs(
+            shape, torch.bfloat16, seed=37)
+        args = (h, pos, box, mf, W, dagg, dfs)
+        if kind == "fwd":
+            k = ops.allpairs_edges_fwd(h, pos, box, mf, W)
+            p = ops.allpairs_edges_plain(h, pos, box, mf, W)
+        else:
+            k = ops.allpairs_edges_bwd(*args, params=kind == "bwd_params")
+            p = ops.allpairs_edges_plain_bwd(*args,
+                                             params=kind == "bwd_params")
+        errs = cs.rel_errs(names[kind], k, p)
+        report(f"{sname} {kind} outputs", {
+            n: e for n, e in errs.items() if n not in cs.PARAM_OUT[2:]},
+            cs.TOL["bfloat16"])
+        if kind == "bwd_params":
+            report(f"{sname} {kind} parameter gradients (f32 sums)",
+                   {n: errs[n] for n in cs.PARAM_OUT[2:]},
+                   cs.TOL_PARAM["bfloat16"])
+        del k, p
+        torch.cuda.empty_cache()
+""",
     "egcl_f32": HEAD + """
 from enflow_tpu_torch.ops import egcl_allpairs as ops
 for sname, shape in (("dw4", cs.DW4), ("ala2", cs.ALA2),
@@ -309,6 +367,7 @@ def main():
     for group in groups:
         source = {"egcl_allpairs": "egcl_allpairs_sm90",
                   "egcl_params": "egcl_allpairs_sm90",
+                  "egcl_blocks": "egcl_allpairs_sm90",
                   "egcl_f32": "egcl_allpairs_f32"}.get(group, group)
         src_rel = f"enflow_tpu_torch/csrc/{source}.cu"
         for name, edit in MUTANTS[group].items():

@@ -21,9 +21,15 @@ non-zero):
    (its own launch counters). Each kernel and the plain version timed at
    the main, ragged and H=96 shapes with CUDA events over back-to-back
    calls, so the wrapper's host work overlaps the device work before it.
-   The bf16 parameter-gradient backward must take N >= 55 (vi_lj55.yaml),
-   and a molecule one atom beyond the bf16 backward's limit, with and
-   without parameter gradients, must be refused.
+   The bf16 parameter-gradient backward must take N >= 55 (vi_lj55.yaml).
+   Past the one-molecule kernels' shared memory bf16 K1, K2 and K2 p go
+   to the block-pair kernels of the same file: one atom past each limit
+   (B=16), at N=147 (B=64) and at N=512 (B=2), each on its own counter
+   (the one-molecule counters untouched) against the plain version, a
+   second launch bitwise equal; a launch the card refuses raises; f32 one
+   atom past each of its limits is refused, naming its queue item. The
+   seam: at each one-molecule limit both routes side by side at B=64 and
+   B=1024 (CUDA events, device time, how far apart their outputs are).
 4. params — K2 with the nine parameter gradients (bf16: the Hopper
    kernel; f32: the tiled f32 kernel) against its plain version at the VI
    shape (B=512, N=13, nf=5, H=128), the same as LJ13 icosahedra, and the
@@ -128,6 +134,15 @@ non-zero):
    coupled`` at 4 temperatures, chunked and monolithic, which must agree
    bit for bit; each run checked for the launch counts the code implies;
    then K1 and K2 at B=1024, N=55 timed beside their plain version.
+10j. lj147 (after lj55) — LJ147 through the port's driver, every EGCL on
+   the bf16 block-pair kernels: ``example/vi_lj55.yaml`` with the target's
+   ``n_atoms: 147`` at 256 particles, 1 epoch x LJ147_STEPS steps (5 K1 +
+   5 K2 p a step), then ``sample_lj55.yaml`` with ``n_atoms: 147`` from
+   its checkpoint at 256 particles and 4 temperatures in one segment (210
+   K1 + 205 K2); no plain call and no one-molecule launch, beta 1, finite
+   log_Z, particles and losses, outputs on the card. Then K1, K2 p and K2
+   at B=256, N=147 against the plain version, and K2 also at B=1024,
+   timed (events, device time, bound, MUFU / elementwise floors).
 10c. fluid — ``example/vi_fluid.yaml`` (periodic LJ fluid, N=32, box 6.5,
    H=64, bf16, the learned drift) cut to 1 epoch x FLUID_STEPS steps; then
    K1 and K2 p against their plain version at B=256, N=32, H=64 with
@@ -217,14 +232,20 @@ HEAD:enflow_tpu_torch/csrc/egcl_allpairs.cu``) every f32 launch of an old
 turn goes to its chunked kernels: a turn times the f32 K1 and K2 p at
 vi_dw4.yaml's shape and the f32 K2 at sample_ala2.yaml's B=2048 (CUDA
 events and device time) and one vi_dw4.yaml epoch. For an earlier
-egcl_allpairs_sm90.cu with the same bf16 K1/K2 entry points: K1/K2 at the
-main-path shape and the SMC run of phase 7. For an earlier
+egcl_allpairs_sm90.cu with the same bf16 K1/K2 entry points: the two
+sources' one-molecule kernels held to the same bits at the kernel and
+params phases' shapes and at each direction's largest molecule, then
+K1/K2 at the main-path shape and the SMC run of phase 7. For an earlier
 edge_pipeline.cu (e.g. ``git show
 6a2a2b7:enflow_tpu_torch/csrc/edge_pipeline.cu``): K5/K6 in f32 at the
 training and ragged shapes and in bf16 at the top-k sampler's shape
 (CUDA events and device time; an old turn's bf16 on that source's tiled
 kernels, a new turn's on the Hopper kernels), one train.yaml epoch and
 one top-k sample_lj13.yaml run.
+
+``python3 chip_smoke.py --blocks-plans`` runs phases 1-2 and then times
+the bf16 block-pair kernels at LJ147 (K1 and K2 p at B=256, K2 at
+B=1024) with blocks of 16 to 56 atoms (``ops.blocks_plan`` picks 32).
 
 ``python3 chip_smoke.py --edge-seeds FIRST LAST`` runs phases 1-2 and then
 holds the bf16 Hopper K5/K6 against their plain version at EDGE_SHAPES
@@ -471,13 +492,213 @@ def kernel_errs(ops, h, pos, box, mask_f, W, dagg, dfsum):
     return k, rel_errs(("agg", "f_sum", "dh", "dpos"), k, p)
 
 
+# The bf16 block-pair kernels (route "blocks") past the one-molecule
+# kernels' limits: at the limit + 1 of each direction (B=16, two padded
+# atoms), at LJ147 (B=64: 320 work items, so warpgroups walk several and
+# add them into one slice) and at N=512 (B=2)
+BLOCKS_SHAPES = (("limit+1", dict(B=16, nf=5, H=128, n_pad=2)),
+                 ("lj147", dict(B=64, N=147, nf=5, H=128)),
+                 ("n512", dict(B=2, N=512, nf=5, H=128)))
+
+
+def blocks_launches():
+    """(block-pair launches {kind: n}, one-molecule launches of any dtype
+    and width) since the counts were reset."""
+    from enflow_tpu_torch.ops import egcl_allpairs as ea
+    c = ea.counts
+    one = (c.fwd_launches + c.bwd_launches + c.bwd_f32_launches
+           + c.bwd_param_launches + c.fwd_h_rule_launches
+           + c.bwd_h_rule_launches + c.bwd_param_h_rule_launches)
+    return dict(fwd=c.fwd_blocks_launches, bwd=c.bwd_blocks_launches,
+                bwd_params=c.bwd_param_blocks_launches), one
+
+
+def blocks_kernel_checks(largest):
+    """Molecules past the one-molecule kernels' shared memory: bf16 K1,
+    K2 and K2 p on the block-pair kernels (their own counters, the
+    one-molecule counters untouched) against the plain version at
+    ``BLOCKS_SHAPES`` (outputs to TOL, the parameter gradients as f32 sums
+    to TOL_PARAM), a second launch bitwise equal; f32 one atom past each
+    of its limits refused, naming the queue item that holds it."""
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+
+    names = {"fwd": ("agg", "f_sum"), "bwd": ("dh", "dpos"),
+             "bwd_params": PARAM_OUT}
+    bad = []
+    for sname, base in BLOCKS_SHAPES:
+        for kind in ("fwd", "bwd", "bwd_params"):
+            shape = dict(base)
+            shape.setdefault("N", largest[f"bf16 {kind}"] + 1)
+            h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(
+                shape, torch.bfloat16, seed=37)
+            args = (h, pos, box, mask_f, W, dagg, dfsum)
+            params = kind == "bwd_params"
+            run = ((lambda: ops.allpairs_edges_fwd(h, pos, box, mask_f, W))
+                   if kind == "fwd" else (lambda p=params:
+                                          ops.allpairs_edges_bwd(*args,
+                                                                 params=p)))
+            ops.counts.reset()
+            got = run()
+            torch.cuda.synchronize()
+            launched, one = blocks_launches()
+            plain = (ops.allpairs_edges_plain(h, pos, box, mask_f, W)
+                     if kind == "fwd" else ops.allpairs_edges_plain_bwd(
+                         *args, params=params))
+            errs = rel_errs(names[kind], got, plain)
+            del plain
+            tol = {n: (TOL_PARAM if n in PARAM_OUT[2:] else TOL)["bfloat16"]
+                   for n in names[kind]}
+            same = all(bool(torch.equal(a, b)) for a, b in zip(got, run()))
+            want = {k: int(k == kind) for k in launched}
+            ok = (launched == want and one == 0 and same
+                  and all(r <= tol[n] for n, (_, r) in errs.items()))
+            phase("kernel", f"blocks {sname} {kind} bf16 B={shape['B']} "
+                  f"N={shape['N']}: launches {launched} (one-molecule "
+                  f"{one}); max_abs/rel err " + "  ".join(
+                      f"{n} {a:.2e}/{r:.1e}" for n, (a, r) in errs.items())
+                  + f"; a second launch gives the same bits: {same} -> "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append((sname, kind))
+            torch.cuda.empty_cache()
+    require(not bad, f"block-pair kernels disagree with plain: {bad}")
+    # a launch that the card refuses raises: a plan of more warpgroups
+    # than the kernel takes
+    lib = ops._sm90_library()
+    shape = dict(B=2, N=147, nf=5, H=128)
+    key = (id(lib), 147, 5, 128, "bwd")
+    good = ops._blocks_launch_plan(lib, 147, 5, 128, "bwd")
+    h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(
+        shape, torch.bfloat16, seed=37)
+    ops._plans[key] = (32, ops.BLOCK_WG_MAX["bwd"] + 1)
+    try:
+        ops.allpairs_edges_bwd(h, pos, box, mask_f, W, dagg, dfsum)
+    except RuntimeError as e:
+        require("launch failed" in str(e) and "blocks" in str(e),
+                f"unclear launch failure: {e}")
+        phase("kernel", f"blocks: a refused launch raises: {e}")
+    else:
+        raise RuntimeError("a refused block-pair launch did not raise")
+    finally:
+        ops._plans[key] = good
+    for kind in ("fwd", "bwd", "bwd_params"):
+        n_big = largest[f"f32 {kind}"] + 1
+        h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(
+            dict(B=1, N=n_big, nf=5, H=128), torch.float32, seed=11)
+        try:
+            if kind == "fwd":
+                ops.allpairs_edges_fwd(h, pos, box, mask_f, W)
+            else:
+                ops.allpairs_edges_bwd(h, pos, box, mask_f, W, dagg, dfsum,
+                                       params=kind == "bwd_params")
+        except ValueError as e:
+            require("shared memory" in str(e) and ops.LARGE_N_ITEM in str(e)
+                    and f"N <= {largest[f'f32 {kind}']}" in str(e),
+                    f"unclear refusal: {e}")
+            phase("kernel", f"N={n_big} f32 {kind} refused: {e}")
+        else:
+            raise RuntimeError(f"an f32 molecule beyond shared memory was "
+                               f"launched ({kind})")
+
+
+# the seam: the one-molecule kernels' largest molecule, where both routes
+# take it, at these batch sizes
+SEAM_B = (64, 1024)
+
+
+def seam_checks(largest):
+    """The one-molecule and block-pair kernels side by side where both
+    take a molecule: N = the one-molecule limit of each direction (bf16,
+    nf=5, H=128) at ``SEAM_B`` molecules. Each on its own counter, their
+    outputs within TOL / TOL_PARAM of each other, CUDA events and device
+    time. Returns {(kind, B): (one-molecule events, device; blocks events,
+    device)}."""
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+
+    names = {"fwd": ("agg", "f_sum"), "bwd": ("dh", "dpos"),
+             "bwd_params": PARAM_OUT}
+    out = {}
+    for kind in ("fwd", "bwd", "bwd_params"):
+        N = largest[f"bf16 {kind}"]
+        plan = ops._blocks_launch_plan(ops._sm90_library(), N, 5, 128, kind)
+        for B in SEAM_B:
+            h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(
+                dict(B=B, N=N, nf=5, H=128), torch.bfloat16, seed=43)
+            ins = ((h, pos, box, mask_f, W) if kind == "fwd"
+                   else (h, pos, box, mask_f, W, dagg, dfsum))
+            one = ((lambda: ops.allpairs_edges_fwd(*ins)) if kind == "fwd"
+                   else (lambda k=kind: ops.allpairs_edges_bwd(
+                       *ins, params=k == "bwd_params")))
+            blk = lambda k=kind: ops.allpairs_edges_blocks(k, *ins)
+            ops.counts.reset()
+            errs = rel_errs(names[kind], blk(), one())
+            torch.cuda.synchronize()
+            launched, n_one = blocks_launches()
+            tol = {n: (TOL_PARAM if n in PARAM_OUT[2:] else TOL)["bfloat16"]
+                   for n in names[kind]}
+            require(launched[kind] == 1 and n_one == 1
+                    and all(r <= tol[n] for n, (_, r) in errs.items()),
+                    f"seam {kind} B={B}: launches {launched} + {n_one}, "
+                    f"errs {errs}")
+            t = (cuda_time_ms(one, reps=10, calls=3),
+                 device_ms(one, kernel_key("bfloat16", 128, kind)),
+                 cuda_time_ms(blk, reps=10, calls=3),
+                 blocks_device_ms(blk, kind))
+            out[(kind, B)] = t
+            phase("kernel", f"seam {kind} bf16 B={B} N={N}: one-molecule "
+                  f"events {t[0]:.4f} device {t[1]:.4f} ms | block-pair "
+                  f"(blocks of {plan[0]}, {plan[1]} warpgroup(s)) events "
+                  f"{t[2]:.4f} device {t[3]:.4f} ms | one-molecule / "
+                  f"blocks device {t[1] / t[3]:.3f}; outputs apart max "
+                  f"rel {max(r for _, r in errs.values()):.1e}")
+            torch.cuda.empty_cache()
+    return out
+
+
+def blocks_plans():
+    """The block-pair kernels at LJ147 (K1 and K2 p at B=256, K2 at
+    B=1024) with blocks of 16 to 56 atoms, each at the most warpgroups
+    that fit: CUDA events a launch, the wrapper's plan marked."""
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+
+    lib = ops._sm90_library()
+    limit = lib.egcl_sm90_smem_limit()
+    for kind, B in (("fwd", LJ147_P), ("bwd_params", LJ147_P),
+                    ("bwd", LJ147_K2_BIG)):
+        h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(
+            dict(B=B, N=LJ147_N, nf=5, H=128), torch.bfloat16, seed=41)
+        ins = ((h, pos, box, mask_f, W) if kind == "fwd"
+               else (h, pos, box, mask_f, W, dagg, dfsum))
+        key = (id(lib), LJ147_N, 5, 128, kind)
+        ops._plans.pop(key, None)
+        default = ops._blocks_launch_plan(lib, LJ147_N, 5, 128, kind)
+        for A in (16, 24, 32, 40, 48, 56):
+            nwg = max((n for n in range(1, ops.BLOCK_WG_MAX[kind] + 1)
+                       if 0 <= lib.egcl_sm90_blocks_smem_bytes(
+                           A, 5, 128, ops._KIND[kind], n) <= limit),
+                      default=0)
+            if not nwg:
+                phase("plans", f"{kind}: blocks of {A} atoms do not fit")
+                continue
+            ops._plans[key] = (A, nwg)
+            ms = cuda_time_ms(lambda: ops.allpairs_edges_blocks(kind, *ins),
+                              reps=5, calls=3, warmup=1)
+            phase("plans", f"{kind} bf16 B={B} N={LJ147_N}: blocks of {A} "
+                  f"atoms, {nwg} warpgroup(s): {ms:.4f} ms"
+                  + (" (the wrapper's plan)" if (A, nwg) == default else ""))
+        ops._plans[key] = default
+        torch.cuda.empty_cache()
+
+
 def kernel_phase():
     import torch
     from enflow_tpu_torch.ops import egcl_allpairs as ops
 
-    # the largest molecule each variant takes at nf=5, H=128, and one atom
-    # more refused by the bf16 backward, with and without parameter
-    # gradients (the Hopper kernels)
+    # the largest molecule each one-molecule variant takes at nf=5, H=128;
+    # past them bf16 goes to the block-pair kernels and f32 is refused
     largest = {f"{dname} {kind}": ops.largest_molecule(code, 5, 128, kind)
                for code, dname in ((1, "bf16"), (0, "f32"))
                for kind in ("fwd", "bwd", "bwd_params")}
@@ -487,21 +708,8 @@ def kernel_phase():
             f"bf16 limits below 70 / 55 / 55 (vi_lj55.yaml): {largest}")
     phase("kernel", "largest N at nf=5, H=128: " + ", ".join(
         f"{k} {v}" for k, v in largest.items()))
-    for kind, params in (("bwd", False), ("bwd_params", True)):
-        n_big = largest[f"bf16 {kind}"] + 1
-        h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(
-            dict(B=1, N=n_big, nf=5, H=128), torch.bfloat16, seed=11)
-        try:
-            ops.allpairs_edges_bwd(h, pos, box, mask_f, W, dagg, dfsum,
-                                   params=params)
-        except ValueError as e:
-            require("shared memory" in str(e)
-                    and f"N <= {largest[f'bf16 {kind}']}" in str(e),
-                    f"unclear refusal: {e}")
-            phase("kernel", f"N={n_big} bf16 {kind} refused: {e}")
-        else:
-            raise RuntimeError(f"a molecule beyond shared memory was "
-                               f"launched ({kind})")
+    blocks_kernel_checks(largest)
+    seam = seam_checks(largest)
 
     large = dict(B=64, N=largest["bf16 bwd"], nf=5, H=128)
     record = {}
@@ -576,7 +784,7 @@ def kernel_phase():
             ms_fwd=t_k_f, ms_bwd=t_k_b, plain_fwd=t_p_f, plain_bwd=t_p_b,
             bound_fwd=bounds["fwd"], bound_bwd=bounds["bwd"],
             floors=floors)
-    return record, largest
+    return record, largest, seam
 
 
 # Per-SM rates of an H100 SXM (CUDA C Programming Guide, arithmetic
@@ -1443,8 +1651,12 @@ def ab_phase(card, old_src):
         f32_ab_phase(card, old_lib)
         return
     new_lib = ops._sm90_library()
+    params = "egcl_sm90_bwd_params" in text
     for fn in ("egcl_sm90_fwd", "egcl_sm90_bwd", "egcl_sm90_smem_bytes",
-               "egcl_sm90_smem_limit", "egcl_sm90_error_string"):
+               "egcl_sm90_smem_limit", "egcl_sm90_error_string") + ((
+                   "egcl_sm90_bwd_params", "egcl_sm90_param_slices",
+                   "egcl_sm90_slice_floats", "egcl_part_size")
+                   if params else ()):
         f, g = getattr(old_lib, fn), getattr(new_lib, fn)
         f.argtypes, f.restype = g.argtypes, g.restype
     old_lib._enflow_bound = True
@@ -1452,6 +1664,33 @@ def ab_phase(card, old_src):
     def use(which):
         build._loaded["egcl_allpairs_sm90"] = (old_lib if which == "old"
                                                else new_lib)
+
+    # the two sources' one-molecule kernels bit for bit, at the shapes of
+    # phases kernel and params and at each direction's largest molecule
+    cases = []
+    for sname, shape in (("main", MAIN), ("ragged", RAGGED), ("vi", VI),
+                         ("ico", ICO), ("h64", H64),
+                         ("n55", dict(B=64, N=55, nf=5, H=128)),
+                         ("n61", dict(B=64, N=61, nf=5, H=128)),
+                         ("n111", dict(B=64, N=111, nf=5, H=128)),
+                         ("n1", dict(B=5, N=1, nf=5, H=128))):
+        args = edge_inputs(shape, torch.bfloat16, seed=11)[:7]
+        for kind in ("fwd", "bwd") + (("bwd_params",) if params else ()):
+            if shape["N"] > ops.largest_molecule(1, 5, shape["H"], kind):
+                continue
+            run = ((lambda: ops.allpairs_edges_fwd(*args[:5]))
+                   if kind == "fwd" else (lambda p=kind == "bwd_params":
+                                          ops.allpairs_edges_bwd(*args,
+                                                                 params=p)))
+            use("old")
+            a = run()
+            use("new")
+            same = all(bool(torch.equal(x, y)) for x, y in zip(a, run()))
+            cases.append((f"{sname} {kind}", same))
+    differ = [c for c, same in cases if not same]
+    phase("ab", f"old == new bit for bit at {len(cases) - len(differ)} of "
+          f"{len(cases)} shape x direction cases"
+          + (f"; they differ at {differ}" if differ else ""))
 
     h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(MAIN, torch.bfloat16,
                                                          seed=11)
@@ -2425,6 +2664,10 @@ def time_vi_steps(main):
 def vi_launches():
     from enflow_tpu_torch.ops import egcl_allpairs as ea
     c = ea.counts
+    # the paths of these counts stay on the one-molecule kernels
+    blocks, _ = blocks_launches()
+    require(not any(blocks.values()), f"block-pair launches {blocks} on a "
+            "path within the one-molecule kernels' limits")
     return dict(k1=c.fwd_launches, k2=c.bwd_launches + c.bwd_f32_launches,
                 k2_params=c.bwd_param_launches, plain=plain_calls())
 
@@ -2945,17 +3188,22 @@ def sharded_phase(card, lj55_dir):
     return dict(sample=smp, train=trn, fluid=fl)
 
 
-def config_driver(tmp, config, over=None, dynamics=None, virtual_devices=1):
+def config_driver(tmp, config, over=None, dynamics=None, virtual_devices=1,
+                  target=None):
     """The port's driver set up from ``example/<config>`` with the keys of
-    ``over`` changed in its ``sampling`` (or ``training``) section and those
-    of ``dynamics`` in its ``dynamics`` section, run from the working
-    directory ``tmp`` (where its outputs go) on ``virtual_devices``."""
+    ``over`` changed in its ``sampling`` (or ``training``) section, those
+    of ``target`` in that section's ``target`` and those of ``dynamics``
+    in its ``dynamics`` section, run from the working directory ``tmp``
+    (where its outputs go) on ``virtual_devices``."""
     import os
     import yaml
     from enflow_tpu_torch.train.driver import Main
 
     cfg = yaml.safe_load((ROOT / "example" / config).read_text())
-    cfg["sampling" if "sampling" in cfg else "training"].update(over or {})
+    sec = cfg["sampling" if "sampling" in cfg else "training"]
+    sec.update(over or {})
+    if target:
+        sec["target"].update(target)
     cfg["dynamics"].update(dynamics or {})
     path = Path(tmp) / config
     path.write_text(yaml.safe_dump(cfg))
@@ -3198,6 +3446,175 @@ def lj55_phase(card):
     torch.cuda.empty_cache()
     return dict(secs=secs_a, k1=got_a["k1"], k2=got_a["k2"],
                 k1_coupled=want_b["k1"], rec=rec)
+
+
+# LJ147 (the Mackay icosahedron after LJ55; Cambridge Cluster Database):
+# vi_lj55.yaml's and sample_lj55.yaml's widths and options with the
+# target's n_atoms 147, VI cut to 1 epoch of LJ147_STEPS steps of 256
+# particles, SMC to 256 particles and 4 temperatures in one segment
+LJ147_N, LJ147_P, LJ147_STEPS, LJ147_TEMPS = 147, 256, 5, 4
+# the input-gradient K2 also timed at sample_lj55.yaml's 1024 particles
+LJ147_K2_BIG = 1024
+
+
+def blocks_device_ms(fn, kind):
+    """Device time of one block-pair launch: the main kernel, plus for the
+    backward the second kernel that sums the partials."""
+    main = device_ms(fn, "egcl_sm90_blocks_" + (
+        "fwd_kernel" if kind == "fwd" else "bwd_kernel"))
+    return main + (0.0 if kind == "fwd" else
+                   device_ms(fn, "egcl_sm90_blocks_finish_kernel"))
+
+
+def lj147_phase(card):
+    """LJ147 on the card through the port's driver, every EGCL on the
+    bf16 block-pair kernels: (a) ``vi_lj55.yaml`` with ``n_atoms: 147``
+    and 256 particles, cut to 1 epoch x LJ147_STEPS steps (5 K1 + 5 K2 p
+    a step), then (b) ``sample_lj55.yaml`` with ``n_atoms: 147`` from (a)'s
+    checkpoint at 256 particles and 4 temperatures in one segment
+    (``chunk_temps: 4``): 5 + 41 x 5 K1 and 41 x 5 K2. No plain call and
+    no one-molecule launch; beta 1, finite log_Z, particles and losses,
+    all on the card. Then K1 and K2 p at B=256 and K2 at B=256 and 1024,
+    N=147, against the plain version (B=256) and timed: CUDA events, the
+    device time of the launch's kernels, the bound and the MUFU /
+    elementwise floors."""
+    import os
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+    from enflow_tpu_torch.sample.smc import ess_from_log_weights
+
+    cwd = os.getcwd()
+    n_iter = 5
+    target = dict(n_atoms=LJ147_N)
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            vi = config_driver(tmp, "vi_lj55.yaml", over=dict(
+                num_epochs=1, steps_per_epoch=LJ147_STEPS,
+                n_particles=LJ147_P), target=target,
+                dynamics=dict(checkpoint_path="lj147_vi.cpt"))
+            step_s, losses = time_vi_steps(vi)
+            reset_counts()
+            vi.train()
+            torch.cuda.synchronize()
+            got_a, one_a = blocks_launches()
+            plain_a = plain_calls()
+            want_a = dict(fwd=n_iter * LJ147_STEPS, bwd=0,
+                          bwd_params=n_iter * LJ147_STEPS)
+            require(len(step_s) == LJ147_STEPS, f"{len(step_s)} LJ147 steps")
+            require(got_a == want_a and one_a == 0 and plain_a == 0,
+                    f"LJ147 VI launches {got_a} (one-molecule {one_a}, plain"
+                    f" {plain_a}) != {want_a}")
+            require(all(math.isfinite(x) for x in losses),
+                    f"non-finite LJ147 VI losses {losses}")
+            require(Path("lj147_vi.cpt").exists(), "no LJ147 checkpoint")
+            s_step = statistics.median(step_s[1:])
+            phase("lj147", f"(a) vi_lj55.yaml at n_atoms {LJ147_N} on {card}"
+                  f": 1 epoch x {LJ147_STEPS} steps of {vi.vi_particles} "
+                  f"particles, {s_step:.5f} s/step (median of steps "
+                  f"2-{LJ147_STEPS}; first {step_s[0]:.4f} s), "
+                  f"{vi.vi_particles / s_step:.1f} particles/s; losses "
+                  + ", ".join(f"{x:.2f}" for x in losses)
+                  + f"; launches K1 {got_a['fwd']} K2 p "
+                  f"{got_a['bwd_params']} on the block-pair kernels, "
+                  "one-molecule 0, plain calls 0")
+
+            smc = config_driver(tmp, "sample_lj55.yaml", over=dict(
+                n_particles=LJ147_P, n_temps=LJ147_TEMPS,
+                chunk_temps=LJ147_TEMPS, checkpoint_every=LJ147_TEMPS,
+                output="lj147_samples.npz"), target=target,
+                dynamics=dict(checkpoint_path="lj147_vi.cpt"))
+            sec = smc.args["sampling"]
+            reset_counts()
+            res, secs = timed_sample(smc)
+            got_b, one_b = blocks_launches()
+            plain_b = plain_calls()
+            n_vg = 1 + LJ147_TEMPS * sec["mcmc_steps"] * sec["n_leapfrog"]
+            want_b = dict(fwd=n_iter + n_vg * n_iter, bwd=n_vg * n_iter,
+                          bwd_params=0)
+            require(got_b == want_b and one_b == 0 and plain_b == 0,
+                    f"LJ147 SMC launches {got_b} (one-molecule {one_b}, "
+                    f"plain {plain_b}) != {want_b}")
+            check_smc(res, "lj147", LJ147_P, LJ147_N)
+            outs = [res.particles[k] for k in sorted(res.particles)]
+            outs += [res.log_weights, res.log_Z]
+            require(all(t.is_cuda for t in outs),
+                    "LJ147 SMC outputs are not on the card")
+            require(Path("lj147_samples.npz").exists()
+                    and not Path("lj147_samples.npz.state.npz").exists(),
+                    "lj147: no samples, or a stage state left over")
+            ess = float(ess_from_log_weights(res.log_weights))
+            phase("lj147", f"(b) sample_lj55.yaml at n_atoms {LJ147_N} on "
+                  f"{card} from (a)'s checkpoint: {LJ147_P} particles x "
+                  f"{LJ147_TEMPS} temps in one segment: {secs:.3f} s, "
+                  f"{LJ147_P / secs:.1f} samples/s, log_Z "
+                  f"{float(res.log_Z):.4f}, final ESS {ess:.1f}, beta "
+                  f"{float(res.beta_history[-1]):.6f}; launches K1 "
+                  f"{got_b['fwd']} K2 {got_b['bwd']} ({n_vg} "
+                  "value-and-grads) on the block-pair kernels, one-molecule"
+                  " 0, plain calls 0; outputs on cuda")
+        finally:
+            os.chdir(cwd)
+    del vi, smc, res
+    torch.cuda.empty_cache()
+
+    rec = {}
+    for kind, B in (("fwd", LJ147_P), ("bwd_params", LJ147_P),
+                    ("bwd", LJ147_P), ("bwd", LJ147_K2_BIG)):
+        shape = dict(B=B, N=LJ147_N, nf=5, H=128)
+        h, pos, box, mask_f, W, dagg, dfsum, mask = edge_inputs(
+            shape, torch.bfloat16, seed=41)
+        args = (h, pos, box, mask_f, W, dagg, dfsum)
+        if kind == "fwd":
+            kern = lambda: ops.allpairs_edges_fwd(h, pos, box, mask_f, W)
+            plain = lambda: ops.allpairs_edges_plain(h, pos, box, mask_f, W)
+            names = ("agg", "f_sum")
+        else:
+            params = kind == "bwd_params"
+            kern = lambda p=params: ops.allpairs_edges_bwd(*args, params=p)
+            plain = lambda p=params: ops.allpairs_edges_plain_bwd(*args,
+                                                                  params=p)
+            names = PARAM_OUT if params else ("dh", "dpos")
+        ops.counts.reset()
+        got = kern()
+        torch.cuda.synchronize()
+        launched, one = blocks_launches()
+        require(launched[kind] == 1 and one == 0,
+                f"lj147 {kind}: launches {launched}, one-molecule {one}")
+        err, t_plain, note = None, None, "plain not run at this B"
+        if B == LJ147_P:
+            errs = rel_errs(names, got, plain())
+            tol = {n: (TOL_PARAM if n in PARAM_OUT[2:] else TOL)["bfloat16"]
+                   for n in names}
+            ok = all(r <= tol[n] for n, (_, r) in errs.items())
+            err = max(a for a, _ in errs.values())
+            t_plain = cuda_time_ms(plain, reps=3, calls=1, warmup=1)
+            note = ("vs plain max_abs/rel " + "  ".join(
+                f"{n} {a:.2e}/{r:.1e}" for n, (a, r) in errs.items())
+                + f" -> {'ok' if ok else 'FAIL'}; plain {t_plain:.4f} ms")
+            require(ok, f"lj147 {kind} disagrees with plain")
+            torch.cuda.empty_cache()
+        del got
+        ms = cuda_time_ms(kern, reps=10, calls=3)
+        dev = blocks_device_ms(kern, kind)
+        fl_f, fl_b, by_f, by_b = work(shape, "bfloat16", mask)
+        fl, by = {"fwd": (fl_f, by_f), "bwd": (fl_b, by_b),
+                  "bwd_params": work_params(shape, "bfloat16", mask)}[kind]
+        b = bound(fl, by, PEAK_FLOPS["bfloat16"])
+        floors = sfu_alu_floor(shape, mask)[kind]
+        A, nwg = ops._blocks_launch_plan(ops._sm90_library(), LJ147_N, 5,
+                                         128, kind)
+        phase("lj147", f"{kind} bf16 B={B} N={LJ147_N} (blocks of {A} "
+              f"atoms, {nwg} warpgroup(s) a block): {note}; time ms events "
+              f"{ms:.4f} device {dev:.4f}, bound {b[0]:.4f} ({b[1]}, "
+              f"{fl / 1e9:.2f} GFLOP), MUFU / elementwise floors "
+              f"{floors[0]:.4f} / {floors[1]:.4f}")
+        if B == LJ147_P:
+            rec[kind] = dict(err=err, ms=ms, dev=dev, plain=t_plain,
+                             bound=b)
+        del h, pos, box, mask_f, W, dagg, dfsum, mask, args
+        torch.cuda.empty_cache()
+    return dict(k1=got_a["fwd"] + got_b["fwd"], k2=got_b["bwd"],
+                k2_params=got_a["bwd_params"], rec=rec)
 
 
 # 1 epoch of LJ55C_STEPS (vi_lj55_coupled.yaml), FLUID_STEPS
@@ -4293,6 +4710,9 @@ def main():
                     "K5/K6 against their plain version at EDGE_SHAPES for "
                     "input seeds FIRST..LAST instead of the phases after the "
                     "build, and print the readings")
+    ap.add_argument("--blocks-plans", action="store_true", help="time the "
+                    "bf16 block-pair kernels at LJ147 with each block size "
+                    "instead of the phases after the build")
     ap.add_argument("--profile", nargs="?", const="", default=None,
                     metavar="FILE", help="profile one SMC run instead of "
                     "the phases after the build; the full table to FILE")
@@ -4342,6 +4762,9 @@ def main():
     if args.edge_seeds is not None:
         edge_seed_sweep(*args.edge_seeds)
         return 0
+    if args.blocks_plans:
+        blocks_plans()
+        return 0
     if args.profile is not None:
         profile_smc(card, table(args.profile))
         return 0
@@ -4363,7 +4786,7 @@ def main():
         phase(name, f"phase seconds {time.perf_counter() - t:.1f}")
         return out
 
-    rec, largest = timed("kernel", kernel_phase)
+    rec, largest, _ = timed("kernel", kernel_phase)
     qrec = timed("params", param_kernel_phase, largest["bf16 bwd_params"])
     prec = timed("pair", pair_kernel_phase)
     timed("flow", flow_phase)
@@ -4382,6 +4805,7 @@ def main():
         timed("vi55", vi55_phase, card, lj55_dir)
         timed("sharded", sharded_phase, card, lj55_dir)
     timed("lj55", lj55_phase, card)
+    lj147 = timed("lj147", lj147_phase, card)
     timed("fluid", fluid_phase, card)
     dw4 = timed("dw4", dw4_phase, card)
     ala2 = timed("ala2", ala2_phase, card)
@@ -4480,11 +4904,22 @@ def main():
             f"enflow_tpu/ops/edge_kernel.py:{line}",
             pr["k5" if d == "fwd" else "k6"], sp[f"err_{d}"], sp[f"ms_{d}"],
             sp[f"plain_{d}"], sp[f"bound_{d}"]))
+    # the bf16 block-pair kernels at LJ147 (B=256), with phase lj147's
+    # launches: K1 of its VI and SMC runs, K2 p of the VI, K2 of the SMC
+    for name, direction, line, n in (
+            ("egcl_allpairs_blocks_fwd", "fwd", 365, lj147["k1"]),
+            ("egcl_allpairs_blocks_bwd", "bwd", 414, lj147["k2"]),
+            ("egcl_allpairs_blocks_bwd_params", "bwd_params", 414,
+             lj147["k2_params"])):
+        r = lj147["rec"][direction]
+        kernels.append(kernel_record(name, "egcl_allpairs_sm90.cu",
+                                     f"{v3}:{line}", n, r["err"], r["ms"],
+                                     r["plain"], r["bound"]))
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

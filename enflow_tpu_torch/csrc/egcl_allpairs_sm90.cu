@@ -1,6 +1,7 @@
 // Fused all-pairs EGCL edge pipeline in bf16, designed for Hopper
 // (sm_90a): the forward, the input-gradient backward, and the backward
-// with the nine parameter gradients.
+// with the nine parameter gradients, one molecule a warpgroup and, for
+// molecules past that, over pairs of atom blocks.
 //
 // Replaces the Pallas TPU kernels of enflow_tpu/ops/egcl_fused_v3.py:
 //   forward  -> the pallas_call of _fused_fwd (:365), _fwd_kernel
@@ -109,13 +110,33 @@
 //   process; PERF.md).
 // The per-atom arrays bound N (egcl_sm90_smem_bytes; at nf=5, H=128 one
 // warpgroup takes N <= 111 forward, N <= 55 backward and N <= 61 with
-// parameter gradients); a larger molecule is refused at launch.
+// parameter gradients).
+//
+// Larger molecules: the block-pair kernels (egcl_sm90_blocks_*), every N,
+// on the same tiles, chunks, epilogues and rounding points. A molecule is
+// cut into nI blocks of A atoms (the wrapper's plan: 32, 2 warpgroups a
+// block of threads forward, 1 backward). The unit of work is a (molecule,
+// i-block) pair, walked by one warpgroup: the i-block's atoms stay in
+// shared memory with its i-side sums, each j-block is loaded in turn over
+// the last (its atoms, hB), and the block pair's edge rows are visited in
+// 64-row tiles as a molecule's are (Pairs: i-major, self-pairs skipped on
+// the diagonal block pair). The forward's node sums are i-side only, so a
+// work item ends with its rows of agg and fsum. The backward's j-side sums
+// of each block pair go to their own row of the partials pj [B, nI, N,
+// H+4] (f32, in global memory), the i-side sums to si [B, N, H+4]; a
+// second kernel sums each atom's partials over the i-blocks in order and
+// forms dh and dpos. The parameter gradients keep one slice per warpgroup:
+// dW2, dW3 and the vector sums per tile as above, dW1b per block pair
+// (h_j times its j-side sums), dW1a per work item. Every sum has one owner
+// and a fixed order, no atomics: two launches give the same bits.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include <stddef.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "egcl_part_layout.cuh"
 #include "sm90_common.cuh"
@@ -147,6 +168,11 @@ struct Args {
   bf16* dh;               // [B, N, nf]  (backward)
   float* dpos;            // [B, N, 3]   (backward)
   float* part;            // [slices, slice_floats] (parameter gradients)
+  // the block-pair kernels: atoms a block, blocks a molecule, and the
+  // backward's i-side sums [B, N, H+4] and j-side partials [B, nI, N, H+4]
+  int A, nI;
+  float* si;
+  float* pj;
 };
 
 // A warpgroup's slice of the partials: the nine gradients (PartLayout),
@@ -212,6 +238,7 @@ struct Wg {
   int dstride;
   short *segi, *segj;
   float *acci, *accj, *h, *pos, *mask, *box, *dfs, *wrow, *vacc;
+  float *hj, *posj, *maskj;    // the j atoms' (the same arrays for a molecule)
 };
 
 __host__ __device__ inline void carve_blk(Bump& m, Blk& s, int nf, int H) {
@@ -229,8 +256,10 @@ __host__ __device__ inline void carve_blk(Bump& m, Blk& s, int nf, int H) {
   s.w4f = (float*)m.take(sizeof(float) * H);
 }
 
+// N atoms a side: a whole molecule (the i and j atoms are the same), or
+// with `blocks` an atom block (the j atoms in arrays of their own).
 __host__ __device__ inline void carve_wg(Bump& m, Wg& w, int N, int nf, int H,
-                                         int kind) {
+                                         int kind, bool blocks = false) {
   const bool bwd = kind != kFwd, params = kind == kBwdParams;
   const size_t T = sizeof(bf16) * kTile * H, HP = H + 8, C = H + 4;
   w.X0 = (bf16*)m.take(T, 1024);
@@ -252,17 +281,27 @@ __host__ __device__ inline void carve_wg(Bump& m, Wg& w, int N, int nf, int H,
   w.mask = (float*)m.take(sizeof(float) * N);
   w.box = (float*)m.take(sizeof(float) * 4);
   w.dfs = bwd ? (float*)m.take(sizeof(float) * N * 3) : nullptr;
+  if (blocks) {
+    w.hj = (float*)m.take(sizeof(float) * N * nf);
+    w.posj = (float*)m.take(sizeof(float) * N * 3);
+    w.maskj = (float*)m.take(sizeof(float) * N);
+  } else {
+    w.hj = w.h;
+    w.posj = w.pos;
+    w.maskj = w.mask;
+  }
 }
 
 // Bytes of dynamic shared memory of a block of nwg warpgroups (with 1024
 // bytes to align the base).
-size_t smem_bytes(int N, int nf, int H, int kind, int nwg) {
+size_t smem_bytes(int N, int nf, int H, int kind, int nwg,
+                  bool blocks = false) {
   Bump m{nullptr, 0};
   Blk s;
   carve_blk(m, s, nf, H);
   for (int k = 0; k < nwg; ++k) {
     Wg w;
-    carve_wg(m, w, N, nf, H, kind);
+    carve_wg(m, w, N, nf, H, kind, blocks);
   }
   return m.off + 1024;
 }
@@ -358,31 +397,45 @@ __device__ void load_molecule(const Args& a, const Blk& s, const Wg& w,
 
 // ---- one tile of edge rows
 
-// Edge row q of a molecule: q < E = N(N-1) is the pair (i, j), i = q /
-// (N-1), j the (q % (N-1))-th atom other than i; rows past E are padding
-// (valid 0, atoms 0).
+// The edge rows of the warpgroup's i atoms against its j atoms: a whole
+// molecule (i and j the same N atoms, ncol = N - 1) or a pair of atom
+// blocks (ncol = nj, or nj - 1 where the two blocks are one, diag). Row q
+// < E = ni ncol is the pair (i, j), i = q / ncol, j the (q % ncol)-th j
+// atom, skipping j = i where diag; rows past E are padding (valid 0,
+// atoms 0).
+struct Pairs {
+  int ncol, nj, E;
+  bool diag;
+};
+
+__host__ __device__ inline Pairs pairs_of(int ni, int nj, bool diag) {
+  const int ncol = nj - (diag ? 1 : 0);
+  return Pairs{ncol, nj, ni * ncol, diag};
+}
+
 struct Row {
   int i, j;
   float cd[3], r2, valid;
 };
 
-__device__ __forceinline__ void row_of(Row& r, const Wg& w, int N, int q,
-                                       int E) {
-  if (q < E) {
-    const int i = q / (N - 1), jj = q - i * (N - 1), j = jj + (jj >= i);
+__device__ __forceinline__ void row_of(Row& r, const Wg& w, const Pairs& P,
+                                       int q) {
+  if (q < P.E) {
+    const int i = q / P.ncol, jj = q - i * P.ncol,
+              j = jj + (P.diag && jj >= i);
     r.i = i;
     r.j = j;
     float r2 = 0.f;
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      float c = w.pos[i * 3 + d] - w.pos[j * 3 + d];
+      float c = w.pos[i * 3 + d] - w.posj[j * 3 + d];
       const float bx = w.box[d];
       c = c - rintf(c / bx) * bx;     // round half to even, as jnp.round
       r.cd[d] = c;
       r2 += c * c;
     }
     r.r2 = r2;
-    r.valid = w.mask[i] * w.mask[j];
+    r.valid = w.mask[i] * w.maskj[j];
   } else {
     r.i = r.j = 0;
 #pragma unroll
@@ -402,14 +455,14 @@ struct Lane {
   bf2 valid2[2];
 };
 
-__device__ __forceinline__ void lane_of(Lane& L, const Wg& w, int N, int E,
+__device__ __forceinline__ void lane_of(Lane& L, const Wg& w, const Pairs& P,
                                         int row0, int t) {
   const int warp = t >> 5, lane = t & 31;
   L.q = lane & 3;
   L.r0 = 16 * warp + (lane >> 2);
-  L.live = row0 + 16 * warp < E;
-  row_of(L.rw[0], w, N, row0 + L.r0, E);
-  row_of(L.rw[1], w, N, row0 + L.r0 + 8, E);
+  L.live = row0 + 16 * warp < P.E;
+  row_of(L.rw[0], w, P, row0 + L.r0);
+  row_of(L.rw[1], w, P, row0 + L.r0 + 8);
   L.valid2[0] = bcast(L.rw[0].valid);
   L.valid2[1] = bcast(L.rw[1].valid);
 }
@@ -554,18 +607,19 @@ __device__ __forceinline__ void store_rows(const Wg& w, const Lane& L,
 }
 
 // The tile's node sums once T (its bf16 rows), the 3-vectors and the
-// segments are stored: the i side (the tile's rows hold atoms i0 .. i0 +
-// ns - 1) and, for the backward, the j side (every atom, 64 at a time).
+// segments are stored: the i side (the tile's rows hold i atoms i0 .. i0 +
+// ns - 1, at most 64) and, for the backward, the j side (every j atom, 64
+// at a time).
 template <int H, bool BWD>
-__device__ void node_sums(const Wg& w, const bf16* T, int N, int row0,
-                          int nr, const Lane& L, int wg) {
+__device__ void node_sums(const Wg& w, const bf16* T, const Pairs& P,
+                          int row0, int nr, const Lane& L, int wg) {
   wg_publish(wg);
-  const int i0 = row0 / (N - 1);
-  seg_sum<H>(w, T, w.acci, w.segi, i0, (row0 + nr - 1) / (N - 1) - i0 + 1,
+  const int i0 = row0 / P.ncol;
+  seg_sum<H>(w, T, w.acci, w.segi, i0, (row0 + nr - 1) / P.ncol - i0 + 1,
              L);
   if constexpr (BWD)
-    for (int jb = 0; jb < N; jb += kTile)
-      seg_sum<H>(w, T, w.accj, w.segj, jb, min(kTile, N - jb), L);
+    for (int jb = 0; jb < P.nj; jb += kTile)
+      seg_sum<H>(w, T, w.accj, w.segj, jb, min(kTile, P.nj - jb), L);
   wg_sync(wg);
 }
 
@@ -649,11 +703,11 @@ __device__ __forceinline__ int tiles_of(int E) {
 }
 
 template <int H>
-__device__ void fwd_tile(const Blk& s, const Wg& w, int N, int E, int row0,
+__device__ void fwd_tile(const Blk& s, const Wg& w, const Pairs& P, int row0,
                          int t, int wg) {
-  const int nr = min(kTile, E - row0);
+  const int nr = min(kTile, P.E - row0);
   Lane L;
-  lane_of(L, w, N, E, row0, t);
+  lane_of(L, w, P, row0, t);
   const uint32_t W2 = smem_addr(s.W2), W3 = smem_addr(s.W3);
   const uint32_t X0 = smem_addr(w.X0), X1 = smem_addr(w.X1);
 
@@ -696,7 +750,7 @@ __device__ void fwd_tile(const Blk& s, const Wg& w, int N, int E, int row0,
                         L.rw[k].valid);
     store_rows(w, L, tr, nr);
   }
-  node_sums<H, false>(w, w.X1, N, row0, nr, L, wg);
+  node_sums<H, false>(w, w.X1, P, row0, nr, L, wg);
 }
 
 // The backward of one tile. Tiles: X0 m1 -> dsilu(z3) -> dz3 (in place)
@@ -709,11 +763,11 @@ __device__ void fwd_tile(const Blk& s, const Wg& w, int N, int E, int row0,
 // recomputes m1 into D2 from the sigmoid that its dsilu(z1) takes, for
 // dW2 = m1^T dz2; dw1r (unrounded r2) and db1 from dz1.
 template <int H, bool PARAMS>
-__device__ void bwd_tile(const Blk& s, const Wg& w, int N, int E, int row0,
+__device__ void bwd_tile(const Blk& s, const Wg& w, const Pairs& P, int row0,
                          int t, int wg, float* part, bf16* g1t, bool fresh) {
-  const int nr = min(kTile, E - row0);
+  const int nr = min(kTile, P.E - row0);
   Lane L;
-  lane_of(L, w, N, E, row0, t);
+  lane_of(L, w, P, row0, t);
   const uint32_t W2 = smem_addr(s.W2), W3 = smem_addr(s.W3);
   const uint32_t X0 = smem_addr(w.X0), X1 = smem_addr(w.X1),
                  D2 = smem_addr(w.D2);
@@ -862,13 +916,31 @@ __device__ void bwd_tile(const Blk& s, const Wg& w, int N, int E, int row0,
         v[k][d] = rnd1(dcd[k][d] + 2.f * L.rw[k].cd[d] * dr2[k]);
     store_rows(w, L, v, nr);
   }
-  node_sums<H, true>(w, w.X0, N, row0, nr, L, wg);
+  node_sums<H, true>(w, w.X0, P, row0, nr, L, wg);
   if constexpr (PARAMS) {
     outer_acc<H>(D2, X1, part, L, fresh);                      // m1^T dz2
     col_sums<H, kOnesSplit>(w.X0, w.wrow, w.vacc + kVdw1r * H,
                             w.vacc + kVdb1 * H, L,
                             t);                 // db1, dw1r = dz1^T r2
     wg_sync(wg);                                // the tiles read by all
+  }
+}
+
+// The end of a parameter-gradient kernel's slice: dW2 and dW3 zeroed if
+// the warpgroup visited no tile, then its vector sums v (kVdw1r ...; the
+// pieces of dw1r and dw4 summed).
+template <int H>
+__device__ void end_slice(float* part, const PartLayout& PL, const float* v,
+                          bool fresh, int t, int wg) {
+  if (fresh)                                    // no tile: dW2, dW3 zero
+    for (int k = t; k < PL.dW1a; k += kWG) part[k] = 0.f;
+  for (int c = t; c < H; c += kWG) {
+    part[PL.dw1r + c] = (v[c] + v[H + c]) + v[2 * H + c];
+    part[PL.db1 + c] = v[kVdb1 * H + c];
+    part[PL.db2 + c] = v[kVdb2 * H + c];
+    part[PL.db3 + c] = v[kVdb3 * H + c];
+    part[PL.dw4 + c] = (v[kVdw4 * H + c] + v[(kVdw4 + 1) * H + c]) +
+                       v[(kVdw4 + 2) * H + c];
   }
 }
 
@@ -886,11 +958,12 @@ __global__ void __launch_bounds__(kMaxWGFwd * kWG, 1)
   Wg w;
   for (int k = 0; k <= wg; ++k) carve_wg(m, w, a.N, a.nf, H, kFwd);
   load_weights<H>(a, s, w, t, kFwd);
-  const int N = a.N, C = H + 4, E = N * (N - 1);
+  const int N = a.N, C = H + 4;
+  const Pairs P = pairs_of(N, N, true);
   for (int b = blockIdx.x * nwg + wg; b < a.B; b += gridDim.x * nwg) {
     load_molecule<H>(a, s, w, b, t, wg, kFwd);
-    for (int k = 0; k < tiles_of(E); ++k)
-      fwd_tile<H>(s, w, N, E, k * kTile, t, wg);
+    for (int k = 0; k < tiles_of(P.E); ++k)
+      fwd_tile<H>(s, w, P, k * kTile, t, wg);
     const size_t nb = (size_t)b * N;
     for (int idx = t; idx < N * H; idx += kWG)
       a.agg[nb * H + idx] =
@@ -919,7 +992,8 @@ __global__ void __launch_bounds__(kMaxWGBwd * kWG, 1)
   Wg w;
   for (int k = 0; k <= wg; ++k) carve_wg(m, w, a.N, a.nf, H, kind);
   load_weights<H>(a, s, w, t, kind);
-  const int N = a.N, nf = a.nf, C = H + 4, E = N * (N - 1);
+  const int N = a.N, nf = a.nf, C = H + 4;
+  const Pairs P = pairs_of(N, N, true);
   const PartLayout PL(nf, H);
   float* const part =
       PARAMS ? a.part + (size_t)(blockIdx.x * nwg + wg) * slice_floats(nf, H)
@@ -932,8 +1006,8 @@ __global__ void __launch_bounds__(kMaxWGBwd * kWG, 1)
     const size_t nb = (size_t)b * N;
     if constexpr (PARAMS) w.dagg = a.dagg + nb * H;
     load_molecule<H>(a, s, w, b, t, wg, kind);
-    for (int k = 0; k < tiles_of(E); ++k) {
-      bwd_tile<H, PARAMS>(s, w, N, E, k * kTile, t, wg, part, g1t, fresh);
+    for (int k = 0; k < tiles_of(P.E); ++k) {
+      bwd_tile<H, PARAMS>(s, w, P, k * kTile, t, wg, part, g1t, fresh);
       fresh = false;
     }
     // dh = rnd(dz1_i) W1a^T + rnd(dz1_j) W1b^T: one thread per (i, k),
@@ -968,17 +1042,260 @@ __global__ void __launch_bounds__(kMaxWGBwd * kWG, 1)
       }
     wg_sync(wg);
   }
-  if constexpr (PARAMS) {
-    if (fresh)                                  // no tile: dW2, dW3 zero
-      for (int k = t; k < PL.dW1a; k += kWG) part[k] = 0.f;
-    const float* v = w.vacc;
-    for (int c = t; c < H; c += kWG) {
-      part[PL.dw1r + c] = (v[c] + v[H + c]) + v[2 * H + c];
-      part[PL.db1 + c] = v[kVdb1 * H + c];
-      part[PL.db2 + c] = v[kVdb2 * H + c];
-      part[PL.db3 + c] = v[kVdb3 * H + c];
-      part[PL.dw4 + c] = (v[kVdw4 * H + c] + v[(kVdw4 + 1) * H + c]) +
-                         v[(kVdw4 + 2) * H + c];
+  if constexpr (PARAMS) end_slice<H>(part, PL, w.vacc, fresh, t, wg);
+}
+
+// ---- the block-pair kernels: molecules past one warpgroup's shared memory
+//
+// The unit of work is a (molecule, i-block) pair: a warpgroup keeps the
+// i-block's atoms (hA, the i-side sums; for the backward dfsum and dagg)
+// in shared memory and walks the j-blocks in order, loading each one's
+// atoms (hB, positions, mask) over the last and visiting the block pair's
+// edge rows with the tile code above. The i-side sums are whole when the
+// walk ends. The backward's j-side sums of a block pair go to its own row
+// of the partials pj [B, nI, N, H+4]; a second kernel sums them over the
+// i-blocks in order and forms dh and dpos. Every sum has one owner and a
+// fixed order.
+
+// Atoms a0 .. a0+n-1 of molecule b as the warpgroup's i atoms: h, pos,
+// mask, box, hA = rnd(h W1a) (load_molecule's arithmetic), zeroed i-side
+// sums; for the backward dfsum, and dagg where it is staged. hA is written
+// after the barrier; load_jblock's barriers publish it.
+template <int H>
+__device__ void load_iblock(const Args& a, const Blk& s, const Wg& w, int b,
+                            int a0, int n, int t, int wg, int kind) {
+  const int nf = a.nf, HP = H + 8, C = H + 4;
+  const size_t nb = (size_t)b * a.N + a0;
+  const int nh = n * nf, np = nh + 3 * n, nm = np + n;
+  for (int k = t; k < nm + 3; k += kWG) {
+    if (k < nh)
+      w.h[k] = __bfloat162float(a.h[nb * nf + k]);
+    else if (k < np)
+      w.pos[k - nh] = a.pos[nb * 3 + k - nh];
+    else if (k < nm)
+      w.mask[k - np] = __bfloat162float(a.mask[nb + k - np]);
+    else
+      w.box[k - nm] = a.box[(size_t)b * 3 + k - nm];
+  }
+  for (int k = t; k < n * C; k += kWG) w.acci[k] = 0.f;
+  if (kind != kFwd) {
+    if (kind == kBwd)
+      for (int k = t; k < n * H / 8; k += kWG) {
+        const int i = k / (H / 8), c = 8 * (k % (H / 8));
+        *reinterpret_cast<uint4*>((bf16*)w.dagg + i * HP + c) =
+            *reinterpret_cast<const uint4*>(a.dagg + (nb + i) * H + c);
+      }
+    for (int k = t; k < n * 3; k += kWG)
+      w.dfs[k] = __bfloat162float(a.dfsum[nb * 3 + k]);
+  }
+  wg_sync(wg);
+  for (int idx = t; idx < n * H; idx += kWG) {
+    const int i = idx / H, c = idx % H;
+    float pa = 0.f;
+    for (int k = 0; k < nf; ++k)
+      pa = fmaf(w.h[i * nf + k], s.W1a[k * H + c], pa);
+    w.hA[i * HP + c] = __float2bfloat16_rn(pa);
+  }
+}
+
+// Atoms a0 .. a0+n-1 of molecule b as the warpgroup's j atoms: h, pos,
+// mask, hB = rnd(h W1b), and for the backward zeroed j-side sums. Ends
+// with the warpgroup's barrier.
+template <int H>
+__device__ void load_jblock(const Args& a, const Blk& s, const Wg& w, int b,
+                            int a0, int n, int t, int wg, bool bwd) {
+  const int nf = a.nf, HP = H + 8, C = H + 4;
+  const size_t nb = (size_t)b * a.N + a0;
+  const int nh = n * nf, np = nh + 3 * n, nm = np + n;
+  for (int k = t; k < nm; k += kWG) {
+    if (k < nh)
+      w.hj[k] = __bfloat162float(a.h[nb * nf + k]);
+    else if (k < np)
+      w.posj[k - nh] = a.pos[nb * 3 + k - nh];
+    else
+      w.maskj[k - np] = __bfloat162float(a.mask[nb + k - np]);
+  }
+  if (bwd)
+    for (int k = t; k < n * C; k += kWG) w.accj[k] = 0.f;
+  wg_sync(wg);
+  for (int idx = t; idx < n * H; idx += kWG) {
+    const int i = idx / H, c = idx % H;
+    float pb = 0.f;
+    for (int k = 0; k < nf; ++k)
+      pb = fmaf(w.hj[i * nf + k], s.W1b[k * H + c], pb);
+    w.hB[i * HP + c] = __float2bfloat16_rn(pb);
+  }
+  wg_sync(wg);
+}
+
+// Atoms a block's n atoms from a0 (the last block of a molecule may be
+// short).
+__device__ __forceinline__ int block_len(int N, int A, int k) {
+  return min(A, N - k * A);
+}
+
+// part[k H + c] += sum over the n atoms of h[., k] acc[., c] (dW1a from
+// the i-side sums, dW1b from a block pair's j-side sums), one thread an
+// element, the atoms in order.
+template <int H>
+__device__ void add_h_outer(float* part, const float* h, const float* acc,
+                            int n, int nf, int t) {
+  const int C = H + 4;
+  for (int item = t; item < nf * H; item += kWG) {
+    const int k = item / H, c = item - k * H;
+    float v = 0.f;
+    for (int i = 0; i < n; ++i) v = fmaf(h[i * nf + k], acc[i * C + c], v);
+    part[item] += v;
+  }
+}
+
+// n rows of C floats from shared memory to global memory, 16 bytes a
+// thread at a time.
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          int n, int C, int t) {
+  for (int k = t; k < n * C / 4; k += kWG)
+    reinterpret_cast<float4*>(dst)[k] =
+        reinterpret_cast<const float4*>(src)[k];
+}
+
+template <int H>
+__global__ void __launch_bounds__(kMaxWGFwd * kWG, 1)
+    egcl_sm90_blocks_fwd_kernel(Args a) {
+  extern __shared__ char smem_raw[];
+  const int nwg = blockDim.x / kWG, wg = threadIdx.x / kWG,
+            t = threadIdx.x % kWG;
+  Bump m{(char*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023), 0};
+  Blk s;
+  carve_blk(m, s, a.nf, H);
+  Wg w;
+  for (int k = 0; k <= wg; ++k) carve_wg(m, w, a.A, a.nf, H, kFwd, true);
+  load_weights<H>(a, s, w, t, kFwd);
+  const int N = a.N, A = a.A, nI = a.nI, C = H + 4;
+  const long long items = (long long)a.B * nI;
+  for (long long it = (long long)blockIdx.x * nwg + wg; it < items;
+       it += (long long)gridDim.x * nwg) {
+    const int b = (int)(it / nI), ib = (int)(it % nI);
+    const int ni = block_len(N, A, ib);
+    load_iblock<H>(a, s, w, b, ib * A, ni, t, wg, kFwd);
+    for (int jb = 0; jb < nI; ++jb) {
+      const int nj = block_len(N, A, jb);
+      load_jblock<H>(a, s, w, b, jb * A, nj, t, wg, false);
+      const Pairs P = pairs_of(ni, nj, ib == jb);
+      for (int k = 0; k < tiles_of(P.E); ++k)
+        fwd_tile<H>(s, w, P, k * kTile, t, wg);
+    }
+    const size_t nb = (size_t)b * N + ib * A;
+    for (int idx = t; idx < ni * H; idx += kWG)
+      a.agg[nb * H + idx] =
+          __float2bfloat16_rn(w.acci[(idx / H) * C + idx % H]);
+    for (int idx = t; idx < ni * 3; idx += kWG)
+      a.fsum[nb * 3 + idx] =
+          __float2bfloat16_rn(w.acci[(idx / 3) * C + H + idx % 3]);
+    wg_sync(wg);
+  }
+}
+
+// The backward over block pairs; with PARAMS each warpgroup owns slice
+// blockIdx.x * nwg + wg of a.part as in egcl_sm90_bwd_kernel, and adds
+// dW1b per block pair (h_j times its j-side sums) and dW1a per (molecule,
+// i-block) (h_i times the whole i-side sums).
+template <int H, bool PARAMS>
+__global__ void __launch_bounds__(kMaxWGBwd * kWG, 1)
+    egcl_sm90_blocks_bwd_kernel(Args a) {
+  extern __shared__ char smem_raw[];
+  const int nwg = blockDim.x / kWG, wg = threadIdx.x / kWG,
+            t = threadIdx.x % kWG;
+  const int kind = PARAMS ? kBwdParams : kBwd;
+  Bump m{(char*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023), 0};
+  Blk s;
+  carve_blk(m, s, a.nf, H);
+  Wg w;
+  for (int k = 0; k <= wg; ++k) carve_wg(m, w, a.A, a.nf, H, kind, true);
+  load_weights<H>(a, s, w, t, kind);
+  const int N = a.N, A = a.A, nI = a.nI, nf = a.nf, C = H + 4;
+  const PartLayout PL(nf, H);
+  float* const part =
+      PARAMS ? a.part + (size_t)(blockIdx.x * nwg + wg) * slice_floats(nf, H)
+             : nullptr;
+  bf16* const g1t = PARAMS ? (bf16*)(part + PL.P) : nullptr;
+  if constexpr (PARAMS)
+    for (int k = PL.dW1a + t; k < PL.P; k += kWG) part[k] = 0.f;
+  bool fresh = true;
+  const long long items = (long long)a.B * nI;
+  for (long long it = (long long)blockIdx.x * nwg + wg; it < items;
+       it += (long long)gridDim.x * nwg) {
+    const int b = (int)(it / nI), ib = (int)(it % nI);
+    const int ni = block_len(N, A, ib);
+    const size_t ni0 = (size_t)b * N + ib * A;
+    if constexpr (PARAMS) w.dagg = a.dagg + ni0 * H;
+    load_iblock<H>(a, s, w, b, ib * A, ni, t, wg, kind);
+    for (int jb = 0; jb < nI; ++jb) {
+      const int nj = block_len(N, A, jb);
+      load_jblock<H>(a, s, w, b, jb * A, nj, t, wg, true);
+      const Pairs P = pairs_of(ni, nj, ib == jb);
+      for (int k = 0; k < tiles_of(P.E); ++k) {
+        bwd_tile<H, PARAMS>(s, w, P, k * kTile, t, wg, part, g1t, fresh);
+        fresh = false;
+      }
+      // this block pair's j-side sums: row (b, ib) of the partials
+      copy_rows(a.pj + (((size_t)b * nI + ib) * N + jb * A) * C, w.accj, nj,
+                C, t);
+      if constexpr (PARAMS)
+        add_h_outer<H>(part + PL.dW1b, w.hj, w.accj, nj, nf, t);
+      wg_sync(wg);
+    }
+    copy_rows(a.si + ni0 * C, w.acci, ni, C, t);
+    if constexpr (PARAMS)
+      add_h_outer<H>(part + PL.dW1a, w.h, w.acci, ni, nf, t);
+    wg_sync(wg);
+  }
+  if constexpr (PARAMS) end_slice<H>(part, PL, w.vacc, fresh, t, wg);
+}
+
+// The block route's dh and dpos: one warp an atom, lane l the columns l,
+// l + 32, ...; the j-side sums are the atom's partials summed over the
+// i-blocks in order, dh = rnd(dz1_i) W1a^T + rnd(dz1_j) W1b^T as f32 sums
+// (a fixed butterfly over the lanes), dpos the 3-vector sums' difference.
+constexpr int kFinishThreads = 256;
+
+template <int H>
+__global__ void __launch_bounds__(kFinishThreads)
+    egcl_sm90_blocks_finish_kernel(Args a) {
+  constexpr int C = H + 4, U = H / 32;
+  const int lane = threadIdx.x & 31, nf = a.nf, N = a.N, nI = a.nI;
+  const long long rows = (long long)a.B * N;
+  const long long step = (long long)gridDim.x * (blockDim.x >> 5);
+  for (long long row = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       row < rows; row += step) {
+    const long long b = row / N, i = row - b * N;
+    const float* si = a.si + row * C;
+    const float* pj = a.pj + (b * nI * N + i) * C;   // block ib: + ib N C
+    float ai[U], aj[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = lane + 32 * u;
+      ai[u] = rnd1(si[c]);
+      float v = 0.f;
+      for (int ib = 0; ib < nI; ++ib) v += pj[(size_t)ib * N * C + c];
+      aj[u] = rnd1(v);
+    }
+    for (int k = 0; k < nf; ++k) {
+      float v = 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int c = lane + 32 * u;
+        v = fmaf(ai[u], __bfloat162float(a.W1a[k * H + c]), v);
+        v = fmaf(aj[u], __bfloat162float(a.W1b[k * H + c]), v);
+      }
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) a.dh[row * nf + k] = __float2bfloat16_rn(v);
+    }
+    if (lane < 3) {
+      float v = 0.f;
+      for (int ib = 0; ib < nI; ++ib) v += pj[(size_t)ib * N * C + H + lane];
+      a.dpos[row * 3 + lane] = si[H + lane] - v;
     }
   }
 }
@@ -1012,6 +1329,47 @@ int launch_h(const Args& a, int kind, int blocks, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid_of(a.B, nwg, blocks), nwg * kWG, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// A block-pair launch: A atoms a block, nwg warpgroups a block of
+// threads; the backward's second kernel after it on the same stream.
+template <int H>
+int launch_blocks_h(const Args& a, int kind, int nwg, int blocks,
+                    cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.A, a.nf, H, kind, nwg, true);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  void (*kernel)(Args) = kind == kFwd   ? egcl_sm90_blocks_fwd_kernel<H>
+                         : kind == kBwd ? egcl_sm90_blocks_bwd_kernel<H, false>
+                                        : egcl_sm90_blocks_bwd_kernel<H, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid_of(a.B * a.nI, nwg, blocks), nwg * kWG, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || kind == kFwd) return (int)err;
+  const long long warps = (long long)a.B * a.N;
+  const int per = kFinishThreads / 32;
+  const long long grid = std::min<long long>((warps + per - 1) / per,
+                                             16LL * blocks);
+  egcl_sm90_blocks_finish_kernel<H><<<(int)grid, kFinishThreads, 0, stream>>>(
+      a);
+  return (int)cudaGetLastError();
+}
+
+// The sizes a block-pair launch takes: nI blocks of A atoms cover the
+// molecule, nwg within the kernel's warpgroups.
+bool takes_blocks(const Args& a, int kind, int nwg, int blocks) {
+  const int most = kind == kFwd ? kMaxWGFwd : kMaxWGBwd;
+  return a.B >= 1 && blocks >= 1 && takes(a.N, a.nf, a.H) && a.A >= 1 &&
+         a.nI == (a.N + a.A - 1) / a.A && nwg >= 1 && nwg <= most;
+}
+
+int launch_blocks(const Args& a, int kind, int nwg, int blocks,
+                  void* stream) {
+  if (!takes_blocks(a, kind, nwg, blocks)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return a.H == 128 ? launch_blocks_h<128>(a, kind, nwg, blocks, st)
+                    : launch_blocks_h<64>(a, kind, nwg, blocks, st);
 }
 
 int launch(const Args& a, int kind, int blocks, void* stream) {
@@ -1099,6 +1457,83 @@ int egcl_sm90_bwd_params(int B, int N, int nf, int H, int blocks,
          (cb)w4, (cb)dagg, (cb)dfsum, nullptr, nullptr, (bf16*)dh,
          (float*)dpos, (float*)part};
   return launch(a, kBwdParams, blocks, stream);
+}
+
+// ---- the block-pair kernels (molecules past one warpgroup's shared
+// memory; any N at H = 64 or 128)
+
+// Dynamic shared memory of a block of nwg warpgroups, A atoms a block, or
+// -1 for sizes the kernels do not take.
+long long egcl_sm90_blocks_smem_bytes(int A, int nf, int H, int kind,
+                                      int nwg) {
+  const int most = kind == kFwd ? kMaxWGFwd : kMaxWGBwd;
+  if (kind < kFwd || kind > kBwdParams || !takes(A, nf, H) || nwg < 1 ||
+      nwg > most)
+    return -1;
+  return (long long)smem_bytes(A, nf, H, kind, nwg, true);
+}
+
+// The parameter-gradient slices of a block-pair launch (one per
+// warpgroup of its grid; egcl_sm90_slice_floats floats each).
+int egcl_sm90_blocks_param_slices(int B, int N, int A, int nwg, int blocks) {
+  if (B < 1 || N < 1 || A < 1 || nwg < 1 || blocks < 1) return -1;
+  return grid_of(B * ((N + A - 1) / A), nwg, blocks) * nwg;
+}
+
+// The block-pair forward, input-gradient backward and backward with the
+// parameter gradients: the contract of egcl_sm90_fwd / _bwd / _bwd_params,
+// with A atoms a block (nI = ceil(N / A) blocks a molecule) and nwg
+// warpgroups a block of threads. The backward takes two float32 scratch
+// buffers that it fills itself: si [B, N, H+4] and pj [B, nI, N, H+4].
+int egcl_sm90_blocks_fwd(int B, int N, int nf, int H, int A, int nwg,
+                         int blocks, const void* h, const void* pos,
+                         const void* box, const void* mask, const void* W1a,
+                         const void* W1b, const void* w1r, const void* b1,
+                         const void* W2, const void* b2, const void* W3,
+                         const void* b3, const void* w4, void* agg,
+                         void* fsum, void* stream) {
+  using cb = const bf16*;
+  Args a{B, N, nf, H, (cb)h, (const float*)pos, (const float*)box, (cb)mask,
+         (cb)W1a, (cb)W1b, (cb)w1r, (cb)b1, (cb)W2, (cb)b2, (cb)W3, (cb)b3,
+         (cb)w4, nullptr, nullptr, (bf16*)agg, (bf16*)fsum, nullptr,
+         nullptr, nullptr, A, (N + A - 1) / A, nullptr, nullptr};
+  return launch_blocks(a, kFwd, nwg, blocks, stream);
+}
+
+int egcl_sm90_blocks_bwd(int B, int N, int nf, int H, int A, int nwg,
+                         int blocks, const void* h, const void* pos,
+                         const void* box, const void* mask, const void* W1a,
+                         const void* W1b, const void* w1r, const void* b1,
+                         const void* W2, const void* b2, const void* W3,
+                         const void* b3, const void* w4, const void* dagg,
+                         const void* dfsum, void* dh, void* dpos, void* si,
+                         void* pj, void* stream) {
+  using cb = const bf16*;
+  Args a{B, N, nf, H, (cb)h, (const float*)pos, (const float*)box, (cb)mask,
+         (cb)W1a, (cb)W1b, (cb)w1r, (cb)b1, (cb)W2, (cb)b2, (cb)W3, (cb)b3,
+         (cb)w4, (cb)dagg, (cb)dfsum, nullptr, nullptr, (bf16*)dh,
+         (float*)dpos, nullptr, A, (N + A - 1) / A, (float*)si, (float*)pj};
+  return launch_blocks(a, kBwd, nwg, blocks, stream);
+}
+
+int egcl_sm90_blocks_bwd_params(int B, int N, int nf, int H, int A, int nwg,
+                                int blocks, const void* h, const void* pos,
+                                const void* box, const void* mask,
+                                const void* W1a, const void* W1b,
+                                const void* w1r, const void* b1,
+                                const void* W2, const void* b2,
+                                const void* W3, const void* b3,
+                                const void* w4, const void* dagg,
+                                const void* dfsum, void* dh, void* dpos,
+                                void* si, void* pj, void* part,
+                                void* stream) {
+  using cb = const bf16*;
+  Args a{B, N, nf, H, (cb)h, (const float*)pos, (const float*)box, (cb)mask,
+         (cb)W1a, (cb)W1b, (cb)w1r, (cb)b1, (cb)W2, (cb)b2, (cb)W3, (cb)b3,
+         (cb)w4, (cb)dagg, (cb)dfsum, nullptr, nullptr, (bf16*)dh,
+         (float*)dpos, (float*)part, A, (N + A - 1) / A, (float*)si,
+         (float*)pj};
+  return launch_blocks(a, kBwdParams, nwg, blocks, stream);
 }
 
 const char* egcl_sm90_error_string(int err) {

@@ -188,10 +188,11 @@ def init_flow(gen: torch.Generator, cfg: FlowConfig, dtype=torch.float32,
 def _egcl_at(params, cfg: FlowConfig, net_params, sys: System):
     """One EGCL on the current state; returns ``((Q, F, G), overflow)``.
 
-    ``all_pairs``: on the card the fused all-pairs kernel, except for the
-    EGCLs that ``plain_route`` sends to the plain EGCL; on the CPU
-    ``use_pallas: v2|v3`` selects the kernel's plain version and every other
-    value the plain EGCL (the same function, as in the JAX package).
+    ``all_pairs``: on the card the fused all-pairs kernel (bf16 at every
+    N), except for the EGCLs that ``plain_route`` sends to the plain EGCL;
+    on the CPU ``use_pallas: v2|v3`` selects the kernel's plain version and
+    every other value the plain EGCL (the same function, as in the JAX
+    package).
     ``dense``/``topk``, ``cell`` and ``images``: the neighbor list is
     rebuilt from the current positions (with ``capacity``,
     ``cells_per_dim`` and ``cell_capacity``) and the EGCL runs on the

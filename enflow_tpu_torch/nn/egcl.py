@@ -22,7 +22,9 @@ In ``all_pairs`` mode two paths compute the same function:
   ``ops/egcl_allpairs.py`` — the CUDA kernel on the card, its plain version
   on the CPU. On a CUDA tensor every other all-pairs EGCL goes this way,
   whatever ``use_pallas`` says: ``False``, ``True``, ``"v1"``, ``"v2"`` and
-  ``"v3"`` all name this same function in ``all_pairs`` mode.
+  ``"v3"`` all name this same function in ``all_pairs`` mode. In bf16 it
+  takes every N (past one warpgroup's shared memory, the block-pair
+  kernels); float32 past its kernels' limits is refused.
 
 On a gathered neighbor list (the ``dense``/``topk``, ``cell`` and
 ``images`` modes) ``apply_egcl`` runs the gathered-edge kernel of

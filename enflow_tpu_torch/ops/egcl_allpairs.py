@@ -13,15 +13,21 @@ attention/norm_diff/tanh off.
   autograd Function saves) in one of two kernel variants: input gradients
   only (``dh``, ``dpos``) when no weight needs a gradient, as in sampling,
   or with the nine parameter gradients of ``_bwd_kernel:265-273`` as well,
-  as in training. :func:`kernel_for` is the size rule. At H = 64 or 128
+  as in training. :func:`kernel_for` is the size rule and
+  :func:`route_for` the molecule-size rule after it. At H = 64 or 128
   bf16 runs the Hopper kernels of ``csrc/egcl_allpairs_sm90.cu`` (wgmma,
-  persistent warpgroups) in every direction, and float32 the tiled f32
-  kernels of ``csrc/egcl_allpairs_f32.cu`` (persistent blocks, register
-  tiles), also in every direction. Every other hidden width runs the
-  chunked kernels of ``csrc/egcl_allpairs.cu``, in either dtype, counted
-  on their own launch counters (``fwd_h_rule_launches``,
-  ``bwd_h_rule_launches``, ``bwd_param_h_rule_launches``). There is no
-  fallback: a kernel that does not build or launch raises.
+  persistent warpgroups) in every direction: one molecule a warpgroup
+  while its atoms fit in shared memory, and past that the same file's
+  block-pair kernels (route ``"blocks"``, every N: a warpgroup per
+  molecule and block of atoms, walking the other blocks), counted on
+  their own launch counters (``*_blocks_launches``). Float32 runs the
+  tiled f32 kernels of ``csrc/egcl_allpairs_f32.cu`` (persistent blocks,
+  register tiles), also in every direction, and refuses molecules past
+  their shared memory. Every other hidden width runs the chunked kernels
+  of ``csrc/egcl_allpairs.cu``, in either dtype, counted on their own
+  launch counters (``fwd_h_rule_launches``, ``bwd_h_rule_launches``,
+  ``bwd_param_h_rule_launches``). There is no fallback: a kernel that does
+  not build or launch raises.
 - On a CPU tensor both directions run the plain PyTorch version below,
   which repeats the kernel's arithmetic (including where it rounds to the
   compute dtype) and is what the CPU tests hold against the Pallas kernel.
@@ -45,14 +51,17 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # fwd_launches / bwd_launches / bwd_param_launches: K1, the input-gradient
 # K2 and K2 with parameter gradients at H = 64 or 128 (bf16: the Hopper
-# kernels; float32: the tiled f32 K1 and K2 p); bwd_f32_launches: the tiled
-# f32 input-gradient K2 there; *_h_rule_launches: either dtype at another
-# hidden width, sent to the chunked kernels by the size rule
+# kernels, one molecule a warpgroup; float32: the tiled f32 K1 and K2 p);
+# bwd_f32_launches: the tiled f32 input-gradient K2 there; *_blocks_launches:
+# the bf16 Hopper block-pair kernels (molecules past the first's shared
+# memory); *_h_rule_launches: either dtype at another hidden width, sent to
+# the chunked kernels by the size rule
 counts = LaunchCounts("fwd_launches", "bwd_launches", "bwd_f32_launches",
-                      "bwd_param_launches", "fwd_h_rule_launches",
-                      "bwd_h_rule_launches", "bwd_param_h_rule_launches",
-                      "plain_fwd_calls", "plain_bwd_calls",
-                      "plain_bwd_param_calls")
+                      "bwd_param_launches", "fwd_blocks_launches",
+                      "bwd_blocks_launches", "bwd_param_blocks_launches",
+                      "fwd_h_rule_launches", "bwd_h_rule_launches",
+                      "bwd_param_h_rule_launches", "plain_fwd_calls",
+                      "plain_bwd_calls", "plain_bwd_param_calls")
 # the launch kinds of egcl_allpairs_smem_bytes, egcl_sm90_smem_bytes and
 # egcl_f32_smem_bytes
 _KIND = {"fwd": 0, "bwd": 1, "bwd_params": 2}
@@ -62,6 +71,15 @@ SM90_H = (64, 128)
 # kQmaxBwd x 8) and molecules a tile at most
 F32_ROWS_MAX = {"fwd": 72, "bwd": 72, "bwd_params": 40}
 MAX_MOL_TILE = 16
+# the bf16 block-pair kernels: warpgroups a block of threads at most
+# (kMaxWGFwd / kMaxWGBwd), and atoms a block at most: of 16 to 56, 32 ran
+# fastest in every direction at LJ147 on the H100 (chip_smoke.py
+# --blocks-plans, PERF.md)
+BLOCK_WG_MAX = {"fwd": 3, "bwd": 2, "bwd_params": 2}
+BLOCK_ATOMS_MAX = 32
+# the queue item that holds the refused sizes
+LARGE_N_ITEM = ("ROADMAP queue B, B6: the all-pairs EGCL past one block's "
+                "shared memory in float32 and at other widths")
 
 
 def split_params(W1, b1, nf: int):
@@ -219,6 +237,17 @@ def _sm90_library():
         lib.egcl_sm90_smem_bytes.restype = _LL
         lib.egcl_sm90_smem_limit.argtypes = []
         lib.egcl_sm90_smem_limit.restype = _LL
+        lib.egcl_sm90_blocks_fwd.argtypes = [_I] * 7 + [_P] * (n_in + 3)
+        lib.egcl_sm90_blocks_fwd.restype = _I
+        lib.egcl_sm90_blocks_bwd.argtypes = [_I] * 7 + [_P] * (n_in + 7)
+        lib.egcl_sm90_blocks_bwd.restype = _I
+        lib.egcl_sm90_blocks_bwd_params.argtypes = [_I] * 7 + [_P] * (n_in
+                                                                     + 8)
+        lib.egcl_sm90_blocks_bwd_params.restype = _I
+        lib.egcl_sm90_blocks_smem_bytes.argtypes = [_I] * 5
+        lib.egcl_sm90_blocks_smem_bytes.restype = _LL
+        lib.egcl_sm90_blocks_param_slices.argtypes = [_I] * 5
+        lib.egcl_sm90_blocks_param_slices.restype = _I
         lib.egcl_sm90_error_string.argtypes = [_I]
         lib.egcl_sm90_error_string.restype = ctypes.c_char_p
         lib._enflow_bound = True
@@ -314,33 +343,78 @@ def _smem(code: int, N: int, nf: int, H: int, direction: str):
             lib.egcl_allpairs_smem_limit())
 
 
+_largest: dict = {}
+
+
 def largest_molecule(code: int, nf: int, H: int, direction: str):
     """The largest N whose block fits in the card's shared memory for one
-    launch kind (``"fwd"``, ``"bwd"``, ``"bwd_params"``); 0 for sizes the
-    kernel does not take."""
-    n = 0
-    while True:
-        need, limit = _smem(code, n + 1, nf, H, direction)
-        if not 0 <= need <= limit:
-            return n
-        n += 1
+    launch kind (``"fwd"``, ``"bwd"``, ``"bwd_params"``) of the kernels
+    that take one molecule a block (or warpgroup); 0 for sizes the kernel
+    does not take. Asked of the library once per size."""
+    key = (code, nf, H, direction)
+    if key not in _largest:
+        n = 0
+        while True:
+            need, limit = _smem(code, n + 1, nf, H, direction)
+            if not 0 <= need <= limit:
+                break
+            n += 1
+        _largest[key] = n
+    return _largest[key]
 
 
-def _check_fits(code: int, dims, direction: str):
-    """Raise unless one molecule's block (the weights and the per-atom
-    arrays) fits in the card's shared memory."""
+def route_for(N: int, nf: int, H: int, code: int, direction: str,
+              largest: int) -> str:
+    """The molecule-size rule after :func:`kernel_for`: its kernels while
+    ``N <= largest`` (the most atoms their block takes), the bf16 Hopper
+    block-pair kernels (``"blocks"``, every N) above that at H in
+    ``SM90_H``; any other launch past ``largest`` is refused, naming the
+    queue item that holds it."""
+    route = kernel_for(code, H, direction)
+    if N <= largest:
+        return route
+    if route == "sm90":
+        return "blocks"
+    dname = "bfloat16" if code == 1 else "float32"
+    raise ValueError(
+        f"egcl_allpairs {direction}: a {dname} molecule of N={N} atoms at "
+        f"nf={nf}, H={H} needs more shared memory than a block may use "
+        f"(this variant takes N <= {largest}); molecules this large are "
+        f"not ported yet in {dname} at this width ({LARGE_N_ITEM})")
+
+
+def block_atoms(N: int, fit: int) -> int:
+    """Atoms an atom block of the block-pair kernels: the molecule cut into
+    as few blocks of at most ``fit`` atoms as it needs, of equal size
+    rounded up to a multiple of 8 (N=147 at fit 48: 4 blocks of 40, the
+    last of 27)."""
+    per = math.ceil(N / math.ceil(N / fit))
+    return min(fit, 8 * math.ceil(per / 8))
+
+
+def blocks_plan(N: int, direction: str, fits) -> tuple[int, int]:
+    """``(atoms a block, warpgroups a block of threads)`` of a block-pair
+    launch: the most warpgroups whose blocks of ``BLOCK_ATOMS_MAX`` atoms
+    fit (``fits(A, nwg)``), else one warpgroup and the most atoms (a
+    multiple of 8) that fit; then :func:`block_atoms`."""
+    for nwg in range(BLOCK_WG_MAX[direction], 0, -1):
+        fit = next((A for A in range(BLOCK_ATOMS_MAX, 7, -8)
+                    if fits(A, nwg)), 0)
+        if fit == BLOCK_ATOMS_MAX or (nwg == 1 and fit):
+            return block_atoms(N, fit), nwg
+    raise ValueError(f"egcl_allpairs {direction}: no atom block fits")
+
+
+def _check_fits(code: int, dims, direction: str) -> str:
+    """The route of a launch (:func:`route_for`); raises for a width the
+    kernels do not take or a molecule past every route."""
     B, N, nf, H = dims
-    need, limit = _smem(code, N, nf, H, direction)
+    need, _ = _smem(code, N, nf, H, direction)
     if need < 0:
         raise ValueError(f"egcl_allpairs takes H % 16 == 0 in bfloat16 and "
                          f"H % 4 == 0 in float32, got B, N, nf, H = {dims}")
-    if need > limit:
-        raise ValueError(
-            f"egcl_allpairs {direction}: a molecule of N={N} atoms at nf={nf},"
-            f" H={H} needs {need} bytes of shared memory, more than the "
-            f"{limit} a block may use (this variant takes N <= "
-            f"{largest_molecule(code, nf, H, direction)}); molecules "
-            f"this large are not ported yet (ROADMAP queue B, large N)")
+    return route_for(N, nf, H, code, direction,
+                     largest_molecule(code, nf, H, direction))
 
 
 def f32_grid(B: int, N: int, n_sm: int, direction: str):
@@ -426,36 +500,58 @@ def _split_part(tot, nf: int, H: int):
 
 def _raise_on(lib, err: int, what: str, dims, route):
     if err != 0:
-        text = {"sm90": lib.egcl_sm90_error_string,
-                "f32": lib.egcl_f32_error_string,
-                "chunked": lib.egcl_allpairs_error_string}[route]
+        # the library of the route has only its own error string
+        text = getattr(lib, {"sm90": "egcl_sm90_error_string",
+                             "blocks": "egcl_sm90_error_string",
+                             "f32": "egcl_f32_error_string",
+                             "chunked": "egcl_allpairs_error_string"}[route])
         raise RuntimeError(f"egcl_allpairs {what} kernel launch failed: "
                            f"{text(err).decode()} (error {err}; B, N, nf, H "
-                           f"= {dims})")
+                           f"= {dims}; route {route})")
 
 
 def _count(direction: str, H: int, route: str):
     """One launch on its counter: the size rule's own for a hidden width
-    outside ``SM90_H``, the tiled f32 input-gradient K2's own."""
+    outside ``SM90_H``, the tiled f32 input-gradient K2's own, the
+    block-pair kernels' own."""
     name = {"fwd": "fwd", "bwd": "bwd", "bwd_params": "bwd_param"}[direction]
     if route == "f32" and direction == "bwd":
         name = "bwd_f32"
+    if route == "blocks":
+        name += "_blocks"
     name += "_launches" if H in SM90_H else "_h_rule_launches"
     setattr(counts, name, getattr(counts, name) + 1)
 
 
+def _blocks_launch_plan(lib, N: int, nf: int, H: int, direction: str):
+    """:func:`blocks_plan` against the card's shared memory, once per
+    size."""
+    key = (id(lib), N, nf, H, direction)
+    if key not in _plans:
+        kind, limit = _KIND[direction], lib.egcl_sm90_smem_limit()
+        _plans[key] = blocks_plan(N, direction, lambda A, nwg: 0 <= (
+            lib.egcl_sm90_blocks_smem_bytes(A, nf, H, kind, nwg)) <= limit)
+    return _plans[key]
+
+
 def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
-            dfsum=None):
+            dfsum=None, route=None):
+    """One launch on the route that the size rules name (or on ``route``,
+    ``"blocks"``, where the caller asks for the block-pair kernels)."""
     _check_inputs(h, pos, box, mask_f, weights)
     B, N, nf = h.shape
     H = weights[4].shape[1]
     cdt = h.dtype
     code = _DTYPE_CODE[cdt]
     dims = (B, N, nf, H)
-    _check_fits(code, dims, direction)
-    route = kernel_for(code, H, direction)
-    lib = {"sm90": _sm90_library, "f32": _f32_library,
-           "chunked": _library}[route]()
+    rule = _check_fits(code, dims, direction)
+    if route is None:
+        route = rule
+    elif route != "blocks" or kernel_for(code, H, direction) != "sm90":
+        raise ValueError(f"egcl_allpairs: route {route!r} does not take "
+                         f"{cdt} at H={H}")
+    lib = {"sm90": _sm90_library, "blocks": _sm90_library,
+           "f32": _f32_library, "chunked": _library}[route]()
     # the kernels read the weights (and dagg) 8 or 16 bytes at a time
     aligned = lambda t: t if t.data_ptr() % 16 == 0 else t.clone()
     ins = [aligned(t) for t in (h, pos, box, mask_f, *weights)]
@@ -465,6 +561,9 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
     blocks = multiprocessors(h.device)
     if route == "f32" and B:
         mt, rows, blocks = _f32_plan(lib, dims, direction, blocks)
+    if route == "blocks":
+        A, nwg = _blocks_launch_plan(lib, N, nf, H, direction)
+        plan = (A, nwg, blocks)
     if direction == "fwd":
         agg = torch.empty((B, N, H), dtype=cdt, device=h.device)
         fsum = torch.empty((B, N, 3), dtype=cdt, device=h.device)
@@ -472,6 +571,8 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
             outs = (agg.data_ptr(), fsum.data_ptr(), stream)
             if route == "sm90":
                 err = lib.egcl_sm90_fwd(*dims, blocks, *ptrs, *outs)
+            elif route == "blocks":
+                err = lib.egcl_sm90_blocks_fwd(*dims, *plan, *ptrs, *outs)
             elif route == "f32":
                 err = lib.egcl_f32_fwd(*dims, mt, rows, blocks, *ptrs, *outs)
             else:
@@ -484,10 +585,20 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
     dh = torch.empty((B, N, nf), dtype=cdt, device=h.device)
     dpos = torch.empty((B, N, 3), dtype=torch.float32, device=h.device)
     outs = [dagg.data_ptr(), dfsum.data_ptr(), dh.data_ptr(), dpos.data_ptr()]
+    if route == "blocks":
+        # the block-pair backward's i-side sums and j-side partials (f32
+        # rows of H + 4), every element written by the kernel
+        si = torch.empty((B, N, H + 4), dtype=torch.float32, device=h.device)
+        pj = torch.empty((B, math.ceil(N / A), N, H + 4),
+                         dtype=torch.float32, device=h.device)
+        outs += [si.data_ptr(), pj.data_ptr()]
     if direction == "bwd":
         if B:
             if route == "sm90":
                 err = lib.egcl_sm90_bwd(*dims, blocks, *ptrs, *outs, stream)
+            elif route == "blocks":
+                err = lib.egcl_sm90_blocks_bwd(*dims, *plan, *ptrs, *outs,
+                                               stream)
             elif route == "f32":
                 err = lib.egcl_f32_bwd(*dims, mt, rows, blocks, *ptrs, *outs,
                                        stream)
@@ -497,11 +608,15 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
             _count(direction, H, route)
         return dh, dpos
     # rows of partials that the kernel fills itself: one per warpgroup (the
-    # Hopper kernel; each row ends with its scratch tile) or per block
+    # Hopper kernels; each row ends with its scratch tile) or per block
     P = lib.egcl_part_size(nf, H)
-    if route == "sm90":
-        part = torch.empty((lib.egcl_sm90_param_slices(*dims, blocks)
-                            if B else 0, lib.egcl_sm90_slice_floats(nf, H)),
+    if route in ("sm90", "blocks"):
+        slices = 0
+        if B:
+            slices = (lib.egcl_sm90_param_slices(*dims, blocks)
+                      if route == "sm90" else
+                      lib.egcl_sm90_blocks_param_slices(B, N, A, nwg, blocks))
+        part = torch.empty((slices, lib.egcl_sm90_slice_floats(nf, H)),
                            dtype=torch.float32, device=h.device)
     else:
         part = torch.empty((min(B, blocks), P), dtype=torch.float32,
@@ -510,6 +625,9 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
         if route == "sm90":
             err = lib.egcl_sm90_bwd_params(*dims, blocks, *ptrs, *outs,
                                            part.data_ptr(), stream)
+        elif route == "blocks":
+            err = lib.egcl_sm90_blocks_bwd_params(*dims, *plan, *ptrs, *outs,
+                                                  part.data_ptr(), stream)
         elif route == "f32":
             err = lib.egcl_f32_bwd_params(*dims, mt, rows, blocks, *ptrs,
                                           *outs, part.data_ptr(), stream)
@@ -520,6 +638,20 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
         _count(direction, H, route)
     # the slices summed in a fixed order: a second launch gives the same bits
     return (dh, dpos) + _split_part(part[:, :P].sum(dim=0), nf, H)
+
+
+def allpairs_edges_blocks(direction: str, h, pos, box, mask_f, weights,
+                          dagg=None, dfsum=None):
+    """One launch of the bf16 block-pair kernels (``direction`` ``"fwd"``,
+    ``"bwd"`` or ``"bwd_params"``) at any N, also where the route rule
+    sends the molecule to the one-molecule kernels: what the two schedules
+    cost where both take a molecule. CUDA tensors only; the outputs of
+    :func:`allpairs_edges_fwd` / :func:`allpairs_edges_bwd`."""
+    if not h.is_cuda:
+        raise ValueError("allpairs_edges_blocks launches the card's kernels "
+                         "and takes CUDA tensors only")
+    return _launch(direction, h, pos, box, mask_f, weights, dagg, dfsum,
+                   route="blocks")
 
 
 def allpairs_edges_fwd(h, pos, box, mask_f, weights):
