@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Mutation check of ``chip_smoke.py``'s kernel-vs-plain tolerances, on one
-CUDA card: ``python3 chip_mutants.py [GROUP ...]`` from the repository root
+CUDA card: ``python3 chip_mutants.py [GROUP ...] [--match TEXT]`` from the
+repository root (``--match``: only the mutants whose name holds TEXT, and
+each group's control)
 (groups: ``egcl_allpairs``, ``egcl_params``, ``egcl_blocks``, ``egcl_f32``,
-``edge_pipeline``, ``edge_pipeline_sm90``, ``pair_energy``; all by
+``egcl_blocks_f32``, ``edge_pipeline``, ``edge_pipeline_sm90``,
+``pair_energy``; all by
 default; ``edge_pipeline`` is the tiled f32 K5/K6 and the chunked
 kernels, read at the shapes of chip_smoke.py's phase edge that run them;
 ``edge_pipeline_sm90`` is the bf16 Hopper K5/K6, read at its bf16 shapes,
 the outputs against TOL_EDGE and the parameter gradients' f32 sums
-against TOL_PARAM; ``egcl_allpairs`` is the
+against TOL_PARAM, among them its shapes of 17 and 33 edge features (e W1
+in two and three k16 steps); ``egcl_allpairs`` is the
 bf16 Hopper K1 and K2 of ``egcl_allpairs_sm90.cu``, read at chip_smoke.py's
 main, ragged and large shapes; ``egcl_params`` is its bf16
 parameter-gradient variant in the same file, read at the vi, ico, ragged
@@ -16,7 +20,11 @@ in the same file (molecules past one warpgroup's shared memory), read at
 chip_smoke.py's BLOCKS_SHAPES, the outputs against TOL and the parameter
 gradients' f32 sums against TOL_PARAM; ``egcl_f32`` is the tiled f32 K1,
 K2 and K2 p of ``egcl_allpairs_f32.cu``, read at the dw4, ala2 and
-ragged shapes; ``pair_energy`` is K7, read at every shape of phase pair).
+ragged shapes; ``egcl_blocks_f32`` is the f32 block-pair K1, K2 and K2 p
+in the same file (molecules past the tiled kernels' shared memory), read
+at chip_smoke.py's f32_blocks_shapes(), the outputs against TOL and the
+parameter gradients' f32 sums against TOL_PARAM; ``pair_energy`` is K7,
+read at every shape of phase pair).
 
 For each mutant below, the package and ``chip_smoke.py`` are copied into a
 temporary directory, one deliberate fault is written into the copy's CUDA
@@ -124,12 +132,12 @@ MUTANTS = {
             "s.valid[r] = mask[ai] * mask[aj];",
             "s.valid[r] = m * E < g0 ? 0.f : mask[ai] * mask[aj];"),
         "dW2's depth drops each tile's last row": (
-            "outer<H>(X1, X2, nr, ky, nx, dW2);",
-            "outer<H>(X1, X2, nr - 1, ky, nx, dW2);"),
+            "outer<H>(X1, X2, nr, ky, nx, g.dW2);",
+            "outer<H>(X1, X2, nr - 1, ky, nx, g.dW2);"),
         "dw4 takes the rounded dgate": (
-            "pw4[u] = fmaf(g1[u], dgate, pw4[u]);",
-            "pw4[u] = fmaf(g1[u], __uint_as_float(__float_as_uint(dgate) "
-            "& 0xffff0000u), pw4[u]);"),
+            "g.pw4[u] = fmaf(g1[u], dgate, g.pw4[u]);",
+            "g.pw4[u] = fmaf(g1[u], __uint_as_float(__float_as_uint(dgate) "
+            "& 0xffff0000u), g.pw4[u]);"),
         # (K2 p and K2 share the line)
         "the next molecule tile prefetched from the current one": (
             "if (new_atoms) prefetch_atoms<H, true>(a, s, ab ^ 1, nxt.tile);",
@@ -151,6 +159,35 @@ MUTANTS = {
         "K2: dz1 W1b^T taken with W1a": (
             "(k < nf ? s.W1a + k * H : s.W1b + (k - nf) * H) + c0);",
             "(k < nf ? s.W1a + k * H : s.W1a + (k - nf) * H) + c0);"),
+    },
+    # the f32 block-pair K1, K2 and K2 p (molecules past the tiled f32
+    # kernels' shared memory)
+    "egcl_blocks_f32": {
+        "control": None,
+        "the last j-block's partials left unwritten": [
+            ("      for (int k = tid; k < nj * A3; k += NT) pj[k] = sj[k];",
+             "      if (jb + 1 < nI)\n"
+             "      for (int k = tid; k < nj * A3; k += NT) pj[k] = sj[k];"),
+            ("        pj[w] = x;", "        if (jb + 1 < nI) pj[w] = x;")],
+        "the finish kernel drops the first i-block's partials": (
+            "for (int ib = 0; ib < nI; ++ib) x += pj[(size_t)ib * N * A3 + v];",
+            "for (int ib = 1; ib < nI; ++ib) x += pj[(size_t)ib * N * A3 + v];"),
+        "self-pairs skipped off the diagonal block pair too": [
+            ("const int aj = A + jj + (P.diag && jj >= i);",
+             "const int aj = A + jj + (jj >= i);"),
+            ("      if (P.diag && i == l) continue;",
+             "      if (i == l) continue;"),
+            ("const int g = i * P.ncol + l - (P.diag && l > i);",
+             "const int g = i * P.ncol + l - (l > i);")],
+        "dW1b from the i-block's atoms": (
+            "for (int l = 0; l < nj; ++l) v = fmaf(hj[l * nf + k], "
+            "dz1j[l * H + c], v);",
+            "for (int l = 0; l < nj; ++l) v = fmaf(at[l * nf + k], "
+            "dz1j[l * H + c], v);"),
+        "work items skipped (the grid stride one too long)": (
+            "for (long long it = blockIdx.x; it < items; it += gridDim.x) {",
+            "for (long long it = blockIdx.x; it < items; "
+            "it += gridDim.x + 1) {", 3),
     },
     # the tiled kernels (H = 64, 128, f32), which every f32 shape but h96
     # runs
@@ -216,6 +253,17 @@ MUTANTS = {
             "      if (!T.first) {", "      if (true) {"),
         "a column sum's lane adds into its neighbour's column": (
             "2 * L.q + (g & 1)] += s;", "2 * L.q + ((g & 1) ^ 1)] += s;"),
+        # C > 16: e W1 in KC > 1 k16 steps
+        "C > 16: the second k16 chunk of e W1 dropped (m1)": (
+            "        mma_chunk<KC, 1>(d, E, W1, 16 * KC, n0);",
+            "        mma_chunk<(KC > 1 ? 1 : KC), 1>(d, E, W1, 16 * KC, n0);"),
+        "C > 16: de's later chunks read W1's first 16 rows": (
+            "smem_desc(W1 + 2048 * cc + (kk / 4) * (128 * kCP) +",
+            "smem_desc(W1 + 0 * cc + (kk / 4) * (128 * kCP) +"),
+        "C > 16: a warpgroup's first tile of dW1 added into its unwritten "
+        "slice": (
+            "store_dw1<H, KC>(part + PL.dW1, a.C, tw, t, !fresh);",
+            "store_dw1<H, KC>(part + PL.dW1, a.C, tw, t, true);"),
     },
     "pair_energy": {
         "control": None,
@@ -327,6 +375,31 @@ for sname, base in cs.BLOCKS_SHAPES:
         del k, p
         torch.cuda.empty_cache()
 """,
+    "egcl_blocks_f32": HEAD + """
+from enflow_tpu_torch.ops import egcl_allpairs as ops
+names = {"fwd": ("agg", "f_sum"), "bwd": ("dh", "dpos"),
+         "bwd_params": cs.PARAM_OUT}
+for sname, kind, shape in cs.f32_blocks_shapes():
+    h, pos, box, mf, W, dagg, dfs, _ = cs.edge_inputs(shape, torch.float32,
+                                                      seed=37)
+    args = (h, pos, box, mf, W, dagg, dfs)
+    if kind == "fwd":
+        k = ops.allpairs_edges_fwd(h, pos, box, mf, W)
+        p = ops.allpairs_edges_plain(h, pos, box, mf, W)
+    else:
+        k = ops.allpairs_edges_bwd(*args, params=kind == "bwd_params")
+        p = ops.allpairs_edges_plain_bwd(*args, params=kind == "bwd_params")
+    errs = cs.rel_errs(names[kind], k, p)
+    report(f"{sname} {kind} outputs", {
+        n: e for n, e in errs.items() if n not in cs.PARAM_OUT[2:]},
+        cs.TOL["float32"])
+    if kind == "bwd_params":
+        report(f"{sname} {kind} parameter gradients (f32 sums)",
+               {n: errs[n] for n in cs.PARAM_OUT[2:]},
+               cs.TOL_PARAM["float32"])
+    del k, p
+    torch.cuda.empty_cache()
+""",
     "egcl_f32": HEAD + """
 from enflow_tpu_torch.ops import egcl_allpairs as ops
 for sname, shape in (("dw4", cs.DW4), ("ala2", cs.ALA2),
@@ -363,14 +436,23 @@ def main():
     if not torch.cuda.is_available():
         print("chip_mutants: no CUDA device", file=sys.stderr)
         return 1
-    groups = sys.argv[1:] or list(MUTANTS)
+    args = sys.argv[1:]
+    match = None
+    if "--match" in args:
+        k = args.index("--match")
+        match = args[k + 1]
+        del args[k:k + 2]
+    groups = args or list(MUTANTS)
     for group in groups:
         source = {"egcl_allpairs": "egcl_allpairs_sm90",
                   "egcl_params": "egcl_allpairs_sm90",
                   "egcl_blocks": "egcl_allpairs_sm90",
-                  "egcl_f32": "egcl_allpairs_f32"}.get(group, group)
+                  "egcl_f32": "egcl_allpairs_f32",
+                  "egcl_blocks_f32": "egcl_allpairs_f32"}.get(group, group)
         src_rel = f"enflow_tpu_torch/csrc/{source}.cu"
         for name, edit in MUTANTS[group].items():
+            if match and edit is not None and match not in name:
+                continue
             with tempfile.TemporaryDirectory() as tmp:
                 shutil.copytree(ROOT / "enflow_tpu_torch",
                                 Path(tmp) / "enflow_tpu_torch",

@@ -26,10 +26,14 @@ non-zero):
    to the block-pair kernels of the same file: one atom past each limit
    (B=16), at N=147 (B=64) and at N=512 (B=2), each on its own counter
    (the one-molecule counters untouched) against the plain version, a
-   second launch bitwise equal; a launch the card refuses raises; f32 one
-   atom past each of its limits is refused, naming its queue item. The
+   second launch bitwise equal; a launch the card refuses raises. f32 K1,
+   K2 and K2 p past the tiled f32 kernels' limits go to the f32 block-pair
+   kernels of egcl_allpairs_f32.cu: one atom past each limit (N = 143 /
+   520 / 71), at N=147 (B=64) and K2 at N=561 (B=2), each on its own
+   counter against the plain version, a second launch bitwise equal. The
    seam: at each one-molecule limit both routes side by side at B=64 and
-   B=1024 (CUDA events, device time, how far apart their outputs are).
+   B=1024, bf16 and f32 (CUDA events, device time, how far apart their
+   outputs are).
 4. params — K2 with the nine parameter gradients (bf16: the Hopper
    kernel; f32: the tiled f32 kernel) against its plain version at the VI
    shape (B=512, N=13, nf=5, H=128), the same as LJ13 icosahedra, and the
@@ -143,6 +147,17 @@ non-zero):
    log_Z, particles and losses, outputs on the card. Then K1, K2 p and K2
    at B=256, N=147 against the plain version, and K2 also at B=1024,
    timed (events, device time, bound, MUFU / elementwise floors).
+10k. lj147_f32 (after lj147) — the same in float32 (``compute_dtype:
+   float32``): (a) ``vi_lj55.yaml`` at ``n_atoms: 147``, 256 particles, 1
+   x LJ147_STEPS steps (5 f32 block-pair K1 + 5 f32 block-pair K2 p a
+   step); (b) ``sample_lj55.yaml`` at ``n_atoms: 147`` from its
+   checkpoint, 256 particles, 4 temperatures (210 f32 block-pair K1 + 205
+   tiled f32 K2, within its one-molecule limit); (c) ``sample_lj55.yaml``
+   at ``n_atoms: 561`` from a fresh flow, LJ561_P particles, 4
+   temperatures (210 f32 block-pair K1 + 205 f32 block-pair K2); no plain
+   call and no other launch, beta 1, finite log_Z, outputs on the card;
+   then the f32 K1, K2 p and K2 at B=256, N=147 and the block-pair K2 at
+   (c)'s shape against the plain version, timed (events, device, bound).
 10c. fluid — ``example/vi_fluid.yaml`` (periodic LJ fluid, N=32, box 6.5,
    H=64, bf16, the learned drift) cut to 1 epoch x FLUID_STEPS steps; then
    K1 and K2 p against their plain version at B=256, N=32, H=64 with
@@ -165,7 +180,9 @@ non-zero):
    the kernel checks: the tiled f32 K2 p must take N >= 22 at nf=4, H=128
    and the tiled f32 K2 N >= 70 at nf=5, H=128 (held against plain at
    N=70), each refusing one atom past its largest, and the tiled kernels
-   must take every N the chunked ones take at nf=5, H=128 and H=64; then
+   must take every N the chunked ones take at nf=5, H=128 and H=64, and
+   one atom past each tiled limit the f32 block pairs take the molecule
+   (against plain, a second launch bitwise equal); then
    the tiled f32 K1, K2 p and K2 against their plain version at B=256,
    N=22, nf=4, H=128 (the K2's dh/dpos also against K2 p's), the K2 also
    at B=2048, a second launch bitwise equal, each timed (events and
@@ -205,7 +222,8 @@ non-zero):
    the untrained import exported back by ``python -m
    enflow_tpu_torch.utils.torch_export``: bit for bit the input state
    dict.
-11. edge  — the gathered-edge EGCL kernels (forward K5, backward K6 with
+11. edge (after dataset, before data) — the gathered-edge EGCL kernels
+   (forward K5, backward K6 with
    all seven parameter gradients; bf16 at H = 64/128 the Hopper kernels
    of edge_pipeline_sm90.cu, f32 the tiled kernels of edge_pipeline.cu)
    against their plain version at the training shape (A=390 atoms, K =
@@ -217,14 +235,21 @@ non-zero):
    (atoms spanning two tiles), in f32 at generate.yaml's shape (A=2,944,
    K = phase generate's auto capacity, C=3, H=128, the share of valid
    slots it saw), and in bf16 at the top-k sampler's shape of phase probe
-   (A = 2048 x 13, K=8, C=11, H=128); agg, F_sum, de and dcd within
+   (A = 2048 x 13, K=8, C=11, H=128), in bf16 at C = 17 and 33 (nf = 8
+   and 16: e W1 in two and three k16 steps; H=128 and 64, K=80 at C=33)
+   and in f32 at C = 65 (nf = 32: the tiled backward at 8 atoms a tile);
+   agg, F_sum, de and dcd within
    TOL_EDGE, the parameter gradients' f32 sums within TOL_PARAM, each
    launch on the kernel the size rule names (its counter), a second K5
    and K6 launch bitwise equal. Timed as in phase 3 at main, ragged,
    generate and sampler, and as device time per launch, the bf16 Hopper
-   kernels beside their MUFU and elementwise floors.
+   kernels beside their MUFU and elementwise floors. Last the bf16 K5/K6
+   at node_nf 8 (C = 17) through the driver: ``vi_lj13.yaml`` in top-k
+   mode (capacity PROBE_FULL) 1 x EDGE_NF8_STEPS steps, then top-k
+   ``sample_lj13.yaml`` from its checkpoint, every K5/K6 on the Hopper
+   kernels, no plain call.
 
-``python3 chip_smoke.py --ab OLD.cu`` runs phases 1-2 and then times the
+``python3 chip_smoke.py --ab OLD.cu [OLD.cu ...]`` runs phases 1-2 and then times the
 kernels built from OLD.cu against the current ones, alternating old,
 new, new, old, old, new in one process. For an earlier egcl_allpairs.cu
 (the chunked kernels, e.g. ``git show
@@ -241,11 +266,25 @@ edge_pipeline.cu (e.g. ``git show
 training and ragged shapes and in bf16 at the top-k sampler's shape
 (CUDA events and device time; an old turn's bf16 on that source's tiled
 kernels, a new turn's on the Hopper kernels), one train.yaml epoch and
-one top-k sample_lj13.yaml run.
+one top-k sample_lj13.yaml run. For an earlier egcl_allpairs_f32.cu: its
+one-molecule f32 K1, K2 and K2 p held to the same bits as the current
+ones (main, ragged, VI, DW4, ala2 and each largest molecule), then timed
+in turns. For an earlier edge_pipeline_sm90.cu: bf16 K5/K6 held to the
+same bits at every EDGE_SHAPES shape of C <= 16, then timed in turns at
+the sampler's shape.
 
 ``python3 chip_smoke.py --blocks-plans`` runs phases 1-2 and then times
 the bf16 block-pair kernels at LJ147 (K1 and K2 p at B=256, K2 at
-B=1024) with blocks of 16 to 56 atoms (``ops.blocks_plan`` picks 32).
+B=1024) with blocks of 16 to 56 atoms (``ops.blocks_plan`` picks 32),
+and the f32 block-pair kernels (K1 and K2 p at LJ147, B=256; K2 at LJ561,
+B=16) with blocks of 16 to 48 atoms (``ops.f32_blocks_plan``: at most
+F32_BLOCK_ATOMS).
+
+``python3 chip_smoke.py --trace-check ROUNDS MINUTES`` runs phases 1-2 and
+then traces 20 K5 launches as ``device_ms`` does, with no margin and with
+TRACE_MARGIN_S idle at each end of the window: after the build, after
+phases data and import ROUNDS times, and after each of MINUTES idle
+minutes; it fails if a trace with the margins lost half the launches.
 
 ``python3 chip_smoke.py --edge-seeds FIRST LAST`` runs phases 1-2 and then
 holds the bf16 Hopper K5/K6 against their plain version at EDGE_SHAPES
@@ -273,6 +312,7 @@ printed on their own line before them.
 """
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -518,8 +558,8 @@ def blocks_kernel_checks(largest):
     K2 and K2 p on the block-pair kernels (their own counters, the
     one-molecule counters untouched) against the plain version at
     ``BLOCKS_SHAPES`` (outputs to TOL, the parameter gradients as f32 sums
-    to TOL_PARAM), a second launch bitwise equal; f32 one atom past each
-    of its limits refused, naming the queue item that holds it."""
+    to TOL_PARAM), a second launch bitwise equal; a launch the card
+    refuses raises."""
     import torch
     from enflow_tpu_torch.ops import egcl_allpairs as ops
 
@@ -582,24 +622,96 @@ def blocks_kernel_checks(largest):
         raise RuntimeError("a refused block-pair launch did not raise")
     finally:
         ops._plans[key] = good
-    for kind in ("fwd", "bwd", "bwd_params"):
-        n_big = largest[f"f32 {kind}"] + 1
+
+
+def f32_blocks_shapes():
+    """``(name, kind, shape)`` of the f32 block-pair checks at nf=5, H=128:
+    one atom past each tiled f32 kernel's limit (N = 143 / 520 / 71; B=16,
+    the K2 B=4), LJ147 (B=64) in every direction, and K1 and K2 at N=561
+    (B=2, the Mackay icosahedron after 309; phase lj147_f32's (c))."""
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+    out = [("limit+1", kind, dict(
+        B=4 if kind == "bwd" else 16, n_pad=2, nf=5, H=128,
+        N=ops.largest_molecule(0, 5, 128, kind) + 1))
+        for kind in ("fwd", "bwd", "bwd_params")]
+    out += [("lj147", kind, dict(B=64, N=147, nf=5, H=128))
+            for kind in ("fwd", "bwd", "bwd_params")]
+    return out + [("n561", kind, dict(B=2, N=561, nf=5, H=128))
+                  for kind in ("fwd", "bwd")]
+
+
+def f32_blocks_launches():
+    """(f32 block-pair launches {kind: n}, every other kernel launch of the
+    all-pairs wrapper) since the counts were reset."""
+    from enflow_tpu_torch.ops import egcl_allpairs as ea
+    c = ea.counts
+    got = dict(fwd=c.fwd_f32_blocks_launches, bwd=c.bwd_f32_blocks_launches,
+               bwd_params=c.bwd_param_f32_blocks_launches)
+    every = sum(v for k, v in vars(c).items()
+                if k.endswith("_launches"))
+    return got, every - sum(got.values())
+
+
+def f32_blocks_checks():
+    """Molecules past the tiled f32 kernels' shared memory: f32 K1, K2 and
+    K2 p on the f32 block-pair kernels (their own counters, every other
+    counter untouched) against the plain version at ``f32_blocks_shapes``
+    (outputs to TOL, the parameter gradients as f32 sums to TOL_PARAM), a
+    second launch bitwise equal. A shape within the tiled kernels' limit
+    (K2 at N=147) launches the block pairs through
+    ``allpairs_edges_blocks``. Returns {(name, kind): max abs err}."""
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+
+    names = {"fwd": ("agg", "f_sum"), "bwd": ("dh", "dpos"),
+             "bwd_params": PARAM_OUT}
+    bad, out = [], {}
+    for sname, kind, shape in f32_blocks_shapes():
         h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(
-            dict(B=1, N=n_big, nf=5, H=128), torch.float32, seed=11)
-        try:
-            if kind == "fwd":
-                ops.allpairs_edges_fwd(h, pos, box, mask_f, W)
-            else:
-                ops.allpairs_edges_bwd(h, pos, box, mask_f, W, dagg, dfsum,
-                                       params=kind == "bwd_params")
-        except ValueError as e:
-            require("shared memory" in str(e) and ops.LARGE_N_ITEM in str(e)
-                    and f"N <= {largest[f'f32 {kind}']}" in str(e),
-                    f"unclear refusal: {e}")
-            phase("kernel", f"N={n_big} f32 {kind} refused: {e}")
+            shape, torch.float32, seed=37)
+        args = (h, pos, box, mask_f, W, dagg, dfsum)
+        forced = shape["N"] <= ops.largest_molecule(0, 5, 128, kind)
+        if forced:
+            run = lambda k=kind: ops.allpairs_edges_blocks(  # noqa: E731
+                k, *(args[:5] if k == "fwd" else args))
         else:
-            raise RuntimeError(f"an f32 molecule beyond shared memory was "
-                               f"launched ({kind})")
+            run = ((lambda: ops.allpairs_edges_fwd(h, pos, box, mask_f, W))
+                   if kind == "fwd" else (lambda p=kind == "bwd_params":
+                                          ops.allpairs_edges_bwd(*args,
+                                                                 params=p)))
+        ops.counts.reset()
+        got = run()
+        torch.cuda.synchronize()
+        launched, other = f32_blocks_launches()
+        plain = (ops.allpairs_edges_plain(h, pos, box, mask_f, W)
+                 if kind == "fwd" else ops.allpairs_edges_plain_bwd(
+                     *args, params=kind == "bwd_params"))
+        errs = rel_errs(names[kind], got, plain)
+        del plain
+        tol = {n: (TOL_PARAM if n in PARAM_OUT[2:] else TOL)["float32"]
+               for n in names[kind]}
+        same = all(bool(torch.equal(a, b)) for a, b in zip(got, run()))
+        want = {k: int(k == kind) for k in launched}
+        ok = (launched == want and other == 0 and same
+              and all(r <= tol[n] for n, (_, r) in errs.items()))
+        A, R = ops._f32_blocks_launch_plan(ops._f32_library(), shape["N"],
+                                           5, 128, kind)
+        phase("kernel", f"f32 blocks {sname} {kind} B={shape['B']} "
+              f"N={shape['N']} (blocks of {A} atoms, {R} rows a row tile"
+              + ("; within the tiled limit, launched through "
+                 "allpairs_edges_blocks" if forced else "") + "): "
+              f"launches {launched} (others {other}); max_abs/rel err "
+              + "  ".join(f"{n} {a:.2e}/{r:.1e}" for n, (a, r) in
+                          errs.items())
+              + f"; a second launch gives the same bits: {same} -> "
+              f"{'ok' if ok else 'FAIL'}")
+        out[(sname, kind)] = max(a for a, _ in errs.values())
+        if not ok:
+            bad.append((sname, kind))
+        del got, h, pos, box, mask_f, W, dagg, dfsum, args
+        torch.cuda.empty_cache()
+    require(not bad, f"f32 block-pair kernels disagree with plain: {bad}")
+    return out
 
 
 # the seam: the one-molecule kernels' largest molecule, where both routes
@@ -607,25 +719,32 @@ def blocks_kernel_checks(largest):
 SEAM_B = (64, 1024)
 
 
-def seam_checks(largest):
+def seam_checks(largest, dname="bfloat16"):
     """The one-molecule and block-pair kernels side by side where both
-    take a molecule: N = the one-molecule limit of each direction (bf16,
-    nf=5, H=128) at ``SEAM_B`` molecules. Each on its own counter, their
-    outputs within TOL / TOL_PARAM of each other, CUDA events and device
-    time. Returns {(kind, B): (one-molecule events, device; blocks events,
-    device)}."""
+    take a molecule: N = the one-molecule limit of each direction (nf=5,
+    H=128) at ``SEAM_B`` molecules, in bf16 (the Hopper kernels) or f32
+    (the tiled f32 kernels). Each on its own counter, their outputs within
+    TOL / TOL_PARAM of each other, CUDA events and device time (fewer
+    calls where one launch takes ~1 s: f32 K2 at N=519, B=1024). Returns
+    {(kind, B): (one-molecule events, device; blocks events, device)}."""
     import torch
     from enflow_tpu_torch.ops import egcl_allpairs as ops
 
     names = {"fwd": ("agg", "f_sum"), "bwd": ("dh", "dpos"),
              "bwd_params": PARAM_OUT}
+    f32 = dname == "float32"
+    tag = "f32" if f32 else "bf16"
     out = {}
     for kind in ("fwd", "bwd", "bwd_params"):
-        N = largest[f"bf16 {kind}"]
-        plan = ops._blocks_launch_plan(ops._sm90_library(), N, 5, 128, kind)
+        N = largest[f"{tag} {kind}"]
+        plan = (ops._f32_blocks_launch_plan(ops._f32_library(), N, 5, 128,
+                                            kind) if f32 else
+                ops._blocks_launch_plan(ops._sm90_library(), N, 5, 128,
+                                        kind))
         for B in SEAM_B:
+            heavy = B * N * N > 5e7
             h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(
-                dict(B=B, N=N, nf=5, H=128), torch.bfloat16, seed=43)
+                dict(B=B, N=N, nf=5, H=128), getattr(torch, dname), seed=43)
             ins = ((h, pos, box, mask_f, W) if kind == "fwd"
                    else (h, pos, box, mask_f, W, dagg, dfsum))
             one = ((lambda: ops.allpairs_edges_fwd(*ins)) if kind == "fwd"
@@ -635,32 +754,42 @@ def seam_checks(largest):
             ops.counts.reset()
             errs = rel_errs(names[kind], blk(), one())
             torch.cuda.synchronize()
-            launched, n_one = blocks_launches()
-            tol = {n: (TOL_PARAM if n in PARAM_OUT[2:] else TOL)["bfloat16"]
+            launched, n_one = (f32_blocks_launches() if f32
+                               else blocks_launches())
+            tol = {n: (TOL_PARAM if n in PARAM_OUT[2:] else TOL)[dname]
                    for n in names[kind]}
             require(launched[kind] == 1 and n_one == 1
                     and all(r <= tol[n] for n, (_, r) in errs.items()),
-                    f"seam {kind} B={B}: launches {launched} + {n_one}, "
-                    f"errs {errs}")
-            t = (cuda_time_ms(one, reps=10, calls=3),
-                 device_ms(one, kernel_key("bfloat16", 128, kind)),
-                 cuda_time_ms(blk, reps=10, calls=3),
-                 blocks_device_ms(blk, kind))
+                    f"seam {kind} {tag} B={B}: launches {launched} + "
+                    f"{n_one}, errs {errs}")
+            ev = dict(reps=2, calls=1, warmup=1) if heavy else dict(
+                reps=10, calls=3)
+            dv = dict(calls=2, tries=2, warmup=0) if heavy else {}
+            t = (cuda_time_ms(one, **ev),
+                 device_ms(one, kernel_key(dname, 128, kind), **dv),
+                 cuda_time_ms(blk, **ev),
+                 blocks_device_ms(blk, kind, f32, **dv))
             out[(kind, B)] = t
-            phase("kernel", f"seam {kind} bf16 B={B} N={N}: one-molecule "
+            what = (f"blocks of {plan[0]} atoms, {plan[1]} rows a row tile"
+                    if f32 else f"blocks of {plan[0]}, {plan[1]} "
+                    "warpgroup(s)")
+            phase("kernel", f"seam {kind} {tag} B={B} N={N}: one-molecule "
                   f"events {t[0]:.4f} device {t[1]:.4f} ms | block-pair "
-                  f"(blocks of {plan[0]}, {plan[1]} warpgroup(s)) events "
-                  f"{t[2]:.4f} device {t[3]:.4f} ms | one-molecule / "
-                  f"blocks device {t[1] / t[3]:.3f}; outputs apart max "
-                  f"rel {max(r for _, r in errs.values()):.1e}")
+                  f"({what}) events {t[2]:.4f} device {t[3]:.4f} ms | "
+                  f"one-molecule / blocks device {t[1] / t[3]:.3f}; outputs "
+                  f"apart max rel {max(r for _, r in errs.values()):.1e}")
+            del h, pos, box, mask_f, W, dagg, dfsum, ins
             torch.cuda.empty_cache()
     return out
 
 
 def blocks_plans():
-    """The block-pair kernels at LJ147 (K1 and K2 p at B=256, K2 at
+    """The bf16 block-pair kernels at LJ147 (K1 and K2 p at B=256, K2 at
     B=1024) with blocks of 16 to 56 atoms, each at the most warpgroups
-    that fit: CUDA events a launch, the wrapper's plan marked."""
+    that fit, and the f32 block-pair kernels (K1 and K2 p at LJ147, B=256,
+    K2 at LJ561, B=16) with blocks of 16 to 48 atoms, each at the most rows
+    a row tile that fit: CUDA events a launch, the wrapper's plan
+    marked."""
     import torch
     from enflow_tpu_torch.ops import egcl_allpairs as ops
 
@@ -691,6 +820,40 @@ def blocks_plans():
                   + (" (the wrapper's plan)" if (A, nwg) == default else ""))
         ops._plans[key] = default
         torch.cuda.empty_cache()
+    # the f32 block pairs: K1 and K2 p at LJ147 (B=256), K2 at LJ561
+    # (B=16), blocks of 16 to 48 atoms with the most rows a row tile that
+    # fit beside them
+    flib = ops._f32_library()
+    limit = flib.egcl_f32_smem_limit()
+    for kind, B, N in (("fwd", LJ147_P, LJ147_N),
+                       ("bwd_params", LJ147_P, LJ147_N),
+                       ("bwd", LJ561_P, LJ561_N)):
+        h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(
+            dict(B=B, N=N, nf=5, H=128), torch.float32, seed=41)
+        ins = ((h, pos, box, mask_f, W) if kind == "fwd"
+               else (h, pos, box, mask_f, W, dagg, dfsum))
+        key = (id(flib), "f32_blocks", N, 5, 128, kind)
+        ops._plans.pop(key, None)
+        default = ops._f32_blocks_launch_plan(flib, N, 5, 128, kind)
+        for fit in (16, 24, 32, 40, 48):
+            rows = next((r for r in range(ops.F32_ROWS_MAX[kind], 7, -8)
+                         if 0 <= flib.egcl_f32_blocks_smem_bytes(
+                             fit, 5, 128, r, ops._KIND[kind]) <= limit), 0)
+            if not rows:
+                phase("plans", f"{kind} f32: blocks of {fit} atoms do not "
+                      "fit")
+                continue
+            A = ops.block_atoms(N, fit)
+            plan = (A, ops.tile_rows(rows, A * A))
+            ops._plans[key] = plan
+            ms = cuda_time_ms(lambda: ops.allpairs_edges_blocks(kind, *ins),
+                              reps=5, calls=2, warmup=1)
+            phase("plans", f"{kind} f32 B={B} N={N}: blocks of {A} atoms, "
+                  f"{plan[1]} rows a row tile: {ms:.4f} ms"
+                  + (" (the wrapper's plan)" if plan == default else ""))
+        ops._plans[key] = default
+        del h, pos, box, mask_f, W, dagg, dfsum, ins
+        torch.cuda.empty_cache()
 
 
 def kernel_phase():
@@ -698,7 +861,7 @@ def kernel_phase():
     from enflow_tpu_torch.ops import egcl_allpairs as ops
 
     # the largest molecule each one-molecule variant takes at nf=5, H=128;
-    # past them bf16 goes to the block-pair kernels and f32 is refused
+    # past them each dtype goes to its block-pair kernels
     largest = {f"{dname} {kind}": ops.largest_molecule(code, 5, 128, kind)
                for code, dname in ((1, "bf16"), (0, "f32"))
                for kind in ("fwd", "bwd", "bwd_params")}
@@ -708,8 +871,17 @@ def kernel_phase():
             f"bf16 limits below 70 / 55 / 55 (vi_lj55.yaml): {largest}")
     phase("kernel", "largest N at nf=5, H=128: " + ", ".join(
         f"{k} {v}" for k, v in largest.items()))
+    # what stays refused (ROADMAP B7): the chunked kernels of other widths
+    # past their largest molecule, 0 where no molecule fits
+    chunked = {f"{d} H={H} {kind}": ops.largest_molecule(c, 5, H, kind)
+               for c, d in ((1, "bf16"), (0, "f32")) for H in (96, 192, 256)
+               for kind in ("fwd", "bwd", "bwd_params")}
+    phase("kernel", "the chunked kernels' largest N at nf=5: " + ", ".join(
+        f"{k} {v}" for k, v in chunked.items()))
     blocks_kernel_checks(largest)
+    f32_errs = f32_blocks_checks()
     seam = seam_checks(largest)
+    seam_f32 = seam_checks(largest, "float32")
 
     large = dict(B=64, N=largest["bf16 bwd"], nf=5, H=128)
     record = {}
@@ -784,7 +956,7 @@ def kernel_phase():
             ms_fwd=t_k_f, ms_bwd=t_k_b, plain_fwd=t_p_f, plain_bwd=t_p_b,
             bound_fwd=bounds["fwd"], bound_bwd=bounds["bwd"],
             floors=floors)
-    return record, largest, seam
+    return record, largest, dict(bf16=seam, f32=seam_f32, f32_errs=f32_errs)
 
 
 # Per-SM rates of an H100 SXM (CUDA C Programming Guide, arithmetic
@@ -997,8 +1169,23 @@ EDGE_SHAPES = {
                 dtypes=("bfloat16",)),
     "h64": dict(A=500, K=24, C=3, H=64, masked=0.2),
     "h96": dict(A=200, K=16, C=3, H=96, masked=0.2),
+    # C = 2 nf + 1 > 16 (nf = 8 and 16 one-hot features): e W1 in two and
+    # three k16 steps of the Hopper kernels, H = 128 and 64 (K = 80: atoms
+    # spanning two tiles)
+    "c17": dict(A=1000, K=12, C=17, H=128, masked=0.2, dead=20,
+                dtypes=("bfloat16",)),
+    "c17_h64": dict(A=500, K=24, C=17, H=64, masked=0.2,
+                    dtypes=("bfloat16",)),
+    "c33": dict(A=300, K=80, C=33, H=128, masked=0.2, dead=7,
+                dtypes=("bfloat16",)),
+    "c33_h64": dict(A=500, K=24, C=33, H=64, masked=0.2,
+                    dtypes=("bfloat16",)),
+    # f32 at nf = 32 (C = 65): the tiled backward at 8 atoms a tile
+    "c65": dict(A=2944, K=24, C=65, H=128, masked=0.3,
+                dtypes=("float32",)),
 }
-EDGE_TIMED = ("main", "ragged", "generate", "sampler")
+# (k12 beside c17: the same rows at C = 11 and 17)
+EDGE_TIMED = ("main", "ragged", "generate", "sampler", "k12", "c17", "c33")
 # the f32 shapes timed against an earlier edge_pipeline.cu (--ab)
 EDGE_AB = ("main", "ragged")
 EDGE_OUT = ("agg", "F_sum", "de", "dcd", "dW1", "db1", "dW2", "db2", "dW3",
@@ -1184,7 +1371,79 @@ def edge_kernel_phase(main_K=None, generate=None):
                 ms_fwd=t_kf, ms_bwd=t_kb, dev_fwd=d_kf, dev_bwd=d_kb,
                 plain_fwd=t_pf, plain_bwd=t_pb, bound_fwd=b_f, bound_bwd=b_b,
                 floors=floors)
+    record["nf8"] = edge_nf8_path()
     return record
+
+
+EDGE_NF8_STEPS = 3
+
+
+def edge_nf8_path():
+    """The bf16 gathered-edge EGCL at 8 node features (C = 17, two k16
+    steps of e W1) through the port's driver: ``vi_lj13.yaml`` with
+    ``network.node_nf: 8`` in top-k mode (``nbr_capacity`` PROBE_FULL, as
+    phase probe's exact run), 1 epoch x EDGE_NF8_STEPS steps (5 K5 + 5 K6
+    a step), then top-k ``sample_lj13.yaml`` at the same width from its
+    checkpoint (5 x (1 + value-and-grads + temperatures) K5, 5 x
+    value-and-grads K6). Every K5/K6 on the Hopper kernels, no plain call,
+    finite losses, beta 1, outputs on the card. Returns the launches."""
+    import os
+    import torch
+
+    net = dict(hidden_nf=128, node_nf=8)
+    dyn = dict(nbr_mode="topk", nbr_capacity=PROBE_FULL, network=net,
+               checkpoint_path="lj13_nf8.cpt")
+    cwd = os.getcwd()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            vi = config_driver(tmp, "vi_lj13.yaml", over=dict(
+                num_epochs=1, steps_per_epoch=EDGE_NF8_STEPS), dynamics=dyn)
+            step_s, losses = time_vi_steps(vi)
+            reset_counts()
+            vi.train()
+            torch.cuda.synchronize()
+            got_vi, routes_vi = edge_launches(), edge_routes()
+            n = vi.n_iter * EDGE_NF8_STEPS
+            want = dict(k5=n, k6=n, allpairs=0, plain=0)
+            require(got_vi == want and routes_vi == dict(
+                sm90=(n, n), tiled=(0, 0), chunked=(0, 0)),
+                f"nf=8 VI launches {got_vi} by kernel {routes_vi}")
+            require(len(losses) == EDGE_NF8_STEPS
+                    and all(math.isfinite(x) for x in losses),
+                    f"nf=8 VI losses {losses}")
+            smc = config_driver(tmp, "sample_lj13.yaml", over=dict(
+                output="lj13_nf8_samples.npz",
+                metrics_csv="lj13_nf8_smc.csv"), dynamics=dyn)
+            sec = smc.args["sampling"]
+            reset_counts()
+            res, secs = timed_sample(smc)
+            got, routes = edge_launches(), edge_routes()
+            T = sec["n_temps"]
+            n_vg = 1 + T * sec["mcmc_steps"] * sec["n_leapfrog"]
+            want = dict(k5=smc.n_iter * (1 + n_vg + T),
+                        k6=smc.n_iter * n_vg, allpairs=0, plain=0)
+            require(got == want and routes == dict(
+                sm90=(want["k5"], want["k6"]), tiled=(0, 0),
+                chunked=(0, 0)),
+                f"nf=8 SMC launches {got} by kernel {routes} != {want}")
+            P = sec["n_particles"]
+            check_smc(res, "nf=8 top-k SMC", P, 13)
+            require(on_card(res.particles) and res.log_weights.is_cuda,
+                    "nf=8 SMC outputs not on the card")
+            phase("edge", f"node_nf 8 (C=17) through the driver on the "
+                  f"Hopper kernels: vi_lj13.yaml top-k (capacity "
+                  f"{PROBE_FULL}) 1 x {EDGE_NF8_STEPS} steps, "
+                  f"{statistics.median(step_s[1:]):.5f} s/step, losses "
+                  + ", ".join(f"{x:.2f}" for x in losses)
+                  + f", K5/K6 {routes_vi['sm90']}; sample_lj13.yaml top-k "
+                  f"from its checkpoint: {P} particles x {T} temps "
+                  f"{secs:.3f} s, log_Z {float(res.log_Z):.4f}, beta "
+                  f"{float(res.beta_history[-1]):.6f}, K5/K6 "
+                  f"{routes['sm90']} (Hopper), tiled/chunked 0, plain 0")
+            del vi, smc, res
+    finally:
+        os.chdir(cwd)
+    return dict(vi=got_vi, smc=got)
 
 
 def edge_seed_sweep(first, last):
@@ -1563,23 +1822,45 @@ def smc_phase(card):
     return launches
 
 
-def device_ms(fn, key, calls=20, tries=3):
+# Kineto drops a device record whose time falls outside the trace's window
+# ("Out-of-range"), and more of them as the process ages, whatever it runs:
+# a trace of 20 K5 launches with no margin kept 0 to 5 of them from 206 s
+# on in an idle process (--trace-check 3 8, margins then 0.025 s), with
+# margins 20. Idle margins at both ends of the window stop that; they do
+# not stop a trace that drops most of its launches now and then (0 of 20
+# once at 75 s with 0.05 s margins), which device_ms's retries cover.
+TRACE_MARGIN_S = 0.05
+
+
+@contextlib.contextmanager
+def device_trace(margin=TRACE_MARGIN_S):
+    """A ``torch.profiler`` session tracing CUDA activity with ``margin``
+    seconds idle at both ends of its window; the body's device work is
+    synchronized before the closing margin."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(margin)
+
+
+def device_ms(fn, key, calls=20, tries=3, warmup=3):
     """Median device time of one kernel launch whose name holds ``key``,
-    over ``calls`` calls of ``fn`` traced by ``torch.profiler`` (after 3
-    warm-up calls). The trace may drop events: at least half of the
-    launches must be in it, else the calls are traced again, up to
+    over ``calls`` calls of ``fn`` traced by ``torch.profiler`` (after
+    ``warmup`` warm-up calls). The trace may drop events: at least half of
+    the launches must be in it, else the calls are traced again, up to
     ``tries`` times."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             for _ in range(calls):
                 fn()
-            torch.cuda.synchronize()
         ts = sorted(e.time_range.end - e.time_range.start
                     for e in prof.events()
                     if e.device_type == DeviceType.CUDA and key in e.name)
@@ -1589,6 +1870,61 @@ def device_ms(fn, key, calls=20, tries=3):
             return ts[len(ts) // 2] * 1e-3
     raise RuntimeError(f"{len(ts)} '{key}' launches traced of {calls}, "
                        f"{tries} times")
+
+
+def trace_probe(fn, key, margin, calls=20):
+    """Launches whose name holds ``key`` in the raw trace of ``calls`` calls
+    of ``fn`` traced as ``device_ms`` traces them, with ``margin`` seconds
+    idle at each end of the window."""
+    from torch.autograd import DeviceType
+    with device_trace(margin=margin) as prof:
+        for _ in range(calls):
+            fn()
+    return sum(e.device_type() == DeviceType.CUDA and key in e.name()
+               for e in prof.profiler.kineto_results.events())
+
+
+def trace_check(card, rounds, idle):
+    """Why a device-time trace late in a run can hold too few launches: 20
+    K5 launches at EDGE_SHAPES' main shape (bf16) traced with no margin and
+    with TRACE_MARGIN_S, after the build; then after phase data (whose
+    epoch runs under the port's ``profile_trace``, whose NaN-guarded epoch
+    raises) and after phase import, ``rounds`` times; then after each of
+    ``idle`` minutes in which the process does nothing. Fails if a trace
+    with the margins held fewer than the half that ``device_ms`` needs."""
+    import torch
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    e, cd, em, W, _, _, _ = gathered_inputs(EDGE_SHAPES["main"],
+                                            torch.bfloat16, seed=13)
+    fwd = lambda: ep.edge_pipeline_fwd(e, cd, em, W)  # noqa: E731
+    for _ in range(3):
+        fwd()
+    t0 = time.perf_counter()
+    short = []
+
+    def probe(label):
+        bare, kept = (trace_probe(fwd, "fwd_kernel", m)
+                      for m in (0.0, TRACE_MARGIN_S))
+        phase("trace", f"{label} ({time.perf_counter() - t0:.1f} s): K5 "
+              f"launches traced of 20: {bare} with no margin, {kept} with "
+              f"{TRACE_MARGIN_S} s margins")
+        if kept < 10:
+            short.append(label)
+
+    probe("after the build")
+    for r in range(rounds):
+        with tempfile.TemporaryDirectory() as tmp:
+            data_phase(card, tmp)
+            probe(f"round {r} after data")
+            import_phase(card, tmp)
+            probe(f"round {r} after import")
+    for m in range(idle):
+        time.sleep(60)
+        probe(f"idle minute {m + 1}")
+    phase("trace", f"on {card}: traces with margins holding fewer than 10 "
+          f"launches: {short}")
+    require(not short, f"traces with margins lost half the launches: "
+            f"{short}")
 
 
 def host_ms(fn, calls=200):
@@ -1628,6 +1964,8 @@ def ab_phase(card, old_src):
     edge = "edge_pipeline_fwd" in text
     hopper = "egcl_sm90_fwd" in text
     pair = "pair_energy_kernel" in text
+    tiled_f32 = "egcl_f32_fwd" in text
+    edge_sm90 = "edge_sm90_fwd" in text
     with tempfile.TemporaryDirectory() as tmp:
         lib_path = Path(tmp) / "libegcl_old.so"
         t0 = time.perf_counter()
@@ -1638,9 +1976,16 @@ def ab_phase(card, old_src):
                 f"{out.stdout}{out.stderr}")
         old_lib = ctypes.CDLL(str(lib_path))
     kind = ("edge-pipeline" if edge else "Hopper" if hopper
-            else "pair-energy" if pair else "chunked")
+            else "pair-energy" if pair else "tiled f32" if tiled_f32
+            else "Hopper edge-pipeline" if edge_sm90 else "chunked")
     phase("ab", f"built {old_src} ({kind} kernels) in "
           f"{time.perf_counter() - t0:.1f} s")
+    if tiled_f32:
+        f32_bits_ab_phase(card, old_lib)
+        return
+    if edge_sm90:
+        edge_sm90_bits_ab_phase(card, old_lib)
+        return
     if edge:
         edge_ab_phase(card, old_lib)
         return
@@ -1737,6 +2082,150 @@ def ab_phase(card, old_src):
         phase("ab", f"{key} (median): old {old:.5f} new {new:.5f} {unit} -> "
               f"{old / new:.2f}x" + (f"; {1024 / old:.1f} -> {1024 / new:.1f}"
                                      " samples/s" if key == "smc" else ""))
+
+
+def ab_turns(card, use, timers):
+    """Turns old, new, new, old, old, new of ``timers`` ({name: (fn, device
+    key)}: CUDA events and device time of one call each), then each
+    median's old / new."""
+    rows = []
+    for which in ("old", "new", "new", "old", "old", "new"):
+        use(which)
+        t = {}
+        for name, (fn, key) in timers.items():
+            t[name] = cuda_time_ms(fn, reps=10, calls=3)
+            t[name + " device"] = device_ms(fn, key, calls=10)
+        rows.append((which, t))
+        phase("ab", f"{which} on {card}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in t.items()))
+    use("new")
+    for key in rows[0][1]:
+        pick = lambda which: statistics.median(
+            t[key] for w, t in rows if w == which)
+        old, new = pick("old"), pick("new")
+        phase("ab", f"{key} (median): old {old:.5f} new {new:.5f} ms -> "
+              f"{old / new:.3f}x")
+
+
+def f32_bits_ab_phase(card, old_lib):
+    """An earlier egcl_allpairs_f32.cu (``old_lib``, built) against the
+    current one's one-molecule kernels: f32 K1, K2 and K2 p bit for bit at
+    the main, ragged, VI, DW4 and ala2 shapes and at each direction's
+    largest molecule (nf=5, H=128), then timed in turns (ala2's K1 and K2
+    p, sample_ala2's K2 at B=2048; CUDA events and device time)."""
+    import torch
+    from enflow_tpu_torch.ops import build
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+
+    new_lib = ops._f32_library()
+    for fn in ("egcl_f32_fwd", "egcl_f32_bwd", "egcl_f32_bwd_params",
+               "egcl_f32_smem_bytes", "egcl_f32_smem_limit",
+               "egcl_f32_error_string", "egcl_part_size"):
+        f, g = getattr(old_lib, fn), getattr(new_lib, fn)
+        f.argtypes, f.restype = g.argtypes, g.restype
+    old_lib._enflow_bound = True
+
+    def use(which):
+        build._loaded["egcl_allpairs_f32"] = (old_lib if which == "old"
+                                              else new_lib)
+
+    big = {k: ops.largest_molecule(0, 5, 128, k)
+           for k in ("fwd", "bwd", "bwd_params")}
+    cases = []
+    for sname, shape, kinds in (
+            ("main", MAIN, None), ("ragged", RAGGED, None), ("vi", VI, None),
+            ("dw4", DW4, None), ("ala2", ALA2, None),
+            ("n1", dict(B=5, N=1, nf=5, H=128), None),
+            ("fwd max", dict(B=4, N=big["fwd"], nf=5, H=128), ("fwd",)),
+            ("bwd max", dict(B=2, N=big["bwd"], nf=5, H=128), ("bwd",)),
+            ("bwd_params max", dict(B=4, N=big["bwd_params"], nf=5, H=128),
+             ("bwd_params",))):
+        args = edge_inputs(shape, torch.float32, seed=11)[:7]
+        for kind in kinds or ("fwd", "bwd", "bwd_params"):
+            run = ((lambda: ops.allpairs_edges_fwd(*args[:5]))
+                   if kind == "fwd" else (lambda p=kind == "bwd_params":
+                                          ops.allpairs_edges_bwd(*args,
+                                                                 params=p)))
+            use("old")
+            a = run()
+            use("new")
+            same = all(bool(torch.equal(x, y)) for x, y in zip(a, run()))
+            cases.append((f"{sname} {kind}", same))
+        torch.cuda.empty_cache()
+    differ = [c for c, same in cases if not same]
+    phase("ab", f"f32 one-molecule kernels: old == new bit for bit at "
+          f"{len(cases) - len(differ)} of {len(cases)} shape x direction "
+          "cases" + (f"; they differ at {differ}" if differ else ""))
+    require(not differ, f"the one-molecule f32 kernels changed: {differ}")
+    args = edge_inputs(ALA2, torch.float32, seed=37)[:7]
+    args2 = edge_inputs(dict(ALA2, B=2048), torch.float32, seed=41)[:7]
+    ab_turns(card, use, {
+        "K1 ala2": (lambda: ops.allpairs_edges_fwd(*args[:5]),
+                    "egcl_f32_fwd"),
+        "K2 p ala2": (lambda: ops.allpairs_edges_bwd(*args, params=True),
+                      "egcl_f32_bwd_params"),
+        "K2 B=2048": (lambda: ops.allpairs_edges_bwd(*args2),
+                      "egcl_f32_bwd_kernel")})
+
+
+def edge_sm90_bits_ab_phase(card, old_lib):
+    """An earlier edge_pipeline_sm90.cu (``old_lib``, built; one k16 step
+    of e W1, C <= 16) against the current: bf16 K5 and K6 bit for bit at
+    every EDGE_SHAPES shape of at most 16 edge features that runs them,
+    then timed in turns at the top-k sampler's shape (CUDA events and
+    device time)."""
+    import ctypes
+    import torch
+    from enflow_tpu_torch.ops import build
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+
+    new_lib = ep._sm90_library()
+    for fn in ("edge_sm90_fwd", "edge_sm90_bwd", "edge_sm90_error_string",
+               "edge_sm90_recip_check"):
+        f, g = getattr(old_lib, fn), getattr(new_lib, fn)
+        f.argtypes, f.restype = g.argtypes, g.restype
+    # the earlier source's warpgroups take (H, bwd) and no C
+    old_lib.edge_sm90_warpgroups.argtypes = [ctypes.c_int] * 2
+    old_lib.edge_sm90_warpgroups.restype = ctypes.c_int
+    old_lib._enflow_bound = True
+    rule = ep.sm90_warpgroups
+
+    def use(which):
+        build._loaded["edge_pipeline_sm90"] = (old_lib if which == "old"
+                                               else new_lib)
+        ep.sm90_warpgroups = rule if which == "new" else (
+            lambda lib, C, H, d: old_lib.edge_sm90_warpgroups(
+                H, int(d == "bwd")))
+
+    cases = []
+    for sname, shape in EDGE_SHAPES.items():
+        if (shape["C"] > 16 or "bfloat16" not in shape.get(
+                "dtypes", ("bfloat16",))
+                or ep.kernel_for(torch.bfloat16, shape["H"]) != "sm90"):
+            continue
+        e, cd, em, W, dagg, dfs, _ = gathered_inputs(shape, torch.bfloat16,
+                                                     seed=13)
+        run = lambda: (ep.edge_pipeline_fwd(e, cd, em, W)
+                       + ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs))
+        use("old")
+        a = run()
+        use("new")
+        b = run()
+        cases.append((sname, all(bool(torch.equal(x, y))
+                                 for x, y in zip(a, b))))
+    use("new")
+    differ = [c for c, same in cases if not same]
+    phase("ab", f"bf16 K5/K6 at C <= 16: old == new bit for bit at "
+          f"{len(cases) - len(differ)} of {len(cases)} shapes (K5 and K6 "
+          "outputs each)" + (f"; they differ at {differ}" if differ else ""))
+    require(not differ, f"the bf16 K5/K6 at C <= 16 changed: {differ}")
+    e, cd, em, W, dagg, dfs, _ = gathered_inputs(EDGE_SHAPES["sampler"],
+                                                 torch.bfloat16, seed=13)
+    ab_turns(card, use, {
+        "K5 sampler": (lambda: ep.edge_pipeline_fwd(e, cd, em, W),
+                       "edge_sm90_fwd_kernel"),
+        "K6 sampler": (lambda: ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs),
+                       "edge_sm90_bwd_kernel")})
 
 
 def f32_ab_phase(card, old_lib):
@@ -2037,11 +2526,10 @@ def profile_run(label, warm_up, run, card, out_file=None, top=12):
     one is given."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     warm_up()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -3457,13 +3945,16 @@ LJ147_N, LJ147_P, LJ147_STEPS, LJ147_TEMPS = 147, 256, 5, 4
 LJ147_K2_BIG = 1024
 
 
-def blocks_device_ms(fn, kind):
-    """Device time of one block-pair launch: the main kernel, plus for the
-    backward the second kernel that sums the partials."""
-    main = device_ms(fn, "egcl_sm90_blocks_" + (
-        "fwd_kernel" if kind == "fwd" else "bwd_kernel"))
+def blocks_device_ms(fn, kind, f32=False, **kw):
+    """Device time of one block-pair launch (bf16, or with ``f32`` the f32
+    block pairs): the main kernel, plus for the backward the second kernel
+    that sums the partials."""
+    pre = "egcl_f32_blocks_" if f32 else "egcl_sm90_blocks_"
+    main = device_ms(fn, pre + (
+        "fwd_kernel" if kind == "fwd" else "bwd_params_kernel"
+        if f32 and kind == "bwd_params" else "bwd_kernel"), **kw)
     return main + (0.0 if kind == "fwd" else
-                   device_ms(fn, "egcl_sm90_blocks_finish_kernel"))
+                   device_ms(fn, pre + "finish_kernel", **kw))
 
 
 def lj147_phase(card):
@@ -3617,6 +4108,192 @@ def lj147_phase(card):
                 k2_params=got_a["bwd_params"], rec=rec)
 
 
+# phase lj147_f32: LJ147 in float32 (VI and SMC as phase lj147), then SMC
+# at LJ561 (the Mackay icosahedron after 309) from a fresh flow, whose
+# input-gradient K2 runs on the f32 block pairs (N > 519)
+LJ561_N, LJ561_P = 561, 16
+
+
+def lj147_f32_phase(card):
+    """LJ147 in float32 through the port's driver (``compute_dtype:
+    float32``): (a) ``vi_lj55.yaml`` with ``n_atoms: 147``, 256 particles,
+    1 epoch x LJ147_STEPS steps: 5 f32 block-pair K1 + 5 f32 block-pair K2
+    p a step; (b) ``sample_lj55.yaml`` at ``n_atoms: 147`` from (a)'s
+    checkpoint, 256 particles, 4 temperatures in one segment: 210 f32
+    block-pair K1 and 205 tiled f32 K2 (``bwd_f32_launches``: N=147 is
+    within its one-molecule limit of 519); (c) ``sample_lj55.yaml`` at
+    ``n_atoms: 561`` from a fresh flow, LJ561_P particles, 4 temperatures:
+    210 f32 block-pair K1 and 205 f32 block-pair K2. No plain call and no
+    other launch, beta 1, finite log_Z, particles and losses, outputs on
+    the card. Then the f32 K1, K2 p and K2 at B=256, N=147 and the f32
+    block-pair K1 and K2 at (c)'s shape against the plain version and
+    timed (CUDA events, the device time of the launch's kernels, the
+    bound)."""
+    import os
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+    from enflow_tpu_torch.sample.smc import ess_from_log_weights
+
+    cwd = os.getcwd()
+    n_iter = 5
+    f32 = dict(compute_dtype="float32")
+    runs = {}
+
+    def counts():
+        c = ops.counts
+        every = {k: v for k, v in vars(c).items()
+                 if k.endswith("_launches") and v}
+        return every, plain_calls()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            vi = config_driver(tmp, "vi_lj55.yaml", over=dict(
+                num_epochs=1, steps_per_epoch=LJ147_STEPS,
+                n_particles=LJ147_P), target=dict(n_atoms=LJ147_N),
+                dynamics=dict(f32, checkpoint_path="lj147_f32_vi.cpt"))
+            step_s, losses = time_vi_steps(vi)
+            reset_counts()
+            vi.train()
+            torch.cuda.synchronize()
+            got_a, plain_a = counts()
+            want_a = dict(fwd_f32_blocks_launches=n_iter * LJ147_STEPS,
+                          bwd_param_f32_blocks_launches=n_iter * LJ147_STEPS)
+            require(len(step_s) == LJ147_STEPS,
+                    f"{len(step_s)} LJ147 f32 steps")
+            require(got_a == want_a and plain_a == 0,
+                    f"LJ147 f32 VI launches {got_a} (plain {plain_a}) != "
+                    f"{want_a}")
+            require(all(math.isfinite(x) for x in losses),
+                    f"non-finite LJ147 f32 VI losses {losses}")
+            require(Path("lj147_f32_vi.cpt").exists(), "no checkpoint")
+            s_step = statistics.median(step_s[1:])
+            runs["vi"] = dict(s_step=s_step, launches=got_a)
+            phase("lj147_f32", f"(a) vi_lj55.yaml at n_atoms {LJ147_N}, "
+                  f"float32, on {card}: 1 epoch x {LJ147_STEPS} steps of "
+                  f"{vi.vi_particles} particles, {s_step:.5f} s/step "
+                  f"(median of steps 2-{LJ147_STEPS}; first "
+                  f"{step_s[0]:.4f} s), {vi.vi_particles / s_step:.1f} "
+                  "particles/s; losses " + ", ".join(
+                      f"{x:.2f}" for x in losses)
+                  + f"; launches {got_a}, plain calls 0")
+
+            for label, N, P, ckpt, want_k2 in (
+                    ("b", LJ147_N, LJ147_P, "lj147_f32_vi.cpt",
+                     "bwd_f32_launches"),
+                    ("c", LJ561_N, LJ561_P, None,
+                     "bwd_f32_blocks_launches")):
+                dyn = dict(f32, checkpoint_path=ckpt) if ckpt else dict(f32)
+                out = f"lj{N}_f32_samples.npz"
+                smc = config_driver(tmp, "sample_lj55.yaml", over=dict(
+                    n_particles=P, n_temps=LJ147_TEMPS,
+                    chunk_temps=LJ147_TEMPS, checkpoint_every=LJ147_TEMPS,
+                    output=out), target=dict(n_atoms=N), dynamics=dyn)
+                sec = smc.args["sampling"]
+                reset_counts()
+                res, secs = timed_sample(smc)
+                got, plain = counts()
+                n_vg = 1 + LJ147_TEMPS * sec["mcmc_steps"] * sec["n_leapfrog"]
+                want = {"fwd_f32_blocks_launches": n_iter + n_vg * n_iter,
+                        want_k2: n_vg * n_iter}
+                require(got == want and plain == 0,
+                        f"LJ{N} f32 SMC launches {got} (plain {plain}) != "
+                        f"{want}")
+                check_smc(res, f"lj{N} f32", P, N)
+                outs = [res.particles[k] for k in sorted(res.particles)]
+                outs += [res.log_weights, res.log_Z]
+                require(all(t.is_cuda for t in outs),
+                        f"LJ{N} f32 SMC outputs are not on the card")
+                require(Path(out).exists()
+                        and not Path(out + ".state.npz").exists(),
+                        f"lj{N} f32: no samples, or a stage state left over")
+                ess = float(ess_from_log_weights(res.log_weights))
+                runs[label] = dict(secs=secs, launches=got, n_vg=n_vg)
+                phase("lj147_f32", f"({label}) sample_lj55.yaml at n_atoms "
+                      f"{N}, float32, on {card} "
+                      + (f"from (a)'s checkpoint" if ckpt else
+                         "from a fresh flow")
+                      + f": {P} particles x {LJ147_TEMPS} temps in one "
+                      f"segment: {secs:.3f} s, {P / secs:.1f} samples/s, "
+                      f"log_Z {float(res.log_Z):.4f}, final ESS {ess:.1f}, "
+                      f"beta {float(res.beta_history[-1]):.6f}; launches "
+                      f"{got} ({n_vg} value-and-grads), plain calls 0; "
+                      "outputs on cuda")
+                del smc, res, outs
+        finally:
+            os.chdir(cwd)
+    del vi
+    torch.cuda.empty_cache()
+
+    rec = {}
+    for key, kind, B, N in (("fwd", "fwd", LJ147_P, LJ147_N),
+                            ("bwd_params", "bwd_params", LJ147_P, LJ147_N),
+                            ("bwd", "bwd", LJ147_P, LJ147_N),
+                            ("fwd_561", "fwd", LJ561_P, LJ561_N),
+                            ("bwd_blocks", "bwd", LJ561_P, LJ561_N)):
+        shape = dict(B=B, N=N, nf=5, H=128)
+        h, pos, box, mask_f, W, dagg, dfsum, mask = edge_inputs(
+            shape, torch.float32, seed=47)
+        args = (h, pos, box, mask_f, W, dagg, dfsum)
+        if kind == "fwd":
+            kern = lambda: ops.allpairs_edges_fwd(h, pos, box, mask_f, W)
+            plain = lambda: ops.allpairs_edges_plain(h, pos, box, mask_f, W)
+            names = ("agg", "f_sum")
+        else:
+            params = kind == "bwd_params"
+            kern = lambda p=params: ops.allpairs_edges_bwd(*args, params=p)
+            plain = lambda p=params: ops.allpairs_edges_plain_bwd(*args,
+                                                                  params=p)
+            names = PARAM_OUT if params else ("dh", "dpos")
+        route = ops.route_for(N, 5, 128, 0, kind,
+                              ops.largest_molecule(0, 5, 128, kind))
+        ops.counts.reset()
+        got = kern()
+        torch.cuda.synchronize()
+        launched, other = f32_blocks_launches()
+        require((launched[kind], other) == ((1, 0) if route == "f32_blocks"
+                                            else (0, 1)),
+                f"lj147_f32 {key}: launches {launched} + {other}")
+        errs = rel_errs(names, got, plain())
+        del got
+        tol = {n: (TOL_PARAM if n in PARAM_OUT[2:] else TOL)["float32"]
+               for n in names}
+        ok = all(r <= tol[n] for n, (_, r) in errs.items())
+        err = max(a for a, _ in errs.values())
+        t_plain = cuda_time_ms(plain, reps=3, calls=1, warmup=1)
+        torch.cuda.empty_cache()
+        require(ok, f"lj147_f32 {key} disagrees with plain: {errs}")
+        ms = cuda_time_ms(kern, reps=5, calls=2)
+        dev = (blocks_device_ms(kern, kind, True) if route == "f32_blocks"
+               else device_ms(kern, kernel_key("float32", 128, kind)))
+        fl_f, fl_b, by_f, by_b = work(shape, "float32", mask)
+        fl, by = {"fwd": (fl_f, by_f), "bwd": (fl_b, by_b),
+                  "bwd_params": work_params(shape, "float32", mask)}[kind]
+        b = bound(fl, by, PEAK_FLOPS["float32"])
+        if route == "f32_blocks":
+            A, R = ops._f32_blocks_launch_plan(ops._f32_library(), N, 5, 128,
+                                               kind)
+            how = f"f32 block pairs: blocks of {A} atoms, {R} rows a tile"
+        else:
+            how = "the tiled f32 kernel, one molecule a tile"
+        phase("lj147_f32", f"{kind} float32 B={B} N={N} ({how}): vs plain "
+              "max_abs/rel " + "  ".join(
+                  f"{n} {a:.2e}/{r:.1e}" for n, (a, r) in errs.items())
+              + f" -> ok; time ms events {ms:.4f} device {dev:.4f}, plain "
+              f"{t_plain:.4f}, bound {b[0]:.4f} ({b[1]}, {fl / 1e9:.2f} "
+              f"GFLOP), {dev / b[0]:.1f}x the bound")
+        rec[key] = dict(err=err, ms=ms, dev=dev, plain=t_plain, bound=b)
+        del h, pos, box, mask_f, W, dagg, dfsum, mask, args
+        torch.cuda.empty_cache()
+    n = lambda run, key: runs[run]["launches"].get(key, 0)  # noqa: E731
+    return dict(k1=(n("vi", "fwd_f32_blocks_launches")
+                    + n("b", "fwd_f32_blocks_launches")),
+                k1_561=n("c", "fwd_f32_blocks_launches"),
+                k2_params=n("vi", "bwd_param_f32_blocks_launches"),
+                k2=n("b", "bwd_f32_launches"),
+                k2_blocks=n("c", "bwd_f32_blocks_launches"), rec=rec,
+                runs=runs)
+
+
 # 1 epoch of LJ55C_STEPS (vi_lj55_coupled.yaml), FLUID_STEPS
 # (vi_fluid.yaml) and DW4_STEPS (vi_dw4.yaml) steps, every width as committed
 LJ55C_STEPS, FLUID_STEPS, DW4_STEPS = 5, 5, 10
@@ -3737,8 +4414,9 @@ def dw4_phase(card):
 def ala2_kernels():
     """The f32 kernels at alanine dipeptide's size. The tiled f32
     K2 p must take N >= 22 at nf=4, H=128 and the tiled f32 K2 N >= 70 at
-    nf=5, H=128, each refusing one atom past its largest (the K2 also held
-    against plain at N=70); the tiled kernels must take every N that the
+    nf=5, H=128, one atom past each largest the f32 block-pair kernels
+    (held against plain there; the K2 also at N=70); the tiled kernels
+    must take every N that the
     chunked ones take at nf=5 (H=128 and H=64). Then the tiled f32 K1, K2
     p and K2 against their plain version at vi_ala2.yaml's shape (B=256,
     N=22, nf=4, H=128), the K2 also at sample_ala2.yaml's B=2048 and its
@@ -3771,18 +4449,31 @@ def ala2_kernels():
         n_max = lim[(nf, 128, kind)][0]
         require(n_max >= least, f"f32 {kind} takes N <= {n_max} at "
                 f"nf={nf}, H=128 (needs {least})")
+        shape = dict(B=2, N=n_max + 1, nf=nf, H=128, n_pad=1)
         h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(
-            dict(B=1, N=n_max + 1, nf=nf, H=128), torch.float32, seed=11)
-        try:
-            ops.allpairs_edges_bwd(h, pos, box, mask_f, W, dagg, dfsum,
-                                   params=kind == "bwd_params")
-        except ValueError as e:
-            require("shared memory" in str(e) and f"N <= {n_max}" in str(e),
-                    f"unclear refusal: {e}")
-            phase("ala2", f"N={n_max + 1} f32 {kind} refused: {e}")
-        else:
-            raise RuntimeError(f"an f32 {kind} beyond shared memory was "
-                               "launched")
+            shape, torch.float32, seed=11)
+        args = (h, pos, box, mask_f, W, dagg, dfsum)
+        params = kind == "bwd_params"
+        names = PARAM_OUT if params else ("dh", "dpos")
+        ops.counts.reset()
+        got = ops.allpairs_edges_bwd(*args, params=params)
+        torch.cuda.synchronize()
+        launched, other = f32_blocks_launches()
+        errs = rel_errs(names, got, ops.allpairs_edges_plain_bwd(
+            *args, params=params))
+        tol = {n: (TOL_PARAM if n in PARAM_OUT[2:] else TOL)["float32"]
+               for n in names}
+        same = all(bool(torch.equal(a, b)) for a, b in zip(
+            got, ops.allpairs_edges_bwd(*args, params=params)))
+        ok = (launched[kind] == 1 and other == 0 and same
+              and all(r <= tol[n] for n, (_, r) in errs.items()))
+        phase("ala2", f"N={n_max + 1} nf={nf} f32 {kind} (one atom past the "
+              f"tiled kernel's {n_max}): the f32 block pairs {launched}, "
+              f"others {other}; max rel err {max(r for _, r in errs.values()):.1e}"
+              f"; a second launch gives the same bits: {same} -> "
+              f"{'ok' if ok else 'FAIL'}")
+        require(ok, f"f32 {kind} past the tiled limit: launches {launched} "
+                f"+ {other}, errs {errs}, same {same}")
     allpairs_vs_plain("ala2", "N=70", dict(B=4, N=70, nf=5, H=128),
                       "float32", 43, ("bwd",), time_it=False, repeat=True)
     rec = allpairs_vs_plain("ala2", "vi_ala2 shape", ALA2, "float32", 37,
@@ -4698,18 +5389,24 @@ def kernel_record(name, src, replaces, launches, err, ms, plain, bnd):
 def main():
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--ab", default=None, metavar="OLD_CU",
-                    help="time the kernels built from an earlier "
-                    "egcl_allpairs.cu, egcl_allpairs_sm90.cu, "
-                    "edge_pipeline.cu or pair_energy.cu against the current "
-                    "ones, and vi_dw4.yaml epochs, SMC runs, train.yaml "
-                    "epochs or train.yaml MD datasets with each, instead of "
-                    "the phases after the build")
+    ap.add_argument("--ab", nargs="+", default=None, metavar="OLD_CU",
+                    help="time the kernels built from earlier sources "
+                    "(egcl_allpairs.cu, egcl_allpairs_sm90.cu, "
+                    "egcl_allpairs_f32.cu, edge_pipeline.cu, "
+                    "edge_pipeline_sm90.cu or pair_energy.cu; each in turn) "
+                    "against the current ones, and vi_dw4.yaml epochs, SMC "
+                    "runs, train.yaml epochs or train.yaml MD datasets with "
+                    "each, instead of the phases after the build")
     ap.add_argument("--edge-seeds", nargs=2, type=int, default=None,
                     metavar=("FIRST", "LAST"), help="hold the bf16 Hopper "
                     "K5/K6 against their plain version at EDGE_SHAPES for "
                     "input seeds FIRST..LAST instead of the phases after the "
                     "build, and print the readings")
+    ap.add_argument("--trace-check", type=int, nargs=2, default=None,
+                    metavar=("ROUNDS", "MINUTES"), help="trace K5 after the "
+                    "build, after phases data and import ROUNDS times, then "
+                    "after each of MINUTES idle minutes, instead of the "
+                    "phases after the build")
     ap.add_argument("--blocks-plans", action="store_true", help="time the "
                     "bf16 block-pair kernels at LJ147 with each block size "
                     "instead of the phases after the build")
@@ -4757,13 +5454,17 @@ def main():
     # the drivers run from temporary directories: resolve FILE first
     table = lambda f: Path(f).resolve() if f else None
     if args.ab is not None:
-        ab_phase(card, Path(args.ab).resolve())
+        for src in args.ab:
+            ab_phase(card, Path(src).resolve())
         return 0
     if args.edge_seeds is not None:
         edge_seed_sweep(*args.edge_seeds)
         return 0
     if args.blocks_plans:
         blocks_plans()
+        return 0
+    if args.trace_check is not None:
+        trace_check(card, *args.trace_check)
         return 0
     if args.profile is not None:
         profile_smc(card, table(args.profile))
@@ -4806,6 +5507,7 @@ def main():
         timed("sharded", sharded_phase, card, lj55_dir)
     timed("lj55", lj55_phase, card)
     lj147 = timed("lj147", lj147_phase, card)
+    lj147f = timed("lj147_f32", lj147_f32_phase, card)
     timed("fluid", fluid_phase, card)
     dw4 = timed("dw4", dw4_phase, card)
     ala2 = timed("ala2", ala2_phase, card)
@@ -4915,6 +5617,33 @@ def main():
         kernels.append(kernel_record(name, "egcl_allpairs_sm90.cu",
                                      f"{v3}:{line}", n, r["err"], r["ms"],
                                      r["plain"], r["bound"]))
+    # the f32 block-pair kernels with phase lj147_f32's launches: K1 of its
+    # VI and LJ147 SMC runs, K2 p of the VI, K1 and K2 of the LJ561 SMC run
+    # (at its shape, B=16, N=561); the tiled f32 K2 at LJ147 (B=256) with
+    # the LJ147 SMC run's launches
+    for name, key, line, n in (
+            ("egcl_allpairs_f32_blocks_fwd", "fwd", 365, lj147f["k1"]),
+            ("egcl_allpairs_f32_blocks_fwd_lj561", "fwd_561", 365,
+             lj147f["k1_561"]),
+            ("egcl_allpairs_f32_blocks_bwd_params", "bwd_params", 414,
+             lj147f["k2_params"]),
+            ("egcl_allpairs_f32_blocks_bwd", "bwd_blocks", 414,
+             lj147f["k2_blocks"]),
+            ("egcl_allpairs_f32_bwd_lj147", "bwd", 414, lj147f["k2"])):
+        r = lj147f["rec"][key]
+        kernels.append(kernel_record(name, "egcl_allpairs_f32.cu",
+                                     f"{v3}:{line}", n, r["err"], r["ms"],
+                                     r["plain"], r["bound"]))
+    # bf16 K5/K6 at 17 edge features (the Hopper kernels, two k16 steps of
+    # e W1), with the launches of phase edge's node_nf 8 driver path
+    c17, nf8 = erec[("c17", "bfloat16")], erec["nf8"]
+    for name, d, line in (("fwd", "fwd", 219), ("bwd", "bwd", 246)):
+        k = "k5" if d == "fwd" else "k6"
+        kernels.append(kernel_record(
+            f"edge_pipeline_{name}_c17", "edge_pipeline_sm90.cu",
+            f"enflow_tpu/ops/edge_kernel.py:{line}",
+            nf8["vi"][k] + nf8["smc"][k], c17[f"err_{d}"], c17[f"ms_{d}"],
+            c17[f"plain_{d}"], c17[f"bound_{d}"]))
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -32,8 +32,8 @@
 //   128-byte-swizzled layout that wgmma reads (sm90_common.cuh); the
 //   forward reads it as an MN-major B operand (X W), the backward also as a
 //   K-major one (X W^T). W1 [C, H] sits in the same layout with its rows
-//   padded to 16 (kCP), so that e W1 is one k16 step and dpre1 W1^T an
-//   m64n16 product.
+//   padded to kCP = 16 KC (KC = ceil(C / 16), at most 4), so that e W1 is
+//   KC k16 steps and dpre1 W1^T KC m64n16 products.
 // - Rows are walked in 64-row tiles (wgmma's M) of whole atoms where K <=
 //   64 (8 atoms a tile at K = 8, 5 at K = 12: 60 rows, the last 4 zero
 //   rows); an atom with K > 64 spans ceil(K / 64) tiles and its K-sums are
@@ -42,8 +42,9 @@
 //   of atoms, or an atom's tiles) to the warpgroups in turn; each
 //   warpgroup owns its atoms, so no state is shared between warpgroups
 //   after the weights and no atomics are needed.
-// - The first layer: e [64, C] is zero-padded to 16 columns in a swizzled
-//   tile, one wgmma k-step a 32-column chunk (C <= 16); rows past the
+// - The first layer: e [64, C] is zero-padded to kCP columns in a
+//   swizzled tile, KC wgmma k-steps a 32-column chunk (one at C <= 16, two
+//   at C <= 32: nf = 8 to 15 one-hot features, C = 2 nf + 1); rows past the
 //   tile's last row are zero rows with em = 0. Chosen over FMA, which was
 //   not measured: the step leaves pre1 in the accumulator layout the
 //   epilogue reads, costs the elementwise lanes nothing (FMA would spend C
@@ -67,8 +68,11 @@
 //   dpre2 -> X1, db2; dW2 = m1^T rnd(dpre2); pass F issues dpre2 W2^T and
 //   e W1 together: dpre1 -> X0, db1; then de = rnd(dpre1 W1^T) (m64n16)
 //   and dW1^T += rnd(dpre1)^T e (m64n16, both operands MN-major, the 64
-//   rows as K) into registers held across the warpgroup's tiles. (These
-//   and the column sums below were not measured against other forms.)
+//   rows as K), each of KC 16-column chunks of e and W1. At C <= 16 dW1^T
+//   is held in registers across the warpgroup's tiles; at C > 16 (KC times
+//   the registers) each tile's product goes into the warpgroup's f32 slice
+//   in global memory, as dW2 and dW3 do. (These and the column sums below
+//   were not measured against other forms.)
 // - dW2 and dW3: wgmma with the tile's 64 rows as K, both operands the
 //   activation tiles read MN-major (sm90_common.cuh outer_acc), added per
 //   m64n32 chunk into the warpgroup's own f32 slice of a [slices, P]
@@ -81,10 +85,11 @@
 // - The next tile's e, cd and em rows arrive by cp.async into the other
 //   half of a double buffer while the current tile computes; dagg and dfs
 //   are read from global memory (L1) in the epilogues that need them.
-// - Shared memory at H = 128: W2 + W3 64 KB, W1 4 KB; a warpgroup's m1, m
-//   (and the backward's D2) tiles 16 KB each, the e tile 8 KB, the staging
-//   buffers 5 KB, the backward's column sums 8 KB: 217 KB forward (3
-//   warpgroups), 216 KB backward (2).
+// - Shared memory at H = 128: W2 + W3 64 KB, W1 4 KB KC; a warpgroup's
+//   m1, m (and the backward's D2) tiles 16 KB each, the e tile 8 KB, the
+//   staging buffers 5 KB KC, the backward's column sums 8 KB: at KC = 1
+//   217 KB forward (3 warpgroups), 216 KB backward (2); a KC whose block
+//   does not fit takes fewer warpgroups (edge_sm90_warpgroups).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -97,12 +102,15 @@
 namespace {
 
 constexpr int kMaxWGFwd = 3, kMaxWGBwd = 2;
-constexpr int kCP = 16;                   // e's columns, padded: one k-step
+constexpr int kMaxKC = 4;                 // e's k16 steps at most (the e
+                                          // tile's 64 columns)
 constexpr size_t kMaxSmem = 232448;
 
-// One stage of a tile's staged rows: e (at most 64 x 16 bf16), cd, em,
+// One stage of a tile's staged rows: e (at most 64 x 16 KC bf16), cd, em,
 // each as the aligned words that hold its bytes (2 words of slack).
-constexpr int kStCd = 2064, kStEm = kStCd + 400, kStage = kStEm + 144;
+__host__ __device__ constexpr int st_cd(int KC) { return 2048 * KC + 16; }
+__host__ __device__ constexpr int st_em(int KC) { return st_cd(KC) + 400; }
+__host__ __device__ constexpr int st_size(int KC) { return st_em(KC) + 144; }
 
 struct Args {
   int A, K, C, H;
@@ -241,7 +249,7 @@ __device__ __forceinline__ float bf_bits(uint16_t v) {
 
 // ---- shared memory
 
-// The block's weights: W2, W3 [H, H] and W1 [kCP, H] swizzled bf16, the
+// The block's weights: W2, W3 [H, H] and W1 [16 KC, H] swizzled bf16, the
 // vectors as f32.
 struct Blk {
   bf16 *W2, *W3, *W1;
@@ -249,7 +257,7 @@ struct Blk {
 };
 
 // One warpgroup's tiles (bf16 [64, H] swizzled: X0, X1 and the backward's
-// D2; the e tile [64, 64] of which 16 columns are used), the two stages of
+// D2; the e tile [64, 64] of which 16 KC columns are used), the two stages of
 // staged rows, the forward's tr rows [64, 3] and K-sum carry [H + 3], the
 // backward's column sums [4, 4 warps, H].
 struct Wg {
@@ -258,23 +266,24 @@ struct Wg {
   float *tr, *carry, *vs;
 };
 
-__host__ __device__ inline void carve_blk(Bump& m, Blk& s, int H) {
+__host__ __device__ inline void carve_blk(Bump& m, Blk& s, int H, int KC) {
   s.W2 = (bf16*)m.take(sizeof(bf16) * H * H, 1024);
   s.W3 = (bf16*)m.take(sizeof(bf16) * H * H, 1024);
-  s.W1 = (bf16*)m.take(sizeof(bf16) * kCP * H, 1024);
+  s.W1 = (bf16*)m.take(sizeof(bf16) * 16 * KC * H, 1024);
   s.b1 = (float*)m.take(sizeof(float) * H);
   s.b2 = (float*)m.take(sizeof(float) * H);
   s.b3 = (float*)m.take(sizeof(float) * H);
   s.w4 = (float*)m.take(sizeof(float) * H);
 }
 
-__host__ __device__ inline void carve_wg(Bump& m, Wg& w, int H, bool bwd) {
+__host__ __device__ inline void carve_wg(Bump& m, Wg& w, int H, bool bwd,
+                                        int KC) {
   const size_t T = sizeof(bf16) * kTile * H;
   w.X0 = (bf16*)m.take(T, 1024);
   w.X1 = (bf16*)m.take(T, 1024);
   w.D2 = bwd ? (bf16*)m.take(T, 1024) : nullptr;
   w.E = (bf16*)m.take(sizeof(bf16) * kTile * 64, 1024);
-  w.stage = m.take(2 * kStage);
+  w.stage = m.take(2 * st_size(KC));
   w.tr = bwd ? nullptr : (float*)m.take(sizeof(float) * kTile * 3);
   w.carry = bwd ? nullptr : (float*)m.take(sizeof(float) * (H + 3));
   w.vs = bwd ? (float*)m.take(sizeof(float) * 4 * 4 * H) : nullptr;
@@ -282,13 +291,13 @@ __host__ __device__ inline void carve_wg(Bump& m, Wg& w, int H, bool bwd) {
 
 // Bytes of dynamic shared memory of a block of nwg warpgroups (with 1024
 // bytes to align the base).
-size_t smem_bytes(int H, bool bwd, int nwg) {
+size_t smem_bytes(int H, bool bwd, int nwg, int KC) {
   Bump m{nullptr, 0};
   Blk s;
-  carve_blk(m, s, H);
+  carve_blk(m, s, H, KC);
   for (int k = 0; k < nwg; ++k) {
     Wg w;
-    carve_wg(m, w, H, bwd);
+    carve_wg(m, w, H, bwd, KC);
   }
   return m.off + 1024;
 }
@@ -296,8 +305,9 @@ size_t smem_bytes(int H, bool bwd, int nwg) {
 // The block's weights into shared memory (all threads), W1's rows past C
 // zero; then the fence that makes them visible to wgmma and a block
 // barrier.
-template <int H>
+template <int H, int KC>
 __device__ void load_weights(const Args& a, const Blk& s) {
+  constexpr int kCP = 16 * KC;
   for (int idx = threadIdx.x; idx < H * H / 8; idx += blockDim.x) {
     const int k = idx / (H / 8), c = 8 * (idx % (H / 8));
     const uint4 v2 = *reinterpret_cast<const uint4*>(a.W2 + k * H + c);
@@ -363,11 +373,12 @@ __device__ __forceinline__ int walk_len(const Args& a, int g, int S) {
 }
 
 // The tile's e, cd and em rows into stage buffer st (cp.async, uncommitted).
+template <int KC>
 __device__ __forceinline__ void stage_tile(const Args& a, char* st,
                                            const Tile& T, int t) {
   stage_words(st, a.e + (size_t)T.g0 * a.C, (size_t)T.nr * a.C * 2, t);
-  stage_words(st + kStCd, a.cd + (size_t)T.g0 * 3, (size_t)T.nr * 6, t);
-  stage_words(st + kStEm, a.em + T.g0, (size_t)T.nr * 2, t);
+  stage_words(st + st_cd(KC), a.cd + (size_t)T.g0 * 3, (size_t)T.nr * 6, t);
+  stage_words(st + st_em(KC), a.em + T.g0, (size_t)T.nr * 2, t);
 }
 
 // A thread's place in the accumulator layout and its two rows r0, r0 + 8
@@ -380,6 +391,7 @@ struct Lane {
   float em[2], cd[2][3];
 };
 
+template <int KC>
 __device__ __forceinline__ void lane_of(Lane& L, const Args& a,
                                         const char* st, const Tile& T,
                                         int t) {
@@ -387,8 +399,8 @@ __device__ __forceinline__ void lane_of(Lane& L, const Args& a,
   L.lane = t & 31;
   L.q = L.lane & 3;
   L.r0 = 16 * L.warp + (L.lane >> 2);
-  const uint16_t* scd = staged(st + kStCd, a.cd + (size_t)T.g0 * 3);
-  const uint16_t* sem = staged(st + kStEm, a.em + T.g0);
+  const uint16_t* scd = staged(st + st_cd(KC), a.cd + (size_t)T.g0 * 3);
+  const uint16_t* sem = staged(st + st_em(KC), a.em + T.g0);
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const int r = L.r0 + 8 * k;
@@ -401,11 +413,13 @@ __device__ __forceinline__ void lane_of(Lane& L, const Args& a,
   }
 }
 
-// The tile's e rows into the e tile's first 16 columns (zero past C and
-// past the tile's rows).
+// The tile's e rows into the e tile's first 16 KC columns (zero past C
+// and past the tile's rows).
+template <int KC>
 __device__ __forceinline__ void build_e(const Args& a, const Wg& w,
                                         const char* st, const Tile& T,
                                         int t) {
+  constexpr int kCP = 16 * KC;
   const uint16_t* se = staged(st, a.e + (size_t)T.g0 * a.C);
   const int C = a.C;
   for (int k = t; k < kTile * kCP / 2; k += kWG) {
@@ -456,12 +470,14 @@ __device__ __forceinline__ void col_sum(float* vs, const float (&v)[16],
 // ---- the passes shared by both directions
 
 // m1 = rnd(silu(e W1 + b1)) into X0 (all 64 rows).
-template <int H>
+template <int H, int KC>
 __device__ __forceinline__ void pass_m1(const Blk& s, const Wg& w,
                                         const Lane& L) {
   const uint32_t E = smem_addr(w.E), W1 = smem_addr(s.W1);
   row_chunks<H>(
-      [&](float (&d)[16], int n0) { mma_chunk<1, 1>(d, E, W1, kCP, n0); },
+      [&](float (&d)[16], int n0) {
+        mma_chunk<KC, 1>(d, E, W1, 16 * KC, n0);
+      },
       [&](const float (&d)[16], int n0) {
 #pragma unroll
         for (int p = 0; p < 8; ++p) {
@@ -573,14 +589,14 @@ __device__ void k_sums(const Args& a, const Wg& w, const Tile& T, int t) {
   }
 }
 
-template <int H>
+template <int H, int KC>
 __device__ void fwd_tile(const Args& a, const Blk& s, const Wg& w,
                          const Tile& T, const char* st, int t, int wg) {
   Lane L;
-  lane_of(L, a, st, T, t);
-  build_e(a, w, st, T, t);
+  lane_of<KC>(L, a, st, T, t);
+  build_e<KC>(a, w, st, T, t);
   wg_publish(wg);
-  pass_m1<H>(s, w, L);
+  pass_m1<H, KC>(s, w, L);
   wg_publish(wg);
   pass_m<H>(s, w, L);
   wg_publish(wg);
@@ -601,26 +617,119 @@ __device__ void fwd_tile(const Args& a, const Blk& s, const Wg& w,
 
 // ---- backward
 
+// dW1^T's m64n16 accumulators (chunk cc of e's columns, rows 64 mm + r
+// of H) into the slice's dW1 [C, H] by the thread that holds each element:
+// stored, or with `add` added to what is there.
+template <int H, int KC>
+__device__ __forceinline__ void store_dw1(float* dW1, int C,
+                                          const float (&dw1)[KC][H / 64][8],
+                                          int t, bool add) {
+  const int warp = t >> 5, lane = t & 31, q = lane & 3;
+  const int r0 = 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int cc = 0; cc < KC; ++cc)
+#pragma unroll
+    for (int mm = 0; mm < H / 64; ++mm)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 16 * cc + 8 * j + 2 * q + e,
+                      h = 64 * mm + r0 + 8 * k;
+            if (c < C) {
+              float* p = dW1 + c * H + h;
+              const float v = dw1[cc][mm][4 * j + 2 * k + e];
+              *p = add ? *p + v : v;
+            }
+          }
+}
+
+// de = rnd(rnd(dpre1) W1^T) into a.de and dW1^T += rnd(dpre1)^T e into
+// dw, chunk cc of KC: e's and W1's columns / rows 16 cc .. 16 cc + 15 (W1's
+// rows 2048 cc bytes on, e's columns 32 cc bytes into its rows); dpre1 in
+// X0.
+template <int H, int KC>
+__device__ __forceinline__ void de_dw1(const Args& a, const Wg& w,
+                                       const Blk& s, const Lane& L,
+                                       const Tile& T,
+                                       float (&dw)[KC][H / 64][8]) {
+  constexpr int kCP = 16 * KC;
+  const uint32_t E = smem_addr(w.E), X0 = smem_addr(w.X0),
+                 W1 = smem_addr(s.W1);
+  float dd[KC][8];
+#pragma unroll
+  for (int cc = 0; cc < KC; ++cc) {
+    fence_regs(dd[cc]);
+#pragma unroll
+    for (int m = 0; m < H / 64; ++m) fence_regs(dw[cc][m]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int cc = 0; cc < KC; ++cc) {
+#pragma unroll
+    for (int kk = 0; kk < H / 16; ++kk)
+      wgmma_ss16(dd[cc],
+                 smem_desc(X0 + (kk / 4) * (128 * kTile) + (kk % 4) * 32, 16,
+                           1024),
+                 smem_desc(W1 + 2048 * cc + (kk / 4) * (128 * kCP) +
+                               (kk % 4) * 32, 16, 1024),
+                 kk > 0);
+#pragma unroll
+    for (int m = 0; m < H / 64; ++m)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_tt16(dw[cc][m],
+                   smem_desc(X0 + m * (128 * kTile) + 2048 * kk, 128 * kTile,
+                             1024),
+                   smem_desc(E + 32 * cc + 2048 * kk, 128 * kTile, 1024), 1);
+  }
+  wgmma_commit();
+  wgmma_wait_for<0>();
+#pragma unroll
+  for (int cc = 0; cc < KC; ++cc) {
+    fence_regs(dd[cc]);
+#pragma unroll
+    for (int m = 0; m < H / 64; ++m) fence_regs(dw[cc][m]);
+  }
+#pragma unroll
+  for (int cc = 0; cc < KC; ++cc)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = L.r0 + 8 * k, c = 16 * cc + 8 * j + 2 * L.q + e;
+          if (r < T.nr && c < a.C)
+            a.de[(size_t)(T.g0 + r) * a.C + c] =
+                __float2bfloat16_rn(dd[cc][4 * j + 2 * k + e]);
+        }
+}
+
 // One tile's backward (the forward recomputed; see the header for the
 // passes). Tiles: X0 m1 -> dpre1; X1 m -> dpre2; D2 dpre3. dW3 and dW2 go
 // into the warpgroup's slice `part` (stored when fresh), the column sums
-// into w.vs, dW1^T into the registers dw1 (rows m 64 + r of the m64n16
-// accumulators, columns the C of e).
-template <int H>
+// into w.vs, dW1^T (rows m 64 + r of the m64n16 accumulators, columns the
+// C of e) into the registers dw1 at KC = 1, into the slice at KC > 1.
+template <int H, int KC>
 __device__ void bwd_tile(const Args& a, const Blk& s, const Wg& w,
                          const Tile& T, const char* st, int t, int wg,
-                         float* part, bool fresh, float (&dw1)[H / 64][8]) {
+                         float* part, bool fresh,
+                         float (&dw1)[KC][H / 64][8]) {
+  constexpr int kCP = 16 * KC;
   const PartLayout PL(a.C, H);
   Lane L;
-  lane_of(L, a, st, T, t);
-  build_e(a, w, st, T, t);
+  lane_of<KC>(L, a, st, T, t);
+  build_e<KC>(a, w, st, T, t);
   wg_publish(wg);
   const uint32_t E = smem_addr(w.E), X0 = smem_addr(w.X0),
                  X1 = smem_addr(w.X1), D2 = smem_addr(w.D2);
   const uint32_t W1 = smem_addr(s.W1), W2 = smem_addr(s.W2),
                  W3 = smem_addr(s.W3);
 
-  pass_m1<H>(s, w, L);                          // m1 -> X0
+  pass_m1<H, KC>(s, w, L);                      // m1 -> X0
   wg_publish(wg);
   pass_m<H>(s, w, L);                           // m -> X1
   wg_publish(wg);
@@ -713,7 +822,7 @@ __device__ void bwd_tile(const Args& a, const Blk& s, const Wg& w,
   row_chunks2<H>(
       [&](float (&dA)[16], float (&dB)[16], int n0) {
         mma_chunk<H / 16, 0>(dA, X1, W2, H, n0);
-        mma_chunk<1, 1>(dB, E, W1, kCP, n0);
+        mma_chunk<KC, 1>(dB, E, W1, kCP, n0);
       },
       [&](const float (&dA)[16], const float (&dB)[16], int n0) {
         float vb1[16];
@@ -735,43 +844,19 @@ __device__ void bwd_tile(const Args& a, const Blk& s, const Wg& w,
   wg_publish(wg);
 
   // -- de = rnd(rnd(dpre1) W1^T) and dW1^T += rnd(dpre1)^T e
-  float dd[8];
-  fence_regs(dd);
+  if constexpr (KC == 1) {
+    de_dw1<H, KC>(a, w, s, L, T, dw1);
+  } else {
+    float tw[KC][H / 64][8];        // this tile's dW1^T
 #pragma unroll
-  for (int m = 0; m < H / 64; ++m) fence_regs(dw1[m]);
-  wgmma_fence();
+    for (int cc = 0; cc < KC; ++cc)
 #pragma unroll
-  for (int kk = 0; kk < H / 16; ++kk)
-    wgmma_ss16(dd,
-               smem_desc(X0 + (kk / 4) * (128 * kTile) + (kk % 4) * 32, 16,
-                         1024),
-               smem_desc(W1 + (kk / 4) * (128 * kCP) + (kk % 4) * 32, 16,
-                         1024),
-               kk > 0);
+      for (int m = 0; m < H / 64; ++m)
 #pragma unroll
-  for (int m = 0; m < H / 64; ++m)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_tt16(dw1[m],
-                 smem_desc(X0 + m * (128 * kTile) + 2048 * kk, 128 * kTile,
-                           1024),
-                 smem_desc(E + 2048 * kk, 128 * kTile, 1024), 1);
-  wgmma_commit();
-  wgmma_wait_for<0>();
-  fence_regs(dd);
-#pragma unroll
-  for (int m = 0; m < H / 64; ++m) fence_regs(dw1[m]);
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int k = 0; k < 2; ++k)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int r = L.r0 + 8 * k, c = 8 * j + 2 * L.q + e;
-        if (r < T.nr && c < a.C)
-          a.de[(size_t)(T.g0 + r) * a.C + c] =
-              __float2bfloat16_rn(dd[4 * j + 2 * k + e]);
-      }
+        for (int k = 0; k < 8; ++k) tw[cc][m][k] = 0.f;
+    de_dw1<H, KC>(a, w, s, L, T, tw);
+    store_dw1<H, KC>(part + PL.dW1, a.C, tw, t, !fresh);
+  }
 }
 
 // ---- the kernels: persistent blocks, each warpgroup its own tiles
@@ -779,44 +864,48 @@ __device__ void bwd_tile(const Args& a, const Blk& s, const Wg& w,
 // The prologue of both kernels: the warpgroup's first tile staged, the
 // weights loaded. Then each tile waits for its staged rows while the next
 // tile's are copied.
-template <int H, bool BWD>
+template <int H, bool BWD, int KC>
 __device__ __forceinline__ void edge_sm90_body(const Args& a,
                                                char* smem_raw) {
   const int nwg = blockDim.x / kWG, wg = threadIdx.x / kWG,
             t = threadIdx.x % kWG;
   Bump m{(char*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023), 0};
   Blk s;
-  carve_blk(m, s, H);
+  carve_blk(m, s, H, KC);
   Wg w;
-  for (int k = 0; k <= wg; ++k) carve_wg(m, w, H, BWD);
+  for (int k = 0; k <= wg; ++k) carve_wg(m, w, H, BWD, KC);
   const int S = gridDim.x * nwg, g = blockIdx.x * nwg + wg;
   const int n = walk_len(a, g, S);
-  if (n > 0) stage_tile(a, w.stage, walk(a, g, S, 0), t);
+  if (n > 0) stage_tile<KC>(a, w.stage, walk(a, g, S, 0), t);
   cp_async_commit();
   const PartLayout PL(a.C, H);
   float* const part = BWD ? a.part + (size_t)g * PL.P : nullptr;
   if constexpr (BWD)
     for (int k = t; k < 4 * 4 * H; k += kWG) w.vs[k] = 0.f;
-  load_weights<H>(a, s);
+  load_weights<H, KC>(a, s);
 
-  float dw1[H / 64][8];
+  // dW1^T across the warpgroup's tiles (KC = 1; else zeros, stored where
+  // the warpgroup has no tile)
+  float dw1[KC][H / 64][8];
 #pragma unroll
-  for (int i = 0; i < H / 64; ++i)
+  for (int c = 0; c < KC; ++c)
 #pragma unroll
-    for (int k = 0; k < 8; ++k) dw1[i][k] = 0.f;
+    for (int i = 0; i < H / 64; ++i)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) dw1[c][i][k] = 0.f;
   for (int i = 0; i < n; ++i) {
     if (i + 1 < n)
-      stage_tile(a, w.stage + ((i + 1) & 1) * kStage, walk(a, g, S, i + 1),
-                 t);
+      stage_tile<KC>(a, w.stage + ((i + 1) & 1) * st_size(KC),
+                     walk(a, g, S, i + 1), t);
     cp_async_commit();
     cp_async_wait<1>();
     wg_sync(wg);
     const Tile T = walk(a, g, S, i);
-    const char* st = w.stage + (i & 1) * kStage;
+    const char* st = w.stage + (i & 1) * st_size(KC);
     if constexpr (BWD)
-      bwd_tile<H>(a, s, w, T, st, t, wg, part, i == 0, dw1);
+      bwd_tile<H, KC>(a, s, w, T, st, t, wg, part, i == 0, dw1);
     else
-      fwd_tile<H>(a, s, w, T, st, t, wg);
+      fwd_tile<H, KC>(a, s, w, T, st, t, wg);
   }
   if constexpr (BWD) {
     // the slice's other gradients: dW2, dW3 zero without a tile; the
@@ -831,34 +920,22 @@ __device__ __forceinline__ void edge_sm90_body(const Args& a,
         const float* x = w.vs + v * 4 * H + c;
         part[off[v] + c] = ((x[0] + x[H]) + x[2 * H]) + x[3 * H];
       }
-    const int warp = t >> 5, lane = t & 31, q = lane & 3;
-    const int r0 = 16 * warp + (lane >> 2);
-#pragma unroll
-    for (int mm = 0; mm < H / 64; ++mm)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int k = 0; k < 2; ++k)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = 8 * j + 2 * q + e, h = 64 * mm + r0 + 8 * k;
-            if (c < a.C) part[PL.dW1 + c * H + h] = dw1[mm][4 * j + 2 * k + e];
-          }
+    if (KC == 1 || n == 0) store_dw1<H, KC>(part + PL.dW1, a.C, dw1, t, false);
   }
 }
 
-template <int H>
+template <int H, int KC>
 __global__ void __launch_bounds__(kMaxWGFwd * kWG, 1)
     edge_sm90_fwd_kernel(Args a) {
   extern __shared__ char smem_raw[];
-  edge_sm90_body<H, false>(a, smem_raw);
+  edge_sm90_body<H, false, KC>(a, smem_raw);
 }
 
-template <int H>
+template <int H, int KC>
 __global__ void __launch_bounds__(kMaxWGBwd * kWG, 1)
     edge_sm90_bwd_kernel(Args a) {
   extern __shared__ char smem_raw[];
-  edge_sm90_body<H, true>(a, smem_raw);
+  edge_sm90_body<H, true, KC>(a, smem_raw);
 }
 
 // recip against __frcp_rn at every float in [1, 2^126): the mismatches
@@ -874,13 +951,18 @@ __global__ void recip_check_kernel(unsigned long long* bad) {
   atomicAdd(bad, n);
 }
 
-bool takes(int C, int H) { return C >= 1 && C <= kCP && (H == 64 || H == 128); }
+bool takes(int C, int H) {
+  return C >= 1 && C <= 16 * kMaxKC && (H == 64 || H == 128);
+}
+
+// e's k16 steps: C's columns in 16-column chunks.
+int k_steps(int C) { return (C + 15) / 16; }
 
 // The most warpgroups whose block fits, or 0.
-int warpgroups(int H, bool bwd) {
-  if (H != 64 && H != 128) return 0;
+int warpgroups(int C, int H, bool bwd) {
+  if (!takes(C, H)) return 0;
   for (int nwg = bwd ? kMaxWGBwd : kMaxWGFwd; nwg >= 1; --nwg)
-    if (smem_bytes(H, bwd, nwg) <= kMaxSmem) return nwg;
+    if (smem_bytes(H, bwd, nwg, k_steps(C)) <= kMaxSmem) return nwg;
   return 0;
 }
 
@@ -894,12 +976,12 @@ bool plan_ok(const Args& a, int blocks, int nwg) {
   return a.apt == 0 && a.tpa == (a.K + kTile - 1) / kTile && a.units == a.A;
 }
 
-template <int H>
+template <int H, int KC>
 int launch_h(const Args& a, bool bwd, int blocks, int nwg,
              cudaStream_t stream) {
-  const size_t smem = smem_bytes(H, bwd, nwg);
+  const size_t smem = smem_bytes(H, bwd, nwg, KC);
   void (*kernel)(Args) =
-      bwd ? edge_sm90_bwd_kernel<H> : edge_sm90_fwd_kernel<H>;
+      bwd ? edge_sm90_bwd_kernel<H, KC> : edge_sm90_fwd_kernel<H, KC>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -907,22 +989,40 @@ int launch_h(const Args& a, bool bwd, int blocks, int nwg,
   return (int)cudaGetLastError();
 }
 
+template <int H>
+int launch_kc(const Args& a, bool bwd, int blocks, int nwg,
+              cudaStream_t st) {
+  switch (k_steps(a.C)) {
+    case 1: return launch_h<H, 1>(a, bwd, blocks, nwg, st);
+    case 2: return launch_h<H, 2>(a, bwd, blocks, nwg, st);
+    case 3: return launch_h<H, 3>(a, bwd, blocks, nwg, st);
+    default: return launch_h<H, 4>(a, bwd, blocks, nwg, st);
+  }
+}
+
 int launch(const Args& a, bool bwd, int blocks, int nwg, void* stream) {
   if (!takes(a.C, a.H) || !plan_ok(a, blocks, nwg) ||
-      nwg > warpgroups(a.H, bwd))
+      nwg > warpgroups(a.C, a.H, bwd))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return a.H == 128 ? launch_h<128>(a, bwd, blocks, nwg, st)
-                    : launch_h<64>(a, bwd, blocks, nwg, st);
+  return a.H == 128 ? launch_kc<128>(a, bwd, blocks, nwg, st)
+                    : launch_kc<64>(a, bwd, blocks, nwg, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The most warpgroups a block holds (the launch's nwg; 3 forward and 2
-// backward at H = 64 and 128), or 0 for an H the kernels do not take.
-int edge_sm90_warpgroups(int H, int bwd) { return warpgroups(H, bwd != 0); }
+// The most warpgroups a block holds (the launch's nwg; at C <= 16 3
+// forward and 2 backward at H = 64 and 128), or 0 for a C or H the kernels
+// do not take (C > 64, or no block of one warpgroup fits).
+int edge_sm90_warpgroups(int C, int H, int bwd) {
+  return warpgroups(C, H, bwd != 0);
+}
+
+// The most edge features a row the kernels take (e's columns in at most
+// kMaxKC k16 steps).
+int edge_sm90_c_max() { return 16 * kMaxKC; }
 
 // bf16 tensors throughout (the partials f32). apt, tpa, units: the plan of
 // ops/edge_pipeline.py sm90_plan; blocks x nwg warpgroups, the backward's

@@ -7,7 +7,9 @@
 //   backward -> the pallas_call of _fused_bwd (:414), _bwd_kernel: dh and
 //               dpos only (what sampling asks for), or with the parameter
 //               gradients dW1a ... dw4 (:256-273; what training asks for)
-// for the float32 compute dtype, and computes the contract of
+// for the float32 compute dtype, one or more whole molecules a block of
+// threads, and past one block's shared memory over pairs of atom blocks
+// (below), and computes the contract of
 // egcl_allpairs.cu:13-22. In f32 every rounding point of that contract is
 // the identity, so this file has none; dw1r takes the f32 r2 and dw4 the
 // f32 dgate, as _bwd_kernel does, and the backward's clip mask is
@@ -82,11 +84,40 @@
 //   computes.
 // - SiLU uses the fast ex2 and reciprocal (a few ulp, far inside the f32
 //   tolerance), as the tiled edge kernels do.
+//
+// Larger molecules: the block-pair kernels (egcl_f32_blocks_*), every N,
+// on the same row code (fwd_rows, bwd_in_rows, bwd_params_rows: the one-
+// molecule kernels call them too, with their own geometry and sums). A
+// molecule past one block's shared memory (at nf=5, H=128: N > 142
+// forward, N > 519 input-gradient backward, N > 70 with parameter
+// gradients) is cut into nI blocks of A atoms (the wrapper's plan,
+// ops/egcl_allpairs.py f32_blocks_plan: the most atoms, at most 32, with
+// a row tile beside them). The unit of work is a (molecule, i-block) item
+// of a persistent block: the i-block's atoms and sums stay in shared
+// memory, each j-block's atoms are loaded beside them in turn, and the
+// block pair's rows i != j (Pairs: i-major, j = i skipped on the diagonal
+// block pair) are walked in row tiles of R rows. The forward's sums are
+// i-side only, so an item writes its atoms' agg and fsum: no partials, no
+// second kernel. The backward keeps the input-gradient kernel's per-atom
+// vectors: the j-side sums of a block pair, [dcd_j, dz1_j W1b^T] (nf + 3
+// floats an atom), go to their own row of partials pj [B, nI, N, nf + 3],
+// an item's i-side sums [dz1_i W1a^T, dcd_i] to si [B, N, nf + 3], and
+// egcl_f32_blocks_finish_kernel sums pj over the i-blocks in order into dh
+// and dpos. With parameter gradients a block pair keeps its j-block's
+// H-wide dz1 sums (dW1b = sum_j h_j (x) sum_i dz1_ij is linear in them),
+// adds h_j (x) them into the block's slice and projects them to its nf +
+// 3 partials; an item adds h_i (x) its i-side dz1 sums into dW1a and their
+// sum into db1; dW2, dW3 and the column sums are the one-molecule
+// kernel's. At LJ147 (B=256, N=147) that is 1,280 items of 32-atom blocks
+// over 132 blocks of threads. No atomics: a second launch gives the same
+// bits.
 
 #include <cuda_runtime.h>
 
 #include <stddef.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "egcl_part_layout.cuh"
 
@@ -123,6 +154,12 @@ struct Args {
   float* dh;          // [B, N, nf]  (backward)
   float* dpos;        // [B, N, 3]   (backward)
   float* part;        // [blocks, P] (backward)
+  // the block-pair kernels: atoms a block, blocks a molecule, and the
+  // backward's i-side sums [B, N, nf + 3] and j-side partials [B, nI, N,
+  // nf + 3]
+  int A, nI;
+  float* si;
+  float* pj;
 };
 
 struct Bump {
@@ -162,10 +199,11 @@ struct Smem {
   __device__ float* stage(int ab) const { return atoms + ab * at_floats; }
 };
 
-__host__ __device__ inline void carve(Bump& m, Smem& s, int N, int nf, int H,
-                                      int MT, int R, int kind) {
+// The weights and a row tile's arrays (both kinds of kernel).
+__host__ __device__ inline void carve_rows(Bump& m, Smem& s, int nf, int H,
+                                           int R, int kind) {
   const size_t fH = sizeof(float) * H;
-  const bool bwd = kind != kFwd, in = kind == kBwd;
+  const bool in = kind == kBwd;
   s.W2 = (float*)m.take(fH * H);
   s.W3 = (float*)m.take(fH * H);
   s.W1a = (float*)m.take(fH * nf);
@@ -186,6 +224,12 @@ __host__ __device__ inline void carve(Bump& m, Smem& s, int N, int nf, int H,
   s.r2 = (float*)m.take(sizeof(float) * R);
   s.valid = (float*)m.take(sizeof(float) * R);
   s.rd = (float*)m.take(sizeof(float) * R * (in ? 2 * nf + 3 : 3));
+}
+
+__host__ __device__ inline void carve(Bump& m, Smem& s, int N, int nf, int H,
+                                      int MT, int R, int kind) {
+  const bool bwd = kind != kFwd, in = kind == kBwd;
+  carve_rows(m, s, nf, H, R, kind);
   const int na = MT * N, sides = bwd ? 2 : 1;
   s.accH = (float*)m.take(sizeof(float) * na * sides * (in ? nf + 3 : H));
   s.acc3 = in ? nullptr : (float*)m.take(sizeof(float) * na * 3 * sides);
@@ -195,6 +239,26 @@ __host__ __device__ inline void carve(Bump& m, Smem& s, int N, int nf, int H,
   s.at_dfs = s.at_box + MT * 3;
   s.at_floats = (s.at_dfs + (bwd ? na * 3 : 0) + 3) & ~3;
   s.atoms = (float*)m.take(sizeof(float) * 2 * s.at_floats);
+}
+
+// The block-pair kernels: the row tile's arrays, the sums of an i-block
+// (and a j-block) of A atoms (forward agg, fsum; parameter gradients dz1
+// and dcd a side; input gradients nf + 3 floats an atom a side), and one
+// stage of atoms: the i-block's at places 0 .. A-1, the j-block's at A ..
+// 2A-1, the box and the i-block's dfsum rows.
+__host__ __device__ inline void carve_pairs(Bump& m, Smem& s, int A, int nf,
+                                            int H, int R, int kind) {
+  const bool bwd = kind != kFwd, in = kind == kBwd;
+  carve_rows(m, s, nf, H, R, kind);
+  const int sides = bwd ? 2 : 1;
+  s.accH = (float*)m.take(sizeof(float) * A * sides * (in ? nf + 3 : H));
+  s.acc3 = in ? nullptr : (float*)m.take(sizeof(float) * A * 3 * sides);
+  s.at_pos = 2 * A * nf;
+  s.at_mask = s.at_pos + 2 * A * 3;
+  s.at_box = s.at_mask + 2 * A;
+  s.at_dfs = s.at_box + 4;
+  s.at_floats = s.at_dfs + (bwd ? A * 3 : 0);
+  s.atoms = (float*)m.take(sizeof(float) * s.at_floats);
 }
 
 // cp.async: 4-byte and 16-byte copies, global -> shared.
@@ -526,18 +590,470 @@ __device__ __forceinline__ void jsum_rows(float* dst, int ncols,
   }
 }
 
+// A thread's place in the row products: a warp is 4 rows x 8 column lanes
+// (32 columns), CW = H / 32 warps span a row; wc is the warp's column
+// group (its slot in the per-row partial sums).
+struct Thr {
+  int tid, lane, wc, cx, ry, c0;
+};
+
+template <int H>
+__device__ __forceinline__ Thr thread_place() {
+  constexpr int CW = H / 32;
+  Thr p;
+  p.tid = threadIdx.x;
+  p.lane = p.tid & 31;
+  const int wp = p.tid >> 5;
+  p.wc = wp % CW;
+  p.cx = 8 * p.wc + (p.lane & 7);
+  p.ry = 4 * (wp / CW) + (p.lane >> 3);
+  p.c0 = 4 * p.cx;
+  return p;
+}
+
+// ---- one row tile, shared by the one-molecule and block-pair kernels
+//
+// The row tiles differ only in which atoms their rows pair (the geometry
+// pass before: row_geometry or pair_geometry) and where their node sums go
+// (the caller's, after or at sum_m2); the rows' arithmetic is this.
+
+// The forward's rows: m1 -> X0 (then after_m1, before the barrier that
+// publishes it), m2 -> X1 (then sum_m2: agg's rows are complete), the
+// gate, tr -> rd. Ends with a barrier.
+template <int H, typename AfterM1, typename SumM2>
+__device__ __forceinline__ void fwd_rows(const Smem& s, const float* at,
+                                         int nf, int nr, const Thr& p,
+                                         AfterM1&& after_m1,
+                                         SumM2&& sum_m2) {
+  constexpr int NT = 2 * H, CW = H / 32, LD = H + 4, QM = kQmaxFwd;
+  const int q = (nr + 7) >> 3, ry = p.ry, cx = p.cx, c0 = p.c0;
+  float acc[QM][4];
+  first_layer<H, QM>(nf, s, at, q, ry, c0, s.X[0]);              // m1
+  after_m1();
+  __syncthreads();
+  product_q<H, false, QM>(q, s.X[0], s.W2, ry, cx, acc);         // z2
+#pragma unroll
+  for (int i = 0; i < QM; ++i) {
+    if (i >= q) break;
+    const int r = ry + 8 * i;
+    const float v = s.valid[r];
+    float o[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) o[u] = silu(acc[i][u] + s.b2[c0 + u]) * v;
+    *reinterpret_cast<float4*>(s.X[1] + r * LD + c0) =
+        make_float4(o[0], o[1], o[2], o[3]);                     // m2
+  }
+  __syncthreads();
+  sum_m2();                                                      // agg
+  product_q<H, false, QM>(q, s.X[1], s.W3, ry, cx, acc);         // z3
+#pragma unroll
+  for (int i = 0; i < QM; ++i) {
+    if (i >= q) break;
+    float g = 0.f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      g = fmaf(silu(acc[i][u] + s.b3[c0 + u]), s.w4[c0 + u], g);
+    g = lane_sum<8>(g);
+    if ((p.lane & 7) == 0) s.gpart[(ry + 8 * i) * CW + p.wc] = g;
+  }
+  __syncthreads();
+  for (int r = p.tid; r < nr; r += NT) {
+    float gate = 0.f;
+    for (int w = 0; w < CW; ++w) gate += s.gpart[r * CW + w];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float t = fminf(fmaxf(s.cd[r * 3 + d] * gate, -100.f), 100.f);
+      s.rd[r * 3 + d] = t * s.valid[r];                           // tr
+    }
+  }
+  __syncthreads();
+}
+
+// The block's parameter-gradient sums across its row tiles: dW2, dW3 in
+// registers (the outer-product tile), the column sums per thread (its 4
+// columns, its rows).
+template <int H>
+struct ParamAcc {
+  float dW2[8][4 * (H / 64)], dW3[8][4 * (H / 64)];
+  float pw4[4], pb3[4], pb2[4], pw1r[4];
+};
+
+template <int H>
+__device__ __forceinline__ void zero_params(ParamAcc<H>& g) {
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int b = 0; b < 4 * (H / 64); ++b) g.dW2[p][b] = g.dW3[p][b] = 0.f;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) g.pw4[u] = g.pb3[u] = g.pb2[u] = g.pw1r[u] = 0.f;
+}
+
+// The parameter-gradient backward's rows: the forward recomputed, the
+// force branch, dz3, dz2, dz1 -> X0 and dcd -> rd, the rows' terms of dW2,
+// dW3 and the column sums into g; dagg [., H] and dfs [., 3] are indexed
+// by the rows' i atoms (s.ri). Ends with a barrier.
+template <int H, typename AfterM1>
+__device__ __forceinline__ void bwd_params_rows(
+    const Smem& s, const float* at, const float* dagg, const float* dfs,
+    int nf, int nr, const Thr& p, ParamAcc<H>& g, AfterM1&& after_m1) {
+  constexpr int NT = 2 * H, CW = H / 32, LD = H + 4, QM = kQmaxBwd;
+  const int q = (nr + 7) >> 3, ry = p.ry, cx = p.cx, c0 = p.c0;
+  const int nx = p.tid % 16, ky = p.tid / 16;
+  float acc[QM][4];
+  float* X0 = s.X[0];
+  float* X1 = s.X[1];
+  float* X2 = s.X[2];
+
+  // -- recompute the forward: m1 -> X0; z2 -> X2, m2 -> X1
+  first_layer<H, QM>(nf, s, at, q, ry, c0, X0);
+  after_m1();
+  __syncthreads();
+  product_q<H, false, QM>(q, X0, s.W2, ry, cx, acc);
+#pragma unroll
+  for (int i = 0; i < QM; ++i) {
+    if (i >= q) break;
+    const int r = ry + 8 * i;
+    const float v = s.valid[r];
+    float z2[4], m2[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      z2[u] = acc[i][u] + s.b2[c0 + u];
+      m2[u] = silu(z2[u]) * v;
+    }
+    *reinterpret_cast<float4*>(X2 + r * LD + c0) =
+        make_float4(z2[0], z2[1], z2[2], z2[3]);
+    *reinterpret_cast<float4*>(X1 + r * LD + c0) =
+        make_float4(m2[0], m2[1], m2[2], m2[3]);
+  }
+  __syncthreads();
+
+  // -- z3 (in acc), g1 -> X0 and the gate's partial sums; then per row
+  //    the force branch (clip mask -100 <= cd gate <= 100), dgate, the
+  //    gate part of dcd, dw4, db3 and dz3 -> X0
+  product_q<H, false, QM>(q, X1, s.W3, ry, cx, acc);
+#pragma unroll
+  for (int i = 0; i < QM; ++i) {
+    if (i >= q) break;
+    const int r = ry + 8 * i;
+    float g1[4], t = 0.f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      acc[i][u] += s.b3[c0 + u];
+      g1[u] = silu(acc[i][u]);
+      t = fmaf(g1[u], s.w4[c0 + u], t);
+    }
+    *reinterpret_cast<float4*>(X0 + r * LD + c0) =
+        make_float4(g1[0], g1[1], g1[2], g1[3]);
+    t = lane_sum<8>(t);
+    if ((p.lane & 7) == 0) s.gpart[r * CW + p.wc] = t;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < QM; ++i) {
+    if (i >= q) break;
+    const int r = ry + 8 * i;
+    const float v = s.valid[r];
+    const int ai = s.ri[r];
+    float gate = 0.f;
+    for (int w = 0; w < CW; ++w) gate += s.gpart[r * CW + w];
+    float dgate = 0.f, dcd = 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float c = s.cd[r * 3 + d];
+      const float raw = c * gate;
+      const float inside = (raw >= -100.f && raw <= 100.f) ? 1.f : 0.f;
+      const float dtr = dfs[ai * 3 + d] * inside * v;
+      dgate = fmaf(c, dtr, dgate);
+      if (cx == d) dcd = gate * dtr;
+    }
+    if (cx < 3) s.rd[r * 3 + cx] = dcd;
+    float4* x = reinterpret_cast<float4*>(X0 + r * LD + c0);
+    const float4 gv = *x;
+    const float g1[4] = {gv.x, gv.y, gv.z, gv.w};
+    float o[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      g.pw4[u] = fmaf(g1[u], dgate, g.pw4[u]);
+      const float d = (dgate * s.w4[c0 + u]) * dsilu(acc[i][u]);
+      g.pb3[u] += d;
+      o[u] = d;
+    }
+    *x = make_float4(o[0], o[1], o[2], o[3]);                    // dz3
+  }
+  __syncthreads();
+
+  // -- dW3 += m2^T dz3; dm2 = (dz3 W3^T + dagg_i) valid; dz2 -> X2, db2
+  outer<H>(X1, X0, nr, ky, nx, g.dW3);
+  product_q<H, true, QM>(q, X0, s.W3, ry, cx, acc);
+#pragma unroll
+  for (int i = 0; i < QM; ++i) {
+    if (i >= q) break;
+    const int r = ry + 8 * i;
+    const float v = s.valid[r];
+    const float4 da = __ldg(reinterpret_cast<const float4*>(
+        dagg + (size_t)s.ri[r] * H + c0));
+    const float dav[4] = {da.x, da.y, da.z, da.w};
+    float4* p2 = reinterpret_cast<float4*>(X2 + r * LD + c0);
+    const float4 zv = *p2;
+    const float z2[4] = {zv.x, zv.y, zv.z, zv.w};
+    float o[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float d = ((acc[i][u] + dav[u]) * v) * dsilu(z2[u]);
+      g.pb2[u] += d;
+      o[u] = d;
+    }
+    *p2 = make_float4(o[0], o[1], o[2], o[3]);                   // dz2
+  }
+  __syncthreads();
+  first_layer<H, QM>(nf, s, at, q, ry, c0, X1);                  // m1
+  __syncthreads();
+
+  // -- dW2 += m1^T dz2; dz1 = (dz2 W2^T) dsilu(z1) -> X0, dw1r and the
+  //    row partial sums of dr2 = dz1 . w1r
+  outer<H>(X1, X2, nr, ky, nx, g.dW2);
+  product_q<H, true, QM>(q, X2, s.W2, ry, cx, acc);
+#pragma unroll
+  for (int i = 0; i < QM; ++i) {
+    if (i >= q) break;
+    const int r = ry + 8 * i;
+    const float r2 = s.r2[r];
+    float z[4], o[4], t = 0.f;
+    z1_row<H>(nf, s, at, r, c0, z);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float d = acc[i][u] * dsilu(z[u]);
+      g.pw1r[u] = fmaf(r2, d, g.pw1r[u]);
+      t = fmaf(d, s.w1r[c0 + u], t);
+      o[u] = d;
+    }
+    *reinterpret_cast<float4*>(X0 + r * LD + c0) =
+        make_float4(o[0], o[1], o[2], o[3]);                     // dz1
+    t = lane_sum<8>(t);
+    if ((p.lane & 7) == 0) s.gpart[r * CW + p.wc] = t;
+  }
+  __syncthreads();
+  for (int r = p.tid; r < nr; r += NT) {
+    float dr2 = 0.f;
+    for (int w = 0; w < CW; ++w) dr2 += s.gpart[r * CW + w];
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+      s.rd[r * 3 + d] += 2.f * s.cd[r * 3 + d] * dr2;             // dcd
+  }
+  __syncthreads();
+}
+
+// The input-gradient backward's rows on two activation tiles (X0: m1, then
+// m2, then dz3; X1: dsilu(z2), then dz2), each row's vector [dz1 W1a^T
+// (nf), dcd (3), dz1 W1b^T (nf)] -> rd (row stride 2 nf + 3). SiLU and its
+// derivative at z2 and z3 share one sigmoid. Ends with a barrier.
+template <int H, typename AfterM1>
+__device__ __forceinline__ void bwd_in_rows(const Smem& s, const float* at,
+                                            const float* dagg,
+                                            const float* dfs, int nf, int nr,
+                                            const Thr& p,
+                                            AfterM1&& after_m1) {
+  constexpr int NT = 2 * H, CW = H / 32, LD = H + 4, QM = kQmaxBwdIn;
+  const int q = (nr + 7) >> 3, ry = p.ry, cx = p.cx, c0 = p.c0;
+  const int wc = p.wc, lane = p.lane;
+  const int V = 2 * nf + 3, K1 = 2 * nf + 1;
+  float acc[QM][4];
+  float* X0 = s.X[0];
+  float* X1 = s.X[1];
+
+  // -- recompute the forward: m1 -> X0; z2 (acc), then dsilu(z2) -> X1
+  //    and m2 -> X0 from one sigmoid
+  first_layer<H, QM>(nf, s, at, q, ry, c0, X0);
+  after_m1();
+  __syncthreads();
+  product_q<H, false, QM>(q, X0, s.W2, ry, cx, acc);
+  __syncthreads();                                // every read of m1 done
+#pragma unroll
+  for (int i = 0; i < QM; ++i) {
+    if (i >= q) break;
+    const int r = ry + 8 * i;
+    const float v = s.valid[r];
+    float d2[4], m2[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float z2 = acc[i][u] + s.b2[c0 + u], g = sig(z2);
+      m2[u] = (z2 * g) * v;
+      d2[u] = g * (1.0f + z2 * (1.0f - g));
+    }
+    *reinterpret_cast<float4*>(X1 + r * LD + c0) =
+        make_float4(d2[0], d2[1], d2[2], d2[3]);
+    *reinterpret_cast<float4*>(X0 + r * LD + c0) =
+        make_float4(m2[0], m2[1], m2[2], m2[3]);
+  }
+  __syncthreads();
+
+  // -- z3 and the gate's partial sums, dsilu(z3) (in acc) from the same
+  //    sigmoid; then per row the force branch (clip mask -100 <= cd gate
+  //    <= 100), dgate, the gate part of dcd and dz3 -> X0 (every read of
+  //    m2 is done at the barrier)
+  product_q<H, false, QM>(q, X0, s.W3, ry, cx, acc);
+#pragma unroll
+  for (int i = 0; i < QM; ++i) {
+    if (i >= q) break;
+    const int r = ry + 8 * i;
+    float t = 0.f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float z3 = acc[i][u] + s.b3[c0 + u], g = sig(z3);
+      t = fmaf(z3 * g, s.w4[c0 + u], t);
+      acc[i][u] = g * (1.0f + z3 * (1.0f - g));
+    }
+    t = lane_sum<8>(t);
+    if ((lane & 7) == 0) s.gpart[r * CW + wc] = t;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < QM; ++i) {
+    if (i >= q) break;
+    const int r = ry + 8 * i;
+    const float v = s.valid[r];
+    const int ai = s.ri[r];
+    float gate = 0.f;
+    for (int w = 0; w < CW; ++w) gate += s.gpart[r * CW + w];
+    float dgate = 0.f, dcd = 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float c = s.cd[r * 3 + d];
+      const float raw = c * gate;
+      const float inside = (raw >= -100.f && raw <= 100.f) ? 1.f : 0.f;
+      const float dtr = dfs[ai * 3 + d] * inside * v;
+      dgate = fmaf(c, dtr, dgate);
+      if (cx == d) dcd = gate * dtr;
+    }
+    if (cx < 3) s.rd[r * V + nf + cx] = dcd;
+    float o[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      o[u] = (dgate * s.w4[c0 + u]) * acc[i][u];
+    *reinterpret_cast<float4*>(X0 + r * LD + c0) =
+        make_float4(o[0], o[1], o[2], o[3]);                     // dz3
+  }
+  __syncthreads();
+
+  // -- dm2 = (dz3 W3^T + dagg_i) valid; dz2 = dm2 dsilu(z2) -> X1
+  //    (over the dsilu(z2) it holds)
+  product_q<H, true, QM>(q, X0, s.W3, ry, cx, acc);
+#pragma unroll
+  for (int i = 0; i < QM; ++i) {
+    if (i >= q) break;
+    const int r = ry + 8 * i;
+    const float v = s.valid[r];
+    const float4 da = __ldg(reinterpret_cast<const float4*>(
+        dagg + (size_t)s.ri[r] * H + c0));
+    const float dav[4] = {da.x, da.y, da.z, da.w};
+    float4* p2 = reinterpret_cast<float4*>(X1 + r * LD + c0);
+    const float4 gv = *p2;
+    const float ds2[4] = {gv.x, gv.y, gv.z, gv.w};
+    float o[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      o[u] = ((acc[i][u] + dav[u]) * v) * ds2[u];
+    *p2 = make_float4(o[0], o[1], o[2], o[3]);                   // dz2
+  }
+  __syncthreads();
+
+  // -- dz1 = (dz2 W2^T) dsilu(z1), kept in registers: per row its dot
+  //    with w1r (dr2) and the transposes dz1 W1a^T, dz1 W1b^T, each the
+  //    thread's 4 columns summed over the 8 column lanes, one partial a
+  //    column warp
+  product_q<H, true, QM>(q, X1, s.W2, ry, cx, acc);
+#pragma unroll
+  for (int i = 0; i < QM; ++i) {
+    if (i >= q) break;
+    const int r = ry + 8 * i;
+    float z[4], d[4], t = 0.f;
+    z1_row<H>(nf, s, at, r, c0, z);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      d[u] = acc[i][u] * dsilu(z[u]);
+      t = fmaf(d[u], s.w1r[c0 + u], t);
+    }
+    float* gp = s.gpart + r * K1 * CW + wc;
+    t = lane_sum<8>(t);
+    if ((lane & 7) == 0) gp[0] = t;
+    for (int k = 0; k < 2 * nf; ++k) {
+      const float4 w = *reinterpret_cast<const float4*>(
+          (k < nf ? s.W1a + k * H : s.W1b + (k - nf) * H) + c0);
+      float x = fmaf(d[3], w.w, fmaf(d[2], w.z, fmaf(d[1], w.y,
+                     d[0] * w.x)));
+      x = lane_sum<8>(x);
+      if ((lane & 7) == 0) gp[(1 + k) * CW] = x;
+    }
+  }
+  __syncthreads();
+  for (int w = p.tid; w < nr * K1; w += NT) {
+    const int r = w / K1, k = w - r * K1;
+    const float* gp = s.gpart + w * CW;
+    float t = 0.f;
+    for (int c = 0; c < CW; ++c) t += gp[c];
+    float* rv = s.rd + r * V;
+    if (k == 0) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        rv[nf + d] += 2.f * s.cd[r * 3 + d] * t;                  // dcd
+    } else {
+      rv[k <= nf ? k - 1 : k + 2] = t;
+    }
+  }
+  __syncthreads();
+}
+
+// The block's slice of the partials: dW2, dW3 and the column sums written
+// once with plain stores (the column sums over the 8 row lanes of each
+// column, added in row-lane order in the X0 tile).
+template <int H>
+__device__ void write_slice(float* part, const PartLayout& L, const Smem& s,
+                            const Thr& p, const ParamAcc<H>& g) {
+  constexpr int NT = 2 * H, NG = H / 64;
+  const int nx = p.tid % 16, ky = p.tid / 16;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int k = 4 * ky + (q & 3) + (q >> 2) * (H / 2);
+#pragma unroll
+    for (int b = 0; b < NG; ++b) {
+      const int n = 64 * b + 4 * nx;
+      *reinterpret_cast<float4*>(part + L.dW2 + k * H + n) = make_float4(
+          g.dW2[q][4 * b], g.dW2[q][4 * b + 1], g.dW2[q][4 * b + 2],
+          g.dW2[q][4 * b + 3]);
+      *reinterpret_cast<float4*>(part + L.dW3 + k * H + n) = make_float4(
+          g.dW3[q][4 * b], g.dW3[q][4 * b + 1], g.dW3[q][4 * b + 2],
+          g.dW3[q][4 * b + 3]);
+    }
+  }
+  float* red = s.X[0];
+  const auto column_sums = [&](const float (&v)[4], int off) {
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < 4; ++u) red[p.ry * H + p.c0 + u] = v[u];
+    __syncthreads();
+    for (int c = p.tid; c < H; c += NT) {
+      float t = 0.f;
+      for (int y = 0; y < 8; ++y) t += red[y * H + c];
+      part[off + c] = t;
+    }
+  };
+  column_sums(g.pw4, L.dw4);
+  column_sums(g.pb3, L.db3);
+  column_sums(g.pb2, L.db2);
+  column_sums(g.pw1r, L.dw1r);
+}
+
+// ---- the one-molecule kernels: persistent blocks over molecule tiles
+
 template <int H>
 __global__ void __launch_bounds__(2 * H, 1) egcl_f32_fwd_kernel(Args a) {
-  constexpr int NT = 2 * H, CW = H / 32, LD = H + 4, QM = kQmaxFwd;
+  constexpr int NT = 2 * H, LD = H + 4;
   extern __shared__ __align__(128) char smem_raw[];
   const int tid = threadIdx.x, N = a.N, nf = a.nf;
   Smem s;
   Bump m{smem_raw, 0};
   carve(m, s, N, nf, H, a.MT, a.R, kFwd);
-  // a warp: 4 rows x 8 column lanes (32 columns); CW warps span a row
-  const int lane = tid & 31, wp = tid >> 5;
-  const int cx = 8 * (wp % CW) + (lane & 7), ry = 4 * (wp / CW) + (lane >> 3);
-  const int c0 = 4 * cx;
+  const Thr p = thread_place<H>();
   // the first tile's atoms and the small weights, then W2 and W3 (waited
   // for after the first layer, which needs neither)
   Cursor cur{(int)blockIdx.x, 0};
@@ -548,11 +1064,10 @@ __global__ void __launch_bounds__(2 * H, 1) egcl_f32_fwd_kernel(Args a) {
   load_weights<H>(a, s);
   cp_async_commit();
   bool first = true;
-  float acc[QM][4];
   while (cur.tile < a.n_tiles) {
     const int b0 = cur.tile * a.MT, na = min(a.MT, a.B - b0) * N;
     const int rows = rows_of(a, cur.tile);
-    const int g0 = cur.g0, nr = min(a.R, rows - g0), q = (nr + 7) >> 3;
+    const int g0 = cur.g0, nr = min(a.R, rows - g0);
     const Cursor nxt = advance(a, cur);
     const int more = nxt.tile < a.n_tiles;
     const bool new_atoms = more && nxt.tile != cur.tile;
@@ -569,46 +1084,13 @@ __global__ void __launch_bounds__(2 * H, 1) egcl_f32_fwd_kernel(Args a) {
     }
     row_geometry(a, s, at, g0, nr);
     __syncthreads();
-    first_layer<H, QM>(nf, s, at, q, ry, c0, s.X[0]);              // m1
-    if (first) cp_async_wait_n(more);                         // W2, W3
-    first = false;
-    __syncthreads();
-    product_q<H, false, QM>(q, s.X[0], s.W2, ry, cx, acc);         // z2
-#pragma unroll
-    for (int i = 0; i < QM; ++i) {
-      if (i >= q) break;
-      const int r = ry + 8 * i;
-      const float v = s.valid[r];
-      float o[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) o[u] = silu(acc[i][u] + s.b2[c0 + u]) * v;
-      *reinterpret_cast<float4*>(s.X[1] + r * LD + c0) =
-          make_float4(o[0], o[1], o[2], o[3]);                     // m2
-    }
-    __syncthreads();
-    isum_rows(s.accH, H, s.X[1], LD, g0, nr, N, NT);               // agg
-    product_q<H, false, QM>(q, s.X[1], s.W3, ry, cx, acc);         // z3
-#pragma unroll
-    for (int i = 0; i < QM; ++i) {
-      if (i >= q) break;
-      float p = 0.f;
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        p = fmaf(silu(acc[i][u] + s.b3[c0 + u]), s.w4[c0 + u], p);
-      p = lane_sum<8>(p);
-      if ((lane & 7) == 0) s.gpart[(ry + 8 * i) * CW + wp % CW] = p;
-    }
-    __syncthreads();
-    for (int r = tid; r < nr; r += NT) {
-      float gate = 0.f;
-      for (int w = 0; w < CW; ++w) gate += s.gpart[r * CW + w];
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const float t = fminf(fmaxf(s.cd[r * 3 + d] * gate, -100.f), 100.f);
-        s.rd[r * 3 + d] = t * s.valid[r];                           // tr
-      }
-    }
-    __syncthreads();
+    fwd_rows<H>(
+        s, at, nf, nr, p,
+        [&] {
+          if (first) cp_async_wait_n(more);               // W2, W3
+          first = false;
+        },
+        [&] { isum_rows(s.accH, H, s.X[1], LD, g0, nr, N, NT); });
     isum_rows(s.acc3, 3, s.rd, 3, g0, nr, N, NT);                   // fsum
     if (g0 + nr == rows) {
       __syncthreads();
@@ -626,17 +1108,13 @@ __global__ void __launch_bounds__(2 * H, 1) egcl_f32_fwd_kernel(Args a) {
 template <int H>
 __global__ void __launch_bounds__(2 * H, 1)
     egcl_f32_bwd_params_kernel(Args a) {
-  constexpr int NT = 2 * H, CW = H / 32, LD = H + 4, QM = kQmaxBwd;
-  constexpr int NG = H / 64;
+  constexpr int NT = 2 * H, LD = H + 4;
   extern __shared__ __align__(128) char smem_raw[];
   const int tid = threadIdx.x, N = a.N, nf = a.nf, MT = a.MT;
   Smem s;
   Bump m{smem_raw, 0};
   carve(m, s, N, nf, H, MT, a.R, kBwdParams);
-  const int lane = tid & 31, wp = tid >> 5;
-  const int cx = 8 * (wp % CW) + (lane & 7), ry = 4 * (wp / CW) + (lane >> 3);
-  const int c0 = 4 * cx;
-  const int nx = tid % 16, ky = tid / 16;
+  const Thr p = thread_place<H>();
   const PartLayout L(nf, H);
   float* const part = a.part + (size_t)blockIdx.x * L.P;
   // dW1a, dW1b and db1 are added into once a molecule tile, by the thread
@@ -653,17 +1131,8 @@ __global__ void __launch_bounds__(2 * H, 1)
   cp_async_commit();
   bool first = true;
 
-  // the block's parameter-gradient sums: dW2, dW3 in registers (the
-  // outer-product tile), the column sums per thread (its 4 columns, its
-  // rows)
-  float dW2[8][4 * NG], dW3[8][4 * NG];
-#pragma unroll
-  for (int p = 0; p < 8; ++p)
-#pragma unroll
-    for (int b = 0; b < 4 * NG; ++b) dW2[p][b] = dW3[p][b] = 0.f;
-  float pw4[4] = {0.f, 0.f, 0.f, 0.f}, pb3[4] = {0.f, 0.f, 0.f, 0.f};
-  float pb2[4] = {0.f, 0.f, 0.f, 0.f}, pw1r[4] = {0.f, 0.f, 0.f, 0.f};
-  float acc[QM][4];
+  ParamAcc<H> g;
+  zero_params<H>(g);
   float* const dz1i = s.accH;
   float* const dz1j = s.accH + MT * N * H;
   float* const dpi = s.acc3;
@@ -672,7 +1141,7 @@ __global__ void __launch_bounds__(2 * H, 1)
   while (cur.tile < a.n_tiles) {
     const int b0 = cur.tile * MT, na = min(MT, a.B - b0) * N;
     const int rows = rows_of(a, cur.tile);
-    const int g0 = cur.g0, nr = min(a.R, rows - g0), q = (nr + 7) >> 3;
+    const int g0 = cur.g0, nr = min(a.R, rows - g0);
     const Cursor nxt = advance(a, cur);
     const int more = nxt.tile < a.n_tiles;
     const bool new_atoms = more && nxt.tile != cur.tile;
@@ -683,160 +1152,21 @@ __global__ void __launch_bounds__(2 * H, 1)
     cp_async_wait_n(first + more);
     __syncthreads();
     const float* at = s.stage(ab);
-    const float* dfs = at + s.at_dfs;
-    const float* dagg = a.dagg + (size_t)b0 * N * H;
-    float* X0 = s.X[0];
-    float* X1 = s.X[1];
-    float* X2 = s.X[2];
     if (g0 == 0) {
       for (int k = tid; k < MT * N * H; k += NT) dz1i[k] = dz1j[k] = 0.f;
       for (int k = tid; k < MT * N * 3; k += NT) dpi[k] = dpj[k] = 0.f;
     }
     row_geometry(a, s, at, g0, nr);
     __syncthreads();
-
-    // -- recompute the forward: m1 -> X0; z2 -> X2, m2 -> X1
-    first_layer<H, QM>(nf, s, at, q, ry, c0, X0);
-    if (first) cp_async_wait_n(more);                         // W2, W3
-    first = false;
-    __syncthreads();
-    product_q<H, false, QM>(q, X0, s.W2, ry, cx, acc);
-#pragma unroll
-    for (int i = 0; i < QM; ++i) {
-      if (i >= q) break;
-      const int r = ry + 8 * i;
-      const float v = s.valid[r];
-      float z2[4], m2[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        z2[u] = acc[i][u] + s.b2[c0 + u];
-        m2[u] = silu(z2[u]) * v;
-      }
-      *reinterpret_cast<float4*>(X2 + r * LD + c0) =
-          make_float4(z2[0], z2[1], z2[2], z2[3]);
-      *reinterpret_cast<float4*>(X1 + r * LD + c0) =
-          make_float4(m2[0], m2[1], m2[2], m2[3]);
-    }
-    __syncthreads();
-
-    // -- z3 (in acc), g1 -> X0 and the gate's partial sums; then per row
-    //    the force branch (clip mask -100 <= cd gate <= 100), dgate, the
-    //    gate part of dcd, dw4, db3 and dz3 -> X0
-    product_q<H, false, QM>(q, X1, s.W3, ry, cx, acc);
-#pragma unroll
-    for (int i = 0; i < QM; ++i) {
-      if (i >= q) break;
-      const int r = ry + 8 * i;
-      float g1[4], p = 0.f;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        acc[i][u] += s.b3[c0 + u];
-        g1[u] = silu(acc[i][u]);
-        p = fmaf(g1[u], s.w4[c0 + u], p);
-      }
-      *reinterpret_cast<float4*>(X0 + r * LD + c0) =
-          make_float4(g1[0], g1[1], g1[2], g1[3]);
-      p = lane_sum<8>(p);
-      if ((lane & 7) == 0) s.gpart[r * CW + wp % CW] = p;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < QM; ++i) {
-      if (i >= q) break;
-      const int r = ry + 8 * i;
-      const float v = s.valid[r];
-      const int ai = s.ri[r];
-      float gate = 0.f;
-      for (int w = 0; w < CW; ++w) gate += s.gpart[r * CW + w];
-      float dgate = 0.f, dcd = 0.f;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const float c = s.cd[r * 3 + d];
-        const float raw = c * gate;
-        const float inside = (raw >= -100.f && raw <= 100.f) ? 1.f : 0.f;
-        const float dtr = dfs[ai * 3 + d] * inside * v;
-        dgate = fmaf(c, dtr, dgate);
-        if (cx == d) dcd = gate * dtr;
-      }
-      if (cx < 3) s.rd[r * 3 + cx] = dcd;
-      float4* x = reinterpret_cast<float4*>(X0 + r * LD + c0);
-      const float4 gv = *x;
-      const float g1[4] = {gv.x, gv.y, gv.z, gv.w};
-      float o[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        pw4[u] = fmaf(g1[u], dgate, pw4[u]);
-        const float d = (dgate * s.w4[c0 + u]) * dsilu(acc[i][u]);
-        pb3[u] += d;
-        o[u] = d;
-      }
-      *x = make_float4(o[0], o[1], o[2], o[3]);                    // dz3
-    }
-    __syncthreads();
-
-    // -- dW3 += m2^T dz3; dm2 = (dz3 W3^T + dagg_i) valid; dz2 -> X2, db2
-    outer<H>(X1, X0, nr, ky, nx, dW3);
-    product_q<H, true, QM>(q, X0, s.W3, ry, cx, acc);
-#pragma unroll
-    for (int i = 0; i < QM; ++i) {
-      if (i >= q) break;
-      const int r = ry + 8 * i;
-      const float v = s.valid[r];
-      const float4 da = __ldg(reinterpret_cast<const float4*>(
-          dagg + (size_t)s.ri[r] * H + c0));
-      const float dav[4] = {da.x, da.y, da.z, da.w};
-      float4* p2 = reinterpret_cast<float4*>(X2 + r * LD + c0);
-      const float4 zv = *p2;
-      const float z2[4] = {zv.x, zv.y, zv.z, zv.w};
-      float o[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float d = ((acc[i][u] + dav[u]) * v) * dsilu(z2[u]);
-        pb2[u] += d;
-        o[u] = d;
-      }
-      *p2 = make_float4(o[0], o[1], o[2], o[3]);                   // dz2
-    }
-    __syncthreads();
-    first_layer<H, QM>(nf, s, at, q, ry, c0, X1);                  // m1
-    __syncthreads();
-
-    // -- dW2 += m1^T dz2; dz1 = (dz2 W2^T) dsilu(z1) -> X0, dw1r and the
-    //    row partial sums of dr2 = dz1 . w1r
-    outer<H>(X1, X2, nr, ky, nx, dW2);
-    product_q<H, true, QM>(q, X2, s.W2, ry, cx, acc);
-#pragma unroll
-    for (int i = 0; i < QM; ++i) {
-      if (i >= q) break;
-      const int r = ry + 8 * i;
-      const float r2 = s.r2[r];
-      float z[4], o[4], p = 0.f;
-      z1_row<H>(nf, s, at, r, c0, z);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float d = acc[i][u] * dsilu(z[u]);
-        pw1r[u] = fmaf(r2, d, pw1r[u]);
-        p = fmaf(d, s.w1r[c0 + u], p);
-        o[u] = d;
-      }
-      *reinterpret_cast<float4*>(X0 + r * LD + c0) =
-          make_float4(o[0], o[1], o[2], o[3]);                     // dz1
-      p = lane_sum<8>(p);
-      if ((lane & 7) == 0) s.gpart[r * CW + wp % CW] = p;
-    }
-    __syncthreads();
-    for (int r = tid; r < nr; r += NT) {
-      float dr2 = 0.f;
-      for (int w = 0; w < CW; ++w) dr2 += s.gpart[r * CW + w];
-#pragma unroll
-      for (int d = 0; d < 3; ++d)
-        s.rd[r * 3 + d] += 2.f * s.cd[r * 3 + d] * dr2;             // dcd
-    }
-    __syncthreads();
+    bwd_params_rows<H>(s, at, a.dagg + (size_t)b0 * N * H, at + s.at_dfs,
+                       nf, nr, p, g, [&] {
+                         if (first) cp_async_wait_n(more);  // W2, W3
+                         first = false;
+                       });
 
     // -- node sums, i side and j side, in a fixed order
-    isum_rows(dz1i, H, X0, LD, g0, nr, N, NT);
-    jsum_rows(dz1j, H, X0, LD, g0, nr, N, NT);
+    isum_rows(dz1i, H, s.X[0], LD, g0, nr, N, NT);
+    jsum_rows(dz1j, H, s.X[0], LD, g0, nr, N, NT);
     isum_rows(dpi, 3, s.rd, 3, g0, nr, N, NT);
     jsum_rows(dpj, 3, s.rd, 3, g0, nr, N, NT);
 
@@ -874,62 +1204,25 @@ __global__ void __launch_bounds__(2 * H, 1)
     if (new_atoms) ab ^= 1;
     cur = nxt;
   }
-
-  // -- the block's slice of the partials: dW2, dW3 and the column sums
-  //    written once with plain stores
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int k = 4 * ky + (p & 3) + (p >> 2) * (H / 2);
-#pragma unroll
-    for (int b = 0; b < NG; ++b) {
-      const int n = 64 * b + 4 * nx;
-      *reinterpret_cast<float4*>(part + L.dW2 + k * H + n) = make_float4(
-          dW2[p][4 * b], dW2[p][4 * b + 1], dW2[p][4 * b + 2],
-          dW2[p][4 * b + 3]);
-      *reinterpret_cast<float4*>(part + L.dW3 + k * H + n) = make_float4(
-          dW3[p][4 * b], dW3[p][4 * b + 1], dW3[p][4 * b + 2],
-          dW3[p][4 * b + 3]);
-    }
-  }
-  // column sums: the 8 row lanes of each column, added in row-lane order
-  float* red = s.X[0];
-  const auto column_sums = [&](const float (&p)[4], int off) {
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < 4; ++u) red[ry * H + c0 + u] = p[u];
-    __syncthreads();
-    for (int c = tid; c < H; c += NT) {
-      float t = 0.f;
-      for (int y = 0; y < 8; ++y) t += red[y * H + c];
-      part[off + c] = t;
-    }
-  };
-  column_sums(pw4, L.dw4);
-  column_sums(pb3, L.db3);
-  column_sums(pb2, L.db2);
-  column_sums(pw1r, L.dw1r);
+  write_slice<H>(part, L, s, p, g);
 }
 
 // The input-gradient backward: dh and dpos only. The parameter-gradient
 // kernel's rows, recompute and clip mask, without the outer products and
-// the slice, on two activation tiles (X0: m1, then m2, then dz3; X1:
-// dsilu(z2), then dz2), and with dh's node sums taken per row after the
-// first layer's transposes (see the top). SiLU and its derivative at z2 and
-// z3 share one sigmoid.
+// the slice, and with dh's node sums taken per row after the first
+// layer's transposes (see the top).
 template <int H>
 __global__ void __launch_bounds__(2 * H, 1) egcl_f32_bwd_kernel(Args a) {
-  constexpr int NT = 2 * H, CW = H / 32, LD = H + 4, QM = kQmaxBwdIn;
+  constexpr int NT = 2 * H;
   extern __shared__ __align__(128) char smem_raw[];
   const int tid = threadIdx.x, N = a.N, nf = a.nf, MT = a.MT;
   Smem s;
   Bump m{smem_raw, 0};
   carve(m, s, N, nf, H, MT, a.R, kBwd);
-  const int lane = tid & 31, wp = tid >> 5, wc = wp % CW;
-  const int cx = 8 * wc + (lane & 7), ry = 4 * (wp / CW) + (lane >> 3);
-  const int c0 = 4 * cx;
+  const Thr p = thread_place<H>();
   // a row's vector: [dz1 W1a^T (nf), dcd (3), dz1 W1b^T (nf)]; the i side
   // sums its first nf + 3 columns, the j side its last nf + 3
-  const int V = 2 * nf + 3, A = nf + 3, K1 = 2 * nf + 1;
+  const int V = 2 * nf + 3, A = nf + 3;
   float* const si = s.accH;
   float* const sj = s.accH + MT * N * A;
   Cursor cur{(int)blockIdx.x, 0};
@@ -940,12 +1233,11 @@ __global__ void __launch_bounds__(2 * H, 1) egcl_f32_bwd_kernel(Args a) {
   load_weights<H>(a, s);
   cp_async_commit();
   bool first = true;
-  float acc[QM][4];
 
   while (cur.tile < a.n_tiles) {
     const int b0 = cur.tile * MT, na = min(MT, a.B - b0) * N;
     const int rows = rows_of(a, cur.tile);
-    const int g0 = cur.g0, nr = min(a.R, rows - g0), q = (nr + 7) >> 3;
+    const int g0 = cur.g0, nr = min(a.R, rows - g0);
     const Cursor nxt = advance(a, cur);
     const int more = nxt.tile < a.n_tiles;
     const bool new_atoms = more && nxt.tile != cur.tile;
@@ -956,156 +1248,15 @@ __global__ void __launch_bounds__(2 * H, 1) egcl_f32_bwd_kernel(Args a) {
     cp_async_wait_n(first + more);
     __syncthreads();
     const float* at = s.stage(ab);
-    const float* dfs = at + s.at_dfs;
-    const float* dagg = a.dagg + (size_t)b0 * N * H;
-    float* X0 = s.X[0];
-    float* X1 = s.X[1];
     if (g0 == 0)
       for (int k = tid; k < 2 * MT * N * A; k += NT) si[k] = 0.f;
     row_geometry(a, s, at, g0, nr);
     __syncthreads();
-
-    // -- recompute the forward: m1 -> X0; z2 (acc), then dsilu(z2) -> X1
-    //    and m2 -> X0 from one sigmoid
-    first_layer<H, QM>(nf, s, at, q, ry, c0, X0);
-    if (first) cp_async_wait_n(more);                         // W2, W3
-    first = false;
-    __syncthreads();
-    product_q<H, false, QM>(q, X0, s.W2, ry, cx, acc);
-    __syncthreads();                                // every read of m1 done
-#pragma unroll
-    for (int i = 0; i < QM; ++i) {
-      if (i >= q) break;
-      const int r = ry + 8 * i;
-      const float v = s.valid[r];
-      float d2[4], m2[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float z2 = acc[i][u] + s.b2[c0 + u], g = sig(z2);
-        m2[u] = (z2 * g) * v;
-        d2[u] = g * (1.0f + z2 * (1.0f - g));
-      }
-      *reinterpret_cast<float4*>(X1 + r * LD + c0) =
-          make_float4(d2[0], d2[1], d2[2], d2[3]);
-      *reinterpret_cast<float4*>(X0 + r * LD + c0) =
-          make_float4(m2[0], m2[1], m2[2], m2[3]);
-    }
-    __syncthreads();
-
-    // -- z3 and the gate's partial sums, dsilu(z3) (in acc) from the same
-    //    sigmoid; then per row the force branch (clip mask -100 <= cd gate
-    //    <= 100), dgate, the gate part of dcd and dz3 -> X0 (every read of
-    //    m2 is done at the barrier)
-    product_q<H, false, QM>(q, X0, s.W3, ry, cx, acc);
-#pragma unroll
-    for (int i = 0; i < QM; ++i) {
-      if (i >= q) break;
-      const int r = ry + 8 * i;
-      float p = 0.f;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float z3 = acc[i][u] + s.b3[c0 + u], g = sig(z3);
-        p = fmaf(z3 * g, s.w4[c0 + u], p);
-        acc[i][u] = g * (1.0f + z3 * (1.0f - g));
-      }
-      p = lane_sum<8>(p);
-      if ((lane & 7) == 0) s.gpart[r * CW + wc] = p;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < QM; ++i) {
-      if (i >= q) break;
-      const int r = ry + 8 * i;
-      const float v = s.valid[r];
-      const int ai = s.ri[r];
-      float gate = 0.f;
-      for (int w = 0; w < CW; ++w) gate += s.gpart[r * CW + w];
-      float dgate = 0.f, dcd = 0.f;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const float c = s.cd[r * 3 + d];
-        const float raw = c * gate;
-        const float inside = (raw >= -100.f && raw <= 100.f) ? 1.f : 0.f;
-        const float dtr = dfs[ai * 3 + d] * inside * v;
-        dgate = fmaf(c, dtr, dgate);
-        if (cx == d) dcd = gate * dtr;
-      }
-      if (cx < 3) s.rd[r * V + nf + cx] = dcd;
-      float o[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        o[u] = (dgate * s.w4[c0 + u]) * acc[i][u];
-      *reinterpret_cast<float4*>(X0 + r * LD + c0) =
-          make_float4(o[0], o[1], o[2], o[3]);                     // dz3
-    }
-    __syncthreads();
-
-    // -- dm2 = (dz3 W3^T + dagg_i) valid; dz2 = dm2 dsilu(z2) -> X1
-    //    (over the dsilu(z2) it holds)
-    product_q<H, true, QM>(q, X0, s.W3, ry, cx, acc);
-#pragma unroll
-    for (int i = 0; i < QM; ++i) {
-      if (i >= q) break;
-      const int r = ry + 8 * i;
-      const float v = s.valid[r];
-      const float4 da = __ldg(reinterpret_cast<const float4*>(
-          dagg + (size_t)s.ri[r] * H + c0));
-      const float dav[4] = {da.x, da.y, da.z, da.w};
-      float4* p2 = reinterpret_cast<float4*>(X1 + r * LD + c0);
-      const float4 gv = *p2;
-      const float ds2[4] = {gv.x, gv.y, gv.z, gv.w};
-      float o[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        o[u] = ((acc[i][u] + dav[u]) * v) * ds2[u];
-      *p2 = make_float4(o[0], o[1], o[2], o[3]);                   // dz2
-    }
-    __syncthreads();
-
-    // -- dz1 = (dz2 W2^T) dsilu(z1), kept in registers: per row its dot
-    //    with w1r (dr2) and the transposes dz1 W1a^T, dz1 W1b^T, each the
-    //    thread's 4 columns summed over the 8 column lanes, one partial a
-    //    column warp
-    product_q<H, true, QM>(q, X1, s.W2, ry, cx, acc);
-#pragma unroll
-    for (int i = 0; i < QM; ++i) {
-      if (i >= q) break;
-      const int r = ry + 8 * i;
-      float z[4], d[4], p = 0.f;
-      z1_row<H>(nf, s, at, r, c0, z);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        d[u] = acc[i][u] * dsilu(z[u]);
-        p = fmaf(d[u], s.w1r[c0 + u], p);
-      }
-      float* gp = s.gpart + r * K1 * CW + wc;
-      p = lane_sum<8>(p);
-      if ((lane & 7) == 0) gp[0] = p;
-      for (int k = 0; k < 2 * nf; ++k) {
-        const float4 w = *reinterpret_cast<const float4*>(
-            (k < nf ? s.W1a + k * H : s.W1b + (k - nf) * H) + c0);
-        float t = fmaf(d[3], w.w, fmaf(d[2], w.z, fmaf(d[1], w.y,
-                       d[0] * w.x)));
-        t = lane_sum<8>(t);
-        if ((lane & 7) == 0) gp[(1 + k) * CW] = t;
-      }
-    }
-    __syncthreads();
-    for (int w = tid; w < nr * K1; w += NT) {
-      const int r = w / K1, k = w - r * K1;
-      const float* gp = s.gpart + w * CW;
-      float t = 0.f;
-      for (int c = 0; c < CW; ++c) t += gp[c];
-      float* rv = s.rd + r * V;
-      if (k == 0) {
-#pragma unroll
-        for (int d = 0; d < 3; ++d)
-          rv[nf + d] += 2.f * s.cd[r * 3 + d] * t;                  // dcd
-      } else {
-        rv[k <= nf ? k - 1 : k + 2] = t;
-      }
-    }
-    __syncthreads();
+    bwd_in_rows<H>(s, at, a.dagg + (size_t)b0 * N * H, at + s.at_dfs, nf,
+                   nr, p, [&] {
+                     if (first) cp_async_wait_n(more);      // W2, W3
+                     first = false;
+                   });
 
     // -- node sums, i side and j side, in a fixed order
     isum_rows(si, A, s.rd, V, g0, nr, N, NT);
@@ -1129,6 +1280,362 @@ __global__ void __launch_bounds__(2 * H, 1) egcl_f32_bwd_kernel(Args a) {
     __syncthreads();
     if (new_atoms) ab ^= 1;
     cur = nxt;
+  }
+}
+
+// ---- the block-pair kernels: molecules past one block's shared memory
+//
+// The unit of work is a (molecule, i-block) item: a block keeps the
+// i-block's atoms and i-side sums in shared memory and walks the j-blocks
+// in order, loading each one's atoms beside the i-block's and visiting the
+// block pair's rows i != j in row tiles of R rows with the row code above
+// (Pairs: i-major, j = i skipped on the diagonal block pair). The forward's
+// sums are i-side only, so an item writes its atoms' agg and fsum itself.
+// The backward's j-side sums of a block pair, as nf + 3 floats an atom
+// ([dcd_j, dz1_j W1b^T]), go to their own row of the partials pj [B, nI,
+// N, nf + 3]; an item's i-side sums ([dz1_i W1a^T, dcd_i]) to si [B, N,
+// nf + 3]; egcl_f32_blocks_finish_kernel sums pj over the i-blocks in
+// order and forms dh and dpos. With parameter gradients a block pair keeps
+// its j-block's H-wide dz1 sums and adds h_j (x) them into the block's
+// dW1b (then projects them to its partials); an item adds h_i (x) its
+// i-side dz1 sums into dW1a and their sum into db1; dW2, dW3 and the
+// column sums are the one-molecule kernel's. Every sum has one owner and a
+// fixed order, no atomics: a second launch gives the same bits.
+
+// A block pair's rows: ni i atoms against nj j atoms (ncol = nj, or nj - 1
+// on the diagonal block pair, diag, where the blocks are one); row q < E
+// = ni ncol is the pair (i, j), i = q / ncol, j the (q % ncol)-th j atom,
+// skipping j = i where diag.
+struct Pairs {
+  int ncol, nj, E;
+  bool diag;
+};
+
+__host__ __device__ inline Pairs pairs_of(int ni, int nj, bool diag) {
+  const int ncol = nj - (diag ? 1 : 0);
+  return Pairs{ncol, nj, ni * ncol, diag};
+}
+
+// Per row r < R of a block pair's row tile from row g0: its atoms in the
+// staged atoms (the i atom at its place in the i-block, the j atom at A +
+// its place in the j-block), the min-image cd (round half to even, as
+// jnp.round), r2 and valid = mask_i mask_j; rows past nr are padding.
+__device__ void pair_geometry(const Smem& s, const float* at, const Pairs& P,
+                              int A, int R, int g0, int nr) {
+  const int r = threadIdx.x;
+  if (r >= R) return;
+  if (r < nr) {
+    const float* pos = at + s.at_pos;
+    const float* mask = at + s.at_mask;
+    const int g = g0 + r, i = g / P.ncol, jj = g - i * P.ncol;
+    const int aj = A + jj + (P.diag && jj >= i);
+    float r2 = 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      float c = pos[i * 3 + d] - pos[aj * 3 + d];
+      const float bx = at[s.at_box + d];
+      c = c - rintf(c / bx) * bx;
+      s.cd[r * 3 + d] = c;
+      r2 += c * c;
+    }
+    s.r2[r] = r2;
+    s.valid[r] = mask[i] * mask[aj];
+    s.ri[r] = i;
+    s.rj[r] = aj;
+  } else {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) s.cd[r * 3 + d] = 0.f;
+    s.r2[r] = 0.f;
+    s.valid[r] = 0.f;
+    s.ri[r] = 0;
+    s.rj[r] = 0;
+  }
+}
+
+// j-side sums of a block pair's row tile [g0, g0 + nr): for each of its nj
+// j atoms the tile's rows (i, j) in row (i) order, one (atom, column) a
+// thread: dst[j][c] += sum src[r][c].
+__device__ __forceinline__ void jsum_pair(float* dst, int ncols,
+                                          const float* src, int ld, int g0,
+                                          int nr, const Pairs& P, int NT) {
+  if (nr <= 0) return;
+  const int i0 = g0 / P.ncol, i1 = (g0 + nr - 1) / P.ncol;
+  for (int w = threadIdx.x; w < P.nj * ncols; w += NT) {
+    const int l = w / ncols, c = w % ncols;
+    float acc = 0.f;
+    for (int i = i0; i <= i1; ++i) {
+      if (P.diag && i == l) continue;
+      const int g = i * P.ncol + l - (P.diag && l > i);
+      if (g >= g0 && g < g0 + nr) acc += src[(g - g0) * ld + c];
+    }
+    dst[l * ncols + c] += acc;
+  }
+}
+
+// Atoms a0 .. a0 + n - 1 of molecule b into the staged atoms from place at0
+// (the i-block at 0, the j-block at A): h, pos and mask; with `side_i` also
+// the molecule's box and (backward) the atoms' dfsum rows.
+template <int H>
+__device__ void load_block(const Args& a, const Smem& s, float* at, int b,
+                           int a0, int n, int at0, bool side_i, bool bwd) {
+  constexpr int NT = 2 * H;
+  const int nf = a.nf;
+  const size_t nb = (size_t)b * a.N + a0;
+  for (int k = threadIdx.x; k < n * nf; k += NT)
+    at[at0 * nf + k] = a.h[nb * nf + k];
+  for (int k = threadIdx.x; k < n * 3; k += NT)
+    at[s.at_pos + at0 * 3 + k] = a.pos[nb * 3 + k];
+  for (int k = threadIdx.x; k < n; k += NT)
+    at[s.at_mask + at0 + k] = a.mask[nb + k];
+  if (!side_i) return;
+  for (int k = threadIdx.x; k < 3; k += NT)
+    at[s.at_box + k] = a.box[(size_t)b * 3 + k];
+  if (bwd)
+    for (int k = threadIdx.x; k < n * 3; k += NT)
+      at[s.at_dfs + k] = a.dfsum[nb * 3 + k];
+}
+
+// The weights by cp.async, waited for (the block-pair kernels' prologue).
+template <int H>
+__device__ void load_all_weights(const Args& a, const Smem& s) {
+  load_small<H>(a, s);
+  load_weights<H>(a, s);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Atoms a block of atoms k of a molecule holds (the last may be short).
+__device__ __forceinline__ int block_len(int N, int A, int k) {
+  return min(A, N - k * A);
+}
+
+template <int H>
+__global__ void __launch_bounds__(2 * H, 1)
+    egcl_f32_blocks_fwd_kernel(Args a) {
+  constexpr int NT = 2 * H, LD = H + 4;
+  extern __shared__ __align__(128) char smem_raw[];
+  const int tid = threadIdx.x, N = a.N, nf = a.nf, A = a.A, nI = a.nI;
+  Smem s;
+  Bump m{smem_raw, 0};
+  carve_pairs(m, s, A, nf, H, a.R, kFwd);
+  const Thr p = thread_place<H>();
+  float* const at = s.stage(0);
+  load_all_weights<H>(a, s);
+  const long long items = (long long)a.B * nI;
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    const int b = (int)(it / nI), ib = (int)(it % nI);
+    const int ni = block_len(N, A, ib);
+    load_block<H>(a, s, at, b, ib * A, ni, 0, true, false);
+    for (int k = tid; k < ni * H; k += NT) s.accH[k] = 0.f;
+    for (int k = tid; k < ni * 3; k += NT) s.acc3[k] = 0.f;
+    for (int jb = 0; jb < nI; ++jb) {
+      const int nj = block_len(N, A, jb);
+      load_block<H>(a, s, at, b, jb * A, nj, A, false, false);
+      __syncthreads();
+      const Pairs P = pairs_of(ni, nj, ib == jb);
+      for (int g0 = 0; g0 < P.E; g0 += a.R) {
+        const int nr = min(a.R, P.E - g0);
+        pair_geometry(s, at, P, A, a.R, g0, nr);
+        __syncthreads();
+        fwd_rows<H>(s, at, nf, nr, p, [] {}, [&] {
+          isum_rows(s.accH, H, s.X[1], LD, g0, nr, P.ncol + 1, NT);
+        });
+        isum_rows(s.acc3, 3, s.rd, 3, g0, nr, P.ncol + 1, NT);      // fsum
+        __syncthreads();
+      }
+    }
+    const size_t nb = (size_t)b * N + ib * A;
+    for (int k = tid; k < ni * H; k += NT) a.agg[nb * H + k] = s.accH[k];
+    for (int k = tid; k < ni * 3; k += NT) a.fsum[nb * 3 + k] = s.acc3[k];
+    __syncthreads();
+  }
+}
+
+// The input-gradient backward over block pairs: the i-side sums [ni, nf +
+// 3] of an item and the j-side sums [nj, nf + 3] of each block pair, in
+// the one-molecule kernel's row vectors.
+template <int H>
+__global__ void __launch_bounds__(2 * H, 1)
+    egcl_f32_blocks_bwd_kernel(Args a) {
+  constexpr int NT = 2 * H;
+  extern __shared__ __align__(128) char smem_raw[];
+  const int tid = threadIdx.x, N = a.N, nf = a.nf, A = a.A, nI = a.nI;
+  Smem s;
+  Bump m{smem_raw, 0};
+  carve_pairs(m, s, A, nf, H, a.R, kBwd);
+  const Thr p = thread_place<H>();
+  const int V = 2 * nf + 3, A3 = nf + 3;
+  float* const si = s.accH;
+  float* const sj = s.accH + A * A3;
+  float* const at = s.stage(0);
+  load_all_weights<H>(a, s);
+  const long long items = (long long)a.B * nI;
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    const int b = (int)(it / nI), ib = (int)(it % nI);
+    const int ni = block_len(N, A, ib);
+    const size_t ni0 = (size_t)b * N + ib * A;
+    load_block<H>(a, s, at, b, ib * A, ni, 0, true, true);
+    for (int k = tid; k < ni * A3; k += NT) si[k] = 0.f;
+    for (int jb = 0; jb < nI; ++jb) {
+      const int nj = block_len(N, A, jb);
+      load_block<H>(a, s, at, b, jb * A, nj, A, false, true);
+      for (int k = tid; k < nj * A3; k += NT) sj[k] = 0.f;
+      __syncthreads();
+      const Pairs P = pairs_of(ni, nj, ib == jb);
+      for (int g0 = 0; g0 < P.E; g0 += a.R) {
+        const int nr = min(a.R, P.E - g0);
+        pair_geometry(s, at, P, A, a.R, g0, nr);
+        __syncthreads();
+        bwd_in_rows<H>(s, at, a.dagg + ni0 * H, at + s.at_dfs, nf, nr, p,
+                       [] {});
+        isum_rows(si, A3, s.rd, V, g0, nr, P.ncol + 1, NT);
+        jsum_pair(sj, A3, s.rd + nf, V, g0, nr, P, NT);
+        __syncthreads();
+      }
+      // this block pair's j-side sums: row (b, ib) of the partials
+      float* pj = a.pj + (((size_t)b * nI + ib) * N + jb * A) * A3;
+      for (int k = tid; k < nj * A3; k += NT) pj[k] = sj[k];
+      __syncthreads();
+    }
+    for (int k = tid; k < ni * A3; k += NT) a.si[ni0 * A3 + k] = si[k];
+    __syncthreads();
+  }
+}
+
+// The parameter-gradient backward over block pairs: the H-wide dz1 sums
+// (i side an item, j side a block pair) and the dcd sums, projected to
+// the input-gradient kernel's partials where their parameter gradients
+// are taken.
+template <int H>
+__global__ void __launch_bounds__(2 * H, 1)
+    egcl_f32_blocks_bwd_params_kernel(Args a) {
+  constexpr int NT = 2 * H, LD = H + 4;
+  extern __shared__ __align__(128) char smem_raw[];
+  const int tid = threadIdx.x, N = a.N, nf = a.nf, A = a.A, nI = a.nI;
+  Smem s;
+  Bump m{smem_raw, 0};
+  carve_pairs(m, s, A, nf, H, a.R, kBwdParams);
+  const Thr p = thread_place<H>();
+  const PartLayout L(nf, H);
+  float* const part = a.part + (size_t)blockIdx.x * L.P;
+  // dW1a (an item), dW1b (a block pair) and db1 (an item) are added into
+  // by the thread that zeroes them here (item w as in the one-molecule
+  // kernel: dW1a | dW1b for w < 2 nf H, then db1)
+  const int n_w1 = 2 * nf * H, A3 = nf + 3;
+  for (int w = tid; w < n_w1 + H; w += NT)
+    part[w < n_w1 ? L.dW1a + w : L.db1 + w - n_w1] = 0.f;
+  ParamAcc<H> g;
+  zero_params<H>(g);
+  float* const dz1i = s.accH;
+  float* const dz1j = s.accH + A * H;
+  float* const dpi = s.acc3;
+  float* const dpj = s.acc3 + A * 3;
+  float* const at = s.stage(0);
+  load_all_weights<H>(a, s);
+  const long long items = (long long)a.B * nI;
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    const int b = (int)(it / nI), ib = (int)(it % nI);
+    const int ni = block_len(N, A, ib);
+    const size_t ni0 = (size_t)b * N + ib * A;
+    load_block<H>(a, s, at, b, ib * A, ni, 0, true, true);
+    for (int k = tid; k < ni * H; k += NT) dz1i[k] = 0.f;
+    for (int k = tid; k < ni * 3; k += NT) dpi[k] = 0.f;
+    for (int jb = 0; jb < nI; ++jb) {
+      const int nj = block_len(N, A, jb);
+      load_block<H>(a, s, at, b, jb * A, nj, A, false, true);
+      for (int k = tid; k < nj * H; k += NT) dz1j[k] = 0.f;
+      for (int k = tid; k < nj * 3; k += NT) dpj[k] = 0.f;
+      __syncthreads();
+      const Pairs P = pairs_of(ni, nj, ib == jb);
+      for (int g0 = 0; g0 < P.E; g0 += a.R) {
+        const int nr = min(a.R, P.E - g0);
+        pair_geometry(s, at, P, A, a.R, g0, nr);
+        __syncthreads();
+        bwd_params_rows<H>(s, at, a.dagg + ni0 * H, at + s.at_dfs, nf, nr,
+                           p, g, [] {});
+        isum_rows(dz1i, H, s.X[0], LD, g0, nr, P.ncol + 1, NT);
+        jsum_pair(dz1j, H, s.X[0], LD, g0, nr, P, NT);
+        isum_rows(dpi, 3, s.rd, 3, g0, nr, P.ncol + 1, NT);
+        jsum_pair(dpj, 3, s.rd, 3, g0, nr, P, NT);
+        __syncthreads();
+      }
+      // -- the block pair is done: dW1b += h_j^T dz1_j; its partials
+      //    [dcd_j, dz1_j W1b^T]
+      const float* hj = at + A * nf;
+      for (int w = tid; w < n_w1 + H; w += NT) {
+        if (w < nf * H || w >= n_w1) continue;
+        const int kc = w - nf * H, k = kc / H, c = kc - k * H;
+        float v = 0.f;
+        for (int l = 0; l < nj; ++l) v = fmaf(hj[l * nf + k], dz1j[l * H + c], v);
+        part[L.dW1a + w] += v;
+      }
+      float* pj = a.pj + (((size_t)b * nI + ib) * N + jb * A) * A3;
+      for (int w = tid; w < nj * A3; w += NT) {
+        const int l = w / A3, v = w - l * A3;
+        float x = 0.f;
+        if (v < 3) {
+          x = dpj[l * 3 + v];
+        } else {
+          for (int c = 0; c < H; ++c)
+            x = fmaf(dz1j[l * H + c], s.W1b[(v - 3) * H + c], x);
+        }
+        pj[w] = x;
+      }
+      __syncthreads();
+    }
+    // -- the item is done: dW1a += h_i^T dz1_i, db1 += sum dz1_i; its
+    //    i-side sums [dz1_i W1a^T, dcd_i]
+    for (int w = tid; w < n_w1 + H; w += NT) {
+      if (w >= nf * H && w < n_w1) continue;
+      float v = 0.f;
+      if (w < n_w1) {
+        const int k = w / H, c = w - k * H;
+        for (int l = 0; l < ni; ++l) v = fmaf(at[l * nf + k], dz1i[l * H + c], v);
+        part[L.dW1a + w] += v;
+      } else {
+        for (int l = 0; l < ni; ++l) v += dz1i[l * H + w - n_w1];
+        part[L.db1 + w - n_w1] += v;
+      }
+    }
+    for (int w = tid; w < ni * A3; w += NT) {
+      const int l = w / A3, v = w - l * A3;
+      float x = 0.f;
+      if (v < nf) {
+        for (int c = 0; c < H; ++c)
+          x = fmaf(dz1i[l * H + c], s.W1a[v * H + c], x);
+      } else {
+        x = dpi[l * 3 + v - nf];
+      }
+      a.si[ni0 * A3 + w] = x;
+    }
+    __syncthreads();
+  }
+  write_slice<H>(part, L, s, p, g);
+}
+
+// The block-pair backward's dh and dpos, one thread an atom: the j-side
+// partials summed over the i-blocks in order, dh = si[:nf] + sj[3:], dpos
+// = si[nf:] - sj[:3].
+constexpr int kFinishThreads = 256;
+
+__global__ void __launch_bounds__(kFinishThreads)
+    egcl_f32_blocks_finish_kernel(Args a) {
+  const int nf = a.nf, N = a.N, nI = a.nI, A3 = nf + 3;
+  const long long rows = (long long)a.B * N;
+  for (long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       row < rows; row += (long long)gridDim.x * blockDim.x) {
+    const long long b = row / N, l = row - b * N;
+    const float* si = a.si + row * A3;
+    const float* pj = a.pj + (b * nI * N + l) * A3;   // block ib: + ib N A3
+    for (int v = 0; v < A3; ++v) {
+      float x = 0.f;
+      for (int ib = 0; ib < nI; ++ib) x += pj[(size_t)ib * N * A3 + v];
+      if (v < 3)
+        a.dpos[row * 3 + v] = si[nf + v] - x;
+      else
+        a.dh[row * nf + v - 3] = si[v - 3] + x;
+    }
   }
 }
 
@@ -1163,6 +1670,56 @@ int launch(const Args& a, int kind, int blocks, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.N, a.nf, H, a.MT, a.R, kind);
   kernel<<<blocks, 2 * H, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The block-pair kernels take A >= 1 atoms a block and the one-molecule
+// kernels' row tiles.
+bool takes_pairs(int A, int nf, int H, int R, int kind) {
+  return takes(1, nf, H, 1, R, kind) && A >= 1;
+}
+
+size_t pairs_smem_bytes(int A, int nf, int H, int R, int kind) {
+  Smem s;
+  Bump m{nullptr, 0};
+  carve_pairs(m, s, A, nf, H, R, kind);
+  return m.off;
+}
+
+// A block-pair launch: min(blocks, B nI) blocks over the B nI items; the
+// backward's finish kernel after it on the same stream.
+template <int H>
+int launch_pairs(const Args& a, int kind, int blocks, cudaStream_t stream) {
+  static bool ready[3] = {false, false, false};
+  void (*kernel)(Args) = kind == kFwd   ? egcl_f32_blocks_fwd_kernel<H>
+                         : kind == kBwd ? egcl_f32_blocks_bwd_kernel<H>
+                                        : egcl_f32_blocks_bwd_params_kernel<H>;
+  if (!ready[kind]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    ready[kind] = true;
+  }
+  const size_t smem = pairs_smem_bytes(a.A, a.nf, H, a.R, kind);
+  kernel<<<blocks, 2 * H, smem, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || kind == kFwd) return (int)err;
+  const long long rows = (long long)a.B * a.N;
+  const long long grid = std::min<long long>(
+      (rows + kFinishThreads - 1) / kFinishThreads, 16LL * blocks);
+  egcl_f32_blocks_finish_kernel<<<(int)grid, kFinishThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_pairs(Args& a, int kind, int blocks, void* stream) {
+  if (!takes_pairs(a.A, a.nf, a.H, a.R, kind) || a.B < 1 || a.N < 1 ||
+      blocks < 1 ||
+      pairs_smem_bytes(a.A, a.nf, a.H, a.R, kind) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  a.nI = (a.N + a.A - 1) / a.A;
+  blocks = (int)std::min<long long>(blocks, (long long)a.B * a.nI);
+  cudaStream_t st = (cudaStream_t)stream;
+  return a.H == 64 ? launch_pairs<64>(a, kind, blocks, st)
+                   : launch_pairs<128>(a, kind, blocks, st);
 }
 
 int dispatch(Args& a, int kind, int blocks, void* stream) {
@@ -1248,6 +1805,77 @@ int egcl_f32_bwd_params(int B, int N, int nf, int H, int MT, int R,
          (const float*)dfsum, nullptr, nullptr, (float*)dh, (float*)dpos,
          (float*)part};
   return dispatch(a, kBwdParams, blocks, stream);
+}
+
+// The block-pair kernels (molecules past the one-molecule kernels' shared
+// memory): dynamic shared memory of one block at A atoms a block and R
+// rows a row tile, or -1 for sizes they do not take (kind as above).
+long long egcl_f32_blocks_smem_bytes(int A, int nf, int H, int R, int kind) {
+  if (!takes_pairs(A, nf, H, R, kind)) return -1;
+  return (long long)pairs_smem_bytes(A, nf, H, R, kind);
+}
+
+// Blocks of A atoms (nI = ceil(N / A) a molecule), the B nI (molecule,
+// i-block) items over min(blocks, B nI) blocks, row tiles of R rows.
+int egcl_f32_blocks_fwd(int B, int N, int nf, int H, int A, int R, int blocks,
+                        const void* h, const void* pos, const void* box,
+                        const void* mask, const void* W1a, const void* W1b,
+                        const void* w1r, const void* b1, const void* W2,
+                        const void* b2, const void* W3, const void* b3,
+                        const void* w4, void* agg, void* fsum, void* stream) {
+  Args a{B, N, nf, H, 1, R, 0, (const float*)h, (const float*)pos,
+         (const float*)box, (const float*)mask, (const float*)W1a,
+         (const float*)W1b, (const float*)w1r, (const float*)b1,
+         (const float*)W2, (const float*)b2, (const float*)W3,
+         (const float*)b3, (const float*)w4, nullptr, nullptr,
+         (float*)agg, (float*)fsum, nullptr, nullptr, nullptr,
+         A, 0, nullptr, nullptr};
+  return dispatch_pairs(a, kFwd, blocks, stream);
+}
+
+// The input-gradient backward: dh [B, N, nf] and dpos [B, N, 3]; si [B, N,
+// nf + 3] and pj [B, nI, N, nf + 3] float32 scratch, every element written
+// by the kernels.
+int egcl_f32_blocks_bwd(int B, int N, int nf, int H, int A, int R, int blocks,
+                        const void* h, const void* pos, const void* box,
+                        const void* mask, const void* W1a, const void* W1b,
+                        const void* w1r, const void* b1, const void* W2,
+                        const void* b2, const void* W3, const void* b3,
+                        const void* w4, const void* dagg, const void* dfsum,
+                        void* dh, void* dpos, void* si, void* pj,
+                        void* stream) {
+  Args a{B, N, nf, H, 1, R, 0, (const float*)h, (const float*)pos,
+         (const float*)box, (const float*)mask, (const float*)W1a,
+         (const float*)W1b, (const float*)w1r, (const float*)b1,
+         (const float*)W2, (const float*)b2, (const float*)W3,
+         (const float*)b3, (const float*)w4, (const float*)dagg,
+         (const float*)dfsum, nullptr, nullptr, (float*)dh, (float*)dpos,
+         nullptr, A, 0, (float*)si, (float*)pj};
+  return dispatch_pairs(a, kBwd, blocks, stream);
+}
+
+// The backward with parameter gradients: as egcl_f32_blocks_bwd, and part
+// a [min(blocks, B nI), P] float32 buffer, each row written whole by its
+// block; the caller sums the rows.
+int egcl_f32_blocks_bwd_params(int B, int N, int nf, int H, int A, int R,
+                               int blocks, const void* h, const void* pos,
+                               const void* box, const void* mask,
+                               const void* W1a, const void* W1b,
+                               const void* w1r, const void* b1,
+                               const void* W2, const void* b2,
+                               const void* W3, const void* b3,
+                               const void* w4, const void* dagg,
+                               const void* dfsum, void* dh, void* dpos,
+                               void* si, void* pj, void* part,
+                               void* stream) {
+  Args a{B, N, nf, H, 1, R, 0, (const float*)h, (const float*)pos,
+         (const float*)box, (const float*)mask, (const float*)W1a,
+         (const float*)W1b, (const float*)w1r, (const float*)b1,
+         (const float*)W2, (const float*)b2, (const float*)W3,
+         (const float*)b3, (const float*)w4, (const float*)dagg,
+         (const float*)dfsum, nullptr, nullptr, (float*)dh, (float*)dpos,
+         (float*)part, A, 0, (float*)si, (float*)pj};
+  return dispatch_pairs(a, kBwdParams, blocks, stream);
 }
 
 const char* egcl_f32_error_string(int err) {

@@ -16,8 +16,10 @@ Contract (``fused_edge_pipeline``): pre-gathered edge rows
   and all seven parameter gradients. float32 and bfloat16 only; other
   dtypes raise. ``kernel_for`` is the size rule: at H = 64 and 128 bf16
   goes to the Hopper kernels of ``csrc/edge_pipeline_sm90.cu`` (wgmma,
-  ``"sm90"``, C <= 16; the tile plan is :func:`sm90_plan` /
-  :func:`sm90_tiles`) and float32 to the tiled kernels of
+  ``"sm90"``, C <= 64 edge features in up to four k16 steps of e W1, as
+  many warpgroups a block as fit: :func:`sm90_warpgroups`; the tile plan
+  is :func:`sm90_plan` / :func:`sm90_tiles`) and float32 to the tiled
+  kernels of
   ``csrc/edge_pipeline.cu``; the other widths the dtype takes go to that
   file's chunked kernels; it raises for the rest. There is no fallback: a
   shape a route does not take raises.
@@ -40,7 +42,8 @@ import torch
 from .build import LaunchCounts
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_ATOM_TILE = 16     # atoms per block tile (bounds the per-atom sums)
+MAX_ATOM_TILE = 16     # atoms per block tile at most (the wrapper halves
+                       # it where a block does not fit: ``_plan``)
 
 # fwd_launches / bwd_launches count every launch; the per-route counters
 # say which kernel took it
@@ -143,10 +146,8 @@ _LL = ctypes.c_longlong
 # float32 tiled kernels of edge_pipeline.cu; every other width a dtype
 # takes goes to the chunked kernels (the size rule of ``kernel_for``).
 TILED_H = (64, 128)
-# rows a tile of the Hopper kernels (wgmma's M) and the most columns of e
-# (one k16 step)
+# rows a tile of the Hopper kernels (wgmma's M)
 SM90_ROWS = 64
-SM90_C_MAX = 16
 # rows a tile of the tiled kernels at most (kQmaxFwd / kQmaxBwd x 8)
 ROWS_MAX = {"fwd": 72, "bwd": 40}
 _H_MULT = {torch.float32: 4, torch.bfloat16: 16}
@@ -169,8 +170,10 @@ def _sm90_library():
         lib.edge_sm90_fwd.restype = _I
         lib.edge_sm90_bwd.argtypes = [_I] * 9 + [_P] * 16
         lib.edge_sm90_bwd.restype = _I
-        lib.edge_sm90_warpgroups.argtypes = [_I] * 2
+        lib.edge_sm90_warpgroups.argtypes = [_I] * 3
         lib.edge_sm90_warpgroups.restype = _I
+        lib.edge_sm90_c_max.argtypes = []
+        lib.edge_sm90_c_max.restype = _I
         lib.edge_sm90_error_string.argtypes = [_I]
         lib.edge_sm90_error_string.restype = ctypes.c_char_p
         lib.edge_sm90_recip_check.argtypes = [_P, _P]
@@ -239,6 +242,24 @@ def kernel_for(dtype, H: int) -> str:
     raise ValueError(f"edge_pipeline takes H % 16 == 0 in bfloat16 and "
                      f"H % 4 == 0 in float32 (H = 64 and 128 in its tiled "
                      f"kernels), got H={H} in {dtype}")
+
+
+def sm90_warpgroups(lib, C: int, H: int, direction: str) -> int:
+    """Warpgroups a block of the Hopper kernels at ``C`` edge features (the
+    most whose block fits, as the library says); raises, naming C and the
+    limit, for a C past the kernels' k16 steps of e."""
+    bwd = int(direction == "bwd")
+    c_max = lib.edge_sm90_c_max()
+    if C > c_max:
+        raise ValueError(f"edge_pipeline {direction} (bfloat16, H={H}): the "
+                         f"Hopper kernels take C = 2 nf + 1 <= {c_max} edge "
+                         f"features, got C={C}")
+    nwg = lib.edge_sm90_warpgroups(C, H, bwd)
+    if nwg < 1:
+        raise RuntimeError(f"edge_pipeline {direction} (bfloat16, H={H}): "
+                           f"the Hopper library fits no block at C={C} <= "
+                           f"{c_max} (internal error)")
+    return nwg
 
 
 def sm90_plan(A: int, K: int, nwg: int, n_sm: int):
@@ -321,9 +342,11 @@ _plans: dict = {}
 
 
 def _plan(lib, code, C, H, K, ta, direction):
-    """``(kernel, rows a tile)`` of one launch kind, checked against the
-    card's shared memory once per library, dtype, C, H, K, tile and
-    direction."""
+    """``(kernel, rows a tile, atoms a tile)`` of one launch kind, checked
+    against the card's shared memory once per library, dtype, C, H, K,
+    tile and direction. The tiled kernels take the most rows a tile (at
+    most ``ROWS_MAX``) whose block fits, and where none fits at 8 rows,
+    half the atoms a tile (their per-atom sums) until one does."""
     tiled = uses_tiled(H)
     key = (id(lib), tiled, code, C, H, K, ta, direction)
     if key in _plans:
@@ -331,24 +354,29 @@ def _plan(lib, code, C, H, K, ta, direction):
     bwd = int(direction == "bwd")
     limit = lib.edge_pipeline_smem_limit()
     if tiled:
-        # the most rows a tile whose block fits
-        for rows in range(ROWS_MAX[direction], 7, -8):
-            need = lib.edge_tiled_smem_bytes(code, C, H, ta, rows, bwd)
-            if 0 <= need <= limit:
+        t = ta
+        while True:
+            # the most rows a tile whose block fits
+            fits = [r for r in range(ROWS_MAX[direction], 7, -8)
+                    if 0 <= lib.edge_tiled_smem_bytes(code, C, H, t, r, bwd)
+                    <= limit]
+            if fits or t == 1:
                 break
-        else:
+            t = max(1, t // 2)
+        if not fits:
             raise ValueError(
-                f"edge_pipeline {direction}: C={C}, H={H}, {ta} atoms a tile "
-                f"need more than the {limit} bytes of shared memory a block "
-                f"may use, even at 8 rows a tile")
-        plan = ("tiled", tile_rows(rows, ta, K))
+                f"edge_pipeline {direction}: C={C}, H={H} needs "
+                f"{lib.edge_tiled_smem_bytes(code, C, H, 1, 8, bwd)} bytes "
+                f"of shared memory even at 1 atom and 8 rows a tile, more "
+                f"than the {limit} a block may use")
+        plan = ("tiled", tile_rows(fits[0], t, K), t)
     else:
         need = lib.edge_pipeline_smem_bytes(code, C, H, ta, bwd)
         if need > limit:
             raise ValueError(
                 f"edge_pipeline {direction}: C={C}, H={H} needs {need} bytes "
                 f"of shared memory, more than the {limit} a block may use")
-        plan = ("chunked", 0)
+        plan = ("chunked", 0, ta)
     _plans[key] = plan
     return plan
 
@@ -391,10 +419,6 @@ def _launch(direction, e, cd, em, weights, dagg=None, dfs=None):
         if t.dtype is not cdt or t.get_device() != idx:
             raise ValueError("cd, emask and the weights must be in the "
                              f"compute dtype {cdt} on {dev}")
-    if route == "sm90" and C > SM90_C_MAX:
-        raise ValueError(f"edge_pipeline (bfloat16, H={H}): the Hopper "
-                         f"kernels take C = 2 nf + 1 <= {SM90_C_MAX} edge "
-                         f"features, got C={C}")
     bwd = direction == "bwd"
     P = C * H + 2 * H * H + 4 * H
     if not (A and K):
@@ -407,7 +431,7 @@ def _launch(direction, e, cd, em, weights, dagg=None, dfs=None):
     n_sm = multiprocessors(dev)
     if route == "sm90":
         lib = _sm90_library()
-        nwg = lib.edge_sm90_warpgroups(H, int(bwd))
+        nwg = sm90_warpgroups(lib, C, H, direction)
         apt, tpa, units, blocks = sm90_plan(A, K, nwg, n_sm)
         dims = (A, K, C, H, apt, tpa, units, blocks, nwg)
         slices = blocks * nwg            # one slice of `part` a warpgroup
@@ -416,8 +440,9 @@ def _launch(direction, e, cd, em, weights, dagg=None, dfs=None):
     else:
         lib = _library()
         code = _DTYPE_CODE[cdt]
-        ta, blocks = grid(A, n_sm)
-        route, rows = _plan(lib, code, C, H, K, ta, direction)
+        ta, _ = grid(A, n_sm)
+        route, rows, ta = _plan(lib, code, C, H, K, ta, direction)
+        blocks = min(math.ceil(A / ta), n_sm)
         slices = blocks                  # one slice a block
         if route == "tiled":
             dims = (code, A, K, C, H, ta, rows, blocks)

@@ -22,12 +22,15 @@ attention/norm_diff/tanh off.
   molecule and block of atoms, walking the other blocks), counted on
   their own launch counters (``*_blocks_launches``). Float32 runs the
   tiled f32 kernels of ``csrc/egcl_allpairs_f32.cu`` (persistent blocks,
-  register tiles), also in every direction, and refuses molecules past
-  their shared memory. Every other hidden width runs the chunked kernels
-  of ``csrc/egcl_allpairs.cu``, in either dtype, counted on their own
-  launch counters (``fwd_h_rule_launches``, ``bwd_h_rule_launches``,
-  ``bwd_param_h_rule_launches``). There is no fallback: a kernel that does
-  not build or launch raises.
+  register tiles), also in every direction: one or more whole molecules a
+  block while they fit its shared memory, and past that the same file's
+  block-pair kernels (route ``"f32_blocks"``, every N, on the same row
+  code; counters ``*_f32_blocks_launches``). Every other hidden width runs
+  the chunked kernels of ``csrc/egcl_allpairs.cu``, in either dtype,
+  counted on their own launch counters (``fwd_h_rule_launches``,
+  ``bwd_h_rule_launches``, ``bwd_param_h_rule_launches``), and refuses
+  molecules past their shared memory. There is no fallback: a kernel that
+  does not build or launch raises.
 - On a CPU tensor both directions run the plain PyTorch version below,
   which repeats the kernel's arithmetic (including where it rounds to the
   compute dtype) and is what the CPU tests hold against the Pallas kernel.
@@ -54,11 +57,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # kernels, one molecule a warpgroup; float32: the tiled f32 K1 and K2 p);
 # bwd_f32_launches: the tiled f32 input-gradient K2 there; *_blocks_launches:
 # the bf16 Hopper block-pair kernels (molecules past the first's shared
-# memory); *_h_rule_launches: either dtype at another hidden width, sent to
-# the chunked kernels by the size rule
+# memory); *_f32_blocks_launches: the f32 block-pair kernels (molecules past
+# the tiled f32 kernels' shared memory); *_h_rule_launches: either dtype at
+# another hidden width, sent to the chunked kernels by the size rule
 counts = LaunchCounts("fwd_launches", "bwd_launches", "bwd_f32_launches",
                       "bwd_param_launches", "fwd_blocks_launches",
                       "bwd_blocks_launches", "bwd_param_blocks_launches",
+                      "fwd_f32_blocks_launches", "bwd_f32_blocks_launches",
+                      "bwd_param_f32_blocks_launches",
                       "fwd_h_rule_launches", "bwd_h_rule_launches",
                       "bwd_param_h_rule_launches", "plain_fwd_calls",
                       "plain_bwd_calls", "plain_bwd_param_calls")
@@ -77,9 +83,16 @@ MAX_MOL_TILE = 16
 # --blocks-plans, PERF.md)
 BLOCK_WG_MAX = {"fwd": 3, "bwd": 2, "bwd_params": 2}
 BLOCK_ATOMS_MAX = 32
+# the f32 block-pair kernels: atoms a block at most (a multiple of 8; the
+# plan takes fewer where no row tile of 8 rows fits beside them): of 16 to
+# 48, the fastest on the H100 were 32 for K1 and 24 for K2 p at LJ147
+# (B=256) and for K2 at LJ561 (B=16) (chip_smoke.py --blocks-plans,
+# PERF.md)
+F32_BLOCK_ATOMS = {"fwd": 32, "bwd": 24, "bwd_params": 24}
 # the queue item that holds the refused sizes
-LARGE_N_ITEM = ("ROADMAP queue B, B6: the all-pairs EGCL past one block's "
-                "shared memory in float32 and at other widths")
+LARGE_N_ITEM = ("ROADMAP queue B, B7: the all-pairs EGCL at hidden widths "
+                "other than 64 and 128 past the chunked kernels' shared "
+                "memory")
 
 
 def split_params(W1, b1, nf: int):
@@ -293,6 +306,14 @@ def _f32_library():
         lib.egcl_f32_smem_bytes.restype = _LL
         lib.egcl_f32_smem_limit.argtypes = []
         lib.egcl_f32_smem_limit.restype = _LL
+        lib.egcl_f32_blocks_fwd.argtypes = [_I] * 7 + [_P] * (n_in + 3)
+        lib.egcl_f32_blocks_fwd.restype = _I
+        lib.egcl_f32_blocks_bwd.argtypes = [_I] * 7 + [_P] * (n_in + 7)
+        lib.egcl_f32_blocks_bwd.restype = _I
+        lib.egcl_f32_blocks_bwd_params.argtypes = [_I] * 7 + [_P] * (n_in + 8)
+        lib.egcl_f32_blocks_bwd_params.restype = _I
+        lib.egcl_f32_blocks_smem_bytes.argtypes = [_I] * 5
+        lib.egcl_f32_blocks_smem_bytes.restype = _LL
         _bind_part_size(lib)
         lib.egcl_f32_error_string.argtypes = [_I]
         lib.egcl_f32_error_string.restype = ctypes.c_char_p
@@ -366,15 +387,16 @@ def largest_molecule(code: int, nf: int, H: int, direction: str):
 def route_for(N: int, nf: int, H: int, code: int, direction: str,
               largest: int) -> str:
     """The molecule-size rule after :func:`kernel_for`: its kernels while
-    ``N <= largest`` (the most atoms their block takes), the bf16 Hopper
-    block-pair kernels (``"blocks"``, every N) above that at H in
-    ``SM90_H``; any other launch past ``largest`` is refused, naming the
-    queue item that holds it."""
+    ``N <= largest`` (the most atoms their block takes), above that at H
+    in ``SM90_H`` the block-pair kernels of the dtype (``"blocks"``, bf16
+    Hopper; ``"f32_blocks"``, float32; every N); a launch of the chunked
+    kernels past ``largest`` is refused, naming the queue item that holds
+    it."""
     route = kernel_for(code, H, direction)
     if N <= largest:
         return route
-    if route == "sm90":
-        return "blocks"
+    if route in ("sm90", "f32"):
+        return "blocks" if route == "sm90" else "f32_blocks"
     dname = "bfloat16" if code == 1 else "float32"
     raise ValueError(
         f"egcl_allpairs {direction}: a {dname} molecule of N={N} atoms at "
@@ -403,6 +425,22 @@ def blocks_plan(N: int, direction: str, fits) -> tuple[int, int]:
         if fit == BLOCK_ATOMS_MAX or (nwg == 1 and fit):
             return block_atoms(N, fit), nwg
     raise ValueError(f"egcl_allpairs {direction}: no atom block fits")
+
+
+def f32_blocks_plan(N: int, direction: str, fits) -> tuple[int, int]:
+    """``(atoms a block, rows a row tile)`` of an f32 block-pair launch:
+    the most atoms (a multiple of 8, at most ``F32_BLOCK_ATOMS``) at which
+    a row tile of 8 rows fits (``fits(A, R)``), the most rows (at most
+    ``F32_ROWS_MAX``) that fit beside them, then :func:`block_atoms` and
+    the rows cut by :func:`tile_rows` over a block pair's ``A * A``
+    rows."""
+    for fit in range(F32_BLOCK_ATOMS[direction], 7, -8):
+        rows = next((r for r in range(F32_ROWS_MAX[direction], 7, -8)
+                     if fits(fit, r)), 0)
+        if rows:
+            A = block_atoms(N, fit)
+            return A, tile_rows(rows, A * A)
+    raise ValueError(f"egcl_allpairs {direction}: no f32 atom block fits")
 
 
 def _check_fits(code: int, dims, direction: str) -> str:
@@ -504,6 +542,7 @@ def _raise_on(lib, err: int, what: str, dims, route):
         text = getattr(lib, {"sm90": "egcl_sm90_error_string",
                              "blocks": "egcl_sm90_error_string",
                              "f32": "egcl_f32_error_string",
+                             "f32_blocks": "egcl_f32_error_string",
                              "chunked": "egcl_allpairs_error_string"}[route])
         raise RuntimeError(f"egcl_allpairs {what} kernel launch failed: "
                            f"{text(err).decode()} (error {err}; B, N, nf, H "
@@ -512,13 +551,13 @@ def _raise_on(lib, err: int, what: str, dims, route):
 
 def _count(direction: str, H: int, route: str):
     """One launch on its counter: the size rule's own for a hidden width
-    outside ``SM90_H``, the tiled f32 input-gradient K2's own, the
-    block-pair kernels' own."""
+    outside ``SM90_H``, the tiled f32 input-gradient K2's own, each kind
+    of block-pair kernels' own."""
     name = {"fwd": "fwd", "bwd": "bwd", "bwd_params": "bwd_param"}[direction]
     if route == "f32" and direction == "bwd":
         name = "bwd_f32"
-    if route == "blocks":
-        name += "_blocks"
+    if route in ("blocks", "f32_blocks"):
+        name += "_" + route
     name += "_launches" if H in SM90_H else "_h_rule_launches"
     setattr(counts, name, getattr(counts, name) + 1)
 
@@ -534,10 +573,22 @@ def _blocks_launch_plan(lib, N: int, nf: int, H: int, direction: str):
     return _plans[key]
 
 
+def _f32_blocks_launch_plan(lib, N: int, nf: int, H: int, direction: str):
+    """:func:`f32_blocks_plan` against the card's shared memory, once per
+    size."""
+    key = (id(lib), "f32_blocks", N, nf, H, direction)
+    if key not in _plans:
+        kind, limit = _KIND[direction], lib.egcl_f32_smem_limit()
+        _plans[key] = f32_blocks_plan(N, direction, lambda A, R: 0 <= (
+            lib.egcl_f32_blocks_smem_bytes(A, nf, H, R, kind)) <= limit)
+    return _plans[key]
+
+
 def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
             dfsum=None, route=None):
     """One launch on the route that the size rules name (or on ``route``,
-    ``"blocks"``, where the caller asks for the block-pair kernels)."""
+    ``"blocks"``, where the caller asks for the block-pair kernels of the
+    dtype)."""
     _check_inputs(h, pos, box, mask_f, weights)
     B, N, nf = h.shape
     H = weights[4].shape[1]
@@ -547,11 +598,14 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
     rule = _check_fits(code, dims, direction)
     if route is None:
         route = rule
-    elif route != "blocks" or kernel_for(code, H, direction) != "sm90":
+    elif route != "blocks" or H not in SM90_H:
         raise ValueError(f"egcl_allpairs: route {route!r} does not take "
                          f"{cdt} at H={H}")
+    elif code == 0:
+        route = "f32_blocks"
     lib = {"sm90": _sm90_library, "blocks": _sm90_library,
-           "f32": _f32_library, "chunked": _library}[route]()
+           "f32": _f32_library, "f32_blocks": _f32_library,
+           "chunked": _library}[route]()
     # the kernels read the weights (and dagg) 8 or 16 bytes at a time
     aligned = lambda t: t if t.data_ptr() % 16 == 0 else t.clone()
     ins = [aligned(t) for t in (h, pos, box, mask_f, *weights)]
@@ -564,6 +618,9 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
     if route == "blocks":
         A, nwg = _blocks_launch_plan(lib, N, nf, H, direction)
         plan = (A, nwg, blocks)
+    if route == "f32_blocks":
+        A, rows = _f32_blocks_launch_plan(lib, N, nf, H, direction)
+        plan = (A, rows, blocks)
     if direction == "fwd":
         agg = torch.empty((B, N, H), dtype=cdt, device=h.device)
         fsum = torch.empty((B, N, 3), dtype=cdt, device=h.device)
@@ -573,6 +630,8 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
                 err = lib.egcl_sm90_fwd(*dims, blocks, *ptrs, *outs)
             elif route == "blocks":
                 err = lib.egcl_sm90_blocks_fwd(*dims, *plan, *ptrs, *outs)
+            elif route == "f32_blocks":
+                err = lib.egcl_f32_blocks_fwd(*dims, *plan, *ptrs, *outs)
             elif route == "f32":
                 err = lib.egcl_f32_fwd(*dims, mt, rows, blocks, *ptrs, *outs)
             else:
@@ -592,6 +651,14 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
         pj = torch.empty((B, math.ceil(N / A), N, H + 4),
                          dtype=torch.float32, device=h.device)
         outs += [si.data_ptr(), pj.data_ptr()]
+    if route == "f32_blocks":
+        # the f32 block-pair backward's i-side sums and j-side partials
+        # (rows of nf + 3), every element written by the kernel
+        si = torch.empty((B, N, nf + 3), dtype=torch.float32,
+                         device=h.device)
+        pj = torch.empty((B, math.ceil(N / A), N, nf + 3),
+                         dtype=torch.float32, device=h.device)
+        outs += [si.data_ptr(), pj.data_ptr()]
     if direction == "bwd":
         if B:
             if route == "sm90":
@@ -599,6 +666,9 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
             elif route == "blocks":
                 err = lib.egcl_sm90_blocks_bwd(*dims, *plan, *ptrs, *outs,
                                                stream)
+            elif route == "f32_blocks":
+                err = lib.egcl_f32_blocks_bwd(*dims, *plan, *ptrs, *outs,
+                                              stream)
             elif route == "f32":
                 err = lib.egcl_f32_bwd(*dims, mt, rows, blocks, *ptrs, *outs,
                                        stream)
@@ -618,6 +688,9 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
                       lib.egcl_sm90_blocks_param_slices(B, N, A, nwg, blocks))
         part = torch.empty((slices, lib.egcl_sm90_slice_floats(nf, H)),
                            dtype=torch.float32, device=h.device)
+    elif route == "f32_blocks":
+        part = torch.empty((min(B * math.ceil(N / A), blocks), P),
+                           dtype=torch.float32, device=h.device)
     else:
         part = torch.empty((min(B, blocks), P), dtype=torch.float32,
                            device=h.device)
@@ -628,6 +701,9 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
         elif route == "blocks":
             err = lib.egcl_sm90_blocks_bwd_params(*dims, *plan, *ptrs, *outs,
                                                   part.data_ptr(), stream)
+        elif route == "f32_blocks":
+            err = lib.egcl_f32_blocks_bwd_params(*dims, *plan, *ptrs, *outs,
+                                                 part.data_ptr(), stream)
         elif route == "f32":
             err = lib.egcl_f32_bwd_params(*dims, mt, rows, blocks, *ptrs,
                                           *outs, part.data_ptr(), stream)
@@ -642,11 +718,12 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
 
 def allpairs_edges_blocks(direction: str, h, pos, box, mask_f, weights,
                           dagg=None, dfsum=None):
-    """One launch of the bf16 block-pair kernels (``direction`` ``"fwd"``,
-    ``"bwd"`` or ``"bwd_params"``) at any N, also where the route rule
-    sends the molecule to the one-molecule kernels: what the two schedules
-    cost where both take a molecule. CUDA tensors only; the outputs of
-    :func:`allpairs_edges_fwd` / :func:`allpairs_edges_bwd`."""
+    """One launch of the block-pair kernels of the dtype (bf16 Hopper or
+    f32; ``direction`` ``"fwd"``, ``"bwd"`` or ``"bwd_params"``) at any N,
+    also where the route rule sends the molecule to the one-molecule
+    kernels: what the two schedules cost where both take a molecule. CUDA
+    tensors only; the outputs of :func:`allpairs_edges_fwd` /
+    :func:`allpairs_edges_bwd`."""
     if not h.is_cuda:
         raise ValueError("allpairs_edges_blocks launches the card's kernels "
                          "and takes CUDA tensors only")

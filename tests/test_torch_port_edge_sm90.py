@@ -64,17 +64,42 @@ def test_a_bad_width_or_dtype_still_raises(dtype, H):
         ops.kernel_for(dtype, H)
 
 
-def test_hopper_route_refuses_wide_edge_rows():
-    """C > 16 does not fit the kernels' one k16 step of e: the wrapper
-    raises (no fallback to another kernel or the plain version)."""
-    A, K, C, H = 4, 8, 17, 64
-    e = torch.zeros((A, K, C), dtype=torch.bfloat16)
-    cd = torch.zeros((A, K, 3), dtype=torch.bfloat16)
-    em = torch.ones((A, K), dtype=torch.bfloat16)
-    W = [torch.zeros(s, dtype=torch.bfloat16)
-         for s in ((C, H), (H,), (H, H), (H,), (H, H), (H,), (H, 1))]
-    with pytest.raises(ValueError, match="C = 2 nf \\+ 1 <= 16"):
-        ops._launch("fwd", e, cd, em, W)
+class _Sm90Sizes:
+    """A stand-in for the Hopper library's size entry points: e W1 in at
+    most four k16 steps (C <= 64), one warpgroup a block at C = 49 .. 64,
+    and (as a faulty library would) none at H = 128 past C = 56."""
+
+    def edge_sm90_c_max(self):
+        return 64
+
+    def edge_sm90_warpgroups(self, C, H, bwd):
+        if C > 64 or (H == 128 and C > 56):
+            return 0
+        return 1 if C > 48 else (2 if bwd else 3)
+
+
+@pytest.mark.parametrize("C,H,ok", [(17, 64, True), (33, 128, True),
+                                    (64, 64, True), (65, 64, False),
+                                    (57, 128, False)])
+def test_hopper_route_refuses_wide_edge_rows(C, H, ok):
+    """C > 16 takes more k16 steps of e (no refusal at C = 17 or 33); the
+    wrapper refuses only a C past the library's limit, naming C and the
+    limit, and a library that fits no block at a C within it is an
+    internal error (no fallback to another kernel or the plain
+    version)."""
+    lib = _Sm90Sizes()
+    for direction in ("fwd", "bwd"):
+        if ok:
+            # as many warpgroups as the library says a block of them fits
+            assert ops.sm90_warpgroups(lib, C, H, direction) == \
+                lib.edge_sm90_warpgroups(C, H, int(direction == "bwd"))
+        elif C > 64:
+            with pytest.raises(ValueError, match=f"C={C}") as e:
+                ops.sm90_warpgroups(lib, C, H, direction)
+            assert "C = 2 nf + 1 <= 64" in str(e.value)
+        else:
+            with pytest.raises(RuntimeError, match=f"C={C} <= 64"):
+                ops.sm90_warpgroups(lib, C, H, direction)
 
 
 # --- the tile plan ---------------------------------------------------------

@@ -277,32 +277,29 @@ def _torch_args(N, Bm, seed, dtype, wseed):
 @pytest.mark.parametrize("code,direction", sorted(LARGEST))
 def test_route_rule(code, direction):
     """At the one-molecule limit the old route; one atom past it the
-    block-pair kernels in bf16 and the named refusal in f32."""
+    block-pair kernels of the dtype: bf16 ``"blocks"``, f32
+    ``"f32_blocks"`` (no refusal any more)."""
     largest = LARGEST[(code, direction)]
     old = "sm90" if code == 1 else "f32"
+    new = "blocks" if code == 1 else "f32_blocks"
     assert ops.route_for(largest, 5, 128, code, direction, largest) == old
     assert ops.route_for(1, 5, 128, code, direction, largest) == old
-    if code == 1:
-        for n in (largest + 1, 147, 512, 5000):
-            assert ops.route_for(n, 5, 128, code, direction,
-                                 largest) == "blocks"
-        assert ops.route_for(largest + 1, 5, 64, code, direction,
-                             largest) == "blocks"
-        return
-    with pytest.raises(ValueError) as e:
-        ops.route_for(largest + 1, 5, 128, code, direction, largest)
-    msg = str(e.value)
-    assert f"N <= {largest}" in msg and "shared memory" in msg
-    assert ops.LARGE_N_ITEM in msg and "B6" in msg
+    for n in (largest + 1, 147 if largest < 147 else 561, 5000):
+        assert ops.route_for(n, 5, 128, code, direction, largest) == new
+    assert ops.route_for(largest + 1, 5, 64, code, direction, largest) == new
 
 
 @pytest.mark.parametrize("code", [0, 1])
 def test_route_rule_other_widths_refuse(code):
     """The chunked kernels (H outside 64/128) have no block-pair route:
-    past their limit they refuse in either dtype."""
+    past their limit they refuse in either dtype, naming the queue item
+    that holds them."""
     assert ops.route_for(40, 5, 96, code, "bwd", 40) == "chunked"
-    with pytest.raises(ValueError, match="B6"):
+    with pytest.raises(ValueError, match="B7") as e:
         ops.route_for(41, 5, 96, code, "bwd", 40)
+    msg = str(e.value)
+    assert "N <= 40" in msg and "shared memory" in msg
+    assert ops.LARGE_N_ITEM in msg
 
 
 @pytest.mark.parametrize("N,fit,want", [(56, 48, 32), (62, 56, 32),
