@@ -3,9 +3,9 @@
 CUDA card: ``python3 chip_mutants.py [GROUP ...] [--match TEXT]`` from the
 repository root (``--match``: only the mutants whose name holds TEXT, and
 each group's control)
-(groups: ``egcl_allpairs``, ``egcl_params``, ``egcl_blocks``, ``egcl_f32``,
-``egcl_blocks_f32``, ``edge_pipeline``, ``edge_pipeline_sm90``,
-``pair_energy``; all by
+(groups: ``egcl_allpairs``, ``egcl_params``, ``egcl_blocks``,
+``egcl_wide``, ``egcl_f32``, ``egcl_blocks_f32``, ``edge_pipeline``,
+``edge_pipeline_sm90``, ``pair_energy``; all by
 default; ``edge_pipeline`` is the tiled f32 K5/K6 and the chunked
 kernels, read at the shapes of chip_smoke.py's phase edge that run them;
 ``edge_pipeline_sm90`` is the bf16 Hopper K5/K6, read at its bf16 shapes,
@@ -18,7 +18,14 @@ parameter-gradient variant in the same file, read at the vi, ico, ragged
 and large shapes; ``egcl_blocks`` is the bf16 block-pair K1, K2 and K2 p
 in the same file (molecules past one warpgroup's shared memory), read at
 chip_smoke.py's BLOCKS_SHAPES, the outputs against TOL and the parameter
-gradients' f32 sums against TOL_PARAM; ``egcl_f32`` is the tiled f32 K1,
+gradients' f32 sums against TOL_PARAM; ``egcl_wide`` is the same
+kernels at H = 192 and 256 with W2 and W3 streamed through a ring of
+slabs, read at N = 13, 55 and 147 over two input seeds, and over one of
+them again while a second stream copies 1 GiB buffers (a fault of the
+ring's timing shows only where a slab's copy is late), each output and
+parameter gradient per element as chip_smoke.py's ``step_errs`` reads it
+against STEP_TOL and TERMS_TOL; ``egcl_f32`` is the
+tiled f32 K1,
 K2 and K2 p of ``egcl_allpairs_f32.cu``, read at the dw4, ala2 and
 ragged shapes; ``egcl_blocks_f32`` is the f32 block-pair K1, K2 and K2 p
 in the same file (molecules past the tiled kernels' shared memory), read
@@ -113,6 +120,24 @@ MUTANTS = {
         "work items skipped (the grid stride one too long)": (
             "it += (long long)gridDim.x * nwg) {",
             "it += (long long)gridDim.x * nwg + 1) {", 2),
+    },
+    # the bf16 block pairs at H = 192 and 256, W2 and W3 streamed through
+    # a ring of slabs
+    "egcl_wide": {
+        "control": None,
+        "wrong slab index (the next group's columns)": (
+            "const int prod = (s / G) % rg.nprod, g = s % G;",
+            "const int prod = (s / G) % rg.nprod, g = (s + 1) % G;"),
+        "a skipped barrier wait (the slab used before it has landed)": (
+            "  cp_async_wait<kRing - 2>();\n  wg_publish(wg);\n"
+            "  issue_slab<H>(rg, rg.s + kRing - 1, t);",
+            "  wg_publish(wg);\n  issue_slab<H>(rg, rg.s + kRing - 1, t);"),
+        "a slab ring of one (the next slab copied over the one in use)": (
+            "__device__ __forceinline__ int slot_of(int s) { return s % kRing; }",
+            "__device__ __forceinline__ int slot_of(int s) { return 0; }"),
+        "W2^T's slabs taken from W3": (
+            "const bf16* W = prod == 0 || prod == 3 ? rg.W2 : rg.W3;",
+            "const bf16* W = prod == 0 ? rg.W2 : rg.W3;"),
     },
     # the tiled f32 K1 and K2 p. In f32 the compute-dtype rounding is the
     # identity, so "the rounded dgate" is written as dgate cut to bf16's 8
@@ -375,6 +400,47 @@ for sname, base in cs.BLOCKS_SHAPES:
         del k, p
         torch.cuda.empty_cache()
 """,
+    "egcl_wide": HEAD + """
+from enflow_tpu_torch.ops import egcl_allpairs as ops
+names = {"fwd": ("agg", "f_sum"), "bwd": ("dh", "dpos"),
+         "bwd_params": cs.PARAM_OUT}
+# a second stream copying 1 GiB buffers device to device while a kernel
+# runs: the weight slabs' copies then compete for L2 and HBM
+big = torch.empty(2 ** 28, device="cuda")
+dst = torch.empty_like(big)
+side = torch.cuda.Stream()
+def stress():
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(40):
+            dst.copy_(big)
+for H, N, B in ((192, 13, 256), (192, 55, 64), (192, 147, 16),
+                (256, 13, 256), (256, 55, 64), (256, 147, 16)):
+    for seed, loaded in ((58, False), (59, False), (58, True)):
+        h, pos, box, mf, W, dagg, dfs, _ = cs.edge_inputs(
+            dict(B=B, N=N, nf=5, H=H, n_pad=2), torch.bfloat16, seed=seed)
+        args = (h, pos, box, mf, W, dagg, dfs)
+        for kind in ("fwd", "bwd", "bwd_params"):
+            if loaded:
+                stress()
+            if kind == "fwd":
+                k = ops.allpairs_edges_fwd(h, pos, box, mf, W)
+                p = ops.allpairs_edges_plain(h, pos, box, mf, W)
+            else:
+                k = ops.allpairs_edges_bwd(*args, params=kind == "bwd_params")
+                p = ops.allpairs_edges_plain_bwd(
+                    *args, params=kind == "bwd_params")
+            torch.cuda.synchronize()
+            errs = cs.step_errs(names[kind], k, p, cs.plain_terms(args)
+                                if kind == "bwd_params" else None)
+            print(f"  H={H} N={N} B={B} seed {seed} {kind}"
+                  + (" beside a copy stream" if loaded else "") + ": "
+                  + cs.steps_text(errs) + " -> "
+                  + ("passes" if cs.steps_ok(errs) else "caught"),
+                  flush=True)
+            del k, p
+        torch.cuda.empty_cache()
+""",
     "egcl_blocks_f32": HEAD + """
 from enflow_tpu_torch.ops import egcl_allpairs as ops
 names = {"fwd": ("agg", "f_sum"), "bwd": ("dh", "dpos"),
@@ -447,6 +513,7 @@ def main():
         source = {"egcl_allpairs": "egcl_allpairs_sm90",
                   "egcl_params": "egcl_allpairs_sm90",
                   "egcl_blocks": "egcl_allpairs_sm90",
+                  "egcl_wide": "egcl_allpairs_sm90",
                   "egcl_f32": "egcl_allpairs_f32",
                   "egcl_blocks_f32": "egcl_allpairs_f32"}.get(group, group)
         src_rel = f"enflow_tpu_torch/csrc/{source}.cu"

@@ -17,8 +17,15 @@ non-zero):
    shape (B=37, N=11, two padded atoms, periodic box 3.0), in bf16 and
    f32, and in bf16 at a large shape (B=64, N = the backward's largest)
    and at H=64; a second launch of each must give the same bits. Both
-   dtypes at H=96 go to the chunked kernels by the wrapper's size rule
-   (its own launch counters). Each kernel and the plain version timed at
+   dtypes at H=96 run the same kernels at 128, the wrapper zero-padding
+   the weights (``padded_launches``). Other widths: bf16 K1, K2 and K2 p
+   at H = 96, 100, 160, 192 and 256 and N = 13, 55 and 147 (B=16; 96 and
+   100 padded to 128, 160 to 192; 192 and 256 on the block pairs with
+   streamed weights, route ``"wide"``), and f32 at H=96, N=147, each one
+   launch on the route the wrapper names against the plain version, a
+   second launch bitwise equal; the chunked kernels' limits (what stays
+   refused: f32 at 128 < H <= 256) printed. Each kernel and the plain
+   version timed at
    the main, ragged and H=96 shapes with CUDA events over back-to-back
    calls, so the wrapper's host work overlaps the device work before it.
    The bf16 parameter-gradient backward must take N >= 55 (vi_lj55.yaml).
@@ -158,6 +165,25 @@ non-zero):
    call and no other launch, beta 1, finite log_Z, outputs on the card;
    then the f32 K1, K2 p and K2 at B=256, N=147 and the block-pair K2 at
    (c)'s shape against the plain version, timed (events, device, bound).
+10l. wide (after lj147_f32) — the bf16 EGCL at other hidden widths
+   through the port's driver: (a) ``example/vi_lj55.yaml`` with
+   ``network.hidden_nf: 256`` and nothing else changed, 1 epoch x
+   WIDE_STEPS steps of its 256 particles (5 K1 + 5 K2 p a step); (b)
+   ``example/sample_lj55.yaml`` at ``hidden_nf: 256`` from (a)'s
+   checkpoint, its 1024 particles at WIDE_TEMPS of its 16 temperatures in
+   one segment (210 K1 + 205 K2), every launch on the ``"wide"`` counters;
+   (c) ``example/vi_lj13.yaml`` at ``hidden_nf: 96`` (1 x WIDE13_STEPS)
+   and ``example/sample_lj13.yaml`` from its checkpoint, on the
+   one-molecule kernels at 128 (every launch also on
+   ``padded_launches``); no chunked launch and no plain
+   call, beta 1, finite log_Z and losses, outputs on the card. Then K1, K2
+   and K2 p at N=55, H=256 on the streamed block pairs at B=256 and
+   B=1024, each against the plain version (read per element,
+   ``step_errs``): CUDA events, device time, bound, the L2 bytes their
+   weight slabs read, the plan; the partials' sum; the padded launches'
+   cost at H=96 against H=128 and against the chunked kernels at 96
+   (B=1024, N=13, K2 p B=512; and K1, K2 p at B=256, N=55); each run's
+   kernel share.
 10c. fluid — ``example/vi_fluid.yaml`` (periodic LJ fluid, N=32, box 6.5,
    H=64, bf16, the learned drift) cut to 1 epoch x FLUID_STEPS steps; then
    K1 and K2 p against their plain version at B=256, N=32, H=64 with
@@ -259,8 +285,10 @@ vi_dw4.yaml's shape and the f32 K2 at sample_ala2.yaml's B=2048 (CUDA
 events and device time) and one vi_dw4.yaml epoch. For an earlier
 egcl_allpairs_sm90.cu with the same bf16 K1/K2 entry points: the two
 sources' one-molecule kernels held to the same bits at the kernel and
-params phases' shapes and at each direction's largest molecule, then
-K1/K2 at the main-path shape and the SMC run of phase 7. For an earlier
+params phases' shapes and at each direction's largest molecule, and,
+where the earlier source has them, the block-pair kernels at H = 128
+(N = 147 and 60) and 64 (N = 100) in every direction, then K1/K2 at the
+main-path shape and the SMC run of phase 7. For an earlier
 edge_pipeline.cu (e.g. ``git show
 6a2a2b7:enflow_tpu_torch/csrc/edge_pipeline.cu``): K5/K6 in f32 at the
 training and ragged shapes and in bf16 at the top-k sampler's shape
@@ -288,7 +316,10 @@ minutes; it fails if a trace with the margins lost half the launches.
 
 ``python3 chip_smoke.py --edge-seeds FIRST LAST`` runs phases 1-2 and then
 holds the bf16 Hopper K5/K6 against their plain version at EDGE_SHAPES
-for input seeds FIRST..LAST and prints every reading.
+for input seeds FIRST..LAST and prints every reading;
+``--allpairs-seeds FIRST LAST`` does the same for the bf16 all-pairs K1,
+K2 and K2 p at SWEEP_SHAPES and H = 64, 96, 128, 160, 192 and 256, read
+per element (``step_errs``) and as TOL / TOL_PARAM read them.
 For an earlier pair_energy.cu whose entry point takes no plan (e.g.
 ``git show 0d49c21:enflow_tpu_torch/csrc/pair_energy.cu``): K7 r at B=1,
 N=13, r2 at B=30, N=13 and r at 2,944 atoms (events and device time) and
@@ -387,6 +418,32 @@ TOL_FLAGS = 1e-4
 # sits between the sound reading and the weakest fault it must catch,
 # 6.9e-4. K5/K6's parameter gradients are held to it the same way.
 TOL_PARAM = {"float32": 1e-4, "bfloat16": 6e-4}
+# The bf16 all-pairs EGCL at other hidden widths (phase kernel's width
+# checks, phase wide, chip_mutants.py egcl_wide) is read per element
+# (step_errs), since one bf16 step near an output's largest value, or a
+# parameter gradient whose largest value nearly cancels, reads above TOL /
+# TOL_PARAM on some input seeds for a sound kernel (--allpairs-seeds).
+# An output (agg, f_sum, dh, and dpos, an f32 sum of bf16 values) differs
+# from the plain version by its own last rounding and by what a flipped
+# intermediate rounding carries into it: its reading is the largest
+# |kernel - plain| in bf16 steps of the plain value, values under
+# STEP_FLOOR of the output's largest counted at that floor, held to
+# STEP_TOL. A parameter gradient (an f32 sum) differs by round-off that
+# grows with its terms' magnitudes, not with the sum: its reading is the
+# largest |kernel - plain| over TOL_PARAM of the gradient's largest value
+# plus TERMS_TOL of the element's terms (allpairs_edges_plain_bwd's
+# ``terms``), held to 1. Over 12 input seeds at H = 64, 96, 128, 160,
+# 192 and 256 and N = 13 (B=256), 55 and 147 (B=16) (--allpairs-seeds
+# 55 66) the sound kernels read at most 2 steps at this floor (6 at a
+# floor of 2^-4, 22 at 2^-8: a difference is a share of the output's
+# largest value more than of the element) and 0.51 of the parameter
+# bound (|diff| at most 2.5e-5 of the terms); TOL / TOL_PARAM's reading
+# exceeds its limit at 19 of those 216 cases. Each fault of
+# chip_mutants.py egcl_wide reads at least 6 times its limit on every
+# line it is caught on.
+STEP_TOL = 3.0
+STEP_FLOOR = 2.0 ** -2
+TERMS_TOL = 2e-5
 
 
 def require(cond, msg):
@@ -622,6 +679,113 @@ def blocks_kernel_checks(largest):
         raise RuntimeError("a refused block-pair launch did not raise")
     finally:
         ops._plans[key] = good
+
+
+# Other hidden widths (phase kernel): bf16 K1, K2 and K2 p at each H of
+# WIDTH_HS (zero-padded to 128 or 192, or the streamed widths themselves)
+# and each N of WIDTH_NS, B=16 with two padded atoms; f32 at H=96 and
+# N=147 (padded to 128: past the chunked kernels' old limit, on the f32
+# block pairs)
+WIDTH_HS = (96, 100, 160, 192, 256)
+WIDTH_NS = (13, 55, 147)
+
+
+def launch_counter(kind, route):
+    """The wrapper's counter of one launch of ``kind`` on ``route``."""
+    name = {"fwd": "fwd", "bwd": "bwd", "bwd_params": "bwd_param"}[kind]
+    if route == "f32" and kind == "bwd":
+        name = "bwd_f32"
+    if route in ("blocks", "f32_blocks", "wide"):
+        name += "_" + route
+    return name + ("_h_rule_launches" if route == "chunked" else "_launches")
+
+
+def launched():
+    """The all-pairs wrapper's nonzero counters since the last reset."""
+    from enflow_tpu_torch.ops import egcl_allpairs as ea
+    return {k: v for k, v in vars(ea.counts).items()
+            if not k.startswith("_") and v}
+
+
+def edge_chunked_limits():
+    """{"dtype H=.. direction": the most edge features C} that the
+    gathered-edge chunked kernels (H outside 64 and 128) take at one atom
+    a tile in the card's shared memory (ROADMAP B7)."""
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    lib = ep._library()
+    limit = lib.edge_pipeline_smem_limit()
+    out = {}
+    for code, dname in ((1, "bf16"), (0, "f32")):
+        for H in (96, 192, 256):
+            for bwd, d in ((0, "fwd"), (1, "bwd")):
+                out[f"{dname} H={H} {d}"] = max(
+                    (C for C in range(1, 1025)
+                     if 0 <= lib.edge_pipeline_smem_bytes(code, C, H, 1, bwd)
+                     <= limit), default=0)
+    return out
+
+
+def width_checks():
+    """The all-pairs EGCL at other hidden widths: bf16 K1, K2 and K2 p at
+    each H of WIDTH_HS and N of WIDTH_NS, and f32 at H=96, N=147, each one
+    launch on the route the wrapper names (its counter 1,
+    ``padded_launches`` 1 where H is padded, every other counter 0)
+    against the plain version (bf16 read per element, ``step_errs``; f32
+    outputs to TOL, its parameter gradients' sums to TOL_PARAM), a second
+    launch bitwise equal."""
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+
+    names = {"fwd": ("agg", "f_sum"), "bwd": ("dh", "dpos"),
+             "bwd_params": PARAM_OUT}
+    cases = [("bfloat16", H, N) for H in WIDTH_HS for N in WIDTH_NS]
+    cases.append(("float32", 96, 147))
+    bad = []
+    for dname, H, N in cases:
+        shape = dict(B=16, N=N, nf=5, H=H, n_pad=2)
+        h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(
+            shape, getattr(torch, dname), seed=H + N)
+        args = (h, pos, box, mask_f, W, dagg, dfsum)
+        code = 1 if dname == "bfloat16" else 0
+        for kind in ("fwd", "bwd", "bwd_params"):
+            route = ops._check_fits(code, (16, N, 5, H), kind)
+            run = ((lambda: ops.allpairs_edges_fwd(*args[:5]))
+                   if kind == "fwd" else (lambda p=kind == "bwd_params":
+                                          ops.allpairs_edges_bwd(*args,
+                                                                 params=p)))
+            ops.counts.reset()
+            got = run()
+            torch.cuda.synchronize()
+            counted = launched()
+            want = {launch_counter(kind, route): 1}
+            if ops.padded_width(H) != H:
+                want["padded_launches"] = 1
+            plain = (ops.allpairs_edges_plain(*args[:5]) if kind == "fwd"
+                     else ops.allpairs_edges_plain_bwd(
+                         *args, params=kind == "bwd_params"))
+            if dname == "bfloat16":
+                errs = step_errs(names[kind], got, plain, plain_terms(args)
+                                 if kind == "bwd_params" else None)
+                ok_errs, text = steps_ok(errs), steps_text(errs)
+            else:
+                errs = rel_errs(names[kind], got, plain)
+                ok_errs = all(r <= (TOL_PARAM if n in PARAM_OUT[2:] else
+                                    TOL)[dname] for n, (_, r) in errs.items())
+                text = "max_abs/rel err " + "  ".join(
+                    f"{n} {a:.2e}/{r:.1e}" for n, (a, r) in errs.items())
+            del plain
+            same = all(bool(torch.equal(a, b)) for a, b in zip(got, run()))
+            ok = counted == want and same and ok_errs
+            phase("kernel", f"width {dname} H={H} (run at "
+                  f"{ops.padded_width(H)}) N={N} B=16 {kind}: route {route}"
+                  f", launches {counted}; {text}; a second launch gives the "
+                  f"same bits: {same} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append((dname, H, N, kind))
+            del got
+        del h, pos, box, mask_f, W, dagg, dfsum, args
+        torch.cuda.empty_cache()
+    require(not bad, f"other widths disagree with plain: {bad}")
 
 
 def f32_blocks_shapes():
@@ -871,13 +1035,17 @@ def kernel_phase():
             f"bf16 limits below 70 / 55 / 55 (vi_lj55.yaml): {largest}")
     phase("kernel", "largest N at nf=5, H=128: " + ", ".join(
         f"{k} {v}" for k, v in largest.items()))
-    # what stays refused (ROADMAP B7): the chunked kernels of other widths
-    # past their largest molecule, 0 where no molecule fits
-    chunked = {f"{d} H={H} {kind}": ops.largest_molecule(c, 5, H, kind)
-               for c, d in ((1, "bf16"), (0, "f32")) for H in (96, 192, 256)
-               for kind in ("fwd", "bwd", "bwd_params")}
-    phase("kernel", "the chunked kernels' largest N at nf=5: " + ", ".join(
-        f"{k} {v}" for k, v in chunked.items()))
+    # what stays refused (ROADMAP B7): float32 at 128 < H <= 256 on the
+    # chunked kernels past their largest molecule, 0 where no molecule fits
+    chunked = {f"f32 H={H} {kind}": ops.largest_molecule(0, 5, H, kind)
+               for H in (192, 256) for kind in ("fwd", "bwd", "bwd_params")}
+    phase("kernel", "what stays on the chunked kernels (f32 at 128 < H <= "
+          "256), largest N at nf=5: " + ", ".join(
+              f"{k} {v}" for k, v in chunked.items()))
+    phase("kernel", "the gathered-edge K5/K6 at other widths (the "
+          "chunked kernels), largest C at one atom a tile: " + ", ".join(
+              f"{k} {v}" for k, v in edge_chunked_limits().items()))
+    width_checks()
     blocks_kernel_checks(largest)
     f32_errs = f32_blocks_checks()
     seam = seam_checks(largest)
@@ -897,13 +1065,14 @@ def kernel_phase():
         k_out, errs = kernel_errs(ops, h, pos, box, mask_f, W, dagg, dfsum)
         c = ops.counts
         rule = (c.fwd_h_rule_launches, c.bwd_h_rule_launches)
-        # f32 at H = 64 / 128: the tiled K2 on its own counter
-        tiled = dname == "float32" and sname != "h96"
+        # f32: the tiled K2 on its own counter; H=96 zero-padded to 128, on
+        # the same kernels and on padded_launches too
+        tiled = dname == "float32"
         k2, other = ((c.bwd_f32_launches, c.bwd_launches) if tiled
                      else (c.bwd_launches, c.bwd_f32_launches))
-        require((c.fwd_launches, k2) == ((0, 0) if sname == "h96"
-                                         else (1, 1)) and other == 0
-                and rule == ((1, 1) if sname == "h96" else (0, 0)),
+        require((c.fwd_launches, k2) == (1, 1) and other == 0
+                and rule == (0, 0) and c.padded_launches == (
+                    2 if sname == "h96" else 0),
                 f"{sname} {dname}: launches {vars(c)}")
         ok = all(rel <= TOL[dname] for _, rel in errs.values())
         again, _ = kernel_errs(ops, h, pos, box, mask_f, W, dagg, dfsum)
@@ -911,8 +1080,8 @@ def kernel_phase():
         ok = ok and same
         note = f"; a second launch gives the same bits: {same}"
         if sname == "h96":
-            note += "; the size rule's chunked kernels ran (1 + 1 launches)"
-        elif tiled:
+            note += "; zero-padded to H=128 (1 + 1 padded launches)"
+        if tiled:
             note += "; K2 on the tiled f32 kernel"
         phase("kernel", f"{sname} {dname} B={shape['B']} N={shape['N']} "
               f"H={shape['H']} max_abs/rel err: " + "  ".join(
@@ -1026,9 +1195,9 @@ def param_kernel_phase(large_n):
     Hopper kernel) at the VI shape (random and icosahedral positions), the
     ragged PBC shape, a large shape (B=64, N = ``large_n``, the bf16
     variant's largest) and H=64; float32 (the tiled f32 kernel) at the
-    first three; both dtypes at H=96, which the wrapper's size rule sends
-    to the chunked kernel; a second launch of each must give the same
-    bits. The
+    first three; both dtypes at H=96, which the wrapper zero-pads to 128
+    (the same kernels, ``padded_launches``); a second launch of each must
+    give the same bits. The
     parameter gradients are compared as the float32 sums both return
     (before the autograd Function rounds them to the weights' dtype);
     dh/dpos also against the input-gradient kernel's on the same inputs.
@@ -1053,7 +1222,7 @@ def param_kernel_phase(large_n):
         ops.counts.reset()
         k = ops.allpairs_edges_bwd(*args, params=True)
         c = ops.counts
-        launches = (c.bwd_param_launches, c.bwd_param_h_rule_launches)
+        launches = (c.bwd_param_launches, c.padded_launches)
         p = ops.allpairs_edges_plain_bwd(*args, params=True)
         errs = rel_errs(PARAM_OUT, k, p)
         # dh/dpos of the parameter-gradient variant against the
@@ -1072,15 +1241,16 @@ def param_kernel_phase(large_n):
         tol = {n: (TOL if n in ("dh", "dpos") else TOL_PARAM)[dname]
                for n in PARAM_OUT}
         ok = (all(rel <= tol[n] for n, (_, rel) in errs.items()) and same
-              and launches == ((0, 1) if sname == "h96" else (1, 0)))
+              and launches == ((1, 1) if sname == "h96" else (1, 0))
+              and c.bwd_param_h_rule_launches == 0)
         again = ops.allpairs_edges_bwd(*args, params=True)
         torch.cuda.synchronize()
         repeat = all(bool(torch.equal(a, b)) for a, b in zip(k, again))
         ok = ok and repeat
         note = f"; a second launch gives the same bits: {repeat}"
         phase("params", f"{sname} {dname} B={shape['B']} N={shape['N']} "
-              f"H={shape['H']} launches {launches[0]} (+{launches[1]} by the "
-              "size rule) max_abs/rel err: " + "  ".join(
+              f"H={shape['H']} launches {launches[0]} ({launches[1]} at a "
+              "padded width) max_abs/rel err: " + "  ".join(
                   f"{n} {a:.2e}/{r:.1e}" for n, (a, r) in errs.items())
               + f"  tol dh/dpos {TOL[dname]:g}, parameters "
               f"{TOL_PARAM[dname]:g}; dh/dpos vs the input-gradient "
@@ -1131,6 +1301,59 @@ def rel_errs(names, got, want):
         scale = float(p.float().abs().max()) if p.numel() else 0.0
         errs[name] = (d, d / max(scale, 1e-6))
     return errs
+
+
+def step_errs(names, got, want, terms=None, floor=STEP_FLOOR):
+    """{name: (max |kernel - plain|, reading, its limit)}, read per element
+    as set out at STEP_TOL: bf16 steps for an output, the share of its
+    bound for a parameter gradient named in ``terms`` ({name: the plain
+    sums of its terms' magnitudes}); a non-finite kernel output reads as
+    infinite."""
+    import torch
+    errs = {}
+    for name, k, p in zip(names, got, want):
+        require(k.shape == p.shape and k.dtype == p.dtype,
+                f"{name}: kernel {tuple(k.shape)}/{k.dtype} vs plain "
+                f"{tuple(p.shape)}/{p.dtype}")
+        param = bool(terms) and name in terms
+        limit = 1.0 if param else STEP_TOL
+        if not bool(torch.isfinite(k).all()):
+            errs[name] = (math.inf, math.inf, limit)
+            continue
+        if not k.numel():
+            errs[name] = (0.0, 0.0, limit)
+            continue
+        p = p.float()
+        d = (k.float() - p).abs()
+        top = float(p.abs().max())
+        if param:
+            allow = (TOL_PARAM["bfloat16"] * top
+                     + TERMS_TOL * terms[name].float().abs())
+        else:
+            allow = bf16_ulp(p.abs().clamp_min(floor * top))
+        errs[name] = (float(d.max()),
+                      float((d / allow.clamp_min(1e-30)).max()), limit)
+    return errs
+
+
+def steps_ok(errs):
+    return all(r <= lim for _, r, lim in errs.values())
+
+
+def steps_text(errs):
+    """The readings of ``step_errs``: max |diff| and bf16 steps, or the
+    share of the bound (``x``)."""
+    return "  ".join(f"{n} {a:.2e}/" + (f"{r:.2f}x" if lim == 1.0 else
+                                         f"{r:.2f} steps")
+                     for n, (a, r, lim) in errs.items())
+
+
+def plain_terms(args):
+    """{name: the plain sums of each parameter gradient's terms'
+    magnitudes} at the inputs ``args`` (step_errs' ``terms``)."""
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+    return dict(zip(PARAM_OUT[2:], ops.allpairs_edges_plain_bwd(
+        *args, params=True, terms=True)[2:]))
 
 
 def bound(flop, nbytes, peak):
@@ -1484,6 +1707,94 @@ def edge_seed_sweep(first, last):
           f"{TOL_EDGE['bfloat16']:g} / TOL_PARAM {TOL_PARAM['bfloat16']:g}"
           + "".join(f"; {k[0]} seed {k[1]}: {v[0]} {v[1]:.2e}, {v[2]} "
                     f"{v[3]:.2e}" for k, v in over.items()))
+
+
+# the all-pairs seed sweep: the bf16 kernels at VI's batch of LJ13-size
+# molecules and at phase kernel's width-check shapes (B=16, two padded
+# atoms), at each width of the Hopper kernels (one-molecule or block pairs
+# at 64 / 128, streamed block pairs at 192 / 256) and padded onto them (96,
+# 160); the outputs' steps also read at these floors
+SWEEP_H = (64, 96, 128, 160, 192, 256)
+SWEEP_SHAPES = (dict(B=256, N=13, nf=5, n_pad=2),
+                dict(B=16, N=55, nf=5, n_pad=2),
+                dict(B=16, N=147, nf=5, n_pad=2))
+SWEEP_FLOORS = (2.0 ** -2, 2.0 ** -4, 2.0 ** -6, 2.0 ** -8)
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at ``x`` (a tensor; 0 where x is 0)."""
+    import torch
+    e = torch.floor(torch.log2(x.abs().clamp_min(1e-30)))
+    return torch.where(x == 0, torch.zeros_like(x), torch.exp2(e - 7))
+
+
+def allpairs_seed_sweep(first, last):
+    """bf16 K1, K2 and K2 p against their plain version at each shape of
+    SWEEP_SHAPES and H of SWEEP_H for the input seeds first..last: per
+    seed and per (shape, H) over the seeds, the largest ``step_errs``
+    readings (the outputs' bf16 steps at each floor of SWEEP_FLOORS, the
+    parameter gradients' share of their bound and their largest |kernel -
+    plain| over the terms' magnitudes), the seeds a reading exceeds its
+    limit at, and the seeds TOL / TOL_PARAM's max-relative reading
+    (``rel_errs``) exceeds at. A measurement of the limits, not a check:
+    it fails only on a kernel that does not run."""
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+
+    outs = ("agg", "f_sum", "dh", "dpos", "dh p", "dpos p")
+    tol = {n: (TOL_PARAM if n in PARAM_OUT[2:] else TOL)["bfloat16"]
+           for n in outs + PARAM_OUT[2:]}
+    for shape in SWEEP_SHAPES:
+        for H in SWEEP_H:
+            worst = dict(steps={f: 0.0 for f in SWEEP_FLOORS}, share=0.0,
+                         terms=0.0)
+            over, over_tol = [], []
+            for seed in range(first, last + 1):
+                args = edge_inputs(dict(shape, H=H), torch.bfloat16,
+                                   seed)[:7]
+                k = (ops.allpairs_edges_fwd(*args[:5])
+                     + ops.allpairs_edges_bwd(*args)
+                     + ops.allpairs_edges_bwd(*args, params=True))
+                p = (ops.allpairs_edges_plain(*args[:5])
+                     + ops.allpairs_edges_plain_bwd(*args)
+                     + ops.allpairs_edges_plain_bwd(*args, params=True))
+                terms = plain_terms(args)
+                names = outs + PARAM_OUT[2:]
+                steps = {f: max(r for _, r, _ in step_errs(
+                    outs, k[:6], p[:6], floor=f).values())
+                    for f in SWEEP_FLOORS}
+                errs = step_errs(names, k, p, terms)
+                share = max(errs[n][1] for n in PARAM_OUT[2:])
+                ratio = max(float(((k[i].float() - p[i].float()).abs()
+                                   / terms[n].clamp_min(1e-30)).max())
+                            for i, n in enumerate(names) if n in terms)
+                rel = rel_errs(names, k, p)
+                if not steps_ok(errs):
+                    over.append(seed)
+                if any(r > tol[n] for n, (_, r) in rel.items()):
+                    over_tol.append(seed)
+                for f in SWEEP_FLOORS:
+                    worst["steps"][f] = max(worst["steps"][f], steps[f])
+                worst["share"] = max(worst["share"], share)
+                worst["terms"] = max(worst["terms"], ratio)
+                phase("allpairs-seeds", f"B={shape['B']} N={shape['N']} "
+                      f"H={H} seed {seed}: outputs' bf16 steps at floors "
+                      + ", ".join(f"2^{math.log2(f):.0f} {v:.2f}"
+                                  for f, v in steps.items())
+                      + f"; parameter gradients {share:.3f}x their bound, "
+                      f"|diff| / terms {ratio:.2e}; max-relative "
+                      + "  ".join(f"{n} {r:.1e}" for n, (_, r) in rel.items()
+                                  if r > tol[n]))
+                del k, p, terms
+            phase("allpairs-seeds", f"B={shape['B']} N={shape['N']} H={H}, "
+                  f"seeds {first}-{last}: largest outputs' steps "
+                  + ", ".join(f"2^{math.log2(f):.0f} {v:.2f}"
+                              for f, v in worst["steps"].items())
+                  + f"; parameter gradients {worst['share']:.3f}x their "
+                  f"bound, |diff| / terms {worst['terms']:.2e}; over the "
+                  f"per-element limits at seeds {over}, over TOL / "
+                  f"TOL_PARAM at {over_tol}")
+            torch.cuda.empty_cache()
 
 
 def pair_inputs(shape, seed):
@@ -1997,11 +2308,16 @@ def ab_phase(card, old_src):
         return
     new_lib = ops._sm90_library()
     params = "egcl_sm90_bwd_params" in text
+    blocks = "egcl_sm90_blocks_fwd" in text
     for fn in ("egcl_sm90_fwd", "egcl_sm90_bwd", "egcl_sm90_smem_bytes",
                "egcl_sm90_smem_limit", "egcl_sm90_error_string") + ((
                    "egcl_sm90_bwd_params", "egcl_sm90_param_slices",
                    "egcl_sm90_slice_floats", "egcl_part_size")
-                   if params else ()):
+                   if params else ()) + ((
+                       "egcl_sm90_blocks_fwd", "egcl_sm90_blocks_bwd",
+                       "egcl_sm90_blocks_bwd_params",
+                       "egcl_sm90_blocks_smem_bytes",
+                       "egcl_sm90_blocks_param_slices") if blocks else ()):
         f, g = getattr(old_lib, fn), getattr(new_lib, fn)
         f.argtypes, f.restype = g.argtypes, g.restype
     old_lib._enflow_bound = True
@@ -2032,9 +2348,29 @@ def ab_phase(card, old_src):
             use("new")
             same = all(bool(torch.equal(x, y)) for x, y in zip(a, run()))
             cases.append((f"{sname} {kind}", same))
+    # the block-pair kernels at H = 64 and 128 (their own route past the
+    # one-molecule limits; launched through allpairs_edges_blocks within
+    # them)
+    for sname, shape in ((("blocks lj147", dict(B=16, N=147, nf=5, H=128,
+                                                 n_pad=2)),
+                           ("blocks n60", dict(B=32, N=60, nf=5, H=128)),
+                           ("blocks h64 n100", dict(B=16, N=100, nf=5,
+                                                    H=64)))
+                          if blocks else ()):
+        args = edge_inputs(shape, torch.bfloat16, seed=11)[:7]
+        for kind in ("fwd", "bwd", "bwd_params"):
+            run = lambda k=kind: ops.allpairs_edges_blocks(
+                k, *(args[:5] if k == "fwd" else args))
+            use("old")
+            a = run()
+            use("new")
+            same = all(bool(torch.equal(x, y)) for x, y in zip(a, run()))
+            cases.append((f"{sname} {kind}", same))
+        torch.cuda.empty_cache()
     differ = [c for c, same in cases if not same]
     phase("ab", f"old == new bit for bit at {len(cases) - len(differ)} of "
           f"{len(cases)} shape x direction cases"
+          + (" (one-molecule and block-pair kernels)" if blocks else "")
           + (f"; they differ at {differ}" if differ else ""))
 
     h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(MAIN, torch.bfloat16,
@@ -4297,6 +4633,297 @@ def lj147_f32_phase(card):
 # 1 epoch of LJ55C_STEPS (vi_lj55_coupled.yaml), FLUID_STEPS
 # (vi_fluid.yaml) and DW4_STEPS (vi_dw4.yaml) steps, every width as committed
 LJ55C_STEPS, FLUID_STEPS, DW4_STEPS = 5, 5, 10
+# phase wide: vi_lj55.yaml and sample_lj55.yaml with network.hidden_nf
+# WIDE_H and nothing else changed (VI cut to 1 epoch x WIDE_STEPS steps of
+# its 256 particles; SMC from that checkpoint, its 1024 particles at
+# WIDE_TEMPS of its 16 temperatures in one segment), every EGCL on the bf16
+# block pairs with streamed weights; then vi_lj13.yaml at hidden_nf
+# WIDE13_H (1 x WIDE13_STEPS) and sample_lj13.yaml from its checkpoint,
+# zero-padded to 128 on the one-molecule kernels
+WIDE_H, WIDE_STEPS, WIDE_TEMPS = 256, 5, 4
+WIDE13_H, WIDE13_STEPS = 96, 3
+# the kernels timed (and held against the plain version) at N=55,
+# H=WIDE_H: the VI's B and the SMC's
+WIDE_B = (256, 1024)
+
+
+def wide_tiles(B, N, A):
+    """64-row tiles of a block-pair launch of B molecules of N atoms in
+    blocks of A: each block pair's rows i != j in tiles of their own."""
+    sizes = [min(A, N - a0) for a0 in range(0, N, A)]
+    per = sum(-(-ni * (nj - (ib == jb)) // 64)
+              for ib, ni in enumerate(sizes) for jb, nj in enumerate(sizes))
+    return B * per
+
+
+def wide_driver_paths(card):
+    """Phase wide's driver paths (see WIDE_H): launches held exactly on the
+    ``"wide"`` counters (LJ55) or the one-molecule counters with
+    ``padded_launches`` (LJ13 at 96), no chunked launch, no plain call;
+    beta 1, finite log_Z and losses, outputs on the card. Returns the
+    seconds and launches of each run."""
+    import os
+    import torch
+    from enflow_tpu_torch.sample.smc import ess_from_log_weights
+
+    cwd = os.getcwd()
+    n_iter = 5
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            net = dict(network=dict(hidden_nf=WIDE_H, node_nf=5),
+                       checkpoint_path="lj55_wide_vi.cpt")
+            vi = config_driver(tmp, "vi_lj55.yaml", over=dict(
+                num_epochs=1, steps_per_epoch=WIDE_STEPS), dynamics=net)
+            require(vi.hidden_nf == WIDE_H, f"hidden_nf {vi.hidden_nf}")
+            step_s, losses = time_vi_steps(vi)
+            reset_counts()
+            vi.train()
+            torch.cuda.synchronize()
+            got, plain = launched(), plain_calls()
+            want = dict(fwd_wide_launches=n_iter * WIDE_STEPS,
+                        bwd_param_wide_launches=n_iter * WIDE_STEPS)
+            require(len(step_s) == WIDE_STEPS and got == want and plain == 0,
+                    f"wide VI: {len(step_s)} steps, launches {got} != "
+                    f"{want}, plain {plain}")
+            require(all(math.isfinite(x) for x in losses),
+                    f"non-finite wide VI losses {losses}")
+            require(Path("lj55_wide_vi.cpt").exists(), "no wide checkpoint")
+            out["vi"] = dict(s_step=statistics.median(step_s[1:]),
+                             first=step_s[0], launches=got,
+                             P=vi.vi_particles)
+            phase("wide", f"(a) vi_lj55.yaml at hidden_nf {WIDE_H} on {card}"
+                  f": 1 epoch x {WIDE_STEPS} steps of {vi.vi_particles} "
+                  f"particles, {out['vi']['s_step']:.5f} s/step (median of "
+                  f"steps 2-{WIDE_STEPS}; first {step_s[0]:.4f} s); losses "
+                  + ", ".join(f"{x:.2f}" for x in losses)
+                  + f"; launches {got}, chunked 0, plain calls 0")
+
+            smc = config_driver(tmp, "sample_lj55.yaml", over=dict(
+                n_temps=WIDE_TEMPS, chunk_temps=WIDE_TEMPS,
+                checkpoint_every=WIDE_TEMPS, output="lj55_wide.npz"),
+                dynamics=net)
+            sec = smc.args["sampling"]
+            P = sec["n_particles"]
+            reset_counts()
+            res, secs = timed_sample(smc)
+            got, plain = launched(), plain_calls()
+            n_vg = 1 + WIDE_TEMPS * sec["mcmc_steps"] * sec["n_leapfrog"]
+            want = dict(fwd_wide_launches=n_iter + n_vg * n_iter,
+                        bwd_wide_launches=n_vg * n_iter)
+            require(got == want and plain == 0, f"wide SMC launches {got} "
+                    f"!= {want}, plain {plain}")
+            check_smc(res, "wide sample_lj55", P, 55)
+            outs = [res.particles[k] for k in sorted(res.particles)]
+            require(all(t.is_cuda for t in outs + [res.log_weights,
+                                                   res.log_Z]),
+                    "wide SMC outputs are not on the card")
+            ess = float(ess_from_log_weights(res.log_weights))
+            out["smc"] = dict(secs=secs, launches=got, P=P)
+            phase("wide", f"(b) sample_lj55.yaml at hidden_nf {WIDE_H} on "
+                  f"{card} from (a)'s checkpoint: {P} particles x "
+                  f"{WIDE_TEMPS} temps in one segment: {secs:.3f} s, "
+                  f"{P / secs:.1f} samples/s, log_Z {float(res.log_Z):.4f}, "
+                  f"final ESS {ess:.1f}, beta "
+                  f"{float(res.beta_history[-1]):.6f}; launches {got} "
+                  f"({n_vg} value-and-grads), chunked 0, plain calls 0; "
+                  "outputs on cuda")
+            del vi, smc, res, outs
+            torch.cuda.empty_cache()
+
+            net = dict(network=dict(hidden_nf=WIDE13_H, node_nf=5),
+                       checkpoint_path="lj13_h96_vi.cpt")
+            vi = config_driver(tmp, "vi_lj13.yaml", over=dict(
+                num_epochs=1, steps_per_epoch=WIDE13_STEPS), dynamics=net)
+            step_s, losses = time_vi_steps(vi)
+            reset_counts()
+            vi.train()
+            torch.cuda.synchronize()
+            got, plain = launched(), plain_calls()
+            want = dict(fwd_launches=n_iter * WIDE13_STEPS,
+                        bwd_param_launches=n_iter * WIDE13_STEPS,
+                        padded_launches=2 * n_iter * WIDE13_STEPS)
+            require(len(step_s) == WIDE13_STEPS and got == want
+                    and plain == 0, f"LJ13 H={WIDE13_H} VI launches {got} "
+                    f"!= {want}, plain {plain}")
+            require(all(math.isfinite(x) for x in losses),
+                    f"non-finite LJ13 H={WIDE13_H} losses {losses}")
+            smc = config_driver(tmp, "sample_lj13.yaml", over=dict(
+                output="lj13_h96.npz"), dynamics=net)
+            sec = smc.args["sampling"]
+            P13 = sec["n_particles"]
+            reset_counts()
+            res, secs13 = timed_sample(smc)
+            got13, plain = launched(), plain_calls()
+            n_vg = 1 + sec["n_temps"] * sec["mcmc_steps"] * sec["n_leapfrog"]
+            want13 = dict(fwd_launches=n_iter + n_vg * n_iter,
+                          bwd_launches=n_vg * n_iter,
+                          padded_launches=n_iter + 2 * n_vg * n_iter)
+            require(got13 == want13 and plain == 0, f"LJ13 H={WIDE13_H} SMC "
+                    f"launches {got13} != {want13}, plain {plain}")
+            check_smc(res, f"sample_lj13 H={WIDE13_H}", P13, 13)
+            require(res.log_Z.is_cuda and res.particles["pos"].is_cuda,
+                    "LJ13 H=96 SMC outputs are not on the card")
+            out["lj13"] = dict(s_step=statistics.median(step_s[1:]),
+                               vi=got, secs=secs13, smc=got13)
+            phase("wide", f"(c) vi_lj13.yaml at hidden_nf {WIDE13_H} "
+                  f"(zero-padded to 128) on {card}: 1 epoch x {WIDE13_STEPS} "
+                  f"steps of {vi.vi_particles} particles, "
+                  f"{out['lj13']['s_step']:.5f} s/step; losses "
+                  + ", ".join(f"{x:.2f}" for x in losses)
+                  + f"; launches {got}; then sample_lj13.yaml from its "
+                  f"checkpoint: {P13} particles, {secs13:.3f} s, log_Z "
+                  f"{float(res.log_Z):.4f}, beta "
+                  f"{float(res.beta_history[-1]):.6f}; launches {got13}, "
+                  "chunked 0, plain calls 0; outputs on cuda")
+        finally:
+            os.chdir(cwd)
+    return out
+
+
+def wide_phase(card):
+    """Phase wide: the driver paths (``wide_driver_paths``), then bf16 K1,
+    K2 and K2 p at N=55, H=WIDE_H on the streamed block pairs at B=256
+    (the VI's batch) and B=1024 (the SMC run's), each against the plain
+    version (read per element, ``step_errs``) and timed beside it: CUDA
+    events, device time, the bound, the L2 bytes the slabs read (and K2
+    p's partials), the plan; the partials' sum timed; the padded launches'
+    cost at H=96 against H=128 and against the chunked kernels that ran
+    H=96 before the padding (still in csrc/egcl_allpairs.cu) at the same
+    shapes; each run's kernel share."""
+    import torch
+    from enflow_tpu_torch.ops import build
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+
+    paths = wide_driver_paths(card)
+    lib = ops._sm90_library()
+    rec = {}
+    for B in WIDE_B:
+        shape = dict(B=B, N=55, nf=5, H=WIDE_H)
+        h, pos, box, mask_f, W, dagg, dfsum, mask = edge_inputs(
+            shape, torch.bfloat16, seed=47)
+        args = (h, pos, box, mask_f, W, dagg, dfsum)
+        for kind in ("fwd", "bwd", "bwd_params"):
+            if kind == "fwd":
+                kern = lambda: ops.allpairs_edges_fwd(*args[:5])
+                plain = lambda: ops.allpairs_edges_plain(*args[:5])
+                names = ("agg", "f_sum")
+            else:
+                p = kind == "bwd_params"
+                kern = lambda p=p: ops.allpairs_edges_bwd(*args, params=p)
+                plain = lambda p=p: ops.allpairs_edges_plain_bwd(*args,
+                                                                 params=p)
+                names = PARAM_OUT if p else ("dh", "dpos")
+            ops.counts.reset()
+            got = kern()
+            torch.cuda.synchronize()
+            require(launched() == {launch_counter(kind, "wide"): 1},
+                    f"wide {kind} B={B}: launches {launched()}")
+            errs = step_errs(names, got, plain(), plain_terms(args)
+                             if kind == "bwd_params" else None)
+            ok = steps_ok(errs)
+            err = max(a for a, _, _ in errs.values())
+            del got
+            torch.cuda.empty_cache()
+            t_plain = cuda_time_ms(plain, reps=3, calls=1, warmup=1)
+            note = (f"vs plain {steps_text(errs)} -> "
+                    f"{'ok' if ok else 'FAIL'}; plain {t_plain:.4f} ms")
+            require(ok, f"wide {kind} B={B} disagrees with plain: {errs}")
+            torch.cuda.empty_cache()
+            ms = cuda_time_ms(kern, reps=5, calls=3)
+            dev = blocks_device_ms(kern, kind)
+            fl_f, fl_b, by_f, by_b = work(shape, "bfloat16", mask)
+            fl, by = {"fwd": (fl_f, by_f), "bwd": (fl_b, by_b),
+                      "bwd_params": work_params(shape, "bfloat16",
+                                                mask)}[kind]
+            b = bound(fl, by, PEAK_FLOPS["bfloat16"])
+            A, nwg = ops._blocks_launch_plan(lib, 55, 5, WIDE_H, kind)
+            tiles = wide_tiles(B, 55, A)
+            # each tile reads its products' slabs: 2 H^2 bytes a product
+            slab_bytes = tiles * (2 if kind == "fwd" else 4) * 2 * WIDE_H ** 2
+            # K2 p also reads and writes dW2 and dW3 (2 H^2 f32) a tile
+            part_bytes = tiles * 16 * WIDE_H ** 2 if kind == "bwd_params" \
+                else 0
+            phase("wide", f"{kind} bf16 B={B} N=55 H={WIDE_H} (blocks of {A} "
+                  f"atoms, {nwg} warpgroup a block, {tiles} tiles): {note}; "
+                  f"time ms events {ms:.4f} device {dev:.4f}, bound "
+                  f"{b[0]:.4f} ({b[1]}, {fl / 1e9:.2f} GFLOP, {by / 1e6:.2f} "
+                  f"MB); L2 reads of the weight slabs {slab_bytes / 1e9:.3f} "
+                  f"GB" + (f", of K2 p's partials (read and written) "
+                           f"{part_bytes / 1e9:.3f} GB" if part_bytes else ""))
+            rec[(kind, B)] = dict(err=err, ms=ms, dev=dev, plain=t_plain,
+                                  bound=b, A=A, tiles=tiles,
+                                  l2=slab_bytes + part_bytes)
+        del h, pos, box, mask_f, W, dagg, dfsum, mask, args
+        torch.cuda.empty_cache()
+    # K2 p's partials: one slice a warpgroup of the grid, summed by the
+    # wrapper
+    A, nwg = ops._blocks_launch_plan(lib, 55, 5, WIDE_H, "bwd_params")
+    n_sm = build.multiprocessors("cuda")
+    slices = lib.egcl_sm90_blocks_param_slices(WIDE_B[0], 55, A, nwg, n_sm)
+    P = lib.egcl_part_size(5, WIDE_H)
+    part = torch.randn((slices, lib.egcl_sm90_slice_floats(5, WIDE_H)),
+                       device="cuda")
+    t_sum = cuda_time_ms(lambda: part[:, :P].sum(dim=0))
+    phase("wide", f"K2 p's partials at H={WIDE_H}: {slices} slices x {P} "
+          f"floats ({slices * P * 4 / 1e6:.1f} MB), their sum {t_sum:.4f} ms")
+    del part
+    # the padded launches' cost: H=96 (run at 128) against H=128 and
+    # against the chunked kernels at 96 (the route H=96 took before it was
+    # padded), at LJ13's SMC / VI batches and at LJ55's VI batch
+    for kind, B, N in (("fwd", 1024, 13), ("bwd", 1024, 13),
+                       ("bwd_params", 512, 13), ("fwd", 256, 55),
+                       ("bwd_params", 256, 55)):
+        t = {}
+        for H, route in ((WIDE13_H, None), (128, None),
+                         (WIDE13_H, "chunked")):
+            a = edge_inputs(dict(B=B, N=N, nf=5, H=H), torch.bfloat16,
+                            seed=53)[:7]
+            ins = a[:5] if kind == "fwd" else a
+            if route:
+                kern = lambda: ops._run(kind, route, *ins[:5],  # noqa: E731
+                                        *(ins[5:] or (None, None)))
+            else:
+                kern = ((lambda: ops.allpairs_edges_fwd(*ins))
+                        if kind == "fwd" else (lambda p=kind == "bwd_params":
+                                               ops.allpairs_edges_bwd(
+                                                   *ins, params=p)))
+            names = (("agg", "f_sum") if kind == "fwd" else PARAM_OUT
+                     if kind == "bwd_params" else ("dh", "dpos"))
+            plain = (ops.allpairs_edges_plain(*ins) if kind == "fwd" else
+                     ops.allpairs_edges_plain_bwd(
+                         *ins, params=kind == "bwd_params"))
+            errs = step_errs(names, kern(), plain, plain_terms(ins)
+                             if kind == "bwd_params" else None)
+            t[(H, route)] = (cuda_time_ms(kern, reps=10, calls=5), errs)
+            del a, ins, plain
+        padded, full, chunked = (t[(WIDE13_H, None)], t[(128, None)],
+                                 t[(WIDE13_H, "chunked")])
+        require(steps_ok(padded[1]) and steps_ok(full[1]),
+                f"padded cost {kind}: a launch disagrees with plain")
+        phase("wide", f"padded cost {kind} bf16 B={B} N={N}: H={WIDE13_H} "
+              f"(zero-padded to 128) {padded[0]:.4f} ms, H=128 "
+              f"{full[0]:.4f} ms ({padded[0] / full[0]:.3f}x), H="
+              f"{WIDE13_H} on the chunked kernels {chunked[0]:.4f} ms "
+              f"(padded / chunked {padded[0] / chunked[0]:.3f}x; chunked vs "
+              f"plain {steps_text(chunked[1])})")
+    vi, smc = paths["vi"], paths["smc"]
+    k_vi = 5 * (rec[("fwd", WIDE_B[0])]["dev"]
+                + rec[("bwd_params", WIDE_B[0])]["dev"]) / 1e3
+    k_smc = (smc["launches"]["fwd_wide_launches"]
+             * rec[("fwd", WIDE_B[1])]["dev"]
+             + smc["launches"]["bwd_wide_launches"]
+             * rec[("bwd", WIDE_B[1])]["dev"]) / 1e3
+    phase("wide", f"kernel share: VI {vi['s_step']:.5f} s a step, 5 x (K1 + "
+          f"K2 p) device {k_vi:.5f} s ({k_vi / vi['s_step']:.1%}); SMC "
+          f"{smc['secs']:.3f} s, K1 + K2 launches x device {k_smc:.3f} s "
+          f"({k_smc / smc['secs']:.1%})")
+    return dict(k1=vi["launches"]["fwd_wide_launches"],
+                k1_smc=smc["launches"]["fwd_wide_launches"],
+                k2=smc["launches"]["bwd_wide_launches"],
+                k2_params=vi["launches"]["bwd_param_wide_launches"], rec=rec)
+
+
 # the f32 all-pairs shapes: vi_dw4.yaml's 512 particles of DW4, and
 # vi_ala2.yaml's 256 of alanine dipeptide (22 atoms, nf=4, H=128)
 DW4 = dict(B=512, N=4, nf=2, H=64)
@@ -5402,6 +6029,12 @@ def main():
                     "K5/K6 against their plain version at EDGE_SHAPES for "
                     "input seeds FIRST..LAST instead of the phases after the "
                     "build, and print the readings")
+    ap.add_argument("--allpairs-seeds", nargs=2, type=int, default=None,
+                    metavar=("FIRST", "LAST"), help="hold the bf16 K1, K2 "
+                    "and K2 p at SWEEP_SHAPES and H = 64, 96, 128, 160, 192, "
+                    "256 against their plain version for input seeds "
+                    "FIRST..LAST instead of the phases after the build, and "
+                    "print the readings")
     ap.add_argument("--trace-check", type=int, nargs=2, default=None,
                     metavar=("ROUNDS", "MINUTES"), help="trace K5 after the "
                     "build, after phases data and import ROUNDS times, then "
@@ -5460,6 +6093,9 @@ def main():
     if args.edge_seeds is not None:
         edge_seed_sweep(*args.edge_seeds)
         return 0
+    if args.allpairs_seeds is not None:
+        allpairs_seed_sweep(*args.allpairs_seeds)
+        return 0
     if args.blocks_plans:
         blocks_plans()
         return 0
@@ -5508,6 +6144,7 @@ def main():
     timed("lj55", lj55_phase, card)
     lj147 = timed("lj147", lj147_phase, card)
     lj147f = timed("lj147_f32", lj147_f32_phase, card)
+    wide = timed("wide", wide_phase, card)
     timed("fluid", fluid_phase, card)
     dw4 = timed("dw4", dw4_phase, card)
     ala2 = timed("ala2", ala2_phase, card)
@@ -5632,6 +6269,20 @@ def main():
             ("egcl_allpairs_f32_bwd_lj147", "bwd", 414, lj147f["k2"])):
         r = lj147f["rec"][key]
         kernels.append(kernel_record(name, "egcl_allpairs_f32.cu",
+                                     f"{v3}:{line}", n, r["err"], r["ms"],
+                                     r["plain"], r["bound"]))
+    # the bf16 block pairs with streamed weights at H=256, N=55, each at
+    # the batch of phase wide's run that launched it: K1 and K2 p of the VI
+    # (B=256), K1 and K2 of the SMC run (B=1024)
+    for name, direction, B, line, n in (
+            ("egcl_allpairs_wide_fwd", "fwd", WIDE_B[0], 365, wide["k1"]),
+            ("egcl_allpairs_wide_fwd_smc", "fwd", WIDE_B[1], 365,
+             wide["k1_smc"]),
+            ("egcl_allpairs_wide_bwd", "bwd", WIDE_B[1], 414, wide["k2"]),
+            ("egcl_allpairs_wide_bwd_params", "bwd_params", WIDE_B[0], 414,
+             wide["k2_params"])):
+        r = wide["rec"][(direction, B)]
+        kernels.append(kernel_record(name, "egcl_allpairs_sm90.cu",
                                      f"{v3}:{line}", n, r["err"], r["ms"],
                                      r["plain"], r["bound"]))
     # bf16 K5/K6 at 17 edge features (the Hopper kernels, two k16 steps of

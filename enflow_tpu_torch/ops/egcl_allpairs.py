@@ -14,23 +14,40 @@ attention/norm_diff/tanh off.
   only (``dh``, ``dpos``) when no weight needs a gradient, as in sampling,
   or with the nine parameter gradients of ``_bwd_kernel:265-273`` as well,
   as in training. :func:`kernel_for` is the size rule and
-  :func:`route_for` the molecule-size rule after it. At H = 64 or 128
-  bf16 runs the Hopper kernels of ``csrc/egcl_allpairs_sm90.cu`` (wgmma,
-  persistent warpgroups) in every direction: one molecule a warpgroup
-  while its atoms fit in shared memory, and past that the same file's
-  block-pair kernels (route ``"blocks"``, every N: a warpgroup per
-  molecule and block of atoms, walking the other blocks), counted on
-  their own launch counters (``*_blocks_launches``). Float32 runs the
+  :func:`route_for` the molecule-size rule after it, both on the padded
+  width (below). At H = 64 or 128 bf16 runs the Hopper kernels of
+  ``csrc/egcl_allpairs_sm90.cu`` (wgmma, persistent warpgroups) in every
+  direction: one molecule a warpgroup while its atoms fit in shared
+  memory, and past that the same file's block-pair kernels (route
+  ``"blocks"``, every N: a warpgroup per molecule and block of atoms,
+  walking the other blocks), counted on their own launch counters
+  (``*_blocks_launches``). At H = 192 or 256 bf16 runs the same block-pair
+  kernels with W2 and W3 streamed through shared memory in slabs (route
+  ``"wide"``, every N; counters ``*_wide_launches``). Float32 runs the
   tiled f32 kernels of ``csrc/egcl_allpairs_f32.cu`` (persistent blocks,
-  register tiles), also in every direction: one or more whole molecules a
-  block while they fit its shared memory, and past that the same file's
-  block-pair kernels (route ``"f32_blocks"``, every N, on the same row
-  code; counters ``*_f32_blocks_launches``). Every other hidden width runs
-  the chunked kernels of ``csrc/egcl_allpairs.cu``, in either dtype,
-  counted on their own launch counters (``fwd_h_rule_launches``,
-  ``bwd_h_rule_launches``, ``bwd_param_h_rule_launches``), and refuses
-  molecules past their shared memory. There is no fallback: a kernel that
-  does not build or launch raises.
+  register tiles) at H = 64 or 128, also in every direction: one or more
+  whole molecules a block while they fit its shared memory, and past that
+  the same file's block-pair kernels (route ``"f32_blocks"``, every N, on
+  the same row code; counters ``*_f32_blocks_launches``). Float32 at H =
+  192 or 256 runs the chunked kernels of ``csrc/egcl_allpairs.cu``
+  (counters ``fwd_h_rule_launches``, ``bwd_h_rule_launches``,
+  ``bwd_param_h_rule_launches``) and refuses molecules past their shared
+  memory; H > 256 is refused in either dtype. The chunked kernels' bf16
+  half is no route's (bf16 is padded onto the Hopper kernels); chip_smoke.py
+  times the padded launches against it through :func:`_run`. There is no
+  fallback: a kernel that does not build or launch raises.
+- Every other width up to 256 is zero-padded to the next of 64, 128, 192
+  and 256 (:func:`padded_width`), which is exact: the padded columns of
+  W1a, W1b, w1r and b1, the padded rows and columns of W2 and W3, and the
+  padded entries of b2, b3 and w4 are zeros, so z1, z2 and z3 are exact
+  zeros there, SiLU(0) = 0, and every sum over them adds exact zeros. The
+  wrapper copies the weights (and the backward's dagg) into Hp-wide
+  buffers (:func:`pad_weights`, :func:`pad_rows`), launches at Hp and
+  takes the first H columns of agg and of the gradients back
+  (:func:`unpad_grads`); a padded launch also counts on
+  ``padded_launches``. At H = 64, 128, 192 and 256 nothing is copied. The
+  kernels at 192 and 256 take their own width only (the copies, not a row
+  stride and masks, carry the other widths onto them).
 - On a CPU tensor both directions run the plain PyTorch version below,
   which repeats the kernel's arithmetic (including where it rounds to the
   compute dtype) and is what the CPU tests hold against the Pallas kernel.
@@ -57,22 +74,32 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # kernels, one molecule a warpgroup; float32: the tiled f32 K1 and K2 p);
 # bwd_f32_launches: the tiled f32 input-gradient K2 there; *_blocks_launches:
 # the bf16 Hopper block-pair kernels (molecules past the first's shared
-# memory); *_f32_blocks_launches: the f32 block-pair kernels (molecules past
-# the tiled f32 kernels' shared memory); *_h_rule_launches: either dtype at
-# another hidden width, sent to the chunked kernels by the size rule
+# memory); *_wide_launches: the same kernels at H = 192 or 256 (streamed
+# weights); *_f32_blocks_launches: the f32 block-pair kernels (molecules
+# past the tiled f32 kernels' shared memory); *_h_rule_launches: float32 at
+# H = 192 or 256, sent to the chunked kernels by the size rule;
+# padded_launches: launches of any route at a padded width (each counts on
+# its route's counter too)
 counts = LaunchCounts("fwd_launches", "bwd_launches", "bwd_f32_launches",
                       "bwd_param_launches", "fwd_blocks_launches",
                       "bwd_blocks_launches", "bwd_param_blocks_launches",
+                      "fwd_wide_launches", "bwd_wide_launches",
+                      "bwd_param_wide_launches",
                       "fwd_f32_blocks_launches", "bwd_f32_blocks_launches",
                       "bwd_param_f32_blocks_launches",
                       "fwd_h_rule_launches", "bwd_h_rule_launches",
-                      "bwd_param_h_rule_launches", "plain_fwd_calls",
-                      "plain_bwd_calls", "plain_bwd_param_calls")
+                      "bwd_param_h_rule_launches", "padded_launches",
+                      "plain_fwd_calls", "plain_bwd_calls",
+                      "plain_bwd_param_calls")
 # the launch kinds of egcl_allpairs_smem_bytes, egcl_sm90_smem_bytes and
 # egcl_f32_smem_bytes
 _KIND = {"fwd": 0, "bwd": 1, "bwd_params": 2}
 # the hidden widths of the Hopper kernels (bf16) and the tiled f32 kernels
 SM90_H = (64, 128)
+# the widths of the bf16 block-pair kernels with streamed weights (route
+# "wide"), and every width a launch runs at (others are zero-padded up)
+WIDE_H = (192, 256)
+PADDED_H = SM90_H + WIDE_H
 # the tiled f32 kernels: rows a row tile at most (kQmaxFwd / kQmaxBwdIn /
 # kQmaxBwd x 8) and molecules a tile at most
 F32_ROWS_MAX = {"fwd": 72, "bwd": 72, "bwd_params": 40}
@@ -89,16 +116,72 @@ BLOCK_ATOMS_MAX = 32
 # (B=256) and for K2 at LJ561 (B=16) (chip_smoke.py --blocks-plans,
 # PERF.md)
 F32_BLOCK_ATOMS = {"fwd": 32, "bwd": 24, "bwd_params": 24}
-# the queue item that holds the refused sizes
-LARGE_N_ITEM = ("ROADMAP queue B, B7: the all-pairs EGCL at hidden widths "
-                "other than 64 and 128 past the chunked kernels' shared "
-                "memory")
+# the queue items that hold the refused sizes: float32 at 128 < H <= 256
+# past the chunked kernels' shared memory, and H > 256 in either dtype
+LARGE_N_ITEM = ("ROADMAP queue B, B7: the float32 all-pairs EGCL at 128 < H "
+                "<= 256 (the f32 block pairs with streamed weights) past the "
+                "chunked kernels' shared memory")
+WIDE_ITEM = "ROADMAP queue B, B7: the all-pairs EGCL at H > 256"
+# shared memory a block may use on the card (kMaxSmem of the kernels)
+SMEM_LIMIT = 232448
 
 
 def split_params(W1, b1, nf: int):
     """Slice the concat-form first layer ``[2nf+1, H]`` into its h_i / h_j /
     r^2 rows (``egcl_fused_v3.py:341-344``)."""
     return W1[:nf], W1[nf:2 * nf], W1[2 * nf:2 * nf + 1], b1[None, :]
+
+
+# ---------------------------------------------------------------------------
+# the padded width
+# ---------------------------------------------------------------------------
+
+def padded_width(H: int):
+    """The width a launch of hidden width ``H`` runs at: the smallest of
+    ``PADDED_H`` (64, 128, 192, 256) that is at least ``H``; None past
+    256."""
+    return next((w for w in PADDED_H if w >= H), None)
+
+
+def pad_rows(t, Hp: int):
+    """``t [..., H]`` with zero columns up to ``Hp``."""
+    return torch.nn.functional.pad(t, (0, Hp - t.shape[-1]))
+
+
+def pad_weights(weights, Hp: int):
+    """The nine weights ``(W1a [nf, H], W1b, w1r [1, H], b1, W2 [H, H],
+    b2, W3, b3, w4 [H, 1])`` zero-padded to hidden width ``Hp``: new
+    contiguous tensors, every padded entry 0."""
+    W1a, W1b, w1r, b1, W2, b2, W3, b3, w4 = weights
+    H = W2.shape[1]
+    square = lambda t: torch.nn.functional.pad(t, (0, Hp - H, 0, Hp - H))
+    return (pad_rows(W1a, Hp), pad_rows(W1b, Hp), pad_rows(w1r, Hp),
+            pad_rows(b1, Hp), square(W2), pad_rows(b2, Hp), square(W3),
+            pad_rows(b3, Hp), torch.nn.functional.pad(w4, (0, 0, 0, Hp - H)))
+
+
+def unpad_grads(grads, H: int):
+    """The nine parameter gradients of a launch at a padded width, in the
+    weights' order and shapes, cut back to hidden width ``H``."""
+    dW1a, dW1b, dw1r, db1, dW2, db2, dW3, db3, dw4 = grads
+    return (dW1a[:, :H], dW1b[:, :H], dw1r[:, :H], db1[:, :H], dW2[:H, :H],
+            db2[:, :H], dW3[:H, :H], db3[:, :H], dw4[:H])
+
+
+def _too_wide(H: int) -> str:
+    """Why a width past 256 is refused: the bf16 block-pair backward with
+    parameter gradients would need, at its next multiple of 64 and 8 atoms
+    a block, at least its three [64, Hq] tiles, two [Hq, 64] weight slabs,
+    vector sums, projections and i- and j-side sums."""
+    Hq = 64 * math.ceil(H / 64)
+    need = (3 + 2) * 128 * Hq + 36 * Hq + 2 * 2 * 8 * (Hq + 8) \
+        + 2 * 4 * 8 * (Hq + 4)
+    return (f"egcl_allpairs: hidden width H={H} is past the widest kernels "
+            f"(H <= 256): at {Hq} the bf16 backward with parameter gradients "
+            f"would need at least {need:,} bytes of shared memory at 8 atoms "
+            f"a block (three [64, {Hq}] activation tiles, two [{Hq}, 64] "
+            f"weight slabs, its sums), more than the {SMEM_LIMIT:,} a block "
+            f"may use; not ported ({WIDE_ITEM})")
 
 
 # ---------------------------------------------------------------------------
@@ -167,12 +250,14 @@ def allpairs_edges_plain(h, pos, box, mask_f, weights):
 
 
 def allpairs_edges_plain_bwd(h, pos, box, mask_f, weights, dagg, dfsum,
-                             params=False):
+                             params=False, terms=False):
     """Plain backward (``_bwd_kernel``): ``(dh, dpos)``, and with ``params``
     the parameter gradients after them, ``dW1a, dW1b, dw1r, db1, dW2, db2,
     dW3, db3, dw4`` in the weights' shapes as float32 sums of the
     compute-dtype operands (``_bwd_kernel:265-273``: dw1r takes the
-    unrounded r2, dw4 the unrounded dgate)."""
+    unrounded r2, dw4 the unrounded dgate). With ``terms`` each of the
+    nine is instead the sum of its terms' magnitudes (``|a|^T |b|``), the
+    scale that the round-off of a sum of those terms grows with."""
     W1a, W1b, w1r, b1, W2, b2, W3, b3, w4 = weights
     cdt, acc = h.dtype, _acc(h.dtype)
     cd, r2, valid, validc, z1, z2, m2, z3, gate = _block(h, pos, box, mask_f,
@@ -200,7 +285,8 @@ def allpairs_edges_plain_bwd(h, pos, box, mask_f, weights, dagg, dfsum,
     if not params:
         return dh, dpos
     B, N, nf = h.shape
-    flat = lambda t: t.reshape(-1, t.shape[-1]).to(acc)
+    mag = torch.abs if terms else (lambda t: t)
+    flat = lambda t: mag(t.reshape(-1, t.shape[-1]).to(acc))
     col = lambda t: flat(t).sum(0)[None]
     h_i = h[:, :, None, :].expand(B, N, N, nf)
     h_j = h[:, None, :, :].expand(B, N, N, nf)
@@ -337,20 +423,29 @@ def _check_inputs(h, pos, box, mask_f, weights):
 
 
 def kernel_for(code: int, H: int, direction: str) -> str:
-    """The size rule: which kernels a launch goes to. ``"sm90"`` (bf16 at H
-    in ``SM90_H``), ``"f32"`` (float32 at H in ``SM90_H``), each in every
-    direction, or ``"chunked"`` (``egcl_allpairs.cu``: every other hidden
-    width in either dtype)."""
-    if H in SM90_H:
+    """The size rule, on the padded width (:func:`padded_width`): which
+    kernels a launch goes to. ``"sm90"`` (bf16 at 64 or 128), ``"f32"``
+    (float32 there), ``"wide"`` (bf16 at 192 or 256: the block-pair
+    kernels with streamed weights, every N), each in every direction, or
+    ``"chunked"`` (``egcl_allpairs.cu``: float32 at 192 or 256). Past 256
+    it raises, naming ROADMAP B7 and the bytes such a width would need."""
+    Hp = padded_width(H)
+    if Hp is None:
+        raise ValueError(_too_wide(H))
+    if Hp in SM90_H:
         return "sm90" if code == 1 else "f32"
-    return "chunked"
+    return "wide" if code == 1 else "chunked"
 
 
 def _smem(code: int, N: int, nf: int, H: int, direction: str):
-    """(bytes a launch of this kind needs, or -1 for sizes its kernel does
-    not take; the card's limit). The tiled f32 kernels are asked at their
-    smallest tile, one molecule and 8 rows."""
+    """(bytes a launch of this kind at the width ``H`` of ``PADDED_H``
+    needs, or -1 for sizes its kernel does not take; the card's limit). The
+    tiled f32 kernels are asked at their smallest tile, one molecule and 8
+    rows; the ``"wide"`` route has no one-molecule kernels."""
     route = kernel_for(code, H, direction)
+    if route == "wide":
+        raise ValueError(f"egcl_allpairs: bf16 at H={H} runs the block-pair "
+                         "kernels at every N (no one-molecule limit)")
     if route == "sm90":
         lib = _sm90_library()
         return (lib.egcl_sm90_smem_bytes(N, nf, H, _KIND[direction]),
@@ -370,8 +465,10 @@ _largest: dict = {}
 def largest_molecule(code: int, nf: int, H: int, direction: str):
     """The largest N whose block fits in the card's shared memory for one
     launch kind (``"fwd"``, ``"bwd"``, ``"bwd_params"``) of the kernels
-    that take one molecule a block (or warpgroup); 0 for sizes the kernel
-    does not take. Asked of the library once per size."""
+    that take one molecule a block (or warpgroup), at the padded width of
+    ``H``; 0 for sizes the kernel does not take. Asked of the library once
+    per size."""
+    H = padded_width(H) or H
     key = (code, nf, H, direction)
     if key not in _largest:
         n = 0
@@ -386,23 +483,24 @@ def largest_molecule(code: int, nf: int, H: int, direction: str):
 
 def route_for(N: int, nf: int, H: int, code: int, direction: str,
               largest: int) -> str:
-    """The molecule-size rule after :func:`kernel_for`: its kernels while
-    ``N <= largest`` (the most atoms their block takes), above that at H
-    in ``SM90_H`` the block-pair kernels of the dtype (``"blocks"``, bf16
-    Hopper; ``"f32_blocks"``, float32; every N); a launch of the chunked
-    kernels past ``largest`` is refused, naming the queue item that holds
-    it."""
+    """The molecule-size rule after :func:`kernel_for` (both on the padded
+    width): ``"wide"`` at every N; else its kernels while ``N <= largest``
+    (the most atoms their block takes), above that at 64 or 128 the
+    block-pair kernels of the dtype (``"blocks"``, bf16 Hopper;
+    ``"f32_blocks"``, float32; every N); a launch of the chunked kernels
+    (float32 at 192 or 256) past ``largest`` is refused, naming the queue
+    item that holds it."""
     route = kernel_for(code, H, direction)
-    if N <= largest:
+    if route == "wide" or N <= largest:
         return route
     if route in ("sm90", "f32"):
         return "blocks" if route == "sm90" else "f32_blocks"
-    dname = "bfloat16" if code == 1 else "float32"
     raise ValueError(
-        f"egcl_allpairs {direction}: a {dname} molecule of N={N} atoms at "
-        f"nf={nf}, H={H} needs more shared memory than a block may use "
-        f"(this variant takes N <= {largest}); molecules this large are "
-        f"not ported yet in {dname} at this width ({LARGE_N_ITEM})")
+        f"egcl_allpairs {direction}: a float32 molecule of N={N} atoms at "
+        f"nf={nf}, H={H} (run at {padded_width(H)}) needs more shared "
+        f"memory than a block may use (this variant takes N <= {largest}); "
+        f"molecules this large are not ported yet in float32 at this width "
+        f"({LARGE_N_ITEM})")
 
 
 def block_atoms(N: int, fit: int) -> int:
@@ -444,13 +542,11 @@ def f32_blocks_plan(N: int, direction: str, fits) -> tuple[int, int]:
 
 
 def _check_fits(code: int, dims, direction: str) -> str:
-    """The route of a launch (:func:`route_for`); raises for a width the
-    kernels do not take or a molecule past every route."""
+    """The route of a launch (:func:`route_for`); raises for a width past
+    256 or a molecule past every route."""
     B, N, nf, H = dims
-    need, _ = _smem(code, N, nf, H, direction)
-    if need < 0:
-        raise ValueError(f"egcl_allpairs takes H % 16 == 0 in bfloat16 and "
-                         f"H % 4 == 0 in float32, got B, N, nf, H = {dims}")
+    if kernel_for(code, H, direction) == "wide":
+        return "wide"
     return route_for(N, nf, H, code, direction,
                      largest_molecule(code, nf, H, direction))
 
@@ -541,6 +637,7 @@ def _raise_on(lib, err: int, what: str, dims, route):
         # the library of the route has only its own error string
         text = getattr(lib, {"sm90": "egcl_sm90_error_string",
                              "blocks": "egcl_sm90_error_string",
+                             "wide": "egcl_sm90_error_string",
                              "f32": "egcl_f32_error_string",
                              "f32_blocks": "egcl_f32_error_string",
                              "chunked": "egcl_allpairs_error_string"}[route])
@@ -550,16 +647,19 @@ def _raise_on(lib, err: int, what: str, dims, route):
 
 
 def _count(direction: str, H: int, route: str):
-    """One launch on its counter: the size rule's own for a hidden width
-    outside ``SM90_H``, the tiled f32 input-gradient K2's own, each kind
-    of block-pair kernels' own."""
+    """One launch of the caller's hidden width ``H`` on its route's
+    counter: the chunked kernels' (the size rule's) own, the tiled f32
+    input-gradient K2's own, each kind of block-pair kernels' own; a launch
+    at a padded width also on ``padded_launches``."""
     name = {"fwd": "fwd", "bwd": "bwd", "bwd_params": "bwd_param"}[direction]
     if route == "f32" and direction == "bwd":
         name = "bwd_f32"
-    if route in ("blocks", "f32_blocks"):
+    if route in ("blocks", "f32_blocks", "wide"):
         name += "_" + route
-    name += "_launches" if H in SM90_H else "_h_rule_launches"
+    name += "_h_rule_launches" if route == "chunked" else "_launches"
     setattr(counts, name, getattr(counts, name) + 1)
+    if padded_width(H) != H:
+        counts.padded_launches += 1
 
 
 def _blocks_launch_plan(lib, N: int, nf: int, H: int, direction: str):
@@ -588,24 +688,45 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
             dfsum=None, route=None):
     """One launch on the route that the size rules name (or on ``route``,
     ``"blocks"``, where the caller asks for the block-pair kernels of the
-    dtype)."""
+    dtype), at the padded width: the weights (and dagg) copied into
+    zero-padded buffers first where the width is not one of
+    ``PADDED_H``, the outputs cut back to it after."""
     _check_inputs(h, pos, box, mask_f, weights)
+    H = weights[4].shape[1]
+    code = _DTYPE_CODE[h.dtype]
+    rule = _check_fits(code, (*h.shape, H), direction)
+    if route is not None:
+        if route != "blocks" or rule == "chunked":
+            raise ValueError(f"egcl_allpairs: route {route!r} does not take "
+                             f"{h.dtype} at H={H}")
+        rule = "wide" if rule == "wide" else "blocks" if code else "f32_blocks"
+    Hp = padded_width(H)
+    if Hp != H:
+        weights = pad_weights(weights, Hp)
+        if dagg is not None:
+            dagg = pad_rows(dagg.to(h.dtype), Hp)
+    out = _run(direction, rule, h, pos, box, mask_f, weights, dagg, dfsum)
+    if h.shape[0]:
+        _count(direction, H, rule)
+    if Hp == H:
+        return out
+    if direction == "fwd":
+        return out[0][..., :H].contiguous(), out[1]
+    return out[:2] + (unpad_grads(out[2:], H) if out[2:] else ())
+
+
+def _run(direction: str, route: str, h, pos, box, mask_f, weights, dagg,
+         dfsum):
+    """One launch of the kernels of ``route`` at the weights' width (one
+    of ``PADDED_H``)."""
     B, N, nf = h.shape
     H = weights[4].shape[1]
     cdt = h.dtype
     code = _DTYPE_CODE[cdt]
     dims = (B, N, nf, H)
-    rule = _check_fits(code, dims, direction)
-    if route is None:
-        route = rule
-    elif route != "blocks" or H not in SM90_H:
-        raise ValueError(f"egcl_allpairs: route {route!r} does not take "
-                         f"{cdt} at H={H}")
-    elif code == 0:
-        route = "f32_blocks"
     lib = {"sm90": _sm90_library, "blocks": _sm90_library,
-           "f32": _f32_library, "f32_blocks": _f32_library,
-           "chunked": _library}[route]()
+           "wide": _sm90_library, "f32": _f32_library,
+           "f32_blocks": _f32_library, "chunked": _library}[route]()
     # the kernels read the weights (and dagg) 8 or 16 bytes at a time
     aligned = lambda t: t if t.data_ptr() % 16 == 0 else t.clone()
     ins = [aligned(t) for t in (h, pos, box, mask_f, *weights)]
@@ -615,7 +736,7 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
     blocks = multiprocessors(h.device)
     if route == "f32" and B:
         mt, rows, blocks = _f32_plan(lib, dims, direction, blocks)
-    if route == "blocks":
+    if route in ("blocks", "wide"):
         A, nwg = _blocks_launch_plan(lib, N, nf, H, direction)
         plan = (A, nwg, blocks)
     if route == "f32_blocks":
@@ -628,7 +749,7 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
             outs = (agg.data_ptr(), fsum.data_ptr(), stream)
             if route == "sm90":
                 err = lib.egcl_sm90_fwd(*dims, blocks, *ptrs, *outs)
-            elif route == "blocks":
+            elif route in ("blocks", "wide"):
                 err = lib.egcl_sm90_blocks_fwd(*dims, *plan, *ptrs, *outs)
             elif route == "f32_blocks":
                 err = lib.egcl_f32_blocks_fwd(*dims, *plan, *ptrs, *outs)
@@ -637,14 +758,13 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
             else:
                 err = lib.egcl_allpairs_fwd(code, *dims, *ptrs, *outs)
             _raise_on(lib, err, "forward", dims, route)
-            _count(direction, H, route)
         return agg, fsum
     dagg = aligned(dagg.to(cdt).contiguous())
     dfsum = dfsum.to(cdt).contiguous()
     dh = torch.empty((B, N, nf), dtype=cdt, device=h.device)
     dpos = torch.empty((B, N, 3), dtype=torch.float32, device=h.device)
     outs = [dagg.data_ptr(), dfsum.data_ptr(), dh.data_ptr(), dpos.data_ptr()]
-    if route == "blocks":
+    if route in ("blocks", "wide"):
         # the block-pair backward's i-side sums and j-side partials (f32
         # rows of H + 4), every element written by the kernel
         si = torch.empty((B, N, H + 4), dtype=torch.float32, device=h.device)
@@ -663,7 +783,7 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
         if B:
             if route == "sm90":
                 err = lib.egcl_sm90_bwd(*dims, blocks, *ptrs, *outs, stream)
-            elif route == "blocks":
+            elif route in ("blocks", "wide"):
                 err = lib.egcl_sm90_blocks_bwd(*dims, *plan, *ptrs, *outs,
                                                stream)
             elif route == "f32_blocks":
@@ -675,12 +795,11 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
             else:
                 err = lib.egcl_allpairs_bwd(code, *dims, *ptrs, *outs, stream)
             _raise_on(lib, err, "backward", dims, route)
-            _count(direction, H, route)
         return dh, dpos
     # rows of partials that the kernel fills itself: one per warpgroup (the
     # Hopper kernels; each row ends with its scratch tile) or per block
     P = lib.egcl_part_size(nf, H)
-    if route in ("sm90", "blocks"):
+    if route in ("sm90", "blocks", "wide"):
         slices = 0
         if B:
             slices = (lib.egcl_sm90_param_slices(*dims, blocks)
@@ -698,7 +817,7 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
         if route == "sm90":
             err = lib.egcl_sm90_bwd_params(*dims, blocks, *ptrs, *outs,
                                            part.data_ptr(), stream)
-        elif route == "blocks":
+        elif route in ("blocks", "wide"):
             err = lib.egcl_sm90_blocks_bwd_params(*dims, *plan, *ptrs, *outs,
                                                   part.data_ptr(), stream)
         elif route == "f32_blocks":
@@ -711,15 +830,15 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
             err = lib.egcl_allpairs_bwd_params(code, *dims, blocks, *ptrs,
                                                *outs, part.data_ptr(), stream)
         _raise_on(lib, err, "backward (parameter gradients)", dims, route)
-        _count(direction, H, route)
     # the slices summed in a fixed order: a second launch gives the same bits
     return (dh, dpos) + _split_part(part[:, :P].sum(dim=0), nf, H)
 
 
 def allpairs_edges_blocks(direction: str, h, pos, box, mask_f, weights,
                           dagg=None, dfsum=None):
-    """One launch of the block-pair kernels of the dtype (bf16 Hopper or
-    f32; ``direction`` ``"fwd"``, ``"bwd"`` or ``"bwd_params"``) at any N,
+    """One launch of the block-pair kernels of the dtype (bf16 Hopper, with
+    streamed weights at 192 and 256, or f32; ``direction`` ``"fwd"``,
+    ``"bwd"`` or ``"bwd_params"``) at any N,
     also where the route rule sends the molecule to the one-molecule
     kernels: what the two schedules cost where both take a molecule. CUDA
     tensors only; the outputs of :func:`allpairs_edges_fwd` /
