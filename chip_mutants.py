@@ -4,8 +4,8 @@ CUDA card: ``python3 chip_mutants.py [GROUP ...] [--match TEXT]`` from the
 repository root (``--match``: only the mutants whose name holds TEXT, and
 each group's control)
 (groups: ``egcl_allpairs``, ``egcl_params``, ``egcl_blocks``,
-``egcl_wide``, ``egcl_f32``, ``egcl_blocks_f32``, ``edge_pipeline``,
-``edge_pipeline_sm90``, ``pair_energy``; all by
+``egcl_wide``, ``egcl_f32``, ``egcl_blocks_f32``, ``egcl_f32_wide``,
+``edge_pipeline``, ``edge_pipeline_sm90``, ``pair_energy``; all by
 default; ``edge_pipeline`` is the tiled f32 K5/K6 and the chunked
 kernels, read at the shapes of chip_smoke.py's phase edge that run them;
 ``edge_pipeline_sm90`` is the bf16 Hopper K5/K6, read at its bf16 shapes,
@@ -30,8 +30,13 @@ K2 and K2 p of ``egcl_allpairs_f32.cu``, read at the dw4, ala2 and
 ragged shapes; ``egcl_blocks_f32`` is the f32 block-pair K1, K2 and K2 p
 in the same file (molecules past the tiled kernels' shared memory), read
 at chip_smoke.py's f32_blocks_shapes(), the outputs against TOL and the
-parameter gradients' f32 sums against TOL_PARAM; ``pair_energy`` is K7,
-read at every shape of phase pair).
+parameter gradients' f32 sums against TOL_PARAM; ``egcl_f32_wide`` is
+the same f32 block-pair kernels at H = 192 and 256 with W2 and W3 streamed
+through a ring of slabs (and K2 p's dW2 / dW3 kept in the block's slice),
+read at N = 22 (nf = 4), 55 and 147 (nf = 5) over two input seeds and over
+one of them again beside a stream of 1 GiB copies, the outputs against TOL
+and the parameter gradients' f32 sums against TOL_PARAM; ``pair_energy``
+is K7, read at every shape of phase pair).
 
 For each mutant below, the package and ``chip_smoke.py`` are copied into a
 temporary directory, one deliberate fault is written into the copy's CUDA
@@ -213,6 +218,27 @@ MUTANTS = {
             "for (long long it = blockIdx.x; it < items; it += gridDim.x) {",
             "for (long long it = blockIdx.x; it < items; "
             "it += gridDim.x + 1) {", 3),
+    },
+    # the f32 block pairs at H = 192 and 256, W2 and W3 streamed through a
+    # ring of slabs, K2 p's dW2 / dW3 in the block's slice
+    "egcl_f32_wide": {
+        "control": None,
+        "wrong slab index (the next slab's k)": (
+            "const int prod = (s / G) % rg.nprod, g = s % G;",
+            "const int prod = (s / G) % rg.nprod, g = (s + 1) % G;"),
+        "a ring of one slot (the next slab copied over the one in use)": (
+            "__device__ __forceinline__ int slot_of(int s) { return s % kRing; }",
+            "__device__ __forceinline__ int slot_of(int s) { return 0; }"),
+        "a skipped wait (the slab used before its copies have landed)": (
+            "  cp_async_wait<kRing - 2>();\n  __syncthreads();\n"
+            "  issue_slab<H>(rg, rg.s + kRing - 1);",
+            "  __syncthreads();\n  issue_slab<H>(rg, rg.s + kRing - 1);"),
+        "W2^T's slabs taken from W3": (
+            "const float* W = prod == 0 || prod == 3 ? rg.W2 : rg.W3;",
+            "const float* W = prod == 0 ? rg.W2 : rg.W3;"),
+        "a dW partial written to the next slab's columns": (
+            "*reinterpret_cast<float4*>(dW + k * H + n) =",
+            "*reinterpret_cast<float4*>(dW + k * H + (n + 64) % H) ="),
     },
     # the tiled kernels (H = 64, 128, f32), which every f32 shape but h96
     # runs
@@ -466,6 +492,50 @@ for sname, kind, shape in cs.f32_blocks_shapes():
     del k, p
     torch.cuda.empty_cache()
 """,
+    "egcl_f32_wide": HEAD + """
+from enflow_tpu_torch.ops import egcl_allpairs as ops
+names = {"fwd": ("agg", "f_sum"), "bwd": ("dh", "dpos"),
+         "bwd_params": cs.PARAM_OUT}
+# a second stream copying 1 GiB buffers device to device while a kernel
+# runs: the weight slabs' copies then compete for L2 and HBM
+big = torch.empty(2 ** 28, device="cuda")
+dst = torch.empty_like(big)
+side = torch.cuda.Stream()
+def stress():
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(40):
+            dst.copy_(big)
+for H, N, B, nf in ((192, 22, 64, 4), (256, 22, 64, 4), (192, 55, 16, 5),
+                    (256, 55, 16, 5), (256, 147, 4, 5)):
+    for seed, loaded in ((58, False), (59, False), (58, True)):
+        h, pos, box, mf, W, dagg, dfs, _ = cs.edge_inputs(
+            dict(B=B, N=N, nf=nf, H=H, n_pad=2), torch.float32, seed=seed)
+        args = (h, pos, box, mf, W, dagg, dfs)
+        for kind in ("fwd", "bwd", "bwd_params"):
+            if loaded:
+                stress()
+            if kind == "fwd":
+                k = ops.allpairs_edges_fwd(h, pos, box, mf, W)
+                p = ops.allpairs_edges_plain(h, pos, box, mf, W)
+            else:
+                k = ops.allpairs_edges_bwd(*args, params=kind == "bwd_params")
+                p = ops.allpairs_edges_plain_bwd(
+                    *args, params=kind == "bwd_params")
+            torch.cuda.synchronize()
+            errs = cs.rel_errs(names[kind], k, p)
+            label = (f"H={H} N={N} B={B} seed {seed} {kind}"
+                     + (" beside a copy stream" if loaded else ""))
+            report(f"{label} outputs", {
+                n: e for n, e in errs.items() if n not in cs.PARAM_OUT[2:]},
+                cs.TOL["float32"])
+            if kind == "bwd_params":
+                report(f"{label} parameter gradients (f32 sums)",
+                       {n: errs[n] for n in cs.PARAM_OUT[2:]},
+                       cs.TOL_PARAM["float32"])
+            del k, p
+        torch.cuda.empty_cache()
+""",
     "egcl_f32": HEAD + """
 from enflow_tpu_torch.ops import egcl_allpairs as ops
 for sname, shape in (("dw4", cs.DW4), ("ala2", cs.ALA2),
@@ -515,7 +585,8 @@ def main():
                   "egcl_blocks": "egcl_allpairs_sm90",
                   "egcl_wide": "egcl_allpairs_sm90",
                   "egcl_f32": "egcl_allpairs_f32",
-                  "egcl_blocks_f32": "egcl_allpairs_f32"}.get(group, group)
+                  "egcl_blocks_f32": "egcl_allpairs_f32",
+                  "egcl_f32_wide": "egcl_allpairs_f32"}.get(group, group)
         src_rel = f"enflow_tpu_torch/csrc/{source}.cu"
         for name, edit in MUTANTS[group].items():
             if match and edit is not None and match not in name:

@@ -23,9 +23,8 @@ non-zero):
    100 padded to 128, 160 to 192; 192 and 256 on the block pairs with
    streamed weights, route ``"wide"``), and f32 at H=96, N=147, each one
    launch on the route the wrapper names against the plain version, a
-   second launch bitwise equal; the chunked kernels' limits (what stays
-   refused: f32 at 128 < H <= 256) printed. Each kernel and the plain
-   version timed at
+   second launch bitwise equal. Each kernel and the plain version timed
+   at
    the main, ragged and H=96 shapes with CUDA events over back-to-back
    calls, so the wrapper's host work overlaps the device work before it.
    The bf16 parameter-gradient backward must take N >= 55 (vi_lj55.yaml).
@@ -45,8 +44,8 @@ non-zero):
    kernel; f32: the tiled f32 kernel) against its plain version at the VI
    shape (B=512, N=13, nf=5, H=128), the same as LJ13 icosahedra, and the
    ragged shape, in bf16 and f32, and in bf16 at a large shape (B=64, N =
-   its largest) and at H=64, and in both dtypes at H=96 (the size rule's
-   chunked kernel); one launch each on its counter, a second launch must
+   its largest) and at H=64, and in both dtypes at H=96 (zero-padded to
+   128); one launch each on its counter, a second launch must
    give the same bits, dh/dpos also against the input-gradient kernel's.
    Timed as in phase 3 at the first three shapes and at H=96 beside the
    input-gradient variant, with the MUFU and elementwise floors in bf16.
@@ -175,15 +174,31 @@ non-zero):
    (c) ``example/vi_lj13.yaml`` at ``hidden_nf: 96`` (1 x WIDE13_STEPS)
    and ``example/sample_lj13.yaml`` from its checkpoint, on the
    one-molecule kernels at 128 (every launch also on
-   ``padded_launches``); no chunked launch and no plain
-   call, beta 1, finite log_Z and losses, outputs on the card. Then K1, K2
+   ``padded_launches``); no plain call, beta 1, finite log_Z and
+   losses, outputs on the card. Then K1, K2
    and K2 p at N=55, H=256 on the streamed block pairs at B=256 and
    B=1024, each against the plain version (read per element,
    ``step_errs``): CUDA events, device time, bound, the L2 bytes their
    weight slabs read, the plan; the partials' sum; the padded launches'
-   cost at H=96 against H=128 and against the chunked kernels at 96
-   (B=1024, N=13, K2 p B=512; and K1, K2 p at B=256, N=55); each run's
-   kernel share.
+   cost at H=96 against H=128 (B=1024, N=13, K2 p B=512; and K1, K2 p at
+   B=256, N=55); each run's kernel share.
+10m. wide_f32 (after wide) — the float32 EGCL at 128 < H <= 256 (the f32
+   block pairs with W2 and W3 streamed, route ``"f32_wide"``) through the
+   port's driver: (a) ``example/vi_ala2.yaml`` with ``network.hidden_nf:
+   256`` and nothing else changed (256 particles, N=22, nf=4, float32,
+   the force field on the card), 1 epoch x FF_STEPS steps (5 K1 + 5 K2 p
+   a step on the ``*_f32_wide_launches`` counters), finite losses and a
+   checkpoint; (b) ``example/sample_ala2.yaml`` at ``hidden_nf: 256``
+   from (a)'s checkpoint, as committed otherwise (2048 particles x 10
+   temps: 260 K1 + 255 K2), beta 1, finite log_Z; no other counter and
+   no plain call in either run. Then K1, K2 and K2 p at H = 192 and 256
+   and the padded 160 and 200, at WIDE_F32_SHAPES (vi_ala2's B=256 and
+   sample_ala2's B=2048 at N=22, nf=4; B=64 at N=55 and B=16 at N=147,
+   nf=5), each one launch on its counter against the plain version
+   (outputs to TOL, parameter gradients' f32 sums to TOL_PARAM), a second
+   launch bitwise equal, timed (CUDA events and device time) beside its
+   bound and the plan, the plain version timed at the kernels line's
+   shapes; the library's plans at H = 128, 192 and 256.
 10c. fluid — ``example/vi_fluid.yaml`` (periodic LJ fluid, N=32, box 6.5,
    H=64, bf16, the learned drift) cut to 1 epoch x FLUID_STEPS steps; then
    K1 and K2 p against their plain version at B=256, N=32, H=64 with
@@ -205,9 +220,8 @@ non-zero):
    + 4 a step) and its f32 K1 / K2 p against their plain version; then
    the kernel checks: the tiled f32 K2 p must take N >= 22 at nf=4, H=128
    and the tiled f32 K2 N >= 70 at nf=5, H=128 (held against plain at
-   N=70), each refusing one atom past its largest, and the tiled kernels
-   must take every N the chunked ones take at nf=5, H=128 and H=64, and
-   one atom past each tiled limit the f32 block pairs take the molecule
+   N=70), each refusing one atom past its largest, and one atom past
+   each tiled limit the f32 block pairs take the molecule
    (against plain, a second launch bitwise equal); then
    the tiled f32 K1, K2 p and K2 against their plain version at B=256,
    N=22, nf=4, H=128 (the K2's dh/dpos also against K2 p's), the K2 also
@@ -277,12 +291,7 @@ non-zero):
 
 ``python3 chip_smoke.py --ab OLD.cu [OLD.cu ...]`` runs phases 1-2 and then times the
 kernels built from OLD.cu against the current ones, alternating old,
-new, new, old, old, new in one process. For an earlier egcl_allpairs.cu
-(the chunked kernels, e.g. ``git show
-HEAD:enflow_tpu_torch/csrc/egcl_allpairs.cu``) every f32 launch of an old
-turn goes to its chunked kernels: a turn times the f32 K1 and K2 p at
-vi_dw4.yaml's shape and the f32 K2 at sample_ala2.yaml's B=2048 (CUDA
-events and device time) and one vi_dw4.yaml epoch. For an earlier
+new, new, old, old, new in one process. For an earlier
 egcl_allpairs_sm90.cu with the same bf16 K1/K2 entry points: the two
 sources' one-molecule kernels held to the same bits at the kernel and
 params phases' shapes and at each direction's largest molecule, and,
@@ -296,8 +305,9 @@ training and ragged shapes and in bf16 at the top-k sampler's shape
 kernels, a new turn's on the Hopper kernels), one train.yaml epoch and
 one top-k sample_lj13.yaml run. For an earlier egcl_allpairs_f32.cu: its
 one-molecule f32 K1, K2 and K2 p held to the same bits as the current
-ones (main, ragged, VI, DW4, ala2 and each largest molecule), then timed
-in turns. For an earlier edge_pipeline_sm90.cu: bf16 K5/K6 held to the
+ones (main, ragged, VI, DW4, ala2 and each largest molecule), and, where
+the earlier source has them, its f32 block-pair kernels at H = 128 (N =
+147 and 75) and 64 (N = 100) in every direction, then timed in turns. For an earlier edge_pipeline_sm90.cu: bf16 K5/K6 held to the
 same bits at every EDGE_SHAPES shape of C <= 16, then timed in turns at
 the sampler's shape.
 
@@ -604,8 +614,7 @@ def blocks_launches():
     from enflow_tpu_torch.ops import egcl_allpairs as ea
     c = ea.counts
     one = (c.fwd_launches + c.bwd_launches + c.bwd_f32_launches
-           + c.bwd_param_launches + c.fwd_h_rule_launches
-           + c.bwd_h_rule_launches + c.bwd_param_h_rule_launches)
+           + c.bwd_param_launches)
     return dict(fwd=c.fwd_blocks_launches, bwd=c.bwd_blocks_launches,
                 bwd_params=c.bwd_param_blocks_launches), one
 
@@ -684,8 +693,8 @@ def blocks_kernel_checks(largest):
 # Other hidden widths (phase kernel): bf16 K1, K2 and K2 p at each H of
 # WIDTH_HS (zero-padded to 128 or 192, or the streamed widths themselves)
 # and each N of WIDTH_NS, B=16 with two padded atoms; f32 at H=96 and
-# N=147 (padded to 128: past the chunked kernels' old limit, on the f32
-# block pairs)
+# N=147 (padded to 128, past the tiled f32 K1's limit: on the f32 block
+# pairs)
 WIDTH_HS = (96, 100, 160, 192, 256)
 WIDTH_NS = (13, 55, 147)
 
@@ -695,9 +704,9 @@ def launch_counter(kind, route):
     name = {"fwd": "fwd", "bwd": "bwd", "bwd_params": "bwd_param"}[kind]
     if route == "f32" and kind == "bwd":
         name = "bwd_f32"
-    if route in ("blocks", "f32_blocks", "wide"):
+    if route in ("blocks", "f32_blocks", "wide", "f32_wide"):
         name += "_" + route
-    return name + ("_h_rule_launches" if route == "chunked" else "_launches")
+    return name + "_launches"
 
 
 def launched():
@@ -1035,13 +1044,6 @@ def kernel_phase():
             f"bf16 limits below 70 / 55 / 55 (vi_lj55.yaml): {largest}")
     phase("kernel", "largest N at nf=5, H=128: " + ", ".join(
         f"{k} {v}" for k, v in largest.items()))
-    # what stays refused (ROADMAP B7): float32 at 128 < H <= 256 on the
-    # chunked kernels past their largest molecule, 0 where no molecule fits
-    chunked = {f"f32 H={H} {kind}": ops.largest_molecule(0, 5, H, kind)
-               for H in (192, 256) for kind in ("fwd", "bwd", "bwd_params")}
-    phase("kernel", "what stays on the chunked kernels (f32 at 128 < H <= "
-          "256), largest N at nf=5: " + ", ".join(
-              f"{k} {v}" for k, v in chunked.items()))
     phase("kernel", "the gathered-edge K5/K6 at other widths (the "
           "chunked kernels), largest C at one atom a tile: " + ", ".join(
               f"{k} {v}" for k, v in edge_chunked_limits().items()))
@@ -1064,14 +1066,13 @@ def kernel_phase():
         ops.counts.reset()
         k_out, errs = kernel_errs(ops, h, pos, box, mask_f, W, dagg, dfsum)
         c = ops.counts
-        rule = (c.fwd_h_rule_launches, c.bwd_h_rule_launches)
         # f32: the tiled K2 on its own counter; H=96 zero-padded to 128, on
         # the same kernels and on padded_launches too
         tiled = dname == "float32"
         k2, other = ((c.bwd_f32_launches, c.bwd_launches) if tiled
                      else (c.bwd_launches, c.bwd_f32_launches))
         require((c.fwd_launches, k2) == (1, 1) and other == 0
-                and rule == (0, 0) and c.padded_launches == (
+                and c.padded_launches == (
                     2 if sname == "h96" else 0),
                 f"{sname} {dname}: launches {vars(c)}")
         ok = all(rel <= TOL[dname] for _, rel in errs.values())
@@ -1241,8 +1242,7 @@ def param_kernel_phase(large_n):
         tol = {n: (TOL if n in ("dh", "dpos") else TOL_PARAM)[dname]
                for n in PARAM_OUT}
         ok = (all(rel <= tol[n] for n, (_, rel) in errs.items()) and same
-              and launches == ((1, 1) if sname == "h96" else (1, 0))
-              and c.bwd_param_h_rule_launches == 0)
+              and launches == ((1, 1) if sname == "h96" else (1, 0)))
         again = ops.allpairs_edges_bwd(*args, params=True)
         torch.cuda.synchronize()
         repeat = all(bool(torch.equal(a, b)) for a, b in zip(k, again))
@@ -2158,13 +2158,15 @@ def device_trace(margin=TRACE_MARGIN_S):
 
 
 def device_ms(fn, key, calls=20, tries=3, warmup=3):
-    """Median device time of one kernel launch whose name holds ``key``,
+    """Median device time of one kernel launch whose name holds ``key``
+    (for a tuple of keys, the sum of each one's median, from one trace),
     over ``calls`` calls of ``fn`` traced by ``torch.profiler`` (after
     ``warmup`` warm-up calls). The trace may drop events: at least half of
-    the launches must be in it, else the calls are traced again, up to
-    ``tries`` times."""
+    each key's launches must be in it, else the calls are traced again, up
+    to ``tries`` times."""
     import torch
     from torch.autograd import DeviceType
+    keys = key if isinstance(key, tuple) else (key,)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -2172,15 +2174,17 @@ def device_ms(fn, key, calls=20, tries=3, warmup=3):
         with device_trace() as prof:
             for _ in range(calls):
                 fn()
-        ts = sorted(e.time_range.end - e.time_range.start
-                    for e in prof.events()
-                    if e.device_type == DeviceType.CUDA and key in e.name)
-        require(len(ts) <= calls, f"{len(ts)} '{key}' launches traced of "
-                f"{calls} calls")
-        if len(ts) >= calls // 2:
-            return ts[len(ts) // 2] * 1e-3
-    raise RuntimeError(f"{len(ts)} '{key}' launches traced of {calls}, "
-                       f"{tries} times")
+        spans = [sorted(e.time_range.end - e.time_range.start
+                        for e in prof.events()
+                        if e.device_type == DeviceType.CUDA and k in e.name)
+                 for k in keys]
+        for k, ts in zip(keys, spans):
+            require(len(ts) <= calls, f"{len(ts)} '{k}' launches traced of "
+                    f"{calls} calls")
+        if all(len(ts) >= calls // 2 for ts in spans):
+            return sum(ts[len(ts) // 2] for ts in spans) * 1e-3
+    raise RuntimeError(f"{[len(ts) for ts in spans]} {keys} launches traced "
+                       f"of {calls}, {tries} times")
 
 
 def trace_probe(fn, key, margin, calls=20):
@@ -2257,9 +2261,9 @@ def host_ms(fn, calls=200):
 def ab_phase(card, old_src):
     """An earlier kernel source against the current one, in turns old,
     new, new, old, old, new within this process. ``old_src`` is an
-    earlier egcl_allpairs.cu (the chunked kernels: ``f32_ab_phase``), an
-    earlier edge_pipeline.cu (``edge_ab_phase``), or an earlier
-    egcl_allpairs_sm90.cu with the same bf16 K1/K2 entry points (K2 p and
+    earlier egcl_allpairs_f32.cu (``f32_bits_ab_phase``), edge_pipeline.cu
+    (``edge_ab_phase``), edge_pipeline_sm90.cu (``edge_sm90_bits_ab_phase``),
+    pair_energy.cu (``pair_ab_phase``) or egcl_allpairs_sm90.cu with the same bf16 K1/K2 entry points (K2 p and
     the VI path stay on the current source). For the last a turn times
     K1 and the input-gradient K2 at the main-path shape with CUDA events
     and device time, then three SMC runs of phase 7 after a warm-up (the
@@ -2286,9 +2290,11 @@ def ab_phase(card, old_src):
         require(out.returncode == 0, f"nvcc failed on {old_src}:\n"
                 f"{out.stdout}{out.stderr}")
         old_lib = ctypes.CDLL(str(lib_path))
+    require(edge or hopper or pair or tiled_f32 or edge_sm90,
+            f"{old_src}: not a kernel source that --ab compares")
     kind = ("edge-pipeline" if edge else "Hopper" if hopper
             else "pair-energy" if pair else "tiled f32" if tiled_f32
-            else "Hopper edge-pipeline" if edge_sm90 else "chunked")
+            else "Hopper edge-pipeline")
     phase("ab", f"built {old_src} ({kind} kernels) in "
           f"{time.perf_counter() - t0:.1f} s")
     if tiled_f32:
@@ -2302,9 +2308,6 @@ def ab_phase(card, old_src):
         return
     if pair:
         pair_ab_phase(card, old_lib)
-        return
-    if not hopper:
-        f32_ab_phase(card, old_lib)
         return
     new_lib = ops._sm90_library()
     params = "egcl_sm90_bwd_params" in text
@@ -2447,16 +2450,23 @@ def f32_bits_ab_phase(card, old_lib):
     """An earlier egcl_allpairs_f32.cu (``old_lib``, built) against the
     current one's one-molecule kernels: f32 K1, K2 and K2 p bit for bit at
     the main, ragged, VI, DW4 and ala2 shapes and at each direction's
-    largest molecule (nf=5, H=128), then timed in turns (ala2's K1 and K2
-    p, sample_ala2's K2 at B=2048; CUDA events and device time)."""
+    largest molecule (nf=5, H=128); where the earlier source has them, its
+    block-pair kernels at H = 128 (N = 147 and 75) and 64 (N = 100) in
+    every direction (through ``allpairs_edges_blocks``); then timed in
+    turns (ala2's K1 and K2 p, sample_ala2's K2 at B=2048; CUDA events and
+    device time)."""
     import torch
     from enflow_tpu_torch.ops import build
     from enflow_tpu_torch.ops import egcl_allpairs as ops
 
     new_lib = ops._f32_library()
+    blocks = hasattr(old_lib, "egcl_f32_blocks_fwd")
     for fn in ("egcl_f32_fwd", "egcl_f32_bwd", "egcl_f32_bwd_params",
                "egcl_f32_smem_bytes", "egcl_f32_smem_limit",
-               "egcl_f32_error_string", "egcl_part_size"):
+               "egcl_f32_error_string", "egcl_part_size") + ((
+                   "egcl_f32_blocks_fwd", "egcl_f32_blocks_bwd",
+                   "egcl_f32_blocks_bwd_params",
+                   "egcl_f32_blocks_smem_bytes") if blocks else ()):
         f, g = getattr(old_lib, fn), getattr(new_lib, fn)
         f.argtypes, f.restype = g.argtypes, g.restype
     old_lib._enflow_bound = True
@@ -2488,11 +2498,30 @@ def f32_bits_ab_phase(card, old_lib):
             same = all(bool(torch.equal(x, y)) for x, y in zip(a, run()))
             cases.append((f"{sname} {kind}", same))
         torch.cuda.empty_cache()
+    # the block-pair kernels at the resident widths (their route past the
+    # tiled limits; launched through allpairs_edges_blocks within them)
+    for sname, shape in ((("blocks lj147", dict(B=16, N=147, nf=5, H=128,
+                                                 n_pad=2)),
+                           ("blocks n75", dict(B=8, N=75, nf=5, H=128)),
+                           ("blocks h64 n100", dict(B=8, N=100, nf=5,
+                                                    H=64)))
+                          if blocks else ()):
+        args = edge_inputs(shape, torch.float32, seed=11)[:7]
+        for kind in ("fwd", "bwd", "bwd_params"):
+            run = lambda k=kind: ops.allpairs_edges_blocks(
+                k, *(args[:5] if k == "fwd" else args))
+            use("old")
+            a = run()
+            use("new")
+            same = all(bool(torch.equal(x, y)) for x, y in zip(a, run()))
+            cases.append((f"{sname} {kind}", same))
+        torch.cuda.empty_cache()
     differ = [c for c, same in cases if not same]
-    phase("ab", f"f32 one-molecule kernels: old == new bit for bit at "
+    phase("ab", "f32 one-molecule" + (" and block-pair" if blocks else "")
+          + f" kernels: old == new bit for bit at "
           f"{len(cases) - len(differ)} of {len(cases)} shape x direction "
           "cases" + (f"; they differ at {differ}" if differ else ""))
-    require(not differ, f"the one-molecule f32 kernels changed: {differ}")
+    require(not differ, f"the f32 kernels changed: {differ}")
     args = edge_inputs(ALA2, torch.float32, seed=37)[:7]
     args2 = edge_inputs(dict(ALA2, B=2048), torch.float32, seed=41)[:7]
     ab_turns(card, use, {
@@ -2562,92 +2591,6 @@ def edge_sm90_bits_ab_phase(card, old_lib):
                        "edge_sm90_fwd_kernel"),
         "K6 sampler": (lambda: ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs),
                        "edge_sm90_bwd_kernel")})
-
-
-def f32_ab_phase(card, old_lib):
-    """An earlier egcl_allpairs.cu (``old_lib``, built) against the current
-    f32 kernels, in turns old, new, new, old, old, new within this
-    process: in an old turn every f32 launch goes to the old source's
-    chunked kernels, in a new turn K1, K2 and K2 p to the tiled f32
-    kernels of egcl_allpairs_f32.cu. A turn times f32 K1 and K2 p at
-    vi_dw4.yaml's shape and the f32 K2 at sample_ala2.yaml's (B=2048,
-    N=22, nf=4, H=128), CUDA events and device time, then one vi_dw4.yaml
-    epoch of DW4_STEPS steps (after a warm-up epoch before the first
-    turn), read as the median of its steps after the first."""
-    import os
-    import torch
-    from enflow_tpu_torch.ops import build
-    from enflow_tpu_torch.ops import egcl_allpairs as ops
-
-    new_lib = ops._library()
-    if not hasattr(old_lib, "egcl_part_size"):
-        # a source from before csrc/egcl_part_layout.cuh
-        old_lib.egcl_part_size = old_lib.egcl_allpairs_part_size
-    rule = ops.kernel_for
-
-    def use(which):
-        build._loaded["egcl_allpairs"] = old_lib if which == "old" else new_lib
-        ops.kernel_for = rule if which == "new" else (
-            lambda code, H, d: "chunked" if code == 0 else rule(code, H, d))
-
-    h, pos, box, mask_f, W, dagg, dfsum, _ = edge_inputs(DW4, torch.float32,
-                                                         seed=31)
-    args = (h, pos, box, mask_f, W, dagg, dfsum)
-    fwd = lambda: ops.allpairs_edges_fwd(h, pos, box, mask_f, W)
-    pbwd = lambda: ops.allpairs_edges_bwd(*args, params=True)
-    want = (ops.allpairs_edges_plain(h, pos, box, mask_f, W)
-            + ops.allpairs_edges_plain_bwd(*args, params=True))
-    args2 = edge_inputs(dict(ALA2, B=2048), torch.float32, seed=41)[:7]
-    bwd2 = lambda: ops.allpairs_edges_bwd(*args2)
-    want2 = ops.allpairs_edges_plain_bwd(*args2)
-    torch.cuda.empty_cache()
-    cwd, rows = os.getcwd(), []
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            main = vi_driver(tmp, 1, config="vi_dw4.yaml", steps=DW4_STEPS)
-            main.train()                                    # warm-up
-            main.start_epoch += 1
-            for which in ("old", "new", "new", "old", "old", "new"):
-                use(which)
-                ops._library()
-                errs = rel_errs(("agg", "f_sum") + PARAM_OUT,
-                                fwd() + pbwd(), want)
-                errs.update(rel_errs(("dh 2048", "dpos 2048"), bwd2(),
-                                     want2))
-                require(all(r <= TOL["float32"] for _, r in errs.values()),
-                        f"{which} f32 kernels disagree with plain: {errs}")
-                t = dict(fwd=cuda_time_ms(fwd), bwd_p=cuda_time_ms(pbwd),
-                         fwd_dev=device_ms(fwd, "fwd_kernel"),
-                         bwd_p_dev=device_ms(pbwd, "bwd_"),
-                         bwd_2048=cuda_time_ms(bwd2, reps=10, calls=3),
-                         bwd_2048_dev=device_ms(bwd2, "egcl_bwd_kernel"
-                                                if which == "old" else
-                                                "egcl_f32_bwd_kernel",
-                                                calls=6))
-                os.chdir(tmp)
-                step_s, _ = time_vi_steps(main)
-                main.train()
-                del main.vi_step                    # the timing wrapper
-                t["vi"] = statistics.median(step_s[1:])
-                main.start_epoch += 1
-                rows.append((which, t))
-                phase("ab", f"{which} on {card}: f32 K1 {t['fwd']:.4f} ms "
-                      f"(device {t['fwd_dev']:.4f}), K2 p {t['bwd_p']:.4f} "
-                      f"ms (device {t['bwd_p_dev']:.4f}) at B=512, N=4, "
-                      f"nf=2, H=64; K2 {t['bwd_2048']:.4f} ms (device "
-                      f"{t['bwd_2048_dev']:.4f}) at B=2048, N=22, nf=4, "
-                      f"H=128; vi_dw4.yaml {t['vi']:.5f} s/step "
-                      f"(median of steps 2-{DW4_STEPS} of one epoch)")
-    finally:
-        use("new")
-        os.chdir(cwd)
-    for key in rows[0][1]:
-        pick = lambda which: statistics.median(
-            t[key] for w, t in rows if w == which)
-        old, new = pick("old"), pick("new")
-        unit = "s/step" if key == "vi" else "ms"
-        phase("ab", f"{key} (median): old {old:.5f} new {new:.5f} {unit} -> "
-              f"{old / new:.2f}x")
 
 
 def edge_ab_phase(card, old_lib):
@@ -4284,13 +4227,12 @@ LJ147_K2_BIG = 1024
 def blocks_device_ms(fn, kind, f32=False, **kw):
     """Device time of one block-pair launch (bf16, or with ``f32`` the f32
     block pairs): the main kernel, plus for the backward the second kernel
-    that sums the partials."""
+    that sums the partials (both from one trace)."""
     pre = "egcl_f32_blocks_" if f32 else "egcl_sm90_blocks_"
-    main = device_ms(fn, pre + (
-        "fwd_kernel" if kind == "fwd" else "bwd_params_kernel"
-        if f32 and kind == "bwd_params" else "bwd_kernel"), **kw)
-    return main + (0.0 if kind == "fwd" else
-                   device_ms(fn, pre + "finish_kernel", **kw))
+    main = pre + ("fwd_kernel" if kind == "fwd" else "bwd_params_kernel"
+                  if f32 and kind == "bwd_params" else "bwd_kernel")
+    return device_ms(fn, main if kind == "fwd" else
+                     (main, pre + "finish_kernel"), **kw)
 
 
 def lj147_phase(card):
@@ -4659,7 +4601,7 @@ def wide_tiles(B, N, A):
 def wide_driver_paths(card):
     """Phase wide's driver paths (see WIDE_H): launches held exactly on the
     ``"wide"`` counters (LJ55) or the one-molecule counters with
-    ``padded_launches`` (LJ13 at 96), no chunked launch, no plain call;
+    ``padded_launches`` (LJ13 at 96), no plain call;
     beta 1, finite log_Z and losses, outputs on the card. Returns the
     seconds and launches of each run."""
     import os
@@ -4697,7 +4639,7 @@ def wide_driver_paths(card):
                   f"particles, {out['vi']['s_step']:.5f} s/step (median of "
                   f"steps 2-{WIDE_STEPS}; first {step_s[0]:.4f} s); losses "
                   + ", ".join(f"{x:.2f}" for x in losses)
-                  + f"; launches {got}, chunked 0, plain calls 0")
+                  + f"; launches {got}, plain calls 0")
 
             smc = config_driver(tmp, "sample_lj55.yaml", over=dict(
                 n_temps=WIDE_TEMPS, chunk_temps=WIDE_TEMPS,
@@ -4726,7 +4668,7 @@ def wide_driver_paths(card):
                   f"{P / secs:.1f} samples/s, log_Z {float(res.log_Z):.4f}, "
                   f"final ESS {ess:.1f}, beta "
                   f"{float(res.beta_history[-1]):.6f}; launches {got} "
-                  f"({n_vg} value-and-grads), chunked 0, plain calls 0; "
+                  f"({n_vg} value-and-grads), plain calls 0; "
                   "outputs on cuda")
             del vi, smc, res, outs
             torch.cuda.empty_cache()
@@ -4775,7 +4717,7 @@ def wide_driver_paths(card):
                   f"checkpoint: {P13} particles, {secs13:.3f} s, log_Z "
                   f"{float(res.log_Z):.4f}, beta "
                   f"{float(res.beta_history[-1]):.6f}; launches {got13}, "
-                  "chunked 0, plain calls 0; outputs on cuda")
+                  "plain calls 0; outputs on cuda")
         finally:
             os.chdir(cwd)
     return out
@@ -4788,9 +4730,8 @@ def wide_phase(card):
     version (read per element, ``step_errs``) and timed beside it: CUDA
     events, device time, the bound, the L2 bytes the slabs read (and K2
     p's partials), the plan; the partials' sum timed; the padded launches'
-    cost at H=96 against H=128 and against the chunked kernels that ran
-    H=96 before the padding (still in csrc/egcl_allpairs.cu) at the same
-    shapes; each run's kernel share."""
+    cost at H=96 against H=128 at the same shapes; each run's kernel
+    share."""
     import torch
     from enflow_tpu_torch.ops import build
     from enflow_tpu_torch.ops import egcl_allpairs as ops
@@ -4868,26 +4809,20 @@ def wide_phase(card):
     phase("wide", f"K2 p's partials at H={WIDE_H}: {slices} slices x {P} "
           f"floats ({slices * P * 4 / 1e6:.1f} MB), their sum {t_sum:.4f} ms")
     del part
-    # the padded launches' cost: H=96 (run at 128) against H=128 and
-    # against the chunked kernels at 96 (the route H=96 took before it was
-    # padded), at LJ13's SMC / VI batches and at LJ55's VI batch
+    # the padded launches' cost: H=96 (run at 128) against H=128, at
+    # LJ13's SMC / VI batches and at LJ55's VI batch
     for kind, B, N in (("fwd", 1024, 13), ("bwd", 1024, 13),
                        ("bwd_params", 512, 13), ("fwd", 256, 55),
                        ("bwd_params", 256, 55)):
         t = {}
-        for H, route in ((WIDE13_H, None), (128, None),
-                         (WIDE13_H, "chunked")):
+        for H in (WIDE13_H, 128):
             a = edge_inputs(dict(B=B, N=N, nf=5, H=H), torch.bfloat16,
                             seed=53)[:7]
             ins = a[:5] if kind == "fwd" else a
-            if route:
-                kern = lambda: ops._run(kind, route, *ins[:5],  # noqa: E731
-                                        *(ins[5:] or (None, None)))
-            else:
-                kern = ((lambda: ops.allpairs_edges_fwd(*ins))
-                        if kind == "fwd" else (lambda p=kind == "bwd_params":
-                                               ops.allpairs_edges_bwd(
-                                                   *ins, params=p)))
+            kern = ((lambda: ops.allpairs_edges_fwd(*ins))
+                    if kind == "fwd" else (lambda p=kind == "bwd_params":
+                                           ops.allpairs_edges_bwd(
+                                               *ins, params=p)))
             names = (("agg", "f_sum") if kind == "fwd" else PARAM_OUT
                      if kind == "bwd_params" else ("dh", "dpos"))
             plain = (ops.allpairs_edges_plain(*ins) if kind == "fwd" else
@@ -4895,18 +4830,14 @@ def wide_phase(card):
                          *ins, params=kind == "bwd_params"))
             errs = step_errs(names, kern(), plain, plain_terms(ins)
                              if kind == "bwd_params" else None)
-            t[(H, route)] = (cuda_time_ms(kern, reps=10, calls=5), errs)
+            t[H] = (cuda_time_ms(kern, reps=10, calls=5), errs)
             del a, ins, plain
-        padded, full, chunked = (t[(WIDE13_H, None)], t[(128, None)],
-                                 t[(WIDE13_H, "chunked")])
+        padded, full = t[WIDE13_H], t[128]
         require(steps_ok(padded[1]) and steps_ok(full[1]),
                 f"padded cost {kind}: a launch disagrees with plain")
         phase("wide", f"padded cost {kind} bf16 B={B} N={N}: H={WIDE13_H} "
               f"(zero-padded to 128) {padded[0]:.4f} ms, H=128 "
-              f"{full[0]:.4f} ms ({padded[0] / full[0]:.3f}x), H="
-              f"{WIDE13_H} on the chunked kernels {chunked[0]:.4f} ms "
-              f"(padded / chunked {padded[0] / chunked[0]:.3f}x; chunked vs "
-              f"plain {steps_text(chunked[1])})")
+              f"{full[0]:.4f} ms ({padded[0] / full[0]:.3f}x)")
     vi, smc = paths["vi"], paths["smc"]
     k_vi = 5 * (rec[("fwd", WIDE_B[0])]["dev"]
                 + rec[("bwd_params", WIDE_B[0])]["dev"]) / 1e3
@@ -4967,6 +4898,209 @@ def vi_config_phase(card, name, config, steps, per_step, shape, dname,
     rec = allpairs_vs_plain(name, f"{config} shape", shape, dname, 31, kinds,
                             **vs)
     return dict(s_step=s_step, launches=want, rec=rec, after=extra)
+
+# phase wide_f32: vi_ala2.yaml and sample_ala2.yaml at hidden_nf
+# WIDE_F32_H, every EGCL on the f32 block pairs with streamed weights; then
+# the f32 K1, K2 and K2 p at each H of WIDE_F32_HS (192 and 256, and 160
+# and 200 zero-padded up) and each shape of WIDE_F32_SHAPES: vi_ala2's and
+# sample_ala2's batches at N=22, LJ55 at B=64 and LJ147 at B=16
+WIDE_F32_H = 256
+WIDE_F32_HS = (192, 256, 160, 200)
+WIDE_F32_SHAPES = (("vi_ala2", dict(B=256, N=22, nf=4)),
+                   ("sample_ala2", dict(B=2048, N=22, nf=4)),
+                   ("lj55", dict(B=64, N=55, nf=5)),
+                   ("lj147", dict(B=16, N=147, nf=5)))
+# (shape, kind) of the kernels line, at WIDE_F32_H: each timed beside its
+# plain version too
+WIDE_F32_TIMED = (("vi_ala2", "fwd"), ("vi_ala2", "bwd_params"),
+                  ("sample_ala2", "fwd"), ("sample_ala2", "bwd"))
+
+
+def wide_f32_driver_paths(card):
+    """Phase wide_f32's driver paths: (a) ``vi_ala2.yaml`` at
+    ``hidden_nf: WIDE_F32_H`` cut to 1 epoch x FF_STEPS, 5 K1 + 5 K2 p a
+    step exactly on the ``*_f32_wide_launches`` counters; (b)
+    ``sample_ala2.yaml`` at the same width from (a)'s checkpoint, as
+    committed otherwise: 260 K1 + 255 K2 there; no other counter, no plain
+    call, beta 1, finite log_Z and losses, float32 outputs on the card.
+    Returns the seconds and launches of each run."""
+    import os
+    import torch
+
+    cwd = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            net = dict(network=dict(hidden_nf=WIDE_F32_H, node_nf=4))
+            vi = config_driver(tmp, "vi_ala2.yaml", over=dict(
+                num_epochs=1, steps_per_epoch=FF_STEPS), dynamics=net)
+            require(vi.hidden_nf == WIDE_F32_H and vi.vi_n_atoms == 22,
+                    f"vi_ala2 at hidden_nf {vi.hidden_nf}, "
+                    f"{vi.vi_n_atoms} atoms")
+            n_iter = vi.n_iter
+            step_s, losses = time_vi_steps(vi)
+            reset_counts()
+            vi.train()
+            torch.cuda.synchronize()
+            got, plain = launched(), plain_calls()
+            want = dict(fwd_f32_wide_launches=n_iter * FF_STEPS,
+                        bwd_param_f32_wide_launches=n_iter * FF_STEPS)
+            require(len(step_s) == FF_STEPS and got == want and plain == 0,
+                    f"vi_ala2 at {WIDE_F32_H}: {len(step_s)} steps, "
+                    f"launches {got} != {want}, plain {plain}")
+            require(all(math.isfinite(x) for x in losses),
+                    f"non-finite vi_ala2 losses at {WIDE_F32_H}: {losses}")
+            require(Path(vi.checkpoint_path).exists(),
+                    "vi_ala2 at 256: no checkpoint")
+            out["vi"] = dict(s_step=statistics.median(step_s[1:]),
+                             first=step_s[0], launches=got,
+                             P=vi.vi_particles)
+            phase("wide_f32", f"(a) vi_ala2.yaml at hidden_nf {WIDE_F32_H} "
+                  f"on {card}: 1 epoch x {FF_STEPS} steps of "
+                  f"{vi.vi_particles} particles, float32, "
+                  f"{out['vi']['s_step']:.5f} s/step (median of steps "
+                  f"2-{FF_STEPS}; first {step_s[0]:.4f} s); losses "
+                  + ", ".join(f"{x:.2f}" for x in losses)
+                  + f"; launches {got}, plain calls 0; checkpoint "
+                  f"{Path(vi.checkpoint_path).name}")
+
+            smc = config_driver(tmp, "sample_ala2.yaml", dynamics=net)
+            sec = smc.args["sampling"]
+            P = sec["n_particles"]
+            reset_counts()
+            res, secs = timed_sample(smc)
+            got, plain = launched(), plain_calls()
+            n_vg = 1 + sec["n_temps"] * sec["mcmc_steps"] * sec["n_leapfrog"]
+            want = dict(fwd_f32_wide_launches=n_iter + n_vg * n_iter,
+                        bwd_f32_wide_launches=n_vg * n_iter)
+            require(got == want and plain == 0, f"sample_ala2 at "
+                    f"{WIDE_F32_H}: launches {got} != {want}, plain {plain}")
+            check_smc(res, f"sample_ala2 at {WIDE_F32_H}", P, 22)
+            pos = res.particles["pos"]
+            require(pos.is_cuda and pos.dtype == torch.float32
+                    and res.log_Z.is_cuda and res.log_weights.is_cuda,
+                    "sample_ala2 at 256: outputs not float32 on the card")
+            out["smc"] = dict(secs=secs, launches=got, P=P)
+            phase("wide_f32", f"(b) sample_ala2.yaml at hidden_nf "
+                  f"{WIDE_F32_H} on {card} from (a)'s checkpoint: {P} "
+                  f"particles x {sec['n_temps']} temps, float32, "
+                  f"{secs:.3f} s, log_Z {float(res.log_Z):.4f}, beta "
+                  f"{float(res.beta_history[-1]):.6f}; launches {got} "
+                  f"({n_vg} value-and-grads), plain calls 0; outputs on "
+                  "cuda")
+            del vi, smc, res, pos
+            torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
+    return out
+
+
+def wide_f32_phase(card):
+    """Phase wide_f32: the driver paths (``wide_f32_driver_paths``), then
+    f32 K1, K2 and K2 p on the streamed f32 block pairs at each H of
+    WIDE_F32_HS and shape of WIDE_F32_SHAPES: one launch on its counter
+    (and ``padded_launches`` at 160 and 200), against the plain version
+    (outputs to TOL, the parameter gradients' f32 sums to TOL_PARAM), a
+    second launch bitwise equal, CUDA events and device time beside the
+    bound and the plan; the plain version timed at WIDE_F32_TIMED; the
+    library's plans at H = 128 (LJ147), 192 and 256; the kernel share of
+    each driver run."""
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+
+    paths = wide_f32_driver_paths(card)
+    lib = ops._f32_library()
+    names = {"fwd": ("agg", "f_sum"), "bwd": ("dh", "dpos"),
+             "bwd_params": PARAM_OUT}
+    plans = {f"H={H} N={N} nf={nf}": {
+        k: ops._f32_blocks_launch_plan(lib, N, nf, H, k) for k in names}
+        for H, N, nf in ((128, 147, 5), (192, 22, 4), (256, 22, 4),
+                         (192, 147, 5), (256, 147, 5))}
+    phase("wide_f32", "plans (atoms a block, rows a row tile): " + "; ".join(
+        f"{k} {v}" for k, v in plans.items()))
+    rec, bad = {}, []
+    for H in WIDE_F32_HS:
+        Hp = ops.padded_width(H)
+        for sname, base in WIDE_F32_SHAPES:
+            shape = dict(base, H=H)
+            h, pos, box, mask_f, W, dagg, dfsum, mask = edge_inputs(
+                shape, torch.float32, seed=61 + H)
+            args = (h, pos, box, mask_f, W, dagg, dfsum)
+            for kind in ("fwd", "bwd", "bwd_params"):
+                run = ((lambda: ops.allpairs_edges_fwd(*args[:5]))
+                       if kind == "fwd" else (lambda p=kind == "bwd_params":
+                                              ops.allpairs_edges_bwd(
+                                                  *args, params=p)))
+                plain = ((lambda: ops.allpairs_edges_plain(*args[:5]))
+                         if kind == "fwd" else
+                         (lambda p=kind == "bwd_params":
+                          ops.allpairs_edges_plain_bwd(*args, params=p)))
+                ops.counts.reset()
+                got = run()
+                torch.cuda.synchronize()
+                counted = launched()
+                want = {launch_counter(kind, "f32_wide"): 1}
+                if Hp != H:
+                    want["padded_launches"] = 1
+                errs = rel_errs(names[kind], got, plain())
+                tol = {n: (TOL_PARAM if n in PARAM_OUT[2:] else
+                           TOL)["float32"] for n in names[kind]}
+                same = all(bool(torch.equal(a, b))
+                           for a, b in zip(got, run()))
+                del got
+                torch.cuda.empty_cache()
+                ok = (counted == want and same and all(
+                    r <= tol[n] for n, (_, r) in errs.items()))
+                ms = cuda_time_ms(run, reps=3, calls=2, warmup=1)
+                dev = blocks_device_ms(run, kind, f32=True, calls=5,
+                                       warmup=1)
+                fl_f, fl_b, by_f, by_b = work(shape, "float32", mask)
+                fl, by = {"fwd": (fl_f, by_f), "bwd": (fl_b, by_b),
+                          "bwd_params": work_params(shape, "float32",
+                                                    mask)}[kind]
+                b = bound(fl, by, PEAK_FLOPS["float32"])
+                t_plain = None
+                if H == WIDE_F32_H and (sname, kind) in WIDE_F32_TIMED:
+                    t_plain = cuda_time_ms(plain, reps=3, calls=1, warmup=1)
+                    torch.cuda.empty_cache()
+                plan = ops._f32_blocks_launch_plan(lib, shape["N"],
+                                                   shape["nf"], Hp, kind)
+                phase("wide_f32", f"{kind} f32 {sname} B={shape['B']} "
+                      f"N={shape['N']} nf={shape['nf']} H={H} (run at {Hp}; "
+                      f"plan {plan}): launches {counted}; max_abs/rel err "
+                      + "  ".join(f"{n} {a:.2e}/{r:.1e}"
+                                  for n, (a, r) in errs.items())
+                      + f"; a second launch gives the same bits: {same}; "
+                      f"time ms events {ms:.4f} device {dev:.4f}"
+                      + (f" plain {t_plain:.4f}" if t_plain else "")
+                      + f", bound {b[0]:.4f} ({b[1]}, {fl / 1e9:.2f} GFLOP, "
+                      f"{by / 1e6:.2f} MB; device {dev / b[0]:.1f}x) -> "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    bad.append((H, sname, kind))
+                rec[(kind, H, sname)] = dict(
+                    err=max(a for a, _ in errs.values()), ms=ms, dev=dev,
+                    plain=t_plain, bound=b, plan=plan)
+            del h, pos, box, mask_f, W, dagg, dfsum, mask, args
+            torch.cuda.empty_cache()
+    require(not bad, f"f32 wide kernels disagree with plain: {bad}")
+    vi, smc = paths["vi"], paths["smc"]
+    r = lambda kind, sname: rec[(kind, WIDE_F32_H, sname)]["dev"]
+    k_vi = vi["launches"]["fwd_f32_wide_launches"] / FF_STEPS * (
+        r("fwd", "vi_ala2") + r("bwd_params", "vi_ala2")) / 1e3
+    k_smc = (smc["launches"]["fwd_f32_wide_launches"]
+             * r("fwd", "sample_ala2")
+             + smc["launches"]["bwd_f32_wide_launches"]
+             * r("bwd", "sample_ala2")) / 1e3
+    phase("wide_f32", f"kernel share: vi_ala2 {vi['s_step']:.5f} s a step, "
+          f"5 x (K1 + K2 p) device {k_vi:.5f} s ({k_vi / vi['s_step']:.1%});"
+          f" sample_ala2 {smc['secs']:.3f} s, K1 + K2 launches x device "
+          f"{k_smc:.3f} s ({k_smc / smc['secs']:.1%})")
+    return dict(k1=vi["launches"]["fwd_f32_wide_launches"],
+                k1_smc=smc["launches"]["fwd_f32_wide_launches"],
+                k2=smc["launches"]["bwd_f32_wide_launches"],
+                k2_params=vi["launches"]["bwd_param_f32_wide_launches"],
+                rec=rec)
 
 
 def fluid_phase(card):
@@ -5042,9 +5176,8 @@ def ala2_kernels():
     """The f32 kernels at alanine dipeptide's size. The tiled f32
     K2 p must take N >= 22 at nf=4, H=128 and the tiled f32 K2 N >= 70 at
     nf=5, H=128, one atom past each largest the f32 block-pair kernels
-    (held against plain there; the K2 also at N=70); the tiled kernels
-    must take every N that the
-    chunked ones take at nf=5 (H=128 and H=64). Then the tiled f32 K1, K2
+    (held against plain there; the K2 also at N=70). Then the tiled f32
+    K1, K2
     p and K2 against their plain version at vi_ala2.yaml's shape (B=256,
     N=22, nf=4, H=128), the K2 also at sample_ala2.yaml's B=2048 and its
     dh/dpos against K2 p's; a second launch bitwise equal; each timed
@@ -5052,28 +5185,14 @@ def ala2_kernels():
     import torch
     from enflow_tpu_torch.ops import egcl_allpairs as ops
 
-    chunked = ops._library()
-
-    def chunked_largest(nf, H, kind):
-        n = 0
-        while 0 <= chunked.egcl_allpairs_smem_bytes(
-                0, n + 1, nf, H, ops._KIND[kind]) \
-                <= chunked.egcl_allpairs_smem_limit():
-            n += 1
-        return n
-
     lim = {}
     for nf, H in ((5, 128), (5, 64), (4, 128)):
         for kind in ("fwd", "bwd", "bwd_params"):
-            lim[(nf, H, kind)] = (ops.largest_molecule(0, nf, H, kind),
-                                  chunked_largest(nf, H, kind))
-    phase("ala2", "largest N, f32 tiled (chunked): " + ", ".join(
-        f"nf={nf} H={H} {kind} {a} ({b})" for (nf, H, kind), (a, b)
-        in lim.items()))
-    require(all(a >= b for a, b in lim.values()),
-            f"a tiled f32 kernel takes less than the chunked one: {lim}")
+            lim[(nf, H, kind)] = ops.largest_molecule(0, nf, H, kind)
+    phase("ala2", "largest N, f32 tiled: " + ", ".join(
+        f"nf={nf} H={H} {kind} {a}" for (nf, H, kind), a in lim.items()))
     for nf, kind, least in ((4, "bwd_params", 22), (5, "bwd", 70)):
-        n_max = lim[(nf, 128, kind)][0]
+        n_max = lim[(nf, 128, kind)]
         require(n_max >= least, f"f32 {kind} takes N <= {n_max} at "
                 f"nf={nf}, H=128 (needs {least})")
         shape = dict(B=2, N=n_max + 1, nf=nf, H=128, n_pad=1)
@@ -5369,7 +5488,7 @@ def remc_phase(card, lj13_dir):
 
 # ti_lj13.yaml (25 nodes x 256 chains, 400 sweeps with 150 warmup) cut to
 # TI_CUT sweeps a node, once monolithic and once in segments of TI_CHUNK
-TI_CUT = dict(n_samples=8, n_warmup=2)
+TI_CUT = dict(n_samples=4, n_warmup=2)
 TI_CHUNK = 3
 
 
@@ -5979,8 +6098,8 @@ def import_phase(card, tmp):
 def build_phase():
     """Fresh builds of every kernel source, one nvcc each, in parallel."""
     from enflow_tpu_torch.ops import build
-    names = ("egcl_allpairs_sm90", "egcl_allpairs_f32", "egcl_allpairs",
-             "edge_pipeline", "edge_pipeline_sm90", "pair_energy")
+    names = ("egcl_allpairs_sm90", "egcl_allpairs_f32", "edge_pipeline",
+             "edge_pipeline_sm90", "pair_energy")
     for name in names:
         build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
@@ -6018,12 +6137,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", nargs="+", default=None, metavar="OLD_CU",
                     help="time the kernels built from earlier sources "
-                    "(egcl_allpairs.cu, egcl_allpairs_sm90.cu, "
-                    "egcl_allpairs_f32.cu, edge_pipeline.cu, "
-                    "edge_pipeline_sm90.cu or pair_energy.cu; each in turn) "
-                    "against the current ones, and vi_dw4.yaml epochs, SMC "
-                    "runs, train.yaml epochs or train.yaml MD datasets with "
-                    "each, instead of the phases after the build")
+                    "(egcl_allpairs_sm90.cu, egcl_allpairs_f32.cu, "
+                    "edge_pipeline.cu, edge_pipeline_sm90.cu or "
+                    "pair_energy.cu; each in turn) against the current "
+                    "ones, and SMC runs, train.yaml epochs or train.yaml MD "
+                    "datasets with each, instead of the phases after the "
+                    "build")
     ap.add_argument("--edge-seeds", nargs=2, type=int, default=None,
                     metavar=("FIRST", "LAST"), help="hold the bf16 Hopper "
                     "K5/K6 against their plain version at EDGE_SHAPES for "
@@ -6145,6 +6264,7 @@ def main():
     lj147 = timed("lj147", lj147_phase, card)
     lj147f = timed("lj147_f32", lj147_f32_phase, card)
     wide = timed("wide", wide_phase, card)
+    wf = timed("wide_f32", wide_f32_phase, card)
     timed("fluid", fluid_phase, card)
     dw4 = timed("dw4", dw4_phase, card)
     ala2 = timed("ala2", ala2_phase, card)
@@ -6283,6 +6403,21 @@ def main():
              wide["k2_params"])):
         r = wide["rec"][(direction, B)]
         kernels.append(kernel_record(name, "egcl_allpairs_sm90.cu",
+                                     f"{v3}:{line}", n, r["err"], r["ms"],
+                                     r["plain"], r["bound"]))
+    # the f32 block pairs with streamed weights at H=256, N=22 (nf=4), each
+    # at the batch of phase wide_f32's run that launched it: K1 and K2 p of
+    # the VI (B=256), K1 and K2 of the SMC run (B=2048)
+    for name, direction, sname, line, n in (
+            ("egcl_allpairs_f32_wide_fwd", "fwd", "vi_ala2", 365, wf["k1"]),
+            ("egcl_allpairs_f32_wide_fwd_smc", "fwd", "sample_ala2", 365,
+             wf["k1_smc"]),
+            ("egcl_allpairs_f32_wide_bwd", "bwd", "sample_ala2", 414,
+             wf["k2"]),
+            ("egcl_allpairs_f32_wide_bwd_params", "bwd_params", "vi_ala2",
+             414, wf["k2_params"])):
+        r = wf["rec"][(direction, WIDE_F32_H, sname)]
+        kernels.append(kernel_record(name, "egcl_allpairs_f32.cu",
                                      f"{v3}:{line}", n, r["err"], r["ms"],
                                      r["plain"], r["bound"]))
     # bf16 K5/K6 at 17 edge features (the Hopper kernels, two k16 steps of

@@ -3,10 +3,13 @@
 The package mirrors ``enflow_tpu/`` module by module (same names, same
 parameter layout: linear ``w`` as ``[in, out]``, per-step EGCL parameters
 stacked on a leading ``[n_iter]`` axis), so a JAX parameter pytree converts
-by renaming (``utils/jax_params.py``). Plain tensor code is PyTorch; the
-fused all-pairs EGCL edge pipeline, which the JAX package runs as a Pallas
-TPU kernel, is a CUDA kernel written for ``sm_90a``
-(``csrc/egcl_allpairs.cu``, bound in ``ops/egcl_allpairs.py``).
+by renaming (``utils/jax_params.py``). Plain tensor code is PyTorch; each
+kernel that the JAX package runs in Pallas on the TPU is a CUDA kernel
+written for ``sm_90a`` (``csrc/``, built by ``ops/build.py``): the fused
+all-pairs EGCL edge pipeline (``csrc/egcl_allpairs_sm90.cu`` in bf16,
+``csrc/egcl_allpairs_f32.cu`` in float32, bound in
+``ops/egcl_allpairs.py``), the gathered-edge pipeline and the pair
+energy.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); without a card they raise instead of falling back.

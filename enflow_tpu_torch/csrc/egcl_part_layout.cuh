@@ -1,12 +1,12 @@
 // The float32 partials of the all-pairs EGCL backward's nine parameter
-// gradients, one slice per block (egcl_allpairs.cu) or per warpgroup
+// gradients, one slice per block (egcl_allpairs_f32.cu) or per warpgroup
 // (egcl_allpairs_sm90.cu); ops/egcl_allpairs.py sums the slices' first P
 // floats and splits the sum (_split_part).
 //
-// Offsets in a slice: dW2, dW3 [H, H] first (wmma reads and writes their
-// tiles in place, which needs 32-byte alignment), then dW1a, dW1b [nf, H],
-// dw1r, db1, db2, db3, dw4 [H]; P is rounded up to 8 floats so that every
-// slice is aligned too.
+// Offsets in a slice: dW2, dW3 [H, H] first (read and written in place a
+// float4 or more at a time, which needs their alignment), then dW1a, dW1b
+// [nf, H], dw1r, db1, db2, db3, dw4 [H]; P is rounded up to 8 floats so
+// that every slice is aligned too.
 
 #pragma once
 

@@ -24,7 +24,7 @@ In ``all_pairs`` mode two paths compute the same function:
   whatever ``use_pallas`` says: ``False``, ``True``, ``"v1"``, ``"v2"`` and
   ``"v3"`` all name this same function in ``all_pairs`` mode. In bf16 it
   takes every N (past one warpgroup's shared memory, the block-pair
-  kernels); float32 past its kernels' limits is refused.
+  kernels), and so does float32, at every hidden width up to 256.
 
 On a gathered neighbor list (the ``dense``/``topk``, ``cell`` and
 ``images`` modes) ``apply_egcl`` runs the gathered-edge kernel of

@@ -29,13 +29,11 @@ attention/norm_diff/tanh off.
   whole molecules a block while they fit its shared memory, and past that
   the same file's block-pair kernels (route ``"f32_blocks"``, every N, on
   the same row code; counters ``*_f32_blocks_launches``). Float32 at H =
-  192 or 256 runs the chunked kernels of ``csrc/egcl_allpairs.cu``
-  (counters ``fwd_h_rule_launches``, ``bwd_h_rule_launches``,
-  ``bwd_param_h_rule_launches``) and refuses molecules past their shared
-  memory; H > 256 is refused in either dtype. The chunked kernels' bf16
-  half is no route's (bf16 is padded onto the Hopper kernels); chip_smoke.py
-  times the padded launches against it through :func:`_run`. There is no
-  fallback: a kernel that does not build or launch raises.
+  192 or 256 runs the same f32 block-pair kernels with W2 and W3 streamed
+  through shared memory in slabs (route ``"f32_wide"``, every N; counters
+  ``*_f32_wide_launches``; plan :func:`f32_wide_plan`). H > 256 is refused
+  in either dtype. There is no fallback: a kernel that does not build or
+  launch raises.
 - Every other width up to 256 is zero-padded to the next of 64, 128, 192
   and 256 (:func:`padded_width`), which is exact: the padded columns of
   W1a, W1b, w1r and b1, the padded rows and columns of W2 and W3, and the
@@ -76,10 +74,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the bf16 Hopper block-pair kernels (molecules past the first's shared
 # memory); *_wide_launches: the same kernels at H = 192 or 256 (streamed
 # weights); *_f32_blocks_launches: the f32 block-pair kernels (molecules
-# past the tiled f32 kernels' shared memory); *_h_rule_launches: float32 at
-# H = 192 or 256, sent to the chunked kernels by the size rule;
-# padded_launches: launches of any route at a padded width (each counts on
-# its route's counter too)
+# past the tiled f32 kernels' shared memory); *_f32_wide_launches: the
+# same f32 kernels at H = 192 or 256 (streamed weights); padded_launches:
+# launches of any route at a padded width (each counts on its route's
+# counter too)
 counts = LaunchCounts("fwd_launches", "bwd_launches", "bwd_f32_launches",
                       "bwd_param_launches", "fwd_blocks_launches",
                       "bwd_blocks_launches", "bwd_param_blocks_launches",
@@ -87,17 +85,17 @@ counts = LaunchCounts("fwd_launches", "bwd_launches", "bwd_f32_launches",
                       "bwd_param_wide_launches",
                       "fwd_f32_blocks_launches", "bwd_f32_blocks_launches",
                       "bwd_param_f32_blocks_launches",
-                      "fwd_h_rule_launches", "bwd_h_rule_launches",
-                      "bwd_param_h_rule_launches", "padded_launches",
+                      "fwd_f32_wide_launches", "bwd_f32_wide_launches",
+                      "bwd_param_f32_wide_launches", "padded_launches",
                       "plain_fwd_calls", "plain_bwd_calls",
                       "plain_bwd_param_calls")
-# the launch kinds of egcl_allpairs_smem_bytes, egcl_sm90_smem_bytes and
-# egcl_f32_smem_bytes
+# the launch kinds of egcl_sm90_smem_bytes and egcl_f32_smem_bytes
 _KIND = {"fwd": 0, "bwd": 1, "bwd_params": 2}
 # the hidden widths of the Hopper kernels (bf16) and the tiled f32 kernels
 SM90_H = (64, 128)
-# the widths of the bf16 block-pair kernels with streamed weights (route
-# "wide"), and every width a launch runs at (others are zero-padded up)
+# the widths of the block-pair kernels with streamed weights (routes
+# "wide", bf16, and "f32_wide"), and every width a launch runs at (others
+# are zero-padded up)
 WIDE_H = (192, 256)
 PADDED_H = SM90_H + WIDE_H
 # the tiled f32 kernels: rows a row tile at most (kQmaxFwd / kQmaxBwdIn /
@@ -116,11 +114,7 @@ BLOCK_ATOMS_MAX = 32
 # (B=256) and for K2 at LJ561 (B=16) (chip_smoke.py --blocks-plans,
 # PERF.md)
 F32_BLOCK_ATOMS = {"fwd": 32, "bwd": 24, "bwd_params": 24}
-# the queue items that hold the refused sizes: float32 at 128 < H <= 256
-# past the chunked kernels' shared memory, and H > 256 in either dtype
-LARGE_N_ITEM = ("ROADMAP queue B, B7: the float32 all-pairs EGCL at 128 < H "
-                "<= 256 (the f32 block pairs with streamed weights) past the "
-                "chunked kernels' shared memory")
+# the queue item that holds the refused widths: H > 256 in either dtype
 WIDE_ITEM = "ROADMAP queue B, B7: the all-pairs EGCL at H > 256"
 # shared memory a block may use on the card (kMaxSmem of the kernels)
 SMEM_LIMIT = 232448
@@ -353,29 +347,6 @@ def _sm90_library():
     return lib
 
 
-def _library():
-    from .build import load
-    lib = load("egcl_allpairs")
-    if not getattr(lib, "_enflow_bound", False):
-        n_in = 13
-        # dtype, B, N, nf, H, [blocks,] inputs, outputs, stream
-        lib.egcl_allpairs_fwd.argtypes = [_I] * 5 + [_P] * (n_in + 3)
-        lib.egcl_allpairs_fwd.restype = _I
-        lib.egcl_allpairs_bwd.argtypes = [_I] * 5 + [_P] * (n_in + 5)
-        lib.egcl_allpairs_bwd.restype = _I
-        lib.egcl_allpairs_bwd_params.argtypes = [_I] * 6 + [_P] * (n_in + 6)
-        lib.egcl_allpairs_bwd_params.restype = _I
-        lib.egcl_allpairs_smem_bytes.argtypes = [_I] * 5
-        lib.egcl_allpairs_smem_bytes.restype = _LL
-        lib.egcl_allpairs_smem_limit.argtypes = []
-        lib.egcl_allpairs_smem_limit.restype = _LL
-        _bind_part_size(lib)
-        lib.egcl_allpairs_error_string.argtypes = [_I]
-        lib.egcl_allpairs_error_string.restype = ctypes.c_char_p
-        lib._enflow_bound = True
-    return lib
-
-
 def _f32_library():
     from .build import load
     lib = load("egcl_allpairs_f32")
@@ -424,39 +395,37 @@ def _check_inputs(h, pos, box, mask_f, weights):
 
 def kernel_for(code: int, H: int, direction: str) -> str:
     """The size rule, on the padded width (:func:`padded_width`): which
-    kernels a launch goes to. ``"sm90"`` (bf16 at 64 or 128), ``"f32"``
-    (float32 there), ``"wide"`` (bf16 at 192 or 256: the block-pair
-    kernels with streamed weights, every N), each in every direction, or
-    ``"chunked"`` (``egcl_allpairs.cu``: float32 at 192 or 256). Past 256
-    it raises, naming ROADMAP B7 and the bytes such a width would need."""
+    kernels a launch goes to, each in every direction. ``"sm90"`` (bf16 at
+    64 or 128), ``"f32"`` (float32 there), ``"wide"`` (bf16 at 192 or 256:
+    the bf16 block-pair kernels with streamed weights, every N) or
+    ``"f32_wide"`` (float32 there: the f32 block-pair kernels with
+    streamed weights, every N). Past 256 it raises, naming ROADMAP B7 and
+    the bytes such a width would need."""
     Hp = padded_width(H)
     if Hp is None:
         raise ValueError(_too_wide(H))
     if Hp in SM90_H:
         return "sm90" if code == 1 else "f32"
-    return "wide" if code == 1 else "chunked"
+    return "wide" if code == 1 else "f32_wide"
 
 
 def _smem(code: int, N: int, nf: int, H: int, direction: str):
     """(bytes a launch of this kind at the width ``H`` of ``PADDED_H``
     needs, or -1 for sizes its kernel does not take; the card's limit). The
     tiled f32 kernels are asked at their smallest tile, one molecule and 8
-    rows; the ``"wide"`` route has no one-molecule kernels."""
+    rows; the ``"wide"`` and ``"f32_wide"`` routes have no one-molecule
+    kernels."""
     route = kernel_for(code, H, direction)
-    if route == "wide":
-        raise ValueError(f"egcl_allpairs: bf16 at H={H} runs the block-pair "
-                         "kernels at every N (no one-molecule limit)")
+    if route in ("wide", "f32_wide"):
+        raise ValueError(f"egcl_allpairs: H={H} runs the block-pair kernels "
+                         "at every N (no one-molecule limit)")
     if route == "sm90":
         lib = _sm90_library()
         return (lib.egcl_sm90_smem_bytes(N, nf, H, _KIND[direction]),
                 lib.egcl_sm90_smem_limit())
-    if route == "f32":
-        lib = _f32_library()
-        return (lib.egcl_f32_smem_bytes(N, nf, H, 1, 8, _KIND[direction]),
-                lib.egcl_f32_smem_limit())
-    lib = _library()
-    return (lib.egcl_allpairs_smem_bytes(code, N, nf, H, _KIND[direction]),
-            lib.egcl_allpairs_smem_limit())
+    lib = _f32_library()
+    return (lib.egcl_f32_smem_bytes(N, nf, H, 1, 8, _KIND[direction]),
+            lib.egcl_f32_smem_limit())
 
 
 _largest: dict = {}
@@ -484,23 +453,15 @@ def largest_molecule(code: int, nf: int, H: int, direction: str):
 def route_for(N: int, nf: int, H: int, code: int, direction: str,
               largest: int) -> str:
     """The molecule-size rule after :func:`kernel_for` (both on the padded
-    width): ``"wide"`` at every N; else its kernels while ``N <= largest``
-    (the most atoms their block takes), above that at 64 or 128 the
-    block-pair kernels of the dtype (``"blocks"``, bf16 Hopper;
-    ``"f32_blocks"``, float32; every N); a launch of the chunked kernels
-    (float32 at 192 or 256) past ``largest`` is refused, naming the queue
-    item that holds it."""
+    width): ``"wide"`` and ``"f32_wide"`` at every N; else its kernels
+    while ``N <= largest`` (the most atoms their block takes), above that
+    the block-pair kernels of the dtype (``"blocks"``, bf16 Hopper;
+    ``"f32_blocks"``, float32; every N). No width up to 256 and no N is
+    refused."""
     route = kernel_for(code, H, direction)
-    if route == "wide" or N <= largest:
+    if route in ("wide", "f32_wide") or N <= largest:
         return route
-    if route in ("sm90", "f32"):
-        return "blocks" if route == "sm90" else "f32_blocks"
-    raise ValueError(
-        f"egcl_allpairs {direction}: a float32 molecule of N={N} atoms at "
-        f"nf={nf}, H={H} (run at {padded_width(H)}) needs more shared "
-        f"memory than a block may use (this variant takes N <= {largest}); "
-        f"molecules this large are not ported yet in float32 at this width "
-        f"({LARGE_N_ITEM})")
+    return "blocks" if route == "sm90" else "f32_blocks"
 
 
 def block_atoms(N: int, fit: int) -> int:
@@ -541,12 +502,33 @@ def f32_blocks_plan(N: int, direction: str, fits) -> tuple[int, int]:
     raise ValueError(f"egcl_allpairs {direction}: no f32 atom block fits")
 
 
+def f32_wide_plan(N: int, direction: str, fits) -> tuple[int, int]:
+    """``(atoms a block, rows a row tile)`` of an f32 block-pair launch
+    with streamed weights (route ``"f32_wide"``): the most rows (a multiple
+    of 8, at most ``F32_ROWS_MAX``) at which a block of 8 atoms fits
+    (``fits(A, R)``), the most atoms (a multiple of 8, at most
+    ``F32_BLOCK_ATOMS``) beside them, then :func:`block_atoms` and the rows
+    cut by :func:`tile_rows` over a block pair's ``A * A`` rows. Rows come
+    first: every row tile streams W2 and W3 through the ring once (and K2
+    p reads and writes its dW2 / dW3 slice once), so the L2 bytes a launch
+    moves go as its row tiles' count."""
+    for rows in range(F32_ROWS_MAX[direction], 7, -8):
+        fit = next((a for a in range(F32_BLOCK_ATOMS[direction], 7, -8)
+                    if fits(a, rows)), 0)
+        if fit:
+            A = block_atoms(N, fit)
+            return A, tile_rows(rows, A * A)
+    raise ValueError(f"egcl_allpairs {direction}: no f32 atom block with "
+                     "streamed weights fits")
+
+
 def _check_fits(code: int, dims, direction: str) -> str:
     """The route of a launch (:func:`route_for`); raises for a width past
     256 or a molecule past every route."""
     B, N, nf, H = dims
-    if kernel_for(code, H, direction) == "wide":
-        return "wide"
+    route = kernel_for(code, H, direction)
+    if route in ("wide", "f32_wide"):
+        return route
     return route_for(N, nf, H, code, direction,
                      largest_molecule(code, nf, H, direction))
 
@@ -640,7 +622,7 @@ def _raise_on(lib, err: int, what: str, dims, route):
                              "wide": "egcl_sm90_error_string",
                              "f32": "egcl_f32_error_string",
                              "f32_blocks": "egcl_f32_error_string",
-                             "chunked": "egcl_allpairs_error_string"}[route])
+                             "f32_wide": "egcl_f32_error_string"}[route])
         raise RuntimeError(f"egcl_allpairs {what} kernel launch failed: "
                            f"{text(err).decode()} (error {err}; B, N, nf, H "
                            f"= {dims}; route {route})")
@@ -648,15 +630,15 @@ def _raise_on(lib, err: int, what: str, dims, route):
 
 def _count(direction: str, H: int, route: str):
     """One launch of the caller's hidden width ``H`` on its route's
-    counter: the chunked kernels' (the size rule's) own, the tiled f32
-    input-gradient K2's own, each kind of block-pair kernels' own; a launch
-    at a padded width also on ``padded_launches``."""
+    counter: the tiled f32 input-gradient K2's own, each kind of
+    block-pair kernels' own; a launch at a padded width also on
+    ``padded_launches``."""
     name = {"fwd": "fwd", "bwd": "bwd", "bwd_params": "bwd_param"}[direction]
     if route == "f32" and direction == "bwd":
         name = "bwd_f32"
-    if route in ("blocks", "f32_blocks", "wide"):
+    if route in ("blocks", "f32_blocks", "wide", "f32_wide"):
         name += "_" + route
-    name += "_h_rule_launches" if route == "chunked" else "_launches"
+    name += "_launches"
     setattr(counts, name, getattr(counts, name) + 1)
     if padded_width(H) != H:
         counts.padded_launches += 1
@@ -674,12 +656,13 @@ def _blocks_launch_plan(lib, N: int, nf: int, H: int, direction: str):
 
 
 def _f32_blocks_launch_plan(lib, N: int, nf: int, H: int, direction: str):
-    """:func:`f32_blocks_plan` against the card's shared memory, once per
-    size."""
+    """:func:`f32_blocks_plan` (at 192 and 256 :func:`f32_wide_plan`)
+    against the card's shared memory, once per size."""
     key = (id(lib), "f32_blocks", N, nf, H, direction)
     if key not in _plans:
         kind, limit = _KIND[direction], lib.egcl_f32_smem_limit()
-        _plans[key] = f32_blocks_plan(N, direction, lambda A, R: 0 <= (
+        plan = f32_wide_plan if H in WIDE_H else f32_blocks_plan
+        _plans[key] = plan(N, direction, lambda A, R: 0 <= (
             lib.egcl_f32_blocks_smem_bytes(A, nf, H, R, kind)) <= limit)
     return _plans[key]
 
@@ -696,10 +679,11 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
     code = _DTYPE_CODE[h.dtype]
     rule = _check_fits(code, (*h.shape, H), direction)
     if route is not None:
-        if route != "blocks" or rule == "chunked":
+        if route != "blocks":
             raise ValueError(f"egcl_allpairs: route {route!r} does not take "
                              f"{h.dtype} at H={H}")
-        rule = "wide" if rule == "wide" else "blocks" if code else "f32_blocks"
+        if rule not in ("wide", "f32_wide"):
+            rule = "blocks" if code else "f32_blocks"
     Hp = padded_width(H)
     if Hp != H:
         weights = pad_weights(weights, Hp)
@@ -722,11 +706,12 @@ def _run(direction: str, route: str, h, pos, box, mask_f, weights, dagg,
     B, N, nf = h.shape
     H = weights[4].shape[1]
     cdt = h.dtype
-    code = _DTYPE_CODE[cdt]
     dims = (B, N, nf, H)
     lib = {"sm90": _sm90_library, "blocks": _sm90_library,
            "wide": _sm90_library, "f32": _f32_library,
-           "f32_blocks": _f32_library, "chunked": _library}[route]()
+           "f32_blocks": _f32_library, "f32_wide": _f32_library}[route]()
+    # the f32 block-pair kernels take both routes, at their own widths
+    pairs = route in ("f32_blocks", "f32_wide")
     # the kernels read the weights (and dagg) 8 or 16 bytes at a time
     aligned = lambda t: t if t.data_ptr() % 16 == 0 else t.clone()
     ins = [aligned(t) for t in (h, pos, box, mask_f, *weights)]
@@ -739,7 +724,7 @@ def _run(direction: str, route: str, h, pos, box, mask_f, weights, dagg,
     if route in ("blocks", "wide"):
         A, nwg = _blocks_launch_plan(lib, N, nf, H, direction)
         plan = (A, nwg, blocks)
-    if route == "f32_blocks":
+    if pairs:
         A, rows = _f32_blocks_launch_plan(lib, N, nf, H, direction)
         plan = (A, rows, blocks)
     if direction == "fwd":
@@ -751,12 +736,10 @@ def _run(direction: str, route: str, h, pos, box, mask_f, weights, dagg,
                 err = lib.egcl_sm90_fwd(*dims, blocks, *ptrs, *outs)
             elif route in ("blocks", "wide"):
                 err = lib.egcl_sm90_blocks_fwd(*dims, *plan, *ptrs, *outs)
-            elif route == "f32_blocks":
+            elif pairs:
                 err = lib.egcl_f32_blocks_fwd(*dims, *plan, *ptrs, *outs)
-            elif route == "f32":
-                err = lib.egcl_f32_fwd(*dims, mt, rows, blocks, *ptrs, *outs)
             else:
-                err = lib.egcl_allpairs_fwd(code, *dims, *ptrs, *outs)
+                err = lib.egcl_f32_fwd(*dims, mt, rows, blocks, *ptrs, *outs)
             _raise_on(lib, err, "forward", dims, route)
         return agg, fsum
     dagg = aligned(dagg.to(cdt).contiguous())
@@ -771,7 +754,7 @@ def _run(direction: str, route: str, h, pos, box, mask_f, weights, dagg,
         pj = torch.empty((B, math.ceil(N / A), N, H + 4),
                          dtype=torch.float32, device=h.device)
         outs += [si.data_ptr(), pj.data_ptr()]
-    if route == "f32_blocks":
+    if pairs:
         # the f32 block-pair backward's i-side sums and j-side partials
         # (rows of nf + 3), every element written by the kernel
         si = torch.empty((B, N, nf + 3), dtype=torch.float32,
@@ -786,14 +769,12 @@ def _run(direction: str, route: str, h, pos, box, mask_f, weights, dagg,
             elif route in ("blocks", "wide"):
                 err = lib.egcl_sm90_blocks_bwd(*dims, *plan, *ptrs, *outs,
                                                stream)
-            elif route == "f32_blocks":
+            elif pairs:
                 err = lib.egcl_f32_blocks_bwd(*dims, *plan, *ptrs, *outs,
                                               stream)
-            elif route == "f32":
+            else:
                 err = lib.egcl_f32_bwd(*dims, mt, rows, blocks, *ptrs, *outs,
                                        stream)
-            else:
-                err = lib.egcl_allpairs_bwd(code, *dims, *ptrs, *outs, stream)
             _raise_on(lib, err, "backward", dims, route)
         return dh, dpos
     # rows of partials that the kernel fills itself: one per warpgroup (the
@@ -807,7 +788,7 @@ def _run(direction: str, route: str, h, pos, box, mask_f, weights, dagg,
                       lib.egcl_sm90_blocks_param_slices(B, N, A, nwg, blocks))
         part = torch.empty((slices, lib.egcl_sm90_slice_floats(nf, H)),
                            dtype=torch.float32, device=h.device)
-    elif route == "f32_blocks":
+    elif pairs:
         part = torch.empty((min(B * math.ceil(N / A), blocks), P),
                            dtype=torch.float32, device=h.device)
     else:
@@ -820,15 +801,12 @@ def _run(direction: str, route: str, h, pos, box, mask_f, weights, dagg,
         elif route in ("blocks", "wide"):
             err = lib.egcl_sm90_blocks_bwd_params(*dims, *plan, *ptrs, *outs,
                                                   part.data_ptr(), stream)
-        elif route == "f32_blocks":
+        elif pairs:
             err = lib.egcl_f32_blocks_bwd_params(*dims, *plan, *ptrs, *outs,
                                                  part.data_ptr(), stream)
-        elif route == "f32":
+        else:
             err = lib.egcl_f32_bwd_params(*dims, mt, rows, blocks, *ptrs,
                                           *outs, part.data_ptr(), stream)
-        else:
-            err = lib.egcl_allpairs_bwd_params(code, *dims, blocks, *ptrs,
-                                               *outs, part.data_ptr(), stream)
         _raise_on(lib, err, "backward (parameter gradients)", dims, route)
     # the slices summed in a fixed order: a second launch gives the same bits
     return (dh, dpos) + _split_part(part[:, :P].sum(dim=0), nf, H)
@@ -836,8 +814,8 @@ def _run(direction: str, route: str, h, pos, box, mask_f, weights, dagg,
 
 def allpairs_edges_blocks(direction: str, h, pos, box, mask_f, weights,
                           dagg=None, dfsum=None):
-    """One launch of the block-pair kernels of the dtype (bf16 Hopper, with
-    streamed weights at 192 and 256, or f32; ``direction`` ``"fwd"``,
+    """One launch of the block-pair kernels of the dtype (bf16 Hopper or
+    f32, with streamed weights at 192 and 256; ``direction`` ``"fwd"``,
     ``"bwd"`` or ``"bwd_params"``) at any N,
     also where the route rule sends the molecule to the one-molecule
     kernels: what the two schedules cost where both take a molecule. CUDA

@@ -293,24 +293,17 @@ def test_route_rule(code, direction):
 def test_route_rule_other_widths_refuse(code):
     """Other widths run at the padded width (``ops.padded_width``): H = 96
     on the routes of 128 (the dtype's one-molecule kernels up to their
-    limit, its block pairs past it), bf16 at 128 < H <= 256 on ``"wide"``
-    at every N. Only float32 at 128 < H <= 256 goes to the chunked
-    kernels, which have no block-pair route: past their limit they refuse,
-    naming the queue item that holds them. H > 256 is refused in either
-    dtype."""
+    limit, its block pairs past it), 128 < H <= 256 on the dtype's block
+    pairs with streamed weights at every N (``"wide"``, bf16;
+    ``"f32_wide"``, float32). Only H > 256 is refused, in either dtype,
+    naming the queue item that holds it."""
     one, blk = ("sm90", "blocks") if code == 1 else ("f32", "f32_blocks")
+    wide = "wide" if code == 1 else "f32_wide"
     assert ops.route_for(40, 5, 96, code, "bwd", 40) == one
     assert ops.route_for(41, 5, 96, code, "bwd", 40) == blk
     for H in (160, 192, 256):
-        if code == 1:
-            assert ops.route_for(41, 5, H, code, "bwd", 40) == "wide"
-            continue
-        assert ops.route_for(40, 5, H, code, "bwd", 40) == "chunked"
-        with pytest.raises(ValueError, match="B7") as e:
-            ops.route_for(41, 5, H, code, "bwd", 40)
-        msg = str(e.value)
-        assert "N <= 40" in msg and "shared memory" in msg
-        assert ops.LARGE_N_ITEM in msg
+        for N in (40, 41, 5000):
+            assert ops.route_for(N, 5, H, code, "bwd", 40) == wide
     with pytest.raises(ValueError, match="B7") as e:
         ops.route_for(2, 5, 320, code, "bwd", 40)
     assert ops.WIDE_ITEM in str(e.value)

@@ -82,12 +82,13 @@ def f32_bwd(h, pos, box, mask_f, W, dagg, dfsum, fit=None):
 
 def test_size_rule_sends_f32_bwd_to_the_tiled_kernel():
     """float32 input gradients at H = 64 / 128 go to the tiled f32 kernel,
-    and H = 96 too, zero-padded to 128; only the widths that pad to 192 or
-    256 stay on the chunked one (its own launch counters)."""
+    and H = 96 too, zero-padded to 128; the widths that pad to 192 or 256
+    go to the f32 block pairs with streamed weights (``"f32_wide"``, their
+    own launch counters)."""
     assert ops.kernel_for(0, 128, "bwd") == "f32"
     assert ops.kernel_for(0, 64, "bwd") == "f32"
     assert ops.kernel_for(0, 96, "bwd") == "f32"
-    assert ops.kernel_for(0, 160, "bwd") == "chunked"
+    assert ops.kernel_for(0, 160, "bwd") == "f32_wide"
     assert ops.kernel_for(1, 128, "bwd") == "sm90"
 
 

@@ -310,8 +310,7 @@ def test_plan_at_the_committed_shapes():
 def test_size_rule():
     """float32 at H = 64 / 128: the tiled kernels for K1, K2 and K2 p;
     bf16 there the Hopper kernels; H = 96 the same on the padded width
-    128; at 192 / 256 bf16 the block pairs with streamed weights and
-    float32 the chunked kernels."""
+    128; at 192 / 256 each dtype's block pairs with streamed weights."""
     for H_ in (64, 128):
         assert [ops.kernel_for(0, H_, d) for d in ("fwd", "bwd",
                                                     "bwd_params")] == [
@@ -322,7 +321,7 @@ def test_size_rule():
             for c in (0, 1)] == [{"f32"}, {"sm90"}]
     assert [{ops.kernel_for(c, H_, d) for H_ in (160, 192, 256)
              for d in ("fwd", "bwd", "bwd_params")}
-            for c in (0, 1)] == [{"chunked"}, {"wide"}]
+            for c in (0, 1)] == [{"f32_wide"}, {"wide"}]
 
 
 @pytest.mark.parametrize("fit", FITS)

@@ -29,9 +29,9 @@ slabs in shared memory (route ``"wide"``). Here, on the CPU:
   192 and 256 fits in 232,448 bytes in every direction, and at H = 128 it
   gives the plan the card's library gives.
 
-The route rules (every bf16 width up to 256 and every f32 width up to 128
-taken; f32 at 192 / 256 and H > 256 refused, naming ROADMAP B7) are
-checked too. The kernels themselves run on the card only
+The route rules (every width up to 256 taken in both dtypes; H > 256
+refused, naming ROADMAP B7) are checked too (f32 at 192 / 256 in
+``test_torch_port_egcl_f32_wide.py``). The kernels themselves run on the card only
 (``chip_smoke.py``, phases kernel and wide). Inputs are made with numpy
 from a seed: ragged masks, a molecule with one real atom and one with none.
 """
@@ -183,7 +183,7 @@ def test_plain_bwd_terms_bound_the_sums(H):
 
 
 @pytest.mark.parametrize("code,H,route", [
-    (0, 96, "f32"), (0, 100, "f32"), (0, 40, "f32"), (0, 160, "chunked"),
+    (0, 96, "f32"), (0, 100, "f32"), (0, 40, "f32"), (0, 160, "f32_wide"),
     (1, 96, "sm90"), (1, 100, "sm90"), (1, 160, "wide"), (1, 200, "wide"),
     (1, 192, "wide"), (0, 128, "f32")])
 def test_wrapper_pads_launches_and_cuts_back(monkeypatch, code, H, route):
@@ -234,7 +234,7 @@ def test_wrapper_pads_launches_and_cuts_back(monkeypatch, code, H, route):
         _close(g, w, 1e-5)
     assert got[0].is_contiguous() and got[0].shape[-1] == H
     suffix = {"f32": "", "sm90": "", "wide": "_wide",
-              "chunked": "_h_rule"}[route]
+              "f32_wide": "_f32_wide"}[route]
     names = ["fwd", "bwd_f32" if route == "f32" else "bwd", "bwd_param"]
     c = {k: v for k, v in vars(ops.counts).items()
          if not k.startswith("_") and v}
