@@ -5,13 +5,21 @@ repository root (``--match``: only the mutants whose name holds TEXT, and
 each group's control)
 (groups: ``egcl_allpairs``, ``egcl_params``, ``egcl_blocks``,
 ``egcl_wide``, ``egcl_f32``, ``egcl_blocks_f32``, ``egcl_f32_wide``,
-``edge_pipeline``, ``edge_pipeline_sm90``, ``pair_energy``; all by
-default; ``edge_pipeline`` is the tiled f32 K5/K6 and the chunked
-kernels, read at the shapes of chip_smoke.py's phase edge that run them;
+``edge_pipeline``, ``edge_pipeline_sm90``, ``edge_wide``,
+``pair_energy``; all by default; ``edge_pipeline`` is the tiled f32
+K5/K6 at H = 64 and 128, read at the shapes of chip_smoke.py's phase edge
+that run them;
 ``edge_pipeline_sm90`` is the bf16 Hopper K5/K6, read at its bf16 shapes,
 the outputs against TOL_EDGE and the parameter gradients' f32 sums
 against TOL_PARAM, among them its shapes of 17 and 33 edge features (e W1
-in two and three k16 steps); ``egcl_allpairs`` is the
+in two and three k16 steps); ``edge_wide`` is the K5/K6 of both files at
+H = 192 and 256 with W2 and W3 streamed through a ring of slabs (and the
+padded 96 and 160), read at chip_smoke.py's phase edge_wide shapes
+(EDGE_WIDTHS x EDGE_WIDE_SHAPES, each shape at its ``widths``) over two
+input seeds and over one of
+them again beside a stream of 1 GiB copies: bf16 per element as
+``edge_step_errs`` reads it, f32 against TOL_EDGE / TOL_PARAM; a mutant of
+one file is read in that file's dtype only; ``egcl_allpairs`` is the
 bf16 Hopper K1 and K2 of ``egcl_allpairs_sm90.cu``, read at chip_smoke.py's
 main, ragged and large shapes; ``egcl_params`` is its bf16
 parameter-gradient variant in the same file, read at the vi, ico, ragged
@@ -47,6 +55,7 @@ output reads as infinite). Each group's unmutated source runs first as the
 control. The checkout itself is never modified.
 """
 
+import os
 import shutil
 import subprocess
 import sys
@@ -240,8 +249,53 @@ MUTANTS = {
             "*reinterpret_cast<float4*>(dW + k * H + n) =",
             "*reinterpret_cast<float4*>(dW + k * H + (n + 64) % H) ="),
     },
-    # the tiled kernels (H = 64, 128, f32), which every f32 shape but h96
-    # runs
+    # K5/K6 at H = 192 and 256 (each mutant names the file it edits)
+    "edge_wide": {
+        "control": None,
+        "f32: wrong slab index (the next slab's k)": {"edge_pipeline": (
+            "const int prod = (s / G) % rg.nprod, g = s % G;",
+            "const int prod = (s / G) % rg.nprod, g = (s + 1) % G;")},
+        "f32: a ring of one slot (the next slab copied over the one in "
+        "use)": {"edge_pipeline": (
+            "__device__ __forceinline__ int slot_of(int s) { return s % kRing; }",
+            "__device__ __forceinline__ int slot_of(int s) { return 0; }")},
+        "f32: W2^T's slabs taken from W3": {"edge_pipeline": (
+            "const float* W = prod == 0 || prod == 3 ? rg.W2 : rg.W3;",
+            "const float* W = prod == 0 ? rg.W2 : rg.W3;")},
+        "f32: a dW partial written to the next slab's columns": {
+            "edge_pipeline": (
+                "*reinterpret_cast<float4*>(dW + k * H + n) =",
+                "*reinterpret_cast<float4*>(dW + k * H + (n + 64) % H) =")},
+        "f32: a skipped wait (the slab used before its copies have "
+        "landed)": {"edge_pipeline": (
+            "  cp_async_wait<kRing - 2>();\n  __syncthreads();\n"
+            "  issue_slab<H>(rg, rg.s + kRing - 1);",
+            "  __syncthreads();\n  issue_slab<H>(rg, rg.s + kRing - 1);")},
+        "bf16: wrong slab index (the next slab of the stream)": {
+            "edge_pipeline_sm90": (
+                "const Slab sl = slab_of<H>(x % rg.per);",
+                "const Slab sl = slab_of<H>((x + 1) % rg.per);")},
+        "bf16: a ring of one slot (the next slab copied over the one in "
+        "use)": {"edge_pipeline_sm90": [
+            ("(char*)rg.slots + (size_t)(x % kRing) *",
+             "(char*)rg.slots + (size_t)0 *"),
+            ("at[k] = smem_addr(rg.slots) + ((rg.s + k) % kRing) * kSlot;",
+             "at[k] = smem_addr(rg.slots);")]},
+        "bf16: W2^T's slabs taken from W3": {"edge_pipeline_sm90": (
+            "return Slab{false, true, j - 5 * G};",
+            "return Slab{true, true, j - 5 * G};")},
+        "bf16: a dW1 partial written to the next slab's columns": {
+            "edge_pipeline_sm90": (
+                "float* p = dW1 + c * H + h;",
+                "float* p = dW1 + c * H + (h + 64) % H;")},
+        "bf16: a skipped wait (the slab used before its copies have "
+        "landed)": {"edge_pipeline_sm90": (
+            "  cp_async_wait<0>();\n  wg_publish(wg);\n"
+            "  if (rg.issued < rg.s + n) {",
+            "  wg_publish(wg);\n  if (rg.issued < rg.s + n) {")},
+    },
+    # the tiled kernels (H = 64, 128, f32), which every f32 shape of phase
+    # edge runs (h96 zero-padded to 128)
     "edge_pipeline": {
         "control": None,
         "K5: the K-sums drop each atom's last row of a tile": (
@@ -294,7 +348,7 @@ MUTANTS = {
             "          const float2 b = make_float2(0.f, 0.f);\n"
             "          const float2 da"),
         "a warpgroup's first tile added into its unwritten slice": (
-            "part, i == 0, dw1);", "part, false, dw1);"),
+            "part, i == 0, dw1, rg);", "part, false, dw1, rg);"),
         "a prefetched tile from the wrong rows (the current ones again)": (
             "walk(a, g, S, i + 1),", "walk(a, g, S, i),"),
         "W2's rows swapped in pairs on load": (
@@ -553,6 +607,65 @@ for sname, shape in (("dw4", cs.DW4), ("ala2", cs.ALA2),
                        k, p)
     report(f"{sname} float32", errs, cs.TOL["float32"])
 """,
+    "edge_wide": HEAD + """
+import os
+from enflow_tpu_torch.ops import build
+from enflow_tpu_torch.ops import edge_pipeline as ep
+dnames = os.environ["EDGE_WIDE_DTYPES"].split(",")
+build.build_all([{"float32": "edge_pipeline",
+                  "bfloat16": "edge_pipeline_sm90"}[d] for d in dnames])
+big = torch.empty(2 ** 28, device="cuda")
+dst = torch.empty_like(big)
+side = torch.cuda.Stream()
+def stress():
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(40):
+            dst.copy_(big)
+for H in cs.EDGE_WIDTHS:
+    for sname, base in cs.EDGE_WIDE_SHAPES.items():
+        if H not in base.get("widths", (H,)):
+            continue
+        shape = dict(base, H=H)
+        for dname in dnames:
+            if dname not in shape.get("dtypes", (dname,)):
+                continue
+            dt = getattr(torch, dname)
+            fwd_only = shape.get("fwd_only", False)
+            for seed, loaded in ((61, False), (62, False), (61, True)):
+                e, cd, em, W, dagg, dfs, _ = cs.gathered_inputs(shape, dt,
+                                                                seed)
+                if loaded:
+                    stress()
+                k = ep.edge_pipeline_fwd(e, cd, em, W)
+                p = ep.edge_pipeline_plain(e, cd, em, *W)
+                if not fwd_only:
+                    k = k + ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs)
+                    p = p + ep.edge_pipeline_plain_bwd(e, cd, em, *W, dagg,
+                                                       dfs)
+                torch.cuda.synchronize()
+                names = cs.EDGE_OUT[:len(k)]
+                label = (f"H={H} {sname} {dname} seed {seed}"
+                         + (" beside a copy stream" if loaded else ""))
+                if dname == "bfloat16":
+                    errs = cs.edge_step_errs(names, k, p, None if fwd_only
+                                             else cs.edge_wide_terms(
+                                                 e, cd, em, W, dagg, dfs))
+                    print(f"  {label}: " + cs.steps_text(errs) + " -> "
+                          + ("passes" if cs.steps_ok(errs) else "caught"),
+                          flush=True)
+                else:
+                    errs = cs.rel_errs(names, k, p)
+                    report(f"{label} agg, F_sum, de, dcd",
+                           {n: errs[n] for n in names[:4]},
+                           cs.TOL_EDGE[dname])
+                    if not fwd_only:
+                        report(f"{label} parameter gradients (f32 sums)",
+                               {n: errs[n] for n in names[4:]},
+                               cs.TOL_PARAM[dname])
+                del e, cd, em, W, dagg, dfs, k, p
+                torch.cuda.empty_cache()
+""",
     "edge_pipeline": EDGE_READ.replace("HOPPER", "False"),
     "edge_pipeline_sm90": EDGE_READ.replace("HOPPER", "True"),
     "pair_energy": HEAD + """
@@ -587,30 +700,40 @@ def main():
                   "egcl_f32": "egcl_allpairs_f32",
                   "egcl_blocks_f32": "egcl_allpairs_f32",
                   "egcl_f32_wide": "egcl_allpairs_f32"}.get(group, group)
-        src_rel = f"enflow_tpu_torch/csrc/{source}.cu"
         for name, edit in MUTANTS[group].items():
             if match and edit is not None and match not in name:
                 continue
+            # an edit names its file where the group spans two (edge_wide)
+            edits = (edit if isinstance(edit, dict) else
+                     {} if edit is None else {source: edit})
             with tempfile.TemporaryDirectory() as tmp:
                 shutil.copytree(ROOT / "enflow_tpu_torch",
                                 Path(tmp) / "enflow_tpu_torch",
                                 ignore=shutil.ignore_patterns("_build",
                                                               "__pycache__"))
                 shutil.copy(ROOT / "chip_smoke.py", tmp)
-                src = Path(tmp) / src_rel
-                text = src.read_text()
-                for old, new, *times in ([] if edit is None else
-                                         [edit] if isinstance(edit, tuple)
-                                         else edit):
-                    if text.count(old) != (times[0] if times else 1):
-                        raise RuntimeError(f"mutant '{name}': its text is "
-                                           f"not in {src_rel} as often as "
-                                           f"expected")
-                    text = text.replace(old, new)
-                src.write_text(text)
+                for src_name, ed in edits.items():
+                    src_rel = f"enflow_tpu_torch/csrc/{src_name}.cu"
+                    src = Path(tmp) / src_rel
+                    text = src.read_text()
+                    for old, new, *times in ([] if ed is None else
+                                             [ed] if isinstance(ed, tuple)
+                                             else ed):
+                        if text.count(old) != (times[0] if times else 1):
+                            raise RuntimeError(
+                                f"mutant '{name}': its text is not in "
+                                f"{src_rel} as often as expected")
+                        text = text.replace(old, new)
+                    src.write_text(text)
+                # edge_wide: a mutant is read in its file's dtype only
+                dtypes = ",".join(
+                    {"edge_pipeline": "float32",
+                     "edge_pipeline_sm90": "bfloat16"}.get(k, "")
+                    for k in edits) if edit else "float32,bfloat16"
                 print(f"[mutant] {group}: {name}", flush=True)
                 subprocess.run([sys.executable, "-c", READ[group]], cwd=tmp,
-                               check=True)
+                               check=True, env=dict(
+                                   os.environ, EDGE_WIDE_DTYPES=dtypes))
     return 0
 
 

@@ -235,8 +235,8 @@ non-zero):
    ``nbr_overflow`` column included, one integer a stage summing above 0,
    the truncation warning printed), at PROBE_FULL (= N - 1) a column of
    zeros; every run 5 x (1 + 51 + 10) bf16 K5 and 5 x 51 K6, every one
-   on the Hopper kernels (edge_pipeline_sm90.cu's counters; none on the
-   tiled or chunked kernels), no plain call, every output on the card.
+   on the Hopper kernels (edge_pipeline_sm90.cu's counters; none on any
+   other route), no plain call, every output on the card.
    Then ``remc_lj13.yaml`` with the same override cut to PROBE_REMC
    rounds, monolithic and in segments of PROBE_REMC_CHUNK (bitwise equal,
    one probe entry a round, the total on the CSV's last row; every K5/K6
@@ -270,7 +270,7 @@ non-zero):
    the auto capacity phase 10 observed, C=3, H=128), a ragged one
    (A=1000, K=40, C=11, masked slots and atoms), one whose gate hits the
    clip bounds exactly, one whose row tiles end in padding (K=13), and at
-   H=64 and H=96 (the chunked kernels, by the wrapper's size rule), each
+   H=64 and H=96 (zero-padded to 128 by the wrapper's size rule), each
    in bf16 and f32, in bf16 at K=12 (5 atoms a Hopper tile) and K=80
    (atoms spanning two tiles), in f32 at generate.yaml's shape (A=2,944,
    K = phase generate's auto capacity, C=3, H=128, the share of valid
@@ -288,6 +288,27 @@ non-zero):
    mode (capacity PROBE_FULL) 1 x EDGE_NF8_STEPS steps, then top-k
    ``sample_lj13.yaml`` from its checkpoint, every K5/K6 on the Hopper
    kernels, no plain call.
+11b. edge_wide (after edge) — the gathered-edge K5/K6 at 128 < H <= 256
+   (W2 and W3 streamed through a ring of slabs: bf16 route ``"wide"`` of
+   edge_pipeline_sm90.cu, f32 route ``"f32_wide"`` of edge_pipeline.cu)
+   and zero-padded at other widths: (a) ``example/train.yaml`` with
+   ``network.hidden_nf: 256`` and nothing else changed through the port's
+   driver (its dataset, 2 epochs, then 1 resumed epoch): exactly 5 K5 + 5
+   K6 a step on ``f32_wide``, 0 on any other route, no plain call, finite
+   losses, a checkpoint; (b) top-k ``vi_lj13.yaml`` (capacity PROBE_FULL)
+   at ``hidden_nf: 256``, 1 x EDGE_WIDE_VI_STEPS steps, then top-k
+   ``sample_lj13.yaml`` from its checkpoint, every K5/K6 on ``wide``,
+   beta 1, finite log_Z; (c) ``train.yaml`` at ``hidden_nf: 96`` for one
+   epoch on ``tiled`` and ``padded``; (d) K5/K6 at H = 192, 256, 96 and
+   160 at EDGE_WIDE_SHAPES (the training shape, the top-k sampler's in
+   bf16 and, at 192 and 256, that of (b)'s SMC run, K = 12;
+   generate.yaml's forward in f32, a small batch) against the plain
+   version, bf16 read per element (``step_errs``), f32 to TOL_EDGE /
+   TOL_PARAM, a second launch bitwise equal, timed (CUDA events, device
+   time) beside the bound; the most edge features C each width takes;
+   ``edge_round_witness`` at EDGE_WITNESS (20 repeats bitwise equal); the
+   plain version at the kernels line's shapes, the padded route's cost
+   against H=128 and each driver run's kernel share.
 
 ``python3 chip_smoke.py --ab OLD.cu [OLD.cu ...]`` runs phases 1-2 and then times the
 kernels built from OLD.cu against the current ones, alternating old,
@@ -298,18 +319,18 @@ params phases' shapes and at each direction's largest molecule, and,
 where the earlier source has them, the block-pair kernels at H = 128
 (N = 147 and 60) and 64 (N = 100) in every direction, then K1/K2 at the
 main-path shape and the SMC run of phase 7. For an earlier
-edge_pipeline.cu (e.g. ``git show
-6a2a2b7:enflow_tpu_torch/csrc/edge_pipeline.cu``): K5/K6 in f32 at the
-training and ragged shapes and in bf16 at the top-k sampler's shape
-(CUDA events and device time; an old turn's bf16 on that source's tiled
-kernels, a new turn's on the Hopper kernels), one train.yaml epoch and
-one top-k sample_lj13.yaml run. For an earlier egcl_allpairs_f32.cu: its
+edge_pipeline.cu with the tiled entry points (e.g. ``git show
+HEAD~1:enflow_tpu_torch/csrc/edge_pipeline.cu``): f32 K5/K6 held to the
+same bits at every EDGE_SHAPES shape of H = 64 or 128, then timed in
+turns at the training and ragged shapes (CUDA events and device time)
+with one train.yaml epoch each. For an earlier egcl_allpairs_f32.cu: its
 one-molecule f32 K1, K2 and K2 p held to the same bits as the current
 ones (main, ragged, VI, DW4, ala2 and each largest molecule), and, where
 the earlier source has them, its f32 block-pair kernels at H = 128 (N =
-147 and 75) and 64 (N = 100) in every direction, then timed in turns. For an earlier edge_pipeline_sm90.cu: bf16 K5/K6 held to the
-same bits at every EDGE_SHAPES shape of C <= 16, then timed in turns at
-the sampler's shape.
+147 and 75) and 64 (N = 100) in every direction, then timed in turns.
+For an earlier edge_pipeline_sm90.cu with these entry points: bf16
+K5/K6 held to the same bits at every EDGE_SHAPES shape of H = 64 or 128,
+then timed in turns at the sampler's shape.
 
 ``python3 chip_smoke.py --blocks-plans`` runs phases 1-2 and then times
 the bf16 block-pair kernels at LJ147 (K1 and K2 p at B=256, K2 at
@@ -326,7 +347,11 @@ minutes; it fails if a trace with the margins lost half the launches.
 
 ``python3 chip_smoke.py --edge-seeds FIRST LAST`` runs phases 1-2 and then
 holds the bf16 Hopper K5/K6 against their plain version at EDGE_SHAPES
-for input seeds FIRST..LAST and prints every reading;
+for input seeds FIRST..LAST and prints every reading, then phase
+edge_wide's per-element readings (``edge_step_errs``; F_sum and dcd also
+at STEP_FLOOR) at EDGE_WIDTHS and H=128 x EDGE_WIDE_SHAPES, each with a
+second launch bitwise equal, and ``edge_round_witness`` of every case
+over its limits;
 ``--allpairs-seeds FIRST LAST`` does the same for the bf16 all-pairs K1,
 K2 and K2 p at SWEEP_SHAPES and H = 64, 96, 128, 160, 192 and 256, read
 per element (``step_errs``) and as TOL / TOL_PARAM read them.
@@ -716,24 +741,6 @@ def launched():
             if not k.startswith("_") and v}
 
 
-def edge_chunked_limits():
-    """{"dtype H=.. direction": the most edge features C} that the
-    gathered-edge chunked kernels (H outside 64 and 128) take at one atom
-    a tile in the card's shared memory (ROADMAP B7)."""
-    from enflow_tpu_torch.ops import edge_pipeline as ep
-    lib = ep._library()
-    limit = lib.edge_pipeline_smem_limit()
-    out = {}
-    for code, dname in ((1, "bf16"), (0, "f32")):
-        for H in (96, 192, 256):
-            for bwd, d in ((0, "fwd"), (1, "bwd")):
-                out[f"{dname} H={H} {d}"] = max(
-                    (C for C in range(1, 1025)
-                     if 0 <= lib.edge_pipeline_smem_bytes(code, C, H, 1, bwd)
-                     <= limit), default=0)
-    return out
-
-
 def width_checks():
     """The all-pairs EGCL at other hidden widths: bf16 K1, K2 and K2 p at
     each H of WIDTH_HS and N of WIDTH_NS, and f32 at H=96, N=147, each one
@@ -1044,9 +1051,6 @@ def kernel_phase():
             f"bf16 limits below 70 / 55 / 55 (vi_lj55.yaml): {largest}")
     phase("kernel", "largest N at nf=5, H=128: " + ", ".join(
         f"{k} {v}" for k, v in largest.items()))
-    phase("kernel", "the gathered-edge K5/K6 at other widths (the "
-          "chunked kernels), largest C at one atom a tile: " + ", ".join(
-              f"{k} {v}" for k, v in edge_chunked_limits().items()))
     width_checks()
     blocks_kernel_checks(largest)
     f32_errs = f32_blocks_checks()
@@ -1373,8 +1377,8 @@ def bound(flop, nbytes, peak):
 # rows (K = 13: 6 atoms a tile, 78 rows; 4 atoms, 52 of 64 rows, on the
 # bf16 Hopper kernels), K = 12 and K = 80 (bf16: the Hopper kernels' tiles
 # of 5 whole atoms and atoms spanning tiles), and the tiled (f32) and
-# Hopper (bf16) kernels at H = 64 and, by the wrapper's size rule, the
-# chunked ones at H = 96. These are checked, not timed.
+# Hopper (bf16) kernels at H = 64 and, zero-padded to 128 by the wrapper's
+# size rule, at H = 96. These are checked, not timed.
 EDGE_SHAPES = {
     "main": dict(A=390, K=24, C=3, H=128, masked=0.2),
     # phase probe's top-k SMC: 2048 particles x 13 atoms, K = 8 of 12
@@ -1628,9 +1632,8 @@ def edge_nf8_path():
             got_vi, routes_vi = edge_launches(), edge_routes()
             n = vi.n_iter * EDGE_NF8_STEPS
             want = dict(k5=n, k6=n, allpairs=0, plain=0)
-            require(got_vi == want and routes_vi == dict(
-                sm90=(n, n), tiled=(0, 0), chunked=(0, 0)),
-                f"nf=8 VI launches {got_vi} by kernel {routes_vi}")
+            require(got_vi == want and routes_vi == route_counts("sm90", n, n),
+                    f"nf=8 VI launches {got_vi} by kernel {routes_vi}")
             require(len(losses) == EDGE_NF8_STEPS
                     and all(math.isfinite(x) for x in losses),
                     f"nf=8 VI losses {losses}")
@@ -1645,9 +1648,8 @@ def edge_nf8_path():
             n_vg = 1 + T * sec["mcmc_steps"] * sec["n_leapfrog"]
             want = dict(k5=smc.n_iter * (1 + n_vg + T),
                         k6=smc.n_iter * n_vg, allpairs=0, plain=0)
-            require(got == want and routes == dict(
-                sm90=(want["k5"], want["k6"]), tiled=(0, 0),
-                chunked=(0, 0)),
+            require(got == want and routes == route_counts(
+                "sm90", want["k5"], want["k6"]),
                 f"nf=8 SMC launches {got} by kernel {routes} != {want}")
             P = sec["n_particles"]
             check_smc(res, "nf=8 top-k SMC", P, 13)
@@ -1662,11 +1664,571 @@ def edge_nf8_path():
                   f"from its checkpoint: {P} particles x {T} temps "
                   f"{secs:.3f} s, log_Z {float(res.log_Z):.4f}, beta "
                   f"{float(res.beta_history[-1]):.6f}, K5/K6 "
-                  f"{routes['sm90']} (Hopper), tiled/chunked 0, plain 0")
+                  f"{routes['sm90']} (Hopper), other routes 0, plain 0")
             del vi, smc, res
     finally:
         os.chdir(cwd)
     return dict(vi=got_vi, smc=got)
+
+
+# Phase edge_wide: the gathered-edge K5/K6 at 128 < H <= 256 (routes "wide",
+# bf16, and "f32_wide", W2 / W3 streamed) and zero-padded at other widths.
+# (a) train.yaml and (b) the top-k LJ13 pair run at EDGE_WIDE_H, (c)
+# train.yaml at EDGE_PADDED_H; (d) each kernel against the plain version at
+# EDGE_WIDTHS and EDGE_WIDE_SHAPES: the training shape (its K the
+# capacity (a) saw), the top-k sampler's (K = 8 of LJ13's 12 neighbours),
+# the shape of (b)'s top-k SMC run ("topk": K = 12 = PROBE_FULL, 5 atoms
+# and 4 padded rows a 64-row bf16 tile where K = 8 fills a tile with 8
+# atoms; at the kernels' own widths, where (b) runs), generate.yaml's
+# forward (its K and valid share those phase generate saw) and a small
+# batch ("small": one atom a block, one 8-row f32 tile, 16 bf16 tiles),
+# where a slab's products are shortest and the next slab's copy is least
+# hidden. A shape's ``widths`` limits the widths it is read at.
+EDGE_WIDE_H = 256
+EDGE_PADDED_H = 96
+EDGE_WIDE_VI_STEPS = 3
+EDGE_WIDTHS = (192, 256, 96, 160)
+EDGE_WIDE_SHAPES = {
+    "train": dict(A=390, K=24, C=3, masked=0.2),
+    "sampler": dict(A=2048 * 13, K=8, C=11, masked=0.0,
+                    dtypes=("bfloat16",)),
+    "topk": dict(A=2048 * 13, K=12, C=11, masked=0.0, dtypes=("bfloat16",),
+                 widths=(192, 256)),
+    "generate": dict(A=2944, K=56, C=3, masked=0.5, dtypes=("float32",),
+                     fwd_only=True),
+    "small": dict(A=128, K=8, C=11, masked=0.2),
+}
+
+
+def route_counts(route, k5, k6, padded=False):
+    """``edge_routes()`` of a run whose K5/K6 all went to ``route`` (and,
+    ``padded``, all at a padded width)."""
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    out = {r: (0, 0) for r in ep.ROUTES + ("padded",)}
+    out[route] = (k5, k6)
+    if padded:
+        out["padded"] = (k5, k6)
+    return out
+
+
+def edge_c_limits():
+    """{"dtype H=.. direction": the most edge features C} that K5/K6 take
+    at H = 128 and each width of EDGE_WIDTHS, launched at its padded width,
+    from the libraries' size entry points: bf16 the Hopper kernels (a
+    block of one warpgroup fits), f32 the tiled kernels at 1 atom and 8
+    rows a tile (ROADMAP B7.3)."""
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    lib, slib = ep._library(), ep._sm90_library()
+    limit = lib.edge_pipeline_smem_limit()
+    out = {}
+    for H in (128,) + EDGE_WIDTHS:
+        Hp = ep.padded_width(H)
+        for bwd, d in ((0, "fwd"), (1, "bwd")):
+            out[f"bf16 H={H} {d}"] = max(
+                (C for C in range(1, slib.edge_sm90_c_max() + 1)
+                 if slib.edge_sm90_warpgroups(C, Hp, bwd) >= 1), default=0)
+            out[f"f32 H={H} {d}"] = max(
+                (C for C in range(1, 1025)
+                 if 0 <= lib.edge_tiled_smem_bytes(0, C, Hp, 1, 8, bwd)
+                 <= limit), default=0)
+    return out
+
+
+def edge_wide_train(card, H, epochs, resume, tmp, checkpoint):
+    """train.yaml at ``hidden_nf: H`` through the port's driver in ``tmp``
+    (the dataset simulated there on the first call, read back on later
+    ones): ``epochs`` epochs, then with ``resume`` 1 more that resumes
+    from the checkpoint. Every K5/K6 on the route the size rule names
+    (padded below 256 where H is not a kernel width), 5 + 5 a step, one K7
+    r2 a step, no plain call, finite losses. Returns s/step, the
+    launches, the capacity."""
+    import torch
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    net = dict(network=dict(hidden_nf=H), checkpoint_path=checkpoint)
+    main = config_driver(tmp, "train.yaml", over=dict(num_epochs=epochs),
+                         dynamics=net)
+    require(main.hidden_nf == H, f"hidden_nf {main.hidden_nf} != {H}")
+    cap = main.flow_cfg.nbr_capacity
+    reset_counts()
+    step_s, losses = timed_train(main)
+    got, routes = train_launches(), edge_routes()
+    n = len(step_s)
+    route = ep.kernel_for(torch.float32, H)
+    padded = ep.padded_width(H) != H
+    require(n == epochs * TRAIN_STEPS_PER_EPOCH and got == want_train(n)
+            and routes == route_counts(route, 5 * n, 5 * n, padded),
+            f"train.yaml H={H}: {n} steps, launches {got} by kernel "
+            f"{routes}")
+    require(all(math.isfinite(x) for x in losses),
+            f"non-finite train.yaml H={H} losses {losses}")
+    require(Path(checkpoint).exists(), f"no checkpoint {checkpoint}")
+    out = dict(step_s=step_s, losses=losses, launches=routes[route],
+               capacity=cap, route=route)
+    if resume:
+        again = config_driver(tmp, "train.yaml", over=dict(num_epochs=1),
+                              dynamics=net)
+        require(again.start_epoch == epochs, f"H={H} rerun did not resume "
+                f"at epoch {epochs} (start {again.start_epoch})")
+        reset_counts()
+        s2, l2 = timed_train(again)
+        routes2 = edge_routes()
+        n2 = len(s2)
+        require(n2 == TRAIN_STEPS_PER_EPOCH and routes2 == route_counts(
+            route, 5 * n2, 5 * n2, padded) and plain_calls() == 0
+            and all(math.isfinite(x) for x in l2),
+            f"train.yaml H={H} resumed epoch: {n2} steps, {routes2}, "
+            f"losses {l2}")
+        out.update(resumed=routes2[route], resumed_losses=l2)
+    return out
+
+
+def edge_wide_paths(card):
+    """Phase edge_wide's driver paths: (a) train.yaml at hidden_nf
+    EDGE_WIDE_H, 2 epochs then 1 resumed, on ``f32_wide``; (b) top-k
+    vi_lj13.yaml at EDGE_WIDE_H (capacity PROBE_FULL), 1 x
+    EDGE_WIDE_VI_STEPS steps, then top-k sample_lj13.yaml from its
+    checkpoint, on ``wide``; (c) train.yaml at EDGE_PADDED_H for 1 epoch
+    on ``tiled`` and ``padded``. Launches held exactly, no plain call,
+    finite losses, beta 1 and a finite log_Z, outputs on the card."""
+    import os
+    import torch
+
+    cwd = os.getcwd()
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            a = edge_wide_train(card, EDGE_WIDE_H, 2, True, tmp,
+                                "model_w.cpt")
+            out["train"] = a
+            later = a["step_s"][TRAIN_STEPS_PER_EPOCH:]
+            a["s_step"] = statistics.median(later)
+            phase("edge_wide", f"(a) train.yaml at hidden_nf {EDGE_WIDE_H} "
+                  f"on {card}: auto capacity {a['capacity']}, 2 epochs x "
+                  f"{TRAIN_STEPS_PER_EPOCH} steps, {a['s_step']:.5f} s/step "
+                  f"(median of epoch 2; first step {a['step_s'][0]:.4f} s), "
+                  f"losses " + ", ".join(f"{x:.2f}" for x in a["losses"])
+                  + f"; K5/K6 {a['launches']} on f32_wide (5 + 5 a step), "
+                  f"0 on any other route, plain 0; resumed epoch 3: K5/K6 "
+                  f"{a['resumed']}, losses " + ", ".join(
+                      f"{x:.2f}" for x in a["resumed_losses"])
+                  + f" ({time.perf_counter() - t0:.1f} s with the dataset)")
+            t0 = time.perf_counter()
+            c = edge_wide_train(card, EDGE_PADDED_H, 1, False, tmp,
+                                "model_p.cpt")
+            c["s_step"] = statistics.median(c["step_s"][1:])
+            out["padded"] = c
+            phase("edge_wide", f"(c) train.yaml at hidden_nf "
+                  f"{EDGE_PADDED_H} (zero-padded to 128) on {card}: 1 epoch, "
+                  f"{c['s_step']:.5f} s/step, losses " + ", ".join(
+                      f"{x:.2f}" for x in c["losses"])
+                  + f"; K5/K6 {c['launches']} on tiled and padded, plain 0 "
+                  f"({time.perf_counter() - t0:.1f} s)")
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            net = dict(hidden_nf=EDGE_WIDE_H, node_nf=5)
+            dyn = dict(nbr_mode="topk", nbr_capacity=PROBE_FULL, network=net,
+                       checkpoint_path="lj13_w.cpt")
+            vi = config_driver(tmp, "vi_lj13.yaml", over=dict(
+                num_epochs=1, steps_per_epoch=EDGE_WIDE_VI_STEPS),
+                dynamics=dyn)
+            step_s, losses = time_vi_steps(vi)
+            reset_counts()
+            vi.train()
+            torch.cuda.synchronize()
+            got_vi, routes_vi = edge_launches(), edge_routes()
+            n = vi.n_iter * EDGE_WIDE_VI_STEPS
+            require(got_vi == dict(k5=n, k6=n, allpairs=0, plain=0)
+                    and routes_vi == route_counts("wide", n, n),
+                    f"H={EDGE_WIDE_H} top-k VI launches {got_vi} by kernel "
+                    f"{routes_vi}")
+            require(len(losses) == EDGE_WIDE_VI_STEPS
+                    and all(math.isfinite(x) for x in losses),
+                    f"H={EDGE_WIDE_H} VI losses {losses}")
+            smc = config_driver(tmp, "sample_lj13.yaml", over=dict(
+                output="lj13_w.npz", metrics_csv="lj13_w_smc.csv"),
+                dynamics=dyn)
+            sec = smc.args["sampling"]
+            reset_counts()
+            res, secs = timed_sample(smc)
+            got, routes = edge_launches(), edge_routes()
+            T = sec["n_temps"]
+            n_vg = 1 + T * sec["mcmc_steps"] * sec["n_leapfrog"]
+            want = dict(k5=smc.n_iter * (1 + n_vg + T), k6=smc.n_iter * n_vg,
+                        allpairs=0, plain=0)
+            require(got == want and routes == route_counts(
+                "wide", want["k5"], want["k6"]),
+                f"H={EDGE_WIDE_H} top-k SMC launches {got} by kernel "
+                f"{routes} != {want}")
+            P = sec["n_particles"]
+            check_smc(res, f"H={EDGE_WIDE_H} top-k SMC", P, 13)
+            require(on_card(res.particles) and res.log_weights.is_cuda,
+                    f"H={EDGE_WIDE_H} SMC outputs not on the card")
+            out["vi"] = dict(s_step=statistics.median(step_s[1:]),
+                             launches=routes_vi["wide"])
+            out["smc"] = dict(secs=secs, launches=routes["wide"], P=P)
+            phase("edge_wide", f"(b) vi_lj13.yaml top-k (capacity "
+                  f"{PROBE_FULL}) at hidden_nf {EDGE_WIDE_H} on {card}: 1 x "
+                  f"{EDGE_WIDE_VI_STEPS} steps of {vi.vi_particles} "
+                  f"particles, {out['vi']['s_step']:.5f} s/step, losses "
+                  + ", ".join(f"{x:.2f}" for x in losses)
+                  + f", K5/K6 {routes_vi['wide']} on wide; sample_lj13.yaml "
+                  f"top-k from its checkpoint: {P} particles x {T} temps "
+                  f"{secs:.3f} s, log_Z {float(res.log_Z):.4f}, beta "
+                  f"{float(res.beta_history[-1]):.6f}, K5/K6 "
+                  f"{routes['wide']} on wide, 0 on any other route, plain 0 "
+                  f"({time.perf_counter() - t0:.1f} s)")
+            del vi, smc, res
+    finally:
+        os.chdir(cwd)
+    torch.cuda.empty_cache()
+    return out
+
+
+# K5/K6's F_sum and dcd are proportional to the gate, an f32 sum of H
+# rounded bf16 terms: where the kernel's and cuBLAS's sums round an
+# intermediate (m, g1) the other way, the gate moves by a share of its
+# scale, not of the element. So phase edge_wide reads them per element at
+# a floor of half their largest value. Over input seeds 61-68 at H = 96,
+# 128, 160, 192, 256 and EDGE_WIDE_SHAPES the sound bf16 kernels read at
+# most 3.00 bf16 steps there (5.62 at STEP_FLOOR; dcd, H=192, K = 12), agg
+# and de at most 2; the parameter gradients at most 0.7 of their bound
+# but for one case, 6.2 (H=256, the small batch, seed 65), whose cause
+# edge_round_witness reads out (PERF.md).
+EDGE_GATE_FLOOR = 2.0 ** -1
+
+
+def edge_step_errs(names, got, want, terms=None):
+    """``step_errs`` of K5/K6 outputs, F_sum and dcd at EDGE_GATE_FLOOR."""
+    errs = step_errs(names, got, want, terms)
+    gate = [i for i, n in enumerate(names) if n in ("F_sum", "dcd")]
+    errs.update(step_errs([names[i] for i in gate], [got[i] for i in gate],
+                          [want[i] for i in gate], floor=EDGE_GATE_FLOOR))
+    return errs
+
+
+def edge_plain_sums(e, cd, em, W, dagg, dfs, mag=False, given=None):
+    """K6's seven parameter gradients as ``edge_pipeline_plain_bwd``
+    computes them (its steps restated here to reach them), as {name: f32
+    sum}; with ``mag`` each is the sum of its terms' magnitudes (``|a|^T
+    |b|``: step_errs' ``terms``). ``given``: {"m" and / or "g1": a bf16
+    [A, K, H] tensor} taken in place of that rounded intermediate."""
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    given = given or {}
+    dt, f = e.dtype, (lambda t: t.float())
+    rnd = lambda name, t: f(given.get(name, t.to(dt)))
+    W1, b1, W2, b2, W3, b3, w4 = (f(w) for w in W)
+    silu, dsilu = ep._silu, ep._dsilu
+    emf = f(em.to(dt))[..., None]
+    pre1 = f(e) @ W1 + b1
+    m1 = rnd("m1", silu(pre1))
+    pre2 = m1 @ W2 + b2
+    m = rnd("m", silu(pre2) * emf)
+    pre3 = m @ W3 + b3
+    g1 = rnd("g1", silu(pre3))
+    gate = g1 @ w4
+    cdf = f(cd)
+    dtr = f(dfs.to(dt))[:, None, :]
+    pre_tr = cdf * gate
+    dtr = dtr * ((pre_tr > -100.0) & (pre_tr < 100.0)).float() * emf
+    dgate = rnd("dgate", (cdf * dtr).sum(-1, keepdim=True))
+    dpre3 = (dgate @ w4.T) * dsilu(pre3)
+    dpre2 = (f(dagg.to(dt))[:, None, :] + rnd("dpre3", dpre3) @ W3.T) \
+        * emf * dsilu(pre2)
+    dpre1 = (rnd("dpre2", dpre2) @ W2.T) * dsilu(pre1)
+    flat = lambda t: (t.abs() if mag else t).reshape(-1, t.shape[-1])
+    outer = lambda a, b: flat(a).T @ flat(b)
+    return dict(dW1=outer(f(e), rnd("dpre1", dpre1)), db1=flat(dpre1).sum(0),
+                dW2=outer(m1, rnd("dpre2", dpre2)), db2=flat(dpre2).sum(0),
+                dW3=outer(m, rnd("dpre3", dpre3)), db3=flat(dpre3).sum(0),
+                dw4=outer(g1, dgate))
+
+
+def edge_wide_terms(e, cd, em, W, dagg, dfs):
+    """{name: the plain sums of each K6 parameter gradient's terms'
+    magnitudes} (step_errs' ``terms``)."""
+    return edge_plain_sums(e, cd, em, W, dagg, dfs, mag=True)
+
+
+# the witness of a bf16 K6 reading over its limit (edge_round_witness):
+# the repeated launches (half of them beside a stream of 1 GiB copies), and
+# (seed, H, shape) of the one case over its limit in the seed sweep
+WITNESS_REPEATS = 20
+EDGE_WITNESS = (65, 256, "small")
+# the most edges whose g1 the witness reads out (one K6 launch an edge)
+WITNESS_EDGES = 4096
+
+
+def edge_round_witness(seed, H, sname, repeats=WITNESS_REPEATS):
+    """Why the bf16 K6 at (``sname``, ``H``, input ``seed``) reads what it
+    reads against the plain version. ``repeats`` more launches, half of
+    them beside a stream of copies that delays the ring's slab copies,
+    bitwise equal to the first. The kernel's own rounded m and g1, read
+    out of launches that leave one term in a sum: m from K5's agg with one
+    slot of each atom valid (K launches), g1 from K6's dw4 with one edge's
+    cd nonzero (one launch an edge with a nonzero dgate); each against the
+    plain version's: how many elements differ, by how many bf16 steps,
+    and how near a rounding tie the plain f32 value of each lies. Then
+    the kernel against the plain version given the kernel's m and g1. And
+    both against the float64 plain version on the same bf16 inputs
+    (nothing rounded in between). Returns the readings."""
+    import torch
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+
+    shape = dict(EDGE_WIDE_SHAPES[sname], H=H)
+    e, cd, em, W, dagg, dfs, _ = gathered_inputs(shape, torch.bfloat16, seed)
+    args = (e, cd, em, W, dagg, dfs)
+    A, K = em.shape
+    bwd = lambda *a: ep.edge_pipeline_bwd(*a)[2:]
+    k = bwd(*args)
+    big = torch.empty(2 ** 28, device="cuda")
+    dst, side = torch.empty_like(big), torch.cuda.Stream()
+    same = True
+    for i in range(repeats):
+        if i % 2:
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(10):
+                    dst.copy_(big)
+        same &= all(torch.equal(x, y) for x, y in zip(k, bwd(*args)))
+    torch.cuda.synchronize()
+    del big, dst
+    names = EDGE_OUT[4:]
+    terms = edge_wide_terms(*args)
+    worst = lambda got, want: max(r for _, r, _ in step_errs(
+        names, got, [want[n] for n in names], terms).values())
+    plain = edge_plain_sums(*args)
+    # the plain intermediates and the kernel's
+    emf, *_, m, _, g1, gate = ep._recompute(e, em, *W)
+    pre_tr = cd.float() * gate
+    clip = ((pre_tr > -100.0) & (pre_tr < 100.0)).float()
+    dgate = (cd.float() * (dfs.float()[:, None, :] * clip * emf)).sum(-1)
+    dgate = dgate.to(torch.bfloat16).float()
+    m_k = torch.empty_like(m)
+    for s in range(K):
+        one = torch.zeros_like(em)
+        one[:, s] = em[:, s]
+        m_k[:, s] = ep.edge_pipeline_fwd(e, cd, one, W)[0]
+    g1_k = g1.clone()
+    for i in dgate.reshape(-1).nonzero()[:, 0].tolist():
+        a, s = divmod(i, K)
+        one = torch.zeros_like(cd)
+        one[a, s] = cd[a, s]
+        dw4 = ep.edge_pipeline_bwd(e, one, em, W, dagg, dfs)[8][:, 0]
+        g1_k[a, s] = (dw4 / dgate[a, s]).to(torch.bfloat16)
+    torch.cuda.synchronize()
+
+    def compare(mine, theirs):
+        """(elements that differ, the most bf16 steps between the two,
+        values under STEP_FLOOR of the largest counted at that floor)"""
+        a, b = mine.float(), theirs.float()
+        top = float(b.abs().max())
+        steps = (a - b).abs() / bf16_ulp(b.abs().clamp_min(STEP_FLOOR * top))
+        return int((a != b).sum()), float(steps.max())
+
+    cm, cg = compare(m_k, m), compare(g1_k, g1)
+    mine = worst(k, edge_plain_sums(*args, given=dict(m=m_k, g1=g1_k)))
+    # the largest term of dw4's worst element (kernel vs plain)
+    j = int(((k[6] - plain["dw4"]).abs()
+             / (TOL_PARAM["bfloat16"] * plain["dw4"].abs().max()
+                + TERMS_TOL * terms["dw4"])).argmax())
+    t = (g1[..., j].float() * dgate).abs().reshape(-1)
+    row = int(t.argmax())
+    d = lambda t: t.double()
+    exact = dict(zip(names, (t.float() for t in ep.edge_pipeline_plain_bwd(
+        d(e), d(cd), em, *(d(w) for w in W), d(dagg), d(dfs))[2:])))
+    out = dict(same=same, kernel=worst(k, plain), given=mine, m=cm, g1=cg,
+               exact=(worst(k, exact), worst([plain[n] for n in names],
+                                             exact)))
+    differ = lambda c: (f"{c[0]} of {m.numel()} differ, by at most "
+                        f"{c[1]:.2f} bf16 steps (at STEP_FLOOR)")
+    phase("edge-witness", f"H={H} {sname} bfloat16 seed {seed}: {repeats} "
+          f"more K6 launches (half beside a copy stream) "
+          f"{'bitwise equal' if same else 'DIFFER'}; kernel vs plain "
+          f"{out['kernel']:.2f}x its bound; the kernel's own m: "
+          f"{differ(cm)}; its g1: {differ(cg)}; kernel vs the plain version "
+          f"given the kernel's m and g1 {mine:.2f}x; vs float64 with "
+          f"nothing rounded: kernel {out['exact'][0]:.2f}x, plain "
+          f"{out['exact'][1]:.2f}x; dw4's worst element {j}: its largest "
+          f"term (atom {row // K}, slot {row % K}) "
+          f"{float(t[row] / t.sum()):.1%} of its terms' magnitudes")
+    return out
+
+
+def edge_wide_checks(train_K, generate=None):
+    """(d): K5/K6 at each width of EDGE_WIDTHS and shape of
+    EDGE_WIDE_SHAPES against the plain version, one launch each on the
+    route the size rule names (and ``padded_*`` where padded), read per
+    element (``edge_step_errs``) in bf16 and to TOL_EDGE / TOL_PARAM in f32, a
+    second launch bitwise equal, timed with CUDA events and as device time
+    beside the bound (``edge_work``). Returns the readings and times."""
+    import torch
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+
+    shapes = dict(EDGE_WIDE_SHAPES)
+    shapes["train"] = dict(shapes["train"], K=train_K)
+    if generate:
+        shapes["generate"] = dict(shapes["generate"], K=generate["capacity"],
+                                  masked=1.0 - generate["valid"])
+    rec = {}
+    for H in EDGE_WIDTHS:
+        for sname, base in shapes.items():
+            if H not in base.get("widths", (H,)):
+                continue
+            shape = dict(base, H=H)
+            for dname in ("bfloat16", "float32"):
+                if dname not in shape.get("dtypes", (dname,)):
+                    continue
+                dtype = getattr(torch, dname)
+                e, cd, em, W, dagg, dfs, valid = gathered_inputs(shape, dtype,
+                                                                  seed=61)
+                route = ep.kernel_for(dtype, H)
+                padded = ep.padded_width(H) != H
+                fwd = lambda: ep.edge_pipeline_fwd(e, cd, em, W)
+                bwd = lambda: ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs)
+                fwd_only = shape.get("fwd_only", False)
+                reset_counts()
+                k = fwd() if fwd_only else fwd() + bwd()
+                torch.cuda.synchronize()
+                n = (1, 0) if fwd_only else (1, 1)
+                require(edge_routes() == route_counts(route, *n, padded)
+                        and plain_calls() == 0,
+                        f"edge_wide {sname} {dname} H={H}: launches "
+                        f"{edge_routes()}")
+                again = fwd() if fwd_only else fwd() + bwd()
+                same = all(torch.equal(x, y) for x, y in zip(k, again))
+                del again
+                names = EDGE_OUT[:2] if fwd_only else EDGE_OUT
+                p = ep.edge_pipeline_plain(e, cd, em, *W)
+                if not fwd_only:
+                    p = p + ep.edge_pipeline_plain_bwd(e, cd, em, *W, dagg,
+                                                       dfs)
+                if dname == "bfloat16":
+                    errs = edge_step_errs(names, k, p, None if fwd_only else
+                                          edge_wide_terms(e, cd, em, W, dagg,
+                                                          dfs))
+                    ok = steps_ok(errs)
+                    text = steps_text(errs)
+                else:
+                    errs = rel_errs(names, k, p)
+                    tol = {n_: (TOL_EDGE if n_ in EDGE_OUT[:4]
+                                else TOL_PARAM)[dname] for n_ in names}
+                    ok = all(errs[n_][1] <= tol[n_] for n_ in names)
+                    text = "  ".join(f"{n_} {v[0]:.2e}/{v[1]:.1e}"
+                                     for n_, v in errs.items()) + (
+                        f"  tol {TOL_EDGE[dname]:g} / {TOL_PARAM[dname]:g}")
+                err_f = max(errs[n_][0] for n_ in EDGE_OUT[:2])
+                err_b = (None if fwd_only else
+                         max(errs[n_][0] for n_ in EDGE_OUT[2:]))
+                del k, p
+                t_f = cuda_time_ms(fwd, reps=10, calls=5)
+                d_f = device_ms(fwd, "fwd_kernel")
+                t_b = d_b = None
+                if not fwd_only:
+                    t_b = cuda_time_ms(bwd, reps=10, calls=5)
+                    d_b = device_ms(bwd, "bwd_kernel")
+                Hp = ep.padded_width(H)
+                fl_f, fl_b, by_f, by_b = edge_work(shape, dname,
+                                                   int(valid.sum()))
+                b_f = bound(fl_f, by_f, PEAK_FLOPS[dname])
+                b_b = bound(fl_b, by_b, PEAK_FLOPS[dname])
+                phase("edge_wide", f"{sname} {dname} A={shape['A']} "
+                      f"K={shape['K']} C={shape['C']} H={H}"
+                      + (f" (padded to {Hp})" if padded else "")
+                      + f" ({route}) vs plain {text} -> "
+                      f"{'ok' if ok else 'FAIL'}; second launch "
+                      f"{'bitwise equal' if same else 'DIFFERS'}; time ms: "
+                      f"K5 {t_f:.4f} (device {d_f:.4f}, bound {b_f[0]:.4f} "
+                      f"{b_f[1]})" + ("" if fwd_only else
+                                      f" | K6 {t_b:.4f} (device {d_b:.4f}, "
+                                      f"bound {b_b[0]:.4f} {b_b[1]})"))
+                require(ok, f"edge_wide {sname} {dname} H={H} disagrees with "
+                        "plain")
+                require(same, f"edge_wide {sname} {dname} H={H}: a second "
+                        "launch gave other bits")
+                rec[(sname, dname, H)] = dict(
+                    err_fwd=err_f, err_bwd=err_b, ms_fwd=t_f, dev_fwd=d_f,
+                    ms_bwd=t_b, dev_bwd=d_b, bound_fwd=b_f, bound_bwd=b_b)
+                del e, cd, em, W, dagg, dfs
+                torch.cuda.empty_cache()
+    return rec
+
+
+def edge_wide_phase(card, generate=None):
+    """Phase edge_wide: the driver paths (``edge_wide_paths``), the checks
+    (``edge_wide_checks``), the plain version timed at the kernels line's
+    shapes, the padded launches' cost against H=128 at the training shape,
+    and each driver run's kernel share."""
+    import torch
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+
+    require(EDGE_WIDE_SHAPES["topk"]["K"] == PROBE_FULL,
+            "EDGE_WIDE_SHAPES' topk shape is not (b)'s capacity")
+    paths = edge_wide_paths(card)
+    rec = edge_wide_checks(paths["train"]["capacity"], generate)
+    limits = edge_c_limits()
+    phase("edge_wide", "the most edge features C a launch takes (at the "
+          "padded width): " + ", ".join(f"{k} {v}" for k, v in
+                                        limits.items()))
+    # the one reading over its limit in the seed sweep (PERF.md section 6),
+    # and the phase's own seed at that shape
+    w = {}
+    for seed in (EDGE_WITNESS[0], 61):
+        w[seed] = edge_round_witness(seed, *EDGE_WITNESS[1:])
+        require(w[seed]["same"] and w[seed]["given"] <= 1.0,
+                f"edge_wide witness {EDGE_WITNESS[1:]} seed {seed}: a "
+                f"repeated launch gave other bits, or the K6 sums disagree "
+                f"with the plain version's on the kernel's own m and g1 "
+                f"({w[seed]['given']:.2f}x)")
+    # the plain version at the kernels line's shapes
+    for key in (("train", "float32", EDGE_WIDE_H),
+                ("topk", "bfloat16", EDGE_WIDE_H)):
+        shape = dict(EDGE_WIDE_SHAPES[key[0]], H=EDGE_WIDE_H)
+        if key[0] == "train":
+            shape["K"] = paths["train"]["capacity"]
+        e, cd, em, W, dagg, dfs, _ = gathered_inputs(
+            shape, getattr(torch, key[1]), seed=61)
+        r = rec[key]
+        r["plain_fwd"] = cuda_time_ms(lambda: ep.edge_pipeline_plain(
+            e, cd, em, *W), reps=10, calls=3)
+        r["plain_bwd"] = cuda_time_ms(lambda: ep.edge_pipeline_plain_bwd(
+            e, cd, em, *W, dagg, dfs), reps=10, calls=3)
+        phase("edge_wide", f"{key[0]} {key[1]} H={EDGE_WIDE_H}: plain K5 "
+              f"{r['plain_fwd']:.4f} ms, K6 {r['plain_bwd']:.4f} ms (kernel "
+              f"events {r['ms_fwd']:.4f} / {r['ms_bwd']:.4f})")
+        del e, cd, em, W, dagg, dfs
+        torch.cuda.empty_cache()
+    # the padded route's cost: H=96 (its weights and dagg copied into
+    # buffers of 128, the outputs cut back) against H=128, f32 training
+    # shape
+    t = {}
+    for H in (EDGE_PADDED_H, 128):
+        shape = dict(EDGE_WIDE_SHAPES["train"], H=H,
+                     K=paths["train"]["capacity"])
+        e, cd, em, W, dagg, dfs, _ = gathered_inputs(shape, torch.float32,
+                                                      seed=61)
+        t[H] = (cuda_time_ms(lambda: ep.edge_pipeline_fwd(e, cd, em, W)),
+                cuda_time_ms(lambda: ep.edge_pipeline_bwd(e, cd, em, W, dagg,
+                                                          dfs)))
+    phase("edge_wide", f"padded cost, f32 training shape: K5 H=96 (at 128) "
+          f"{t[96][0]:.4f} ms vs H=128 {t[128][0]:.4f} ms "
+          f"({t[96][0] / t[128][0]:.3f}x); K6 {t[96][1]:.4f} vs "
+          f"{t[128][1]:.4f} ms ({t[96][1] / t[128][1]:.3f}x)")
+    # kernel shares: train.yaml at 256 (5 K5 + 5 K6 a step at the
+    # training shape), the top-k SMC run (its launches at its own shape)
+    tr = rec[("train", "float32", EDGE_WIDE_H)]
+    k_step = 5 * (tr["dev_fwd"] + tr["dev_bwd"]) / 1e3
+    s_step = paths["train"]["s_step"]
+    sp = rec[("topk", "bfloat16", EDGE_WIDE_H)]
+    smc = paths["smc"]
+    k_smc = (smc["launches"][0] * sp["dev_fwd"]
+             + smc["launches"][1] * sp["dev_bwd"]) / 1e3
+    phase("edge_wide", f"kernel share: train.yaml at {EDGE_WIDE_H} "
+          f"{s_step:.5f} s a step, 5 x (K5 + K6) device {k_step:.5f} s "
+          f"({k_step / s_step:.1%}); top-k sample_lj13 at {EDGE_WIDE_H} "
+          f"{smc['secs']:.3f} s, K5 + K6 launches x device (K = 12) "
+          f"{k_smc:.3f} s ({k_smc / smc['secs']:.1%})")
+    return dict(rec=rec, paths=paths, padded_cost=t, witness=w)
 
 
 def edge_seed_sweep(first, last):
@@ -1674,9 +2236,10 @@ def edge_seed_sweep(first, last):
     shape of EDGE_SHAPES for the input seeds first..last: each reading
     (the largest relative error of agg, F_sum, de, dcd and of the
     parameter gradients' f32 sums) beside TOL_EDGE and TOL_PARAM, and how
-    many exceed them. A measurement of how the tensor cores' sums move
-    bf16 roundings, not a check: it fails only on a kernel that does not
-    run."""
+    many exceed them; then phase edge_wide's bf16 readings (below). A
+    measurement of how the tensor cores' sums move bf16 roundings, not a
+    check: it fails only on a kernel that does not run or whose second
+    launch gives other bits."""
     import torch
     from enflow_tpu_torch.ops import edge_pipeline as ep
 
@@ -1707,6 +2270,54 @@ def edge_seed_sweep(first, last):
           f"{TOL_EDGE['bfloat16']:g} / TOL_PARAM {TOL_PARAM['bfloat16']:g}"
           + "".join(f"; {k[0]} seed {k[1]}: {v[0]} {v[1]:.2e}, {v[2]} "
                     f"{v[3]:.2e}" for k, v in over.items()))
+    # phase edge_wide's bf16 readings (EDGE_WIDTHS and H=128 at
+    # EDGE_WIDE_SHAPES): per element as edge_step_errs reads them, and F_sum
+    # and dcd also at STEP_FLOOR; a second launch bitwise equal; each case
+    # over its limits then read by edge_round_witness
+    worst, over = {}, []
+    launch = lambda a: (ep.edge_pipeline_fwd(*a[:3], a[3])
+                        + ep.edge_pipeline_bwd(*a[:3], a[3], *a[4:]))
+    for H in EDGE_WIDTHS + (128,):
+        for sname, base in EDGE_WIDE_SHAPES.items():
+            if ("bfloat16" not in base.get("dtypes", ("bfloat16",))
+                    or H not in base.get("widths", (H,))):
+                continue
+            for seed in range(first, last + 1):
+                args = gathered_inputs(dict(base, H=H), torch.bfloat16,
+                                       seed)[:6]
+                k = launch(args)
+                require(all(torch.equal(x, y) for x, y in zip(
+                    k, launch(args))), f"H={H} {sname} seed {seed}: a "
+                    "second launch gave other bits")
+                p = (ep.edge_pipeline_plain(*args[:3], *args[3])
+                     + ep.edge_pipeline_plain_bwd(*args[:3], *args[3],
+                                                  *args[4:]))
+                errs = edge_step_errs(EDGE_OUT, k, p, edge_wide_terms(*args))
+                floor = step_errs(("F_sum", "dcd"), k[1::2][:2],
+                                  p[1::2][:2])
+                read = {n: r for n, (_, r, _) in errs.items()}
+                read.update({f"{n} at STEP_FLOOR": r
+                             for n, (_, r, _) in floor.items()})
+                for n, r in read.items():
+                    worst[n] = max(worst.get(n, (0.0, "")),
+                                   (r, f"H={H} {sname} seed {seed}"))
+                if not steps_ok(errs):
+                    over.append((seed, H, sname))
+                phase("edge-seeds", f"H={H} {sname} seed {seed}: "
+                      + steps_text(errs))
+                del args, k, p
+                torch.cuda.empty_cache()
+    phase("edge-seeds", "edge_wide readings, largest: " + ", ".join(
+        f"{n} {r:.2f} ({at})" for n, (r, at) in worst.items())
+        + f"; over their limits: {len(over)} (" + ", ".join(
+            f"H={H} {sname} seed {seed}" for seed, H, sname in over) + ")")
+    for seed, H, sname in over:
+        shape = EDGE_WIDE_SHAPES[sname]
+        if shape["A"] * shape["K"] <= WITNESS_EDGES:
+            edge_round_witness(seed, H, sname)
+        else:
+            phase("edge-witness", f"H={H} {sname} seed {seed}: more than "
+                  f"{WITNESS_EDGES} edges, not read out")
 
 
 # the all-pairs seed sweep: the bf16 kernels at VI's batch of LJ13-size
@@ -2276,7 +2887,7 @@ def ab_phase(card, old_src):
     from enflow_tpu_torch.ops import egcl_allpairs as ops
 
     text = Path(old_src).read_text()
-    edge = "edge_pipeline_fwd" in text
+    edge = "edge_tiled_fwd" in text
     hopper = "egcl_sm90_fwd" in text
     pair = "pair_energy_kernel" in text
     tiled_f32 = "egcl_f32_fwd" in text
@@ -2534,39 +3145,31 @@ def f32_bits_ab_phase(card, old_lib):
 
 
 def edge_sm90_bits_ab_phase(card, old_lib):
-    """An earlier edge_pipeline_sm90.cu (``old_lib``, built; one k16 step
-    of e W1, C <= 16) against the current: bf16 K5 and K6 bit for bit at
-    every EDGE_SHAPES shape of at most 16 edge features that runs them,
-    then timed in turns at the top-k sampler's shape (CUDA events and
-    device time)."""
-    import ctypes
+    """An earlier edge_pipeline_sm90.cu (``old_lib``, built; the entry
+    points of this one at H = 64 and 128) against the current: bf16 K5
+    and K6 bit for bit at every EDGE_SHAPES shape that runs them at its own
+    width, then timed in turns at the top-k sampler's shape (CUDA events
+    and device time)."""
     import torch
     from enflow_tpu_torch.ops import build
     from enflow_tpu_torch.ops import edge_pipeline as ep
 
     new_lib = ep._sm90_library()
     for fn in ("edge_sm90_fwd", "edge_sm90_bwd", "edge_sm90_error_string",
-               "edge_sm90_recip_check"):
+               "edge_sm90_recip_check", "edge_sm90_warpgroups",
+               "edge_sm90_c_max"):
         f, g = getattr(old_lib, fn), getattr(new_lib, fn)
         f.argtypes, f.restype = g.argtypes, g.restype
-    # the earlier source's warpgroups take (H, bwd) and no C
-    old_lib.edge_sm90_warpgroups.argtypes = [ctypes.c_int] * 2
-    old_lib.edge_sm90_warpgroups.restype = ctypes.c_int
     old_lib._enflow_bound = True
-    rule = ep.sm90_warpgroups
 
     def use(which):
         build._loaded["edge_pipeline_sm90"] = (old_lib if which == "old"
                                                else new_lib)
-        ep.sm90_warpgroups = rule if which == "new" else (
-            lambda lib, C, H, d: old_lib.edge_sm90_warpgroups(
-                H, int(d == "bwd")))
 
     cases = []
     for sname, shape in EDGE_SHAPES.items():
-        if (shape["C"] > 16 or "bfloat16" not in shape.get(
-                "dtypes", ("bfloat16",))
-                or ep.kernel_for(torch.bfloat16, shape["H"]) != "sm90"):
+        if ("bfloat16" not in shape.get("dtypes", ("bfloat16",))
+                or shape["H"] not in ep.TILED_H):
             continue
         e, cd, em, W, dagg, dfs, _ = gathered_inputs(shape, torch.bfloat16,
                                                      seed=13)
@@ -2580,10 +3183,10 @@ def edge_sm90_bits_ab_phase(card, old_lib):
                                  for x, y in zip(a, b))))
     use("new")
     differ = [c for c, same in cases if not same]
-    phase("ab", f"bf16 K5/K6 at C <= 16: old == new bit for bit at "
+    phase("ab", f"bf16 K5/K6 at H = 64/128: old == new bit for bit at "
           f"{len(cases) - len(differ)} of {len(cases)} shapes (K5 and K6 "
           "outputs each)" + (f"; they differ at {differ}" if differ else ""))
-    require(not differ, f"the bf16 K5/K6 at C <= 16 changed: {differ}")
+    require(not differ, f"the bf16 K5/K6 at H = 64/128 changed: {differ}")
     e, cd, em, W, dagg, dfs, _ = gathered_inputs(EDGE_SHAPES["sampler"],
                                                  torch.bfloat16, seed=13)
     ab_turns(card, use, {
@@ -2594,17 +3197,13 @@ def edge_sm90_bits_ab_phase(card, old_lib):
 
 
 def edge_ab_phase(card, old_lib):
-    """An earlier edge_pipeline.cu (``old_lib``, built) against the current
-    kernels in turns old, new, new, old, old, new within this process:
-    every launch of an old turn goes to the old source's kernels, bf16 at H
-    = 64/128 to its tiled kernels (its chunked ones where it has no tiled
-    kernels), a new turn's bf16 to the Hopper kernels of
-    edge_pipeline_sm90.cu. A turn times K5 and K6 in f32 at EDGE_AB (the
-    training shape and the ragged one) and in bf16 at the top-k sampler's
-    shape with CUDA events and device time, then one train.yaml epoch
-    (after a warm-up epoch before the first turn) and one top-k
-    sample_lj13.yaml run (nbr_capacity PROBE_CAP, from a 1-epoch
-    vi_lj13.yaml checkpoint, after a warm-up run)."""
+    """An earlier edge_pipeline.cu (``old_lib``, built; its tiled f32
+    entry points) against the current: f32 K5 and K6 bit for bit at every
+    EDGE_SHAPES shape that runs the tiled kernels at its own width (H = 64
+    and 128), then in turns old, new, new, old, old, new within this
+    process: K5 and K6 at EDGE_AB (the training shape and the ragged one)
+    with CUDA events and device time, then one train.yaml epoch (after a
+    warm-up epoch before the first turn)."""
     import os
     import torch
     from enflow_tpu_torch.ops import build
@@ -2612,50 +3211,50 @@ def edge_ab_phase(card, old_lib):
 
     new_lib = ep._library()
     ep.bind_library(old_lib)
-    tiled, rule = ep.uses_tiled, ep.kernel_for
-    has_tiled = hasattr(old_lib, "edge_tiled_fwd")
-
-    def old_rule(dtype, H):
-        rule(dtype, H)                                 # raises as before
-        return "tiled" if ep.uses_tiled(H) else "chunked"
 
     def use(which):
-        old = which == "old"
-        build._loaded["edge_pipeline"] = old_lib if old else new_lib
-        ep.uses_tiled = tiled if has_tiled or not old else (lambda H: False)
-        ep.kernel_for = old_rule if old else rule
+        build._loaded["edge_pipeline"] = (old_lib if which == "old"
+                                          else new_lib)
 
-    cases = {}
-    for sname, dname in [(n, "float32") for n in EDGE_AB] + [("sampler",
-                                                            "bfloat16")]:
-        dtype = getattr(torch, dname)
-        e, cd, em, W, dagg, dfs, _ = gathered_inputs(EDGE_SHAPES[sname],
-                                                      dtype, 13)
-        cases[f"{sname} {dname}"] = (
-            dname,
-            lambda e=e, cd=cd, em=em, W=W: ep.edge_pipeline_fwd(e, cd, em, W),
-            lambda e=e, cd=cd, em=em, W=W, dagg=dagg, dfs=dfs:
-                ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs),
-            ep.edge_pipeline_plain(e, cd, em, *W)
-            + ep.edge_pipeline_plain_bwd(e, cd, em, *W, dagg, dfs))
+    same, cases = [], {}
+    for sname, shape in EDGE_SHAPES.items():
+        if ("float32" not in shape.get("dtypes", ("float32",))
+                or shape["H"] not in ep.TILED_H):
+            continue
+        e, cd, em, W, dagg, dfs, _ = gathered_inputs(shape, torch.float32,
+                                                      13)
+        fwd = lambda e=e, cd=cd, em=em, W=W: ep.edge_pipeline_fwd(e, cd, em,
+                                                                   W)
+        bwd = (lambda e=e, cd=cd, em=em, W=W, dagg=dagg, dfs=dfs:
+               ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs))
+        use("old")
+        a = fwd() + bwd()
+        use("new")
+        b = fwd() + bwd()
+        same.append((sname, all(bool(torch.equal(x, y))
+                                for x, y in zip(a, b))))
+        if sname in EDGE_AB:
+            cases[sname] = (fwd, bwd, ep.edge_pipeline_plain(e, cd, em, *W)
+                            + ep.edge_pipeline_plain_bwd(e, cd, em, *W, dagg,
+                                                         dfs))
+    differ = [c for c, ok in same if not ok]
+    phase("ab", f"f32 K5/K6 at H = 64/128: old == new bit for bit at "
+          f"{len(same) - len(differ)} of {len(same)} shapes (K5 and K6 "
+          "outputs each)" + (f"; they differ at {differ}" if differ else ""))
+    require(not differ, f"the f32 K5/K6 at H = 64/128 changed: {differ}")
     cwd, rows = os.getcwd(), []
     try:
-        with tempfile.TemporaryDirectory() as tmp, \
-                tempfile.TemporaryDirectory() as smc_dir:
+        with tempfile.TemporaryDirectory() as tmp:
             main = train_driver(tmp, 1)
             main.train()                                    # warm-up
             main.start_epoch += 1
-            vi_driver(smc_dir, 1).train()       # a checkpoint to sample
-            smc = config_driver(smc_dir, "sample_lj13.yaml", dynamics=dict(
-                nbr_mode="topk", nbr_capacity=PROBE_CAP))
-            smc.sample()                                    # warm-up
             for which in ("old", "new", "new", "old", "old", "new"):
                 use(which)
                 t, line = {}, []
-                for key, (dname, fwd, bwd, want) in cases.items():
+                for key, (fwd, bwd, want) in cases.items():
                     errs = rel_errs(EDGE_OUT, fwd() + bwd(), want)
                     tol = {n: (TOL_EDGE if n in EDGE_OUT[:4]
-                               else TOL_PARAM)[dname] for n in EDGE_OUT}
+                               else TOL_PARAM)["float32"] for n in EDGE_OUT}
                     require(all(errs[n][1] <= tol[n] for n in EDGE_OUT),
                             f"{which} K5/K6 disagree with plain at {key}: "
                             f"{errs}")
@@ -2670,28 +3269,21 @@ def edge_ab_phase(card, old_lib):
                         f"{t[key + ' bwd']:.4f} ms (device "
                         f"{t[key + ' bwd_dev']:.4f})")
                 os.chdir(tmp)
+                reset_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 main.train()
                 torch.cuda.synchronize()
                 t["train"] = (time.perf_counter() - t0) / TRAIN_STEPS_PER_EPOCH
                 main.start_epoch += 1
-                os.chdir(smc_dir)
-                reset_counts()
-                res, t["smc"] = timed_sample(smc)
-                check_smc(res, f"{which} top-k sample_lj13", 2048, 13)
                 routes = edge_routes()
-                route = "tiled" if which == "old" and has_tiled else (
-                    "chunked" if which == "old" else "sm90")
-                require(routes[route][1] > 0 and sum(
-                    sum(v) for r, v in routes.items() if r != route) == 0,
+                require(routes["tiled"][1] > 0 and routes == route_counts(
+                    "tiled", *routes["tiled"]),
                     f"{which} turn: K5/K6 launches by kernel {routes}")
                 rows.append((which, t))
                 phase("ab", f"{which} on {card}: " + "; ".join(line)
                       + f"; train.yaml {t['train']:.5f} s/step (one epoch "
-                      f"of {TRAIN_STEPS_PER_EPOCH}); top-k sample_lj13 "
-                      f"{t['smc']:.4f} s (bf16 K5/K6 on the {route} "
-                      f"kernels: {routes[route][0]} + {routes[route][1]})")
+                      f"of {TRAIN_STEPS_PER_EPOCH})")
     finally:
         use("new")
         os.chdir(cwd)
@@ -2699,8 +3291,7 @@ def edge_ab_phase(card, old_lib):
         pick = lambda which: statistics.median(
             t[key] for w, t in rows if w == which)
         old, new = pick("old"), pick("new")
-        unit = ("s/step" if key == "train" else "s/run" if key == "smc"
-                else "ms")
+        unit = "s/step" if key == "train" else "ms"
         phase("ab", f"{key} (median): old {old:.5f} new {new:.5f} {unit} -> "
               f"{old / new:.2f}x")
 
@@ -5594,12 +6185,14 @@ def edge_launches():
 
 def edge_routes():
     """K5/K6 launches by kernel since the counts were reset: ``{route:
-    (K5, K6)}`` for the Hopper (bf16), tiled and chunked kernels."""
+    (K5, K6)}`` for each route of ops/edge_pipeline.py (the Hopper bf16
+    kernels at 64/128 and 192/256, the tiled f32 ones at the same) and
+    ``padded`` (the launches of any route at a padded width)."""
     from enflow_tpu_torch.ops import edge_pipeline as ep
     c = ep.counts
     return {r: (getattr(c, f"{r}_fwd_launches"),
                 getattr(c, f"{r}_bwd_launches"))
-            for r in ("sm90", "tiled", "chunked")}
+            for r in ep.ROUTES + ("padded",)}
 
 
 def read_csv(path):
@@ -5644,8 +6237,7 @@ def probe_phase(card, lj13_dir):
             require(got == want, f"probe {label} launches {got} != {want}")
             # every bf16 K5/K6 launch on the Hopper kernels
             routes = edge_routes()
-            require(routes == dict(sm90=(want["k5"], want["k6"]),
-                                   tiled=(0, 0), chunked=(0, 0)),
+            require(routes == route_counts("sm90", want["k5"], want["k6"]),
                     f"probe {label}: K5/K6 launches by kernel {routes}")
             P = sec["n_particles"]
             check_smc(res, f"probe {label}", P, 13)
@@ -5714,8 +6306,7 @@ def probe_phase(card, lj13_dir):
             require(got == want, f"probe remc {label} launches {got} != "
                     f"{want}")
             routes = edge_routes()
-            require(routes == dict(sm90=(want["k5"], want["k6"]),
-                                   tiled=(0, 0), chunked=(0, 0)),
+            require(routes == route_counts("sm90", want["k5"], want["k6"]),
                     f"probe remc {label}: K5/K6 launches by kernel {routes}")
             h = rres.round_metric_history
             require(h is not None and h.is_cuda and tuple(h.shape) == (R,)
@@ -6145,9 +6736,10 @@ def main():
                     "build")
     ap.add_argument("--edge-seeds", nargs=2, type=int, default=None,
                     metavar=("FIRST", "LAST"), help="hold the bf16 Hopper "
-                    "K5/K6 against their plain version at EDGE_SHAPES for "
-                    "input seeds FIRST..LAST instead of the phases after the "
-                    "build, and print the readings")
+                    "K5/K6 against their plain version at EDGE_SHAPES and "
+                    "phase edge_wide's widths and shapes for input seeds "
+                    "FIRST..LAST instead of the phases after the build, and "
+                    "print the readings")
     ap.add_argument("--allpairs-seeds", nargs=2, type=int, default=None,
                     metavar=("FIRST", "LAST"), help="hold the bf16 K1, K2 "
                     "and K2 p at SWEEP_SHAPES and H = 64, 96, 128, 160, 192, "
@@ -6281,6 +6873,8 @@ def main():
     # K5/K6 at the training path's shape (its slot count the auto capacity
     # that the train phase's dataset gave) and K5 at generate's
     erec = timed("edge", edge_kernel_phase, tr["capacity"], gen)
+    # K5/K6 at 128 < H <= 256 (and padded), generate's shape from its run
+    ew = timed("edge_wide", edge_wide_phase, card, gen)
 
     m = rec[("main", "bfloat16")]
     q = qrec[("vi", "bfloat16")]
@@ -6430,6 +7024,24 @@ def main():
             f"enflow_tpu/ops/edge_kernel.py:{line}",
             nf8["vi"][k] + nf8["smc"][k], c17[f"err_{d}"], c17[f"ms_{d}"],
             c17[f"plain_{d}"], c17[f"bound_{d}"]))
+    # the streamed K5/K6 at H=256: f32 at the training shape with the
+    # launches of phase edge_wide's train.yaml run (its resumed epoch
+    # included), bf16 at the top-k SMC run's shape with that run's (the
+    # top-k VI's, at 512 particles, are not in the line)
+    wrec, wpaths = ew["rec"], ew["paths"]
+    ek = "enflow_tpu/ops/edge_kernel.py"
+    for name, key, src, n in (
+            ("edge_pipeline_f32_wide", ("train", "float32", EDGE_WIDE_H),
+             "edge_pipeline.cu",
+             [a + b for a, b in zip(wpaths["train"]["launches"],
+                                    wpaths["train"]["resumed"])]),
+            ("edge_pipeline_wide", ("topk", "bfloat16", EDGE_WIDE_H),
+             "edge_pipeline_sm90.cu", wpaths["smc"]["launches"])):
+        r = wrec[key]
+        for k, (d, line) in enumerate((("fwd", 219), ("bwd", 246))):
+            kernels.append(kernel_record(
+                f"{name}_{d}", src, f"{ek}:{line}", n[k], r[f"err_{d}"],
+                r[f"ms_{d}"], r[f"plain_{d}"], r[f"bound_{d}"]))
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

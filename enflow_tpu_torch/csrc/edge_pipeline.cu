@@ -1,5 +1,6 @@
-// Gathered-edge EGCL pipeline for Hopper (sm_90a): forward, and the backward
-// with input and parameter gradients.
+// Gathered-edge EGCL pipeline in float32 for Hopper (sm_90a): forward, and
+// the backward with input and parameter gradients, at H = 64, 128, 192 or
+// 256.
 //
 // Replaces the Pallas TPU kernels of enflow_tpu/ops/edge_kernel.py:
 //   forward  -> _edge_fwd / _fwd_kernel
@@ -11,59 +12,79 @@
 //   pre3 = m W3 + b3                 g1 = silu(pre3)            (rounded)
 //   gate = g1 w4 (f32)               tr = clip(cd gate, +-100) * em (rounded)
 //   agg_a = sum_k m,  F_sum_a = sum_k tr                        (rounded)
-// Rounding to the compute dtype (float or bf16) happens where the TPU kernel
-// rounds; every product and sum accumulates in f32. The backward recomputes
-// the forward from its inputs and follows _bwd_kernel line by line: gate,
-// dtr, dgate and the dpre* stay f32; de, dcd and the products' left operands
-// dpre*.astype(dt) are rounded; the clip mask is strict (-100 < x < 100).
+// Rounding to the compute dtype happens where the TPU kernel rounds (in
+// f32 every rounding is the identity; the type parameter T is float);
+// every product and sum accumulates in f32. The backward recomputes the
+// forward from its inputs and follows _bwd_kernel line by line: gate,
+// dtr, dgate and the dpre* stay f32; the clip mask is strict (-100 < x <
+// 100). bf16 runs in edge_pipeline_sm90.cu; the wrapper zero-pads every
+// other width up to the next of these four (ops/edge_pipeline.py).
 //
 // What bounds it on this card: at the training shape (A = 30*13 = 390
 // atoms, K = 24 slots, the auto capacity of example/train.yaml, C = 3,
 // H = 128, f32) a forward does 0.635 GFLOP (two H x H products per row)
 // and a backward 1.92 GFLOP (two recomputed, two transposed and two
 // parameter-gradient products per row) on ~0.4 MB of inputs: compute
-// bound, 9.5 and 28.6 us at the 67 TFLOP/s f32 rate. The f32 products stay
-// on the FMA units: TF32 tensor cores would round every input to 10
-// mantissa bits, where the f32 reference keeps 23.
+// bound, 9.5 and 28.6 us at the 67 TFLOP/s f32 rate (at H = 256 about 4x:
+// 2.47 and 7.4 GFLOP). The f32 products stay on the FMA units: TF32
+// tensor cores would round every input to 10 mantissa bits, where the f32
+// reference keeps 23.
 //
-// Two designs share the C interface's shape; the wrapper's size rule
-// (ops/edge_pipeline.py kernel_for) picks one per hidden width. bf16 at
-// H = 64 and 128 runs the Hopper kernels of edge_pipeline_sm90.cu.
-//
-// The tiled kernels (edge_tiled_*, H = 64 and 128, f32; the type
-// parameter T is float):
+// Design:
 // - 2H threads a block, one block an SM, atom tiles of TA whole atoms
 //   strided over the blocks, so the per-atom K-sums need no atomics and
 //   run in a fixed order. An atom tile's rows are cut into equal row tiles
 //   of at most 72 (forward) / 40 (backward) rows, computed as a multiple of
 //   8 rows with the padding masked (the wrapper's tile_rows): at the
-//   training shape 72 rows a block, one forward tile and 40 + 32 backward,
-//   no padding (the chunked kernels' fixed 32-row chunks compute 96).
+//   training shape 72 rows a block, one forward tile and 40 + 32 backward.
+//   Where a row tile ends inside an atom, that atom's sums carry to the
+//   next row tile in shared memory, added in row order.
 // - Register-tiled products: in X W and X W^T a thread owns 4 columns of
 //   every 8th row of the tile (a warp: 4 rows x 8 column lanes, so each W
 //   load is 8 distinct 16-byte chunks), reading 4 float4 of W and q
 //   broadcast float4 of X for 16 q FMAs a 4-deep k step. In the outer
 //   products m^T dpre3 and m1^T dpre2 (the tile's rows as the depth) a
 //   thread owns an 8 x 4 (H / 64) tile of dW3 and dW2, held in registers
-//   across all the block's rows: two float4 of the left and H / 64 of the
-//   right operand for 32 H / 64 FMAs a row. The products run at about half
-//   the FMA rate: each k step issues one shared load per ~11 FMAs, and the
-//   backward's 250 registers leave no room for a second operand set.
-// - W2 and W3 sit once in shared memory as f32, each 16-byte chunk kc of
-//   row r at kc ^ ((r / 4) % 8), so both orientations read without bank
-//   conflicts; f32 copies them and W1 and the biases with 16-byte cp.async,
-//   W2 and W3 landing while the first tile's first layer computes.
-//   Activation tiles have row stride H + 4.
+//   across all the block's rows at H = 64 and 128: two float4 of the left
+//   and H / 64 of the right operand for 32 H / 64 FMAs a row. The products
+//   run at about half the FMA rate: each k step issues one shared load per
+//   ~11 FMAs, and the backward's 250 registers leave no room for a second
+//   operand set.
+// - At H = 64 and 128 W2 and W3 sit once in shared memory as f32, each
+//   16-byte chunk kc of row r at kc ^ ((r / 4) % 8), so both orientations
+//   read without bank conflicts; f32 copies them and W1 and the biases
+//   with 16-byte cp.async, W2 and W3 landing while the first tile's first
+//   layer computes. Activation tiles have row stride H + 4.
+// - At H = 192 and 256 W2 + W3 are 8 H^2 bytes, 524,288 at 256, more than
+//   a block may use: they stay in global memory (L2-resident) and pass
+//   through a ring of kRing = 2 slabs in shared memory. A slab is one
+//   K-split of a product, 64 of the sum's k: in X W 64 of W's rows
+//   ([64, H]), in X W^T 64 of W's columns ([H, 64]), 256 H bytes either
+//   way, in the same swizzle. The register tiles keep their accumulators
+//   across a product's H / 64 slabs, so each output's K-sum runs the same
+//   FMAs in the same order as from a resident copy. A row tile uses the
+//   slabs in a fixed stream (W2, W3, and backward W3^T, W2^T; H / 64 slabs
+//   each); the block copies the next slab with cp.async into the slot the
+//   slab before the current one used, while the FMAs work on the current
+//   one (after egcl_allpairs_f32.cu's wide kernels). dW2 and dW3 do not
+//   fit in registers beside the rest (2 H^2 floats over 2H threads: 256 a
+//   thread at 256), so each thread keeps its outer-product tile in the
+//   block's slice of the partials in global memory and reads, adds to and
+//   writes it once a row tile, one 64-column group at a time (outer_slice),
+//   with the register tile's FMAs and order. The ring leaves about 90 KB
+//   at H = 256: the wrapper plans the most rows a tile first (40 forward,
+//   24 backward at the training shape), since every row tile streams the
+//   weights once (512 KB of L2 reads forward, 1 MB backward at 256).
 // - The next row tile's e, cd, em (and, at a new atom tile, its dagg and
 //   dfs) are copied with cp.async into the other half of a double buffer
 //   while the current tile computes.
 // - The gate sums a row over 8 lanes by shuffles and over the row's H / 32
-//   warps through shared memory; de = rnd(dpre1 W1^T) is one (row, j) a
+//   warps through shared memory; de = dpre1 W1^T is one (row, j) a
 //   thread, the K-sums one (atom, column) a thread; the bias and dw4
 //   column sums stay per thread in registers, reduced over the 8 row lanes
 //   once at the end. Each block writes its slice of the [blocks, P]
-//   partials once with plain stores; the wrapper sums the slices in a
-//   fixed order (a second launch gives the same bits).
+//   partials with plain stores; the wrapper sums the slices in a fixed
+//   order (a second launch gives the same bits).
 // - SiLU in f32 uses the fast ex2 and reciprocal (a few ulp).
 // - Shared memory at f32, H = 128, of the 227 KB (232,448 bytes) a block
 //   may use: W2 + W3 128 KB; forward 2 activation tiles (72 rows: 74 KB),
@@ -72,32 +93,16 @@
 //   bytes at the training shape (C = 3, 3 atoms a tile), 229,728 /
 //   221,696 at C = 11 and 8 atoms a tile.
 //
-// The chunked kernels (edge_pipeline_*, the first version, every other
-// width: H % 4 == 0 in f32, H % 16 == 0 in bf16): a block owns tiles of TA
-// consecutive atoms (grid-stride over tiles) and walks their rows in
-// chunks of kRows, summing over K as runs of equal atom in a fixed order.
-// W2 and W3 sit in shared memory (row stride H+1 against bank conflicts),
-// the chunk's activations too, in f32. Products are FMA loops: a thread
-// owns one output column and kRowGroup rows in the row products, and a
-// 4x4 tile of the parameter gradient in the outer products. Each block
-// adds its parameter-gradient partials into its own slice of a [blocks, P]
-// f32 buffer, zeroed by the caller (read-modify-write in L2, once per
-// chunk); the wrapper sums the slices.
-//
 // None of the TPU blocking carries over: no 0/1 summation matrix, no atom
 // padding, no per-tile parameter outputs beyond one slice per block.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 
 #include <stddef.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kRows = 32;       // edge rows per chunk
-constexpr int kRowGroup = 8;    // rows per thread in the row products
 constexpr size_t kMaxSmem = 232448;
 
 template <typename T> struct Cvt;
@@ -105,32 +110,10 @@ template <> struct Cvt<float> {
   static __device__ __forceinline__ float to_f(float x) { return x; }
   static __device__ __forceinline__ float from_f(float x) { return x; }
 };
-template <> struct Cvt<__nv_bfloat16> {
-  static __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 from_f(float x) {
-    return __float2bfloat16_rn(x);
-  }
-};
 
 // Round an f32 value to the compute dtype (and hold it as f32).
 template <typename T> __device__ __forceinline__ float rnd(float x) {
   return Cvt<T>::to_f(Cvt<T>::from_f(x));
-}
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-__device__ __forceinline__ float silu_f(float x) { return x * sigmoid_f(x); }
-__device__ __forceinline__ float dsilu_f(float x) {
-  const float s = sigmoid_f(x);
-  return s * (1.0f + x * (1.0f - s));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 struct Args {
@@ -171,8 +154,6 @@ struct PartLayout {
   }
 };
 
-__host__ __device__ inline int weight_stride(int H) { return H + 1; }
-
 struct Bump {
   char* base;
   size_t off;
@@ -184,431 +165,22 @@ struct Bump {
   }
 };
 
-template <typename T> struct Smem {
-  T *W2, *W3;                         // [H, H+1]
-  float *W1, *b1, *b2, *b3, *w4;      // [C, H], [H] ...
-  float* buf[4];                      // [kRows, H]: X, P1, P2, P3
-  float *e, *cd, *em, *gate, *dgr, *aux3;   // per chunk row
-  int* la;                            // local atom of each chunk row
-  float *accH, *acc3;                 // [TA, H], [TA, 3]: agg / fs or
-                                      // the tile's dagg / dfs (backward)
-};
-
-template <typename T>
-__host__ __device__ void carve(Bump& m, Smem<T>& s, int C, int H, int TA,
-                               bool bwd) {
-  const size_t WS = weight_stride(H), fH = sizeof(float) * H;
-  s.W2 = (T*)m.take(sizeof(T) * H * WS);
-  s.W3 = (T*)m.take(sizeof(T) * H * WS);
-  s.W1 = (float*)m.take(fH * C);
-  s.b1 = (float*)m.take(fH);
-  s.b2 = (float*)m.take(fH);
-  s.b3 = (float*)m.take(fH);
-  s.w4 = (float*)m.take(fH);
-  const int nbuf = bwd ? 4 : 2;
-  for (int k = 0; k < 4; ++k)
-    s.buf[k] = k < nbuf ? (float*)m.take(fH * kRows) : nullptr;
-  s.e = (float*)m.take(sizeof(float) * kRows * C);
-  s.cd = (float*)m.take(sizeof(float) * kRows * 3);
-  s.em = (float*)m.take(sizeof(float) * kRows);
-  s.gate = (float*)m.take(sizeof(float) * kRows);
-  s.dgr = (float*)m.take(sizeof(float) * kRows);
-  s.aux3 = (float*)m.take(sizeof(float) * kRows * 3);
-  s.la = (int*)m.take(sizeof(int) * kRows);
-  s.accH = (float*)m.take(fH * TA);
-  s.acc3 = (float*)m.take(sizeof(float) * TA * 3);
-}
-
-template <typename T>
-__device__ void load_f(float* dst, const void* src, int n) {
-  const T* p = (const T*)src;
-  for (int k = threadIdx.x; k < n; k += kThreads) dst[k] = Cvt<T>::to_f(p[k]);
-}
-
-template <typename T>
-__device__ void load_weights(const Args& a, Smem<T>& s) {
-  const int H = a.H, WS = weight_stride(H);
-  const T* W2 = (const T*)a.W2;
-  const T* W3 = (const T*)a.W3;
-  for (int k = threadIdx.x; k < H * H; k += kThreads) {
-    const int r = k / H, c = k - r * H;
-    s.W2[r * WS + c] = W2[k];
-    s.W3[r * WS + c] = W3[k];
-  }
-  load_f<T>(s.W1, a.W1, a.C * H);
-  load_f<T>(s.b1, a.b1, H);
-  load_f<T>(s.b2, a.b2, H);
-  load_f<T>(s.b3, a.b3, H);
-  load_f<T>(s.w4, a.w4, H);
-}
-
-// One chunk's rows g0 .. g0+kRows-1 of the block's row range [g0, g_end):
-// e, cd, em as f32 (zero past the end) and each row's atom within the tile.
-template <typename T>
-__device__ void load_chunk(const Args& a, Smem<T>& s, int g0, int g_end,
-                           int a0) {
-  const int C = a.C;
-  const T* E = (const T*)a.e;
-  const T* CD = (const T*)a.cd;
-  const T* EM = (const T*)a.em;
-  for (int k = threadIdx.x; k < kRows * C; k += kThreads) {
-    const int r = k / C, g = g0 + r;
-    s.e[k] = g < g_end ? Cvt<T>::to_f(E[(size_t)g * C + (k - r * C)]) : 0.f;
-  }
-  for (int k = threadIdx.x; k < kRows * 3; k += kThreads) {
-    const int g = g0 + k / 3;
-    s.cd[k] = g < g_end ? Cvt<T>::to_f(CD[(size_t)g0 * 3 + k]) : 0.f;
-  }
-  for (int r = threadIdx.x; r < kRows; r += kThreads) {
-    const int g = g0 + r;
-    s.em[r] = g < g_end ? Cvt<T>::to_f(EM[g]) : 0.f;
-    s.la[r] = g < g_end ? g / a.K - a0 : 0;
-  }
-}
-
-// pre1 = e W1 + b1 (f32); X = rnd(silu(pre1)); P1 = pre1 when given.
-template <typename T>
-__device__ void first_layer(const Smem<T>& s, int C, int H, float* X,
-                            float* P1) {
-  for (int idx = threadIdx.x; idx < kRows * H; idx += kThreads) {
-    const int r = idx / H, c = idx - r * H;
-    float z = 0.f;
-    for (int j = 0; j < C; ++j) z = fmaf(s.e[r * C + j], s.W1[j * H + c], z);
-    z += s.b1[c];
-    if (P1) P1[idx] = z;
-    X[idx] = rnd<T>(silu_f(z));
-  }
-}
-
-// Y[r, n] = sum_k X[r, k] W[k, n] (TRANS: W[n, k]) + bias[n] over the
-// chunk's rows, f32 accumulation. A thread owns one column n and kRowGroup
-// rows; X is read as float4 (H % 4 == 0).
-template <typename T, bool TRANS>
-__device__ void row_gemm(const float* __restrict__ X,
-                         const T* __restrict__ W,
-                         const float* __restrict__ bias,
-                         float* __restrict__ Y, int H) {
-  const int WS = weight_stride(H);
-  constexpr int groups = kRows / kRowGroup;
-  for (int w = threadIdx.x; w < H * groups; w += kThreads) {
-    const int n = w % H, g = w / H;
-    const float* x = X + g * kRowGroup * H;
-    float acc[kRowGroup];
-#pragma unroll
-    for (int q = 0; q < kRowGroup; ++q) acc[q] = 0.f;
-    for (int k = 0; k < H; k += 4) {
-      float wv[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        wv[u] = Cvt<T>::to_f(TRANS ? W[n * WS + k + u] : W[(k + u) * WS + n]);
-#pragma unroll
-      for (int q = 0; q < kRowGroup; ++q) {
-        const float4 xv = *reinterpret_cast<const float4*>(x + q * H + k);
-        acc[q] = fmaf(xv.x, wv[0], acc[q]);
-        acc[q] = fmaf(xv.y, wv[1], acc[q]);
-        acc[q] = fmaf(xv.z, wv[2], acc[q]);
-        acc[q] = fmaf(xv.w, wv[3], acc[q]);
-      }
-    }
-    const float bn = bias ? bias[n] : 0.f;
-    float* y = Y + g * kRowGroup * H;
-#pragma unroll
-    for (int q = 0; q < kRowGroup; ++q) y[q * H + n] = acc[q] + bn;
-  }
-}
-
-// dst[k, n] += sum_r Xs[r, k] G[r, n] over the chunk's rows, for k, n < H:
-// one 4x4 (k, n) tile per work item, added into the block's slice of the
-// partials in global memory.
-__device__ void outer_add(float* __restrict__ dst,
-                          const float* __restrict__ Xs,
-                          const float* __restrict__ G, int H) {
-  const int H4 = H / 4;
-  for (int w = threadIdx.x; w < H4 * H4; w += kThreads) {
-    const int kt = w / H4, nt = w - kt * H4;
-    float acc[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
-    for (int r = 0; r < kRows; ++r) {
-      const float4 x = *reinterpret_cast<const float4*>(Xs + r * H + 4 * kt);
-      const float4 g = *reinterpret_cast<const float4*>(G + r * H + 4 * nt);
-      const float xa[4] = {x.x, x.y, x.z, x.w}, ga[4] = {g.x, g.y, g.z, g.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(xa[u], ga[v], acc[u][v]);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float4* p = reinterpret_cast<float4*>(dst + (4 * kt + u) * H + 4 * nt);
-      float4 v = *p;
-      v.x += acc[u][0];
-      v.y += acc[u][1];
-      v.z += acc[u][2];
-      v.w += acc[u][3];
-      *p = v;
-    }
-  }
-}
-
-// gate[r] = sum_c rnd(silu(pre3[r, c])) w4[c] in f32, one warp per row.
-template <typename T>
-__device__ void gate_rows(Smem<T>& s, const float* P3, int H) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < kRows; r += kThreads / 32) {
-    float acc = 0.f;
-    for (int c = lane; c < H; c += 32)
-      acc = fmaf(rnd<T>(silu_f(P3[r * H + c])), s.w4[c], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) s.gate[r] = acc;
-  }
-}
-
-// Sums over K as runs of equal atom: dst[la][c] += sum of src[r][c] over
-// the chunk's rows r of that atom, in row order.
-template <typename T>
-__device__ void sum_runs(const Smem<T>& s, float* dst, const float* src,
-                         int ncols, int nrows) {
-  const int l0 = s.la[0], nl = s.la[nrows - 1] - l0 + 1;
-  for (int w = threadIdx.x; w < nl * ncols; w += kThreads) {
-    const int l = l0 + w / ncols, c = w % ncols;
-    float acc = 0.f;
-    for (int r = 0; r < nrows; ++r)
-      if (s.la[r] == l) acc += src[r * ncols + c];
-    dst[l * ncols + c] += acc;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) edge_fwd_kernel(Args a) {
-  extern __shared__ __align__(128) char smem_raw[];
-  const int tid = threadIdx.x, K = a.K, C = a.C, H = a.H, TA = a.TA;
-  Smem<T> s;
-  Bump m{smem_raw, 0};
-  carve<T>(m, s, C, H, TA, false);
-  float *X = s.buf[0], *Y = s.buf[1];
-  load_weights<T>(a, s);
-
-  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-    const int a0 = tile * TA, a1 = min(a0 + TA, a.A);
-    const int g_begin = a0 * K, g_end = a1 * K;
-    for (int k = tid; k < TA * H; k += kThreads) s.accH[k] = 0.f;
-    for (int k = tid; k < TA * 3; k += kThreads) s.acc3[k] = 0.f;
-    for (int g0 = g_begin; g0 < g_end; g0 += kRows) {
-      const int nrows = min(kRows, g_end - g0);
-      __syncthreads();
-      load_chunk<T>(a, s, g0, g_end, a0);
-      __syncthreads();
-      first_layer<T>(s, C, H, X, nullptr);                    // m1
-      __syncthreads();
-      row_gemm<T, false>(X, s.W2, s.b2, Y, H);                // pre2
-      __syncthreads();
-      for (int idx = tid; idx < kRows * H; idx += kThreads)
-        X[idx] = rnd<T>(silu_f(Y[idx]) * s.em[idx / H]);      // m
-      __syncthreads();
-      sum_runs<T>(s, s.accH, X, H, nrows);                    // agg
-      row_gemm<T, false>(X, s.W3, s.b3, Y, H);                // pre3
-      __syncthreads();
-      gate_rows<T>(s, Y, H);
-      __syncthreads();
-      for (int k = tid; k < kRows * 3; k += kThreads) {
-        const int r = k / 3;
-        const float t = fminf(fmaxf(s.cd[k] * s.gate[r], -100.f), 100.f);
-        s.aux3[k] = rnd<T>(t * s.em[r]);                      // tr
-      }
-      __syncthreads();
-      sum_runs<T>(s, s.acc3, s.aux3, 3, nrows);               // F_sum
-    }
-    __syncthreads();
-    T* agg = (T*)a.agg + (size_t)a0 * H;
-    T* fs = (T*)a.fs + (size_t)a0 * 3;
-    for (int k = tid; k < (a1 - a0) * H; k += kThreads)
-      agg[k] = Cvt<T>::from_f(s.accH[k]);
-    for (int k = tid; k < (a1 - a0) * 3; k += kThreads)
-      fs[k] = Cvt<T>::from_f(s.acc3[k]);
-    __syncthreads();
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) edge_bwd_kernel(Args a) {
-  extern __shared__ __align__(128) char smem_raw[];
-  const int tid = threadIdx.x, K = a.K, C = a.C, H = a.H, TA = a.TA;
-  Smem<T> s;
-  Bump m{smem_raw, 0};
-  carve<T>(m, s, C, H, TA, true);
-  float *X = s.buf[0], *P1 = s.buf[1], *P2 = s.buf[2], *P3 = s.buf[3];
-  const PartLayout L(C, H);
-  float* part = a.part + (size_t)blockIdx.x * L.P;
-  load_weights<T>(a, s);
-  const T* DAGG = (const T*)a.dagg;
-  const T* DFS = (const T*)a.dfs;
-  T* DE = (T*)a.de;
-  T* DCD = (T*)a.dcd;
-
-  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-    const int a0 = tile * TA, a1 = min(a0 + TA, a.A);
-    const int g_begin = a0 * K, g_end = a1 * K;
-    __syncthreads();
-    for (int k = tid; k < (a1 - a0) * H; k += kThreads)
-      s.accH[k] = Cvt<T>::to_f(DAGG[(size_t)a0 * H + k]);
-    for (int k = tid; k < (a1 - a0) * 3; k += kThreads)
-      s.acc3[k] = Cvt<T>::to_f(DFS[(size_t)a0 * 3 + k]);
-    for (int g0 = g_begin; g0 < g_end; g0 += kRows) {
-      __syncthreads();
-      load_chunk<T>(a, s, g0, g_end, a0);
-      __syncthreads();
-      // -- recompute the forward (the inputs are the only residuals)
-      first_layer<T>(s, C, H, X, P1);                         // m1, pre1
-      __syncthreads();
-      row_gemm<T, false>(X, s.W2, s.b2, P2, H);               // pre2
-      __syncthreads();
-      for (int idx = tid; idx < kRows * H; idx += kThreads)
-        X[idx] = rnd<T>(silu_f(P2[idx]) * s.em[idx / H]);     // m
-      __syncthreads();
-      row_gemm<T, false>(X, s.W3, s.b3, P3, H);               // pre3
-      __syncthreads();
-      gate_rows<T>(s, P3, H);
-      __syncthreads();
-
-      // -- gate / force branch, per row (f32; strict clip mask)
-      for (int r = tid; r < kRows; r += kThreads) {
-        const int g = g0 + r;
-        const float gate = s.gate[r], em = s.em[r];
-        float dgate = 0.f;
-        for (int d = 0; d < 3; ++d) {
-          const float c = s.cd[r * 3 + d];
-          const float pre = c * gate;
-          const float inside = (pre > -100.f && pre < 100.f) ? 1.f : 0.f;
-          const float dtr = s.acc3[s.la[r] * 3 + d] * inside * em;
-          dgate = fmaf(c, dtr, dgate);
-          if (g < g_end) DCD[(size_t)g * 3 + d] = Cvt<T>::from_f(gate * dtr);
-        }
-        s.dgr[r] = rnd<T>(dgate);
-      }
-      __syncthreads();
-
-      // -- dw4, dpre3 (into P3, rounded) and db3, one thread per column
-      for (int c = tid; c < H; c += kThreads) {
-        float aw4 = 0.f, ab3 = 0.f;
-        for (int r = 0; r < kRows; ++r) {
-          const float p = P3[r * H + c];
-          aw4 = fmaf(rnd<T>(silu_f(p)), s.dgr[r], aw4);
-          const float d = (s.dgr[r] * s.w4[c]) * dsilu_f(p);
-          ab3 += d;
-          P3[r * H + c] = rnd<T>(d);
-        }
-        part[L.dw4 + c] += aw4;
-        part[L.db3 + c] += ab3;
-      }
-      __syncthreads();
-      outer_add(part + L.dW3, X, P3, H);                      // m^T dpre3
-      __syncthreads();
-      row_gemm<T, true>(P3, s.W3, nullptr, X, H);             // dpre3 W3^T
-      __syncthreads();
-
-      // -- dm, dpre2 (into P2, rounded), db2; X becomes m1 again
-      for (int c = tid; c < H; c += kThreads) {
-        float ab2 = 0.f;
-        for (int r = 0; r < kRows; ++r) {
-          const int idx = r * H + c;
-          const float dm = (s.accH[s.la[r] * H + c] + X[idx]) * s.em[r];
-          const float d = dm * dsilu_f(P2[idx]);
-          ab2 += d;
-          P2[idx] = rnd<T>(d);
-          X[idx] = rnd<T>(silu_f(P1[idx]));                   // m1
-        }
-        part[L.db2 + c] += ab2;
-      }
-      __syncthreads();
-      outer_add(part + L.dW2, X, P2, H);                      // m1^T dpre2
-      __syncthreads();
-      row_gemm<T, true>(P2, s.W2, nullptr, X, H);             // dpre2 W2^T
-      __syncthreads();
-
-      // -- dpre1 (into P1, rounded) and db1
-      for (int c = tid; c < H; c += kThreads) {
-        float ab1 = 0.f;
-        for (int r = 0; r < kRows; ++r) {
-          const int idx = r * H + c;
-          const float d = X[idx] * dsilu_f(P1[idx]);
-          ab1 += d;
-          P1[idx] = rnd<T>(d);
-        }
-        part[L.db1 + c] += ab1;
-      }
-      __syncthreads();
-
-      // -- de = rnd(dpre1 W1^T), one warp per row; dW1 = e^T dpre1
-      {
-        const int warp = tid >> 5, lane = tid & 31;
-        for (int r = warp; r < kRows; r += kThreads / 32) {
-          const int g = g0 + r;
-          for (int j = 0; j < C; ++j) {
-            float acc = 0.f;
-            for (int c = lane; c < H; c += 32)
-              acc = fmaf(P1[r * H + c], s.W1[j * H + c], acc);
-            acc = warp_sum(acc);
-            if (lane == 0 && g < g_end)
-              DE[(size_t)g * C + j] = Cvt<T>::from_f(acc);
-          }
-        }
-      }
-      for (int w = tid; w < C * H; w += kThreads) {
-        const int j = w / H, c = w - j * H;
-        float acc = 0.f;
-        for (int r = 0; r < kRows; ++r)
-          acc = fmaf(s.e[r * C + j], P1[r * H + c], acc);
-        part[L.dW1 + w] += acc;
-      }
-    }
-  }
-}
-
-template <typename T>
-size_t smem_bytes(int C, int H, int TA, bool bwd) {
-  Smem<T> s;
-  Bump m{nullptr, 0};
-  carve<T>(m, s, C, H, TA, bwd);
-  return m.off;
-}
-
-template <typename T> constexpr int kHMult = sizeof(T) == 2 ? 16 : 4;
-
-template <typename T> bool valid_dims(int C, int H, int TA) {
-  return C >= 1 && TA >= 1 && H >= kHMult<T> && H % kHMult<T> == 0;
-}
-
-template <typename T>
-int launch(const Args& a, bool bwd, int blocks, cudaStream_t stream) {
-  if (!valid_dims<T>(a.C, a.H, a.TA) || a.A < 1 || a.K < 1 || blocks < 1)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<T>(a.C, a.H, a.TA, bwd);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  void (*kernel)(Args) = bwd ? edge_bwd_kernel<T> : edge_fwd_kernel<T>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, kThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-int dispatch(int dtype, const Args& a, bool bwd, int blocks, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(a, bwd, blocks, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, bwd, blocks, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-
 // ===========================================================================
-// The tiled kernels (H = 64 and 128, f32): see the header note.
+// The tiled kernels (f32): see the header note.
 // ===========================================================================
 
 constexpr int kQmaxFwd = 9;   // at most 72 rows a tile (forward)
 constexpr int kQmaxBwd = 5;   // at most 40 rows a tile (backward)
+// weight slabs the ring holds, and the k of a product's sum a slab holds
+// (H = 192 and 256)
+constexpr int kRing = 2;
+constexpr int kSlab = 64;
+
+// The widths whose W2 and W3 a block holds whole; the others (192, 256)
+// stream them through the ring.
+__host__ __device__ constexpr bool resident(int H) {
+  return H == 64 || H == 128;
+}
 
 // cp.async: 4-byte (any word) and 16-byte copies, global -> shared.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -674,6 +246,7 @@ __device__ __forceinline__ const float* wchunk(const float* W, int r, int kc) {
 
 struct TSmem {
   float *W2, *W3, *W1, *b1, *b2, *b3, *w4;
+  float* ring;          // H = 192, 256: kRing slabs [kSlab H] (no W2, W3)
   float* X[3];          // activation tiles [R, H + 4]
   float* aux3;          // forward: tr [R, 3]
   float* gpart;         // the gate's partial sums [R, H / 32]
@@ -698,8 +271,13 @@ __host__ __device__ inline int align16(size_t n) {
 __host__ __device__ inline void tcarve(Bump& m, TSmem& s, int C, int H,
                                       int TA, int R, int tsz, bool bwd) {
   const size_t fH = sizeof(float) * H;
-  s.W2 = (float*)m.take(fH * H);
-  s.W3 = (float*)m.take(fH * H);
+  s.W2 = s.W3 = s.ring = nullptr;
+  if (resident(H)) {
+    s.W2 = (float*)m.take(fH * H);
+    s.W3 = (float*)m.take(fH * H);
+  } else {
+    s.ring = (float*)m.take(fH * kSlab * kRing);
+  }
   s.W1 = (float*)m.take(fH * C);
   s.b1 = (float*)m.take(fH);
   s.b2 = (float*)m.take(fH);
@@ -747,6 +325,68 @@ __device__ void load_tiled_weights(const Args& a, const TSmem& s) {
     cp_async16(s.W2 + dst, (const float*)a.W2 + 4 * k);
     cp_async16(s.W3 + dst, (const float*)a.W3 + 4 * k);
   }
+}
+
+// The streamed widths' place in their stream of weight slabs. Slab s of
+// the stream is product (s / G) % nprod of a row tile, G = H / kSlab: W2
+// (X W), W3 (X W), and for the backward W3 (X W^T), W2 (X W^T); within it
+// the k 64 (s % G) ..; it lands in slot slot_of(s) of the ring. Every
+// thread keeps the same copy. (The resident widths carry an unused one.)
+struct Ring {
+  float* slots;            // the ring in shared memory
+  const float *W2, *W3;    // [H, H] in global memory
+  int s;                   // the next slab to use
+  int nprod;               // products a row tile: 2 forward, 4 backward
+};
+
+__device__ __forceinline__ int slot_of(int s) { return s % kRing; }
+
+// The block's copies of slab s into its slot, one commit group: for X W
+// W's rows 64 g .. 64 g + 63 as [kSlab, H], for X W^T W's columns 64 g ..
+// 64 g + 63 as [H, kSlab], each 16-byte chunk kc of row r at chunk
+// kc ^ ((r / 4) % 8) of its row.
+template <int H>
+__device__ void issue_slab(const Ring& rg, int s) {
+  constexpr int NT = 2 * H, G = H / kSlab, CH = H / 4, CS = kSlab / 4;
+  const int prod = (s / G) % rg.nprod, g = s % G;
+  const float* W = prod == 0 || prod == 3 ? rg.W2 : rg.W3;
+  float* dst = rg.slots + (size_t)slot_of(s) * (kSlab * H);
+  if (prod < 2)
+    for (int k = threadIdx.x; k < kSlab * CH; k += NT) {
+      const int r = k / CH, kc = k % CH;
+      cp_async16(dst + r * H + ((kc ^ ((r >> 2) & 7)) << 2),
+                 W + (size_t)(kSlab * g + r) * H + 4 * kc);
+    }
+  else
+    for (int k = threadIdx.x; k < H * CS; k += NT) {
+      const int r = k / CS, kc = k % CS;
+      cp_async16(dst + r * kSlab + ((kc ^ ((r >> 2) & 7)) << 2),
+                 W + (size_t)r * H + kSlab * g + 4 * kc);
+    }
+  cp_async_commit();
+}
+
+// The ring of a kernel (nprod products a row tile): at the streamed widths
+// the first kRing - 1 slabs issued, each its own commit group (where the
+// resident widths commit W2 and W3).
+template <int H>
+__device__ Ring start_ring(const Args& a, const TSmem& s, int nprod) {
+  Ring rg{s.ring, (const float*)a.W2, (const float*)a.W3, 0, nprod};
+  if constexpr (!resident(H))
+    for (int k = 0; k < kRing - 1; ++k) issue_slab<H>(rg, k);
+  return rg;
+}
+
+// Slab rg.s once it has landed: this thread's copies waited for, then
+// everyone's published (the barrier also tells that every reader of slab
+// s - 1 is done), then slab s + kRing - 1 issued into slab s - 1's slot
+// while slab s is in use.
+template <int H>
+__device__ __forceinline__ const float* next_slab(Ring& rg) {
+  cp_async_wait<kRing - 2>();
+  __syncthreads();
+  issue_slab<H>(rg, rg.s + kRing - 1);
+  return rg.slots + (size_t)slot_of(rg.s++) * (kSlab * H);
 }
 
 // A block's work: atom tiles blockIdx.x, + gridDim.x, ... of TA whole atoms
@@ -912,16 +552,82 @@ __device__ __forceinline__ void product(const float* __restrict__ X,
   }
 }
 
-// product<Q> for the tile's runtime row count q = 1 .. QM (one unrolled
-// copy each, so the accumulators stay in registers).
+// product<> over slab g of a streamed product, added to acc: the k of
+// 64 g .. 64 g + 63, W[k][4cx..] read from the [kSlab, H] slab S (TRANS:
+// W[4cx + u][k..] from the [H, kSlab] slab), the FMAs of product<> in its
+// k order.
+template <int H, int Q, bool TRANS, int QM>
+__device__ __forceinline__ void product_slab(const float* __restrict__ X,
+                                             const float* __restrict__ S,
+                                             int g, int ry, int cx,
+                                             float (&acc)[QM][4]) {
+  constexpr int LD = H + 4;
+  const float* x0 = X + ry * LD + kSlab * g;
+#pragma unroll 1
+  for (int kc = 0; kc < kSlab / 4; ++kc) {
+    float4 w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = *reinterpret_cast<const float4*>(
+          TRANS ? S + (4 * cx + j) * kSlab + ((kc ^ (cx & 7)) << 2)
+                : S + (4 * kc + j) * H + ((cx ^ (kc & 7)) << 2));
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(x0 + i * 8 * LD + 4 * kc);
+      if constexpr (TRANS) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float t = acc[i][u];
+          t = fmaf(x.x, w[u].x, t);
+          t = fmaf(x.y, w[u].y, t);
+          t = fmaf(x.z, w[u].z, t);
+          acc[i][u] = fmaf(x.w, w[u].w, t);
+        }
+      } else {
+        acc[i][0] = fmaf(x.w, w[3].x, fmaf(x.z, w[2].x,
+                    fmaf(x.y, w[1].x, fmaf(x.x, w[0].x, acc[i][0]))));
+        acc[i][1] = fmaf(x.w, w[3].y, fmaf(x.z, w[2].y,
+                    fmaf(x.y, w[1].y, fmaf(x.x, w[0].y, acc[i][1]))));
+        acc[i][2] = fmaf(x.w, w[3].z, fmaf(x.z, w[2].z,
+                    fmaf(x.y, w[1].z, fmaf(x.x, w[0].z, acc[i][2]))));
+        acc[i][3] = fmaf(x.w, w[3].w, fmaf(x.z, w[2].w,
+                    fmaf(x.y, w[1].w, fmaf(x.x, w[0].w, acc[i][3]))));
+      }
+    }
+  }
+}
+
+// A streamed product: its H / kSlab slabs taken from the ring in the
+// stream's order (the tile's order of products, so W is not named), the
+// accumulators kept across them.
+template <int H, int Q, bool TRANS, int QM>
+__device__ __forceinline__ void product_stream(Ring& rg, const float* X,
+                                               int ry, int cx,
+                                               float (&acc)[QM][4]) {
+#pragma unroll
+  for (int i = 0; i < Q; ++i)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
+#pragma unroll 1
+  for (int g = 0; g < H / kSlab; ++g)
+    product_slab<H, Q, TRANS, QM>(X, next_slab<H>(rg), g, ry, cx, acc);
+}
+
+// product<Q> (at the streamed widths product_stream<Q>) for the tile's
+// runtime row count q = 1 .. QM (one unrolled copy each, so the
+// accumulators stay in registers).
 template <int H, bool TRANS, int QM, int Q = 1>
-__device__ __forceinline__ void product_q(int q, const float* X,
+__device__ __forceinline__ void product_q(int q, Ring& rg, const float* X,
                                           const float* W, int ry, int cx,
                                           float (&acc)[QM][4]) {
   if (q == Q) {
-    product<H, Q, TRANS, QM>(X, W, ry, cx, acc);
+    if constexpr (resident(H))
+      product<H, Q, TRANS, QM>(X, W, ry, cx, acc);
+    else
+      product_stream<H, Q, TRANS, QM>(rg, X, ry, cx, acc);
   } else if constexpr (Q < QM) {
-    product_q<H, TRANS, QM, Q + 1>(q, X, W, ry, cx, acc);
+    product_q<H, TRANS, QM, Q + 1>(q, rg, X, W, ry, cx, acc);
   }
 }
 
@@ -958,6 +664,65 @@ __device__ __forceinline__ void outer(const float* __restrict__ L,
   }
 }
 
+// outer<H> at the streamed widths, into the block's slice dW [H, H] in
+// global memory: per 64-column group b the thread's 8 k by 4 n (those of
+// outer<H>'s tile) read, added to over the tile's rows in row order and
+// written back, by this thread alone: the FMAs and order of the register
+// tile.
+template <int H>
+__device__ __forceinline__ void outer_slice(const float* __restrict__ L,
+                                            const float* __restrict__ G,
+                                            int nr, int ky, int nx,
+                                            float* dW) {
+  constexpr int LD = H + 4;
+#pragma unroll 1
+  for (int b = 0; b < H / 64; ++b) {
+    const int n = 64 * b + 4 * nx;
+    float acc[8][4];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int k = 4 * ky + (q & 3) + (q >> 2) * (H / 2);
+      const float4 t = *reinterpret_cast<const float4*>(dW + k * H + n);
+      acc[q][0] = t.x;
+      acc[q][1] = t.y;
+      acc[q][2] = t.z;
+      acc[q][3] = t.w;
+    }
+#pragma unroll 2
+    for (int r = 0; r < nr; ++r) {
+      const float* l = L + r * LD;
+      const float4 la = *reinterpret_cast<const float4*>(l + 4 * ky);
+      const float4 lb = *reinterpret_cast<const float4*>(l + H / 2 + 4 * ky);
+      const float lv[8] = {la.x, la.y, la.z, la.w, lb.x, lb.y, lb.z, lb.w};
+      const float4 t = *reinterpret_cast<const float4*>(G + r * LD + n);
+      const float gv[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[q][u] = fmaf(lv[q], gv[u], acc[q][u]);
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int k = 4 * ky + (q & 3) + (q >> 2) * (H / 2);
+      *reinterpret_cast<float4*>(dW + k * H + n) =
+          make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+    }
+  }
+}
+
+// The thread's elements of outer_slice's dW, zeroed (by the thread that
+// adds into them).
+template <int H>
+__device__ __forceinline__ void zero_slice(int ky, int nx, float* dW) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+#pragma unroll
+    for (int b = 0; b < H / 64; ++b)
+      *reinterpret_cast<float4*>(
+          dW + (4 * ky + (q & 3) + (q >> 2) * (H / 2)) * H + 64 * b + 4 * nx) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
 // Sums over K of the tile's rows [g0, g0 + nr) as runs of equal atom, one
 // (atom, column) a thread, in row order: dst[l][c] += sum src[r][c].
 __device__ __forceinline__ void ksum_rows(float* dst, int ncols,
@@ -988,14 +753,17 @@ __global__ void __launch_bounds__(2 * H, 1) edge_tiled_fwd_kernel(Args a) {
   const int cx = 8 * (wp % CW) + (lane & 7), ry = 4 * (wp / CW) + (lane >> 3);
   const int c0 = 4 * cx;
   // the first tile's rows, then W2 and W3 (waited for after the first
-  // layer, which needs neither)
+  // layer, which needs neither) or, streamed, the ring's first slab
   Cursor cur{(int)blockIdx.x, (int)blockIdx.x * a.TA * K};
   int st = 0;
   if (cur.tile < a.n_tiles) prefetch_rows<T, H>(a, s, st, cur);
   load_small<T, H>(a, s);
   cp_async_commit();
-  load_tiled_weights<T, H>(a, s);
-  cp_async_commit();
+  Ring rg = start_ring<H>(a, s, 2);
+  if constexpr (resident(H)) {
+    load_tiled_weights<T, H>(a, s);
+    cp_async_commit();
+  }
   bool first = true;
   float acc[QM][4];
   while (cur.tile < a.n_tiles) {
@@ -1015,10 +783,11 @@ __global__ void __launch_bounds__(2 * H, 1) edge_tiled_fwd_kernel(Args a) {
       for (int k = tid; k < a.TA * 3; k += NT) s.acc3[k] = 0.f;
     }
     first_layer_tiled<T, H, QM>(s, v, q, ry, c0, s.X[0]);             // m1
-    if (first) cp_async_wait_n(more);                         // W2, W3
+    if constexpr (resident(H))
+      if (first) cp_async_wait_n(more);                       // W2, W3
     first = false;
     __syncthreads();
-    product_q<H, false, QM>(q, s.X[0], s.W2, ry, cx, acc);   // pre2
+    product_q<H, false, QM>(q, rg, s.X[0], s.W2, ry, cx, acc); // pre2
 #pragma unroll
     for (int i = 0; i < QM; ++i) {
       if (i >= q) break;
@@ -1033,7 +802,7 @@ __global__ void __launch_bounds__(2 * H, 1) edge_tiled_fwd_kernel(Args a) {
     }
     __syncthreads();
     ksum_rows(s.accH, H, s.X[1], LD, a0, g0, nr, K, NT);       // agg
-    product_q<H, false, QM>(q, s.X[1], s.W3, ry, cx, acc);   // pre3
+    product_q<H, false, QM>(q, rg, s.X[1], s.W3, ry, cx, acc); // pre3
 #pragma unroll
     for (int i = 0; i < QM; ++i) {
       if (i >= q) break;
@@ -1070,12 +839,15 @@ __global__ void __launch_bounds__(2 * H, 1) edge_tiled_fwd_kernel(Args a) {
     st ^= 1;
     cur = nxt;
   }
+  if constexpr (!resident(H)) cp_async_wait<0>();    // the slab issued ahead
 }
 
 template <typename T, int H>
 __global__ void __launch_bounds__(2 * H, 1) edge_tiled_bwd_kernel(Args a) {
   constexpr int NT = 2 * H, CW = H / 32, LD = H + 4, QM = kQmaxBwd;
-  constexpr int NG = H / 64;
+  // the register tile of dW2 / dW3 (at the streamed widths unused: they
+  // are added into the block's slice in place, outer_slice)
+  constexpr int NG = resident(H) ? H / 64 : 1;
   extern __shared__ __align__(128) char smem_raw[];
   const int tid = threadIdx.x, K = a.K, C = a.C;
   TSmem s;
@@ -1088,8 +860,10 @@ __global__ void __launch_bounds__(2 * H, 1) edge_tiled_bwd_kernel(Args a) {
   const int nx = tid % 16, ky = tid / 16;
   T* DE = (T*)a.de;
   T* DCD = (T*)a.dcd;
+  const PartLayout L(C, H);
+  float* part = a.part + (size_t)blockIdx.x * L.P;
   // the first tile's rows and atoms, then W2 and W3 (waited for after the
-  // first layer, which needs neither)
+  // first layer, which needs neither) or, streamed, the ring's first slab
   Cursor cur{(int)blockIdx.x, (int)blockIdx.x * a.TA * K};
   int st = 0, ab = 0;
   if (cur.tile < a.n_tiles) {
@@ -1098,14 +872,20 @@ __global__ void __launch_bounds__(2 * H, 1) edge_tiled_bwd_kernel(Args a) {
   }
   load_small<T, H>(a, s);
   cp_async_commit();
-  load_tiled_weights<T, H>(a, s);
-  cp_async_commit();
+  Ring rg = start_ring<H>(a, s, 4);
+  if constexpr (resident(H)) {
+    load_tiled_weights<T, H>(a, s);
+    cp_async_commit();
+  } else {
+    zero_slice<H>(ky, nx, part + L.dW2);
+    zero_slice<H>(ky, nx, part + L.dW3);
+  }
   for (int k = tid; k < C * H; k += NT) s.dW1[k] = 0.f;
   bool first = true;
 
   // the block's parameter-gradient sums: dW2, dW3 in registers (the
-  // outer-product tile), the column sums per thread (its 4 columns, its
-  // rows), dW1 in shared memory
+  // outer-product tile; streamed, in the slice), the column sums per thread
+  // (its 4 columns, its rows), dW1 in shared memory
   float dW2[8][4 * NG], dW3[8][4 * NG];
 #pragma unroll
   for (int p = 0; p < 8; ++p)
@@ -1137,10 +917,11 @@ __global__ void __launch_bounds__(2 * H, 1) edge_tiled_bwd_kernel(Args a) {
 
     // -- recompute the forward: m1 -> X0; pre2 -> X2, m -> X1
     first_layer_tiled<T, H, QM>(s, v, q, ry, c0, X0);
-    if (first) cp_async_wait_n(more);                         // W2, W3
+    if constexpr (resident(H))
+      if (first) cp_async_wait_n(more);                       // W2, W3
     first = false;
     __syncthreads();
-    product_q<H, false, QM>(q, X0, s.W2, ry, cx, acc);
+    product_q<H, false, QM>(q, rg, X0, s.W2, ry, cx, acc);
 #pragma unroll
     for (int i = 0; i < QM; ++i) {
       if (i >= q) break;
@@ -1162,7 +943,7 @@ __global__ void __launch_bounds__(2 * H, 1) edge_tiled_bwd_kernel(Args a) {
     // -- pre3 (in acc), g1 -> X0 and the gate's partial sums; then the
     //    force branch per row (f32; strict clip mask), dw4, db3 and dpre3
     //    (rounded) -> X0
-    product_q<H, false, QM>(q, X1, s.W3, ry, cx, acc);
+    product_q<H, false, QM>(q, rg, X1, s.W3, ry, cx, acc);
 #pragma unroll
     for (int i = 0; i < QM; ++i) {
       if (i >= q) break;
@@ -1220,8 +1001,11 @@ __global__ void __launch_bounds__(2 * H, 1) edge_tiled_bwd_kernel(Args a) {
     __syncthreads();
 
     // -- dW3 += m^T dpre3; dm = dagg + dpre3 W3^T; dpre2 (rounded) -> X2
-    outer<H>(X1, X0, nr, ky, nx, dW3);
-    product_q<H, true, QM>(q, X0, s.W3, ry, cx, acc);
+    if constexpr (resident(H))
+      outer<H>(X1, X0, nr, ky, nx, dW3);
+    else
+      outer_slice<H>(X1, X0, nr, ky, nx, part + L.dW3);
+    product_q<H, true, QM>(q, rg, X0, s.W3, ry, cx, acc);
 #pragma unroll
     for (int i = 0; i < QM; ++i) {
       if (i >= q) break;
@@ -1247,8 +1031,11 @@ __global__ void __launch_bounds__(2 * H, 1) edge_tiled_bwd_kernel(Args a) {
     __syncthreads();
 
     // -- dW2 += m1^T dpre2; dm1 = dpre2 W2^T; dpre1 (rounded) -> X0, db1
-    outer<H>(X1, X2, nr, ky, nx, dW2);
-    product_q<H, true, QM>(q, X2, s.W2, ry, cx, acc);
+    if constexpr (resident(H))
+      outer<H>(X1, X2, nr, ky, nx, dW2);
+    else
+      outer_slice<H>(X1, X2, nr, ky, nx, part + L.dW2);
+    product_q<H, true, QM>(q, rg, X2, s.W2, ry, cx, acc);
 #pragma unroll
     for (int i = 0; i < QM; ++i) {
       if (i >= q) break;
@@ -1296,20 +1083,21 @@ __global__ void __launch_bounds__(2 * H, 1) edge_tiled_bwd_kernel(Args a) {
   }
 
   // -- the block's slice of the partials, written once with plain stores
-  const PartLayout L(C, H);
-  float* part = a.part + (size_t)blockIdx.x * L.P;
+  // (the streamed widths wrote dW2 and dW3 in place, outer_slice)
+  if constexpr (resident(H)) {
 #pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int k = 4 * ky + (p & 3) + (p >> 2) * (H / 2);
+    for (int p = 0; p < 8; ++p) {
+      const int k = 4 * ky + (p & 3) + (p >> 2) * (H / 2);
 #pragma unroll
-    for (int b = 0; b < NG; ++b) {
-      const int n = 64 * b + 4 * nx;
-      *reinterpret_cast<float4*>(part + L.dW2 + k * H + n) = make_float4(
-          dW2[p][4 * b], dW2[p][4 * b + 1], dW2[p][4 * b + 2],
-          dW2[p][4 * b + 3]);
-      *reinterpret_cast<float4*>(part + L.dW3 + k * H + n) = make_float4(
-          dW3[p][4 * b], dW3[p][4 * b + 1], dW3[p][4 * b + 2],
-          dW3[p][4 * b + 3]);
+      for (int b = 0; b < NG; ++b) {
+        const int n = 64 * b + 4 * nx;
+        *reinterpret_cast<float4*>(part + L.dW2 + k * H + n) = make_float4(
+            dW2[p][4 * b], dW2[p][4 * b + 1], dW2[p][4 * b + 2],
+            dW2[p][4 * b + 3]);
+        *reinterpret_cast<float4*>(part + L.dW3 + k * H + n) = make_float4(
+            dW3[p][4 * b], dW3[p][4 * b + 1], dW3[p][4 * b + 2],
+            dW3[p][4 * b + 3]);
+      }
     }
   }
   for (int k = tid; k < C * H; k += NT) part[L.dW1 + k] = s.dW1[k];
@@ -1330,6 +1118,7 @@ __global__ void __launch_bounds__(2 * H, 1) edge_tiled_bwd_kernel(Args a) {
   column_sums(pb3, L.db3);
   column_sums(pb2, L.db2);
   column_sums(pb1, L.db1);
+  if constexpr (!resident(H)) cp_async_wait<0>();    // the slab issued ahead
 }
 
 template <typename T, int H>
@@ -1341,14 +1130,19 @@ size_t tiled_smem_bytes(int C, int TA, int R, bool bwd) {
 }
 
 bool tiled_dims(int H, int C, int TA, int R, bool bwd) {
-  return (H == 64 || H == 128) && C >= 1 && TA >= 1 && R >= 8 &&
-         R % 8 == 0 && R <= 8 * (bwd ? kQmaxBwd : kQmaxFwd);
+  return (H == 64 || H == 128 || H == 192 || H == 256) && C >= 1 &&
+         TA >= 1 && R >= 8 && R % 8 == 0 &&
+         R <= 8 * (bwd ? kQmaxBwd : kQmaxFwd);
 }
 
 long long tiled_smem(int dtype, int C, int H, int TA, int R, bool bwd) {
   if (!tiled_dims(H, C, TA, R, bwd) || dtype != 0) return -1;
-  return (long long)(H == 64 ? tiled_smem_bytes<float, 64>(C, TA, R, bwd)
-                             : tiled_smem_bytes<float, 128>(C, TA, R, bwd));
+  switch (H) {
+    case 64: return (long long)tiled_smem_bytes<float, 64>(C, TA, R, bwd);
+    case 128: return (long long)tiled_smem_bytes<float, 128>(C, TA, R, bwd);
+    case 192: return (long long)tiled_smem_bytes<float, 192>(C, TA, R, bwd);
+    default: return (long long)tiled_smem_bytes<float, 256>(C, TA, R, bwd);
+  }
 }
 
 template <typename T, int H>
@@ -1375,67 +1169,34 @@ int tiled_dispatch(int dtype, const Args& a, bool bwd, int blocks,
       blocks < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return a.H == 64 ? tiled_launch<float, 64>(a, bwd, blocks, st)
-                   : tiled_launch<float, 128>(a, bwd, blocks, st);
+  switch (a.H) {
+    case 64: return tiled_launch<float, 64>(a, bwd, blocks, st);
+    case 128: return tiled_launch<float, 128>(a, bwd, blocks, st);
+    case 192: return tiled_launch<float, 192>(a, bwd, blocks, st);
+    default: return tiled_launch<float, 256>(a, bwd, blocks, st);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one block, or -1 for sizes the kernel does not
-// take (dtype, H multiple). A launch needs at most edge_pipeline_smem_limit().
-long long edge_pipeline_smem_bytes(int dtype, int C, int H, int TA, int bwd) {
-  if (dtype == 0 && valid_dims<float>(C, H, TA))
-    return (long long)smem_bytes<float>(C, H, TA, bwd != 0);
-  if (dtype == 1 && valid_dims<__nv_bfloat16>(C, H, TA))
-    return (long long)smem_bytes<__nv_bfloat16>(C, H, TA, bwd != 0);
-  return -1;
-}
-
 long long edge_pipeline_smem_limit() { return (long long)kMaxSmem; }
 
-// Floats in one block's slice of the parameter-gradient partials.
-int edge_pipeline_part_size(int C, int H) { return PartLayout(C, H).P; }
-
-// dtype: 0 = float32, 1 = bfloat16 (every tensor but the partials, which
-// are float32 and zeroed by the caller). Atoms are taken in tiles of TA,
-// tiles spread over `blocks` blocks. Returns the cudaError_t of the launch.
-int edge_pipeline_fwd(int dtype, int A, int K, int C, int H, int TA,
-                      int blocks, const void* e, const void* cd,
-                      const void* em, const void* W1, const void* b1,
-                      const void* W2, const void* b2, const void* W3,
-                      const void* b3, const void* w4, void* agg, void* fs,
-                      void* stream) {
-  const int n_tiles = (A + TA - 1) / TA;
-  Args a{A, K, C, H, TA, n_tiles, e, cd, em, W1, b1, W2, b2, W3, b3, w4,
-         nullptr, nullptr, agg, fs, nullptr, nullptr, nullptr};
-  return dispatch(dtype, a, false, blocks, stream);
-}
-
-int edge_pipeline_bwd(int dtype, int A, int K, int C, int H, int TA,
-                      int blocks, const void* e, const void* cd,
-                      const void* em, const void* W1, const void* b1,
-                      const void* W2, const void* b2, const void* W3,
-                      const void* b3, const void* w4, const void* dagg,
-                      const void* dfs, void* de, void* dcd, void* part,
-                      void* stream) {
-  const int n_tiles = (A + TA - 1) / TA;
-  Args a{A, K, C, H, TA, n_tiles, e, cd, em, W1, b1, W2, b2, W3, b3, w4,
-         dagg, dfs, nullptr, nullptr, de, dcd, (float*)part};
-  return dispatch(dtype, a, true, blocks, stream);
-}
-
-// The tiled kernels (H = 64 or 128, float32: dtype 0; see the header):
-// dynamic shared memory of one block at R rows a tile (R % 8 == 0, at most
-// 72 forward and 40 backward), or -1 for sizes they do not take.
+// Dynamic shared memory of one block at R rows a tile (R % 8 == 0, at most
+// 72 forward and 40 backward; float32: dtype 0; H = 64, 128, 192 or 256),
+// or -1 for sizes the kernels do not take. A launch needs at most
+// edge_pipeline_smem_limit().
 long long edge_tiled_smem_bytes(int dtype, int C, int H, int TA, int R,
                                 int bwd) {
   return tiled_smem(dtype, C, H, TA, R, bwd != 0);
 }
 
-// As edge_pipeline_fwd / _bwd, with R rows a tile; the backward writes
-// every element of its block's slice of `part` (no zeroing needed).
+// dtype 0 (float32) throughout. Atoms are taken in tiles of TA, tiles
+// spread over `blocks` blocks, each atom tile's rows in row tiles of R.
+// The backward's `part` is one slice of C H + 2 H^2 + 4 H floats
+// (PartLayout) a block, every element written (no zeroing needed).
+// Returns the cudaError_t of the launch (0 on success).
 int edge_tiled_fwd(int dtype, int A, int K, int C, int H, int TA, int R,
                    int blocks, const void* e, const void* cd, const void* em,
                    const void* W1, const void* b1, const void* W2,

@@ -1,6 +1,6 @@
 // Gathered-edge EGCL pipeline in bf16, designed for Hopper (sm_90a): the
 // forward (K5) and the backward with input and all seven parameter
-// gradients (K6), at H = 64 or 128.
+// gradients (K6), at H = 64, 128, 192 or 256.
 //
 // Replaces the Pallas TPU kernels of enflow_tpu/ops/edge_kernel.py for the
 // bf16 compute dtype:
@@ -12,8 +12,9 @@
 // g1, tr, agg and F_sum are rounded to bf16, and pre1-pre3, gate, dtr,
 // dgate and the dpre* stay f32; the left operands dpre*.astype(dt) of the
 // backward's products, de and dcd are rounded; the clip mask of the
-// backward is strict (-100 < x < 100). The f32 kernels and the other
-// hidden widths stay in edge_pipeline.cu.
+// backward is strict (-100 < x < 100). The f32 kernels are in
+// edge_pipeline.cu; the wrapper zero-pads every other width up to the next
+// of these four (ops/edge_pipeline.py).
 //
 // What bounds it on this card. At the top-k sampler's shape (A = 2048 x 13
 // atoms, K = 8, C = 11, H = 128) a forward does ~15 GFLOP and a backward
@@ -73,6 +74,27 @@
 //   the registers) each tile's product goes into the warpgroup's f32 slice
 //   in global memory, as dW2 and dW3 do. (These and the column sums below
 //   were not measured against other forms.)
+// - Wide hidden widths (H = 192, 256; one warpgroup a block). W2 + W3 are
+//   4 H^2 bytes, 262,144 at H = 256, more than a block may use beside the
+//   tiles, so they stay in global memory (L2-resident) and pass through a
+//   ring of kRing = 2 slabs in the warpgroup's shared memory, as the
+//   all-pairs kernels of egcl_allpairs_sm90.cu stream them: a slab is 64
+//   output columns of one product in the resident copy's swizzled layout,
+//   [H, 64] of W for X W (MN-major) or [64, H] of W's rows for X W^T
+//   (K-major), 128 H bytes either way, one slab for each pair of 32-column
+//   chunks. A tile uses the slabs in a fixed stream (forward W2, W3;
+//   backward W2, W3, W3 again for dpre3, then W3^T and W2 in pairs for
+//   pass E, whose two products a chunk read both, then W2^T: 6 H / 64
+//   slabs); each output element's K-sum runs the same k16 steps in the
+//   same order as from a resident copy, and the epilogues are the resident
+//   kernels' own. The warpgroup copies the next slab with 16-byte cp.async
+//   into the slot the slab before the current one used while the tensor
+//   cores work on the current one; pass E takes both slots at once, so its
+//   slabs are copied while no product runs (ring_take). dW1 goes to the
+//   slice at every C (the registers go to the wider accumulators). At H =
+//   256 the backward's three [64, 256] tiles (96 KB), the ring (64 KB) and
+//   the column sums (16 KB) leave room for e W1 in up to 3 k16 steps (C <=
+//   48); the forward takes C <= 64.
 // - dW2 and dW3: wgmma with the tile's 64 rows as K, both operands the
 //   activation tiles read MN-major (sm90_common.cuh outer_acc), added per
 //   m64n32 chunk into the warpgroup's own f32 slice of a [slices, P]
@@ -105,6 +127,17 @@ constexpr int kMaxWGFwd = 3, kMaxWGBwd = 2;
 constexpr int kMaxKC = 4;                 // e's k16 steps at most (the e
                                           // tile's 64 columns)
 constexpr size_t kMaxSmem = 232448;
+constexpr int kRing = 2;                  // weight slabs a warpgroup's ring
+                                          // holds (H = 192, 256)
+
+// The widths whose W2 and W3 a block holds whole (resident), and those it
+// streams through a ring of slabs (one warpgroup a block).
+__host__ __device__ constexpr bool resident(int H) {
+  return H == 64 || H == 128;
+}
+__host__ __device__ constexpr int max_wg(bool bwd, int H) {
+  return resident(H) ? (bwd ? kMaxWGBwd : kMaxWGFwd) : 1;
+}
 
 // One stage of a tile's staged rows: e (at most 64 x 16 KC bf16), cd, em,
 // each as the aligned words that hold its bytes (2 words of slack).
@@ -222,6 +255,12 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                    smem_addr(dst)),
                "l"(src));
 }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -249,8 +288,8 @@ __device__ __forceinline__ float bf_bits(uint16_t v) {
 
 // ---- shared memory
 
-// The block's weights: W2, W3 [H, H] and W1 [16 KC, H] swizzled bf16, the
-// vectors as f32.
+// The block's weights: W2, W3 [H, H] (the resident widths) and W1 [16 KC,
+// H] swizzled bf16, the vectors as f32.
 struct Blk {
   bf16 *W2, *W3, *W1;
   float *b1, *b2, *b3, *w4;
@@ -259,16 +298,20 @@ struct Blk {
 // One warpgroup's tiles (bf16 [64, H] swizzled: X0, X1 and the backward's
 // D2; the e tile [64, 64] of which 16 KC columns are used), the two stages of
 // staged rows, the forward's tr rows [64, 3] and K-sum carry [H + 3], the
-// backward's column sums [4, 4 warps, H].
+// backward's column sums [4, 4 warps, H]; at the streamed widths its ring
+// of kRing weight slabs (128 H bytes each) first.
 struct Wg {
-  bf16 *X0, *X1, *D2, *E;
+  bf16 *ring, *X0, *X1, *D2, *E;
   char* stage;
   float *tr, *carry, *vs;
 };
 
 __host__ __device__ inline void carve_blk(Bump& m, Blk& s, int H, int KC) {
-  s.W2 = (bf16*)m.take(sizeof(bf16) * H * H, 1024);
-  s.W3 = (bf16*)m.take(sizeof(bf16) * H * H, 1024);
+  s.W2 = s.W3 = nullptr;
+  if (resident(H)) {
+    s.W2 = (bf16*)m.take(sizeof(bf16) * H * H, 1024);
+    s.W3 = (bf16*)m.take(sizeof(bf16) * H * H, 1024);
+  }
   s.W1 = (bf16*)m.take(sizeof(bf16) * 16 * KC * H, 1024);
   s.b1 = (float*)m.take(sizeof(float) * H);
   s.b2 = (float*)m.take(sizeof(float) * H);
@@ -279,6 +322,7 @@ __host__ __device__ inline void carve_blk(Bump& m, Blk& s, int H, int KC) {
 __host__ __device__ inline void carve_wg(Bump& m, Wg& w, int H, bool bwd,
                                         int KC) {
   const size_t T = sizeof(bf16) * kTile * H;
+  w.ring = resident(H) ? nullptr : (bf16*)m.take(kRing * T, 1024);
   w.X0 = (bf16*)m.take(T, 1024);
   w.X1 = (bf16*)m.take(T, 1024);
   w.D2 = bwd ? (bf16*)m.take(T, 1024) : nullptr;
@@ -302,19 +346,20 @@ size_t smem_bytes(int H, bool bwd, int nwg, int KC) {
   return m.off + 1024;
 }
 
-// The block's weights into shared memory (all threads), W1's rows past C
-// zero; then the fence that makes them visible to wgmma and a block
-// barrier.
+// The block's weights into shared memory (all threads; W2 and W3 at the
+// resident widths only), W1's rows past C zero; then the fence that makes
+// them visible to wgmma and a block barrier.
 template <int H, int KC>
 __device__ void load_weights(const Args& a, const Blk& s) {
   constexpr int kCP = 16 * KC;
-  for (int idx = threadIdx.x; idx < H * H / 8; idx += blockDim.x) {
-    const int k = idx / (H / 8), c = 8 * (idx % (H / 8));
-    const uint4 v2 = *reinterpret_cast<const uint4*>(a.W2 + k * H + c);
-    const uint4 v3 = *reinterpret_cast<const uint4*>(a.W3 + k * H + c);
-    *reinterpret_cast<uint4*>((char*)s.W2 + swz(k, c, H)) = v2;
-    *reinterpret_cast<uint4*>((char*)s.W3 + swz(k, c, H)) = v3;
-  }
+  if constexpr (resident(H))
+    for (int idx = threadIdx.x; idx < H * H / 8; idx += blockDim.x) {
+      const int k = idx / (H / 8), c = 8 * (idx % (H / 8));
+      const uint4 v2 = *reinterpret_cast<const uint4*>(a.W2 + k * H + c);
+      const uint4 v3 = *reinterpret_cast<const uint4*>(a.W3 + k * H + c);
+      *reinterpret_cast<uint4*>((char*)s.W2 + swz(k, c, H)) = v2;
+      *reinterpret_cast<uint4*>((char*)s.W3 + swz(k, c, H)) = v3;
+    }
   for (int idx = threadIdx.x; idx < kCP * H / 8; idx += blockDim.x) {
     const int k = idx / (H / 8), c = 8 * (idx % (H / 8));
     const uint4 v = k < a.C
@@ -433,6 +478,167 @@ __device__ __forceinline__ void build_e(const Args& a, const Wg& w,
   }
 }
 
+// ---- the streamed widths' weight slabs
+
+// A warpgroup's place in its stream of weight slabs. Slab x of the stream
+// is slab x % per of a tile's stream (slab_of; per = 2 H / 64 forward, 6
+// H / 64 backward) and lands in slot x % kRing of the ring. Every thread
+// of the warpgroup keeps the same copy. (The resident widths carry an
+// unused one.)
+struct Ring {
+  bf16* slots;             // the ring in shared memory
+  const bf16 *W2, *W3;     // [H, H] in global memory
+  int s;                   // the next slab to use
+  int issued;              // the next slab to copy
+  int per;                 // slabs a tile
+};
+
+// Slab j of a tile's stream: W2 or W3, read by X W (MN-major, [H, 64]) or
+// by X W^T (K-major, [64, H] of W's rows), its 64-column group g. Forward:
+// m1 W2, m W3 (the gate); backward: those, m W3 again (dpre3), then
+// dpre3 W3^T and m1 W2 in pairs a group (pass E), then dpre2 W2^T.
+struct Slab {
+  bool w3, kmajor;
+  int g;
+};
+
+template <int H>
+__device__ __forceinline__ Slab slab_of(int j) {
+  constexpr int G = H / 64;
+  if (j < G) return Slab{false, false, j};
+  if (j < 3 * G) return Slab{true, false, j % G};
+  if (j < 5 * G) {
+    const int u = j - 3 * G;
+    return (u & 1) ? Slab{false, false, u >> 1} : Slab{true, true, u >> 1};
+  }
+  return Slab{false, true, j - 5 * G};
+}
+
+// The warpgroup's copies of slab x into its slot, one commit group (thread
+// t of 128; 16-byte pieces in the resident copy's swizzled layout).
+template <int H>
+__device__ void issue_slab(const Ring& rg, int x, int t) {
+  const Slab sl = slab_of<H>(x % rg.per);
+  const bf16* W = sl.w3 ? rg.W3 : rg.W2;
+  char* dst = (char*)rg.slots + (size_t)(x % kRing) *
+                                    (sizeof(bf16) * kTile * H);
+  if (!sl.kmajor)
+    for (int idx = t; idx < 8 * H; idx += kWG) {
+      const int k = idx >> 3, c = 8 * (idx & 7);
+      cp_async16(dst + swz(k, c, H), W + (size_t)k * H + 64 * sl.g + c);
+    }
+  else
+    for (int idx = t; idx < 8 * H; idx += kWG) {
+      const int r = idx / (H / 8), c = 8 * (idx % (H / 8));
+      cp_async16(dst + swz(r, c, kTile), W + (size_t)(64 * sl.g + r) * H + c);
+    }
+  cp_async_commit();
+}
+
+// Slabs rg.s .. rg.s + n - 1 (n <= kRing) once they have landed, their
+// slots' shared addresses into at: this thread's copies waited for, then
+// everyone's published to wgmma (the barrier also tells that every reader
+// of the slabs before is done); a slab not yet copied is copied and waited
+// for first; then every later slab whose slot no slab in use holds is
+// issued, to land while these are in use.
+template <int H>
+__device__ __forceinline__ void ring_take(Ring& rg, int n, uint32_t (&at)[2],
+                                          int t, int wg) {
+  constexpr uint32_t kSlot = sizeof(bf16) * kTile * H;
+  cp_async_wait<0>();
+  wg_publish(wg);
+  if (rg.issued < rg.s + n) {
+    for (; rg.issued < rg.s + n; ++rg.issued)
+      issue_slab<H>(rg, rg.issued, t);
+    cp_async_wait<0>();
+    wg_publish(wg);
+  }
+  for (int k = 0; k < n; ++k)
+    at[k] = smem_addr(rg.slots) + ((rg.s + k) % kRing) * kSlot;
+  for (; rg.issued < rg.s + kRing; ++rg.issued)
+    issue_slab<H>(rg, rg.issued, t);
+  rg.s += n;
+}
+
+// One weight product's wgmma steps of a 32-column chunk: from the block's
+// [H, H] copy W at the resident widths, from the slab at the streamed ones
+// (its R rows: H MN-major, 64 K-major; the chunk's columns within the
+// slab's 64).
+template <int H, int TB>
+__device__ __forceinline__ void wmma_chunk(float (&d)[16], uint32_t x,
+                                           uint32_t W, uint32_t slab,
+                                           int n0) {
+  if constexpr (resident(H))
+    mma_chunk<H / 16, TB>(d, x, W, H, n0);
+  else
+    mma_chunk<H / 16, TB>(d, x, slab, TB ? H : kTile, n0 % 64);
+}
+
+// row_chunks / row_chunks2 whose products read W2 or W3: at the streamed
+// widths each pair of chunks first takes its NS slabs from the ring (into
+// sl, which issue reads).
+template <int H, int NS, typename Issue, typename Epi>
+__device__ __forceinline__ void slab_chunks(Ring& rg, uint32_t (&sl)[2],
+                                            int t, int wg, Issue&& issue,
+                                            Epi&& epi) {
+  if constexpr (resident(H)) {
+    row_chunks<H>(issue, epi);
+  } else {
+#pragma unroll 1
+    for (int n0 = 0; n0 < H; n0 += 2 * kChunk) {
+      ring_take<H>(rg, NS, sl, t, wg);
+      float dA[16], dB[16];
+      fence_regs(dA);
+      wgmma_fence();
+      issue(dA, n0);
+      wgmma_commit();
+      fence_regs(dB);
+      wgmma_fence();
+      issue(dB, n0 + kChunk);
+      wgmma_commit();
+      wgmma_wait_for<1>();
+      fence_regs(dA);
+      epi(dA, n0);
+      wgmma_wait_for<0>();
+      fence_regs(dB);
+      epi(dB, n0 + kChunk);
+    }
+  }
+}
+
+template <int H, int NS, typename Issue, typename Epi>
+__device__ __forceinline__ void slab_chunks2(Ring& rg, uint32_t (&sl)[2],
+                                             int t, int wg, Issue&& issue,
+                                             Epi&& epi) {
+  if constexpr (resident(H)) {
+    row_chunks2<H>(issue, epi);
+  } else {
+#pragma unroll 1
+    for (int n0 = 0; n0 < H; n0 += 2 * kChunk) {
+      ring_take<H>(rg, NS, sl, t, wg);
+      float aA[16], bA[16], aB[16], bB[16];
+      fence_regs(aA);
+      fence_regs(bA);
+      wgmma_fence();
+      issue(aA, bA, n0);
+      wgmma_commit();
+      fence_regs(aB);
+      fence_regs(bB);
+      wgmma_fence();
+      issue(aB, bB, n0 + kChunk);
+      wgmma_commit();
+      wgmma_wait_for<1>();
+      fence_regs(aA);
+      fence_regs(bA);
+      epi(aA, bA, n0);
+      wgmma_wait_for<0>();
+      fence_regs(aB);
+      fence_regs(bB);
+      epi(aB, bB, n0 + kChunk);
+    }
+  }
+}
+
 // ---- column sums (backward)
 
 // v: a chunk's accumulators (columns n0 .. n0+31). The sums of its columns
@@ -489,13 +695,22 @@ __device__ __forceinline__ void pass_m1(const Blk& s, const Wg& w,
       });
 }
 
+// The shared address of the block's W2 or W3 (0 at the streamed widths).
+template <int H>
+__device__ __forceinline__ uint32_t w_addr(const bf16* W) {
+  return resident(H) ? smem_addr(W) : 0u;
+}
+
 // m = rnd(silu(m1 W2 + b2) em) into X1.
 template <int H>
 __device__ __forceinline__ void pass_m(const Blk& s, const Wg& w,
-                                       const Lane& L) {
-  const uint32_t X0 = smem_addr(w.X0), W2 = smem_addr(s.W2);
-  row_chunks<H>(
-      [&](float (&d)[16], int n0) { mma_chunk<H / 16, 1>(d, X0, W2, H, n0); },
+                                       const Lane& L, Ring& rg, int t,
+                                       int wg) {
+  const uint32_t X0 = smem_addr(w.X0), W2 = w_addr<H>(s.W2);
+  uint32_t sl[2] = {0u, 0u};
+  slab_chunks<H, 1>(
+      rg, sl, t, wg,
+      [&](float (&d)[16], int n0) { wmma_chunk<H, 1>(d, X0, W2, sl[0], n0); },
       [&](const float (&d)[16], int n0) {
 #pragma unroll
         for (int p = 0; p < 8; ++p) {
@@ -511,11 +726,14 @@ __device__ __forceinline__ void pass_m(const Blk& s, const Wg& w,
 // gate = rnd(silu(m W3 + b3)) . w4 (f32) of the thread's two rows.
 template <int H>
 __device__ __forceinline__ void pass_gate(const Blk& s, const Wg& w,
-                                          const Lane& L, float (&gate)[2]) {
-  const uint32_t X1 = smem_addr(w.X1), W3 = smem_addr(s.W3);
+                                          const Lane& L, float (&gate)[2],
+                                          Ring& rg, int t, int wg) {
+  const uint32_t X1 = smem_addr(w.X1), W3 = w_addr<H>(s.W3);
+  uint32_t sl[2] = {0u, 0u};
   gate[0] = gate[1] = 0.f;
-  row_chunks<H>(
-      [&](float (&d)[16], int n0) { mma_chunk<H / 16, 1>(d, X1, W3, H, n0); },
+  slab_chunks<H, 1>(
+      rg, sl, t, wg,
+      [&](float (&d)[16], int n0) { wmma_chunk<H, 1>(d, X1, W3, sl[0], n0); },
       [&](const float (&d)[16], int n0) {
 #pragma unroll
         for (int p = 0; p < 8; ++p) {
@@ -591,17 +809,18 @@ __device__ void k_sums(const Args& a, const Wg& w, const Tile& T, int t) {
 
 template <int H, int KC>
 __device__ void fwd_tile(const Args& a, const Blk& s, const Wg& w,
-                         const Tile& T, const char* st, int t, int wg) {
+                         const Tile& T, const char* st, int t, int wg,
+                         Ring& rg) {
   Lane L;
   lane_of<KC>(L, a, st, T, t);
   build_e<KC>(a, w, st, T, t);
   wg_publish(wg);
   pass_m1<H, KC>(s, w, L);
   wg_publish(wg);
-  pass_m<H>(s, w, L);
+  pass_m<H>(s, w, L, rg, t, wg);
   wg_publish(wg);
   float gate[2];
-  pass_gate<H>(s, w, L, gate);
+  pass_gate<H>(s, w, L, gate, rg, t, wg);
   // tr = rnd(clip(cd gate, +-100) em), the quad leader's rows
   if (L.q == 0)
 #pragma unroll
@@ -712,12 +931,13 @@ __device__ __forceinline__ void de_dw1(const Args& a, const Wg& w,
 // passes). Tiles: X0 m1 -> dpre1; X1 m -> dpre2; D2 dpre3. dW3 and dW2 go
 // into the warpgroup's slice `part` (stored when fresh), the column sums
 // into w.vs, dW1^T (rows m 64 + r of the m64n16 accumulators, columns the
-// C of e) into the registers dw1 at KC = 1, into the slice at KC > 1.
+// C of e) into the registers dw1 at KC = 1 (resident widths), else into
+// the slice.
 template <int H, int KC>
 __device__ void bwd_tile(const Args& a, const Blk& s, const Wg& w,
                          const Tile& T, const char* st, int t, int wg,
                          float* part, bool fresh,
-                         float (&dw1)[KC][H / 64][8]) {
+                         float (&dw1)[KC][H / 64][8], Ring& rg) {
   constexpr int kCP = 16 * KC;
   const PartLayout PL(a.C, H);
   Lane L;
@@ -726,15 +946,16 @@ __device__ void bwd_tile(const Args& a, const Blk& s, const Wg& w,
   wg_publish(wg);
   const uint32_t E = smem_addr(w.E), X0 = smem_addr(w.X0),
                  X1 = smem_addr(w.X1), D2 = smem_addr(w.D2);
-  const uint32_t W1 = smem_addr(s.W1), W2 = smem_addr(s.W2),
-                 W3 = smem_addr(s.W3);
+  const uint32_t W1 = smem_addr(s.W1), W2 = w_addr<H>(s.W2),
+                 W3 = w_addr<H>(s.W3);
+  uint32_t sl[2] = {0u, 0u};
 
   pass_m1<H, KC>(s, w, L);                      // m1 -> X0
   wg_publish(wg);
-  pass_m<H>(s, w, L);                           // m -> X1
+  pass_m<H>(s, w, L, rg, t, wg);                // m -> X1
   wg_publish(wg);
   float gate[2];
-  pass_gate<H>(s, w, L, gate);
+  pass_gate<H>(s, w, L, gate, rg, t, wg);
 
   // -- the gate's branch per row (f32; strict clip mask): dcd, rnd(dgate)
   float dgr[2];
@@ -758,8 +979,9 @@ __device__ void bwd_tile(const Args& a, const Blk& s, const Wg& w,
 
   // -- pre3 again: dpre3 = rnd(dgate) w4 dsilu(pre3) -> D2; dw4 (g1
   // rnd(dgate)) and db3 (dpre3) column sums
-  row_chunks<H>(
-      [&](float (&d)[16], int n0) { mma_chunk<H / 16, 1>(d, X1, W3, H, n0); },
+  slab_chunks<H, 1>(
+      rg, sl, t, wg,
+      [&](float (&d)[16], int n0) { wmma_chunk<H, 1>(d, X1, W3, sl[0], n0); },
       [&](const float (&d)[16], int n0) {
         float vw4[16], vb3[16];
 #pragma unroll
@@ -787,10 +1009,11 @@ __device__ void bwd_tile(const Args& a, const Blk& s, const Wg& w,
 
   // -- dm_gate = rnd(dpre3) W3^T with pre2 = m1 W2 again: dpre2 = (dagg +
   // dm_gate) em dsilu(pre2) -> X1; db2
-  row_chunks2<H>(
+  slab_chunks2<H, 2>(
+      rg, sl, t, wg,
       [&](float (&dA)[16], float (&dB)[16], int n0) {
-        mma_chunk<H / 16, 0>(dA, D2, W3, H, n0);
-        mma_chunk<H / 16, 1>(dB, X0, W2, H, n0);
+        wmma_chunk<H, 0>(dA, D2, W3, sl[0], n0);
+        wmma_chunk<H, 1>(dB, X0, W2, sl[1], n0);
       },
       [&](const float (&dA)[16], const float (&dB)[16], int n0) {
         float vb2[16];
@@ -819,9 +1042,10 @@ __device__ void bwd_tile(const Args& a, const Blk& s, const Wg& w,
 
   // -- dm1 = rnd(dpre2) W2^T with pre1 = e W1 again: dpre1 = dm1
   // dsilu(pre1) -> X0; db1
-  row_chunks2<H>(
+  slab_chunks2<H, 1>(
+      rg, sl, t, wg,
       [&](float (&dA)[16], float (&dB)[16], int n0) {
-        mma_chunk<H / 16, 0>(dA, X1, W2, H, n0);
+        wmma_chunk<H, 0>(dA, X1, W2, sl[0], n0);
         mma_chunk<KC, 1>(dB, E, W1, kCP, n0);
       },
       [&](const float (&dA)[16], const float (&dB)[16], int n0) {
@@ -844,7 +1068,7 @@ __device__ void bwd_tile(const Args& a, const Blk& s, const Wg& w,
   wg_publish(wg);
 
   // -- de = rnd(rnd(dpre1) W1^T) and dW1^T += rnd(dpre1)^T e
-  if constexpr (KC == 1) {
+  if constexpr (KC == 1 && resident(H)) {
     de_dw1<H, KC>(a, w, s, L, T, dw1);
   } else {
     float tw[KC][H / 64][8];        // this tile's dW1^T
@@ -878,14 +1102,17 @@ __device__ __forceinline__ void edge_sm90_body(const Args& a,
   const int n = walk_len(a, g, S);
   if (n > 0) stage_tile<KC>(a, w.stage, walk(a, g, S, 0), t);
   cp_async_commit();
+  // the streamed widths' ring, its first slab copied from here on
+  Ring rg{w.ring, a.W2, a.W3, 0, 0, (BWD ? 6 : 2) * (H / 64)};
+  if constexpr (!resident(H)) issue_slab<H>(rg, rg.issued++, t);
   const PartLayout PL(a.C, H);
   float* const part = BWD ? a.part + (size_t)g * PL.P : nullptr;
   if constexpr (BWD)
     for (int k = t; k < 4 * 4 * H; k += kWG) w.vs[k] = 0.f;
   load_weights<H, KC>(a, s);
 
-  // dW1^T across the warpgroup's tiles (KC = 1; else zeros, stored where
-  // the warpgroup has no tile)
+  // dW1^T across the warpgroup's tiles (KC = 1 at the resident widths;
+  // else zeros, stored where the warpgroup has no tile)
   float dw1[KC][H / 64][8];
 #pragma unroll
   for (int c = 0; c < KC; ++c)
@@ -903,10 +1130,11 @@ __device__ __forceinline__ void edge_sm90_body(const Args& a,
     const Tile T = walk(a, g, S, i);
     const char* st = w.stage + (i & 1) * st_size(KC);
     if constexpr (BWD)
-      bwd_tile<H, KC>(a, s, w, T, st, t, wg, part, i == 0, dw1);
+      bwd_tile<H, KC>(a, s, w, T, st, t, wg, part, i == 0, dw1, rg);
     else
-      fwd_tile<H, KC>(a, s, w, T, st, t, wg);
+      fwd_tile<H, KC>(a, s, w, T, st, t, wg, rg);
   }
+  if constexpr (!resident(H)) cp_async_wait<0>();    // the slab issued ahead
   if constexpr (BWD) {
     // the slice's other gradients: dW2, dW3 zero without a tile; the
     // column sums in warp order; dW1 from the registers
@@ -920,19 +1148,20 @@ __device__ __forceinline__ void edge_sm90_body(const Args& a,
         const float* x = w.vs + v * 4 * H + c;
         part[off[v] + c] = ((x[0] + x[H]) + x[2 * H]) + x[3 * H];
       }
-    if (KC == 1 || n == 0) store_dw1<H, KC>(part + PL.dW1, a.C, dw1, t, false);
+    if ((KC == 1 && resident(H)) || n == 0)
+      store_dw1<H, KC>(part + PL.dW1, a.C, dw1, t, false);
   }
 }
 
 template <int H, int KC>
-__global__ void __launch_bounds__(kMaxWGFwd * kWG, 1)
+__global__ void __launch_bounds__(max_wg(false, H) * kWG, 1)
     edge_sm90_fwd_kernel(Args a) {
   extern __shared__ char smem_raw[];
   edge_sm90_body<H, false, KC>(a, smem_raw);
 }
 
 template <int H, int KC>
-__global__ void __launch_bounds__(kMaxWGBwd * kWG, 1)
+__global__ void __launch_bounds__(max_wg(true, H) * kWG, 1)
     edge_sm90_bwd_kernel(Args a) {
   extern __shared__ char smem_raw[];
   edge_sm90_body<H, true, KC>(a, smem_raw);
@@ -952,7 +1181,8 @@ __global__ void recip_check_kernel(unsigned long long* bad) {
 }
 
 bool takes(int C, int H) {
-  return C >= 1 && C <= 16 * kMaxKC && (H == 64 || H == 128);
+  return C >= 1 && C <= 16 * kMaxKC &&
+         (H == 64 || H == 128 || H == 192 || H == 256);
 }
 
 // e's k16 steps: C's columns in 16-column chunks.
@@ -961,7 +1191,7 @@ int k_steps(int C) { return (C + 15) / 16; }
 // The most warpgroups whose block fits, or 0.
 int warpgroups(int C, int H, bool bwd) {
   if (!takes(C, H)) return 0;
-  for (int nwg = bwd ? kMaxWGBwd : kMaxWGFwd; nwg >= 1; --nwg)
+  for (int nwg = max_wg(bwd, H); nwg >= 1; --nwg)
     if (smem_bytes(H, bwd, nwg, k_steps(C)) <= kMaxSmem) return nwg;
   return 0;
 }
@@ -1005,8 +1235,12 @@ int launch(const Args& a, bool bwd, int blocks, int nwg, void* stream) {
       nwg > warpgroups(a.C, a.H, bwd))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return a.H == 128 ? launch_kc<128>(a, bwd, blocks, nwg, st)
-                    : launch_kc<64>(a, bwd, blocks, nwg, st);
+  switch (a.H) {
+    case 64: return launch_kc<64>(a, bwd, blocks, nwg, st);
+    case 128: return launch_kc<128>(a, bwd, blocks, nwg, st);
+    case 192: return launch_kc<192>(a, bwd, blocks, nwg, st);
+    default: return launch_kc<256>(a, bwd, blocks, nwg, st);
+  }
 }
 
 }  // namespace
@@ -1014,10 +1248,19 @@ int launch(const Args& a, bool bwd, int blocks, int nwg, void* stream) {
 extern "C" {
 
 // The most warpgroups a block holds (the launch's nwg; at C <= 16 3
-// forward and 2 backward at H = 64 and 128), or 0 for a C or H the kernels
-// do not take (C > 64, or no block of one warpgroup fits).
+// forward and 2 backward at H = 64 and 128, 1 at 192 and 256), or 0 for a
+// C or H the kernels do not take (C > 64, or no block of one warpgroup
+// fits).
 int edge_sm90_warpgroups(int C, int H, int bwd) {
   return warpgroups(C, H, bwd != 0);
+}
+
+// Dynamic shared memory of a block of nwg warpgroups at C edge features,
+// or -1 for a C or H the kernels do not take (C > 64; H other than 64,
+// 128, 192 and 256).
+long long edge_sm90_smem_bytes(int C, int H, int bwd, int nwg) {
+  if (!takes(C, H) || nwg < 1) return -1;
+  return (long long)smem_bytes(H, bwd != 0, nwg, k_steps(C));
 }
 
 // The most edge features a row the kernels take (e's columns in at most

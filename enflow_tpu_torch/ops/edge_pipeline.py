@@ -14,15 +14,20 @@ Contract (``fused_edge_pipeline``): pre-gathered edge rows
   its backward kernel, which recomputes the forward from the inputs (the
   only residuals the autograd Function saves) and returns ``de``, ``dcd``
   and all seven parameter gradients. float32 and bfloat16 only; other
-  dtypes raise. ``kernel_for`` is the size rule: at H = 64 and 128 bf16
-  goes to the Hopper kernels of ``csrc/edge_pipeline_sm90.cu`` (wgmma,
-  ``"sm90"``, C <= 64 edge features in up to four k16 steps of e W1, as
-  many warpgroups a block as fit: :func:`sm90_warpgroups`; the tile plan
-  is :func:`sm90_plan` / :func:`sm90_tiles`) and float32 to the tiled
-  kernels of
-  ``csrc/edge_pipeline.cu``; the other widths the dtype takes go to that
-  file's chunked kernels; it raises for the rest. There is no fallback: a
-  shape a route does not take raises.
+  dtypes raise. ``kernel_for`` is the size rule, on the padded width
+  (``padded_width``: the next of 64, 128, 192 and 256; the weights and
+  dagg are copied into zero-padded buffers and the outputs cut back, which
+  is exact: every padded pre-activation is 0 and silu(0) = 0). bf16 goes
+  to the Hopper kernels of ``csrc/edge_pipeline_sm90.cu`` (wgmma, C <= 64
+  edge features in up to four k16 steps of e W1; the tile plan is
+  :func:`sm90_plan` / :func:`sm90_tiles`): ``"sm90"`` at 64 and 128 with
+  as many warpgroups a block as fit (:func:`sm90_warpgroups`), ``"wide"``
+  at 192 and 256 with one warpgroup and W2 / W3 streamed through a ring of
+  slabs. float32 goes to the tiled kernels of ``csrc/edge_pipeline.cu``:
+  ``"tiled"`` at 64 and 128, ``"f32_wide"`` at 192 and 256 (W2 / W3
+  streamed). Past 256 it raises (ROADMAP B7.2), and so does a C past what
+  a route's block holds (B7.3). There is no fallback: a shape a route
+  does not take raises.
 - On a CPU tensor both directions run the plain PyTorch version below,
   which rounds to the compute dtype where ``_fwd_kernel``/``_bwd_kernel``
   round (float64 is accepted there and accumulates in float64).
@@ -40,18 +45,24 @@ import math
 import torch
 
 from .build import LaunchCounts
+from .widths import SMEM_LIMIT, pad_rows, padded_width
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ATOM_TILE = 16     # atoms per block tile at most (the wrapper halves
                        # it where a block does not fit: ``_plan``)
 
 # fwd_launches / bwd_launches count every launch; the per-route counters
-# say which kernel took it
-counts = LaunchCounts("fwd_launches", "bwd_launches", "sm90_fwd_launches",
-                      "sm90_bwd_launches", "tiled_fwd_launches",
-                      "tiled_bwd_launches", "chunked_fwd_launches",
-                      "chunked_bwd_launches", "plain_fwd_calls",
-                      "plain_bwd_calls")
+# say which kernels took it; padded_*: the launches at a padded width
+# (each also on its route's counter)
+ROUTES = ("sm90", "tiled", "wide", "f32_wide")
+counts = LaunchCounts("fwd_launches", "bwd_launches",
+                      *(f"{r}_{d}_launches" for r in ROUTES
+                        for d in ("fwd", "bwd")),
+                      "padded_fwd_launches", "padded_bwd_launches",
+                      "plain_fwd_calls", "plain_bwd_calls")
+# the queue items that hold what stays refused
+WIDE_ITEM = "ROADMAP queue B, B7.2: the EGCL at H > 256"
+C_ITEM = "ROADMAP queue B, B7.3: the gathered-edge EGCL's C limits"
 
 
 # ---------------------------------------------------------------------------
@@ -142,15 +153,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 
-# Widths of the bf16 Hopper kernels (edge_pipeline_sm90.cu) and of the
-# float32 tiled kernels of edge_pipeline.cu; every other width a dtype
-# takes goes to the chunked kernels (the size rule of ``kernel_for``).
+# Widths whose W2 and W3 a block holds whole (routes "sm90" and "tiled"),
+# and those whose kernels stream them through a ring of slabs ("wide",
+# "f32_wide"); every other width up to 256 runs at the next of them
 TILED_H = (64, 128)
+WIDE_H = (192, 256)
 # rows a tile of the Hopper kernels (wgmma's M)
 SM90_ROWS = 64
 # rows a tile of the tiled kernels at most (kQmaxFwd / kQmaxBwd x 8)
 ROWS_MAX = {"fwd": 72, "bwd": 40}
-_H_MULT = {torch.float32: 4, torch.bfloat16: 16}
 
 
 def _library():
@@ -174,6 +185,8 @@ def _sm90_library():
         lib.edge_sm90_warpgroups.restype = _I
         lib.edge_sm90_c_max.argtypes = []
         lib.edge_sm90_c_max.restype = _I
+        lib.edge_sm90_smem_bytes.argtypes = [_I] * 4
+        lib.edge_sm90_smem_bytes.restype = _LL
         lib.edge_sm90_error_string.argtypes = [_I]
         lib.edge_sm90_error_string.restype = ctypes.c_char_p
         lib.edge_sm90_recip_check.argtypes = [_P, _P]
@@ -198,56 +211,56 @@ def sm90_recip_mismatches(device="cuda") -> int:
 
 
 def bind_library(lib):
-    """Set the ctypes signatures of an ``edge_pipeline.cu`` library (an
-    earlier source may lack the tiled entry points)."""
-    # dtype, A, K, C, H, TA, [R,] blocks, 10 inputs, outputs, stream
-    lib.edge_pipeline_fwd.argtypes = [_I] * 7 + [_P] * 13
-    lib.edge_pipeline_fwd.restype = _I
-    lib.edge_pipeline_bwd.argtypes = [_I] * 7 + [_P] * 16
-    lib.edge_pipeline_bwd.restype = _I
-    lib.edge_pipeline_smem_bytes.argtypes = [_I] * 5
-    lib.edge_pipeline_smem_bytes.restype = _LL
+    """Set the ctypes signatures of an ``edge_pipeline.cu`` library."""
+    # dtype, A, K, C, H, TA, R, blocks, 10 inputs, outputs, stream
+    lib.edge_tiled_fwd.argtypes = [_I] * 8 + [_P] * 13
+    lib.edge_tiled_fwd.restype = _I
+    lib.edge_tiled_bwd.argtypes = [_I] * 8 + [_P] * 16
+    lib.edge_tiled_bwd.restype = _I
+    lib.edge_tiled_smem_bytes.argtypes = [_I] * 6
+    lib.edge_tiled_smem_bytes.restype = _LL
     lib.edge_pipeline_smem_limit.argtypes = []
     lib.edge_pipeline_smem_limit.restype = _LL
     lib.edge_pipeline_error_string.argtypes = [_I]
     lib.edge_pipeline_error_string.restype = ctypes.c_char_p
-    if hasattr(lib, "edge_tiled_fwd"):
-        lib.edge_tiled_fwd.argtypes = [_I] * 8 + [_P] * 13
-        lib.edge_tiled_fwd.restype = _I
-        lib.edge_tiled_bwd.argtypes = [_I] * 8 + [_P] * 16
-        lib.edge_tiled_bwd.restype = _I
-        lib.edge_tiled_smem_bytes.argtypes = [_I] * 6
-        lib.edge_tiled_smem_bytes.restype = _LL
     lib._enflow_bound = True
 
 
-def uses_tiled(H: int) -> bool:
-    """Whether a launch at hidden width ``H`` goes to the tiled kernels."""
-    return H in TILED_H
+def _too_wide(H: int) -> str:
+    """Why a width past 256 is refused."""
+    return (f"edge_pipeline: hidden width H={H} is past the widest kernels "
+            f"(H <= 256), whose backward at 256 already streams W2 and W3 "
+            f"to fit the {SMEM_LIMIT:,} bytes of shared memory a block may "
+            f"use; not ported ({WIDE_ITEM})")
 
 
 def kernel_for(dtype, H: int) -> str:
-    """The size rule: at H = 64 and 128 ``"sm90"`` (bfloat16) or
-    ``"tiled"`` (float32); ``"chunked"`` for every other H that is a
-    multiple of 4 in float32 and of 16 in bfloat16; raises for what none
-    takes."""
+    """The size rule, on the padded width (:func:`padded_width`): "sm90"
+    (bfloat16) or "tiled" (float32) at 64 and 128, "wide" (bfloat16) or
+    "f32_wide" (float32) at 192 and 256, for every 1 <= H <= 256; raises
+    for another dtype, for H < 1 and past 256 (naming ROADMAP B7.2 and the
+    bytes)."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"the edge-pipeline kernel computes in float32 or "
                          f"bfloat16, got {dtype}")
-    if uses_tiled(H):
-        return "sm90" if dtype == torch.bfloat16 else "tiled"
-    mult = _H_MULT[dtype]
-    if H >= mult and H % mult == 0:
-        return "chunked"
-    raise ValueError(f"edge_pipeline takes H % 16 == 0 in bfloat16 and "
-                     f"H % 4 == 0 in float32 (H = 64 and 128 in its tiled "
-                     f"kernels), got H={H} in {dtype}")
+    if H < 1:
+        raise ValueError(f"edge_pipeline takes a hidden width H >= 1 in "
+                         f"float32 and bfloat16, got H={H}")
+    Hp = padded_width(H)
+    if Hp is None:
+        raise ValueError(_too_wide(H))
+    bf16 = dtype == torch.bfloat16
+    if Hp in TILED_H:
+        return "sm90" if bf16 else "tiled"
+    return "wide" if bf16 else "f32_wide"
 
 
 def sm90_warpgroups(lib, C: int, H: int, direction: str) -> int:
     """Warpgroups a block of the Hopper kernels at ``C`` edge features (the
     most whose block fits, as the library says); raises, naming C and the
-    limit, for a C past the kernels' k16 steps of e."""
+    limit, for a C past the kernels' k16 steps of e, and at H = 192 or 256
+    (one warpgroup beside the ring of slabs) for a C whose block does not
+    fit, naming the bytes (ROADMAP B7.3)."""
     bwd = int(direction == "bwd")
     c_max = lib.edge_sm90_c_max()
     if C > c_max:
@@ -255,6 +268,13 @@ def sm90_warpgroups(lib, C: int, H: int, direction: str) -> int:
                          f"Hopper kernels take C = 2 nf + 1 <= {c_max} edge "
                          f"features, got C={C}")
     nwg = lib.edge_sm90_warpgroups(C, H, bwd)
+    if nwg < 1 and H in WIDE_H:
+        need = lib.edge_sm90_smem_bytes(C, H, bwd, 1)
+        raise ValueError(f"edge_pipeline {direction} (bfloat16, H={H}): "
+                         f"C={C} needs {need} bytes of shared memory at one "
+                         f"warpgroup a block (its ring of weight slabs and "
+                         f"tiles), more than the {SMEM_LIMIT} a block may "
+                         f"use; not ported ({C_ITEM})")
     if nwg < 1:
         raise RuntimeError(f"edge_pipeline {direction} (bfloat16, H={H}): "
                            f"the Hopper library fits no block at C={C} <= "
@@ -341,44 +361,78 @@ def tile_rows(fit: int, ta: int, K: int) -> int:
 _plans: dict = {}
 
 
+def tiled_plan(ta: int, K: int, direction: str, fits):
+    """``(rows a tile, atoms a tile)`` of a tiled-kernel launch at H = 64 or
+    128, ``fits(atoms, rows)`` saying whether a block fits: the most rows a
+    tile (at most ``ROWS_MAX``) whose block fits at ``ta`` atoms, and
+    where none fits at 8 rows, half the atoms (their per-atom sums) until
+    one does; None where nothing fits at 1 atom and 8 rows."""
+    rows = range(ROWS_MAX[direction], 7, -8)
+    t = ta
+    while True:
+        fit = [r for r in rows if fits(t, r)]
+        if fit or t == 1:
+            break
+        t = max(1, t // 2)
+    return (tile_rows(fit[0], t, K), t) if fit else None
+
+
+def wide_plan(ta: int, K: int, direction: str, fits):
+    """``(rows a tile, atoms a tile)`` of a launch at H = 192 or 256 (W2
+    and W3 streamed): the rows first, since every row tile streams the
+    weights once: the most rows (at most ``ROWS_MAX``) whose block fits at
+    1 atom a tile, then the most atoms up to ``ta`` that still fit at those
+    rows; None where nothing fits at 1 atom and 8 rows."""
+    fit = [r for r in range(ROWS_MAX[direction], 7, -8) if fits(1, r)]
+    if not fit:
+        return None
+    t = next(t for t in range(ta, 0, -1) if fits(t, fit[0]))
+    return tile_rows(fit[0], t, K), t
+
+
 def _plan(lib, code, C, H, K, ta, direction):
-    """``(kernel, rows a tile, atoms a tile)`` of one launch kind, checked
-    against the card's shared memory once per library, dtype, C, H, K,
-    tile and direction. The tiled kernels take the most rows a tile (at
-    most ``ROWS_MAX``) whose block fits, and where none fits at 8 rows,
-    half the atoms a tile (their per-atom sums) until one does."""
-    tiled = uses_tiled(H)
-    key = (id(lib), tiled, code, C, H, K, ta, direction)
+    """``(route, rows a tile, atoms a tile)`` of one tiled-kernel launch
+    kind (``tiled_plan`` at H = 64 and 128, ``wide_plan`` at 192 and
+    256), checked against the card's shared memory once per library,
+    dtype, C, H, K, tile and direction; raises, naming C and the bytes,
+    where no block fits at 1 atom and 8 rows (ROADMAP B7.3)."""
+    key = (id(lib), code, C, H, K, ta, direction)
     if key in _plans:
         return _plans[key]
     bwd = int(direction == "bwd")
     limit = lib.edge_pipeline_smem_limit()
-    if tiled:
-        t = ta
-        while True:
-            # the most rows a tile whose block fits
-            fits = [r for r in range(ROWS_MAX[direction], 7, -8)
-                    if 0 <= lib.edge_tiled_smem_bytes(code, C, H, t, r, bwd)
-                    <= limit]
-            if fits or t == 1:
-                break
-            t = max(1, t // 2)
-        if not fits:
-            raise ValueError(
-                f"edge_pipeline {direction}: C={C}, H={H} needs "
-                f"{lib.edge_tiled_smem_bytes(code, C, H, 1, 8, bwd)} bytes "
-                f"of shared memory even at 1 atom and 8 rows a tile, more "
-                f"than the {limit} a block may use")
-        plan = ("tiled", tile_rows(fits[0], t, K), t)
-    else:
-        need = lib.edge_pipeline_smem_bytes(code, C, H, ta, bwd)
-        if need > limit:
-            raise ValueError(
-                f"edge_pipeline {direction}: C={C}, H={H} needs {need} bytes "
-                f"of shared memory, more than the {limit} a block may use")
-        plan = ("chunked", 0, ta)
-    _plans[key] = plan
-    return plan
+    tiled = H in TILED_H
+    plan = (tiled_plan if tiled else wide_plan)(
+        ta, K, direction, lambda t, r: 0 <= lib.edge_tiled_smem_bytes(
+            code, C, H, t, r, bwd) <= limit)
+    if plan is None:
+        raise ValueError(
+            f"edge_pipeline {direction}: C={C}, H={H} needs "
+            f"{lib.edge_tiled_smem_bytes(code, C, H, 1, 8, bwd)} bytes "
+            f"of shared memory even at 1 atom and 8 rows a tile, more "
+            f"than the {limit} a block may use; not ported ({C_ITEM})")
+    _plans[key] = ("tiled" if tiled else "f32_wide",) + plan
+    return _plans[key]
+
+
+def pad_weights(weights, Hp: int):
+    """The seven weights ``(W1 [C, H], b1, W2 [H, H], b2, W3, b3, w4
+    [H, 1])`` zero-padded to hidden width ``Hp``: new contiguous tensors,
+    every padded entry 0."""
+    W1, b1, W2, b2, W3, b3, w4 = weights
+    H = W2.shape[1]
+    square = lambda t: torch.nn.functional.pad(t, (0, Hp - H, 0, Hp - H))
+    return (pad_rows(W1, Hp), pad_rows(b1, Hp), square(W2), pad_rows(b2, Hp),
+            square(W3), pad_rows(b3, Hp),
+            torch.nn.functional.pad(w4, (0, 0, 0, Hp - H)))
+
+
+def unpad_grads(grads, H: int):
+    """The seven parameter gradients of a launch at a padded width, in the
+    weights' order and shapes, cut back to hidden width ``H``."""
+    dW1, db1, dW2, db2, dW3, db3, dw4 = grads
+    return (dW1[:, :H], db1[:H], dW2[:H, :H], db2[:H], dW3[:H, :H], db3[:H],
+            dw4[:H])
 
 
 def _aligned(t):
@@ -409,7 +463,10 @@ def _split_part(part, C, H):
 
 
 def _launch(direction, e, cd, em, weights, dagg=None, dfs=None):
-    from .build import multiprocessors
+    """One launch on the route that the size rule names, at the padded
+    width: the weights (and dagg) copied into zero-padded buffers first
+    where ``H`` is not one of ``TILED_H + WIDE_H``, the outputs cut back
+    after."""
     cdt, dev = e.dtype, e.device
     A, K, C = e.shape
     H = weights[0].shape[1]
@@ -420,16 +477,47 @@ def _launch(direction, e, cd, em, weights, dagg=None, dfs=None):
             raise ValueError("cd, emask and the weights must be in the "
                              f"compute dtype {cdt} on {dev}")
     bwd = direction == "bwd"
-    P = C * H + 2 * H * H + 4 * H
     if not (A and K):
         # nothing to launch: the sums over no slot are zeros
         z = lambda *shape: torch.zeros(shape, dtype=cdt, device=dev)
         if not bwd:
             return z(A, H), z(A, 3)
-        part = torch.zeros((1, P), dtype=torch.float32, device=dev)
+        part = torch.zeros((1, C * H + 2 * H * H + 4 * H),
+                           dtype=torch.float32, device=dev)
         return (z(A, K, C), z(A, K, 3)) + _split_part(part, C, H)
+    Hp = padded_width(H)
+    if Hp != H:
+        weights = pad_weights(weights, Hp)
+        if bwd:
+            dagg = pad_rows(dagg.to(cdt), Hp)
+    out = _run(direction, route, e, cd, em, weights, dagg, dfs)
+    counter = f"{route}_{direction}_launches"
+    setattr(counts, counter, getattr(counts, counter) + 1)
+    if bwd:
+        counts.bwd_launches += 1
+    else:
+        counts.fwd_launches += 1
+    if Hp == H:
+        return out
+    setattr(counts, f"padded_{direction}_launches",
+            getattr(counts, f"padded_{direction}_launches") + 1)
+    if not bwd:
+        return out[0][:, :H].contiguous(), out[1]
+    return out[:2] + unpad_grads(out[2:], H)
+
+
+def _run(direction, route, e, cd, em, weights, dagg, dfs):
+    """One launch of the kernels of ``route`` at the weights' width (one of
+    ``TILED_H + WIDE_H``): ``(agg, F_sum)`` forward, ``(de, dcd, dW1, db1, dW2,
+    db2, dW3, db3, dw4)`` backward."""
+    from .build import multiprocessors
+    cdt, dev = e.dtype, e.device
+    A, K, C = e.shape
+    H = weights[0].shape[1]
+    bwd = direction == "bwd"
+    P = C * H + 2 * H * H + 4 * H
     n_sm = multiprocessors(dev)
-    if route == "sm90":
+    if route in ("sm90", "wide"):
         lib = _sm90_library()
         nwg = sm90_warpgroups(lib, C, H, direction)
         apt, tpa, units, blocks = sm90_plan(A, K, nwg, n_sm)
@@ -441,41 +529,31 @@ def _launch(direction, e, cd, em, weights, dagg=None, dfs=None):
         lib = _library()
         code = _DTYPE_CODE[cdt]
         ta, _ = grid(A, n_sm)
-        route, rows, ta = _plan(lib, code, C, H, K, ta, direction)
+        _, rows, ta = _plan(lib, code, C, H, K, ta, direction)
         blocks = min(math.ceil(A / ta), n_sm)
         slices = blocks                  # one slice a block
-        if route == "tiled":
-            dims = (code, A, K, C, H, ta, rows, blocks)
-            kernels = (lib.edge_tiled_fwd, lib.edge_tiled_bwd)
-        else:
-            dims = (code, A, K, C, H, ta, blocks)
-            kernels = (lib.edge_pipeline_fwd, lib.edge_pipeline_bwd)
+        dims = (code, A, K, C, H, ta, rows, blocks)
+        kernels = (lib.edge_tiled_fwd, lib.edge_tiled_bwd)
         error_string = lib.edge_pipeline_error_string
     # held until the launch is queued (a copy's memory is not reused before)
     ins = [_aligned(t) for t in (e, cd, em, *weights)]
     ptrs = [t.data_ptr() for t in ins]
     stream = _P(torch.cuda.current_stream(dev).cuda_stream)
-    counter = f"{route}_{direction}_launches"
     if not bwd:
         agg = torch.empty((A, H), dtype=cdt, device=dev)
         fs = torch.empty((A, 3), dtype=cdt, device=dev)
         _check(error_string, direction, kernels[0](
             *dims, *ptrs, agg.data_ptr(), fs.data_ptr(), stream), A, K, C, H)
-        counts.fwd_launches += 1
-        setattr(counts, counter, getattr(counts, counter) + 1)
         return agg, fs
     dagg = _aligned(dagg.to(cdt))
     dfs = dfs.to(cdt).contiguous()
     de = torch.empty((A, K, C), dtype=cdt, device=dev)
     dcd = torch.empty((A, K, 3), dtype=cdt, device=dev)
-    # the chunked kernels add into zeros; the others write each element once
-    part = (torch.zeros if route == "chunked" else torch.empty)(
-        (slices, P), dtype=torch.float32, device=dev)
+    # every kernel writes each element of its slices once
+    part = torch.empty((slices, P), dtype=torch.float32, device=dev)
     _check(error_string, direction, kernels[1](
         *dims, *ptrs, dagg.data_ptr(), dfs.data_ptr(), de.data_ptr(),
         dcd.data_ptr(), part.data_ptr(), stream), A, K, C, H)
-    counts.bwd_launches += 1
-    setattr(counts, counter, getattr(counts, counter) + 1)
     return (de, dcd) + _split_part(part, C, H)
 
 

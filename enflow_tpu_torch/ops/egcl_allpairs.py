@@ -63,6 +63,7 @@ import math
 import torch
 
 from .build import LaunchCounts, multiprocessors
+from .widths import PADDED_H, SMEM_LIMIT, pad_rows, padded_width
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -94,10 +95,9 @@ _KIND = {"fwd": 0, "bwd": 1, "bwd_params": 2}
 # the hidden widths of the Hopper kernels (bf16) and the tiled f32 kernels
 SM90_H = (64, 128)
 # the widths of the block-pair kernels with streamed weights (routes
-# "wide", bf16, and "f32_wide"), and every width a launch runs at (others
-# are zero-padded up)
+# "wide", bf16, and "f32_wide"); every width a launch runs at is PADDED_H
+# (others are zero-padded up)
 WIDE_H = (192, 256)
-PADDED_H = SM90_H + WIDE_H
 # the tiled f32 kernels: rows a row tile at most (kQmaxFwd / kQmaxBwdIn /
 # kQmaxBwd x 8) and molecules a tile at most
 F32_ROWS_MAX = {"fwd": 72, "bwd": 72, "bwd_params": 40}
@@ -116,8 +116,6 @@ BLOCK_ATOMS_MAX = 32
 F32_BLOCK_ATOMS = {"fwd": 32, "bwd": 24, "bwd_params": 24}
 # the queue item that holds the refused widths: H > 256 in either dtype
 WIDE_ITEM = "ROADMAP queue B, B7: the all-pairs EGCL at H > 256"
-# shared memory a block may use on the card (kMaxSmem of the kernels)
-SMEM_LIMIT = 232448
 
 
 def split_params(W1, b1, nf: int):
@@ -127,20 +125,8 @@ def split_params(W1, b1, nf: int):
 
 
 # ---------------------------------------------------------------------------
-# the padded width
+# the padded width (``widths.padded_width``)
 # ---------------------------------------------------------------------------
-
-def padded_width(H: int):
-    """The width a launch of hidden width ``H`` runs at: the smallest of
-    ``PADDED_H`` (64, 128, 192, 256) that is at least ``H``; None past
-    256."""
-    return next((w for w in PADDED_H if w >= H), None)
-
-
-def pad_rows(t, Hp: int):
-    """``t [..., H]`` with zero columns up to ``Hp``."""
-    return torch.nn.functional.pad(t, (0, Hp - t.shape[-1]))
-
 
 def pad_weights(weights, Hp: int):
     """The nine weights ``(W1a [nf, H], W1b, w1r [1, H], b1, W2 [H, H],

@@ -252,10 +252,13 @@ def test_size_rule():
     # bf16 at the tiled widths: the Hopper kernels (edge_pipeline_sm90.cu)
     assert ops.kernel_for(torch.bfloat16, 64) == "sm90"
     assert ops.kernel_for(torch.bfloat16, 128) == "sm90"
+    # other widths run zero-padded to the next of 64 / 128 / 192 / 256
     for dt in (torch.float32, torch.bfloat16):
-        assert ops.kernel_for(dt, 96) == "chunked"
-    assert ops.kernel_for(torch.float32, 20) == "chunked"
-    for dt, H in ((torch.bfloat16, 24), (torch.float32, 6),
+        assert ops.kernel_for(dt, 96) == ops.kernel_for(dt, 128)
+    assert ops.kernel_for(torch.float32, 20) == "tiled"
+    assert ops.kernel_for(torch.bfloat16, 24) == "sm90"
+    assert ops.kernel_for(torch.float32, 6) == "tiled"
+    for dt, H in ((torch.bfloat16, 300), (torch.float32, 260),
                   (torch.float32, 0), (torch.float64, 128)):
-        with pytest.raises(ValueError, match="float32|H % 16"):
+        with pytest.raises(ValueError, match="float32|B7.2"):
             ops.kernel_for(dt, H)

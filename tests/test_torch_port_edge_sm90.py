@@ -2,8 +2,9 @@
 what of it runs on the CPU.
 
 - The size rule: bf16 at H = 64 and 128 goes to the Hopper kernels
-  (``"sm90"``), float32 keeps the tiled kernels, other widths the chunked
-  ones, and a width no kernel takes raises.
+  (``"sm90"``), float32 keeps the tiled kernels, other widths run
+  zero-padded to the next kernel width, and a width no kernel takes
+  raises.
 - The tile plan the wrapper sizes a launch with (``sm90_plan``,
   ``sm90_tiles``, the walk the kernels mirror): every row in one tile of
   at most 64 rows, every atom's K-sum owned by one warpgroup, its tiles in
@@ -52,15 +53,17 @@ def test_bf16_takes_the_hopper_route(H):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_other_widths_keep_the_chunked_kernels(dtype):
-    assert ops.kernel_for(dtype, 96) == "chunked"
+def test_other_widths_are_padded(dtype):
+    assert ops.padded_width(96) == 128
+    assert ops.kernel_for(dtype, 96) == ops.kernel_for(dtype, 128)
 
 
-@pytest.mark.parametrize("dtype,H", [(torch.bfloat16, 24), (torch.bfloat16, 0),
-                                     (torch.float32, 6),
+@pytest.mark.parametrize("dtype,H", [(torch.bfloat16, 300),
+                                     (torch.bfloat16, 0),
+                                     (torch.float32, 260),
                                      (torch.float64, 128)])
 def test_a_bad_width_or_dtype_still_raises(dtype, H):
-    with pytest.raises(ValueError, match="float32|H % 16"):
+    with pytest.raises(ValueError, match="float32|B7.2"):
         ops.kernel_for(dtype, H)
 
 
