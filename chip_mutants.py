@@ -5,8 +5,15 @@ repository root (``--match``: only the mutants whose name holds TEXT, and
 each group's control)
 (groups: ``egcl_allpairs``, ``egcl_params``, ``egcl_blocks``,
 ``egcl_wide``, ``egcl_f32``, ``egcl_blocks_f32``, ``egcl_f32_wide``,
-``edge_pipeline``, ``edge_pipeline_sm90``, ``edge_wide``,
-``pair_energy``; all by default; ``edge_pipeline`` is the tiled f32
+``wide_nf``, ``edge_pipeline``, ``edge_pipeline_sm90``, ``edge_wide``,
+``pair_energy``; all by default; ``wide_nf`` is the all-pairs EGCL's
+wide-nf routes of both files and ``egcl_wide_nf.cuh`` (the projections,
+the j-side sums, dh and dW1), read through the wrapper's entry points at
+(nf, H, N, B) = (128, 128, 13, 64), (256, 256, 13, 64), (128, 128, 55,
+16) and (200, 192, 147, 4) over two input seeds and over one of them again
+beside a stream of 1 GiB copies, bf16 per element as ``step_errs`` reads
+it, f32 against TOL / TOL_PARAM; a mutant of one file is read in that
+file's dtype, of the shared header in bf16; ``edge_pipeline`` is the tiled f32
 K5/K6 at H = 64 and 128, read at the shapes of chip_smoke.py's phase edge
 that run them;
 ``edge_pipeline_sm90`` is the bf16 Hopper K5/K6, read at its bf16 shapes,
@@ -248,6 +255,50 @@ MUTANTS = {
         "a dW partial written to the next slab's columns": (
             "*reinterpret_cast<float4*>(dW + k * H + n) =",
             "*reinterpret_cast<float4*>(dW + k * H + (n + 64) % H) ="),
+    },
+    # the wide-nf routes (each mutant names the file it edits): the header's
+    # projection, sum, dh and dW1 kernels, read in bf16 (a fault of the
+    # shared header shows in either dtype; the bf16 library builds in half
+    # the f32 one's time), and each file's block pairs with PROJ
+    "wide_nf": {
+        "control": None,
+        "a wrong k-chunk offset (W1's chunk one row down)": {
+            "egcl_wide_nf.cuh": (
+                "const int kb = kc + e / kBN, n = e % kBN;",
+                "const int kb = kc + e / kBN + 1, n = e % kBN;")},
+        "a skipped chunk (the second k-chunk's FMAs left out)": {
+            "egcl_wide_nf.cuh": (
+                "    chunk_fma(st.a[c & 1], st.b[c & 1], min(kBK, k1 - k0 - "
+                "c * kBK), tm, tn,",
+                "    if (c != 1)\n"
+                "    chunk_fma(st.a[c & 1], st.b[c & 1], min(kBK, k1 - k0 - "
+                "c * kBK), tm, tn,")},
+        "W1a used for the j side": {
+            "egcl_wide_nf.cuh": (
+                "const int side = n0 / H, c0 = n0 - side * H;\n"
+                "  const T* W = side ? W1b : W1a;",
+                "const int side = n0 / H, c0 = n0 - side * H;\n"
+                "  const T* W = W1a;")},
+        "dz1 summed over one i-block's rows, not the atom's partners": {
+            "egcl_wide_nf.cuh": (
+                "for (int ib = 0; ib < nI; ++ib) v += p[(size_t)ib * N * C];",
+                "for (int ib = nI - 1; ib < nI; ++ib) "
+                "v += p[(size_t)ib * N * C];")},
+        "a skipped chunk wait (the next chunk read before it is staged)": {
+            "egcl_wide_nf.cuh": (
+                "    if (more) put(st, (c + 1) & 1, ra, rb);\n"
+                "    __syncthreads();",
+                "    if (more) put(st, (c + 1) & 1, ra, rb);")},
+        "bf16: hB's rows copied from hA's columns": {
+            "egcl_allpairs_sm90": (
+                "a.proj + (nb + i) * 2 * H + H + c);",
+                "a.proj + (nb + i) * 2 * H + c);")},
+        "f32: K2's dz1 not stored (the sums take dz3)": {
+            "egcl_allpairs_f32": (
+                "    if constexpr (PROJ)\n"
+                "      *reinterpret_cast<float4*>(X0 + r * LD + c0) =\n"
+                "          make_float4(d[0], d[1], d[2], d[3]);",
+                "")},
     },
     # K5/K6 at H = 192 and 256 (each mutant names the file it edits)
     "edge_wide": {
@@ -611,7 +662,7 @@ for sname, shape in (("dw4", cs.DW4), ("ala2", cs.ALA2),
 import os
 from enflow_tpu_torch.ops import build
 from enflow_tpu_torch.ops import edge_pipeline as ep
-dnames = os.environ["EDGE_WIDE_DTYPES"].split(",")
+dnames = os.environ["MUTANT_DTYPES"].split(",")
 build.build_all([{"float32": "edge_pipeline",
                   "bfloat16": "edge_pipeline_sm90"}[d] for d in dnames])
 big = torch.empty(2 ** 28, device="cuda")
@@ -666,6 +717,67 @@ for H in cs.EDGE_WIDTHS:
                 del e, cd, em, W, dagg, dfs, k, p
                 torch.cuda.empty_cache()
 """,
+    "wide_nf": HEAD + """
+import os
+from enflow_tpu_torch.ops import build
+from enflow_tpu_torch.ops import egcl_allpairs as ops
+dnames = os.environ["MUTANT_DTYPES"].split(",")
+build.build_all([{"float32": "egcl_allpairs_f32",
+                  "bfloat16": "egcl_allpairs_sm90"}[d] for d in dnames])
+names = {"fwd": ("agg", "f_sum"), "bwd": ("dh", "dpos"),
+         "bwd_params": cs.PARAM_OUT}
+big = torch.empty(2 ** 28, device="cuda")
+dst = torch.empty_like(big)
+side = torch.cuda.Stream()
+def stress():
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(40):
+            dst.copy_(big)
+for nf, H, N, B in ((128, 128, 13, 64), (256, 256, 13, 64),
+                    (128, 128, 55, 16), (200, 192, 147, 4)):
+    for dname in dnames:
+        dt = getattr(torch, dname)
+        code = 1 if dname == "bfloat16" else 0
+        for seed, loaded in ((71, False), (72, False), (71, True)):
+            h, pos, box, mf, W, dagg, dfs, _ = cs.edge_inputs(
+                dict(B=B, N=N, nf=nf, H=H, n_pad=2), dt, seed=seed)
+            args = (h, pos, box, mf, W, dagg, dfs)
+            for kind in ("fwd", "bwd", "bwd_params"):
+                assert ops.route_of(code, (B, N, nf, H), kind) == \\
+                    ops.WIDE_NF_ROUTE[code]
+                if loaded:
+                    stress()
+                if kind == "fwd":
+                    k = ops.allpairs_edges_fwd(h, pos, box, mf, W)
+                    p = ops.allpairs_edges_plain(h, pos, box, mf, W)
+                else:
+                    k = ops.allpairs_edges_bwd(*args,
+                                               params=kind == "bwd_params")
+                    p = ops.allpairs_edges_plain_bwd(
+                        *args, params=kind == "bwd_params")
+                torch.cuda.synchronize()
+                label = (f"nf={nf} H={H} N={N} B={B} {dname} seed {seed} "
+                         f"{kind}" + (" beside a copy stream" if loaded
+                                      else ""))
+                if code:
+                    errs = cs.step_errs(names[kind], k, p, cs.plain_terms(
+                        args) if kind == "bwd_params" else None)
+                    print(f"  {label}: " + cs.steps_text(errs) + " -> "
+                          + ("passes" if cs.steps_ok(errs) else "caught"),
+                          flush=True)
+                else:
+                    errs = cs.rel_errs(names[kind], k, p)
+                    report(f"{label} outputs", {
+                        n: e for n, e in errs.items()
+                        if n not in cs.PARAM_OUT[2:]}, cs.TOL["float32"])
+                    if kind == "bwd_params":
+                        report(f"{label} parameter gradients (f32 sums)",
+                               {n: errs[n] for n in cs.PARAM_OUT[2:]},
+                               cs.TOL_PARAM["float32"])
+                del k, p
+            torch.cuda.empty_cache()
+""",
     "edge_pipeline": EDGE_READ.replace("HOPPER", "False"),
     "edge_pipeline_sm90": EDGE_READ.replace("HOPPER", "True"),
     "pair_energy": HEAD + """
@@ -713,7 +825,8 @@ def main():
                                                               "__pycache__"))
                 shutil.copy(ROOT / "chip_smoke.py", tmp)
                 for src_name, ed in edits.items():
-                    src_rel = f"enflow_tpu_torch/csrc/{src_name}.cu"
+                    src_rel = f"enflow_tpu_torch/csrc/{src_name}" + (
+                        "" if src_name.endswith(".cuh") else ".cu")
                     src = Path(tmp) / src_rel
                     text = src.read_text()
                     for old, new, *times in ([] if ed is None else
@@ -725,15 +838,19 @@ def main():
                                 f"{src_rel} as often as expected")
                         text = text.replace(old, new)
                     src.write_text(text)
-                # edge_wide: a mutant is read in its file's dtype only
+                # edge_wide, wide_nf: a mutant is read in its file's dtype
+                # only (wide_nf's header in bf16)
                 dtypes = ",".join(
                     {"edge_pipeline": "float32",
-                     "edge_pipeline_sm90": "bfloat16"}.get(k, "")
+                     "edge_pipeline_sm90": "bfloat16",
+                     "egcl_allpairs_f32": "float32",
+                     "egcl_allpairs_sm90": "bfloat16",
+                     "egcl_wide_nf.cuh": "bfloat16"}.get(k, "")
                     for k in edits) if edit else "float32,bfloat16"
                 print(f"[mutant] {group}: {name}", flush=True)
                 subprocess.run([sys.executable, "-c", READ[group]], cwd=tmp,
                                check=True, env=dict(
-                                   os.environ, EDGE_WIDE_DTYPES=dtypes))
+                                   os.environ, MUTANT_DTYPES=dtypes))
     return 0
 
 

@@ -600,15 +600,17 @@ def work(shape, dtype_name, mask):
 def work_params(shape, dtype_name, mask):
     """(FLOP, bytes) of the backward with parameter gradients: the
     input-gradient backward's work (``work``) plus, per valid pair, the
-    outer products m1^T dz2 and m2^T dz3 (2 H^2 each), h_i^T dz1 and
-    h_j^T dz1 (2 nf H each), r2 dz1 and g1 dgate (2 H each) and the three
-    bias sums (H each); bytes plus the nine float32 gradients written
-    once."""
+    outer products m1^T dz2 and m2^T dz3 (2 H^2 each), r2 dz1 and g1 dgate
+    (2 H each) and the three bias sums (H each), and per real atom dW1a =
+    h_i^T (sum_j dz1) and dW1b = h_j^T (sum_i dz1) (2 nf H each: both are
+    linear in the atom's dz1 summed over its partners, which the kernels
+    sum first); bytes plus the nine float32 gradients written once."""
     nf, H = shape["nf"], shape["H"]
     n_real = mask.sum(dim=1).double()
     pairs = float((n_real * (n_real - 1)).sum())
+    atoms = float(n_real.sum())
     _, bwd, _, bwd_b = work(shape, dtype_name, mask)
-    flop = bwd + pairs * (4 * H * H + 4 * nf * H + 7 * H)
+    flop = bwd + pairs * (4 * H * H + 7 * H) + atoms * 2 * 2 * nf * H
     return flop, bwd_b + 4 * (2 * H * H + 2 * nf * H + 5 * H)
 
 
@@ -729,7 +731,8 @@ def launch_counter(kind, route):
     name = {"fwd": "fwd", "bwd": "bwd", "bwd_params": "bwd_param"}[kind]
     if route == "f32" and kind == "bwd":
         name = "bwd_f32"
-    if route in ("blocks", "f32_blocks", "wide", "f32_wide"):
+    if route in ("blocks", "f32_blocks", "wide", "f32_wide", "wide_nf",
+                 "f32_wide_nf"):
         name += "_" + route
     return name + "_launches"
 
@@ -2672,7 +2675,7 @@ dynamics:
   integrator: lf
   nbr_mode: all_pairs
   compute_dtype: bfloat16
-  network: {{hidden_nf: 128, node_nf: 5, use_pallas: v3}}
+  network: {{hidden_nf: {hidden}, node_nf: {node}, use_pallas: v3}}
 sampling:
   algo: smc
   n_particles: 1024
@@ -2685,14 +2688,16 @@ sampling:
 """
 
 
-def smc_driver(tmp):
-    """The port's driver, set up from ``SMC_YAML`` written into ``tmp``."""
+def smc_driver(tmp, hidden=128, node=5):
+    """The port's driver, set up from ``SMC_YAML`` written into ``tmp``
+    (the network at ``hidden_nf`` ``hidden`` and ``node_nf`` ``node``)."""
     from enflow_tpu_torch.train.driver import Main
     from enflow_tpu_torch.utils.conversion import lj_to_time
 
     cfg = Path(tmp) / "smc_lj13.yaml"
     cfg.write_text(SMC_YAML.format(dt=lj_to_time(0.05, "pico"),
-                                   out=str(Path(tmp) / "samples.npz")))
+                                   out=str(Path(tmp) / "samples.npz"),
+                                   hidden=hidden, node=node))
     main = Main(device="cuda")
     main.setup(str(cfg))
     return main
@@ -2775,9 +2780,14 @@ def device_ms(fn, key, calls=20, tries=3, warmup=3):
     ``warmup`` warm-up calls). The trace may drop events: at least half of
     each key's launches must be in it, else the calls are traced again, up
     to ``tries`` times."""
+    keys = key if isinstance(key, tuple) else (key,)
+    return sum(device_ms_each(fn, keys, calls, tries, warmup))
+
+
+def device_ms_each(fn, keys, calls=20, tries=3, warmup=3):
+    """``device_ms``'s median for each of ``keys``, from one trace."""
     import torch
     from torch.autograd import DeviceType
-    keys = key if isinstance(key, tuple) else (key,)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -2793,7 +2803,7 @@ def device_ms(fn, key, calls=20, tries=3, warmup=3):
             require(len(ts) <= calls, f"{len(ts)} '{k}' launches traced of "
                     f"{calls} calls")
         if all(len(ts) >= calls // 2 for ts in spans):
-            return sum(ts[len(ts) // 2] for ts in spans) * 1e-3
+            return [ts[len(ts) // 2] * 1e-3 for ts in spans]
     raise RuntimeError(f"{[len(ts) for ts in spans]} {keys} launches traced "
                        f"of {calls}, {tries} times")
 
@@ -2964,13 +2974,20 @@ def ab_phase(card, old_src):
             cases.append((f"{sname} {kind}", same))
     # the block-pair kernels at H = 64 and 128 (their own route past the
     # one-molecule limits; launched through allpairs_edges_blocks within
-    # them)
+    # them) and at 192 / 256 (route "wide", every N) where the earlier
+    # source streams W2 / W3
+    wide = "streamed(H)" in text
     for sname, shape in ((("blocks lj147", dict(B=16, N=147, nf=5, H=128,
                                                  n_pad=2)),
                            ("blocks n60", dict(B=32, N=60, nf=5, H=128)),
                            ("blocks h64 n100", dict(B=16, N=100, nf=5,
                                                     H=64)))
-                          if blocks else ()):
+                          if blocks else ()) + ((
+                              ("wide h192 n13", dict(B=32, N=13, nf=5,
+                                                     H=192)),
+                              ("wide h256 n55", dict(B=8, N=55, nf=5, H=256,
+                                                     n_pad=2)))
+                              if wide else ()):
         args = edge_inputs(shape, torch.bfloat16, seed=11)[:7]
         for kind in ("fwd", "bwd", "bwd_params"):
             run = lambda k=kind: ops.allpairs_edges_blocks(
@@ -3065,7 +3082,9 @@ def f32_bits_ab_phase(card, old_lib):
     block-pair kernels at H = 128 (N = 147 and 75) and 64 (N = 100) in
     every direction (through ``allpairs_edges_blocks``); then timed in
     turns (ala2's K1 and K2 p, sample_ala2's K2 at B=2048; CUDA events and
-    device time)."""
+    device time). Where the earlier source streams W2 / W3 (route
+    ``"f32_wide"``), its block pairs at H = 192 (N=22, nf=4) and 256 (N=55)
+    too."""
     import torch
     from enflow_tpu_torch.ops import build
     from enflow_tpu_torch.ops import egcl_allpairs as ops
@@ -3081,6 +3100,8 @@ def f32_bits_ab_phase(card, old_lib):
         f, g = getattr(old_lib, fn), getattr(new_lib, fn)
         f.argtypes, f.restype = g.argtypes, g.restype
     old_lib._enflow_bound = True
+    # the streamed widths: the earlier library takes H = 256 block pairs
+    wide = blocks and old_lib.egcl_f32_blocks_smem_bytes(8, 5, 256, 8, 0) > 0
 
     def use(which):
         build._loaded["egcl_allpairs_f32"] = (old_lib if which == "old"
@@ -3116,7 +3137,12 @@ def f32_bits_ab_phase(card, old_lib):
                            ("blocks n75", dict(B=8, N=75, nf=5, H=128)),
                            ("blocks h64 n100", dict(B=8, N=100, nf=5,
                                                     H=64)))
-                          if blocks else ()):
+                          if blocks else ()) + ((
+                              ("wide h192 n22", dict(B=16, N=22, nf=4,
+                                                     H=192)),
+                              ("wide h256 n55", dict(B=4, N=55, nf=5, H=256,
+                                                     n_pad=2)))
+                              if wide else ()):
         args = edge_inputs(shape, torch.float32, seed=11)[:7]
         for kind in ("fwd", "bwd", "bwd_params"):
             run = lambda k=kind: ops.allpairs_edges_blocks(
@@ -5694,6 +5720,349 @@ def wide_f32_phase(card):
                 rec=rec)
 
 
+# Phase wide_nf: the all-pairs EGCL at wide node features (route
+# "wide_nf" / "f32_wide_nf"). (a) the kernels at the reference's wide-nf
+# shapes (RESULTS.md: B=1024, N=13 at nf = H = 128 and nf = H = 256; K2 p
+# at B=512) and at LJ55 / LJ147 (B=16, several blocks a molecule), in f32
+# also at the driver paths' batches; (b) the seam; (c) the driver paths.
+NF_SHAPES = (("ref128", dict(B=1024, N=13, nf=128, H=128)),
+             ("ref256", dict(B=1024, N=13, nf=256, H=256)),
+             ("lj55", dict(B=16, N=55, nf=128, H=128, n_pad=2)),
+             ("lj147", dict(B=16, N=147, nf=128, H=128, n_pad=3)))
+# (K2 p at the VI's B=512 is ref128's)
+NF_F32_DRIVER = (("vi512", dict(B=512, N=13, nf=128, H=128), ("fwd",)),
+                 ("smc256", dict(B=256, N=13, nf=128, H=128), ("bwd",)))
+NF_KP_B = 512
+NF_SEAM = dict(B=64, N=13)
+NF_VI_STEPS = 3
+NF_SMC = dict(n_particles=256, n_temps=4)
+
+
+def nf_keys(dname, kind):
+    """The kernels of one wide-nf launch (substrings of their names for
+    ``device_ms_each``): the projections, the block pairs, and for the
+    backward the j-side sums, dh and (K2 p) dW1's splits."""
+    pairs = ("egcl_sm90_blocks_" + ("fwd" if kind == "fwd" else "bwd")
+             if dname == "bfloat16" else
+             "egcl_f32_blocks_fwd" if kind == "fwd" else "egcl_f32_wide_nf")
+    keys = ("egcl_nf_proj", pairs)
+    if kind != "fwd":
+        keys += ("egcl_nf_jsum", "egcl_nf_dh")
+    if kind == "bwd_params":
+        keys += ("egcl_nf_dw1",)
+    return keys
+
+
+def nf_vs_plain(label, shape, dname, kind, seed=61, route="entry"):
+    """One launch of ``kind`` at ``shape`` against the plain version: bf16
+    read per element (``step_errs``), f32 against TOL / TOL_PARAM; a second
+    launch must give the same bits. ``route`` ``"entry"``: through the
+    wrapper's entry point, on the wide-nf counter of its dtype alone;
+    ``"parent"``: through the entry point on another route's counter;
+    ``"wide_nf"``: the wide-nf route forced. Returns (the launch, its
+    outputs, max abs err, reading text, ok, the mask, the plain call)."""
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+    dt = getattr(torch, dname)
+    h, pos, box, mf, W, dagg, dfsum, mask = edge_inputs(shape, dt, seed)
+    args = (h, pos, box, mf, W, dagg, dfsum)
+    ins = args[:5] if kind == "fwd" else args
+    if route == "wide_nf":
+        kern = lambda: ops.allpairs_edges_wide_nf(kind, *ins)
+    elif kind == "fwd":
+        kern = lambda: ops.allpairs_edges_fwd(*ins)
+    else:
+        kern = lambda: ops.allpairs_edges_bwd(*ins,
+                                              params=kind == "bwd_params")
+    plain = ((lambda: ops.allpairs_edges_plain(*ins)) if kind == "fwd" else
+             (lambda: ops.allpairs_edges_plain_bwd(
+                 *ins, params=kind == "bwd_params")))
+    names = (("agg", "f_sum") if kind == "fwd" else PARAM_OUT
+             if kind == "bwd_params" else ("dh", "dpos"))
+    code = 1 if dname == "bfloat16" else 0
+    ops.counts.reset()
+    got = kern()
+    torch.cuda.synchronize()
+    nf_counter = launch_counter(kind, ops.WIDE_NF_ROUTE[code])
+    if route == "entry":
+        want_c = {nf_counter: 1}
+        if ops.padded_width(shape["H"]) != shape["H"]:
+            want_c["padded_launches"] = 1
+        require(launched() == want_c, f"wide_nf {label} {kind} {dname}: "
+                f"launches {launched()} != {want_c}")
+    elif route == "parent":
+        require(len(launched()) == 1 and nf_counter not in launched(),
+                f"{label} {kind} {dname}: launches {launched()}")
+    want = plain()
+    if code:
+        errs = step_errs(names, got, want, plain_terms(args)
+                         if kind == "bwd_params" else None)
+        ok, text = steps_ok(errs), steps_text(errs)
+        err = max(a for a, _, _ in errs.values())
+    else:
+        errs = rel_errs(names, got, want)
+        ok = all(r <= (TOL_PARAM if n in PARAM_OUT[2:] else TOL)[dname]
+                 for n, (_, r) in errs.items())
+        text = "  ".join(f"{n} {a:.2e}/{r:.1e}" for n, (a, r) in errs.items())
+        err = max(a for a, _ in errs.values())
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, kern()))
+    del want
+    return kern, got, err, f"{text}; a second launch gives the same bits: " \
+        f"{same}", ok and same, mask, plain
+
+
+def nf_kernels(card):
+    """(a): K1, K2 and K2 p at NF_SHAPES (K2 p at B=NF_KP_B where B is
+    1024) and, in f32, at the driver paths' batches: each vs plain on its
+    own counter, a second launch bitwise equal, CUDA events and device
+    time (each kernel of the launch), the bound."""
+    import torch
+    rec = {}
+    cases = [(label, shape, kind) for label, shape in NF_SHAPES
+             for kind in ("fwd", "bwd", "bwd_params")]
+    for dname in ("bfloat16", "float32"):
+        more = NF_F32_DRIVER if dname == "float32" else ()
+        for label, shape, kind in cases + [(lb, sh, k) for lb, sh, ks in more
+                                           for k in ks]:
+            if kind == "bwd_params" and shape["B"] == 1024:
+                shape = dict(shape, B=NF_KP_B)
+            kern, got, err, text, ok, mask, plain = nf_vs_plain(
+                label, shape, dname, kind)
+            del got
+            require(ok, f"wide_nf {label} {kind} {dname} disagrees with "
+                    f"plain: {text}")
+            t_plain = cuda_time_ms(plain, reps=3, calls=1, warmup=1)
+            torch.cuda.empty_cache()
+            ms = cuda_time_ms(kern, reps=5, calls=3)
+            each = device_ms_each(kern, nf_keys(dname, kind))
+            fl_f, fl_b, by_f, by_b = work(shape, dname, mask)
+            fl, by = {"fwd": (fl_f, by_f), "bwd": (fl_b, by_b),
+                      "bwd_params": work_params(shape, dname, mask)}[kind]
+            b = bound(fl, by, PEAK_FLOPS[dname])
+            keys = nf_keys(dname, kind)
+            phase("wide_nf", f"(a) {label} {kind} {dname} B={shape['B']} "
+                  f"N={shape['N']} nf={shape['nf']} H={shape['H']}: {text} "
+                  f"-> ok; time ms events {ms:.4f} device {sum(each):.4f} ("
+                  + ", ".join(f"{k.replace('egcl_', '')} {t:.4f}"
+                              for k, t in zip(keys, each))
+                  + f"), plain {t_plain:.4f}, bound {b[0]:.4f} ({b[1]}, "
+                  f"{fl / 1e9:.2f} GFLOP, {by / 1e6:.2f} MB) on {card}")
+            rec[(label, dname, kind)] = dict(err=err, ms=ms, dev=sum(each),
+                                             each=each, plain=t_plain,
+                                             bound=b)
+            del kern, plain
+            torch.cuda.empty_cache()
+    return rec
+
+
+def nf_seam(card):
+    """(b): at H = 128 and 256, N=13, B=64, per dtype and direction, the
+    largest nf that the parent's routes take (the libraries' byte
+    functions, through the wrapper's route rule) beside the Python
+    mirror's (tests/egcl_smem_mirror.py); at that nf the parent's route and
+    the wide-nf route side by side (device times, how far apart their
+    outputs are, each vs plain), at nf + 1 the wide-nf route through the
+    entry point."""
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+    sys.path.insert(0, str(ROOT / "tests"))
+    import egcl_smem_mirror as mirror
+    out = {}
+    for dname in ("bfloat16", "float32"):
+        code = 1 if dname == "bfloat16" else 0
+        for H in (128, 256):
+            for kind in ("fwd", "bwd", "bwd_params"):
+                nf = 1
+                while (ops.route_of(code, (NF_SEAM["B"], NF_SEAM["N"],
+                                           nf + 1, H), kind)
+                       != ops.WIDE_NF_ROUTE[code]):
+                    nf += 1
+                mir = mirror.seam_nf(code, NF_SEAM["N"], H, kind)
+                require(mir == nf, f"seam {dname} H={H} {kind}: library "
+                        f"{nf}, mirror {mir}")
+                route = ops.route_of(code, (NF_SEAM["B"], NF_SEAM["N"], nf,
+                                            H), kind)
+                shape = dict(NF_SEAM, nf=nf, H=H)
+                # the parent's route and the forced wide-nf route at nf
+                parent = _seam_launch(shape, dname, kind, "parent")
+                wide = _seam_launch(shape, dname, kind, "wide_nf")
+                apart = max(float((a.float() - b.float()).abs().max())
+                            for a, b in zip(parent["got"], wide["got"]))
+                kern, got, err, text, ok, _, _ = nf_vs_plain(
+                    "seam+1", dict(shape, nf=nf + 1), dname, kind, seed=67)
+                require(parent["ok"] and wide["ok"] and ok,
+                        f"seam {dname} H={H} {kind}: parent {parent['text']}"
+                        f" | wide_nf {wide['text']} | nf+1 {text}")
+                t1 = cuda_time_ms(kern, reps=5, calls=3)
+                phase("wide_nf", f"(b) seam {dname} H={H} {kind} N=13 B=64: "
+                      f"largest nf of the parent's route {nf} (library; "
+                      f"mirror {mir}), route {route}: events "
+                      f"{parent['ms']:.4f} ms; wide_nf at nf={nf}: "
+                      f"{wide['ms']:.4f} ms ({wide['ms'] / parent['ms']:.2f}"
+                      f"x); outputs apart by {apart:.2e} (parent vs plain: "
+                      f"{parent['text']}; wide_nf vs plain: {wide['text']}); "
+                      f"nf={nf + 1} on wide_nf {t1:.4f} ms, vs plain {text}"
+                      f" on {card}")
+                out[(dname, H, kind)] = dict(nf=nf, parent=parent["ms"],
+                                             wide=wide["ms"], apart=apart)
+                del kern, got
+                torch.cuda.empty_cache()
+    return out
+
+
+def _seam_launch(shape, dname, kind, route):
+    """One launch at ``shape`` on the route rule's route (``route`` None)
+    or the forced wide-nf route: outputs, reading vs plain, events time."""
+    kern, got, err, text, ok, _, _ = nf_vs_plain("seam", shape, dname, kind,
+                                                 seed=67, route=route)
+    return dict(got=got, text=text, ok=ok,
+                ms=cuda_time_ms(kern, reps=5, calls=3))
+
+
+def nf_runs(main, runs, label, want):
+    """``runs`` SMC runs of ``main`` (the first a warm-up), each held to the
+    launch counts ``want`` and 0 plain calls; returns (the last result,
+    seconds of each run)."""
+    import torch
+    secs = []
+    for _ in range(runs):
+        reset_counts()
+        res, t = timed_sample(main)
+        torch.cuda.synchronize()
+        got, plain = launched(), plain_calls()
+        require(got == want and plain == 0, f"{label}: launches {got} != "
+                f"{want}, plain {plain}")
+        secs.append(t)
+    return res, secs
+
+
+def nf_paths(card, rec):
+    """(c): LJ13 flow-SMC at bench.py's settings (SMC_YAML: 1024
+    particles, 8 temps, 1 HMC sweep of 5 leapfrog steps, 5 flow steps,
+    bf16) at node_nf 128 (H 128) and at node_nf 256, hidden_nf 256;
+    ``vi_lj13.yaml`` at node_nf 128 1 x NF_VI_STEPS (K2 p); the same VI in
+    float32, then a float32 ``sample_lj13.yaml`` of NF_SMC from its
+    checkpoint. Every launch on the wide-nf counters, 0 plain calls, beta
+    1, finite log_Z and losses, outputs on the card; seconds a run or step
+    and the kernels' share (launches x device time at (a)'s shapes)."""
+    import os
+    import torch
+    from enflow_tpu_torch.sample.smc import ess_from_log_weights
+
+    cwd = os.getcwd()
+    n_iter, out = 5, {}
+    n_vg = 1 + 8 * 1 * 5
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for node, hidden, key in ((128, 128, "ref128"),
+                                      (256, 256, "ref256")):
+                main = smc_driver(tmp, hidden=hidden, node=node)
+                want = dict(fwd_wide_nf_launches=n_iter + n_vg * n_iter,
+                            bwd_wide_nf_launches=n_vg * n_iter)
+                res, secs = nf_runs(main, 2, f"LJ13 SMC node_nf {node}",
+                                    want)
+                check_smc(res, f"LJ13 SMC node_nf {node}", 1024, 13)
+                require(res.log_Z.is_cuda and res.particles["pos"].is_cuda,
+                        "wide_nf SMC outputs are not on the card")
+                k = (want["fwd_wide_nf_launches"]
+                     * rec[(key, "bfloat16", "fwd")]["dev"]
+                     + want["bwd_wide_nf_launches"]
+                     * rec[(key, "bfloat16", "bwd")]["dev"]) / 1e3
+                out[f"smc{node}"] = dict(secs=secs[-1], launches=want)
+                phase("wide_nf", f"(c) LJ13 flow-SMC (bench.py's settings) "
+                      f"at node_nf {node}, hidden_nf {hidden}, bf16 on "
+                      f"{card}: {secs[-1]:.3f} s a run (runs "
+                      + ", ".join(f"{t:.3f}" for t in secs)
+                      + f" s, first is warm-up), {1024 / secs[-1]:.1f} "
+                      f"samples/s, log_Z {float(res.log_Z):.4f}, final ESS "
+                      f"{float(ess_from_log_weights(res.log_weights)):.1f}, "
+                      f"beta {float(res.beta_history[-1]):.6f}; launches "
+                      f"{want}, plain calls 0; kernels (launches x device "
+                      f"time at B=1024) {k:.3f} s ({k / secs[-1]:.1%})")
+                del main, res
+                torch.cuda.empty_cache()
+            for dname, dyn in (("bfloat16", {}),
+                               ("float32", dict(compute_dtype="float32"))):
+                f32 = dname == "float32"
+                rt = "_f32_wide_nf" if f32 else "_wide_nf"
+                ckpt = f"lj13_nf128_{dname}.cpt"
+                net = dict(dyn, network=dict(hidden_nf=128, node_nf=128),
+                           checkpoint_path=ckpt)
+                vi = config_driver(tmp, "vi_lj13.yaml", over=dict(
+                    num_epochs=1, steps_per_epoch=NF_VI_STEPS), dynamics=net)
+                step_s, losses = time_vi_steps(vi)
+                reset_counts()
+                vi.train()
+                torch.cuda.synchronize()
+                got, plain = launched(), plain_calls()
+                want = {f"fwd{rt}_launches": n_iter * NF_VI_STEPS,
+                        f"bwd_param{rt}_launches": n_iter * NF_VI_STEPS}
+                require(len(step_s) == NF_VI_STEPS and got == want
+                        and plain == 0, f"VI node_nf 128 {dname}: "
+                        f"{len(step_s)} steps, launches {got} != {want}, "
+                        f"plain {plain}")
+                require(all(math.isfinite(x) for x in losses),
+                        f"non-finite VI losses {losses}")
+                require(Path(ckpt).exists(), f"no checkpoint {ckpt}")
+                s_step = statistics.median(step_s[1:])
+                k = 5 * (rec[("vi512" if f32 else "ref128", dname,
+                              "fwd")]["dev"]
+                         + rec[("ref128", dname, "bwd_params")]["dev"]) / 1e3
+                out[f"vi_{dname}"] = dict(s_step=s_step, launches=got)
+                phase("wide_nf", f"(c) vi_lj13.yaml at node_nf 128 in "
+                      f"{dname} on {card}: 1 epoch x {NF_VI_STEPS} steps of "
+                      f"{vi.vi_particles} particles, {s_step:.5f} s/step "
+                      f"(median of steps 2-{NF_VI_STEPS}; first "
+                      f"{step_s[0]:.4f} s); losses "
+                      + ", ".join(f"{x:.2f}" for x in losses)
+                      + f"; launches {got}, plain calls 0; kernels (5 x "
+                      f"(K1 + K2 p) device time at B=512) {k:.5f} s "
+                      f"({k / s_step:.1%})")
+                del vi
+                if not f32:
+                    continue
+                smc = config_driver(tmp, "sample_lj13.yaml", over=dict(
+                    NF_SMC, output="lj13_nf128_f32.npz"), dynamics=net)
+                sec = smc.args["sampling"]
+                n_vg13 = 1 + sec["n_temps"] * sec["mcmc_steps"] \
+                    * sec["n_leapfrog"]
+                want = dict(fwd_f32_wide_nf_launches=n_iter
+                            + n_vg13 * n_iter,
+                            bwd_f32_wide_nf_launches=n_vg13 * n_iter)
+                res, secs = nf_runs(smc, 1, "f32 sample_lj13 node_nf 128",
+                                    want)
+                check_smc(res, "f32 sample_lj13 node_nf 128",
+                          NF_SMC["n_particles"], 13)
+                require(res.log_Z.is_cuda and res.particles["pos"].is_cuda,
+                        "f32 wide_nf SMC outputs are not on the card")
+                k = (want["bwd_f32_wide_nf_launches"]
+                     * rec[("smc256", dname, "bwd")]["dev"]) / 1e3
+                out["smc_f32"] = dict(secs=secs[-1], launches=want)
+                phase("wide_nf", f"(c) sample_lj13.yaml in float32 at "
+                      f"node_nf 128 from that checkpoint on {card}: "
+                      f"{NF_SMC['n_particles']} particles x "
+                      f"{NF_SMC['n_temps']} temps, {secs[-1]:.3f} s (the "
+                      f"first run, builds warm), log_Z "
+                      f"{float(res.log_Z):.4f}, beta "
+                      f"{float(res.beta_history[-1]):.6f}; launches {want}, "
+                      f"plain calls 0; K2 (launches x device time at "
+                      f"B=256) {k:.3f} s ({k / secs[-1]:.1%})")
+                del smc, res
+                torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
+    return out
+
+
+def wide_nf_phase(card):
+    """Phase wide_nf: (a) ``nf_kernels``, (b) ``nf_seam``, (c)
+    ``nf_paths``. Returns the records and the paths' launches."""
+    rec = nf_kernels(card)
+    seam = nf_seam(card)
+    paths = nf_paths(card, rec)
+    return dict(rec=rec, seam=seam, paths=paths)
+
+
 def fluid_phase(card):
     """``example/vi_fluid.yaml``: the periodic LJ fluid (N=32, box 6.5,
     H=64, bf16) with the learned drift, a kick and a drift EGCL a flow
@@ -6857,6 +7226,7 @@ def main():
     lj147f = timed("lj147_f32", lj147_f32_phase, card)
     wide = timed("wide", wide_phase, card)
     wf = timed("wide_f32", wide_f32_phase, card)
+    wn = timed("wide_nf", wide_nf_phase, card)
     timed("fluid", fluid_phase, card)
     dw4 = timed("dw4", dw4_phase, card)
     ala2 = timed("ala2", ala2_phase, card)
@@ -7014,6 +7384,36 @@ def main():
         kernels.append(kernel_record(name, "egcl_allpairs_f32.cu",
                                      f"{v3}:{line}", n, r["err"], r["ms"],
                                      r["plain"], r["bound"]))
+    # the wide-nf routes at the reference's shapes (N=13), each with the
+    # launches of phase wide_nf's driver run at that shape: bf16 K1 / K2 at
+    # B=1024 of the node_nf 128 and 256 SMC runs, K2 p at B=512 of the bf16
+    # VI at node_nf 128; f32 K1 / K2 p at B=512 of the f32 VI, K2 at B=256
+    # of the f32 SMC run
+    nrec, npaths = wn["rec"], wn["paths"]
+    for name, key, dname, kind, line, n in (
+            ("egcl_allpairs_wide_nf_fwd", "ref256", "bfloat16", "fwd", 365,
+             npaths["smc256"]["launches"]["fwd_wide_nf_launches"]),
+            ("egcl_allpairs_wide_nf_bwd", "ref256", "bfloat16", "bwd", 414,
+             npaths["smc256"]["launches"]["bwd_wide_nf_launches"]),
+            ("egcl_allpairs_wide_nf_fwd_128", "ref128", "bfloat16", "fwd",
+             365, npaths["smc128"]["launches"]["fwd_wide_nf_launches"]),
+            ("egcl_allpairs_wide_nf_bwd_128", "ref128", "bfloat16", "bwd",
+             414, npaths["smc128"]["launches"]["bwd_wide_nf_launches"]),
+            ("egcl_allpairs_wide_nf_bwd_params", "ref128", "bfloat16",
+             "bwd_params", 414, npaths["vi_bfloat16"]["launches"][
+                 "bwd_param_wide_nf_launches"]),
+            ("egcl_allpairs_f32_wide_nf_fwd", "vi512", "float32", "fwd", 365,
+             npaths["vi_float32"]["launches"]["fwd_f32_wide_nf_launches"]),
+            ("egcl_allpairs_f32_wide_nf_bwd_params", "ref128", "float32",
+             "bwd_params", 414, npaths["vi_float32"]["launches"][
+                 "bwd_param_f32_wide_nf_launches"]),
+            ("egcl_allpairs_f32_wide_nf_bwd", "smc256", "float32", "bwd",
+             414, npaths["smc_f32"]["launches"]["bwd_f32_wide_nf_launches"])):
+        r = nrec[(key, dname, kind)]
+        src = "egcl_allpairs_sm90.cu" if dname == "bfloat16" else \
+            "egcl_allpairs_f32.cu"
+        kernels.append(kernel_record(name, src, f"{v3}:{line}", n, r["err"],
+                                     r["ms"], r["plain"], r["bound"]))
     # bf16 K5/K6 at 17 edge features (the Hopper kernels, two k16 steps of
     # e W1), with the launches of phase edge's node_nf 8 driver path
     c17, nf8 = erec[("c17", "bfloat16")], erec["nf8"]

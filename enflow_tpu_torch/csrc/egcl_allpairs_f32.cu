@@ -139,6 +139,22 @@
 // slice of the partials in global memory and reads, adds to and writes it
 // once a row tile, one 64-column group at a time (outer_slice), in the
 // order and with the FMAs the register tile takes: the same bits.
+//
+// Wide node features (route "f32_wide_nf", every H and N;
+// egcl_wide_nf.cuh). The other routes keep W1a and W1b whole in shared
+// memory (8 nf H bytes) and, in the input-gradient backward, per-row
+// arrays that grow with nf (gpart [R, H/32, 2 nf + 1], rd [R, 2 nf + 3]):
+// past nf ~24-32 at H = 256 or ~60-77 at H = 128 no block of 8 atoms and 8
+// rows fits. Where the block pairs' plan finds none, the wrapper runs them
+// with their PROJ flag at nf 0: z1_row adds the rows of hA = h W1a and hB =
+// h W1b, precomputed once per atom by egcl_nf_proj_kernel ([B N, 2H]),
+// read from global memory (L2) instead of its nf-long dots; the backward
+// (egcl_f32_wide_nf_bwd_kernel, with or without parameter gradients) keeps
+// each row's dz1 in the X0 tile and sums it per atom, H wide, on both
+// sides, as K2 p's block pairs do, writing si [B, N, H + 4] and pj [B, nI,
+// N, H + 4] ([dz1 sums, dcd sums, 0]); egcl_wide_nf.cuh's kernels then
+// form dpos, dh = (sum_j dz1) W1a^T + (sum_i dz1) W1b^T and dW1a, dW1b per
+// atom. Nothing in shared memory grows with nf.
 
 #include <cuda_runtime.h>
 
@@ -148,6 +164,7 @@
 #include <algorithm>
 
 #include "egcl_part_layout.cuh"
+#include "egcl_wide_nf.cuh"
 
 namespace {
 
@@ -198,6 +215,12 @@ struct Args {
   int A, nI;
   float* si;
   float* pj;
+  // the wide_nf route: the projections [B, N, 2H] (hA | hB), the j-side
+  // sums [B, N, H] and dW1's row-split partials [splits, 2, nf, H]
+  const float* proj;
+  float* sj;
+  float* dw1;
+  int splits;
 };
 
 struct Bump {
@@ -236,6 +259,11 @@ struct Smem {
   // held as ints so that the struct stays in registers
   float* atoms;
   int at_floats, at_pos, at_mask, at_box, at_dfs;
+  // the wide_nf route: the i-block's rows of the projections (hA at
+  // column 0) and the j-block's (hB at column 0, the j atom at place jA +
+  // its place in the block)
+  const float *pA, *pB;
+  int jA;
   __device__ float* stage(int ab) const { return atoms + ab * at_floats; }
 };
 
@@ -289,10 +317,12 @@ __host__ __device__ inline void carve(Bump& m, Smem& s, int N, int nf, int H,
 // (and a j-block) of A atoms (forward agg, fsum; parameter gradients dz1
 // and dcd a side; input gradients nf + 3 floats an atom a side), and one
 // stage of atoms: the i-block's at places 0 .. A-1, the j-block's at A ..
-// 2A-1, the box and the i-block's dfsum rows.
+// 2A-1, the box and the i-block's dfsum rows. With proj (the wide_nf
+// route, nf 0) the input-gradient backward keeps K2 p's H-wide dz1 sums.
 __host__ __device__ inline void carve_pairs(Bump& m, Smem& s, int A, int nf,
-                                            int H, int R, int kind) {
-  const bool bwd = kind != kFwd, in = kind == kBwd;
+                                            int H, int R, int kind,
+                                            bool proj = false) {
+  const bool bwd = kind != kFwd, in = kind == kBwd && !proj;
   carve_rows(m, s, nf, H, R, kind);
   const int sides = bwd ? 2 : 1;
   s.accH = (float*)m.take(sizeof(float) * A * sides * (in ? nf + 3 : H));
@@ -511,15 +541,25 @@ __device__ void row_geometry(const Args& a, const Smem& s, const float* at,
   }
 }
 
-// z1 = h_i W1a + h_j W1b + b1 + r2 w1r of row r, columns c0 .. c0 + 3.
-template <int H>
+// z1 = h_i W1a + h_j W1b + b1 + r2 w1r of row r, columns c0 .. c0 + 3;
+// with PROJ h_i W1a and h_j W1b are rows of the projections (a padding
+// row's j atom, place 0, reads the j-block's first).
+template <int H, bool PROJ = false>
 __device__ __forceinline__ void z1_row(int nf, const Smem& s,
                                        const float* hs, int r, int c0,
                                        float (&z)[4]) {
+  float pa[4] = {0.f, 0.f, 0.f, 0.f}, pb[4] = {0.f, 0.f, 0.f, 0.f};
+  if constexpr (PROJ) {
+    const float4 a4 = __ldg(
+        reinterpret_cast<const float4*>(s.pA + s.ri[r] * 2 * H + c0));
+    const float4 b4 = __ldg(reinterpret_cast<const float4*>(
+        s.pB + max(s.rj[r] - s.jA, 0) * 2 * H + c0));
+    pa[0] = a4.x; pa[1] = a4.y; pa[2] = a4.z; pa[3] = a4.w;
+    pb[0] = b4.x; pb[1] = b4.y; pb[2] = b4.z; pb[3] = b4.w;
+  }
   const float* hi = hs + s.ri[r] * nf;
   const float* hj = hs + s.rj[r] * nf;
-  float pa[4] = {0.f, 0.f, 0.f, 0.f}, pb[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k = 0; k < nf; ++k) {
+  for (int k = 0; k < (PROJ ? 0 : nf); ++k) {
     const float xi = hi[k], xj = hj[k];
     const float4 wa = *reinterpret_cast<const float4*>(s.W1a + k * H + c0);
     const float4 wb = *reinterpret_cast<const float4*>(s.W1b + k * H + c0);
@@ -543,7 +583,7 @@ __device__ __forceinline__ void z1_row(int nf, const Smem& s,
 
 // X = silu(z1) over the thread's rows of the tile (padding included), in
 // the row products' layout.
-template <int H, int QM>
+template <int H, int QM, bool PROJ = false>
 __device__ __forceinline__ void first_layer(int nf, const Smem& s,
                                             const float* hs, int q, int ry,
                                             int c0, float* X) {
@@ -553,7 +593,7 @@ __device__ __forceinline__ void first_layer(int nf, const Smem& s,
     if (i >= q) break;
     const int r = ry + 8 * i;
     float z[4];
-    z1_row<H>(nf, s, hs, r, c0, z);
+    z1_row<H, PROJ>(nf, s, hs, r, c0, z);
     *reinterpret_cast<float4*>(X + r * LD + c0) =
         make_float4(silu(z[0]), silu(z[1]), silu(z[2]), silu(z[3]));
   }
@@ -850,7 +890,7 @@ __device__ __forceinline__ Thr thread_place() {
 // The forward's rows: m1 -> X0 (then after_m1, before the barrier that
 // publishes it), m2 -> X1 (then sum_m2: agg's rows are complete), the
 // gate, tr -> rd. Ends with a barrier.
-template <int H, typename AfterM1, typename SumM2>
+template <int H, bool PROJ = false, typename AfterM1, typename SumM2>
 __device__ __forceinline__ void fwd_rows(const Smem& s, const float* at,
                                          int nf, int nr, const Thr& p,
                                          Ring& rg, AfterM1&& after_m1,
@@ -858,7 +898,7 @@ __device__ __forceinline__ void fwd_rows(const Smem& s, const float* at,
   constexpr int NT = 2 * H, CW = H / 32, LD = H + 4, QM = kQmaxFwd;
   const int q = (nr + 7) >> 3, ry = p.ry, cx = p.cx, c0 = p.c0;
   float acc[QM][4];
-  first_layer<H, QM>(nf, s, at, q, ry, c0, s.X[0]);              // m1
+  first_layer<H, QM, PROJ>(nf, s, at, q, ry, c0, s.X[0]);        // m1
   after_m1();
   __syncthreads();
   product_q<H, false, QM>(q, rg, s.X[0], s.W2, ry, cx, acc);         // z2
@@ -927,7 +967,7 @@ __device__ __forceinline__ void zero_params(ParamAcc<H>& g) {
 // force branch, dz3, dz2, dz1 -> X0 and dcd -> rd, the rows' terms of dW2,
 // dW3 and the column sums into g; dagg [., H] and dfs [., 3] are indexed
 // by the rows' i atoms (s.ri). Ends with a barrier.
-template <int H, typename AfterM1>
+template <int H, bool PROJ = false, typename AfterM1>
 __device__ __forceinline__ void bwd_params_rows(
     const Smem& s, const float* at, const float* dagg, const float* dfs,
     int nf, int nr, const Thr& p, Ring& rg, ParamAcc<H>& g,
@@ -941,7 +981,7 @@ __device__ __forceinline__ void bwd_params_rows(
   float* X2 = s.X[2];
 
   // -- recompute the forward: m1 -> X0; z2 -> X2, m2 -> X1
-  first_layer<H, QM>(nf, s, at, q, ry, c0, X0);
+  first_layer<H, QM, PROJ>(nf, s, at, q, ry, c0, X0);
   after_m1();
   __syncthreads();
   product_q<H, false, QM>(q, rg, X0, s.W2, ry, cx, acc);
@@ -1045,7 +1085,7 @@ __device__ __forceinline__ void bwd_params_rows(
     *p2 = make_float4(o[0], o[1], o[2], o[3]);                   // dz2
   }
   __syncthreads();
-  first_layer<H, QM>(nf, s, at, q, ry, c0, X1);                  // m1
+  first_layer<H, QM, PROJ>(nf, s, at, q, ry, c0, X1);            // m1
   __syncthreads();
 
   // -- dW2 += m1^T dz2; dz1 = (dz2 W2^T) dsilu(z1) -> X0, dw1r and the
@@ -1061,7 +1101,7 @@ __device__ __forceinline__ void bwd_params_rows(
     const int r = ry + 8 * i;
     const float r2 = s.r2[r];
     float z[4], o[4], t = 0.f;
-    z1_row<H>(nf, s, at, r, c0, z);
+    z1_row<H, PROJ>(nf, s, at, r, c0, z);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const float d = acc[i][u] * dsilu(z[u]);
@@ -1088,8 +1128,10 @@ __device__ __forceinline__ void bwd_params_rows(
 // The input-gradient backward's rows on two activation tiles (X0: m1, then
 // m2, then dz3; X1: dsilu(z2), then dz2), each row's vector [dz1 W1a^T
 // (nf), dcd (3), dz1 W1b^T (nf)] -> rd (row stride 2 nf + 3). SiLU and its
-// derivative at z2 and z3 share one sigmoid. Ends with a barrier.
-template <int H, typename AfterM1>
+// derivative at z2 and z3 share one sigmoid. With PROJ (nf 0) the vector
+// is dcd alone and dz1 goes to X0 (over dz3, whose reads are done) for the
+// caller's H-wide sums. Ends with a barrier.
+template <int H, bool PROJ = false, typename AfterM1>
 __device__ __forceinline__ void bwd_in_rows(const Smem& s, const float* at,
                                             const float* dagg,
                                             const float* dfs, int nf, int nr,
@@ -1105,7 +1147,7 @@ __device__ __forceinline__ void bwd_in_rows(const Smem& s, const float* at,
 
   // -- recompute the forward: m1 -> X0; z2 (acc), then dsilu(z2) -> X1
   //    and m2 -> X0 from one sigmoid
-  first_layer<H, QM>(nf, s, at, q, ry, c0, X0);
+  first_layer<H, QM, PROJ>(nf, s, at, q, ry, c0, X0);
   after_m1();
   __syncthreads();
   product_q<H, false, QM>(q, rg, X0, s.W2, ry, cx, acc);
@@ -1209,12 +1251,15 @@ __device__ __forceinline__ void bwd_in_rows(const Smem& s, const float* at,
     if (i >= q) break;
     const int r = ry + 8 * i;
     float z[4], d[4], t = 0.f;
-    z1_row<H>(nf, s, at, r, c0, z);
+    z1_row<H, PROJ>(nf, s, at, r, c0, z);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       d[u] = acc[i][u] * dsilu(z[u]);
       t = fmaf(d[u], s.w1r[c0 + u], t);
     }
+    if constexpr (PROJ)
+      *reinterpret_cast<float4*>(X0 + r * LD + c0) =
+          make_float4(d[0], d[1], d[2], d[3]);                   // dz1
     float* gp = s.gpart + r * K1 * CW + wc;
     t = lane_sum<8>(t);
     if ((lane & 7) == 0) gp[0] = t;
@@ -1659,7 +1704,7 @@ __device__ __forceinline__ int block_len(int N, int A, int k) {
   return min(A, N - k * A);
 }
 
-template <int H>
+template <int H, bool PROJ = false>
 __global__ void __launch_bounds__(2 * H, 1)
     egcl_f32_blocks_fwd_kernel(Args a) {
   constexpr int NT = 2 * H, LD = H + 4;
@@ -1667,7 +1712,8 @@ __global__ void __launch_bounds__(2 * H, 1)
   const int tid = threadIdx.x, N = a.N, nf = a.nf, A = a.A, nI = a.nI;
   Smem s;
   Bump m{smem_raw, 0};
-  carve_pairs(m, s, A, nf, H, a.R, kFwd);
+  carve_pairs(m, s, A, nf, H, a.R, kFwd, PROJ);
+  s.jA = A;
   const Thr p = thread_place<H>();
   float* const at = s.stage(0);
   load_all_weights<H>(a, s);
@@ -1679,16 +1725,19 @@ __global__ void __launch_bounds__(2 * H, 1)
     load_block<H>(a, s, at, b, ib * A, ni, 0, true, false);
     for (int k = tid; k < ni * H; k += NT) s.accH[k] = 0.f;
     for (int k = tid; k < ni * 3; k += NT) s.acc3[k] = 0.f;
+    if constexpr (PROJ) s.pA = a.proj + ((size_t)b * N + ib * A) * 2 * H;
     for (int jb = 0; jb < nI; ++jb) {
       const int nj = block_len(N, A, jb);
       load_block<H>(a, s, at, b, jb * A, nj, A, false, false);
+      if constexpr (PROJ)
+        s.pB = a.proj + ((size_t)b * N + jb * A) * 2 * H + H;
       __syncthreads();
       const Pairs P = pairs_of(ni, nj, ib == jb);
       for (int g0 = 0; g0 < P.E; g0 += a.R) {
         const int nr = min(a.R, P.E - g0);
         pair_geometry(s, at, P, A, a.R, g0, nr);
         __syncthreads();
-        fwd_rows<H>(s, at, nf, nr, p, rg, [] {}, [&] {
+        fwd_rows<H, PROJ>(s, at, nf, nr, p, rg, [] {}, [&] {
           isum_rows(s.accH, H, s.X[1], LD, g0, nr, P.ncol + 1, NT);
         });
         isum_rows(s.acc3, 3, s.rd, 3, g0, nr, P.ncol + 1, NT);      // fsum
@@ -1877,6 +1926,103 @@ __global__ void __launch_bounds__(2 * H, 1)
   write_slice<H>(part, L, s, p, g);
 }
 
+// The wide_nf route's backward over block pairs (PROJ, nf 0), with or
+// without parameter gradients: the rows of bwd_params_rows or bwd_in_rows
+// leave each row's dz1 in X0 and its dcd in rd; the i-side sums of an item
+// and the j-side sums of each block pair are H-wide dz1 sums and dcd sums,
+// written as rows [dz1 (H), dcd (3), 0] of si and of pj (row (b, ib)).
+// With PARAMS dW2, dW3 and the column sums are K2 p's, db1 = sum of the
+// i-side dz1 sums an item, and the slice has no dW1a / dW1b (PartLayout at
+// nf 0; egcl_nf_dw1_kernel forms them).
+template <int H, bool PARAMS>
+__global__ void __launch_bounds__(2 * H, 1)
+    egcl_f32_wide_nf_bwd_kernel(Args a) {
+  constexpr int NT = 2 * H, LD = H + 4, C = H + 4;
+  extern __shared__ __align__(128) char smem_raw[];
+  const int tid = threadIdx.x, N = a.N, A = a.A, nI = a.nI;
+  Smem s;
+  Bump m{smem_raw, 0};
+  carve_pairs(m, s, A, 0, H, a.R, PARAMS ? kBwdParams : kBwd, true);
+  s.jA = A;
+  const Thr p = thread_place<H>();
+  const PartLayout L(0, H);
+  float* const part = PARAMS ? a.part + (size_t)blockIdx.x * L.P : nullptr;
+  ParamAcc<H> g;
+  zero_params<H>(g);
+  if constexpr (PARAMS) {
+    // db1 is added into an item at a time by the thread that zeroes it
+    for (int c = tid; c < H; c += NT) part[L.db1 + c] = 0.f;
+    if constexpr (!resident(H)) {
+      g.gW2 = part + L.dW2;
+      g.gW3 = part + L.dW3;
+      zero_slice<H>(tid / 16, tid % 16, g.gW2);
+      zero_slice<H>(tid / 16, tid % 16, g.gW3);
+    }
+  }
+  float* const dz1i = s.accH;
+  float* const dz1j = s.accH + A * H;
+  float* const dpi = s.acc3;
+  float* const dpj = s.acc3 + A * 3;
+  float* const at = s.stage(0);
+  load_all_weights<H>(a, s);
+  Ring rg = start_ring<H>(a, s, 4);
+  // a row [dz1 (H), dcd (3), 0] from the sums of atom l
+  const auto row_of = [&](const float* dz1, const float* dp, int l, int c) {
+    return c < H ? dz1[l * H + c] : c < H + 3 ? dp[l * 3 + c - H] : 0.f;
+  };
+  const long long items = (long long)a.B * nI;
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    const int b = (int)(it / nI), ib = (int)(it % nI);
+    const int ni = block_len(N, A, ib);
+    const size_t ni0 = (size_t)b * N + ib * A;
+    load_block<H>(a, s, at, b, ib * A, ni, 0, true, true);
+    for (int k = tid; k < ni * H; k += NT) dz1i[k] = 0.f;
+    for (int k = tid; k < ni * 3; k += NT) dpi[k] = 0.f;
+    s.pA = a.proj + ni0 * 2 * H;
+    for (int jb = 0; jb < nI; ++jb) {
+      const int nj = block_len(N, A, jb);
+      load_block<H>(a, s, at, b, jb * A, nj, A, false, true);
+      for (int k = tid; k < nj * H; k += NT) dz1j[k] = 0.f;
+      for (int k = tid; k < nj * 3; k += NT) dpj[k] = 0.f;
+      s.pB = a.proj + ((size_t)b * N + jb * A) * 2 * H + H;
+      __syncthreads();
+      const Pairs P = pairs_of(ni, nj, ib == jb);
+      for (int g0 = 0; g0 < P.E; g0 += a.R) {
+        const int nr = min(a.R, P.E - g0);
+        pair_geometry(s, at, P, A, a.R, g0, nr);
+        __syncthreads();
+        if constexpr (PARAMS)
+          bwd_params_rows<H, true>(s, at, a.dagg + ni0 * H, at + s.at_dfs, 0,
+                                   nr, p, rg, g, [] {});
+        else
+          bwd_in_rows<H, true>(s, at, a.dagg + ni0 * H, at + s.at_dfs, 0, nr,
+                               p, rg, [] {});
+        isum_rows(dz1i, H, s.X[0], LD, g0, nr, P.ncol + 1, NT);
+        jsum_pair(dz1j, H, s.X[0], LD, g0, nr, P, NT);
+        isum_rows(dpi, 3, s.rd, 3, g0, nr, P.ncol + 1, NT);
+        jsum_pair(dpj, 3, s.rd, 3, g0, nr, P, NT);
+        __syncthreads();
+      }
+      // this block pair's j-side sums: row (b, ib) of the partials
+      float* pj = a.pj + (((size_t)b * nI + ib) * N + jb * A) * C;
+      for (int w = tid; w < nj * C; w += NT)
+        pj[w] = row_of(dz1j, dpj, w / C, w % C);
+      __syncthreads();
+    }
+    for (int w = tid; w < ni * C; w += NT)
+      a.si[ni0 * C + w] = row_of(dz1i, dpi, w / C, w % C);
+    if constexpr (PARAMS)
+      for (int c = tid; c < H; c += NT) {
+        float v = 0.f;
+        for (int l = 0; l < ni; ++l) v += dz1i[l * H + c];
+        part[L.db1 + c] += v;
+      }
+    __syncthreads();
+  }
+  if constexpr (!resident(H)) cp_async_wait<0>();    // the slab issued ahead
+  if constexpr (PARAMS) write_slice<H>(part, L, s, p, g);
+}
+
 // The block-pair backward's dh and dpos, one thread an atom: the j-side
 // partials summed over the i-blocks in order, dh = si[:nf] + sj[3:], dpos
 // = si[nf:] - sj[:3].
@@ -1992,6 +2138,63 @@ int dispatch_pairs(Args& a, int kind, int blocks, void* stream) {
     case 128: return launch_pairs<128>(a, kind, blocks, st);
     case 192: return launch_pairs<192>(a, kind, blocks, st);
     default: return launch_pairs<256>(a, kind, blocks, st);
+  }
+}
+
+// The wide_nf route's block pairs: nf 0, the projections read per row.
+bool takes_wide_nf(int A, int H, int R, int kind) {
+  return takes_rows(1, R, kind) && A >= 1 &&
+         (resident(H) || H == 192 || H == 256);
+}
+
+size_t wide_nf_smem_bytes(int A, int H, int R, int kind) {
+  Smem s;
+  Bump m{nullptr, 0};
+  carve_pairs(m, s, A, 0, H, R, kind, true);
+  return m.off;
+}
+
+// A wide_nf launch (a.nf the caller's): the projections, the block pairs
+// at nf 0, and for the backward egcl_wide_nf.cuh's sums, dh and (with
+// parameter gradients) dW1's partials, all on one stream.
+template <int H>
+int launch_wide_nf(const Args& a, int kind, int blocks, cudaStream_t stream) {
+  static bool ready[3] = {false, false, false};
+  void (*kernel)(Args) = kind == kFwd   ? egcl_f32_blocks_fwd_kernel<H, true>
+                         : kind == kBwd ? egcl_f32_wide_nf_bwd_kernel<H, false>
+                                        : egcl_f32_wide_nf_bwd_kernel<H, true>;
+  if (!ready[kind]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    ready[kind] = true;
+  }
+  cudaError_t err = wide_nf::launch_proj<float>(
+      a.B * a.N, a.nf, H, a.h, a.W1a, a.W1b, (float*)a.proj, stream);
+  if (err != cudaSuccess) return (int)err;
+  Args p = a;
+  p.nf = 0;
+  kernel<<<blocks, 2 * H, wide_nf_smem_bytes(a.A, H, a.R, kind), stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || kind == kFwd) return (int)err;
+  return (int)wide_nf::launch_first_layer_bwd<float>(
+      a.B, a.N, a.nI, a.nf, H, blocks, a.h, a.W1a, a.W1b, a.si, a.pj, a.sj,
+      a.dpos, a.dh, kind == kBwdParams ? a.dw1 : nullptr, a.splits, stream);
+}
+
+int dispatch_wide_nf(Args& a, int kind, int blocks, void* stream) {
+  if (!takes_wide_nf(a.A, a.H, a.R, kind) || a.B < 1 || a.N < 1 ||
+      a.nf < 1 || blocks < 1 || (kind == kBwdParams && a.splits < 1) ||
+      wide_nf_smem_bytes(a.A, a.H, a.R, kind) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  a.nI = (a.N + a.A - 1) / a.A;
+  blocks = (int)std::min<long long>(blocks, (long long)a.B * a.nI);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (a.H) {
+    case 64: return launch_wide_nf<64>(a, kind, blocks, st);
+    case 128: return launch_wide_nf<128>(a, kind, blocks, st);
+    case 192: return launch_wide_nf<192>(a, kind, blocks, st);
+    default: return launch_wide_nf<256>(a, kind, blocks, st);
   }
 }
 
@@ -2150,6 +2353,87 @@ int egcl_f32_blocks_bwd_params(int B, int N, int nf, int H, int A, int R,
          (const float*)dfsum, nullptr, nullptr, (float*)dh, (float*)dpos,
          (float*)part, A, 0, (float*)si, (float*)pj};
   return dispatch_pairs(a, kBwdParams, blocks, stream);
+}
+
+// ---- the wide_nf route (any nf; egcl_wide_nf.cuh): the block pairs with
+// the first layer's projections precomputed
+
+// Dynamic shared memory of one block-pair block at A atoms a block and R
+// rows a row tile with PROJ (nothing in it grows with nf), or -1 for sizes
+// the kernels do not take.
+long long egcl_f32_wide_nf_smem_bytes(int A, int H, int R, int kind) {
+  if (!takes_wide_nf(A, H, R, kind)) return -1;
+  return (long long)wide_nf_smem_bytes(A, H, R, kind);
+}
+
+// dW1's row splits of a launch (rows = B N atoms; blocks as the launch's):
+// the first dimension of its dw1 buffer [splits, 2, nf, H].
+int egcl_f32_wide_nf_splits(int rows, int nf, int H, int blocks) {
+  return wide_nf::dw1_splits(rows, nf, H, blocks);
+}
+
+// The contract of egcl_f32_blocks_fwd / _bwd / _bwd_params at any nf, with
+// float32 scratch that the kernels fill themselves: proj [B, N, 2H], si
+// [B, N, H+4], pj [B, nI, N, H+4], sj [B, N, H]; with parameter gradients
+// dw1 [splits, 2, nf, H] (summed by the caller beside part's [min(blocks,
+// B nI), egcl_part_size(0, H)] rows: dW1a and dW1b are not in them).
+int egcl_f32_wide_nf_fwd(int B, int N, int nf, int H, int A, int R,
+                         int blocks, const void* h, const void* pos,
+                         const void* box, const void* mask, const void* W1a,
+                         const void* W1b, const void* w1r, const void* b1,
+                         const void* W2, const void* b2, const void* W3,
+                         const void* b3, const void* w4, void* proj,
+                         void* agg, void* fsum, void* stream) {
+  Args a{B, N, nf, H, 1, R, 0, (const float*)h, (const float*)pos,
+         (const float*)box, (const float*)mask, (const float*)W1a,
+         (const float*)W1b, (const float*)w1r, (const float*)b1,
+         (const float*)W2, (const float*)b2, (const float*)W3,
+         (const float*)b3, (const float*)w4, nullptr, nullptr,
+         (float*)agg, (float*)fsum, nullptr, nullptr, nullptr,
+         A, 0, nullptr, nullptr, (const float*)proj};
+  return dispatch_wide_nf(a, kFwd, blocks, stream);
+}
+
+int egcl_f32_wide_nf_bwd(int B, int N, int nf, int H, int A, int R,
+                         int blocks, const void* h, const void* pos,
+                         const void* box, const void* mask, const void* W1a,
+                         const void* W1b, const void* w1r, const void* b1,
+                         const void* W2, const void* b2, const void* W3,
+                         const void* b3, const void* w4, const void* dagg,
+                         const void* dfsum, void* proj, void* dh, void* dpos,
+                         void* si, void* pj, void* sj, void* stream) {
+  Args a{B, N, nf, H, 1, R, 0, (const float*)h, (const float*)pos,
+         (const float*)box, (const float*)mask, (const float*)W1a,
+         (const float*)W1b, (const float*)w1r, (const float*)b1,
+         (const float*)W2, (const float*)b2, (const float*)W3,
+         (const float*)b3, (const float*)w4, (const float*)dagg,
+         (const float*)dfsum, nullptr, nullptr, (float*)dh, (float*)dpos,
+         nullptr, A, 0, (float*)si, (float*)pj, (const float*)proj,
+         (float*)sj};
+  return dispatch_wide_nf(a, kBwd, blocks, stream);
+}
+
+int egcl_f32_wide_nf_bwd_params(int B, int N, int nf, int H, int A, int R,
+                                int blocks, int splits, const void* h,
+                                const void* pos, const void* box,
+                                const void* mask, const void* W1a,
+                                const void* W1b, const void* w1r,
+                                const void* b1, const void* W2,
+                                const void* b2, const void* W3,
+                                const void* b3, const void* w4,
+                                const void* dagg, const void* dfsum,
+                                void* proj, void* dh, void* dpos, void* si,
+                                void* pj, void* sj, void* dw1, void* part,
+                                void* stream) {
+  Args a{B, N, nf, H, 1, R, 0, (const float*)h, (const float*)pos,
+         (const float*)box, (const float*)mask, (const float*)W1a,
+         (const float*)W1b, (const float*)w1r, (const float*)b1,
+         (const float*)W2, (const float*)b2, (const float*)W3,
+         (const float*)b3, (const float*)w4, (const float*)dagg,
+         (const float*)dfsum, nullptr, nullptr, (float*)dh, (float*)dpos,
+         (float*)part, A, 0, (float*)si, (float*)pj, (const float*)proj,
+         (float*)sj, (float*)dw1, splits};
+  return dispatch_wide_nf(a, kBwdParams, blocks, stream);
 }
 
 const char* egcl_f32_error_string(int err) {

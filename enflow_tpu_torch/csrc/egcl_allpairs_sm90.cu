@@ -160,6 +160,20 @@
 // (K2 p) their tensor-core bound (PERF.md), while the slabs' L2 reads (256
 // KB a tile forward, 512 KB backward; 12.9 GB a K1 launch at B=1024) move
 // at ~1.3 TB/s.
+//
+// Wide node features (route "wide_nf", every H and N; egcl_wide_nf.cuh).
+// The block pairs keep W1a and W1b whole in shared memory, in f32 (8 nf H
+// bytes), and h per atom: past nf ~36 (K1) / ~14 (K2) at H = 256, or ~110 /
+// ~89 at H = 128, no block of 8 atoms fits. Where the block pairs' plan
+// finds none, the wrapper runs them with their PROJ flag instead: the
+// projections hA = rnd(h W1a), hB = rnd(h W1b) come precomputed from
+// egcl_nf_proj_kernel ([B N, 2H] bf16, the same f32 FMA chain and rounding
+// as load_iblock's), load_iblock / load_jblock copy their rows in, and the
+// launch's nf is 0 for everything else (no W1, no h in shared memory, no
+// dW1a / dW1b in the slices). The backward's sums are the block pairs' own
+// (si, pj); egcl_wide_nf.cuh's kernels then form dpos, dh = rnd(dz1_i)
+// W1a^T + rnd(dz1_j) W1b^T and, with parameter gradients, dW1a = h^T
+// (sum_j dz1) and dW1b = h^T (sum_i dz1) per atom.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -170,6 +184,7 @@
 #include <algorithm>
 
 #include "egcl_part_layout.cuh"
+#include "egcl_wide_nf.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -221,6 +236,12 @@ struct Args {
   int A, nI;
   float* si;
   float* pj;
+  // the wide_nf route: the projections [B, N, 2H] (hA | hB), the j-side
+  // sums [B, N, H] and dW1's row-split partials [splits, 2, nf, H]
+  const bf16* proj;
+  float* sj;
+  float* dw1;
+  int splits;
 };
 
 // A warpgroup's slice of the partials: the nine gradients (PartLayout),
@@ -1235,8 +1256,9 @@ __global__ void __launch_bounds__(kMaxWGBwd * kWG, 1)
 // Atoms a0 .. a0+n-1 of molecule b as the warpgroup's i atoms: h, pos,
 // mask, box, hA = rnd(h W1a) (load_molecule's arithmetic), zeroed i-side
 // sums; for the backward dfsum, and dagg where it is staged. hA is written
-// after the barrier; load_jblock's barriers publish it.
-template <int H>
+// after the barrier; load_jblock's barriers publish it. With PROJ (nf 0)
+// hA's rows are copied from the projections.
+template <int H, bool PROJ = false>
 __device__ void load_iblock(const Args& a, const Blk& s, const Wg& w, int b,
                             int a0, int n, int t, int wg, int kind) {
   const int nf = a.nf, HP = H + 8, C = H + 4;
@@ -1264,6 +1286,14 @@ __device__ void load_iblock(const Args& a, const Blk& s, const Wg& w, int b,
       w.dfs[k] = __bfloat162float(a.dfsum[nb * 3 + k]);
   }
   wg_sync(wg);
+  if constexpr (PROJ) {
+    for (int k = t; k < n * H / 8; k += kWG) {
+      const int i = k / (H / 8), c = 8 * (k % (H / 8));
+      *reinterpret_cast<uint4*>(w.hA + i * HP + c) =
+          *reinterpret_cast<const uint4*>(a.proj + (nb + i) * 2 * H + c);
+    }
+    return;
+  }
   for (int idx = t; idx < n * H; idx += kWG) {
     const int i = idx / H, c = idx % H;
     float pa = 0.f;
@@ -1274,9 +1304,9 @@ __device__ void load_iblock(const Args& a, const Blk& s, const Wg& w, int b,
 }
 
 // Atoms a0 .. a0+n-1 of molecule b as the warpgroup's j atoms: h, pos,
-// mask, hB = rnd(h W1b), and for the backward zeroed j-side sums. Ends
-// with the warpgroup's barrier.
-template <int H>
+// mask, hB = rnd(h W1b) (with PROJ copied from the projections), and for
+// the backward zeroed j-side sums. Ends with the warpgroup's barrier.
+template <int H, bool PROJ = false>
 __device__ void load_jblock(const Args& a, const Blk& s, const Wg& w, int b,
                             int a0, int n, int t, int wg, bool bwd) {
   const int nf = a.nf, HP = H + 8, C = H + 4;
@@ -1293,12 +1323,20 @@ __device__ void load_jblock(const Args& a, const Blk& s, const Wg& w, int b,
   if (bwd)
     for (int k = t; k < n * C; k += kWG) w.accj[k] = 0.f;
   wg_sync(wg);
-  for (int idx = t; idx < n * H; idx += kWG) {
-    const int i = idx / H, c = idx % H;
-    float pb = 0.f;
-    for (int k = 0; k < nf; ++k)
-      pb = fmaf(w.hj[i * nf + k], s.W1b[k * H + c], pb);
-    w.hB[i * HP + c] = __float2bfloat16_rn(pb);
+  if constexpr (PROJ) {
+    for (int k = t; k < n * H / 8; k += kWG) {
+      const int i = k / (H / 8), c = 8 * (k % (H / 8));
+      *reinterpret_cast<uint4*>(w.hB + i * HP + c) =
+          *reinterpret_cast<const uint4*>(a.proj + (nb + i) * 2 * H + H + c);
+    }
+  } else {
+    for (int idx = t; idx < n * H; idx += kWG) {
+      const int i = idx / H, c = idx % H;
+      float pb = 0.f;
+      for (int k = 0; k < nf; ++k)
+        pb = fmaf(w.hj[i * nf + k], s.W1b[k * H + c], pb);
+      w.hB[i * HP + c] = __float2bfloat16_rn(pb);
+    }
   }
   wg_sync(wg);
 }
@@ -1333,7 +1371,7 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* src,
         reinterpret_cast<const float4*>(src)[k];
 }
 
-template <int H>
+template <int H, bool PROJ = false>
 __global__ void __launch_bounds__(max_wg(true, H) * kWG, 1)
     egcl_sm90_blocks_fwd_kernel(Args a) {
   extern __shared__ char smem_raw[];
@@ -1353,10 +1391,10 @@ __global__ void __launch_bounds__(max_wg(true, H) * kWG, 1)
        it += (long long)gridDim.x * nwg) {
     const int b = (int)(it / nI), ib = (int)(it % nI);
     const int ni = block_len(N, A, ib);
-    load_iblock<H>(a, s, w, b, ib * A, ni, t, wg, kFwd);
+    load_iblock<H, PROJ>(a, s, w, b, ib * A, ni, t, wg, kFwd);
     for (int jb = 0; jb < nI; ++jb) {
       const int nj = block_len(N, A, jb);
-      load_jblock<H>(a, s, w, b, jb * A, nj, t, wg, false);
+      load_jblock<H, PROJ>(a, s, w, b, jb * A, nj, t, wg, false);
       const Pairs P = pairs_of(ni, nj, ib == jb);
       for (int k = 0; k < tiles_of(P.E); ++k)
         fwd_tile<H>(s, w, rg, P, k * kTile, t, wg);
@@ -1376,8 +1414,8 @@ __global__ void __launch_bounds__(max_wg(true, H) * kWG, 1)
 // The backward over block pairs; with PARAMS each warpgroup owns slice
 // blockIdx.x * nwg + wg of a.part as in egcl_sm90_bwd_kernel, and adds
 // dW1b per block pair (h_j times its j-side sums) and dW1a per (molecule,
-// i-block) (h_i times the whole i-side sums).
-template <int H, bool PARAMS>
+// i-block) (h_i times the whole i-side sums; neither with PROJ, nf 0).
+template <int H, bool PARAMS, bool PROJ = false>
 __global__ void __launch_bounds__(max_wg(false, H) * kWG, 1)
     egcl_sm90_blocks_bwd_kernel(Args a) {
   extern __shared__ char smem_raw[];
@@ -1408,10 +1446,10 @@ __global__ void __launch_bounds__(max_wg(false, H) * kWG, 1)
     const int ni = block_len(N, A, ib);
     const size_t ni0 = (size_t)b * N + ib * A;
     if constexpr (PARAMS) w.dagg = a.dagg + ni0 * H;
-    load_iblock<H>(a, s, w, b, ib * A, ni, t, wg, kind);
+    load_iblock<H, PROJ>(a, s, w, b, ib * A, ni, t, wg, kind);
     for (int jb = 0; jb < nI; ++jb) {
       const int nj = block_len(N, A, jb);
-      load_jblock<H>(a, s, w, b, jb * A, nj, t, wg, true);
+      load_jblock<H, PROJ>(a, s, w, b, jb * A, nj, t, wg, true);
       const Pairs P = pairs_of(ni, nj, ib == jb);
       for (int k = 0; k < tiles_of(P.E); ++k) {
         bwd_tile<H, PARAMS>(s, w, rg, P, k * kTile, t, wg, part, g1t, fresh);
@@ -1559,6 +1597,49 @@ int launch_blocks(const Args& a, int kind, int nwg, int blocks,
     case 128: return launch_blocks_h<128>(a, kind, nwg, blocks, st);
     case 192: return launch_blocks_h<192>(a, kind, nwg, blocks, st);
     default: return launch_blocks_h<256>(a, kind, nwg, blocks, st);
+  }
+}
+
+// A wide_nf launch (a.nf the caller's): the projections, the block pairs
+// with PROJ at nf 0, and for the backward egcl_wide_nf.cuh's sums, dh and
+// (with parameter gradients) dW1's partials, all on one stream.
+template <int H>
+int launch_wide_nf_h(const Args& a, int kind, int nwg, int blocks,
+                     cudaStream_t stream) {
+  Args p = a;
+  p.nf = 0;
+  const size_t smem = smem_bytes(p.A, 0, H, kind, nwg, true);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = wide_nf::launch_proj<bf16>(
+      a.B * a.N, a.nf, H, a.h, a.W1a, a.W1b, (bf16*)a.proj, stream);
+  if (err != cudaSuccess) return (int)err;
+  void (*kernel)(Args) = kind == kFwd ? egcl_sm90_blocks_fwd_kernel<H, true>
+                         : kind == kBwd
+                             ? egcl_sm90_blocks_bwd_kernel<H, false, true>
+                             : egcl_sm90_blocks_bwd_kernel<H, true, true>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid_of(a.B * a.nI, nwg, blocks), nwg * kWG, smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || kind == kFwd) return (int)err;
+  return (int)wide_nf::launch_first_layer_bwd<bf16>(
+      a.B, a.N, a.nI, a.nf, H, blocks, a.h, a.W1a, a.W1b, a.si, a.pj, a.sj,
+      a.dpos, a.dh, kind == kBwdParams ? a.dw1 : nullptr, a.splits, stream);
+}
+
+int launch_wide_nf(const Args& a, int kind, int nwg, int blocks,
+                   void* stream) {
+  if (!takes_blocks(a, kind, nwg, blocks) ||
+      (kind == kBwdParams && a.splits < 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (a.H) {
+    case 64: return launch_wide_nf_h<64>(a, kind, nwg, blocks, st);
+    case 128: return launch_wide_nf_h<128>(a, kind, nwg, blocks, st);
+    case 192: return launch_wide_nf_h<192>(a, kind, nwg, blocks, st);
+    default: return launch_wide_nf_h<256>(a, kind, nwg, blocks, st);
   }
 }
 
@@ -1725,6 +1806,84 @@ int egcl_sm90_blocks_bwd_params(int B, int N, int nf, int H, int A, int nwg,
          (float*)dpos, (float*)part, A, (N + A - 1) / A, (float*)si,
          (float*)pj};
   return launch_blocks(a, kBwdParams, nwg, blocks, stream);
+}
+
+// ---- the wide_nf route (any nf; egcl_wide_nf.cuh): the block pairs with
+// the first layer's projections precomputed
+
+// Dynamic shared memory of a block-pair block of nwg warpgroups at A atoms
+// a block with PROJ (nothing in it grows with nf), or -1 for sizes the
+// kernels do not take.
+long long egcl_sm90_wide_nf_smem_bytes(int A, int H, int kind, int nwg) {
+  if (kind < kFwd || kind > kBwdParams || !takes_wide(A, 1, H) || nwg < 1 ||
+      nwg > max_wg(kind == kFwd, H))
+    return -1;
+  return (long long)smem_bytes(A, 0, H, kind, nwg, true);
+}
+
+// dW1's row splits of a launch (rows = B N atoms): the first dimension of
+// its dw1 buffer [splits, 2, nf, H].
+int egcl_sm90_wide_nf_splits(int rows, int nf, int H, int blocks) {
+  return wide_nf::dw1_splits(rows, nf, H, blocks);
+}
+
+// The contract of egcl_sm90_blocks_fwd / _bwd / _bwd_params at any nf, with
+// float32 scratch that the kernels fill themselves: proj [B, N, 2H] (bf16),
+// si [B, N, H+4], pj [B, nI, N, H+4], sj [B, N, H]; with parameter
+// gradients dw1 [splits, 2, nf, H] (summed by the caller beside the
+// slices of part, each egcl_sm90_slice_floats(0, H) floats: dW1a and dW1b
+// are not in them).
+int egcl_sm90_wide_nf_fwd(int B, int N, int nf, int H, int A, int nwg,
+                          int blocks, const void* h, const void* pos,
+                          const void* box, const void* mask, const void* W1a,
+                          const void* W1b, const void* w1r, const void* b1,
+                          const void* W2, const void* b2, const void* W3,
+                          const void* b3, const void* w4, void* proj,
+                          void* agg, void* fsum, void* stream) {
+  using cb = const bf16*;
+  Args a{B, N, nf, H, (cb)h, (const float*)pos, (const float*)box, (cb)mask,
+         (cb)W1a, (cb)W1b, (cb)w1r, (cb)b1, (cb)W2, (cb)b2, (cb)W3, (cb)b3,
+         (cb)w4, nullptr, nullptr, (bf16*)agg, (bf16*)fsum, nullptr,
+         nullptr, nullptr, A, (N + A - 1) / A, nullptr, nullptr, (cb)proj};
+  return launch_wide_nf(a, kFwd, nwg, blocks, stream);
+}
+
+int egcl_sm90_wide_nf_bwd(int B, int N, int nf, int H, int A, int nwg,
+                          int blocks, const void* h, const void* pos,
+                          const void* box, const void* mask, const void* W1a,
+                          const void* W1b, const void* w1r, const void* b1,
+                          const void* W2, const void* b2, const void* W3,
+                          const void* b3, const void* w4, const void* dagg,
+                          const void* dfsum, void* proj, void* dh, void* dpos,
+                          void* si, void* pj, void* sj, void* stream) {
+  using cb = const bf16*;
+  Args a{B, N, nf, H, (cb)h, (const float*)pos, (const float*)box, (cb)mask,
+         (cb)W1a, (cb)W1b, (cb)w1r, (cb)b1, (cb)W2, (cb)b2, (cb)W3, (cb)b3,
+         (cb)w4, (cb)dagg, (cb)dfsum, nullptr, nullptr, (bf16*)dh,
+         (float*)dpos, nullptr, A, (N + A - 1) / A, (float*)si, (float*)pj,
+         (cb)proj, (float*)sj};
+  return launch_wide_nf(a, kBwd, nwg, blocks, stream);
+}
+
+int egcl_sm90_wide_nf_bwd_params(int B, int N, int nf, int H, int A, int nwg,
+                                 int blocks, int splits, const void* h,
+                                 const void* pos, const void* box,
+                                 const void* mask, const void* W1a,
+                                 const void* W1b, const void* w1r,
+                                 const void* b1, const void* W2,
+                                 const void* b2, const void* W3,
+                                 const void* b3, const void* w4,
+                                 const void* dagg, const void* dfsum,
+                                 void* proj, void* dh, void* dpos, void* si,
+                                 void* pj, void* sj, void* dw1, void* part,
+                                 void* stream) {
+  using cb = const bf16*;
+  Args a{B, N, nf, H, (cb)h, (const float*)pos, (const float*)box, (cb)mask,
+         (cb)W1a, (cb)W1b, (cb)w1r, (cb)b1, (cb)W2, (cb)b2, (cb)W3, (cb)b3,
+         (cb)w4, (cb)dagg, (cb)dfsum, nullptr, nullptr, (bf16*)dh,
+         (float*)dpos, (float*)part, A, (N + A - 1) / A, (float*)si,
+         (float*)pj, (cb)proj, (float*)sj, (float*)dw1, splits};
+  return launch_wide_nf(a, kBwdParams, nwg, blocks, stream);
 }
 
 const char* egcl_sm90_error_string(int err) {

@@ -34,6 +34,19 @@ attention/norm_diff/tanh off.
   ``*_f32_wide_launches``; plan :func:`f32_wide_plan`). H > 256 is refused
   in either dtype. There is no fallback: a kernel that does not build or
   launch raises.
+- Wide node features: every route above keeps the first layer's W1a and
+  W1b [nf, H] whole in shared memory, so at a wide ``nf`` the block-pair
+  plan finds no block of 8 atoms (bf16 at H = 256: K2 past nf ~14; f32 at
+  H = 256 past ~24-32; at H = 128 past ~60-110). Exactly those launches
+  (the block-pair plan of the parent route raises, as the libraries' byte
+  functions decide) go to route ``"wide_nf"`` (bf16) or ``"f32_wide_nf"``
+  (float32), every H and N, counters ``*_wide_nf_launches`` /
+  ``*_f32_wide_nf_launches``: the same block-pair kernels built with their
+  PROJ flag, which read the per-atom projections h W1a and h W1b from a
+  [B, N, 2H] buffer that a kernel of ``csrc/egcl_wide_nf.cuh`` computes
+  first, and whose backward hands each atom's dz1 sums to that header's
+  kernels for dh, dW1a and dW1b (:func:`wide_nf_plan`; nothing in their
+  shared memory grows with nf, so no nf is refused).
 - Every other width up to 256 is zero-padded to the next of 64, 128, 192
   and 256 (:func:`padded_width`), which is exact: the padded columns of
   W1a, W1b, w1r and b1, the padded rows and columns of W2 and W3, and the
@@ -78,7 +91,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # past the tiled f32 kernels' shared memory); *_f32_wide_launches: the
 # same f32 kernels at H = 192 or 256 (streamed weights); padded_launches:
 # launches of any route at a padded width (each counts on its route's
-# counter too)
+# counter too); *_wide_nf_launches / *_f32_wide_nf_launches: the block-pair
+# kernels of either dtype with the first layer's projections precomputed
+# (node-feature widths past the other routes' shared memory)
 counts = LaunchCounts("fwd_launches", "bwd_launches", "bwd_f32_launches",
                       "bwd_param_launches", "fwd_blocks_launches",
                       "bwd_blocks_launches", "bwd_param_blocks_launches",
@@ -87,7 +102,11 @@ counts = LaunchCounts("fwd_launches", "bwd_launches", "bwd_f32_launches",
                       "fwd_f32_blocks_launches", "bwd_f32_blocks_launches",
                       "bwd_param_f32_blocks_launches",
                       "fwd_f32_wide_launches", "bwd_f32_wide_launches",
-                      "bwd_param_f32_wide_launches", "padded_launches",
+                      "bwd_param_f32_wide_launches",
+                      "fwd_wide_nf_launches", "bwd_wide_nf_launches",
+                      "bwd_param_wide_nf_launches",
+                      "fwd_f32_wide_nf_launches", "bwd_f32_wide_nf_launches",
+                      "bwd_param_f32_wide_nf_launches", "padded_launches",
                       "plain_fwd_calls", "plain_bwd_calls",
                       "plain_bwd_param_calls")
 # the launch kinds of egcl_sm90_smem_bytes and egcl_f32_smem_bytes
@@ -116,6 +135,13 @@ BLOCK_ATOMS_MAX = 32
 F32_BLOCK_ATOMS = {"fwd": 32, "bwd": 24, "bwd_params": 24}
 # the queue item that holds the refused widths: H > 256 in either dtype
 WIDE_ITEM = "ROADMAP queue B, B7: the all-pairs EGCL at H > 256"
+# the queue item past the wide-nf route (no width up to 256 reaches it)
+NF_ITEM = "ROADMAP queue B, B7.4: the all-pairs EGCL at wide node features"
+# the routes that take the block-pair launches whose plan finds no block
+# at a wide nf, by dtype code (0 float32, 1 bf16), and the block-pair
+# routes they stand in for
+WIDE_NF_ROUTE = {0: "f32_wide_nf", 1: "wide_nf"}
+BLOCK_ROUTES = ("blocks", "wide", "f32_blocks", "f32_wide")
 
 
 def split_params(W1, b1, nf: int):
@@ -295,6 +321,21 @@ def _bind_part_size(lib):
     lib.egcl_part_size.restype = _I
 
 
+def _bind_wide_nf(lib, pre: str, n_in: int):
+    """The wide_nf entry points of either library (``<pre>_wide_nf_*``):
+    B, N, nf, H, the plan's two numbers, blocks (and K2 p's dW1 splits),
+    the inputs, then the projections, the outputs and scratch, stream."""
+    f = lambda name: getattr(lib, f"{pre}_wide_nf_{name}")
+    f("fwd").argtypes = [_I] * 7 + [_P] * (n_in + 4)
+    f("bwd").argtypes = [_I] * 7 + [_P] * (n_in + 9)
+    f("bwd_params").argtypes = [_I] * 8 + [_P] * (n_in + 11)
+    for name in ("fwd", "bwd", "bwd_params", "splits"):
+        f(name).restype = _I
+    f("splits").argtypes = [_I] * 4
+    f("smem_bytes").argtypes = [_I] * 4
+    f("smem_bytes").restype = _LL
+
+
 def _sm90_library():
     from .build import load
     lib = load("egcl_allpairs_sm90")
@@ -329,6 +370,7 @@ def _sm90_library():
         lib.egcl_sm90_blocks_param_slices.restype = _I
         lib.egcl_sm90_error_string.argtypes = [_I]
         lib.egcl_sm90_error_string.restype = ctypes.c_char_p
+        _bind_wide_nf(lib, "egcl_sm90", n_in)
         lib._enflow_bound = True
     return lib
 
@@ -360,6 +402,7 @@ def _f32_library():
         _bind_part_size(lib)
         lib.egcl_f32_error_string.argtypes = [_I]
         lib.egcl_f32_error_string.restype = ctypes.c_char_p
+        _bind_wide_nf(lib, "egcl_f32", n_in)
         lib._enflow_bound = True
     return lib
 
@@ -519,6 +562,73 @@ def _check_fits(code: int, dims, direction: str) -> str:
                      largest_molecule(code, nf, H, direction))
 
 
+def _parent_plan(code: int, N: int, nf: int, H: int, direction: str):
+    """The block-pair plan of the dtype at this nf (at the padded width
+    ``H``), or None where no block fits (the block-pair plans raise)."""
+    lib = _sm90_library() if code else _f32_library()
+    try:
+        return (_blocks_launch_plan if code else _f32_blocks_launch_plan)(
+            lib, N, nf, H, direction)
+    except ValueError:
+        return None
+
+
+def route_of(code: int, dims, direction: str) -> str:
+    """The route a launch runs on: :func:`_check_fits`'s, except that a
+    block-pair route whose plan finds no block at this nf
+    (:func:`_parent_plan`, from the library's byte function) gives way to
+    the wide-nf route of the dtype (``WIDE_NF_ROUTE``). Every (dtype, N,
+    nf, H <= 256, direction) that a block-pair plan takes keeps its
+    route."""
+    route = _check_fits(code, dims, direction)
+    if route not in BLOCK_ROUTES:
+        return route
+    B, N, nf, H = dims
+    if _parent_plan(code, N, nf, padded_width(H), direction) is None:
+        return WIDE_NF_ROUTE[code]
+    return route
+
+
+def _nf_refused(code: int, nf: int, H: int, direction: str, need) -> str:
+    """Why a wide-nf launch is refused: no block of 8 atoms of its kernels
+    fits at this width (nothing in them grows with nf; H <= 256 always
+    fits, so only a changed kernel could bring this)."""
+    return (f"egcl_allpairs {direction}: node-feature width nf={nf} at H={H} "
+            f"({'bf16' if code else 'float32'}): the wide-nf route's block "
+            f"of 8 atoms needs {need:,} bytes of shared memory, more than the "
+            f"{SMEM_LIMIT:,} a block may use; not ported ({NF_ITEM})")
+
+
+def wide_nf_plan(lib, code: int, N: int, nf: int, H: int, direction: str):
+    """The plan of a wide-nf launch at the padded width ``H``: bf16 ``(atoms
+    a block, warpgroups)`` by :func:`blocks_plan`, float32 ``(atoms a
+    block, rows a row tile)`` by :func:`f32_blocks_plan` (at 192 and 256
+    :func:`f32_wide_plan`), each against the library's
+    ``*_wide_nf_smem_bytes`` (nf-free), once per size; raises naming nf,
+    the bytes and ``NF_ITEM`` where no block fits."""
+    key = (id(lib), "wide_nf", code, N, H, direction)
+    if key not in _plans:
+        kind = _KIND[direction]
+        if code:
+            limit = lib.egcl_sm90_smem_limit()
+            fits = lambda A, nwg: 0 <= lib.egcl_sm90_wide_nf_smem_bytes(
+                A, H, kind, nwg) <= limit
+            plan, least = blocks_plan, lambda: \
+                lib.egcl_sm90_wide_nf_smem_bytes(8, H, kind, 1)
+        else:
+            limit = lib.egcl_f32_smem_limit()
+            fits = lambda A, R: 0 <= lib.egcl_f32_wide_nf_smem_bytes(
+                A, H, R, kind) <= limit
+            plan = f32_wide_plan if H in WIDE_H else f32_blocks_plan
+            least = lambda: lib.egcl_f32_wide_nf_smem_bytes(8, H, 8, kind)
+        try:
+            _plans[key] = plan(N, direction, fits)
+        except ValueError:
+            raise ValueError(_nf_refused(code, nf, H, direction,
+                                         least())) from None
+    return _plans[key]
+
+
 def f32_grid(B: int, N: int, n_sm: int, direction: str):
     """``(molecules a tile, blocks)`` of the tiled f32 kernels: about one
     tile a multiprocessor, several molecules a tile only where a molecule
@@ -606,9 +716,11 @@ def _raise_on(lib, err: int, what: str, dims, route):
         text = getattr(lib, {"sm90": "egcl_sm90_error_string",
                              "blocks": "egcl_sm90_error_string",
                              "wide": "egcl_sm90_error_string",
+                             "wide_nf": "egcl_sm90_error_string",
                              "f32": "egcl_f32_error_string",
                              "f32_blocks": "egcl_f32_error_string",
-                             "f32_wide": "egcl_f32_error_string"}[route])
+                             "f32_wide": "egcl_f32_error_string",
+                             "f32_wide_nf": "egcl_f32_error_string"}[route])
         raise RuntimeError(f"egcl_allpairs {what} kernel launch failed: "
                            f"{text(err).decode()} (error {err}; B, N, nf, H "
                            f"= {dims}; route {route})")
@@ -622,7 +734,7 @@ def _count(direction: str, H: int, route: str):
     name = {"fwd": "fwd", "bwd": "bwd", "bwd_params": "bwd_param"}[direction]
     if route == "f32" and direction == "bwd":
         name = "bwd_f32"
-    if route in ("blocks", "f32_blocks", "wide", "f32_wide"):
+    if route in (*BLOCK_ROUTES, *WIDE_NF_ROUTE.values()):
         name += "_" + route
     name += "_launches"
     setattr(counts, name, getattr(counts, name) + 1)
@@ -656,15 +768,22 @@ def _f32_blocks_launch_plan(lib, N: int, nf: int, H: int, direction: str):
 def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
             dfsum=None, route=None):
     """One launch on the route that the size rules name (or on ``route``,
-    ``"blocks"``, where the caller asks for the block-pair kernels of the
-    dtype), at the padded width: the weights (and dagg) copied into
+    ``"blocks"`` or ``"wide_nf"``, where the caller asks for the block-pair
+    kernels of the dtype, or for them with the first layer's projections
+    precomputed), at the padded width: the weights (and dagg) copied into
     zero-padded buffers first where the width is not one of
-    ``PADDED_H``, the outputs cut back to it after."""
+    ``PADDED_H``, the outputs cut back to it after. The wide-nf route is
+    decided by the libraries' byte functions (:func:`route_of`), which a
+    CUDA launch has; a CPU tensor here (a test with ``_run`` replaced) gets
+    :func:`_check_fits`'s route."""
     _check_inputs(h, pos, box, mask_f, weights)
     H = weights[4].shape[1]
     code = _DTYPE_CODE[h.dtype]
-    rule = _check_fits(code, (*h.shape, H), direction)
-    if route is not None:
+    dims = (*h.shape, H)
+    rule = (route_of if h.is_cuda else _check_fits)(code, dims, direction)
+    if route == "wide_nf":
+        rule = WIDE_NF_ROUTE[code]
+    elif route is not None:
         if route != "blocks":
             raise ValueError(f"egcl_allpairs: route {route!r} does not take "
                              f"{h.dtype} at H={H}")
@@ -689,6 +808,9 @@ def _run(direction: str, route: str, h, pos, box, mask_f, weights, dagg,
          dfsum):
     """One launch of the kernels of ``route`` at the weights' width (one
     of ``PADDED_H``)."""
+    if route in WIDE_NF_ROUTE.values():
+        return _run_wide_nf(direction, h, pos, box, mask_f, weights, dagg,
+                            dfsum)
     B, N, nf = h.shape
     H = weights[4].shape[1]
     cdt = h.dtype
@@ -796,6 +918,87 @@ def _run(direction: str, route: str, h, pos, box, mask_f, weights, dagg,
         _raise_on(lib, err, "backward (parameter gradients)", dims, route)
     # the slices summed in a fixed order: a second launch gives the same bits
     return (dh, dpos) + _split_part(part[:, :P].sum(dim=0), nf, H)
+
+
+def _run_wide_nf(direction: str, h, pos, box, mask_f, weights, dagg,
+                 dfsum):
+    """One launch of the wide-nf route of the dtype at the weights' width
+    (one of ``PADDED_H``): the library's entry point runs the projections,
+    the block pairs and, for the backward, the sums, dh and dW1's row
+    splits, into scratch allocated here; K2 p's dW1a and dW1b are the
+    splits' sum, the other seven gradients the slices' (at nf 0)."""
+    B, N, nf = h.shape
+    H = weights[4].shape[1]
+    cdt, dev = h.dtype, h.device
+    code = _DTYPE_CODE[cdt]
+    lib = _sm90_library() if code else _f32_library()
+    pre = "egcl_sm90" if code else "egcl_f32"
+    entry = lambda name: getattr(lib, f"{pre}_wide_nf_{name}")
+    route = WIDE_NF_ROUTE[code]
+    dims = (B, N, nf, H)
+    plan = wide_nf_plan(lib, code, N, nf, H, direction)
+    A, nI = plan[0], math.ceil(N / plan[0])
+    blocks = multiprocessors(dev)
+    aligned = lambda t: t if t.data_ptr() % 16 == 0 else t.clone()
+    ins = [aligned(t) for t in (h, pos, box, mask_f, *weights)]
+    ptrs = [t.data_ptr() for t in ins]
+    stream = _P(torch.cuda.current_stream(dev).cuda_stream)
+    proj = torch.empty((B, N, 2 * H), dtype=cdt, device=dev)
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    if direction == "fwd":
+        agg = torch.empty((B, N, H), dtype=cdt, device=dev)
+        fsum = torch.empty((B, N, 3), dtype=cdt, device=dev)
+        if B:
+            err = entry("fwd")(*dims, *plan, blocks, *ptrs, proj.data_ptr(),
+                               agg.data_ptr(), fsum.data_ptr(), stream)
+            _raise_on(lib, err, "forward", dims, route)
+        return agg, fsum
+    dagg = aligned(dagg.to(cdt).contiguous())
+    dfsum = dfsum.to(cdt).contiguous()
+    dh = torch.empty((B, N, nf), dtype=cdt, device=dev)
+    dpos, si, sj = f32(B, N, 3), f32(B, N, H + 4), f32(B, N, H)
+    pj = f32(B, nI, N, H + 4)
+    mid = [dagg.data_ptr(), dfsum.data_ptr(), proj.data_ptr(), dh.data_ptr(),
+           dpos.data_ptr(), si.data_ptr(), pj.data_ptr(), sj.data_ptr()]
+    if direction == "bwd":
+        if B:
+            err = entry("bwd")(*dims, *plan, blocks, *ptrs, *mid, stream)
+            _raise_on(lib, err, "backward", dims, route)
+        return dh, dpos
+    P = lib.egcl_part_size(0, H)
+    splits = entry("splits")(B * N, nf, H, blocks) if B else 1
+    dw1 = f32(splits, 2, nf, H)
+    if code:
+        rows = lib.egcl_sm90_blocks_param_slices(B, N, A, plan[1], blocks) \
+            if B else 0
+        part = f32(rows, lib.egcl_sm90_slice_floats(0, H))
+    else:
+        part = f32(min(B * nI, blocks), P)
+    if B:
+        err = entry("bwd_params")(*dims, *plan, blocks, splits, *ptrs, *mid,
+                                  dw1.data_ptr(), part.data_ptr(), stream)
+        _raise_on(lib, err, "backward (parameter gradients)", dims, route)
+    # the slices and the splits each summed in a fixed order: a second
+    # launch gives the same bits
+    grads = _split_part(part[:, :P].sum(dim=0), 0, H)
+    dW1 = dw1.sum(dim=0)
+    return (dh, dpos, dW1[0], dW1[1]) + grads[2:]
+
+
+def allpairs_edges_wide_nf(direction: str, h, pos, box, mask_f, weights,
+                           dagg=None, dfsum=None):
+    """One launch of the wide-nf route of the dtype (the block-pair kernels
+    with the first layer's projections precomputed; ``direction``
+    ``"fwd"``, ``"bwd"`` or ``"bwd_params"``) at any nf, also where the
+    route rule sends the size to another route: what the two routes cost
+    and how far apart their outputs are where both take a size. CUDA
+    tensors only; the outputs of :func:`allpairs_edges_fwd` /
+    :func:`allpairs_edges_bwd`."""
+    if not h.is_cuda:
+        raise ValueError("allpairs_edges_wide_nf launches the card's kernels "
+                         "and takes CUDA tensors only")
+    return _launch(direction, h, pos, box, mask_f, weights, dagg, dfsum,
+                   route="wide_nf")
 
 
 def allpairs_edges_blocks(direction: str, h, pos, box, mask_f, weights,
