@@ -5,8 +5,19 @@ repository root (``--match``: only the mutants whose name holds TEXT, and
 each group's control)
 (groups: ``egcl_allpairs``, ``egcl_params``, ``egcl_blocks``,
 ``egcl_wide``, ``egcl_f32``, ``egcl_blocks_f32``, ``egcl_f32_wide``,
-``wide_nf``, ``edge_pipeline``, ``edge_pipeline_sm90``, ``edge_wide``,
-``pair_energy``; all by default; ``wide_nf`` is the all-pairs EGCL's
+``wide_nf``, ``xwide``, ``edge_pipeline``, ``edge_pipeline_sm90``,
+``edge_wide``, ``pair_energy``; all by default; ``xwide`` is the
+all-pairs EGCL past H = 256 (``egcl_allpairs_xwide.cu``, both dtypes),
+read through the wrapper's entry points at (H, N, B) = (320, 13, 16),
+(512, 55, 4), (1024, 13, 8) and (384, 147, 2) over two input seeds (the
+control over twelve, and also at (1024, 13, 4) and (1024, 13, 16)) and
+over one of them again beside a stream of 1 GiB copies, as chip_smoke.py's
+``xwide_reading`` reads it (bf16 per element, past 256 the parameter
+gradients against the f64-summed twin within FLIP_TOL; f32 against TOL /
+TOL_PARAM), with each bf16 parameter gradient's least and largest reading
+against the twin at the end; a mutant named ``bf16:`` or
+``f32:`` is read in that dtype only, the others in both; ``wide_nf`` is
+the all-pairs EGCL's
 wide-nf routes of both files and ``egcl_wide_nf.cuh`` (the projections,
 the j-side sums, dh and dW1), read through the wrapper's entry points at
 (nf, H, N, B) = (128, 128, 13, 64), (256, 256, 13, 64), (128, 128, 55,
@@ -59,7 +70,11 @@ source, and a fresh process builds that copy and prints max |kernel -
 plain| / max |plain| per output at ``chip_smoke.py``'s shapes -- the
 reading ``chip_smoke.py`` holds against its tolerances (a non-finite
 output reads as infinite). Each group's unmutated source runs first as the
-control. The checkout itself is never modified.
+control. The mutated libraries are built before they are read: a mutant
+that does not build ends the run. A reading process that stops on a
+launch error or a fault on the card prints it and counts as caught; any
+other failure ends the run, as does any failure of a control. The
+checkout itself is never modified.
 """
 
 import os
@@ -299,6 +314,68 @@ MUTANTS = {
                 "      *reinterpret_cast<float4*>(X0 + r * LD + c0) =\n"
                 "          make_float4(d[0], d[1], d[2], d[3]);",
                 "")},
+    },
+    # the all-pairs EGCL past H = 256 (egcl_allpairs_xwide.cu)
+    "xwide": {
+        "control": None,
+        "bf16: a wrong column-chunk offset (X W's weight chunk one over)": (
+            "cb = MODE == 0 ? Chunk{Y, H, kCol * k, kCol * o}",
+            "cb = MODE == 0 ? Chunk{Y, H, kCol * k, kCol * ((o + 1) % G)}"),
+        "f32: a wrong column-chunk offset (X W's weight chunk one over)": (
+            "const int nb = kCol * (MODE == 2 ? o % G : o);",
+            "const int nb = kCol * (MODE == 2 ? o % G : (o + 1) % G);"),
+        "bf16: a skipped k-chunk (the second k-chunk's products left out)": (
+            "      mma<MODE>(acc.d0, a, b, 0, k > 0);\n"
+            "      mma<MODE>(acc.d1, a, b, kChunk, k > 0);\n",
+            "      if (k != 1) {\n"
+            "      mma<MODE>(acc.d0, a, b, 0, k > 0);\n"
+            "      mma<MODE>(acc.d1, a, b, kChunk, k > 0);\n"
+            "      }\n"),
+        "f32: a skipped k-chunk (k 64 .. 79 of a product left out)": (
+            "          b_at(u, k, n);\n          rb[u] =",
+            "          if (c == 4) ra[u] = 0.f;\n"
+            "          b_at(u, k, n);\n          rb[u] ="),
+        "bf16: a skipped stage wait (no barrier before a step's wgmma)": (
+            "      wg_publish(0);\n", ""),
+        "a skipped wait after the m1 pass (read before all of it is stored)": (
+            "  }\n  __syncthreads();\n  E::template run<0>(sm, X[3], a.W2, H,",
+            "  }\n  E::template run<0>(sm, X[3], a.W2, H,"),
+        "dz2 read from dz3's buffer": (
+            "      T* x = X[1] + (size_t)r * H + c;",
+            "      T* x = X[2] + (size_t)r * H + c;"),
+        "the j-side sums over the tile's j atoms (the i side's rows)": (
+            "      for (int m = 0; m < kAtoms; ++m) s += term(m * kAtoms + l);",
+            "      for (int m = 0; m < kAtoms; ++m) s += term(l * kAtoms + m);"),
+        # K2 p's outer products dW2 / dW3 (MODE 2, outer_add): the
+        # products that the bf16 parameter gradients' twin limit guards
+        "bf16: a wrong row chunk of an outer product (A^T's block one over)": (
+            "        ca = Chunk{X, H, 0, kCol * (o / G)};",
+            "        ca = Chunk{X, H, 0, kCol * ((o / G + 1) % G)};"),
+        "bf16: a wrong column chunk of an outer product (B's block one over)": (
+            "        cb = Chunk{Y, H, 0, kCol * (o % G)};",
+            "        cb = Chunk{Y, H, 0, kCol * ((o + 1) % G)};"),
+        "f32: a wrong row chunk of an outer product (A^T's block one over)": (
+            "const int ma = MODE == 2 ? kCol * (o / G) : 0;",
+            "const int ma = MODE == 2 ? kCol * ((o / G + 1) % G) : 0;"),
+        "f32: a wrong column chunk of an outer product (B's block one over)": (
+            "const int nb = kCol * (MODE == 2 ? o % G : o);",
+            "const int nb = kCol * (MODE == 2 ? (o + 1) % G : o);"),
+        "a skipped row chunk of dW3 (its rows 64 .. 127 never added)": [
+            ("const typename E::T* Bt, float* dst, int H) {",
+             "const typename E::T* Bt, float* dst, int H, int skip = -1) {"),
+            ("    float* d = dst + (size_t)kCol * (o / G) * H + kCol * (o % G);",
+             "    if (o / G == skip) return;\n"
+             "    float* d = dst + (size_t)kCol * (o / G) * H + kCol * (o % G);"),
+            ("outer_add<E>(sm, X[0], X[2], part + PL.dW3, H);",
+             "outer_add<E>(sm, X[0], X[2], part + PL.dW3, H, 1);")],
+        "dW3's sums rounded to bf16 (each partial kept in bf16)": [
+            ("const typename E::T* Bt, float* dst, int H) {",
+             "const typename E::T* Bt, float* dst, int H, bool lo = false) {"),
+            ("      d[(size_t)r * H + c] += v;",
+             "      float& x = d[(size_t)r * H + c];\n"
+             "      x = lo ? __bfloat162float(__float2bfloat16(x + v)) : x + v;"),
+            ("outer_add<E>(sm, X[0], X[2], part + PL.dW3, H);",
+             "outer_add<E>(sm, X[0], X[2], part + PL.dW3, H, true);")],
     },
     # K5/K6 at H = 192 and 256 (each mutant names the file it edits)
     "edge_wide": {
@@ -778,6 +855,62 @@ for nf, H, N, B in ((128, 128, 13, 64), (256, 256, 13, 64),
                 del k, p
             torch.cuda.empty_cache()
 """,
+    "xwide": HEAD + """
+import os
+from enflow_tpu_torch.ops import build
+from enflow_tpu_torch.ops import egcl_allpairs as ops
+dnames = os.environ["MUTANT_DTYPES"].split(",")
+seeds = [int(x) for x in os.environ.get("MUTANT_SEEDS", "71,72").split(",")]
+shapes = [tuple(int(x) for x in c.split(":")) for c in os.environ.get(
+    "MUTANT_SHAPES", "320:13:16,512:55:4,1024:13:8,384:147:2").split(",")]
+build.build_all(["egcl_allpairs_xwide"])
+shares = {}
+big = torch.empty(2 ** 28, device="cuda")
+dst = torch.empty_like(big)
+side = torch.cuda.Stream()
+def stress():
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(40):
+            dst.copy_(big)
+for H, N, B in shapes:
+    for dname in dnames:
+        dt = getattr(torch, dname)
+        code = 1 if dname == "bfloat16" else 0
+        for seed, loaded in [(x, False) for x in seeds] + [(seeds[0], True)]:
+            h, pos, box, mf, W, dagg, dfs, _ = cs.edge_inputs(
+                dict(B=B, N=N, nf=5, H=H, n_pad=1), dt, seed=seed)
+            args = (h, pos, box, mf, W, dagg, dfs)
+            for kind in ("fwd", "bwd", "bwd_params"):
+                assert ops.kernel_for(code, H, kind) == ops.XWIDE_ROUTE[code]
+                if loaded:
+                    stress()
+                if kind == "fwd":
+                    k = ops.allpairs_edges_fwd(*args[:5])
+                    p = ops.allpairs_edges_plain(*args[:5])
+                else:
+                    k = ops.allpairs_edges_bwd(*args,
+                                               params=kind == "bwd_params")
+                    p = ops.allpairs_edges_plain_bwd(
+                        *args, params=kind == "bwd_params")
+                torch.cuda.synchronize()
+                ok, text, _ = cs.xwide_reading(k, p, args, dname, kind)
+                if dname == "bfloat16" and kind == "bwd_params":
+                    for n, q in cs.twin_reading(k, p, args)[2].items():
+                        shares.setdefault(n, []).append(q)
+                print(f"  H={H} N={N} B={B} {dname} seed {seed} {kind}"
+                      + (" beside a copy stream" if loaded else "")
+                      + f": {text} -> " + ("passes" if ok else "caught"),
+                      flush=True)
+                del k, p
+            torch.cuda.empty_cache()
+if shares:
+    # each bf16 K2 p gradient's reading against the twin (its limit 1)
+    print("  bf16 K2 p against the f64-summed twin, readings over "
+          f"{len(shares['dW3'])} lines (least, largest): " + "  ".join(
+              f"{n} {min(q):.3f} {max(q):.3f}" for n, q in shares.items()),
+          flush=True)
+""",
     "edge_pipeline": EDGE_READ.replace("HOPPER", "False"),
     "edge_pipeline_sm90": EDGE_READ.replace("HOPPER", "True"),
     "pair_energy": HEAD + """
@@ -790,6 +923,39 @@ for sname, shape in cs.PAIR_SHAPES.items():
         *args), pe.pair_energy_plain(*args)), cs.TOL_PAIR)
 """,
 }
+
+
+# the reading process: READ[group] (argv[1]) run; a launch error or a fault
+# on the card is printed on its line and ends it with FAULT_RC
+FAULT_RC = 86
+RUN = """
+import sys
+try:
+    exec(compile(sys.argv[1], "<read>", "exec"), {"__name__": "__main__"})
+except RuntimeError as e:  # torch.AcceleratorError is one too
+    text = str(e)
+    if "kernel launch failed" not in text and "CUDA error" not in text:
+        raise
+    print(f"  {type(e).__name__}: {text.splitlines()[0]} -> caught (a "
+          "launch error or a fault on the card)", flush=True)
+    sys.exit(FAULT_RC)
+""".replace("FAULT_RC", str(FAULT_RC))
+BUILD = ("import sys\nfrom enflow_tpu_torch.ops import build\n"
+         "build.build_all(sys.argv[1:])")
+
+
+def built_by(edits):
+    """The libraries that the edited sources build: a ``.cu`` its own, a
+    ``.cuh`` every source that includes it."""
+    csrc = ROOT / "enflow_tpu_torch" / "csrc"
+    libs = set()
+    for name in edits:
+        if not name.endswith(".cuh"):
+            libs.add(name)
+            continue
+        libs.update(p.stem for p in csrc.glob("*.cu")
+                    if f'#include "{name}"' in p.read_text())
+    return sorted(libs)
 
 
 def main():
@@ -811,7 +977,8 @@ def main():
                   "egcl_wide": "egcl_allpairs_sm90",
                   "egcl_f32": "egcl_allpairs_f32",
                   "egcl_blocks_f32": "egcl_allpairs_f32",
-                  "egcl_f32_wide": "egcl_allpairs_f32"}.get(group, group)
+                  "egcl_f32_wide": "egcl_allpairs_f32",
+                  "xwide": "egcl_allpairs_xwide"}.get(group, group)
         for name, edit in MUTANTS[group].items():
             if match and edit is not None and match not in name:
                 continue
@@ -847,10 +1014,39 @@ def main():
                      "egcl_allpairs_sm90": "bfloat16",
                      "egcl_wide_nf.cuh": "bfloat16"}.get(k, "")
                     for k in edits) if edit else "float32,bfloat16"
+                env = dict(os.environ, MUTANT_DTYPES=dtypes)
+                if group == "xwide":
+                    if edit:
+                        env["MUTANT_DTYPES"] = (
+                            "bfloat16" if name.startswith("bf16:") else
+                            "float32" if name.startswith("f32:") else
+                            "float32,bfloat16")
+                    else:
+                        # the sound kernels over more inputs (also the
+                        # fewest edges at the widest H, where the bf16
+                        # parameter gradients read highest): the margin
+                        # of the limits the mutants are read against
+                        env["MUTANT_SEEDS"] = ",".join(
+                            str(x) for x in range(71, 83))
+                        env["MUTANT_SHAPES"] = ("320:13:16,512:55:4,"
+                                                "1024:13:8,384:147:2,"
+                                                "1024:13:4,1024:13:16")
                 print(f"[mutant] {group}: {name}", flush=True)
-                subprocess.run([sys.executable, "-c", READ[group]], cwd=tmp,
-                               check=True, env=dict(
-                                   os.environ, MUTANT_DTYPES=dtypes))
+                # the mutated libraries first: a mutant that does not
+                # build is no mutant, and ends the run
+                libs = built_by(edits)
+                if libs and subprocess.run(
+                        [sys.executable, "-c", BUILD, *libs],
+                        cwd=tmp).returncode:
+                    raise RuntimeError(f"mutant '{name}': {libs} did not "
+                                       "build")
+                rc = subprocess.run([sys.executable, "-c", RUN, READ[group]],
+                                    cwd=tmp, env=env).returncode
+                # caught by the card: the reading process printed the
+                # launch error or the fault; any other failure ends the run
+                if rc and not (rc == FAULT_RC and edit is not None):
+                    raise RuntimeError(f"mutant '{name}': the reading "
+                                       f"process failed ({rc})")
     return 0
 
 

@@ -199,6 +199,19 @@ non-zero):
    launch bitwise equal, timed (CUDA events and device time) beside its
    bound and the plan, the plain version timed at the kernels line's
    shapes; the library's plans at H = 128, 192 and 256.
+10n. xwide (after wide_nf) — the all-pairs EGCL past H = 256 (routes
+   ``"xwide"`` and ``"f32_xwide"`` of egcl_allpairs_xwide.cu): the
+   library's shared memory against tests/egcl_smem_mirror.py (the same at
+   every H), K1, K2 and K2 p at H = 300, 320, 384, 512 and 1024 x N = 13,
+   55 and 147 in both dtypes against the plain version (bf16 per element,
+   its parameter gradients against an f64-summed twin of the plain
+   version; f32 to TOL / TOL_PARAM), a second launch bitwise equal, the
+   seam at H = 256 beside the route of 256; each kernel at XWIDE_TIMED's
+   shapes timed (CUDA events, device time) beside its bound and the plain
+   version; the LJ13 SMC at bench.py's settings, ``vi_lj13.yaml`` and
+   ``sample_lj13.yaml`` (bf16) and ``vi_ala2.yaml`` and
+   ``sample_ala2.yaml`` (float32) at ``hidden_nf: 512``, every launch on
+   the xwide counters, none plain, beta 1.
 10c. fluid — ``example/vi_fluid.yaml`` (periodic LJ fluid, N=32, box 6.5,
    H=64, bf16, the learned drift) cut to 1 epoch x FLUID_STEPS steps; then
    K1 and K2 p against their plain version at B=256, N=32, H=64 with
@@ -479,6 +492,22 @@ TOL_PARAM = {"float32": 1e-4, "bfloat16": 6e-4}
 STEP_TOL = 3.0
 STEP_FLOOR = 2.0 ** -2
 TERMS_TOL = 2e-5
+# Past H = 256 (phase xwide) the bf16 parameter gradients are read against
+# a twin of the plain version that keeps its rounding points but sums every
+# product in float64 (``plain_f64_twin``), the kernel's and the plain
+# version's alike, with the parameter bound above widened by FLIP_TOL x
+# the root-sum-square of each gradient's terms (``terms="l2"``). The bound
+# above was set from H <= 256, where an f32 sum's round-off flips few bf16
+# roundings of z2, z3 and g1. At H = 1024 on a few molecules (N=13, B=8 or
+# 16: 1,352 or 2,704 edges) the K-sums flip more of them, and one flip of
+# a term near the largest moves a sum by about a bf16 step of that term:
+# the plain version (cuBLAS's f32 sums) reads up to 2.7x the bound
+# against the twin and the column-chunked kernel 2.8x, both only there
+# (PERF.md, section 6). A step in a random direction of every
+# term moves a sum by 2^-8 x the root-sum-square; a sum that keeps its
+# partials in bf16 (chip_mutants.py xwide's lower-precision mutant) moves
+# it by far more. Outputs keep STEP_TOL at every width.
+FLIP_TOL = 2.0 ** -8
 
 
 def require(cond, msg):
@@ -732,7 +761,7 @@ def launch_counter(kind, route):
     if route == "f32" and kind == "bwd":
         name = "bwd_f32"
     if route in ("blocks", "f32_blocks", "wide", "f32_wide", "wide_nf",
-                 "f32_wide_nf"):
+                 "f32_wide_nf", "xwide", "f32_xwide"):
         name += "_" + route
     return name + "_launches"
 
@@ -1310,12 +1339,13 @@ def rel_errs(names, got, want):
     return errs
 
 
-def step_errs(names, got, want, terms=None, floor=STEP_FLOOR):
+def step_errs(names, got, want, terms=None, floor=STEP_FLOOR, flips=None):
     """{name: (max |kernel - plain|, reading, its limit)}, read per element
     as set out at STEP_TOL: bf16 steps for an output, the share of its
     bound for a parameter gradient named in ``terms`` ({name: the plain
-    sums of its terms' magnitudes}); a non-finite kernel output reads as
-    infinite."""
+    sums of its terms' magnitudes}; with ``flips``, {name: the root-sum-
+    square of its terms}, the bound grows by FLIP_TOL x that); a
+    non-finite kernel output reads as infinite."""
     import torch
     errs = {}
     for name, k, p in zip(names, got, want):
@@ -1336,6 +1366,8 @@ def step_errs(names, got, want, terms=None, floor=STEP_FLOOR):
         if param:
             allow = (TOL_PARAM["bfloat16"] * top
                      + TERMS_TOL * terms[name].float().abs())
+            if flips:
+                allow = allow + FLIP_TOL * flips[name].float()
         else:
             allow = bf16_ulp(p.abs().clamp_min(floor * top))
         errs[name] = (float(d.max()),
@@ -5936,6 +5968,116 @@ def nf_runs(main, runs, label, want):
     return res, secs
 
 
+def lj13_smc(card, tmp, ph, what, hidden, node, rt, dev_fwd, dev_bwd):
+    """The LJ13 flow-SMC at bench.py's settings (SMC_YAML: 1024 particles,
+    8 temps, 1 HMC sweep of 5 leapfrog steps, 5 flow steps, bf16) at
+    ``hidden`` / ``node`` (``what`` in the lines), run in ``tmp`` twice
+    (the first a warm-up): every launch on the counters of route suffix
+    ``rt``, 0 plain calls, beta 1, finite log_Z, outputs on the card; the
+    kernels' share from K1's and K2's device ms ``dev_fwd`` / ``dev_bwd``
+    at B=1024. Prints phase ``ph``'s line; returns the seconds of the
+    second run and the launches."""
+    import torch
+    from enflow_tpu_torch.sample.smc import ess_from_log_weights
+    n_iter, n_vg = 5, 1 + 8 * 1 * 5
+    main = smc_driver(tmp, hidden=hidden, node=node)
+    fwd, bwd = f"fwd{rt}_launches", f"bwd{rt}_launches"
+    want = {fwd: n_iter + n_vg * n_iter, bwd: n_vg * n_iter}
+    res, secs = nf_runs(main, 2, f"LJ13 SMC {what}", want)
+    check_smc(res, f"LJ13 SMC {what}", 1024, 13)
+    require(res.log_Z.is_cuda and res.particles["pos"].is_cuda,
+            f"LJ13 SMC {what}: outputs are not on the card")
+    k = (want[fwd] * dev_fwd + want[bwd] * dev_bwd) / 1e3
+    phase(ph, f"(c) LJ13 flow-SMC (bench.py's settings) at {what}, bf16 "
+          f"on {card}: {secs[-1]:.3f} s a run (runs "
+          + ", ".join(f"{t:.3f}" for t in secs)
+          + f" s, first is warm-up), {1024 / secs[-1]:.1f} samples/s, "
+          f"log_Z {float(res.log_Z):.4f}, final ESS "
+          f"{float(ess_from_log_weights(res.log_weights)):.1f}, beta "
+          f"{float(res.beta_history[-1]):.6f}; launches {want}, plain calls "
+          f"0; kernels (launches x device time at B=1024) {k:.3f} s "
+          f"({k / secs[-1]:.1%})")
+    del main, res
+    torch.cuda.empty_cache()
+    return dict(secs=secs[-1], launches=want)
+
+
+def vi_then_sample(card, tmp, ph, what, dname, config, steps, dyn, rt,
+                   dev_step, sample=None):
+    """``config`` (a VI config, ``what`` in the lines) 1 x ``steps`` in
+    the working directory ``tmp`` with the ``dynamics`` keys ``dyn`` and a
+    checkpoint: every launch on the counters of route suffix ``rt`` (K1 +
+    K2 p a flow step), 0 plain calls, finite losses; then, where ``sample``
+    = (sampler config, its ``sampling`` keys, N, K2's device ms or None)
+    is given, that sampler from the checkpoint: K1 + K2 on the same
+    counters, beta 1, finite log_Z, outputs on the card. ``dev_step``: K1
+    + K2 p device ms at the VI's shape (the kernels' share). Prints phase
+    ``ph``'s lines; returns {"vi": ..., "smc": ...} (seconds, launches,
+    particles)."""
+    import torch
+    ckpt = f"{ph}_{dname}.cpt"
+    net = dict(dyn, checkpoint_path=ckpt)
+    vi = config_driver(tmp, config, over=dict(
+        num_epochs=1, steps_per_epoch=steps), dynamics=net)
+    ni, P = vi.n_iter, vi.vi_particles
+    require(vi.hidden_nf == dyn["network"]["hidden_nf"],
+            f"{what}: hidden_nf {vi.hidden_nf}")
+    step_s, losses = time_vi_steps(vi)
+    reset_counts()
+    vi.train()
+    torch.cuda.synchronize()
+    got, plain = launched(), plain_calls()
+    want = {f"fwd{rt}_launches": ni * steps,
+            f"bwd_param{rt}_launches": ni * steps}
+    require(len(step_s) == steps and got == want and plain == 0,
+            f"{what} in {dname}: {len(step_s)} steps, launches {got} != "
+            f"{want}, plain {plain}")
+    require(all(math.isfinite(x) for x in losses),
+            f"non-finite {what} losses {losses}")
+    require(Path(ckpt).exists(), f"{what} in {dname}: no checkpoint")
+    s_step = statistics.median(step_s[1:])
+    k = ni * dev_step / 1e3
+    out = dict(vi=dict(s_step=s_step, launches=got, P=P))
+    phase(ph, f"(c) {what} in {dname} on {card}: 1 epoch x {steps} steps "
+          f"of {P} particles, {s_step:.5f} s/step (median of steps "
+          f"2-{steps}; first {step_s[0]:.4f} s); losses "
+          + ", ".join(f"{x:.2f}" for x in losses)
+          + f"; launches {got}, plain calls 0; kernels ({ni} x (K1 + K2 p) "
+          f"device time) {k:.5f} s ({k / s_step:.1%})")
+    del vi
+    if sample is None:
+        return out
+    config, over, N, dev_bwd = sample
+    smc = config_driver(tmp, config, over=dict(
+        over, output=f"{ph}_{dname}.npz"), dynamics=net)
+    sec = smc.args["sampling"]
+    P = sec["n_particles"]
+    n_vg = 1 + sec["n_temps"] * sec["mcmc_steps"] * sec["n_leapfrog"]
+    want = {f"fwd{rt}_launches": ni + n_vg * ni,
+            f"bwd{rt}_launches": n_vg * ni}
+    label = f"{config} from {what} in {dname}"
+    res, secs = nf_runs(smc, 1, label, want)
+    check_smc(res, label, P, N)
+    pos = res.particles["pos"]
+    require(pos.is_cuda and res.log_Z.is_cuda
+            and (pos.dtype == torch.float32 or dname != "float32"),
+            f"{label}: outputs not on the card")
+    share = ""
+    if dev_bwd is not None:
+        k = want[f"bwd{rt}_launches"] * dev_bwd / 1e3
+        share = f"; K2 (launches x device time) {k:.3f} s " \
+            f"({k / secs[-1]:.1%})"
+    phase(ph, f"(c) {config} in {dname} from that checkpoint on {card}: "
+          f"{P} particles x {sec['n_temps']} temps, {secs[-1]:.3f} s (the "
+          f"first run, builds warm), log_Z {float(res.log_Z):.4f}, beta "
+          f"{float(res.beta_history[-1]):.6f}; launches {want} ({n_vg} "
+          f"value-and-grads), plain calls 0" + share)
+    out["smc"] = dict(secs=secs[-1], launches=want, P=P)
+    del smc, res, pos
+    torch.cuda.empty_cache()
+    return out
+
+
 def nf_paths(card, rec):
     """(c): LJ13 flow-SMC at bench.py's settings (SMC_YAML: 1024
     particles, 8 temps, 1 HMC sweep of 5 leapfrog steps, 5 flow steps,
@@ -5946,109 +6088,33 @@ def nf_paths(card, rec):
     1, finite log_Z and losses, outputs on the card; seconds a run or step
     and the kernels' share (launches x device time at (a)'s shapes)."""
     import os
-    import torch
-    from enflow_tpu_torch.sample.smc import ess_from_log_weights
 
     cwd = os.getcwd()
-    n_iter, out = 5, {}
-    n_vg = 1 + 8 * 1 * 5
+    out = {}
     with tempfile.TemporaryDirectory() as tmp:
         try:
             for node, hidden, key in ((128, 128, "ref128"),
                                       (256, 256, "ref256")):
-                main = smc_driver(tmp, hidden=hidden, node=node)
-                want = dict(fwd_wide_nf_launches=n_iter + n_vg * n_iter,
-                            bwd_wide_nf_launches=n_vg * n_iter)
-                res, secs = nf_runs(main, 2, f"LJ13 SMC node_nf {node}",
-                                    want)
-                check_smc(res, f"LJ13 SMC node_nf {node}", 1024, 13)
-                require(res.log_Z.is_cuda and res.particles["pos"].is_cuda,
-                        "wide_nf SMC outputs are not on the card")
-                k = (want["fwd_wide_nf_launches"]
-                     * rec[(key, "bfloat16", "fwd")]["dev"]
-                     + want["bwd_wide_nf_launches"]
-                     * rec[(key, "bfloat16", "bwd")]["dev"]) / 1e3
-                out[f"smc{node}"] = dict(secs=secs[-1], launches=want)
-                phase("wide_nf", f"(c) LJ13 flow-SMC (bench.py's settings) "
-                      f"at node_nf {node}, hidden_nf {hidden}, bf16 on "
-                      f"{card}: {secs[-1]:.3f} s a run (runs "
-                      + ", ".join(f"{t:.3f}" for t in secs)
-                      + f" s, first is warm-up), {1024 / secs[-1]:.1f} "
-                      f"samples/s, log_Z {float(res.log_Z):.4f}, final ESS "
-                      f"{float(ess_from_log_weights(res.log_weights)):.1f}, "
-                      f"beta {float(res.beta_history[-1]):.6f}; launches "
-                      f"{want}, plain calls 0; kernels (launches x device "
-                      f"time at B=1024) {k:.3f} s ({k / secs[-1]:.1%})")
-                del main, res
-                torch.cuda.empty_cache()
+                out[f"smc{node}"] = lj13_smc(
+                    card, tmp, "wide_nf", f"node_nf {node}, hidden_nf "
+                    f"{hidden}", hidden, node, "_wide_nf",
+                    rec[(key, "bfloat16", "fwd")]["dev"],
+                    rec[(key, "bfloat16", "bwd")]["dev"])
             for dname, dyn in (("bfloat16", {}),
                                ("float32", dict(compute_dtype="float32"))):
                 f32 = dname == "float32"
-                rt = "_f32_wide_nf" if f32 else "_wide_nf"
-                ckpt = f"lj13_nf128_{dname}.cpt"
-                net = dict(dyn, network=dict(hidden_nf=128, node_nf=128),
-                           checkpoint_path=ckpt)
-                vi = config_driver(tmp, "vi_lj13.yaml", over=dict(
-                    num_epochs=1, steps_per_epoch=NF_VI_STEPS), dynamics=net)
-                step_s, losses = time_vi_steps(vi)
-                reset_counts()
-                vi.train()
-                torch.cuda.synchronize()
-                got, plain = launched(), plain_calls()
-                want = {f"fwd{rt}_launches": n_iter * NF_VI_STEPS,
-                        f"bwd_param{rt}_launches": n_iter * NF_VI_STEPS}
-                require(len(step_s) == NF_VI_STEPS and got == want
-                        and plain == 0, f"VI node_nf 128 {dname}: "
-                        f"{len(step_s)} steps, launches {got} != {want}, "
-                        f"plain {plain}")
-                require(all(math.isfinite(x) for x in losses),
-                        f"non-finite VI losses {losses}")
-                require(Path(ckpt).exists(), f"no checkpoint {ckpt}")
-                s_step = statistics.median(step_s[1:])
-                k = 5 * (rec[("vi512" if f32 else "ref128", dname,
-                              "fwd")]["dev"]
-                         + rec[("ref128", dname, "bwd_params")]["dev"]) / 1e3
-                out[f"vi_{dname}"] = dict(s_step=s_step, launches=got)
-                phase("wide_nf", f"(c) vi_lj13.yaml at node_nf 128 in "
-                      f"{dname} on {card}: 1 epoch x {NF_VI_STEPS} steps of "
-                      f"{vi.vi_particles} particles, {s_step:.5f} s/step "
-                      f"(median of steps 2-{NF_VI_STEPS}; first "
-                      f"{step_s[0]:.4f} s); losses "
-                      + ", ".join(f"{x:.2f}" for x in losses)
-                      + f"; launches {got}, plain calls 0; kernels (5 x "
-                      f"(K1 + K2 p) device time at B=512) {k:.5f} s "
-                      f"({k / s_step:.1%})")
-                del vi
-                if not f32:
-                    continue
-                smc = config_driver(tmp, "sample_lj13.yaml", over=dict(
-                    NF_SMC, output="lj13_nf128_f32.npz"), dynamics=net)
-                sec = smc.args["sampling"]
-                n_vg13 = 1 + sec["n_temps"] * sec["mcmc_steps"] \
-                    * sec["n_leapfrog"]
-                want = dict(fwd_f32_wide_nf_launches=n_iter
-                            + n_vg13 * n_iter,
-                            bwd_f32_wide_nf_launches=n_vg13 * n_iter)
-                res, secs = nf_runs(smc, 1, "f32 sample_lj13 node_nf 128",
-                                    want)
-                check_smc(res, "f32 sample_lj13 node_nf 128",
-                          NF_SMC["n_particles"], 13)
-                require(res.log_Z.is_cuda and res.particles["pos"].is_cuda,
-                        "f32 wide_nf SMC outputs are not on the card")
-                k = (want["bwd_f32_wide_nf_launches"]
-                     * rec[("smc256", dname, "bwd")]["dev"]) / 1e3
-                out["smc_f32"] = dict(secs=secs[-1], launches=want)
-                phase("wide_nf", f"(c) sample_lj13.yaml in float32 at "
-                      f"node_nf 128 from that checkpoint on {card}: "
-                      f"{NF_SMC['n_particles']} particles x "
-                      f"{NF_SMC['n_temps']} temps, {secs[-1]:.3f} s (the "
-                      f"first run, builds warm), log_Z "
-                      f"{float(res.log_Z):.4f}, beta "
-                      f"{float(res.beta_history[-1]):.6f}; launches {want}, "
-                      f"plain calls 0; K2 (launches x device time at "
-                      f"B=256) {k:.3f} s ({k / secs[-1]:.1%})")
-                del smc, res
-                torch.cuda.empty_cache()
+                r = vi_then_sample(
+                    card, tmp, "wide_nf", "vi_lj13.yaml at node_nf 128",
+                    dname, "vi_lj13.yaml", NF_VI_STEPS,
+                    dict(dyn, network=dict(hidden_nf=128, node_nf=128)),
+                    "_f32_wide_nf" if f32 else "_wide_nf",
+                    rec[("vi512" if f32 else "ref128", dname, "fwd")]["dev"]
+                    + rec[("ref128", dname, "bwd_params")]["dev"],
+                    ("sample_lj13.yaml", NF_SMC, 13,
+                     rec[("smc256", dname, "bwd")]["dev"]) if f32 else None)
+                out[f"vi_{dname}"] = r["vi"]
+                if f32:
+                    out["smc_f32"] = r["smc"]
         finally:
             os.chdir(cwd)
     return out
@@ -6061,6 +6127,380 @@ def wide_nf_phase(card):
     seam = nf_seam(card)
     paths = nf_paths(card, rec)
     return dict(rec=rec, seam=seam, paths=paths)
+
+# ---------------------------------------------------------------------------
+# phase xwide: the all-pairs EGCL past H = 256 (routes "xwide", bf16 on
+# wgmma, and "f32_xwide", float32 on the FMA units; both in
+# csrc/egcl_allpairs_xwide.cu). (a) K1, K2 and K2 p at each H of XWIDE_HS
+# and N of XWIDE_NS in both dtypes against the plain version (at
+# XWIDE_CHECK_B molecules, where the plain version's [B, N, N, H] tensors
+# fit at H = 1024), each launch on its route's counter, a second launch
+# bitwise equal; the seam at H = 256 (the xwide kernels beside the route
+# of 256); (b) each kernel at the reference's shapes (XWIDE_TIMED) timed
+# with CUDA events and as device time beside its bound and the plain
+# version; (c) the driver paths at hidden_nf XWIDE_H: the LJ13 flow-SMC at
+# bench.py's settings (bf16, B=1024), vi_lj13.yaml (K2 p at B=512) and
+# sample_lj13.yaml from its checkpoint cut to XWIDE_SMC13, vi_ala2.yaml in
+# float32 (B=256, N=22, nf=4) and sample_ala2.yaml from its checkpoint cut
+# to XWIDE_ALA2 temperatures (B=2048).
+XWIDE_HS = (300, 320, 384, 512, 1024)
+XWIDE_NS = (13, 55, 147)
+XWIDE_CHECK_B = {13: 16, 55: 4, 147: 2}
+XWIDE_H = 512
+XWIDE_VI_STEPS = 3
+XWIDE_SMC13 = dict(n_particles=1024, n_temps=4)
+XWIDE_ALA2 = dict(n_temps=2)
+XWIDE_TIMED = {
+    "bfloat16": (("ref512", dict(B=1024, N=13, nf=5, H=XWIDE_H),
+                  ("fwd", "bwd")),
+                 ("vi512", dict(B=512, N=13, nf=5, H=XWIDE_H),
+                  ("fwd", "bwd_params")),
+                 ("lj55", dict(B=256, N=55, nf=5, H=XWIDE_H),
+                  ("fwd", "bwd", "bwd_params"))),
+    "float32": (("ref512", dict(B=1024, N=13, nf=5, H=XWIDE_H),
+                 ("fwd", "bwd")),
+                ("vi_ala2", dict(B=256, N=22, nf=4, H=XWIDE_H),
+                 ("fwd", "bwd_params")),
+                ("sample_ala2", dict(B=2048, N=22, nf=4, H=XWIDE_H),
+                 ("fwd", "bwd")),
+                ("lj55", dict(B=64, N=55, nf=5, H=XWIDE_H),
+                 ("fwd", "bwd", "bwd_params")))}
+
+
+@contextlib.contextmanager
+def f64_sums():
+    """The all-pairs plain version with every product and sum accumulated
+    in float64, its compute-dtype roundings where they are."""
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+    acc = ops._acc
+    ops._acc = lambda dt: torch.float64
+    try:
+        yield
+    finally:
+        ops._acc = acc
+
+
+def plain_f64_twin(args, terms=False):
+    """The nine parameter gradients of ``allpairs_edges_plain_bwd`` at
+    ``args`` under ``f64_sums`` (with ``terms``: the sums of their terms'
+    magnitudes, ``"l2"``: the root of the sum of their squares), summed
+    over batches of molecules that keep each [b, N, N, H] tensor under
+    2^26 elements; float32."""
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+    h, pos, box, mf, W, dagg, dfsum = args
+    B, N = h.shape[:2]
+    H = W[4].shape[1]
+    chunk = max(1, 2 ** 26 // (N * N * H))
+    tot = None
+    with f64_sums():
+        for b0 in range(0, B, chunk):
+            s = slice(b0, b0 + chunk)
+            g = ops.allpairs_edges_plain_bwd(
+                h[s], pos[s], box[s], mf[s], W, dagg[s], dfsum[s],
+                params=True, terms=terms)[2:]
+            if terms == "l2":
+                g = [t.square() for t in g]
+            tot = list(g) if tot is None else [a + b for a, b in zip(tot, g)]
+    if terms == "l2":
+        tot = [t.sqrt() for t in tot]
+    return [t.float() for t in tot]
+
+
+def twin_reading(got, want, args):
+    """(ok, text, readings) of the bf16 parameter gradients past H = 256:
+    the kernel's and the plain version's against ``plain_f64_twin``, each
+    within the parameter bound widened by FLIP_TOL x the root-sum-square
+    of the gradient's terms (the plain version too: a limit that a sound
+    implementation breaks is no limit); ``readings``: {gradient: the
+    kernel's}."""
+    names = PARAM_OUT[2:]
+    twin = plain_f64_twin(args)
+    terms = dict(zip(names, plain_f64_twin(args, terms=True)))
+    flips = dict(zip(names, plain_f64_twin(args, terms="l2")))
+    rk = step_errs(names, got[2:], twin, terms, flips=flips)
+    rp = step_errs(names, want[2:], twin, terms, flips=flips)
+    readings = {n: rk[n][1] for n in names}
+    return steps_ok(rk) and steps_ok(rp), \
+        "vs the f64-summed twin " + "  ".join(
+            f"{n} {rk[n][1]:.2f}x (plain {rp[n][1]:.2f}x)" for n in names), \
+        readings
+
+
+def xwide_keys(kind):
+    """The kernels of one xwide launch (substrings of their names): the
+    projections, the tile kernel, and for the backward the j-side sums, dh
+    and (K2 p) dW1's splits."""
+    keys = ("egcl_nf_proj", "egcl_xwide_kernel")
+    if kind != "fwd":
+        keys += ("egcl_nf_jsum", "egcl_nf_dh")
+    if kind == "bwd_params":
+        keys += ("egcl_nf_dw1",)
+    return keys
+
+
+def xwide_vs_plain(label, shape, dname, kind, seed=71, forced=False,
+                   sliced=False):
+    """One launch of ``kind`` at ``shape`` against the plain version: bf16
+    read per element (``step_errs``), f32 against TOL / TOL_PARAM; a second
+    launch must give the same bits. Through the entry point, on the xwide
+    counter of the dtype alone (and ``padded_launches`` at a padded width);
+    ``forced``: the xwide kernels through ``allpairs_edges_xwide``;
+    ``sliced``: every batch-shaped input a slice of one molecule more from
+    its second on, so that h, pos, box and the mask do not start on 16
+    bytes (the launch reads copies of them). Returns (the launch, max abs
+    err, reading text, ok, the mask, the plain call)."""
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+    dt = getattr(torch, dname)
+    if sliced:
+        shape = dict(shape, B=shape["B"] + 1)
+    h, pos, box, mf, W, dagg, dfsum, mask = edge_inputs(shape, dt, seed)
+    if sliced:
+        h, pos, box, mf, dagg, dfsum, mask = (
+            t[1:] for t in (h, pos, box, mf, dagg, dfsum, mask))
+        require(all(t.data_ptr() % 16 for t in (h, pos, box, mf)),
+                f"xwide {label}: a sliced input starts on 16 bytes")
+    args = (h, pos, box, mf, W, dagg, dfsum)
+    ins = args[:5] if kind == "fwd" else args
+    if forced:
+        kern = lambda: ops.allpairs_edges_xwide(kind, *ins)
+    elif kind == "fwd":
+        kern = lambda: ops.allpairs_edges_fwd(*ins)
+    else:
+        kern = lambda: ops.allpairs_edges_bwd(*ins,
+                                              params=kind == "bwd_params")
+    plain = ((lambda: ops.allpairs_edges_plain(*ins)) if kind == "fwd" else
+             (lambda: ops.allpairs_edges_plain_bwd(
+                 *ins, params=kind == "bwd_params")))
+    code = 1 if dname == "bfloat16" else 0
+    ops.counts.reset()
+    got = kern()
+    torch.cuda.synchronize()
+    want_c = {launch_counter(kind, ops.XWIDE_ROUTE[code]): 1}
+    if ops.padded_width(shape["H"]) != shape["H"]:
+        want_c["padded_launches"] = 1
+    require(launched() == want_c, f"xwide {label} {kind} {dname}: "
+            f"launches {launched()} != {want_c}")
+    want = plain()
+    ok, text, err = xwide_reading(got, want, args, dname, kind)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, kern()))
+    del want, got
+    return kern, err, f"{text}; a second launch gives the same bits: " \
+        f"{same}", ok and same, mask, plain
+
+
+def xwide_reading(got, want, args, dname, kind):
+    """(ok, text, max abs err) of one launch against the plain version:
+    bf16 per element (``step_errs``; past H = 256 the parameter gradients
+    against the f64-summed twin, ``twin_reading``), f32 against TOL /
+    TOL_PARAM."""
+    H = args[4][4].shape[1]
+    names = (("agg", "f_sum") if kind == "fwd" else PARAM_OUT
+             if kind == "bwd_params" else ("dh", "dpos"))
+    if dname == "bfloat16":
+        params = kind == "bwd_params"
+        errs = step_errs(names, got, want, plain_terms(args)
+                         if params else None)
+        text = steps_text(errs)
+        err = max(a for a, _, _ in errs.values())
+        if params and H > 256:
+            outs = {n: errs[n] for n in ("dh", "dpos")}
+            ok, twin, _ = twin_reading(got, want, args)
+            return ok and steps_ok(outs), f"{text}; {twin}", err
+        return steps_ok(errs), text, err
+    errs = rel_errs(names, got, want)
+    ok = all(r <= (TOL_PARAM if n in PARAM_OUT[2:] else TOL)[dname]
+             for n, (_, r) in errs.items())
+    text = "  ".join(f"{n} {a:.2e}/{r:.1e}" for n, (a, r) in errs.items())
+    return ok, text, max(a for a, _ in errs.values())
+
+
+def xwide_checks(card):
+    """(a): the library's shared memory and threads a block at several H
+    beside the Python mirror (tests/egcl_smem_mirror.py); every H of
+    XWIDE_HS x N of XWIDE_NS x direction in both dtypes against the plain
+    version; then the seam at H = 256 (N=13, B=64): the route of 256 and
+    the xwide kernels forced, side by side."""
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+    sys.path.insert(0, str(ROOT / "tests"))
+    import egcl_smem_mirror as mirror
+    lib = ops._xwide_library()
+    for code in (1, 0):
+        got = {(H, kind): lib.egcl_xwide_smem_bytes(code, H, kind)
+               for H in (320, 512, 1024, ops.XWIDE_MAX_H)
+               for kind in (0, 1, 2)}
+        want = {k: mirror.xwide_bytes(code, *k) for k in got}
+        require(got == want and len(set(got.values())) == 1,
+                f"xwide shared memory (code {code}): library {got}, mirror "
+                f"{want}")
+        require(lib.egcl_xwide_max_width() == ops.XWIDE_MAX_H,
+                f"xwide widest H {lib.egcl_xwide_max_width()}")
+        phase("xwide", f"(a) {'bf16' if code else 'float32'}: "
+              f"{lib.egcl_xwide_threads(code)} threads and "
+              f"{next(iter(got.values())):,} bytes of shared memory a block "
+              f"at every H of 320, 512, 1024 and {ops.XWIDE_MAX_H} in every "
+              f"direction (the mirror's too), of {ops.SMEM_LIMIT:,}")
+    n = 0
+    for dname in ("bfloat16", "float32"):
+        for H in XWIDE_HS:
+            for N in XWIDE_NS:
+                shape = dict(B=XWIDE_CHECK_B[N], N=N, nf=5, H=H, n_pad=1)
+                texts = []
+                for kind in ("fwd", "bwd", "bwd_params"):
+                    kern, err, text, ok, _, _ = xwide_vs_plain(
+                        f"H={H} N={N}", shape, dname, kind)
+                    require(ok, f"xwide H={H} N={N} {kind} {dname} "
+                            f"disagrees with plain: {text}")
+                    texts.append(f"{kind}: {text}")
+                    n += 1
+                    del kern
+                phase("xwide", f"(a) {dname} H={H} (at "
+                      f"{ops.padded_width(H)}) N={N} B={shape['B']}: "
+                      + " | ".join(texts) + " -> ok")
+                torch.cuda.empty_cache()
+        # inputs that do not start on 16 bytes: the launch's copies of
+        # them must live until the kernels have read them
+        shape = dict(B=16, N=13, nf=5, H=320, n_pad=1)
+        texts = []
+        for kind in ("fwd", "bwd", "bwd_params"):
+            kern, _, text, ok, _, _ = xwide_vs_plain(
+                "sliced", shape, dname, kind, sliced=True)
+            require(ok, f"xwide sliced inputs {kind} {dname} disagrees "
+                    f"with plain: {text}")
+            texts.append(f"{kind}: {text}")
+            n += 1
+            del kern
+        phase("xwide", f"(a) {dname} H=320 N=13 B=16, h, pos, box and the "
+              "mask batch slices off 16 bytes: " + " | ".join(texts)
+              + " -> ok")
+    seam = {}
+    for dname in ("bfloat16", "float32"):
+        for kind in ("fwd", "bwd", "bwd_params"):
+            shape = dict(B=64, N=13, nf=5, H=256)
+            k0, t0, ok0 = _route_launch(shape, dname, kind)
+            k1, _, t1, ok1, _, _ = xwide_vs_plain("seam", shape, dname, kind,
+                                                  forced=True)
+            require(ok0 and ok1, f"seam {dname} {kind}: route of 256 {t0} | "
+                    f"xwide {t1}")
+            ms0 = cuda_time_ms(k0, reps=5, calls=3)
+            ms1 = cuda_time_ms(k1, reps=5, calls=3)
+            seam[(dname, kind)] = (ms0, ms1)
+            phase("xwide", f"(a) seam {dname} {kind} H=256 N=13 B=64 on "
+                  f"{card}: route of 256 {ms0:.4f} ms, xwide forced "
+                  f"{ms1:.4f} ms ({ms1 / ms0:.2f}x); route of 256 vs plain "
+                  f"{t0}; xwide vs plain {t1}")
+            del k0, k1
+            torch.cuda.empty_cache()
+    return n, seam
+
+
+def _route_launch(shape, dname, kind):
+    """One launch at ``shape`` through the entry point on whatever route
+    the rule names (H <= 256 here), against the plain version. Returns
+    (the launch, reading text, ok)."""
+    import torch
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+    dt = getattr(torch, dname)
+    h, pos, box, mf, W, dagg, dfsum, _ = edge_inputs(shape, dt, 71)
+    args = (h, pos, box, mf, W, dagg, dfsum)
+    if kind == "fwd":
+        kern = lambda: ops.allpairs_edges_fwd(*args[:5])
+        want = ops.allpairs_edges_plain(*args[:5])
+    else:
+        p = kind == "bwd_params"
+        kern = lambda: ops.allpairs_edges_bwd(*args, params=p)
+        want = ops.allpairs_edges_plain_bwd(*args, params=p)
+    ok, text, _ = xwide_reading(kern(), want, args, dname, kind)
+    return kern, text, ok
+
+
+def xwide_kernels(card):
+    """(b): each kernel at XWIDE_TIMED's shapes: against the plain version
+    (as in (a)), CUDA events and device time (each kernel of the launch),
+    the plain version's time, the bound. Returns {(label, dname, kind):
+    record}."""
+    import torch
+    rec = {}
+    for dname, cases in XWIDE_TIMED.items():
+        for label, shape, kinds in cases:
+            for kind in kinds:
+                kern, err, text, ok, mask, plain = xwide_vs_plain(
+                    label, shape, dname, kind, seed=73)
+                require(ok, f"xwide {label} {kind} {dname} disagrees with "
+                        f"plain: {text}")
+                t_plain = cuda_time_ms(plain, reps=3, calls=1, warmup=1)
+                torch.cuda.empty_cache()
+                ms = cuda_time_ms(kern, reps=5, calls=3)
+                keys = xwide_keys(kind)
+                each = device_ms_each(kern, keys, calls=10)
+                fl_f, fl_b, by_f, by_b = work(shape, dname, mask)
+                fl, by = {"fwd": (fl_f, by_f), "bwd": (fl_b, by_b),
+                          "bwd_params": work_params(shape, dname, mask)}[kind]
+                b = bound(fl, by, PEAK_FLOPS[dname])
+                phase("xwide", f"(b) {label} {kind} {dname} B={shape['B']} "
+                      f"N={shape['N']} nf={shape['nf']} H={shape['H']}: "
+                      f"{text} -> ok; time ms events {ms:.4f} device "
+                      f"{sum(each):.4f} ("
+                      + ", ".join(f"{k.replace('egcl_', '')} {t:.4f}"
+                                  for k, t in zip(keys, each))
+                      + f"), plain {t_plain:.4f}, bound {b[0]:.4f} ({b[1]}, "
+                      f"{fl / 1e9:.2f} GFLOP, {by / 1e6:.2f} MB), "
+                      f"{fl / (sum(each) * 1e9):.2f} TFLOP/s on {card}")
+                rec[(label, dname, kind)] = dict(err=err, ms=ms,
+                                                 dev=sum(each), each=each,
+                                                 plain=t_plain, bound=b)
+                del kern, plain
+                torch.cuda.empty_cache()
+    return rec
+
+
+def xwide_paths(card, rec):
+    """(c): the driver paths at hidden_nf XWIDE_H, every launch on the
+    xwide counters of the dtype (none elsewhere), 0 plain calls, beta 1,
+    finite log_Z and losses, outputs on the card; seconds and the kernels'
+    share (launches x device time at (b)'s shapes)."""
+    import os
+
+    cwd = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            out["smc"] = lj13_smc(
+                card, tmp, "xwide", f"hidden_nf {XWIDE_H}", XWIDE_H, 5,
+                "_xwide", rec[("ref512", "bfloat16", "fwd")]["dev"],
+                rec[("ref512", "bfloat16", "bwd")]["dev"])
+            for dname, config, sample, N, over, dyn in (
+                    ("bfloat16", "vi_lj13.yaml", "sample_lj13.yaml", 13,
+                     XWIDE_SMC13, dict(network=dict(hidden_nf=XWIDE_H,
+                                                    node_nf=5))),
+                    ("float32", "vi_ala2.yaml", "sample_ala2.yaml", 22,
+                     XWIDE_ALA2, dict(network=dict(hidden_nf=XWIDE_H,
+                                                   node_nf=4)))):
+                f32 = dname == "float32"
+                key = "vi_ala2" if f32 else "vi512"
+                r = vi_then_sample(
+                    card, tmp, "xwide", f"{config} at hidden_nf {XWIDE_H}",
+                    dname, config, FF_STEPS if f32 else XWIDE_VI_STEPS, dyn,
+                    "_f32_xwide" if f32 else "_xwide",
+                    rec[(key, dname, "fwd")]["dev"]
+                    + rec[(key, dname, "bwd_params")]["dev"],
+                    (sample, over, N, None))
+                out[f"vi_{dname}"] = r["vi"]
+                out[f"smc_{dname}"] = r["smc"]
+        finally:
+            os.chdir(cwd)
+    return out
+
+
+def xwide_phase(card):
+    """Phase xwide: (a) ``xwide_checks``, (b) ``xwide_kernels``, (c)
+    ``xwide_paths``. Returns the records and the paths' launches."""
+    n, seam = xwide_checks(card)
+    rec = xwide_kernels(card)
+    paths = xwide_paths(card, rec)
+    return dict(n=n, seam=seam, rec=rec, paths=paths)
 
 
 def fluid_phase(card):
@@ -7058,8 +7498,8 @@ def import_phase(card, tmp):
 def build_phase():
     """Fresh builds of every kernel source, one nvcc each, in parallel."""
     from enflow_tpu_torch.ops import build
-    names = ("egcl_allpairs_sm90", "egcl_allpairs_f32", "edge_pipeline",
-             "edge_pipeline_sm90", "pair_energy")
+    names = ("egcl_allpairs_sm90", "egcl_allpairs_f32", "egcl_allpairs_xwide",
+             "edge_pipeline", "edge_pipeline_sm90", "pair_energy")
     for name in names:
         build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
@@ -7227,6 +7667,7 @@ def main():
     wide = timed("wide", wide_phase, card)
     wf = timed("wide_f32", wide_f32_phase, card)
     wn = timed("wide_nf", wide_nf_phase, card)
+    xw = timed("xwide", xwide_phase, card)
     timed("fluid", fluid_phase, card)
     dw4 = timed("dw4", dw4_phase, card)
     ala2 = timed("ala2", ala2_phase, card)
@@ -7414,6 +7855,37 @@ def main():
             "egcl_allpairs_f32.cu"
         kernels.append(kernel_record(name, src, f"{v3}:{line}", n, r["err"],
                                      r["ms"], r["plain"], r["bound"]))
+    # the column-chunked kernels past H = 256 at hidden_nf XWIDE_H, each with
+    # the launches of phase xwide's driver run at that shape: bf16 K1 / K2
+    # at B=1024, N=13 of the LJ13 SMC run, K1 / K2 p at B=512 of the
+    # vi_lj13 run; f32 K1 / K2 p at vi_ala2's B=256, N=22 of its run, K1 /
+    # K2 at sample_ala2's B=2048 of the SMC run from its checkpoint
+    xrec, xpaths = xw["rec"], xw["paths"]
+    for name, key, dname, kind, line, n in (
+            ("egcl_allpairs_xwide_fwd", "ref512", "bfloat16", "fwd", 365,
+             xpaths["smc"]["launches"]["fwd_xwide_launches"]),
+            ("egcl_allpairs_xwide_bwd", "ref512", "bfloat16", "bwd", 414,
+             xpaths["smc"]["launches"]["bwd_xwide_launches"]),
+            ("egcl_allpairs_xwide_fwd_vi", "vi512", "bfloat16", "fwd", 365,
+             xpaths["vi_bfloat16"]["launches"]["fwd_xwide_launches"]),
+            ("egcl_allpairs_xwide_bwd_params", "vi512", "bfloat16",
+             "bwd_params", 414, xpaths["vi_bfloat16"]["launches"][
+                 "bwd_param_xwide_launches"]),
+            ("egcl_allpairs_f32_xwide_fwd", "vi_ala2", "float32", "fwd", 365,
+             xpaths["vi_float32"]["launches"]["fwd_f32_xwide_launches"]),
+            ("egcl_allpairs_f32_xwide_bwd_params", "vi_ala2", "float32",
+             "bwd_params", 414, xpaths["vi_float32"]["launches"][
+                 "bwd_param_f32_xwide_launches"]),
+            ("egcl_allpairs_f32_xwide_fwd_smc", "sample_ala2", "float32",
+             "fwd", 365, xpaths["smc_float32"]["launches"][
+                 "fwd_f32_xwide_launches"]),
+            ("egcl_allpairs_f32_xwide_bwd", "sample_ala2", "float32", "bwd",
+             414, xpaths["smc_float32"]["launches"][
+                 "bwd_f32_xwide_launches"])):
+        r = xrec[(key, dname, kind)]
+        kernels.append(kernel_record(name, "egcl_allpairs_xwide.cu",
+                                     f"{v3}:{line}", n, r["err"], r["ms"],
+                                     r["plain"], r["bound"]))
     # bf16 K5/K6 at 17 edge features (the Hopper kernels, two k16 steps of
     # e W1), with the launches of phase edge's node_nf 8 driver path
     c17, nf8 = erec[("c17", "bfloat16")], erec["nf8"]

@@ -25,8 +25,9 @@ Contract (``fused_edge_pipeline``): pre-gathered edge rows
   at 192 and 256 with one warpgroup and W2 / W3 streamed through a ring of
   slabs. float32 goes to the tiled kernels of ``csrc/edge_pipeline.cu``:
   ``"tiled"`` at 64 and 128, ``"f32_wide"`` at 192 and 256 (W2 / W3
-  streamed). Past 256 it raises (ROADMAP B7.2), and so does a C past what
-  a route's block holds (B7.3). There is no fallback: a shape a route
+  streamed). Past 256 it raises (ROADMAP B7.2, the gathered-edge EGCL at
+  H > 256; the all-pairs EGCL takes those widths), and so does a C past
+  what a route's block holds (B7.3). There is no fallback: a shape a route
   does not take raises.
 - On a CPU tensor both directions run the plain PyTorch version below,
   which rounds to the compute dtype where ``_fwd_kernel``/``_bwd_kernel``
@@ -45,7 +46,7 @@ import math
 import torch
 
 from .build import LaunchCounts
-from .widths import SMEM_LIMIT, pad_rows, padded_width
+from .widths import PADDED_H, SMEM_LIMIT, pad_rows, padded_width
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ATOM_TILE = 16     # atoms per block tile at most (the wrapper halves
@@ -61,7 +62,7 @@ counts = LaunchCounts("fwd_launches", "bwd_launches",
                       "padded_fwd_launches", "padded_bwd_launches",
                       "plain_fwd_calls", "plain_bwd_calls")
 # the queue items that hold what stays refused
-WIDE_ITEM = "ROADMAP queue B, B7.2: the EGCL at H > 256"
+WIDE_ITEM = "ROADMAP queue B, B7.2: the gathered-edge EGCL at H > 256"
 C_ITEM = "ROADMAP queue B, B7.3: the gathered-edge EGCL's C limits"
 
 
@@ -246,9 +247,9 @@ def kernel_for(dtype, H: int) -> str:
     if H < 1:
         raise ValueError(f"edge_pipeline takes a hidden width H >= 1 in "
                          f"float32 and bfloat16, got H={H}")
-    Hp = padded_width(H)
-    if Hp is None:
+    if H > PADDED_H[-1]:
         raise ValueError(_too_wide(H))
+    Hp = padded_width(H)
     bf16 = dtype == torch.bfloat16
     if Hp in TILED_H:
         return "sm90" if bf16 else "tiled"

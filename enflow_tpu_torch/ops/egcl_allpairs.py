@@ -31,9 +31,17 @@ attention/norm_diff/tanh off.
   the same row code; counters ``*_f32_blocks_launches``). Float32 at H =
   192 or 256 runs the same f32 block-pair kernels with W2 and W3 streamed
   through shared memory in slabs (route ``"f32_wide"``, every N; counters
-  ``*_f32_wide_launches``; plan :func:`f32_wide_plan`). H > 256 is refused
-  in either dtype. There is no fallback: a kernel that does not build or
-  launch raises.
+  ``*_f32_wide_launches``; plan :func:`f32_wide_plan`). Past 256 every
+  launch goes to the kernels of ``csrc/egcl_allpairs_xwide.cu`` (route
+  ``"xwide"``, bf16 on wgmma, and ``"f32_xwide"``, float32 on the FMA
+  units; every N and nf; counters ``*_xwide_launches`` /
+  ``*_f32_xwide_launches``): the first layer from the per-atom projections
+  of ``csrc/egcl_wide_nf.cuh``, tiles of 8 x 8 atoms, every H x H product
+  in 64-column output chunks over 64-row k-chunks of the weight, the
+  activations in global memory, so that nothing in a block's shared memory
+  or registers grows with H. Only a width past ``XWIDE_MAX_H`` (11,520,
+  where one K2 p slice would pass 1 GiB) is refused (``XWIDE_ITEM``). There
+  is no fallback: a kernel that does not build or launch raises.
 - Wide node features: every route above keeps the first layer's W1a and
   W1b [nf, H] whole in shared memory, so at a wide ``nf`` the block-pair
   plan finds no block of 8 atoms (bf16 at H = 256: K2 past nf ~14; f32 at
@@ -47,8 +55,9 @@ attention/norm_diff/tanh off.
   first, and whose backward hands each atom's dz1 sums to that header's
   kernels for dh, dW1a and dW1b (:func:`wide_nf_plan`; nothing in their
   shared memory grows with nf, so no nf is refused).
-- Every other width up to 256 is zero-padded to the next of 64, 128, 192
-  and 256 (:func:`padded_width`), which is exact: the padded columns of
+- Every other width is zero-padded to the next of 64, 128, 192 and 256,
+  past 256 to the next multiple of 64 (:func:`padded_width`), which is
+  exact: the padded columns of
   W1a, W1b, w1r and b1, the padded rows and columns of W2 and W3, and the
   padded entries of b2, b3 and w4 are zeros, so z1, z2 and z3 are exact
   zeros there, SiLU(0) = 0, and every sum over them adds exact zeros. The
@@ -56,9 +65,10 @@ attention/norm_diff/tanh off.
   buffers (:func:`pad_weights`, :func:`pad_rows`), launches at Hp and
   takes the first H columns of agg and of the gradients back
   (:func:`unpad_grads`); a padded launch also counts on
-  ``padded_launches``. At H = 64, 128, 192 and 256 nothing is copied. The
-  kernels at 192 and 256 take their own width only (the copies, not a row
-  stride and masks, carry the other widths onto them).
+  ``padded_launches``. At H = 64, 128, 192, 256 and any multiple of 64 past
+  256 nothing is copied. The kernels take their own widths only (the
+  copies, not a row stride and masks, carry the other widths onto
+  them).
 - On a CPU tensor both directions run the plain PyTorch version below,
   which repeats the kernel's arithmetic (including where it rounds to the
   compute dtype) and is what the CPU tests hold against the Pallas kernel.
@@ -93,7 +103,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # launches of any route at a padded width (each counts on its route's
 # counter too); *_wide_nf_launches / *_f32_wide_nf_launches: the block-pair
 # kernels of either dtype with the first layer's projections precomputed
-# (node-feature widths past the other routes' shared memory)
+# (node-feature widths past the other routes' shared memory);
+# *_xwide_launches / *_f32_xwide_launches: the kernels of H > 256
 counts = LaunchCounts("fwd_launches", "bwd_launches", "bwd_f32_launches",
                       "bwd_param_launches", "fwd_blocks_launches",
                       "bwd_blocks_launches", "bwd_param_blocks_launches",
@@ -106,7 +117,11 @@ counts = LaunchCounts("fwd_launches", "bwd_launches", "bwd_f32_launches",
                       "fwd_wide_nf_launches", "bwd_wide_nf_launches",
                       "bwd_param_wide_nf_launches",
                       "fwd_f32_wide_nf_launches", "bwd_f32_wide_nf_launches",
-                      "bwd_param_f32_wide_nf_launches", "padded_launches",
+                      "bwd_param_f32_wide_nf_launches",
+                      "fwd_xwide_launches", "bwd_xwide_launches",
+                      "bwd_param_xwide_launches",
+                      "fwd_f32_xwide_launches", "bwd_f32_xwide_launches",
+                      "bwd_param_f32_xwide_launches", "padded_launches",
                       "plain_fwd_calls", "plain_bwd_calls",
                       "plain_bwd_param_calls")
 # the launch kinds of egcl_sm90_smem_bytes and egcl_f32_smem_bytes
@@ -133,8 +148,16 @@ BLOCK_ATOMS_MAX = 32
 # (B=256) and for K2 at LJ561 (B=16) (chip_smoke.py --blocks-plans,
 # PERF.md)
 F32_BLOCK_ATOMS = {"fwd": 32, "bwd": 24, "bwd_params": 24}
-# the queue item that holds the refused widths: H > 256 in either dtype
-WIDE_ITEM = "ROADMAP queue B, B7: the all-pairs EGCL at H > 256"
+# the routes of H > 256 (csrc/egcl_allpairs_xwide.cu), by dtype code, and
+# the widest padded H they take (kMaxH: a K2 p slice of 2 H^2 f32 under
+# 1 GiB); past it the queue item that holds the refused widths
+XWIDE_ROUTE = {0: "f32_xwide", 1: "xwide"}
+# the routes that take every N (no one-molecule kernels to ask)
+EVERY_N_ROUTES = ("wide", "f32_wide", *XWIDE_ROUTE.values())
+XWIDE_MAX_H = 11520
+XWIDE_SLICE_BYTES = 1 << 30
+XWIDE_ITEM = ("ROADMAP queue B, B7.5: the all-pairs EGCL past the xwide "
+              "route's widest H")
 # the queue item past the wide-nf route (no width up to 256 reaches it)
 NF_ITEM = "ROADMAP queue B, B7.4: the all-pairs EGCL at wide node features"
 # the routes that take the block-pair launches whose plan finds no block
@@ -175,19 +198,16 @@ def unpad_grads(grads, H: int):
 
 
 def _too_wide(H: int) -> str:
-    """Why a width past 256 is refused: the bf16 block-pair backward with
-    parameter gradients would need, at its next multiple of 64 and 8 atoms
-    a block, at least its three [64, Hq] tiles, two [Hq, 64] weight slabs,
-    vector sums, projections and i- and j-side sums."""
-    Hq = 64 * math.ceil(H / 64)
-    need = (3 + 2) * 128 * Hq + 36 * Hq + 2 * 2 * 8 * (Hq + 8) \
-        + 2 * 4 * 8 * (Hq + 4)
-    return (f"egcl_allpairs: hidden width H={H} is past the widest kernels "
-            f"(H <= 256): at {Hq} the bf16 backward with parameter gradients "
-            f"would need at least {need:,} bytes of shared memory at 8 atoms "
-            f"a block (three [64, {Hq}] activation tiles, two [{Hq}, 64] "
-            f"weight slabs, its sums), more than the {SMEM_LIMIT:,} a block "
-            f"may use; not ported ({WIDE_ITEM})")
+    """Why a width past ``XWIDE_MAX_H`` is refused: one K2 p slice of the
+    xwide route (dW2 and dW3, 2 Hp^2 f32, and the vectors) would pass the
+    1 GiB that the route's partials may take."""
+    Hp = padded_width(H)
+    need = 4 * ((2 * Hp * Hp + 5 * Hp + 7) // 8 * 8)
+    return (f"egcl_allpairs: hidden width H={H} (padded {Hp}) is past the "
+            f"widest the xwide kernels take (H <= {XWIDE_MAX_H:,}): one "
+            f"block's slice of the parameter gradients would need {need:,} "
+            f"bytes, more than the {XWIDE_SLICE_BYTES:,} bytes the route's "
+            f"partials may take; not ported ({XWIDE_ITEM})")
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +283,9 @@ def allpairs_edges_plain_bwd(h, pos, box, mask_f, weights, dagg, dfsum,
     compute-dtype operands (``_bwd_kernel:265-273``: dw1r takes the
     unrounded r2, dw4 the unrounded dgate). With ``terms`` each of the
     nine is instead the sum of its terms' magnitudes (``|a|^T |b|``), the
-    scale that the round-off of a sum of those terms grows with."""
+    scale that the round-off of a sum of those terms grows with; with
+    ``terms="l2"`` the root of the sum of their squares, the scale of the
+    change when each term moves by a step in a random direction."""
     W1a, W1b, w1r, b1, W2, b2, W3, b3, w4 = weights
     cdt, acc = h.dtype, _acc(h.dtype)
     cd, r2, valid, validc, z1, z2, m2, z3, gate = _block(h, pos, box, mask_f,
@@ -291,17 +313,19 @@ def allpairs_edges_plain_bwd(h, pos, box, mask_f, weights, dagg, dfsum,
     if not params:
         return dh, dpos
     B, N, nf = h.shape
-    mag = torch.abs if terms else (lambda t: t)
+    mag = {False: lambda t: t, True: torch.abs, "l2": torch.square}[terms]
     flat = lambda t: mag(t.reshape(-1, t.shape[-1]).to(acc))
     col = lambda t: flat(t).sum(0)[None]
     h_i = h[:, :, None, :].expand(B, N, N, nf)
     h_j = h[:, None, :, :].expand(B, N, N, nf)
-    return (dh, dpos,
-            flat(h_i).T @ flat(dz1), flat(h_j).T @ flat(dz1),
-            col(r2 * dz1.to(acc)), col(dz1),
-            flat(_silu(z1)).T @ flat(dz2), col(dz2),
-            flat(m2).T @ flat(dz3), col(dz3),
-            flat(_silu(z3)).T @ flat(d_gate))
+    grads = (flat(h_i).T @ flat(dz1), flat(h_j).T @ flat(dz1),
+             col(r2 * dz1.to(acc)), col(dz1),
+             flat(_silu(z1)).T @ flat(dz2), col(dz2),
+             flat(m2).T @ flat(dz3), col(dz3),
+             flat(_silu(z3)).T @ flat(d_gate))
+    if terms == "l2":
+        grads = tuple(g.sqrt() for g in grads)
+    return (dh, dpos) + grads
 
 
 # ---------------------------------------------------------------------------
@@ -407,6 +431,34 @@ def _f32_library():
     return lib
 
 
+def _xwide_library():
+    from .build import load
+    lib = load("egcl_allpairs_xwide")
+    if not getattr(lib, "_enflow_bound", False):
+        n_in = 13
+        # code, B, N, nf, H, blocks (and K2 p's splits), the inputs, then
+        # scratch and outputs, stream
+        lib.egcl_xwide_fwd.argtypes = [_I] * 6 + [_P] * (n_in + 6)
+        lib.egcl_xwide_bwd.argtypes = [_I] * 6 + [_P] * (n_in + 10)
+        lib.egcl_xwide_bwd_params.argtypes = [_I] * 7 + [_P] * (n_in + 12)
+        for name in ("fwd", "bwd", "bwd_params", "grid", "splits",
+                     "threads", "max_width"):
+            getattr(lib, f"egcl_xwide_{name}").restype = _I
+        lib.egcl_xwide_grid.argtypes = [_I] * 5
+        lib.egcl_xwide_splits.argtypes = [_I] * 4
+        lib.egcl_xwide_threads.argtypes = [_I]
+        lib.egcl_xwide_max_width.argtypes = []
+        lib.egcl_xwide_smem_bytes.argtypes = [_I] * 3
+        lib.egcl_xwide_smem_bytes.restype = _LL
+        lib.egcl_xwide_smem_limit.argtypes = []
+        lib.egcl_xwide_smem_limit.restype = _LL
+        _bind_part_size(lib)
+        lib.egcl_xwide_error_string.argtypes = [_I]
+        lib.egcl_xwide_error_string.restype = ctypes.c_char_p
+        lib._enflow_bound = True
+    return lib
+
+
 def _check_inputs(h, pos, box, mask_f, weights):
     dev = h.device
     cdt = h.dtype
@@ -426,13 +478,16 @@ def kernel_for(code: int, H: int, direction: str) -> str:
     """The size rule, on the padded width (:func:`padded_width`): which
     kernels a launch goes to, each in every direction. ``"sm90"`` (bf16 at
     64 or 128), ``"f32"`` (float32 there), ``"wide"`` (bf16 at 192 or 256:
-    the bf16 block-pair kernels with streamed weights, every N) or
+    the bf16 block-pair kernels with streamed weights, every N),
     ``"f32_wide"`` (float32 there: the f32 block-pair kernels with
-    streamed weights, every N). Past 256 it raises, naming ROADMAP B7 and
-    the bytes such a width would need."""
+    streamed weights, every N), and past 256 ``"xwide"`` (bf16) or
+    ``"f32_xwide"`` (float32): the column-chunked kernels, every N and nf.
+    Past ``XWIDE_MAX_H`` it raises, naming ROADMAP B7.5 and the bytes."""
     Hp = padded_width(H)
-    if Hp is None:
-        raise ValueError(_too_wide(H))
+    if Hp > PADDED_H[-1]:
+        if Hp > XWIDE_MAX_H:
+            raise ValueError(_too_wide(H))
+        return XWIDE_ROUTE[code]
     if Hp in SM90_H:
         return "sm90" if code == 1 else "f32"
     return "wide" if code == 1 else "f32_wide"
@@ -442,11 +497,11 @@ def _smem(code: int, N: int, nf: int, H: int, direction: str):
     """(bytes a launch of this kind at the width ``H`` of ``PADDED_H``
     needs, or -1 for sizes its kernel does not take; the card's limit). The
     tiled f32 kernels are asked at their smallest tile, one molecule and 8
-    rows; the ``"wide"`` and ``"f32_wide"`` routes have no one-molecule
+    rows; the routes of ``EVERY_N_ROUTES`` have no one-molecule
     kernels."""
     route = kernel_for(code, H, direction)
-    if route in ("wide", "f32_wide"):
-        raise ValueError(f"egcl_allpairs: H={H} runs the block-pair kernels "
+    if route in EVERY_N_ROUTES:
+        raise ValueError(f"egcl_allpairs: H={H} runs the {route} kernels "
                          "at every N (no one-molecule limit)")
     if route == "sm90":
         lib = _sm90_library()
@@ -482,13 +537,13 @@ def largest_molecule(code: int, nf: int, H: int, direction: str):
 def route_for(N: int, nf: int, H: int, code: int, direction: str,
               largest: int) -> str:
     """The molecule-size rule after :func:`kernel_for` (both on the padded
-    width): ``"wide"`` and ``"f32_wide"`` at every N; else its kernels
-    while ``N <= largest`` (the most atoms their block takes), above that
-    the block-pair kernels of the dtype (``"blocks"``, bf16 Hopper;
-    ``"f32_blocks"``, float32; every N). No width up to 256 and no N is
-    refused."""
+    width): ``"wide"``, ``"f32_wide"``, ``"xwide"`` and ``"f32_xwide"`` at
+    every N; else its kernels while ``N <= largest`` (the most atoms their
+    block takes), above that the block-pair kernels of the dtype
+    (``"blocks"``, bf16 Hopper; ``"f32_blocks"``, float32; every N). No N
+    and no width up to ``XWIDE_MAX_H`` is refused."""
     route = kernel_for(code, H, direction)
-    if route in ("wide", "f32_wide") or N <= largest:
+    if route in EVERY_N_ROUTES or N <= largest:
         return route
     return "blocks" if route == "sm90" else "f32_blocks"
 
@@ -553,10 +608,10 @@ def f32_wide_plan(N: int, direction: str, fits) -> tuple[int, int]:
 
 def _check_fits(code: int, dims, direction: str) -> str:
     """The route of a launch (:func:`route_for`); raises for a width past
-    256 or a molecule past every route."""
+    ``XWIDE_MAX_H``."""
     B, N, nf, H = dims
     route = kernel_for(code, H, direction)
-    if route in ("wide", "f32_wide"):
+    if route in EVERY_N_ROUTES:
         return route
     return route_for(N, nf, H, code, direction,
                      largest_molecule(code, nf, H, direction))
@@ -720,7 +775,9 @@ def _raise_on(lib, err: int, what: str, dims, route):
                              "f32": "egcl_f32_error_string",
                              "f32_blocks": "egcl_f32_error_string",
                              "f32_wide": "egcl_f32_error_string",
-                             "f32_wide_nf": "egcl_f32_error_string"}[route])
+                             "f32_wide_nf": "egcl_f32_error_string",
+                             "xwide": "egcl_xwide_error_string",
+                             "f32_xwide": "egcl_xwide_error_string"}[route])
         raise RuntimeError(f"egcl_allpairs {what} kernel launch failed: "
                            f"{text(err).decode()} (error {err}; B, N, nf, H "
                            f"= {dims}; route {route})")
@@ -734,7 +791,8 @@ def _count(direction: str, H: int, route: str):
     name = {"fwd": "fwd", "bwd": "bwd", "bwd_params": "bwd_param"}[direction]
     if route == "f32" and direction == "bwd":
         name = "bwd_f32"
-    if route in (*BLOCK_ROUTES, *WIDE_NF_ROUTE.values()):
+    if route in (*BLOCK_ROUTES, *WIDE_NF_ROUTE.values(),
+                 *XWIDE_ROUTE.values()):
         name += "_" + route
     name += "_launches"
     setattr(counts, name, getattr(counts, name) + 1)
@@ -767,12 +825,13 @@ def _f32_blocks_launch_plan(lib, N: int, nf: int, H: int, direction: str):
 
 def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
             dfsum=None, route=None):
-    """One launch on the route that the size rules name (or on ``route``,
+    """One launch on the route that the size rules name (or on ``route``:
     ``"blocks"`` or ``"wide_nf"``, where the caller asks for the block-pair
     kernels of the dtype, or for them with the first layer's projections
-    precomputed), at the padded width: the weights (and dagg) copied into
-    zero-padded buffers first where the width is not one of
-    ``PADDED_H``, the outputs cut back to it after. The wide-nf route is
+    precomputed, at H <= 256; ``"xwide"`` for the column-chunked kernels of
+    the dtype at any width), at the padded width: the weights (and dagg)
+    copied into zero-padded buffers first where the width is not the
+    padded one, the outputs cut back to it after. The wide-nf route is
     decided by the libraries' byte functions (:func:`route_of`), which a
     CUDA launch has; a CPU tensor here (a test with ``_run`` replaced) gets
     :func:`_check_fits`'s route."""
@@ -781,7 +840,12 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
     code = _DTYPE_CODE[h.dtype]
     dims = (*h.shape, H)
     rule = (route_of if h.is_cuda else _check_fits)(code, dims, direction)
-    if route == "wide_nf":
+    if route in ("blocks", "wide_nf") and rule in XWIDE_ROUTE.values():
+        raise ValueError(f"egcl_allpairs: route {route!r} takes H <= "
+                         f"{PADDED_H[-1]}, not H={H}")
+    if route == "xwide":
+        rule = XWIDE_ROUTE[code]
+    elif route == "wide_nf":
         rule = WIDE_NF_ROUTE[code]
     elif route is not None:
         if route != "blocks":
@@ -804,10 +868,20 @@ def _launch(direction: str, h, pos, box, mask_f, weights, dagg=None,
     return out[:2] + (unpad_grads(out[2:], H) if out[2:] else ())
 
 
+def _aligned(t):
+    """``t``, or a copy of it where its data does not start on 16 bytes
+    (the kernels read inputs 8 or 16 bytes at a time). A copy is freed
+    with its last reference: hold it until its launch is queued."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _run(direction: str, route: str, h, pos, box, mask_f, weights, dagg,
          dfsum):
-    """One launch of the kernels of ``route`` at the weights' width (one
-    of ``PADDED_H``)."""
+    """One launch of the kernels of ``route`` at the weights' width (the
+    padded width)."""
+    if route in XWIDE_ROUTE.values():
+        return _run_xwide(direction, h, pos, box, mask_f, weights, dagg,
+                          dfsum)
     if route in WIDE_NF_ROUTE.values():
         return _run_wide_nf(direction, h, pos, box, mask_f, weights, dagg,
                             dfsum)
@@ -820,9 +894,8 @@ def _run(direction: str, route: str, h, pos, box, mask_f, weights, dagg,
            "f32_blocks": _f32_library, "f32_wide": _f32_library}[route]()
     # the f32 block-pair kernels take both routes, at their own widths
     pairs = route in ("f32_blocks", "f32_wide")
-    # the kernels read the weights (and dagg) 8 or 16 bytes at a time
-    aligned = lambda t: t if t.data_ptr() % 16 == 0 else t.clone()
-    ins = [aligned(t) for t in (h, pos, box, mask_f, *weights)]
+    # copies of misaligned inputs (``_aligned``) held until the launch
+    ins = [_aligned(t) for t in (h, pos, box, mask_f, *weights)]
     stream = _P(torch.cuda.current_stream(h.device).cuda_stream)
     ptrs = [t.data_ptr() for t in ins]
     # the persistent kernels' grid: at most one block per multiprocessor
@@ -850,7 +923,7 @@ def _run(direction: str, route: str, h, pos, box, mask_f, weights, dagg,
                 err = lib.egcl_f32_fwd(*dims, mt, rows, blocks, *ptrs, *outs)
             _raise_on(lib, err, "forward", dims, route)
         return agg, fsum
-    dagg = aligned(dagg.to(cdt).contiguous())
+    dagg = _aligned(dagg.to(cdt).contiguous())
     dfsum = dfsum.to(cdt).contiguous()
     dh = torch.empty((B, N, nf), dtype=cdt, device=h.device)
     dpos = torch.empty((B, N, 3), dtype=torch.float32, device=h.device)
@@ -923,66 +996,129 @@ def _run(direction: str, route: str, h, pos, box, mask_f, weights, dagg,
 def _run_wide_nf(direction: str, h, pos, box, mask_f, weights, dagg,
                  dfsum):
     """One launch of the wide-nf route of the dtype at the weights' width
-    (one of ``PADDED_H``): the library's entry point runs the projections,
-    the block pairs and, for the backward, the sums, dh and dW1's row
-    splits, into scratch allocated here; K2 p's dW1a and dW1b are the
-    splits' sum, the other seven gradients the slices' (at nf 0)."""
+    (one of ``PADDED_H``): the block pairs on the per-atom projections
+    (``_run_projected``)."""
+    B, N, nf = h.shape
+    H = weights[4].shape[1]
+    code = _DTYPE_CODE[h.dtype]
+    lib = _sm90_library() if code else _f32_library()
+    pre = "egcl_sm90" if code else "egcl_f32"
+    plan = wide_nf_plan(lib, code, N, nf, H, direction)
+    A, nI = plan[0], math.ceil(N / plan[0])
+    blocks = multiprocessors(h.device)
+    if code:
+        rows = lib.egcl_sm90_blocks_param_slices(B, N, A, plan[1], blocks) \
+            if B else 0
+        part = (rows, lib.egcl_sm90_slice_floats(0, H))
+    else:
+        part = (min(B * nI, blocks), lib.egcl_part_size(0, H))
+    return _run_projected(
+        direction, lib, WIDE_NF_ROUTE[code],
+        lambda name: getattr(lib, f"{pre}_wide_nf_{name}"),
+        (B, N, nf, H, *plan, blocks), nI, [], part,
+        h, pos, box, mask_f, weights, dagg, dfsum)
+
+
+def _run_xwide(direction: str, h, pos, box, mask_f, weights, dagg, dfsum):
+    """One launch of the column-chunked kernels of the dtype at the
+    weights' width (a multiple of 64): the tile kernel on the per-atom
+    projections (``_run_projected``), with its five [64, H] activation
+    tiles a block (and the forward's row sums) in global scratch."""
+    B, N, nf = h.shape
+    H = weights[4].shape[1]
+    code = _DTYPE_CODE[h.dtype]
+    lib = _xwide_library()
+    blocks = multiprocessors(h.device)
+    grid = lib.egcl_xwide_grid(B, N, H, _KIND[direction], blocks) if B else 1
+    extra = [torch.empty((grid, 5, 64, H), dtype=h.dtype, device=h.device)]
+    if direction == "fwd":
+        extra.append(torch.empty((grid, 8, H + 4), dtype=torch.float32,
+                                 device=h.device))
+    return _run_projected(
+        direction, lib, XWIDE_ROUTE[code],
+        lambda name: getattr(lib, f"egcl_xwide_{name}"),
+        (code, B, N, nf, H, blocks), math.ceil(N / 8), extra,
+        (grid, lib.egcl_part_size(0, H)),
+        h, pos, box, mask_f, weights, dagg, dfsum)
+
+
+def _run_projected(direction: str, lib, route: str, entry, lead, nI: int,
+                   extra, part_rows, h, pos, box, mask_f, weights, dagg,
+                   dfsum):
+    """One launch of a route that takes z1 from the per-atom projections
+    [h W1a | h W1b] (``"wide_nf"``, ``"xwide"`` and their f32 routes): the
+    library's entry point ``entry(direction)`` runs the projections, the
+    edge kernel and, for the backward, the j-side sums, dh and dW1's row
+    splits, into scratch allocated here. ``lead``: the entry points'
+    leading arguments (the last one the grid's blocks), ``nI`` the j-side
+    partials' rows a molecule, ``extra`` the route's own scratch (after
+    the projections), ``part_rows`` the shape of K2 p's slices. K2 p's
+    dW1a and dW1b are the splits' sum, the other seven gradients the
+    slices' (at nf 0)."""
     B, N, nf = h.shape
     H = weights[4].shape[1]
     cdt, dev = h.dtype, h.device
-    code = _DTYPE_CODE[cdt]
-    lib = _sm90_library() if code else _f32_library()
-    pre = "egcl_sm90" if code else "egcl_f32"
-    entry = lambda name: getattr(lib, f"{pre}_wide_nf_{name}")
-    route = WIDE_NF_ROUTE[code]
     dims = (B, N, nf, H)
-    plan = wide_nf_plan(lib, code, N, nf, H, direction)
-    A, nI = plan[0], math.ceil(N / plan[0])
-    blocks = multiprocessors(dev)
-    aligned = lambda t: t if t.data_ptr() % 16 == 0 else t.clone()
-    ins = [aligned(t) for t in (h, pos, box, mask_f, *weights)]
+    # the copies of misaligned inputs stay referenced here until the
+    # launches are queued: a freed copy's memory could be handed to the
+    # scratch below before the kernels read it
+    ins = [_aligned(t) for t in (h, pos, box, mask_f, *weights)]
     ptrs = [t.data_ptr() for t in ins]
     stream = _P(torch.cuda.current_stream(dev).cuda_stream)
     proj = torch.empty((B, N, 2 * H), dtype=cdt, device=dev)
+    mid = [proj.data_ptr()] + [t.data_ptr() for t in extra]
     f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     if direction == "fwd":
         agg = torch.empty((B, N, H), dtype=cdt, device=dev)
         fsum = torch.empty((B, N, 3), dtype=cdt, device=dev)
         if B:
-            err = entry("fwd")(*dims, *plan, blocks, *ptrs, proj.data_ptr(),
-                               agg.data_ptr(), fsum.data_ptr(), stream)
+            err = entry("fwd")(*lead, *ptrs, *mid, agg.data_ptr(),
+                               fsum.data_ptr(), stream)
             _raise_on(lib, err, "forward", dims, route)
         return agg, fsum
-    dagg = aligned(dagg.to(cdt).contiguous())
+    dagg = _aligned(dagg.to(cdt).contiguous())
     dfsum = dfsum.to(cdt).contiguous()
     dh = torch.empty((B, N, nf), dtype=cdt, device=dev)
     dpos, si, sj = f32(B, N, 3), f32(B, N, H + 4), f32(B, N, H)
     pj = f32(B, nI, N, H + 4)
-    mid = [dagg.data_ptr(), dfsum.data_ptr(), proj.data_ptr(), dh.data_ptr(),
+    mid = [dagg.data_ptr(), dfsum.data_ptr(), *mid, dh.data_ptr(),
            dpos.data_ptr(), si.data_ptr(), pj.data_ptr(), sj.data_ptr()]
     if direction == "bwd":
         if B:
-            err = entry("bwd")(*dims, *plan, blocks, *ptrs, *mid, stream)
+            err = entry("bwd")(*lead, *ptrs, *mid, stream)
             _raise_on(lib, err, "backward", dims, route)
         return dh, dpos
     P = lib.egcl_part_size(0, H)
-    splits = entry("splits")(B * N, nf, H, blocks) if B else 1
+    splits = entry("splits")(B * N, nf, H, lead[-1]) if B else 1
     dw1 = f32(splits, 2, nf, H)
-    if code:
-        rows = lib.egcl_sm90_blocks_param_slices(B, N, A, plan[1], blocks) \
-            if B else 0
-        part = f32(rows, lib.egcl_sm90_slice_floats(0, H))
-    else:
-        part = f32(min(B * nI, blocks), P)
+    part = f32(*part_rows)
     if B:
-        err = entry("bwd_params")(*dims, *plan, blocks, splits, *ptrs, *mid,
-                                  dw1.data_ptr(), part.data_ptr(), stream)
+        err = entry("bwd_params")(*lead, splits, *ptrs, *mid, dw1.data_ptr(),
+                                  part.data_ptr(), stream)
         _raise_on(lib, err, "backward (parameter gradients)", dims, route)
+    else:
+        part.zero_()
+        dw1.zero_()
     # the slices and the splits each summed in a fixed order: a second
     # launch gives the same bits
     grads = _split_part(part[:, :P].sum(dim=0), 0, H)
     dW1 = dw1.sum(dim=0)
     return (dh, dpos, dW1[0], dW1[1]) + grads[2:]
+
+
+def allpairs_edges_xwide(direction: str, h, pos, box, mask_f, weights,
+                         dagg=None, dfsum=None):
+    """One launch of the column-chunked kernels of the dtype (route
+    ``"xwide"`` / ``"f32_xwide"``; ``direction`` ``"fwd"``, ``"bwd"`` or
+    ``"bwd_params"``) at any width, also at H <= 256 where the route rule
+    sends the size to another route: what the two routes cost and how far
+    apart their outputs are where both take a width. CUDA tensors only;
+    the outputs of :func:`allpairs_edges_fwd` / :func:`allpairs_edges_bwd`."""
+    if not h.is_cuda:
+        raise ValueError("allpairs_edges_xwide launches the card's kernels "
+                         "and takes CUDA tensors only")
+    return _launch(direction, h, pos, box, mask_f, weights, dagg, dfsum,
+                   route="xwide")
 
 
 def allpairs_edges_wide_nf(direction: str, h, pos, box, mask_f, weights,

@@ -2,21 +2,27 @@
 are built for, the zero-padding of a launch onto them, and the shared
 memory a block of either may use."""
 
+import math
+
 import torch
 
-# every width a launch runs at: 64 and 128 with W2 / W3 whole in shared
-# memory, 192 and 256 with them streamed through a ring of slabs; another
-# H <= 256 is zero-padded up to the next of them
+# every width a launch up to 256 runs at: 64 and 128 with W2 / W3 whole in
+# shared memory, 192 and 256 with them streamed through a ring of slabs;
+# another H <= 256 is zero-padded up to the next of them, and a width past
+# 256 to the next multiple of 64 (the all-pairs kernels of
+# csrc/egcl_allpairs_xwide.cu take any)
 PADDED_H = (64, 128, 192, 256)
 # shared memory a block may use on the card (kMaxSmem of the kernels)
 SMEM_LIMIT = 232448
 
 
-def padded_width(H: int):
+def padded_width(H: int) -> int:
     """The width a launch of hidden width ``H`` runs at: the smallest of
-    ``PADDED_H`` (64, 128, 192, 256) that is at least ``H``; None past
-    256."""
-    return next((w for w in PADDED_H if w >= H), None)
+    ``PADDED_H`` (64, 128, 192, 256) that is at least ``H``; past 256 the
+    next multiple of 64 (300 -> 320)."""
+    if H > PADDED_H[-1]:
+        return 64 * math.ceil(H / 64)
+    return next(w for w in PADDED_H if w >= H)
 
 
 def pad_rows(t, Hp: int):

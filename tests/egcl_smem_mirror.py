@@ -151,3 +151,39 @@ def seam_nf(code, N, H, direction, most=1024):
     while nf < most and parent_takes(code, N, nf + 1, H, direction):
         nf += 1
     return nf
+
+
+# the column-chunked kernels past H = 256 (csrc/egcl_allpairs_xwide.cu):
+# their shared memory is two steps of staged operands (bf16: a [64, 64]
+# activation chunk and a [64, 64] weight chunk a step, EngBf::kStageBytes;
+# float32: egcl_wide_nf.cuh's Stage, two chunks of 16 k x 64 of each
+# operand) and the tile's rows (Rows: cd and dcd [64][3], five row
+# vectors, ri and rj, the force sums [8][3]), plus 1024 to align the base:
+# no term grows with H
+XWIDE_STAGE = {1: 4 * 2 * TILE * 64, 0: 2 * 2 * 16 * 64 * 4}
+XWIDE_ROWS = 4 * (2 * TILE * 3 + 5 * TILE + 2 * TILE + 8 * 3)
+XWIDE_SLICE_LIMIT = 1 << 30      # bytes of one K2 p slice at most
+
+
+def xwide_slice_bytes(H):
+    """Bytes of one K2 p slice at width H: PartLayout(0, H).P floats (dW2,
+    dW3, then dw1r, db1, db2, db3, dw4; rounded up to 8)."""
+    return 4 * ((2 * H * H + 5 * H + 7) // 8 * 8)
+
+
+def xwide_max_width():
+    """kMaxH: the widest multiple of 64 whose K2 p slice stays within
+    XWIDE_SLICE_LIMIT."""
+    H = 64
+    while xwide_slice_bytes(H + 64) <= XWIDE_SLICE_LIMIT:
+        H += 64
+    return H
+
+
+def xwide_bytes(code, H, kind):
+    """``egcl_xwide_smem_bytes`` of egcl_allpairs_xwide.cu: -1 for sizes
+    the kernels do not take, else the same at every H."""
+    if (kind not in KIND.values() or code not in XWIDE_STAGE or H < 64
+            or H % 64 or H > xwide_max_width()):
+        return -1
+    return 1024 + XWIDE_STAGE[code] + XWIDE_ROWS

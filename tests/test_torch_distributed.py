@@ -38,6 +38,7 @@ from enflow_tpu_torch.nn.egcl import EGCLConfig
 from enflow_tpu_torch.parallel import mesh as mesh_lib
 from enflow_tpu_torch.parallel.pairwise import ring_alchemical_lj
 from enflow_tpu_torch.utils.jax_params import tree_flatten
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-10

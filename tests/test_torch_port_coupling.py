@@ -37,6 +37,7 @@ from enflow_tpu_torch.train import checkpoint as tckpt
 from enflow_tpu_torch.utils.helpers import min_image
 from enflow_tpu_torch.utils.jax_params import (from_jax_params, tree_flatten,
                                                tree_unflatten)
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, N, NF, H = 2, 5, 4, 16
 F64 = torch.float64

@@ -14,6 +14,7 @@ from enflow_tpu_torch import resolve_device
 from enflow_tpu_torch.__main__ import main as cli_main
 from enflow_tpu_torch.sample.forcefield import ForceField
 from enflow_tpu_torch.train.driver import Main
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

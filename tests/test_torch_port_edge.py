@@ -34,6 +34,7 @@ from enflow_tpu_torch.data.neighbors import (image_edge_max,
 from enflow_tpu_torch.nn.egcl import EGCLConfig, apply_egcl
 from enflow_tpu_torch.ops import edge_pipeline as ops
 from enflow_tpu_torch.utils.jax_params import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = ("de", "dcd", "dW1", "db1", "dW2", "db2", "dW3", "db3", "dw4")
 

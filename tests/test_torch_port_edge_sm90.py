@@ -39,6 +39,7 @@ from enflow_tpu.ops.edge_kernel import fused_edge_pipeline as j_pipeline
 from enflow_tpu_torch.ops import edge_pipeline as ops
 
 from test_torch_port_edge import NAMES, _pipeline_inputs
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the bf16 tolerance of test_pipeline_matches_pallas_bf16
 RTOL_BF16, ATOL_BF16 = 0.15, 0.05

@@ -42,6 +42,7 @@ from enflow_tpu_torch.utils.jax_params import from_jax_params
 
 from test_torch_port_edge import NAMES, _pipeline_inputs
 from test_torch_port_edge_sm90 import ATOL_BF16, RTOL_BF16, _bf16_case
+from torch_threads import one_torch_thread  # noqa: F401
 
 KC_STEP = 16                     # e's columns a k16 step
 SLOTS = 3                        # warpgroups (parameter slices)

@@ -58,6 +58,7 @@ from enflow_tpu_torch.ops import edge_pipeline as ops
 from enflow_tpu_torch.utils.jax_params import from_jax_params, tree_flatten
 
 from test_torch_port_edge import _cap, _images_state
+from torch_threads import one_torch_thread  # noqa: F401
 
 LIMIT = 232448
 NF = 3

@@ -39,6 +39,7 @@ from enflow_tpu_torch.nn.egcl import (EGCLConfig, apply_egcl,
                                       apply_egcl_fused_allpairs)
 from enflow_tpu_torch.ops import egcl_allpairs as ops
 from enflow_tpu_torch.utils.jax_params import from_jax_params, tree_flatten
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, NF, H = 5, 4, 16
 

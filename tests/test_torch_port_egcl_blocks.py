@@ -54,6 +54,7 @@ from enflow_tpu_torch.flow import FlowConfig, reverse_core
 from enflow_tpu_torch.nn.egcl import EGCLConfig
 from enflow_tpu_torch.ops import egcl_allpairs as ops
 from enflow_tpu_torch.utils.jax_params import from_jax_params, tree_flatten
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the one-molecule kernels' limits at nf=5, H=128 (bf16 K1, K2, K2 p; f32
 # K1, K2, K2 p), as the card's shared memory gives them
@@ -295,8 +296,10 @@ def test_route_rule_other_widths_refuse(code):
     on the routes of 128 (the dtype's one-molecule kernels up to their
     limit, its block pairs past it), 128 < H <= 256 on the dtype's block
     pairs with streamed weights at every N (``"wide"``, bf16;
-    ``"f32_wide"``, float32). Only H > 256 is refused, in either dtype,
-    naming the queue item that holds it."""
+    ``"f32_wide"``, float32); past 256 the column-chunked kernels of the
+    dtype at every N (``"xwide"`` / ``"f32_xwide"``). Only a width past
+    ``XWIDE_MAX_H`` is refused, in either dtype, naming the queue item that
+    holds it."""
     one, blk = ("sm90", "blocks") if code == 1 else ("f32", "f32_blocks")
     wide = "wide" if code == 1 else "f32_wide"
     assert ops.route_for(40, 5, 96, code, "bwd", 40) == one
@@ -304,9 +307,11 @@ def test_route_rule_other_widths_refuse(code):
     for H in (160, 192, 256):
         for N in (40, 41, 5000):
             assert ops.route_for(N, 5, H, code, "bwd", 40) == wide
-    with pytest.raises(ValueError, match="B7") as e:
-        ops.route_for(2, 5, 320, code, "bwd", 40)
-    assert ops.WIDE_ITEM in str(e.value)
+    assert ops.route_for(2, 5, 320, code, "bwd", 40) == \
+        ops.XWIDE_ROUTE[code]
+    with pytest.raises(ValueError, match="B7.5") as e:
+        ops.route_for(2, 5, ops.XWIDE_MAX_H + 1, code, "bwd", 40)
+    assert ops.XWIDE_ITEM in str(e.value)
 
 
 @pytest.mark.parametrize("N,fit,want", [(56, 48, 32), (62, 56, 32),

@@ -58,6 +58,7 @@ from enflow_tpu_torch.flow import FlowConfig, reverse_core
 from enflow_tpu_torch.nn.egcl import EGCLConfig
 from enflow_tpu_torch.ops import egcl_allpairs as ops
 from enflow_tpu_torch.utils.jax_params import from_jax_params, tree_flatten
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the tiled f32 kernels' one-molecule limits at nf=5, H=128 (the card's
 # shared memory)

@@ -34,6 +34,7 @@ from test_torch_port_egcl_f32_tiles import (B, FITS, NF, NS, _args, _chain,
                                             _pallas, _rows, _tile_sum, plan)
 
 from enflow_tpu_torch.ops import egcl_allpairs as ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def f32_bwd(h, pos, box, mask_f, W, dagg, dfsum, fit=None):

@@ -44,6 +44,7 @@ from enflow_tpu.nn.egcl import init_egcl as j_init_egcl
 from enflow_tpu.ops.egcl_fused_v3 import fused_allpairs_edges_v3
 
 from enflow_tpu_torch.ops import egcl_allpairs as ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, B, N_SM = 16, 7, 3
 NF = {2: 5, 4: 2, 13: 5, 22: 4}

@@ -69,6 +69,7 @@ from enflow_tpu_torch.ops import egcl_allpairs as ops
 from enflow_tpu_torch.sample import forcefield as tff
 from enflow_tpu_torch.sample.vi import flow_vi_loss, make_system_target
 from enflow_tpu_torch.utils.jax_params import from_jax_params, tree_flatten
+from torch_threads import one_torch_thread  # noqa: F401
 
 LIMIT = 232448                   # shared memory a block may use
 SLAB = 64                        # k of a product a slab holds (kSlab)
@@ -101,7 +102,8 @@ def test_route_rule_sends_f32_wide_widths_to_the_new_route(H, direction):
 
 def test_no_width_up_to_256_is_refused():
     """Every width 1 .. 256 has a route in both dtypes and every
-    direction; past 256 both dtypes refuse, naming ROADMAP B7."""
+    direction; past 256 both dtypes take the column-chunked kernels, and
+    only past ``XWIDE_MAX_H`` refuse, naming ROADMAP B7.5."""
     for code in (0, 1):
         for H in range(1, 257):
             for direction in DIRECTIONS:
@@ -110,9 +112,12 @@ def test_no_width_up_to_256_is_refused():
                 for N in (13, 5000):
                     ops.route_for(N, 5, H, code, direction, 40)
         for H in (257, 320):
-            with pytest.raises(ValueError, match="B7") as e:
-                ops._check_fits(code, (2, 13, 5, H), "bwd_params")
-            assert ops.WIDE_ITEM in str(e.value)
+            assert ops._check_fits(code, (2, 13, 5, H), "bwd_params") == \
+                ops.XWIDE_ROUTE[code]
+        with pytest.raises(ValueError, match="B7.5") as e:
+            ops._check_fits(code, (2, 13, 5, ops.XWIDE_MAX_H + 1),
+                            "bwd_params")
+        assert ops.XWIDE_ITEM in str(e.value)
 
 
 @pytest.mark.parametrize("direction,name", [

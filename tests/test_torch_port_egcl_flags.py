@@ -32,6 +32,7 @@ from enflow_tpu_torch.nn.egcl import EGCLConfig, apply_egcl, plain_route
 from enflow_tpu_torch.ops import edge_pipeline as ep
 from enflow_tpu_torch.ops import egcl_allpairs as ea
 from enflow_tpu_torch.utils.jax_params import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, N, NF, H = 4, 5, 3, 16
 FLAGS = {"attention": dict(attention=True), "norm_diff": dict(norm_diff=True),

@@ -38,6 +38,7 @@ from enflow_tpu.nn.egcl import init_egcl as j_init_egcl
 from enflow_tpu.ops.egcl_fused_v3 import fused_allpairs_edges_v3
 
 from enflow_tpu_torch.ops import egcl_allpairs as ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 NF, H, B = 4, 16, 7
 TILE = 64                      # rows per tile (the kernels' wgmma M)

@@ -60,6 +60,7 @@ from enflow_tpu_torch.flow import FlowConfig, reverse_core
 from enflow_tpu_torch.nn.egcl import EGCLConfig
 from enflow_tpu_torch.ops import egcl_allpairs as ops
 from enflow_tpu_torch.utils.jax_params import from_jax_params, tree_flatten
+from torch_threads import one_torch_thread  # noqa: F401
 
 LIMIT = 232448                   # shared memory a block may use
 TILE = 64                        # edge rows a tile (wgmma's M)
@@ -253,7 +254,7 @@ def test_wrapper_pads_launches_and_cuts_back(monkeypatch, code, H, route):
                                   (96, 128), (100, 128), (128, 128),
                                   (129, 192), (160, 192), (192, 192),
                                   (200, 256), (255, 256), (256, 256),
-                                  (257, None), (512, None)])
+                                  (257, 320), (512, 512)])
 def test_padded_width(H, Hp):
     assert ops.padded_width(H) == Hp
 
@@ -275,18 +276,23 @@ def test_route_rule_every_bf16_width(H, direction):
 
 @pytest.mark.parametrize("code", [0, 1])
 def test_past_256_refuses_naming_b7(code):
-    """H > 256 in either dtype: refused before any library is asked,
-    naming ROADMAP B7 and the bytes such a width would need."""
+    """H > 256 in either dtype: the column-chunked kernels of the dtype
+    (``"xwide"`` / ``"f32_xwide"``) take it, no library asked; only a width
+    past ``XWIDE_MAX_H`` is refused, naming ROADMAP B7.5 and the bytes one
+    parameter-gradient slice would need."""
     for H in (257, 320, 512):
-        with pytest.raises(ValueError, match="B7") as e:
-            ops.kernel_for(code, H, "bwd_params")
-        msg = str(e.value)
-        assert ops.WIDE_ITEM in msg and "bytes" in msg and f"H={H}" in msg
-        need = int(msg.split("at least ")[1].split(" bytes")[0]
-                   .replace(",", ""))
-        assert need > LIMIT
-        with pytest.raises(ValueError, match="B7"):
-            ops._check_fits(code, (2, 13, 5, H), "fwd")
+        assert ops.kernel_for(code, H, "bwd_params") == ops.XWIDE_ROUTE[code]
+        assert ops._check_fits(code, (2, 13, 5, H), "fwd") == \
+            ops.XWIDE_ROUTE[code]
+    H = ops.XWIDE_MAX_H + 1
+    with pytest.raises(ValueError, match="B7.5") as e:
+        ops.kernel_for(code, H, "bwd_params")
+    msg = str(e.value)
+    assert ops.XWIDE_ITEM in msg and "bytes" in msg and f"H={H}" in msg
+    need = int(msg.split("need ")[1].split(" bytes")[0].replace(",", ""))
+    assert need > ops.XWIDE_SLICE_BYTES
+    with pytest.raises(ValueError, match="B7.5"):
+        ops._check_fits(code, (2, 13, 5, H), "fwd")
 
 
 def test_wide_counters():

@@ -52,6 +52,7 @@ from enflow_tpu_torch.flow import FlowConfig, reverse_core
 from enflow_tpu_torch.nn.egcl import EGCLConfig
 from enflow_tpu_torch.ops import egcl_allpairs as ops
 from enflow_tpu_torch.utils.jax_params import from_jax_params, tree_flatten
+from torch_threads import one_torch_thread  # noqa: F401
 
 DIRECTIONS = ("fwd", "bwd", "bwd_params")
 # the seam at N=13 as the card's libraries give it (K1, K2, K2 p;
@@ -404,8 +405,9 @@ def test_route_rule_sends_exactly_the_refused_sizes(stub_libs, code, H):
 @pytest.mark.parametrize("code", [0, 1])
 def test_no_nf_up_to_256_refused(stub_libs, code):
     """Every nf up to 256 (and 1024) at every width up to 256 has a route
-    and a plan, in either dtype and direction; H > 256 still raises naming
-    B7."""
+    and a plan, in either dtype and direction; H > 256 goes to the
+    column-chunked kernels at any nf (none past ``XWIDE_MAX_H``, which
+    raises naming B7.5)."""
     lib = stub_libs[1 - code]
     for H in (32, 64, 100, 128, 160, 192, 256):
         Hp = ops.padded_width(H)
@@ -414,8 +416,10 @@ def test_no_nf_up_to_256_refused(stub_libs, code):
                 route = ops.route_of(code, (4, 13, nf, H), direction)
                 if route in ops.WIDE_NF_ROUTE.values():
                     ops.wide_nf_plan(lib, code, 13, nf, Hp, direction)
-    with pytest.raises(ValueError, match="B7"):
-        ops.route_of(code, (2, 13, 256, 257), "fwd")
+    assert ops.route_of(code, (2, 13, 256, 257), "fwd") == \
+        ops.XWIDE_ROUTE[code]
+    with pytest.raises(ValueError, match="B7.5"):
+        ops.route_of(code, (2, 13, 256, ops.XWIDE_MAX_H + 1), "fwd")
 
 
 def test_refusal_names_nf_bytes_and_item(stub_libs):

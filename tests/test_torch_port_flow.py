@@ -30,6 +30,7 @@ from enflow_tpu_torch.nn.egcl import EGCLConfig, init_egcl
 from enflow_tpu_torch.nn.mlp import init_mlp
 from enflow_tpu_torch.train.checkpoint import load_checkpoint
 from enflow_tpu_torch.utils.jax_params import from_jax_params, tree_flatten
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, N, NF, H = 3, 5, 5, 16
 

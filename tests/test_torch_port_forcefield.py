@@ -44,6 +44,7 @@ from enflow_tpu_torch.sample import forcefield as tff
 from enflow_tpu_torch.sample.vi import flow_vi_loss, make_system_target
 from enflow_tpu_torch.train.driver import Main
 from enflow_tpu_torch.utils.jax_params import from_jax_params, tree_flatten
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ALA2 = yaml.safe_load((ROOT / "example" / "ala2_ff.yaml").read_text())

@@ -16,6 +16,7 @@ import yaml
 from enflow_tpu.train.driver import Main as JMain
 
 from enflow_tpu_torch.train.driver import Main
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ALA2 = yaml.safe_load((ROOT / "example" / "ala2_ff.yaml").read_text())

@@ -23,6 +23,7 @@ from enflow_tpu.utils import helpers as j_helpers
 
 from enflow_tpu_torch.data import datasets, formats, readers, transforms
 from enflow_tpu_torch.utils import helpers
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-12
 

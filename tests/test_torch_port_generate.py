@@ -64,6 +64,7 @@ from enflow_tpu_torch.ops import pair_energy
 from enflow_tpu_torch.sim import radial_distribution
 from enflow_tpu_torch.train.driver import Main
 from enflow_tpu_torch.utils.jax_params import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, N, NF, H = 2, 24, 2, 16
 

@@ -15,6 +15,7 @@ from enflow_tpu.data.lig import LIGDataset as JLIGDataset
 
 from enflow_tpu_torch.data.lig import LIGDataset
 from enflow_tpu_torch.train.driver import Main
+from torch_threads import one_torch_thread  # noqa: F401
 
 PARAMS = dict(smiles="CCO", force_field=["amber/tip3p_standard.xml"],
               r_cut=5.0, padding=10.0, temp=300.0, n_iter=6, interval=2,

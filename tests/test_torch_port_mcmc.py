@@ -28,6 +28,7 @@ from enflow_tpu.sample import nuts as jn
 
 from enflow_tpu_torch.sample import mcmc as tm
 from enflow_tpu_torch.sample import nuts as tn
+from torch_threads import one_torch_thread  # noqa: F401
 
 C = 12
 

@@ -32,6 +32,7 @@ from enflow_tpu.data import neighbors as jnb
 from enflow_tpu_torch import native
 from enflow_tpu_torch.data import celllist as tcl
 from enflow_tpu_torch.data import neighbors as tnb
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, N = 3, 40
 

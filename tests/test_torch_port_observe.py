@@ -31,6 +31,7 @@ from enflow_tpu_torch.train.driver import Main
 from enflow_tpu_torch.utils.constants import sigma
 from enflow_tpu_torch.utils.observe import (assert_all_finite, nan_guard,
                                             profile_trace)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 class NaNBackward(torch.autograd.Function):

@@ -29,6 +29,7 @@ from enflow_tpu_torch.sample import remc as remc_mod
 from enflow_tpu_torch.sample.smc import ais, smc
 from enflow_tpu_torch.train.driver import Main
 from enflow_tpu_torch.utils.jax_params import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 # tests/test_overflow_counter.py's sample config
 BASE = {

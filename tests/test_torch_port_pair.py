@@ -38,6 +38,7 @@ from enflow_tpu_torch.ops import pair_energy as ops
 from enflow_tpu_torch.sim import integrate as tint
 from enflow_tpu_torch.sim.potentials import (softened_lj_energy,
                                              softened_lj_energy_grad)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _batch(seed, B, N, n_pad=0, spread=1.5):

@@ -41,6 +41,7 @@ from enflow_tpu.sim.potentials import softened_lj_energy as j_softened
 from enflow_tpu_torch.data.lj import arrange_points_on_grid
 from enflow_tpu_torch.ops import pair_energy as ops
 from enflow_tpu_torch.utils import conversion as cv
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_SM = 132
 

@@ -26,6 +26,7 @@ import torch
 
 from enflow_tpu_torch.sample import mbar as tmbar
 from enflow_tpu_torch.sample import remc as tremc
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the JAX package's sample/__init__ exports functions of these names
 jmbar = importlib.import_module("enflow_tpu.sample.mbar")

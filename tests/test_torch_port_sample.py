@@ -37,6 +37,7 @@ from enflow_tpu_torch.sample import ais, smc, systematic_resample, targets
 from enflow_tpu_torch.sample.mcmc import batched_value_and_grad
 from enflow_tpu_torch.train.driver import flow_densities
 from enflow_tpu_torch.utils.jax_params import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, NF, H = 4, 3, 8
 KEYS = ("g", "h", "pos", "vel")

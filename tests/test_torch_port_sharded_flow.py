@@ -39,6 +39,7 @@ from enflow_tpu_torch.data.neighbors import neighbors_with_diffs
 from enflow_tpu_torch.parallel.mesh import get_mesh
 from enflow_tpu_torch.parallel.ring import ring_egcl
 from enflow_tpu_torch.utils.jax_params import from_jax_params, tree_flatten
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = 4
 B, N, NF, H = 3, 16, 4, 16

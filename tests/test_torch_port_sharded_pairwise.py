@@ -24,6 +24,7 @@ from enflow_tpu_torch.parallel.collectives import VirtualAxis
 from enflow_tpu_torch.parallel.mesh import get_mesh
 from enflow_tpu_torch.sample import targets
 from enflow_tpu_torch.sim.potentials import softened_lj_energy
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = 4
 TOL = 1e-10

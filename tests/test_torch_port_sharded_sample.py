@@ -32,6 +32,7 @@ from enflow_tpu_torch.sample.mcmc import batched_value_and_grad
 from enflow_tpu_torch.sample.sharded import make_sample_fns
 from enflow_tpu_torch.train.driver import Main
 from enflow_tpu_torch.utils.jax_params import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 NF, H = 3, 8
 N_ATOMS = 6                 # pads to 8 on a 4-shard atom axis

@@ -27,6 +27,7 @@ import yaml
 from enflow_tpu_torch.sample.smc import smc, smc_segments
 from enflow_tpu_torch.train import driver as drv
 from enflow_tpu_torch.train.driver import Main
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 P, N = 24, 3

@@ -22,6 +22,7 @@ from enflow_tpu.sample import targets as JT
 
 from enflow_tpu_torch.sample import targets as TT
 from enflow_tpu_torch.train.driver import Main, vi_anneal
+from torch_threads import one_torch_thread  # noqa: F401
 
 P, N = 4, 6
 

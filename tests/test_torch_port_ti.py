@@ -29,6 +29,7 @@ from enflow_tpu.train.driver import Main as JMain
 
 from enflow_tpu_torch.sample import ti as tti
 from enflow_tpu_torch.train.driver import Main
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 LOG_2PI = math.log(2.0 * math.pi)

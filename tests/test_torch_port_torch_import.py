@@ -35,6 +35,7 @@ from enflow_tpu_torch.nn.egcl import EGCLConfig
 from enflow_tpu_torch.train.checkpoint import (has_tree, load_checkpoint,
                                                load_hparams, save_checkpoint)
 from enflow_tpu_torch.utils import torch_export, torch_import
+from torch_threads import one_torch_thread  # noqa: F401
 
 NF, HIDDEN, N_ITER = 4, 8, 3
 F64 = torch.float64

@@ -41,6 +41,7 @@ from enflow_tpu_torch.train.checkpoint import save_checkpoint
 from enflow_tpu_torch.train.driver import Main
 from enflow_tpu_torch.train.optim import NLLOptimizer
 from enflow_tpu_torch.utils.jax_params import from_jax_params, tree_flatten
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, N, NF, H = 4, 5, 2, 16
 KBT, SOFT = 1.3, 0.1

@@ -55,6 +55,7 @@ from enflow_tpu_torch.sample.vi import (flow_vi_loss, make_base_log_prob,
 from enflow_tpu_torch.train.driver import Main, vi_anneal
 from enflow_tpu_torch.train.optim import NLLOptimizer
 from enflow_tpu_torch.utils.jax_params import from_jax_params, tree_flatten
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, NF, H = 4, 3, 8
 
