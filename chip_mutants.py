@@ -5,8 +5,15 @@ repository root (``--match``: only the mutants whose name holds TEXT, and
 each group's control)
 (groups: ``egcl_allpairs``, ``egcl_params``, ``egcl_blocks``,
 ``egcl_wide``, ``egcl_f32``, ``egcl_blocks_f32``, ``egcl_f32_wide``,
-``wide_nf``, ``xwide``, ``edge_pipeline``, ``edge_pipeline_sm90``,
-``edge_wide``, ``pair_energy``; all by default; ``xwide`` is the
+``wide_nf``, ``xwide``, ``edge_xwide``, ``edge_pipeline``,
+``edge_pipeline_sm90``, ``edge_wide``, ``pair_energy``; all by default;
+``edge_xwide`` is the gathered-edge K5/K6 past H = 256 and past the old
+C limits (``edge_pipeline_xwide.cu`` and the engines of
+``xwide_engine.cuh``), read through the wrapper's entry points at phase
+edge_xwide's shapes (the training shape at H = 320; the top-k, K = 80 and
+ragged ones at 512) and at C = 129 (H = 320) and C = 33 (H = 512) over two
+input seeds and one of them again beside a stream of 1 GiB copies, as
+chip_smoke.py's ``edge_xwide_reading`` reads them; ``xwide`` is the
 all-pairs EGCL past H = 256 (``egcl_allpairs_xwide.cu``, both dtypes),
 read through the wrapper's entry points at (H, N, B) = (320, 13, 16),
 (512, 55, 4), (1024, 13, 8) and (384, 147, 2) over two input seeds (the
@@ -85,6 +92,10 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+
+# the product engines' header, shared by the column-chunked kernels of
+# egcl_allpairs_xwide.cu and edge_pipeline_xwide.cu
+E = "xwide_engine.cuh"
 
 # group -> {name: None (control), or an edit (text in the source, its
 # replacement[, how often the text occurs: 1 unless given]), or a list of
@@ -318,25 +329,29 @@ MUTANTS = {
     # the all-pairs EGCL past H = 256 (egcl_allpairs_xwide.cu)
     "xwide": {
         "control": None,
-        "bf16: a wrong column-chunk offset (X W's weight chunk one over)": (
-            "cb = MODE == 0 ? Chunk{Y, H, kCol * k, kCol * o}",
-            "cb = MODE == 0 ? Chunk{Y, H, kCol * k, kCol * ((o + 1) % G)}"),
-        "f32: a wrong column-chunk offset (X W's weight chunk one over)": (
-            "const int nb = kCol * (MODE == 2 ? o % G : o);",
-            "const int nb = kCol * (MODE == 2 ? o % G : (o + 1) % G);"),
-        "bf16: a skipped k-chunk (the second k-chunk's products left out)": (
-            "      mma<MODE>(acc.d0, a, b, 0, k > 0);\n"
-            "      mma<MODE>(acc.d1, a, b, kChunk, k > 0);\n",
-            "      if (k != 1) {\n"
-            "      mma<MODE>(acc.d0, a, b, 0, k > 0);\n"
-            "      mma<MODE>(acc.d1, a, b, kChunk, k > 0);\n"
-            "      }\n"),
-        "f32: a skipped k-chunk (k 64 .. 79 of a product left out)": (
-            "          b_at(u, k, n);\n          rb[u] =",
-            "          if (c == 4) ra[u] = 0.f;\n"
-            "          b_at(u, k, n);\n          rb[u] ="),
-        "bf16: a skipped stage wait (no barrier before a step's wgmma)": (
-            "      wg_publish(0);\n", ""),
+        # the engines moved to xwide_engine.cuh (shared with the
+        # gathered-edge xwide kernels)
+        "bf16: a wrong column-chunk offset (X W's weight chunk one over)": {
+            E: ("cb = MODE == 0 ? Chunk{Y, d.ly, kCol * k, kCol * o}",
+                "cb = MODE == 0 ? Chunk{Y, d.ly, kCol * k, "
+                "kCol * ((o + 1) % d.no)}")},
+        "f32: a wrong column-chunk offset (X W's weight chunk one over)": {
+            E: ("const int nb = kCol * (MODE == 2 ? o % d.no : o);",
+                "const int nb = kCol * (MODE == 2 ? o % d.no : "
+                "(o + 1) % d.no);")},
+        "bf16: a skipped k-chunk (the second k-chunk's products left out)": {
+            E: ("        mma<MODE>(acc.d0, a, b, 0, k > 0);\n"
+                "        mma<MODE>(acc.d1, a, b, kChunk, k > 0);\n",
+                "        if (k != 1) {\n"
+                "        mma<MODE>(acc.d0, a, b, 0, k > 0);\n"
+                "        mma<MODE>(acc.d1, a, b, kChunk, k > 0);\n"
+                "        }\n")},
+        "f32: a skipped k-chunk (k 64 .. 79 of a product left out)": {
+            E: ("          b_at(u, k, n);\n          rb[u] =",
+                "          if (c == 4) ra[u] = 0.f;\n"
+                "          b_at(u, k, n);\n          rb[u] =")},
+        "bf16: a skipped stage wait (no barrier before a step's wgmma)": {
+            E: ("      wg_publish(0);\n", "")},
         "a skipped wait after the m1 pass (read before all of it is stored)": (
             "  }\n  __syncthreads();\n  E::template run<0>(sm, X[3], a.W2, H,",
             "  }\n  E::template run<0>(sm, X[3], a.W2, H,"),
@@ -348,34 +363,83 @@ MUTANTS = {
             "      for (int m = 0; m < kAtoms; ++m) s += term(l * kAtoms + m);"),
         # K2 p's outer products dW2 / dW3 (MODE 2, outer_add): the
         # products that the bf16 parameter gradients' twin limit guards
-        "bf16: a wrong row chunk of an outer product (A^T's block one over)": (
-            "        ca = Chunk{X, H, 0, kCol * (o / G)};",
-            "        ca = Chunk{X, H, 0, kCol * ((o / G + 1) % G)};"),
-        "bf16: a wrong column chunk of an outer product (B's block one over)": (
-            "        cb = Chunk{Y, H, 0, kCol * (o % G)};",
-            "        cb = Chunk{Y, H, 0, kCol * ((o + 1) % G)};"),
-        "f32: a wrong row chunk of an outer product (A^T's block one over)": (
-            "const int ma = MODE == 2 ? kCol * (o / G) : 0;",
-            "const int ma = MODE == 2 ? kCol * ((o / G + 1) % G) : 0;"),
-        "f32: a wrong column chunk of an outer product (B's block one over)": (
-            "const int nb = kCol * (MODE == 2 ? o % G : o);",
-            "const int nb = kCol * (MODE == 2 ? (o + 1) % G : o);"),
-        "a skipped row chunk of dW3 (its rows 64 .. 127 never added)": [
-            ("const typename E::T* Bt, float* dst, int H) {",
-             "const typename E::T* Bt, float* dst, int H, int skip = -1) {"),
-            ("    float* d = dst + (size_t)kCol * (o / G) * H + kCol * (o % G);",
-             "    if (o / G == skip) return;\n"
-             "    float* d = dst + (size_t)kCol * (o / G) * H + kCol * (o % G);"),
-            ("outer_add<E>(sm, X[0], X[2], part + PL.dW3, H);",
-             "outer_add<E>(sm, X[0], X[2], part + PL.dW3, H, 1);")],
-        "dW3's sums rounded to bf16 (each partial kept in bf16)": [
-            ("const typename E::T* Bt, float* dst, int H) {",
-             "const typename E::T* Bt, float* dst, int H, bool lo = false) {"),
-            ("      d[(size_t)r * H + c] += v;",
-             "      float& x = d[(size_t)r * H + c];\n"
-             "      x = lo ? __bfloat162float(__float2bfloat16(x + v)) : x + v;"),
-            ("outer_add<E>(sm, X[0], X[2], part + PL.dW3, H);",
-             "outer_add<E>(sm, X[0], X[2], part + PL.dW3, H, true);")],
+        "bf16: a wrong row chunk of an outer product (A^T's block one over)": {
+            E: ("        ca = Chunk{X, d.lx, 0, kCol * (o / d.no)};",
+                "        ca = Chunk{X, d.lx, 0, kCol * ((o / d.no + 1) % d.mo)};")},
+        "bf16: a wrong column chunk of an outer product (B's block one over)": {
+            E: ("        cb = Chunk{Y, d.ly, 0, kCol * (o % d.no)};",
+                "        cb = Chunk{Y, d.ly, 0, kCol * ((o + 1) % d.no)};")},
+        "f32: a wrong row chunk of an outer product (A^T's block one over)": {
+            E: ("const int ma = MODE == 2 ? kCol * (o / d.no) : 0;",
+                "const int ma = MODE == 2 ? kCol * ((o / d.no + 1) % d.mo) "
+                ": 0;")},
+        "f32: a wrong column chunk of an outer product (B's block one over)": {
+            E: ("const int nb = kCol * (MODE == 2 ? o % d.no : o);",
+                "const int nb = kCol * (MODE == 2 ? (o + 1) % d.no : o);")},
+        "a skipped row chunk of dW3 (its rows 64 .. 127 never added)": {
+            E: [("const typename E::T* Bt, float* dst, int H) {",
+                 "const typename E::T* Bt, float* dst, int H, "
+                 "int skip = -1) {"),
+                ("    float* d = dst + (size_t)kCol * (o / G) * H + "
+                 "kCol * (o % G);",
+                 "    if (o / G == skip) return;\n"
+                 "    float* d = dst + (size_t)kCol * (o / G) * H + "
+                 "kCol * (o % G);")],
+            "egcl_allpairs_xwide": (
+                "outer_add<E>(sm, X[0], X[2], part + PL.dW3, H);",
+                "outer_add<E>(sm, X[0], X[2], part + PL.dW3, H, 1);")},
+        "dW3's sums rounded to bf16 (each partial kept in bf16)": {
+            E: [("const typename E::T* Bt, float* dst, int H) {",
+                 "const typename E::T* Bt, float* dst, int H, "
+                 "bool lo = false) {"),
+                ("      d[(size_t)r * H + c] += v;",
+                 "      float& x = d[(size_t)r * H + c];\n"
+                 "      x = lo ? __bfloat162float(__float2bfloat16(x + v)) "
+                 ": x + v;")],
+            "egcl_allpairs_xwide": (
+                "outer_add<E>(sm, X[0], X[2], part + PL.dW3, H);",
+                "outer_add<E>(sm, X[0], X[2], part + PL.dW3, H, true);")},
+    },
+    # the gathered-edge K5/K6 past H = 256 and past the C limits of the
+    # routes up to 256 (edge_pipeline_xwide.cu)
+    "edge_xwide": {
+        "control": None,
+        "e W1's output chunk one over (m1's columns from the next chunk)": (
+            "      const int c = kCol * o + cc;\n"
+            "      const size_t i = (size_t)r * H + c;\n"
+            "      const float pre = __fadd_rn(v, to_f(a.b1[c]));",
+            "      const int c = kCol * ((o + 1) % (H / kCol)) + cc;\n"
+            "      const size_t i = (size_t)r * H + c;\n"
+            "      const float pre = __fadd_rn(v, to_f(a.b1[c]));"),
+        "e W1's k chunk one over (e's features 64 on in the next chunk)": (
+            "    ep[idx] = r < tl.nr && c < a.C",
+            "    ep[r * a.Cp + (c + kCol) % a.Cp] = r < tl.nr && c < a.C"),
+        "de's output chunk one over (features 64 on from the next chunk)": (
+            "      const int c = kCol * o + cc;\n"
+            "      if (r < tl.nr && c < a.C)",
+            "      const int c = kCol * ((o + 1) % (a.Cp / kCol)) + cc;\n"
+            "      if (r < tl.nr && c < a.C)"),
+        "dW1's output chunk one over (its columns from the next chunk)": (
+            "n0 = kCol * (o % outer.no);",
+            "n0 = kCol * ((o + 1) % outer.no);"),
+        "dW1's rows past the first 16 skipped": (
+            "      if (m0 + r < a.C) d[(size_t)r * H + c] += v;",
+            "      if (m0 + r < a.C && m0 + r < 16) d[(size_t)r * H + c] += v;"),
+        "an atom spanning tiles summed by two owners (each tile's sum from "
+        "zero, the last written)": (
+            "      float s = tl.first ? 0.f : acc[c];",
+            "      float s = 0.f;"),
+        "bf16: dW3's partials rounded to bf16": {
+            E: [("const typename E::T* Bt, float* dst, int H) {",
+                 "const typename E::T* Bt, float* dst, int H, "
+                 "bool lo = false) {"),
+                ("      d[(size_t)r * H + c] += v;",
+                 "      float& x = d[(size_t)r * H + c];\n"
+                 "      x = lo ? __bfloat162float(__float2bfloat16(x + v)) "
+                 ": x + v;")],
+            "edge_pipeline_xwide": (
+                "outer_add<E>(sm, X[1], X[3], part + PL.dW3, H);",
+                "outer_add<E>(sm, X[1], X[3], part + PL.dW3, H, true);")},
     },
     # K5/K6 at H = 192 and 256 (each mutant names the file it edits)
     "edge_wide": {
@@ -911,6 +975,50 @@ if shares:
               f"{n} {min(q):.3f} {max(q):.3f}" for n, q in shares.items()),
           flush=True)
 """,
+    "edge_xwide": HEAD + """
+import os
+from enflow_tpu_torch.ops import build
+from enflow_tpu_torch.ops import edge_pipeline as ep
+dnames = os.environ["MUTANT_DTYPES"].split(",")
+build.build_all(["edge_pipeline_xwide"])
+big = torch.empty(2 ** 28, device="cuda")
+dst = torch.empty_like(big)
+side = torch.cuda.Stream()
+def stress():
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(40):
+            dst.copy_(big)
+# phase edge_xwide's shapes, and two of C past 16 and 64 edge features
+wide_c = {"c129": dict(A=64, K=12, C=129, masked=0.2),
+          "c33": dict(A=300, K=12, C=33, masked=0.2)}
+for H, sname in ((320, "train"), (512, "topk"), (512, "k80"),
+                 (512, "ragged"), (320, "c129"), (512, "c33")):
+    shape = dict(cs.EDGE_XWIDE_SHAPES.get(sname) or wide_c[sname], H=H)
+    for dname in dnames:
+        dt = getattr(torch, dname)
+        for seed, loaded in ((61, False), (62, False), (61, True)):
+            e, cd, em, W, dagg, dfs, _ = cs.gathered_inputs(shape, dt, seed)
+            args = (e, cd, em, W, dagg, dfs)
+            for d in ("fwd", "bwd"):
+                assert ep.kernel_for(dt, H, shape["C"], d) == \\
+                    ep.XWIDE_ROUTE[dt]
+            if loaded:
+                stress()
+            k = ep.edge_pipeline_fwd(e, cd, em, W) + ep.edge_pipeline_bwd(
+                *args)
+            p = ep.edge_pipeline_plain(e, cd, em, *W) + \\
+                ep.edge_pipeline_plain_bwd(e, cd, em, *W, dagg, dfs)
+            torch.cuda.synchronize()
+            ok, text, _ = cs.edge_xwide_reading(cs.EDGE_OUT, k, p, args,
+                                                dname)
+            print(f"  H={H} {sname} C={shape['C']} {dname} seed {seed}"
+                  + (" beside a copy stream" if loaded else "")
+                  + f": {text} -> " + ("passes" if ok else "caught"),
+                  flush=True)
+            del e, cd, em, W, dagg, dfs, k, p
+            torch.cuda.empty_cache()
+""",
     "edge_pipeline": EDGE_READ.replace("HOPPER", "False"),
     "edge_pipeline_sm90": EDGE_READ.replace("HOPPER", "True"),
     "pair_energy": HEAD + """
@@ -978,7 +1086,8 @@ def main():
                   "egcl_f32": "egcl_allpairs_f32",
                   "egcl_blocks_f32": "egcl_allpairs_f32",
                   "egcl_f32_wide": "egcl_allpairs_f32",
-                  "xwide": "egcl_allpairs_xwide"}.get(group, group)
+                  "xwide": "egcl_allpairs_xwide",
+                  "edge_xwide": "edge_pipeline_xwide"}.get(group, group)
         for name, edit in MUTANTS[group].items():
             if match and edit is not None and match not in name:
                 continue
@@ -1015,22 +1124,22 @@ def main():
                      "egcl_wide_nf.cuh": "bfloat16"}.get(k, "")
                     for k in edits) if edit else "float32,bfloat16"
                 env = dict(os.environ, MUTANT_DTYPES=dtypes)
-                if group == "xwide":
-                    if edit:
-                        env["MUTANT_DTYPES"] = (
-                            "bfloat16" if name.startswith("bf16:") else
-                            "float32" if name.startswith("f32:") else
-                            "float32,bfloat16")
-                    else:
-                        # the sound kernels over more inputs (also the
-                        # fewest edges at the widest H, where the bf16
-                        # parameter gradients read highest): the margin
-                        # of the limits the mutants are read against
-                        env["MUTANT_SEEDS"] = ",".join(
-                            str(x) for x in range(71, 83))
-                        env["MUTANT_SHAPES"] = ("320:13:16,512:55:4,"
-                                                "1024:13:8,384:147:2,"
-                                                "1024:13:4,1024:13:16")
+                if group in ("xwide", "edge_xwide") and edit:
+                    # a mutant named for a dtype is read in it only
+                    env["MUTANT_DTYPES"] = (
+                        "bfloat16" if name.startswith("bf16:") else
+                        "float32" if name.startswith("f32:") else
+                        "float32,bfloat16")
+                elif group == "xwide":
+                    # the sound kernels over more inputs (also the
+                    # fewest edges at the widest H, where the bf16
+                    # parameter gradients read highest): the margin
+                    # of the limits the mutants are read against
+                    env["MUTANT_SEEDS"] = ",".join(
+                        str(x) for x in range(71, 83))
+                    env["MUTANT_SHAPES"] = ("320:13:16,512:55:4,"
+                                            "1024:13:8,384:147:2,"
+                                            "1024:13:4,1024:13:16")
                 print(f"[mutant] {group}: {name}", flush=True)
                 # the mutated libraries first: a mutant that does not
                 # build is no mutant, and ends the run

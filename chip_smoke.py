@@ -322,6 +322,23 @@ non-zero):
    ``edge_round_witness`` at EDGE_WITNESS (20 repeats bitwise equal); the
    plain version at the kernels line's shapes, the padded route's cost
    against H=128 and each driver run's kernel share.
+11c. edge_xwide (after edge_wide) — the gathered-edge K5/K6 on the
+   column-chunked kernels of edge_pipeline_xwide.cu (routes ``"xwide"``
+   and ``"f32_xwide"``: every width past 256, and at 64 .. 256 every C
+   that the route of the width does not hold): (a) the library's shared
+   memory against the mirror (the same at every H and C); K5/K6 in both
+   dtypes at H = 320 and 512 at EDGE_XWIDE_SHAPES (the training, top-k
+   and generate shapes, K = 80, a ragged mask) and A = 0, and at the first
+   C past each old limit (EDGE_XWIDE_C), against the plain version (bf16
+   per element, ``edge_xwide_reading``; f32 to TOL_EDGE / TOL_PARAM), each
+   launch on the route ``kernel_for`` names for its C, a second launch
+   bitwise equal; (b) K5/K6 timed at EDGE_XWIDE_TIMED (CUDA events, device
+   time, the plain version, the bound) and the library's spills; (c)
+   ``train.yaml`` at ``hidden_nf: 512`` (2 epochs, 1 resumed: 5 + 5
+   ``f32_xwide`` launches a step), top-k ``vi_lj13.yaml`` at 512 (1 x
+   EDGE_XWIDE_VI_STEPS) and top-k ``sample_lj13.yaml`` from it cut to
+   EDGE_XWIDE_SMC, every K5/K6 on ``xwide``, no plain call, beta 1; each
+   run's kernel share.
 
 ``python3 chip_smoke.py --ab OLD.cu [OLD.cu ...]`` runs phases 1-2 and then times the
 kernels built from OLD.cu against the current ones, alternating old,
@@ -342,8 +359,12 @@ ones (main, ragged, VI, DW4, ala2 and each largest molecule), and, where
 the earlier source has them, its f32 block-pair kernels at H = 128 (N =
 147 and 75) and 64 (N = 100) in every direction, then timed in turns.
 For an earlier edge_pipeline_sm90.cu with these entry points: bf16
-K5/K6 held to the same bits at every EDGE_SHAPES shape of H = 64 or 128,
-then timed in turns at the sampler's shape.
+K5/K6 held to the same bits at every EDGE_SHAPES shape of H = 64 or 128
+and every EDGE_WIDE_SHAPES shape at 192 and 256 (``edge_ab_shapes``; the
+same for edge_pipeline.cu in f32), then timed in turns at the sampler's
+shape. For an earlier egcl_allpairs_xwide.cu: K1, K2 and K2 p of both
+dtypes held to the same bits at H = 320, 512 and 1024 x N = 13, 55 and
+147, then K1 / K2 timed in turns at B=1024, N=13, H=512.
 
 ``python3 chip_smoke.py --blocks-plans`` runs phases 1-2 and then times
 the bf16 block-pair kernels at LJ147 (K1 and K2 p at B=256, K2 at
@@ -506,7 +527,19 @@ TERMS_TOL = 2e-5
 # (PERF.md, section 6). A step in a random direction of every
 # term moves a sum by 2^-8 x the root-sum-square; a sum that keeps its
 # partials in bf16 (chip_mutants.py xwide's lower-precision mutant) moves
-# it by far more. Outputs keep STEP_TOL at every width.
+# it by far more. Outputs keep STEP_TOL at every width; on the gathered-edge
+# xwide kernels (phase edge_xwide) F_sum and dcd, proportional to the
+# gate, an f32 sum of H rounded terms g1_c w4_c, may exceed their steps by
+# FLIP_TOL x the root-sum-square of those terms carried through
+# (``edge_gate_widen``), the plain version held to the same against its
+# f64-summed twin. Over input seeds 61-66 at H = 320 and 512 (the training,
+# K = 80 and ragged shapes) the sound kernel read up to 4.00 (F_sum) and
+# 5.00 (dcd) bf16 steps at EDGE_GATE_FLOOR against the plain version and
+# the same against the twin, the plain version up to 2.00 against the
+# twin; the kernel's own m and g1 differ from the plain version's by at
+# most one bf16 step (75 and 692 of 844,480 elements at H = 320, ragged,
+# seed 61) and given them its sums agree within 0.17 of their bound
+# (``edge_round_witness``): rounding flips, not a fault (PERF.md).
 FLIP_TOL = 2.0 ** -8
 
 
@@ -1339,13 +1372,15 @@ def rel_errs(names, got, want):
     return errs
 
 
-def step_errs(names, got, want, terms=None, floor=STEP_FLOOR, flips=None):
+def step_errs(names, got, want, terms=None, floor=STEP_FLOOR, flips=None,
+              widen=None):
     """{name: (max |kernel - plain|, reading, its limit)}, read per element
     as set out at STEP_TOL: bf16 steps for an output, the share of its
     bound for a parameter gradient named in ``terms`` ({name: the plain
     sums of its terms' magnitudes}; with ``flips``, {name: the root-sum-
-    square of its terms}, the bound grows by FLIP_TOL x that); a
-    non-finite kernel output reads as infinite."""
+    square of its terms}, the bound grows by FLIP_TOL x that); ``widen``:
+    {output name: a per-element amount that |kernel - plain| may exceed
+    its steps by}; a non-finite kernel output reads as infinite."""
     import torch
     errs = {}
     for name, k, p in zip(names, got, want):
@@ -1370,8 +1405,10 @@ def step_errs(names, got, want, terms=None, floor=STEP_FLOOR, flips=None):
                 allow = allow + FLIP_TOL * flips[name].float()
         else:
             allow = bf16_ulp(p.abs().clamp_min(floor * top))
+        over = d if not widen or name not in widen else \
+            (d - widen[name].float()).clamp_min(0.0)
         errs[name] = (float(d.max()),
-                      float((d / allow.clamp_min(1e-30)).max()), limit)
+                      float((over / allow.clamp_min(1e-30)).max()), limit)
     return errs
 
 
@@ -1817,6 +1854,79 @@ def edge_wide_train(card, H, epochs, resume, tmp, checkpoint):
     return out
 
 
+def topk_vi_sample(card, ph, H, route, steps, smc_over=None):
+    """Top-k ``vi_lj13.yaml`` (capacity PROBE_FULL) at ``hidden_nf`` H, 1 x
+    ``steps`` steps, then top-k ``sample_lj13.yaml`` from its checkpoint
+    (``smc_over``: its sampling section's cuts), in a fresh temporary
+    directory: every K5/K6 on ``route``, launches held exactly, no plain
+    call, finite losses, beta 1 and a finite log_Z, outputs on the card.
+    Returns {"vi": ..., "smc": ...}."""
+    import os
+    import torch
+
+    cwd = os.getcwd()
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            net = dict(hidden_nf=H, node_nf=5)
+            dyn = dict(nbr_mode="topk", nbr_capacity=PROBE_FULL, network=net,
+                       checkpoint_path="lj13_w.cpt")
+            vi = config_driver(tmp, "vi_lj13.yaml", over=dict(
+                num_epochs=1, steps_per_epoch=steps), dynamics=dyn)
+            step_s, losses = time_vi_steps(vi)
+            reset_counts()
+            vi.train()
+            torch.cuda.synchronize()
+            got_vi, routes_vi = edge_launches(), edge_routes()
+            n = vi.n_iter * steps
+            require(got_vi == dict(k5=n, k6=n, allpairs=0, plain=0)
+                    and routes_vi == route_counts(route, n, n),
+                    f"H={H} top-k VI launches {got_vi} by kernel "
+                    f"{routes_vi}")
+            require(len(losses) == steps
+                    and all(math.isfinite(x) for x in losses),
+                    f"H={H} VI losses {losses}")
+            smc = config_driver(tmp, "sample_lj13.yaml", over=dict(
+                smc_over or {}, output="lj13_w.npz",
+                metrics_csv="lj13_w_smc.csv"), dynamics=dyn)
+            sec = smc.args["sampling"]
+            reset_counts()
+            res, secs = timed_sample(smc)
+            got, routes = edge_launches(), edge_routes()
+            T = sec["n_temps"]
+            n_vg = 1 + T * sec["mcmc_steps"] * sec["n_leapfrog"]
+            want = dict(k5=smc.n_iter * (1 + n_vg + T), k6=smc.n_iter * n_vg,
+                        allpairs=0, plain=0)
+            require(got == want and routes == route_counts(
+                route, want["k5"], want["k6"]),
+                f"H={H} top-k SMC launches {got} by kernel {routes} != "
+                f"{want}")
+            P = sec["n_particles"]
+            check_smc(res, f"H={H} top-k SMC", P, 13)
+            require(on_card(res.particles) and res.log_weights.is_cuda,
+                    f"H={H} SMC outputs not on the card")
+            out["vi"] = dict(s_step=statistics.median(step_s[1:]),
+                             launches=routes_vi[route])
+            out["smc"] = dict(secs=secs, launches=routes[route], P=P, T=T)
+            phase(ph, f"vi_lj13.yaml top-k (capacity {PROBE_FULL}) at "
+                  f"hidden_nf {H} on {card}: 1 x {steps} steps of "
+                  f"{vi.vi_particles} particles, {out['vi']['s_step']:.5f} "
+                  f"s/step, losses " + ", ".join(f"{x:.2f}" for x in losses)
+                  + f", K5/K6 {routes_vi[route]} on {route}; "
+                  f"sample_lj13.yaml top-k from its checkpoint: {P} "
+                  f"particles x {T} temps {secs:.3f} s, log_Z "
+                  f"{float(res.log_Z):.4f}, beta "
+                  f"{float(res.beta_history[-1]):.6f}, K5/K6 "
+                  f"{routes[route]} on {route}, 0 on any other route, plain "
+                  f"0 ({time.perf_counter() - t0:.1f} s)")
+            del vi, smc, res
+    finally:
+        os.chdir(cwd)
+    torch.cuda.empty_cache()
+    return out
+
+
 def edge_wide_paths(card):
     """Phase edge_wide's driver paths: (a) train.yaml at hidden_nf
     EDGE_WIDE_H, 2 epochs then 1 resumed, on ``f32_wide``; (b) top-k
@@ -1859,63 +1969,10 @@ def edge_wide_paths(card):
                       f"{x:.2f}" for x in c["losses"])
                   + f"; K5/K6 {c['launches']} on tiled and padded, plain 0 "
                   f"({time.perf_counter() - t0:.1f} s)")
-        with tempfile.TemporaryDirectory() as tmp:
-            t0 = time.perf_counter()
-            net = dict(hidden_nf=EDGE_WIDE_H, node_nf=5)
-            dyn = dict(nbr_mode="topk", nbr_capacity=PROBE_FULL, network=net,
-                       checkpoint_path="lj13_w.cpt")
-            vi = config_driver(tmp, "vi_lj13.yaml", over=dict(
-                num_epochs=1, steps_per_epoch=EDGE_WIDE_VI_STEPS),
-                dynamics=dyn)
-            step_s, losses = time_vi_steps(vi)
-            reset_counts()
-            vi.train()
-            torch.cuda.synchronize()
-            got_vi, routes_vi = edge_launches(), edge_routes()
-            n = vi.n_iter * EDGE_WIDE_VI_STEPS
-            require(got_vi == dict(k5=n, k6=n, allpairs=0, plain=0)
-                    and routes_vi == route_counts("wide", n, n),
-                    f"H={EDGE_WIDE_H} top-k VI launches {got_vi} by kernel "
-                    f"{routes_vi}")
-            require(len(losses) == EDGE_WIDE_VI_STEPS
-                    and all(math.isfinite(x) for x in losses),
-                    f"H={EDGE_WIDE_H} VI losses {losses}")
-            smc = config_driver(tmp, "sample_lj13.yaml", over=dict(
-                output="lj13_w.npz", metrics_csv="lj13_w_smc.csv"),
-                dynamics=dyn)
-            sec = smc.args["sampling"]
-            reset_counts()
-            res, secs = timed_sample(smc)
-            got, routes = edge_launches(), edge_routes()
-            T = sec["n_temps"]
-            n_vg = 1 + T * sec["mcmc_steps"] * sec["n_leapfrog"]
-            want = dict(k5=smc.n_iter * (1 + n_vg + T), k6=smc.n_iter * n_vg,
-                        allpairs=0, plain=0)
-            require(got == want and routes == route_counts(
-                "wide", want["k5"], want["k6"]),
-                f"H={EDGE_WIDE_H} top-k SMC launches {got} by kernel "
-                f"{routes} != {want}")
-            P = sec["n_particles"]
-            check_smc(res, f"H={EDGE_WIDE_H} top-k SMC", P, 13)
-            require(on_card(res.particles) and res.log_weights.is_cuda,
-                    f"H={EDGE_WIDE_H} SMC outputs not on the card")
-            out["vi"] = dict(s_step=statistics.median(step_s[1:]),
-                             launches=routes_vi["wide"])
-            out["smc"] = dict(secs=secs, launches=routes["wide"], P=P)
-            phase("edge_wide", f"(b) vi_lj13.yaml top-k (capacity "
-                  f"{PROBE_FULL}) at hidden_nf {EDGE_WIDE_H} on {card}: 1 x "
-                  f"{EDGE_WIDE_VI_STEPS} steps of {vi.vi_particles} "
-                  f"particles, {out['vi']['s_step']:.5f} s/step, losses "
-                  + ", ".join(f"{x:.2f}" for x in losses)
-                  + f", K5/K6 {routes_vi['wide']} on wide; sample_lj13.yaml "
-                  f"top-k from its checkpoint: {P} particles x {T} temps "
-                  f"{secs:.3f} s, log_Z {float(res.log_Z):.4f}, beta "
-                  f"{float(res.beta_history[-1]):.6f}, K5/K6 "
-                  f"{routes['wide']} on wide, 0 on any other route, plain 0 "
-                  f"({time.perf_counter() - t0:.1f} s)")
-            del vi, smc, res
     finally:
         os.chdir(cwd)
+    out.update(topk_vi_sample(card, "edge_wide", EDGE_WIDE_H, "wide",
+                              EDGE_WIDE_VI_STEPS))
     torch.cuda.empty_cache()
     return out
 
@@ -1933,24 +1990,32 @@ def edge_wide_paths(card):
 EDGE_GATE_FLOOR = 2.0 ** -1
 
 
-def edge_step_errs(names, got, want, terms=None):
-    """``step_errs`` of K5/K6 outputs, F_sum and dcd at EDGE_GATE_FLOOR."""
+def edge_step_errs(names, got, want, terms=None, widen=None):
+    """``step_errs`` of K5/K6 outputs, F_sum and dcd at EDGE_GATE_FLOOR
+    (``widen``: step_errs' widening of those two)."""
     errs = step_errs(names, got, want, terms)
     gate = [i for i, n in enumerate(names) if n in ("F_sum", "dcd")]
     errs.update(step_errs([names[i] for i in gate], [got[i] for i in gate],
-                          [want[i] for i in gate], floor=EDGE_GATE_FLOOR))
+                          [want[i] for i in gate], floor=EDGE_GATE_FLOOR,
+                          widen=widen))
     return errs
 
 
-def edge_plain_sums(e, cd, em, W, dagg, dfs, mag=False, given=None):
+def edge_plain_sums(e, cd, em, W, dagg, dfs, mag=False, given=None,
+                    acc=None):
     """K6's seven parameter gradients as ``edge_pipeline_plain_bwd``
     computes them (its steps restated here to reach them), as {name: f32
     sum}; with ``mag`` each is the sum of its terms' magnitudes (``|a|^T
-    |b|``: step_errs' ``terms``). ``given``: {"m" and / or "g1": a bf16
-    [A, K, H] tensor} taken in place of that rounded intermediate."""
+    |b|``: step_errs' ``terms``), with ``mag="l2"`` the sum of their
+    squares. ``given``: {"m" and / or "g1": a bf16 [A, K, H] tensor} taken
+    in place of that rounded intermediate. ``acc``: the dtype every
+    product and sum is taken in (float32 by default; the rounding points
+    stay where they are)."""
+    import torch
     from enflow_tpu_torch.ops import edge_pipeline as ep
     given = given or {}
-    dt, f = e.dtype, (lambda t: t.float())
+    acc = acc or torch.float32
+    dt, f = e.dtype, (lambda t: t.to(acc))
     rnd = lambda name, t: f(given.get(name, t.to(dt)))
     W1, b1, W2, b2, W3, b3, w4 = (f(w) for w in W)
     silu, dsilu = ep._silu, ep._dsilu
@@ -1971,7 +2036,8 @@ def edge_plain_sums(e, cd, em, W, dagg, dfs, mag=False, given=None):
     dpre2 = (f(dagg.to(dt))[:, None, :] + rnd("dpre3", dpre3) @ W3.T) \
         * emf * dsilu(pre2)
     dpre1 = (rnd("dpre2", dpre2) @ W2.T) * dsilu(pre1)
-    flat = lambda t: (t.abs() if mag else t).reshape(-1, t.shape[-1])
+    flat = lambda t: (t.square() if mag == "l2" else t.abs() if mag
+                      else t).reshape(-1, t.shape[-1])
     outer = lambda a, b: flat(a).T @ flat(b)
     return dict(dW1=outer(f(e), rnd("dpre1", dpre1)), db1=flat(dpre1).sum(0),
                 dW2=outer(m1, rnd("dpre2", dpre2)), db2=flat(dpre2).sum(0),
@@ -2264,6 +2330,381 @@ def edge_wide_phase(card, generate=None):
           f"{smc['secs']:.3f} s, K5 + K6 launches x device (K = 12) "
           f"{k_smc:.3f} s ({k_smc / smc['secs']:.1%})")
     return dict(rec=rec, paths=paths, padded_cost=t, witness=w)
+
+
+# Phase edge_xwide: K5/K6 past H = 256 (csrc/edge_pipeline_xwide.cu,
+# routes "xwide" in bf16 and "f32_xwide" in float32) and the launches at
+# 64 .. 256 whose C the routes of those widths do not hold. (a) K5/K6 at
+# each width of EDGE_XWIDE_HS and shape of EDGE_XWIDE_SHAPES in both dtypes
+# against the plain version: outputs per element (bf16 ``edge_step_errs``,
+# f32 TOL_EDGE), the bf16 parameter gradients against the float64-summed
+# twin of the plain version within the parameter bound widened by FLIP_TOL
+# x the root-sum-square of their terms (``edge_xwide_reading``; the plain
+# version held to it too), f32 against TOL_PARAM, a second launch bitwise
+# equal; the C limits of EDGE_XWIDE_C on the xwide routes; (b) K5/K6 timed
+# at EDGE_XWIDE_TIMED (CUDA events, device time, the plain version, the
+# bound, the library's spills); (c) train.yaml at hidden_nf EDGE_XWIDE_H
+# (f32), 2 epochs and 1 resumed, then top-k vi_lj13.yaml and
+# sample_lj13.yaml from its checkpoint (bf16), cut to EDGE_XWIDE_SMC
+# (1024 particles x 4 of its 10 temperatures).
+EDGE_XWIDE_H = 512
+EDGE_XWIDE_HS = (320, 512)
+EDGE_XWIDE_VI_STEPS = 3
+EDGE_XWIDE_SMC = dict(n_particles=1024, n_temps=4)
+EDGE_XWIDE_SHAPES = {
+    "train": dict(A=390, K=24, C=3, masked=0.2),
+    "topk": dict(A=2048 * 13, K=12, C=11, masked=0.0),
+    "generate": dict(A=2944, K=56, C=3, masked=0.5, fwd_only=True),
+    "k80": dict(A=96, K=80, C=3, masked=0.3),
+    "ragged": dict(A=203, K=13, C=7, masked=0.5, dead=17),
+}
+# (dtype, H, C, a direction whose route of H does not hold C): the first C
+# past each old limit (bf16 C <= 64, and <= 48 in the K6 at 256; f32 K6 C
+# <= 78 and K5 C <= 155 at 128), C = 2 nf + 1 as the edge rows have it
+EDGE_XWIDE_C = (("bfloat16", 128, 65, "fwd"), ("bfloat16", 256, 49, "bwd"),
+                ("float32", 128, 79, "bwd"), ("float32", 128, 159, "fwd"))
+EDGE_XWIDE_TIMED = (("train", "float32"), ("train", "bfloat16"),
+                    ("topk", "bfloat16"), ("generate", "float32"))
+
+
+def edge_f64_twin(e, cd, em, W, dagg, dfs, mag=False):
+    """{gradient: f32} of ``edge_plain_sums`` with every product and sum in
+    float64, its rounding points kept (``mag``: the sums of the terms'
+    magnitudes, ``"l2"`` their root-sum-square), summed over batches of
+    atoms that keep each [rows, H] tensor under 2^26 elements."""
+    import torch
+    A, K = em.shape
+    chunk = max(1, 2 ** 26 // (K * W[2].shape[1]))
+    tot = None
+    for a0 in range(0, A, chunk):
+        s = slice(a0, a0 + chunk)
+        g = edge_plain_sums(e[s], cd[s], em[s], W, dagg[s], dfs[s], mag=mag,
+                            acc=torch.float64)
+        tot = g if tot is None else {k: tot[k] + g[k] for k in g}
+    if mag == "l2":
+        tot = {k: v.sqrt() for k, v in tot.items()}
+    return {k: v.float() for k, v in tot.items()}
+
+
+def edge_gate_widen(e, cd, em, W, dfs):
+    """{"F_sum": [A, 3], "dcd": [A, K, 3]}: how far a flip of the rounded
+    g1 terms of each slot's gate may carry F_sum and dcd: FLIP_TOL x the
+    root-sum-square of the gate's terms g1_c w4_c (the plain version's g1)
+    times |cd| of the unclipped valid slots summed over K, and times
+    |dtr|. The gate is an f32 sum of H rounded bf16 terms, as a parameter
+    gradient is of its edges' (FLIP_TOL)."""
+    import torch
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    emf, *_, g1, gate = ep._recompute(e, em, *W)
+    rss = (g1.float() * W[6].float()[:, 0]).square().sum(-1).sqrt()[..., None]
+    del g1
+    cdf = cd.float()
+    pre = cdf * gate
+    inside = ((pre > -100.0) & (pre < 100.0)).float() * emf
+    return {"F_sum": FLIP_TOL * (cdf.abs() * inside * rss).sum(1),
+            "dcd": FLIP_TOL * rss * (dfs.float()[:, None, :]
+                                     * inside).abs()}
+
+
+def edge_f64_outputs(e, cd, em, W, dagg, dfs, fwd_only=False):
+    """(agg, F_sum[, de, dcd]) of the plain version with every product and
+    sum in float64, its rounding points kept (in the compute dtype), over
+    batches of atoms that keep each [rows, H] tensor under 2^26
+    elements."""
+    import torch
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    A, K = em.shape
+    chunk = max(1, 2 ** 26 // (K * W[2].shape[1]))
+    acc = ep._acc
+    ep._acc = lambda dt: torch.float64
+    try:
+        parts = []
+        for a0 in range(0, A, chunk):
+            s = slice(a0, a0 + chunk)
+            out = ep.edge_pipeline_plain(e[s], cd[s], em[s], *W)
+            if not fwd_only:
+                out = out + ep.edge_pipeline_plain_bwd(
+                    e[s], cd[s], em[s], *W, dagg[s], dfs[s])[:2]
+            parts.append(out)
+    finally:
+        ep._acc = acc
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def edge_xwide_reading(names, got, want, args, dname):
+    """(ok, text, max abs err) of K5/K6 outputs ``names`` against the plain
+    version: bf16 outputs per element (``edge_step_errs``; F_sum and dcd
+    widened by ``edge_gate_widen``, and the plain version held to the same
+    limits against ``edge_f64_outputs``) and the seven parameter
+    gradients, the kernel's and the plain version's, against
+    ``edge_f64_twin`` within the bound widened by FLIP_TOL x their terms'
+    root-sum-square (``step_errs``' ``flips``); f32 against TOL_EDGE /
+    TOL_PARAM."""
+    outs = [n for n in names if n in EDGE_OUT[:4]]
+    params = [n for n in names if n in EDGE_OUT[4:]]
+    k = dict(zip(names, got))
+    p = dict(zip(names, want))
+    if dname == "float32":
+        errs = rel_errs(names, got, want)
+        ok = all(errs[n][1] <= (TOL_EDGE if n in outs else TOL_PARAM)[dname]
+                 for n in names)
+        text = "  ".join(f"{n} {a:.2e}/{r:.1e}" for n, (a, r) in errs.items())
+        return ok, text, max(a for a, _ in errs.values())
+    e, cd, em, W, dagg, dfs = args
+    widen = edge_gate_widen(e, cd, em, W, dfs)
+    twin = dict(zip(outs, edge_f64_outputs(*args, fwd_only=not params)))
+    errs = edge_step_errs(outs, [k[n] for n in outs], [p[n] for n in outs],
+                          widen=widen)
+    errs_p = edge_step_errs(outs, [p[n] for n in outs],
+                            [twin[n] for n in outs], widen=widen)
+    del widen, twin
+    ok = steps_ok(errs) and steps_ok(errs_p)
+    text = steps_text(errs) + " (plain vs the f64-summed twin " + "  ".join(
+        f"{n} {errs_p[n][1]:.2f}" for n in outs) + ")"
+    err = max(a for a, _, _ in errs.values())
+    if params:
+        twin = edge_f64_twin(*args)
+        terms = edge_f64_twin(*args, mag=True)
+        flips = edge_f64_twin(*args, mag="l2")
+        read = lambda src: step_errs(params, [src[n] for n in params],
+                                     [twin[n] for n in params], terms,
+                                     flips=flips)
+        rk, rp = read(k), read(p)
+        ok = ok and steps_ok(rk) and steps_ok(rp)
+        err = max(err, max(a for a, _, _ in rk.values()))
+        text += "; vs the f64-summed twin " + "  ".join(
+            f"{n} {rk[n][1]:.2f}x (plain {rp[n][1]:.2f}x)" for n in params)
+    return ok, text, err
+
+
+def edge_xwide_launch(label, shape, dname, seed, route=None):
+    """K5 (and K6 unless ``fwd_only``) at ``shape`` through the entry
+    points against the plain version (``edge_xwide_reading``), each launch
+    on the route ``kernel_for`` names for its direction and C (``route``:
+    the xwide route of the dtype that it must name in at least one
+    direction), a second launch bitwise equal. Returns (fwd, bwd, the
+    reading's text, max abs err, the valid slots, the routes)."""
+    import torch
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    dt = getattr(torch, dname)
+    e, cd, em, W, dagg, dfs, valid = gathered_inputs(shape, dt, seed)
+    args = (e, cd, em, W, dagg, dfs)
+    H, C = shape["H"], shape["C"]
+    fwd_only = shape.get("fwd_only", False)
+    fwd = lambda: ep.edge_pipeline_fwd(e, cd, em, W)
+    bwd = lambda: ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs)
+    routes = {d: ep.kernel_for(dt, H, C, d) for d in ("fwd", "bwd")}
+    reset_counts()
+    got = fwd() if fwd_only else fwd() + bwd()
+    torch.cuda.synchronize()
+    want_c = route_counts(routes["fwd"], 1, 0,
+                          ep.padded_width(H) != H)
+    if not fwd_only:
+        want_c[routes["bwd"]] = (want_c[routes["bwd"]][0], 1)
+        if ep.padded_width(H) != H:
+            want_c["padded"] = (1, 1)
+    require(edge_routes() == want_c and plain_calls() == 0,
+            f"edge_xwide {label} {dname} H={H}: launches {edge_routes()} "
+            f"!= {want_c}")
+    require(route is None or route in routes.values(),
+            f"edge_xwide {label} {dname} H={H} C={C}: routes {routes}, "
+            f"not {route}")
+    again = fwd() if fwd_only else fwd() + bwd()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    del again
+    names = EDGE_OUT[:2] if fwd_only else EDGE_OUT
+    want = ep.edge_pipeline_plain(e, cd, em, *W)
+    if not fwd_only:
+        want = want + ep.edge_pipeline_plain_bwd(e, cd, em, *W, dagg, dfs)
+    ok, text, err = edge_xwide_reading(names, got, want, args, dname)
+    del got, want
+    require(ok, f"edge_xwide {label} {dname} H={H} C={C} disagrees with "
+            f"plain: {text}")
+    require(same, f"edge_xwide {label} {dname} H={H} C={C}: a second launch "
+            "gave other bits")
+    return fwd, (None if fwd_only else bwd), text, err, int(valid.sum()), \
+        routes
+
+
+def edge_xwide_checks(card):
+    """(a): the library's shared memory and threads beside the mirror
+    (tests/egcl_smem_mirror.py), every width of EDGE_XWIDE_HS x shape of
+    EDGE_XWIDE_SHAPES in both dtypes, A = 0, and the C limits of
+    EDGE_XWIDE_C; returns {(shape, dtype, H): (max abs err, valid)}."""
+    import torch
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    sys.path.insert(0, str(ROOT / "tests"))
+    import egcl_smem_mirror as mirror
+    lib = ep._xwide_library()
+    for code in (1, 0):
+        got = {(C, H, d): lib.edge_xwide_smem_bytes(code, C, H, d)
+               for C in (3, 11, 129) for H in (64, 320, 512, ep.XWIDE_MAX_H)
+               for d in (0, 1)}
+        want = {k: mirror.edge_xwide_bytes(code, *k) for k in got}
+        require(got == want and len(set(got.values())) == 1
+                and lib.edge_xwide_max_width() == ep.XWIDE_MAX_H,
+                f"edge_xwide shared memory (code {code}): library {got}, "
+                f"mirror {want}")
+        phase("edge_xwide", f"(a) {'bf16' if code else 'float32'}: "
+              f"{lib.edge_xwide_threads(code)} threads and "
+              f"{next(iter(got.values())):,} bytes of shared memory a block "
+              f"at every C of 3, 11, 129 and H of 64, 320, 512, "
+              f"{ep.XWIDE_MAX_H} in both directions (the mirror's too), of "
+              f"{lib.edge_xwide_smem_limit():,}")
+    rec = {}
+    for H in EDGE_XWIDE_HS:
+        for sname, base in EDGE_XWIDE_SHAPES.items():
+            for dname in ("bfloat16", "float32"):
+                shape = dict(base, H=H)
+                route = ep.XWIDE_ROUTE[getattr(torch, dname)]
+                _, _, text, err, valid, _ = edge_xwide_launch(
+                    sname, shape, dname, 61, route)
+                rec[(sname, dname, H)] = (err, valid)
+                phase("edge_xwide", f"(a) {sname} {dname} A={shape['A']} "
+                      f"K={shape['K']} C={shape['C']} H={H} ({route}) vs "
+                      f"plain: {text} -> ok; a second launch bitwise equal")
+                torch.cuda.empty_cache()
+    # no atoms: zeros, and no launch
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        _, _, _, W, _, _, _ = gathered_inputs(
+            dict(A=4, K=12, C=11, H=EDGE_XWIDE_H, masked=0.0), dt, 61)
+        z = lambda *s: torch.zeros(s, dtype=dt, device="cuda")
+        e, cd, em = z(0, 12, 11), z(0, 12, 3), z(0, 12)
+        reset_counts()
+        out = (ep.edge_pipeline_fwd(e, cd, em, W)
+               + ep.edge_pipeline_bwd(e, cd, em, W, z(0, EDGE_XWIDE_H),
+                                      z(0, 3)))
+        shapes = [tuple(t.shape) for t in out]
+        require(shapes == [(0, EDGE_XWIDE_H), (0, 3), (0, 12, 11), (0, 12, 3)]
+                + [tuple(w.shape) for w in W]
+                and not any(bool(g.any()) for g in out[4:])
+                and ep.kernel_for(dt, EDGE_XWIDE_H, 11) == ep.XWIDE_ROUTE[dt]
+                and edge_routes() == route_counts(ep.XWIDE_ROUTE[dt], 0, 0),
+                f"edge_xwide A=0 {dname}: {shapes}, {edge_routes()}")
+        phase("edge_xwide", f"(a) A=0 {dname} H={EDGE_XWIDE_H} (route "
+              f"{ep.XWIDE_ROUTE[dt]}): empty outputs and seven zero "
+              "parameter gradients, no launch")
+    # the C limits of the routes at 64 .. 256 (ROADMAP B7.3, closed)
+    for dname, H, C, direction in EDGE_XWIDE_C:
+        shape = dict(A=300, K=12, C=C, H=H, masked=0.2)
+        route = ep.XWIDE_ROUTE[getattr(torch, dname)]
+        _, _, text, _, _, routes = edge_xwide_launch(
+            f"C={C}", shape, dname, 67, route)
+        require(routes[direction] == route, f"C={C} H={H} {dname} "
+                f"{direction}: route {routes[direction]}")
+        phase("edge_xwide", f"(a) C={C} {dname} H={H} A=300 K=12: K5 on "
+              f"{routes['fwd']}, K6 on {routes['bwd']} vs plain: {text} -> "
+              f"ok; a second launch bitwise equal")
+    return rec
+
+
+def edge_xwide_kernels(card):
+    """(b): K5/K6 at EDGE_XWIDE_TIMED (H = EDGE_XWIDE_H): CUDA events,
+    device time, the plain version, the bound (``edge_work``); returns
+    {(shape, dtype): record}."""
+    import torch
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    rec = {}
+    for sname, dname in EDGE_XWIDE_TIMED:
+        shape = dict(EDGE_XWIDE_SHAPES[sname], H=EDGE_XWIDE_H)
+        fwd, bwd, text, err, valid, _ = edge_xwide_launch(
+            sname, shape, dname, 73)
+        dt = getattr(torch, dname)
+        e, cd, em, W, dagg, dfs, _ = gathered_inputs(shape, dt, 73)
+        fl_f, fl_b, by_f, by_b = edge_work(shape, dname, valid)
+        r = dict(err=err)
+        for d, fn, fl, by in (("fwd", fwd, fl_f, by_f),
+                              ("bwd", bwd, fl_b, by_b)):
+            if fn is None:
+                continue
+            plain = ((lambda: ep.edge_pipeline_plain(e, cd, em, *W))
+                     if d == "fwd" else
+                     (lambda: ep.edge_pipeline_plain_bwd(e, cd, em, *W,
+                                                         dagg, dfs)))
+            r[f"plain_{d}"] = cuda_time_ms(plain, reps=3, calls=1, warmup=1)
+            torch.cuda.empty_cache()
+            r[f"ms_{d}"] = cuda_time_ms(fn, reps=5, calls=2, warmup=1)
+            r[f"dev_{d}"] = device_ms(fn, "edge_xwide_kernel", calls=6,
+                                      warmup=1)
+            r[f"bound_{d}"] = bound(fl, by, PEAK_FLOPS[dname])
+            phase("edge_xwide", f"(b) {sname} {dname} A={shape['A']} "
+                  f"K={shape['K']} C={shape['C']} H={EDGE_XWIDE_H} "
+                  f"{'K5' if d == 'fwd' else 'K6'} on {card}: events "
+                  f"{r[f'ms_{d}']:.4f} ms, device {r[f'dev_{d}']:.4f} ms, "
+                  f"plain {r[f'plain_{d}']:.4f} ms, bound "
+                  f"{r[f'bound_{d}'][0]:.4f} ms ({r[f'bound_{d}'][1]}, "
+                  f"{fl / 1e9:.2f} GFLOP, {by / 1e6:.2f} MB), "
+                  f"{fl / (r[f'dev_{d}'] * 1e9):.2f} TFLOP/s; vs plain "
+                  f"{text}")
+        rec[(sname, dname)] = r
+        del e, cd, em, W, dagg, dfs, fwd, bwd
+        torch.cuda.empty_cache()
+    if "edge_pipeline_xwide" in BUILD_SPILLS:
+        spills = BUILD_SPILLS["edge_pipeline_xwide"]
+        phase("edge_xwide", f"(b) ptxas: {len(spills)} functions of "
+              "edge_pipeline_xwide.cu spill" + "".join(f"\n  {f}"
+                                                       for f in spills))
+    return rec
+
+
+def edge_xwide_paths(card):
+    """(c): train.yaml at hidden_nf EDGE_XWIDE_H (float32, f32_xwide), 2
+    epochs then 1 resumed; top-k vi_lj13.yaml at EDGE_XWIDE_H 1 x
+    EDGE_XWIDE_VI_STEPS steps and top-k sample_lj13.yaml from its
+    checkpoint cut to EDGE_XWIDE_SMC (bf16, xwide). Launches held exactly,
+    no plain call."""
+    import os
+    cwd = os.getcwd()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            a = edge_wide_train(card, EDGE_XWIDE_H, 2, True, tmp,
+                                "model_x.cpt")
+            a["s_step"] = statistics.median(
+                a["step_s"][TRAIN_STEPS_PER_EPOCH:])
+            phase("edge_xwide", f"(c) train.yaml at hidden_nf "
+                  f"{EDGE_XWIDE_H} on {card}: auto capacity "
+                  f"{a['capacity']}, 2 epochs x {TRAIN_STEPS_PER_EPOCH} "
+                  f"steps, {a['s_step']:.5f} s/step (median of epoch 2; "
+                  f"first step {a['step_s'][0]:.4f} s), losses "
+                  + ", ".join(f"{x:.2f}" for x in a["losses"])
+                  + f"; K5/K6 {a['launches']} on f32_xwide (5 + 5 a step), "
+                  f"0 on any other route, plain 0; resumed epoch 3: K5/K6 "
+                  f"{a['resumed']}, losses " + ", ".join(
+                      f"{x:.2f}" for x in a["resumed_losses"])
+                  + f" ({time.perf_counter() - t0:.1f} s with the dataset)")
+    finally:
+        os.chdir(cwd)
+    out = dict(train=a)
+    out.update(topk_vi_sample(card, "edge_xwide", EDGE_XWIDE_H, "xwide",
+                              EDGE_XWIDE_VI_STEPS, EDGE_XWIDE_SMC))
+    return out
+
+
+def edge_xwide_phase(card):
+    """Phase edge_xwide: (a) ``edge_xwide_checks``, (b)
+    ``edge_xwide_kernels``, (c) ``edge_xwide_paths``, and each driver
+    run's kernel share."""
+    checks = edge_xwide_checks(card)
+    rec = edge_xwide_kernels(card)
+    paths = edge_xwide_paths(card)
+    tr, sp = rec[("train", "float32")], rec[("topk", "bfloat16")]
+    k_step = 5 * (tr["dev_fwd"] + tr["dev_bwd"]) / 1e3
+    s_step = paths["train"]["s_step"]
+    smc = paths["smc"]
+    # the run's batch is smc["P"] molecules, the timed shape's 2048: its
+    # device times scaled by the rows
+    scale = smc["P"] * 13 / EDGE_XWIDE_SHAPES["topk"]["A"]
+    k_smc = scale * (smc["launches"][0] * sp["dev_fwd"]
+                     + smc["launches"][1] * sp["dev_bwd"]) / 1e3
+    phase("edge_xwide", f"kernel share: train.yaml at {EDGE_XWIDE_H} "
+          f"{s_step:.5f} s a step, 5 x (K5 + K6) device {k_step:.5f} s "
+          f"({k_step / s_step:.1%}); top-k sample_lj13 at {EDGE_XWIDE_H} "
+          f"({smc['P']} particles, {smc['T']} temps) {smc['secs']:.3f} s, "
+          f"K5 + K6 launches x device time at 2048 molecules scaled by "
+          f"{scale:.3f} to its rows {k_smc:.3f} s ({k_smc / smc['secs']:.1%})")
+    return dict(checks=checks, rec=rec, paths=paths)
 
 
 def edge_seed_sweep(first, last):
@@ -2914,7 +3355,8 @@ def host_ms(fn, calls=200):
 def ab_phase(card, old_src):
     """An earlier kernel source against the current one, in turns old,
     new, new, old, old, new within this process. ``old_src`` is an
-    earlier egcl_allpairs_f32.cu (``f32_bits_ab_phase``), edge_pipeline.cu
+    earlier egcl_allpairs_f32.cu (``f32_bits_ab_phase``),
+    egcl_allpairs_xwide.cu (``xwide_bits_ab_phase``), edge_pipeline.cu
     (``edge_ab_phase``), edge_pipeline_sm90.cu (``edge_sm90_bits_ab_phase``),
     pair_energy.cu (``pair_ab_phase``) or egcl_allpairs_sm90.cu with the same bf16 K1/K2 entry points (K2 p and
     the VI path stay on the current source). For the last a turn times
@@ -2934,6 +3376,7 @@ def ab_phase(card, old_src):
     pair = "pair_energy_kernel" in text
     tiled_f32 = "egcl_f32_fwd" in text
     edge_sm90 = "edge_sm90_fwd" in text
+    xwide = "egcl_xwide_fwd" in text
     with tempfile.TemporaryDirectory() as tmp:
         lib_path = Path(tmp) / "libegcl_old.so"
         t0 = time.perf_counter()
@@ -2943,15 +3386,19 @@ def ab_phase(card, old_src):
         require(out.returncode == 0, f"nvcc failed on {old_src}:\n"
                 f"{out.stdout}{out.stderr}")
         old_lib = ctypes.CDLL(str(lib_path))
-    require(edge or hopper or pair or tiled_f32 or edge_sm90,
+    require(edge or hopper or pair or tiled_f32 or edge_sm90 or xwide,
             f"{old_src}: not a kernel source that --ab compares")
     kind = ("edge-pipeline" if edge else "Hopper" if hopper
             else "pair-energy" if pair else "tiled f32" if tiled_f32
+            else "column-chunked all-pairs" if xwide
             else "Hopper edge-pipeline")
     phase("ab", f"built {old_src} ({kind} kernels) in "
           f"{time.perf_counter() - t0:.1f} s")
     if tiled_f32:
         f32_bits_ab_phase(card, old_lib)
+        return
+    if xwide:
+        xwide_bits_ab_phase(card, old_lib)
         return
     if edge_sm90:
         edge_sm90_bits_ab_phase(card, old_lib)
@@ -3202,6 +3649,67 @@ def f32_bits_ab_phase(card, old_lib):
                       "egcl_f32_bwd_kernel")})
 
 
+def xwide_bits_ab_phase(card, old_lib):
+    """An earlier egcl_allpairs_xwide.cu (``old_lib``, built; the entry
+    points of this one) against the current: K1, K2 and K2 p of both dtypes
+    bit for bit at H = 320, 512 and 1024 x N = 13, 55 and 147 (phase
+    xwide's batches), then K1 / K2 of both dtypes at the reference's
+    B=1024, N=13, H=512 timed in turns (CUDA events and device time)."""
+    import torch
+    from enflow_tpu_torch.ops import build
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+
+    new_lib = ops._xwide_library()
+    for fn in ("egcl_xwide_fwd", "egcl_xwide_bwd", "egcl_xwide_bwd_params",
+               "egcl_xwide_grid", "egcl_xwide_splits", "egcl_xwide_threads",
+               "egcl_xwide_max_width", "egcl_xwide_smem_bytes",
+               "egcl_xwide_smem_limit", "egcl_part_size",
+               "egcl_xwide_error_string"):
+        f, g = getattr(old_lib, fn), getattr(new_lib, fn)
+        f.argtypes, f.restype = g.argtypes, g.restype
+    old_lib._enflow_bound = True
+
+    def use(which):
+        build._loaded["egcl_allpairs_xwide"] = (old_lib if which == "old"
+                                                else new_lib)
+
+    cases = []
+    for dname in ("bfloat16", "float32"):
+        for H in (320, 512, 1024):
+            for N in XWIDE_NS:
+                shape = dict(B=XWIDE_CHECK_B[N], N=N, nf=5, H=H, n_pad=1)
+                args = edge_inputs(shape, getattr(torch, dname), seed=11)[:7]
+                for kind in ("fwd", "bwd", "bwd_params"):
+                    run = lambda k=kind: ops.allpairs_edges_xwide(
+                        k, *(args[:5] if k == "fwd" else args))
+                    use("old")
+                    a = run()
+                    use("new")
+                    same = all(bool(torch.equal(x, y))
+                               for x, y in zip(a, run()))
+                    cases.append((f"{dname} H={H} N={N} {kind}", same))
+                torch.cuda.empty_cache()
+    use("new")
+    differ = [c for c, same in cases if not same]
+    phase("ab", f"column-chunked all-pairs K1/K2/K2 p: old == new bit for "
+          f"bit at {len(cases) - len(differ)} of {len(cases)} dtype x shape "
+          "x direction cases" + (f"; they differ at {differ}" if differ
+                                 else ""))
+    require(not differ, f"the all-pairs xwide kernels changed: {differ}")
+    ref = dict(B=1024, N=13, nf=5, H=XWIDE_H)
+    args = edge_inputs(ref, torch.bfloat16, seed=11)[:7]
+    f32 = edge_inputs(ref, torch.float32, seed=11)[:7]
+    ab_turns(card, use, {
+        "K1 ref512": (lambda: ops.allpairs_edges_fwd(*args[:5]),
+                      "egcl_xwide_kernel"),
+        "K2 ref512": (lambda: ops.allpairs_edges_bwd(*args),
+                      "egcl_xwide_kernel"),
+        "K1 f32 ref512": (lambda: ops.allpairs_edges_fwd(*f32[:5]),
+                          "egcl_xwide_kernel"),
+        "K2 f32 ref512": (lambda: ops.allpairs_edges_bwd(*f32),
+                          "egcl_xwide_kernel")})
+
+
 def edge_sm90_bits_ab_phase(card, old_lib):
     """An earlier edge_pipeline_sm90.cu (``old_lib``, built; the entry
     points of this one at H = 64 and 128) against the current: bf16 K5
@@ -3225,10 +3733,7 @@ def edge_sm90_bits_ab_phase(card, old_lib):
                                                else new_lib)
 
     cases = []
-    for sname, shape in EDGE_SHAPES.items():
-        if ("bfloat16" not in shape.get("dtypes", ("bfloat16",))
-                or shape["H"] not in ep.TILED_H):
-            continue
+    for sname, shape in edge_ab_shapes("bfloat16"):
         e, cd, em, W, dagg, dfs, _ = gathered_inputs(shape, torch.bfloat16,
                                                      seed=13)
         run = lambda: (ep.edge_pipeline_fwd(e, cd, em, W)
@@ -3241,10 +3746,11 @@ def edge_sm90_bits_ab_phase(card, old_lib):
                                  for x, y in zip(a, b))))
     use("new")
     differ = [c for c, same in cases if not same]
-    phase("ab", f"bf16 K5/K6 at H = 64/128: old == new bit for bit at "
-          f"{len(cases) - len(differ)} of {len(cases)} shapes (K5 and K6 "
-          "outputs each)" + (f"; they differ at {differ}" if differ else ""))
-    require(not differ, f"the bf16 K5/K6 at H = 64/128 changed: {differ}")
+    phase("ab", f"bf16 K5/K6 at H = 64/128 and 192/256: old == new bit for "
+          f"bit at {len(cases) - len(differ)} of {len(cases)} shapes (K5 and "
+          "K6 outputs each)" + (f"; they differ at {differ}" if differ
+                                else ""))
+    require(not differ, f"the bf16 K5/K6 up to H = 256 changed: {differ}")
     e, cd, em, W, dagg, dfs, _ = gathered_inputs(EDGE_SHAPES["sampler"],
                                                  torch.bfloat16, seed=13)
     ab_turns(card, use, {
@@ -3252,6 +3758,24 @@ def edge_sm90_bits_ab_phase(card, old_lib):
                        "edge_sm90_fwd_kernel"),
         "K6 sampler": (lambda: ep.edge_pipeline_bwd(e, cd, em, W, dagg, dfs),
                        "edge_sm90_bwd_kernel")})
+
+
+def edge_ab_shapes(dname):
+    """The K5/K6 shapes that an A/B of an edge source holds bit for bit in
+    ``dname``: EDGE_SHAPES at their own widths of 64 and 128, and
+    EDGE_WIDE_SHAPES at 192 and 256 (each within its ``widths``), every
+    one on the route of its width (its C within that route's limits)."""
+    from enflow_tpu_torch.ops import edge_pipeline as ep
+    out = [(s, shape) for s, shape in EDGE_SHAPES.items()
+           if dname in shape.get("dtypes", (dname,))
+           and shape["H"] in ep.TILED_H]
+    for H in ep.WIDE_H:
+        for s, base in EDGE_WIDE_SHAPES.items():
+            if (dname in base.get("dtypes", (dname,))
+                    and H in base.get("widths", (H,))
+                    and not base.get("fwd_only")):
+                out.append((f"{s} H={H}", dict(base, H=H)))
+    return out
 
 
 def edge_ab_phase(card, old_lib):
@@ -3275,10 +3799,7 @@ def edge_ab_phase(card, old_lib):
                                           else new_lib)
 
     same, cases = [], {}
-    for sname, shape in EDGE_SHAPES.items():
-        if ("float32" not in shape.get("dtypes", ("float32",))
-                or shape["H"] not in ep.TILED_H):
-            continue
+    for sname, shape in edge_ab_shapes("float32"):
         e, cd, em, W, dagg, dfs, _ = gathered_inputs(shape, torch.float32,
                                                       13)
         fwd = lambda e=e, cd=cd, em=em, W=W: ep.edge_pipeline_fwd(e, cd, em,
@@ -3296,10 +3817,11 @@ def edge_ab_phase(card, old_lib):
                             + ep.edge_pipeline_plain_bwd(e, cd, em, *W, dagg,
                                                          dfs))
     differ = [c for c, ok in same if not ok]
-    phase("ab", f"f32 K5/K6 at H = 64/128: old == new bit for bit at "
-          f"{len(same) - len(differ)} of {len(same)} shapes (K5 and K6 "
-          "outputs each)" + (f"; they differ at {differ}" if differ else ""))
-    require(not differ, f"the f32 K5/K6 at H = 64/128 changed: {differ}")
+    phase("ab", f"f32 K5/K6 at H = 64/128 and 192/256: old == new bit for "
+          f"bit at {len(same) - len(differ)} of {len(same)} shapes (K5 and "
+          "K6 outputs each)" + (f"; they differ at {differ}" if differ
+                                else ""))
+    require(not differ, f"the f32 K5/K6 up to H = 256 changed: {differ}")
     cwd, rows = os.getcwd(), []
     try:
         with tempfile.TemporaryDirectory() as tmp:
@@ -6815,7 +7337,9 @@ def mcmc_phase(card, lj13_dir):
 
 
 # remc_lj13.yaml as committed (6 slots x 512 chains, 200 rounds), with MBAR,
-# once monolithic and once in segments of REMC_CHUNK rounds
+# once monolithic and once in segments of REMC_CHUNK rounds. (Cut to 40
+# rounds, 20 discarded, MBAR's last change read 0.0638, past the 1e-2 the
+# phase holds it to: the chains had not mixed.)
 REMC_CHUNK = 50
 REMC = dict(B=3072, N=13, nf=5, H=128)
 
@@ -7495,11 +8019,16 @@ def import_phase(card, tmp):
     return dict(import_s=imp_s, export_s=exp_s)
 
 
+# {library: the functions ptxas reported spilling}, from build_phase
+BUILD_SPILLS = {}
+
+
 def build_phase():
     """Fresh builds of every kernel source, one nvcc each, in parallel."""
     from enflow_tpu_torch.ops import build
     names = ("egcl_allpairs_sm90", "egcl_allpairs_f32", "egcl_allpairs_xwide",
-             "edge_pipeline", "edge_pipeline_sm90", "pair_energy")
+             "edge_pipeline", "edge_pipeline_sm90", "edge_pipeline_xwide",
+             "pair_energy")
     for name in names:
         build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
@@ -7517,6 +8046,7 @@ def build_phase():
                 func = ln.rsplit(" ", 1)[-1]
             elif "spill stores" in ln and " 0 bytes spill stores" not in ln:
                 spilled.append(f"{func} ({ln.strip()})")
+        BUILD_SPILLS[name] = spilled
         phase("build", f"{name}.cu -> {lib.name} in {secs:.1f} s; ptxas: "
               f"{'; '.join(regs)}; functions with spills: {len(spilled)}"
               + "".join(f"\n  {f}" for f in spilled)
@@ -7538,8 +8068,10 @@ def main():
     ap.add_argument("--ab", nargs="+", default=None, metavar="OLD_CU",
                     help="time the kernels built from earlier sources "
                     "(egcl_allpairs_sm90.cu, egcl_allpairs_f32.cu, "
-                    "edge_pipeline.cu, edge_pipeline_sm90.cu or "
-                    "pair_energy.cu; each in turn) against the current "
+                    "egcl_allpairs_xwide.cu, edge_pipeline.cu, "
+                    "edge_pipeline_sm90.cu or pair_energy.cu; each in turn; "
+                    "the bits first where the source computes the same "
+                    "function) against the current "
                     "ones, and SMC runs, train.yaml epochs or train.yaml MD "
                     "datasets with each, instead of the phases after the "
                     "build")
@@ -7686,6 +8218,8 @@ def main():
     erec = timed("edge", edge_kernel_phase, tr["capacity"], gen)
     # K5/K6 at 128 < H <= 256 (and padded), generate's shape from its run
     ew = timed("edge_wide", edge_wide_phase, card, gen)
+    # K5/K6 past H = 256 and past the C limits of the routes up to 256
+    ex = timed("edge_xwide", edge_xwide_phase, card)
 
     m = rec[("main", "bfloat16")]
     q = qrec[("vi", "bfloat16")]
@@ -7914,6 +8448,22 @@ def main():
             kernels.append(kernel_record(
                 f"{name}_{d}", src, f"{ek}:{line}", n[k], r[f"err_{d}"],
                 r[f"ms_{d}"], r[f"plain_{d}"], r[f"bound_{d}"]))
+    # the column-chunked K5/K6 at hidden_nf EDGE_XWIDE_H: f32 at the
+    # training shape with the launches of phase edge_xwide's train.yaml run
+    # (its resumed epoch included), bf16 at the top-k shape with those of
+    # its top-k SMC run (1024 particles, 4 temps)
+    xrec, xpaths = ex["rec"], ex["paths"]
+    for name, key, n in (
+            ("edge_pipeline_f32_xwide", ("train", "float32"),
+             [a + b for a, b in zip(xpaths["train"]["launches"],
+                                    xpaths["train"]["resumed"])]),
+            ("edge_pipeline_xwide", ("topk", "bfloat16"),
+             xpaths["smc"]["launches"])):
+        r = xrec[key]
+        for k, (d, line) in enumerate((("fwd", 219), ("bwd", 246))):
+            kernels.append(kernel_record(
+                f"{name}_{d}", "edge_pipeline_xwide.cu", f"{ek}:{line}", n[k],
+                r["err"], r[f"ms_{d}"], r[f"plain_{d}"], r[f"bound_{d}"]))
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

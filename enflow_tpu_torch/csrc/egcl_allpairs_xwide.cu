@@ -33,7 +33,8 @@
 //   main paths): X3 = m1; X0 = m2, later dz1; X1 = dsilu(z2), then dz2 in
 //   place; X2 = dsilu(z3), then dz3 in place; X4 = g1 (parameter
 //   gradients).
-// - Every H x H product runs in 64-column output chunks (a runtime count),
+// - Every H x H product runs on the engines of xwide_engine.cuh (shared
+//   with edge_pipeline_xwide.cu) in 64-column output chunks (a runtime count),
 //   each over 64-row k-chunks of the weight: a chunk of the activation and
 //   one of the weight are staged in shared memory per step, two steps
 //   deep (the next step's loads issued while the current step computes).
@@ -81,6 +82,7 @@
 #include "egcl_part_layout.cuh"
 #include "egcl_wide_nf.cuh"
 #include "sm90_common.cuh"
+#include "xwide_engine.cuh"
 
 namespace {
 namespace xwide {
@@ -89,13 +91,8 @@ using wide_nf::from_f;
 using wide_nf::rnd;
 using wide_nf::to_f;
 
-constexpr int kRows = 64;      // edge rows a tile
 constexpr int kAtoms = 8;      // atoms a block (8 x 8 = kRows)
-constexpr int kCol = 64;       // output columns a chunk, and k a chunk
-constexpr int kMaxH = 11520;   // 2 H^2 floats of a K2 p slice under 1 GiB
 constexpr int kTiles = 5;      // [64, H] activation tiles a block
-constexpr size_t kMaxSmem = 232448;
-constexpr double kMaxPartBytes = 1073741824.0;
 
 enum Kind { kFwd = 0, kBwd = 1, kBwdParams = 2 };
 
@@ -133,241 +130,6 @@ struct Rows {
   float r2[kRows], valid[kRows], gate[kRows], dgate[kRows], dr2[kRows];
   int ri[kRows], rj[kRows];
   float fs[kAtoms][3];
-};
-
-// ---- the bf16 engine: one warpgroup, wgmma on staged 64 x 64 chunks
-
-struct EngBf {
-  using T = bf16;
-  static constexpr int kThreads = kWG;
-  static constexpr int kSlots = 2;   // rows a thread holds in an output
-  static constexpr size_t kStageBytes = 4 * sizeof(bf16) * kRows * kCol;
-  struct Acc {
-    float d0[16], d1[16];
-  };
-  struct Sm {
-    bf16* a[2];
-    bf16* b[2];
-  };
-  __device__ static Sm carve(char* base) {
-    const size_t S = sizeof(bf16) * kRows * kCol;
-    return Sm{{(bf16*)base, (bf16*)(base + S)},
-              {(bf16*)(base + 2 * S), (bf16*)(base + 3 * S)}};
-  }
-  // f(slot, row, column of the chunk, value) over the thread's elements:
-  // warp w's lane l holds rows 16 w + l / 4 (slot 0) and + 8 (slot 1),
-  // columns 32 half + 8 j + 2 (l % 4) + e.
-  template <class F>
-  __device__ static void each(const Acc& c, F&& f) {
-    const int t = threadIdx.x, l = t & 31, q = l & 3;
-    const int r0 = 16 * (t >> 5) + (l >> 2);
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int k = 0; k < 2; ++k)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            f(k, r0 + 8 * k, 32 * half + 8 * j + 2 * q + e,
-              (half ? c.d1 : c.d0)[4 * j + 2 * k + e]);
-  }
-  __device__ static int slot_row(int k) {
-    const int t = threadIdx.x;
-    return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * k;
-  }
-  __device__ static float row_sum(float v) { return quad_sum(v); }
-  __device__ static bool row_lead() { return (threadIdx.x & 3) == 0; }
-
-  // A 64 x 64 chunk of a row-major matrix (ld columns) from global memory
-  // into registers (16 bytes a piece) and from there into a swizzled stage.
-  struct Chunk {
-    const bf16* p;
-    int ld, row0, col0;
-  };
-  __device__ static void fetch(const Chunk& c, uint4 (&r)[4]) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int idx = threadIdx.x + kWG * u, rho = idx >> 3, g = idx & 7;
-      r[u] = *reinterpret_cast<const uint4*>(
-          c.p + (size_t)(c.row0 + rho) * c.ld + c.col0 + 8 * g);
-    }
-  }
-  __device__ static void put(bf16* dst, const uint4 (&r)[4]) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int idx = threadIdx.x + kWG * u, rho = idx >> 3, g = idx & 7;
-      *reinterpret_cast<uint4*>((char*)dst + swz(rho, 8 * g, kTile)) = r[u];
-    }
-  }
-  // d (+)= the 32 output columns from n0 of one staged step: MODE 0 X W (W
-  // MN-major), 1 X W^T (W K-major), 2 A^T B (both MN-major, the 64 rows K).
-  template <int MODE>
-  __device__ static void mma(float (&d)[16], uint32_t a, uint32_t b, int n0,
-                             bool acc) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t da = MODE == 2
-                              ? smem_desc(a + 2048 * kk, 128 * kTile, 1024)
-                              : smem_desc(a + 32 * kk, 16, 1024);
-      const uint64_t db =
-          MODE == 1 ? smem_desc(b + 128 * n0 + 32 * kk, 16, 1024)
-                    : smem_desc(b + 2 * n0 + 2048 * kk, 128 * kTile, 1024);
-      const int sc = (acc || kk > 0) ? 1 : 0;
-      if constexpr (MODE == 0)
-        wgmma_ss32<1>(d, da, db, sc);
-      else if constexpr (MODE == 1)
-        wgmma_ss32<0>(d, da, db, sc);
-      else
-        wgmma_tt32(d, da, db, sc);
-    }
-  }
-  // The product of the [64, H] tile X and the [H, H] matrix Y (MODE 0: X
-  // Y, 1: X Y^T; H / 64 outputs of H / 64 k-chunks) or X^T Y for a [64, H]
-  // Y (MODE 2: (H / 64)^2 outputs o = 64-row block o / G, 64-column block
-  // o % G, one k-chunk): epi(o, acc) takes each 64 x 64 output chunk. Ends
-  // with a block barrier.
-  template <int MODE, class Epi>
-  __device__ static void run(const Sm& sm, const bf16* X, const bf16* Y,
-                             int H, Epi&& epi) {
-    const int G = H / kCol, nk = MODE == 2 ? 1 : G;
-    const int S = (MODE == 2 ? G * G : G) * nk;
-    uint4 ra[4], rb[4];
-    auto load = [&](int s) {
-      const int o = s / nk, k = s % nk;
-      Chunk ca, cb;
-      if constexpr (MODE == 2) {
-        ca = Chunk{X, H, 0, kCol * (o / G)};
-        cb = Chunk{Y, H, 0, kCol * (o % G)};
-      } else {
-        ca = Chunk{X, H, 0, kCol * k};
-        cb = MODE == 0 ? Chunk{Y, H, kCol * k, kCol * o}
-                       : Chunk{Y, H, kCol * o, kCol * k};
-      }
-      fetch(ca, ra);
-      fetch(cb, rb);
-    };
-    load(0);
-    put(sm.a[0], ra);
-    put(sm.b[0], rb);
-    Acc acc;
-#pragma unroll 1
-    for (int s = 0; s < S; ++s) {
-      const int buf = s & 1, o = s / nk, k = s % nk;
-      // the stage's stores visible to wgmma; every thread is done with the
-      // step before (it waited for its products), so its stage is free
-      wg_publish(0);
-      const uint32_t a = smem_addr(sm.a[buf]), b = smem_addr(sm.b[buf]);
-      fence_regs(acc.d0);
-      fence_regs(acc.d1);
-      wgmma_fence();
-      mma<MODE>(acc.d0, a, b, 0, k > 0);
-      mma<MODE>(acc.d1, a, b, kChunk, k > 0);
-      wgmma_commit();
-      if (s + 1 < S) load(s + 1);
-      wgmma_wait_for<0>();
-      fence_regs(acc.d0);
-      fence_regs(acc.d1);
-      if (s + 1 < S) {
-        put(sm.a[buf ^ 1], ra);
-        put(sm.b[buf ^ 1], rb);
-      }
-      if (k == nk - 1) epi(o, acc);
-    }
-    __syncthreads();
-  }
-};
-
-// ---- the float32 engine: 256 threads, 4 x 4 register tiles, FMA
-
-struct EngF32 {
-  using T = float;
-  static constexpr int kThreads = wide_nf::kThreads;
-  static constexpr int kSlots = 4;
-  static constexpr size_t kStageBytes = sizeof(wide_nf::Stage);
-  struct Acc {
-    float v[4][4];
-  };
-  using Sm = wide_nf::Stage*;
-  __device__ static Sm carve(char* base) { return (wide_nf::Stage*)base; }
-  // thread t holds rows 4 (t / 16) + i (slot i), columns 4 (t % 16) + j
-  template <class F>
-  __device__ static void each(const Acc& c, F&& f) {
-    const int t = threadIdx.x, tm = t / 16, tn = t % 16;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) f(i, 4 * tm + i, 4 * tn + j, c.v[i][j]);
-  }
-  __device__ static int slot_row(int i) { return 4 * (threadIdx.x / 16) + i; }
-  __device__ static float row_sum(float v) {
-#pragma unroll
-    for (int m = 1; m < 16; m <<= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-    return v;
-  }
-  __device__ static bool row_lead() { return (threadIdx.x & 15) == 0; }
-
-  // As EngBf::run; k in chunks of 16: A[k][m], B[k][n] staged as f32.
-  template <int MODE, class Epi>
-  __device__ static void run(Sm st, const float* X, const float* Y, int H,
-                             Epi&& epi) {
-    const int G = H / kCol, t = threadIdx.x;
-    const int n_out = MODE == 2 ? G * G : G, K = MODE == 2 ? kRows : H;
-    Acc acc;
-#pragma unroll 1
-    for (int o = 0; o < n_out; ++o) {
-      const int ma = MODE == 2 ? kCol * (o / G) : 0;
-      const int nb = kCol * (MODE == 2 ? o % G : o);
-      // element u of the thread's four: A's (k, m) and B's (k, n)
-      auto a_at = [&](int u, int& k, int& m) {
-        const int e = t + kThreads * u;
-        if (MODE == 2) {
-          k = e >> 6;
-          m = e & 63;
-        } else {
-          k = e & 15;
-          m = e >> 4;
-        }
-      };
-      auto b_at = [&](int u, int& k, int& n) {
-        const int e = t + kThreads * u;
-        if (MODE == 1) {
-          k = e & 15;
-          n = e >> 4;
-        } else {
-          k = e >> 6;
-          n = e & 63;
-        }
-      };
-      auto load = [&](int c, float (&ra)[4], float (&rb)[4]) {
-        const int k0 = c * wide_nf::kBK;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          int k, m, n;
-          a_at(u, k, m);
-          ra[u] = MODE == 2 ? X[(size_t)(k0 + k) * H + ma + m]
-                            : X[(size_t)m * H + k0 + k];
-          b_at(u, k, n);
-          rb[u] = MODE == 1 ? Y[(size_t)(nb + n) * H + k0 + k]
-                            : Y[(size_t)(k0 + k) * H + nb + n];
-        }
-      };
-      auto put = [&](wide_nf::Stage& s, int buf, const float (&ra)[4],
-                     const float (&rb)[4]) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          int k, m, n;
-          a_at(u, k, m);
-          s.a[buf][k][m] = ra[u];
-          b_at(u, k, n);
-          s.b[buf][k][n] = rb[u];
-        }
-      };
-      wide_nf::tile_loop(*st, 0, K, load, put, acc.v);
-      epi(o, acc);
-    }
-    __syncthreads();
-  }
 };
 
 // ---- one tile's elementwise work
@@ -409,43 +171,6 @@ __device__ __forceinline__ float z1_at(const Args<T>& a, const Rows& R, int r,
       rnd<T>(__fadd_rn(rnd<T>(__fadd_rn(ha, hb)), to_f(a.b1[c])));
   return rnd<T>(
       __fadd_rn(z, rnd<T>(__fmul_rn(rnd<T>(R.r2[r]), to_f(a.w1r[c])))));
-}
-
-// The thread's row partials reduced over the threads that hold each row,
-// into dst (one writer a row).
-template <class E>
-__device__ void rows_out(float (&v)[E::kSlots], float* dst) {
-#pragma unroll
-  for (int k = 0; k < E::kSlots; ++k) {
-    const float s = E::row_sum(v[k]);
-    if (E::row_lead()) dst[E::slot_row(k)] = s;
-  }
-}
-
-// dst[c] += sum over the tile's rows of X[r][c] (times w[r] where given),
-// one thread a column, rows in order.
-template <class T>
-__device__ void col_sums(const T* X, const float* w, float* dst, int H,
-                         int nthreads) {
-  for (int c = threadIdx.x; c < H; c += nthreads) {
-    float s = 0.f;
-    for (int r = 0; r < kRows; ++r)
-      s = fmaf(to_f(X[(size_t)r * H + c]), w ? w[r] : 1.f, s);
-    dst[c] += s;
-  }
-}
-
-// dst [H, H] += A^T B over the tile's rows (A, B [64, H]), chunk by chunk.
-template <class E>
-__device__ void outer_add(typename E::Sm sm, const typename E::T* A,
-                          const typename E::T* Bt, float* dst, int H) {
-  const int G = H / kCol;
-  E::template run<2>(sm, A, Bt, H, [&](int o, const typename E::Acc& acc) {
-    float* d = dst + (size_t)kCol * (o / G) * H + kCol * (o % G);
-    E::each(acc, [&](int, int r, int c, float v) {
-      d[(size_t)r * H + c] += v;
-    });
-  });
 }
 
 // The forward of one tile (block pair ib, jb of molecule b): m1 -> X3, m2

@@ -15,20 +15,25 @@ Contract (``fused_edge_pipeline``): pre-gathered edge rows
   only residuals the autograd Function saves) and returns ``de``, ``dcd``
   and all seven parameter gradients. float32 and bfloat16 only; other
   dtypes raise. ``kernel_for`` is the size rule, on the padded width
-  (``padded_width``: the next of 64, 128, 192 and 256; the weights and
-  dagg are copied into zero-padded buffers and the outputs cut back, which
-  is exact: every padded pre-activation is 0 and silu(0) = 0). bf16 goes
-  to the Hopper kernels of ``csrc/edge_pipeline_sm90.cu`` (wgmma, C <= 64
-  edge features in up to four k16 steps of e W1; the tile plan is
-  :func:`sm90_plan` / :func:`sm90_tiles`): ``"sm90"`` at 64 and 128 with
-  as many warpgroups a block as fit (:func:`sm90_warpgroups`), ``"wide"``
-  at 192 and 256 with one warpgroup and W2 / W3 streamed through a ring of
-  slabs. float32 goes to the tiled kernels of ``csrc/edge_pipeline.cu``:
-  ``"tiled"`` at 64 and 128, ``"f32_wide"`` at 192 and 256 (W2 / W3
-  streamed). Past 256 it raises (ROADMAP B7.2, the gathered-edge EGCL at
-  H > 256; the all-pairs EGCL takes those widths), and so does a C past
-  what a route's block holds (B7.3). There is no fallback: a shape a route
-  does not take raises.
+  (``padded_width``: the next of 64, 128, 192 and 256, past 256 the next
+  multiple of 64; the weights and dagg are copied into zero-padded buffers
+  and the outputs cut back, which is exact: every padded pre-activation is
+  0 and silu(0) = 0). bf16 goes to the Hopper kernels of
+  ``csrc/edge_pipeline_sm90.cu`` (wgmma, C <= 64 edge features in up to
+  four k16 steps of e W1; the tile plan is :func:`sm90_plan` /
+  :func:`sm90_tiles`): ``"sm90"`` at 64 and 128 with as many warpgroups a
+  block as fit (:func:`sm90_warpgroups`), ``"wide"`` at 192 and 256 with
+  one warpgroup and W2 / W3 streamed through a ring of slabs. float32 goes
+  to the tiled kernels of ``csrc/edge_pipeline.cu``: ``"tiled"`` at 64 and
+  128, ``"f32_wide"`` at 192 and 256 (W2 / W3 streamed). Past 256, and
+  where the block of the route of 64 .. 256 does not hold the launch's C
+  edge features (its shared memory grows with C; the library says), the
+  launch goes to the column-chunked kernels of
+  ``csrc/edge_pipeline_xwide.cu`` at the same padded width: ``"xwide"``
+  (bf16, wgmma) and ``"f32_xwide"`` (float32, FMA), where H and C enter
+  only as loop counts. Only a width past ``XWIDE_MAX_H`` (11,520, where
+  one block's slice of the parameter gradients would pass 1 GiB) is
+  refused (``XWIDE_ITEM``). There is no fallback to the plain version.
 - On a CPU tensor both directions run the plain PyTorch version below,
   which rounds to the compute dtype where ``_fwd_kernel``/``_bwd_kernel``
   round (float64 is accepted there and accumulates in float64).
@@ -46,7 +51,8 @@ import math
 import torch
 
 from .build import LaunchCounts
-from .widths import PADDED_H, SMEM_LIMIT, pad_rows, padded_width
+from .widths import (PADDED_H, SMEM_LIMIT, XWIDE_ITEM, XWIDE_MAX_H,
+                     XWIDE_SLICE_BYTES, pad_rows, padded_width)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ATOM_TILE = 16     # atoms per block tile at most (the wrapper halves
@@ -55,15 +61,14 @@ MAX_ATOM_TILE = 16     # atoms per block tile at most (the wrapper halves
 # fwd_launches / bwd_launches count every launch; the per-route counters
 # say which kernels took it; padded_*: the launches at a padded width
 # (each also on its route's counter)
-ROUTES = ("sm90", "tiled", "wide", "f32_wide")
+ROUTES = ("sm90", "tiled", "wide", "f32_wide", "xwide", "f32_xwide")
+# the column-chunked routes (csrc/edge_pipeline_xwide.cu) by dtype
+XWIDE_ROUTE = {torch.float32: "f32_xwide", torch.bfloat16: "xwide"}
 counts = LaunchCounts("fwd_launches", "bwd_launches",
                       *(f"{r}_{d}_launches" for r in ROUTES
                         for d in ("fwd", "bwd")),
                       "padded_fwd_launches", "padded_bwd_launches",
                       "plain_fwd_calls", "plain_bwd_calls")
-# the queue items that hold what stays refused
-WIDE_ITEM = "ROADMAP queue B, B7.2: the gathered-edge EGCL at H > 256"
-C_ITEM = "ROADMAP queue B, B7.3: the gathered-edge EGCL's C limits"
 
 
 # ---------------------------------------------------------------------------
@@ -159,8 +164,10 @@ _LL = ctypes.c_longlong
 # "f32_wide"); every other width up to 256 runs at the next of them
 TILED_H = (64, 128)
 WIDE_H = (192, 256)
-# rows a tile of the Hopper kernels (wgmma's M)
+# rows a tile of the Hopper kernels (wgmma's M) and of the xwide kernels;
+# the xwide kernels' e tile and W1 are padded to a multiple of XWIDE_COL
 SM90_ROWS = 64
+XWIDE_COL = 64
 # rows a tile of the tiled kernels at most (kQmaxFwd / kQmaxBwd x 8)
 ROWS_MAX = {"fwd": 72, "bwd": 40}
 
@@ -227,33 +234,102 @@ def bind_library(lib):
     lib._enflow_bound = True
 
 
+def _xwide_library():
+    """The column-chunked kernels' library (``csrc/edge_pipeline_xwide.cu``),
+    its ctypes signatures set."""
+    from .build import load
+    lib = load("edge_pipeline_xwide")
+    if not getattr(lib, "_enflow_bound", False):
+        # code, A, K, C, H, apt, tpa, units, blocks, 10 inputs, scratch,
+        # outputs, stream
+        lib.edge_xwide_fwd.argtypes = [_I] * 9 + [_P] * 15
+        lib.edge_xwide_fwd.restype = _I
+        lib.edge_xwide_bwd.argtypes = [_I] * 9 + [_P] * 18
+        lib.edge_xwide_bwd.restype = _I
+        lib.edge_xwide_grid.argtypes = [_I] * 5
+        lib.edge_xwide_grid.restype = _I
+        lib.edge_xwide_part_floats.argtypes = [_I] * 2
+        lib.edge_xwide_part_floats.restype = _LL
+        lib.edge_xwide_smem_bytes.argtypes = [_I] * 4
+        lib.edge_xwide_smem_bytes.restype = _LL
+        lib.edge_xwide_smem_limit.argtypes = []
+        lib.edge_xwide_smem_limit.restype = _LL
+        lib.edge_xwide_threads.argtypes = [_I]
+        lib.edge_xwide_threads.restype = _I
+        lib.edge_xwide_max_width.argtypes = []
+        lib.edge_xwide_max_width.restype = _I
+        lib.edge_xwide_error_string.argtypes = [_I]
+        lib.edge_xwide_error_string.restype = ctypes.c_char_p
+        lib._enflow_bound = True
+    return lib
+
+
 def _too_wide(H: int) -> str:
-    """Why a width past 256 is refused."""
-    return (f"edge_pipeline: hidden width H={H} is past the widest kernels "
-            f"(H <= 256), whose backward at 256 already streams W2 and W3 "
-            f"to fit the {SMEM_LIMIT:,} bytes of shared memory a block may "
-            f"use; not ported ({WIDE_ITEM})")
+    """Why a width past ``XWIDE_MAX_H`` is refused: one block's slice of
+    the parameter gradients (C H + 2 Hp^2 + 4 Hp f32) would pass the 1 GiB
+    that the partials may take at every C."""
+    Hp = padded_width(H)
+    need = 4 * (2 * Hp * Hp + 5 * Hp)
+    return (f"edge_pipeline: hidden width H={H} (padded {Hp}) is past the "
+            f"widest the xwide kernels take (H <= {XWIDE_MAX_H:,}): one "
+            f"block's slice of the parameter gradients would need at least "
+            f"{need:,} bytes (at C = 1), more than the "
+            f"{XWIDE_SLICE_BYTES:,} bytes the partials may take; not ported "
+            f"({XWIDE_ITEM})")
 
 
-def kernel_for(dtype, H: int) -> str:
+_held: dict = {}
+
+
+def _holds(route: str, code: int, C: int, Hp: int, direction: str) -> bool:
+    """Whether a block of ``route`` (at its width ``Hp`` <= 256) holds C
+    edge features, as its library says: the Hopper kernels' k16 steps of e
+    and a block of at least one warpgroup, the tiled kernels' block at 1
+    atom and 8 rows. Asked once per library, route, dtype, C, Hp and
+    direction."""
+    bwd = int(direction == "bwd")
+    sm90 = route in ("sm90", "wide")
+    lib = _sm90_library() if sm90 else _library()
+    key = (id(lib), route, code, C, Hp, bwd)
+    if key not in _held:
+        if sm90:
+            _held[key] = (C <= lib.edge_sm90_c_max()
+                          and lib.edge_sm90_warpgroups(C, Hp, bwd) >= 1)
+        else:
+            _held[key] = 0 <= lib.edge_tiled_smem_bytes(
+                code, C, Hp, 1, 8, bwd) <= lib.edge_pipeline_smem_limit()
+    return _held[key]
+
+
+def kernel_for(dtype, H: int, C: int | None = None,
+               direction: str = "fwd") -> str:
     """The size rule, on the padded width (:func:`padded_width`): "sm90"
     (bfloat16) or "tiled" (float32) at 64 and 128, "wide" (bfloat16) or
-    "f32_wide" (float32) at 192 and 256, for every 1 <= H <= 256; raises
-    for another dtype, for H < 1 and past 256 (naming ROADMAP B7.2 and the
-    bytes)."""
+    "f32_wide" (float32) at 192 and 256, "xwide" (bfloat16) or "f32_xwide"
+    (float32) past 256. With ``C``, the route a launch of C edge features
+    in ``direction`` takes: where the block of the route of 64 .. 256 does
+    not hold C (:func:`_holds`), the dtype's xwide route at the same
+    padded width, so no C is refused. Raises for another dtype, for H < 1
+    and past ``XWIDE_MAX_H`` (naming ROADMAP B7.5 and the bytes)."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"the edge-pipeline kernel computes in float32 or "
                          f"bfloat16, got {dtype}")
     if H < 1:
         raise ValueError(f"edge_pipeline takes a hidden width H >= 1 in "
                          f"float32 and bfloat16, got H={H}")
-    if H > PADDED_H[-1]:
-        raise ValueError(_too_wide(H))
     Hp = padded_width(H)
+    if Hp > XWIDE_MAX_H:
+        raise ValueError(_too_wide(H))
+    if Hp > PADDED_H[-1]:
+        return XWIDE_ROUTE[dtype]
     bf16 = dtype == torch.bfloat16
     if Hp in TILED_H:
-        return "sm90" if bf16 else "tiled"
-    return "wide" if bf16 else "f32_wide"
+        route = "sm90" if bf16 else "tiled"
+    else:
+        route = "wide" if bf16 else "f32_wide"
+    if C is None or _holds(route, _DTYPE_CODE[dtype], C, Hp, direction):
+        return route
+    return XWIDE_ROUTE[dtype]
 
 
 def sm90_warpgroups(lib, C: int, H: int, direction: str) -> int:
@@ -261,7 +337,8 @@ def sm90_warpgroups(lib, C: int, H: int, direction: str) -> int:
     most whose block fits, as the library says); raises, naming C and the
     limit, for a C past the kernels' k16 steps of e, and at H = 192 or 256
     (one warpgroup beside the ring of slabs) for a C whose block does not
-    fit, naming the bytes (ROADMAP B7.3)."""
+    fit, naming the bytes. ``kernel_for`` sends those launches to the
+    xwide kernels, so a launch never reaches either refusal."""
     bwd = int(direction == "bwd")
     c_max = lib.edge_sm90_c_max()
     if C > c_max:
@@ -275,7 +352,7 @@ def sm90_warpgroups(lib, C: int, H: int, direction: str) -> int:
                          f"C={C} needs {need} bytes of shared memory at one "
                          f"warpgroup a block (its ring of weight slabs and "
                          f"tiles), more than the {SMEM_LIMIT} a block may "
-                         f"use; not ported ({C_ITEM})")
+                         f"use (the xwide kernels take it)")
     if nwg < 1:
         raise RuntimeError(f"edge_pipeline {direction} (bfloat16, H={H}): "
                            f"the Hopper library fits no block at C={C} <= "
@@ -396,7 +473,8 @@ def _plan(lib, code, C, H, K, ta, direction):
     kind (``tiled_plan`` at H = 64 and 128, ``wide_plan`` at 192 and
     256), checked against the card's shared memory once per library,
     dtype, C, H, K, tile and direction; raises, naming C and the bytes,
-    where no block fits at 1 atom and 8 rows (ROADMAP B7.3)."""
+    where no block fits at 1 atom and 8 rows (``kernel_for`` sends such a
+    launch to the xwide kernels)."""
     key = (id(lib), code, C, H, K, ta, direction)
     if key in _plans:
         return _plans[key]
@@ -411,7 +489,8 @@ def _plan(lib, code, C, H, K, ta, direction):
             f"edge_pipeline {direction}: C={C}, H={H} needs "
             f"{lib.edge_tiled_smem_bytes(code, C, H, 1, 8, bwd)} bytes "
             f"of shared memory even at 1 atom and 8 rows a tile, more "
-            f"than the {limit} a block may use; not ported ({C_ITEM})")
+            f"than the {limit} a block may use (the xwide kernels take "
+            f"it)")
     _plans[key] = ("tiled" if tiled else "f32_wide",) + plan
     return _plans[key]
 
@@ -464,14 +543,14 @@ def _split_part(part, C, H):
 
 
 def _launch(direction, e, cd, em, weights, dagg=None, dfs=None):
-    """One launch on the route that the size rule names, at the padded
-    width: the weights (and dagg) copied into zero-padded buffers first
-    where ``H`` is not one of ``TILED_H + WIDE_H``, the outputs cut back
-    after."""
+    """One launch on the route that the size rule names for its C edge
+    features, at the padded width: the weights (and dagg) copied into
+    zero-padded buffers first where ``H`` is not the padded width, the
+    outputs cut back after."""
     cdt, dev = e.dtype, e.device
     A, K, C = e.shape
     H = weights[0].shape[1]
-    route = kernel_for(cdt, H)
+    route = kernel_for(cdt, H, C, direction)
     idx = e.get_device()
     for t in (cd, em, *weights):
         if t.dtype is not cdt or t.get_device() != idx:
@@ -509,9 +588,12 @@ def _launch(direction, e, cd, em, weights, dagg=None, dfs=None):
 
 def _run(direction, route, e, cd, em, weights, dagg, dfs):
     """One launch of the kernels of ``route`` at the weights' width (one of
-    ``TILED_H + WIDE_H``): ``(agg, F_sum)`` forward, ``(de, dcd, dW1, db1, dW2,
-    db2, dW3, db3, dw4)`` backward."""
+    ``TILED_H + WIDE_H``, or a multiple of 64 on the xwide routes):
+    ``(agg, F_sum)`` forward, ``(de, dcd, dW1, db1, dW2, db2, dW3, db3,
+    dw4)`` backward."""
     from .build import multiprocessors
+    if route in XWIDE_ROUTE.values():
+        return _run_xwide(direction, e, cd, em, weights, dagg, dfs)
     cdt, dev = e.dtype, e.device
     A, K, C = e.shape
     H = weights[0].shape[1]
@@ -555,6 +637,53 @@ def _run(direction, route, e, cd, em, weights, dagg, dfs):
     _check(error_string, direction, kernels[1](
         *dims, *ptrs, dagg.data_ptr(), dfs.data_ptr(), de.data_ptr(),
         dcd.data_ptr(), part.data_ptr(), stream), A, K, C, H)
+    return (de, dcd) + _split_part(part, C, H)
+
+
+def _run_xwide(direction, e, cd, em, weights, dagg, dfs):
+    """One launch of the column-chunked kernels of the dtype at the
+    weights' width (a multiple of 64): tiles of 64 rows on the Hopper
+    kernels' plan at one block a work item's owner (``sm90_plan``), W1
+    zero-padded to a multiple of ``XWIDE_COL`` rows, the blocks' [64, H]
+    tiles (and the backward's f32 tiles and slices) in global scratch."""
+    from .build import multiprocessors
+    cdt, dev = e.dtype, e.device
+    A, K, C = e.shape
+    H = weights[0].shape[1]
+    bwd = direction == "bwd"
+    lib = _xwide_library()
+    apt, tpa, units, blocks = sm90_plan(A, K, 1, multiprocessors(dev))
+    grid = lib.edge_xwide_grid(units, C, H, int(bwd), blocks)
+    Cp = XWIDE_COL * math.ceil(C / XWIDE_COL)
+    W1, *rest = weights
+    W1p = torch.nn.functional.pad(W1, (0, 0, 0, Cp - C))
+    # held until the launch is queued (a copy's memory is not reused before)
+    ins = [_aligned(t) for t in (e, cd, em, W1p, *rest)]
+    ptrs = [t.data_ptr() for t in ins]
+    stream = _P(torch.cuda.current_stream(dev).cuda_stream)
+    dims = (_DTYPE_CODE[cdt], A, K, C, H, apt, tpa, units, blocks)
+    scr = torch.empty((grid, 4 * SM90_ROWS * H + SM90_ROWS * Cp), dtype=cdt,
+                      device=dev)
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    if not bwd:
+        acc = f32(grid, H + 3)
+        agg = torch.empty((A, H), dtype=cdt, device=dev)
+        fs = torch.empty((A, 3), dtype=cdt, device=dev)
+        _check(lib.edge_xwide_error_string, direction, lib.edge_xwide_fwd(
+            *dims, *ptrs, scr.data_ptr(), acc.data_ptr(), agg.data_ptr(),
+            fs.data_ptr(), stream), A, K, C, H)
+        return agg, fs
+    dagg = _aligned(dagg.to(cdt))
+    dfs = dfs.to(cdt).contiguous()
+    fscr = f32(grid, 3 * SM90_ROWS * H)
+    de = torch.empty((A, K, C), dtype=cdt, device=dev)
+    dcd = torch.empty((A, K, 3), dtype=cdt, device=dev)
+    # each block writes each element of its slice
+    part = f32(grid, lib.edge_xwide_part_floats(C, H))
+    _check(lib.edge_xwide_error_string, direction, lib.edge_xwide_bwd(
+        *dims, *ptrs, dagg.data_ptr(), dfs.data_ptr(), scr.data_ptr(),
+        fscr.data_ptr(), de.data_ptr(), dcd.data_ptr(), part.data_ptr(),
+        stream), A, K, C, H)
     return (de, dcd) + _split_part(part, C, H)
 
 

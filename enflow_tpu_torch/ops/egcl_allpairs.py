@@ -86,7 +86,8 @@ import math
 import torch
 
 from .build import LaunchCounts, multiprocessors
-from .widths import PADDED_H, SMEM_LIMIT, pad_rows, padded_width
+from .widths import (PADDED_H, SMEM_LIMIT, XWIDE_ITEM, XWIDE_MAX_H,
+                     XWIDE_SLICE_BYTES, pad_rows, padded_width)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -148,16 +149,11 @@ BLOCK_ATOMS_MAX = 32
 # (B=256) and for K2 at LJ561 (B=16) (chip_smoke.py --blocks-plans,
 # PERF.md)
 F32_BLOCK_ATOMS = {"fwd": 32, "bwd": 24, "bwd_params": 24}
-# the routes of H > 256 (csrc/egcl_allpairs_xwide.cu), by dtype code, and
-# the widest padded H they take (kMaxH: a K2 p slice of 2 H^2 f32 under
-# 1 GiB); past it the queue item that holds the refused widths
+# the routes of H > 256 (csrc/egcl_allpairs_xwide.cu), by dtype code (the
+# widest padded H they take and the queue item past it: widths.py)
 XWIDE_ROUTE = {0: "f32_xwide", 1: "xwide"}
 # the routes that take every N (no one-molecule kernels to ask)
 EVERY_N_ROUTES = ("wide", "f32_wide", *XWIDE_ROUTE.values())
-XWIDE_MAX_H = 11520
-XWIDE_SLICE_BYTES = 1 << 30
-XWIDE_ITEM = ("ROADMAP queue B, B7.5: the all-pairs EGCL past the xwide "
-              "route's widest H")
 # the queue item past the wide-nf route (no width up to 256 reaches it)
 NF_ITEM = "ROADMAP queue B, B7.4: the all-pairs EGCL at wide node features"
 # the routes that take the block-pair launches whose plan finds no block

@@ -14,6 +14,13 @@ import torch
 PADDED_H = (64, 128, 192, 256)
 # shared memory a block may use on the card (kMaxSmem of the kernels)
 SMEM_LIMIT = 232448
+# the widest padded H of the column-chunked kernels past 256 (kMaxH of
+# csrc/egcl_allpairs_xwide.cu and csrc/edge_pipeline_xwide.cu: one block's
+# f32 slice of the parameter gradients, at least 2 H^2 floats, within
+# XWIDE_SLICE_BYTES), and the queue item that holds the wider ones
+XWIDE_MAX_H = 11520
+XWIDE_SLICE_BYTES = 1 << 30
+XWIDE_ITEM = "ROADMAP queue B, B7.5: the EGCL past H = 11,520, both kernels"
 
 
 def padded_width(H: int) -> int:

@@ -187,3 +187,19 @@ def xwide_bytes(code, H, kind):
             or H % 64 or H > xwide_max_width()):
         return -1
     return 1024 + XWIDE_STAGE[code] + XWIDE_ROWS
+
+
+# the gathered-edge K5/K6 of csrc/edge_pipeline_xwide.cu (past H = 256, and
+# where a route of 64 .. 256 does not hold C): the engines' staged operands
+# (XWIDE_STAGE) and the tile's rows (Rows: cd [64][3], em, gate, dg and the
+# rows' atoms), plus 1024 to align the base: no term grows with H or C
+EDGE_XWIDE_ROWS = 4 * (TILE * 3 + 3 * TILE) + 4 * TILE
+
+
+def edge_xwide_bytes(code, C, H, bwd):
+    """``edge_xwide_smem_bytes`` of edge_pipeline_xwide.cu: -1 for sizes
+    the kernels do not take, else the same at every C and H."""
+    if (bwd not in (0, 1) or code not in XWIDE_STAGE or C < 1 or H < 64
+            or H % 64 or H > xwide_max_width()):
+        return -1
+    return 1024 + XWIDE_STAGE[code] + EDGE_XWIDE_ROWS

@@ -259,7 +259,9 @@ def test_size_rule():
     assert ops.kernel_for(torch.float32, 20) == "tiled"
     assert ops.kernel_for(torch.bfloat16, 24) == "sm90"
     assert ops.kernel_for(torch.float32, 6) == "tiled"
-    for dt, H in ((torch.bfloat16, 300), (torch.float32, 260),
-                  (torch.float32, 0), (torch.float64, 128)):
-        with pytest.raises(ValueError, match="float32|B7.2"):
+    # past 256: the column-chunked kernels (edge_pipeline_xwide.cu)
+    assert ops.kernel_for(torch.bfloat16, 300) == "xwide"
+    assert ops.kernel_for(torch.float32, 260) == "f32_xwide"
+    for dt, H in ((torch.float32, 0), (torch.float64, 128)):
+        with pytest.raises(ValueError, match="float32"):
             ops.kernel_for(dt, H)

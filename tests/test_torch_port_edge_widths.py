@@ -25,8 +25,8 @@ it runs on the CPU.
   rows first; every row in one tile, each atom one owner; the bf16
   kernels' one warpgroup and C limits.
 - The size rule: the routes at 64 / 128 / 192 / 256, the padded widths
-  20 / 96 / 160 / 200, the refusals past 256 (ROADMAP B7.2) and past each
-  kernel's C (B7.3).
+  20 / 96 / 160 / 200, the xwide routes past 256 (refused only past the
+  widest, ROADMAP B7.5) and past each kernel's C.
 
 Inputs are made with numpy from a seed and fed to both packages.
 """
@@ -229,6 +229,10 @@ def test_wrapper_pads_counts_and_cuts_back(monkeypatch, dtype, H, route):
         return ops.edge_pipeline_plain_bwd(e, cd, em, *weights, dagg, dfs)
 
     monkeypatch.setattr(ops, "_run", plain_run)
+    # the C fit asked of the libraries' size entry points (mirrored)
+    monkeypatch.setattr(ops, "_sm90_library", SizeLib)
+    monkeypatch.setattr(ops, "_library", SizeLib)
+    monkeypatch.setattr(ops, "_held", {})
     e, cd, em, ws, dagg, dfs = _scaled_inputs(4, 6, 3, H, 7)
     c = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
     args = (c(e), c(cd), torch.from_numpy(em).to(dtype))
@@ -698,28 +702,35 @@ def test_other_widths_run_padded(H, Hp):
 
 @pytest.mark.parametrize("H", [257, 320, 512])
 def test_past_256_refuses_naming_b7_2(H):
+    """Past 256 (ROADMAP B7.2, closed) every width takes the dtype's
+    column-chunked route at the next multiple of 64; only a width past the
+    widest, 11,520, is refused, naming B7.5 and the bytes of one slice."""
     for dt in (torch.bfloat16, torch.float32):
-        with pytest.raises(ValueError, match="B7.2") as e:
-            ops.kernel_for(dt, H)
-        assert "232,448" in str(e.value)
+        assert ops.kernel_for(dt, H) == ops.XWIDE_ROUTE[dt]
+        assert ops.padded_width(H) % 64 == 0
+        with pytest.raises(ValueError, match="B7.5") as e:
+            ops.kernel_for(dt, ops.XWIDE_MAX_H + H)
+        assert "bytes" in str(e.value) and "1,073,741,824" in str(e.value)
 
 
-def test_past_each_kernels_c_refuses_naming_b7_3():
-    """bf16 at 256: e W1 in 4 k16 steps (C = 49) does not fit the
-    backward's block beside the ring; f32 at 256: C = 33 does not fit
-    even at 1 atom and 8 rows. Each names the bytes and B7.3; C = 48 and
-    32 fit."""
+def test_past_each_kernels_c_refuses_naming_b7_3(monkeypatch):
+    """The C limits (ROADMAP B7.3, closed): bf16 at 256, e W1 in 4 k16
+    steps (C = 49) does not fit the backward's block beside the ring; f32
+    at 256, C = 33 does not fit even at 1 atom and 8 rows. Such a launch
+    now goes to the xwide route at 256; C = 48 and 32 keep theirs."""
     lib = SizeLib()
+    monkeypatch.setattr(ops, "_sm90_library", lambda: lib)
+    monkeypatch.setattr(ops, "_library", lambda: lib)
+    monkeypatch.setattr(ops, "_held", {})
     assert ops.sm90_warpgroups(lib, 48, 256, "bwd") == 1
-    with pytest.raises(ValueError, match="C=49 needs 2[0-9]{5} bytes") as e:
-        ops.sm90_warpgroups(lib, 49, 256, "bwd")
-    assert "B7.3" in str(e.value)
+    assert ops.kernel_for(torch.bfloat16, 256, 48, "bwd") == "wide"
+    assert ops.kernel_for(torch.bfloat16, 256, 49, "bwd") == "xwide"
     assert ops.sm90_warpgroups(lib, 64, 256, "fwd") == 1
+    assert ops.kernel_for(torch.bfloat16, 256, 64, "fwd") == "wide"
     ops._plans.clear()
     assert ops._plan(lib, 0, 32, 256, 24, 1, "bwd")[0] == "f32_wide"
-    with pytest.raises(ValueError, match="C=33, H=256 needs") as e:
-        ops._plan(lib, 0, 33, 256, 24, 1, "bwd")
-    assert "B7.3" in str(e.value)
+    assert ops.kernel_for(torch.float32, 256, 32, "bwd") == "f32_wide"
+    assert ops.kernel_for(torch.float32, 256, 33, "bwd") == "f32_xwide"
     ops._plans.clear()
 
 
