@@ -388,6 +388,26 @@ MUTANTS = {
             "egcl_allpairs_xwide": (
                 "outer_add<E>(sm, X[0], X[2], part + PL.dW3, H);",
                 "outer_add<E>(sm, X[0], X[2], part + PL.dW3, H, 1);")},
+        # the bf16 K1 / K2's ring kernels (RingBf)
+        "bf16: ring: a stage released before both consumers are done": {
+            E: ("mbar_init(&b.empty[s], kCons * kWG);",
+                "mbar_init(&b.empty[s], kWG);")},
+        "bf16: ring: a consumer reading the other's rows": {
+            E: ("mma<MODE, WIDE>(d, st + (2 + c) * kBox, st, k > 0);",
+                "mma<MODE, WIDE>(d, st + (3 - c) * kBox, st, k > 0);")},
+        "bf16: ring: one k16 step dropped in the wider wgmma": {
+            E: ("      if constexpr (WIDE)\n"
+                "        wgmma_ss128<MODE == 0>(d, da, db, sc);\n      else",
+                "      if constexpr (WIDE) {\n        if (kk < 3) "
+                "wgmma_ss128<MODE == 0>(d, da, db, sc);\n      } else")},
+        "bf16: ring: the producer skipping the last k-chunk's copy": {
+            E: [("mbar_arrive_tx(full, (nb + nact) * kBox);",
+                 "mbar_arrive_tx(full, (nb + (k == nk - 1 ? 0 : nact)) * "
+                 "kBox);"),
+                ("        for (int c = 0; c < nact; ++c)\n"
+                 "          tma_load_2d(",
+                 "        for (int c = 0; c < (k == nk - 1 ? 0 : nact); "
+                 "++c)\n          tma_load_2d(")]},
         "dW3's sums rounded to bf16 (each partial kept in bf16)": {
             E: [("const typename E::T* Bt, float* dst, int H) {",
                  "const typename E::T* Bt, float* dst, int H, "

@@ -200,9 +200,10 @@ non-zero):
    bound and the plan, the plain version timed at the kernels line's
    shapes; the library's plans at H = 128, 192 and 256.
 10n. xwide (after wide_nf) — the all-pairs EGCL past H = 256 (routes
-   ``"xwide"`` and ``"f32_xwide"`` of egcl_allpairs_xwide.cu): the
-   library's shared memory against tests/egcl_smem_mirror.py (the same at
-   every H), K1, K2 and K2 p at H = 300, 320, 384, 512 and 1024 x N = 13,
+   ``"xwide"`` and ``"f32_xwide"`` of egcl_allpairs_xwide.cu; the bf16 K1
+   and K2 on its ring kernels): the library's shared memory, threads and
+   scratch tiles a block against tests/egcl_smem_mirror.py (each kind the
+   same at every H), K1, K2 and K2 p at H = 300, 320, 384, 512 and 1024 x N = 13,
    55 and 147 in both dtypes against the plain version (bf16 per element,
    its parameter gradients against an f64-summed twin of the plain
    version; f32 to TOL / TOL_PARAM), a second launch bitwise equal, the
@@ -362,9 +363,12 @@ For an earlier edge_pipeline_sm90.cu with these entry points: bf16
 K5/K6 held to the same bits at every EDGE_SHAPES shape of H = 64 or 128
 and every EDGE_WIDE_SHAPES shape at 192 and 256 (``edge_ab_shapes``; the
 same for edge_pipeline.cu in f32), then timed in turns at the sampler's
-shape. For an earlier egcl_allpairs_xwide.cu: K1, K2 and K2 p of both
-dtypes held to the same bits at H = 320, 512 and 1024 x N = 13, 55 and
-147, then K1 / K2 timed in turns at B=1024, N=13, H=512.
+shape. For an earlier egcl_allpairs_xwide.cu: the f32 K1, K2 and K2 p
+and the bf16 K2 p held to the same bits at H = 320, 512 and 1024 x N =
+13, 55 and 147, the bf16 K1 and K2 counted where their bits are the same
+and each held to phase xwide (a)'s limits against the plain version;
+then K1 / K2 timed in turns at B=1024, N=13, H=512 (both dtypes) and at
+B=256, N=55 (bf16).
 
 ``python3 chip_smoke.py --blocks-plans`` runs phases 1-2 and then times
 the bf16 block-pair kernels at LJ147 (K1 and K2 p at B=256, K2 at
@@ -372,6 +376,12 @@ B=1024) with blocks of 16 to 56 atoms (``ops.blocks_plan`` picks 32),
 and the f32 block-pair kernels (K1 and K2 p at LJ147, B=256; K2 at LJ561,
 B=16) with blocks of 16 to 48 atoms (``ops.f32_blocks_plan``: at most
 F32_BLOCK_ATOMS).
+
+``python3 chip_smoke.py --xwide-ablate`` runs phases 1-2 and then times
+the bf16 K1 / K2 past H = 256 (the ring kernels, B=1024, N=13, H=512)
+beside builds of the same sources with one part removed (XWIDE_ABLATE:
+the epilogues, the products, the m1 pass, the paired rounding, the
+sigmoid), in turns: what each part costs.
 
 ``python3 chip_smoke.py --trace-check ROUNDS MINUTES`` runs phases 1-2 and
 then traces 20 K5 launches as ``device_ms`` does, with no margin and with
@@ -3651,10 +3661,14 @@ def f32_bits_ab_phase(card, old_lib):
 
 def xwide_bits_ab_phase(card, old_lib):
     """An earlier egcl_allpairs_xwide.cu (``old_lib``, built; the entry
-    points of this one) against the current: K1, K2 and K2 p of both dtypes
-    bit for bit at H = 320, 512 and 1024 x N = 13, 55 and 147 (phase
-    xwide's batches), then K1 / K2 of both dtypes at the reference's
-    B=1024, N=13, H=512 timed in turns (CUDA events and device time)."""
+    points of this one) against the current at H = 320, 512 and 1024 x N =
+    13, 55 and 147 (phase xwide's batches): the float32 K1, K2 and K2 p and
+    the bf16 K2 p bit for bit; the bf16 K1 and K2 (the ring kernels here,
+    whose gate and dr2 sums may take another order) counted where they give
+    the same bits, each held to phase xwide (a)'s limits against the plain
+    version. Then K1 / K2 of both dtypes at the reference's B=1024, N=13,
+    H=512 and the bf16 K1 / K2 at B=256, N=55 timed in turns (CUDA events
+    and device time)."""
     import torch
     from enflow_tpu_torch.ops import build
     from enflow_tpu_torch.ops import egcl_allpairs as ops
@@ -3667,13 +3681,16 @@ def xwide_bits_ab_phase(card, old_lib):
                "egcl_xwide_error_string"):
         f, g = getattr(old_lib, fn), getattr(new_lib, fn)
         f.argtypes, f.restype = g.argtypes, g.restype
+    if not hasattr(old_lib, "egcl_xwide_tiles"):
+        # a library before the ring kernels: five tiles a block everywhere
+        old_lib.egcl_xwide_tiles = lambda code, kind: 5
     old_lib._enflow_bound = True
 
     def use(which):
         build._loaded["egcl_allpairs_xwide"] = (old_lib if which == "old"
                                                 else new_lib)
 
-    cases = []
+    cases, ring = [], []
     for dname in ("bfloat16", "float32"):
         for H in (320, 512, 1024):
             for N in XWIDE_NS:
@@ -3685,25 +3702,50 @@ def xwide_bits_ab_phase(card, old_lib):
                     use("old")
                     a = run()
                     use("new")
+                    b = run()
                     same = all(bool(torch.equal(x, y))
-                               for x, y in zip(a, run()))
-                    cases.append((f"{dname} H={H} N={N} {kind}", same))
+                               for x, y in zip(a, b))
+                    label = f"{dname} H={H} N={N} {kind}"
+                    if dname == "bfloat16" and kind != "bwd_params":
+                        want = (ops.allpairs_edges_plain(*args[:5])
+                                if kind == "fwd" else
+                                ops.allpairs_edges_plain_bwd(*args))
+                        ok, text, _ = xwide_reading(b, want, args, dname,
+                                                    kind)
+                        require(ok, f"{label} (new) disagrees with plain: "
+                                f"{text}")
+                        ring.append((label, same))
+                    else:
+                        cases.append((label, same))
+                    del a, b
                 torch.cuda.empty_cache()
     use("new")
     differ = [c for c, same in cases if not same]
-    phase("ab", f"column-chunked all-pairs K1/K2/K2 p: old == new bit for "
-          f"bit at {len(cases) - len(differ)} of {len(cases)} dtype x shape "
-          "x direction cases" + (f"; they differ at {differ}" if differ
-                                 else ""))
+    phase("ab", f"column-chunked all-pairs f32 K1/K2/K2 p and bf16 K2 p: "
+          f"old == new bit for bit at {len(cases) - len(differ)} of "
+          f"{len(cases)} dtype x shape x direction cases"
+          + (f"; they differ at {differ}" if differ else ""))
     require(not differ, f"the all-pairs xwide kernels changed: {differ}")
+    apart = [c for c, same in ring if not same]
+    phase("ab", f"bf16 K1/K2: old == new bit for bit at "
+          f"{len(ring) - len(apart)} of {len(ring)} shape x direction cases"
+          + (f"; the others ({apart}) within phase xwide (a)'s limits of "
+             "the plain version" if apart else "") + "; every new launch "
+          "within them")
     ref = dict(B=1024, N=13, nf=5, H=XWIDE_H)
     args = edge_inputs(ref, torch.bfloat16, seed=11)[:7]
     f32 = edge_inputs(ref, torch.float32, seed=11)[:7]
+    lj55 = edge_inputs(dict(B=256, N=55, nf=5, H=XWIDE_H), torch.bfloat16,
+                       seed=11)[:7]
     ab_turns(card, use, {
         "K1 ref512": (lambda: ops.allpairs_edges_fwd(*args[:5]),
                       "egcl_xwide_kernel"),
         "K2 ref512": (lambda: ops.allpairs_edges_bwd(*args),
                       "egcl_xwide_kernel"),
+        "K1 lj55": (lambda: ops.allpairs_edges_fwd(*lj55[:5]),
+                    "egcl_xwide_kernel"),
+        "K2 lj55": (lambda: ops.allpairs_edges_bwd(*lj55),
+                    "egcl_xwide_kernel"),
         "K1 f32 ref512": (lambda: ops.allpairs_edges_fwd(*f32[:5]),
                           "egcl_xwide_kernel"),
         "K2 f32 ref512": (lambda: ops.allpairs_edges_bwd(*f32),
@@ -6850,20 +6892,23 @@ def xwide_checks(card):
     import egcl_smem_mirror as mirror
     lib = ops._xwide_library()
     for code in (1, 0):
-        got = {(H, kind): lib.egcl_xwide_smem_bytes(code, H, kind)
-               for H in (320, 512, 1024, ops.XWIDE_MAX_H)
-               for kind in (0, 1, 2)}
-        want = {k: mirror.xwide_bytes(code, *k) for k in got}
-        require(got == want and len(set(got.values())) == 1,
-                f"xwide shared memory (code {code}): library {got}, mirror "
-                f"{want}")
+        for kind, kname in enumerate(("K1", "K2", "K2 p")):
+            got = {H: lib.egcl_xwide_smem_bytes(code, H, kind)
+                   for H in (320, 512, 1024, ops.XWIDE_MAX_H)}
+            want = {H: mirror.xwide_bytes(code, H, kind) for H in got}
+            tiles = lib.egcl_xwide_tiles(code, kind)
+            require(got == want and len(set(got.values())) == 1
+                    and tiles == mirror.xwide_tiles(code, kind),
+                    f"xwide shared memory (code {code}, {kname}): library "
+                    f"{got}, mirror {want}; tiles {tiles}")
+            phase("xwide", f"(a) {'bf16' if code else 'float32'} {kname}: "
+                  f"{lib.egcl_xwide_threads(code, kind)} threads, "
+                  f"{got[512]:,} bytes of shared memory a block at every H "
+                  f"of 320, 512, 1024 and {ops.XWIDE_MAX_H} (the mirror's "
+                  f"too), of {ops.SMEM_LIMIT:,}; {tiles} [64, H] scratch "
+                  "tiles a block")
         require(lib.egcl_xwide_max_width() == ops.XWIDE_MAX_H,
                 f"xwide widest H {lib.egcl_xwide_max_width()}")
-        phase("xwide", f"(a) {'bf16' if code else 'float32'}: "
-              f"{lib.egcl_xwide_threads(code)} threads and "
-              f"{next(iter(got.values())):,} bytes of shared memory a block "
-              f"at every H of 320, 512, 1024 and {ops.XWIDE_MAX_H} in every "
-              f"direction (the mirror's too), of {ops.SMEM_LIMIT:,}")
     n = 0
     for dname in ("bfloat16", "float32"):
         for H in XWIDE_HS:
@@ -7014,6 +7059,94 @@ def xwide_paths(card, rec):
         finally:
             os.chdir(cwd)
     return out
+
+
+# What each part of the bf16 ring kernels (K1 / K2 past H = 256) costs:
+# builds of csrc/ with one part removed, {name: {source: [(text, its
+# replacement)]}}. Their values are wrong; only their times are read.
+XWIDE_ABLATE = {
+    "no epilogues": {"xwide_engine.cuh": [
+        ("        epi(o, d, std::integral_constant<int, 16>{});", ""),
+        ("        epi(o, d, std::integral_constant<int, 8>{});", "")]},
+    "no products": {"xwide_engine.cuh": [
+        ("      mma<MODE, WIDE>(d, st + (2 + c) * kBox, st, k > 0);", "")]},
+    "no m1 pass": {"egcl_allpairs_xwide.cu": [
+        ("      if (act) ring_m1<BWD>(a, R, X[3], X[4], t);\n", "")]},
+    "no paired rounding": {"egcl_allpairs_xwide.cu": [
+        ("  return __bfloat1622float2(to_bf2(x, y));",
+         "  return make_float2(x, y);")]},
+    "a linear sigmoid": {"sm90_common.cuh": [
+        ("  return __fdividef(1.0f, 1.0f + __expf(-x));",
+         "  return 0.5f + 0.25f * x;")]}}
+
+
+def xwide_ablate_phase(card, rounds=2):
+    """The bf16 K1 / K2 at the reference's B=1024, N=13, H=512 (device
+    time) with the library as built and with each XWIDE_ABLATE build
+    (copies of csrc/ with one part removed, built in parallel), in turns
+    within this process, ``rounds`` times; prints each build's times and
+    what removing its part saved."""
+    import ctypes
+    import shutil
+    import torch
+    from enflow_tpu_torch.ops import build
+    from enflow_tpu_torch.ops import egcl_allpairs as ops
+
+    full = ops._xwide_library()
+    tmp = Path(tempfile.mkdtemp())
+    procs = {}
+    for name, edits in XWIDE_ABLATE.items():
+        src = tmp / name.replace(" ", "_")
+        shutil.copytree(build.CSRC, src)
+        for fname, pairs in edits.items():
+            text = (src / fname).read_text()
+            for old, new in pairs:
+                require(text.count(old) == 1, f"ablation '{name}': its text "
+                        f"is not in {fname} once")
+                text = text.replace(old, new)
+            (src / fname).write_text(text)
+        procs[name] = subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(src / "lib.so"),
+             str(src / "egcl_allpairs_xwide.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    libs = {"as built": full}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        require(proc.returncode == 0, f"ablation '{name}' did not build:\n"
+                f"{log[-3000:]}")
+        lib = ctypes.CDLL(str(tmp / name.replace(" ", "_") / "lib.so"))
+        for fn in ("egcl_xwide_fwd", "egcl_xwide_bwd", "egcl_xwide_grid",
+                   "egcl_xwide_tiles", "egcl_xwide_error_string",
+                   "egcl_part_size"):
+            f, g = getattr(lib, fn), getattr(full, fn)
+            f.argtypes, f.restype = g.argtypes, g.restype
+        lib._enflow_bound = True
+        libs[name] = lib
+    args = edge_inputs(dict(B=1024, N=13, nf=5, H=XWIDE_H), torch.bfloat16,
+                       seed=11)[:7]
+    times = {name: [] for name in libs}
+    try:
+        for _ in range(rounds):
+            for name, lib in libs.items():
+                build._loaded["egcl_allpairs_xwide"] = lib
+                times[name].append((
+                    device_ms(lambda: ops.allpairs_edges_fwd(*args[:5]),
+                              "egcl_xwide_kernel", calls=5),
+                    device_ms(lambda: ops.allpairs_edges_bwd(*args),
+                              "egcl_xwide_kernel", calls=5)))
+    finally:
+        build._loaded["egcl_allpairs_xwide"] = full
+        shutil.rmtree(tmp, ignore_errors=True)
+    med = {name: [statistics.median(t[k] for t in ts) for k in (0, 1)]
+           for name, ts in times.items()}
+    base = med["as built"]
+    for name, (k1, k2) in med.items():
+        phase("xwide_ablate", f"{name} on {card}: K1 {k1:.4f} ms, K2 "
+              f"{k2:.4f} ms device (B=1024, N=13, H={XWIDE_H}, medians of "
+              f"{rounds} turns)" + ("" if name == "as built" else
+                                    f"; removing it saves K1 "
+                                    f"{base[0] - k1:.4f}, K2 "
+                                    f"{base[1] - k2:.4f} ms"))
 
 
 def xwide_phase(card):
@@ -8095,6 +8228,10 @@ def main():
     ap.add_argument("--blocks-plans", action="store_true", help="time the "
                     "bf16 block-pair kernels at LJ147 with each block size "
                     "instead of the phases after the build")
+    ap.add_argument("--xwide-ablate", action="store_true", help="time the "
+                    "bf16 K1 / K2 past H = 256 beside builds with one part "
+                    "removed (XWIDE_ABLATE) instead of the phases after the "
+                    "build")
     ap.add_argument("--profile", nargs="?", const="", default=None,
                     metavar="FILE", help="profile one SMC run instead of "
                     "the phases after the build; the full table to FILE")
@@ -8150,6 +8287,9 @@ def main():
         return 0
     if args.blocks_plans:
         blocks_plans()
+        return 0
+    if args.xwide_ablate:
+        xwide_ablate_phase(card)
         return 0
     if args.trace_check is not None:
         trace_check(card, *args.trace_check)

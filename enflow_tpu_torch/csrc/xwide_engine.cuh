@@ -17,6 +17,9 @@
 // - EngF32 (float32): 256 threads, each 4 x 4 of the 64 x 64 output chunk,
 //   k in chunks of 16 staged as f32 (egcl_wide_nf.cuh's tile loop), one
 //   FMA chain in k order per output.
+// - RingBf (bf16, the all-pairs K1 and K2 only): a producer thread's TMA
+//   copies into a ring of stages that two consumer warpgroups read, one
+//   64 x 128 weight chunk a stage for both of their tiles (its note below).
 //
 // The shapes of a product (Dims): X and Y row-major with leading
 // dimensions lx and ly; MODE 0 X [64, K] Y [K, 64 no], MODE 1 X [64, K]
@@ -26,11 +29,14 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "egcl_wide_nf.cuh"
 #include "sm90_common.cuh"
@@ -327,6 +333,246 @@ struct EngF32 {
     run<MODE>(st, X, Y, square(H, MODE), epi);
   }
 };
+
+// ---- the ring engine (bf16): a producer thread and two consumer warpgroups
+//
+// The all-pairs bf16 K1 / K2 past 256 (egcl_allpairs_xwide.cu's ring
+// kernels). A block holds two 64-row tiles, one a consumer warpgroup, and
+// one producer thread that copies every operand with TMA into a ring of
+// kStages stages (the 128-byte swizzle that wgmma reads; a "full" and an
+// "empty" mbarrier a stage). A stage is one k-chunk of a 128-column output
+// chunk: the weight chunk (64 x 128, two 64 x 64 boxes) that both
+// consumers read, and each consumer's 64 x 64 activation chunk. A consumer
+// waits for a stage, issues its four k16 steps of wgmma m64n128k16 (one
+// accumulator of 64 f32 a thread), and frees the stage one step later,
+// when those products are done; it never waits on a copy of its own. The
+// activation tiles live in global memory (L2), written by the consumers
+// with plain stores: before the producer's first copy of a product's
+// activations, each consumer fences its stores against the copies' proxy
+// and arrives on its "ready" barrier. k runs over 64-row chunks and k16
+// steps in order, each accumulated in f32, as in EngBf: the products'
+// values are EngBf's.
+struct RingBf {
+  static constexpr int kStages = 6;
+  static constexpr int kCons = 2;                     // consumer warpgroups
+  static constexpr int kThreads = (kCons + 1) * kWG;  // and the producer's
+  static constexpr int kNC = 128;                     // output columns a chunk
+  static constexpr uint32_t kBox = sizeof(bf16) * kRows * kCol;  // 64 x 64
+  static constexpr size_t kStageBytes = (2 + kCons) * (size_t)kBox;
+  static constexpr size_t kRingBytes = kStages * kStageBytes;
+  struct Bars {
+    uint64_t full[kStages], empty[kStages], ready[kCons];
+  };
+  // a walk over the ring: the stage and the parity of its phase
+  struct Pipe {
+    int s = 0;
+    uint32_t ph = 0;
+    __device__ void next() {
+      if (++s == kStages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+  };
+  // one thread, before the block's first barrier
+  __device__ static void init(Bars& b) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&b.full[s], 1);
+      mbar_init(&b.empty[s], kCons * kWG);
+    }
+    for (int c = 0; c < kCons; ++c) mbar_init(&b.ready[c], kWG);
+    mbar_init_fence();
+  }
+  // every thread of consumer c after its stores of the next product's
+  // activation tile (an idle consumer too: the producer waits on both)
+  __device__ static void publish(Bars& b, int c) {
+    fence_async_global();
+    mbar_arrive(&b.ready[c]);
+  }
+
+  // The producer's copies of one product (MODE 0: X W, 1: X W^T of the
+  // [H, H] weight in wmap) for the tiles at rows xrow[c] of xmap, c < nact
+  // (the other consumer idles): 128-column output chunks o, each over the
+  // 64-row k-chunks in order, a stage each.
+  template <int MODE>
+  __device__ static void produce(Bars& b, char* ring, const void* wmap,
+                                 const void* xmap, const int (&xrow)[kCons],
+                                 int nact, int H, Pipe& p, uint32_t& rph) {
+    const int nk = H / kCol, no = (H + kNC - 1) / kNC;
+#pragma unroll 1
+    for (int o = 0; o < no; ++o) {
+      const int nb = min(kNC, H - kNC * o) / kCol;   // weight boxes: 2, 1
+#pragma unroll 1
+      for (int k = 0; k < nk; ++k) {
+        mbar_wait(&b.empty[p.s], p.ph ^ 1);
+        char* st = ring + (size_t)p.s * kStageBytes;
+        uint64_t* full = &b.full[p.s];
+        mbar_arrive_tx(full, (nb + nact) * kBox);
+        // the weight chunk (needs no consumer): MODE 0 W's rows k x
+        // columns o as 64-column boxes, MODE 1 W's rows o x columns k as
+        // 64-row boxes
+        for (int h = 0; h < nb; ++h) {
+          if (MODE == 0)
+            tma_load_2d(st + h * kBox, wmap, full, kNC * o + kCol * h,
+                        kCol * k);
+          else
+            tma_load_2d(st + h * kBox, wmap, full, kCol * k,
+                        kNC * o + kCol * h);
+        }
+        if (o == 0 && k == 0) {
+          for (int c = 0; c < kCons; ++c) mbar_wait(&b.ready[c], rph);
+          rph ^= 1;
+        }
+        for (int c = 0; c < nact; ++c)
+          tma_load_2d(st + (2 + c) * kBox, xmap, full, kCol * k, xrow[c]);
+        p.next();
+      }
+    }
+  }
+
+  // The four k16 steps of one stage into d: A consumer c's activation
+  // chunk (K-major), B the weight chunk (MODE 0 MN-major, its halves kBox
+  // apart; MODE 1 K-major, 128 rows); 128 output columns, or 64 (WIDE
+  // false: the last chunk where H / 64 is odd).
+  template <int MODE, bool WIDE>
+  __device__ static void mma(float (&d)[64], uint32_t a, uint32_t w,
+                             bool acc) {
+    fence_regs(d);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = smem_desc(a + 32 * kk, 16, 1024);
+      const uint64_t db = MODE == 0 ? smem_desc(w + 2048 * kk, kBox, 1024)
+                                    : smem_desc(w + 32 * kk, 16, 1024);
+      const int sc = (acc || kk > 0) ? 1 : 0;
+      if constexpr (WIDE)
+        wgmma_ss128<MODE == 0>(d, da, db, sc);
+      else
+        wgmma_ss64<MODE == 0>(d, da, db, sc);
+    }
+    wgmma_commit();
+  }
+
+  // One output chunk of consumer c into d: its nk stages in order, each
+  // stage freed once the products on it are done (one group left in
+  // flight while the next stage is awaited).
+  template <int MODE, bool WIDE>
+  __device__ static void chunk(Bars& b, const char* ring, int c, int nk,
+                               Pipe& p, float (&d)[64]) {
+    int held = -1;
+#pragma unroll 1
+    for (int k = 0; k < nk; ++k) {
+      mbar_wait(&b.full[p.s], p.ph);
+      const uint32_t st = smem_addr(ring + (size_t)p.s * kStageBytes);
+      mma<MODE, WIDE>(d, st + (2 + c) * kBox, st, k > 0);
+      if (held >= 0) {
+        wgmma_wait_for<1>();
+        fence_regs(d);
+        mbar_arrive(&b.empty[held]);
+      }
+      held = p.s;
+      p.next();
+    }
+    wgmma_wait_for<0>();
+    fence_regs(d);
+    mbar_arrive(&b.empty[held]);
+  }
+
+  // Consumer c's side of one product: epi(o, d, nj) takes each 64 x 128
+  // output chunk o (its 8 nj columns: an integral_constant of 16, or 8 for
+  // a last chunk of 64); pre(o) runs before chunk o's products, so that
+  // the loads of its epilogue's operands are in flight while they run. An
+  // idle consumer (act false) frees each stage as it arrives. act must be
+  // the same over the warpgroup and known so to the compiler (a wgmma on
+  // a path it takes for divergent is serialised).
+  template <int MODE, class Pre, class Epi>
+  __device__ static void consume(Bars& b, const char* ring, int c, bool act,
+                                 int H, Pipe& p, Pre&& pre, Epi&& epi) {
+    const int nk = H / kCol, no = (H + kNC - 1) / kNC;
+    if (!act) {
+#pragma unroll 1
+      for (int s = 0; s < no * nk; ++s) {
+        mbar_wait(&b.full[p.s], p.ph);
+        mbar_arrive(&b.empty[p.s]);
+        p.next();
+      }
+      return;
+    }
+#pragma unroll 1
+    for (int o = 0; o < no; ++o) {
+      float d[64];
+      pre(o);
+      if (H - kNC * o >= kNC) {
+        chunk<MODE, true>(b, ring, c, nk, p, d);
+        epi(o, d, std::integral_constant<int, 16>{});
+      } else {
+        chunk<MODE, false>(b, ring, c, nk, p, d);
+        epi(o, d, std::integral_constant<int, 8>{});
+      }
+    }
+  }
+
+  // f(j, column of the chunk) over thread t's column pairs of a chunk of
+  // 8 NJ columns in increasing order: warp w's lane l holds rows row0(t)
+  // = 16 w + l / 4 (slot 0) and + 8 (slot 1), columns 8 j + 2 (l % 4) and
+  // the next, j < NJ; accumulator d[4 j + 2 slot + e] is (row0 + 8 slot,
+  // column + e).
+  template <int NJ, class F>
+  __device__ static void each_col(int t, F&& f) {
+    const int q = t & 3;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) f(j, 8 * j + 2 * q);
+  }
+  __device__ static int row0(int t) { return 16 * (t >> 5) + ((t & 31) >> 2); }
+  // the thread's two row partials reduced over the row's four threads
+  // into dst (one writer a row)
+  __device__ static void rows_out(const float (&v)[2], float* dst, int t) {
+    const int r0 = 16 * (t >> 5) + ((t & 31) >> 2);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float s = quad_sum(v[k]);
+      if ((t & 3) == 0) dst[r0 + 8 * k] = s;
+    }
+  }
+};
+
+// A row-major [rows, cols] bf16 matrix as a 2-D tensor map of 64 x 64 boxes
+// in the 128-byte swizzle (host). cuTensorMapEncodeTiled lives in libcuda;
+// it is looked up through the runtime, so the library needs no link to it.
+inline cudaError_t box_map(CUtensorMap* m, const void* p, long long rows,
+                           int cols) {
+  using Encode = CUresult (*)(
+      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+      const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+      CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || !fn)
+      return cudaErrorSymbolNotFound;
+    encode = (Encode)fn;
+  }
+  const cuuint64_t dim[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)kCol, (cuuint32_t)kRows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(
+      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dim,
+      stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 // ---- helpers on the engines' thread layouts
 

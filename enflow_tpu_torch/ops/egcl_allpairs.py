@@ -438,11 +438,12 @@ def _xwide_library():
         lib.egcl_xwide_bwd.argtypes = [_I] * 6 + [_P] * (n_in + 10)
         lib.egcl_xwide_bwd_params.argtypes = [_I] * 7 + [_P] * (n_in + 12)
         for name in ("fwd", "bwd", "bwd_params", "grid", "splits",
-                     "threads", "max_width"):
+                     "threads", "tiles", "max_width"):
             getattr(lib, f"egcl_xwide_{name}").restype = _I
         lib.egcl_xwide_grid.argtypes = [_I] * 5
         lib.egcl_xwide_splits.argtypes = [_I] * 4
-        lib.egcl_xwide_threads.argtypes = [_I]
+        lib.egcl_xwide_threads.argtypes = [_I] * 2
+        lib.egcl_xwide_tiles.argtypes = [_I] * 2
         lib.egcl_xwide_max_width.argtypes = []
         lib.egcl_xwide_smem_bytes.argtypes = [_I] * 3
         lib.egcl_xwide_smem_bytes.restype = _LL
@@ -1018,15 +1019,18 @@ def _run_wide_nf(direction: str, h, pos, box, mask_f, weights, dagg,
 def _run_xwide(direction: str, h, pos, box, mask_f, weights, dagg, dfsum):
     """One launch of the column-chunked kernels of the dtype at the
     weights' width (a multiple of 64): the tile kernel on the per-atom
-    projections (``_run_projected``), with its five [64, H] activation
-    tiles a block (and the forward's row sums) in global scratch."""
+    projections (``_run_projected``), with its [64, H] activation tiles
+    (``egcl_xwide_tiles`` a block: the bf16 K1 / K2's two consumers five
+    each, else five) and the forward's row sums in global scratch."""
     B, N, nf = h.shape
     H = weights[4].shape[1]
     code = _DTYPE_CODE[h.dtype]
     lib = _xwide_library()
     blocks = multiprocessors(h.device)
-    grid = lib.egcl_xwide_grid(B, N, H, _KIND[direction], blocks) if B else 1
-    extra = [torch.empty((grid, 5, 64, H), dtype=h.dtype, device=h.device)]
+    kind = _KIND[direction]
+    grid = lib.egcl_xwide_grid(B, N, H, kind, blocks) if B else 1
+    extra = [torch.empty((grid, lib.egcl_xwide_tiles(code, kind), 64, H),
+                         dtype=h.dtype, device=h.device)]
     if direction == "fwd":
         extra.append(torch.empty((grid, 8, H + 4), dtype=torch.float32,
                                  device=h.device))

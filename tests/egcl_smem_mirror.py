@@ -153,16 +153,38 @@ def seam_nf(code, N, H, direction, most=1024):
     return nf
 
 
-# the column-chunked kernels past H = 256 (csrc/egcl_allpairs_xwide.cu):
-# their shared memory is two steps of staged operands (bf16: a [64, 64]
-# activation chunk and a [64, 64] weight chunk a step, EngBf::kStageBytes;
-# float32: egcl_wide_nf.cuh's Stage, two chunks of 16 k x 64 of each
-# operand) and the tile's rows (Rows: cd and dcd [64][3], five row
-# vectors, ri and rj, the force sums [8][3]), plus 1024 to align the base:
-# no term grows with H
+# the column-chunked kernels past H = 256 (csrc/egcl_allpairs_xwide.cu).
+# K2 p and float32 (egcl_xwide_kernel): two steps of staged operands (bf16:
+# a [64, 64] activation chunk and a [64, 64] weight chunk a step,
+# EngBf::kStageBytes; float32: egcl_wide_nf.cuh's Stage, two chunks of 16
+# k x 64 of each operand) and the tile's rows (Rows: cd and dcd [64][3],
+# five row vectors, ri and rj, the force sums [8][3]). bf16 K1 and K2 (the
+# ring kernels, RingBf): XWIDE_RING_STAGES stages of a 64 x 128 weight
+# chunk and two [64, 64] activation chunks (one a consumer warpgroup), the
+# two consumers' Rows, the item's force sums [8][3] and the mbarriers
+# (full and empty a stage, ready a consumer). Plus 1024 to align the base:
+# no term grows with H.
 XWIDE_STAGE = {1: 4 * 2 * TILE * 64, 0: 2 * 2 * 16 * 64 * 4}
 XWIDE_ROWS = 4 * (2 * TILE * 3 + 5 * TILE + 2 * TILE + 8 * 3)
+XWIDE_RING_STAGES = 6
+XWIDE_RING = (XWIDE_RING_STAGES * 4 * 2 * TILE * 64 + 2 * XWIDE_ROWS
+              + 4 * 8 * 3 + 8 * (2 * XWIDE_RING_STAGES + 2))
 XWIDE_SLICE_LIMIT = 1 << 30      # bytes of one K2 p slice at most
+
+
+def xwide_on_ring(code, kind):
+    """Whether a launch of the dtype code and kind runs on the ring
+    kernels (bf16 K1 and K2)."""
+    return code == 1 and kind in (KIND["fwd"], KIND["bwd"])
+
+
+def xwide_tiles(code, kind):
+    """``egcl_xwide_tiles``: the [64, H] scratch tiles a block (the ring
+    kernels' two consumers five each, else five); -1 for another code or
+    kind."""
+    if code not in XWIDE_STAGE or kind not in KIND.values():
+        return -1
+    return 10 if xwide_on_ring(code, kind) else 5
 
 
 def xwide_slice_bytes(H):
@@ -186,6 +208,8 @@ def xwide_bytes(code, H, kind):
     if (kind not in KIND.values() or code not in XWIDE_STAGE or H < 64
             or H % 64 or H > xwide_max_width()):
         return -1
+    if xwide_on_ring(code, kind):
+        return 1024 + XWIDE_RING
     return 1024 + XWIDE_STAGE[code] + XWIDE_ROWS
 
 

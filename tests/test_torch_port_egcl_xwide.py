@@ -28,10 +28,14 @@ Here, on the CPU:
   over the j-blocks and the j-side sums one row a block pair, dpos, dh and
   dW1 from the per-atom dz1 sums, K2 p's outer products chunk by chunk into
   per-block slices, against the plain version at float64 (1e-12), at H =
-  320 and 512;
+  320 and 512; and the bf16 K1 / K2's ring schedule: two j-blocks a round
+  (one a consumer warpgroup, the second idle in an odd last round, N =
+  20), 128-column output chunks (the last 64 wide at H = 320), the round's
+  node sums over both tiles in the j-blocks' order;
 - (f) the kernels' shared memory mirrored in Python
-  (``tests/egcl_smem_mirror.py``'s ``xwide_bytes``): the same at every H
-  and within the card's 232,448 bytes;
+  (``tests/egcl_smem_mirror.py``'s ``xwide_bytes``, by dtype and kind: the
+  ring kernels' stages beside egcl_xwide_kernel's two steps): the same at
+  every H and within the card's 232,448 bytes;
 - (g) the plain backward's root-sum-square of each parameter gradient's
   terms (``terms="l2"``, the rounding scale of the bf16 checks past 256
   in ``chip_smoke.py``) against the sum of their magnitudes;
@@ -82,6 +86,7 @@ LIMIT = 232448                   # shared memory a block may use
 DIRECTIONS = ("fwd", "bwd", "bwd_params")
 ATOMS = 8                        # atoms an atom block (kAtoms)
 COL = 64                         # output columns / k a chunk (kCol)
+RING_COL = 128                   # output columns a chunk (RingBf::kNC)
 
 
 # ---------------------------------------------------------------------------
@@ -385,10 +390,12 @@ def _dsilu(x):
     return s * (1.0 + x * (1.0 - s))
 
 
-def chunked(X, Y, mode):
+def chunked(X, Y, mode, width=COL):
     """The product of EngBf::run / EngF32::run, one 64 x 64 output chunk
     at a time, each summed over its k-chunks in order: mode 0 X Y, 1 X
-    Y^T, 2 X^T Y (the tile's 64 rows the k)."""
+    Y^T, 2 X^T Y (the tile's 64 rows the k). ``width`` RING_COL: RingBf's
+    (the ring kernels') 128-column output chunks, the last one 64 wide
+    where H / 64 is odd (mode 0 and 1)."""
     H = Y.shape[1]
     G = H // COL
     out = torch.zeros((H if mode == 2 else X.shape[0], H), dtype=X.dtype)
@@ -398,25 +405,32 @@ def chunked(X, Y, mode):
             out[m0:m0 + COL, n0:n0 + COL] = (X[:, m0:m0 + COL].T
                                              @ Y[:, n0:n0 + COL])
         return out
-    for o in range(G):
-        n0 = COL * o
-        acc = torch.zeros((X.shape[0], COL), dtype=X.dtype)
+    for n0 in range(0, H, width):
+        n1 = min(H, n0 + width)
+        acc = torch.zeros((X.shape[0], n1 - n0), dtype=X.dtype)
         for k in range(G):
             k0 = COL * k
-            w = (Y[k0:k0 + COL, n0:n0 + COL] if mode == 0
-                 else Y[n0:n0 + COL, k0:k0 + COL].T)
+            w = (Y[k0:k0 + COL, n0:n1] if mode == 0
+                 else Y[n0:n1, k0:k0 + COL].T)
             acc = acc + X[:, k0:k0 + COL] @ w
-        out[:, n0:n0 + COL] = acc
+        out[:, n0:n1] = acc
     return out
 
 
 def xwide_schedule(direction, h, pos, box, mask_f, W, dagg=None, dfsum=None,
-                   blocks=3):
+                   blocks=3, ring=False):
     """The xwide kernels' work at float64 in their order: ``blocks``
     persistent blocks over the (molecule, i-block) items, each walking the
     j-blocks with one tile (8 x 8 atoms, 64 rows: i = 8 ib + r / 8, j = 8 jb
     + r % 8) each; returns the outputs of :func:`ops.allpairs_edges_plain`
-    / ``_plain_bwd`` (with the parameter gradients for ``"bwd_params"``)."""
+    / ``_plain_bwd`` (with the parameter gradients for ``"bwd_params"``).
+    ``ring``: the bf16 K1 / K2's ring kernels (``"fwd"``, ``"bwd"``): a
+    round takes two j-blocks, one a consumer warpgroup (the second idle in
+    an odd last round), their products in RING_COL-column output chunks
+    (the gate and dr2 summed over them), and the round's node sums over
+    both tiles after both are done, the j-blocks in order."""
+    assert not (ring and direction == "bwd_params")
+    width = RING_COL if ring else COL
     W1a, W1b, w1r, b1, W2, b2, W3, b3, w4 = W
     B, N, nf = h.shape
     H = W2.shape[1]
@@ -440,7 +454,11 @@ def xwide_schedule(direction, h, pos, box, mask_f, W, dagg=None, dfsum=None,
             b, ib = divmod(it, nI)
             acci = torch.zeros((ATOMS, H), dtype=dt)
             fs = torch.zeros((ATOMS, 3), dtype=dt)
-            for jb in range(nI):
+            step = 2 if ring else 1
+
+            def tile(jb):
+                """One tile's work: its node-sum terms (the forward's m2
+                and forces, the backward's dz1 | dcd rows)."""
                 r = torch.arange(64)
                 i, j = ib * ATOMS + r // ATOMS, jb * ATOMS + r % ATOMS
                 inb = (i < N) & (j < N)
@@ -454,20 +472,18 @@ def xwide_schedule(direction, h, pos, box, mask_f, W, dagg=None, dfsum=None,
                 hb = torch.where(inb[:, None], proj[b * N + jc, H:], 0.0)
                 z1 = ha + hb + b1 + r2[:, None] * w1r
                 X3 = _silu(z1)                                  # m1
-                z2 = chunked(X3, W2, 0) + b2
+                z2 = chunked(X3, W2, 0, width) + b2
                 X0 = _silu(z2) * valid[:, None]                 # m2
-                z3 = chunked(X0, W3, 0) + b3
+                z3 = chunked(X0, W3, 0, width) + b3
                 g1 = _silu(z3)
                 gate = torch.zeros(64, dtype=dt)
-                for o in range(H // COL):                       # per chunk
-                    c = slice(COL * o, COL * o + COL)
+                for c0 in range(0, H, width):                   # per chunk
+                    c = slice(c0, c0 + width)
                     gate = gate + g1[:, c] @ w4[c, 0]
                 if not bwd:
-                    acci += X0.view(ATOMS, ATOMS, H).sum(1)
                     tr = torch.clamp(cd * gate[:, None], -100.0, 100.0) \
                         * valid[:, None]
-                    fs += tr.view(ATOMS, ATOMS, 3).sum(1)
-                    continue
+                    return torch.cat([X0, tr], -1).view(ATOMS, ATOMS, H + 3)
                 raw = cd * gate[:, None]
                 inside = ((raw >= -100.0) & (raw <= 100.0)).to(dt)
                 dt_ = torch.where(inb[:, None], dfsum[b, ic], 0.0) * inside \
@@ -476,32 +492,45 @@ def xwide_schedule(direction, h, pos, box, mask_f, W, dagg=None, dfsum=None,
                 dcd = gate[:, None] * dt_
                 X2 = (dgate[:, None] * w4[:, 0]) * _dsilu(z3)   # dz3
                 if params:
-                    dW3 += chunked(X0, X2, 2)
-                    db3 += X2.sum(0)
-                    dw4 += (g1 * dgate[:, None]).sum(0)
+                    dW3.add_(chunked(X0, X2, 2))
+                    db3.add_(X2.sum(0))
+                    dw4.add_((g1 * dgate[:, None]).sum(0))
                 da = torch.where(inb[:, None], dagg[b, ic], 0.0)
-                X1 = (chunked(X2, W3, 1) + da) * valid[:, None] * _dsilu(z2)
+                X1 = (chunked(X2, W3, 1, width) + da) * valid[:, None] \
+                    * _dsilu(z2)
                 if params:
-                    dW2 += chunked(X3, X1, 2)
-                    db2 += X1.sum(0)
-                dz1 = chunked(X1, W2, 1) * _dsilu(z1)
+                    dW2.add_(chunked(X3, X1, 2))
+                    db2.add_(X1.sum(0))
+                dz1 = chunked(X1, W2, 1, width) * _dsilu(z1)
                 dr2 = torch.zeros(64, dtype=dt)
-                for o in range(H // COL):
-                    c = slice(COL * o, COL * o + COL)
+                for c0 in range(0, H, width):
+                    c = slice(c0, c0 + width)
                     dr2 = dr2 + dz1[:, c] @ w1r[0, c]
                 dcd = dcd + 2.0 * cd * dr2[:, None]
                 if params:
-                    db1 += dz1.sum(0)
-                    dw1r += (dz1 * r2[:, None]).sum(0)
-                rows = torch.cat([dz1, dcd, torch.zeros((64, 1), dtype=dt)],
+                    db1.add_(dz1.sum(0))
+                    dw1r.add_((dz1 * r2[:, None]).sum(0))
+                return torch.cat([dz1, dcd, torch.zeros((64, 1), dtype=dt)],
                                  -1).view(ATOMS, ATOMS, H + 4)
-                for l in range(ATOMS):
-                    if ib * ATOMS + l < N:
-                        a = ib * ATOMS + l
-                        si[b, a] = (0.0 if jb == 0 else si[b, a]) \
-                            + rows[l].sum(0)
-                    if jb * ATOMS + l < N:
-                        pj[b, ib, jb * ATOMS + l] = rows[:, l].sum(0)
+
+            for jb0 in range(0, nI, step):
+                # a round: every tile's products, then the node sums over
+                # its tiles, the j-blocks in order
+                tiles = [(jb, tile(jb)) for jb in range(jb0, min(jb0 + step,
+                                                                 nI))]
+                for jb, rows in tiles:
+                    if not bwd:
+                        sums = rows.sum(1)
+                        acci = (0.0 if jb == 0 else acci) + sums[:, :H]
+                        fs = (0.0 if jb == 0 else fs) + sums[:, H:]
+                        continue
+                    for l in range(ATOMS):
+                        if ib * ATOMS + l < N:
+                            a = ib * ATOMS + l
+                            si[b, a] = (0.0 if jb == 0 else si[b, a]) \
+                                + rows[l].sum(0)
+                        if jb * ATOMS + l < N:
+                            pj[b, ib, jb * ATOMS + l] = rows[:, l].sum(0)
             if not bwd:
                 n = min(ATOMS, N - ib * ATOMS)
                 agg[b, ib * ATOMS:ib * ATOMS + n] = acci[:n]
@@ -524,30 +553,53 @@ def xwide_schedule(direction, h, pos, box, mask_f, W, dagg=None, dfsum=None,
             dW3, db3[None], dw4[:, None])
 
 
-@pytest.mark.parametrize("H", [320, 512])
-def test_chunked_schedule_matches_plain_f64(H):
-    """The emulated schedule (:func:`xwide_schedule`) at H, 10 atoms (two
-    i-blocks, the second short), ragged molecules and periodic boxes,
-    against the plain version at float64: every output of every direction
-    within 1e-12 of its largest value. Three blocks over the items, so a
-    block walks several and adds them into one slice."""
-    (h, pos, box, mf, W), dagg, dfsum, _ = _args(10, 4, 3, H, 5 * H)
-    want = ops.allpairs_edges_plain(h, pos, box, mf, W)
-    for g, w in zip(xwide_schedule("fwd", h, pos, box, mf, W), want):
-        _close(g, w, 1e-12)
-    for direction in ("bwd", "bwd_params"):
-        want = ops.allpairs_edges_plain_bwd(h, pos, box, mf, W, dagg, dfsum,
-                                            params=direction == "bwd_params")
-        got = xwide_schedule(direction, h, pos, box, mf, W, dagg, dfsum)
+def _schedule_vs_plain(N, H, ring, directions):
+    """:func:`xwide_schedule` at N atoms and width H (ragged molecules,
+    periodic boxes, three blocks over the items, so a block walks several
+    and adds them into one slice) against the plain version at float64:
+    every output of each direction within 1e-12 of its largest value."""
+    (h, pos, box, mf, W), dagg, dfsum, _ = _args(N, 4, 3, H, 5 * H)
+    for direction in directions:
+        if direction == "fwd":
+            want = ops.allpairs_edges_plain(h, pos, box, mf, W)
+            got = xwide_schedule("fwd", h, pos, box, mf, W, ring=ring)
+        else:
+            want = ops.allpairs_edges_plain_bwd(
+                h, pos, box, mf, W, dagg, dfsum,
+                params=direction == "bwd_params")
+            got = xwide_schedule(direction, h, pos, box, mf, W, dagg, dfsum,
+                                 ring=ring)
         assert len(got) == len(want)
         for g, w in zip(got, want):
             assert g.shape == w.shape
             _close(g, w, 1e-12)
 
 
+@pytest.mark.parametrize("H", [320, 512])
+def test_chunked_schedule_matches_plain_f64(H):
+    """The emulated schedules at H and 10 atoms (two i-blocks, the second
+    short): egcl_xwide_kernel's (K2 p and float32) in every direction, and
+    the ring kernels' (bf16 K1 and K2: two j-blocks a round, 128-column
+    output chunks, the last 64 wide at H = 320) forward and backward."""
+    _schedule_vs_plain(10, H, False, DIRECTIONS)
+    _schedule_vs_plain(10, H, True, ("fwd", "bwd"))
+
+
+@pytest.mark.parametrize("N", [13, 20])
+def test_ring_schedule_odd_j_blocks_f64(N):
+    """The ring kernels' schedule where an item's j-blocks come out even (N
+    = 13: two, one round) and odd (N = 20: three, the second consumer idle
+    in the last round), at H = 320 (a last output chunk of 64 columns),
+    against the plain version at float64 (1e-12)."""
+    assert -(-N // ATOMS) % 2 == (N == 20)
+    _schedule_vs_plain(N, 320, True, ("fwd", "bwd"))
+
+
 def test_chunked_product_orders():
-    """Each of the three chunked products equals its full product, and a
-    k-chunk left out (the first of a chunk's sums) is seen."""
+    """Each of the three chunked products equals its full product (X Y
+    and X Y^T also in the ring kernels' 128-column chunks, the last of 64
+    at 320), and a k-chunk left out (the first of a chunk's sums) is
+    seen."""
     rng = np.random.default_rng(3)
     X = torch.from_numpy(rng.normal(size=(64, 320)))
     Y = torch.from_numpy(rng.normal(size=(320, 320)))
@@ -555,6 +607,8 @@ def test_chunked_product_orders():
     _close(chunked(X, Y, 0), X @ Y, 1e-12)
     _close(chunked(X, Y, 1), X @ Y.T, 1e-12)
     _close(chunked(X, Z, 2), X.T @ Z, 1e-12)
+    _close(chunked(X, Y, 0, RING_COL), X @ Y, 1e-12)
+    _close(chunked(X, Y, 1, RING_COL), X @ Y.T, 1e-12)
     Y0 = Y.clone()
     Y0[:COL] = 0.0
     assert not torch.allclose(chunked(X, Y0, 0), X @ Y)
@@ -568,7 +622,9 @@ def test_chunked_product_orders():
 def test_xwide_smem_does_not_grow_with_h(code):
     """The mirror of ``egcl_xwide_smem_bytes``: one value for every H from
     64 to the widest, in every direction, within 232,448 bytes; -1 for a
-    width the kernels do not take."""
+    width the kernels do not take. The bf16 K1 / K2 (the ring kernels)
+    hold six 32 KiB stages, K2 p and float32 two steps; the scratch tiles
+    a block (``xwide_tiles``) follow the kernel."""
     for kind in mirror.KIND.values():
         sizes = {mirror.xwide_bytes(code, H, kind)
                  for H in range(64, ops.XWIDE_MAX_H + 1, 64)}
@@ -577,6 +633,11 @@ def test_xwide_smem_does_not_grow_with_h(code):
         assert 0 < size <= LIMIT
         for H in (300, 0, ops.XWIDE_MAX_H + 64):
             assert mirror.xwide_bytes(code, H, kind) == -1
+    for kind in mirror.KIND.values():
+        ring = code == 1 and kind != mirror.KIND["bwd_params"]
+        assert mirror.xwide_on_ring(code, kind) == ring
+        assert mirror.xwide_tiles(code, kind) == (10 if ring else 5)
+        assert (mirror.xwide_bytes(code, 512, kind) > 6 * 32768) == ring
     # the bf16 block pairs' K2 p at 8 atoms, one warpgroup, at H = 256
     # already takes most of a block: it grows with H, the new route not
     assert mirror.sm90_bytes(8, 5, 256, 2, 1, True) > \
@@ -642,6 +703,9 @@ class _Entries:
 
     def egcl_xwide_grid(self, B, N, H, kind, blocks):
         return 2
+
+    def egcl_xwide_tiles(self, code, kind):
+        return mirror.xwide_tiles(code, kind)
 
     def __getattr__(self, name):
         if name.endswith("_splits"):
